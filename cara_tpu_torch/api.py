@@ -1,0 +1,96 @@
+"""High-level model construction (port of ``cara_tpu/api.py``, CaRA only).
+
+The reference's public surface is ``cara(config)`` returning a patched
+timm module (``src/cara/cara.py:169-188``); the functional equivalent
+returns a :class:`CaraModel` bundle of numpy trees and both configs.
+
+Random initialization uses numpy generators (``models/convert.py``): the
+backbone from ``seed``, the adapter from ``seed + 1`` and the classifier
+head from ``seed + 2``.  The JAX package draws from ``jax.random``, so the
+two packages' seeded models differ; a checkpoint carries one across.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from cara_tpu_torch.config import CaraConfig, ViTConfig, get_model_config
+from cara_tpu_torch.models import convert
+from cara_tpu_torch.models import npz as npz_lib
+from cara_tpu_torch.models.cara import cara_param_shapes
+
+
+@dataclasses.dataclass
+class CaraModel:
+    cfg: ViTConfig
+    cara_cfg: CaraConfig
+    params: Dict[str, Any]        # backbone + head (head is trainable)
+    cara_params: Dict[str, Any]   # CP adapter (trainable)
+
+    @property
+    def trainable_count(self) -> int:
+        """CP parameters only, head excluded: the reference's printed
+        "Total parameters" (``vit_cp.py:175-183``)."""
+        return sum(int(np.prod(s)) for s in
+                   cara_param_shapes(self.cfg, self.cara_cfg).values())
+
+
+def _head_in_dim(cfg: ViTConfig) -> int:
+    return cfg.proj_dim or cfg.repr_size or cfg.embed_dim
+
+
+def linear_init(seed: int, in_dim: int, out_dim: int) -> Dict[str, Any]:
+    """torch ``nn.Linear`` default init (timm ``reset_classifier``,
+    ``vit_cp.py:166``): weight and bias uniform in +-1/sqrt(fan_in)."""
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / math.sqrt(in_dim)
+    return {"kernel": rng.uniform(-bound, bound, (in_dim, out_dim)
+                                  ).astype(np.float32),
+            "bias": rng.uniform(-bound, bound, (out_dim,)).astype(np.float32)}
+
+
+def build_model(
+    model_name: str = "vit_base_patch16_224_in21k",
+    *,
+    rank: int = 32,
+    scale: float = 1.0,
+    l_mu: float = 1.0,
+    l_std: float = 0.0,
+    num_classes: Optional[int] = None,
+    seed: int = 0,
+    backbone_path: Optional[str] = None,
+    cp_order: int = 4,
+    weight_dropout: Optional[float] = None,
+    model_overrides: Optional[Dict[str, Any]] = None,
+) -> CaraModel:
+    """Backbone (the npz at ``backbone_path`` when it exists, else random)
+    + CaRA adapter + a fresh head of ``num_classes``, as the reference
+    training script builds them (``vit_cp.py:155-166``).  ``weight_dropout=None``
+    is the reference's 0.1.  Other adapter methods, delta paths and
+    weight-dropout forms are not ported (ROADMAP.md queue 1)."""
+    cfg = get_model_config(model_name, **(model_overrides or {}))
+    if num_classes is not None:
+        cfg = dataclasses.replace(cfg, num_classes=num_classes)
+    cara_cfg = CaraConfig(
+        rank=rank, scale=scale, l_mu=l_mu, l_std=l_std, cp_order=cp_order,
+        weight_dropout=0.1 if weight_dropout is None else weight_dropout)
+    # A given num_classes always gets a fresh head; otherwise the npz's
+    # own head is kept where its width matches.
+    load_cfg = cfg if num_classes is None else dataclasses.replace(
+        cfg, num_classes=0)
+    if backbone_path and os.path.exists(backbone_path):
+        params = npz_lib.load_npz_backbone(backbone_path, load_cfg)
+        params = npz_lib.maybe_resize_pos_embed(params, cfg)
+    else:
+        params = convert.init_vit_params(
+            dataclasses.replace(cfg, num_classes=0), seed)
+    if cfg.num_classes > 0 and "head" not in params:
+        params["head"] = linear_init(seed + 2, _head_in_dim(cfg),
+                                     cfg.num_classes)
+    cara_params = convert.init_cara_params(cfg, cara_cfg, seed + 1)
+    return CaraModel(cfg, cara_cfg, params, cara_params)

@@ -1,0 +1,169 @@
+"""Shared CLI plumbing of the training entry point (port of
+``cara_tpu/cli/common.py``, the subset this slice serves).
+
+Every flag of the JAX package's training CLI is parsed, so a command line
+written for it parses here too; the flags whose feature is not ported
+yet are refused, with the ROADMAP item that ports them, when they are set
+to anything but their default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from cara_tpu_torch.config import ViTConfig
+from cara_tpu_torch.data.vtab import VTAB_TASKS
+
+DATASET_CHOICES = sorted(VTAB_TASKS)
+
+_PEFT = "ROADMAP.md queue 1: the PEFT zoo"
+_PARALLEL = "ROADMAP.md queue 1: parallelism"
+_TRAIN = "ROADMAP.md queue 1: training modules still to port"
+_SPLIT = "ROADMAP.md queue 2: the split path (rows 13, 12, 1/2)"
+# dest -> (default, where the feature stands).
+UNPORTED = {
+    "merged_eval": (False, "ROADMAP.md queue 1: cli/export.py and merged "
+                    "eval"),
+    "method": ("cara", _PEFT), "lora_alpha": (None, _PEFT),
+    "fact_scale": (None, _PEFT), "fact_core_rank": (0, _PEFT),
+    "vpt_tokens": (8, _PEFT), "adapter_scale": (None, _PEFT),
+    "adapter_dropout": (None, _PEFT), "moe": (None, _PEFT),
+    "delta_impl": ("factorized", "ROADMAP.md queue 1: CP orders and "
+                   "dim_experiment"),
+    "weight_dropout_impl": ("element", "ROADMAP.md queue 2: rows 6 and 10, "
+                            "then the split path"),
+    "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
+    "dcn_mesh": (None, _PARALLEL), "pipeline": (None, _PARALLEL),
+    "fsdp": (False, _PARALLEL), "distributed": (False, _PARALLEL),
+    "grad_accum": (1, _TRAIN), "no_remat": (False, _TRAIN),
+    "resume_dir": (None, _TRAIN), "resume_every_steps": (0, _TRAIN),
+    "profile_dir": (None, _TRAIN), "memory_report": (False, _TRAIN),
+    "nan_check": (False, _TRAIN), "wandb": (False, _TRAIN),
+    "compilation_cache": (None, _TRAIN),
+    "attn_impl": ("auto", _SPLIT), "dense_impl": ("auto", _SPLIT),
+}
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    """The reference's flags (``vit_cp.py:85-116``), the extensions this
+    slice serves, ``--device``, and the JAX CLI's other flags (refused
+    by :func:`refuse_unported` unless left at their defaults)."""
+    p.add_argument("--lr", default=1e-3, type=float, help="Learning rate")
+    p.add_argument("--dataset", default="svhn", type=str,
+                   choices=DATASET_CHOICES, help="VTAB-1k task to train")
+    p.add_argument("--model", type=str, default="vit_base_patch16_224_in21k")
+    p.add_argument("--model-override", action="append", default=None,
+                   metavar="K=V",
+                   help="Override a ViTConfig field of --model (repeatable)")
+    p.add_argument("--data-root", default="./data/vtab-1k", type=str)
+    p.add_argument("--backbone", default="./ViT-B_16.npz", type=str,
+                   help="Google-format npz backbone; random init if missing")
+    p.add_argument("--epochs", default=100, type=int)
+    p.add_argument("--batch-size", default=64, type=int)
+    p.add_argument("--eval-batch-size", default=256, type=int)
+    p.add_argument("--seed", default=None, type=int,
+                   help="Override the per-dataset seed from the task table")
+    p.add_argument("--synthetic", action="store_true",
+                   help="Generated data (no VTAB files needed)")
+    p.add_argument("--synthetic-size", default=1000, type=int)
+    p.add_argument("--weight-dropout", default=None, type=float,
+                   help="Override the task table's weight-dropout rate")
+    p.add_argument("--paper-hparams", action="store_true",
+                   help="Weight dropout 0.3 on the 8 tasks the reference "
+                        "annotates so (explicit --weight-dropout wins)")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"],
+                   help="Compute dtype (trainables and optimizer stay fp32)")
+    p.add_argument("--out-dir", default=".", type=str)
+    p.add_argument("--log-every", default=10, type=int)
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device (default: cuda when a card is "
+                        "present, else cpu; a CPU run takes the plain "
+                        "versions of the kernels)")
+    # The JAX CLI's other flags: parsed, refused unless at their default.
+    p.add_argument("--method", default="cara", type=str)
+    p.add_argument("--lora-alpha", default=None, type=float)
+    p.add_argument("--fact-scale", default=None, type=float)
+    p.add_argument("--fact-core-rank", default=0, type=int)
+    p.add_argument("--vpt-tokens", default=8, type=int)
+    p.add_argument("--adapter-scale", default=None, type=float)
+    p.add_argument("--adapter-dropout", default=None, type=float)
+    p.add_argument("--delta-impl", default="factorized", type=str)
+    p.add_argument("--weight-dropout-impl", default="element", type=str)
+    p.add_argument("--mesh", default=None, type=str)
+    p.add_argument("--moe", default=None, type=str)
+    p.add_argument("--hbm-gb", default=None, type=float)
+    p.add_argument("--dcn-mesh", default=None, type=str)
+    p.add_argument("--pipeline", default=None, type=str)
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--no-remat", action="store_true")
+    p.add_argument("--grad-accum", default=1, type=int)
+    p.add_argument("--attn-impl", default="auto", type=str)
+    p.add_argument("--dense-impl", default="auto", type=str)
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--memory-report", action="store_true")
+    p.add_argument("--profile-dir", default=None, type=str)
+    p.add_argument("--resume-dir", default=None, type=str)
+    p.add_argument("--resume-every-steps", default=0, type=int)
+    p.add_argument("--nan-check", action="store_true")
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--compilation-cache", default=None, type=str)
+
+
+def refuse_unported(args) -> None:
+    for dest, (default, where) in UNPORTED.items():
+        if getattr(args, dest, default) != default:
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} is not yet ported to cara_tpu_torch "
+                             f"({where})")
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def resolve_device(name) -> torch.device:
+    if name is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(name)
+
+
+def resolve_model_overrides(args) -> dict:
+    """``--model-override k=v`` pairs -> a typed ``model_overrides`` dict
+    (values parsed by the declared type of the :class:`ViTConfig` field;
+    ``none`` -> None for the optional fields)."""
+    pairs = getattr(args, "model_override", None)
+    if not pairs:
+        return {}
+    fields = {f.name: f for f in dataclasses.fields(ViTConfig)}
+    out = {}
+    for pair in pairs:
+        key, sep, raw = pair.partition("=")
+        if not sep:
+            raise SystemExit(f"--model-override wants K=V, got {pair!r}")
+        if key not in fields:
+            raise SystemExit(
+                f"--model-override: ViTConfig has no field {key!r} "
+                f"(known: {', '.join(sorted(fields))})")
+        default = fields[key].default
+        low = raw.strip().lower()
+        try:
+            if low in ("none", "null"):
+                out[key] = None
+            elif isinstance(default, bool):
+                if low not in ("true", "false", "1", "0"):
+                    raise ValueError(raw)
+                out[key] = low in ("true", "1")
+            elif isinstance(default, int) or default is None:
+                out[key] = int(raw)
+            elif isinstance(default, float):
+                out[key] = float(raw)
+            else:
+                out[key] = raw
+        except ValueError:
+            raise SystemExit(f"--model-override {key}: can't parse {raw!r} "
+                             f"as {type(default).__name__}")
+    return out

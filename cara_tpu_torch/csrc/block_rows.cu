@@ -1,0 +1,203 @@
+// Row and column passes of the block backward kernels (sm_90a).
+//
+// The TPU backward kernels (cara_tpu/ops/pallas/cp_attn_block.py
+// _attn_block_bwd_wd_kernel, cara_tpu/ops/pallas/cp_mlp.py
+// _mlp_bwd_wd_kernel) do these steps on resident VMEM tiles between their
+// products; on Hopper they are separate memory-bound passes around the
+// GEMMs of grad_gemm.cu:
+//
+//   ln_rows          xa = bf16(LN(x))                (_ln_rows: the forward's
+//                    normalized row, kept for dT1 = xa^T dqkv / xa^T dpre)
+//   gate_rows        g2 = bf16(g * dpm[row])         (the drop-path gate)
+//   ln_bwd_residual  dx = bf16(g + LN'(x) . dxa)     (_ln_input_bwd + the
+//                    residual path of the cotangent)
+//   colsum           fp32 column sums (bias cotangents), two passes in a
+//                    fixed order, no atomics
+//
+// One warp per row for the LayerNorm passes (E = 768 at ViT-B, three or
+// four reads of a 1.5 KB row that stays in L1); 16-byte vectors for the
+// gate.  Each pass is bound by its bytes (12608 rows of 768 at ViT-B: a
+// few MB, a few microseconds).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float bf(const __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// mean and 1/sqrt(var + eps) of one row in fp32, two passes (as _ln_rows
+// computes mean(square(x - mu))); every lane gets both.
+__device__ __forceinline__ void row_moments(const __nv_bfloat16* xr, int K,
+                                            float eps, int lane, float& mu,
+                                            float& rs) {
+  float sum = 0.f;
+  for (int k = lane; k < K; k += 32) sum += bf(xr[k]);
+  mu = warp_sum(sum) / K;
+  float sq = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = bf(xr[k]) - mu;
+    sq += d * d;
+  }
+  rs = rsqrtf(warp_sum(sq) / K + eps);
+}
+
+__global__ void ln_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                               const __nv_bfloat16* __restrict__ ls,
+                               const __nv_bfloat16* __restrict__ lb,
+                               __nv_bfloat16* __restrict__ out, int M, int K,
+                               float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const __nv_bfloat16* xr = x + (size_t)row * K;
+  float mu, rs;
+  row_moments(xr, K, eps, lane, mu, rs);
+  __nv_bfloat16* orow = out + (size_t)row * K;
+  for (int k = lane; k < K; k += 32)
+    orow[k] = __float2bfloat16((bf(xr[k]) - mu) * rs * bf(ls[k]) + bf(lb[k]));
+}
+
+__global__ void gate_rows_kernel(const __nv_bfloat16* __restrict__ g,
+                                 const float* __restrict__ dpm,
+                                 __nv_bfloat16* __restrict__ out, int M,
+                                 int N) {
+  const size_t vec = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t per_row = N / 8;
+  if (vec >= (size_t)M * per_row) return;
+  const float gate = dpm[vec / per_row];
+  uint4 raw = reinterpret_cast<const uint4*>(g)[vec];
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) e[t] = __float2bfloat16(bf(e[t]) * gate);
+  reinterpret_cast<uint4*>(out)[vec] = raw;
+}
+
+// dx = bf16(g + rstd * (dyg - mean(dyg) - xn * mean(dyg * xn))), with
+// dyg = dxa * ln_scale and xn the normalized row of x (frozen scale and
+// bias: the TPU kernels return zero cotangents for them).
+__global__ void ln_bwd_residual_kernel(const __nv_bfloat16* __restrict__ x,
+                                       const float* __restrict__ dxa,
+                                       const __nv_bfloat16* __restrict__ ls,
+                                       const __nv_bfloat16* __restrict__ g,
+                                       __nv_bfloat16* __restrict__ out, int M,
+                                       int K, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const size_t off = (size_t)row * K;
+  const __nv_bfloat16* xr = x + off;
+  const float* dr = dxa + off;
+  float mu, rs;
+  row_moments(xr, K, eps, lane, mu, rs);
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float dyg = dr[k] * bf(ls[k]);
+    s1 += dyg;
+    s2 += dyg * ((bf(xr[k]) - mu) * rs);
+  }
+  const float m1 = warp_sum(s1) / K;
+  const float m2 = warp_sum(s2) / K;
+  for (int k = lane; k < K; k += 32) {
+    const float xn = (bf(xr[k]) - mu) * rs;
+    const float dyg = dr[k] * bf(ls[k]);
+    out[off + k] =
+        __float2bfloat16(bf(g[off + k]) + rs * (dyg - m1 - xn * m2));
+  }
+}
+
+// out[y, n] = sum of in[m, n] over rows m in [y * R, (y + 1) * R).
+template <typename T>
+__global__ void colsum_kernel(const T* __restrict__ in,
+                              float* __restrict__ out, int M, int N, int R) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int m0 = blockIdx.y * R;
+  const int m1 = min(M, m0 + R);
+  float sum = 0.f;
+  for (int m = m0; m < m1; ++m) {
+    if constexpr (sizeof(T) == 4)
+      sum += in[(size_t)m * N + n];
+    else
+      sum += bf(in[(size_t)m * N + n]);
+  }
+  out[(size_t)blockIdx.y * N + n] = sum;
+}
+
+constexpr int kRowsPerBlock = 8;  // warps per block of the row passes
+constexpr int kColRows = 128;     // rows per block of the first colsum pass
+
+}  // namespace
+
+// xa (M, K) bf16 = LN(x) with bf16 scale and bias.
+extern "C" int cara_ln_rows(const void* x, const void* ls, const void* lb,
+                            void* out, int M, int K, float eps,
+                            void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  ln_rows_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock,
+                   kRowsPerBlock * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(ls),
+      static_cast<const __nv_bfloat16*>(lb),
+      static_cast<__nv_bfloat16*>(out), M, K, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (M, N) bf16 = g * dpm[row] (dpm fp32 (M,)); N % 8 == 0.
+extern "C" int cara_gate_rows(const void* g, const void* dpm, void* out,
+                              int M, int N, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (N % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t vecs = (size_t)M * (N / 8);
+  gate_rows_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(dpm),
+      static_cast<__nv_bfloat16*>(out), M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx (M, K) bf16 from x (M, K) bf16, dxa (M, K) fp32, ln_scale (K,) bf16
+// and the residual cotangent g (M, K) bf16.
+extern "C" int cara_ln_bwd_residual(const void* x, const void* dxa,
+                                    const void* ls, const void* g, void* out,
+                                    int M, int K, float eps,
+                                    void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  ln_bwd_residual_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock,
+                           kRowsPerBlock * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dxa),
+      static_cast<const __nv_bfloat16*>(ls),
+      static_cast<const __nv_bfloat16*>(g),
+      static_cast<__nv_bfloat16*>(out), M, K, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Column sums of in (M, N), bf16 (is_f32 = 0) or fp32, into out (N,)
+// fp32.  partial is fp32 scratch of ceil(M / 128) * N.
+extern "C" int cara_colsum(const void* in, int is_f32, void* out,
+                           void* partial, int M, int N, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  const int chunks = (M + kColRows - 1) / kColRows;
+  float* first = chunks > 1 ? static_cast<float*>(partial)
+                            : static_cast<float*>(out);
+  dim3 grid((N + 255) / 256, chunks);
+  if (is_f32)
+    colsum_kernel<float><<<grid, 256, 0, stream>>>(
+        static_cast<const float*>(in), first, M, N, kColRows);
+  else
+    colsum_kernel<__nv_bfloat16><<<grid, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(in), first, M, N, kColRows);
+  if (chunks > 1)
+    colsum_kernel<float><<<dim3((N + 255) / 256, 1), 256, 0, stream>>>(
+        static_cast<const float*>(partial), static_cast<float*>(out),
+        chunks, N, chunks);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,186 @@
+// Masked factor gradients of one element-dropout site (sm_90a):
+//
+//   dtc = bf16( where(keep(k, n, seed), dT[k, n] * inv, 0) )
+//   dU  = dtc V^T   (K, r)      dV = U^T dtc   (r, N)      both fp32
+//
+// dT (K, N) is the site's dense cotangent x^T g in fp32, handed over as
+// `parts` partial planes (split-M GEMM outputs) that are summed here in a
+// fixed order; inv = s / (1 - rate); keep is the hash of wd_hash.cuh, so
+// the mask is the one the fold applied in the forward.
+//
+// Replaces the finish step masked_site_grads
+// (cara_tpu/ops/pallas/cp_dense.py), which the TPU backward kernels
+// _attn_block_bwd_wd_kernel and _mlp_bwd_wd_kernel run chunk-wise on the
+// dT they accumulated in VMEM.  Here a block takes 8 rows of the plane
+// and walks N in 256-column chunks: each thread regenerates the mask of
+// its column, rounds dtc to bf16 into shared memory and accumulates that
+// column's dV partial over the block's rows in registers; then each warp
+// reduces its row's dU over the chunk with shuffles.  Where K / 8 blocks
+// would leave SMs idle the columns are split across blocks as well.
+// Every element of the (K, N) planes is read once.  The dV partials (one
+// per row block) and dU partials (one per column split) are summed by a
+// second kernel in a fixed order: no atomics, so runs repeat bit for
+// bit.  At ViT-B (K x N up to 3072 x 768, r = 8) the call reads 9-17 MB
+// and does ~40 MFMA: bound by the bytes of dT.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wd_hash.cuh"
+
+namespace {
+
+constexpr int kRows = 8;       // one warp per row
+constexpr int kThreads = 256;  // one thread per column of a chunk
+constexpr int kChunk = 256;
+constexpr int kSlots = 264;    // blocks that fill the card (132 SMs x 2)
+
+// Block (x, y): rows [8x, 8x + 8) of the plane, columns [y * cols, ...).
+// RMAX is the rank rounded up to 8, 16, 32 or 64 (per-thread dV
+// accumulators in registers).
+template <int RMAX>
+__global__ void __launch_bounds__(kThreads)
+wd_factor_grads_kernel(const float* __restrict__ dt, int parts,
+                       const __nv_bfloat16* __restrict__ u,
+                       const __nv_bfloat16* __restrict__ v,
+                       const int* __restrict__ seed,
+                       float* __restrict__ du_part,
+                       float* __restrict__ dv_part, int K, int N, int r,
+                       int cols, float inv, uint32_t thr) {
+  __shared__ float us[kRows][RMAX];
+  __shared__ float dus[kRows][RMAX];
+  __shared__ float dtc[kRows][kChunk];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * kRows;
+  const int c_begin = blockIdx.y * cols;
+  const int c_end = min(N, c_begin + cols);
+  for (int idx = tid; idx < kRows * RMAX; idx += kThreads) {
+    const int row = idx / RMAX;
+    const int j = idx % RMAX;
+    const int k = k0 + row;
+    us[row][j] =
+        (k < K && j < r) ? __bfloat162float(u[(size_t)k * r + j]) : 0.f;
+    dus[row][j] = 0.f;
+  }
+  __syncthreads();
+  const uint32_t sd = static_cast<uint32_t>(*seed);
+  const size_t plane = (size_t)K * N;
+
+  for (int n0 = c_begin; n0 < c_end; n0 += kChunk) {
+    const int n = n0 + tid;
+    float dva[RMAX];
+#pragma unroll
+    for (int j = 0; j < RMAX; ++j) dva[j] = 0.f;
+    for (int row = 0; row < kRows; ++row) {
+      const int k = k0 + row;
+      float c = 0.f;
+      if (k < K && n < c_end && wd_keep(k, n, sd, thr)) {
+        const float* src = dt + (size_t)k * N + n;
+        float sum = 0.f;
+        for (int p = 0; p < parts; ++p) sum += src[p * plane];
+        c = __bfloat162float(__float2bfloat16(sum * inv));
+      }
+      dtc[row][tid] = c;
+#pragma unroll
+      for (int j = 0; j < RMAX; ++j) dva[j] = fmaf(us[row][j], c, dva[j]);
+    }
+    if (n < c_end) {
+      float* dst = dv_part + (size_t)blockIdx.x * r * N + n;
+#pragma unroll
+      for (int j = 0; j < RMAX; ++j)
+        if (j < r) dst[(size_t)j * N] = dva[j];
+    }
+    __syncthreads();
+    // dU of row `warp` over this chunk: sum_n dtc[n] * V[j, n].
+    for (int j = 0; j < r; ++j) {
+      float part = 0.f;
+      for (int c = lane; c < kChunk; c += 32) {
+        const int nn = n0 + c;
+        if (nn < c_end)
+          part = fmaf(dtc[warp][c], __bfloat162float(v[(size_t)j * N + nn]),
+                      part);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0) dus[warp][j] += part;
+    }
+    __syncthreads();
+  }
+  const int k = k0 + warp;
+  if (k < K)
+    for (int j = lane; j < r; j += 32)
+      du_part[((size_t)blockIdx.y * K + k) * r + j] = dus[warp][j];
+}
+
+// out[i] = sum over p (in order) of parts[p * len + i].
+__global__ void sum_parts_kernel(const float* __restrict__ parts,
+                                 float* __restrict__ out, int nparts,
+                                 int len) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= len) return;
+  float sum = 0.f;
+  for (int p = 0; p < nparts; ++p) sum += parts[(size_t)p * len + idx];
+  out[idx] = sum;
+}
+
+template <int RMAX>
+void launch(dim3 grid, const float* dt, int parts, const __nv_bfloat16* u,
+            const __nv_bfloat16* v, const int* seed, float* du_part,
+            float* dv_part, int K, int N, int r, int cols, float inv,
+            uint32_t thr, cudaStream_t stream) {
+  wd_factor_grads_kernel<RMAX><<<grid, kThreads, 0, stream>>>(
+      dt, parts, u, v, seed, du_part, dv_part, K, N, r, cols, inv, thr);
+}
+
+}  // namespace
+
+// dt: `parts` fp32 (K, N) planes back to back; u (K, r), v (r, N) bf16;
+// seed one int32 on the device -> du (K, r), dv (r, N) fp32.  Scratch:
+// dv_part fp32 of ceil(K / 8) * r * N, du_part fp32 of ceil(N / 256) * K
+// * r.  Needs 1 <= r <= 64.  Returns cudaGetLastError().
+extern "C" int cara_wd_factor_grads(const void* dt, int parts, const void* u,
+                                    const void* v, const void* seed, void* du,
+                                    void* dv, void* dv_part, void* du_part,
+                                    int K, int N, int r, float inv,
+                                    unsigned thr, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (r < 1 || r > 64 || parts < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Rows alone give K / 8 blocks; split the columns too until about two
+  // blocks a SM run (each split adds one dU partial).
+  const int kblocks = (K + kRows - 1) / kRows;
+  const int chunks = (N + kChunk - 1) / kChunk;
+  const int want = max(1, min(chunks, (kSlots + kblocks - 1) / kblocks));
+  const int cols = (chunks + want - 1) / want * kChunk;
+  const int splits = (N + cols - 1) / cols;
+  const dim3 grid(kblocks, splits);
+  const float* d = static_cast<const float*>(dt);
+  const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
+  const __nv_bfloat16* vv = static_cast<const __nv_bfloat16*>(v);
+  const int* sd = static_cast<const int*>(seed);
+  float* dup = static_cast<float*>(du_part);
+  float* dvp = static_cast<float*>(dv_part);
+  if (r <= 8)
+    launch<8>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
+              stream);
+  else if (r <= 16)
+    launch<16>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
+               stream);
+  else if (r <= 32)
+    launch<32>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
+               stream);
+  else
+    launch<64>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
+               stream);
+  const int rn = r * N;
+  sum_parts_kernel<<<(rn + 255) / 256, 256, 0, stream>>>(
+      dvp, static_cast<float*>(dv), kblocks, rn);
+  const int kr = K * r;
+  sum_parts_kernel<<<(kr + 255) / 256, 256, 0, stream>>>(
+      dup, static_cast<float*>(du), splits, kr);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,6 @@
-"""Eval forward of the Vision Transformer with optional CaRA adapters (port
-of ``cara_tpu/models/vit.py``, serving subset).
+"""Forward of the Vision Transformer with optional CaRA adapters (port of
+``cara_tpu/models/vit.py``): eval, and the training forward of the
+element-wise weight-dropout route.
 
 Layouts are the JAX package's: NHWC images, (in, out) kernels, blocks
 stacked on a leading layer axis, qkv columns out-flat (3, H, Dh).  The
@@ -19,6 +20,14 @@ for CUDA tensors and run their plain versions for CPU tensors;
 the kernels are held against).  The TPU-only machinery of the reference
 (the 197 -> 200 stream pad, tile pickers, tune cache, ``CARA_*`` knobs)
 is not ported.
+
+Training (``train=True``) runs the route the TPU takes for the default
+training configuration (``_block`` with ``use_elem``): per layer
+:func:`cp_attn_block_wd` and :func:`cp_mlp_block_wd`, exact element-wise
+weight dropout on all four dense deltas, per-image drop-path gates with
+rates ``linspace(0, drop_path_rate, depth)``.  Per layer it draws four
+int32 mask seeds (``_wd_seed``) and two gates (``_dp_gate``) from a
+``torch.Generator`` on the device, or takes them from ``randomness``.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from cara_tpu_torch.ops.layers import activation, layer_norm, linear
 
 Params = Dict[str, Any]
 IMPLS = ("auto", "plain")
+# Where the training routes that are not ported yet stand (ROADMAP.md).
+_TODO = "ROADMAP.md queue 2"
 
 
 def patch_embed(params: Params, x: torch.Tensor,
@@ -54,8 +65,12 @@ def _layer(tree, i):
             for k, v in tree.items()}
 
 
-def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl):
-    """One eval transformer block (drop-path and dropout are identities)."""
+def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
+           seeds=None, gates=None):
+    """One transformer block.  In eval (``seeds`` None) drop-path and
+    dropout are identities; in training ``seeds`` holds the layer's four
+    mask seeds (qkv, proj, fc1, fc2; int32 (4, 1, 1)) and ``gates`` its
+    two drop-path gates (attention, MLP; (2, B))."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -85,37 +100,113 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl):
     p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
     u1, v1 = cara_lib.qkv_uv(cara_params, f1, cfg, cara_cfg)
     u2, v2 = cara_lib.rows_out_uv(p1[0:1], p2, p3, r2)
-    attn_block = (attn_mod.cp_attn_block_plain if plain
-                  else attn_mod.cp_attn_block)
-    x = attn_block(
+    attn_args = (
         x, bp["qkv"]["kernel"], bp["qkv"]["bias"], cast(u1), fold(v1),
         bp["proj"]["kernel"], bp["proj"]["bias"], cast(u2), fold(v2),
-        fold(cara_params["bias1"]), bp["ln1_scale"], bp["ln1_bias"], dpm,
-        h, d ** -0.5, n, 1.0, cfg.layernorm_eps)
+        fold(cara_params["bias1"]), bp["ln1_scale"], bp["ln1_bias"])
+    if seeds is None:
+        attn_block = (attn_mod.cp_attn_block_plain if plain
+                      else attn_mod.cp_attn_block)
+        x = attn_block(*attn_args, dpm, h, d ** -0.5, n, 1.0,
+                       cfg.layernorm_eps)
+    else:
+        x = attn_mod.cp_attn_block_wd(
+            *attn_args, gates[0].reshape(b, 1).to(dt), seeds[0], seeds[1],
+            h, d ** -0.5, n, 1.0, cara_cfg.weight_dropout,
+            cfg.layernorm_eps, impl=impl)
     u3, v3 = cara_lib.rows_out_uv(p1[1:1 + mr], p2, p3, r2)
     u4, v4 = cara_lib.rows_in_uv(p1[1 + mr:1 + 2 * mr], p2, p3, r2)
-    mlp_block = mlp_mod.cp_mlp_block_plain if plain else mlp_mod.cp_mlp_block
-    return mlp_block(
+    mlp_args = (
         x, bp["fc1"]["kernel"], bp["fc1"]["bias"], cast(u3), fold(v3),
         fold(cara_params["bias2"]), bp["fc2"]["kernel"], bp["fc2"]["bias"],
         cast(u4), fold(v4), fold(cara_params["bias3"]),
-        bp["ln2_scale"], bp["ln2_bias"], dpm.reshape(b, 1, 1), 1.0,
-        cfg.activation, cfg.layernorm_eps)
+        bp["ln2_scale"], bp["ln2_bias"])
+    if seeds is None:
+        mlp_block = (mlp_mod.cp_mlp_block_plain if plain
+                     else mlp_mod.cp_mlp_block)
+        return mlp_block(*mlp_args, dpm.reshape(b, 1, 1), 1.0,
+                         cfg.activation, cfg.layernorm_eps)
+    return mlp_mod.cp_mlp_block_wd(
+        *mlp_args, gates[1].reshape(b, 1, 1).to(dt), seeds[2], seeds[3],
+        1.0, cara_cfg.weight_dropout, cfg.activation, cfg.layernorm_eps,
+        impl=impl)
+
+
+def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
+    """Refuse the training routes that are not ported yet, naming where
+    they stand in the ROADMAP."""
+    if cara_cfg is None:
+        raise NotImplementedError(
+            "training without an adapter (methods linear/full) is not yet "
+            f"ported ({_TODO}: flash_attention, row 17)")
+    if cfg.dropout_rate > 0.0 or cfg.attn_dropout_rate > 0.0:
+        raise NotImplementedError(
+            "activation / attention dropout in training is not yet ported "
+            f"({_TODO}: the split path, rows 13, 12, 1/2)")
+    if cara_cfg.method != "cara" or cara_cfg.moe:
+        raise NotImplementedError(
+            f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
+            "not yet ported (ROADMAP.md queue 1: the PEFT zoo)")
+    if cara_cfg.cp_order == 2 or cara_cfg.delta_impl == "materialized":
+        raise NotImplementedError(
+            "cp_order=2 and delta_impl='materialized' train on the "
+            "materialized delta, not yet ported (ROADMAP.md queue 1: CP "
+            "orders and dim_experiment)")
+    if cara_cfg.weight_dropout_impl != "element":
+        raise NotImplementedError(
+            f"weight_dropout_impl={cara_cfg.weight_dropout_impl!r} is not "
+            f"yet ported ({_TODO}: rows 6 and 10, then the split path)")
+    if cara_cfg.weight_dropout <= 0.0:
+        raise NotImplementedError(
+            "training with weight_dropout=0 runs the non-dropout block "
+            f"backward kernels, not yet ported ({_TODO}: rows 6 and 10)")
+
+
+def draw_randomness(cfg: ViTConfig, batch: int, device,
+                    generator: Optional[torch.Generator],
+                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Per-layer training randomness: ``seeds`` int32 (depth, 4, 1, 1) —
+    the qkv, proj, fc1 and fc2 mask seeds, uniform over
+    [-2**31, 2**31 - 1) as ``_wd_seed`` — and ``gates`` (depth, 2, B) in
+    ``dtype``: ``bernoulli(1 - r) / (1 - r)`` with r from
+    ``linspace(0, drop_path_rate, depth)`` (``_dp_gate``)."""
+    depth = cfg.depth
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (depth, 4, 1, 1),
+                          generator=generator, device=device,
+                          dtype=torch.int32)
+    keeps = 1.0 - torch.linspace(0.0, cfg.drop_path_rate, depth)
+    gates = []
+    for keep in keeps:  # 0-d fp32, as the reference's traced rate
+        probs = torch.full((2, batch), keep.item(), device=device)
+        mask = torch.bernoulli(probs, generator=generator)
+        gates.append(mask.to(dtype) / keep.to(dtype).to(device))
+    return {"seeds": seeds, "gates": torch.stack(gates)}
 
 
 def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 cara_params: Optional[Dict[str, torch.Tensor]] = None,
                 cara_cfg: Optional[CaraConfig] = None,
-                impl: str = "auto") -> torch.Tensor:
-    """Eval forward: images (B, H, W, C) NHWC -> logits (B, num_classes).
+                impl: str = "auto", *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                randomness: Optional[Dict[str, Any]] = None
+                ) -> torch.Tensor:
+    """Images (B, H, W, C) NHWC -> logits (B, num_classes).
 
     ``params`` / ``cara_params`` are tensor trees on ``x``'s device (see
     ``models.convert.params_from_numpy``); the forward computes in
-    ``x.dtype``."""
+    ``x.dtype``.  ``train=True`` runs the training forward (see the
+    module docs); its randomness comes from ``randomness`` (as
+    :func:`draw_randomness` returns it) or else is drawn from
+    ``generator``."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if train:
+        check_trainable(cfg, cara_cfg)
+        if randomness is None:
+            randomness = draw_randomness(cfg, x.shape[0], x.device,
+                                         generator, x.dtype)
     if cara_cfg is not None:
         if cara_cfg.method != "cara" or cara_cfg.moe:
             raise NotImplementedError(
@@ -144,7 +235,9 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
             tokens, _layer(params["blocks"], layer),
             None if a1 is None else a1[layer],
             None if p1 is None else p1[layer],
-            cfg, cara_params, cara_cfg, impl)
+            cfg, cara_params, cara_cfg, impl,
+            *((randomness["seeds"][layer], randomness["gates"][layer])
+              if train else ()))
     if cfg.use_cls_token:
         # LayerNorm is per token: only the cls row feeds the head.
         feat = layer_norm(tokens[:, 0], params["norm"]["scale"],

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (``cara_tpu_torch/csrc/*.cu``).
 
 ``nvcc`` compiles every ``.cu`` file of the package, and nothing else,
-into one shared library with a plain C interface,
+one process per file, all started together, and links the objects into
+one shared library with a plain C interface,
 ``build/kernels/libcara_tpu_torch_kernels.so`` under the repository root,
 which ``ctypes`` loads.  The build runs at the first kernel call, not at
 import, so the package imports on machines without a GPU or ``nvcc``; it
-is redone when the sources or the flags change (a hash of both is kept
-beside the library).
+is redone when the sources (``.cu`` and ``.cuh``) or the flags change (a
+hash of both is kept beside the library).
 
 Pointers and the stream pass as ``ctypes.c_void_p``; every C entry point
 returns ``cudaGetLastError()`` and :func:`check` raises on a nonzero code.
@@ -30,17 +31,26 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
 LIB_NAME = "libcara_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # name -> argtypes of the C entry points (see the .cu files).
 _SIGNATURES = {
     "cara_cp_site": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "cara_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "cara_qkv_attention_smem": [_I, _I],
+    "cara_qkv_attention_bwd": [_P, _P, _P] + [_I] * 5 + [_F, _P],
+    "cara_qkv_attention_bwd_smem": [_I, _I],
+    "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
+    "cara_wd_factor_grads": [_P, _I] + [_P] * 7 + [_I] * 3 + [_F, _U, _P],
+    "cara_grad_gemm": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P],
+    "cara_ln_rows": [_P] * 4 + [_I, _I, _F, _P],
+    "cara_gate_rows": [_P] * 3 + [_I, _I, _P],
+    "cara_ln_bwd_residual": [_P] * 5 + [_I, _I, _F, _P],
+    "cara_colsum": [_P, _I, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -65,7 +75,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -81,16 +91,37 @@ def build() -> Path:
             and stamp.read_text().strip() == digest):
         BUILD_INFO.update(seconds=0.0, cached=True)
         return lib_path
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:  # wait for every compiler, failed or not
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = "\n".join(logs)
+    (BUILD_DIR / "build.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, lib_path)
     stamp.write_text(digest + "\n")
     BUILD_INFO.update(seconds=seconds, log=log, cached=False)

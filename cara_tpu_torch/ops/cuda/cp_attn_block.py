@@ -18,22 +18,38 @@ output make a round trip through HBM that the TPU kernel avoided; the
 sites are tensor-core bound at ViT-B, so this first version accepts the
 traffic, and fusing it back is later work.  The TPU's save-qkv mode and
 its 128-multiple token padding are not ported (the kernels mask their own
-ragged edges; eval saves nothing).
+ragged edges).
 
-A CUDA tensor launches the kernels (or raises); a CPU tensor takes
-:func:`cp_attn_block_plain`.  Forward only.
+:func:`cp_attn_block_wd` is the training form with exact element-wise
+weight dropout (``cp_attn_block_wd``, ``_ab_fwd_wd`` / ``_ab_bwd_wd_rule``
+and ``_attn_block_bwd_wd_kernel``): the forward folds both masked deltas
+into the weights (``ops/cuda/wd_fold.py``) and runs the three launches
+above with rank 0; the backward recomputes LN1 -> qkv -> attention (the
+TPU's recompute mode, ``CARA_ATTN_SAVE_QKV`` off) and composes
+``csrc/block_rows.cu``, ``csrc/grad_gemm.cu``, ``csrc/qkv_attention_bwd.cu``
+and ``csrc/wd_factor_grads.cu``; see :func:`_attn_block_wd_bwd_cuda`.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
+plain versions.  :func:`cp_attn_block` is forward only.
 """
 
 from __future__ import annotations
 
-from cara_tpu_torch.ops.cuda import _build
+import torch
+
+from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
 from cara_tpu_torch.ops.cuda.fused_qkv_attention import (
-    _check_np, attention_cuda, fused_qkv_attention_plain)
+    _check_np, attention_bwd_cuda, attention_bwd_plain, attention_cuda,
+    fused_qkv_attention_plain)
 from cara_tpu_torch.ops.layers import layer_norm
 
 #: Number of (three-launch) kernel calls made by :func:`cp_attn_block`.
 LAUNCHES = 0
+#: Forward kernel calls of :func:`cp_attn_block_wd` (TPU row 7).
+WD_LAUNCHES = 0
+#: Backward kernel calls of :func:`cp_attn_block_wd` (TPU row 8).
+WD_BWD_LAUNCHES = 0
 
 
 def cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
@@ -52,6 +68,35 @@ def cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
     return (x.float() + gate * y).to(dt)
 
 
+def _check_block(x, dpm, n_real):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, E), got {tuple(x.shape)}")
+    bsz, n, _ = x.shape
+    _check_np(n)
+    if not 1 <= n_real <= n:
+        raise ValueError(f"n_real={n_real} outside [1, {n}]")
+    if dpm.numel() != bsz:
+        raise ValueError(f"dpm must hold one gate per image, got "
+                         f"{tuple(dpm.shape)}")
+
+
+def _dpm_rows(dpm, bsz, n):
+    return dpm.reshape(bsz, 1).float().expand(bsz, n).reshape(-1).contiguous()
+
+
+def _attn_block_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                     ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps):
+    """The three launches of the forward on CUDA tensors."""
+    bsz, n, e = x.shape
+    x2 = x.reshape(bsz * n, e)
+    qkv = site_cuda(x2, wq, bq, u1, v1, None, s,
+                    ln=(ln_scale, ln_bias, ln_eps))
+    o = attention_cuda(qkv.reshape(bsz, n, -1), heads, sm_scale, n_real)
+    out = site_cuda(o.reshape(bsz * n, -1), wp, bp, u2, v2, cb2, s,
+                    res=x2, dpm_rows=_dpm_rows(dpm, bsz, n))
+    return out.reshape(bsz, n, e)
+
+
 def cp_attn_block(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale, ln_bias,
                   dpm, heads: int, sm_scale: float, n_real: int,
                   s: float = 1.0, ln_eps: float = 1e-6):
@@ -65,27 +110,169 @@ def cp_attn_block(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale, ln_bias,
     global LAUNCHES
     _build.check_no_grad("cp_attn_block", x, wq, bq, u1, v1, wp, bp, u2, v2,
                          cb2, ln_scale, ln_bias, dpm)
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, N, E), got {tuple(x.shape)}")
-    bsz, n, e = x.shape
-    _check_np(n)
-    if not 1 <= n_real <= n:
-        raise ValueError(f"n_real={n_real} outside [1, {n}]")
-    if dpm.numel() != bsz:
-        raise ValueError(f"dpm must hold one gate per image, got "
-                         f"{tuple(dpm.shape)}")
+    _check_block(x, dpm, n_real)
     if x.device.type == "cpu":
         return cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2,
                                    ln_scale, ln_bias, dpm, heads, sm_scale,
                                    n_real, s, ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    x2 = x.reshape(bsz * n, e)
-    qkv = site_cuda(x2, wq, bq, u1, v1, None, s,
-                    ln=(ln_scale, ln_bias, ln_eps))
-    o = attention_cuda(qkv.reshape(bsz, n, -1), heads, sm_scale, n_real)
-    dpm_rows = dpm.reshape(bsz, 1).float().expand(bsz, n).reshape(-1)
-    out = site_cuda(o.reshape(bsz * n, -1), wp, bp, u2, v2, cb2, s,
-                    res=x2, dpm_rows=dpm_rows.contiguous())
+    out = _attn_block_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                           ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps)
     LAUNCHES += 1
-    return out.reshape(bsz, n, e)
+    return out
+
+
+def cp_attn_block_wd_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                           ln_bias, dpm, seed1, seed2, heads: int,
+                           sm_scale: float, n_real: int, s: float,
+                           rate: float, ln_eps: float = 1e-6):
+    """Plain twin of the :func:`cp_attn_block_wd` forward: fold, then the
+    plain block on the folded weights with rank 0."""
+    e = x.shape[-1]
+    wqp = wd_fold.build_wd_weight_plain(wq, u1, v1, seed1, s, rate)
+    wpp = wd_fold.build_wd_weight_plain(wp, u2, v2, seed2, s, rate)
+    return cp_attn_block_plain(
+        x, wqp, bq, *wd_fold.zero_rank(x, e, wq.shape[1]), wpp, bp,
+        *wd_fold.zero_rank(x, e, e), cb2, ln_scale, ln_bias, dpm, heads,
+        sm_scale, n_real, s, ln_eps)
+
+
+def cp_attn_block_wd_bwd_plain(g, x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
+                               ln_bias, dpm, seed1, seed2, heads: int,
+                               sm_scale: float, n_real: int, s: float,
+                               rate: float, ln_eps: float = 1e-6):
+    """Plain twin of the backward (``_attn_block_bwd_wd_kernel`` with its
+    rounding points): -> (dx, du1, dv1, du2, dv2, dcb2), dx in
+    ``x.dtype``, the rest fp32."""
+    bsz, n, e = x.shape
+    dt = x.dtype
+    m = bsz * n
+    x2 = x.reshape(m, e)
+    g_res = g.reshape(m, e)
+    gate = _dpm_rows(dpm, bsz, n)[:, None]
+    g2 = (g_res.float() * gate).to(dt)
+    xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
+    qkv = (xa.float() @ wqp.float() + bq.float()).to(dt)
+    o2 = fused_qkv_attention_plain(qkv.reshape(bsz, n, -1), heads, sm_scale,
+                                   n_real).reshape(m, e)
+    do = g2.float() @ wpp.float().t()
+    dt2 = o2.float().t() @ g2.float()
+    dsp = g2.float().sum(0)
+    dqkv = attention_bwd_plain(qkv.reshape(bsz, n, -1),
+                               do.to(dt).reshape(bsz, n, e), heads, sm_scale,
+                               n_real).reshape(m, -1)
+    dxa = dqkv.float() @ wqp.float().t()
+    dx = (g_res.float() + _bwd.ln_input_bwd_plain(x2, dxa, ln_scale, ln_eps)
+          ).to(dt)
+    dt1 = xa.float().t() @ dqkv.float()
+    du1, dv1 = wd_fold.masked_factor_grads_plain(dt1, u1, v1, seed1, s,
+                                                 rate, dt)
+    du2, dv2 = wd_fold.masked_factor_grads_plain(dt2, u2, v2, seed2, s,
+                                                 rate, dt)
+    return dx.reshape(bsz, n, e), du1, dv1, du2, dv2, s * dsp
+
+
+def _attn_block_wd_bwd_cuda(g, x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
+                            ln_bias, dpm, seed1, seed2, heads, sm_scale,
+                            n_real, s, rate, ln_eps):
+    """The backward on CUDA tensors, as launches (M = B*N rows):
+
+    ``ln_rows`` xa = LN1(x); NN ``grad_gemm`` qkv = bf16(xa wq' + bq);
+    ``qkv_attention`` o; ``gate_rows`` g2 = bf16(g * dpm); NT do =
+    bf16(g2 wp'^T); TN dT2 = o^T g2; ``colsum`` dsp; ``qkv_attention_bwd``
+    dqkv; NT dxa = dqkv wq'^T (fp32); ``ln_bwd_residual`` dx; TN dT1 =
+    xa^T dqkv; ``wd_factor_grads`` on dT1 and dT2."""
+    bsz, n, e = x.shape
+    m = bsz * n
+    x2 = x.reshape(m, e)
+    g_res = g.reshape(m, e)
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    qkv = _bwd.gemm(_bwd.NN, _bwd.EPI_BF16, xa, wqp, bias1=bq)
+    o2 = attention_cuda(qkv.reshape(bsz, n, -1), heads, sm_scale,
+                        n_real).reshape(m, e)
+    g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, bsz, n))
+    do = _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, wpp)
+    dt2 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, o2, g2,
+                    splits=_bwd.dt_splits(e, e, m))
+    dsp = _bwd.colsum(g2)
+    dqkv = attention_bwd_cuda(qkv.reshape(bsz, n, -1),
+                              do.reshape(bsz, n, e), heads, sm_scale,
+                              n_real).reshape(m, -1)
+    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dqkv, wqp)
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    dt1 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, dqkv,
+                    splits=_bwd.dt_splits(e, dqkv.shape[1], m))
+    du1, dv1 = wd_fold.masked_factor_grads_cuda(dt1, u1, v1, seed1, s, rate)
+    du2, dv2 = wd_fold.masked_factor_grads_cuda(dt2, u2, v2, seed2, s, rate)
+    return dx.reshape(bsz, n, e), du1, dv1, du2, dv2, s * dsp
+
+
+class _AttnBlockWd(torch.autograd.Function):
+    """Gradients for x, u1, v1, u2, v2 and cb2; the backbone (wq, bq, wp,
+    bp, LN1), the gate and the seeds are constants, as in
+    ``_ab_bwd_wd_rule``."""
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                ln_bias, dpm, seed1, seed2, heads, sm_scale, n_real, s,
+                rate, ln_eps, plain):
+        global WD_LAUNCHES
+        fold = (wd_fold.build_wd_weight_plain if plain
+                else wd_fold.build_wd_weight)
+        wqp = fold(wq, u1, v1, seed1, s, rate)
+        wpp = fold(wp, u2, v2, seed2, s, rate)
+        e = x.shape[-1]
+        args = (x, wqp, bq, *wd_fold.zero_rank(x, e, wq.shape[1]), wpp,
+                bp, *wd_fold.zero_rank(x, e, e), cb2, ln_scale, ln_bias, dpm,
+                heads, sm_scale, n_real, s, ln_eps)
+        if plain:
+            out = cp_attn_block_plain(*args)
+        else:
+            out = _attn_block_cuda(*args)
+            WD_LAUNCHES += 1
+        ctx.save_for_backward(x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
+                              ln_bias, dpm, seed1, seed2)
+        ctx.cfg = (heads, sm_scale, n_real, s, rate, ln_eps, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global WD_BWD_LAUNCHES
+        (x, wqp, bq, wpp, u1, v1, u2, v2, ls, lb, dpm, seed1,
+         seed2) = ctx.saved_tensors
+        heads, sm_scale, n_real, s, rate, ln_eps, plain = ctx.cfg
+        args = (g.contiguous(), x, wqp, bq, wpp, u1, v1, u2, v2, ls, lb,
+                dpm, seed1, seed2, heads, sm_scale, n_real, s, rate, ln_eps)
+        if plain:
+            dx, du1, dv1, du2, dv2, dcb2 = cp_attn_block_wd_bwd_plain(*args)
+        else:
+            dx, du1, dv1, du2, dv2, dcb2 = _attn_block_wd_bwd_cuda(*args)
+            WD_BWD_LAUNCHES += 1
+        return (dx, None, None, du1.to(u1.dtype), dv1.to(v1.dtype), None,
+                None, du2.to(u2.dtype), dv2.to(v2.dtype), dcb2.to(x.dtype),
+                None, None, None, None, None, None, None, None, None, None,
+                None, None)
+
+
+def cp_attn_block_wd(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                     ln_bias, dpm, seed1, seed2, heads: int, sm_scale: float,
+                     n_real: int, s: float, rate: float,
+                     ln_eps: float = 1e-6, impl: str = "auto"):
+    """:func:`cp_attn_block` with exact element-wise weight dropout on both
+    dense deltas (``cara.py:35,57``), differentiable in x, u1, v1, u2, v2
+    and cb2.  ``seed1`` / ``seed2``: one-element int32 tensors on x's
+    device (the qkv and proj masks); ``rate`` the drop rate.
+
+    ``impl="auto"`` launches the kernels for CUDA tensors and runs the
+    plain versions for CPU tensors; ``impl="plain"`` runs the plain
+    versions on any device (the reference the kernels are held to)."""
+    _check_block(x, dpm, n_real)
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or x.device.type == "cpu"
+    if not plain and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _AttnBlockWd.apply(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2,
+                              ln_scale, ln_bias, dpm, seed1, seed2, heads,
+                              sm_scale, n_real, s, rate, ln_eps, plain)

@@ -13,23 +13,35 @@ kernel does before fc2); then fc2 with its delta, cb2 and the residual
 round trip through HBM that the TPU kernel avoided; both GEMMs are
 tensor-core bound at ViT-B, so the first version accepts that, and fusing
 fc1 into fc2 is later work.  The TPU epilogue's A&S erf is replaced by the
-exact erf, as the JAX XLA path uses.  The save-pre mode is not ported
-(eval saves nothing).
+exact erf, as the JAX XLA path uses.  The save-pre mode is not ported.
 
-A CUDA tensor launches the kernels (or raises); a CPU tensor takes
-:func:`cp_mlp_block_plain`.  Forward only.
+:func:`cp_mlp_block_wd` is the training form with exact element-wise
+weight dropout (``cp_mlp_block_wd``: ``_mlp_fwd_wd`` and
+``_mlp_bwd_wd_rule`` / ``_mlp_bwd_wd_kernel``).  Its forward folds both
+masked deltas into the weights (``ops/cuda/wd_fold.py``) and runs the two
+launches above with rank 0 (counted in :data:`LAUNCHES`: it is the same
+kernel, TPU row 9).  Its backward recomputes the fp32 pre-activation
+(``CARA_MLP_SAVE_PRE`` off) and composes ``csrc/block_rows.cu``,
+``csrc/grad_gemm.cu`` and ``csrc/wd_factor_grads.cu``; see
+:func:`_mlp_block_wd_bwd_cuda`.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
+plain versions.  :func:`cp_mlp_block` is forward only.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _build
+from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
-from cara_tpu_torch.ops.layers import activation, layer_norm
+from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 
-#: Number of (two-launch) kernel calls made by :func:`cp_mlp_block`.
+#: Number of (two-launch) kernel calls made by :func:`cp_mlp_block` and
+#: the :func:`cp_mlp_block_wd` forward.
 LAUNCHES = 0
+#: Backward kernel calls of :func:`cp_mlp_block_wd` (TPU row 11).
+WD_BWD_LAUNCHES = 0
 
 
 def cp_mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
@@ -45,6 +57,29 @@ def cp_mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
     return (x.float() + gate * y).to(dt)
 
 
+def _dpm_rows(dpm, lead):
+    return torch.broadcast_to(dpm, lead + (1,)).float().reshape(-1) \
+        .contiguous()
+
+
+def _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
+                    ln_bias, dpm, s, act, ln_eps):
+    """The two launches of the forward on CUDA tensors."""
+    lead, e = x.shape[:-1], x.shape[-1]
+    if act != "gelu":
+        raise ValueError(f"the cp_site kernel's epilogue has exact GELU "
+                         f"only; act={act!r} is not yet ported")
+    if w2.shape[1] != e:
+        raise ValueError(f"residual-fused MLP needs W2 out == E "
+                         f"({w2.shape[1]} vs {e})")
+    x2 = x.reshape(-1, e)
+    h = site_cuda(x2, w1, b1, u1, v1, cb1, s,
+                  ln=(ln_scale, ln_bias, ln_eps), gelu=True)
+    out = site_cuda(h, w2, b2, u2, v2, cb2, s, res=x2,
+                    dpm_rows=_dpm_rows(dpm, lead))
+    return out.reshape(*lead, e)
+
+
 def cp_mlp_block(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                  ln_bias, dpm, s: float = 1.0, act: str = "gelu",
                  ln_eps: float = 1e-6):
@@ -56,24 +91,165 @@ def cp_mlp_block(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
     global LAUNCHES
     _build.check_no_grad("cp_mlp_block", x, w1, b1, u1, v1, cb1, w2, b2, u2,
                          v2, cb2, ln_scale, ln_bias, dpm)
-    lead, e = x.shape[:-1], x.shape[-1]
     if x.device.type == "cpu":
         return cp_mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2,
                                   cb2, ln_scale, ln_bias, dpm, s, act,
                                   ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if act != "gelu":
-        raise ValueError(f"the cp_site kernel's epilogue has exact GELU "
-                         f"only; act={act!r} is not yet ported")
-    if w2.shape[1] != e:
-        raise ValueError(f"residual-fused MLP needs W2 out == E "
-                         f"({w2.shape[1]} vs {e})")
-    x2 = x.reshape(-1, e)
-    h = site_cuda(x2, w1, b1, u1, v1, cb1, s,
-                  ln=(ln_scale, ln_bias, ln_eps), gelu=True)
-    dpm_rows = torch.broadcast_to(dpm, lead + (1,)).float().reshape(-1)
-    out = site_cuda(h, w2, b2, u2, v2, cb2, s, res=x2,
-                    dpm_rows=dpm_rows.contiguous())
+    out = _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
+                          ln_scale, ln_bias, dpm, s, act, ln_eps)
     LAUNCHES += 1
-    return out.reshape(*lead, e)
+    return out
+
+
+def cp_mlp_block_wd_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
+                          ln_scale, ln_bias, dpm, seed1, seed2, s: float,
+                          rate: float, act: str = "gelu",
+                          ln_eps: float = 1e-6):
+    """Plain twin of the :func:`cp_mlp_block_wd` forward: fold, then the
+    plain block on the folded weights with rank 0."""
+    e, hid = w1.shape
+    w1p = wd_fold.build_wd_weight_plain(w1, u1, v1, seed1, s, rate)
+    w2p = wd_fold.build_wd_weight_plain(w2, u2, v2, seed2, s, rate)
+    return cp_mlp_block_plain(
+        x, w1p, b1, *wd_fold.zero_rank(x, e, hid), cb1, w2p, b2,
+        *wd_fold.zero_rank(x, hid, w2.shape[1]), cb2, ln_scale, ln_bias,
+        dpm, s, act, ln_eps)
+
+
+def cp_mlp_block_wd_bwd_plain(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
+                              ln_scale, ln_bias, dpm, seed1, seed2, s: float,
+                              rate: float, act: str = "gelu",
+                              ln_eps: float = 1e-6):
+    """Plain twin of the backward (``_mlp_bwd_wd_kernel`` with its
+    rounding points): -> (dx, du1, dv1, dcb1, du2, dv2, dcb2), dx in
+    ``x.dtype``, the rest fp32."""
+    lead, e = x.shape[:-1], x.shape[-1]
+    dt = x.dtype
+    x2 = x.reshape(-1, e)
+    g_res = g.reshape(-1, e)
+    g2 = (g_res.float() * _dpm_rows(dpm, lead)[:, None]).to(dt)
+    xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
+    pre = xa.float() @ w1p.float() + b1.float() + s * cb1.float()
+    h = activation(pre, act).to(dt)
+    dh = g2.float() @ w2p.float().t()
+    dpre = dh * activation_grad(pre, act)
+    dprec = dpre.to(dt)
+    dxa = dprec.float() @ w1p.float().t()
+    dx = (g_res.float() + _bwd.ln_input_bwd_plain(x2, dxa, ln_scale, ln_eps)
+          ).to(dt)
+    dt1 = xa.float().t() @ dprec.float()
+    dt2 = h.float().t() @ g2.float()
+    du1, dv1 = wd_fold.masked_factor_grads_plain(dt1, u1, v1, seed1, s,
+                                                 rate, dt)
+    du2, dv2 = wd_fold.masked_factor_grads_plain(dt2, u2, v2, seed2, s,
+                                                 rate, dt)
+    return (dx.reshape(x.shape), du1, dv1, s * dpre.sum(0), du2, dv2,
+            s * g2.float().sum(0))
+
+
+def _mlp_block_wd_bwd_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
+                           ln_scale, ln_bias, dpm, seed1, seed2, s, rate,
+                           act, ln_eps):
+    """The backward on CUDA tensors, as launches (M rows, hidden H):
+
+    ``ln_rows`` xa = LN2(x); NN ``grad_gemm`` pre = xa w1' + b1 + cb1
+    (fp32) and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g * dpm); NT
+    dpre = (g2 w2'^T) gelu'(pre), bf16, with its fp32 column sums per
+    block; ``colsum`` ds1 and ds2; NT dxa = dpre w1'^T (fp32);
+    ``ln_bwd_residual`` dx; TN dT1 = xa^T dpre and dT2 = h^T g2;
+    ``wd_factor_grads`` on both."""
+    if act != "gelu":
+        raise ValueError(f"the backward kernels have exact GELU only; "
+                         f"act={act!r} is not yet ported")
+    if s != 1.0:
+        raise ValueError("the pre-activation epilogue adds cb1 unscaled; "
+                         "fold the delta scale into cb1 and pass s=1.0")
+    lead, e = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, e)
+    g_res = g.reshape(-1, e)
+    m, hid = x2.shape[0], w1p.shape[1]
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    pre, h = _bwd.gemm(_bwd.NN, _bwd.EPI_PRE_GELU, xa, w1p, bias1=b1,
+                       bias2=cb1)
+    g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, lead))
+    dprec, colpart = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU, g2, w2p, aux=pre)
+    del pre
+    ds1 = _bwd.colsum(colpart)
+    ds2 = _bwd.colsum(g2)
+    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1p)
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    dt1 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, dprec,
+                    splits=_bwd.dt_splits(e, hid, m))
+    dt2 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, h, g2,
+                    splits=_bwd.dt_splits(hid, e, m))
+    du1, dv1 = wd_fold.masked_factor_grads_cuda(dt1, u1, v1, seed1, s, rate)
+    du2, dv2 = wd_fold.masked_factor_grads_cuda(dt2, u2, v2, seed2, s, rate)
+    return dx.reshape(x.shape), du1, dv1, s * ds1, du2, dv2, s * ds2
+
+
+class _MlpBlockWd(torch.autograd.Function):
+    """Gradients for x, u1, v1, cb1, u2, v2 and cb2; the backbone (w1, b1,
+    w2, b2, LN2), the gate and the seeds are constants, as in
+    ``_mlp_bwd_wd_rule``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
+                ln_bias, dpm, seed1, seed2, s, rate, act, ln_eps, plain):
+        global LAUNCHES
+        fold = (wd_fold.build_wd_weight_plain if plain
+                else wd_fold.build_wd_weight)
+        w1p = fold(w1, u1, v1, seed1, s, rate)
+        w2p = fold(w2, u2, v2, seed2, s, rate)
+        e, hid = w1.shape
+        args = (x, w1p, b1, *wd_fold.zero_rank(x, e, hid), cb1, w2p, b2,
+                *wd_fold.zero_rank(x, hid, w2.shape[1]), cb2, ln_scale,
+                ln_bias, dpm, s, act, ln_eps)
+        if plain:
+            out = cp_mlp_block_plain(*args)
+        else:
+            out = _mlp_block_cuda(*args)
+            LAUNCHES += 1
+        ctx.save_for_backward(x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
+                              ln_scale, ln_bias, dpm, seed1, seed2)
+        ctx.cfg = (s, rate, act, ln_eps, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global WD_BWD_LAUNCHES
+        (x, w1p, b1, cb1, w2p, u1, v1, u2, v2, ls, lb, dpm, seed1,
+         seed2) = ctx.saved_tensors
+        s, rate, act, ln_eps, plain = ctx.cfg
+        args = (g.contiguous(), x, w1p, b1, cb1, w2p, u1, v1, u2, v2, ls,
+                lb, dpm, seed1, seed2, s, rate, act, ln_eps)
+        if plain:
+            grads = cp_mlp_block_wd_bwd_plain(*args)
+        else:
+            grads = _mlp_block_wd_bwd_cuda(*args)
+            WD_BWD_LAUNCHES += 1
+        dx, du1, dv1, dcb1, du2, dv2, dcb2 = grads
+        return (dx, None, None, du1.to(u1.dtype), dv1.to(v1.dtype),
+                dcb1.to(cb1.dtype), None, None, du2.to(u2.dtype),
+                dv2.to(v2.dtype), dcb2.to(x.dtype), None, None, None, None,
+                None, None, None, None, None, None)
+
+
+def cp_mlp_block_wd(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
+                    ln_bias, dpm, seed1, seed2, s: float, rate: float,
+                    act: str = "gelu", ln_eps: float = 1e-6,
+                    impl: str = "auto"):
+    """:func:`cp_mlp_block` with exact element-wise weight dropout on both
+    dense deltas (``cara.py:81,92``), differentiable in x, u1, v1, cb1,
+    u2, v2 and cb2.  ``seed1`` / ``seed2``: one-element int32 tensors on
+    x's device (the fc1 and fc2 masks).  ``impl`` as in
+    ``cp_attn_block.cp_attn_block_wd``."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or x.device.type == "cpu"
+    if not plain and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _MlpBlockWd.apply(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
+                             ln_scale, ln_bias, dpm, seed1, seed2, s, rate,
+                             act, ln_eps, plain)

@@ -8,7 +8,10 @@ per (image, head, 64-query tile), that head's K and V resident in shared
 memory (> 48 KB, opt-in), fp32 softmax, bf16 tensor-core products.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-:func:`fused_qkv_attention_plain`.  Forward only.
+:func:`fused_qkv_attention_plain`.  The wrapper is forward only; the
+attention backward (``attn_bwd_tile``, kernel ``csrc/qkv_attention_bwd.cu``)
+is launched by the attention-block backward through
+:func:`attention_bwd_cuda`, with :func:`attention_bwd_plain` its twin.
 """
 
 from __future__ import annotations
@@ -82,6 +85,69 @@ def attention_cuda(qkv: torch.Tensor, heads: int, scale: float,
         qkv.data_ptr(), out.data_ptr(), bsz, n, heads, dh, int(n_real),
         float(scale), _build.stream_ptr(dev))
     _build.check(code, "qkv_attention")
+    return out
+
+
+def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, heads: int,
+                        scale: float, n_real: int) -> torch.Tensor:
+    """dqkv (B, N, 3E) in ``qkv.dtype`` from qkv and the output cotangent
+    do (B, N, E): the math and rounding points of ``attn_bwd_tile``
+    (``fused_qkv_attention.py:118``) -- qs rounded after the scale, p
+    normalized in fp32 and rounded for dv, ds rounded before dq and dk,
+    each of dq, dk, dv rounded."""
+    b, n, e3 = qkv.shape
+    e = e3 // 3
+    dh = e // heads
+    dt = qkv.dtype
+
+    def head_major(t):
+        return t.reshape(b, n, heads, dh).transpose(1, 2).float()
+
+    qs = head_major(qkv[..., :e] * scale)
+    k = head_major(qkv[..., e:2 * e])
+    v = head_major(qkv[..., 2 * e:])
+    g = head_major(do)
+    s = qs @ k.transpose(-1, -2)
+    if n_real < n:
+        valid = torch.arange(n, device=qkv.device) < n_real
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    ex = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = ex * (1.0 / ex.sum(dim=-1, keepdim=True))
+    dv = p.to(dt).float().transpose(-1, -2) @ g
+    dp = g @ v.transpose(-1, -2)
+    row = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - row)).to(dt).float()
+    dq = (ds @ k) * scale
+    dk = ds.transpose(-1, -2) @ qs
+
+    def flat(t):
+        return t.to(dt).transpose(1, 2).reshape(b, n, e)
+
+    return torch.cat([flat(dq), flat(dk), flat(dv)], dim=-1)
+
+
+def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
+                       scale: float, n_real: int) -> torch.Tensor:
+    """Launch ``csrc/qkv_attention_bwd.cu`` (no launch count; the
+    attention-block backward calls this directly)."""
+    bsz, n, e3 = qkv.shape
+    e = e3 // 3
+    dh = e // heads
+    dev = qkv.device
+    _build.check_cuda_inputs("qkv_attention_bwd", dev, qkv=qkv, do=do)
+    if do.shape != (bsz, n, e) or heads * dh != e or dh not in (16, 32, 64):
+        raise ValueError(f"qkv_attention_bwd: qkv {tuple(qkv.shape)}, do "
+                         f"{tuple(do.shape)}, heads={heads}; the kernel "
+                         "takes head dims 16, 32 or 64")
+    lib = _build.lib()
+    if lib.cara_qkv_attention_bwd_smem(n, dh) == 0:
+        raise ValueError(f"qkv_attention_bwd: N={n} does not fit one "
+                         "block's shared memory")
+    out = torch.empty_like(qkv)
+    code = lib.cara_qkv_attention_bwd(
+        qkv.data_ptr(), do.data_ptr(), out.data_ptr(), bsz, n, heads, dh,
+        int(n_real), float(scale), _build.stream_ptr(dev))
+    _build.check(code, "qkv_attention_bwd")
     return out
 
 

@@ -1,0 +1,164 @@
+"""Exact element-wise weight dropout: the hash mask, the folded weight and
+the masked factor gradients.
+
+The mask is the TPU package's ``hash_keep``
+(``cara_tpu/ops/pallas/cp_dense.py``): element (k, n) of a site's dense
+(K, N) delta is kept iff a 32-bit integer hash of the absolute
+coordinates and the int32 seed reaches ``rate * 2**32``.  It is never
+stored: the forward fold and the backward finish regenerate it.
+
+* :func:`build_wd_weight` replaces ``_build_wd_weight`` (kernel
+  ``csrc/wd_fold.cu``): ``W' = W + s/(1-p) * (U V) (.) keep`` rounded
+  once, so the block kernels then run on a dense weight.
+* :func:`masked_factor_grads_cuda` is the finish ``masked_site_grads``
+  (kernel ``csrc/wd_factor_grads.cu``): ``dtc = bf16(dT (.) keep *
+  s/(1-p))``, ``dU = dtc V^T``, ``dV = U^T dtc``; the block backward
+  wrappers call it after their ``dT = x^T g`` products.
+
+Seeds are int32 tensors of one element on the compute device (the kernels
+read them there, so drawing them costs no host sync).  A CUDA tensor
+launches the kernel (or raises); a CPU tensor takes the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cara_tpu_torch.ops.cuda import _build
+
+#: Number of kernel launches made by :func:`build_wd_weight`.
+LAUNCHES = 0
+
+_M32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate: float) -> int:
+    """The uint32 threshold of the mask, computed as ``hash_keep`` does."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` in [0, 2**32) without int64
+    overflow: ``c`` is split into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def hash_keep_plain(k0: int, n0: int, bk: int, bn: int, seed,
+                    rate: float, device=None) -> torch.Tensor:
+    """(bk, bn) bool keep mask of the plane's block at absolute offset
+    (k0, n0); bit for bit ``cp_dense.hash_keep``.  ``seed`` is an int or
+    a one-element integer tensor (int32, reinterpreted as uint32)."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device if device is None else device
+        sd = seed.reshape(()).to(device=device, dtype=torch.int64) & _M32
+    else:
+        sd = int(seed) & _M32
+    ki = torch.arange(k0, k0 + bk, device=device, dtype=torch.int64)[:, None]
+    ni = torch.arange(n0, n0 + bn, device=device, dtype=torch.int64)[None, :]
+    h = (_mul32(ki & _M32, 0x9E3779B1) + _mul32(ni & _M32, 0x85EBCA77)) & _M32
+    h = h ^ sd
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return h >= keep_threshold(rate)
+
+
+def build_wd_weight_plain(w, u, v, seed, s: float, rate: float):
+    """Plain twin of :func:`build_wd_weight`: the rank-r product in fp32,
+    masked and scaled, added to W in fp32 and rounded to ``w.dtype``."""
+    k, n = w.shape
+    d = u.float() @ v.float()
+    keep = hash_keep_plain(0, 0, k, n, seed, rate, w.device)
+    d = torch.where(keep, d * (s / (1.0 - rate)), torch.zeros_like(d))
+    return (w.float() + d).to(w.dtype)
+
+
+def zero_rank(x, k: int, n: int):
+    """Rank-0 (U, V) for a (K, N) site: the masked delta already sits in
+    the folded weight (the TPU wrappers' ``_zero_uv``)."""
+    return x.new_zeros((k, 0)), x.new_zeros((0, n))
+
+
+def _check_seed(name, seed, device):
+    if (not isinstance(seed, torch.Tensor) or seed.numel() != 1
+            or seed.dtype != torch.int32 or seed.device != device):
+        raise ValueError(f"{name}: the seed must be a one-element int32 "
+                         f"tensor on {device}")
+
+
+def _check_rank(name, r):
+    if not 1 <= r <= 64:
+        raise ValueError(f"{name}: the kernel takes ranks 1..64, got {r}")
+
+
+def build_wd_weight(w, u, v, seed, s: float, rate: float):
+    """Folded masked weight ``W'`` (K, N) in ``w.dtype``: W (K, N),
+    U (K, r), V (r, N); ``s`` the delta scale, ``rate`` the drop rate."""
+    global LAUNCHES
+    k, n = w.shape
+    r = u.shape[1]
+    if u.shape != (k, r) or v.shape != (r, n):
+        raise ValueError(f"build_wd_weight shapes: w {tuple(w.shape)} u "
+                         f"{tuple(u.shape)} v {tuple(v.shape)}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"drop rate must be in [0, 1), got {rate}")
+    if w.device.type == "cpu":
+        return build_wd_weight_plain(w, u, v, seed, s, rate)
+    if w.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w.device}")
+    _build.check_cuda_inputs("wd_fold", w.device, w=w, u=u, v=v)
+    _check_seed("wd_fold", seed, w.device)
+    _check_rank("wd_fold", r)
+    if n % 8:
+        raise ValueError(f"wd_fold needs N % 8 == 0, got N={n}")
+    out = torch.empty_like(w)
+    code = _build.lib().cara_wd_fold(
+        w.data_ptr(), u.data_ptr(), v.data_ptr(), seed.data_ptr(),
+        out.data_ptr(), k, n, r, float(s / (1.0 - rate)),
+        keep_threshold(rate), _build.stream_ptr(w.device))
+    _build.check(code, "wd_fold")
+    LAUNCHES += 1
+    return out
+
+
+def masked_factor_grads_plain(dt, u, v, seed, s: float, rate: float,
+                              work_dtype):
+    """Plain twin of the masked finish: dt (K, N) fp32 -> (dU (K, r),
+    dV (r, N)) fp32, with ``dtc`` rounded to ``work_dtype``."""
+    k, n = dt.shape
+    keep = hash_keep_plain(0, 0, k, n, seed, rate, dt.device)
+    dtc = torch.where(keep, dt * (s / (1.0 - rate)), torch.zeros_like(dt))
+    dtc = dtc.to(work_dtype).float()
+    return dtc @ v.float().t(), u.float().t() @ dtc
+
+
+def masked_factor_grads_cuda(dt_parts, u, v, seed, s: float, rate: float):
+    """Launch ``csrc/wd_factor_grads.cu`` on ``dt_parts`` (S, K, N) fp32,
+    the split partial planes of dT summed in order (no launch count: the
+    block backward wrappers call this directly)."""
+    parts, k, n = dt_parts.shape
+    r = u.shape[1]
+    dev = dt_parts.device
+    _build.check_cuda_inputs("wd_factor_grads", dev, u=u, v=v)
+    _check_seed("wd_factor_grads", seed, dev)
+    _check_rank("wd_factor_grads", r)
+    if (dt_parts.dtype != torch.float32 or not dt_parts.is_contiguous()
+            or u.shape != (k, r) or v.shape != (r, n)):
+        raise ValueError("wd_factor_grads wants contiguous fp32 (S, K, N) "
+                         "dT parts, u (K, r) and v (r, N)")
+    du = torch.empty((k, r), device=dev, dtype=torch.float32)
+    dv = torch.empty((r, n), device=dev, dtype=torch.float32)
+    dv_part = torch.empty(((k + 7) // 8, r, n), device=dev,
+                          dtype=torch.float32)
+    du_part = torch.empty(((n + 255) // 256, k, r), device=dev,
+                          dtype=torch.float32)
+    code = _build.lib().cara_wd_factor_grads(
+        dt_parts.data_ptr(), parts, u.data_ptr(), v.data_ptr(),
+        seed.data_ptr(), du.data_ptr(), dv.data_ptr(), dv_part.data_ptr(),
+        du_part.data_ptr(), k, n, r, float(s / (1.0 - rate)),
+        keep_threshold(rate), _build.stream_ptr(dev))
+    _build.check(code, "wd_factor_grads")
+    return du, dv

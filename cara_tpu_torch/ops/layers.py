@@ -1,8 +1,8 @@
-"""Basic functional layers (port of ``cara_tpu/ops/layers.py``, eval subset).
+"""Basic functional layers (port of ``cara_tpu/ops/layers.py``, subset).
 
-Only what the serving forward needs: LayerNorm with fp32 statistics and the
-exact-erf GELU.  Dropout and drop-path are identities in eval and come with
-the training slice.
+LayerNorm with fp32 statistics, the exact-erf GELU and its derivative.
+Drop-path rides the block kernels as a per-image gate
+(``models/vit.py``); activation dropout is not ported.
 """
 
 from __future__ import annotations
@@ -41,4 +41,15 @@ def activation(x: torch.Tensor, name: str) -> torch.Tensor:
         return gelu(x)
     if name == "quick_gelu":
         return quick_gelu(x)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def activation_grad(y: torch.Tensor, name: str) -> torch.Tensor:
+    """d(act)/dy at the pre-activation ``y`` (``cp_dense._act_grad``)."""
+    if name == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(y * 0.7071067811865476))
+        return cdf + y * torch.exp(-0.5 * y * y) * 0.3989422804014327
+    if name == "quick_gelu":
+        sig = torch.sigmoid(1.702 * y)
+        return sig + 1.702 * y * sig * (1.0 - sig)
     raise ValueError(f"unknown activation {name!r}")

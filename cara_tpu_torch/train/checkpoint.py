@@ -1,5 +1,5 @@
-"""Single-file npz model checkpoints (port of ``cara_tpu/train/checkpoint.py``,
-the model-file subset).
+"""Single-file npz model checkpoints and the best-checkpoint keeper (port
+of ``cara_tpu/train/checkpoint.py``; the resume snapshots are not ported).
 
 The format is the JAX package's: one ``.npz`` whose keys are the
 ``/``-joined paths of the nested tree under ``params/`` (backbone + head)
@@ -11,6 +11,8 @@ either package writes loads in the other.  Trees load as numpy arrays;
 from __future__ import annotations
 
 import json
+import os
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -26,6 +28,14 @@ def _to_numpy(leaf) -> np.ndarray:
             t = t.float()
         return t.numpy()
     return np.asarray(leaf)
+
+
+def to_numpy_tree(tree):
+    """The same nested dict with every tensor copied to a host numpy array
+    (bf16 as fp32)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    return None if tree is None else _to_numpy(tree)
 
 
 def flatten_tree(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -96,3 +106,52 @@ def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
         cp_order=int(cp_order if cp_order is not None
                      else meta.get("cp_order", 4)),
         weight_dropout=float(meta.get("weight_dropout", 0.1)))
+
+
+class BestCheckpointKeeper:
+    """Best-accuracy rotation with the reference filename convention
+    (save the new best, delete the previous one, ``vit_cp.py:61-66``):
+    ``vit_{dataset}_{acc}_seed_{seed}.npz`` in ``out_dir``.
+
+    ``update`` copies the trees to host memory before it returns (the
+    optimizer then updates the trainables in place); the file is written
+    on a background thread, at most one write in flight, and ``wait()``
+    joins it."""
+
+    def __init__(self, out_dir: str, dataset: str, seed: int):
+        self.out_dir = out_dir
+        self.dataset = dataset
+        self.seed = seed
+        self.best_acc = 0.0
+        self.best_path: Optional[str] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    @staticmethod
+    def _write(new_path, params, cara_params, meta, old_path) -> None:
+        save_model(new_path, params, cara_params, meta)
+        if old_path and os.path.exists(old_path):
+            os.remove(old_path)
+
+    def update(self, acc: float, params, cara_params,
+               meta=None) -> Optional[str]:
+        if acc <= self.best_acc:
+            return None
+        self.wait()
+        self.best_acc = acc
+        new_path = os.path.join(
+            self.out_dir,
+            f"vit_{self.dataset}_{round(acc, 5)}_seed_{self.seed}.npz")
+        os.makedirs(self.out_dir, exist_ok=True)
+        args = (new_path, to_numpy_tree(params), to_numpy_tree(cara_params),
+                {**(meta or {}), "acc": acc, "seed": self.seed},
+                self.best_path)
+        self.best_path = new_path
+        self._thread = threading.Thread(target=self._write, args=args,
+                                        daemon=True)
+        self._thread.start()
+        return new_path

@@ -10,9 +10,11 @@ on a machine with one GPU and ``nvcc``::
 no JAX.)  The shapes are small and ragged on purpose: token counts that
 are not multiples of 16, masked keys, row counts that are not multiples
 of the 128-row GEMM tile, ranks that are not multiples of 16, head
-widths 16, 32 and 64.  Inputs are bf16 from a seeded generator; the
-reference is the plain version in fp32 on the same inputs with TF32 off,
-held to ``chip_smoke.KERNEL_TOL``.
+widths 16, 32 and 64; for the training kernels zero drop-path gates and
+the weight-dropout fold's keep pattern, bit for bit.  Inputs are bf16 from
+a seeded generator; the reference is the plain version in fp32 on the
+same inputs with TF32 off, held to ``chip_smoke.KERNEL_TOL`` (and
+``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2`` for gradients).
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from cara_tpu_torch.models import convert
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models import vit as t_vit
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
+from cara_tpu_torch.ops.cuda import wd_fold
 
 pytestmark = pytest.mark.cuda
 
@@ -51,19 +54,78 @@ def _check(name, out, ref):
     assert (err <= atol + rtol * ref.abs()).all(), (name, err.max().item())
 
 
+def _launches(name):
+    mod, attr = chip_smoke.KERNELS[name][:2]
+    return getattr(mod, attr)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=["dh64", "dh32", "dh16"])
 def test_kernels_match_plain(dev, shape):
     b, n, n_real, e, heads, hidden, r = shape
     inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
                                    hidden=hidden, r=r, seed=1, n_real=n_real)
     for name, (kern, _, ref32) in chip_smoke.kernel_calls(inp).items():
-        mod = chip_smoke.KERNEL_MODULES[name]
-        before = mod.LAUNCHES
-        with torch.inference_mode():
-            out = kern()
-            torch.cuda.synchronize()
-            _check(name, out, ref32())
-        assert mod.LAUNCHES == before + 1, name
+        before = _launches(name)
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+        # the fold entry folds the four sites of a layer
+        want = 4 if name == "build_wd_weight" else 1
+        assert _launches(name) == before + want, name
+
+
+# (b, n, n_real, e, heads, hidden, r): the training kernels at N 17 and
+# 197, ranks 5 and 8, head widths 64 and 32; M = b*n is not a multiple of
+# the 128-row GEMM tile; one drop-path gate is zero.
+TRAIN_SHAPES = [(3, 17, 17, 128, 2, 512, 5), (2, 197, 197, 256, 8, 1024, 8)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=["n17_dh64_r5",
+                                                     "n197_dh32_r8"])
+def test_training_kernels_match_plain(dev, shape):
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=4, n_real=n_real,
+                                   zero_gates=1)
+    chip_smoke.wd_keep_check(dev, inp)
+    calls = chip_smoke.kernel_calls(inp)
+    for name in chip_smoke.TRAINING_KERNELS:
+        kern, _, ref32 = calls[name]
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+    # a zero gate passes the residual and its cotangent through untouched
+    dx = calls["cp_attn_block_wd_bwd"][0]()["x"]
+    assert torch.equal(dx[0], inp["g_attn"][0])
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+def test_wd_fold_keep_pattern_is_exact(dev, rate):
+    for (k, n, r), seed in zip([(64, 192, 5), (200, 72, 8), (768, 2304, 8)],
+                               [-2 ** 31, 12345, 2 ** 31 - 1]):
+        sd = torch.tensor([[seed]], dtype=torch.int32, device=dev)
+        out = wd_fold.build_wd_weight(
+            torch.zeros((k, n), device=dev, dtype=torch.bfloat16),
+            torch.ones((k, r), device=dev, dtype=torch.bfloat16),
+            torch.ones((r, n), device=dev, dtype=torch.bfloat16), sd, 1.0,
+            rate)
+        keep = wd_fold.hash_keep_plain(0, 0, k, n, sd, rate, dev)
+        assert torch.equal(out != 0, keep), (k, n, seed)
+
+
+def test_train_step_on_card_matches_plain(dev):
+    """A tiny model's train step through the kernels: every gradient
+    within chip_smoke's bound of the fp32 plain path, and two steps."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model="vit_tiny_test", batch=6, rank=4)
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    before = _launches("cp_mlp_block_wd_bwd")
+    _, losses, _, _ = chip_smoke.fixed_batch_steps(
+        cfg, cc, frozen, state, data, g, 2)
+    assert np.isfinite(losses).all()
+    assert _launches("cp_mlp_block_wd_bwd") == before + 2 * cfg.depth
 
 
 def test_gate_and_scale(dev):
@@ -75,8 +137,8 @@ def test_gate_and_scale(dev):
     a, m = inp["attn"], inp["mlp"]
     a["dpm"] = gate.reshape(4, 1).bfloat16()
     m["dpm"] = gate.reshape(4, 1, 1).bfloat16()
-    attn = chip_smoke.KERNEL_MODULES["cp_attn_block"]
-    mlp = chip_smoke.KERNEL_MODULES["cp_mlp_block"]
+    attn = chip_smoke.KERNELS["cp_attn_block"][0]
+    mlp = chip_smoke.KERNELS["cp_mlp_block"][0]
     with torch.inference_mode():
         out = attn.cp_attn_block(*(a[k] for k in chip_smoke.ATTN_ARGS), 2,
                                  inp["sm"], 29, 2.0)
