@@ -66,19 +66,22 @@ def build_model(
     backbone_path: Optional[str] = None,
     cp_order: int = 4,
     weight_dropout: Optional[float] = None,
+    weight_dropout_impl: str = "element",
     model_overrides: Optional[Dict[str, Any]] = None,
 ) -> CaraModel:
     """Backbone (the npz at ``backbone_path`` when it exists, else random)
     + CaRA adapter + a fresh head of ``num_classes``, as the reference
     training script builds them (``vit_cp.py:155-166``).  ``weight_dropout=None``
-    is the reference's 0.1.  Other adapter methods, delta paths and
-    weight-dropout forms are not ported (ROADMAP.md queue 1)."""
+    is the reference's 0.1; ``weight_dropout_impl`` is "element" (the
+    reference's), "rank" or "row".  Other adapter methods and delta paths
+    are not ported (ROADMAP.md queue 1)."""
     cfg = get_model_config(model_name, **(model_overrides or {}))
     if num_classes is not None:
         cfg = dataclasses.replace(cfg, num_classes=num_classes)
     cara_cfg = CaraConfig(
         rank=rank, scale=scale, l_mu=l_mu, l_std=l_std, cp_order=cp_order,
-        weight_dropout=0.1 if weight_dropout is None else weight_dropout)
+        weight_dropout=0.1 if weight_dropout is None else weight_dropout,
+        weight_dropout_impl=weight_dropout_impl)
     # A given num_classes always gets a fresh head; otherwise the npz's
     # own head is kept where its width matches.
     load_cfg = cfg if num_classes is None else dataclasses.replace(

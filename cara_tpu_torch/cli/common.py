@@ -16,13 +16,14 @@ import torch
 
 from cara_tpu_torch.config import ViTConfig
 from cara_tpu_torch.data.vtab import VTAB_TASKS
+from cara_tpu_torch.models.vit import WEIGHT_DROPOUT_IMPLS
 
 DATASET_CHOICES = sorted(VTAB_TASKS)
 
 _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 _PARALLEL = "ROADMAP.md queue 1: parallelism"
 _TRAIN = "ROADMAP.md queue 1: training modules still to port"
-_SPLIT = "ROADMAP.md queue 2: the split path (rows 13, 12, 1/2)"
+_SPLIT = "ROADMAP.md queue 2: the other attention and dense routes"
 # dest -> (default, where the feature stands).
 UNPORTED = {
     "merged_eval": (False, "ROADMAP.md queue 1: cli/export.py and merged "
@@ -33,8 +34,6 @@ UNPORTED = {
     "adapter_dropout": (None, _PEFT), "moe": (None, _PEFT),
     "delta_impl": ("factorized", "ROADMAP.md queue 1: CP orders and "
                    "dim_experiment"),
-    "weight_dropout_impl": ("element", "ROADMAP.md queue 2: rows 6 and 10, "
-                            "then the split path"),
     "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
     "dcn_mesh": (None, _PARALLEL), "pipeline": (None, _PARALLEL),
     "fsdp": (False, _PARALLEL), "distributed": (False, _PARALLEL),
@@ -79,10 +78,15 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="Compute dtype (trainables and optimizer stay fp32)")
     p.add_argument("--out-dir", default=".", type=str)
     p.add_argument("--log-every", default=10, type=int)
+    p.add_argument("--weight-dropout-impl", default="element",
+                   choices=WEIGHT_DROPOUT_IMPLS,
+                   help="Weight-dropout semantics: exact element-wise on "
+                        "the dense delta (the reference's), or the "
+                        "structured rank-component / input-row masks")
     p.add_argument("--device", default=None, type=str,
-                   help="torch device (default: cuda when a card is "
-                        "present, else cpu; a CPU run takes the plain "
-                        "versions of the kernels)")
+                   help="torch device (default: cuda, which needs a card; "
+                        "--device cpu runs the plain versions of the "
+                        "kernels)")
     # The JAX CLI's other flags: parsed, refused unless at their default.
     p.add_argument("--method", default="cara", type=str)
     p.add_argument("--lora-alpha", default=None, type=float)
@@ -92,7 +96,6 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--adapter-scale", default=None, type=float)
     p.add_argument("--adapter-dropout", default=None, type=float)
     p.add_argument("--delta-impl", default="factorized", type=str)
-    p.add_argument("--weight-dropout-impl", default="element", type=str)
     p.add_argument("--mesh", default=None, type=str)
     p.add_argument("--moe", default=None, type=str)
     p.add_argument("--hbm-gb", default=None, type=float)
@@ -126,8 +129,14 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 def resolve_device(name) -> torch.device:
+    """``--device``; by default the card, and an error where there is
+    none: the CPU runs only when asked for."""
     if name is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device found: pass --device cpu to "
+                             "run the plain versions of the kernels on the "
+                             "CPU")
+        return torch.device("cuda")
     return torch.device(name)
 
 

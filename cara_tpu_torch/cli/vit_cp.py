@@ -1,9 +1,10 @@
 """Main train/eval CLI (port of ``cara_tpu/cli/vit_cp.py``): published
-order-4 CaRA with exact element-wise weight dropout.
+order-4 CaRA with exact element-wise weight dropout, or the structured
+rank / row weight dropout (``--weight-dropout-impl``).
 
     python -m cara_tpu_torch.cli.vit_cp --synthetic --dataset svhn \\
         --model vit_base_patch16_224_in21k --dim 8 [--backbone X.npz] \\
-        [--device cuda]
+        [--weight-dropout-impl rank] [--device cpu]
 
 Trains on the card through the port's kernels (bf16 compute, fp32
 trainables), evaluates every 10 epochs through the serving kernels and
@@ -61,7 +62,7 @@ def main(argv=None) -> float:
         args.model, rank=args.dim, scale=hp.scale, l_mu=hp.init_mean,
         l_std=hp.init_std, num_classes=num_classes, seed=seed,
         backbone_path=args.backbone, weight_dropout=weight_dropout,
-        model_overrides=mo)
+        weight_dropout_impl=args.weight_dropout_impl, model_overrides=mo)
     train_loader, eval_loader = vtab_lib.get_data(
         args.dataset, root=args.data_root, evaluate=True,
         batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,

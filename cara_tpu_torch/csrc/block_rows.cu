@@ -10,7 +10,8 @@
 //                    normalized row, kept for dT1 = xa^T dqkv / xa^T dpre)
 //   gate_rows        g2 = bf16(g * dpm[row])         (the drop-path gate)
 //   ln_bwd_residual  dx = bf16(g + LN'(x) . dxa)     (_ln_input_bwd + the
-//                    residual path of the cotangent)
+//                    residual path of the cotangent; g null: no residual,
+//                    the LayerNorm input-backward of _cp_dense_dx_kernel)
 //   colsum           fp32 column sums (bias cotangents), two passes in a
 //                    fixed order, no atomics
 //
@@ -110,8 +111,8 @@ __global__ void ln_bwd_residual_kernel(const __nv_bfloat16* __restrict__ x,
   for (int k = lane; k < K; k += 32) {
     const float xn = (bf(xr[k]) - mu) * rs;
     const float dyg = dr[k] * bf(ls[k]);
-    out[off + k] =
-        __float2bfloat16(bf(g[off + k]) + rs * (dyg - m1 - xn * m2));
+    const float res = g ? bf(g[off + k]) : 0.f;
+    out[off + k] = __float2bfloat16(res + rs * (dyg - m1 - xn * m2));
   }
 }
 
@@ -165,7 +166,7 @@ extern "C" int cara_gate_rows(const void* g, const void* dpm, void* out,
 }
 
 // dx (M, K) bf16 from x (M, K) bf16, dxa (M, K) fp32, ln_scale (K,) bf16
-// and the residual cotangent g (M, K) bf16.
+// and the residual cotangent g (M, K) bf16 (null: none).
 extern "C" int cara_ln_bwd_residual(const void* x, const void* dxa,
                                     const void* ls, const void* g, void* out,
                                     int M, int K, float eps,

@@ -28,6 +28,11 @@
 // as one more tensor-core step on its accumulators.  The rank is the true
 // rank (zero-padded to the 64-deep k step inside the block): the TPU's
 // padding of r to 128 lanes is not ported.
+//
+// cara_rank_z exposes the pre-pass on its own, for the backward kernels:
+// gv = bf16(g V^T) and z = bf16(x U), the rank-space operands of
+// _cp_dense_dx_kernel (cp_dense.py) and _mlp_bwd_kernel (cp_mlp.py),
+// written 64 wide for grad_gemm.cu's rank step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +115,7 @@ struct SiteArgs {
   __nv_bfloat16* out;
   int M, K, N, r;
   int has_ln, act, has_res;
+  int u_trans;  // pre-pass only: U given as (r, K), z = pro(x) @ U^T
   float s;
 };
 
@@ -175,17 +181,27 @@ site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
         ln8(raw[it], p.mean[gm], p.rstd[gm], lsv, lbv);
       *reinterpret_cast<uint4*>(&As[row * ZA_LD + zcol]) = raw[it];
     }
-    // U rows k0 .. k0+kw are kw*r contiguous values (a multiple of 8):
-    // 16-byte loads, scattered into the (kk, j) layout; the padding
-    // columns j >= r were zeroed before the loop.
-    for (int v = tid; v < kw * p.r / 8; v += ZTHREADS) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          u + (size_t)k0 * p.r + v * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    if (p.u_trans) {
+      // U^T rows: columns k0 .. k0+kw of each of the r rows of (r, K),
+      // read along k (coalesced), written transposed.
+      for (int idx = tid; idx < p.r * kw; idx += ZTHREADS) {
+        const int j = idx / kw;
+        const int kk = idx % kw;
+        Us[kk * ULD + j] = u[(size_t)j * p.K + k0 + kk];
+      }
+    } else {
+      // U rows k0 .. k0+kw are kw*r contiguous values (a multiple of 8):
+      // 16-byte loads, scattered into the (kk, j) layout; the padding
+      // columns j >= r were zeroed before the loop.
+      for (int v = tid; v < kw * p.r / 8; v += ZTHREADS) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            u + (size_t)k0 * p.r + v * 8);
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int flat = v * 8 + q;
-        Us[(flat / p.r) * ULD + flat % p.r] = e[q];
+        for (int q = 0; q < 8; ++q) {
+          const int flat = v * 8 + q;
+          Us[(flat / p.r) * ULD + flat % p.r] = e[q];
+        }
       }
     }
     __syncthreads();
@@ -534,6 +550,7 @@ extern "C" int cara_cp_site(
   p.has_ln = has_ln;
   p.act = act;
   p.has_res = has_res;
+  p.u_trans = 0;
   p.s = s;
   if (has_ln) {
     const int rows_per_block = 8;
@@ -556,5 +573,28 @@ extern "C" int cara_cp_site(
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   site_gemm_kernel<<<grid, THREADS, GEMM_SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rank pre-pass alone: z (M, 64) bf16 = bf16(x @ U), zero past r, for
+// x (M, K) bf16 and U (K, r), or U^T with u_trans (U given as (r, K)).
+// Needs K % 64 == 0, 1 <= r <= 64 and 16-byte aligned pointers; the Python
+// wrapper checks.  Returns cudaGetLastError().
+extern "C" int cara_rank_z(const void* x, const void* u, void* z, int M,
+                           int K, int r, int u_trans, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (r < 1 || r > ZW || K % BK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SiteArgs p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.M = M;
+  p.K = K;
+  p.r = r;
+  p.u_trans = u_trans;
+  const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
+  __nv_bfloat16* zz = static_cast<__nv_bfloat16*>(z);
+  if (r <= 16) launch_z<16>(p, uu, zz, stream);
+  else if (r <= 32) launch_z<32>(p, uu, zz, stream);
+  else launch_z<64>(p, uu, zz, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,16 @@
 //   DGELU     dpre = acc * gelu'(AUX),  C16 = bf16(dpre),  plus per-block
 //             fp32 column sums of dpre (the fc1 bias cotangent)
 //
+// NN and NT take an optional rank step: one more BK-deep k-tile on the
+// same accumulators, acc += A2 . B2, where A2 (M, 64) is the rank
+// pre-pass output (bf16(x U) or bf16(g V^T), zero past the rank r) and B2
+// the other rank factor, the delta scale folded in by the caller (NN:
+// V (r, N); NT: U (N, r8), r8 = r rounded up to 8).  That is the TPU
+// kernels' rank-space delta: _cp_dense_dx_kernel's
+// g W^T + s (g V^T) U^T (cp_dense.py, row 12) and _mlp_bwd_kernel's fc1
+// recompute, dh and dxa (cp_mlp.py, row 10).  The delta is never folded
+// into a dense W + s U V, which would round it at W's scale.
+//
 // Replaces the products inside cara_tpu/ops/pallas/cp_attn_block.py
 // _attn_block_bwd_wd_kernel (qkv recompute, g wp'^T, dqkv wq'^T, o^T g,
 // xa^T dqkv) and cara_tpu/ops/pallas/cp_mlp.py _mlp_bwd_wd_kernel (pre
@@ -66,8 +76,11 @@ struct GemmArgs {
   const __nv_bfloat16* bias2;
   const float* aux;  // DGELU: the fp32 pre-activation (M, N)
   float* colpart;    // DGELU: (gridDim.y, N) column sums of dpre
+  const __nv_bfloat16* a2;  // rank step (NN, NT): A2 (M, BK), or null
+  const __nv_bfloat16* b2;  // NN: (r2, N); NT: (N, ldb2), r2 % 8 == 0
   int M, N, K;
   int k_split;       // contraction rows per blockIdx.z
+  int r2, ldb2;      // depth of the rank step, NT row stride of B2
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -175,6 +188,44 @@ __device__ __forceinline__ void load_stage(const GemmArgs& p,
   }
 }
 
+// Stage the rank step's tiles: A2 as [m][k] (BK wide, zero past the rank
+// already), B2 as [k][n] (NN, rows >= r2 zero-filled) or [n][k] (NT,
+// columns >= r2 zero-filled).
+template <int L>
+__device__ __forceinline__ void load_rank_stage(const GemmArgs& p,
+                                                __nv_bfloat16* as,
+                                                __nv_bfloat16* bs, int m0,
+                                                int n0, int tid) {
+  constexpr int V = BM * BK / 8 / THREADS;
+#pragma unroll
+  for (int it = 0; it < V; ++it) {
+    const int vec = tid + it * THREADS;
+    {
+      const int row = vec / (BK / 8);
+      const int col = (vec % (BK / 8)) * 8;
+      const int gm = m0 + row;
+      const bool ok = gm < p.M;
+      cp_async16(as + row * (BK + PAD) + col,
+                 ok ? p.a2 + (size_t)gm * BK + col : p.a2, ok);
+    }
+    if (L == NT) {
+      const int row = vec / (BK / 8);
+      const int col = (vec % (BK / 8)) * 8;
+      const int gn = n0 + row;
+      const bool ok = gn < p.N && col < p.r2;
+      cp_async16(bs + row * (BK + PAD) + col,
+                 ok ? p.b2 + (size_t)gn * p.ldb2 + col : p.b2, ok);
+    } else {
+      const int row = vec / (BN / 8);
+      const int col = (vec % (BN / 8)) * 8;
+      const int gn = n0 + col;
+      const bool ok = row < p.r2 && gn < p.N;
+      cp_async16(bs + row * (BN + PAD) + col,
+                 ok ? p.b2 + (size_t)row * p.N + gn : p.b2, ok);
+    }
+  }
+}
+
 // One BK-deep step of the warp's 64 x 32 tile.  The mma's A fragment is
 // (m16 x k16, row): ldmatrix from [m][k], ldmatrix.trans from [k][m].  Its
 // B fragment is (k16 x n8, col): ldmatrix.trans from [k][n], ldmatrix from
@@ -183,9 +234,10 @@ template <int L>
 __device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
                                          const __nv_bfloat16* as,
                                          const __nv_bfloat16* bs, int wr,
-                                         int wc, int lane) {
+                                         int wc, int lane, int kmax) {
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
+    if (kk >= kmax) break;  // the rank step's all-zero k16 slices
     unsigned af[MI][4], bfr[NJ][2];
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
@@ -244,28 +296,33 @@ grad_gemm_kernel(const GemmArgs p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
+  // Tile KT (when a2 is set) is the rank step.
+  const bool rank = L != TN && p.a2 != nullptr;
+  const int KT_ALL = KT + (rank ? 1 : 0);
+  auto stage = [&](int slot, int kt) {
+    __nv_bfloat16* as = sm + (2 * slot) * TILE;
+    __nv_bfloat16* bs = sm + (2 * slot + 1) * TILE;
+    if (kt == KT)
+      load_rank_stage<L>(p, as, bs, m0, n0, tid);
+    else
+      load_stage<L>(p, as, bs, m0, n0, kbeg + kt * BK, kend, tid);
+  };
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < KT)
-      load_stage<L>(p, sm + (2 * st) * TILE, sm + (2 * st + 1) * TILE, m0, n0,
-                    kbeg + st * BK, kend, tid);
+    if (st < KT_ALL) stage(st, st);
     cp_async_commit();
   }
-  for (int kt = 0; kt < KT; ++kt) {
+  for (int kt = 0; kt < KT_ALL; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     // Refill the slot consumed in the previous iteration: every warp is
     // past that iteration's products (barrier above).
     const int nk = kt + STAGES - 1;
-    if (nk < KT) {
-      const int ns = nk % STAGES;
-      load_stage<L>(p, sm + (2 * ns) * TILE, sm + (2 * ns + 1) * TILE, m0, n0,
-                    kbeg + nk * BK, kend, tid);
-    }
+    if (nk < KT_ALL) stage(nk % STAGES, nk);
     cp_async_commit();
     const int st = kt % STAGES;
     warp_mma<L>(acc, sm + (2 * st) * TILE, sm + (2 * st + 1) * TILE, wr, wc,
-                lane);
+                lane, kt < KT ? BK : p.r2);
   }
   cp_async_wait<0>();
 
@@ -366,17 +423,21 @@ int launch(const GemmArgs& p, int splits, cudaStream_t stream) {
 
 }  // namespace
 
-// C = op(A) . op(B) with the given layout (0 NN, 1 NT, 2 TN) and epilogue
-// (0 F32, 1 BF16, 2 PRE_GELU, 3 DGELU); see the head comment for the
-// operand shapes.  `splits` > 1 (TN, F32 only) writes `splits` partial
-// (M, N) planes, each over a contiguous range of the contraction.  Needs
-// M (TN), N and K (NN, NT) multiples of 8 and 16-byte aligned pointers;
-// the wrapper checks.  Returns cudaGetLastError().
+// C = op(A) . op(B) [+ A2 . B2] with the given layout (0 NN, 1 NT,
+// 2 TN) and epilogue (0 F32, 1 BF16, 2 PRE_GELU, 3 DGELU); see the head
+// comment for the operand shapes.  `splits` > 1 (TN, F32 only) writes
+// `splits` partial (M, N) planes, each over a contiguous range of the
+// contraction.  a2 (NN, NT only, null for none) adds the rank step of
+// depth r2 <= 64 (a multiple of 8 for NT, with B2's row stride ldb2).
+// Needs M (TN), N and K (NN, NT) multiples of 8 and 16-byte aligned
+// pointers; the wrapper checks.  Returns cudaGetLastError().
 extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
                               const void* b, void* c32, void* c16,
                               const void* bias1, const void* bias2,
-                              const void* aux, void* colpart, int M, int N,
-                              int K, int splits, void* stream_ptr) {
+                              const void* aux, void* colpart, const void* a2,
+                              const void* b2, int M, int N, int K,
+                              int splits, int r2, int ldb2,
+                              void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   GemmArgs p;
   p.a = static_cast<const __nv_bfloat16*>(a);
@@ -387,10 +448,18 @@ extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
   p.bias2 = static_cast<const __nv_bfloat16*>(bias2);
   p.aux = static_cast<const float*>(aux);
   p.colpart = static_cast<float*>(colpart);
+  p.a2 = static_cast<const __nv_bfloat16*>(a2);
+  p.b2 = static_cast<const __nv_bfloat16*>(b2);
   p.M = M;
   p.N = N;
   p.K = K;
+  p.r2 = r2;
+  p.ldb2 = ldb2;
   if (splits < 1 || (splits > 1 && !(layout == TN && epi == EPI_F32)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a2 != nullptr &&
+      (layout == TN || b2 == nullptr || r2 < 1 || r2 > BK ||
+       (layout == NT && (r2 % 8 || ldb2 < r2 || ldb2 % 8))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int per = (K + splits - 1) / splits;
   p.k_split = splits > 1 ? (per + BK - 1) / BK * BK : K;

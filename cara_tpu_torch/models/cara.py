@@ -11,7 +11,7 @@ rows per layer (1 projection row, ``mlp_ratio`` MLP-up rows, then
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -66,42 +66,50 @@ def stacked_layer_slices(params: Dict[str, torch.Tensor], model: ViTConfig,
 
 
 def qkv_uv(params: Dict[str, torch.Tensor], f1: torch.Tensor,
-           model: ViTConfig, cara: CaraConfig):
+           model: ViTConfig, cara: CaraConfig,
+           comp_mask: Optional[torch.Tensor] = None):
     """Collapse the qkv CP factors into ``delta = (x @ U) @ V`` with
-    U (E, r) and V (r, 3E), the V columns out-flat (3, H, Dh)."""
+    U (E, r) and V (r, 3E), the V columns out-flat (3, H, Dh).
+    ``comp_mask`` (r,) multiplies lambda (rank weight dropout)."""
     e, r = model.embed_dim, cara.rank
     order = cara.cp_order
     if order == 4:
-        lam = params["R1"]
+        lam = params["R1"] if comp_mask is None else params["R1"] * comp_mask
         m = ((f1 * lam[None, :])[:, None, None, :]
              * params["A3"][None, :, None, :]
              * params["A4"][None, None, :, :])
         return params["A2"], m.reshape(3 * e, r).T
     if order == 5:
         lam = params["R1"] * f1[0]
+        if comp_mask is not None:
+            lam = lam * comp_mask
         m = ((params["A2"] * lam[None, :])[:, None, None, :]
              * params["A4"][None, :, None, :]
              * params["A5"][None, None, :, :])
         return params["A3"], m.reshape(3 * e, r).T
     if order == 3:
-        m = (f1 * params["R1"][None, :])[:, None, :] * params["A3"][None]
+        lam = params["R1"] if comp_mask is None else params["R1"] * comp_mask
+        m = (f1 * lam[None, :])[:, None, :] * params["A3"][None]
         return params["A2"], m.reshape(3 * e, r).T
     raise ValueError(f"qkv_uv unsupported for cp_order={order}")
 
 
-def rows_out_uv(p1, p2, p3, r2):
+def rows_out_uv(p1, p2, p3, r2, comp_mask=None):
     """(U, V) for the ``x @ T.T`` sites (projection, MLP up):
-    U = p3 (E, r), V (r, rows*E)."""
+    U = p3 (E, r), V (r, rows*E); ``comp_mask`` multiplies lambda."""
+    lam = r2 if comp_mask is None else r2 * comp_mask
     rows, r = p1.shape
     e = p2.shape[0]
-    v = ((p1 * r2[None, :])[:, None, :] * p2[None, :, :]).reshape(
+    v = ((p1 * lam[None, :])[:, None, :] * p2[None, :, :]).reshape(
         rows * e, r).T
     return p3, v
 
 
-def rows_in_uv(p1, p2, p3, r2):
-    """(U, V) for the ``x @ T`` site (MLP down): U (rows*E, r), V (r, E)."""
+def rows_in_uv(p1, p2, p3, r2, comp_mask=None):
+    """(U, V) for the ``x @ T`` site (MLP down): U (rows*E, r), V (r, E);
+    ``comp_mask`` multiplies lambda."""
+    lam = r2 if comp_mask is None else r2 * comp_mask
     rows, r = p1.shape
     e = p2.shape[0]
     u = (p1[:, None, :] * p2[None, :, :]).reshape(rows * e, r)
-    return u, r2[:, None] * p3.T
+    return u, lam[:, None] * p3.T

@@ -1,6 +1,6 @@
 """Forward of the Vision Transformer with optional CaRA adapters (port of
 ``cara_tpu/models/vit.py``): eval, and the training forward of the
-element-wise weight-dropout route.
+element-wise, rank, row and no weight-dropout routes.
 
 Layouts are the JAX package's: NHWC images, (in, out) kernels, blocks
 stacked on a leading layer axis, qkv columns out-flat (3, H, Dh).  The
@@ -21,13 +21,23 @@ the kernels are held against).  The TPU-only machinery of the reference
 (the 197 -> 200 stream pad, tile pickers, tune cache, ``CARA_*`` knobs)
 is not ported.
 
-Training (``train=True``) runs the route the TPU takes for the default
-training configuration (``_block`` with ``use_elem``): per layer
-:func:`cp_attn_block_wd` and :func:`cp_mlp_block_wd`, exact element-wise
-weight dropout on all four dense deltas, per-image drop-path gates with
-rates ``linspace(0, drop_path_rate, depth)``.  Per layer it draws four
-int32 mask seeds (``_wd_seed``) and two gates (``_dp_gate``) from a
-``torch.Generator`` on the device, or takes them from ``randomness``.
+Training (``train=True``) runs the routes the TPU takes (``_block``),
+with per-image drop-path gates of rates ``linspace(0, drop_path_rate,
+depth)``:
+
+* element-wise weight dropout (``use_elem``, the default): per layer
+  :func:`cp_attn_block_wd` and :func:`cp_mlp_block_wd`, the exact mask on
+  all four dense deltas;
+* rank or row weight dropout, or rate 0: the split attention path --
+  :func:`cp_dense_ln` for qkv, :func:`fused_qkv_attention`,
+  :func:`cp_dense` for the projection, ``x + proj * gate`` in the compute
+  dtype -- then :func:`cp_mlp_block`.  Rank masks (r,) multiply each
+  site's lambda (``_rank_comp``); row masks multiply the rows of each
+  site's U (``_row_u``).
+
+Per layer it draws four int32 mask seeds (``_wd_seed``), two gates
+(``_dp_gate``) and the rank or row masks from a ``torch.Generator`` on
+the device, or takes them from ``randomness``.
 """
 
 from __future__ import annotations
@@ -38,13 +48,16 @@ import torch
 
 from cara_tpu_torch.config import CaraConfig, ViTConfig
 from cara_tpu_torch.models import cara as cara_lib
+from cara_tpu_torch.ops.cp import weight_dropout_mask
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
+from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.layers import activation, layer_norm, linear
 
 Params = Dict[str, Any]
 IMPLS = ("auto", "plain")
+WEIGHT_DROPOUT_IMPLS = ("element", "rank", "row")
 # Where the training routes that are not ported yet stand (ROADMAP.md).
 _TODO = "ROADMAP.md queue 2"
 
@@ -66,11 +79,12 @@ def _layer(tree, i):
 
 
 def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
-           seeds=None, gates=None):
-    """One transformer block.  In eval (``seeds`` None) drop-path and
-    dropout are identities; in training ``seeds`` holds the layer's four
-    mask seeds (qkv, proj, fc1, fc2; int32 (4, 1, 1)) and ``gates`` its
-    two drop-path gates (attention, MLP; (2, B))."""
+           rand=None):
+    """One transformer block.  In eval (``rand`` None) drop-path and
+    dropout are identities; in training ``rand`` holds the layer's
+    randomness: ``seeds`` (qkv, proj, fc1, fc2; int32 (4, 1, 1)),
+    ``gates`` (attention, MLP; (2, B)) and, for the rank / row routes,
+    ``comp`` ((4, r) or None) or ``rows`` (four (K,) masks or None)."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -90,6 +104,12 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
 
     s = cara_cfg.scale
     dt = x.dtype
+    rate = cara_cfg.weight_dropout
+    use_elem = (rand is not None and cara_cfg.weight_dropout_impl == "element"
+                and rate > 0.0)
+    comp = rows = None
+    if rand is not None and not use_elem:
+        comp, rows = rand.get("comp"), rand.get("rows")
 
     def fold(t):  # the delta scale rides the factors; kernels run at s=1
         return (t * s).to(dt).contiguous()
@@ -97,39 +117,54 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     def cast(t):
         return t.to(dt).contiguous()
 
+    def site_uv(site, uv_fn, *args):
+        """The site's (U, V), rank mask on lambda, row mask on U's rows."""
+        u, v = uv_fn(*args, None if comp is None else comp[site])
+        if rows is not None:
+            u = u * rows[site][:, None]
+        return cast(u), fold(v)
+
     p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
-    u1, v1 = cara_lib.qkv_uv(cara_params, f1, cfg, cara_cfg)
-    u2, v2 = cara_lib.rows_out_uv(p1[0:1], p2, p3, r2)
+    u1, v1 = site_uv(0, cara_lib.qkv_uv, cara_params, f1, cfg, cara_cfg)
+    u2, v2 = site_uv(1, cara_lib.rows_out_uv, p1[0:1], p2, p3, r2)
     attn_args = (
-        x, bp["qkv"]["kernel"], bp["qkv"]["bias"], cast(u1), fold(v1),
-        bp["proj"]["kernel"], bp["proj"]["bias"], cast(u2), fold(v2),
+        x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1,
+        bp["proj"]["kernel"], bp["proj"]["bias"], u2, v2,
         fold(cara_params["bias1"]), bp["ln1_scale"], bp["ln1_bias"])
-    if seeds is None:
+    if rand is None:
         attn_block = (attn_mod.cp_attn_block_plain if plain
                       else attn_mod.cp_attn_block)
         x = attn_block(*attn_args, dpm, h, d ** -0.5, n, 1.0,
                        cfg.layernorm_eps)
-    else:
+    elif use_elem:
         x = attn_mod.cp_attn_block_wd(
-            *attn_args, gates[0].reshape(b, 1).to(dt), seeds[0], seeds[1],
-            h, d ** -0.5, n, 1.0, cara_cfg.weight_dropout,
+            *attn_args, rand["gates"][0].reshape(b, 1).to(dt),
+            rand["seeds"][0], rand["seeds"][1], h, d ** -0.5, n, 1.0, rate,
             cfg.layernorm_eps, impl=impl)
-    u3, v3 = cara_lib.rows_out_uv(p1[1:1 + mr], p2, p3, r2)
-    u4, v4 = cara_lib.rows_in_uv(p1[1 + mr:1 + 2 * mr], p2, p3, r2)
+    else:  # the split path (vit.py:691-873)
+        qkv = dense_mod.cp_dense_ln(
+            x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
+            bp["ln1_scale"], bp["ln1_bias"], 1.0, cfg.layernorm_eps,
+            impl=impl)
+        o = fqa_mod.fused_qkv_attention(qkv, h, d ** -0.5, n, impl=impl)
+        proj = dense_mod.cp_dense(o, *attn_args[5:10], 1.0, impl=impl)
+        x = x + proj * rand["gates"][0].reshape(b, 1, 1).to(dt)
+    u3, v3 = site_uv(2, cara_lib.rows_out_uv, p1[1:1 + mr], p2, p3, r2)
+    u4, v4 = site_uv(3, cara_lib.rows_in_uv, p1[1 + mr:1 + 2 * mr], p2, p3,
+                     r2)
     mlp_args = (
-        x, bp["fc1"]["kernel"], bp["fc1"]["bias"], cast(u3), fold(v3),
+        x, bp["fc1"]["kernel"], bp["fc1"]["bias"], u3, v3,
         fold(cara_params["bias2"]), bp["fc2"]["kernel"], bp["fc2"]["bias"],
-        cast(u4), fold(v4), fold(cara_params["bias3"]),
-        bp["ln2_scale"], bp["ln2_bias"])
-    if seeds is None:
-        mlp_block = (mlp_mod.cp_mlp_block_plain if plain
-                     else mlp_mod.cp_mlp_block)
-        return mlp_block(*mlp_args, dpm.reshape(b, 1, 1), 1.0,
-                         cfg.activation, cfg.layernorm_eps)
-    return mlp_mod.cp_mlp_block_wd(
-        *mlp_args, gates[1].reshape(b, 1, 1).to(dt), seeds[2], seeds[3],
-        1.0, cara_cfg.weight_dropout, cfg.activation, cfg.layernorm_eps,
-        impl=impl)
+        u4, v4, fold(cara_params["bias3"]), bp["ln2_scale"], bp["ln2_bias"])
+    if use_elem:
+        return mlp_mod.cp_mlp_block_wd(
+            *mlp_args, rand["gates"][1].reshape(b, 1, 1).to(dt),
+            rand["seeds"][2], rand["seeds"][3], 1.0, rate, cfg.activation,
+            cfg.layernorm_eps, impl=impl)
+    gate = (dpm.reshape(b, 1, 1) if rand is None
+            else rand["gates"][1].reshape(b, 1, 1).to(dt))
+    return mlp_mod.cp_mlp_block(*mlp_args, gate, 1.0, cfg.activation,
+                                cfg.layernorm_eps, impl=impl)
 
 
 def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
@@ -142,7 +177,7 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     if cfg.dropout_rate > 0.0 or cfg.attn_dropout_rate > 0.0:
         raise NotImplementedError(
             "activation / attention dropout in training is not yet ported "
-            f"({_TODO}: the split path, rows 13, 12, 1/2)")
+            f"({_TODO}: row 13's activation recompute, row 15 and mha)")
     if cara_cfg.method != "cara" or cara_cfg.moe:
         raise NotImplementedError(
             f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
@@ -152,24 +187,25 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
             "cp_order=2 and delta_impl='materialized' train on the "
             "materialized delta, not yet ported (ROADMAP.md queue 1: CP "
             "orders and dim_experiment)")
-    if cara_cfg.weight_dropout_impl != "element":
-        raise NotImplementedError(
-            f"weight_dropout_impl={cara_cfg.weight_dropout_impl!r} is not "
-            f"yet ported ({_TODO}: rows 6 and 10, then the split path)")
-    if cara_cfg.weight_dropout <= 0.0:
-        raise NotImplementedError(
-            "training with weight_dropout=0 runs the non-dropout block "
-            f"backward kernels, not yet ported ({_TODO}: rows 6 and 10)")
+    if cara_cfg.weight_dropout_impl not in WEIGHT_DROPOUT_IMPLS:
+        raise ValueError(
+            f"weight_dropout_impl must be one of {WEIGHT_DROPOUT_IMPLS}, "
+            f"got {cara_cfg.weight_dropout_impl!r}")
 
 
 def draw_randomness(cfg: ViTConfig, batch: int, device,
                     generator: Optional[torch.Generator],
-                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                    dtype: torch.dtype = torch.float32,
+                    cara_cfg: Optional[CaraConfig] = None) -> Dict[str, Any]:
     """Per-layer training randomness: ``seeds`` int32 (depth, 4, 1, 1) —
     the qkv, proj, fc1 and fc2 mask seeds, uniform over
     [-2**31, 2**31 - 1) as ``_wd_seed`` — and ``gates`` (depth, 2, B) in
     ``dtype``: ``bernoulli(1 - r) / (1 - r)`` with r from
-    ``linspace(0, drop_path_rate, depth)`` (``_dp_gate``)."""
+    ``linspace(0, drop_path_rate, depth)`` (``_dp_gate``).  With
+    ``cara_cfg`` at a rate above 0, the rank route adds ``comp`` (depth,
+    4, r) (``_rank_comp``) and the row route ``rows``, four (depth, K)
+    masks for the qkv, proj, fc1 (K = E) and fc2 (K = hidden) sites
+    (``_row_u``), all inverted masks in ``dtype``."""
     depth = cfg.depth
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (depth, 4, 1, 1),
                           generator=generator, device=device,
@@ -180,7 +216,19 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
         probs = torch.full((2, batch), keep.item(), device=device)
         mask = torch.bernoulli(probs, generator=generator)
         gates.append(mask.to(dtype) / keep.to(dtype).to(device))
-    return {"seeds": seeds, "gates": torch.stack(gates)}
+    out = {"seeds": seeds, "gates": torch.stack(gates)}
+    if cara_cfg is None:
+        return out
+    rate = cara_cfg.weight_dropout
+    if cara_cfg.weight_dropout_impl == "rank" and rate > 0.0:
+        out["comp"] = weight_dropout_mask((depth, 4, cara_cfg.rank), rate,
+                                          dtype, generator, device)
+    elif cara_cfg.weight_dropout_impl == "row" and rate > 0.0:
+        e = cfg.embed_dim
+        out["rows"] = [weight_dropout_mask((depth, k), rate, dtype,
+                                           generator, device)
+                       for k in (e, e, e, cfg.hidden_dim)]
+    return out
 
 
 def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
@@ -206,7 +254,7 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
         check_trainable(cfg, cara_cfg)
         if randomness is None:
             randomness = draw_randomness(cfg, x.shape[0], x.device,
-                                         generator, x.dtype)
+                                         generator, x.dtype, cara_cfg)
     if cara_cfg is not None:
         if cara_cfg.method != "cara" or cara_cfg.moe:
             raise NotImplementedError(
@@ -231,13 +279,20 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     if cara_params is not None:
         a1, p1 = cara_lib.stacked_layer_slices(cara_params, cfg, cara_cfg)
     for layer in range(cfg.depth):
+        rand = None
+        if train:
+            rows = randomness.get("rows")
+            rand = {"seeds": randomness["seeds"][layer],
+                    "gates": randomness["gates"][layer],
+                    "comp": (None if randomness.get("comp") is None
+                             else randomness["comp"][layer]),
+                    "rows": (None if rows is None
+                             else [m[layer] for m in rows])}
         tokens = _block(
             tokens, _layer(params["blocks"], layer),
             None if a1 is None else a1[layer],
             None if p1 is None else p1[layer],
-            cfg, cara_params, cara_cfg, impl,
-            *((randomness["seeds"][layer], randomness["gates"][layer])
-              if train else ()))
+            cfg, cara_params, cara_cfg, impl, rand)
     if cfg.use_cls_token:
         # LayerNorm is per token: only the cls row feeds the head.
         feat = layer_norm(tokens[:, 0], params["norm"]["scale"],

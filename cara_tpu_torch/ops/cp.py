@@ -1,16 +1,30 @@
 """CP (Canonical-Polyadic) delta contractions (port of ``cara_tpu/ops/cp.py``).
 
-The eval subset: dense reconstruction (``cp_to_tensor``, what
-``merge_cara`` folds into the backbone) and the factorized / materialized
-deltas without weight dropout.  Shapes and the up/down transpose
-asymmetry follow the JAX module's docstring exactly.
+Dense reconstruction (``cp_to_tensor``, what ``merge_cara`` folds into the
+backbone), the factorized / materialized deltas without weight dropout,
+and the inverted Bernoulli mask of the structured (rank / row) weight
+dropout.  Shapes and the up/down transpose asymmetry follow the JAX
+module's docstring exactly.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+
+
+def weight_dropout_mask(shape, rate: float, dtype=torch.float32,
+                        generator: Optional[torch.Generator] = None,
+                        device=None) -> Optional[torch.Tensor]:
+    """Inverted-dropout mask ``bernoulli(1 - rate) / (1 - rate)`` in
+    ``dtype``, or None when inactive (``rate <= 0``); drawn from
+    ``generator``, which gives other bits than ``jax.random``."""
+    if rate <= 0.0:
+        return None
+    keep = 1.0 - rate
+    probs = torch.full(tuple(shape), keep, device=device)
+    return torch.bernoulli(probs, generator=generator).to(dtype) / keep
 
 
 def cp_to_tensor(weights: torch.Tensor,

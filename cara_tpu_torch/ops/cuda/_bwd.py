@@ -1,12 +1,12 @@
-"""Launchers of the kernels the block backward wrappers compose
-(``csrc/grad_gemm.cu``, ``csrc/block_rows.cu``), and the plain LayerNorm
-input backward they mirror.
+"""Launchers of the kernels the backward wrappers compose
+(``csrc/grad_gemm.cu``, ``csrc/block_rows.cu`` and the rank pre-pass of
+``csrc/cp_site.cu``), and the plain LayerNorm input backward they mirror.
 
 These are the products and row passes inside the TPU kernels
-``_attn_block_bwd_wd_kernel`` and ``_mlp_bwd_wd_kernel``; they carry no
-launch counters of their own (the block wrappers count).  Every launcher
-takes bf16 CUDA tensors (fp32 where it says so), checks them and raises
-on what the kernel does not take.
+``_attn_block_bwd_wd_kernel``, ``_mlp_bwd_wd_kernel``, ``_mlp_bwd_kernel``
+and ``_cp_dense_dx_kernel``; they carry no launch counters of their own
+(the wrappers count).  Every launcher takes bf16 CUDA tensors (fp32 where
+it says so), checks them and raises on what the kernel does not take.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ EPI_F32, EPI_BF16, EPI_PRE_GELU, EPI_DGELU = 0, 1, 2, 3
 _GEMM_BM = 128
 # Blocks that fill the card: 132 SMs, two GEMM blocks each.
 _SLOTS = 264
+#: Width of the rank pre-pass output: the GEMMs' 64-deep rank k-step.
+RANK_W = 64
 
 
 def ln_input_bwd_plain(x, dxa, ls, eps: float):
@@ -43,16 +45,22 @@ def _f32(name, key, t, dev):
 
 
 def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
-         splits: int = 1):
+         splits: int = 1, a2=None, b2=None):
     """One ``grad_gemm.cu`` product; returns the epilogue's outputs.
 
     NN: a (M, K), b (K, N).  NT: a (M, K), b (N, K).  TN: a (K, M),
     b (K, N) -> (splits, M, N) fp32 partial planes.  F32 -> c32;
-    BF16 -> c16; PRE_GELU -> (pre fp32, gelu bf16); DGELU (``aux`` the fp32
-    pre-activation) -> (dpre bf16, column partial sums (M/128, N) fp32)."""
+    BF16 -> c16; PRE_GELU -> (pre fp32, gelu bf16), pre = acc + bias1 +
+    bias2; DGELU (``aux`` the fp32 pre-activation) -> (dpre bf16,
+    column partial sums (M/128, N) fp32).
+
+    ``a2`` (M, 64) with ``b2`` adds the rank step ``a2 @ b2`` to the
+    accumulators (NN, NT): NN b2 = V (r, N); NT b2 = U (N, r8) with r8 a
+    multiple of 8 (:func:`pad_cols8`); a delta scale rides ``b2``
+    (:func:`scaled`)."""
     dev = a.device
     _build.check_cuda_inputs("grad_gemm", dev, a=a, b=b, bias1=bias1,
-                             bias2=bias2)
+                             bias2=bias2, a2=a2, b2=b2)
     if layout == TN:
         k, m = a.shape
         n = b.shape[1]
@@ -72,6 +80,16 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     for key, t in (("bias1", bias1), ("bias2", bias2)):
         if t is not None and t.shape != (n,):
             raise ValueError(f"grad_gemm: {key} must be ({n},)")
+    r2 = ldb2 = 0
+    if a2 is not None:
+        r2 = b2.shape[0] if layout == NN else b2.shape[1]
+        ldb2 = b2.shape[1]
+        ok = (layout != TN and a2.shape == (m, RANK_W) and 1 <= r2 <= RANK_W
+              and (b2.shape == (r2, n) if layout == NN
+                   else b2.shape[0] == n and r2 % 8 == 0))
+        if not ok:
+            raise ValueError(f"grad_gemm rank step: a2 {tuple(a2.shape)} b2 "
+                             f"{tuple(b2.shape)} (layout {layout})")
     c32 = c16 = colpart = None
     if epi == EPI_F32:
         c32 = torch.empty((splits, m, n) if layout == TN else (m, n),
@@ -90,8 +108,8 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     code = _build.lib().cara_grad_gemm(
         layout, epi, a.data_ptr(), b.data_ptr(), _build.ptr(c32),
         _build.ptr(c16), _build.ptr(bias1), _build.ptr(bias2),
-        _build.ptr(aux), _build.ptr(colpart), m, n, k, splits,
-        _build.stream_ptr(dev))
+        _build.ptr(aux), _build.ptr(colpart), _build.ptr(a2),
+        _build.ptr(b2), m, n, k, splits, r2, ldb2, _build.stream_ptr(dev))
     _build.check(code, "grad_gemm")
     if epi == EPI_F32:
         return c32
@@ -104,9 +122,63 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
 
 def dt_splits(m: int, n: int, k: int) -> int:
     """Contraction splits of a TN product (output (m, n), contraction k)
-    so that about two blocks per SM run: more splits for small planes."""
+    so that about two blocks per SM run: more splits for small planes
+    (up to 32 for a rank-space product, whose few output tiles must still
+    fill the card while each block streams its slice of the rows)."""
     tiles = -(-m // _GEMM_BM) * -(-n // _GEMM_BM)
-    return max(1, min(8, _SLOTS // tiles, k // 64))
+    return max(1, min(32, _SLOTS // tiles, k // 64))
+
+
+def rank_z(x2, u, trans: bool = False):
+    """z = bf16(x2 @ U) (M, 64), zero past the rank, for x2 (M, K): U is
+    (K, r), or (r, K) with ``trans`` (then z = bf16(x2 @ U^T), the ``g
+    V^T`` of the backward).  The pre-pass of ``csrc/cp_site.cu``."""
+    m, k = x2.shape
+    dev = x2.device
+    _build.check_cuda_inputs("rank_z", dev, x=x2, u=u)
+    r = u.shape[0] if trans else u.shape[1]
+    if (u.shape != ((r, k) if trans else (k, r)) or not 1 <= r <= RANK_W
+            or k % 64):
+        raise ValueError(f"rank_z needs K % 64 == 0 and rank 1..64: x "
+                         f"{tuple(x2.shape)} u {tuple(u.shape)} "
+                         f"(trans={trans})")
+    z = torch.empty((m, RANK_W), device=dev, dtype=torch.bfloat16)
+    code = _build.lib().cara_rank_z(x2.data_ptr(), u.data_ptr(),
+                                    z.data_ptr(), m, k, r, int(trans),
+                                    _build.stream_ptr(dev))
+    _build.check(code, "rank_z")
+    return z
+
+
+def scaled(t, s: float):
+    """``s * t`` in t's dtype: the kernels take no delta scale, the
+    callers fold it into a rank factor or bias (identity at s = 1)."""
+    return t if s == 1.0 else (t * s).contiguous()
+
+
+def pad_cols8(u):
+    """U (K, r) -> (K, r rounded up to 8), zero columns past r: the NT
+    rank step's B operand (16-byte rows)."""
+    k, r = u.shape
+    r8 = -(-r // 8) * 8
+    if r8 == r:
+        return u
+    out = u.new_zeros((k, r8))
+    out[:, :r] = u
+    return out
+
+
+def factor_grad(a, b):
+    """fp32 ``a^T b`` over the M token rows for a (M, P), b (M, Q), one of
+    them 64 wide: a TN product split over M into partial planes, summed
+    in a fixed order (no atomics).  Reads each operand once."""
+    mrows, p = a.shape
+    q = b.shape[1]
+    splits = dt_splits(p, q, mrows)
+    parts = gemm(TN, EPI_F32, a, b, splits=splits)
+    if splits == 1:
+        return parts[0]
+    return colsum(parts.reshape(splits, -1)).reshape(p, q)
 
 
 def ln_rows(x2, ls, lb, eps: float):
@@ -140,17 +212,17 @@ def gate_rows(g2, dpm_rows):
 
 def ln_bwd_residual(x2, dxa, ls, g2, eps: float):
     """bf16(g2 + LN'(x2) . dxa): the block's dx (x2, g2 (M, K) bf16, dxa
-    (M, K) fp32)."""
+    (M, K) fp32); ``g2`` None drops the residual term."""
     m, k = x2.shape
     dev = x2.device
     _build.check_cuda_inputs("ln_bwd_residual", dev, x=x2, ln_scale=ls,
                              g=g2)
     _f32("ln_bwd_residual", "dxa", dxa, dev)
-    if dxa.shape != (m, k) or g2.shape != (m, k):
+    if dxa.shape != (m, k) or (g2 is not None and g2.shape != (m, k)):
         raise ValueError("ln_bwd_residual: x, dxa and g must agree")
     out = torch.empty_like(x2)
     code = _build.lib().cara_ln_bwd_residual(
-        x2.data_ptr(), dxa.data_ptr(), ls.data_ptr(), g2.data_ptr(),
+        x2.data_ptr(), dxa.data_ptr(), ls.data_ptr(), _build.ptr(g2),
         out.data_ptr(), m, k, float(eps), _build.stream_ptr(dev))
     _build.check(code, "ln_bwd_residual")
     return out

@@ -1,0 +1,199 @@
+"""One dense CaRA site of the split path, forward and backward:
+``cp_dense(x) = x W + b + s ((x U) V + cb)`` and ``cp_dense_ln``, the same
+on ``LN(x)``.
+
+Replaces ``cara_tpu/ops/pallas/cp_dense.py`` for ``act=None`` (the qkv and
+projection sites of the rank / row / no-dropout training route):
+
+* forward, TPU row 13 (``_cp_dense_raw`` / ``_cp_dense_kernel``): the
+  site kernel ``csrc/cp_site.cu`` through ``_site.site_cuda``, LayerNorm
+  prologue optional, z = pro(x) U rounded to bf16 before V;
+* dx, TPU row 12 (``_cp_dense_dx_raw`` / ``_cp_dense_dx_kernel``):
+  ``dx = g W^T + s bf16(g V^T) U^T``, also emitting ``gv = bf16(g V^T)``,
+  with the LayerNorm input backward over the full row for
+  ``cp_dense_ln``.  Launches: the rank pre-pass of ``csrc/cp_site.cu``
+  writes gv 64 wide; ``csrc/grad_gemm.cu``'s NT product with one more
+  64-deep k-step (A = gv, B = U) on the same accumulators gives dx (bf16)
+  or, for the LN site, the fp32 d(LN(x)) that ``csrc/block_rows.cu``'s
+  LayerNorm pass without residual turns into dx.  The rank term stays in
+  rank space: folding it into a dense ``W + s U V`` would round a 1e-3
+  delta at W's 3e-2 scale.  What bounds it: at ViT-B the NT product is
+  15-45 GFLOP against 50-80 MB, so the tensor cores; the first version is
+  the ``mma.sync`` GEMM of ``grad_gemm.cu``.
+
+The factor and bias gradients (``du = s xa^T gv``, ``z = xa U``,
+``dv = s z^T g``, ``db``) sit outside the Pallas kernels in JAX (XLA
+dot_generals); here they are ``grad_gemm.cu``'s TN product split over
+the token rows (``_bwd.factor_grad``) and column sums.  The backbone W,
+b and the LayerNorm are frozen (no gradient), as in ``_bwd_rule`` /
+``_bwd_ln_rule``; the LN input is recomputed in the backward.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor, or
+``impl="plain"``, takes the plain versions, which keep the TPU kernels'
+rounding points.  ``LAUNCHES`` counts row 13, ``DX_LAUNCHES`` row 12.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cara_tpu_torch.ops.cuda import _bwd
+from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
+from cara_tpu_torch.ops.layers import layer_norm
+
+#: Forward kernel calls of :func:`cp_dense` / :func:`cp_dense_ln` (row 13).
+LAUNCHES = 0
+#: dx kernel calls of their backward (row 12).
+DX_LAUNCHES = 0
+
+
+def cp_dense_plain(x2, w, b, u, v, cb: Optional[torch.Tensor], s: float,
+                   ln=None):
+    """Plain twin of the forward on x2 (M, K): ``ln`` = (scale, bias, eps)
+    or None; LN(x) and z rounded to ``x2.dtype``, the output too."""
+    xa = x2 if ln is None else layer_norm(x2, *ln)
+    return site_plain(xa, w, b, u, v, cb, s).to(x2.dtype)
+
+
+def cp_dense_dx_plain(g2, w, u, v, s: float, ln=None, x2=None):
+    """Plain twin of row 12: (dx (M, K), gv (M, r)) in ``g2.dtype`` from
+    g2 (M, N); ``ln`` = (scale, eps) with the raw input ``x2`` adds the
+    LayerNorm input backward (``_cp_dense_dx_kernel``)."""
+    dt = g2.dtype
+    gv = (g2.float() @ v.float().t()).to(dt)
+    dxl = g2.float() @ w.float().t() + s * (gv.float() @ u.float().t())
+    if ln is None:
+        return dxl.to(dt), gv
+    return _bwd.ln_input_bwd_plain(x2, dxl, ln[0], ln[1]).to(dt), gv
+
+
+def _check_site(name, t, width, w, u, v, kernel: bool):
+    """``t`` (..., width) is x (width K) or g (width N); ``kernel``: the
+    CUDA kernels will run on it."""
+    k, n = w.shape
+    r = u.shape[1]
+    if t.shape[-1] != width or u.shape != (k, r) or v.shape != (r, n):
+        raise ValueError(f"{name} shapes: {tuple(t.shape)} against w "
+                         f"{tuple(w.shape)} u {tuple(u.shape)} v "
+                         f"{tuple(v.shape)}")
+    if kernel and (k % 64 or n % 64):
+        raise ValueError(f"{name}: the kernels take K and N multiples of "
+                         f"64, got K={k} N={n}")
+
+
+def cp_dense_dx_cuda(g2, w, u, v, s: float, ln=None, x2=None):
+    """Row 12's launches on CUDA tensors: (dx (M, K) bf16, gv (M, 64)
+    bf16, zero past the rank)."""
+    gv = _bwd.rank_z(g2, v, trans=True)
+    u8 = _bwd.pad_cols8(_bwd.scaled(u, s))
+    if ln is None:
+        dx = _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, w, a2=gv, b2=u8)
+        return dx, gv
+    dxl = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, g2, w, a2=gv, b2=u8)
+    return _bwd.ln_bwd_residual(x2, dxl, ln[0], None, ln[1]), gv
+
+
+def _dx(g2, w, u, v, s, ln, x2, plain: bool):
+    """Row 12 through the plain twin (gv (M, r)) or the kernels (gv
+    (M, 64), zero past the rank; counted in :data:`DX_LAUNCHES`)."""
+    global DX_LAUNCHES
+    if plain:
+        return cp_dense_dx_plain(g2, w, u, v, s, ln, x2)
+    out = cp_dense_dx_cuda(g2, w, u, v, s, ln, x2)
+    DX_LAUNCHES += 1
+    return out
+
+
+def cp_dense_dx(g2, w, u, v, s: float, ln=None, x2=None):
+    """dx = g W^T + s bf16(g V^T) U^T (+ the LayerNorm input backward with
+    ``ln`` = (scale, eps) and the raw input ``x2``) -> (dx (M, K),
+    gv (M, r)): the kernels on CUDA, the plain twin on the CPU."""
+    plain = g2.device.type == "cpu"
+    if not plain and g2.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g2.device}")
+    _check_site("cp_dense_dx", g2, w.shape[1], w, u, v, not plain)
+    dx, gv = _dx(g2, w, u, v, s, ln, x2, plain)
+    return dx, gv[:, :u.shape[1]]
+
+
+def _factor_grads_plain(xa, g2, gv, u, s):
+    du = s * (xa.float().t() @ gv.float())
+    z = (xa.float() @ u.float()).to(xa.dtype)
+    dv = s * (z.float().t() @ g2.float())
+    return du, dv, g2.float().sum(0)
+
+
+def _factor_grads_cuda(xa, g2, gv, u, s):
+    r = u.shape[1]
+    du = _bwd.factor_grad(xa, gv)[:, :r]
+    dv = _bwd.factor_grad(_bwd.rank_z(xa, u), g2)[:r]
+    if s != 1.0:
+        du, dv = s * du, s * dv
+    return du, dv, _bwd.colsum(g2)
+
+
+class _CpDense(torch.autograd.Function):
+    """Gradients for x, u, v and cb; W, b and the LayerNorm are frozen."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps,
+                plain):
+        global LAUNCHES
+        lead, k = x.shape[:-1], x.shape[-1]
+        x2 = x.reshape(-1, k)
+        ln = None if ln_scale is None else (ln_scale, ln_bias, ln_eps)
+        if plain:
+            out = cp_dense_plain(x2, w, b, u, v, cb, s, ln)
+        else:
+            out = site_cuda(x2.contiguous(), w, b, u, v, cb, s, ln=ln)
+            LAUNCHES += 1
+        ctx.save_for_backward(x2, w, u, v, ln_scale, ln_bias)
+        ctx.cfg = (lead, s, ln_eps, plain, cb is not None)
+        return out.reshape(*lead, w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, u, v, ls, lb = ctx.saved_tensors
+        lead, s, eps, plain, has_cb = ctx.cfg
+        g2 = g.reshape(-1, w.shape[1]).contiguous()
+        if not plain:
+            x2 = x2.contiguous()
+        dx, gv = _dx(g2, w, u, v, s, None if ls is None else (ls, eps), x2,
+                     plain)
+        if plain:
+            xa = x2 if ls is None else layer_norm(x2, ls, lb, eps)
+            du, dv, db = _factor_grads_plain(xa, g2, gv, u, s)
+        else:
+            xa = x2 if ls is None else _bwd.ln_rows(x2, ls, lb, eps)
+            du, dv, db = _factor_grads_cuda(xa, g2, gv, u, s)
+        dcb = (s * db).to(g.dtype) if has_cb else None
+        return (dx.reshape(*lead, w.shape[0]), None, None, du.to(u.dtype),
+                dv.to(v.dtype), dcb, None, None, None, None, None)
+
+
+def _apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, impl):
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or x.device.type == "cpu"
+    if not plain and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_site("cp_dense", x, w.shape[0], w, u, v, not plain)
+    return _CpDense.apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, plain)
+
+
+def cp_dense(x, w, b, u, v, cb: Optional[torch.Tensor], s: float = 1.0,
+             impl: str = "auto"):
+    """``x W + b + s ((x U) V + cb)`` for x (..., K), W (K, N), U (K, r),
+    V (r, N); ``cb`` (N,) or None.  Differentiable in x, u, v and cb.
+    ``impl="plain"`` runs the plain versions on any device."""
+    return _apply(x, w, b, u, v, cb, None, None, s, 0.0, impl)
+
+
+def cp_dense_ln(x, w, b, u, v, cb: Optional[torch.Tensor], ln_scale,
+                ln_bias, s: float = 1.0, ln_eps: float = 1e-6,
+                impl: str = "auto"):
+    """:func:`cp_dense` on ``LN(x)`` (frozen scale and bias), the
+    normalized row rounded to ``x.dtype`` as ``_ln_rows`` does."""
+    return _apply(x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps, impl)

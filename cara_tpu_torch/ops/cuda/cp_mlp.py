@@ -25,21 +25,35 @@ kernel, TPU row 9).  Its backward recomputes the fp32 pre-activation
 ``csrc/grad_gemm.cu`` and ``csrc/wd_factor_grads.cu``; see
 :func:`_mlp_block_wd_bwd_cuda`.
 
-A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
-plain versions.  :func:`cp_mlp_block` is forward only.
+:func:`cp_mlp_block` is differentiable: its backward replaces
+``_mlp_bwd_rule`` / ``_mlp_bwd_raw`` / ``_mlp_bwd_kernel`` (TPU row 10,
+the rank / row / no-dropout training route).  The TPU kernel recomputes
+LN2, the pre-activation and h per 256-row tile and accumulates the four
+rank-space factor gradients over its sequential grid; here the same
+recompute (no save-pre mode) and the rank-space products are launches of
+``csrc/block_rows.cu``, the rank pre-pass of ``csrc/cp_site.cu`` and
+``csrc/grad_gemm.cu`` (its rank k-step keeps every delta in rank space,
+its TN split sums the factor gradients over the token rows in a fixed
+order); see :func:`_mlp_block_bwd_cuda`.  What bounds it: three 59.5
+GFLOP products at ViT-B, so the tensor cores.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor, or
+``impl="plain"``, takes the plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
+from cara_tpu_torch.ops.cuda import _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
 from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 
 #: Number of (two-launch) kernel calls made by :func:`cp_mlp_block` and
 #: the :func:`cp_mlp_block_wd` forward.
 LAUNCHES = 0
+#: Backward kernel calls of :func:`cp_mlp_block` (TPU row 10).
+BWD_LAUNCHES = 0
 #: Backward kernel calls of :func:`cp_mlp_block_wd` (TPU row 11).
 WD_BWD_LAUNCHES = 0
 
@@ -80,27 +94,144 @@ def _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
     return out.reshape(*lead, e)
 
 
+def cp_mlp_block_bwd_plain(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
+                           ln_scale, ln_bias, dpm, s: float = 1.0,
+                           act: str = "gelu", ln_eps: float = 1e-6):
+    """Plain twin of the backward (``_mlp_bwd_kernel`` with its rounding
+    points: g2, xa, z1, h, gv1, gv2, dpre and z2 rounded to ``x.dtype``):
+    -> (dx, du1, dv1, dcb1, du2, dv2, dcb2), dx in ``x.dtype``, the rest
+    fp32."""
+    lead, e = x.shape[:-1], x.shape[-1]
+    dt = x.dtype
+    x2 = x.reshape(-1, e)
+    g_res = g.reshape(-1, e)
+    g2 = (g_res.float() * _dpm_rows(dpm, lead)[:, None]).to(dt)
+    xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
+    z1 = (xa.float() @ u1.float()).to(dt)
+    pre = (xa.float() @ w1.float() + b1.float()
+           + s * (z1.float() @ v1.float() + cb1.float()))
+    h = activation(pre, act).to(dt)
+    gv2 = (g2.float() @ v2.float().t()).to(dt)
+    dh = g2.float() @ w2.float().t() + s * (gv2.float() @ u2.float().t())
+    dpre = dh * activation_grad(pre, act)
+    dprec = dpre.to(dt)
+    gv1 = (dprec.float() @ v1.float().t()).to(dt)
+    dxa = dprec.float() @ w1.float().t() + s * (gv1.float() @ u1.float().t())
+    dx = (g_res.float() + _bwd.ln_input_bwd_plain(x2, dxa, ln_scale, ln_eps)
+          ).to(dt)
+    z2 = (h.float() @ u2.float()).to(dt)
+    du1 = s * (xa.float().t() @ gv1.float())
+    dv1 = s * (z1.float().t() @ dprec.float())
+    du2 = s * (h.float().t() @ gv2.float())
+    dv2 = s * (z2.float().t() @ g2.float())
+    return (dx.reshape(x.shape), du1, dv1, s * dpre.sum(0), du2, dv2,
+            s * g2.float().sum(0))
+
+
+def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
+                        ln_bias, dpm, s, act, ln_eps):
+    """The backward on CUDA tensors, as launches (M rows; each rank-r
+    operand is written 64 wide, zero past r, for the GEMMs' rank step):
+
+    ``ln_rows`` xa = LN2(x); rank pre-pass z1 = bf16(xa U1); NN
+    ``grad_gemm`` + rank step pre = xa W1 + b1 + s (z1 V1 + cb1) (fp32)
+    and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g dpm); pre-pass
+    gv2 = bf16(g2 V2^T); NT + rank step dpre = (g2 W2^T + s gv2 U2^T)
+    gelu'(pre), bf16, with its column sums; ``colsum`` ds1, ds2; pre-pass
+    gv1 = bf16(dpre V1^T); NT + rank step dxa = dpre W1^T + s gv1 U1^T
+    (fp32); ``ln_bwd_residual`` dx; pre-pass z2 = bf16(h U2); the four
+    split TN factor products du1 = xa^T gv1, dv1 = z1^T dpre,
+    du2 = h^T gv2, dv2 = z2^T g2 (fp32, summed over all M rows)."""
+    if act != "gelu":
+        raise ValueError(f"the backward kernels have exact GELU only; "
+                         f"act={act!r} is not yet ported")
+    lead, e = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, e)
+    g_res = g.reshape(-1, e)
+    r1, r2 = u1.shape[1], u2.shape[1]
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    z1 = _bwd.rank_z(xa, u1)
+    pre, h = _bwd.gemm(_bwd.NN, _bwd.EPI_PRE_GELU, xa, w1, bias1=b1,
+                       bias2=_bwd.scaled(cb1, s), a2=z1,
+                       b2=_bwd.scaled(v1, s))
+    g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, lead))
+    gv2 = _bwd.rank_z(g2, v2, trans=True)
+    dprec, colpart = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU, g2, w2, aux=pre,
+                               a2=gv2,
+                               b2=_bwd.pad_cols8(_bwd.scaled(u2, s)))
+    del pre
+    ds1 = _bwd.colsum(colpart)
+    ds2 = _bwd.colsum(g2)
+    gv1 = _bwd.rank_z(dprec, v1, trans=True)
+    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1, a2=gv1,
+                    b2=_bwd.pad_cols8(_bwd.scaled(u1, s)))
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    del dxa
+    z2 = _bwd.rank_z(h, u2)
+    grads = (_bwd.factor_grad(xa, gv1)[:, :r1],
+             _bwd.factor_grad(z1, dprec)[:r1],
+             _bwd.factor_grad(h, gv2)[:, :r2],
+             _bwd.factor_grad(z2, g2)[:r2])
+    if s != 1.0:
+        grads = tuple(s * t for t in grads)
+    du1, dv1, du2, dv2 = grads
+    return dx.reshape(x.shape), du1, dv1, s * ds1, du2, dv2, s * ds2
+
+
+class _MlpBlock(torch.autograd.Function):
+    """Gradients for x, u1, v1, cb1, u2, v2 and cb2; the backbone (w1, b1,
+    w2, b2, LN2) and the gate are constants, as in ``_mlp_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
+                ln_bias, dpm, s, act, ln_eps, plain):
+        global LAUNCHES
+        args = (x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
+                ln_bias, dpm, s, act, ln_eps)
+        if plain:
+            out = cp_mlp_block_plain(*args)
+        else:
+            out = _mlp_block_cuda(*args)
+            LAUNCHES += 1
+        ctx.save_for_backward(x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
+                              ln_bias, dpm)
+        ctx.cfg = (s, act, ln_eps, plain)
+        ctx.dtypes = tuple(t.dtype for t in (u1, v1, cb1, u2, v2, cb2))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global BWD_LAUNCHES
+        s, act, ln_eps, plain = ctx.cfg
+        args = (g.contiguous(), *ctx.saved_tensors, s, act, ln_eps)
+        if plain:
+            grads = cp_mlp_block_bwd_plain(*args)
+        else:
+            grads = _mlp_block_bwd_cuda(*args)
+            BWD_LAUNCHES += 1
+        du1, dv1, dcb1, du2, dv2, dcb2 = (
+            t.to(dt) for t, dt in zip(grads[1:], ctx.dtypes))
+        return (grads[0], None, None, du1, dv1, dcb1, None, None, du2, dv2,
+                dcb2, None, None, None, None, None, None, None)
+
+
 def cp_mlp_block(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                  ln_bias, dpm, s: float = 1.0, act: str = "gelu",
-                 ln_eps: float = 1e-6):
-    """The CaRA MLP block including residual and drop-path gate.
+                 ln_eps: float = 1e-6, impl: str = "auto"):
+    """The CaRA MLP block including residual and drop-path gate,
+    differentiable in x, u1, v1, cb1, u2, v2 and cb2.
 
     ``x`` (..., E); ``dpm`` broadcastable to ``x.shape[:-1] + (1,)`` (ones
-    in eval).  Callers fold the delta scale into ``v1``/``cb1``/``v2``/
-    ``cb2`` and pass ``s=1.0``."""
-    global LAUNCHES
-    _build.check_no_grad("cp_mlp_block", x, w1, b1, u1, v1, cb1, w2, b2, u2,
-                         v2, cb2, ln_scale, ln_bias, dpm)
-    if x.device.type == "cpu":
-        return cp_mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2,
-                                  cb2, ln_scale, ln_bias, dpm, s, act,
-                                  ln_eps)
-    if x.device.type != "cuda":
+    in eval, the per-image gates in training).  Callers fold the delta
+    scale into ``v1``/``cb1``/``v2``/``cb2`` and pass ``s=1.0``.
+    ``impl="plain"`` runs the plain versions on any device."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or x.device.type == "cpu"
+    if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out = _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
-                          ln_scale, ln_bias, dpm, s, act, ln_eps)
-    LAUNCHES += 1
-    return out
+    return _MlpBlock.apply(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
+                           ln_scale, ln_bias, dpm, s, act, ln_eps, plain)
 
 
 def cp_mlp_block_wd_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,

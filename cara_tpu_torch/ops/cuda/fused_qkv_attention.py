@@ -7,11 +7,15 @@ what the design does about it is in the source's head comment: one block
 per (image, head, 64-query tile), that head's K and V resident in shared
 memory (> 48 KB, opt-in), fp32 softmax, bf16 tensor-core products.
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-:func:`fused_qkv_attention_plain`.  The wrapper is forward only; the
-attention backward (``attn_bwd_tile``, kernel ``csrc/qkv_attention_bwd.cu``)
-is launched by the attention-block backward through
-:func:`attention_bwd_cuda`, with :func:`attention_bwd_plain` its twin.
+The wrapper is a ``torch.autograd.Function`` that keeps qkv, as the JAX
+rule's residual does.  Its backward replaces ``_bwd_rule`` /
+``_bwd_kernel`` (per-head math ``attn_bwd_tile``): kernel
+``csrc/qkv_attention_bwd.cu`` through :func:`attention_bwd_cuda`, with
+:func:`attention_bwd_plain` its twin; the attention-block backward of the
+element-dropout route launches the same kernel.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor, or
+``impl="plain"``, takes the plain versions.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ MAX_NP_FULL_SCORES = 512
 
 #: Number of kernel launches made by :func:`fused_qkv_attention`.
 LAUNCHES = 0
+#: Backward kernel launches of :func:`fused_qkv_attention` (TPU row 2).
+BWD_LAUNCHES = 0
 
 
 def _check_np(np_: int) -> None:
@@ -151,21 +157,49 @@ def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
     return out
 
 
+class _FusedQkvAttention(torch.autograd.Function):
+    """dqkv from the kept qkv and the output cotangent."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, scale, n_real, plain):
+        global LAUNCHES
+        if plain:
+            out = fused_qkv_attention_plain(qkv, heads, scale, n_real)
+        else:
+            out = attention_cuda(qkv, heads, scale, n_real)
+            LAUNCHES += 1
+        ctx.save_for_backward(qkv)
+        ctx.cfg = (heads, scale, n_real, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global BWD_LAUNCHES
+        (qkv,) = ctx.saved_tensors
+        heads, scale, n_real, plain = ctx.cfg
+        if plain:
+            dqkv = attention_bwd_plain(qkv, g, heads, scale, n_real)
+        else:
+            dqkv = attention_bwd_cuda(qkv, g.contiguous(), heads, scale,
+                                      n_real)
+            BWD_LAUNCHES += 1
+        return dqkv, None, None, None, None
+
+
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
-                        n_real: int) -> torch.Tensor:
+                        n_real: int, impl: str = "auto") -> torch.Tensor:
     """qkv (B, N, 3E), out-flat (3, H, Dh) columns -> attention output
-    (B, N, E); keys at positions >= ``n_real`` are masked."""
-    global LAUNCHES
-    _build.check_no_grad("fused_qkv_attention", qkv)
+    (B, N, E); keys at positions >= ``n_real`` are masked.
+    Differentiable in qkv; ``impl="plain"`` runs the plain versions on any
+    device."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, N, 3E), got {tuple(qkv.shape)}")
     _check_np(qkv.shape[1])
     if not 1 <= n_real <= qkv.shape[1]:
         raise ValueError(f"n_real={n_real} outside [1, {qkv.shape[1]}]")
-    if qkv.device.type == "cpu":
-        return fused_qkv_attention_plain(qkv, heads, scale, n_real)
-    if qkv.device.type != "cuda":
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or qkv.device.type == "cpu"
+    if not plain and qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
-    out = attention_cuda(qkv, heads, scale, n_real)
-    LAUNCHES += 1
-    return out
+    return _FusedQkvAttention.apply(qkv, heads, scale, n_real, plain)

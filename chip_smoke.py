@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port: serving and training.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Needs one CUDA card and ``nvcc``; exits nonzero without them.  Phases, each
 fatal on failure:
@@ -27,19 +27,38 @@ fatal on failure:
    CaRA order 4 rank 8, weight dropout 0.1 (element-wise), drop-path 0.1,
    bf16 compute with fp32 trainables, batch 64: (a) one step's gradients
    of every trainable leaf through the kernels against the fp32 plain
-   path on the same weights and the same injected randomness, (b) 30
+   path on the same weights and the same injected randomness, within
+   5e-2 or, where larger, the worst error of the plain path in bf16 over
+   that step and eight copies of it with perturbed images, (b) 30
    steps on one fixed synthetic batch (finite, falling loss), (c) ms per
    step by CUDA events, img/s on the host clock and the plain path's ms
    per step, (d) ``cli.vit_cp --synthetic`` for a few epochs, whose best
    checkpoint ``Predictor.from_checkpoint_auto`` then serves; every
-   training kernel's launch counter grew.
+   training kernel's launch counter grew;
+6. the same for the rank weight-dropout route (the split attention path:
+   ``cp_dense_ln``, ``fused_qkv_attention``, ``cp_dense``, then
+   ``cp_mlp_block``, each with its backward kernel), 20 steps, and the
+   CLI with ``--weight-dropout-impl rank``; then one step's gradients of
+   the row route and of weight dropout 0 against the fp32 plain path.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Each kernel entry also carries its bound: the least time the card could
+take for the work at these inputs (the larger of its operations over the
+bf16 tensor-core peak and its bytes, each input read and each output
+written once, over the memory rate), and, for the attention forward and
+backward, the time of ``F.scaled_dot_product_attention`` on the same
+inputs (a yardstick only; the port never calls it).  The line before the
+last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
+
+``--profile`` only builds and then prints the device time by kernel of
+five ViT-B train steps of the element and of the rank route
+(``torch.profiler``), with the busy share.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -52,6 +71,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cara_tpu_torch.cli import vit_cp as vit_cp_cli
 from cara_tpu_torch.config import CaraConfig, get_model_config
@@ -61,6 +81,7 @@ from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.vit import vit_forward
 from cara_tpu_torch.ops.cuda import _build, wd_fold
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
+from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.server import InferenceServer
@@ -93,10 +114,27 @@ KERNELS = {
     "cp_mlp_block_wd_bwd": (
         mlp_mod, "WD_BWD_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "cp_dense": (
+        dense_mod, "LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_dx": (
+        dense_mod, "DX_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:273"),
+    "fused_qkv_attention_bwd": (
+        fqa_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "cara_tpu/ops/pallas/fused_qkv_attention.py:230"),
+    "cp_mlp_block_bwd": (
+        mlp_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:292"),
 }
 SERVING_KERNELS = ("fused_qkv_attention", "cp_attn_block", "cp_mlp_block")
 TRAINING_KERNELS = ("build_wd_weight", "cp_attn_block_wd",
                     "cp_attn_block_wd_bwd", "cp_mlp_block_wd_bwd")
+# The rank / row / no-dropout route: the kernels it launches.
+SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
+                 "fused_qkv_attention_bwd", "cp_mlp_block", "cp_mlp_block_bwd")
+NEW_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention_bwd",
+                     "cp_mlp_block_bwd")
 # |kernel - fp32 plain| <= ATOL + RTOL * |ref|, elementwise.  The kernels
 # round their intermediates (qkv, P, z, h; in the backward do, dqkv, ds,
 # dpre) and their outputs to bf16, the reference does not; bf16 keeps 8
@@ -108,7 +146,15 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "build_wd_weight": (1e-3, 1e-2),
               "cp_attn_block_wd": (2e-2, 2e-2),
               "cp_attn_block_wd_bwd": (5e-2, 5e-2),
-              "cp_mlp_block_wd_bwd": (5e-2, 5e-2)}
+              "cp_mlp_block_wd_bwd": (5e-2, 5e-2),
+              "cp_dense": (2e-2, 2e-2),
+              "cp_dense_dx": (5e-2, 5e-2),
+              "cp_mlp_block_bwd": (5e-2, 5e-2)}
+# Outputs held elementwise (forwards, dx); every other key of a gradient
+# dict by relative L2: the factor and bias gradients, and the attention
+# backward's dq, dk and dv, whose typical size at the smoke's inputs
+# (|dq|, |dk| ~0.03) is below an elementwise bound's atol.
+ELEMENTWISE_KEYS = ("out", "x", "o", "qkv", "proj")
 # Factor and bias gradients reduce over B*N = 12608 rows of bf16
 # products: held by ||kernel - ref|| / ||ref|| (relative L2).
 GRAD_REL_L2 = 2e-2
@@ -117,9 +163,20 @@ LOGIT_RTOL = 0.05
 # One train step's gradient of each trainable leaf, bf16 kernels against
 # the fp32 plain path: relative L2.  The error of bf16 rounding (2^-8) at
 # every rounded intermediate, forward and backward, through 12 layers; a
-# wrong mask, gate or missing term shows as O(1).
+# wrong mask, gate or missing term shows as O(1).  A CP factor whose
+# gradient contracts many larger terms (P1, R2) can amplify that noise
+# past 5e-2 on some realizations, in the plain path in bf16 as much as
+# in the kernels: a leaf's bound is then the plain path's worst error
+# over the step and NOISE_DRAWS copies of it whose images carry noise of
+# std NOISE_STD (same weights, masks and gates).
 TRAIN_GRAD_REL_L2 = 5e-2
+NOISE_DRAWS = 8
+NOISE_STD = 1e-3
 DROP_RATE = 0.1
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
+# cores and HBM3.  A kernel's bound is the larger of its work over each.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -186,7 +243,8 @@ def kernel_inputs(dev, b=64, n=197, e=768, heads=12, hidden=3072, r=8,
                  dpm=torch.ones((b, 1, 1), device=dev,
                                 dtype=torch.bfloat16)),
         gates=gates.to(torch.bfloat16), seeds=list(seeds),
-        g_attn=rnd(b, n, e), g_mlp=rnd(b, n, e))
+        g_attn=rnd(b, n, e), g_mlp=rnd(b, n, e),
+        o=rnd(b, n, e, std=0.5), g_qkv=rnd(b, n, 3 * e))
 
 
 # Positional tensor arguments of the two block wrappers, in order, and
@@ -197,6 +255,7 @@ MLP_ARGS = ("x", "w1", "b1", "u1", "v1", "cb1", "w2", "b2", "u2", "v2",
             "cb2", "ln_scale", "ln_bias", "dpm")
 ATTN_DIFF = ("x", "u1", "v1", "u2", "v2", "cb2")
 MLP_DIFF = ("x", "u1", "v1", "cb1", "u2", "v2", "cb2")
+DENSE_DIFF = ("x", "u1", "v1", "o", "u2", "v2", "cb2")
 FOLD_SITES = ("qkv", "proj", "fc1", "fc2")
 
 
@@ -208,16 +267,19 @@ def _fold_sites(inp):
             "fc2": (m["w2"], m["u2"], m["v2"], sd[3])}
 
 
-def _grad_call(block, args, diff, inp_tree, g, impl, dtype):
-    """One forward of a training block (its graph kept), returning a call
-    that runs only its backward: name -> gradient."""
+def _grad_call(fwd, inp_tree, diff, grads_out, dtype):
+    """One forward ``fwd(leaves)`` (its graph kept; one output tensor or a
+    tuple), returning a call that runs only its backward against
+    ``grads_out``: name -> gradient."""
     leaves = {k: v.detach().to(dtype).requires_grad_(k in diff)
               if v.is_floating_point() else v for k, v in inp_tree.items()}
-    out = block(*(leaves[k] for k in args), impl=impl)
-    grad_out = g.to(dtype)
+    out = fwd(leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    gs = [t.to(dtype) for t in (grads_out if isinstance(grads_out, tuple)
+                                else (grads_out,))]
     wrt = [leaves[k] for k in diff]
     return lambda: dict(zip(diff, torch.autograd.grad(
-        out, wrt, grad_out, retain_graph=True)))
+        outs, wrt, gs, retain_graph=True)))
 
 
 def kernel_calls(inp):
@@ -231,7 +293,7 @@ def kernel_calls(inp):
     qkv = inp["qkv"]
     s1, s2, s3, s4 = inp["seeds"]
     rate = DROP_RATE
-    sites = _fold_sites(inp)
+    folds = _fold_sites(inp)
     aw = dict(a, dpm=inp["gates"])
     mw = dict(m, dpm=inp["gates"].reshape(-1, 1, 1))
     aw32 = {k: v.float() for k, v in aw.items()}
@@ -244,12 +306,46 @@ def kernel_calls(inp):
         return mlp_mod.cp_mlp_block_wd(*args, s3, s4, 1.0, rate, impl=impl)
 
     def attn_bwd(impl, dtype):
-        return _grad_call(attn_wd, an, ATTN_DIFF, aw, inp["g_attn"], impl,
-                          dtype)
+        return _grad_call(lambda t: attn_wd(*(t[k] for k in an), impl=impl),
+                          aw, ATTN_DIFF, inp["g_attn"], dtype)
 
     def mlp_bwd(impl, dtype):
-        return _grad_call(mlp_wd, mn, MLP_DIFF, mw, inp["g_mlp"], impl,
-                          dtype)
+        return _grad_call(lambda t: mlp_wd(*(t[k] for k in mn), impl=impl),
+                          mw, MLP_DIFF, inp["g_mlp"], dtype)
+
+    # The split path's two dense sites: qkv (LN prologue, no cb) on x and
+    # the projection on an attention output o.
+    dense = dict(a, o=inp["o"])
+
+    def dense_sites(t, impl):
+        return (dense_mod.cp_dense_ln(t["x"], t["wq"], t["bq"], t["u1"],
+                                      t["v1"], None, t["ln_scale"],
+                                      t["ln_bias"], impl=impl),
+                dense_mod.cp_dense(t["o"], t["wp"], t["bp"], t["u2"],
+                                   t["v2"], t["cb2"], impl=impl))
+
+    def dense_fwd(impl, dtype):
+        t = {k: v.to(dtype) for k, v in dense.items()}
+        return lambda: dict(zip(("qkv", "proj"), dense_sites(t, impl)))
+
+    def dense_bwd(impl, dtype):
+        return _grad_call(lambda t: dense_sites(t, impl), dense, DENSE_DIFF,
+                          (inp["g_qkv"], inp["g_attn"]), dtype)
+
+    def attn_core_bwd(impl, dtype):
+        """dqkv split into its dq, dk and dv thirds (held apart: dq and
+        dk are a third the size of dv here)."""
+        call = _grad_call(
+            lambda t: fqa_mod.fused_qkv_attention(t["qkv"], h, sm, n,
+                                                  impl=impl),
+            {"qkv": qkv}, ("qkv",), inp["g_attn"], dtype)
+        return lambda: dict(zip(("dq", "dk", "dv"),
+                                call()["qkv"].chunk(3, dim=-1)))
+
+    def mlp_block_bwd(impl, dtype):
+        return _grad_call(
+            lambda t: mlp_mod.cp_mlp_block(*(t[k] for k in mn), impl=impl),
+            mw, MLP_DIFF, inp["g_mlp"], dtype)
 
     bf = torch.bfloat16
     return {
@@ -270,12 +366,12 @@ def kernel_calls(inp):
             lambda: mlp_mod.cp_mlp_block_plain(*(m32[k] for k in mn))),
         "build_wd_weight": (
             lambda: {k: wd_fold.build_wd_weight(w, u, v, sd, 1.0, rate)
-                     for k, (w, u, v, sd) in sites.items()},
+                     for k, (w, u, v, sd) in folds.items()},
             lambda: {k: wd_fold.build_wd_weight_plain(w, u, v, sd, 1.0, rate)
-                     for k, (w, u, v, sd) in sites.items()},
+                     for k, (w, u, v, sd) in folds.items()},
             lambda: {k: wd_fold.build_wd_weight_plain(
                 w.float(), u.float(), v.float(), sd, 1.0, rate)
-                for k, (w, u, v, sd) in sites.items()}),
+                for k, (w, u, v, sd) in folds.items()}),
         "cp_attn_block_wd": (
             lambda: attn_wd(*(aw[k] for k in an)),
             lambda: attn_mod.cp_attn_block_wd_plain(
@@ -286,7 +382,119 @@ def kernel_calls(inp):
                                  attn_bwd("plain", torch.float32)),
         "cp_mlp_block_wd_bwd": (mlp_bwd("auto", bf), mlp_bwd("plain", bf),
                                 mlp_bwd("plain", torch.float32)),
+        "cp_dense": (dense_fwd("auto", bf), dense_fwd("plain", bf),
+                     dense_fwd("plain", torch.float32)),
+        "cp_dense_dx": (dense_bwd("auto", bf), dense_bwd("plain", bf),
+                        dense_bwd("plain", torch.float32)),
+        "fused_qkv_attention_bwd": (attn_core_bwd("auto", bf),
+                                    attn_core_bwd("plain", bf),
+                                    attn_core_bwd("plain", torch.float32)),
+        "cp_mlp_block_bwd": (mlp_block_bwd("auto", bf),
+                             mlp_block_bwd("plain", bf),
+                             mlp_block_bwd("plain", torch.float32)),
     }
+
+
+def kernel_work(inp) -> dict:
+    """name -> (operations, bytes) of each entry's call at these inputs:
+    the products of the TPU kernel's algorithm (its recomputes included;
+    softmax and row passes are not counted as operations), each input
+    read once and each output written once (bf16 2 bytes, fp32 factor
+    and bias gradients 4).  Attention counts the valid keys only."""
+    a, m = inp["attn"], inp["mlp"]
+    b, n, nr, e = inp["b"], inp["n"], inp["n_real"], inp["e"]
+    r, hid = a["u1"].shape[1], m["w1"].shape[1]
+    rows = b * n
+
+    def nb(*tensors, width=2):
+        return width * sum(t.numel() for t in tensors)
+
+    def site(k, nout):  # x W + (x U) V on `rows` rows
+        return 2 * rows * (k * nout + k * r + r * nout)
+
+    attn = 4 * b * n * nr * e          # q k^T and p v
+    attn_bwd = 10 * b * n * nr * e     # s recomputed, dv, dp, dq, dk
+    act = rows * e * 2                 # one (M, E) bf16 activation
+    qkv_act = 3 * act
+    attn_w = nb(*(a[k] for k in ("wq", "bq", "u1", "v1", "wp", "bp", "u2",
+                                 "v2", "cb2", "ln_scale", "ln_bias")))
+    mlp_w = nb(*(m[k] for k in ("w1", "b1", "u1", "v1", "cb1", "w2", "b2",
+                                "u2", "v2", "cb2", "ln_scale", "ln_bias")))
+    folds = [(a["wq"], a["u1"]), (a["wp"], a["u2"]), (m["w1"], m["u1"]),
+             (m["w2"], m["u2"])]
+    fold_ops = [2 * w.numel() * r for w, _ in folds]
+    fold_bytes = [2 * nb(w) + nb(u) + r * w.shape[1] * 2 for w, u in folds]
+    # the masked finish: dU = dtc V^T and dV = U^T dtc per site
+    finish = [2 * f for f in fold_ops]
+    def factor(k, nout):  # fp32 dU (K, r) and dV (r, N) written
+        return 4 * r * (k + nout)
+
+    # z1, z1 V1, gv2, gv2 U2^T, gv1, gv1 U1^T, z2 and the four factor
+    # products of the MLP backward: 5 of width E, 6 of width hidden
+    mlp_rank = 2 * rows * r * (5 * e + 6 * hid)
+    return {
+        "fused_qkv_attention": (attn, qkv_act + act),
+        "cp_attn_block": (site(e, 3 * e) + attn + site(e, e),
+                          2 * act + attn_w),
+        "cp_mlp_block": (site(e, hid) + site(hid, e), 2 * act + mlp_w),
+        "build_wd_weight": (sum(fold_ops), sum(fold_bytes)),
+        "cp_attn_block_wd": (
+            fold_ops[0] + fold_ops[1] + 2 * rows * (3 * e * e + e * e) + attn,
+            2 * act + attn_w),
+        "cp_attn_block_wd_bwd": (
+            2 * rows * (3 * e * e) * 3 + 2 * rows * e * e * 2 + attn
+            + attn_bwd + finish[0] + finish[1],
+            3 * act + attn_w + factor(e, 3 * e) + factor(e, e)),
+        "cp_mlp_block_wd_bwd": (
+            5 * 2 * rows * e * hid + finish[2] + finish[3],
+            3 * act + mlp_w + factor(e, hid) + factor(hid, e)
+            + 4 * (hid + e)),
+        "cp_dense": (site(e, 3 * e) + site(e, e),
+                     act + qkv_act + 2 * act + attn_w),
+        "cp_dense_dx": (
+            site(3 * e, e) + site(e, e) + 2 * rows * r * (2 * e + 3 * e)
+            + 2 * rows * r * (2 * e + e),
+            qkv_act + 2 * act + 3 * act + attn_w + factor(e, 3 * e)
+            + factor(e, e)),
+        "fused_qkv_attention_bwd": (attn_bwd, 2 * qkv_act + act),
+        "cp_mlp_block_bwd": (
+            3 * 2 * rows * e * hid + mlp_rank,
+            3 * act + mlp_w + factor(e, hid) + factor(hid, e)
+            + 4 * (hid + e)),
+    }
+
+
+def bound(ops: float, nbytes: float):
+    """(least ms, "operations" or "bytes") on the published peaks."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_calls(inp) -> dict:
+    """name -> one PyTorch call computing the entry's function on the same
+    inputs, where there is one: ``F.scaled_dot_product_attention`` forward
+    (row 1) and its backward (row 2).  Yardsticks, timed only."""
+    b, n, nr, e, h = (inp["b"], inp["n"], inp["n_real"], inp["e"],
+                      inp["heads"])
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in
+               inp["qkv"].reshape(b, n, 3, h, e // h).permute(2, 0, 3, 1, 4))
+    mask = None
+    if nr < n:
+        mask = (torch.arange(n, device=q.device) < nr).reshape(1, 1, 1, n)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         scale=inp["sm"])
+    g = inp["g_attn"].reshape(b, n, h, e // h).transpose(1, 2)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                  scale=inp["sm"])
+
+    return {"fused_qkv_attention": fwd,
+            "fused_qkv_attention_bwd": lambda: torch.autograd.grad(
+                out, (q, k, v), g, retain_graph=True)}
 
 
 def rel_l2(out, ref) -> float:
@@ -295,20 +503,20 @@ def rel_l2(out, ref) -> float:
 
 def _check_outputs(name, out, ref) -> float:
     """Elementwise bound for tensors, the fold's weights and a backward's
-    dx; relative L2 for the factor and bias gradients.  Returns the max
-    |err| of the elementwise-checked outputs."""
+    dx; relative L2 for the other gradients (``ELEMENTWISE_KEYS``).
+    Returns the max |err| over all outputs."""
     if not isinstance(out, dict):
         out, ref = {"out": out}, {"out": ref}
-    atol, rtol = KERNEL_TOL[name]
     max_err = 0.0
     for key in out:
         o, r = out[key].float(), ref[key].float()
         require(o.shape == r.shape, f"{name}/{key}: shape {tuple(o.shape)}")
         require(bool(torch.isfinite(o).all()), f"{name}/{key}: non-finite")
-        if key in ("out", "x") or name == "build_wd_weight":
-            err = (o - r).abs()
+        err = (o - r).abs()
+        max_err = max(max_err, err.max().item())
+        if key in ELEMENTWISE_KEYS or name == "build_wd_weight":
+            atol, rtol = KERNEL_TOL[name]
             excess = (err - (atol + rtol * r.abs())).max().item()
-            max_err = max(max_err, err.max().item())
             print(f"[kernel] {name}/{key}: max|err| {err.max().item():.3e} "
                   f"vs fp32 plain, tolerance atol {atol} + rtol {rtol}*|ref| "
                   f"({'ok' if excess <= 0 else 'MISS'})", flush=True)
@@ -316,7 +524,8 @@ def _check_outputs(name, out, ref) -> float:
         else:
             rel = rel_l2(o, r)
             print(f"[kernel] {name}/{key}: relative L2 {rel:.3e} vs fp32 "
-                  f"plain, bound {GRAD_REL_L2} "
+                  f"plain (max|err| {err.max().item():.3e}), bound "
+                  f"{GRAD_REL_L2} "
                   f"({'ok' if rel <= GRAD_REL_L2 else 'MISS'})", flush=True)
             require(rel <= GRAD_REL_L2, f"{name}/{key}: kernel disagrees "
                     "with plain")
@@ -346,23 +555,33 @@ def wd_keep_check(dev, inp) -> int:
 
 def kernel_phase(dev, inp, timed: bool = True) -> dict:
     """Each kernel against its fp32 plain version; returns per-kernel
-    ``max_abs_err``, ``ms`` and ``plain_ms``."""
+    ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by`` and
+    ``library_ms``."""
     wd_keep_check(dev, inp)
+    work = kernel_work(inp)
+    library = library_calls(inp) if timed else {}
     results = {}
     for name, (kern, plain, ref32) in kernel_calls(inp).items():
         out = kern()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         max_err = _check_outputs(name, out, ref32())
-        ms = plain_ms = None
+        bound_ms, bound_by = bound(*work[name])
+        ms = plain_ms = lib_ms = None
         if timed:
             ms = median_ms(kern)
             plain_ms = median_ms(plain)
+            if name in library:
+                lib_ms = median_ms(library[name])
             print(f"[kernel] {name}: median {ms:.4f} ms, plain "
-                  f"(bf16 inputs) {plain_ms:.4f} ms over 20 runs",
+                  f"(bf16 inputs) {plain_ms:.4f} ms over 20 runs; bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({work[name][0]:.4e} "
+                  f"operations, {work[name][1]:.4e} bytes); library "
+                  f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}",
                   flush=True)
         results[name] = {"max_abs_err": max_err, "ms": ms,
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms}
     return results
 
 
@@ -507,12 +726,13 @@ def read_launches(names) -> dict:
 
 
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
-                batch=64, seed=0):
-    """Seeded ViT + perturbed CaRA adapter (element-wise weight dropout
-    0.1, the model's drop-path) -> (cfg, cara_cfg, fp32 frozen, state,
-    one fixed device batch of normalized images)."""
+                batch=64, seed=0, impl="element"):
+    """Seeded ViT + perturbed CaRA adapter (weight dropout 0.1 of the
+    ``impl`` kind, the model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
+    state, one fixed device batch of normalized images)."""
     cfg = get_model_config(model, num_classes=num_classes)
-    cara_cfg = CaraConfig(rank=rank, scale=scale, weight_dropout=DROP_RATE)
+    cara_cfg = CaraConfig(rank=rank, scale=scale, weight_dropout=DROP_RATE,
+                          weight_dropout_impl=impl)
     params = convert.init_vit_params(cfg, seed)
     cara = convert.perturb_adapter(
         convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2)
@@ -526,38 +746,105 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
     return cfg, cara_cfg, frozen, state, data
 
 
+def step_grads(cfg, cara_cfg, frozen_c, state, data, rand,
+               dtype=torch.bfloat16, impl="auto"):
+    """(loss, grads) of one train step on the ``dtype``-rounded backbone
+    ``frozen_c`` with the randomness ``rand``; ``dtype=None`` is the fp32
+    plain path on the same weights and randomness (cast to fp32)."""
+    if dtype is None:
+        frozen_c = steps_lib.cast_floating(frozen_c, torch.float32)
+        rand = {k: ([t.float() for t in v] if isinstance(v, list)
+                    else v.float() if v.is_floating_point() else v)
+                for k, v in rand.items()}
+        impl = "plain"
+    loss, _, grads = steps_lib.loss_and_grads(
+        cfg, cara_cfg, state.trainable, frozen_c, data, compute_dtype=dtype,
+        impl=impl, randomness=rand)
+    return loss, grads
+
+
+def _perturbed(data, k, dev):
+    """``data`` for k = 0, else its images plus noise of std
+    ``NOISE_STD`` from a generator seeded with 100 + k."""
+    if k == 0:
+        return data
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(100 + k)
+    noise = torch.randn(data["image"].shape, generator=gen, device=dev)
+    return dict(data, image=data["image"] + NOISE_STD * noise)
+
+
 def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
                dtype=torch.bfloat16) -> dict:
     """(a) One step's gradients of every trainable leaf through the
     kernels (``dtype`` compute) against the fp32 plain path on the same
-    (``dtype``-rounded) backbone and the same drop-path gates and mask
-    seeds; relative L2 per leaf against ``TRAIN_GRAD_REL_L2``."""
+    (``dtype``-rounded) backbone and the same drop-path gates and masks,
+    by relative L2 per leaf.  The same step on ``NOISE_DRAWS`` copies of
+    the batch with perturbed images (same masks and gates) runs through
+    the kernels, the plain path in ``dtype`` (the TPU kernels' rounding
+    points in other summation orders) and fp32: a leaf's bound is the
+    larger of ``TRAIN_GRAD_REL_L2`` and the plain path's worst error over
+    the step and its copies, and the kernels' error on the step must stay
+    within it."""
+    tag = f"[train:{_route(cara_cfg)}]"
     rand = vit_lib.draw_randomness(cfg, data["image"].shape[0], dev,
-                                   generator, dtype)
+                                   generator, dtype, cara_cfg)
     frozen_c = steps_lib.cast_floating(frozen, dtype)
-    loss, _, grads = steps_lib.loss_and_grads(
-        cfg, cara_cfg, state.trainable, frozen_c, data, compute_dtype=dtype,
-        randomness=rand)
-    rand32 = {"seeds": rand["seeds"], "gates": rand["gates"].float()}
-    ref_loss, _, ref_grads = steps_lib.loss_and_grads(
-        cfg, cara_cfg, state.trainable,
-        steps_lib.cast_floating(frozen_c, torch.float32), data,
-        impl="plain", randomness=rand32)
     paths = [p for p, _ in steps_lib.tree_leaves(state.trainable)]
-    worst = 0.0
-    for path, g, ref in zip(paths, grads, ref_grads):
-        rel = rel_l2(g, ref)
-        worst = max(worst, rel)
-        require(bool(torch.isfinite(g).all()), f"grad {path}: non-finite")
-        print(f"[train] grad {path}: relative L2 {rel:.3e} vs fp32 plain "
-              f"(|ref| {ref.norm().item():.3e})", flush=True)
-    print(f"[train] loss {loss.item():.6f}, fp32 plain {ref_loss.item():.6f};"
-          f" worst gradient relative L2 {worst:.3e}, bound "
-          f"{TRAIN_GRAD_REL_L2}", flush=True)
-    require(worst <= TRAIN_GRAD_REL_L2, "train-step gradients disagree "
-            "with the fp32 plain path")
-    return {"worst_grad_rel_l2": worst, "loss": loss.item(),
-            "plain_loss": ref_loss.item()}
+    # per realization: {"kernel" | "plain": path -> relative L2}
+    errs, losses = [], []
+    for k in range(NOISE_DRAWS + 1):
+        args = (cfg, cara_cfg, frozen_c, state, _perturbed(data, k, dev),
+                rand)
+        ref_loss, ref = step_grads(*args, dtype=None)
+        row = {}
+        for name, impl in (("kernel", "auto"), ("plain", "plain")):
+            loss, grads = step_grads(*args, dtype=dtype, impl=impl)
+            for path, g in zip(paths, grads):
+                require(bool(torch.isfinite(g).all()),
+                        f"{name} grad {path}: non-finite")
+            row[name] = {p: rel_l2(g, r) for p, g, r in zip(paths, grads, ref)}
+            losses.append((loss.item(), ref_loss.item()))
+        errs.append(row)
+        what = "the step" if k == 0 else f"its images + {NOISE_STD} noise"
+        print(f"{tag} realization {k} ({what}): " + "; ".join(
+            f"{name} worst {_worst(e)}" for name, e in row.items()),
+            flush=True)
+    misses = []
+    for path in paths:
+        kern = errs[0]["kernel"][path]
+        plain_worst = max(e["plain"][path] for e in errs)
+        bound_p = max(TRAIN_GRAD_REL_L2, plain_worst)
+        print(f"{tag} grad {path}: relative L2 {kern:.3e} vs fp32 plain, "
+              f"bf16 plain {errs[0]['plain'][path]:.3e}; worst over "
+              f"{len(errs)} realizations: kernel "
+              f"{max(e['kernel'][path] for e in errs):.3e}, bf16 plain "
+              f"{plain_worst:.3e}; bound {bound_p:.3e} "
+              f"({'ok' if kern <= bound_p else 'MISS'})", flush=True)
+        if kern > bound_p:
+            misses.append(path)
+    worst = max(errs[0]["kernel"].values())
+    means = {name: statistics.mean(max(e[name].values()) for e in errs)
+             for name in ("kernel", "plain")}
+    loss, ref_loss = losses[0]
+    print(f"{tag} loss {loss:.6f}, fp32 plain {ref_loss:.6f}; worst "
+          f"gradient relative L2 {worst:.3e}; worst leaf's mean over "
+          f"{len(errs)} realizations: kernel {means['kernel']:.3e}, bf16 "
+          f"plain {means['plain']:.3e}", flush=True)
+    require(not misses, f"train-step gradients of {misses} disagree with "
+            "the fp32 plain path")
+    return {"worst_grad_rel_l2": worst, "loss": loss, "plain_loss": ref_loss}
+
+
+def _worst(errs: dict) -> str:
+    path = max(errs, key=errs.get)
+    return f"{errs[path]:.3e} ({path})"
+
+
+def _route(cara_cfg) -> str:
+    if cara_cfg.weight_dropout <= 0.0:
+        return "rate0"
+    return cara_cfg.weight_dropout_impl
 
 
 def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
@@ -591,25 +878,28 @@ def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
 
 
 def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
-                   model=MODEL) -> dict:
-    """(a) gradients against the fp32 plain path, (b) a falling loss over
-    ``steps`` steps on a fixed batch, (c) ms per step and img/s, kernel
-    and plain, (d) ``cli.vit_cp --synthetic`` whose best checkpoint is
-    served.  Launch counters are read for (b)-(d)."""
+                   model=MODEL, impl="element") -> dict:
+    """One training route (``impl`` weight dropout at 0.1): (a) gradients
+    against the fp32 plain path, (b) a falling loss over ``steps`` steps
+    on a fixed batch, (c) ms per step and img/s, kernel and plain, (d)
+    ``cli.vit_cp --synthetic`` whose best checkpoint is served.  Launch
+    counters are set to 0 before (b) and read after (d)."""
     cfg, cara_cfg, frozen, state, data = train_setup(dev, model=model,
-                                                     batch=batch)
-    print(f"[train] {model}: depth {cfg.depth}, E {cfg.embed_dim}, heads "
+                                                     batch=batch, impl=impl)
+    tag = f"[train:{impl}]"
+    print(f"{tag} {model}: depth {cfg.depth}, E {cfg.embed_dim}, heads "
           f"{cfg.num_heads}, rank {cara_cfg.rank}, weight dropout "
-          f"{cara_cfg.weight_dropout} (element), drop-path "
+          f"{cara_cfg.weight_dropout} ({impl}), drop-path "
           f"{cfg.drop_path_rate}, batch {batch}, bf16", flush=True)
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     out = grad_check(dev, cfg, cara_cfg, frozen, state, data, generator)
+    out["setup"] = (cfg, cara_cfg, frozen, state, data)
 
     reset_launches()
     state, losses, ms, wall = fixed_batch_steps(
         cfg, cara_cfg, frozen, state, data, generator, steps, timed=timed)
-    print(f"[train] loss over {steps} steps on one batch: "
+    print(f"{tag} loss over {steps} steps on one batch: "
           + " ".join(f"{v:.4f}" for v in losses), flush=True)
     require(all(np.isfinite(losses)), "non-finite training loss")
     require(losses[-1] < losses[0], "the loss did not fall")
@@ -622,7 +912,7 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                                          generator, plain_steps,
                                          impl="plain")
         out["plain_ms_per_step"] = statistics.median(pms[1:] or pms)
-        print(f"[train] median {out['ms_per_step']:.3f} ms per step (CUDA "
+        print(f"{tag} median {out['ms_per_step']:.3f} ms per step (CUDA "
               f"events, steps 6-{steps}), {out['img_per_s']:.1f} img/s on "
               f"the host clock over {steps} steps; plain path (bf16) "
               f"{out['plain_ms_per_step']:.3f} ms per step", flush=True)
@@ -633,11 +923,11 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                 "--eval-batch-size", str(batch), "--synthetic-size",
                 str(2 * batch), "--log-every", "11", "--out-dir", tmp,
                 "--backbone", os.path.join(tmp, "none.npz"),
-                "--device", str(dev)]
+                "--weight-dropout-impl", impl, "--device", str(dev)]
         t0 = time.perf_counter()
         acc = vit_cp_cli.main(argv)
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
-        print(f"[train] cli.vit_cp depth {cfg.depth}: best acc {acc}, "
+        print(f"{tag} cli.vit_cp depth {cfg.depth}: best acc {acc}, "
               f"{time.perf_counter() - t0:.1f} s, checkpoints {ckpts}",
               flush=True)
         require(len(ckpts) == 1, "the CLI wrote no best checkpoint")
@@ -647,18 +937,90 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
         logits = pred.logits(make_images(8, cfg.image_size, 5))
         require(logits.shape == (8, 10) and bool(np.isfinite(logits).all()),
                 f"served checkpoint gave {logits.shape} logits")
-        print(f"[train] the best checkpoint serves: logits {logits.shape}",
+        print(f"{tag} the best checkpoint serves: logits {logits.shape}",
               flush=True)
-    out["launches"] = read_launches(TRAINING_KERNELS + ("cp_mlp_block",))
-    print(f"[train] kernel launches on the training path: "
+    path = TRAINING_KERNELS if impl == "element" else SPLIT_KERNELS
+    out["launches"] = read_launches(path + ("cp_mlp_block",))
+    print(f"{tag} kernel launches on the training path: "
           f"{out['launches']}", flush=True)
-    for name in TRAINING_KERNELS:
+    for name in path:
         require(out["launches"][name] > 0,
-                f"{name} never launched on the training path")
+                f"{name} never launched on the {impl} training path")
     return out
 
 
-def main() -> int:
+def other_routes_grad_check(dev, setup) -> dict:
+    """One step's gradients of the row route and of weight dropout 0
+    (the split path both) against the fp32 plain path."""
+    cfg, cara_cfg, frozen, state, data = setup
+    out = {}
+    for over in ({"weight_dropout_impl": "row"}, {"weight_dropout": 0.0}):
+        cc = dataclasses.replace(cara_cfg, **over)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        out[_route(cc)] = grad_check(dev, cfg, cc, frozen, state, data,
+                                     generator)
+    return out
+
+
+def profile_steps(dev, impl, steps=5, batch=64, top=24) -> None:
+    """``--profile``: device time by kernel of ``steps`` ViT-B train steps
+    of the ``impl`` route (after three warm-up steps) from
+    ``torch.profiler``, and the busy share: the kernels' summed time over
+    the step time by CUDA events of as many steps run without the
+    profiler (whose own host cost stretches its window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, cara_cfg, frozen, state, data = train_setup(dev, batch=batch,
+                                                     impl=impl)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    step_fn = steps_lib.make_train_step(cfg, cara_cfg,
+                                        compute_dtype=torch.bfloat16)
+    frozen_c = steps_lib.cast_floating(frozen, torch.bfloat16)
+    for _ in range(3):
+        state, _ = step_fn(state, frozen_c, data, generator=generator)
+
+    def run():
+        nonlocal state
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(steps):
+            state, _ = step_fn(state, frozen_c, data, generator=generator)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / steps
+
+    step_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms = run()
+    rows = [(e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile:{impl}] {steps} steps at batch {batch}: {step_ms:.3f} "
+          f"ms a step by CUDA events ({profiled_ms:.3f} under the "
+          f"profiler); kernels {busy:.3f} ms a step "
+          f"({100 * busy / step_ms:.1f} % busy)", flush=True)
+    for ms, count, name in rows[:top]:
+        print(f"[profile:{impl}] {ms:8.3f} ms {100 * ms / step_ms:5.1f} % "
+              f"{count:6.1f}/step  {name[:90]}", flush=True)
+    rest = sum(r[0] for r in rows[top:])
+    print(f"[profile:{impl}] {rest:8.3f} ms in {len(rows) - top} other "
+          f"kernels", flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="only build, then profile the element and the "
+                             "rank train step by kernel")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
@@ -677,6 +1039,10 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}", flush=True)
+    if args.profile:
+        for impl in ("element", "rank"):
+            profile_steps(dev, impl)
+        return 0
 
     results = kernel_phase(dev, kernel_inputs(dev))
 
@@ -697,6 +1063,9 @@ def main() -> int:
 
     train = training_phase(dev)
     launches.update({k: train["launches"][k] for k in TRAINING_KERNELS})
+    split = training_phase(dev, steps=20, impl="rank")
+    launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
+    other_routes_grad_check(dev, split["setup"])
 
     kernels = []
     for name, (_, _, src, replaces) in KERNELS.items():

@@ -11,11 +11,16 @@ no JAX.)  The shapes are small and ragged on purpose: token counts that
 are not multiples of 16, masked keys, row counts that are not multiples
 of the 128-row GEMM tile, ranks that are not multiples of 16, head
 widths 16, 32 and 64; for the training kernels zero drop-path gates and
-the weight-dropout fold's keep pattern, bit for bit.  Inputs are bf16 from
+the weight-dropout fold's keep pattern, bit for bit; for the rank / row /
+no-dropout route's kernels (``cp_dense``, its dx, the attention backward,
+the MLP block backward) ranks 5 and 8, a delta scale other than 1 and
+one step of each route.  Inputs are bf16 from
 a seeded generator; the reference is the plain version in fp32 on the
 same inputs with TF32 off, held to ``chip_smoke.KERNEL_TOL`` (and
 ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2`` for gradients).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,6 +31,7 @@ from cara_tpu_torch.config import CaraConfig, get_model_config
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models import vit as t_vit
+from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import wd_fold
 
@@ -69,9 +75,10 @@ def test_kernels_match_plain(dev, shape):
         out = kern()
         torch.cuda.synchronize()
         chip_smoke._check_outputs(name, out, ref32())
-        # the fold entry folds the four sites of a layer
-        want = 4 if name == "build_wd_weight" else 1
-        assert _launches(name) == before + want, name
+        # the fold entry folds the four sites of a layer, the dense
+        # entries run the qkv and the projection site
+        want = {"build_wd_weight": 4, "cp_dense": 2, "cp_dense_dx": 2}
+        assert _launches(name) == before + want.get(name, 1), name
 
 
 # (b, n, n_real, e, heads, hidden, r): the training kernels at N 17 and
@@ -98,6 +105,71 @@ def test_training_kernels_match_plain(dev, shape):
     dx = calls["cp_attn_block_wd_bwd"][0]()["x"]
     assert torch.equal(dx[0], inp["g_attn"][0])
 
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=["n17_dh64_r5",
+                                                     "n197_dh32_r8"])
+def test_split_route_kernels_match_plain(dev, shape):
+    """The kernels of the rank / row / no-dropout route: ``cp_dense`` and
+    ``cp_dense_ln`` forward and backward, the attention backward and the
+    MLP block backward with a zero gate."""
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=5, n_real=n_real,
+                                   zero_gates=1)
+    calls = chip_smoke.kernel_calls(inp)
+    for name in chip_smoke.NEW_SPLIT_KERNELS:
+        kern, _, ref32 = calls[name]
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+    dx = calls["cp_mlp_block_bwd"][0]()["x"]
+    assert torch.equal(dx[0], inp["g_mlp"][0])
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["proj", "qkv_ln"])
+def test_cp_dense_dx_kernel_matches_plain(dev, ln):
+    """Row 12 on its own, dx and gv, with a delta scale other than 1 (it
+    rides the U operand of the rank step) and M = 3 * 61 rows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    m, k, n, r, s = 183, 256, 768 if ln else 256, 5, 2.5
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std
+                + mean).bfloat16()
+
+    g2, w, u, v = rnd(m, n), rnd(k, n, std=0.05), rnd(k, r, std=0.1), \
+        rnd(r, n, std=0.1)
+    x2, ls = rnd(m, k), rnd(k, std=0.1, mean=1.0)
+    ln_arg = (ls, 1e-6) if ln else None
+    before = dense_mod.DX_LAUNCHES
+    dx, gv = dense_mod.cp_dense_dx(g2, w, u, v, s, ln_arg, x2)
+    torch.cuda.synchronize()
+    assert dense_mod.DX_LAUNCHES == before + 1
+    f32 = [t.float() for t in (g2, w, u, v)]
+    ref_dx, ref_gv = dense_mod.cp_dense_dx_plain(
+        *f32, s, (ls.float(), 1e-6) if ln else None, x2.float())
+    assert gv.shape == (m, r)
+    _check("cp_dense_dx", gv, ref_gv)
+    _check("cp_dense_dx", dx, ref_dx)
+
+
+@pytest.mark.parametrize("over", [{}, {"weight_dropout_impl": "row"},
+                                  {"weight_dropout": 0.0}],
+                         ids=["rank", "row", "rate0"])
+def test_split_route_train_step_on_card_matches_plain(dev, over):
+    """A tiny model's step on the split route through the kernels: every
+    gradient within chip_smoke's bound of the fp32 plain path."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model="vit_tiny_test", batch=6, rank=4, impl="rank")
+    cc = dataclasses.replace(cc, **over)
+    before = {k: _launches(k) for k in chip_smoke.NEW_SPLIT_KERNELS}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in chip_smoke.NEW_SPLIT_KERNELS:
+        assert _launches(name) > before[name], name
 
 @pytest.mark.parametrize("rate", [0.1, 0.3])
 def test_wd_fold_keep_pattern_is_exact(dev, rate):

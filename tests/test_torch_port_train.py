@@ -32,6 +32,7 @@ from cara_tpu import config as j_config
 from cara_tpu.data import vtab as j_vtab
 from cara_tpu.models import npz as j_npz
 from cara_tpu.models import vit as j_vit
+from cara_tpu.ops import cp as j_cp
 from cara_tpu.train import checkpoint as j_ckpt
 from cara_tpu.train import schedule as j_sched
 from cara_tpu.train import steps as j_steps
@@ -41,11 +42,12 @@ MODEL = "vit_tiny_test"
 B = 4
 
 
-def _setup(rank=4, num_classes=10):
+def _setup(rank=4, num_classes=10, **cara_over):
     # drop-path 0.5 at the last layer, so that a dropped path shows up
     over = dict(num_classes=num_classes, drop_path_rate=0.5)
     cfg = get_model_config(MODEL, **over)
-    cara_cfg = CaraConfig(rank=rank, scale=2.0, weight_dropout=0.1)
+    cara_cfg = CaraConfig(**{"rank": rank, "scale": 2.0,
+                             "weight_dropout": 0.1, **cara_over})
     params = convert.init_vit_params(cfg, 0)
     cara = convert.perturb_adapter(
         convert.init_cara_params(cfg, cara_cfg, 1), 2, std=0.05)
@@ -57,26 +59,46 @@ def _setup(rank=4, num_classes=10):
     return cfg, cara_cfg, params, cara, batch, j_cfg, j_cc
 
 
-def jax_randomness(rng, cfg, batch):
+def jax_randomness(rng, cfg, batch, cara_cfg=None):
     """The per-layer mask seeds and drop-path gates ``cara_tpu``'s
     ``vit_forward`` derives from ``rng`` (``vit.py:1405-1408, 439-445``,
-    ``_wd_seed``, ``_dp_gate``), in the port's ``randomness`` layout."""
-    depth = cfg.depth
+    ``_wd_seed``, ``_dp_gate``), in the port's ``randomness`` layout; with
+    ``cara_cfg`` of the rank or row kind at a rate above 0, also the four
+    sites' rank (``_rank_comp``) or row (``_row_u``) masks."""
+    depth, e = cfg.depth, cfg.embed_dim
+    impl = None
+    if cara_cfg is not None and cara_cfg.weight_dropout > 0:
+        impl = cara_cfg.weight_dropout_impl
     keys = jax.random.split(jax.random.fold_in(rng, 0), depth)
     skeys = jax.random.split(jax.random.fold_in(rng, 1), depth)
     dpr = jnp.linspace(0.0, cfg.drop_path_rate, depth)
-    seeds, gates = [], []
+    seeds, gates, comp = [], [], []
+    rows = [[] for _ in range(4)]
     for layer in range(depth):
+        site_keys = jax.random.split(keys[layer], 4)
         seeds.append([np.asarray(jax.random.randint(
-            k, (1, 1), -2 ** 31, 2 ** 31 - 1, jnp.int32))
-            for k in jax.random.split(keys[layer], 4)])
+            k, (1, 1), -2 ** 31, 2 ** 31 - 1, jnp.int32)) for k in site_keys])
+        if impl == "rank":
+            comp.append([np.asarray(j_cp.weight_dropout_mask(
+                k, (cara_cfg.rank,), cara_cfg.weight_dropout))
+                for k in site_keys])
+        if impl == "row":
+            for site, (k, width) in enumerate(zip(
+                    site_keys, (e, e, e, cfg.hidden_dim))):
+                rows[site].append(np.asarray(j_cp.weight_dropout_mask(
+                    k, (width, 1), cara_cfg.weight_dropout)).reshape(width))
         sk = jax.random.split(skeys[layer], 7)
         keep = 1.0 - dpr[layer]
         gates.append([np.asarray(
             jax.random.bernoulli(sk[i], keep, (batch, 1, 1)).astype(
                 jnp.float32) / keep).reshape(batch) for i in (0, 1)])
-    return {"seeds": torch.from_numpy(np.array(seeds)).reshape(depth, 4, 1, 1),
-            "gates": torch.from_numpy(np.array(gates))}
+    out = {"seeds": torch.from_numpy(np.array(seeds)).reshape(depth, 4, 1, 1),
+           "gates": torch.from_numpy(np.array(gates))}
+    if impl == "rank":
+        out["comp"] = torch.from_numpy(np.array(comp))
+    if impl == "row":
+        out["rows"] = [torch.from_numpy(np.array(m)) for m in rows]
+    return out
 
 
 def test_vit_forward_train_matches_jax():
@@ -104,9 +126,7 @@ def test_vit_forward_train_matches_jax():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("weight_dropout_impl", "rank"), ("weight_dropout_impl", "row"),
-    ("delta_impl", "materialized"), ("cp_order", 2), ("weight_dropout", 0.0),
-    ("moe_experts", 2)])
+    ("delta_impl", "materialized"), ("cp_order", 2), ("moe_experts", 2)])
 def test_vit_forward_train_refuses_unported_routes(field, value):
     cfg, cc, params, cara, batch, _, _ = _setup()
     over = {field: value}
@@ -321,7 +341,7 @@ def test_cli_trains_and_checkpoint_loads_in_both_packages(tmp_path):
     assert logits.shape == (3, 2) and np.isfinite(logits).all()
     # a flag whose feature is not ported is refused, naming the ROADMAP
     with pytest.raises(SystemExit, match="ROADMAP"):
-        t_cli.main(["--synthetic", "--weight-dropout-impl", "row"])
+        t_cli.main(["--synthetic", "--delta-impl", "materialized"])
 
 
 def test_keeper_rotates_and_writes_host_copies(tmp_path):
