@@ -35,6 +35,16 @@ depth)``:
   site's lambda (``_rank_comp``); row masks multiply the rows of each
   site's U (``_row_u``).
 
+Past ``MAX_NP_FULL_SCORES`` (512) tokens -- ViT-B/16 at 384 px has 577
+-- the full-score attention and the attention megakernel do not fit, and
+every route takes the TPU's long-sequence form (``vit.py:587-596,
+704-710, 716-737, 818-833``): :func:`blockwise_qkv_attention` in place of
+:func:`fused_qkv_attention`; the adapter's eval and the rank / row /
+rate-0 routes the split path above; element training the split path with
+the element-dropout sites :func:`cp_dense_ln_wd` (qkv) and
+:func:`cp_dense_wd` (proj) in place of :func:`cp_attn_block_wd`, then
+:func:`cp_mlp_block_wd`.
+
 Per layer it draws four int32 mask seeds (``_wd_seed``), two gates
 (``_dp_gate``) and the rank or row masks from a ``torch.Generator`` on
 the device, or takes them from ``randomness``.
@@ -49,6 +59,7 @@ import torch
 from cara_tpu_torch.config import CaraConfig, ViTConfig
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.ops.cp import weight_dropout_mask
+from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
@@ -90,13 +101,21 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     b, n = x.shape[:2]
     plain = impl == "plain"
     dpm = torch.ones((b, 1), dtype=x.dtype, device=x.device)
+    # The TPU's switch: past 512 (padded) tokens the full-score attention
+    # and the attention megakernel give way to the blockwise attention.
+    long = n > fqa_mod.MAX_NP_FULL_SCORES
+
+    def attention(qkv):
+        if long:
+            return bwa_mod.blockwise_qkv_attention(qkv, h, d ** -0.5, n,
+                                                   impl=impl)
+        return fqa_mod.fused_qkv_attention(qkv, h, d ** -0.5, n, impl=impl)
+
     if cara_params is None:
         xa = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.layernorm_eps)
         qkv = linear(xa, bp["qkv"]["kernel"], bp["qkv"]["bias"])
-        attn = (fqa_mod.fused_qkv_attention_plain if plain
-                else fqa_mod.fused_qkv_attention)
-        o = attn(qkv, h, d ** -0.5, n)
-        x = x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"])
+        x = x + linear(attention(qkv), bp["proj"]["kernel"],
+                       bp["proj"]["bias"])
         xm = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.layernorm_eps)
         hid = activation(linear(xm, bp["fc1"]["kernel"], bp["fc1"]["bias"]),
                          cfg.activation)
@@ -131,24 +150,34 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1,
         bp["proj"]["kernel"], bp["proj"]["bias"], u2, v2,
         fold(cara_params["bias1"]), bp["ln1_scale"], bp["ln1_bias"])
-    if rand is None:
+    gate = (dpm.reshape(b, 1, 1) if rand is None
+            else rand["gates"][0].reshape(b, 1, 1).to(dt))
+    if rand is None and not long:
         attn_block = (attn_mod.cp_attn_block_plain if plain
                       else attn_mod.cp_attn_block)
         x = attn_block(*attn_args, dpm, h, d ** -0.5, n, 1.0,
                        cfg.layernorm_eps)
-    elif use_elem:
+    elif use_elem and not long:
         x = attn_mod.cp_attn_block_wd(
             *attn_args, rand["gates"][0].reshape(b, 1).to(dt),
             rand["seeds"][0], rand["seeds"][1], h, d ** -0.5, n, 1.0, rate,
             cfg.layernorm_eps, impl=impl)
+    elif use_elem:  # the split element sites (vit.py:716-724, 818-824)
+        qkv = dense_mod.cp_dense_ln_wd(
+            x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
+            bp["ln1_scale"], bp["ln1_bias"], rand["seeds"][0], 1.0, rate,
+            cfg.layernorm_eps, impl=impl)
+        proj = dense_mod.cp_dense_wd(attention(qkv), *attn_args[5:10],
+                                     rand["seeds"][1], 1.0, rate, impl=impl)
+        x = x + proj * gate
     else:  # the split path (vit.py:691-873)
         qkv = dense_mod.cp_dense_ln(
             x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
             bp["ln1_scale"], bp["ln1_bias"], 1.0, cfg.layernorm_eps,
             impl=impl)
-        o = fqa_mod.fused_qkv_attention(qkv, h, d ** -0.5, n, impl=impl)
-        proj = dense_mod.cp_dense(o, *attn_args[5:10], 1.0, impl=impl)
-        x = x + proj * rand["gates"][0].reshape(b, 1, 1).to(dt)
+        proj = dense_mod.cp_dense(attention(qkv), *attn_args[5:10], 1.0,
+                                  impl=impl)
+        x = x + proj * gate
     u3, v3 = site_uv(2, cara_lib.rows_out_uv, p1[1:1 + mr], p2, p3, r2)
     u4, v4 = site_uv(3, cara_lib.rows_in_uv, p1[1 + mr:1 + 2 * mr], p2, p3,
                      r2)
@@ -173,11 +202,11 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     if cara_cfg is None:
         raise NotImplementedError(
             "training without an adapter (methods linear/full) is not yet "
-            f"ported ({_TODO}: flash_attention, row 17)")
+            "ported (ROADMAP.md queue 1 item 9: the PEFT zoo)")
     if cfg.dropout_rate > 0.0 or cfg.attn_dropout_rate > 0.0:
         raise NotImplementedError(
             "activation / attention dropout in training is not yet ported "
-            f"({_TODO}: row 13's activation recompute, row 15 and mha)")
+            f"({_TODO}: row 13's GELU body and mha)")
     if cara_cfg.method != "cara" or cara_cfg.moe:
         raise NotImplementedError(
             f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "

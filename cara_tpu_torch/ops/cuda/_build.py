@@ -44,6 +44,8 @@ _SIGNATURES = {
     "cara_qkv_attention_smem": [_I, _I],
     "cara_qkv_attention_bwd": [_P, _P, _P] + [_I] * 5 + [_F, _P],
     "cara_qkv_attention_bwd_smem": [_I, _I],
+    "cara_blockwise_attention": [_P] * 3 + [_I] * 5 + [_F, _P],
+    "cara_blockwise_attention_bwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
     "cara_wd_factor_grads": [_P, _I] + [_P] * 7 + [_I] * 3 + [_F, _U, _P],
     "cara_rank_z": [_P] * 3 + [_I] * 4 + [_P],

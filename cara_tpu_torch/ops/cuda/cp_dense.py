@@ -28,9 +28,24 @@ the token rows (``_bwd.factor_grad``) and column sums.  The backbone W,
 b and the LayerNorm are frozen (no gradient), as in ``_bwd_rule`` /
 ``_bwd_ln_rule``; the LN input is recomputed in the backward.
 
+:func:`cp_dense_wd` and :func:`cp_dense_ln_wd` are the same sites with
+exact element-wise weight dropout on the delta (``cp_dense_wd`` /
+``cp_dense_ln_wd``, ``_fwd_wd`` / ``_bwd_wd_rule`` and their LN twins):
+the split element route the TPU takes when the attention megakernel is
+off (N > 512).  Forward: the fold W' = W + s/(1-p) (U V) (.) keep (row
+14, ``wd_fold.build_wd_weight``), then row 13 on W' with rank 0; W' is
+kept for the backward, as the TPU rule keeps it.  Backward:
+``dx = g W'^T`` (``grad_gemm.cu``'s NT product, no rank step; the fp32
+d(LN(x)) then ``block_rows.cu``'s LayerNorm backward for the LN site),
+the masked factor gradients on x or LN(x) (row 15,
+``wd_fold.cp_wd_factor_grads``) and ``db`` by column sums, ``dcb = s
+db``.
+
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions, which keep the TPU kernels'
-rounding points.  ``LAUNCHES`` counts row 13, ``DX_LAUNCHES`` row 12.
+rounding points.  ``LAUNCHES`` counts row 13, ``DX_LAUNCHES`` row 12,
+``WD_LAUNCHES`` and ``WD_BWD_LAUNCHES`` the element-dropout sites'
+forwards and backwards.
 """
 
 from __future__ import annotations
@@ -39,7 +54,7 @@ from typing import Optional
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _bwd
+from cara_tpu_torch.ops.cuda import _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
 from cara_tpu_torch.ops.layers import layer_norm
 
@@ -47,6 +62,11 @@ from cara_tpu_torch.ops.layers import layer_norm
 LAUNCHES = 0
 #: dx kernel calls of their backward (row 12).
 DX_LAUNCHES = 0
+#: Forward calls of :func:`cp_dense_wd` / :func:`cp_dense_ln_wd` (the
+#: fold, then row 13 on W').
+WD_LAUNCHES = 0
+#: Backward calls of them (dx on W', then row 15).
+WD_BWD_LAUNCHES = 0
 
 
 def cp_dense_plain(x2, w, b, u, v, cb: Optional[torch.Tensor], s: float,
@@ -173,13 +193,19 @@ class _CpDense(torch.autograd.Function):
                 dv.to(v.dtype), dcb, None, None, None, None, None)
 
 
-def _apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, impl):
+def _plain(name, x, w, u, v, impl) -> bool:
+    """Check a site's call; True when it takes the plain versions."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     plain = impl == "plain" or x.device.type == "cpu"
     if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check_site("cp_dense", x, w.shape[0], w, u, v, not plain)
+    _check_site(name, x, w.shape[0], w, u, v, not plain)
+    return plain
+
+
+def _apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, impl):
+    plain = _plain("cp_dense", x, w, u, v, impl)
     return _CpDense.apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, plain)
 
 
@@ -197,3 +223,98 @@ def cp_dense_ln(x, w, b, u, v, cb: Optional[torch.Tensor], ln_scale,
     """:func:`cp_dense` on ``LN(x)`` (frozen scale and bias), the
     normalized row rounded to ``x.dtype`` as ``_ln_rows`` does."""
     return _apply(x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps, impl)
+
+
+def cp_dense_wd_bwd_plain(g2, x2, wp, u, v, seed, s: float, rate: float,
+                          ln=None):
+    """Plain twin of the element-dropout site's backward: (dx (M, K) in
+    ``g2.dtype``, dU, dV, db fp32) from g2 (M, N), the raw input x2 and
+    the folded W'; ``ln`` = (scale, bias, eps) or None."""
+    dxl = g2.float() @ wp.float().t()
+    if ln is None:
+        dx, xa = dxl, x2
+    else:
+        dx = _bwd.ln_input_bwd_plain(x2, dxl, ln[0], ln[2])
+        xa = layer_norm(x2, *ln)
+    du, dv = wd_fold.cp_wd_factor_grads_plain(xa, g2, u, v, seed, s, rate)
+    return dx.to(g2.dtype), du, dv, g2.float().sum(0)
+
+
+def _wd_bwd_cuda(g2, x2, wp, u, v, seed, s, rate, ln):
+    if ln is None:
+        dx, xa = _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, wp), x2
+    else:
+        dxl = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, g2, wp)
+        dx = _bwd.ln_bwd_residual(x2, dxl, ln[0], None, ln[2])
+        xa = _bwd.ln_rows(x2, *ln)
+    du, dv = wd_fold.cp_wd_factor_grads(xa, g2, u, v, seed, s, rate)
+    return dx, du, dv, _bwd.colsum(g2)
+
+
+class _CpDenseWd(torch.autograd.Function):
+    """Gradients for x, u, v and cb; W, b, the LayerNorm and the seed are
+    constants, as in ``_bwd_wd_rule`` / ``_bwd_ln_wd_rule``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, u, v, cb, seed, ln_scale, ln_bias, s, rate,
+                ln_eps, plain):
+        global WD_LAUNCHES
+        lead, k = x.shape[:-1], x.shape[-1]
+        n = w.shape[1]
+        x2 = x.reshape(-1, k)
+        ln = None if ln_scale is None else (ln_scale, ln_bias, ln_eps)
+        u0, v0 = wd_fold.zero_rank(x2, k, n)
+        if plain:
+            wp = wd_fold.build_wd_weight_plain(w, u, v, seed, s, rate)
+            out = cp_dense_plain(x2, wp, b, u0, v0, cb, s, ln)
+        else:
+            x2 = x2.contiguous()
+            wp = wd_fold.build_wd_weight(w, u, v, seed, s, rate)
+            out = site_cuda(x2, wp, b, u0, v0, cb, s, ln=ln)
+            WD_LAUNCHES += 1
+        ctx.save_for_backward(x2, wp, u, v, seed, ln_scale, ln_bias)
+        ctx.cfg = (lead, s, rate, ln_eps, plain, cb is not None)
+        return out.reshape(*lead, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        global WD_BWD_LAUNCHES
+        x2, wp, u, v, seed, ls, lb = ctx.saved_tensors
+        lead, s, rate, eps, plain, has_cb = ctx.cfg
+        g2 = g.reshape(-1, wp.shape[1]).contiguous()
+        ln = None if ls is None else (ls, lb, eps)
+        if plain:
+            dx, du, dv, db = cp_dense_wd_bwd_plain(g2, x2, wp, u, v, seed,
+                                                   s, rate, ln)
+        else:
+            dx, du, dv, db = _wd_bwd_cuda(g2, x2, wp, u, v, seed, s, rate,
+                                          ln)
+            WD_BWD_LAUNCHES += 1
+        dcb = (s * db).to(g.dtype) if has_cb else None
+        return (dx.reshape(*lead, wp.shape[0]), None, None, du.to(u.dtype),
+                dv.to(v.dtype), dcb, None, None, None, None, None, None,
+                None)
+
+
+def _apply_wd(x, w, b, u, v, cb, seed, ls, lb, s, rate, ln_eps, impl):
+    plain = _plain("cp_dense_wd", x, w, u, v, impl)
+    return _CpDenseWd.apply(x, w, b, u, v, cb, seed, ls, lb, s, rate, ln_eps,
+                            plain)
+
+
+def cp_dense_wd(x, w, b, u, v, cb: Optional[torch.Tensor], seed,
+                s: float, rate: float, impl: str = "auto"):
+    """``x W + b + s ((x (U V (.) keep)) / (1 - rate) + cb)``: :func:`cp_dense`
+    with exact element-wise weight dropout on the delta, the keep mask
+    hashed from ``seed`` (one-element int32 tensor on x's device).
+    Differentiable in x, u, v and cb."""
+    return _apply_wd(x, w, b, u, v, cb, seed, None, None, s, rate, 0.0,
+                     impl)
+
+
+def cp_dense_ln_wd(x, w, b, u, v, cb: Optional[torch.Tensor], ln_scale,
+                   ln_bias, seed, s: float, rate: float,
+                   ln_eps: float = 1e-6, impl: str = "auto"):
+    """:func:`cp_dense_wd` on ``LN(x)`` (frozen scale and bias)."""
+    return _apply_wd(x, w, b, u, v, cb, seed, ln_scale, ln_bias, s, rate,
+                     ln_eps, impl)

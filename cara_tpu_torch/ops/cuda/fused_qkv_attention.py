@@ -37,8 +37,9 @@ def _check_np(np_: int) -> None:
     if np_ > MAX_NP_FULL_SCORES:
         raise ValueError(
             f"fused_qkv_attention holds a head's full score rows and is "
-            f"capped at N={MAX_NP_FULL_SCORES} (got N={np_}); the "
-            "blockwise (online-softmax) attention is not yet ported")
+            f"capped at N={MAX_NP_FULL_SCORES} (got N={np_}); above it "
+            "the blockwise (online-softmax) attention "
+            "(ops/cuda/blockwise_attention.py) takes over")
 
 
 def fused_qkv_attention_plain(qkv: torch.Tensor, heads: int, scale: float,

@@ -14,6 +14,15 @@ stored: the forward fold and the backward finish regenerate it.
   (kernel ``csrc/wd_factor_grads.cu``): ``dtc = bf16(dT (.) keep *
   s/(1-p))``, ``dU = dtc V^T``, ``dV = U^T dtc``; the block backward
   wrappers call it after their ``dT = x^T g`` products.
+* :func:`cp_wd_factor_grads` is TPU row 15, ``_cp_wd_factor_grads``
+  (``cara_tpu/ops/pallas/cp_dense.py``), the factor gradients of one
+  split element-dropout site (``ops/cuda/cp_dense.py`` ``cp_dense_wd``):
+  dT = x^T g as ``csrc/grad_gemm.cu``'s TN product split over the token
+  rows into fp32 partial planes, then the masked finish on them.  The
+  TPU kernel holds the whole (K, N) fp32 dT in VMEM over a sequential
+  grid; on the H100 the planes make the round trip through device memory
+  (K N 4 B each, 7 MB for the qkv site), and the product is bound by the
+  tensor cores (2 M K N = 131 GFLOP for qkv at M = 36928 tokens).
 
 Seeds are int32 tensors of one element on the compute device (the kernels
 read them there, so drawing them costs no host sync).  A CUDA tensor
@@ -24,10 +33,12 @@ from __future__ import annotations
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _build
+from cara_tpu_torch.ops.cuda import _build, _bwd
 
 #: Number of kernel launches made by :func:`build_wd_weight`.
 LAUNCHES = 0
+#: Launch pairs (dT product, masked finish) of :func:`cp_wd_factor_grads`.
+FACTOR_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 
@@ -162,3 +173,34 @@ def masked_factor_grads_cuda(dt_parts, u, v, seed, s: float, rate: float):
         keep_threshold(rate), _build.stream_ptr(dev))
     _build.check(code, "wd_factor_grads")
     return du, dv
+
+
+def cp_wd_factor_grads_plain(xa, g2, u, v, seed, s: float, rate: float):
+    """Plain twin of :func:`cp_wd_factor_grads`: fp32 dT = xa^T g2, then
+    the masked finish with ``dtc`` rounded to ``xa.dtype``
+    (``masked_site_grads``)."""
+    dt = xa.float().t() @ g2.float()
+    return masked_factor_grads_plain(dt, u, v, seed, s, rate, xa.dtype)
+
+
+def cp_wd_factor_grads(xa, g2, u, v, seed, s: float, rate: float):
+    """(dU (K, r), dV (r, N)) fp32 of a site with element-wise weight
+    dropout, from its input xa (M, K) (LN(x) for an LN site) and output
+    cotangent g2 (M, N): TPU row 15.  U (K, r), V (r, N); ``seed`` the
+    site's one-element int32 mask seed on the device."""
+    global FACTOR_LAUNCHES
+    m, k = xa.shape
+    n = g2.shape[1]
+    if g2.shape[0] != m or u.shape[0] != k or v.shape[1] != n:
+        raise ValueError(f"cp_wd_factor_grads shapes: xa {tuple(xa.shape)} "
+                         f"g {tuple(g2.shape)} u {tuple(u.shape)} v "
+                         f"{tuple(v.shape)}")
+    if xa.device.type == "cpu":
+        return cp_wd_factor_grads_plain(xa, g2, u, v, seed, s, rate)
+    if xa.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xa.device}")
+    parts = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, g2,
+                      splits=_bwd.dt_splits(k, n, m))
+    out = masked_factor_grads_cuda(parts, u, v, seed, s, rate)
+    FACTOR_LAUNCHES += 1
+    return out

@@ -39,20 +39,31 @@ fatal on failure:
    ``cp_dense_ln``, ``fused_qkv_attention``, ``cp_dense``, then
    ``cp_mlp_block``, each with its backward kernel), 20 steps, and the
    CLI with ``--weight-dropout-impl rank``; then one step's gradients of
-   the row route and of weight dropout 0 against the fp32 plain path.
+   the row route and of weight dropout 0 against the fp32 plain path;
+7. the 384-px route (ViT-B/16 at 577 tokens, past the full-score
+   attention's 512): the kernel entries of TPU rows 15 and 16 at its
+   shapes (the blockwise attention forward and backward,
+   ``cp_dense_wd`` / ``cp_dense_ln_wd`` forward and backward, row 15's
+   factor gradients; the blockwise forward again at N = 640 with keys
+   >= 577 masked, and its log-sum-exp at both);
+   ``vit_base_patch16_384_in21k`` served merged and unmerged as in 4;
+   trained with element and with rank weight dropout as in 5 and 6, the
+   gradient check at batch 16, 12 timed steps at batch 64.  Over these
+   phases the blockwise counters grow and the full-score attention's and
+   the attention megakernel's do not.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
 bf16 tensor-core peak and its bytes, each input read and each output
-written once, over the memory rate), and, for the attention forward and
-backward, the time of ``F.scaled_dot_product_attention`` on the same
+written once, over the memory rate), and, for the attention forwards and
+backwards, the time of ``F.scaled_dot_product_attention`` on the same
 inputs (a yardstick only; the port never calls it).  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``--profile`` only builds and then prints the device time by kernel of
-five ViT-B train steps of the element and of the rank route
-(``torch.profiler``), with the busy share.
+five ViT-B train steps of the element and of the rank route, at 224 and
+at 384 px (``torch.profiler``), with the busy share.
 """
 
 from __future__ import annotations
@@ -80,10 +91,12 @@ from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.vit import vit_forward
 from cara_tpu_torch.ops.cuda import _build, wd_fold
+from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
+from cara_tpu_torch.ops.layers import layer_norm
 from cara_tpu_torch.server import InferenceServer
 from cara_tpu_torch.serving import Predictor
 from cara_tpu_torch.train import steps as steps_lib
@@ -126,7 +139,24 @@ KERNELS = {
     "cp_mlp_block_bwd": (
         mlp_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:292"),
+    "blockwise_qkv_attention": (
+        bwa_mod, "LAUNCHES", "cara_tpu_torch/csrc/blockwise_attention.cu",
+        "cara_tpu/ops/pallas/blockwise_attention.py:228"),
+    "blockwise_qkv_attention_bwd": (
+        bwa_mod, "BWD_LAUNCHES",
+        "cara_tpu_torch/csrc/blockwise_attention_bwd.cu",
+        "cara_tpu/ops/pallas/blockwise_attention.py:279"),
+    "cp_dense_wd": (
+        dense_mod, "WD_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_wd_bwd": (
+        dense_mod, "WD_BWD_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:273"),
+    "cp_wd_factor_grads": (
+        wd_fold, "FACTOR_LAUNCHES", "cara_tpu_torch/csrc/wd_factor_grads.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:663"),
 }
+MODEL_384 = "vit_base_patch16_384_in21k"
 SERVING_KERNELS = ("fused_qkv_attention", "cp_attn_block", "cp_mlp_block")
 TRAINING_KERNELS = ("build_wd_weight", "cp_attn_block_wd",
                     "cp_attn_block_wd_bwd", "cp_mlp_block_wd_bwd")
@@ -135,11 +165,30 @@ SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
                  "fused_qkv_attention_bwd", "cp_mlp_block", "cp_mlp_block_bwd")
 NEW_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention_bwd",
                      "cp_mlp_block_bwd")
+# The 384-px route's entries (rows 16 and 15 and the split element sites),
+# checked at N = 577, and the kernels each 384 phase launches.
+LONG_KERNELS = ("blockwise_qkv_attention", "blockwise_qkv_attention_bwd",
+                "cp_dense_wd", "cp_dense_wd_bwd", "cp_wd_factor_grads")
+LONG_SERVING_KERNELS = ("blockwise_qkv_attention", "cp_dense",
+                        "cp_mlp_block")
+LONG_ELEMENT_KERNELS = ("build_wd_weight", "cp_dense_wd", "cp_dense_wd_bwd",
+                        "cp_wd_factor_grads", "blockwise_qkv_attention",
+                        "blockwise_qkv_attention_bwd", "cp_mlp_block_wd_bwd")
+LONG_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "blockwise_qkv_attention",
+                      "blockwise_qkv_attention_bwd", "cp_mlp_block",
+                      "cp_mlp_block_bwd")
+# What the 384-px route must not launch: the full-score attention and the
+# attention megakernels, capped at 512 tokens.
+SHORT_ATTENTION_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd",
+                           "cp_attn_block", "cp_attn_block_wd",
+                           "cp_attn_block_wd_bwd")
 # |kernel - fp32 plain| <= ATOL + RTOL * |ref|, elementwise.  The kernels
 # round their intermediates (qkv, P, z, h; in the backward do, dqkv, ds,
 # dpre) and their outputs to bf16, the reference does not; bf16 keeps 8
 # bits, so 2e-2 leaves ~4 ulps of room, 5e-2 for the backward's dx, which
 # passes three rounded products.  The fold's only rounding is its output.
+# The blockwise forward averages over 577 keys (|out| ~0.025 at the
+# smoke's inputs), so its atol is 2e-3.
 KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_attn_block": (2e-2, 2e-2),
               "cp_mlp_block": (2e-2, 2e-2),
@@ -149,7 +198,10 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_mlp_block_wd_bwd": (5e-2, 5e-2),
               "cp_dense": (2e-2, 2e-2),
               "cp_dense_dx": (5e-2, 5e-2),
-              "cp_mlp_block_bwd": (5e-2, 5e-2)}
+              "cp_mlp_block_bwd": (5e-2, 5e-2),
+              "blockwise_qkv_attention": (2e-3, 1e-2),
+              "cp_dense_wd": (2e-2, 2e-2),
+              "cp_dense_wd_bwd": (5e-2, 5e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -158,6 +210,10 @@ ELEMENTWISE_KEYS = ("out", "x", "o", "qkv", "proj")
 # Factor and bias gradients reduce over B*N = 12608 rows of bf16
 # products: held by ||kernel - ref|| / ||ref|| (relative L2).
 GRAD_REL_L2 = 2e-2
+# The blockwise forward's fp32 log-sum-exp (~log N + the row max) from the
+# same bf16 q and k as the fp32 plain: only the summation order differs.
+# A key wrongly kept or masked at N = 640 moves it by ~log(640 / 577).
+LSE_ATOL = 1e-3
 # Logits: bf16 through 12 layers against fp32 on the same weights.
 LOGIT_RTOL = 0.05
 # One train step's gradient of each trainable leaf, bf16 kernels against
@@ -395,10 +451,81 @@ def kernel_calls(inp):
     }
 
 
+def long_kernel_calls(inp):
+    """:func:`kernel_calls` for the 384-px route's entries
+    (``LONG_KERNELS``): the blockwise attention forward and backward, the
+    two element-dropout sites (qkv with LN1 and no cb, proj with cb2)
+    forward and backward, and row 15 on the qkv site's LN(x) and
+    cotangent."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    a = inp["attn"]
+    qkv = inp["qkv"]
+    s1, s2 = inp["seeds"][:2]
+    rate = DROP_RATE
+    dense = dict(a, o=inp["o"])
+
+    def attn_fwd(dtype, impl):
+        q = qkv.to(dtype)
+        return lambda: bwa_mod.blockwise_qkv_attention(q, h, sm, n,
+                                                       impl=impl)
+
+    def attn_bwd(impl, dtype):
+        call = _grad_call(
+            lambda t: bwa_mod.blockwise_qkv_attention(t["qkv"], h, sm, n,
+                                                      impl=impl),
+            {"qkv": qkv}, ("qkv",), inp["g_attn"], dtype)
+        return lambda: dict(zip(("dq", "dk", "dv"),
+                                call()["qkv"].chunk(3, dim=-1)))
+
+    def wd_sites(t, impl):
+        return (dense_mod.cp_dense_ln_wd(t["x"], t["wq"], t["bq"], t["u1"],
+                                         t["v1"], None, t["ln_scale"],
+                                         t["ln_bias"], s1, 1.0, rate,
+                                         impl=impl),
+                dense_mod.cp_dense_wd(t["o"], t["wp"], t["bp"], t["u2"],
+                                      t["v2"], t["cb2"], s2, 1.0, rate,
+                                      impl=impl))
+
+    def wd_fwd(impl, dtype):
+        t = {k: v.to(dtype) for k, v in dense.items()}
+        return lambda: dict(zip(("qkv", "proj"), wd_sites(t, impl)))
+
+    def wd_bwd(impl, dtype):
+        return _grad_call(lambda t: wd_sites(t, impl), dense, DENSE_DIFF,
+                          (inp["g_qkv"], inp["g_attn"]), dtype)
+
+    e = inp["e"]
+    xa = layer_norm(a["x"], a["ln_scale"], a["ln_bias"]).reshape(-1, e)
+    g_qkv = inp["g_qkv"].reshape(-1, 3 * e)
+
+    def factor(fn, dtype):
+        t = [v.to(dtype) for v in (xa, g_qkv, a["u1"], a["v1"])]
+        return lambda: dict(zip(("du", "dv"), fn(*t, s1, 1.0, rate)))
+
+    bf = torch.bfloat16
+    return {
+        "blockwise_qkv_attention": (attn_fwd(bf, "auto"),
+                                    attn_fwd(bf, "plain"),
+                                    attn_fwd(torch.float32, "plain")),
+        "blockwise_qkv_attention_bwd": (attn_bwd("auto", bf),
+                                        attn_bwd("plain", bf),
+                                        attn_bwd("plain", torch.float32)),
+        "cp_dense_wd": (wd_fwd("auto", bf), wd_fwd("plain", bf),
+                        wd_fwd("plain", torch.float32)),
+        "cp_dense_wd_bwd": (wd_bwd("auto", bf), wd_bwd("plain", bf),
+                            wd_bwd("plain", torch.float32)),
+        "cp_wd_factor_grads": (
+            factor(wd_fold.cp_wd_factor_grads, bf),
+            factor(wd_fold.cp_wd_factor_grads_plain, bf),
+            factor(wd_fold.cp_wd_factor_grads_plain, torch.float32)),
+    }
+
+
 def kernel_work(inp) -> dict:
     """name -> (operations, bytes) of each entry's call at these inputs:
-    the products of the TPU kernel's algorithm (its recomputes included;
-    softmax and row passes are not counted as operations), each input
+    the products the function needs (a backward recomputes what its
+    forward did not keep, once; a kernel that recomputes more is held to
+    that; softmax and row passes are not counted as operations), each input
     read once and each output written once (bf16 2 bytes, fp32 factor
     and bias gradients 4).  Attention counts the valid keys only."""
     a, m = inp["attn"], inp["mlp"]
@@ -416,6 +543,7 @@ def kernel_work(inp) -> dict:
     attn_bwd = 10 * b * n * nr * e     # s recomputed, dv, dp, dq, dk
     act = rows * e * 2                 # one (M, E) bf16 activation
     qkv_act = 3 * act
+    lse = rows * inp["heads"] * 4
     attn_w = nb(*(a[k] for k in ("wq", "bq", "u1", "v1", "wp", "bp", "u2",
                                  "v2", "cb2", "ln_scale", "ln_bias")))
     mlp_w = nb(*(m[k] for k in ("w1", "b1", "u1", "v1", "cb1", "w2", "b2",
@@ -461,6 +589,22 @@ def kernel_work(inp) -> dict:
             3 * 2 * rows * e * hid + mlp_rank,
             3 * act + mlp_w + factor(e, hid) + factor(hid, e)
             + 4 * (hid + e)),
+        # s, p v; its output and the (B, N, H) fp32 log-sum-exp
+        "blockwise_qkv_attention": (attn, qkv_act + act + lse),
+        # s, dp, dq, dk and dv over the valid keys (the kernels recompute
+        # s and dp, as the TPU's do; recomputes are not the function's)
+        "blockwise_qkv_attention_bwd": (attn_bwd,
+                                        2 * qkv_act + 2 * act + lse),
+        "cp_dense_wd": (
+            fold_ops[0] + fold_ops[1] + 2 * rows * (3 * e * e + e * e),
+            act + qkv_act + 2 * act + attn_w),
+        # dx = g W'^T and dT = xa^T g at both sites, and their finish
+        "cp_dense_wd_bwd": (
+            2 * 2 * rows * (3 * e * e + e * e) + finish[0] + finish[1],
+            qkv_act + 3 * act + 2 * act + attn_w + factor(e, 3 * e)
+            + factor(e, e) + 4 * e),
+        "cp_wd_factor_grads": (2 * rows * e * 3 * e + finish[0],
+                               act + qkv_act + factor(e, 3 * e)),
     }
 
 
@@ -474,7 +618,8 @@ def bound(ops: float, nbytes: float):
 def library_calls(inp) -> dict:
     """name -> one PyTorch call computing the entry's function on the same
     inputs, where there is one: ``F.scaled_dot_product_attention`` forward
-    (row 1) and its backward (row 2).  Yardsticks, timed only."""
+    (rows 1 and 16) and its backward (rows 2 and 16).  Yardsticks, timed
+    only."""
     b, n, nr, e, h = (inp["b"], inp["n"], inp["n_real"], inp["e"],
                       inp["heads"])
     q, k, v = (t.detach().clone().requires_grad_(True) for t in
@@ -492,9 +637,12 @@ def library_calls(inp) -> dict:
             return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
                                                   scale=inp["sm"])
 
-    return {"fused_qkv_attention": fwd,
-            "fused_qkv_attention_bwd": lambda: torch.autograd.grad(
-                out, (q, k, v), g, retain_graph=True)}
+    def bwd():
+        return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    return {"fused_qkv_attention": fwd, "fused_qkv_attention_bwd": bwd,
+            "blockwise_qkv_attention": fwd,
+            "blockwise_qkv_attention_bwd": bwd}
 
 
 def rel_l2(out, ref) -> float:
@@ -558,10 +706,54 @@ def kernel_phase(dev, inp, timed: bool = True) -> dict:
     ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by`` and
     ``library_ms``."""
     wd_keep_check(dev, inp)
+    return check_entries(dev, inp, kernel_calls(inp), timed)
+
+
+def long_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """:func:`kernel_phase` for the 384-px route's entries on ``inp`` (at
+    N = 577), then the blockwise attention forward at N = 640 with keys
+    >= 577 masked."""
+    out = check_entries(dev, inp, long_kernel_calls(inp), timed)
+    args = (inp["heads"], inp["sm"], inp["n_real"])
+    blockwise_lse_check(inp["qkv"], *args)
+    n, nr = 640, inp["n"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    qkv = (torch.randn((inp["b"], n, 3 * inp["e"]), generator=g, device=dev)
+           * 0.6).to(torch.bfloat16)
+    args = (inp["heads"], inp["sm"], nr)
+    got = bwa_mod.blockwise_qkv_attention(qkv, *args)
+    ref, _ = bwa_mod.blockwise_attention_fwd_plain(qkv.float(), *args)
+    print(f"[kernel] blockwise_qkv_attention at N {n}, keys >= {nr} "
+          "masked:", flush=True)
+    _check_outputs("blockwise_qkv_attention", got, ref)
+    blockwise_lse_check(qkv, *args)
+    return out
+
+
+def blockwise_lse_check(qkv, heads, sm, n_real) -> float:
+    """The blockwise forward kernel's log-sum-exp, which the backward
+    reads, against the fp32 plain one: max |err| <= ``LSE_ATOL``.  A CPU
+    tensor (a rehearsal) takes the plain forward in its own dtype."""
+    fwd = (bwa_mod.attention_fwd_cuda if qkv.is_cuda
+           else bwa_mod.blockwise_attention_fwd_plain)
+    _, lse = fwd(qkv, heads, sm, n_real)
+    _, ref = bwa_mod.blockwise_attention_fwd_plain(qkv.float(), heads, sm,
+                                                   n_real)
+    err = (lse - ref).abs().max().item()
+    print(f"[kernel] blockwise_qkv_attention/lse at N {qkv.shape[1]}, "
+          f"n_real {n_real}: max|err| {err:.3e} vs fp32 plain, tolerance "
+          f"{LSE_ATOL} ({'ok' if err <= LSE_ATOL else 'MISS'})", flush=True)
+    require(err <= LSE_ATOL, "blockwise_qkv_attention/lse: kernel "
+            "disagrees with plain")
+    return err
+
+
+def check_entries(dev, inp, calls, timed: bool) -> dict:
     work = kernel_work(inp)
     library = library_calls(inp) if timed else {}
     results = {}
-    for name, (kern, plain, ref32) in kernel_calls(inp).items():
+    for name, (kern, plain, ref32) in calls.items():
         out = kern()
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -653,18 +845,18 @@ def reference_logits(pred, images, chunk=32):
 
 
 def serving_phase(dev, ckpt, model, images, batch_size=64, dtype=None,
-                  timed=True) -> dict:
+                  timed=True, tag="serve") -> dict:
     """Serve ``images`` merged and unmerged; returns per-mode logits."""
     dtype = torch.bfloat16 if dtype is None else dtype
     out = {}
     for merge in (True, False):
-        mode = "merged" if merge else "adapter"
+        mode = f"{tag}:merged" if merge else f"{tag}:adapter"
         pred = Predictor.from_checkpoint_auto(
             ckpt, model, batch_size=batch_size, buckets="auto", merge=merge,
             device=dev, dtype=dtype)
         t0 = time.perf_counter()
         srv = InferenceServer(pred, port=0).start(warmup=True)
-        print(f"[serve:{mode}] warmup over buckets {pred.buckets}: "
+        print(f"[{mode}] warmup over buckets {pred.buckets}: "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         try:
             logits = serve_requests(srv, images)
@@ -673,7 +865,7 @@ def serving_phase(dev, ckpt, model, images, batch_size=64, dtype=None,
         finally:
             srv.close()
         require(health.get("status") == "ok", f"healthz: {health}")
-        print(f"[serve:{mode}] /stats {json.dumps(stats)}", flush=True)
+        print(f"[{mode}] /stats {json.dumps(stats)}", flush=True)
         require(stats["requests"] == len(images),
                 f"{mode}: {stats['requests']} of {len(images)} answered")
         require(stats["mean_batch_occupancy"] > 1,
@@ -684,7 +876,7 @@ def serving_phase(dev, ckpt, model, images, batch_size=64, dtype=None,
         ref = reference_logits(pred, images)
         err = float(np.abs(logits - ref).max())
         tol = LOGIT_RTOL * float(np.abs(ref).max())
-        print(f"[serve:{mode}] max|logits - fp32 plain| {err:.4e}, "
+        print(f"[{mode}] max|logits - fp32 plain| {err:.4e}, "
               f"tolerance {tol:.4e} ({LOGIT_RTOL} x max|ref|)", flush=True)
         require(err <= tol, f"{mode}: logits disagree with the plain path")
         if timed:
@@ -695,13 +887,13 @@ def serving_phase(dev, ckpt, model, images, batch_size=64, dtype=None,
             for _ in range(iters):
                 pred.logits(batch)
             dt = time.perf_counter() - t0
-            print(f"[serve:{mode}] {iters * len(batch) / dt:.1f} img/s at "
+            print(f"[{mode}] {iters * len(batch) / dt:.1f} img/s at "
                   f"batch {len(batch)} (Predictor.logits, host clock, "
                   f"{dt / iters * 1e3:.3f} ms per batch)", flush=True)
-        out[mode] = logits
+        out["merged" if merge else "adapter"] = logits
     err = float(np.abs(out["merged"] - out["adapter"]).max())
     tol = LOGIT_RTOL * float(np.abs(out["adapter"]).max())
-    print(f"[serve] max|merged - adapter| {err:.4e}, tolerance {tol:.4e}",
+    print(f"[{tag}] max|merged - adapter| {err:.4e}, tolerance {tol:.4e}",
           flush=True)
     require(err <= tol, "merged and adapter logits disagree")
     return out
@@ -726,11 +918,12 @@ def read_launches(names) -> dict:
 
 
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
-                batch=64, seed=0, impl="element"):
+                batch=64, seed=0, impl="element", **overrides):
     """Seeded ViT + perturbed CaRA adapter (weight dropout 0.1 of the
     ``impl`` kind, the model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
-    state, one fixed device batch of normalized images)."""
-    cfg = get_model_config(model, num_classes=num_classes)
+    state, one fixed device batch of normalized images); ``overrides``
+    change the model's config."""
+    cfg = get_model_config(model, num_classes=num_classes, **overrides)
     cara_cfg = CaraConfig(rank=rank, scale=scale, weight_dropout=DROP_RATE,
                           weight_dropout_impl=impl)
     params = convert.init_vit_params(cfg, seed)
@@ -775,7 +968,7 @@ def _perturbed(data, k, dev):
 
 
 def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
-               dtype=torch.bfloat16) -> dict:
+               dtype=torch.bfloat16, tag=None) -> dict:
     """(a) One step's gradients of every trainable leaf through the
     kernels (``dtype`` compute) against the fp32 plain path on the same
     (``dtype``-rounded) backbone and the same drop-path gates and masks,
@@ -786,7 +979,7 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
     larger of ``TRAIN_GRAD_REL_L2`` and the plain path's worst error over
     the step and its copies, and the kernels' error on the step must stay
     within it."""
-    tag = f"[train:{_route(cara_cfg)}]"
+    tag = f"[train:{_route(cara_cfg)}]" if tag is None else tag
     rand = vit_lib.draw_randomness(cfg, data["image"].shape[0], dev,
                                    generator, dtype, cara_cfg)
     frozen_c = steps_lib.cast_floating(frozen, dtype)
@@ -878,22 +1071,35 @@ def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
 
 
 def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
-                   model=MODEL, impl="element") -> dict:
+                   model=MODEL, impl="element", path=None, grad_batch=None,
+                   idle=()) -> dict:
     """One training route (``impl`` weight dropout at 0.1): (a) gradients
-    against the fp32 plain path, (b) a falling loss over ``steps`` steps
-    on a fixed batch, (c) ms per step and img/s, kernel and plain, (d)
+    against the fp32 plain path (on the first ``grad_batch`` images, all
+    by default), (b) a falling loss over ``steps`` steps on a fixed
+    batch, (c) ms per step and img/s, kernel and plain, (d)
     ``cli.vit_cp --synthetic`` whose best checkpoint is served.  Launch
-    counters are set to 0 before (b) and read after (d)."""
+    counters are set to 0 before (b) and read after (d): every kernel of
+    ``path`` (by default the 224-px route's) launched, none of
+    ``idle``."""
     cfg, cara_cfg, frozen, state, data = train_setup(dev, model=model,
                                                      batch=batch, impl=impl)
-    tag = f"[train:{impl}]"
+    tag = f"[train:{impl}]" if model == MODEL else f"[train:{impl}:{model}]"
     print(f"{tag} {model}: depth {cfg.depth}, E {cfg.embed_dim}, heads "
-          f"{cfg.num_heads}, rank {cara_cfg.rank}, weight dropout "
-          f"{cara_cfg.weight_dropout} ({impl}), drop-path "
-          f"{cfg.drop_path_rate}, batch {batch}, bf16", flush=True)
+          f"{cfg.num_heads}, {cfg.num_patches + 1} tokens, rank "
+          f"{cara_cfg.rank}, weight dropout {cara_cfg.weight_dropout} "
+          f"({impl}), drop-path {cfg.drop_path_rate}, batch {batch}, bf16",
+          flush=True)
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
-    out = grad_check(dev, cfg, cara_cfg, frozen, state, data, generator)
+    gdata = {k: v[:grad_batch] for k, v in data.items()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = grad_check(dev, cfg, cara_cfg, frozen, state, gdata, generator,
+                     tag=tag)
+    if dev.type == "cuda":
+        print(f"{tag} gradient check at batch {len(gdata['label'])}: peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB "
+              "allocated", flush=True)
     out["setup"] = (cfg, cara_cfg, frozen, state, data)
 
     reset_launches()
@@ -939,13 +1145,18 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                 f"served checkpoint gave {logits.shape} logits")
         print(f"{tag} the best checkpoint serves: logits {logits.shape}",
               flush=True)
-    path = TRAINING_KERNELS if impl == "element" else SPLIT_KERNELS
-    out["launches"] = read_launches(path + ("cp_mlp_block",))
+    if path is None:
+        path = TRAINING_KERNELS if impl == "element" else SPLIT_KERNELS
+    out["launches"] = read_launches(tuple(KERNELS))
     print(f"{tag} kernel launches on the training path: "
-          f"{out['launches']}", flush=True)
+          f"{ {k: v for k, v in out['launches'].items() if v} }",
+          flush=True)
     for name in path:
         require(out["launches"][name] > 0,
                 f"{name} never launched on the {impl} training path")
+    for name in idle:
+        require(out["launches"][name] == 0,
+                f"{name} launched on the {impl} training path of {model}")
     return out
 
 
@@ -963,16 +1174,18 @@ def other_routes_grad_check(dev, setup) -> dict:
     return out
 
 
-def profile_steps(dev, impl, steps=5, batch=64, top=24) -> None:
-    """``--profile``: device time by kernel of ``steps`` ViT-B train steps
-    of the ``impl`` route (after three warm-up steps) from
+def profile_steps(dev, impl, steps=5, batch=64, top=24,
+                  model=MODEL) -> None:
+    """``--profile``: device time by kernel of ``steps`` train steps of
+    ``model`` on the ``impl`` route (after three warm-up steps) from
     ``torch.profiler``, and the busy share: the kernels' summed time over
     the step time by CUDA events of as many steps run without the
     profiler (whose own host cost stretches its window)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, cara_cfg, frozen, state, data = train_setup(dev, batch=batch,
-                                                     impl=impl)
+    cfg, cara_cfg, frozen, state, data = train_setup(dev, model=model,
+                                                     batch=batch, impl=impl)
+    tag = f"[profile:{impl}]" if model == MODEL else f"[profile:{impl}:384]"
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     step_fn = steps_lib.make_train_step(cfg, cara_cfg,
@@ -1003,15 +1216,15 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24) -> None:
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"[profile:{impl}] {steps} steps at batch {batch}: {step_ms:.3f} "
+    print(f"{tag} {steps} steps at batch {batch}: {step_ms:.3f} "
           f"ms a step by CUDA events ({profiled_ms:.3f} under the "
           f"profiler); kernels {busy:.3f} ms a step "
           f"({100 * busy / step_ms:.1f} % busy)", flush=True)
     for ms, count, name in rows[:top]:
-        print(f"[profile:{impl}] {ms:8.3f} ms {100 * ms / step_ms:5.1f} % "
+        print(f"{tag} {ms:8.3f} ms {100 * ms / step_ms:5.1f} % "
               f"{count:6.1f}/step  {name[:90]}", flush=True)
     rest = sum(r[0] for r in rows[top:])
-    print(f"[profile:{impl}] {rest:8.3f} ms in {len(rows) - top} other "
+    print(f"{tag} {rest:8.3f} ms in {len(rows) - top} other "
           f"kernels", flush=True)
 
 
@@ -1019,7 +1232,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="only build, then profile the element and the "
-                             "rank train step by kernel")
+                             "rank train step by kernel at 224 and 384 px")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -1040,11 +1253,13 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}", flush=True)
     if args.profile:
-        for impl in ("element", "rank"):
-            profile_steps(dev, impl)
+        for model in (MODEL, MODEL_384):
+            for impl in ("element", "rank"):
+                profile_steps(dev, impl, model=model)
         return 0
 
     results = kernel_phase(dev, kernel_inputs(dev))
+    results.update(long_kernel_phase(dev, kernel_inputs(dev, n=577)))
 
     images = make_images(96, 224)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1066,6 +1281,31 @@ def main(argv=None) -> int:
     split = training_phase(dev, steps=20, impl="rank")
     launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
     other_routes_grad_check(dev, split["setup"])
+    del train, split
+
+    # The 384-px route: 577 tokens, past the full-score attention's 512.
+    images = make_images(96, 384)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "vit_smoke_384_seed_0.npz")
+        make_checkpoint(ckpt, model=MODEL_384)
+        reset_launches()
+        serving_phase(dev, ckpt, MODEL_384, images, tag="serve:384")
+        served = read_launches(tuple(KERNELS))
+    print(f"[serve:384] kernel launches on the serving path: "
+          f"{ {k: v for k, v in served.items() if v} }", flush=True)
+    for name in LONG_SERVING_KERNELS:
+        require(served[name] > 0, f"{name} never launched serving 384 px")
+    for name in SHORT_ATTENTION_KERNELS:
+        require(served[name] == 0, f"{name} launched serving 384 px")
+    del images
+    for impl, path in (("element", LONG_ELEMENT_KERNELS),
+                       ("rank", LONG_SPLIT_KERNELS)):
+        long = training_phase(dev, steps=12, plain_steps=2, model=MODEL_384,
+                              impl=impl, path=path, grad_batch=16,
+                              idle=SHORT_ATTENTION_KERNELS)
+        if impl == "element":
+            launches.update({k: long["launches"][k] for k in LONG_KERNELS})
+        del long
 
     kernels = []
     for name, (_, _, src, replaces) in KERNELS.items():

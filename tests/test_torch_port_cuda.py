@@ -14,7 +14,9 @@ widths 16, 32 and 64; for the training kernels zero drop-path gates and
 the weight-dropout fold's keep pattern, bit for bit; for the rank / row /
 no-dropout route's kernels (``cp_dense``, its dx, the attention backward,
 the MLP block backward) ranks 5 and 8, a delta scale other than 1 and
-one step of each route.  Inputs are bf16 from
+one step of each route; for the 384-px route's kernels (the blockwise
+attention, the element-dropout sites and row 15) key tiles wholly past
+``n_real``, and a tiny model at 577 tokens.  Inputs are bf16 from
 a seeded generator; the reference is the plain version in fp32 on the
 same inputs with TF32 off, held to ``chip_smoke.KERNEL_TOL`` (and
 ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2`` for gradients).
@@ -238,6 +240,58 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fqa_mod.fused_qkv_attention(big, 4, 0.25, 520)
 
 
+# (b, n, n_real, e, heads, r): head dims 64, 32 and 16; at N = 200 the
+# key tiles past 100 are wholly masked.
+LONG_SHAPES = [(3, 200, 100, 128, 2, 5), (2, 577, 577, 256, 8, 8),
+               (2, 70, 61, 64, 4, 4)]
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES, ids=["dh64", "dh32", "dh16"])
+def test_long_route_kernels_match_plain(dev, shape):
+    """The blockwise attention forward (and its log-sum-exp) and backward,
+    the element-dropout sites forward and backward and row 15 against
+    their fp32 plain versions, each counted once per wrapper call."""
+    b, n, n_real, e, heads, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=4 * e, r=r, seed=7, n_real=n_real)
+    calls = chip_smoke.long_kernel_calls(inp)
+    assert sorted(calls) == sorted(chip_smoke.LONG_KERNELS)
+    for name, (kern, _, ref32) in calls.items():
+        before = _launches(name)
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+        want = {"cp_dense_wd": 2, "cp_dense_wd_bwd": 2}
+        assert _launches(name) == before + want.get(name, 1), name
+    chip_smoke.blockwise_lse_check(inp["qkv"], heads, inp["sm"], n_real)
+    if n_real <= 128:  # rows past n_real: zero dk and dv
+        dkv = calls["blockwise_qkv_attention_bwd"][0]()
+        assert not dkv["dk"][:, n_real:].any()
+        assert not dkv["dv"][:, n_real:].any()
+
+
+@pytest.mark.parametrize("impl", ["element", "rank"])
+def test_long_route_train_step_on_card_matches_plain(dev, impl):
+    """A tiny model at 577 tokens (96 px in 4-px patches) on the 384-px
+    route through the kernels: every gradient within chip_smoke's bound
+    of the fp32 plain path; the blockwise attention launches, the
+    full-score attention and the attention megakernels do not."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model="vit_tiny_test", batch=4, rank=4, impl=impl,
+        image_size=96, patch_size=4)
+    names = (chip_smoke.LONG_ELEMENT_KERNELS if impl == "element"
+             else chip_smoke.LONG_SPLIT_KERNELS)
+    short = chip_smoke.SHORT_ATTENTION_KERNELS
+    before = {k: _launches(k) for k in names + short}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in names:
+        assert _launches(name) > before[name], name
+    for name in short:
+        assert _launches(name) == before[name], name
+
+
 def _cast(tree, dtype):
     return convert.map_floating(tree, lambda t: t.to(dtype))
 
@@ -269,3 +323,33 @@ def test_vit_forward_on_card_matches_plain(dev, adapter):
     tol = chip_smoke.LOGIT_RTOL * ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= tol
     assert (fqa_mod.LAUNCHES > fqa0) != adapter
+
+
+@pytest.mark.parametrize("adapter", [False, True], ids=["merged", "adapter"])
+def test_vit_forward_577_tokens_on_card_matches_plain(dev, adapter):
+    """The eval forward at 577 tokens: the blockwise attention (and the
+    split sites with the adapter kept) against the fp32 plain forward."""
+    cfg = get_model_config("vit_tiny_test", image_size=96, patch_size=4)
+    cc = CaraConfig(rank=4, scale=3.0)
+    params = convert.params_from_numpy(convert.init_vit_params(cfg, 0), dev)
+    cara = convert.params_from_numpy(convert.perturb_adapter(
+        convert.init_cara_params(cfg, cc, 1), 2, std=0.1), dev)
+    if adapter:
+        cara = _cast(cara, torch.bfloat16)
+    else:
+        params, cara, cc = merge_cara(params, cara, cfg, cc), None, None
+    params = _cast(params, torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 96, 96, 3)).astype(np.float32)).to(dev)
+    bwa0, short0 = _launches("blockwise_qkv_attention"), _launches(
+        "fused_qkv_attention")
+    with torch.inference_mode():
+        out = t_vit.vit_forward(params, x.bfloat16(), cfg,
+                                cara_params=cara, cara_cfg=cc)
+        ref = t_vit.vit_forward(_cast(params, torch.float32), x, cfg,
+                                cara_params=_cast(cara, torch.float32),
+                                cara_cfg=cc, impl="plain")
+    tol = chip_smoke.LOGIT_RTOL * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert _launches("blockwise_qkv_attention") == bwa0 + cfg.depth
+    assert _launches("fused_qkv_attention") == short0
