@@ -1,4 +1,5 @@
-"""High-level model construction (port of ``cara_tpu/api.py``, CaRA only).
+"""High-level model construction (port of ``cara_tpu/api.py``: CaRA, and
+the non-adapter control rows ``linear`` and ``full``).
 
 The reference's public surface is ``cara(config)`` returning a patched
 timm module (``src/cara/cara.py:169-188``); the functional equivalent
@@ -19,7 +20,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from cara_tpu_torch.config import CaraConfig, ViTConfig, get_model_config
+from cara_tpu_torch.config import (NO_ADAPTER, PORTED_METHODS, CaraConfig,
+                                   ViTConfig, get_model_config)
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import npz as npz_lib
 from cara_tpu_torch.models.cara import cara_param_shapes
@@ -30,12 +32,16 @@ class CaraModel:
     cfg: ViTConfig
     cara_cfg: CaraConfig
     params: Dict[str, Any]        # backbone + head (head is trainable)
-    cara_params: Dict[str, Any]   # CP adapter (trainable)
+    cara_params: Dict[str, Any]   # CP adapter (trainable); {} for linear/full
 
     @property
     def trainable_count(self) -> int:
         """CP parameters only, head excluded: the reference's printed
-        "Total parameters" (``vit_cp.py:175-183``)."""
+        "Total parameters" (``vit_cp.py:175-183``).  The non-adapter
+        control rows have no adapter tree: ``linear`` reports the head
+        (what trains), ``full`` the whole model."""
+        if self.cara_cfg.method in NO_ADAPTER:
+            return self.cara_cfg.trainable_param_count(self.cfg)
         return sum(int(np.prod(s)) for s in
                    cara_param_shapes(self.cfg, self.cara_cfg).values())
 
@@ -57,6 +63,7 @@ def linear_init(seed: int, in_dim: int, out_dim: int) -> Dict[str, Any]:
 def build_model(
     model_name: str = "vit_base_patch16_224_in21k",
     *,
+    method: str = "cara",
     rank: int = 32,
     scale: float = 1.0,
     l_mu: float = 1.0,
@@ -72,15 +79,23 @@ def build_model(
     """Backbone (the npz at ``backbone_path`` when it exists, else random)
     + CaRA adapter + a fresh head of ``num_classes``, as the reference
     training script builds them (``vit_cp.py:155-166``).  ``weight_dropout=None``
-    is the reference's 0.1; ``weight_dropout_impl`` is "element" (the
-    reference's), "rank" or "row".  Other adapter methods and delta paths
-    are not ported (ROADMAP.md queue 1)."""
+    resolves to the method's default: the reference's 0.1 for CaRA, 0
+    for ``linear`` / ``full``, whose adapter tree is empty
+    (``cara_tpu/models/cara.py:142-147``).  ``weight_dropout_impl`` is
+    "element" (the reference's), "rank" or "row".  Other adapter methods
+    and delta paths are not ported (ROADMAP.md queue 1)."""
+    if method not in PORTED_METHODS:
+        raise NotImplementedError(
+            f"method={method!r} is not yet ported to cara_tpu_torch "
+            "(ROADMAP.md queue 1: the PEFT zoo)")
     cfg = get_model_config(model_name, **(model_overrides or {}))
     if num_classes is not None:
         cfg = dataclasses.replace(cfg, num_classes=num_classes)
+    if weight_dropout is None:
+        weight_dropout = 0.1 if method == "cara" else 0.0
     cara_cfg = CaraConfig(
-        rank=rank, scale=scale, l_mu=l_mu, l_std=l_std, cp_order=cp_order,
-        weight_dropout=0.1 if weight_dropout is None else weight_dropout,
+        method=method, rank=rank, scale=scale, l_mu=l_mu, l_std=l_std,
+        cp_order=cp_order, weight_dropout=weight_dropout,
         weight_dropout_impl=weight_dropout_impl)
     # A given num_classes always gets a fresh head; otherwise the npz's
     # own head is kept where its width matches.
@@ -95,5 +110,6 @@ def build_model(
     if cfg.num_classes > 0 and "head" not in params:
         params["head"] = linear_init(seed + 2, _head_in_dim(cfg),
                                      cfg.num_classes)
-    cara_params = convert.init_cara_params(cfg, cara_cfg, seed + 1)
+    cara_params = ({} if method in NO_ADAPTER
+                   else convert.init_cara_params(cfg, cara_cfg, seed + 1))
     return CaraModel(cfg, cara_cfg, params, cara_params)

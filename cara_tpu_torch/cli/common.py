@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from cara_tpu_torch.config import ViTConfig
+from cara_tpu_torch.config import NO_ADAPTER, PORTED_METHODS, ViTConfig
 from cara_tpu_torch.data.vtab import VTAB_TASKS
 from cara_tpu_torch.models.vit import WEIGHT_DROPOUT_IMPLS
 
@@ -28,7 +28,7 @@ _SPLIT = "ROADMAP.md queue 2: the other attention and dense routes"
 UNPORTED = {
     "merged_eval": (False, "ROADMAP.md queue 1: cli/export.py and merged "
                     "eval"),
-    "method": ("cara", _PEFT), "lora_alpha": (None, _PEFT),
+    "lora_alpha": (None, _PEFT),
     "fact_scale": (None, _PEFT), "fact_core_rank": (0, _PEFT),
     "vpt_tokens": (8, _PEFT), "adapter_scale": (None, _PEFT),
     "adapter_dropout": (None, _PEFT), "moe": (None, _PEFT),
@@ -42,7 +42,7 @@ UNPORTED = {
     "profile_dir": (None, _TRAIN), "memory_report": (False, _TRAIN),
     "nan_check": (False, _TRAIN), "wandb": (False, _TRAIN),
     "compilation_cache": (None, _TRAIN),
-    "attn_impl": ("auto", _SPLIT), "dense_impl": ("auto", _SPLIT),
+    "dense_impl": ("auto", _SPLIT),
 }
 
 
@@ -88,7 +88,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "--device cpu runs the plain versions of the "
                         "kernels)")
     # The JAX CLI's other flags: parsed, refused unless at their default.
-    p.add_argument("--method", default="cara", type=str)
+    p.add_argument("--method", default="cara", type=str,
+                   help="cara (the adapter), linear (the head over the "
+                        "frozen backbone) or full (every weight)")
     p.add_argument("--lora-alpha", default=None, type=float)
     p.add_argument("--fact-scale", default=None, type=float)
     p.add_argument("--fact-core-rank", default=0, type=int)
@@ -104,7 +106,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--no-remat", action="store_true")
     p.add_argument("--grad-accum", default=1, type=int)
-    p.add_argument("--attn-impl", default="auto", type=str)
+    p.add_argument("--attn-impl", default="auto", type=str,
+                   help="auto | fused (the attention on the qkv GEMM "
+                        "output) | flash (separate q, k, v; linear and "
+                        "full only; full takes it for auto)")
     p.add_argument("--dense-impl", default="auto", type=str)
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--memory-report", action="store_true")
@@ -122,6 +127,36 @@ def refuse_unported(args) -> None:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"{flag} is not yet ported to cara_tpu_torch "
                              f"({where})")
+    method = getattr(args, "method", "cara")
+    if method not in PORTED_METHODS:
+        raise SystemExit(f"--method {method} is not yet ported to "
+                         f"cara_tpu_torch ({_PEFT})")
+    attn = getattr(args, "attn_impl", "auto")
+    if attn not in ("auto", "fused", "flash"):
+        raise SystemExit(f"--attn-impl {attn} is not yet ported to "
+                         f"cara_tpu_torch ({_SPLIT})")
+    if attn == "flash" and method == "cara":
+        raise SystemExit(
+            "--attn-impl flash with CaRA is not yet ported to "
+            "cara_tpu_torch (ROADMAP.md queue 1: CaRA with --attn-impl "
+            "flash / xla, JAX's XLA delta forms)")
+
+
+def adapter_scale_wd(args, hp_scale: float, hp_wd: float):
+    """(delta scale, weight-dropout rate) for ``args.method``: CaRA keeps
+    the task table's values (``--weight-dropout`` overrides the rate);
+    ``linear`` / ``full`` have no adapter at all, so the scale is 1.0,
+    the rate 0 and ``--weight-dropout`` is refused
+    (``cara_tpu/cli/common.py:287-292``)."""
+    wd_flag = getattr(args, "weight_dropout", None)
+    method = getattr(args, "method", "cara")
+    if method in NO_ADAPTER:
+        if wd_flag:
+            raise SystemExit(
+                f"--weight-dropout does not apply to --method {method} "
+                "(no adapter at all)")
+        return 1.0, 0.0
+    return hp_scale, (hp_wd if wd_flag is None else wd_flag)
 
 
 def resolve_dtype(name: str) -> torch.dtype:

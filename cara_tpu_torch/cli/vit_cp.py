@@ -1,27 +1,33 @@
 """Main train/eval CLI (port of ``cara_tpu/cli/vit_cp.py``): published
 order-4 CaRA with exact element-wise weight dropout, or the structured
-rank / row weight dropout (``--weight-dropout-impl``).
+rank / row weight dropout (``--weight-dropout-impl``); or, with
+``--method linear|full``, the non-adapter control rows: the linear probe
+(the head over the frozen backbone) and full fine-tuning (every weight,
+through the flash attention).
 
     python -m cara_tpu_torch.cli.vit_cp --synthetic --dataset svhn \\
         --model vit_base_patch16_224_in21k --dim 8 [--backbone X.npz] \\
-        [--weight-dropout-impl rank] [--device cpu]
+        [--weight-dropout-impl rank] [--method full] [--device cpu]
 
 Trains on the card through the port's kernels (bf16 compute, fp32
-trainables), evaluates every 10 epochs through the serving kernels and
-keeps the best checkpoint as ``vit_{dataset}_{acc}_seed_{seed}.npz`` in
-``--out-dir``, a file both packages' ``load_model`` and serve CLIs read.
-``--evaluate X.npz`` only evaluates.  On ``--device cpu`` every kernel
-runs its plain PyTorch version.
+trainables), evaluates every 10 epochs through the serving kernels (the
+flash attention for ``full``) and keeps the best checkpoint as
+``vit_{dataset}_{acc}_seed_{seed}.npz`` in ``--out-dir``, a file both
+packages' ``load_model`` and serve CLIs read.  ``--evaluate X.npz`` only
+evaluates (a checkpoint of ``full`` through the flash attention).  On
+``--device cpu`` every kernel runs its plain PyTorch version.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
 from cara_tpu_torch import api
 from cara_tpu_torch.cli import common
+from cara_tpu_torch.config import NO_ADAPTER
 from cara_tpu_torch.data import vtab as vtab_lib
 from cara_tpu_torch.data.vtab_config import get_task_hparams
 from cara_tpu_torch.models.convert import params_from_numpy
@@ -56,41 +62,51 @@ def main(argv=None) -> float:
 
     num_classes = vtab_lib.get_classes_num(args.dataset)
     mo = common.resolve_model_overrides(args)
-    weight_dropout = (hp.weight_dropout if args.weight_dropout is None
-                      else args.weight_dropout)
+    scale, weight_dropout = common.adapter_scale_wd(args, hp.scale,
+                                                    hp.weight_dropout)
     model = api.build_model(
-        args.model, rank=args.dim, scale=hp.scale, l_mu=hp.init_mean,
-        l_std=hp.init_std, num_classes=num_classes, seed=seed,
-        backbone_path=args.backbone, weight_dropout=weight_dropout,
+        args.model, method=args.method, rank=args.dim, scale=scale,
+        l_mu=hp.init_mean, l_std=hp.init_std, num_classes=num_classes,
+        seed=seed, backbone_path=args.backbone,
+        weight_dropout=weight_dropout,
         weight_dropout_impl=args.weight_dropout_impl, model_overrides=mo)
     train_loader, eval_loader = vtab_lib.get_data(
         args.dataset, root=args.data_root, evaluate=True,
         batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
         image_size=model.cfg.image_size, seed=seed, synthetic=args.synthetic,
         synthetic_size=args.synthetic_size)
-    eval_step = steps_lib.make_eval_step(model.cfg, model.cara_cfg,
-                                         compute_dtype=dtype)
-
     if args.evaluate is not None:
         print("Only evaluation")
         if args.evaluate.endswith((".pt", ".pth")):
             raise SystemExit(
                 "reference .pt checkpoints are not yet ported (ROADMAP.md "
                 "queue 1: interop, models/torch_import.py)")
-        params, cara_params, _ = ckpt_lib.load_model(args.evaluate)
+        params, cara_params, meta = ckpt_lib.load_model(args.evaluate)
         params = params_from_numpy(params, device, torch.float32)
+        cara_cfg = model.cara_cfg
         if cara_params is not None:
             cara_params = params_from_numpy(cara_params, device,
                                             torch.float32)
+        elif meta.get("method") in NO_ADAPTER:
+            # the method that wrote it picks the attention (full: flash)
+            cara_cfg = dataclasses.replace(
+                cara_cfg, method=meta["method"], weight_dropout=0.0)
+        eval_step = steps_lib.make_eval_step(
+            model.cfg, cara_cfg, compute_dtype=dtype,
+            attn_impl=args.attn_impl)
         acc = loop_lib.evaluate(eval_step, params, cara_params, eval_loader,
                                 device)
         print(f"Accuracy: {acc}")
         return acc
 
     print(f"Total parameters: {model.trainable_count}")
+    eval_step = steps_lib.make_eval_step(model.cfg, model.cara_cfg,
+                                         compute_dtype=dtype,
+                                         attn_impl=args.attn_impl)
     frozen, state = steps_lib.init_train_state(
         model.params, model.cara_params, device, args.lr,
-        train_loader.steps_per_epoch(), total_epochs=args.epochs)
+        train_loader.steps_per_epoch(), total_epochs=args.epochs,
+        method=model.cara_cfg.method)
     keeper = ckpt_lib.BestCheckpointKeeper(args.out_dir, args.dataset, seed)
     fit_cfg = loop_lib.FitConfig(epochs=args.epochs, eval_every=10,
                                  eval_start=1, log_every=args.log_every)
@@ -100,7 +116,7 @@ def main(argv=None) -> float:
         cfg=model.cfg, cara_cfg=model.cara_cfg, frozen=frozen, state=state,
         train_loader=train_loader, eval_loader=eval_loader, device=device,
         generator=generator, fit_cfg=fit_cfg, keeper=keeper,
-        eval_step=eval_step, compute_dtype=dtype,
+        eval_step=eval_step, compute_dtype=dtype, attn_impl=args.attn_impl,
         ckpt_meta={"model": args.model, "dataset": args.dataset,
                    **({"model_overrides": mo} if mo else {})})
     print(f"Accuracy: {result['best_acc']}")

@@ -212,17 +212,55 @@ class CaraConfig:
         For ViT-B/16 order-4 this reproduces the reference's printed count
         ``2526*rank + 4608`` (shapes ``src/cara/cara.py:112-125``, print
         ``image_classification/vit_cp.py:175-183``): rank 32 -> 85,440.
-        Only ``method="cara"`` is ported so far; the PEFT zoo's counts
-        raise until their modules are.
+        The non-adapter control rows count what trains: the head alone
+        (``"linear"``) or the whole model (``"full"``).  The PEFT zoo's
+        other counts raise until their modules are ported.
         """
+        if self.method in NO_ADAPTER:
+            head = vit_param_counts(model)["head"]
+            return head if self.method == "linear" else sum(
+                vit_param_counts(model).values())
         if self.method != "cara":
             raise NotImplementedError(
                 f"method={self.method!r} is not yet ported to "
-                "cara_tpu_torch (CaRA only so far)")
+                "cara_tpu_torch (CaRA, linear and full so far)")
         from cara_tpu_torch.models.cara import cara_param_shapes
 
         shapes = cara_param_shapes(model, self)
         return sum(int(_prod(s)) for s in shapes.values())
+
+
+#: The training methods without an adapter: the linear probe (the head
+#: over the frozen backbone) and full fine-tuning (every leaf).
+NO_ADAPTER = ("linear", "full")
+#: The training methods ported so far.
+PORTED_METHODS = ("cara",) + NO_ADAPTER
+
+
+def vit_param_counts(model: ViTConfig) -> dict:
+    """Number of parameters of each top-level entry of the backbone tree
+    (``models.convert.init_vit_params``'s layout), the head included
+    (0 when ``num_classes`` is 0)."""
+    e, hid, n_layers = model.embed_dim, model.hidden_dim, model.depth
+    patch_dim = model.patch_size * model.patch_size * model.in_chans
+    head_in = model.proj_dim or model.repr_size or e
+    block = (4 * e                          # ln1, ln2 scale and bias
+             + e * 3 * e + 3 * e + e * e + e  # qkv, proj
+             + e * hid + hid + hid * e + e)   # fc1, fc2
+    counts = {
+        "embed": patch_dim * e + e,
+        "cls": e if model.use_cls_token else 0,
+        "pos_embed": model.seq_len * e,
+        "blocks": n_layers * block,
+        "norm": 2 * e,
+        "ln_pre": 2 * e if model.ln_pre else 0,
+        "pre_logits": (e * model.repr_size + model.repr_size
+                       if model.repr_size is not None else 0),
+        "proj_out": e * model.proj_dim if model.proj_dim is not None else 0,
+        "head": (head_in * model.num_classes + model.num_classes
+                 if model.num_classes > 0 else 0),
+    }
+    return counts
 
 
 def _prod(xs: Tuple[int, ...]) -> int:

@@ -1,6 +1,7 @@
 """Forward of the Vision Transformer with optional CaRA adapters (port of
 ``cara_tpu/models/vit.py``): eval, and the training forward of the
-element-wise, rank, row and no weight-dropout routes.
+element-wise, rank, row and no weight-dropout routes and of the backbone
+without an adapter.
 
 Layouts are the JAX package's: NHWC images, (in, out) kernels, blocks
 stacked on a leading layer axis, qkv columns out-flat (3, H, Dh).  The
@@ -45,6 +46,21 @@ the element-dropout sites :func:`cp_dense_ln_wd` (qkv) and
 :func:`cp_dense_wd` (proj) in place of :func:`cp_attn_block_wd`, then
 :func:`cp_mlp_block_wd`.
 
+Without an adapter (the linear probe and full fine-tuning train this
+way, ``cara_params=None``) a block is LN1, the qkv GEMM, the attention,
+the proj GEMM, ``x + proj * gate``, then LN2, fc1, GELU, fc2 and
+``x + down * gate`` (``vit.py:779-813, 835, 871-873, 994-1030,
+1048-1049, 1083-1084``); the GEMMs and LayerNorms are plain PyTorch, as
+they are XLA ops outside any Pallas kernel in the reference, and in eval
+the gates are ones.  ``attn_impl`` picks the attention there, as in
+JAX's ``_block``: ``"fused"`` (``"auto"``) the layout-native kernel on
+the qkv GEMM output (row 1, or the blockwise attention past 512
+tokens), ``"flash"`` :func:`flash_attention` on the (B, H, N, Dh) views
+of q, k and v at any token count (row 17; full fine-tuning, whose
+gradients reach every weight through it).  With an adapter only the
+fused attention is ported (the CaRA + flash branch needs JAX's XLA delta
+forms).
+
 Per layer it draws four int32 mask seeds (``_wd_seed``), two gates
 (``_dp_gate``) and the rank or row masks from a ``torch.Generator`` on
 the device, or takes them from ``randomness``.
@@ -63,11 +79,13 @@ from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
+from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.layers import activation, layer_norm, linear
 
 Params = Dict[str, Any]
 IMPLS = ("auto", "plain")
+ATTN_IMPLS = ("auto", "fused", "flash")
 WEIGHT_DROPOUT_IMPLS = ("element", "rank", "row")
 # Where the training routes that are not ported yet stand (ROADMAP.md).
 _TODO = "ROADMAP.md queue 2"
@@ -84,18 +102,25 @@ def patch_embed(params: Params, x: torch.Tensor,
     return linear(x, params["embed"]["kernel"], params["embed"]["bias"])
 
 
-def _layer(tree, i):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree, depth):
+    """Per-layer trees of a layer-stacked tree, one ``unbind`` per leaf:
+    its backward stacks the layers' gradients once, where indexing the
+    stack once per layer would scatter each layer's gradient into a
+    zeroed copy of the whole stack (full fine-tuning trains them)."""
+    leaves = {k: _unstack(v, depth) if isinstance(v, dict) else v.unbind(0)
+              for k, v in tree.items()}
+    return [{k: v[i] for k, v in leaves.items()} for i in range(depth)]
 
 
 def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
-           rand=None):
+           rand=None, attn_impl="fused"):
     """One transformer block.  In eval (``rand`` None) drop-path and
     dropout are identities; in training ``rand`` holds the layer's
     randomness: ``seeds`` (qkv, proj, fc1, fc2; int32 (4, 1, 1)),
     ``gates`` (attention, MLP; (2, B)) and, for the rank / row routes,
-    ``comp`` ((4, r) or None) or ``rows`` (four (K,) masks or None)."""
+    ``comp`` ((4, r) or None) or ``rows`` (four (K,) masks or None).
+    ``attn_impl`` ("fused" or "flash") picks the attention of the block
+    without an adapter."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -114,12 +139,24 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     if cara_params is None:
         xa = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.layernorm_eps)
         qkv = linear(xa, bp["qkv"]["kernel"], bp["qkv"]["bias"])
-        x = x + linear(attention(qkv), bp["proj"]["kernel"],
-                       bp["proj"]["bias"])
+        if attn_impl == "flash":  # (B, H, N, Dh) views, no copy
+            q, k, v = (t.transpose(1, 2)
+                       for t in qkv.reshape(b, n, 3, h, d).unbind(2))
+            o = flash_mod.flash_attention(q, k, v, d ** -0.5, impl=impl)
+            attn_out = o.transpose(1, 2).reshape(b, n, e)
+        else:
+            attn_out = attention(qkv)
+        proj = linear(attn_out, bp["proj"]["kernel"], bp["proj"]["bias"])
+        if rand is not None:  # drop-path
+            proj = proj * rand["gates"][0].reshape(b, 1, 1).to(x.dtype)
+        x = x + proj
         xm = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.layernorm_eps)
         hid = activation(linear(xm, bp["fc1"]["kernel"], bp["fc1"]["bias"]),
                          cfg.activation)
-        return x + linear(hid, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+        down = linear(hid, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+        if rand is not None:
+            down = down * rand["gates"][1].reshape(b, 1, 1).to(x.dtype)
+        return x + down
 
     s = cara_cfg.scale
     dt = x.dtype
@@ -198,15 +235,14 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
 
 def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     """Refuse the training routes that are not ported yet, naming where
-    they stand in the ROADMAP."""
-    if cara_cfg is None:
-        raise NotImplementedError(
-            "training without an adapter (methods linear/full) is not yet "
-            "ported (ROADMAP.md queue 1 item 9: the PEFT zoo)")
+    they stand in the ROADMAP.  ``cara_cfg=None`` is the forward without
+    an adapter (the linear probe and full fine-tuning)."""
     if cfg.dropout_rate > 0.0 or cfg.attn_dropout_rate > 0.0:
         raise NotImplementedError(
             "activation / attention dropout in training is not yet ported "
             f"({_TODO}: row 13's GELU body and mha)")
+    if cara_cfg is None:
+        return
     if cara_cfg.method != "cara" or cara_cfg.moe:
         raise NotImplementedError(
             f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
@@ -265,8 +301,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 cara_cfg: Optional[CaraConfig] = None,
                 impl: str = "auto", *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                randomness: Optional[Dict[str, Any]] = None
-                ) -> torch.Tensor:
+                randomness: Optional[Dict[str, Any]] = None,
+                attn_impl: str = "auto") -> torch.Tensor:
     """Images (B, H, W, C) NHWC -> logits (B, num_classes).
 
     ``params`` / ``cara_params`` are tensor trees on ``x``'s device (see
@@ -274,11 +310,21 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     ``x.dtype``.  ``train=True`` runs the training forward (see the
     module docs); its randomness comes from ``randomness`` (as
     :func:`draw_randomness` returns it) or else is drawn from
-    ``generator``."""
+    ``generator``.  ``attn_impl``: "fused" (or "auto", as on the TPU)
+    or, without an adapter, "flash"."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r} (the XLA attention is not ported)")
+    attn_impl = "fused" if attn_impl == "auto" else attn_impl
+    if attn_impl == "flash" and cara_cfg is not None:
+        raise NotImplementedError(
+            "CaRA with attn_impl='flash' needs the XLA delta forms of "
+            "cara_tpu's _block, not yet ported (ROADMAP.md queue 1: CaRA "
+            "with --attn-impl flash / xla)")
     if train:
         check_trainable(cfg, cara_cfg)
         if randomness is None:
@@ -307,6 +353,7 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     a1 = p1 = None
     if cara_params is not None:
         a1, p1 = cara_lib.stacked_layer_slices(cara_params, cfg, cara_cfg)
+    blocks = _unstack(params["blocks"], cfg.depth)
     for layer in range(cfg.depth):
         rand = None
         if train:
@@ -318,10 +365,10 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                     "rows": (None if rows is None
                              else [m[layer] for m in rows])}
         tokens = _block(
-            tokens, _layer(params["blocks"], layer),
+            tokens, blocks[layer],
             None if a1 is None else a1[layer],
             None if p1 is None else p1[layer],
-            cfg, cara_params, cara_cfg, impl, rand)
+            cfg, cara_params, cara_cfg, impl, rand, attn_impl)
     if cfg.use_cls_token:
         # LayerNorm is per token: only the cls row feeds the head.
         feat = layer_norm(tokens[:, 0], params["norm"]["scale"],

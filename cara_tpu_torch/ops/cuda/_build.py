@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_S = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 # name -> argtypes of the C entry points (see the .cu files).
 _SIGNATURES = {
     "cara_cp_site": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "cara_qkv_attention_bwd_smem": [_I, _I],
     "cara_blockwise_attention": [_P] * 3 + [_I] * 5 + [_F, _P],
     "cara_blockwise_attention_bwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "cara_flash_attention": [_P] * 5 + [_S] + [_I] * 4 + [_F, _P],
+    "cara_flash_attention_bwd": [_P] * 10 + [_S] + [_I] * 4 + [_F, _P],
     "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
     "cara_wd_factor_grads": [_P, _I] + [_P] * 7 + [_I] * 3 + [_F, _U, _P],
     "cara_rank_z": [_P] * 3 + [_I] * 4 + [_P],

@@ -96,16 +96,21 @@ def fit(*, cfg, cara_cfg, frozen, state: steps_lib.TrainState,
         generator: Optional[torch.Generator] = None,
         fit_cfg: FitConfig = FitConfig(), keeper=None,
         eval_step: Optional[Callable] = None, compute_dtype=None,
-        ckpt_meta: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        ckpt_meta: Optional[Dict[str, Any]] = None,
+        attn_impl: str = "auto") -> Dict[str, Any]:
     """Run the fine-tuning protocol; returns a summary with ``best_acc``,
     ``final_acc``, ``images_per_sec`` and ``last_loss``.  ``frozen`` is
-    the fp32 backbone (kept for the checkpoint); its compute-dtype copy
-    is made once here."""
+    the fp32 backbone (kept for the checkpoint; empty for full
+    fine-tuning, whose backbone trains); its compute-dtype copy is made
+    once here.  An empty adapter tree (the linear probe, full
+    fine-tuning) evaluates and is saved as no adapter: the checkpoint
+    holds the whole model, with ``method`` in its meta."""
     meta = {**dataclasses.asdict(cara_cfg), **(ckpt_meta or {})}
     train_step = steps_lib.make_train_step(cfg, cara_cfg,
-                                           compute_dtype=compute_dtype)
+                                           compute_dtype=compute_dtype,
+                                           attn_impl=attn_impl)
     eval_step = eval_step or steps_lib.make_eval_step(
-        cfg, cara_cfg, compute_dtype=compute_dtype)
+        cfg, cara_cfg, compute_dtype=compute_dtype, attn_impl=attn_impl)
     frozen_compute = (steps_lib.cast_floating(frozen, compute_dtype)
                       if compute_dtype is not None else frozen)
     bs = train_loader.batch_size
@@ -117,7 +122,7 @@ def fit(*, cfg, cara_cfg, frozen, state: steps_lib.TrainState,
     def host_trees():
         with torch.no_grad():
             params = steps_lib.merge_params(frozen, state.trainable)
-            return params, state.trainable["cara"]
+            return params, state.trainable["cara"] or None
 
     for epoch in range(fit_cfg.epochs):
         for batch in prefetch(train_loader, device):
@@ -140,7 +145,8 @@ def fit(*, cfg, cara_cfg, frozen, state: steps_lib.TrainState,
             acc = evaluate(eval_step,
                            steps_lib.merge_params(frozen_compute,
                                                   state.trainable),
-                           state.trainable["cara"], eval_loader, device)
+                           state.trainable["cara"] or None, eval_loader,
+                           device)
             _log({"epoch": epoch, "val_acc": acc}, state.step)
             if acc > best_acc:
                 best_acc = acc
@@ -154,7 +160,8 @@ def fit(*, cfg, cara_cfg, frozen, state: steps_lib.TrainState,
     final_acc = evaluate(eval_step,
                          steps_lib.merge_params(frozen_compute,
                                                 state.trainable),
-                         state.trainable["cara"], eval_loader, device)
+                         state.trainable["cara"] or None, eval_loader,
+                         device)
     if final_acc > best_acc:
         best_acc = final_acc
         if keeper is not None:

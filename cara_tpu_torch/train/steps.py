@@ -2,7 +2,8 @@
 
 Loss and gradients over only the trainable leaves (CaRA factors +
 classifier head, the reference's ``requires_grad=False`` freeze at
-``vit_cp.py:176-182``), fp32 master trainables cast to the compute dtype
+``vit_cp.py:176-182``; the head alone for the linear probe, every leaf
+for full fine-tuning), fp32 master trainables cast to the compute dtype
 for the forward, AdamW (lr 1e-3, wd 1e-4, ``vit_cp.py:185``) with the CaRA
 schedule setting the learning rate before every update, and metrics kept
 on the device.  The frozen backbone is cast to the compute dtype once by
@@ -19,7 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from cara_tpu_torch.config import CaraConfig, ViTConfig
+from cara_tpu_torch.config import PORTED_METHODS, CaraConfig, ViTConfig
 from cara_tpu_torch.models.convert import map_floating, params_from_numpy
 from cara_tpu_torch.models.vit import vit_forward
 from cara_tpu_torch.train.schedule import cara_cosine_schedule
@@ -45,19 +46,42 @@ def prep_images(x: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def split_trainable(params: Params, cara_params: Params,
                     method: str = "cara") -> Tuple[Params, Params]:
-    """(frozen backbone, trainable = {"cara": adapter, "head": head})."""
-    if method != "cara":
+    """(frozen backbone, trainable = {"cara": adapter, "head": head}).
+
+    ``method="full"`` (full fine-tuning) freezes nothing: the backbone
+    moves into ``trainable["backbone"]`` and the frozen tree is empty.
+    ``method="linear"`` (the linear probe) is the default split with an
+    empty adapter tree (``cara_tpu/train/steps.py:52-76``)."""
+    if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method={method!r} is not yet ported (ROADMAP.md queue 1: the "
             "PEFT zoo)")
     frozen = {k: v for k, v in params.items() if k != "head"}
-    return frozen, {"cara": cara_params, "head": params["head"]}
+    trainable = {"cara": cara_params, "head": params["head"]}
+    if method == "full":
+        trainable["backbone"] = frozen
+        frozen = {}
+    return frozen, trainable
 
 
 def merge_params(frozen: Params, trainable: Params) -> Params:
     full = dict(frozen)
+    full.update(trainable.get("backbone") or {})  # full fine-tuning
     full["head"] = trainable["head"]
     return full
+
+
+def resolve_attn_impl(attn_impl: str, cara_cfg) -> str:
+    """``attn_impl`` of a train or eval step, as ``_resolve_impls``
+    (``cara_tpu/train/steps.py:157-175``): "auto" is the fused attention,
+    and full fine-tuning takes the flash attention for it, which
+    differentiates q, k and v as the model's views.  ``vit_forward``
+    checks the value."""
+    if attn_impl == "auto":
+        attn_impl = "fused"
+    if cara_cfg is not None and cara_cfg.method == "full":
+        attn_impl = "flash"
+    return attn_impl
 
 
 def cast_floating(tree, dtype):
@@ -137,7 +161,7 @@ def init_train_state(params: Params, cara_params: Params, device,
                      method: str = "cara") -> Tuple[Params, TrainState]:
     """numpy (or tensor) trees -> (frozen backbone on ``device`` in fp32,
     a fresh :class:`TrainState` whose trainables are fp32 leaves that
-    require grad)."""
+    require grad); ``method`` splits them (:func:`split_trainable`)."""
     params = params_from_numpy(params, device, torch.float32)
     cara_params = params_from_numpy(cara_params, device, torch.float32)
     frozen, trainable = split_trainable(params, cara_params, method)
@@ -151,9 +175,10 @@ def train_state_from_numpy(step: int, trainable: Params, mu: Params,
                            nu: Params, device, base_lr: float,
                            steps_per_epoch: int, total_epochs: int = 100,
                            weight_decay: float = 1e-4) -> TrainState:
-    """A JAX ``TrainState``'s arrays -> the port's: the trainable tree and
-    ``optax.adamw``'s first and second moments (``opt_state[0].mu`` /
-    ``.nu``, the same tree structure) after ``step`` updates."""
+    """A JAX ``TrainState``'s arrays -> the port's: the trainable tree
+    (with its ``backbone`` for full fine-tuning) and ``optax.adamw``'s
+    first and second moments (``opt_state[0].mu`` / ``.nu``, the same
+    tree structure) after ``step`` updates."""
     trainable = _own_leaves(params_from_numpy(trainable, device,
                                               torch.float32))
     opt = make_optimizer(trainable, base_lr, steps_per_epoch, total_epochs,
@@ -176,17 +201,20 @@ def loss_and_grads(cfg: ViTConfig, cara_cfg: CaraConfig, trainable: Params,
                    frozen: Params, batch, *, compute_dtype=None,
                    impl: str = "auto",
                    generator: Optional[torch.Generator] = None,
-                   randomness=None):
+                   randomness=None, attn_impl: str = "auto"):
     """(loss, accuracy, grads) of one batch; ``grads`` follow
-    :func:`tree_leaves` of ``trainable``."""
+    :func:`tree_leaves` of ``trainable``.  An empty adapter tree (the
+    linear probe, full fine-tuning) runs the forward without one."""
     leaves = [t for _, t in tree_leaves(trainable)]
     t = trainable if compute_dtype is None else cast_floating(
         trainable, compute_dtype)
     x = prep_images(batch["image"], compute_dtype)
+    cara = t["cara"] or None
     logits = vit_forward(merge_params(frozen, t), x, cfg,
-                         cara_params=t["cara"], cara_cfg=cara_cfg, impl=impl,
-                         train=True, generator=generator,
-                         randomness=randomness)
+                         cara_params=cara,
+                         cara_cfg=cara_cfg if cara is not None else None,
+                         impl=impl, train=True, generator=generator,
+                         randomness=randomness, attn_impl=attn_impl)
     logits = mask_padded_classes(logits.float(), batch)
     labels = batch["label"].long()
     loss = torch.nn.functional.cross_entropy(logits, labels)
@@ -197,10 +225,13 @@ def loss_and_grads(cfg: ViTConfig, cara_cfg: CaraConfig, trainable: Params,
 
 def make_train_step(cfg: ViTConfig, cara_cfg: CaraConfig, *,
                     compute_dtype=None, impl: str = "auto",
-                    grad_accum: int = 1, mesh=None, fsdp: bool = False):
+                    attn_impl: str = "auto", grad_accum: int = 1,
+                    mesh=None, fsdp: bool = False):
     """``train_step(state, frozen, batch, generator=None, randomness=None)
     -> (state, {"loss", "accuracy", "grad_norm"})``; the metrics stay on
-    the device.  ``frozen`` is already in the compute dtype."""
+    the device.  ``frozen`` is already in the compute dtype.
+    ``attn_impl`` resolves by :func:`resolve_attn_impl`."""
+    attn_impl = resolve_attn_impl(attn_impl, cara_cfg)
     if grad_accum != 1:
         raise NotImplementedError(
             "grad_accum > 1 is not yet ported (ROADMAP.md queue 1: "
@@ -215,7 +246,7 @@ def make_train_step(cfg: ViTConfig, cara_cfg: CaraConfig, *,
         loss, acc, grads = loss_and_grads(
             cfg, cara_cfg, state.trainable, frozen, batch,
             compute_dtype=compute_dtype, impl=impl, generator=generator,
-            randomness=randomness)
+            randomness=randomness, attn_impl=attn_impl)
         gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         leaves = [t for _, t in tree_leaves(state.trainable)]
         with torch.no_grad():
@@ -227,11 +258,14 @@ def make_train_step(cfg: ViTConfig, cara_cfg: CaraConfig, *,
 
 
 def make_eval_step(cfg: ViTConfig, cara_cfg: Optional[CaraConfig] = None,
-                   compute_dtype=None):
+                   compute_dtype=None, attn_impl: str = "auto"):
     """``eval_step(params, cara_params, batch) -> (correct, total)`` on the
     device; the ``valid`` mask keeps a padded final batch out of the
     count.  Runs the serving kernels (``cp_attn_block``,
-    ``cp_mlp_block``) for CUDA tensors."""
+    ``cp_mlp_block``) for CUDA tensors; without an adapter the attention
+    ``attn_impl`` resolves to (:func:`resolve_attn_impl`: the flash
+    attention for full fine-tuning)."""
+    attn_impl = resolve_attn_impl(attn_impl, cara_cfg)
 
     def eval_step(params: Params, cara_params, batch):
         with torch.no_grad():
@@ -243,7 +277,8 @@ def make_eval_step(cfg: ViTConfig, cara_cfg: Optional[CaraConfig] = None,
             x = prep_images(batch["image"], compute_dtype)
             logits = vit_forward(
                 p, x, cfg, cara_params=cara,
-                cara_cfg=cara_cfg if cara is not None else None)
+                cara_cfg=cara_cfg if cara is not None else None,
+                attn_impl="fused" if cara is not None else attn_impl)
             pred = mask_padded_classes(logits.float(), batch).argmax(-1)
             valid = batch.get("valid")
             if valid is None:

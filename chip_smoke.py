@@ -50,7 +50,18 @@ fatal on failure:
    trained with element and with rank weight dropout as in 5 and 6, the
    gradient check at batch 16, 12 timed steps at batch 64.  Over these
    phases the blockwise counters grow and the full-score attention's and
-   the attention megakernel's do not.
+   the attention megakernel's do not;
+8. the routes without an adapter: the kernel entries of TPU row 17 (the
+   flash attention, forward and backward, on strided q, k, v views of a
+   qkv tensor) at N = 197 and N = 577 (run with phase 3's); full
+   fine-tuning of ViT-B/16 at 224 px, batch 64, bf16: one step's
+   gradient of every leaf (backbone and head) against the fp32 plain
+   path as in 5, 20 timed steps on one batch, ``cli.vit_cp --method
+   full`` whose checkpoint is served; the linear probe (``--method
+   linear``): the gradient check, 10 steps with a falling loss and the
+   head as the only leaf that moves; then one full step of ViT-B/16 at
+   384 px, batch 16, in which the flash counters grow and the blockwise
+   counters do not.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -63,7 +74,8 @@ last is a JSON object with one entry per kernel; the last line is
 
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
-at 384 px (``torch.profiler``), with the busy share.
+at 384 px, and of full fine-tuning and the linear probe at 224 px
+(``torch.profiler``), with the busy share.
 """
 
 from __future__ import annotations
@@ -85,7 +97,7 @@ import torch
 import torch.nn.functional as F
 
 from cara_tpu_torch.cli import vit_cp as vit_cp_cli
-from cara_tpu_torch.config import CaraConfig, get_model_config
+from cara_tpu_torch.config import NO_ADAPTER, CaraConfig, get_model_config
 from cara_tpu_torch.data.vtab import normalize
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import vit as vit_lib
@@ -95,6 +107,7 @@ from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
+from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.layers import layer_norm
 from cara_tpu_torch.server import InferenceServer
@@ -155,7 +168,24 @@ KERNELS = {
     "cp_wd_factor_grads": (
         wd_fold, "FACTOR_LAUNCHES", "cara_tpu_torch/csrc/wd_factor_grads.cu",
         "cara_tpu/ops/pallas/cp_dense.py:663"),
+    # Row 17 at N = 197 (launches: the full fine-tuning phase at 224 px)
+    # and at N = 577 (launches: the full step at 384 px).
+    "flash_attention": (
+        flash_mod, "LAUNCHES", "cara_tpu_torch/csrc/flash_attention.cu",
+        "cara_tpu/ops/pallas/flash_attention.py:146"),
+    "flash_attention_bwd": (
+        flash_mod, "BWD_LAUNCHES",
+        "cara_tpu_torch/csrc/flash_attention_bwd.cu",
+        "cara_tpu/ops/pallas/flash_attention.py:176"),
+    "flash_attention_577": (
+        flash_mod, "LAUNCHES", "cara_tpu_torch/csrc/flash_attention.cu",
+        "cara_tpu/ops/pallas/flash_attention.py:146"),
+    "flash_attention_bwd_577": (
+        flash_mod, "BWD_LAUNCHES",
+        "cara_tpu_torch/csrc/flash_attention_bwd.cu",
+        "cara_tpu/ops/pallas/flash_attention.py:176"),
 }
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 MODEL_384 = "vit_base_patch16_384_in21k"
 SERVING_KERNELS = ("fused_qkv_attention", "cp_attn_block", "cp_mlp_block")
 TRAINING_KERNELS = ("build_wd_weight", "cp_attn_block_wd",
@@ -182,6 +212,13 @@ LONG_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "blockwise_qkv_attention",
 SHORT_ATTENTION_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd",
                            "cp_attn_block", "cp_attn_block_wd",
                            "cp_attn_block_wd_bwd")
+BLOCKWISE_KERNELS = ("blockwise_qkv_attention", "blockwise_qkv_attention_bwd")
+# The adapter's kernels, which the routes without one must not launch.
+ADAPTER_KERNELS = ("build_wd_weight", "cp_attn_block", "cp_mlp_block",
+                   "cp_attn_block_wd", "cp_attn_block_wd_bwd",
+                   "cp_mlp_block_wd_bwd", "cp_dense", "cp_dense_dx",
+                   "cp_mlp_block_bwd", "cp_dense_wd", "cp_dense_wd_bwd",
+                   "cp_wd_factor_grads")
 # |kernel - fp32 plain| <= ATOL + RTOL * |ref|, elementwise.  The kernels
 # round their intermediates (qkv, P, z, h; in the backward do, dqkv, ds,
 # dpre) and their outputs to bf16, the reference does not; bf16 keeps 8
@@ -200,6 +237,7 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_dense_dx": (5e-2, 5e-2),
               "cp_mlp_block_bwd": (5e-2, 5e-2),
               "blockwise_qkv_attention": (2e-3, 1e-2),
+              "flash_attention": (2e-3, 1e-2),
               "cp_dense_wd": (2e-2, 2e-2),
               "cp_dense_wd_bwd": (5e-2, 5e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
@@ -521,6 +559,50 @@ def long_kernel_calls(inp):
     }
 
 
+def flash_kernel_calls(inp):
+    """:func:`kernel_calls` for row 17 (``FLASH_KERNELS``): the flash
+    attention forward and its q, k, v cotangents on the (B, H, N, Dh)
+    views of ``inp["qkv"]`` that the model makes (strided, not copied),
+    the cotangent ``inp["g_attn"]`` in the model's (B, N, E) layout."""
+    h, sm = inp["heads"], inp["sm"]
+    b, n, e = inp["b"], inp["n"], inp["e"]
+    d = e // h
+
+    def views(qkv):
+        return [t.transpose(1, 2)
+                for t in qkv.reshape(b, n, 3, h, d).unbind(2)]
+
+    def fwd(dtype, impl):
+        q, k, v = views(inp["qkv"].to(dtype))
+        return lambda: flash_mod.flash_attention(q, k, v, sm, impl=impl)
+
+    def bwd(impl, dtype):
+        qkv = inp["qkv"].detach().to(dtype).requires_grad_(True)
+        q, k, v = views(qkv)
+        out = flash_mod.flash_attention(q, k, v, sm, impl=impl)
+        g = inp["g_attn"].to(dtype).reshape(b, n, h, d).transpose(1, 2)
+        return lambda: dict(zip(("dq", "dk", "dv"), torch.autograd.grad(
+            out, (q, k, v), g, retain_graph=True)))
+
+    bf = torch.bfloat16
+    return {
+        "flash_attention": (fwd(bf, "auto"), fwd(bf, "plain"),
+                            fwd(torch.float32, "plain")),
+        "flash_attention_bwd": (bwd("auto", bf), bwd("plain", bf),
+                                bwd("plain", torch.float32)),
+    }
+
+
+def flash_kernel_phase(dev, inp, timed: bool = True,
+                       suffix: str = "") -> dict:
+    """Row 17's entries on ``inp`` (all keys valid), named with
+    ``suffix``."""
+    print(f"[kernel] flash attention (row 17) at B {inp['b']}, N "
+          f"{inp['n']}, H {inp['heads']}:", flush=True)
+    out = check_entries(dev, inp, flash_kernel_calls(inp), timed)
+    return {name + suffix: res for name, res in out.items()}
+
+
 def kernel_work(inp) -> dict:
     """name -> (operations, bytes) of each entry's call at these inputs:
     the products the function needs (a backward recomputes what its
@@ -605,6 +687,10 @@ def kernel_work(inp) -> dict:
             + factor(e, e) + 4 * e),
         "cp_wd_factor_grads": (2 * rows * e * 3 * e + finish[0],
                                act + qkv_act + factor(e, 3 * e)),
+        # q, k, v read, o written; its backward reads q, k, v and do and
+        # writes dq, dk, dv (the kernels' saved o and lse are theirs)
+        "flash_attention": (attn, qkv_act + act),
+        "flash_attention_bwd": (attn_bwd, 2 * qkv_act + act),
     }
 
 
@@ -618,8 +704,8 @@ def bound(ops: float, nbytes: float):
 def library_calls(inp) -> dict:
     """name -> one PyTorch call computing the entry's function on the same
     inputs, where there is one: ``F.scaled_dot_product_attention`` forward
-    (rows 1 and 16) and its backward (rows 2 and 16).  Yardsticks, timed
-    only."""
+    (rows 1, 16 and 17) and its backward (rows 2, 16 and 17).  Yardsticks,
+    timed only."""
     b, n, nr, e, h = (inp["b"], inp["n"], inp["n_real"], inp["e"],
                       inp["heads"])
     q, k, v = (t.detach().clone().requires_grad_(True) for t in
@@ -642,7 +728,8 @@ def library_calls(inp) -> dict:
 
     return {"fused_qkv_attention": fwd, "fused_qkv_attention_bwd": bwd,
             "blockwise_qkv_attention": fwd,
-            "blockwise_qkv_attention_bwd": bwd}
+            "blockwise_qkv_attention_bwd": bwd,
+            "flash_attention": fwd, "flash_attention_bwd": bwd}
 
 
 def rel_l2(out, ref) -> float:
@@ -918,19 +1005,33 @@ def read_launches(names) -> dict:
 
 
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
-                batch=64, seed=0, impl="element", **overrides):
+                batch=64, seed=0, impl="element", method="cara", lr=1e-3,
+                **overrides):
     """Seeded ViT + perturbed CaRA adapter (weight dropout 0.1 of the
     ``impl`` kind, the model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
     state, one fixed device batch of normalized images); ``overrides``
-    change the model's config."""
+    change the model's config.  ``method`` "linear" or "full" trains
+    without an adapter; the backbone is then rounded to bf16 values
+    (full fine-tuning keeps it as the fp32 master weights, so that the
+    fp32 reference of the gradient check runs on the weights the bf16
+    path computes with)."""
     cfg = get_model_config(model, num_classes=num_classes, **overrides)
-    cara_cfg = CaraConfig(rank=rank, scale=scale, weight_dropout=DROP_RATE,
-                          weight_dropout_impl=impl)
     params = convert.init_vit_params(cfg, seed)
-    cara = convert.perturb_adapter(
-        convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2)
+    if method == "cara":
+        cara_cfg = CaraConfig(rank=rank, scale=scale,
+                              weight_dropout=DROP_RATE,
+                              weight_dropout_impl=impl)
+        cara = convert.perturb_adapter(
+            convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2)
+    else:
+        cara_cfg = CaraConfig(method=method, weight_dropout=0.0)
+        cara = {}
+        params = convert.map_floating(
+            convert.params_from_numpy(params, dev),
+            lambda t: t.to(torch.bfloat16).float())
     frozen, state = steps_lib.init_train_state(
-        params, cara, dev, 1e-3, steps_per_epoch=1, total_epochs=100)
+        params, cara, dev, lr, steps_per_epoch=1, total_epochs=100,
+        method=method)
     rng = np.random.default_rng(seed + 3)
     data = {"image": torch.from_numpy(make_images(batch, cfg.image_size,
                                                   seed + 4)).to(dev),
@@ -952,7 +1053,8 @@ def step_grads(cfg, cara_cfg, frozen_c, state, data, rand,
         impl = "plain"
     loss, _, grads = steps_lib.loss_and_grads(
         cfg, cara_cfg, state.trainable, frozen_c, data, compute_dtype=dtype,
-        impl=impl, randomness=rand)
+        impl=impl, randomness=rand,
+        attn_impl=steps_lib.resolve_attn_impl("auto", cara_cfg))
     return loss, grads
 
 
@@ -1035,6 +1137,8 @@ def _worst(errs: dict) -> str:
 
 
 def _route(cara_cfg) -> str:
+    if cara_cfg.method != "cara":
+        return cara_cfg.method
     if cara_cfg.weight_dropout <= 0.0:
         return "rate0"
     return cara_cfg.weight_dropout_impl
@@ -1072,23 +1176,27 @@ def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
 
 def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                    model=MODEL, impl="element", path=None, grad_batch=None,
-                   idle=()) -> dict:
-    """One training route (``impl`` weight dropout at 0.1): (a) gradients
-    against the fp32 plain path (on the first ``grad_batch`` images, all
-    by default), (b) a falling loss over ``steps`` steps on a fixed
-    batch, (c) ms per step and img/s, kernel and plain, (d)
-    ``cli.vit_cp --synthetic`` whose best checkpoint is served.  Launch
-    counters are set to 0 before (b) and read after (d): every kernel of
-    ``path`` (by default the 224-px route's) launched, none of
-    ``idle``."""
-    cfg, cara_cfg, frozen, state, data = train_setup(dev, model=model,
-                                                     batch=batch, impl=impl)
-    tag = f"[train:{impl}]" if model == MODEL else f"[train:{impl}:{model}]"
+                   idle=(), method="cara", lr=1e-3) -> dict:
+    """One training route (``impl`` weight dropout at 0.1, or ``method``
+    "linear" / "full" without an adapter, at learning rate ``lr``): (a)
+    gradients against the fp32 plain path (on the first ``grad_batch``
+    images, all by default), (b) a falling loss over ``steps`` steps on a
+    fixed batch (the linear probe: only the head moved), (c) ms per step
+    and img/s, kernel and plain, (d) ``cli.vit_cp --synthetic`` whose best
+    checkpoint is served.  Launch counters are set to 0 before (b): every
+    kernel of ``path`` (by default the 224-px route's) launched by the end
+    of (d), none of ``idle`` before its checkpoint is served."""
+    cfg, cara_cfg, frozen, state, data = train_setup(
+        dev, model=model, batch=batch, impl=impl, method=method, lr=lr)
+    route = impl if method == "cara" else method
+    tag = (f"[train:{route}]" if model == MODEL
+           else f"[train:{route}:{model}]")
+    what = (f"rank {cara_cfg.rank}, weight dropout "
+            f"{cara_cfg.weight_dropout} ({impl})" if method == "cara"
+            else f"no adapter ({method}), lr {lr}")
     print(f"{tag} {model}: depth {cfg.depth}, E {cfg.embed_dim}, heads "
-          f"{cfg.num_heads}, {cfg.num_patches + 1} tokens, rank "
-          f"{cara_cfg.rank}, weight dropout {cara_cfg.weight_dropout} "
-          f"({impl}), drop-path {cfg.drop_path_rate}, batch {batch}, bf16",
-          flush=True)
+          f"{cfg.num_heads}, {cfg.num_patches + 1} tokens, {what}, "
+          f"drop-path {cfg.drop_path_rate}, batch {batch}, bf16", flush=True)
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     gdata = {k: v[:grad_batch] for k, v in data.items()}
@@ -1102,6 +1210,10 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
               "allocated", flush=True)
     out["setup"] = (cfg, cara_cfg, frozen, state, data)
 
+    before = {p: t.detach().clone()
+              for p, t in steps_lib.tree_leaves(state.trainable)}
+    frozen_sum = sum(t.double().sum().item()
+                     for _, t in steps_lib.tree_leaves(frozen))
     reset_launches()
     state, losses, ms, wall = fixed_batch_steps(
         cfg, cara_cfg, frozen, state, data, generator, steps, timed=timed)
@@ -1110,6 +1222,21 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
     require(all(np.isfinite(losses)), "non-finite training loss")
     require(losses[-1] < losses[0], "the loss did not fall")
     out["losses"] = losses
+    moved = [p for p, t in steps_lib.tree_leaves(state.trainable)
+             if not torch.equal(t.detach(), before[p])]
+    print(f"{tag} {len(moved)} of {len(before)} trainable leaves moved",
+          flush=True)
+    require(method == "cara" or len(moved) == len(before),
+            f"trainable leaves that did not move: "
+            f"{sorted(set(before) - set(moved))}")
+    if method == "linear":
+        require(sorted(before) == ["head/bias", "head/kernel"],
+                f"the linear probe trains {sorted(before)}")
+        require(frozen_sum == sum(t.double().sum().item()
+                                  for _, t in steps_lib.tree_leaves(frozen)),
+                "the linear probe moved the frozen backbone")
+        print(f"{tag} only the head moved; the frozen backbone is "
+              "unchanged", flush=True)
     if timed:
         steady = ms[5:] if len(ms) > 8 else ms
         out["ms_per_step"] = statistics.median(steady)
@@ -1129,7 +1256,8 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                 "--eval-batch-size", str(batch), "--synthetic-size",
                 str(2 * batch), "--log-every", "11", "--out-dir", tmp,
                 "--backbone", os.path.join(tmp, "none.npz"),
-                "--weight-dropout-impl", impl, "--device", str(dev)]
+                "--weight-dropout-impl", impl, "--device", str(dev),
+                "--method", method, "--lr", str(lr)]
         t0 = time.perf_counter()
         acc = vit_cp_cli.main(argv)
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
@@ -1137,6 +1265,7 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
               f"{time.perf_counter() - t0:.1f} s, checkpoints {ckpts}",
               flush=True)
         require(len(ckpts) == 1, "the CLI wrote no best checkpoint")
+        trained = read_launches(tuple(KERNELS))
         pred = Predictor.from_checkpoint_auto(
             os.path.join(tmp, ckpts[0]), model, batch_size=batch, device=dev,
             dtype=torch.bfloat16)
@@ -1153,11 +1282,36 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
           flush=True)
     for name in path:
         require(out["launches"][name] > 0,
-                f"{name} never launched on the {impl} training path")
+                f"{name} never launched on the {route} training path")
     for name in idle:
-        require(out["launches"][name] == 0,
-                f"{name} launched on the {impl} training path of {model}")
+        require(trained[name] == 0,
+                f"{name} launched on the {route} training path of {model}")
     return out
+
+
+def full_step_384(dev, batch=16) -> dict:
+    """One full fine-tuning step of ViT-B/16 at 384 px (577 tokens): the
+    flash attention at any token count, as on the TPU, so the flash
+    counters grow and the blockwise ones do not."""
+    cfg, cara_cfg, frozen, state, data = train_setup(
+        dev, model=MODEL_384, batch=batch, method="full", lr=1e-4)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    reset_launches()
+    state, losses, ms, _ = fixed_batch_steps(cfg, cara_cfg, frozen, state,
+                                             data, generator, 1)
+    launches = read_launches(tuple(KERNELS))
+    print(f"[train:full:{MODEL_384}] one step at batch {batch}: loss "
+          f"{losses[0]:.4f}, {ms[0]:.3f} ms (CUDA events, the first step); "
+          f"kernel launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    require(bool(np.isfinite(losses[0])), "non-finite loss at 384 px")
+    for name in FLASH_KERNELS:
+        require(launches[name] > 0, f"{name} never launched at 384 px")
+    for name in BLOCKWISE_KERNELS + SHORT_ATTENTION_KERNELS:
+        require(launches[name] == 0, f"{name} launched by full fine-tuning "
+                "at 384 px")
+    return launches
 
 
 def other_routes_grad_check(dev, setup) -> dict:
@@ -1177,14 +1331,17 @@ def other_routes_grad_check(dev, setup) -> dict:
 def profile_steps(dev, impl, steps=5, batch=64, top=24,
                   model=MODEL) -> None:
     """``--profile``: device time by kernel of ``steps`` train steps of
-    ``model`` on the ``impl`` route (after three warm-up steps) from
+    ``model`` on the ``impl`` route (or, for "linear" / "full", that
+    method without an adapter) after three warm-up steps from
     ``torch.profiler``, and the busy share: the kernels' summed time over
     the step time by CUDA events of as many steps run without the
     profiler (whose own host cost stretches its window)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, cara_cfg, frozen, state, data = train_setup(dev, model=model,
-                                                     batch=batch, impl=impl)
+    method = impl if impl in NO_ADAPTER else "cara"
+    cfg, cara_cfg, frozen, state, data = train_setup(
+        dev, model=model, batch=batch, impl=impl, method=method,
+        lr=1e-4 if method == "full" else 1e-3)
     tag = f"[profile:{impl}]" if model == MODEL else f"[profile:{impl}:384]"
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
@@ -1210,10 +1367,14 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = run()
+    # user annotations (the optimizer's step range) carry the device time
+    # of the kernels they enclose, which are listed on their own
     rows = [(e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"{tag} {steps} steps at batch {batch}: {step_ms:.3f} "
@@ -1256,10 +1417,15 @@ def main(argv=None) -> int:
         for model in (MODEL, MODEL_384):
             for impl in ("element", "rank"):
                 profile_steps(dev, impl, model=model)
+        for method in ("full", "linear"):
+            profile_steps(dev, method)
         return 0
 
     results = kernel_phase(dev, kernel_inputs(dev))
     results.update(long_kernel_phase(dev, kernel_inputs(dev, n=577)))
+    results.update(flash_kernel_phase(dev, kernel_inputs(dev)))
+    results.update(flash_kernel_phase(dev, kernel_inputs(dev, n=577),
+                                      suffix="_577"))
 
     images = make_images(96, 224)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1306,6 +1472,22 @@ def main(argv=None) -> int:
         if impl == "element":
             launches.update({k: long["launches"][k] for k in LONG_KERNELS})
         del long
+
+    # The routes without an adapter: full fine-tuning through the flash
+    # attention (row 17), the linear probe over the fused one.
+    no_flash = ("fused_qkv_attention", "fused_qkv_attention_bwd")
+    full = training_phase(dev, steps=20, method="full", lr=1e-4,
+                          path=FLASH_KERNELS,
+                          idle=no_flash + BLOCKWISE_KERNELS + ADAPTER_KERNELS)
+    launches.update({k: full["launches"][k] for k in FLASH_KERNELS})
+    del full
+    training_phase(dev, steps=10, plain_steps=2, method="linear",
+                   path=no_flash[:1],
+                   idle=no_flash[1:] + FLASH_KERNELS + BLOCKWISE_KERNELS
+                   + ADAPTER_KERNELS)
+    long_full = full_step_384(dev)
+    for name in FLASH_KERNELS:
+        launches[name + "_577"] = long_full[name]
 
     kernels = []
     for name, (_, _, src, replaces) in KERNELS.items():

@@ -16,10 +16,13 @@ no-dropout route's kernels (``cp_dense``, its dx, the attention backward,
 the MLP block backward) ranks 5 and 8, a delta scale other than 1 and
 one step of each route; for the 384-px route's kernels (the blockwise
 attention, the element-dropout sites and row 15) key tiles wholly past
-``n_real``, and a tiny model at 577 tokens.  Inputs are bf16 from
-a seeded generator; the reference is the plain version in fp32 on the
-same inputs with TF32 off, held to ``chip_smoke.KERNEL_TOL`` (and
-``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2`` for gradients).
+``n_real``, and a tiny model at 577 tokens; for row 17 (the flash
+attention) strided and contiguous q, k, v at 197 and 577 tokens, a head
+width other than 64 refused, and a train step without an adapter.
+Inputs are bf16 from a seeded generator; the reference is the plain
+version in fp32 on the same inputs with TF32 off, held to
+``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
+for gradients).
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ from cara_tpu_torch.models import convert
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models import vit as t_vit
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
+from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import wd_fold
 
@@ -353,3 +357,60 @@ def test_vit_forward_577_tokens_on_card_matches_plain(dev, adapter):
     assert (out.float() - ref).abs().max().item() <= tol
     assert _launches("blockwise_qkv_attention") == bwa0 + cfg.depth
     assert _launches("fused_qkv_attention") == short0
+
+
+# (b, n, heads): row 17 at the token counts of ViT-B/16 at 224 and 384 px
+# (head width 64, the only one its kernels take).
+FLASH_SHAPES = [(3, 197, 2), (2, 577, 3)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=["n197", "n577"])
+def test_flash_attention_kernels_match_plain(dev, shape):
+    """The flash attention forward and backward on the strided (B, H, N,
+    Dh) views of a qkv tensor (as the model passes them) and on
+    contiguous q, k, v, against the fp32 plain twins; each wrapper call
+    counted once."""
+    b, n, heads = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=64 * heads, heads=heads,
+                                   hidden=256 * heads, r=4, seed=9)
+    for name, (kern, _, ref32) in chip_smoke.flash_kernel_calls(inp).items():
+        before = _launches(name)
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+        assert _launches(name) == before + 1, name
+    q, k, v = (t.transpose(1, 2).contiguous() for t in inp["qkv"].reshape(
+        b, n, 3, heads, 64).unbind(2))
+    assert q.is_contiguous()
+    out = flash_mod.flash_attention(q, k, v, 0.125)
+    ref = flash_mod.flash_attention_fwd_plain(q.float(), k.float(),
+                                              v.float(), 0.125)
+    _check("flash_attention", out, ref)
+
+
+def test_flash_attention_refuses_other_head_widths(dev):
+    q = torch.zeros((2, 4, 50, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        flash_mod.flash_attention(q, q, q, 0.25)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_mod.flash_attention(*(torch.zeros(
+            (2, 4, 50, 64), device=dev),) * 3, 0.125)
+
+
+@pytest.mark.parametrize("method", ["full", "linear"])
+def test_no_adapter_train_step_on_card_matches_plain(dev, method):
+    """A tiny model with head width 64 without an adapter: full
+    fine-tuning through the flash kernels (every leaf's gradient within
+    chip_smoke's bound of the fp32 plain path), the linear probe over the
+    fused attention (the head's)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model="vit_tiny_test", batch=4, method=method, embed_dim=128,
+        num_heads=2)
+    names = (chip_smoke.FLASH_KERNELS if method == "full"
+             else ("fused_qkv_attention",))
+    before = {k: _launches(k) for k in names}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in names:
+        assert _launches(name) > before[name], name
