@@ -23,7 +23,6 @@ DATASET_CHOICES = sorted(VTAB_TASKS)
 _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 _PARALLEL = "ROADMAP.md queue 1: parallelism"
 _TRAIN = "ROADMAP.md queue 1: training modules still to port"
-_SPLIT = "ROADMAP.md queue 2: the other attention and dense routes"
 # dest -> (default, where the feature stands).
 UNPORTED = {
     "merged_eval": (False, "ROADMAP.md queue 1: cli/export.py and merged "
@@ -42,7 +41,6 @@ UNPORTED = {
     "profile_dir": (None, _TRAIN), "memory_report": (False, _TRAIN),
     "nan_check": (False, _TRAIN), "wandb": (False, _TRAIN),
     "compilation_cache": (None, _TRAIN),
-    "dense_impl": ("auto", _SPLIT),
 }
 
 
@@ -106,11 +104,17 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--no-remat", action="store_true")
     p.add_argument("--grad-accum", default=1, type=int)
-    p.add_argument("--attn-impl", default="auto", type=str,
-                   help="auto | fused (the attention on the qkv GEMM "
-                        "output) | flash (separate q, k, v; linear and "
-                        "full only; full takes it for auto)")
-    p.add_argument("--dense-impl", default="auto", type=str)
+    p.add_argument("--attn-impl", default="auto",
+                   choices=["auto", "fused", "flash", "xla"],
+                   help="fused (auto: the attention kernel on the qkv GEMM "
+                        "output), flash (the flash kernel on q, k, v; full "
+                        "fine-tuning takes it for fused) or xla (the plain "
+                        "attention, which attention dropout always takes)")
+    p.add_argument("--dense-impl", default="auto",
+                   choices=["auto", "fused", "xla"],
+                   help="fused (auto with an adapter: the site kernels and "
+                        "block megakernels) or xla (GEMMs with the CP delta "
+                        "beside them; auto without an adapter)")
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--memory-report", action="store_true")
     p.add_argument("--profile-dir", default=None, type=str)
@@ -131,15 +135,11 @@ def refuse_unported(args) -> None:
     if method not in PORTED_METHODS:
         raise SystemExit(f"--method {method} is not yet ported to "
                          f"cara_tpu_torch ({_PEFT})")
-    attn = getattr(args, "attn_impl", "auto")
-    if attn not in ("auto", "fused", "flash"):
-        raise SystemExit(f"--attn-impl {attn} is not yet ported to "
-                         f"cara_tpu_torch ({_SPLIT})")
-    if attn == "flash" and method == "cara":
+    if method == "full" and getattr(args, "dense_impl", "auto") == "fused":
         raise SystemExit(
-            "--attn-impl flash with CaRA is not yet ported to "
-            "cara_tpu_torch (ROADMAP.md queue 1: CaRA with --attn-impl "
-            "flash / xla, JAX's XLA delta forms)")
+            "--method full trains the dense weights; the fused megakernels' "
+            "backward emits no backbone-weight gradients: use --dense-impl "
+            "auto or xla")
 
 
 def adapter_scale_wd(args, hp_scale: float, hp_wd: float):

@@ -4,7 +4,7 @@ GPU (port of ``cara_tpu/cli/serve.py``, single task).
 Run: ``python -m cara_tpu_torch.cli.serve --ckpt vit_cifar_*.npz --port 8000``
 (add ``--no-merge`` to keep the adapter unfolded).  The options of the
 JAX CLI that serve a StableHLO artifact, several tasks, int8 weights or
-ToMe are accepted but refused: those paths are not yet ported.
+ToMe are accepted but refused, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import argparse
 import torch
 
 from cara_tpu_torch.serving import Predictor
+
+_PEFT = "ROADMAP.md queue 1: the PEFT zoo"
+_MULTI_TASK = "ROADMAP.md queue 1: MultiTaskPredictor"
 
 
 def parse_args(argv=None):
@@ -70,18 +73,19 @@ def _parse_buckets(spec: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, value in (("--exported", args.exported),
-                        ("--backbone", args.backbone),
-                        ("--quantize", args.quantize),
-                        ("--tome-r", args.tome_r)):
+    for flag, value, item in (
+            ("--exported", args.exported, _PEFT),
+            ("--backbone", args.backbone, _MULTI_TASK),
+            ("--quantize", args.quantize, _PEFT),
+            ("--tome-r", args.tome_r, _PEFT)):
         if value:
             raise SystemExit(f"{flag} is not yet ported to cara_tpu_torch "
-                             "(use python -m cara_tpu.cli.serve)")
+                             f"({item}; use python -m cara_tpu.cli.serve)")
     if not args.ckpt:
         raise SystemExit("pass --ckpt")
     if len(args.ckpt) > 1:
         raise SystemExit("multi-task serving (several --ckpt) is not yet "
-                         "ported to cara_tpu_torch")
+                         f"ported to cara_tpu_torch ({_MULTI_TASK})")
     pred = Predictor.from_checkpoint_auto(
         args.ckpt[0], args.model, num_classes=args.num_classes,
         scale=args.scale, merge=not args.no_merge,

@@ -3,11 +3,15 @@ order-4 CaRA with exact element-wise weight dropout, or the structured
 rank / row weight dropout (``--weight-dropout-impl``); or, with
 ``--method linear|full``, the non-adapter control rows: the linear probe
 (the head over the frozen backbone) and full fine-tuning (every weight,
-through the flash attention).
+through the flash attention).  Activation and attention dropout
+(``--model-override dropout_rate=R`` / ``attn_dropout_rate=R``), the
+attention (``--attn-impl fused|flash|xla``) and the dense forms
+(``--dense-impl fused|xla``) apply to every method, as in JAX.
 
     python -m cara_tpu_torch.cli.vit_cp --synthetic --dataset svhn \\
         --model vit_base_patch16_224_in21k --dim 8 [--backbone X.npz] \\
-        [--weight-dropout-impl rank] [--method full] [--device cpu]
+        [--weight-dropout-impl rank] [--method full] [--device cpu] \\
+        [--model-override dropout_rate=0.1] [--attn-impl xla]
 
 Trains on the card through the port's kernels (bf16 compute, fp32
 trainables), evaluates every 10 epochs through the serving kernels (the
@@ -93,7 +97,7 @@ def main(argv=None) -> float:
                 cara_cfg, method=meta["method"], weight_dropout=0.0)
         eval_step = steps_lib.make_eval_step(
             model.cfg, cara_cfg, compute_dtype=dtype,
-            attn_impl=args.attn_impl)
+            attn_impl=args.attn_impl, dense_impl=args.dense_impl)
         acc = loop_lib.evaluate(eval_step, params, cara_params, eval_loader,
                                 device)
         print(f"Accuracy: {acc}")
@@ -102,7 +106,8 @@ def main(argv=None) -> float:
     print(f"Total parameters: {model.trainable_count}")
     eval_step = steps_lib.make_eval_step(model.cfg, model.cara_cfg,
                                          compute_dtype=dtype,
-                                         attn_impl=args.attn_impl)
+                                         attn_impl=args.attn_impl,
+                                         dense_impl=args.dense_impl)
     frozen, state = steps_lib.init_train_state(
         model.params, model.cara_params, device, args.lr,
         train_loader.steps_per_epoch(), total_epochs=args.epochs,
@@ -117,6 +122,7 @@ def main(argv=None) -> float:
         train_loader=train_loader, eval_loader=eval_loader, device=device,
         generator=generator, fit_cfg=fit_cfg, keeper=keeper,
         eval_step=eval_step, compute_dtype=dtype, attn_impl=args.attn_impl,
+        dense_impl=args.dense_impl,
         ckpt_meta={"model": args.model, "dataset": args.dataset,
                    **({"model_overrides": mo} if mo else {})})
     print(f"Accuracy: {result['best_acc']}")

@@ -6,7 +6,11 @@
 // fp32 accumulation.  pro is an optional LayerNorm (row statistics from a
 // small pass, applied while A tiles are loaded; the normalized row is
 // rounded to bf16 as the TPU kernel's _ln_rows does).  epi is an optional
-// exact-erf GELU and an optional residual  x_res + dpm[row] * y.
+// exact-erf GELU and an optional residual  x_res + dpm[row] * y, or, in
+// the dact mode, dpre = g * gelu'(y) with g (M, N) the cotangent of the
+// GELU's output: the backward helper _cp_dense_dact_kernel
+// (cara_tpu/ops/pallas/cp_dense.py, row 13), which recomputes the fp32
+// pre-activation y on the tile and never writes it.
 //
 // Replaces the dense parts of the TPU megakernels
 // cara_tpu/ops/pallas/cp_attn_block.py (_attn_block_fwd_kernel, the qkv
@@ -39,6 +43,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "gelu.cuh"
 #include "mma_common.cuh"
 
 using namespace nvcuda;
@@ -114,9 +119,10 @@ struct SiteArgs {
   const __nv_bfloat16* cb;
   const __nv_bfloat16* res;
   const float* dpm;
+  const __nv_bfloat16* g;  // dact mode: the cotangent (M, N)
   __nv_bfloat16* out;
   int M, K, N, r;
-  int has_ln, act, has_res;
+  int has_ln, act, has_res;  // act: 0 none, 1 GELU, 2 dact
   int u_trans;  // pre-pass only: U given as (r, K), z = pro(x) @ U^T
   float s;
 };
@@ -298,7 +304,8 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
 // row statistics come from row_stats_kernel), then rounded to bf16.  The
 // rank-r delta z @ V is one more k-tile of the same ring and the same
 // accumulators (z and V zero-padded to BK), so the epilogue adds only b,
-// cb, GELU and the residual, straight from the mma registers.
+// cb, GELU (or g * gelu') and the residual, straight from the mma
+// registers.
 __global__ void __launch_bounds__(THREADS, 2)
 site_gemm_kernel(const SiteArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -447,8 +454,14 @@ site_gemm_kernel(const SiteArgs p) {
           y1 += p.s * cc.y;
         }
         if (p.act == 1) {
-          y0 = 0.5f * y0 * (1.f + erff(y0 * 0.70710678118654752f));
-          y1 = 0.5f * y1 * (1.f + erff(y1 * 0.70710678118654752f));
+          y0 = gelu(y0);
+          y1 = gelu(y1);
+        } else if (p.act == 2) {
+          const float2 gg = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  p.g + (size_t)gm * p.N + gn));
+          y0 = gg.x * gelu_grad(y0);
+          y1 = gg.y * gelu_grad(y1);
         }
         if (p.has_res) {
           const float2 rr = __bfloat1622float2(
@@ -475,15 +488,16 @@ void launch_z(const SiteArgs& p, const __nv_bfloat16* u, __nv_bfloat16* z,
 
 // One dense site: row statistics (when has_ln), the rank-r pre-pass
 // (when r > 0) and the GEMM with its epilogue, all on `stream`.
-// mean/rstd are fp32 (M,) scratch, z is bf16 (M, 64) scratch.  Needs
+// mean/rstd are fp32 (M,) scratch, z is bf16 (M, 64) scratch.  act 2
+// (dact) reads g (M, N) and writes g * gelu'(pre) to out.  Needs
 // K % 64 == 0, N % 8 == 0, r <= 64 and 16-byte aligned pointers; the Python
 // wrapper checks them.  Returns cudaGetLastError().
 extern "C" int cara_cp_site(
     const void* x, const void* ln_scale, const void* ln_bias, const void* w,
     const void* b, const void* u, const void* v, const void* cb,
-    const void* res, const void* dpm, void* mean, void* rstd, void* z,
-    void* out, int M, int K, int N, int r, int has_ln, int act, int has_res,
-    float s, float ln_eps, void* stream_ptr) {
+    const void* res, const void* dpm, const void* g, void* mean, void* rstd,
+    void* z, void* out, int M, int K, int N, int r, int has_ln, int act,
+    int has_res, float s, float ln_eps, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   SiteArgs p;
   p.x = static_cast<const __nv_bfloat16*>(x);
@@ -498,6 +512,7 @@ extern "C" int cara_cp_site(
   p.cb = static_cast<const __nv_bfloat16*>(cb);
   p.res = static_cast<const __nv_bfloat16*>(res);
   p.dpm = static_cast<const float*>(dpm);
+  p.g = static_cast<const __nv_bfloat16*>(g);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.M = M;
   p.K = K;

@@ -45,6 +45,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gelu.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -84,16 +85,6 @@ struct GemmArgs {
   int k_split;       // contraction rows per blockIdx.z
   int r2, ldb2;      // depth of the rank step, NT row stride of B2
 };
-
-__device__ __forceinline__ float gelu(float y) {
-  return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float gelu_grad(float y) {
-  const float cdf = 0.5f * (1.f + erff(y * 0.70710678118654752f));
-  const float pdf = expf(-0.5f * y * y) * 0.3989422804014327f;
-  return cdf + y * pdf;
-}
 
 // Stage one contraction step [k0, k0 + BK) of A and B into shared memory.
 // Smem orientation follows memory: A as [m][k] (NN, NT) or [k][m] (TN);

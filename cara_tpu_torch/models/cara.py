@@ -113,3 +113,47 @@ def rows_in_uv(p1, p2, p3, r2, comp_mask=None):
     e = p2.shape[0]
     u = (p1[:, None, :] * p2[None, :, :]).reshape(rows * e, r)
     return u, lam[:, None] * p3.T
+
+
+def qkv_delta(x: torch.Tensor, params: Dict[str, torch.Tensor],
+              f1: torch.Tensor, model: ViTConfig, cara: CaraConfig, *,
+              materialized: bool, drop_mask: Optional[torch.Tensor] = None,
+              comp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-layer qkv delta of the XLA block forms (``cara_tpu``'s
+    ``qkv_delta``), orders 3, 4 and 5: ``x`` (B, N, E) the attention
+    input (post-LN), ``f1`` this layer's A1 slice -> (B, N, 3, H, Dh),
+    unscaled.  ``materialized`` builds the dense (3, E, H*Dh) tensor and
+    multiplies it by ``drop_mask`` (the inverted element mask, or None);
+    otherwise the rank-space chain with ``comp_mask`` (r,) on lambda.
+    The masks are drawn by the caller."""
+    from cara_tpu_torch.ops import cp as cp_ops
+
+    e, h, d = model.embed_dim, model.num_heads, model.head_dim
+    b, n = x.shape[:2]
+    order = cara.cp_order
+    if order not in (3, 4, 5):
+        raise NotImplementedError(
+            f"qkv_delta of cp_order={order} is not yet ported (ROADMAP.md "
+            "queue 1: CP orders and dim_experiment)")
+    if materialized:
+        if order == 5:
+            t = cp_ops.cp_to_tensor(
+                params["R1"],
+                (f1, params["A2"], params["A3"], params["A4"], params["A5"]),
+            )[0].reshape(3, e, h * d)
+        elif order == 4:
+            t = cp_ops.cp_to_tensor(
+                params["R1"], (f1, params["A2"], params["A3"], params["A4"])
+            ).reshape(3, e, h * d)
+        else:  # (3, E, E), contract the A2 mode
+            t = cp_ops.cp_to_tensor(params["R1"],
+                                    (f1, params["A2"], params["A3"]))
+        if drop_mask is not None:
+            t = t * drop_mask
+        return torch.einsum("bne,keo->bnko", x, t).reshape(b, n, 3, h, d)
+    if order == 4:
+        return cp_ops.qkv_delta_factorized(
+            x, f1, params["A2"], params["A3"], params["A4"], params["R1"],
+            comp_mask)
+    u, v = qkv_uv(params, f1, model, cara, comp_mask)
+    return ((x @ u) @ v).reshape(b, n, 3, h, d)

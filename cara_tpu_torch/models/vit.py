@@ -1,69 +1,53 @@
 """Forward of the Vision Transformer with optional CaRA adapters (port of
 ``cara_tpu/models/vit.py``): eval, and the training forward of the
 element-wise, rank, row and no weight-dropout routes and of the backbone
-without an adapter.
+without an adapter, with drop-path, activation dropout
+(``cfg.dropout_rate``) and attention dropout (``cfg.attn_dropout_rate``).
 
 Layouts are the JAX package's: NHWC images, (in, out) kernels, blocks
 stacked on a leading layer axis, qkv columns out-flat (3, H, Dh).  The
 layer loop is plain Python (eager PyTorch has no ``scan`` to lower).
 
-Two block routes, chosen by whether an adapter is present, as on the TPU:
+``_block`` picks its forms as JAX's does, from ``attn_impl`` ("fused",
+"flash" or "xla"; "auto" is "fused"), ``dense_impl`` ("fused" or "xla";
+"auto" is "fused" with an adapter and "xla" without) and the rates:
 
-* merged / plain backbone: LN1, the qkv GEMM, the
-  :func:`fused_qkv_attention` kernel, then the proj / fc1 / GELU / fc2
-  GEMMs, all plain PyTorch (``F.linear`` / ``F.layer_norm``: XLA ops
-  outside any Pallas kernel in the reference);
-* adapter kept: :func:`cp_attn_block` then :func:`cp_mlp_block`.
-
-``impl="auto"`` calls the kernel wrappers, which launch the CUDA kernels
-for CUDA tensors and run their plain versions for CPU tensors;
-``impl="plain"`` calls the plain versions on any device (the reference
-the kernels are held against).  The TPU-only machinery of the reference
-(the 197 -> 200 stream pad, tile pickers, tune cache, ``CARA_*`` knobs)
-is not ported.
-
-Training (``train=True``) runs the routes the TPU takes (``_block``),
-with per-image drop-path gates of rates ``linspace(0, drop_path_rate,
-depth)``:
-
-* element-wise weight dropout (``use_elem``, the default): per layer
-  :func:`cp_attn_block_wd` and :func:`cp_mlp_block_wd`, the exact mask on
-  all four dense deltas;
-* rank or row weight dropout, or rate 0: the split attention path --
-  :func:`cp_dense_ln` for qkv, :func:`fused_qkv_attention`,
-  :func:`cp_dense` for the projection, ``x + proj * gate`` in the compute
-  dtype -- then :func:`cp_mlp_block`.  Rank masks (r,) multiply each
-  site's lambda (``_rank_comp``); row masks multiply the rows of each
-  site's U (``_row_u``).
-
-Past ``MAX_NP_FULL_SCORES`` (512) tokens -- ViT-B/16 at 384 px has 577
--- the full-score attention and the attention megakernel do not fit, and
-every route takes the TPU's long-sequence form (``vit.py:587-596,
-704-710, 716-737, 818-833``): :func:`blockwise_qkv_attention` in place of
-:func:`fused_qkv_attention`; the adapter's eval and the rank / row /
-rate-0 routes the split path above; element training the split path with
-the element-dropout sites :func:`cp_dense_ln_wd` (qkv) and
-:func:`cp_dense_wd` (proj) in place of :func:`cp_attn_block_wd`, then
-:func:`cp_mlp_block_wd`.
+* the block megakernels (:func:`cp_attn_block`, :func:`cp_mlp_block`, or
+  their element-dropout forms ``*_wd``; zero factors without an adapter)
+  run with the fused dense forms and no activation dropout; the
+  attention one only for eval and element-dropout training, with the
+  fused attention and at most 512 tokens;
+* otherwise the split sites: :func:`cp_dense_ln` (or
+  :func:`cp_dense_ln_wd`) for qkv, the attention, :func:`cp_dense` (or
+  :func:`cp_dense_wd`) for the projection; for the MLP the fc1 site with
+  LN2 and the GELU fused (``act``, TPU row 13's GELU body), dropout, the
+  fc2 site.  Rank masks (r,) multiply each site's lambda (``_rank_comp``);
+  row masks multiply the rows of each site's U (``_row_u``);
+* the attention: :func:`fused_qkv_attention` on the qkv output (row 1),
+  :func:`blockwise_qkv_attention` past ``MAX_NP_FULL_SCORES`` (512)
+  tokens (ViT-B/16 at 384 px has 577), :func:`flash_attention` on the
+  (B, H, N, Dh) views of q, k and v for "flash" (row 17), or ``mha`` (XLA
+  in JAX, plain here) for "xla" and whenever attention dropout is on;
+  any attention but the fused one computes qkv as the GEMM plus the XLA
+  qkv delta (``cara.qkv_delta``), which on the element route masks the
+  materialized (3, E, E) delta with a Bernoulli draw (``k_wd_qkv``);
+* ``dense_impl="xla"``: the GEMMs (``F.linear``, as XLA ops outside any
+  Pallas kernel in the reference) with the CP deltas of ``ops/cp.py``
+  beside them, the element route's masks on the materialized deltas.
 
 Without an adapter (the linear probe and full fine-tuning train this
-way, ``cara_params=None``) a block is LN1, the qkv GEMM, the attention,
-the proj GEMM, ``x + proj * gate``, then LN2, fc1, GELU, fc2 and
-``x + down * gate`` (``vit.py:779-813, 835, 871-873, 994-1030,
-1048-1049, 1083-1084``); the GEMMs and LayerNorms are plain PyTorch, as
-they are XLA ops outside any Pallas kernel in the reference, and in eval
-the gates are ones.  ``attn_impl`` picks the attention there, as in
-JAX's ``_block``: ``"fused"`` (``"auto"``) the layout-native kernel on
-the qkv GEMM output (row 1, or the blockwise attention past 512
-tokens), ``"flash"`` :func:`flash_attention` on the (B, H, N, Dh) views
-of q, k and v at any token count (row 17; full fine-tuning, whose
-gradients reach every weight through it).  With an adapter only the
-fused attention is ported (the CaRA + flash branch needs JAX's XLA delta
-forms).
+way, ``cara_params=None``) the XLA forms are the default, and in eval
+the gates are ones.  ``impl="auto"`` calls the kernel wrappers, which
+launch the CUDA kernels for CUDA tensors and run their plain versions
+for CPU tensors; ``impl="plain"`` calls the plain versions on any device
+(the reference the kernels are held against).  The TPU-only machinery
+of the reference (the 197 -> 200 stream pad, tile pickers, tune cache,
+``CARA_*`` knobs) is not ported.
 
 Per layer it draws four int32 mask seeds (``_wd_seed``), two gates
-(``_dp_gate``) and the rank or row masks from a ``torch.Generator`` on
-the device, or takes them from ``randomness``.
+(``_dp_gate``), the rank or row masks and the dropout masks
+(:func:`layer_mask_specs`) from a ``torch.Generator`` on the device, or
+takes them from ``randomness``.
 """
 
 from __future__ import annotations
@@ -74,6 +58,7 @@ import torch
 
 from cara_tpu_torch.config import CaraConfig, ViTConfig
 from cara_tpu_torch.models import cara as cara_lib
+from cara_tpu_torch.ops import cp as cp_ops
 from cara_tpu_torch.ops.cp import weight_dropout_mask
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
@@ -81,14 +66,14 @@ from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
-from cara_tpu_torch.ops.layers import activation, layer_norm, linear
+from cara_tpu_torch.ops.layers import (activation, dropout, layer_norm,
+                                       linear, mha)
 
 Params = Dict[str, Any]
 IMPLS = ("auto", "plain")
-ATTN_IMPLS = ("auto", "fused", "flash")
+ATTN_IMPLS = ("auto", "fused", "flash", "xla")
+DENSE_IMPLS = ("auto", "fused", "xla")
 WEIGHT_DROPOUT_IMPLS = ("element", "rank", "row")
-# Where the training routes that are not ported yet stand (ROADMAP.md).
-_TODO = "ROADMAP.md queue 2"
 
 
 def patch_embed(params: Params, x: torch.Tensor,
@@ -112,23 +97,123 @@ def _unstack(tree, depth):
     return [{k: v[i] for k, v in leaves.items()} for i in range(depth)]
 
 
+def _keep_mask(shape, rate: float, generator, device) -> torch.Tensor:
+    """Boolean keep mask, ``bernoulli(1 - rate)`` (``dropout``'s draw)."""
+    return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
+        1.0 - rate, generator=generator)
+
+
+def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
+                     batch: int, attn_impl: str = "fused",
+                     dense_impl: str = "fused") -> Dict[str, tuple]:
+    """The random masks one training layer draws, name -> (shape, kind),
+    kind ``"keep"`` (boolean, activation / attention dropout) or
+    ``"weight"`` (the inverted element mask of weight dropout on a dense
+    delta of the XLA forms): ``do1`` / ``do2`` / ``do3`` (the proj, GELU
+    and fc2 outputs; ``k_do1..3``), ``attn`` (the probabilities of
+    ``mha``; ``k_attn``), and on the element route ``qkv`` where the qkv
+    delta is the XLA one (any attention but the fused one without
+    attention dropout, or ``dense_impl="xla"``) and ``proj`` / ``fc1`` /
+    ``fc2`` under ``dense_impl="xla"`` (``k_wd_*``)."""
+    e, h, n, hid = cfg.embed_dim, cfg.num_heads, cfg.seq_len, cfg.hidden_dim
+    out = {}
+    if cfg.dropout_rate > 0.0:
+        out.update(do1=((batch, n, e), "keep"), do2=((batch, n, hid), "keep"),
+                   do3=((batch, n, e), "keep"))
+    if cfg.attn_dropout_rate > 0.0:
+        out["attn"] = ((batch, h, n, n), "keep")
+    if (cara_cfg is not None and cara_cfg.weight_dropout_impl == "element"
+            and cara_cfg.weight_dropout > 0.0):
+        fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
+        if dense_impl == "xla" or not fused_attn:
+            out["qkv"] = ((3, e, e), "weight")
+        if dense_impl == "xla":
+            out.update(proj=((e, e), "weight"), fc1=((hid, e), "weight"),
+                       fc2=((hid, e), "weight"))
+    return out
+
+
+def draw_layer_masks(specs, cfg: ViTConfig, cara_cfg, generator, device,
+                     dtype) -> Dict[str, torch.Tensor]:
+    """One layer's masks of :func:`layer_mask_specs` from ``generator``
+    (other bits than ``jax.random``); weight masks in ``dtype``."""
+    out = {}
+    for name, (shape, kind) in specs.items():
+        if kind == "keep":
+            rate = (cfg.attn_dropout_rate if name == "attn"
+                    else cfg.dropout_rate)
+            out[name] = _keep_mask(shape, rate, generator, device)
+        else:
+            out[name] = weight_dropout_mask(shape, cara_cfg.weight_dropout,
+                                            dtype, generator, device)
+    return out
+
+
 def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
-           rand=None, attn_impl="fused"):
-    """One transformer block.  In eval (``rand`` None) drop-path and
-    dropout are identities; in training ``rand`` holds the layer's
-    randomness: ``seeds`` (qkv, proj, fc1, fc2; int32 (4, 1, 1)),
-    ``gates`` (attention, MLP; (2, B)) and, for the rank / row routes,
-    ``comp`` ((4, r) or None) or ``rows`` (four (K,) masks or None).
-    ``attn_impl`` ("fused" or "flash") picks the attention of the block
-    without an adapter."""
+           rand=None, attn_impl="fused", dense_impl="fused"):
+    """One transformer block (``cara_tpu``'s ``_block``).  In eval
+    (``rand`` None) drop-path and dropout are identities; in training
+    ``rand`` holds the layer's randomness: ``seeds`` (qkv, proj, fc1,
+    fc2; int32 (4, 1, 1)), ``gates`` (attention, MLP; (2, B)), for the
+    rank / row routes ``comp`` ((4, r) or None) or ``rows`` (four (K,)
+    masks or None), and ``masks``, this layer's :func:`layer_mask_specs`
+    masks, or None to draw them now from ``generator``.  ``attn_impl``
+    ("fused", "flash" or "xla") and ``dense_impl`` ("fused" or "xla")
+    pick the forms as the TPU's ``_block`` does."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
     plain = impl == "plain"
-    dpm = torch.ones((b, 1), dtype=x.dtype, device=x.device)
+    dt = x.dtype
+    train = rand is not None
     # The TPU's switch: past 512 (padded) tokens the full-score attention
     # and the attention megakernel give way to the blockwise attention.
     long = n > fqa_mod.MAX_NP_FULL_SCORES
+    use_cara = cara_params is not None
+    rate = cara_cfg.weight_dropout if use_cara else 0.0
+    use_elem = (train and use_cara and rate > 0.0
+                and cara_cfg.weight_dropout_impl == "element")
+    fused_dense = dense_impl == "fused" and use_cara
+    fused_plain = dense_impl == "fused" and not use_cara
+    fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
+    # Activation dropout cannot ride inside the block megakernels, and the
+    # attention one trains only the element route (``_attn_mega_on``).
+    attn_mega = ((fused_dense or fused_plain) and fused_attn and not long
+                 and (use_elem or not train) and cfg.dropout_rate == 0.0)
+    mlp_mega = (fused_dense or fused_plain) and cfg.dropout_rate == 0.0
+    comp = rows = None
+    if train and use_cara and not use_elem:
+        comp, rows = rand.get("comp"), rand.get("rows")
+    masks = None
+    if train:
+        masks = rand.get("masks")
+        if masks is None:
+            masks = draw_layer_masks(
+                layer_mask_specs(cfg, cara_cfg, b, attn_impl, dense_impl),
+                cfg, cara_cfg, rand.get("generator"), x.device, dt)
+
+    def gate(i):  # drop-path, (B, 1, 1) in the compute dtype
+        if not train:
+            return torch.ones((b, 1, 1), dtype=dt, device=x.device)
+        return rand["gates"][i].reshape(b, 1, 1).to(dt)
+
+    def branch(t, i, name):
+        """The sublayer's output ``t`` after activation dropout
+        (``k_do1`` / ``k_do3``) and drop-path, added to the stream."""
+        if not train:
+            return x + t
+        if cfg.dropout_rate > 0.0:
+            t = dropout(t, cfg.dropout_rate, masks[name])
+        return x + t * gate(i)
+
+    def wmask(name):  # the element route's mask on a dense XLA delta
+        return masks[name].to(dt) if use_elem else None
+
+    def site_comp(site):
+        return None if comp is None else comp[site]
+
+    def row_x(t, site):  # the row mask on the XLA delta's input features
+        return t if rows is None else t * rows[site].to(dt)
 
     def attention(qkv):
         if long:
@@ -136,111 +221,169 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                                                    impl=impl)
         return fqa_mod.fused_qkv_attention(qkv, h, d ** -0.5, n, impl=impl)
 
-    if cara_params is None:
-        xa = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.layernorm_eps)
-        qkv = linear(xa, bp["qkv"]["kernel"], bp["qkv"]["bias"])
-        if attn_impl == "flash":  # (B, H, N, Dh) views, no copy
+    if use_cara:
+        s = cara_cfg.scale
+
+        def fold(t):  # the delta scale rides the factors; kernels at s=1
+            return (t * s).to(dt).contiguous()
+
+        def site_uv(site, uv_fn, *args):
+            """The site's (U, V), rank mask on lambda, row mask on U."""
+            u, v = uv_fn(*args, site_comp(site))
+            if rows is not None:
+                u = u * rows[site][:, None]
+            return u.to(dt).contiguous(), fold(v)
+
+        p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
+        p1_up, p1_down = p1[1:1 + mr], p1[1 + mr:1 + 2 * mr]
+        u1, v1 = site_uv(0, cara_lib.qkv_uv, cara_params, f1, cfg, cara_cfg)
+        u2, v2 = site_uv(1, cara_lib.rows_out_uv, p1[0:1], p2, p3, r2)
+        cb_proj = fold(cara_params["bias1"])
+        attn_args = (x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1,
+                     bp["proj"]["kernel"], bp["proj"]["bias"], u2, v2,
+                     cb_proj, bp["ln1_scale"], bp["ln1_bias"])
+    elif attn_mega:  # the megakernel without an adapter: zero factors
+        zero = x.new_zeros
+        attn_args = (x, bp["qkv"]["kernel"], bp["qkv"]["bias"],
+                     zero((e, 1)), zero((1, 3 * e)), bp["proj"]["kernel"],
+                     bp["proj"]["bias"], zero((e, 1)), zero((1, e)),
+                     zero((e,)), bp["ln1_scale"], bp["ln1_bias"])
+
+    # --- attention (vit.py:596-813) ---
+    if attn_mega:
+        if use_elem:
+            x = attn_mod.cp_attn_block_wd(
+                *attn_args, rand["gates"][0].reshape(b, 1).to(dt),
+                rand["seeds"][0], rand["seeds"][1], h, d ** -0.5, n, 1.0,
+                rate, cfg.layernorm_eps, impl=impl)
+        else:
+            block = (attn_mod.cp_attn_block_plain if plain
+                     else attn_mod.cp_attn_block)
+            x = block(*attn_args, gate(0).reshape(b, 1), h, d ** -0.5, n,
+                      1.0, cfg.layernorm_eps)
+    else:
+        if fused_dense and fused_attn:
+            if use_elem:  # the split element sites (vit.py:716-724)
+                qkv = dense_mod.cp_dense_ln_wd(
+                    x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
+                    bp["ln1_scale"], bp["ln1_bias"], rand["seeds"][0], 1.0,
+                    rate, cfg.layernorm_eps, impl=impl)
+            else:
+                qkv = dense_mod.cp_dense_ln(
+                    x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
+                    bp["ln1_scale"], bp["ln1_bias"], 1.0, cfg.layernorm_eps,
+                    impl=impl)
+        else:  # the qkv GEMM, plus the XLA qkv delta with an adapter
+            xa = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"],
+                            cfg.layernorm_eps)
+            qkv = linear(xa, bp["qkv"]["kernel"], bp["qkv"]["bias"])
+            if use_cara:
+                delta = cara_lib.qkv_delta(
+                    row_x(xa, 0), cara_params, f1, cfg, cara_cfg,
+                    materialized=use_elem, drop_mask=wmask("qkv"),
+                    comp_mask=site_comp(0))
+                qkv = qkv + delta.reshape(b, n, 3 * e).to(dt) * s
+        if fused_attn:
+            attn_out = attention(qkv)
+        else:  # (B, H, N, Dh) views, no copy
             q, k, v = (t.transpose(1, 2)
                        for t in qkv.reshape(b, n, 3, h, d).unbind(2))
-            o = flash_mod.flash_attention(q, k, v, d ** -0.5, impl=impl)
-            attn_out = o.transpose(1, 2).reshape(b, n, e)
+            if attn_impl == "flash" and cfg.attn_dropout_rate == 0.0:
+                o = flash_mod.flash_attention(q, k, v, d ** -0.5, impl=impl)
+                attn_out = o.transpose(1, 2).reshape(b, n, e)
+            else:
+                keep = (masks["attn"] if train and cfg.attn_dropout_rate > 0
+                        else None)
+                attn_out = mha(q, k, v, d ** -0.5, cfg.attn_dropout_rate,
+                               keep)
+        if fused_dense and use_elem:
+            proj = dense_mod.cp_dense_wd(attn_out, *attn_args[5:10],
+                                         rand["seeds"][1], 1.0, rate,
+                                         impl=impl)
+        elif fused_dense:
+            proj = dense_mod.cp_dense(attn_out, *attn_args[5:10], 1.0,
+                                      impl=impl)
         else:
-            attn_out = attention(qkv)
-        proj = linear(attn_out, bp["proj"]["kernel"], bp["proj"]["bias"])
-        if rand is not None:  # drop-path
-            proj = proj * rand["gates"][0].reshape(b, 1, 1).to(x.dtype)
-        x = x + proj
+            proj = linear(attn_out, bp["proj"]["kernel"], bp["proj"]["bias"])
+            if use_elem:
+                pd = cp_ops.rows_delta_out_materialized(
+                    attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
+            elif use_cara:
+                pd = cp_ops.rows_delta_out_factorized(
+                    row_x(attn_out, 1), p1[0:1], p2, p3, r2, site_comp(1))
+            if use_cara:
+                proj = proj + (pd + cara_params["bias1"]) * s
+        x = branch(proj, 0, "do1")
+
+    # --- MLP (vit.py:835-1087) ---
+    if use_cara:
+        u3, v3 = site_uv(2, cara_lib.rows_out_uv, p1_up, p2, p3, r2)
+        u4, v4 = site_uv(3, cara_lib.rows_in_uv, p1_down, p2, p3, r2)
+        fc_args = (bp["fc1"]["kernel"], bp["fc1"]["bias"], u3, v3,
+                   fold(cara_params["bias2"]))
+        fc2_args = (bp["fc2"]["kernel"], bp["fc2"]["bias"], u4, v4,
+                    fold(cara_params["bias3"]))
+    elif mlp_mega:  # the megakernel without an adapter: zero factors
+        hid = cfg.hidden_dim
+        zero = x.new_zeros
+        fc_args = (bp["fc1"]["kernel"], bp["fc1"]["bias"], zero((e, 1)),
+                   zero((1, hid)), zero((hid,)))
+        fc2_args = (bp["fc2"]["kernel"], bp["fc2"]["bias"], zero((hid, 1)),
+                    zero((1, e)), zero((e,)))
+    if mlp_mega:
+        mlp_args = (x, *fc_args, *fc2_args, bp["ln2_scale"], bp["ln2_bias"])
+        if use_elem:
+            return mlp_mod.cp_mlp_block_wd(
+                *mlp_args, gate(1), rand["seeds"][2], rand["seeds"][3], 1.0,
+                rate, cfg.activation, cfg.layernorm_eps, impl=impl)
+        return mlp_mod.cp_mlp_block(*mlp_args, gate(1), 1.0, cfg.activation,
+                                    cfg.layernorm_eps, impl=impl)
+    if fused_dense:  # LN2 prologue and GELU epilogue in the fc1 site
+        if use_elem:
+            hidden = dense_mod.cp_dense_ln_wd(
+                x, *fc_args, bp["ln2_scale"], bp["ln2_bias"],
+                rand["seeds"][2], 1.0, rate, cfg.layernorm_eps, impl=impl,
+                act=cfg.activation)
+        else:
+            hidden = dense_mod.cp_dense_ln(
+                x, *fc_args, bp["ln2_scale"], bp["ln2_bias"], 1.0,
+                cfg.layernorm_eps, impl=impl, act=cfg.activation)
+    else:
         xm = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.layernorm_eps)
-        hid = activation(linear(xm, bp["fc1"]["kernel"], bp["fc1"]["bias"]),
-                         cfg.activation)
-        down = linear(hid, bp["fc2"]["kernel"], bp["fc2"]["bias"])
-        if rand is not None:
-            down = down * rand["gates"][1].reshape(b, 1, 1).to(x.dtype)
-        return x + down
-
-    s = cara_cfg.scale
-    dt = x.dtype
-    rate = cara_cfg.weight_dropout
-    use_elem = (rand is not None and cara_cfg.weight_dropout_impl == "element"
-                and rate > 0.0)
-    comp = rows = None
-    if rand is not None and not use_elem:
-        comp, rows = rand.get("comp"), rand.get("rows")
-
-    def fold(t):  # the delta scale rides the factors; kernels run at s=1
-        return (t * s).to(dt).contiguous()
-
-    def cast(t):
-        return t.to(dt).contiguous()
-
-    def site_uv(site, uv_fn, *args):
-        """The site's (U, V), rank mask on lambda, row mask on U's rows."""
-        u, v = uv_fn(*args, None if comp is None else comp[site])
-        if rows is not None:
-            u = u * rows[site][:, None]
-        return cast(u), fold(v)
-
-    p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
-    u1, v1 = site_uv(0, cara_lib.qkv_uv, cara_params, f1, cfg, cara_cfg)
-    u2, v2 = site_uv(1, cara_lib.rows_out_uv, p1[0:1], p2, p3, r2)
-    attn_args = (
-        x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1,
-        bp["proj"]["kernel"], bp["proj"]["bias"], u2, v2,
-        fold(cara_params["bias1"]), bp["ln1_scale"], bp["ln1_bias"])
-    gate = (dpm.reshape(b, 1, 1) if rand is None
-            else rand["gates"][0].reshape(b, 1, 1).to(dt))
-    if rand is None and not long:
-        attn_block = (attn_mod.cp_attn_block_plain if plain
-                      else attn_mod.cp_attn_block)
-        x = attn_block(*attn_args, dpm, h, d ** -0.5, n, 1.0,
-                       cfg.layernorm_eps)
-    elif use_elem and not long:
-        x = attn_mod.cp_attn_block_wd(
-            *attn_args, rand["gates"][0].reshape(b, 1).to(dt),
-            rand["seeds"][0], rand["seeds"][1], h, d ** -0.5, n, 1.0, rate,
-            cfg.layernorm_eps, impl=impl)
-    elif use_elem:  # the split element sites (vit.py:716-724, 818-824)
-        qkv = dense_mod.cp_dense_ln_wd(
-            x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
-            bp["ln1_scale"], bp["ln1_bias"], rand["seeds"][0], 1.0, rate,
-            cfg.layernorm_eps, impl=impl)
-        proj = dense_mod.cp_dense_wd(attention(qkv), *attn_args[5:10],
-                                     rand["seeds"][1], 1.0, rate, impl=impl)
-        x = x + proj * gate
-    else:  # the split path (vit.py:691-873)
-        qkv = dense_mod.cp_dense_ln(
-            x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1, None,
-            bp["ln1_scale"], bp["ln1_bias"], 1.0, cfg.layernorm_eps,
-            impl=impl)
-        proj = dense_mod.cp_dense(attention(qkv), *attn_args[5:10], 1.0,
-                                  impl=impl)
-        x = x + proj * gate
-    u3, v3 = site_uv(2, cara_lib.rows_out_uv, p1[1:1 + mr], p2, p3, r2)
-    u4, v4 = site_uv(3, cara_lib.rows_in_uv, p1[1 + mr:1 + 2 * mr], p2, p3,
-                     r2)
-    mlp_args = (
-        x, bp["fc1"]["kernel"], bp["fc1"]["bias"], u3, v3,
-        fold(cara_params["bias2"]), bp["fc2"]["kernel"], bp["fc2"]["bias"],
-        u4, v4, fold(cara_params["bias3"]), bp["ln2_scale"], bp["ln2_bias"])
-    if use_elem:
-        return mlp_mod.cp_mlp_block_wd(
-            *mlp_args, rand["gates"][1].reshape(b, 1, 1).to(dt),
-            rand["seeds"][2], rand["seeds"][3], 1.0, rate, cfg.activation,
-            cfg.layernorm_eps, impl=impl)
-    gate = (dpm.reshape(b, 1, 1) if rand is None
-            else rand["gates"][1].reshape(b, 1, 1).to(dt))
-    return mlp_mod.cp_mlp_block(*mlp_args, gate, 1.0, cfg.activation,
-                                cfg.layernorm_eps, impl=impl)
+        up = linear(xm, bp["fc1"]["kernel"], bp["fc1"]["bias"])
+        if use_elem:
+            ud = cp_ops.rows_delta_out_materialized(xm, p1_up, p2, p3, r2,
+                                                    wmask("fc1"))
+        elif use_cara:
+            ud = cp_ops.rows_delta_out_factorized(
+                row_x(xm, 2), p1_up, p2, p3, r2, site_comp(2))
+        if use_cara:
+            up = up + (ud + cara_params["bias2"]) * s
+        hidden = activation(up, cfg.activation)
+    if train and cfg.dropout_rate > 0.0:
+        hidden = dropout(hidden, cfg.dropout_rate, masks["do2"])
+    if fused_dense and use_elem:
+        down = dense_mod.cp_dense_wd(hidden, *fc2_args, rand["seeds"][3],
+                                     1.0, rate, impl=impl)
+    elif fused_dense:
+        down = dense_mod.cp_dense(hidden, *fc2_args, 1.0, impl=impl)
+    else:
+        down = linear(hidden, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+        if use_elem:
+            dd = cp_ops.rows_delta_in_materialized(hidden, p1_down, p2, p3,
+                                                   r2, wmask("fc2"))
+        elif use_cara:
+            dd = cp_ops.rows_delta_in_factorized(
+                row_x(hidden, 3), p1_down, p2, p3, r2, site_comp(3))
+        if use_cara:
+            down = down + (dd + cara_params["bias3"]) * s
+    return branch(down, 1, "do3")
 
 
 def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     """Refuse the training routes that are not ported yet, naming where
     they stand in the ROADMAP.  ``cara_cfg=None`` is the forward without
     an adapter (the linear probe and full fine-tuning)."""
-    if cfg.dropout_rate > 0.0 or cfg.attn_dropout_rate > 0.0:
-        raise NotImplementedError(
-            "activation / attention dropout in training is not yet ported "
-            f"({_TODO}: row 13's GELU body and mha)")
     if cara_cfg is None:
         return
     if cara_cfg.method != "cara" or cara_cfg.moe:
@@ -261,7 +404,9 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
 def draw_randomness(cfg: ViTConfig, batch: int, device,
                     generator: Optional[torch.Generator],
                     dtype: torch.dtype = torch.float32,
-                    cara_cfg: Optional[CaraConfig] = None) -> Dict[str, Any]:
+                    cara_cfg: Optional[CaraConfig] = None,
+                    masks: bool = False, attn_impl: str = "fused",
+                    dense_impl: str = "fused") -> Dict[str, Any]:
     """Per-layer training randomness: ``seeds`` int32 (depth, 4, 1, 1) —
     the qkv, proj, fc1 and fc2 mask seeds, uniform over
     [-2**31, 2**31 - 1) as ``_wd_seed`` — and ``gates`` (depth, 2, B) in
@@ -270,7 +415,11 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
     ``cara_cfg`` at a rate above 0, the rank route adds ``comp`` (depth,
     4, r) (``_rank_comp``) and the row route ``rows``, four (depth, K)
     masks for the qkv, proj, fc1 (K = E) and fc2 (K = hidden) sites
-    (``_row_u``), all inverted masks in ``dtype``."""
+    (``_row_u``), all inverted masks in ``dtype``.  The dropout masks
+    (:func:`layer_mask_specs` for these impls) are drawn per layer inside
+    the forward, or here, one dict a layer under ``masks``, when
+    ``masks`` is set: a check that runs one step on several paths hands
+    them all the same masks."""
     depth = cfg.depth
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (depth, 4, 1, 1),
                           generator=generator, device=device,
@@ -282,18 +431,50 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
         mask = torch.bernoulli(probs, generator=generator)
         gates.append(mask.to(dtype) / keep.to(dtype).to(device))
     out = {"seeds": seeds, "gates": torch.stack(gates)}
-    if cara_cfg is None:
-        return out
-    rate = cara_cfg.weight_dropout
-    if cara_cfg.weight_dropout_impl == "rank" and rate > 0.0:
+    rate = 0.0 if cara_cfg is None else cara_cfg.weight_dropout
+    if rate > 0.0 and cara_cfg.weight_dropout_impl == "rank":
         out["comp"] = weight_dropout_mask((depth, 4, cara_cfg.rank), rate,
                                           dtype, generator, device)
-    elif cara_cfg.weight_dropout_impl == "row" and rate > 0.0:
+    elif rate > 0.0 and cara_cfg.weight_dropout_impl == "row":
         e = cfg.embed_dim
         out["rows"] = [weight_dropout_mask((depth, k), rate, dtype,
                                            generator, device)
                        for k in (e, e, e, cfg.hidden_dim)]
+    if masks:
+        specs = layer_mask_specs(cfg, cara_cfg, batch, attn_impl, dense_impl)
+        out["masks"] = [draw_layer_masks(specs, cfg, cara_cfg, generator,
+                                         device, dtype)
+                        for _ in range(depth)]
     return out
+
+
+def resolve_impls(attn_impl: str, dense_impl: str,
+                  cara_cfg: Optional[CaraConfig]):
+    """(attn_impl, dense_impl) of a forward with (``cara_cfg``) or without
+    an adapter, "auto" resolved as on the TPU (``_resolve_impls``,
+    ``resolve_dense_impl``): the fused attention; the fused dense sites
+    with CaRA, the XLA GEMMs without.  Full fine-tuning takes the flash
+    attention for "fused" and refuses the fused dense sites, whose
+    backward gives the backbone no gradient."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r}")
+    if dense_impl not in DENSE_IMPLS:
+        raise ValueError(f"dense_impl must be one of {DENSE_IMPLS}, got "
+                         f"{dense_impl!r}")
+    method = None if cara_cfg is None else cara_cfg.method
+    attn_impl = "fused" if attn_impl == "auto" else attn_impl
+    if dense_impl == "auto":
+        dense_impl = "fused" if method == "cara" else "xla"
+    if method == "full":
+        if dense_impl == "fused":
+            raise ValueError(
+                "method='full' trains the dense weights; the fused "
+                "megakernels' backward emits no backbone-weight "
+                "gradients: use dense_impl='auto' or 'xla'")
+        if attn_impl == "fused":
+            attn_impl = "flash"
+    return attn_impl, dense_impl
 
 
 def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
@@ -302,7 +483,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 impl: str = "auto", *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 randomness: Optional[Dict[str, Any]] = None,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto",
+                dense_impl: str = "auto") -> torch.Tensor:
     """Images (B, H, W, C) NHWC -> logits (B, num_classes).
 
     ``params`` / ``cara_params`` are tensor trees on ``x``'s device (see
@@ -310,21 +492,15 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     ``x.dtype``.  ``train=True`` runs the training forward (see the
     module docs); its randomness comes from ``randomness`` (as
     :func:`draw_randomness` returns it) or else is drawn from
-    ``generator``.  ``attn_impl``: "fused" (or "auto", as on the TPU)
-    or, without an adapter, "flash"."""
+    ``generator``, the dropout masks one layer at a time.  ``attn_impl``
+    ("fused", "flash", "xla" or "auto", the fused one) and
+    ``dense_impl`` ("fused", "xla" or "auto", fused with an adapter and
+    XLA without) pick the block's forms."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
-                         f"{attn_impl!r} (the XLA attention is not ported)")
-    attn_impl = "fused" if attn_impl == "auto" else attn_impl
-    if attn_impl == "flash" and cara_cfg is not None:
-        raise NotImplementedError(
-            "CaRA with attn_impl='flash' needs the XLA delta forms of "
-            "cara_tpu's _block, not yet ported (ROADMAP.md queue 1: CaRA "
-            "with --attn-impl flash / xla)")
+    attn_impl, dense_impl = resolve_impls(attn_impl, dense_impl, cara_cfg)
     if train:
         check_trainable(cfg, cara_cfg)
         if randomness is None:
@@ -357,18 +533,20 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     for layer in range(cfg.depth):
         rand = None
         if train:
-            rows = randomness.get("rows")
+            rows, masks = randomness.get("rows"), randomness.get("masks")
             rand = {"seeds": randomness["seeds"][layer],
                     "gates": randomness["gates"][layer],
                     "comp": (None if randomness.get("comp") is None
                              else randomness["comp"][layer]),
                     "rows": (None if rows is None
-                             else [m[layer] for m in rows])}
+                             else [m[layer] for m in rows]),
+                    "masks": None if masks is None else masks[layer],
+                    "generator": generator}
         tokens = _block(
             tokens, blocks[layer],
             None if a1 is None else a1[layer],
             None if p1 is None else p1[layer],
-            cfg, cara_params, cara_cfg, impl, rand, attn_impl)
+            cfg, cara_params, cara_cfg, impl, rand, attn_impl, dense_impl)
     if cfg.use_cls_token:
         # LayerNorm is per token: only the cls row feeds the head.
         feat = layer_norm(tokens[:, 0], params["norm"]["scale"],

@@ -1,13 +1,22 @@
 """One dense CaRA site of the split path, forward and backward:
-``cp_dense(x) = x W + b + s ((x U) V + cb)`` and ``cp_dense_ln``, the same
-on ``LN(x)``.
+``cp_dense(x) = act(x W + b + s ((x U) V + cb))`` and ``cp_dense_ln``,
+the same on ``LN(x)``, with ``act`` None, ``"gelu"`` or ``"quick_gelu"``.
 
-Replaces ``cara_tpu/ops/pallas/cp_dense.py`` for ``act=None`` (the qkv and
-projection sites of the rank / row / no-dropout training route):
+Replaces ``cara_tpu/ops/pallas/cp_dense.py`` (the qkv and projection
+sites of the split training route with ``act=None``; the MLP's fc1 site,
+GELU fused, and fc2 site once activation dropout turns the MLP
+megakernel off):
 
 * forward, TPU row 13 (``_cp_dense_raw`` / ``_cp_dense_kernel``): the
   site kernel ``csrc/cp_site.cu`` through ``_site.site_cuda``, LayerNorm
-  prologue optional, z = pro(x) U rounded to bf16 before V;
+  prologue optional, z = pro(x) U rounded to bf16 before V, the exact-erf
+  GELU in the epilogue for ``act="gelu"``;
+* the activation's backward, TPU row 13's helper
+  (``_cp_dense_dact_kernel``): the same site kernel in its dact mode
+  recomputes the fp32 pre-activation tile and writes ``dpre = bf16(g *
+  gelu'(pre))``; the pre-activation never reaches memory.  The backward
+  below then runs with ``g := dpre``.  ``"quick_gelu"`` has plain
+  versions only (a CUDA tensor raises);
 * dx, TPU row 12 (``_cp_dense_dx_raw`` / ``_cp_dense_dx_kernel``):
   ``dx = g W^T + s bf16(g V^T) U^T``, also emitting ``gv = bf16(g V^T)``,
   with the LayerNorm input backward over the full row for
@@ -41,9 +50,15 @@ the masked factor gradients on x or LN(x) (row 15,
 ``wd_fold.cp_wd_factor_grads``) and ``db`` by column sums, ``dcb = s
 db``.
 
+With an activation the element sites fuse it as the plain ones do: the
+GELU epilogue on W' with rank 0, and the dact helper on W' with rank 0
+(the rank delta already sits in W'), as ``_bwd_wd_rule`` does.
+
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions, which keep the TPU kernels'
-rounding points.  ``LAUNCHES`` counts row 13, ``DX_LAUNCHES`` row 12,
+rounding points.  ``LAUNCHES`` counts row 13 without an activation,
+``ACT_LAUNCHES`` row 13 with one (any of the four forms),
+``DACT_LAUNCHES`` the dact helper, ``DX_LAUNCHES`` row 12,
 ``WD_LAUNCHES`` and ``WD_BWD_LAUNCHES`` the element-dropout sites'
 forwards and backwards.
 """
@@ -56,10 +71,16 @@ import torch
 
 from cara_tpu_torch.ops.cuda import _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
-from cara_tpu_torch.ops.layers import layer_norm
+from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 
-#: Forward kernel calls of :func:`cp_dense` / :func:`cp_dense_ln` (row 13).
+ACTS = (None, "gelu", "quick_gelu")
+#: Forward kernel calls of :func:`cp_dense` / :func:`cp_dense_ln` without
+#: an activation (row 13).
 LAUNCHES = 0
+#: Forward kernel calls with the GELU epilogue, any of the four forms.
+ACT_LAUNCHES = 0
+#: Calls of the dact helper (the activation's backward).
+DACT_LAUNCHES = 0
 #: dx kernel calls of their backward (row 12).
 DX_LAUNCHES = 0
 #: Forward calls of :func:`cp_dense_wd` / :func:`cp_dense_ln_wd` (the
@@ -70,11 +91,60 @@ WD_BWD_LAUNCHES = 0
 
 
 def cp_dense_plain(x2, w, b, u, v, cb: Optional[torch.Tensor], s: float,
-                   ln=None):
+                   ln=None, act: Optional[str] = None):
     """Plain twin of the forward on x2 (M, K): ``ln`` = (scale, bias, eps)
-    or None; LN(x) and z rounded to ``x2.dtype``, the output too."""
+    or None; LN(x) and z rounded to ``x2.dtype``, the activation on the
+    fp32 pre-activation, the output rounded to ``x2.dtype``."""
     xa = x2 if ln is None else layer_norm(x2, *ln)
-    return site_plain(xa, w, b, u, v, cb, s).to(x2.dtype)
+    y = site_plain(xa, w, b, u, v, cb, s)
+    return (y if act is None else activation(y, act)).to(x2.dtype)
+
+
+def cp_dense_dact_plain(g2, x2, w, b, u, v, cb: Optional[torch.Tensor],
+                        s: float, ln=None, act: str = "gelu"):
+    """Plain twin of the dact helper (``_cp_dense_raw(..., g=)``): the
+    fp32 pre-activation recomputed as the forward computes it, then
+    ``g2 * act'(pre)`` rounded to ``g2.dtype``."""
+    xa = x2 if ln is None else layer_norm(x2, *ln)
+    pre = site_plain(xa, w, b, u, v, cb, s)
+    return (g2.float() * activation_grad(pre, act)).to(g2.dtype)
+
+
+def _check_act(act, plain: bool) -> None:
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if act == "quick_gelu" and not plain:
+        raise NotImplementedError(
+            "the site kernels have the exact-erf GELU epilogue only; "
+            "quick_gelu runs on the plain versions (ROADMAP.md queue 1: "
+            "Interop)")
+
+
+def _dact(g2, x2, w, b, u, v, cb, s, ln, act, plain: bool):
+    """dpre through the plain twin or the site kernel's dact mode
+    (counted in :data:`DACT_LAUNCHES`)."""
+    global DACT_LAUNCHES
+    if plain:
+        return cp_dense_dact_plain(g2, x2, w, b, u, v, cb, s, ln, act)
+    out = site_cuda(x2, w, b, u, v, cb, s, ln=ln, dact_g=g2)
+    DACT_LAUNCHES += 1
+    return out
+
+
+def cp_dense_dact(g2, x2, w, b, u, v, cb: Optional[torch.Tensor], s: float,
+                  ln=None, act: str = "gelu"):
+    """The activation's backward of a site on 2-D g2 (M, N) and x2 (M, K):
+    ``g2 * act'(pre)`` with ``pre = pro(x2) W + b + s ((pro(x2) U) V +
+    cb)`` recomputed, ``ln`` = (scale, bias, eps) or None.  The kernel on
+    CUDA, the plain twin on the CPU."""
+    plain = x2.device.type == "cpu"
+    if not plain and x2.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2.device}")
+    _check_act(act, plain)
+    if act is None:
+        raise ValueError("cp_dense_dact needs an activation")
+    _check_site("cp_dense_dact", x2, w.shape[0], w, u, v, not plain)
+    return _dact(g2, x2, w, b, u, v, cb, s, ln, act, plain)
 
 
 def cp_dense_dx_plain(g2, w, u, v, s: float, ln=None, x2=None):
@@ -158,28 +228,34 @@ class _CpDense(torch.autograd.Function):
     """Gradients for x, u, v and cb; W, b and the LayerNorm are frozen."""
 
     @staticmethod
-    def forward(ctx, x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps,
+    def forward(ctx, x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps, act,
                 plain):
-        global LAUNCHES
+        global LAUNCHES, ACT_LAUNCHES
         lead, k = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, k)
         ln = None if ln_scale is None else (ln_scale, ln_bias, ln_eps)
         if plain:
-            out = cp_dense_plain(x2, w, b, u, v, cb, s, ln)
+            out = cp_dense_plain(x2, w, b, u, v, cb, s, ln, act)
         else:
-            out = site_cuda(x2.contiguous(), w, b, u, v, cb, s, ln=ln)
-            LAUNCHES += 1
-        ctx.save_for_backward(x2, w, u, v, ln_scale, ln_bias)
-        ctx.cfg = (lead, s, ln_eps, plain, cb is not None)
+            x2 = x2.contiguous()
+            out = site_cuda(x2, w, b, u, v, cb, s, ln=ln,
+                            gelu=act == "gelu")
+            if act is None:
+                LAUNCHES += 1
+            else:
+                ACT_LAUNCHES += 1
+        ctx.save_for_backward(x2, w, b, u, v, cb, ln_scale, ln_bias)
+        ctx.cfg = (lead, s, ln_eps, act, plain)
         return out.reshape(*lead, w.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        x2, w, u, v, ls, lb = ctx.saved_tensors
-        lead, s, eps, plain, has_cb = ctx.cfg
+        x2, w, b, u, v, cb, ls, lb = ctx.saved_tensors
+        lead, s, eps, act, plain = ctx.cfg
         g2 = g.reshape(-1, w.shape[1]).contiguous()
-        if not plain:
-            x2 = x2.contiguous()
+        if act is not None:  # g := dpre, the pre-activation recomputed
+            g2 = _dact(g2, x2, w, b, u, v, cb, s,
+                       None if ls is None else (ls, lb, eps), act, plain)
         dx, gv = _dx(g2, w, u, v, s, None if ls is None else (ls, eps), x2,
                      plain)
         if plain:
@@ -188,41 +264,44 @@ class _CpDense(torch.autograd.Function):
         else:
             xa = x2 if ls is None else _bwd.ln_rows(x2, ls, lb, eps)
             du, dv, db = _factor_grads_cuda(xa, g2, gv, u, s)
-        dcb = (s * db).to(g.dtype) if has_cb else None
+        dcb = (s * db).to(g.dtype) if cb is not None else None
         return (dx.reshape(*lead, w.shape[0]), None, None, du.to(u.dtype),
-                dv.to(v.dtype), dcb, None, None, None, None, None)
+                dv.to(v.dtype), dcb, None, None, None, None, None, None)
 
 
-def _plain(name, x, w, u, v, impl) -> bool:
+def _plain(name, x, w, u, v, impl, act=None) -> bool:
     """Check a site's call; True when it takes the plain versions."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     plain = impl == "plain" or x.device.type == "cpu"
     if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    _check_act(act, plain)
     _check_site(name, x, w.shape[0], w, u, v, not plain)
     return plain
 
 
-def _apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, impl):
-    plain = _plain("cp_dense", x, w, u, v, impl)
-    return _CpDense.apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, plain)
+def _apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, impl, act):
+    plain = _plain("cp_dense", x, w, u, v, impl, act)
+    return _CpDense.apply(x, w, b, u, v, cb, ls, lb, s, ln_eps, act, plain)
 
 
 def cp_dense(x, w, b, u, v, cb: Optional[torch.Tensor], s: float = 1.0,
-             impl: str = "auto"):
-    """``x W + b + s ((x U) V + cb)`` for x (..., K), W (K, N), U (K, r),
-    V (r, N); ``cb`` (N,) or None.  Differentiable in x, u, v and cb.
-    ``impl="plain"`` runs the plain versions on any device."""
-    return _apply(x, w, b, u, v, cb, None, None, s, 0.0, impl)
+             impl: str = "auto", act: Optional[str] = None):
+    """``act(x W + b + s ((x U) V + cb))`` for x (..., K), W (K, N), U
+    (K, r), V (r, N); ``cb`` (N,) or None; ``act`` None, "gelu" or
+    "quick_gelu".  Differentiable in x, u, v and cb.  ``impl="plain"``
+    runs the plain versions on any device."""
+    return _apply(x, w, b, u, v, cb, None, None, s, 0.0, impl, act)
 
 
 def cp_dense_ln(x, w, b, u, v, cb: Optional[torch.Tensor], ln_scale,
                 ln_bias, s: float = 1.0, ln_eps: float = 1e-6,
-                impl: str = "auto"):
+                impl: str = "auto", act: Optional[str] = None):
     """:func:`cp_dense` on ``LN(x)`` (frozen scale and bias), the
     normalized row rounded to ``x.dtype`` as ``_ln_rows`` does."""
-    return _apply(x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps, impl)
+    return _apply(x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps, impl,
+                  act)
 
 
 def cp_dense_wd_bwd_plain(g2, x2, wp, u, v, seed, s: float, rate: float,
@@ -257,8 +336,8 @@ class _CpDenseWd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, u, v, cb, seed, ln_scale, ln_bias, s, rate,
-                ln_eps, plain):
-        global WD_LAUNCHES
+                ln_eps, act, plain):
+        global WD_LAUNCHES, ACT_LAUNCHES
         lead, k = x.shape[:-1], x.shape[-1]
         n = w.shape[1]
         x2 = x.reshape(-1, k)
@@ -266,23 +345,30 @@ class _CpDenseWd(torch.autograd.Function):
         u0, v0 = wd_fold.zero_rank(x2, k, n)
         if plain:
             wp = wd_fold.build_wd_weight_plain(w, u, v, seed, s, rate)
-            out = cp_dense_plain(x2, wp, b, u0, v0, cb, s, ln)
+            out = cp_dense_plain(x2, wp, b, u0, v0, cb, s, ln, act)
         else:
             x2 = x2.contiguous()
             wp = wd_fold.build_wd_weight(w, u, v, seed, s, rate)
-            out = site_cuda(x2, wp, b, u0, v0, cb, s, ln=ln)
+            out = site_cuda(x2, wp, b, u0, v0, cb, s, ln=ln,
+                            gelu=act == "gelu")
             WD_LAUNCHES += 1
-        ctx.save_for_backward(x2, wp, u, v, seed, ln_scale, ln_bias)
-        ctx.cfg = (lead, s, rate, ln_eps, plain, cb is not None)
+            if act is not None:
+                ACT_LAUNCHES += 1
+        ctx.save_for_backward(x2, wp, b, u, v, cb, seed, ln_scale, ln_bias)
+        ctx.cfg = (lead, s, rate, ln_eps, act, plain)
         return out.reshape(*lead, n)
 
     @staticmethod
     def backward(ctx, g):
         global WD_BWD_LAUNCHES
-        x2, wp, u, v, seed, ls, lb = ctx.saved_tensors
-        lead, s, rate, eps, plain, has_cb = ctx.cfg
-        g2 = g.reshape(-1, wp.shape[1]).contiguous()
+        x2, wp, b, u, v, cb, seed, ls, lb = ctx.saved_tensors
+        lead, s, rate, eps, act, plain = ctx.cfg
+        k, n = wp.shape
+        g2 = g.reshape(-1, n).contiguous()
         ln = None if ls is None else (ls, lb, eps)
+        if act is not None:  # on W' at rank 0: the delta is already in W'
+            u0, v0 = wd_fold.zero_rank(x2, k, n)
+            g2 = _dact(g2, x2, wp, b, u0, v0, cb, s, ln, act, plain)
         if plain:
             dx, du, dv, db = cp_dense_wd_bwd_plain(g2, x2, wp, u, v, seed,
                                                    s, rate, ln)
@@ -290,31 +376,33 @@ class _CpDenseWd(torch.autograd.Function):
             dx, du, dv, db = _wd_bwd_cuda(g2, x2, wp, u, v, seed, s, rate,
                                           ln)
             WD_BWD_LAUNCHES += 1
-        dcb = (s * db).to(g.dtype) if has_cb else None
-        return (dx.reshape(*lead, wp.shape[0]), None, None, du.to(u.dtype),
+        dcb = (s * db).to(g.dtype) if cb is not None else None
+        return (dx.reshape(*lead, k), None, None, du.to(u.dtype),
                 dv.to(v.dtype), dcb, None, None, None, None, None, None,
-                None)
+                None, None)
 
 
-def _apply_wd(x, w, b, u, v, cb, seed, ls, lb, s, rate, ln_eps, impl):
-    plain = _plain("cp_dense_wd", x, w, u, v, impl)
+def _apply_wd(x, w, b, u, v, cb, seed, ls, lb, s, rate, ln_eps, impl, act):
+    plain = _plain("cp_dense_wd", x, w, u, v, impl, act)
     return _CpDenseWd.apply(x, w, b, u, v, cb, seed, ls, lb, s, rate, ln_eps,
-                            plain)
+                            act, plain)
 
 
 def cp_dense_wd(x, w, b, u, v, cb: Optional[torch.Tensor], seed,
-                s: float, rate: float, impl: str = "auto"):
-    """``x W + b + s ((x (U V (.) keep)) / (1 - rate) + cb)``: :func:`cp_dense`
-    with exact element-wise weight dropout on the delta, the keep mask
-    hashed from ``seed`` (one-element int32 tensor on x's device).
-    Differentiable in x, u, v and cb."""
+                s: float, rate: float, impl: str = "auto",
+                act: Optional[str] = None):
+    """``act(x W + b + s ((x (U V (.) keep)) / (1 - rate) + cb))``:
+    :func:`cp_dense` with exact element-wise weight dropout on the delta,
+    the keep mask hashed from ``seed`` (one-element int32 tensor on x's
+    device).  Differentiable in x, u, v and cb."""
     return _apply_wd(x, w, b, u, v, cb, seed, None, None, s, rate, 0.0,
-                     impl)
+                     impl, act)
 
 
 def cp_dense_ln_wd(x, w, b, u, v, cb: Optional[torch.Tensor], ln_scale,
                    ln_bias, seed, s: float, rate: float,
-                   ln_eps: float = 1e-6, impl: str = "auto"):
+                   ln_eps: float = 1e-6, impl: str = "auto",
+                   act: Optional[str] = None):
     """:func:`cp_dense_wd` on ``LN(x)`` (frozen scale and bias)."""
     return _apply_wd(x, w, b, u, v, cb, seed, ln_scale, ln_bias, s, rate,
-                     ln_eps, impl)
+                     ln_eps, impl, act)

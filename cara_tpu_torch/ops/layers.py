@@ -1,11 +1,15 @@
 """Basic functional layers (port of ``cara_tpu/ops/layers.py``, subset).
 
-LayerNorm with fp32 statistics, the exact-erf GELU and its derivative.
-Drop-path rides the block kernels as a per-image gate
-(``models/vit.py``); activation dropout is not ported.
+LayerNorm with fp32 statistics, the exact-erf GELU and its derivative,
+inverted dropout and the XLA attention ``mha``.  Drop-path rides the
+block kernels as a per-image gate (``models/vit.py``).  Random masks are
+drawn by the caller (``jax.random`` and ``torch.Generator`` give other
+bits), so these take the keep mask, not a key.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -53,3 +57,34 @@ def activation_grad(y: torch.Tensor, name: str) -> torch.Tensor:
         sig = torch.sigmoid(1.702 * y)
         return sig + 1.702 * y * sig * (1.0 - sig)
     raise ValueError(f"unknown activation {name!r}")
+
+
+def dropout(x: torch.Tensor, rate: float,
+            keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inverted dropout with the boolean ``keep`` mask (x's shape):
+    ``where(keep, x / (1 - rate), 0)`` in ``x.dtype``, as the reference
+    rounds it; the identity when ``rate <= 0`` or ``keep`` is None
+    (eval)."""
+    if rate <= 0.0 or keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+        attn_drop_rate: float = 0.0,
+        keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's attention (``cara_tpu/ops/layers.py`` ``mha``) on
+    (B, H, N, Dh) q, k, v -> (B, N, H * Dh), with :func:`dropout` on the
+    probabilities (``keep`` (B, H, N, N) boolean, or None).  Rounding
+    points as there: scores in the input dtype times the scale, the
+    softmax in fp32 and rounded to the input dtype before the dropout and
+    the second product.  JAX leaves it to XLA, not to a Pallas kernel, so
+    plain PyTorch is its port."""
+    b, h, n, d = q.shape
+    attn = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    attn = attn.to(torch.promote_types(q.dtype, torch.float32))
+    attn = torch.softmax(attn, dim=-1).to(q.dtype)
+    attn = dropout(attn, attn_drop_rate, keep)
+    out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
+    return out.transpose(1, 2).reshape(b, n, h * d)

@@ -97,7 +97,7 @@ def fit(*, cfg, cara_cfg, frozen, state: steps_lib.TrainState,
         fit_cfg: FitConfig = FitConfig(), keeper=None,
         eval_step: Optional[Callable] = None, compute_dtype=None,
         ckpt_meta: Optional[Dict[str, Any]] = None,
-        attn_impl: str = "auto") -> Dict[str, Any]:
+        attn_impl: str = "auto", dense_impl: str = "auto") -> Dict[str, Any]:
     """Run the fine-tuning protocol; returns a summary with ``best_acc``,
     ``final_acc``, ``images_per_sec`` and ``last_loss``.  ``frozen`` is
     the fp32 backbone (kept for the checkpoint; empty for full
@@ -106,11 +106,12 @@ def fit(*, cfg, cara_cfg, frozen, state: steps_lib.TrainState,
     fine-tuning) evaluates and is saved as no adapter: the checkpoint
     holds the whole model, with ``method`` in its meta."""
     meta = {**dataclasses.asdict(cara_cfg), **(ckpt_meta or {})}
-    train_step = steps_lib.make_train_step(cfg, cara_cfg,
-                                           compute_dtype=compute_dtype,
-                                           attn_impl=attn_impl)
+    train_step = steps_lib.make_train_step(
+        cfg, cara_cfg, compute_dtype=compute_dtype, attn_impl=attn_impl,
+        dense_impl=dense_impl)
     eval_step = eval_step or steps_lib.make_eval_step(
-        cfg, cara_cfg, compute_dtype=compute_dtype, attn_impl=attn_impl)
+        cfg, cara_cfg, compute_dtype=compute_dtype, attn_impl=attn_impl,
+        dense_impl=dense_impl)
     frozen_compute = (steps_lib.cast_floating(frozen, compute_dtype)
                       if compute_dtype is not None else frozen)
     bs = train_loader.batch_size

@@ -22,7 +22,7 @@ import torch
 
 from cara_tpu_torch.config import PORTED_METHODS, CaraConfig, ViTConfig
 from cara_tpu_torch.models.convert import map_floating, params_from_numpy
-from cara_tpu_torch.models.vit import vit_forward
+from cara_tpu_torch.models.vit import resolve_impls, vit_forward
 from cara_tpu_torch.train.schedule import cara_cosine_schedule
 
 Params = Dict[str, Any]
@@ -69,19 +69,6 @@ def merge_params(frozen: Params, trainable: Params) -> Params:
     full.update(trainable.get("backbone") or {})  # full fine-tuning
     full["head"] = trainable["head"]
     return full
-
-
-def resolve_attn_impl(attn_impl: str, cara_cfg) -> str:
-    """``attn_impl`` of a train or eval step, as ``_resolve_impls``
-    (``cara_tpu/train/steps.py:157-175``): "auto" is the fused attention,
-    and full fine-tuning takes the flash attention for it, which
-    differentiates q, k and v as the model's views.  ``vit_forward``
-    checks the value."""
-    if attn_impl == "auto":
-        attn_impl = "fused"
-    if cara_cfg is not None and cara_cfg.method == "full":
-        attn_impl = "flash"
-    return attn_impl
 
 
 def cast_floating(tree, dtype):
@@ -201,7 +188,8 @@ def loss_and_grads(cfg: ViTConfig, cara_cfg: CaraConfig, trainable: Params,
                    frozen: Params, batch, *, compute_dtype=None,
                    impl: str = "auto",
                    generator: Optional[torch.Generator] = None,
-                   randomness=None, attn_impl: str = "auto"):
+                   randomness=None, attn_impl: str = "auto",
+                   dense_impl: str = "auto"):
     """(loss, accuracy, grads) of one batch; ``grads`` follow
     :func:`tree_leaves` of ``trainable``.  An empty adapter tree (the
     linear probe, full fine-tuning) runs the forward without one."""
@@ -214,7 +202,8 @@ def loss_and_grads(cfg: ViTConfig, cara_cfg: CaraConfig, trainable: Params,
                          cara_params=cara,
                          cara_cfg=cara_cfg if cara is not None else None,
                          impl=impl, train=True, generator=generator,
-                         randomness=randomness, attn_impl=attn_impl)
+                         randomness=randomness, attn_impl=attn_impl,
+                         dense_impl=dense_impl)
     logits = mask_padded_classes(logits.float(), batch)
     labels = batch["label"].long()
     loss = torch.nn.functional.cross_entropy(logits, labels)
@@ -225,13 +214,14 @@ def loss_and_grads(cfg: ViTConfig, cara_cfg: CaraConfig, trainable: Params,
 
 def make_train_step(cfg: ViTConfig, cara_cfg: CaraConfig, *,
                     compute_dtype=None, impl: str = "auto",
-                    attn_impl: str = "auto", grad_accum: int = 1,
-                    mesh=None, fsdp: bool = False):
+                    attn_impl: str = "auto", dense_impl: str = "auto",
+                    grad_accum: int = 1, mesh=None, fsdp: bool = False):
     """``train_step(state, frozen, batch, generator=None, randomness=None)
     -> (state, {"loss", "accuracy", "grad_norm"})``; the metrics stay on
     the device.  ``frozen`` is already in the compute dtype.
-    ``attn_impl`` resolves by :func:`resolve_attn_impl`."""
-    attn_impl = resolve_attn_impl(attn_impl, cara_cfg)
+    ``attn_impl`` and ``dense_impl`` resolve by :func:`resolve_impls`
+    (``_resolve_impls``)."""
+    attn_impl, dense_impl = resolve_impls(attn_impl, dense_impl, cara_cfg)
     if grad_accum != 1:
         raise NotImplementedError(
             "grad_accum > 1 is not yet ported (ROADMAP.md queue 1: "
@@ -246,7 +236,8 @@ def make_train_step(cfg: ViTConfig, cara_cfg: CaraConfig, *,
         loss, acc, grads = loss_and_grads(
             cfg, cara_cfg, state.trainable, frozen, batch,
             compute_dtype=compute_dtype, impl=impl, generator=generator,
-            randomness=randomness, attn_impl=attn_impl)
+            randomness=randomness, attn_impl=attn_impl,
+            dense_impl=dense_impl)
         gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         leaves = [t for _, t in tree_leaves(state.trainable)]
         with torch.no_grad():
@@ -258,14 +249,16 @@ def make_train_step(cfg: ViTConfig, cara_cfg: CaraConfig, *,
 
 
 def make_eval_step(cfg: ViTConfig, cara_cfg: Optional[CaraConfig] = None,
-                   compute_dtype=None, attn_impl: str = "auto"):
+                   compute_dtype=None, attn_impl: str = "auto",
+                   dense_impl: str = "auto"):
     """``eval_step(params, cara_params, batch) -> (correct, total)`` on the
     device; the ``valid`` mask keeps a padded final batch out of the
     count.  Runs the serving kernels (``cp_attn_block``,
-    ``cp_mlp_block``) for CUDA tensors; without an adapter the attention
-    ``attn_impl`` resolves to (:func:`resolve_attn_impl`: the flash
-    attention for full fine-tuning)."""
-    attn_impl = resolve_attn_impl(attn_impl, cara_cfg)
+    ``cp_mlp_block``) for CUDA tensors at the default impls, which
+    resolve as in training (:func:`resolve_impls`: the flash attention
+    for full fine-tuning); an "auto" ``dense_impl`` without adapter
+    parameters (a merged checkpoint) is the XLA one."""
+    attn_impl, _ = resolve_impls(attn_impl, dense_impl, cara_cfg)
 
     def eval_step(params: Params, cara_params, batch):
         with torch.no_grad():
@@ -278,7 +271,7 @@ def make_eval_step(cfg: ViTConfig, cara_cfg: Optional[CaraConfig] = None,
             logits = vit_forward(
                 p, x, cfg, cara_params=cara,
                 cara_cfg=cara_cfg if cara is not None else None,
-                attn_impl="fused" if cara is not None else attn_impl)
+                attn_impl=attn_impl, dense_impl=dense_impl)
             pred = mask_padded_classes(logits.float(), batch).argmax(-1)
             valid = batch.get("valid")
             if valid is None:

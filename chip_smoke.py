@@ -61,7 +61,18 @@ fatal on failure:
    linear``): the gradient check, 10 steps with a falling loss and the
    head as the only leaf that moves; then one full step of ViT-B/16 at
    384 px, batch 16, in which the flash counters grow and the blockwise
-   counters do not.
+   counters do not;
+9. activation and attention dropout (run after 6): the kernel entries of
+   TPU row 13's GELU body on the fc1 site (``cp_dense_ln(act="gelu")``
+   with the rank delta and ``cp_dense_ln_wd(act="gelu")`` on W', forward
+   and the dact helper, at B=64, N=197, E=768, hidden 3072, and the W'
+   form again at N=577; run with phase 3's); the element and rank routes
+   with ``dropout_rate`` 0.1 as in 5 and 6 (30 timed steps each, the
+   element CLI with attention dropout 0.1 too), in which the GELU
+   counters grow and no block megakernel launches; gradient checks of
+   the rank route with attention dropout too (``mha``), of the element
+   route at 384 px (batch 16) and of one full fine-tuning step with both
+   rates.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -74,7 +85,8 @@ last is a JSON object with one entry per kernel; the last line is
 
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
-at 384 px, and of full fine-tuning and the linear probe at 224 px
+at 384 px, of full fine-tuning and the linear probe at 224 px, and of the
+element and rank routes with activation dropout 0.1 at 224 px
 (``torch.profiler``), with the busy share.
 """
 
@@ -184,7 +196,31 @@ KERNELS = {
         flash_mod, "BWD_LAUNCHES",
         "cara_tpu_torch/csrc/flash_attention_bwd.cu",
         "cara_tpu/ops/pallas/flash_attention.py:176"),
+    # Row 13's GELU body, the fc1 site once activation dropout turns the
+    # MLP megakernel off: the LN form with the rank delta (launches: the
+    # rank route with dropout), the W' form (the element route at 224 px
+    # and, suffixed, at 384 px), forward and dact each.
+    "cp_dense_gelu": (
+        dense_mod, "ACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_dact": (
+        dense_mod, "DACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_wd_gelu": (
+        dense_mod, "ACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_wd_dact": (
+        dense_mod, "DACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_wd_gelu_577": (
+        dense_mod, "ACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
+    "cp_dense_wd_dact_577": (
+        dense_mod, "DACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
 }
+GELU_KERNELS = ("cp_dense_gelu", "cp_dense_dact", "cp_dense_wd_gelu",
+                "cp_dense_wd_dact")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 MODEL_384 = "vit_base_patch16_384_in21k"
 SERVING_KERNELS = ("fused_qkv_attention", "cp_attn_block", "cp_mlp_block")
@@ -207,6 +243,19 @@ LONG_ELEMENT_KERNELS = ("build_wd_weight", "cp_dense_wd", "cp_dense_wd_bwd",
 LONG_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "blockwise_qkv_attention",
                       "blockwise_qkv_attention_bwd", "cp_mlp_block",
                       "cp_mlp_block_bwd")
+# Activation dropout turns both block megakernels off (the MLP one on
+# every route, the attention one on the element route): the dropout
+# routes launch the split sites, row 13's GELU body among them.
+DROPOUT = {"dropout_rate": 0.1}
+MEGA_KERNELS = ("cp_attn_block", "cp_attn_block_wd", "cp_attn_block_wd_bwd",
+                "cp_mlp_block", "cp_mlp_block_bwd", "cp_mlp_block_wd_bwd")
+DROPOUT_ELEMENT_KERNELS = ("build_wd_weight", "cp_dense_wd",
+                           "cp_dense_wd_bwd", "cp_wd_factor_grads",
+                           "fused_qkv_attention", "fused_qkv_attention_bwd",
+                           "cp_dense_wd_gelu", "cp_dense_wd_dact")
+DROPOUT_RANK_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
+                        "fused_qkv_attention_bwd", "cp_dense_gelu",
+                        "cp_dense_dact")
 # What the 384-px route must not launch: the full-score attention and the
 # attention megakernels, capped at 512 tokens.
 SHORT_ATTENTION_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd",
@@ -239,7 +288,11 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "blockwise_qkv_attention": (2e-3, 1e-2),
               "flash_attention": (2e-3, 1e-2),
               "cp_dense_wd": (2e-2, 2e-2),
-              "cp_dense_wd_bwd": (5e-2, 5e-2)}
+              "cp_dense_wd_bwd": (5e-2, 5e-2),
+              "cp_dense_gelu": (2e-2, 2e-2),
+              "cp_dense_dact": (5e-2, 5e-2),
+              "cp_dense_wd_gelu": (2e-2, 2e-2),
+              "cp_dense_wd_dact": (5e-2, 5e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -338,7 +391,8 @@ def kernel_inputs(dev, b=64, n=197, e=768, heads=12, hidden=3072, r=8,
                                 dtype=torch.bfloat16)),
         gates=gates.to(torch.bfloat16), seeds=list(seeds),
         g_attn=rnd(b, n, e), g_mlp=rnd(b, n, e),
-        o=rnd(b, n, e, std=0.5), g_qkv=rnd(b, n, 3 * e))
+        o=rnd(b, n, e, std=0.5), g_qkv=rnd(b, n, 3 * e),
+        g_hid=rnd(b, n, hidden))
 
 
 # Positional tensor arguments of the two block wrappers, in order, and
@@ -559,6 +613,69 @@ def long_kernel_calls(inp):
     }
 
 
+def gelu_kernel_calls(inp):
+    """:func:`kernel_calls` for row 13's GELU body (``GELU_KERNELS``) on
+    the fc1 site of ``inp["mlp"]``: the LN form with the rank delta
+    (``cp_dense_ln(act="gelu")``) and the W' form (``cp_dense_ln_wd``,
+    the fold and the GELU site on W' at rank 0), forward, and the dact
+    helper of each on the hidden cotangent ``inp["g_hid"]`` (the W' one
+    on the kernels' fold of the same seed)."""
+    m = inp["mlp"]
+    e, hid = inp["e"], m["w1"].shape[1]
+    s3 = inp["seeds"][2]
+    rate = DROP_RATE
+    x2 = m["x"].reshape(-1, e)
+    g2 = inp["g_hid"].reshape(-1, hid)
+    site = ("w1", "b1", "u1", "v1", "cb1")
+    wp = wd_fold.build_wd_weight(m["w1"], m["u1"], m["v1"], s3, 1.0, rate)
+
+    def ln(dtype):
+        return (m["ln_scale"].to(dtype), m["ln_bias"].to(dtype), 1e-6)
+
+    def fwd(dtype, impl, wd):
+        t = {k: m[k].to(dtype) for k in ("x", "ln_scale", "ln_bias") + site}
+        args = (t["x"],) + tuple(t[k] for k in site)
+        if wd:
+            return lambda: dense_mod.cp_dense_ln_wd(
+                *args, t["ln_scale"], t["ln_bias"], s3, 1.0, rate,
+                impl=impl, act="gelu")
+        return lambda: dense_mod.cp_dense_ln(
+            *args, t["ln_scale"], t["ln_bias"], impl=impl, act="gelu")
+
+    def dact(dtype, impl, wd):
+        if wd:
+            w, u, v = wp, *wd_fold.zero_rank(x2, e, hid)
+        else:
+            w, u, v = m["w1"], m["u1"], m["v1"]
+        args = [t.to(dtype) for t in (g2, x2, w, m["b1"], u, v, m["cb1"])]
+        if impl == "plain":
+            return lambda: dense_mod.cp_dense_dact_plain(*args, 1.0,
+                                                         ln(dtype))
+        return lambda: dense_mod.cp_dense_dact(*args, 1.0, ln(dtype))
+
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for wd, name in ((False, "cp_dense"), (True, "cp_dense_wd")):
+        out[name + "_gelu"] = (fwd(bf, "auto", wd), fwd(bf, "plain", wd),
+                               fwd(f32, "plain", wd))
+        out[name + "_dact"] = (dact(bf, "auto", wd), dact(bf, "plain", wd),
+                               dact(f32, "plain", wd))
+    return out
+
+
+def gelu_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """Row 13's GELU entries at ``inp``'s shapes; at N = 577 only the W'
+    form (the 384-px route's element sites), suffixed ``_577``."""
+    print(f"[kernel] row 13's GELU body at B {inp['b']}, N {inp['n']}, "
+          f"E {inp['e']}, hidden {inp['mlp']['w1'].shape[1]}:", flush=True)
+    calls = gelu_kernel_calls(inp)
+    if inp["n"] > fqa_mod.MAX_NP_FULL_SCORES:
+        calls = {k: v for k, v in calls.items() if "_wd_" in k}
+        return {k + "_577": v
+                for k, v in check_entries(dev, inp, calls, timed).items()}
+    return check_entries(dev, inp, calls, timed)
+
+
 def flash_kernel_calls(inp):
     """:func:`kernel_calls` for row 17 (``FLASH_KERNELS``): the flash
     attention forward and its q, k, v cotangents on the (B, H, N, Dh)
@@ -639,6 +756,14 @@ def kernel_work(inp) -> dict:
     def factor(k, nout):  # fp32 dU (K, r) and dV (r, N) written
         return 4 * r * (k + nout)
 
+    # row 13's fc1 site: x read, the (M, hidden) output written (the
+    # dact reads its cotangent too); the W' form folds, then runs at
+    # rank 0, and its dact reads W' in place of W, U and V
+    hid_act = rows * hid * 2
+    fc1_w = nb(*(m[k] for k in ("w1", "b1", "u1", "v1", "cb1", "ln_scale",
+                                "ln_bias")))
+    fc1_wp = nb(*(m[k] for k in ("w1", "b1", "cb1", "ln_scale", "ln_bias")))
+    dense_fc1 = 2 * rows * e * hid
     # z1, z1 V1, gv2, gv2 U2^T, gv1, gv1 U1^T, z2 and the four factor
     # products of the MLP backward: 5 of width E, 6 of width hidden
     mlp_rank = 2 * rows * r * (5 * e + 6 * hid)
@@ -691,6 +816,11 @@ def kernel_work(inp) -> dict:
         # writes dq, dk, dv (the kernels' saved o and lse are theirs)
         "flash_attention": (attn, qkv_act + act),
         "flash_attention_bwd": (attn_bwd, 2 * qkv_act + act),
+        "cp_dense_gelu": (site(e, hid), act + hid_act + fc1_w),
+        "cp_dense_dact": (site(e, hid), act + 2 * hid_act + fc1_w),
+        "cp_dense_wd_gelu": (fold_ops[2] + dense_fc1,
+                             act + hid_act + fc1_w),
+        "cp_dense_wd_dact": (dense_fc1, act + 2 * hid_act + fc1_wp),
     }
 
 
@@ -1041,20 +1171,24 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
 
 
 def step_grads(cfg, cara_cfg, frozen_c, state, data, rand,
-               dtype=torch.bfloat16, impl="auto"):
+               dtype=torch.bfloat16, impl="auto", impls=("auto", "auto")):
     """(loss, grads) of one train step on the ``dtype``-rounded backbone
     ``frozen_c`` with the randomness ``rand``; ``dtype=None`` is the fp32
     plain path on the same weights and randomness (cast to fp32)."""
     if dtype is None:
         frozen_c = steps_lib.cast_floating(frozen_c, torch.float32)
-        rand = {k: ([t.float() for t in v] if isinstance(v, list)
+        # the dropout masks stay as drawn: keep masks are boolean and the
+        # block casts weight masks to its compute dtype
+        rand = {k: (v if k == "masks" else [t.float() for t in v]
+                    if isinstance(v, list)
                     else v.float() if v.is_floating_point() else v)
                 for k, v in rand.items()}
         impl = "plain"
+    attn_impl, dense_impl = steps_lib.resolve_impls(*impls, cara_cfg)
     loss, _, grads = steps_lib.loss_and_grads(
         cfg, cara_cfg, state.trainable, frozen_c, data, compute_dtype=dtype,
-        impl=impl, randomness=rand,
-        attn_impl=steps_lib.resolve_attn_impl("auto", cara_cfg))
+        impl=impl, randomness=rand, attn_impl=attn_impl,
+        dense_impl=dense_impl)
     return loss, grads
 
 
@@ -1070,7 +1204,8 @@ def _perturbed(data, k, dev):
 
 
 def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
-               dtype=torch.bfloat16, tag=None) -> dict:
+               dtype=torch.bfloat16, tag=None,
+               impls=("auto", "auto")) -> dict:
     """(a) One step's gradients of every trainable leaf through the
     kernels (``dtype`` compute) against the fp32 plain path on the same
     (``dtype``-rounded) backbone and the same drop-path gates and masks,
@@ -1080,10 +1215,13 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
     points in other summation orders) and fp32: a leaf's bound is the
     larger of ``TRAIN_GRAD_REL_L2`` and the plain path's worst error over
     the step and its copies, and the kernels' error on the step must stay
-    within it."""
+    within it.  ``impls`` are the step's (attn_impl, dense_impl)."""
     tag = f"[train:{_route(cara_cfg)}]" if tag is None else tag
-    rand = vit_lib.draw_randomness(cfg, data["image"].shape[0], dev,
-                                   generator, dtype, cara_cfg)
+    attn_impl, dense_impl = steps_lib.resolve_impls(*impls, cara_cfg)
+    rand = vit_lib.draw_randomness(
+        cfg, data["image"].shape[0], dev, generator, dtype,
+        cara_cfg if cara_cfg.method == "cara" else None, masks=True,
+        attn_impl=attn_impl, dense_impl=dense_impl)
     frozen_c = steps_lib.cast_floating(frozen, dtype)
     paths = [p for p, _ in steps_lib.tree_leaves(state.trainable)]
     # per realization: {"kernel" | "plain": path -> relative L2}
@@ -1091,10 +1229,11 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
     for k in range(NOISE_DRAWS + 1):
         args = (cfg, cara_cfg, frozen_c, state, _perturbed(data, k, dev),
                 rand)
-        ref_loss, ref = step_grads(*args, dtype=None)
+        ref_loss, ref = step_grads(*args, dtype=None, impls=impls)
         row = {}
         for name, impl in (("kernel", "auto"), ("plain", "plain")):
-            loss, grads = step_grads(*args, dtype=dtype, impl=impl)
+            loss, grads = step_grads(*args, dtype=dtype, impl=impl,
+                                     impls=impls)
             for path, g in zip(paths, grads):
                 require(bool(torch.isfinite(g).all()),
                         f"{name} grad {path}: non-finite")
@@ -1176,19 +1315,30 @@ def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
 
 def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                    model=MODEL, impl="element", path=None, grad_batch=None,
-                   idle=(), method="cara", lr=1e-3) -> dict:
+                   idle=(), method="cara", lr=1e-3, overrides=None,
+                   cli_extra=(), falls="last") -> dict:
     """One training route (``impl`` weight dropout at 0.1, or ``method``
-    "linear" / "full" without an adapter, at learning rate ``lr``): (a)
+    "linear" / "full" without an adapter, at learning rate ``lr``; the
+    model's config changed by ``overrides``, e.g. its dropout rates): (a)
     gradients against the fp32 plain path (on the first ``grad_batch``
     images, all by default), (b) a falling loss over ``steps`` steps on a
     fixed batch (the linear probe: only the head moved), (c) ms per step
-    and img/s, kernel and plain, (d) ``cli.vit_cp --synthetic`` whose best
-    checkpoint is served.  Launch counters are set to 0 before (b): every
-    kernel of ``path`` (by default the 224-px route's) launched by the end
-    of (d), none of ``idle`` before its checkpoint is served."""
+    and img/s, kernel and plain, (d) ``cli.vit_cp --synthetic`` with the
+    same overrides and ``cli_extra``, whose best checkpoint is served.
+    Launch counters are set to 0 before (b): every kernel of ``path`` (by
+    default the 224-px route's) launched by the end of (d), none of
+    ``idle`` before its checkpoint is served.  The loss falls when its
+    last value is below its first (``falls="last"``) or, for a noisier
+    run (activation dropout draws new masks every step), when the mean of
+    the second half of the steps is below that of the first
+    (``"halves"``)."""
+    overrides = overrides or {}
     cfg, cara_cfg, frozen, state, data = train_setup(
-        dev, model=model, batch=batch, impl=impl, method=method, lr=lr)
+        dev, model=model, batch=batch, impl=impl, method=method, lr=lr,
+        **overrides)
     route = impl if method == "cara" else method
+    if overrides:
+        route += ":" + ",".join(f"{k}={v}" for k, v in overrides.items())
     tag = (f"[train:{route}]" if model == MODEL
            else f"[train:{route}:{model}]")
     what = (f"rank {cara_cfg.rank}, weight dropout "
@@ -1220,7 +1370,16 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
     print(f"{tag} loss over {steps} steps on one batch: "
           + " ".join(f"{v:.4f}" for v in losses), flush=True)
     require(all(np.isfinite(losses)), "non-finite training loss")
-    require(losses[-1] < losses[0], "the loss did not fall")
+    if falls == "halves":
+        half = len(losses) // 2
+        first, second = (statistics.mean(losses[:half]),
+                         statistics.mean(losses[half:]))
+        print(f"{tag} mean loss over the first {half} steps {first:.4f}, "
+              f"over the last {len(losses) - half} {second:.4f}",
+              flush=True)
+        require(second < first, "the loss did not fall")
+    else:
+        require(losses[-1] < losses[0], "the loss did not fall")
     out["losses"] = losses
     moved = [p for p, t in steps_lib.tree_leaves(state.trainable)
              if not torch.equal(t.detach(), before[p])]
@@ -1257,7 +1416,9 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                 str(2 * batch), "--log-every", "11", "--out-dir", tmp,
                 "--backbone", os.path.join(tmp, "none.npz"),
                 "--weight-dropout-impl", impl, "--device", str(dev),
-                "--method", method, "--lr", str(lr)]
+                "--method", method, "--lr", str(lr), *cli_extra]
+        for key, value in overrides.items():
+            argv += ["--model-override", f"{key}={value}"]
         t0 = time.perf_counter()
         acc = vit_cp_cli.main(argv)
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
@@ -1287,6 +1448,72 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
         require(trained[name] == 0,
                 f"{name} launched on the {route} training path of {model}")
     return out
+
+
+def dropout_phase(dev, model=MODEL, batch=64, long_model=MODEL_384,
+                  long_over=None, long_batch=16, timed=True) -> dict:
+    """Activation dropout (``dropout_rate`` 0.1) on the 224-px element and
+    rank routes, each as :func:`training_phase` with 30 steps (the loss
+    falls by the means of their halves; over 10 steps the per-step noise
+    of the fresh masks hides the fall): the
+    MLP megakernel gives way to row 13's GELU site and the fc2 site (and
+    the element route's attention megakernel to its split sites), so the
+    GELU counters grow and no ``cp_attn_block*`` / ``cp_mlp_block*``
+    kernel launches; the element route's CLI adds attention dropout.
+    Then gradient checks of the rank route with attention dropout too
+    (``mha``), of the element route at 384 px (batch 16, then two steps
+    whose launches are counted) and of one full fine-tuning step with
+    both rates.  Returns the GELU entries' launches.  ``model``,
+    ``long_model`` (with ``long_over``) and the batches shrink it for a
+    rehearsal on the CPU."""
+    launches = {}
+    elem = training_phase(
+        dev, timed=timed, steps=30, plain_steps=2, batch=batch, model=model,
+        impl="element", overrides=DROPOUT, falls="halves",
+        cli_extra=("--model-override", f"attn_dropout_rate={DROP_RATE}"),
+        path=DROPOUT_ELEMENT_KERNELS, idle=MEGA_KERNELS)
+    for name in ("cp_dense_wd_gelu", "cp_dense_wd_dact"):
+        launches[name] = elem["launches"][name]
+    del elem
+    rank = training_phase(dev, timed=timed, steps=30, plain_steps=2,
+                          batch=batch, model=model, impl="rank",
+                          overrides=DROPOUT, path=DROPOUT_RANK_KERNELS,
+                          idle=MEGA_KERNELS, falls="halves")
+    for name in ("cp_dense_gelu", "cp_dense_dact"):
+        launches[name] = rank["launches"][name]
+    cfg, cara_cfg, frozen, state, data = rank.pop("setup")
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    both = dict(DROPOUT, attn_dropout_rate=DROP_RATE)
+    grad_check(dev, dataclasses.replace(cfg, **both), cara_cfg, frozen,
+               state, data, generator, tag="[train:rank:dropout+attn]")
+    del rank, frozen, state, data
+
+    cfg, cara_cfg, frozen, state, data = train_setup(
+        dev, model=long_model, batch=long_batch, impl="element",
+        **DROPOUT, **(long_over or {}))
+    tag = f"[train:element:dropout:{long_model}]"
+    grad_check(dev, cfg, cara_cfg, frozen, state, data, generator, tag=tag)
+    reset_launches()
+    state, losses, _, _ = fixed_batch_steps(cfg, cara_cfg, frozen, state,
+                                            data, generator, 2, timed=timed)
+    counted = read_launches(tuple(KERNELS))
+    print(f"{tag} 2 steps at batch {long_batch}: loss {losses}; launches "
+          f"{ {k: v for k, v in counted.items() if v} }", flush=True)
+    require(all(np.isfinite(losses)), "non-finite loss at 384 px")
+    for name in ("cp_dense_wd_gelu", "cp_dense_wd_dact") + BLOCKWISE_KERNELS:
+        require(counted[name] > 0, f"{name} never launched at 384 px")
+    for name in MEGA_KERNELS + SHORT_ATTENTION_KERNELS:
+        require(counted[name] == 0, f"{name} launched at 384 px")
+    for name in ("cp_dense_wd_gelu", "cp_dense_wd_dact"):
+        launches[name + "_577"] = counted[name]
+    del frozen, state, data
+
+    cfg, cara_cfg, frozen, state, data = train_setup(
+        dev, model=model, batch=batch, method="full", lr=1e-4, **both)
+    grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
+               tag="[train:full:dropout+attn]")
+    return launches
 
 
 def full_step_384(dev, batch=16) -> dict:
@@ -1329,7 +1556,7 @@ def other_routes_grad_check(dev, setup) -> dict:
 
 
 def profile_steps(dev, impl, steps=5, batch=64, top=24,
-                  model=MODEL) -> None:
+                  model=MODEL, overrides=None) -> None:
     """``--profile``: device time by kernel of ``steps`` train steps of
     ``model`` on the ``impl`` route (or, for "linear" / "full", that
     method without an adapter) after three warm-up steps from
@@ -1341,8 +1568,10 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
     method = impl if impl in NO_ADAPTER else "cara"
     cfg, cara_cfg, frozen, state, data = train_setup(
         dev, model=model, batch=batch, impl=impl, method=method,
-        lr=1e-4 if method == "full" else 1e-3)
+        lr=1e-4 if method == "full" else 1e-3, **(overrides or {}))
     tag = f"[profile:{impl}]" if model == MODEL else f"[profile:{impl}:384]"
+    if overrides:
+        tag = tag[:-1] + ":dropout]"
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     step_fn = steps_lib.make_train_step(cfg, cara_cfg,
@@ -1392,8 +1621,8 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only build, then profile the element and the "
-                             "rank train step by kernel at 224 and 384 px")
+                        help="only build, then profile the train steps by "
+                             "kernel (see the module docs)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -1419,6 +1648,8 @@ def main(argv=None) -> int:
                 profile_steps(dev, impl, model=model)
         for method in ("full", "linear"):
             profile_steps(dev, method)
+        for impl in ("element", "rank"):
+            profile_steps(dev, impl, overrides=DROPOUT)
         return 0
 
     results = kernel_phase(dev, kernel_inputs(dev))
@@ -1426,6 +1657,8 @@ def main(argv=None) -> int:
     results.update(flash_kernel_phase(dev, kernel_inputs(dev)))
     results.update(flash_kernel_phase(dev, kernel_inputs(dev, n=577),
                                       suffix="_577"))
+    results.update(gelu_kernel_phase(dev, kernel_inputs(dev)))
+    results.update(gelu_kernel_phase(dev, kernel_inputs(dev, n=577)))
 
     images = make_images(96, 224)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1448,6 +1681,8 @@ def main(argv=None) -> int:
     launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
     other_routes_grad_check(dev, split["setup"])
     del train, split
+    # Activation and attention dropout: row 13's GELU body.
+    launches.update(dropout_phase(dev))
 
     # The 384-px route: 577 tokens, past the full-score attention's 512.
     images = make_images(96, 384)

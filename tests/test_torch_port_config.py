@@ -75,3 +75,56 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.strip()) >= len(modules)
+
+
+def _roadmap_items():
+    """queue number -> normalized bold titles of ``ROADMAP.md``'s queues
+    ("### N. ..." sections, items "N. **Title** ...", a title may wrap)."""
+    import re
+
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        text = f.read()
+    items = {}
+    for sec in re.split(r"^### ", text, flags=re.M)[1:]:
+        head = re.match(r"(\d+)\. ", sec)
+        if head:
+            items[int(head.group(1))] = [
+                _norm(" ".join(t.split())) for t in
+                re.findall(r"^\d+\. \*\*(.+?)\*\*", sec, flags=re.M | re.S)]
+    return items
+
+
+def _norm(title):
+    return title.replace("`", "").strip().rstrip(".").strip().lower()
+
+
+def test_port_roadmap_references_name_roadmap_items():
+    """Every ``ROADMAP.md queue N: <title>`` string in the port names an
+    item of that queue: the title (up to ")", ";" or ",") begins the
+    item's bold title at a word boundary."""
+    import ast
+    import re
+
+    items = _roadmap_items()
+    refs = []
+    for root, _, files in os.walk(os.path.join(REPO, "cara_tpu_torch")):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Constant) and isinstance(node.value,
+                                                                 str):
+                    for m in re.finditer(r"ROADMAP\.md queue (\d+): "
+                                         r"([^);,]+)", node.value):
+                        refs.append((path, int(m.group(1)), m.group(2)))
+    assert len(refs) >= 10
+    for path, queue, title in refs:
+        want = _norm(title)
+        ok = any(t.startswith(want) and not t[len(want):len(want) + 1]
+                 .isalnum() for t in items.get(queue, []))
+        assert ok, (f"{os.path.relpath(path, REPO)} names {title!r} in "
+                    f"ROADMAP.md queue {queue}, which holds "
+                    f"{items.get(queue)}")

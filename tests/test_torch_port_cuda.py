@@ -414,3 +414,80 @@ def test_no_adapter_train_step_on_card_matches_plain(dev, method):
     chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
     for name in names:
         assert _launches(name) > before[name], name
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=["n17_dh64_r5",
+                                                     "n197_dh32_r8"])
+def test_gelu_site_kernels_match_plain(dev, shape):
+    """Row 13's GELU body on the fc1 site: the forward with the GELU
+    epilogue and the dact helper, in the LN form with the rank delta and
+    the W' form at rank 0, against their fp32 plain twins, each counted
+    once per call; then both forms' backward through autograd (dact,
+    then row 12 or the W' dx and row 15) against the plain path;
+    quick_gelu has no kernel."""
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=8, n_real=n_real)
+    calls = chip_smoke.gelu_kernel_calls(inp)
+    assert sorted(calls) == sorted(chip_smoke.GELU_KERNELS)
+    for name, (kern, _, ref32) in calls.items():
+        before = _launches(name)
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+        assert _launches(name) == before + 1, name
+    m = inp["mlp"]
+    seed = inp["seeds"][2]
+    diff = ("x", "u1", "v1", "cb1")
+
+    def site(t, impl, wd):
+        args = (t["x"], t["w1"], t["b1"], t["u1"], t["v1"], t["cb1"],
+                t["ln_scale"], t["ln_bias"])
+        if wd:
+            return dense_mod.cp_dense_ln_wd(*args, seed, 2.0,
+                                            chip_smoke.DROP_RATE, impl=impl,
+                                            act="gelu")
+        return dense_mod.cp_dense_ln(*args, 2.0, impl=impl, act="gelu")
+
+    for wd in (False, True):
+        before = dense_mod.DACT_LAUNCHES
+        got = chip_smoke._grad_call(lambda t: site(t, "auto", wd), m, diff,
+                                    inp["g_hid"], torch.bfloat16)()
+        assert dense_mod.DACT_LAUNCHES == before + 1
+        ref = chip_smoke._grad_call(lambda t: site(t, "plain", wd), m, diff,
+                                    inp["g_hid"], torch.float32)()
+        chip_smoke._check_outputs("cp_dense_dact", got, ref)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dense_mod.cp_dense(m["x"], m["w1"], m["b1"], m["u1"], m["v1"],
+                           m["cb1"], act="quick_gelu")
+
+
+@pytest.mark.parametrize("route, over, impls, names", [
+    ("element", {"dropout_rate": 0.1, "attn_dropout_rate": 0.1},
+     ("auto", "auto"), ("cp_dense_wd_gelu", "cp_dense_wd_dact")),
+    ("rank", {"dropout_rate": 0.1}, ("flash", "auto"),
+     ("cp_dense_gelu", "cp_dense_dact", "flash_attention",
+      "flash_attention_bwd")),
+    ("element", {}, ("flash", "xla"), ("flash_attention",
+                                       "flash_attention_bwd")),
+    ("linear", {}, ("auto", "fused"), ("cp_mlp_block",))],
+    ids=["element-dropout-mha", "rank-dropout-flash", "element-flash-xla",
+         "linear-fused"])
+def test_regularised_and_impl_train_steps_on_card_match_plain(
+        dev, route, over, impls, names):
+    """A tiny model with head width 64 on the routes of activation and
+    attention dropout, CaRA with the flash attention and the XLA dense
+    forms, and the linear probe over the zero-factor MLP megakernel:
+    every gradient within chip_smoke's bound of the fp32 plain path, the
+    route's kernels launched."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    method = "linear" if route == "linear" else "cara"
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model="vit_tiny_test", batch=4, rank=4, method=method,
+        impl=route if method == "cara" else "element", embed_dim=128,
+        num_heads=2, **over)
+    before = {k: _launches(k) for k in names}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g, impls=impls)
+    for name in names:
+        assert _launches(name) > before[name], name

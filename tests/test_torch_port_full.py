@@ -134,7 +134,7 @@ def test_torch_vit_forward_without_adapter_matches_jax(attn_impl, train,
     _close(out, ref, "logits")
 
 
-def test_torch_vit_forward_refuses_cara_with_flash():
+def test_torch_vit_forward_refuses_unknown_impls():
     cfg = get_model_config(MODEL)
     cc = CaraConfig(rank=4)
     params = convert.params_from_numpy(convert.init_vit_params(cfg, 0),
@@ -142,10 +142,10 @@ def test_torch_vit_forward_refuses_cara_with_flash():
     cara = convert.params_from_numpy(convert.init_cara_params(cfg, cc, 1),
                                      "cpu")
     x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vit.vit_forward(params, x, cfg, cara, cc, attn_impl="flash")
-    with pytest.raises(ValueError, match="not ported"):
-        t_vit.vit_forward(params, x, cfg, attn_impl="xla")
+    with pytest.raises(ValueError, match="attn_impl"):
+        t_vit.vit_forward(params, x, cfg, cara, cc, attn_impl="sdpa")
+    with pytest.raises(ValueError, match="dense_impl"):
+        t_vit.vit_forward(params, x, cfg, dense_impl="cublas")
 
 
 def _flat(tree):
@@ -315,25 +315,31 @@ def test_torch_cli_full_trains_and_its_checkpoint_serves(tmp_path,
 @pytest.mark.parametrize("extra, match", [
     (["--method", "full", "--weight-dropout", "0.1"], "does not apply"),
     (["--method", "lora"], "ROADMAP"),
-    (["--attn-impl", "flash"], "ROADMAP"),
-    (["--method", "linear", "--attn-impl", "xla"], "ROADMAP")])
+    (["--method", "full", "--dense-impl", "fused"], "backbone-weight"),
+    (["--delta-impl", "materialized"], "ROADMAP")])
 def test_torch_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(SystemExit, match=match):
         t_cli.main(["--synthetic", "--device", "cpu", *extra])
 
 
 def test_torch_resolve_attn_impl_matches_jax():
-    """``resolve_attn_impl`` against ``_resolve_impls`` (on a TPU its
-    "auto" is "fused"): full fine-tuning takes the flash attention."""
+    """``resolve_impls`` against ``_resolve_impls`` (on a TPU their
+    "auto" is "fused"): full fine-tuning takes the flash attention and
+    refuses the fused dense sites; "auto" dense is fused with CaRA and
+    XLA without an adapter."""
     for method in ("cara", "linear", "full"):
         cc = CaraConfig(method=method,
                         weight_dropout=0.1 if method == "cara" else 0.0)
         j_cc = j_config.CaraConfig(**dataclasses.asdict(cc))
-        for impl in ("fused", "flash"):
-            want = j_steps._resolve_impls(impl, "xla", j_cc, None)[0]
-            assert t_steps.resolve_attn_impl(impl, cc) == want
-        assert t_steps.resolve_attn_impl("auto", cc) == (
-            "flash" if method == "full" else "fused")
+        for impl in ("fused", "flash", "xla"):
+            want = j_steps._resolve_impls(impl, "xla", j_cc, None)[:2]
+            assert t_steps.resolve_impls(impl, "xla", cc) == want
+        assert t_steps.resolve_impls("auto", "auto", cc) == (
+            "flash" if method == "full" else "fused",
+            "fused" if method == "cara" else "xla")
+        if method == "full":
+            with pytest.raises(ValueError, match="backbone-weight"):
+                t_steps.resolve_impls("auto", "fused", cc)
     assert t_common.adapter_scale_wd(
         type("A", (), {"method": "linear", "weight_dropout": None})(),
         10.0, 0.1) == (1.0, 0.0)

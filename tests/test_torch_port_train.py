@@ -138,9 +138,8 @@ def test_vit_forward_train_refuses_unported_routes(field, value):
                           torch.from_numpy(batch["image"]), cfg,
                           cara_params=convert.params_from_numpy(cara, "cpu"),
                           cara_cfg=cc, train=True)
-    cfg_do = dataclasses.replace(cfg, dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vit.check_trainable(cfg_do, CaraConfig())
+        t_vit.check_trainable(cfg, CaraConfig(method="lora"))
 
 
 def _flat(tree, prefix=""):
