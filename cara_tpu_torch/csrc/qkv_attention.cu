@@ -30,17 +30,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "attention_warp.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using attn_warp::kPad;
+
 constexpr int kMaxSmem = 232448;  // H100: 227 KB per block (opt-in)
 constexpr int kWarps = 4;         // 64 query rows per block
-constexpr int kPad = 8;           // row pad (bf16) against bank conflicts
 
 __host__ __device__ inline size_t align128(size_t v) {
   return (v + 127) & ~size_t(127);
@@ -70,33 +69,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
-}
-
-// Row lane/2, columns (lane&1)*8 .. +8 of a row-major 16x16 fp32 tile
-// are the eight floats at lane*8: two 16-byte reads.
-__device__ __forceinline__ void load8(float* v, const float* src) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-template <int DH>
-__device__ __forceinline__ void score_tile(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>& acc,
-    const __nv_bfloat16* qw, const __nv_bfloat16* ks, int kt) {
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int dc = 0; dc < DH / 16; ++dc) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::col_major> fb;
-    wmma::load_matrix_sync(fa, qw + dc * 16, DH + kPad);
-    wmma::load_matrix_sync(fb, ks + kt * 16 * (DH + kPad) + dc * 16,
-                           DH + kPad);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
 }
 
 template <int DH>
@@ -158,83 +130,15 @@ qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
   float* S = reinterpret_cast<float*>(smem + lay.s) + warp * 256;
   __nv_bfloat16* P = reinterpret_cast<__nv_bfloat16*>(smem + lay.p) +
                      warp * 256;
-  const __nv_bfloat16* Qw = Qs + warp * 16 * LD;
-  // Each lane owns row lane/2 of a 16x16 tile, columns (lane&1)*8 .. +8.
-  const int er = lane >> 1;
-  const int ec = (lane & 1) * 8;
-  const int ntiles = npp / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-
-  // Pass 1: the row max over every valid key.
-  float m = kNegInf;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    score_tile<DH>(acc, Qw, Ks, kt);
-    wmma::store_matrix_sync(S, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    float sv[8];
-    load8(sv, S + lane * 8);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      m = fmaxf(m, kt * 16 + ec + t < n_real ? sv[t] : kNegInf);
-    __syncwarp();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  // Pass 2: P = exp(s - m) in fp32, its row sum, and O = bf16(P) @ V.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[DH / 16];
-#pragma unroll
-  for (int dc = 0; dc < DH / 16; ++dc) wmma::fill_fragment(o[dc], 0.f);
-  float l = 0.f;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    score_tile<DH>(acc, Qw, Ks, kt);
-    wmma::store_matrix_sync(S, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    float sv[8];
-    load8(sv, S + lane * 8);
-    uint4 packed;
-    __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float ex =
-          expf((kt * 16 + ec + t < n_real ? sv[t] : kNegInf) - m);
-      l += ex;
-      pe[t] = __float2bfloat16(ex);
-    }
-    *reinterpret_cast<uint4*>(P + er * 16 + ec) = packed;
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fp;
-    wmma::load_matrix_sync(fp, P, 16);
-#pragma unroll
-    for (int dc = 0; dc < DH / 16; ++dc) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fv;
-      wmma::load_matrix_sync(fv, Vs + kt * 16 * LD + dc * 16, LD);
-      wmma::mma_sync(o[dc], fp, fv, o[dc]);
-    }
-    __syncwarp();
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  const float inv_l = 1.f / l;
+  attn_warp::AccFrag o[DH / 16];
+  const float inv_l = attn_warp::warp_attention<DH>(
+      o, Qs + warp * 16 * LD, Ks, Vs, npp, n_real, S, P, lane);
 
   // out = bf16(o * (1/l)), one 16x16 output tile at a time.
-  const int q = qw + er;
-  __nv_bfloat16* orow = out + ((size_t)b * N + q) * e + h * DH;
-#pragma unroll
-  for (int dc = 0; dc < DH / 16; ++dc) {
-    wmma::store_matrix_sync(S, o[dc], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (q < N) {
-      float ov[8];
-      load8(ov, S + lane * 8);
-      uint4 packed;
-      __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) pe[t] = __float2bfloat16(ov[t] * inv_l);
-      *reinterpret_cast<uint4*>(orow + dc * 16 + ec) = packed;
-    }
-    __syncwarp();
-  }
+  const int q = qw + (lane >> 1);
+  attn_warp::store_rows<DH>(o, inv_l, S,
+                            out + ((size_t)b * N + q) * e + h * DH, q < N,
+                            lane);
 }
 
 template <int DH>

@@ -15,11 +15,17 @@ layer loop is plain Python (eager PyTorch has no ``scan`` to lower).
 * the block megakernels (:func:`cp_attn_block`, :func:`cp_mlp_block`, or
   their element-dropout forms ``*_wd``; zero factors without an adapter)
   run with the fused dense forms and no activation dropout; the
-  attention one only for eval and element-dropout training, with the
-  fused attention and at most 512 tokens;
+  attention one with the fused attention and at most 512 tokens, and
+  where ``_attn_mega_on`` says so: ``CARA_ATTN_MEGA`` "1" or "0" forces
+  it on or off, "auto" (the default) turns it on for eval and
+  element-dropout training only;
 * otherwise the split sites: :func:`cp_dense_ln` (or
   :func:`cp_dense_ln_wd`) for qkv, the attention, :func:`cp_dense` (or
-  :func:`cp_dense_wd`) for the projection; for the MLP the fc1 site with
+  :func:`cp_dense_wd`) for the projection; with ``CARA_ATTNPROJ=1``, on
+  every route but the element one with the fused dense forms, the fused
+  attention and at most 512 tokens, the attention and the projection
+  site are one call, :func:`fused_qkv_attention_proj`; for the MLP the
+  fc1 site with
   LN2 and the GELU fused (``act``, TPU row 13's GELU body), dropout, the
   fc2 site.  Rank masks (r,) multiply each site's lambda (``_rank_comp``);
   row masks multiply the rows of each site's U (``_row_u``);
@@ -40,9 +46,11 @@ way, ``cara_params=None``) the XLA forms are the default, and in eval
 the gates are ones.  ``impl="auto"`` calls the kernel wrappers, which
 launch the CUDA kernels for CUDA tensors and run their plain versions
 for CPU tensors; ``impl="plain"`` calls the plain versions on any device
-(the reference the kernels are held against).  The TPU-only machinery
-of the reference (the 197 -> 200 stream pad, tile pickers, tune cache,
-``CARA_*`` knobs) is not ported.
+(the reference the kernels are held against).  Of the reference's
+``CARA_*`` knobs, ``CARA_ATTN_MEGA`` and ``CARA_ATTNPROJ`` are honoured,
+read from the environment at import as JAX reads them; the TPU-only
+machinery (the 197 -> 200 stream pad, tile pickers, tune cache, the
+other knobs) is not ported.
 
 Per layer it draws four int32 mask seeds (``_wd_seed``), two gates
 (``_dp_gate``), the rank or row masks and the dropout masks
@@ -52,6 +60,7 @@ takes them from ``randomness``.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -74,6 +83,24 @@ IMPLS = ("auto", "plain")
 ATTN_IMPLS = ("auto", "fused", "flash", "xla")
 DENSE_IMPLS = ("auto", "fused", "xla")
 WEIGHT_DROPOUT_IMPLS = ("element", "rank", "row")
+
+# The attention and the projection site in one kernel (TPU row 3); off
+# unless CARA_ATTNPROJ=1, as in the reference (vit.py:41-47).
+_ATTNPROJ = os.environ.get("CARA_ATTNPROJ", "0") == "1"
+# The attention megakernel: "1" / "0" force it, "auto" as
+# ``_attn_mega_on`` (vit.py:57-66).
+_ATTN_MEGA = os.environ.get("CARA_ATTN_MEGA", "auto")
+
+
+def _attn_mega_on(use_elem: bool, training: bool) -> bool:
+    """Whether the attention megakernel may run (``_attn_mega_on``): a
+    bool set by a test wins, "1" and "0" force, "auto" is on for eval
+    forwards and element-dropout training."""
+    if isinstance(_ATTN_MEGA, bool):
+        return _ATTN_MEGA
+    if _ATTN_MEGA in ("0", "1"):
+        return _ATTN_MEGA == "1"
+    return use_elem or not training
 
 
 def patch_embed(params: Params, x: torch.Tensor,
@@ -163,7 +190,6 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
-    plain = impl == "plain"
     dt = x.dtype
     train = rand is not None
     # The TPU's switch: past 512 (padded) tokens the full-score attention
@@ -177,9 +203,12 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     fused_plain = dense_impl == "fused" and not use_cara
     fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
     # Activation dropout cannot ride inside the block megakernels, and the
-    # attention one trains only the element route (``_attn_mega_on``).
+    # attention one runs where ``_attn_mega_on`` says.
     attn_mega = ((fused_dense or fused_plain) and fused_attn and not long
-                 and (use_elem or not train) and cfg.dropout_rate == 0.0)
+                 and _attn_mega_on(use_elem, train)
+                 and cfg.dropout_rate == 0.0)
+    attn_proj = (fused_dense and fused_attn and _ATTNPROJ and not use_elem
+                 and not long)
     mlp_mega = (fused_dense or fused_plain) and cfg.dropout_rate == 0.0
     comp = rows = None
     if train and use_cara and not use_elem:
@@ -257,10 +286,9 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                 rand["seeds"][0], rand["seeds"][1], h, d ** -0.5, n, 1.0,
                 rate, cfg.layernorm_eps, impl=impl)
         else:
-            block = (attn_mod.cp_attn_block_plain if plain
-                     else attn_mod.cp_attn_block)
-            x = block(*attn_args, gate(0).reshape(b, 1), h, d ** -0.5, n,
-                      1.0, cfg.layernorm_eps)
+            x = attn_mod.cp_attn_block(*attn_args, gate(0).reshape(b, 1), h,
+                                       d ** -0.5, n, 1.0, cfg.layernorm_eps,
+                                       impl=impl)
     else:
         if fused_dense and fused_attn:
             if use_elem:  # the split element sites (vit.py:716-724)
@@ -283,36 +311,42 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                     materialized=use_elem, drop_mask=wmask("qkv"),
                     comp_mask=site_comp(0))
                 qkv = qkv + delta.reshape(b, n, 3 * e).to(dt) * s
-        if fused_attn:
-            attn_out = attention(qkv)
-        else:  # (B, H, N, Dh) views, no copy
-            q, k, v = (t.transpose(1, 2)
-                       for t in qkv.reshape(b, n, 3, h, d).unbind(2))
-            if attn_impl == "flash" and cfg.attn_dropout_rate == 0.0:
-                o = flash_mod.flash_attention(q, k, v, d ** -0.5, impl=impl)
-                attn_out = o.transpose(1, 2).reshape(b, n, e)
-            else:
-                keep = (masks["attn"] if train and cfg.attn_dropout_rate > 0
-                        else None)
-                attn_out = mha(q, k, v, d ** -0.5, cfg.attn_dropout_rate,
-                               keep)
-        if fused_dense and use_elem:
-            proj = dense_mod.cp_dense_wd(attn_out, *attn_args[5:10],
-                                         rand["seeds"][1], 1.0, rate,
-                                         impl=impl)
-        elif fused_dense:
-            proj = dense_mod.cp_dense(attn_out, *attn_args[5:10], 1.0,
-                                      impl=impl)
+        if attn_proj:  # the attention output stays in the kernel
+            proj = fqa_mod.fused_qkv_attention_proj(
+                qkv, *attn_args[5:10], h, d ** -0.5, n, 1.0, impl=impl)
         else:
-            proj = linear(attn_out, bp["proj"]["kernel"], bp["proj"]["bias"])
-            if use_elem:
-                pd = cp_ops.rows_delta_out_materialized(
-                    attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
-            elif use_cara:
-                pd = cp_ops.rows_delta_out_factorized(
-                    row_x(attn_out, 1), p1[0:1], p2, p3, r2, site_comp(1))
-            if use_cara:
-                proj = proj + (pd + cara_params["bias1"]) * s
+            if fused_attn:
+                attn_out = attention(qkv)
+            else:  # (B, H, N, Dh) views, no copy
+                q, k, v = (t.transpose(1, 2)
+                           for t in qkv.reshape(b, n, 3, h, d).unbind(2))
+                if attn_impl == "flash" and cfg.attn_dropout_rate == 0.0:
+                    o = flash_mod.flash_attention(q, k, v, d ** -0.5,
+                                                  impl=impl)
+                    attn_out = o.transpose(1, 2).reshape(b, n, e)
+                else:
+                    keep = (masks["attn"]
+                            if train and cfg.attn_dropout_rate > 0 else None)
+                    attn_out = mha(q, k, v, d ** -0.5, cfg.attn_dropout_rate,
+                                   keep)
+            if fused_dense and use_elem:
+                proj = dense_mod.cp_dense_wd(attn_out, *attn_args[5:10],
+                                             rand["seeds"][1], 1.0, rate,
+                                             impl=impl)
+            elif fused_dense:
+                proj = dense_mod.cp_dense(attn_out, *attn_args[5:10], 1.0,
+                                          impl=impl)
+            else:
+                proj = linear(attn_out, bp["proj"]["kernel"],
+                              bp["proj"]["bias"])
+                if use_elem:
+                    pd = cp_ops.rows_delta_out_materialized(
+                        attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
+                elif use_cara:
+                    pd = cp_ops.rows_delta_out_factorized(
+                        row_x(attn_out, 1), p1[0:1], p2, p3, r2, site_comp(1))
+                if use_cara:
+                    proj = proj + (pd + cara_params["bias1"]) * s
         x = branch(proj, 0, "do1")
 
     # --- MLP (vit.py:835-1087) ---

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "cara_qkv_attention_smem": [_I, _I],
     "cara_qkv_attention_bwd": [_P, _P, _P] + [_I] * 5 + [_F, _P],
     "cara_qkv_attention_bwd_smem": [_I, _I],
+    "cara_attn_proj": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
+    "cara_attn_proj_smem": [_I, _I, _I],
     "cara_blockwise_attention": [_P] * 3 + [_I] * 5 + [_F, _P],
     "cara_blockwise_attention_bwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "cara_flash_attention": [_P] * 5 + [_S] + [_I] * 4 + [_F, _P],
@@ -160,17 +162,6 @@ def stream_ptr(device: torch.device) -> int:
 def ptr(t):
     """Device pointer of a tensor (None -> NULL)."""
     return None if t is None else t.data_ptr()
-
-
-def check_no_grad(name: str, *tensors) -> None:
-    """Forward-only kernels: refuse inputs autograd would record through,
-    so that no caller gets silently wrong (missing) gradients."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is forward-only: its backward kernel is not yet "
-            "ported; call it under torch.no_grad() / inference_mode() or "
-            "on tensors that do not require grad")
 
 
 def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:

@@ -16,9 +16,15 @@ three launches of two hand-written kernels:
 The qkv tensor (B*N*3E bf16, 58 MB at ViT-B batch 64) and the attention
 output make a round trip through HBM that the TPU kernel avoided; the
 sites are tensor-core bound at ViT-B, so this first version accepts the
-traffic, and fusing it back is later work.  The TPU's save-qkv mode and
-its 128-multiple token padding are not ported (the kernels mask their own
-ragged edges).
+traffic, and fusing it back is later work.  The TPU's 128-multiple token
+padding is not ported (the kernels mask their own ragged edges).
+
+:func:`cp_attn_block` is differentiable: its backward replaces TPU row 6
+(``_ab_bwd_rule`` / ``_attn_block_bwd_kernel``), the attention half
+without weight dropout.  The qkv the forward wrote to device memory is
+kept for it, as the TPU keeps it by default (its save-qkv mode,
+``CARA_ATTN_SAVE_QKV`` auto); LN1, z1 and the attention output are
+recomputed.  The launches are listed at :func:`_attn_block_bwd_cuda`.
 
 :func:`cp_attn_block_wd` is the training form with exact element-wise
 weight dropout (``cp_attn_block_wd``, ``_ab_fwd_wd`` / ``_ab_bwd_wd_rule``
@@ -29,16 +35,19 @@ TPU's recompute mode, ``CARA_ATTN_SAVE_QKV`` off) and composes
 ``csrc/block_rows.cu``, ``csrc/grad_gemm.cu``, ``csrc/qkv_attention_bwd.cu``
 and ``csrc/wd_factor_grads.cu``; see :func:`_attn_block_wd_bwd_cuda`.
 
-A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
-plain versions.  :func:`cp_attn_block` is forward only.
+A CUDA tensor launches the kernels (or raises); a CPU tensor, or
+``impl="plain"``, takes the plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
+from cara_tpu_torch.ops.cuda import _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
+from cara_tpu_torch.ops.cuda.cp_dense import (
+    _factor_grads_cuda, _factor_grads_plain, cp_dense_dx_cuda,
+    cp_dense_dx_plain)
 from cara_tpu_torch.ops.cuda.fused_qkv_attention import (
     _check_np, attention_bwd_cuda, attention_bwd_plain, attention_cuda,
     fused_qkv_attention_plain)
@@ -46,10 +55,25 @@ from cara_tpu_torch.ops.layers import layer_norm
 
 #: Number of (three-launch) kernel calls made by :func:`cp_attn_block`.
 LAUNCHES = 0
+#: Backward calls of :func:`cp_attn_block` (TPU row 6).
+BWD_LAUNCHES = 0
 #: Forward kernel calls of :func:`cp_attn_block_wd` (TPU row 7).
 WD_LAUNCHES = 0
 #: Backward kernel calls of :func:`cp_attn_block_wd` (TPU row 8).
 WD_BWD_LAUNCHES = 0
+
+
+def _attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                      ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps):
+    """The plain forward -> (out, qkv (B, N, 3E))."""
+    bsz, n, e = x.shape
+    dt = x.dtype
+    xa = layer_norm(x, ln_scale, ln_bias, ln_eps)
+    qkv = site_plain(xa, wq, bq, u1, v1, None, s).to(dt)
+    o = fused_qkv_attention_plain(qkv, heads, sm_scale, n_real)
+    y = site_plain(o, wp, bp, u2, v2, cb2, s)
+    gate = dpm.float().reshape(bsz, 1, 1)
+    return (x.float() + gate * y).to(dt), qkv
 
 
 def cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
@@ -58,14 +82,9 @@ def cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
     """Plain PyTorch twin of :func:`cp_attn_block` (same rounding points
     as ``_attn_block_fwd_kernel``: LN1(x), z1, qkv, the attention output
     and z2 are rounded to ``x.dtype``)."""
-    bsz, n, e = x.shape
-    dt = x.dtype
-    xa = layer_norm(x, ln_scale, ln_bias, ln_eps)
-    qkv = site_plain(xa, wq, bq, u1, v1, None, s).to(dt)
-    o = fused_qkv_attention_plain(qkv, heads, sm_scale, n_real)
-    y = site_plain(o, wp, bp, u2, v2, cb2, s)
-    gate = dpm.float().reshape(bsz, 1, 1)
-    return (x.float() + gate * y).to(dt)
+    return _attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2,
+                             ln_scale, ln_bias, dpm, heads, sm_scale,
+                             n_real, s, ln_eps)[0]
 
 
 def _check_block(x, dpm, n_real):
@@ -86,41 +105,137 @@ def _dpm_rows(dpm, bsz, n):
 
 def _attn_block_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
                      ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps):
-    """The three launches of the forward on CUDA tensors."""
+    """The three launches of the forward on CUDA tensors -> (out, qkv
+    (B, N, 3E))."""
     bsz, n, e = x.shape
     x2 = x.reshape(bsz * n, e)
     qkv = site_cuda(x2, wq, bq, u1, v1, None, s,
-                    ln=(ln_scale, ln_bias, ln_eps))
-    o = attention_cuda(qkv.reshape(bsz, n, -1), heads, sm_scale, n_real)
+                    ln=(ln_scale, ln_bias, ln_eps)).reshape(bsz, n, -1)
+    o = attention_cuda(qkv, heads, sm_scale, n_real)
     out = site_cuda(o.reshape(bsz * n, -1), wp, bp, u2, v2, cb2, s,
                     res=x2, dpm_rows=_dpm_rows(dpm, bsz, n))
-    return out.reshape(bsz, n, e)
+    return out.reshape(bsz, n, e), qkv
+
+
+def cp_attn_block_bwd_plain(g, x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
+                            ln_bias, dpm, heads: int, sm_scale: float,
+                            n_real: int, s: float = 1.0,
+                            ln_eps: float = 1e-6):
+    """Plain twin of the backward (``_attn_block_bwd_kernel`` with its
+    rounding points: z1, z2, gv1, gv2, g2 = g * dpm, do and dqkv rounded
+    to ``x.dtype``, dxa fp32): -> (dx, dbq, du1, dv1, dbp, du2, dv2), dx
+    in ``x.dtype``, the rest fp32."""
+    bsz, n, e = x.shape
+    dt = x.dtype
+    m = bsz * n
+    x2 = x.reshape(m, e)
+    g_res = g.reshape(m, e)
+    xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
+    o2 = fused_qkv_attention_plain(qkv, heads, sm_scale, n_real).reshape(m, e)
+    g2 = (g_res.float() * _dpm_rows(dpm, bsz, n)[:, None]).to(dt)
+    do, gv2 = cp_dense_dx_plain(g2, wp, u2, v2, s)
+    du2, dv2, dbp = _factor_grads_plain(o2, g2, gv2, u2, s)
+    dqkv = attention_bwd_plain(qkv, do.reshape(bsz, n, e), heads, sm_scale,
+                               n_real).reshape(m, -1)
+    gv1 = (dqkv.float() @ v1.float().t()).to(dt)
+    dxa = dqkv.float() @ wq.float().t() + s * (gv1.float() @ u1.float().t())
+    dx = (g_res.float() + _bwd.ln_input_bwd_plain(x2, dxa, ln_scale, ln_eps)
+          ).to(dt)
+    du1, dv1, dbq = _factor_grads_plain(xa, dqkv, gv1, u1, s)
+    return dx.reshape(bsz, n, e), dbq, du1, dv1, dbp, du2, dv2
+
+
+def _attn_block_bwd_cuda(g, x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
+                         ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps):
+    """The backward on CUDA tensors, as launches (M = B*N rows):
+
+    ``ln_rows`` xa = LN1(x); ``qkv_attention`` o from the kept qkv;
+    ``gate_rows`` g2 = bf16(g * dpm); row 12's dx (rank pre-pass gv2 =
+    bf16(g2 V2^T), NT do = bf16(g2 Wp^T + s gv2 U2^T)); the factor
+    products du2 = s o^T gv2, z2 = bf16(o U2), dv2 = s z2^T g2 and
+    ``colsum`` dbp; ``qkv_attention_bwd`` dqkv; the rank pre-pass gv1 =
+    bf16(dqkv V1^T) and NT dxa = dqkv Wq^T + s gv1 U1^T (fp32);
+    ``ln_bwd_residual`` dx = bf16(g + LN1'(dxa)); du1 = s xa^T gv1, z1 =
+    bf16(xa U1), dv1 = s z1^T dqkv and ``colsum`` dbq."""
+    bsz, n, e = x.shape
+    m = bsz * n
+    x2 = x.reshape(m, e)
+    g_res = g.reshape(m, e)
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    o2 = attention_cuda(qkv, heads, sm_scale, n_real).reshape(m, e)
+    g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, bsz, n))
+    do, gv2 = cp_dense_dx_cuda(g2, wp, u2, v2, s)
+    du2, dv2, dbp = _factor_grads_cuda(o2, g2, gv2, u2, s)
+    dqkv = attention_bwd_cuda(qkv, do.reshape(bsz, n, e), heads, sm_scale,
+                              n_real).reshape(m, -1)
+    gv1 = _bwd.rank_z(dqkv, v1, trans=True)
+    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dqkv, wq, a2=gv1,
+                    b2=_bwd.pad_cols8(_bwd.scaled(u1, s)))
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    du1, dv1, dbq = _factor_grads_cuda(xa, dqkv, gv1, u1, s)
+    return dx.reshape(bsz, n, e), dbq, du1, dv1, dbp, du2, dv2
+
+
+class _AttnBlock(torch.autograd.Function):
+    """Gradients for x, bq, u1, v1, bp, u2, v2 and cb2, as
+    ``_ab_bwd_rule``; wq, wp, LN1 and the gate get none (JAX's zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
+                ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps, plain):
+        global LAUNCHES
+        args = (x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale, ln_bias,
+                dpm, heads, sm_scale, n_real, s, ln_eps)
+        if plain:
+            out, qkv = _attn_block_plain(*args)
+        else:
+            out, qkv = _attn_block_cuda(*args)
+            LAUNCHES += 1
+        ctx.save_for_backward(x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
+                              ln_bias, dpm)
+        ctx.cfg = (heads, sm_scale, n_real, s, ln_eps, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global BWD_LAUNCHES
+        x, qkv, wq, u1, v1, wp, u2, v2, ls, lb, dpm = ctx.saved_tensors
+        heads, sm_scale, n_real, s, ln_eps, plain = ctx.cfg
+        args = (g.contiguous(), x, qkv, wq, u1, v1, wp, u2, v2, ls, lb, dpm,
+                heads, sm_scale, n_real, s, ln_eps)
+        if plain:
+            dx, dbq, du1, dv1, dbp, du2, dv2 = cp_attn_block_bwd_plain(*args)
+        else:
+            dx, dbq, du1, dv1, dbp, du2, dv2 = _attn_block_bwd_cuda(*args)
+            BWD_LAUNCHES += 1
+        dt = g.dtype
+        return (dx, None, dbq.to(dt), du1.to(u1.dtype), dv1.to(v1.dtype),
+                None, dbp.to(dt), du2.to(u2.dtype), dv2.to(v2.dtype),
+                (s * dbp).to(dt), None, None, None, None, None, None, None,
+                None, None)
 
 
 def cp_attn_block(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale, ln_bias,
                   dpm, heads: int, sm_scale: float, n_real: int,
-                  s: float = 1.0, ln_eps: float = 1e-6):
+                  s: float = 1.0, ln_eps: float = 1e-6, impl: str = "auto"):
     """x (B, N, E) raw residual -> LN1 -> qkv + delta -> attention (keys
     >= ``n_real`` masked) -> proj + delta -> ``x + dpm * y``.
 
     ``u1`` (E, r) / ``v1`` (r, 3E) from ``models.cara.qkv_uv``; ``u2``
     (E, r) / ``v2`` (r, E) from ``rows_out_uv``; ``cb2`` = CP bias1;
     ``dpm`` (B, 1) per-image drop-path gate (ones in eval).  Callers fold
-    the delta scale into ``v1``/``v2``/``cb2`` and pass ``s=1.0``."""
-    global LAUNCHES
-    _build.check_no_grad("cp_attn_block", x, wq, bq, u1, v1, wp, bp, u2, v2,
-                         cb2, ln_scale, ln_bias, dpm)
+    the delta scale into ``v1``/``v2``/``cb2`` and pass ``s=1.0``.
+    Differentiable in x, bq, u1, v1, bp, u2, v2 and cb2;
+    ``impl="plain"`` runs the plain versions on any device."""
     _check_block(x, dpm, n_real)
-    if x.device.type == "cpu":
-        return cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2,
-                                   ln_scale, ln_bias, dpm, heads, sm_scale,
-                                   n_real, s, ln_eps)
-    if x.device.type != "cuda":
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or x.device.type == "cpu"
+    if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out = _attn_block_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
-                           ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps)
-    LAUNCHES += 1
-    return out
+    return _AttnBlock.apply(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2,
+                            ln_scale, ln_bias, dpm, heads, sm_scale, n_real,
+                            s, ln_eps, plain)
 
 
 def cp_attn_block_wd_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
@@ -229,7 +344,7 @@ class _AttnBlockWd(torch.autograd.Function):
         if plain:
             out = cp_attn_block_plain(*args)
         else:
-            out = _attn_block_cuda(*args)
+            out = _attn_block_cuda(*args)[0]
             WD_LAUNCHES += 1
         ctx.save_for_backward(x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
                               ln_bias, dpm, seed1, seed2)

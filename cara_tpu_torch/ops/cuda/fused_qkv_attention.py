@@ -14,6 +14,17 @@ rule's residual does.  Its backward replaces ``_bwd_rule`` /
 :func:`attention_bwd_plain` its twin; the attention-block backward of the
 element-dropout route launches the same kernel.
 
+:func:`fused_qkv_attention_proj` is the attention with the projection
+site fused after it, ``y = o W + b + s ((o U) V + cb)`` for ``o`` the
+attention output: TPU row 3 (``fused_qkv_attention_proj``, ``_fwd_proj``
+/ ``_fwd_proj_kernel``), the kernel ``csrc/attn_proj.cu``, in which ``o``
+stays in shared memory between the attention and the projection.  Its
+backward, rows 3 and 4 (``_bwd_proj_rule``), composes the port's
+kernels: row 12's dx (``cp_dense.cp_dense_dx_cuda``) for d(o) and gv,
+row 1's kernel to recompute ``o`` (the TPU's ``_attn_raw``), the
+rank-space factor products and column sums of the split sites, and row
+2's kernel for dqkv (the TPU's ``_attn_bwd_raw``).
+
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions.
 """
@@ -22,7 +33,11 @@ from __future__ import annotations
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _build
+from cara_tpu_torch.ops.cuda import _build, _bwd
+from cara_tpu_torch.ops.cuda._site import site_plain
+from cara_tpu_torch.ops.cuda.cp_dense import (
+    _factor_grads_cuda, _factor_grads_plain, cp_dense_dx_cuda,
+    cp_dense_dx_plain)
 
 NEG_INF = -1e30
 MAX_NP_FULL_SCORES = 512
@@ -31,6 +46,10 @@ MAX_NP_FULL_SCORES = 512
 LAUNCHES = 0
 #: Backward kernel launches of :func:`fused_qkv_attention` (TPU row 2).
 BWD_LAUNCHES = 0
+#: Kernel launches of :func:`fused_qkv_attention_proj` (TPU row 3).
+PROJ_LAUNCHES = 0
+#: Backward calls of :func:`fused_qkv_attention_proj` (rows 3 and 4).
+PROJ_BWD_LAUNCHES = 0
 
 
 def _check_np(np_: int) -> None:
@@ -204,3 +223,132 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
     if not plain and qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
     return _FusedQkvAttention.apply(qkv, heads, scale, n_real, plain)
+
+
+def fused_qkv_attention_proj_plain(qkv, w, b, u, v, cb, heads: int,
+                                   scale: float, n_real: int, s: float):
+    """Plain twin of row 3's forward (``_fwd_proj_kernel``'s rounding
+    points): the attention output and z = o U rounded to ``qkv.dtype``,
+    ``o W + b + s (z V + cb)`` in fp32, rounded once."""
+    bsz, n, _ = qkv.shape
+    o = fused_qkv_attention_plain(qkv, heads, scale, n_real)
+    y = site_plain(o.reshape(bsz * n, -1), w, b, u, v, cb, s)
+    return y.to(qkv.dtype).reshape(bsz, n, -1)
+
+
+def attn_proj_cuda(qkv, w, b, u, v, cb, heads: int, scale: float,
+                   n_real: int, s: float):
+    """Launch ``csrc/attn_proj.cu`` (no launch count): (B, N, E) bf16."""
+    bsz, n, e3 = qkv.shape
+    e = e3 // 3
+    dh = e // heads
+    r = u.shape[1]
+    dev = qkv.device
+    u8 = _bwd.pad_cols8(u)
+    _build.check_cuda_inputs("attn_proj", dev, qkv=qkv, w=w, b=b, u=u8, v=v,
+                             cb=cb)
+    if (e3 != 3 * e or heads * dh != e or dh not in (16, 32, 64) or e % 64
+            or w.shape != (e, e) or b.shape != (e,) or u.shape != (e, r)
+            or v.shape != (r, e) or r > _bwd.RANK_W or cb.shape != (e,)):
+        raise ValueError(
+            f"attn_proj: qkv {tuple(qkv.shape)}, heads {heads}, w "
+            f"{tuple(w.shape)}, u {tuple(u.shape)}, v {tuple(v.shape)}; the "
+            "kernel takes head dims 16, 32 or 64, E a multiple of 64 and "
+            "rank <= 64")
+    lib = _build.lib()
+    if lib.cara_attn_proj_smem(n, e, dh) == 0:
+        raise ValueError(f"attn_proj: N={n}, E={e} does not fit one "
+                         "block's shared memory")
+    out = torch.empty((bsz, n, e), device=dev, dtype=torch.bfloat16)
+    code = lib.cara_attn_proj(
+        qkv.data_ptr(), w.data_ptr(), b.data_ptr(), u8.data_ptr(),
+        v.data_ptr(), cb.data_ptr(), out.data_ptr(), bsz, n, heads, dh,
+        int(n_real), r, u8.shape[1], float(scale), float(s),
+        _build.stream_ptr(dev))
+    _build.check(code, "attn_proj")
+    return out
+
+
+def fused_qkv_attention_proj_bwd_plain(g, qkv, w, u, v, heads: int,
+                                       scale: float, n_real: int, s: float):
+    """Plain twin of the backward (``_bwd_proj_rule``'s rounding points):
+    g (B, N, E) -> (dqkv in ``qkv.dtype``, du, dv, db fp32)."""
+    bsz, n, e = g.shape
+    g2 = g.reshape(-1, e)
+    dattn, gv = cp_dense_dx_plain(g2, w, u, v, s)
+    o2 = fused_qkv_attention_plain(qkv, heads, scale, n_real).reshape(-1, e)
+    du, dv, db = _factor_grads_plain(o2, g2, gv, u, s)
+    dqkv = attention_bwd_plain(qkv, dattn.reshape(bsz, n, e), heads, scale,
+                               n_real)
+    return dqkv, du, dv, db
+
+
+def _attn_proj_bwd_cuda(g, qkv, w, u, v, heads, scale, n_real, s):
+    """The backward's launches: row 12's dx (d(o) bf16 and gv), row 1's
+    kernel for o, the factor products z = bf16(o U), du = s o^T gv, dv =
+    s z^T g and the column sums of g, row 2's kernel for dqkv."""
+    bsz, n, e = g.shape
+    g2 = g.reshape(-1, e)
+    dattn, gv = cp_dense_dx_cuda(g2, w, u, v, s)
+    o2 = attention_cuda(qkv, heads, scale, n_real).reshape(-1, e)
+    du, dv, db = _factor_grads_cuda(o2, g2, gv, u, s)
+    dqkv = attention_bwd_cuda(qkv, dattn.reshape(bsz, n, e), heads, scale,
+                              n_real)
+    return dqkv, du, dv, db
+
+
+class _FusedQkvAttentionProj(torch.autograd.Function):
+    """Gradients for qkv, b, u, v and cb from the kept qkv (o is
+    recomputed); the frozen projection w gets none (JAX's zeros)."""
+
+    @staticmethod
+    def forward(ctx, qkv, w, b, u, v, cb, heads, scale, n_real, s, plain):
+        global PROJ_LAUNCHES
+        args = (qkv, w, b, u, v, cb, heads, scale, n_real, s)
+        if plain:
+            out = fused_qkv_attention_proj_plain(*args)
+        else:
+            out = attn_proj_cuda(*args)
+            PROJ_LAUNCHES += 1
+        ctx.save_for_backward(qkv, w, u, v)
+        ctx.cfg = (heads, scale, n_real, s, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global PROJ_BWD_LAUNCHES
+        qkv, w, u, v = ctx.saved_tensors
+        heads, scale, n_real, s, plain = ctx.cfg
+        args = (g.contiguous(), qkv, w, u, v, heads, scale, n_real, s)
+        if plain:
+            dqkv, du, dv, db = fused_qkv_attention_proj_bwd_plain(*args)
+        else:
+            dqkv, du, dv, db = _attn_proj_bwd_cuda(*args)
+            PROJ_BWD_LAUNCHES += 1
+        dt = g.dtype
+        return (dqkv, None, db.to(dt), du.to(u.dtype), dv.to(v.dtype),
+                (s * db).to(dt), None, None, None, None, None)
+
+
+def fused_qkv_attention_proj(qkv, w, b, u, v, cb, heads: int, scale: float,
+                             n_real: int, s: float = 1.0,
+                             impl: str = "auto"):
+    """qkv (B, N, 3E) -> attention (keys >= ``n_real`` masked) -> the
+    projection with its CP delta, (B, N, E).  ``w`` (E, E) the frozen
+    projection kernel, ``b`` (E,) its bias, ``u`` (E, r) / ``v`` (r, E)
+    the collapsed CP factors (``models.cara.rows_out_uv``), ``cb`` (E,)
+    the CP bias, ``s`` the delta scale.  Differentiable in qkv,
+    b, u, v and cb; ``impl="plain"`` runs the plain versions on any
+    device."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, N, 3E), got {tuple(qkv.shape)}")
+    _check_np(qkv.shape[1])
+    if not 1 <= n_real <= qkv.shape[1]:
+        raise ValueError(f"n_real={n_real} outside [1, {qkv.shape[1]}]")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    plain = impl == "plain" or qkv.device.type == "cpu"
+    if not plain and qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    return _FusedQkvAttentionProj.apply(qkv, w, b, u, v, cb, heads, scale,
+                                        n_real, s, plain)

@@ -72,7 +72,21 @@ fatal on failure:
    counters grow and no block megakernel launches; gradient checks of
    the rank route with attention dropout too (``mha``), of the element
    route at 384 px (batch 16) and of one full fine-tuning step with both
-   rates.
+   rates;
+10. the rank route's attention-block switches (run after 6): the kernel
+   entries of TPU row 3 (``fused_qkv_attention_proj``, the attention and
+   the projection site in one kernel), its backward with row 4, and row 6
+   (``cp_attn_block``'s backward) at phase 3's shapes (run with phase
+   3's); the unmerged ViT-B forward of phase 4's checkpoint at batch 64
+   with ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (row 3 in every layer,
+   logits within 5 % of the default route's); the rank route as in 6
+   with ``CARA_ATTN_MEGA=1`` (set in ``models.vit`` around the phase and
+   in the environment of a child process that runs the CLI, as JAX reads
+   it: at import) and then with ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (the
+   CLI in this process, its eval through row 3 too), 20 timed steps
+   each: under each, the switch's kernels launch and the split route's
+   attention wrappers do not; then the default rank route and both
+   switched ones timed in turns on one setup (ms per step by CUDA events).
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -85,15 +99,18 @@ last is a JSON object with one entry per kernel; the last line is
 
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
-at 384 px, of full fine-tuning and the linear probe at 224 px, and of the
-element and rank routes with activation dropout 0.1 at 224 px
-(``torch.profiler``), with the busy share.
+at 384 px, of full fine-tuning and the linear probe at 224 px, of the
+element and rank routes with activation dropout 0.1 at 224 px, and of
+the rank route under each attention-block switch (``torch.profiler``),
+with the busy share.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -218,6 +235,20 @@ KERNELS = {
     "cp_dense_wd_dact_577": (
         dense_mod, "DACT_LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
         "cara_tpu/ops/pallas/cp_dense.py:356"),
+    # The rank route's attention-block switches: CARA_ATTNPROJ=1 runs row
+    # 3 (the attention and the projection in one kernel) and its backward
+    # with row 4; CARA_ATTN_MEGA=1 the attention megakernel's backward,
+    # row 6 (launches: the rank phases under each switch).
+    "fused_qkv_attention_proj": (
+        fqa_mod, "PROJ_LAUNCHES", "cara_tpu_torch/csrc/attn_proj.cu",
+        "cara_tpu/ops/pallas/fused_qkv_attention.py:312"),
+    "fused_qkv_attention_proj_bwd": (
+        fqa_mod, "PROJ_BWD_LAUNCHES",
+        "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "cara_tpu/ops/pallas/fused_qkv_attention.py:380"),
+    "cp_attn_block_bwd": (
+        attn_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "cara_tpu/ops/pallas/cp_attn_block.py:356"),
 }
 GELU_KERNELS = ("cp_dense_gelu", "cp_dense_dact", "cp_dense_wd_gelu",
                 "cp_dense_wd_dact")
@@ -262,6 +293,27 @@ SHORT_ATTENTION_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd",
                            "cp_attn_block", "cp_attn_block_wd",
                            "cp_attn_block_wd_bwd")
 BLOCKWISE_KERNELS = ("blockwise_qkv_attention", "blockwise_qkv_attention_bwd")
+# The attention-block switches: name -> (``models.vit`` settings, the
+# environment of a child process that runs the phase's CLI, or None to
+# run it in this process; the kernels the rank route launches under the
+# switch, the kernels it must not launch).  With the attention
+# megakernel off the CLI's eval runs row 3 too.
+ATTN_ROUTE_KERNELS = ("fused_qkv_attention_proj",
+                      "fused_qkv_attention_proj_bwd", "cp_attn_block_bwd")
+SWITCHES = {
+    "CARA_ATTN_MEGA=1": (
+        {"_ATTN_MEGA": "1"}, {"CARA_ATTN_MEGA": "1"},
+        ("cp_attn_block", "cp_attn_block_bwd", "cp_mlp_block",
+         "cp_mlp_block_bwd"),
+        ("fused_qkv_attention", "fused_qkv_attention_bwd", "cp_dense",
+         "cp_dense_dx", "fused_qkv_attention_proj")),
+    "CARA_ATTN_MEGA=0,CARA_ATTNPROJ=1": (
+        {"_ATTN_MEGA": "0", "_ATTNPROJ": True}, None,
+        ("cp_dense", "cp_dense_dx", "fused_qkv_attention_proj",
+         "fused_qkv_attention_proj_bwd", "cp_mlp_block", "cp_mlp_block_bwd"),
+        ("fused_qkv_attention", "fused_qkv_attention_bwd", "cp_attn_block",
+         "cp_attn_block_bwd")),
+}
 # The adapter's kernels, which the routes without one must not launch.
 ADAPTER_KERNELS = ("build_wd_weight", "cp_attn_block", "cp_mlp_block",
                    "cp_attn_block_wd", "cp_attn_block_wd_bwd",
@@ -292,7 +344,9 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_dense_gelu": (2e-2, 2e-2),
               "cp_dense_dact": (5e-2, 5e-2),
               "cp_dense_wd_gelu": (2e-2, 2e-2),
-              "cp_dense_wd_dact": (5e-2, 5e-2)}
+              "cp_dense_wd_dact": (5e-2, 5e-2),
+              "fused_qkv_attention_proj": (2e-2, 2e-2),
+              "cp_attn_block_bwd": (5e-2, 5e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -720,6 +774,71 @@ def flash_kernel_phase(dev, inp, timed: bool = True,
     return {name + suffix: res for name, res in out.items()}
 
 
+# The inputs the attention-block switches' entries differentiate: row 3's
+# qkv and proj-site leaves, row 6's block leaves with both biases.
+PROJ_DIFF = ("qkv", "bp", "u2", "v2", "cb2")
+ATTN_BLOCK_DIFF = ("x", "bq", "u1", "v1", "bp", "u2", "v2", "cb2")
+
+
+def attn_route_kernel_calls(inp):
+    """:func:`kernel_calls` for the attention-block switches
+    (``ATTN_ROUTE_KERNELS``): row 3's forward on ``inp["qkv"]`` and the
+    projection site's weights, its backward (rows 3 and 4; dqkv held as
+    its dq, dk and dv thirds), and row 6, the attention megakernel's
+    backward, with the drop-path gates of the training entries."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    a = inp["attn"]
+    proj = dict(qkv=inp["qkv"], wp=a["wp"], bp=a["bp"], u2=a["u2"],
+                v2=a["v2"], cb2=a["cb2"])
+
+    def proj_call(t, impl):
+        return fqa_mod.fused_qkv_attention_proj(
+            t["qkv"], t["wp"], t["bp"], t["u2"], t["v2"], t["cb2"], h, sm,
+            n, impl=impl)
+
+    def proj_fwd(impl, dtype):
+        t = {k: v.to(dtype) for k, v in proj.items()}
+        return lambda: proj_call(t, impl)
+
+    def proj_bwd(impl, dtype):
+        call = _grad_call(lambda t: proj_call(t, impl), proj, PROJ_DIFF,
+                          inp["g_attn"], dtype)
+
+        def split():
+            out = call()
+            dq, dk, dv = out.pop("qkv").chunk(3, dim=-1)
+            return dict(out, dq=dq, dk=dk, dv=dv)
+        return split
+
+    block = dict(a, dpm=inp["gates"])
+
+    def block_bwd(impl, dtype):
+        return _grad_call(
+            lambda t: attn_mod.cp_attn_block(*(t[k] for k in ATTN_ARGS), h,
+                                             sm, n, impl=impl),
+            block, ATTN_BLOCK_DIFF, inp["g_attn"], dtype)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    return {
+        "fused_qkv_attention_proj": (proj_fwd("auto", bf),
+                                     proj_fwd("plain", bf),
+                                     proj_fwd("plain", f32)),
+        "fused_qkv_attention_proj_bwd": (proj_bwd("auto", bf),
+                                         proj_bwd("plain", bf),
+                                         proj_bwd("plain", f32)),
+        "cp_attn_block_bwd": (block_bwd("auto", bf), block_bwd("plain", bf),
+                              block_bwd("plain", f32)),
+    }
+
+
+def attn_route_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """The attention-block switches' entries at ``inp``'s shapes."""
+    print(f"[kernel] rows 3, 4 and 6 (CARA_ATTNPROJ, CARA_ATTN_MEGA) at B "
+          f"{inp['b']}, N {inp['n']}, E {inp['e']}, H {inp['heads']}:",
+          flush=True)
+    return check_entries(dev, inp, attn_route_kernel_calls(inp), timed)
+
+
 def kernel_work(inp) -> dict:
     """name -> (operations, bytes) of each entry's call at these inputs:
     the products the function needs (a backward recomputes what its
@@ -747,6 +866,7 @@ def kernel_work(inp) -> dict:
                                  "v2", "cb2", "ln_scale", "ln_bias")))
     mlp_w = nb(*(m[k] for k in ("w1", "b1", "u1", "v1", "cb1", "w2", "b2",
                                 "u2", "v2", "cb2", "ln_scale", "ln_bias")))
+    proj_w = nb(*(a[k] for k in ("wp", "bp", "u2", "v2", "cb2")))
     folds = [(a["wq"], a["u1"]), (a["wp"], a["u2"]), (m["w1"], m["u1"]),
              (m["w2"], m["u2"])]
     fold_ops = [2 * w.numel() * r for w, _ in folds]
@@ -821,6 +941,27 @@ def kernel_work(inp) -> dict:
         "cp_dense_wd_gelu": (fold_ops[2] + dense_fc1,
                              act + hid_act + fc1_w),
         "cp_dense_wd_dact": (dense_fc1, act + 2 * hid_act + fc1_wp),
+        # row 3: the attention, then the projection site on its output
+        # (which never leaves the kernel); qkv read, y written
+        "fused_qkv_attention_proj": (attn + site(e, e),
+                                     qkv_act + act + proj_w),
+        # rows 3 and 4 backward: the projection's dx (g W^T, gv = g V^T,
+        # gv U^T), its factor products (du, z = o U, dv), o recomputed
+        # (the forward keeps only qkv) and the attention backward; qkv and
+        # g read, dqkv, the fp32 factor gradients and db, dcb written
+        "fused_qkv_attention_proj_bwd": (
+            site(e, e) + 2 * rows * r * 3 * e + attn + attn_bwd,
+            2 * qkv_act + act + proj_w + factor(e, e) + 4 * 2 * e),
+        # row 6: both sites' dx with their rank steps, both sites' factor
+        # products (du, z, dv), o recomputed from the kept qkv (the TPU's
+        # save-qkv default: no qkv GEMM) and the attention backward; x, g
+        # and qkv read, dx, the fp32 factor gradients and the three bias
+        # gradients written
+        "cp_attn_block_bwd": (
+            site(3 * e, e) + site(e, e) + 2 * rows * r * (2 * e + 3 * e)
+            + 2 * rows * r * 3 * e + attn + attn_bwd,
+            qkv_act + 3 * act + attn_w + factor(e, 3 * e) + factor(e, e)
+            + 4 * 5 * e),
     }
 
 
@@ -834,8 +975,10 @@ def bound(ops: float, nbytes: float):
 def library_calls(inp) -> dict:
     """name -> one PyTorch call computing the entry's function on the same
     inputs, where there is one: ``F.scaled_dot_product_attention`` forward
-    (rows 1, 16 and 17) and its backward (rows 2, 16 and 17).  Yardsticks,
-    timed only."""
+    (rows 1, 16 and 17) and its backward (rows 2, 16 and 17); for row 3
+    SDPA's forward then ``torch.addmm`` for the projection, for its
+    backward SDPA's backward and the projection's dx GEMM (the rank delta
+    left out of both).  Yardsticks, timed only."""
     b, n, nr, e, h = (inp["b"], inp["n"], inp["n_real"], inp["e"],
                       inp["heads"])
     q, k, v = (t.detach().clone().requires_grad_(True) for t in
@@ -856,10 +999,22 @@ def library_calls(inp) -> dict:
     def bwd():
         return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
 
+    a = inp["attn"]
+    g2 = inp["g_attn"].reshape(b * n, e)
+
+    def fwd_proj():  # SDPA, then torch.addmm for the projection
+        o = fwd().transpose(1, 2).reshape(b * n, e)
+        return torch.addmm(a["bp"], o, a["wp"])
+
+    def bwd_proj():  # SDPA's backward and the projection's dx GEMM
+        return bwd(), g2 @ a["wp"].t()
+
     return {"fused_qkv_attention": fwd, "fused_qkv_attention_bwd": bwd,
             "blockwise_qkv_attention": fwd,
             "blockwise_qkv_attention_bwd": bwd,
-            "flash_attention": fwd, "flash_attention_bwd": bwd}
+            "flash_attention": fwd, "flash_attention_bwd": bwd,
+            "fused_qkv_attention_proj": fwd_proj,
+            "fused_qkv_attention_proj_bwd": bwd_proj}
 
 
 def rel_l2(out, ref) -> float:
@@ -994,11 +1149,30 @@ def check_entries(dev, inp, calls, timed: bool) -> dict:
     return results
 
 
+@functools.lru_cache(maxsize=2)
+def _seeded_backbone(cfg, seed):
+    return convert.init_vit_params(cfg, seed)
+
+
+def init_backbone(cfg, seed):
+    """``convert.init_vit_params(cfg, seed)``: a fresh copy of arrays drawn
+    once a process for each weight shape and seed (a ViT-B draw takes
+    ~4 s on the host; the smoke and ``--profile`` make a dozen).  The
+    rates, on which no weight depends, are left out of the key."""
+    key = dataclasses.replace(cfg, dropout_rate=0.0, attn_dropout_rate=0.0,
+                              drop_path_rate=0.0)
+
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else np.array(v)
+                for k, v in tree.items()}
+    return copy(_seeded_backbone(key, seed))
+
+
 def make_checkpoint(path, model=MODEL, num_classes=10, rank=8, scale=10.0,
                     seed=0, **overrides):
     cfg = get_model_config(model, num_classes=num_classes, **overrides)
     cara_cfg = CaraConfig(rank=rank, scale=scale, cp_order=4)
-    params = convert.init_vit_params(cfg, seed)
+    params = init_backbone(cfg, seed)
     cara = convert.perturb_adapter(
         convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2)
     meta = {"method": "cara", "scale": scale, "cp_order": 4,
@@ -1146,7 +1320,7 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
     fp32 reference of the gradient check runs on the weights the bf16
     path computes with)."""
     cfg = get_model_config(model, num_classes=num_classes, **overrides)
-    params = convert.init_vit_params(cfg, seed)
+    params = init_backbone(cfg, seed)
     if method == "cara":
         cara_cfg = CaraConfig(rank=rank, scale=scale,
                               weight_dropout=DROP_RATE,
@@ -1313,10 +1487,43 @@ def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
     return state, losses, ms, wall
 
 
+@contextlib.contextmanager
+def attn_switch(**values):
+    """``models.vit``'s switches (``_ATTN_MEGA``, ``_ATTNPROJ``) set to
+    ``values`` inside the block, restored after it."""
+    old = {k: getattr(vit_lib, k) for k in values}
+    for k, v in values.items():
+        setattr(vit_lib, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(vit_lib, k, v)
+
+
+def cli_child(argv, env) -> dict:
+    """``cli.vit_cp`` with ``argv`` in a child process whose environment
+    adds ``env`` (the ``CARA_*`` switches are read at import, as JAX reads
+    them); returns the child's launch counters."""
+    code = ("import json, sys, chip_smoke; "
+            "chip_smoke.vit_cp_cli.main(sys.argv[1:]); "
+            "print(json.dumps(chip_smoke.read_launches("
+            "tuple(chip_smoke.KERNELS))))")
+    proc = subprocess.run([sys.executable, "-c", code, *argv],
+                          env=dict(os.environ, **env), capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[-4:-1]:
+        print(f"  child: {line}", flush=True)
+    require(proc.returncode == 0, f"cli.vit_cp child failed ({env}): "
+            f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                    model=MODEL, impl="element", path=None, grad_batch=None,
                    idle=(), method="cara", lr=1e-3, overrides=None,
-                   cli_extra=(), falls="last") -> dict:
+                   cli_extra=(), falls="last", switch=None) -> dict:
     """One training route (``impl`` weight dropout at 0.1, or ``method``
     "linear" / "full" without an adapter, at learning rate ``lr``; the
     model's config changed by ``overrides``, e.g. its dropout rates): (a)
@@ -1325,20 +1532,28 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
     fixed batch (the linear probe: only the head moved), (c) ms per step
     and img/s, kernel and plain, (d) ``cli.vit_cp --synthetic`` with the
     same overrides and ``cli_extra``, whose best checkpoint is served.
-    Launch counters are set to 0 before (b): every kernel of ``path`` (by
-    default the 224-px route's) launched by the end of (d), none of
-    ``idle`` before its checkpoint is served.  The loss falls when its
+    ``switch`` names the ``SWITCHES`` entry the caller set (for the tag;
+    where it has an environment the CLI runs in a child process with it,
+    and every kernel of ``path`` must launch there too).  Launch counters
+    are set to 0 before (b): every kernel of
+    ``path`` (by default the 224-px route's) launched by the end of (d),
+    none of ``idle`` before its checkpoint is served.  The loss falls when its
     last value is below its first (``falls="last"``) or, for a noisier
     run (activation dropout draws new masks every step), when the mean of
     the second half of the steps is below that of the first
     (``"halves"``)."""
     overrides = overrides or {}
+    if path is None:
+        path = TRAINING_KERNELS if impl == "element" else SPLIT_KERNELS
     cfg, cara_cfg, frozen, state, data = train_setup(
         dev, model=model, batch=batch, impl=impl, method=method, lr=lr,
         **overrides)
     route = impl if method == "cara" else method
     if overrides:
         route += ":" + ",".join(f"{k}={v}" for k, v in overrides.items())
+    if switch:
+        route += ":" + switch
+    cli_env = SWITCHES[switch][1] if switch else None
     tag = (f"[train:{route}]" if model == MODEL
            else f"[train:{route}:{model}]")
     what = (f"rank {cara_cfg.rank}, weight dropout "
@@ -1420,7 +1635,16 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
         for key, value in overrides.items():
             argv += ["--model-override", f"{key}={value}"]
         t0 = time.perf_counter()
-        acc = vit_cp_cli.main(argv)
+        if cli_env is None:
+            acc = vit_cp_cli.main(argv)
+        else:
+            child = cli_child(argv, cli_env)
+            acc = "in the child"
+            print(f"{tag} the child's kernel launches: "
+                  f"{ {k: v for k, v in child.items() if v} }", flush=True)
+            for name in path:
+                require(child[name] > 0, f"{name} never launched by the "
+                        f"CLI child with {cli_env}")
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
         print(f"{tag} cli.vit_cp depth {cfg.depth}: best acc {acc}, "
               f"{time.perf_counter() - t0:.1f} s, checkpoints {ckpts}",
@@ -1435,8 +1659,6 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                 f"served checkpoint gave {logits.shape} logits")
         print(f"{tag} the best checkpoint serves: logits {logits.shape}",
               flush=True)
-    if path is None:
-        path = TRAINING_KERNELS if impl == "element" else SPLIT_KERNELS
     out["launches"] = read_launches(tuple(KERNELS))
     print(f"{tag} kernel launches on the training path: "
           f"{ {k: v for k, v in out['launches'].items() if v} }",
@@ -1516,6 +1738,81 @@ def dropout_phase(dev, model=MODEL, batch=64, long_model=MODEL_384,
     return launches
 
 
+def attnproj_eval_check(dev, ckpt, model, images, batch=64) -> None:
+    """The unmerged forward of ``ckpt`` at ``batch`` with the attention
+    megakernel off (``CARA_ATTN_MEGA=0``) and ``CARA_ATTNPROJ=1``: row 3's
+    forward serves in every layer, and the logits stay within
+    ``LOGIT_RTOL`` of max |logits| of the default route's (the
+    megakernel)."""
+    pred = Predictor.from_checkpoint_auto(
+        ckpt, model, batch_size=batch, merge=False, device=dev,
+        dtype=torch.bfloat16)
+    x = images[:batch]
+    ref = pred.logits(x)
+    reset_launches()
+    with attn_switch(**SWITCHES["CARA_ATTN_MEGA=0,CARA_ATTNPROJ=1"][0]):
+        got = pred.logits(x)
+    launches = read_launches(("fused_qkv_attention_proj", "cp_attn_block",
+                              "fused_qkv_attention"))
+    err = float(np.abs(got - ref).max())
+    tol = LOGIT_RTOL * float(np.abs(ref).max())
+    print(f"[serve:attnproj] batch {len(x)} with CARA_ATTN_MEGA=0 "
+          f"CARA_ATTNPROJ=1: launches {launches}; max|logits - default "
+          f"route's| {err:.4e}, tolerance {tol:.4e}", flush=True)
+    require(launches["fused_qkv_attention_proj"] >= pred.cfg.depth
+            and launches["cp_attn_block"] == 0
+            and launches["fused_qkv_attention"] == 0,
+            f"the attnproj eval did not run row 3 in every layer: "
+            f"{launches}")
+    require(bool(np.isfinite(got).all()) and err <= tol,
+            "attnproj eval logits disagree with the default route's")
+
+
+def switched_rank_phases(dev, steps=20, model=MODEL, batch=64, timed=True,
+                         rounds=3) -> dict:
+    """The rank route under each attention-block switch (``SWITCHES``), as
+    :func:`training_phase` with ``steps`` timed steps, the switch set in
+    ``models.vit`` around the phase (and in the environment of its CLI
+    child): each switch's kernels launch and the split route's do not.
+    Then the default rank route and both switched ones are timed in turns
+    on one setup (``rounds`` rounds of six steps a route, the order
+    reversed every other round; the first step of a turn is dropped), so
+    that the host's drift over the call does not enter the comparison.
+    Returns the launches of ``ATTN_ROUTE_KERNELS``."""
+    launches = {}
+    for name, (values, _, path, idle) in SWITCHES.items():
+        with attn_switch(**values):
+            out = training_phase(dev, timed=timed, steps=steps,
+                                 plain_steps=2, batch=batch, model=model,
+                                 impl="rank", path=path, idle=idle,
+                                 switch=name)
+        for k in ATTN_ROUTE_KERNELS:
+            if out["launches"][k]:
+                launches[k] = out["launches"][k]
+        setup = out.pop("setup")
+        del out
+    if not timed:
+        return launches
+    cfg, cara_cfg, frozen, state, data = setup
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    names = ["default", *SWITCHES]
+    turns = {k: [] for k in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            with attn_switch(**({} if name == "default"
+                                else SWITCHES[name][0])):
+                state, _, ms, _ = fixed_batch_steps(
+                    cfg, cara_cfg, frozen, state, data, generator, 6)
+            turns[name] += ms[1:]
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"[train:rank] ms per step by CUDA events in turns ({rounds} "
+          f"rounds, {len(turns['default'])} steps a route): " + "; ".join(
+              f"{k} {v:.3f} ({v / med['default']:.3f}x the default)"
+              for k, v in med.items()), flush=True)
+    return launches
+
+
 def full_step_384(dev, batch=16) -> dict:
     """One full fine-tuning step of ViT-B/16 at 384 px (577 tokens): the
     flash attention at any token count, as on the TPU, so the flash
@@ -1556,13 +1853,14 @@ def other_routes_grad_check(dev, setup) -> dict:
 
 
 def profile_steps(dev, impl, steps=5, batch=64, top=24,
-                  model=MODEL, overrides=None) -> None:
+                  model=MODEL, overrides=None, label=None) -> None:
     """``--profile``: device time by kernel of ``steps`` train steps of
     ``model`` on the ``impl`` route (or, for "linear" / "full", that
     method without an adapter) after three warm-up steps from
     ``torch.profiler``, and the busy share: the kernels' summed time over
     the step time by CUDA events of as many steps run without the
-    profiler (whose own host cost stretches its window)."""
+    profiler (whose own host cost stretches its window).  ``label``
+    names a switch the caller set in the tag."""
     from torch.profiler import ProfilerActivity, profile
 
     method = impl if impl in NO_ADAPTER else "cara"
@@ -1572,6 +1870,8 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
     tag = f"[profile:{impl}]" if model == MODEL else f"[profile:{impl}:384]"
     if overrides:
         tag = tag[:-1] + ":dropout]"
+    if label:
+        tag = tag[:-1] + f":{label}]"
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     step_fn = steps_lib.make_train_step(cfg, cara_cfg,
@@ -1631,6 +1931,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def stamp(what):  # the run's time budget, by phase
+        print(f"[time] {time.perf_counter() - t_start:.1f} s: {what}",
+              flush=True)
+
     print(nvidia_smi_line(), flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -1650,8 +1956,12 @@ def main(argv=None) -> int:
             profile_steps(dev, method)
         for impl in ("element", "rank"):
             profile_steps(dev, impl, overrides=DROPOUT)
+        for name, (values, _, _, _) in SWITCHES.items():
+            with attn_switch(**values):
+                profile_steps(dev, "rank", label=name)
         return 0
 
+    stamp("built")
     results = kernel_phase(dev, kernel_inputs(dev))
     results.update(long_kernel_phase(dev, kernel_inputs(dev, n=577)))
     results.update(flash_kernel_phase(dev, kernel_inputs(dev)))
@@ -1659,7 +1969,9 @@ def main(argv=None) -> int:
                                       suffix="_577"))
     results.update(gelu_kernel_phase(dev, kernel_inputs(dev)))
     results.update(gelu_kernel_phase(dev, kernel_inputs(dev, n=577)))
+    results.update(attn_route_kernel_phase(dev, kernel_inputs(dev)))
 
+    stamp("kernel entries")
     images = make_images(96, 224)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "vit_smoke_seed_0.npz")
@@ -1670,19 +1982,26 @@ def main(argv=None) -> int:
         reset_launches()
         serving_phase(dev, ckpt, MODEL, images)
         launches = read_launches(SERVING_KERNELS)
-    print(f"[serve] kernel launches on the serving path: {launches}",
-          flush=True)
-    for name, count in launches.items():
-        require(count > 0, f"{name} never launched on the serving path")
+        print(f"[serve] kernel launches on the serving path: {launches}",
+              flush=True)
+        for name, count in launches.items():
+            require(count > 0, f"{name} never launched on the serving path")
+        attnproj_eval_check(dev, ckpt, MODEL, images)
 
+    stamp("serving")
     train = training_phase(dev)
     launches.update({k: train["launches"][k] for k in TRAINING_KERNELS})
     split = training_phase(dev, steps=20, impl="rank")
     launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
     other_routes_grad_check(dev, split["setup"])
     del train, split
+    stamp("element and rank training")
+    # The rank route's attention-block switches: rows 6, 3 and 4.
+    launches.update(switched_rank_phases(dev))
+    stamp("the switched rank routes")
     # Activation and attention dropout: row 13's GELU body.
     launches.update(dropout_phase(dev))
+    stamp("dropout")
 
     # The 384-px route: 577 tokens, past the full-score attention's 512.
     images = make_images(96, 384)
@@ -1708,6 +2027,7 @@ def main(argv=None) -> int:
             launches.update({k: long["launches"][k] for k in LONG_KERNELS})
         del long
 
+    stamp("384 px")
     # The routes without an adapter: full fine-tuning through the flash
     # attention (row 17), the linear probe over the fused one.
     no_flash = ("fused_qkv_attention", "fused_qkv_attention_bwd")
@@ -1724,6 +2044,7 @@ def main(argv=None) -> int:
     for name in FLASH_KERNELS:
         launches[name + "_577"] = long_full[name]
 
+    stamp("without an adapter")
     kernels = []
     for name, (_, _, src, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,

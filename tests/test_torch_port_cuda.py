@@ -18,7 +18,10 @@ one step of each route; for the 384-px route's kernels (the blockwise
 attention, the element-dropout sites and row 15) key tiles wholly past
 ``n_real``, and a tiny model at 577 tokens; for row 17 (the flash
 attention) strided and contiguous q, k, v at 197 and 577 tokens, a head
-width other than 64 refused, and a train step without an adapter.
+width other than 64 refused, and a train step without an adapter; for
+the attention-block switches (rows 3, 4 and 6) masked keys, idle query
+warps, head widths 64, 32 and 16, ranks 5, 8 and 40, and a rank step
+under each switch.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -490,4 +493,53 @@ def test_regularised_and_impl_train_steps_on_card_match_plain(
     before = {k: _launches(k) for k in names}
     chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g, impls=impls)
     for name in names:
+        assert _launches(name) > before[name], name
+
+
+# (b, n, n_real, e, heads, hidden, r): head dims 64, 32 and 16; masked
+# keys; at N = 37 the last query warp of the 64-row tile is wholly past
+# N; ranks 5, 8 and 40 (the attention + projection kernel's z step pads
+# them to 8, 8 and 40 columns).
+ATTN_ROUTE_SHAPES = [(3, 37, 30, 128, 2, 512, 5),
+                     (2, 197, 197, 256, 8, 1024, 8),
+                     (5, 50, 41, 64, 4, 256, 40)]
+
+
+@pytest.mark.parametrize("shape", ATTN_ROUTE_SHAPES,
+                         ids=["dh64_r5", "dh32_r8", "dh16_r40"])
+def test_attn_route_kernels_match_plain(dev, shape):
+    """Row 3 (attention + projection), its backward with row 4, and row 6
+    (the attention megakernel's backward) against their fp32 plain twins,
+    each counted once per call; a zero drop-path gate passes the
+    residual's cotangent through row 6 untouched."""
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=9, n_real=n_real,
+                                   zero_gates=1)
+    calls = chip_smoke.attn_route_kernel_calls(inp)
+    assert sorted(calls) == sorted(chip_smoke.ATTN_ROUTE_KERNELS)
+    for name, (kern, _, ref32) in calls.items():
+        before = _launches(name)
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+        assert _launches(name) == before + 1, name
+    dx = calls["cp_attn_block_bwd"][0]()["x"]
+    assert torch.equal(dx[0], inp["g_attn"][0])
+
+
+@pytest.mark.parametrize("switch", list(chip_smoke.SWITCHES))
+def test_switched_rank_train_step_on_card_matches_plain(dev, switch):
+    """A tiny model's rank step under each attention-block switch: every
+    gradient within chip_smoke's bound of the fp32 plain path, the
+    switch's kernels launched."""
+    values, _, path, _ = chip_smoke.SWITCHES[switch]
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model="vit_tiny_test", batch=6, rank=4, impl="rank")
+    before = {k: _launches(k) for k in path}
+    with chip_smoke.attn_switch(**values):
+        chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in path:
         assert _launches(name) > before[name], name

@@ -120,16 +120,12 @@ def _wrapper_call(name):
 @pytest.mark.parametrize("name", ["fused_qkv_attention", "cp_attn_block",
                                   "cp_mlp_block"])
 def test_wrapper_refuses_autograd(name):
-    """``cp_attn_block`` is forward only (its backward, TPU row 6, is not
-    ported) and refuses to be recorded; ``fused_qkv_attention`` and
-    ``cp_mlp_block`` carry their backward kernels (rows 2 and 10)."""
+    """Each block wrapper records through autograd: ``cp_attn_block``,
+    ``fused_qkv_attention`` and ``cp_mlp_block`` carry their backward
+    kernels (rows 6, 2 and 10) and give a finite input gradient."""
     x, call = _wrapper_call(name)
     x.requires_grad_(True)
-    if name == "cp_attn_block":
-        with pytest.raises(RuntimeError, match="forward-only"):
-            call()
-    else:
-        (grad,) = torch.autograd.grad(call().sum(), [x])
-        assert torch.isfinite(grad).all()
+    (grad,) = torch.autograd.grad(call().sum(), [x])
+    assert torch.isfinite(grad).all()
     with torch.no_grad():
         assert torch.isfinite(call()).all()
