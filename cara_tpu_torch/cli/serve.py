@@ -2,9 +2,13 @@
 GPU (port of ``cara_tpu/cli/serve.py``, single task).
 
 Run: ``python -m cara_tpu_torch.cli.serve --ckpt vit_cifar_*.npz --port 8000``
-(add ``--no-merge`` to keep the adapter unfolded).  The options of the
-JAX CLI that serve a StableHLO artifact, several tasks, int8 weights or
-ToMe are accepted but refused, naming the ROADMAP item that ports them.
+(add ``--no-merge`` to keep the adapter unfolded).  ``--quantize int8``
+serves int8 block weights (weight-only), ``--quantize w8a8`` int8
+activations too (``models/quant.py``); with ``CARA_INT8_PALLAS=1`` in the
+environment the weight-only GEMMs run the dequant-fused int8 kernel on
+the card (TPU row 18).  The options of the JAX CLI that serve a
+StableHLO artifact, several tasks or ToMe are accepted but refused,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -55,10 +59,13 @@ def parse_args(argv=None):
                         "request then pays the kernel build)")
     p.add_argument("--no-merge", action="store_true",
                    help="Keep the adapter path instead of folding weights")
+    p.add_argument("--quantize", default=None, choices=["int8", "w8a8"],
+                   help="int8 block weights: 'int8' weight-only (with "
+                        "CARA_INT8_PALLAS=1 through the dequant-fused "
+                        "kernel), 'w8a8' int8 activations too")
     # JAX-CLI options whose paths are not yet ported: refused below.
     p.add_argument("--exported", default=None, help=argparse.SUPPRESS)
     p.add_argument("--backbone", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--quantize", default=None, help=argparse.SUPPRESS)
     p.add_argument("--tome-r", default=0, type=int, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
@@ -76,7 +83,6 @@ def main(argv=None):
     for flag, value, item in (
             ("--exported", args.exported, _PEFT),
             ("--backbone", args.backbone, _MULTI_TASK),
-            ("--quantize", args.quantize, _PEFT),
             ("--tome-r", args.tome_r, _PEFT)):
         if value:
             raise SystemExit(f"{flag} is not yet ported to cara_tpu_torch "
@@ -90,7 +96,8 @@ def main(argv=None):
         args.ckpt[0], args.model, num_classes=args.num_classes,
         scale=args.scale, merge=not args.no_merge,
         batch_size=args.max_batch, dtype=getattr(torch, args.dtype),
-        device=args.device, buckets=_parse_buckets(args.buckets))
+        device=args.device, buckets=_parse_buckets(args.buckets),
+        quantize=args.quantize)
 
     from cara_tpu_torch.server import InferenceServer
 

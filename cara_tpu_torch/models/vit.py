@@ -40,6 +40,10 @@ layer loop is plain Python (eager PyTorch has no ``scan`` to lower).
 * ``dense_impl="xla"``: the GEMMs (``F.linear``, as XLA ops outside any
   Pallas kernel in the reference) with the CP deltas of ``ops/cp.py``
   beside them, the element route's masks on the materialized deltas.
+  Blocks quantized by ``models/quant.py`` (int8 quant dicts in place of
+  the four block kernels) take this form only ("auto" resolves to it,
+  "fused" is refused): :func:`matk` computes each GEMM, the bias added
+  after it, and an adapter's delta on top, as in the reference.
 
 Without an adapter (the linear probe and full fine-tuning train this
 way, ``cara_params=None``) the XLA forms are the default, and in eval
@@ -48,7 +52,8 @@ launch the CUDA kernels for CUDA tensors and run their plain versions
 for CPU tensors; ``impl="plain"`` calls the plain versions on any device
 (the reference the kernels are held against).  Of the reference's
 ``CARA_*`` knobs, ``CARA_ATTN_MEGA`` and ``CARA_ATTNPROJ`` are honoured,
-read from the environment at import as JAX reads them; the TPU-only
+read from the environment at import as JAX reads them, and
+``CARA_INT8_PALLAS``, read by :func:`matk` at each call; the TPU-only
 machinery (the 197 -> 200 stream pad, tile pickers, tune cache, the
 other knobs) is not ported.
 
@@ -67,6 +72,7 @@ import torch
 
 from cara_tpu_torch.config import CaraConfig, ViTConfig
 from cara_tpu_torch.models import cara as cara_lib
+from cara_tpu_torch.models.quant import is_quantized
 from cara_tpu_torch.ops import cp as cp_ops
 from cara_tpu_torch.ops.cp import weight_dropout_mask
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
@@ -75,6 +81,7 @@ from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
+from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.layers import (activation, dropout, layer_norm,
                                        linear, mha)
 
@@ -101,6 +108,65 @@ def _attn_mega_on(use_elem: bool, training: bool) -> bool:
     if _ATTN_MEGA in ("0", "1"):
         return _ATTN_MEGA == "1"
     return use_elem or not training
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 (..., K) x int8 (K, N) -> int32, exact.  JAX leaves this
+    product to XLA, outside any Pallas kernel: on the card it is
+    ``torch._int_mm`` (the int8 tensor cores; it wants more than 16 rows
+    and K, N multiples of 8, and runs fastest on a column-major ``wq``,
+    which ``Predictor`` keeps), on the CPU an int32 matmul."""
+    lead, k = xq.shape[:-1], xq.shape[-1]
+    x2 = xq.reshape(-1, k)
+    if xq.is_cuda:
+        y = torch._int_mm(x2.contiguous(), wq)
+    else:
+        y = x2.to(torch.int32) @ wq.to(torch.int32)
+    return y.reshape(*lead, wq.shape[1])
+
+
+def matk(x: torch.Tensor, kernel, impl: str = "auto") -> torch.Tensor:
+    """``x @ kernel`` where ``kernel`` may be an int8 quant dict of
+    ``models/quant.py`` (the reference's ``matk``, vit.py:182-222):
+
+    * ``{"qa", "scale"}`` (w8a8): per-token symmetric activation codes
+      ``round(x / ax)``, ``ax = max(max|x| / 127, 1e-12)`` (exact row
+      maxima, so no code clips), the int8 x int8 -> int32 product, then
+      ``y32 * ax * scale`` in fp32, cast to ``x.dtype``;
+    * ``{"q", "scale"}`` (w8): with ``CARA_INT8_PALLAS=1`` (read at each
+      call, as the reference reads it), a CUDA ``x`` and a 2-D kernel
+      whose dims are multiples of 128, the dequant-fused GEMM kernel
+      (TPU row 18, ``ops/cuda/int8_dense.py``) with a zero bias, or
+      its plain version for ``impl="plain"``; otherwise ``(x @ q) *
+      scale`` in ``x.dtype``."""
+    if isinstance(kernel, dict) and "qa" in kernel:
+        wq, s = kernel["qa"], kernel["scale"]
+        x32 = x.float()
+        ax = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True) / 127.0,
+                             1e-12)
+        xq = torch.round(x32 / ax).to(torch.int8)
+        y32 = _int8_matmul(xq, wq)
+        return (y32.float() * ax * s.float()).to(x.dtype)
+    if isinstance(kernel, dict) and "q" in kernel:
+        wq, s = kernel["q"], kernel["scale"]
+        mult = int8_mod.DIM_MULTIPLE
+        if (os.environ.get("CARA_INT8_PALLAS") == "1" and x.is_cuda
+                and wq.dim() == 2 and wq.shape[0] % mult == 0
+                and wq.shape[1] % mult == 0):
+            return int8_mod.int8_dense(x, wq, s.reshape(-1),
+                                       x.new_zeros((wq.shape[1],)),
+                                       impl=impl)
+        return (x @ wq.to(x.dtype)) * s.to(x.dtype)
+    return x @ kernel
+
+
+def _dense(x: torch.Tensor, lin, impl: str) -> torch.Tensor:
+    """A block's dense site of the XLA form: ``linear`` for a float
+    kernel, ``matk(x, kernel) + bias`` for a quant dict (the bias added
+    after the product, as the reference adds it)."""
+    if is_quantized(lin["kernel"]):
+        return matk(x, lin["kernel"], impl) + lin["bias"]
+    return linear(x, lin["kernel"], lin["bias"])
 
 
 def patch_embed(params: Params, x: torch.Tensor,
@@ -304,7 +370,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         else:  # the qkv GEMM, plus the XLA qkv delta with an adapter
             xa = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"],
                             cfg.layernorm_eps)
-            qkv = linear(xa, bp["qkv"]["kernel"], bp["qkv"]["bias"])
+            qkv = _dense(xa, bp["qkv"], impl)
             if use_cara:
                 delta = cara_lib.qkv_delta(
                     row_x(xa, 0), cara_params, f1, cfg, cara_cfg,
@@ -337,8 +403,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                 proj = dense_mod.cp_dense(attn_out, *attn_args[5:10], 1.0,
                                           impl=impl)
             else:
-                proj = linear(attn_out, bp["proj"]["kernel"],
-                              bp["proj"]["bias"])
+                proj = _dense(attn_out, bp["proj"], impl)
                 if use_elem:
                     pd = cp_ops.rows_delta_out_materialized(
                         attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
@@ -384,7 +449,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                 cfg.layernorm_eps, impl=impl, act=cfg.activation)
     else:
         xm = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.layernorm_eps)
-        up = linear(xm, bp["fc1"]["kernel"], bp["fc1"]["bias"])
+        up = _dense(xm, bp["fc1"], impl)
         if use_elem:
             ud = cp_ops.rows_delta_out_materialized(xm, p1_up, p2, p3, r2,
                                                     wmask("fc1"))
@@ -402,7 +467,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     elif fused_dense:
         down = dense_mod.cp_dense(hidden, *fc2_args, 1.0, impl=impl)
     else:
-        down = linear(hidden, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+        down = _dense(hidden, bp["fc2"], impl)
         if use_elem:
             dd = cp_ops.rows_delta_in_materialized(hidden, p1_down, p2, p3,
                                                    r2, wmask("fc2"))
@@ -483,13 +548,15 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
 
 
 def resolve_impls(attn_impl: str, dense_impl: str,
-                  cara_cfg: Optional[CaraConfig]):
+                  cara_cfg: Optional[CaraConfig], quantized: bool = False):
     """(attn_impl, dense_impl) of a forward with (``cara_cfg``) or without
     an adapter, "auto" resolved as on the TPU (``_resolve_impls``,
     ``resolve_dense_impl``): the fused attention; the fused dense sites
     with CaRA, the XLA GEMMs without.  Full fine-tuning takes the flash
     attention for "fused" and refuses the fused dense sites, whose
-    backward gives the backbone no gradient."""
+    backward gives the backbone no gradient.  ``quantized`` blocks (int8
+    quant dicts) take the XLA dense forms, with or without an adapter,
+    and refuse "fused" (``vit.py:1297-1311``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -499,7 +566,11 @@ def resolve_impls(attn_impl: str, dense_impl: str,
     method = None if cara_cfg is None else cara_cfg.method
     attn_impl = "fused" if attn_impl == "auto" else attn_impl
     if dense_impl == "auto":
-        dense_impl = "fused" if method == "cara" else "xla"
+        dense_impl = "fused" if method == "cara" and not quantized else "xla"
+    if quantized and dense_impl == "fused":
+        raise ValueError(
+            "int8-quantized weights require dense_impl='xla': the fused "
+            "kernels consume dense kernel arrays, not quant dicts")
     if method == "full":
         if dense_impl == "fused":
             raise ValueError(
@@ -529,12 +600,14 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     ``generator``, the dropout masks one layer at a time.  ``attn_impl``
     ("fused", "flash", "xla" or "auto", the fused one) and
     ``dense_impl`` ("fused", "xla" or "auto", fused with an adapter and
-    XLA without) pick the block's forms."""
+    XLA without or on int8-quantized blocks) pick the block's forms."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    attn_impl, dense_impl = resolve_impls(attn_impl, dense_impl, cara_cfg)
+    attn_impl, dense_impl = resolve_impls(
+        attn_impl, dense_impl, cara_cfg,
+        quantized=is_quantized(params["blocks"]["qkv"]["kernel"]))
     if train:
         check_trainable(cfg, cara_cfg)
         if randomness is None:

@@ -59,6 +59,9 @@ _SIGNATURES = {
     "cara_gate_rows": [_P] * 3 + [_I, _I, _P],
     "cara_ln_bwd_residual": [_P] * 5 + [_I, _I, _F, _P],
     "cara_colsum": [_P, _I, _P, _P, _I, _I, _P],
+    "cara_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
+    "cara_block_pair": [_P] * 20 + [_I] * 8 + [_F] * 3 + [_P],
+    "cara_block_pair_smem": [_I, _I, _I],
 }
 
 _lock = threading.Lock()
@@ -162,6 +165,15 @@ def stream_ptr(device: torch.device) -> int:
 def ptr(t):
     """Device pointer of a tensor (None -> NULL)."""
     return None if t is None else t.data_ptr()
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd would record through a forward-only kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward only (inference, as in the reference): "
+            "call it under torch.no_grad() or torch.inference_mode()")
 
 
 def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:

@@ -7,8 +7,15 @@ split: :meth:`Predictor.logits_async` queues the forward on the CUDA
 stream and returns a ``fetch`` that copies the logits to the host, so a
 server can overlap batch N's compute with batch N-1's copy-out.
 
-``MultiTaskPredictor``, the StableHLO export, int8 quantization and ToMe
-stay in ``cara_tpu`` for now.
+``quantize="int8"`` (weight-only) or ``"w8a8"`` (int8 activations too)
+quantizes the four block kernels after the merge (``models/quant.py``);
+the blocks then run the XLA dense forms through ``models.vit.matk``, and
+an unmerged adapter's delta adds on top.  With ``CARA_INT8_PALLAS=1`` in
+the environment (read at each forward) the weight-only GEMMs on the card
+run the dequant-fused int8 kernel (TPU row 18).
+
+``MultiTaskPredictor``, the StableHLO export and ToMe stay in
+``cara_tpu`` for now.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import torch
 from cara_tpu_torch.config import CaraConfig, ViTConfig
 from cara_tpu_torch.models.convert import map_floating, params_from_numpy
 from cara_tpu_torch.models.merge import merge_cara
+from cara_tpu_torch.models.quant import (
+    column_major_codes, quantize_block_weights)
 from cara_tpu_torch.models.vit import vit_forward
 
 
@@ -85,10 +94,15 @@ class Predictor:
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
         buckets="auto",
+        quantize: Optional[str] = None,
     ):
         """``params`` / ``cara_params``: numpy or tensor trees in the JAX
         layout (``train.checkpoint.load_model``).  The merge runs in fp32
-        on ``device``; the served weights are then cast to ``dtype``."""
+        on ``device``, then ``quantize`` (None, "int8" or "w8a8")
+        quantizes the block kernels, and the floating weights are cast to
+        ``dtype`` (the int8 codes stay int8), in the reference's order."""
+        if quantize not in (None, "int8", "w8a8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = torch.device(device)
         params = params_from_numpy(params, self.device, torch.float32)
         if cara_params is not None:
@@ -97,6 +111,13 @@ class Predictor:
             if merge:
                 params = merge_cara(params, cara_params, cfg, cara_cfg)
                 cara_params = cara_cfg = None
+        if quantize is not None:
+            # "int8" is weight-only (w8, the reference's legacy name).
+            params = quantize_block_weights(
+                params, mode="w8a8" if quantize == "w8a8" else "w8")
+            if quantize == "w8a8":
+                params = column_major_codes(params)
+        self.quantize = quantize
         self.cfg = cfg
         self.batch_size = batch_size
         self.buckets = _resolve_buckets(buckets, batch_size)

@@ -86,23 +86,47 @@ fatal on failure:
    CLI in this process, its eval through row 3 too), 20 timed steps
    each: under each, the switch's kernels launch and the split route's
    attention wrappers do not; then the default rank route and both
-   switched ones timed in turns on one setup (ms per step by CUDA events).
+   switched ones timed in turns on one setup (ms per step by CUDA events);
+11. quantized serving and the whole-block eval kernel (run after 4, on
+   its checkpoint): the kernel entries of TPU row 18 (``int8_dense``, the
+   dequant-fused int8 GEMM) at M = 12608 and 197 for the qkv (768 ->
+   2304) and fc2 (3072 -> 768) sites, with ``torch._weight_int8pack_mm``
+   as the yardstick, and of row 19 (``block_pair_fwd``) at phase 3's
+   shapes, also against the port's split halves (rows 5 and 9) on the
+   card, whose time is its yardstick (run with phase 3's); the
+   checkpoint served through ``Predictor.from_checkpoint_auto`` merged
+   with ``quantize="int8"`` and ``"w8a8"`` and unmerged with ``"int8"``,
+   each bucket's forward with ``CARA_INT8_PALLAS`` unset and set (row 18
+   launches 48 times a forward on the weight-only modes with it, never
+   without it or on w8a8), logits against the unquantized bf16
+   ``Predictor`` with the JAX package's bounds (``QUANT_BOUNDS``, argmax
+   agreement >= 0.9 on 64 images), img/s at batch 64 and the batch-1
+   latency on the host clock; ``python -m cara_tpu_torch.cli.serve
+   --quantize int8`` in a child with ``CARA_INT8_PALLAS=1`` answering 8
+   PNG requests over HTTP (``/stats`` counts them; its row 18 counter
+   is 48 for each forward it ran); then the unmerged ViT-B forward with
+   every block through row 19 (once a layer), its logits within 5 % of
+   the default route's.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
 bf16 tensor-core peak and its bytes, each input read and each output
 written once, over the memory rate), and, for the attention forwards and
 backwards, the time of ``F.scaled_dot_product_attention`` on the same
-inputs (a yardstick only; the port never calls it).  The line before the
-last is a JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+inputs (a yardstick only; the port never calls it), for row 18
+``torch._weight_int8pack_mm``; row 19 has none and carries
+``split_ms``, the time of rows 5 and 9 on the same block.  The line
+before the last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
 at 384 px, of full fine-tuning and the linear probe at 224 px, of the
 element and rank routes with activation dropout 0.1 at 224 px, and of
 the rank route under each attention-block switch (``torch.profiler``),
-with the busy share.
+with the busy share; then merged serving at batch 64 in bf16, int8 with
+and without ``CARA_INT8_PALLAS=1`` and w8a8 (also with row-major codes):
+img/s in turns and a forward's device time by kernel.
 """
 
 from __future__ import annotations
@@ -111,8 +135,10 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -128,16 +154,20 @@ import torch.nn.functional as F
 from cara_tpu_torch.cli import vit_cp as vit_cp_cli
 from cara_tpu_torch.config import NO_ADAPTER, CaraConfig, get_model_config
 from cara_tpu_torch.data.vtab import normalize
+from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import convert
+from cara_tpu_torch.models import quant as quant_lib
 from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.vit import vit_forward
 from cara_tpu_torch.ops.cuda import _build, wd_fold
+from cara_tpu_torch.ops.cuda import block_pair as pair_mod
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
+from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.layers import layer_norm
 from cara_tpu_torch.server import InferenceServer
 from cara_tpu_torch.serving import Predictor
@@ -249,6 +279,27 @@ KERNELS = {
     "cp_attn_block_bwd": (
         attn_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
         "cara_tpu/ops/pallas/cp_attn_block.py:356"),
+    # Row 18, the dequant-fused int8 GEMM of quantized serving with
+    # CARA_INT8_PALLAS=1, at the qkv site (768 -> 2304) and the fc2 site
+    # (3072 -> 768), batch 64 and batch 1 (launches: the quantized
+    # serving phase, every site of every layer).
+    "int8_dense": (
+        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
+        "cara_tpu/ops/pallas/int8_dense.py:64"),
+    "int8_dense_m197": (
+        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
+        "cara_tpu/ops/pallas/int8_dense.py:64"),
+    "int8_dense_fc2": (
+        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
+        "cara_tpu/ops/pallas/int8_dense.py:64"),
+    "int8_dense_fc2_m197": (
+        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
+        "cara_tpu/ops/pallas/int8_dense.py:64"),
+    # Row 19, the whole-block eval kernel (launches: the unmerged ViT-B
+    # forward with every block through it).
+    "block_pair_fwd": (
+        pair_mod, "LAUNCHES", "cara_tpu_torch/csrc/block_pair.cu",
+        "cara_tpu/ops/pallas/block_pair.py:88"),
 }
 GELU_KERNELS = ("cp_dense_gelu", "cp_dense_dact", "cp_dense_wd_gelu",
                 "cp_dense_wd_dact")
@@ -346,7 +397,9 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_dense_wd_gelu": (2e-2, 2e-2),
               "cp_dense_wd_dact": (5e-2, 5e-2),
               "fused_qkv_attention_proj": (2e-2, 2e-2),
-              "cp_attn_block_bwd": (5e-2, 5e-2)}
+              "cp_attn_block_bwd": (5e-2, 5e-2),
+              "int8_dense": (2e-2, 2e-2),
+              "block_pair_fwd": (2e-2, 2e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -839,6 +892,124 @@ def attn_route_kernel_phase(dev, inp, timed: bool = True) -> dict:
     return check_entries(dev, inp, attn_route_kernel_calls(inp), timed)
 
 
+# Row 18's entries: name suffix -> (M, K, N), the qkv and fc2 sites of
+# ViT-B at batch 64 (M = 64 * 197) and at batch 1.
+INT8_SHAPES = {"": (12608, 768, 2304), "_m197": (197, 768, 2304),
+               "_fc2": (12608, 3072, 768), "_fc2_m197": (197, 3072, 768)}
+
+
+def int8_inputs(dev, m, k, n, seed=0) -> dict:
+    """bf16 x (M, K) and bias (N,), and the int8 codes and bf16 scale of
+    a seeded bf16 (K, N) weight by ``models/quant.py``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(
+            torch.bfloat16)
+
+    q = quant_lib.quantize_kernel(rnd(k, n, std=0.02))
+    return dict(x=rnd(m, k), wq=q["q"], scale=q["scale"].reshape(n),
+                b=rnd(n, std=0.02))
+
+
+def int8_kernel_phase(dev, timed: bool = True, shapes=None) -> dict:
+    """Row 18's entries at ``shapes`` (``INT8_SHAPES``): the kernel
+    against its fp32 plain version; its yardstick is
+    ``torch._weight_int8pack_mm`` on the same x, codes and scale (no
+    bias), a PyTorch call the port never makes."""
+    out = {}
+    for suffix, (m, k, n) in (shapes or INT8_SHAPES).items():
+        t = int8_inputs(dev, m, k, n)
+        args = (t["x"], t["wq"], t["scale"], t["b"])
+        args32 = (t["x"].float(), t["wq"], t["scale"].float(),
+                  t["b"].float())
+        work = {"int8_dense": (2 * m * k * n,
+                               2 * m * k + k * n + 4 * n + 2 * m * n)}
+        w_nk = t["wq"].t().contiguous()
+        library = {"int8_dense": lambda: torch._weight_int8pack_mm(
+            t["x"], w_nk, t["scale"])}
+        print(f"[kernel] int8_dense (row 18) at M {m}, K {k}, N {n} "
+              "(library: torch._weight_int8pack_mm, no bias):", flush=True)
+        res = check_entries(
+            dev, t, {"int8_dense": (lambda: int8_mod.int8_dense(*args),
+                                    lambda: int8_mod.int8_dense_plain(*args),
+                                    lambda: int8_mod.int8_dense_plain(
+                                        *args32))},
+            timed, work=work, library=library)
+        out["int8_dense" + suffix] = res["int8_dense"]
+    return out
+
+
+def pair_args(inp) -> tuple:
+    """``block_pair_fwd``'s tensor arguments from ``inp``'s attention and
+    MLP halves (two blocks' halves, as the entries of rows 5 and 9)."""
+    a, m = inp["attn"], inp["mlp"]
+    return (a["x"], a["wq"], a["bq"], a["u1"], a["v1"], a["wp"], a["bp"],
+            a["u2"], a["v2"], a["cb2"], a["ln_scale"], a["ln_bias"],
+            m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"], m["w2"], m["b2"],
+            m["u2"], m["v2"], m["cb2"], m["ln_scale"], m["ln_bias"])
+
+
+def split_halves(inp, args):
+    """The port's two half-block kernels (rows 5 and 9) with unit gates
+    on the same block: what row 19 computes in two launches."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    b = args[0].shape[0]
+    ones = args[0].new_ones((b, 1))
+    xm = attn_mod.cp_attn_block(*args[:12], ones, h, sm, n)
+    return mlp_mod.cp_mlp_block(xm, *args[12:], ones.reshape(b, 1, 1))
+
+
+def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """Row 19's entry at ``inp``'s shapes against its fp32 plain version,
+    then against the port's split halves (rows 5 and 9) on the card:
+    max |difference| within twice the forward tolerance (each is within
+    it of the fp32 reference).  No PyTorch call computes a block, so the
+    entry's ``library_ms`` is None; ``split_ms`` is the split halves'
+    time, its yardstick."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    args = pair_args(inp)
+    args32 = tuple(t.float() for t in args)
+    a, m = inp["attn"], inp["mlp"]
+    e, hid = inp["e"], m["w1"].shape[1]
+    r, rows = a["u1"].shape[1], inp["b"] * inp["n"]
+
+    def site(k, nout):
+        return 2 * rows * (k * nout + k * r + r * nout)
+
+    weights = sum(2 * t.numel() for t in args[1:])
+    # the two halves' products; x read and y written (qkv, the attention
+    # output, x_mid and h are the kernels' own)
+    work = {"block_pair_fwd": (
+        site(e, 3 * e) + 4 * inp["b"] * inp["n"] * n * e + site(e, e)
+        + site(e, hid) + site(hid, e), 2 * rows * e * 2 + weights)}
+    print(f"[kernel] block_pair_fwd (row 19) at B {inp['b']}, N "
+          f"{inp['n']}, E {e}, H {h}, hidden {hid}:", flush=True)
+    out = check_entries(
+        dev, inp, {"block_pair_fwd": (
+            lambda: pair_mod.block_pair_fwd(*args, h, sm, n, 1.0),
+            lambda: pair_mod.block_pair_fwd_plain(*args, h, sm, n, 1.0),
+            lambda: pair_mod.block_pair_fwd_plain(*args32, h, sm, n, 1.0))},
+        timed, work=work, library={})
+    got = pair_mod.block_pair_fwd(*args, h, sm, n, 1.0).float()
+    ref = split_halves(inp, args).float()
+    atol, rtol = KERNEL_TOL["block_pair_fwd"]
+    err = (got - ref).abs()
+    excess = (err - 2 * (atol + rtol * ref.abs())).max().item()
+    print(f"[kernel] block_pair_fwd vs the split halves (rows 5 + 9): "
+          f"max|diff| {err.max().item():.3e}, tolerance 2 x (atol {atol} "
+          f"+ rtol {rtol}*|ref|) ({'ok' if excess <= 0 else 'MISS'})",
+          flush=True)
+    require(excess <= 0, "block_pair_fwd disagrees with the split halves")
+    split_ms = median_ms(lambda: split_halves(inp, args)) if timed else None
+    if timed:
+        print(f"[kernel] block_pair_fwd: split halves (rows 5 + 9) "
+              f"{split_ms:.4f} ms", flush=True)
+    out["block_pair_fwd"]["split_ms"] = split_ms
+    return out
+
+
 def kernel_work(inp) -> dict:
     """name -> (operations, bytes) of each entry's call at these inputs:
     the products the function needs (a backward recomputes what its
@@ -1121,9 +1292,17 @@ def blockwise_lse_check(qkv, heads, sm, n_real) -> float:
     return err
 
 
-def check_entries(dev, inp, calls, timed: bool) -> dict:
-    work = kernel_work(inp)
-    library = library_calls(inp) if timed else {}
+def check_entries(dev, inp, calls, timed: bool, work=None,
+                  library=None) -> dict:
+    """Each entry of ``calls`` against its fp32 plain version, timed;
+    ``work`` (name -> (operations, bytes)) and ``library`` (name -> one
+    PyTorch call) default to :func:`kernel_work` and
+    :func:`library_calls` of ``inp``."""
+    work = kernel_work(inp) if work is None else work
+    if not timed:
+        library = {}
+    elif library is None:
+        library = library_calls(inp)
     results = {}
     for name, (kern, plain, ref32) in calls.items():
         out = kern()
@@ -1768,6 +1947,278 @@ def attnproj_eval_check(dev, ckpt, model, images, batch=64) -> None:
             "attnproj eval logits disagree with the default route's")
 
 
+# Quantized serving against the unquantized bf16 Predictor on the same
+# weights, the JAX package's own bounds (tests/test_quant.py): max |dlogit|
+# < k * std(reference logits) + c, and argmax agreement.
+QUANT_BOUNDS = {"int8": (0.1, 0.05), "w8a8": (0.25, 0.1)}
+ARGMAX_AGREE = 0.9
+
+
+@contextlib.contextmanager
+def int8_switch(on: bool):
+    """``CARA_INT8_PALLAS`` set to "1" (``on``) or unset in ``os.environ``
+    inside the block, restored after it (``models.vit.matk`` reads it at
+    each call, as the reference does)."""
+    old = os.environ.pop("CARA_INT8_PALLAS", None)
+    if on:
+        os.environ["CARA_INT8_PALLAS"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CARA_INT8_PALLAS", None)
+        if old is not None:
+            os.environ["CARA_INT8_PALLAS"] = old
+
+
+def host_timing(pred, images, batch=64, iters=10, singles=20) -> str:
+    """img/s through ``Predictor.logits`` at ``batch`` and the median
+    latency of a 1-image call, both on the host clock (each call ends in
+    the copy-out)."""
+    x = images[:batch]
+    pred.logits(x)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred.logits(x)
+    rate = iters * len(x) / (time.perf_counter() - t0)
+    lat = []
+    for i in range(singles):
+        t0 = time.perf_counter()
+        pred.logits(images[i:i + 1])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return (f"{rate:.1f} img/s at batch {len(x)}, batch-1 latency "
+            f"{statistics.median(lat):.3f} ms (median of {singles}; host "
+            "clock)")
+
+
+def quant_logit_check(tag, got, ref, mode) -> None:
+    k, c = QUANT_BOUNDS[mode]
+    err = float(np.abs(got - ref).max())
+    tol = k * float(np.std(ref)) + c
+    agree = float((got.argmax(-1) == ref.argmax(-1)).mean())
+    print(f"[{tag}] max|logits - bf16 Predictor's| {err:.4e}, bound "
+          f"{tol:.4e} ({k} x std + {c}); argmax agreement {agree:.4f} of "
+          f"{len(ref)} (bound {ARGMAX_AGREE})", flush=True)
+    require(bool(np.isfinite(got).all()), f"{tag}: non-finite logits")
+    require(err < tol, f"{tag}: quantized logits too far from bf16")
+    require(agree >= ARGMAX_AGREE, f"{tag}: argmax agreement {agree}")
+
+
+def quant_serving_phase(dev, ckpt, model, images, batch=64,
+                        timed=True) -> int:
+    """Phase 4's checkpoint served quantized through
+    ``Predictor.from_checkpoint_auto``: merged ``quantize="int8"`` and
+    ``"w8a8"``, unmerged ``"int8"``, each held against the unquantized
+    bf16 Predictor of the same merge on ``batch`` images
+    (``QUANT_BOUNDS``).  Every bucket's forward is run with
+    ``CARA_INT8_PALLAS`` unset and set: row 18 launches 4 x depth times a
+    forward with it on the weight-only modes, and never without it or on
+    w8a8.  Returns row 18's launches."""
+    x = images[:batch]
+    refs = {}
+    for merge in (True, False):
+        base = Predictor.from_checkpoint_auto(
+            ckpt, model, batch_size=batch, merge=merge, device=dev,
+            dtype=torch.bfloat16)
+        refs[merge] = base.logits(x)
+        if timed:
+            print(f"[serve:bf16:{'merged' if merge else 'adapter'}] "
+                  f"{host_timing(base, images, batch)}", flush=True)
+        del base
+    launches = 0
+    for mode, merge in (("int8", True), ("w8a8", True), ("int8", False)):
+        pred = Predictor.from_checkpoint_auto(
+            ckpt, model, batch_size=batch, merge=merge, device=dev,
+            dtype=torch.bfloat16, quantize=mode)
+        per_forward = 4 * pred.cfg.depth if mode == "int8" else 0
+        for switch in (False, True):
+            tag = (f"serve:{mode}:{'merged' if merge else 'adapter'}"
+                   f"{':CARA_INT8_PALLAS=1' if switch else ''}")
+            want = per_forward if switch else 0
+            with int8_switch(switch):
+                counts = []
+                for b in pred.buckets:
+                    reset_launches()
+                    pred.logits(x[:b])
+                    counts.append(int8_mod.LAUNCHES)
+                reset_launches()
+                got = pred.logits(x)
+                counts.append(int8_mod.LAUNCHES)
+                print(f"[{tag}] row 18 launches a forward, buckets "
+                      f"{pred.buckets} then batch {len(x)}: {counts} "
+                      f"(want {want} each)", flush=True)
+                require(all(c == want for c in counts),
+                        f"{tag}: row 18 launched {counts}, want {want}")
+                if switch:
+                    launches += sum(counts)
+                quant_logit_check(tag, got, refs[merge],
+                                  "w8a8" if mode == "w8a8" else "int8")
+                if timed:
+                    print(f"[{tag}] {host_timing(pred, images, batch)}",
+                          flush=True)
+        del pred
+    return launches
+
+
+def _png(image) -> bytes:
+    """A normalized image back to 8-bit RGB, PNG-encoded."""
+    from PIL import Image
+
+    from cara_tpu_torch.data.vtab import IMAGENET_MEAN, IMAGENET_STD
+    raw = np.clip((image * IMAGENET_STD + IMAGENET_MEAN) * 255.0, 0, 255)
+    buf = io.BytesIO()
+    Image.fromarray(raw.round().astype(np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def quant_cli_child(ckpt, model, images, requests=8, extra=()) -> None:
+    """``python -m cara_tpu_torch.cli.serve --quantize int8`` in a child
+    process with ``CARA_INT8_PALLAS=1`` in its environment: ``requests``
+    PNG posts from four threads, ``/stats`` counts them, then SIGTERM;
+    the child's row 18 counter must be 4 x depth for every forward it
+    ran (its warm-up of each bucket and each batch ``/stats`` counts).
+    ``extra`` adds CLI options (a CPU rehearsal: ``--device cpu``)."""
+    code = ("import json, sys, chip_smoke; "
+            "from cara_tpu_torch.cli import serve; "
+            "serve.main(sys.argv[1:]); "
+            "print(json.dumps(chip_smoke.read_launches(('int8_dense',))))")
+    argv = ["--ckpt", ckpt, "--model", model, "--quantize", "int8",
+            "--port", "0", "--max-batch", "64", "--max-wait-ms", "20",
+            *extra]
+    with tempfile.TemporaryFile(mode="w+") as err:
+        out, stats = _serve_child(code, argv, err, images, requests)
+        err.seek(0)
+        require(out is not None, f"serve child failed: {err.read()[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])["int8_dense"]
+    forwards = 4 + stats["batches"]  # the warm-up runs buckets 1, 4, 16, 64
+    depth = get_model_config(model).depth
+    print(f"[serve:int8:cli] the child's row 18 launches: {got} over "
+          f"{forwards} forwards (want {4 * depth} each)", flush=True)
+    require(got == 4 * depth * forwards,
+            f"serve child: row 18 launched {got} times")
+
+
+def _serve_child(code, argv, err, images, requests):
+    """Run the serve child of :func:`quant_cli_child`, post ``requests``
+    PNGs, read ``/stats``, stop it with SIGTERM: (its stdout after the
+    stop, or None if it exited nonzero; the stats)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, *argv], stdout=subprocess.PIPE,
+        stderr=err, text=True, env=dict(os.environ, CARA_INT8_PALLAS="1"))
+    try:
+        port = None
+        deadline = time.perf_counter() + 600
+        while port is None and time.perf_counter() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            print(f"  child: {line.rstrip()}", flush=True)
+            if line.startswith("serving on http://"):
+                port = int(line.split()[2].rsplit(":", 1)[1])
+        if port is None:
+            err.seek(0)
+            require(False, f"the serve child never listened: "
+                    f"{err.read()[-2000:]}")
+        bodies = [_png(images[i]) for i in range(requests)]
+        answers, errors = [None] * requests, []
+
+        def post(k):
+            try:
+                for i in range(k, requests, 4):
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{port}/predict", data=bodies[i],
+                        method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        answers[i] = json.loads(r.read())
+            except Exception as exc:  # recorded and raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=post, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        require(not errors and all(a is not None for a in answers),
+                f"serve child: requests failed: {errors}")
+        stats = _get(port, "/stats")
+        print(f"[serve:int8:cli] /stats {json.dumps(stats)}; classes "
+              f"{[a['class'] for a in answers]}", flush=True)
+        require(stats["requests"] == requests,
+                f"serve child answered {stats['requests']} of {requests}")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return (out if proc.returncode == 0 else None), stats
+
+
+def _pair_block(x, bp, f1, p1, cfg, cara_params, cara_cfg, impl, rand=None,
+                attn_impl="fused", dense_impl="fused"):
+    """``models.vit._block`` of an eval block with a CaRA adapter, in one
+    call of row 19: the factors collapsed and the delta scale folded as
+    ``_block`` does for the two half-block kernels."""
+    require(rand is None and cara_params is not None,
+            "the row 19 eval check runs adapter blocks in eval")
+    dt, mr, s = x.dtype, cfg.mlp_ratio, cara_cfg.scale
+    p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
+
+    def uv(fn, *args):
+        u, v = fn(*args, None)
+        return u.to(dt).contiguous(), (v * s).to(dt).contiguous()
+
+    def fold(t):
+        return (t * s).to(dt).contiguous()
+
+    u1, v1 = uv(cara_lib.qkv_uv, cara_params, f1, cfg, cara_cfg)
+    u2, v2 = uv(cara_lib.rows_out_uv, p1[0:1], p2, p3, r2)
+    u3, v3 = uv(cara_lib.rows_out_uv, p1[1:1 + mr], p2, p3, r2)
+    u4, v4 = uv(cara_lib.rows_in_uv, p1[1 + mr:1 + 2 * mr], p2, p3, r2)
+    return pair_mod.block_pair_fwd(
+        x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1,
+        bp["proj"]["kernel"], bp["proj"]["bias"], u2, v2,
+        fold(cara_params["bias1"]), bp["ln1_scale"], bp["ln1_bias"],
+        bp["fc1"]["kernel"], bp["fc1"]["bias"], u3, v3,
+        fold(cara_params["bias2"]), bp["fc2"]["kernel"], bp["fc2"]["bias"],
+        u4, v4, fold(cara_params["bias3"]), bp["ln2_scale"],
+        bp["ln2_bias"], cfg.num_heads, cfg.head_dim ** -0.5, x.shape[1],
+        1.0, act=cfg.activation, ln_eps=cfg.layernorm_eps, impl=impl)
+
+
+def pair_eval_check(dev, ckpt, model, images, batch=64) -> int:
+    """The unmerged forward of ``ckpt`` at ``batch`` with every block
+    through row 19 (``models.vit._block`` replaced around the call):
+    one launch a layer, logits within ``LOGIT_RTOL`` of max |logits| of
+    the default route's (rows 5 and 9).  Returns row 19's launches."""
+    pred = Predictor.from_checkpoint_auto(
+        ckpt, model, batch_size=batch, merge=False, device=dev,
+        dtype=torch.bfloat16)
+    x = images[:batch]
+    ref = pred.logits(x)
+    old = vit_lib._block
+    vit_lib._block = _pair_block
+    try:
+        reset_launches()
+        got = pred.logits(x)
+        launches = read_launches(("block_pair_fwd", "cp_attn_block",
+                                  "cp_mlp_block"))
+    finally:
+        vit_lib._block = old
+    err = float(np.abs(got - ref).max())
+    tol = LOGIT_RTOL * float(np.abs(ref).max())
+    print(f"[serve:block_pair] batch {len(x)}, every block through row "
+          f"19: launches {launches}; max|logits - default route's| "
+          f"{err:.4e}, tolerance {tol:.4e}", flush=True)
+    require(launches["block_pair_fwd"] == pred.cfg.depth
+            and launches["cp_attn_block"] == 0
+            and launches["cp_mlp_block"] == 0,
+            f"the row 19 eval did not run it in every layer: {launches}")
+    require(bool(np.isfinite(got).all()) and err <= tol,
+            "row 19 eval logits disagree with the default route's")
+    return launches["block_pair_fwd"]
+
+
 def switched_rank_phases(dev, steps=20, model=MODEL, batch=64, timed=True,
                          rounds=3) -> dict:
     """The rank route under each attention-block switch (``SWITCHES``), as
@@ -1918,6 +2369,86 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
           f"kernels", flush=True)
 
 
+def _row_major_codes(pred):
+    """``pred`` with its w8a8 codes made row-major again (the layout
+    ``quantize_block_weights`` writes; ``Predictor`` keeps them
+    column-major for ``torch._int_mm``): the comparison row of
+    :func:`profile_serving`."""
+    for name in quant_lib.QUANT_NAMES:
+        kernel = pred._params["blocks"][name]["kernel"]
+        kernel["qa"] = kernel["qa"].contiguous()
+    return pred
+
+
+def profile_serving(dev, batch=64, iters=5, rounds=4, top=12) -> None:
+    """``--profile``: merged ViT-B serving at ``batch`` in bf16 and
+    quantized (int8 with ``CARA_INT8_PALLAS`` unset and set, w8a8, and
+    w8a8 with row-major codes): img/s through ``Predictor.logits`` in
+    turns (``rounds`` rounds of ten calls, the order reversed every
+    other round; host clock), then one forward's device time by kernel
+    (``torch.profiler``, ``iters`` forwards) and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    images = make_images(batch, 224)
+    x = torch.from_numpy(images).to(dev, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "vit_smoke_seed_0.npz")
+        make_checkpoint(ckpt)
+
+        def pred(**kw):
+            return Predictor.from_checkpoint_auto(
+                ckpt, MODEL, batch_size=batch, device=dev,
+                dtype=torch.bfloat16, **kw)
+        preds = {"bf16": (pred(), False),
+                 "int8": (pred(quantize="int8"), False),
+                 "int8:CARA_INT8_PALLAS=1": (pred(quantize="int8"), True),
+                 "w8a8": (pred(quantize="w8a8"), False),
+                 "w8a8:row-major": (_row_major_codes(pred(
+                     quantize="w8a8")), False)}
+    rates = {k: [] for k in preds}
+    for r in range(rounds + 1):  # round 0 warms up
+        for name in (list(preds) if r % 2 == 0 else list(preds)[::-1]):
+            p, on = preds[name]
+            with int8_switch(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    p.logits(images)
+                if r:
+                    rates[name].append(10 * batch
+                                       / (time.perf_counter() - t0))
+    for name, (p, on) in preds.items():
+        tag = f"[profile:serve:{name}]"
+        with int8_switch(on), torch.inference_mode():
+            def run():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    vit_forward(p._params, x, p.cfg)
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / iters
+            fwd_ms = run()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+        rows = [(e.self_device_time_total / 1e3 / iters, e.count / iters,
+                 e.key) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        print(f"{tag} {statistics.median(rates[name]):.1f} img/s at batch "
+              f"{batch} (median of {rounds} turns, host clock; "
+              f"{', '.join(f'{v:.1f}' for v in rates[name])}); a forward "
+              f"{fwd_ms:.3f} ms by CUDA events, kernels {busy:.3f} ms "
+              f"({100 * busy / fwd_ms:.1f} % busy)", flush=True)
+        for ms, count, name_ in rows[:top]:
+            print(f"{tag} {ms:8.3f} ms {count:6.1f}/forward  {name_[:90]}",
+                  flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1959,6 +2490,7 @@ def main(argv=None) -> int:
         for name, (values, _, _, _) in SWITCHES.items():
             with attn_switch(**values):
                 profile_steps(dev, "rank", label=name)
+        profile_serving(dev)
         return 0
 
     stamp("built")
@@ -1970,6 +2502,8 @@ def main(argv=None) -> int:
     results.update(gelu_kernel_phase(dev, kernel_inputs(dev)))
     results.update(gelu_kernel_phase(dev, kernel_inputs(dev, n=577)))
     results.update(attn_route_kernel_phase(dev, kernel_inputs(dev)))
+    results.update(int8_kernel_phase(dev))
+    results.update(pair_kernel_phase(dev, kernel_inputs(dev)))
 
     stamp("kernel entries")
     images = make_images(96, 224)
@@ -1987,8 +2521,17 @@ def main(argv=None) -> int:
         for name, count in launches.items():
             require(count > 0, f"{name} never launched on the serving path")
         attnproj_eval_check(dev, ckpt, MODEL, images)
+        stamp("serving")
+        # Quantized serving (row 18) and the whole-block eval (row 19).
+        launches["int8_dense"] = quant_serving_phase(dev, ckpt, MODEL,
+                                                     images)
+        quant_cli_child(ckpt, MODEL, images)
+        launches["block_pair_fwd"] = pair_eval_check(dev, ckpt, MODEL,
+                                                     images)
+    for suffix in INT8_SHAPES:
+        launches["int8_dense" + suffix] = launches["int8_dense"]
 
-    stamp("serving")
+    stamp("quantized serving and the whole-block eval")
     train = training_phase(dev)
     launches.update({k: train["launches"][k] for k in TRAINING_KERNELS})
     split = training_phase(dev, steps=20, impl="rank")

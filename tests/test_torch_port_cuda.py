@@ -21,7 +21,11 @@ attention) strided and contiguous q, k, v at 197 and 577 tokens, a head
 width other than 64 refused, and a train step without an adapter; for
 the attention-block switches (rows 3, 4 and 6) masked keys, idle query
 warps, head widths 64, 32 and 16, ranks 5, 8 and 40, and a rank step
-under each switch.
+under each switch; for the dequant-fused int8 GEMM (row 18) ragged row
+counts, one or three column tiles and one or two k-steps, and a
+quantized Predictor with ``CARA_INT8_PALLAS=1``; for the whole-block
+eval kernel (row 19) head widths 64, 32 and 16, masked keys, a row group
+wholly past N and a delta scale other than 1.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -42,7 +46,9 @@ from cara_tpu_torch.models import vit as t_vit
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
+from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.cuda import wd_fold
+from cara_tpu_torch.serving import Predictor
 
 pytestmark = pytest.mark.cuda
 
@@ -543,3 +549,93 @@ def test_switched_rank_train_step_on_card_matches_plain(dev, switch):
         chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
     for name in path:
         assert _launches(name) > before[name], name
+
+
+# Row 18 at small ragged shapes: row counts that are not multiples of the
+# 128-row tile, one and three 128-column tiles, one and two 128-deep
+# k-steps.
+INT8_SHAPES = [(197, 128, 128), (333, 256, 384), (333, 128, 384),
+               (197, 256, 128)]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES,
+                         ids=["m197_k128_n128", "m333_k256_n384",
+                              "m333_k128_n384", "m197_k256_n128"])
+def test_int8_dense_kernel_matches_plain(dev, shape):
+    """Row 18 against its fp32 plain version, counted once per call, on
+    2-D and (B, N, K) inputs."""
+    m, k, n = shape
+    t = chip_smoke.int8_inputs(dev, m, k, n, seed=m + k + n)
+    before = _launches("int8_dense")
+    got = int8_mod.int8_dense(t["x"], t["wq"], t["scale"], t["b"])
+    torch.cuda.synchronize()
+    assert _launches("int8_dense") == before + 1
+    _check("int8_dense", got, int8_mod.int8_dense_plain(
+        t["x"].float(), t["wq"], t["scale"].float(), t["b"].float()))
+    got3 = int8_mod.int8_dense(t["x"].reshape(1, m, k), t["wq"],
+                               t["scale"], t["b"])
+    assert torch.equal(got3.reshape(m, n), got)
+
+
+def test_int8_dense_refuses_what_the_kernel_does_not_take(dev):
+    t = chip_smoke.int8_inputs(dev, 197, 192, 128)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        int8_mod.int8_dense(t["x"], t["wq"], t["scale"], t["b"])
+    t = chip_smoke.int8_inputs(dev, 197, 128, 128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        int8_mod.int8_dense(t["x"].float(), t["wq"], t["scale"], t["b"])
+    with pytest.raises(RuntimeError, match="forward only"):
+        int8_mod.int8_dense(t["x"].requires_grad_(True), t["wq"],
+                            t["scale"], t["b"])
+
+
+# Row 19: head widths 64, 32 and 16, masked keys, a 16-row group wholly
+# past N (N = 37, 50), ranks 8, 5 and 3.
+PAIR_SHAPES = [(2, 197, 197, 256, 4, 1024, 8), (3, 37, 30, 128, 4, 512, 5),
+               (2, 50, 41, 128, 8, 512, 3)]
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=["dh64", "dh32", "dh16"])
+def test_block_pair_kernel_matches_plain(dev, shape):
+    """Row 19 against its fp32 plain version and the split halves (rows 5
+    and 9) on the card, counted once per call; with a delta scale other
+    than 1 too."""
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=11,
+                                   n_real=n_real)
+    before = _launches("block_pair_fwd")
+    out = chip_smoke.pair_kernel_phase(dev, inp, timed=False)
+    assert _launches("block_pair_fwd") > before
+    assert out["block_pair_fwd"]["max_abs_err"] is not None
+    args = chip_smoke.pair_args(inp)
+    sm = (e // heads) ** -0.5
+    got = chip_smoke.pair_mod.block_pair_fwd(*args, heads, sm, n_real, 1.3)
+    torch.cuda.synchronize()
+    _check("block_pair_fwd", got, chip_smoke.pair_mod.block_pair_fwd_plain(
+        *(t.float() for t in args), heads, sm, n_real, 1.3))
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+def test_quantized_predictor_on_card_matches_plain(dev, monkeypatch, mode):
+    """A quantized Predictor (E 128, so that row 18 takes its dims) on the
+    card with ``CARA_INT8_PALLAS=1``: 4 x depth launches of row 18 a
+    forward for weight-only codes, none for w8a8 (``torch._int_mm``),
+    logits within chip_smoke's bound of the fp32 plain forward on the
+    CPU."""
+    cfg = get_model_config("vit_tiny_test", embed_dim=128)
+    params = convert.init_vit_params(cfg, 3)
+    x = np.random.default_rng(4).standard_normal(
+        (5, 32, 32, 3)).astype(np.float32)
+    ref = Predictor(params, cfg, batch_size=4, device="cpu",
+                    dtype=torch.float32, quantize=mode).logits(x)
+    pred = Predictor(params, cfg, batch_size=4, device=dev,
+                     dtype=torch.bfloat16, quantize=mode)
+    monkeypatch.setenv("CARA_INT8_PALLAS", "1")
+    before = _launches("int8_dense")
+    got = pred.logits(x)  # a 4-image chunk, then the 1-image bucket
+    want = 2 * 4 * cfg.depth if mode == "int8" else 0
+    assert _launches("int8_dense") - before == want
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= (chip_smoke.LOGIT_RTOL
+                                       * np.abs(ref).max())

@@ -7,6 +7,7 @@ fp32 on the CPU, atol = rtol = 1e-4.
 import io
 import json
 import os
+import signal
 import urllib.request
 
 import numpy as np
@@ -153,6 +154,45 @@ def test_cli_refuses_unported_paths(tmp_path):
 
     with pytest.raises(SystemExit, match="not yet ported"):
         t_cli.main(["--ckpt", os.fspath(tmp_path / "x.npz"),
-                    "--quantize", "int8"])
+                    "--tome-r", "2"])
     with pytest.raises(SystemExit, match="not yet ported"):
         t_cli.main(["--ckpt", "a.npz", "--ckpt", "b.npz"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+def test_cli_quantize_reaches_predictor(trees, tmp_path, monkeypatch, mode):
+    """``--quantize`` parses and builds a quantized Predictor, which the
+    server is handed; an unknown mode is refused by the parser."""
+    from cara_tpu_torch.cli import serve as t_cli
+
+    params, cara = trees
+    path = str(tmp_path / "q.npz")
+    t_ckpt.save_model(path, params, cara, META)
+    served = []
+
+    class Server:
+        def __init__(self, pred, **kw):
+            served.append(pred)
+            self.port = 0
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(t_server, "InferenceServer", Server)
+    # main() installs a SIGTERM handler; keep this process's own
+    monkeypatch.setattr(signal, "signal", lambda *args: None)
+    assert t_cli.main(["--ckpt", path, "--model", MODEL, "--device", "cpu",
+                       "--dtype", "float32", "--no-warmup", "--max-batch",
+                       "4", "--quantize", mode]) == 0
+    (pred,) = served
+    assert pred.quantize == mode
+    kernel = pred._params["blocks"]["fc1"]["kernel"]
+    assert kernel["qa" if mode == "w8a8" else "q"].dtype == torch.int8
+    x = _images(2, seed=4)
+    np.testing.assert_allclose(pred.logits(x), _port_pred(
+        path, batch_size=4, quantize=mode).logits(x), **TOL)
+    with pytest.raises(SystemExit):
+        t_cli.main(["--ckpt", path, "--quantize", "bogus"])
