@@ -5,11 +5,11 @@
 // (flash_attention.cu) and the output cotangent do, writes dq, dk and dv
 // (B, H, N, Dh) bf16; every operand is a base pointer and its (batch,
 // head, row) strides, the head dimension contiguous, so the cotangent of
-// the model's (B, N, E) view arrives without a copy.  The kernels are
-// tiled_attention_bwd.cuh's, shared with row 16
-// (blockwise_attention_bwd.cu): the row pass D = rowsum(do * o), dq by
-// query tiles and dk / dv by key tiles, each output row with one writer
-// and no atomics.
+// the model's (B, N, E) view arrives without a copy (each operand gets a
+// TMA map of its own strides).  The kernels are tiled_attention_bwd.cuh's,
+// shared with row 16 (blockwise_attention_bwd.cu): the coalesced row pass
+// for D = rowsum(do * o), one wgmma kernel of five products per (image,
+// head, 128-key tile), the dq pass.
 //
 // Replaces cara_tpu/ops/pallas/flash_attention.py _attn_bwd_kernel (the
 // pallas_call in _bwd_rule), TPU row 17.  The TPU kernel recomputes the
@@ -18,26 +18,29 @@
 // is rebuilt tile by tile from the forward's log-sum-exp, and D comes
 // from rowsum(do * o) on the bf16 output (the same sum in exact
 // arithmetic; a bf16-level difference).  ds is rounded to bf16 before the
-// dq and dk products, as on the TPU.
+// dq and dk products, as on the TPU.  dq is summed over the key tiles
+// through an fp32 scratch by the memory system, so it is not bitwise
+// deterministic.
 //
 // What bounds it: at B = 64, N = 197, H = 12, Dh = 64 the function needs
 // five N^2 Dh products (s, dp, dq, dk, dv), 38.2 GFLOP, against ~136 MB:
 // ~0.041 ms on HBM, so bytes; at N = 577, 164 GFLOP, ~0.166 ms on the
-// tensor cores.  These kernels do seven products (s and dp in both);
-// wgmma and TMA are later work.
+// tensor cores.  What the design does about it: tiled_attention_bwd.cuh.
 
 #include "tiled_attention_bwd.cuh"
 
-// q, k, v, o, do (bf16) and lse (B, N, heads) fp32 -> dq, dk, dv (bf16);
-// dd (B, N, heads) fp32 is scratch for D.  `strides` holds the (batch,
-// head, row) strides of q, k, v, o, do, dq, dk, dv in that order.  Only
-// head width 64.  Returns cudaGetLastError() of the first launch that
-// failed (or cudaErrorInvalidValue).
+// q, k, v, o, do (bf16) and lse (B, N, heads) fp32 -> dq, dk, dv (bf16).
+// Scratch: rows (B, heads, 2, NP) fp32 and dq_acc (B, heads, NP, dh) fp32
+// zeroed, NP = N rounded up to 64.  `strides` holds the (batch, head, row)
+// strides of q, k, v, o, do, dq, dk, dv in that order.  Only head width
+// 64.  Returns cudaGetLastError() of the first launch that failed (or
+// cudaErrorInvalidValue).
 extern "C" int cara_flash_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const void* lse,
-                                        void* dd, void* dq, void* dk,
-                                        void* dv, const long long* strides,
+                                        void* rows, void* dq_acc, void* dq,
+                                        void* dk, void* dv,
+                                        const long long* strides,
                                         int B, int N, int heads, int dh,
                                         float scale, void* stream_ptr) {
   using namespace tiled_attention;
@@ -48,11 +51,11 @@ extern "C" int cara_flash_attention_bwd(const void* q, const void* k,
             static_cast<const __nv_bfloat16*>(v),
             static_cast<const __nv_bfloat16*>(dout),
             s[0], s[1], s[2], s[4],
-            static_cast<const float*>(lse), static_cast<const float*>(dd),
-            static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+            static_cast<const float*>(lse), static_cast<float*>(rows),
+            static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dq),
+            static_cast<__nv_bfloat16*>(dk),
             static_cast<__nv_bfloat16*>(dv), s[5], s[6], s[7],
             N, heads, N, scale};
-  return launch_bwd<64>(a, static_cast<const __nv_bfloat16*>(o), s[3],
-                        static_cast<float*>(dd), B,
+  return launch_bwd<64>(a, static_cast<const __nv_bfloat16*>(o), s[3], B,
                         reinterpret_cast<cudaStream_t>(stream_ptr));
 }

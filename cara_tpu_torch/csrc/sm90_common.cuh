@@ -1,0 +1,257 @@
+// The Hopper (sm_90a) building blocks the wgmma attention kernels share
+// (qkv_attention.cu, tiled_attention_bwd.cuh): shared-memory matrix
+// descriptors for wgmma and its fence / commit / wait, mbarrier init,
+// expect-tx, arrive and wait, the TMA tile load and the bulk copies (a
+// plain load and an fp32 add-reduce into global memory), named barriers,
+// and on the host the encoding of a TMA tensor map.  The wgmma
+// instructions themselves are in sm90_wgmma.cuh.
+//
+// Swizzle: a tile whose rows are W = 32, 64 or 128 bytes (16, 32 or 64
+// bf16) is loaded by TMA with the swizzle of the same width, and wgmma
+// reads it with the matching layout type.  Its base must be aligned to 8
+// rows (256, 512 or 1024 bytes).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90_wgmma.cuh"
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma layout type of a swizzled tile whose rows are `row_bytes` wide.
+__host__ __device__ constexpr int swizzle_mode(int row_bytes) {
+  return row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+}
+
+// Descriptor of a bf16 tile at `p` with rows of ROW_BYTES (the swizzle
+// width), 8-row groups one after the other.  K-major (the reduction axis
+// along the row): each 16-deep k-step starts 32 bytes further into the
+// row.  MN-major (the output axis along the row, TA / TB = 1): rows are
+// the reduction axis, and a k-step starts 16 rows further on.  Either way
+// the stride between 8-row groups is 8 rows.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(8 * ROW_BYTES >> 4) << 32) |
+         ((uint64_t)swizzle_mode(ROW_BYTES) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma: called on every register of an accumulator after
+// the wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory writes of the generic proxy made visible to TMA and wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over `count` threads (a multiple of 32).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(a),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: one box of `map` at coordinates (c0, c1, c2[, c3]) into `dst`,
+// completion counted in bytes on `bar`.  Out-of-range rows arrive as 0.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: the box of `map` at (c0, c1, c2) written from `src`; rows out of
+// range are not written.  Commits the bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// dst[i] += src[i] in fp32 for `bytes` (a multiple of 16) of shared memory,
+// performed by the memory system; then commit the bulk group.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                    const float* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the committed bulk groups have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Byte offset `a` within a tile of ROW_BYTES-wide rows (1024-aligned base)
+// moved as TMA's swizzle of that width moves it.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t swizzle(uint32_t a) {
+  return a ^ ((a >> 3) & ((ROW_BYTES / 16 - 1) << 4));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The wgmma register A fragment of k-step kk from an accumulator d (the
+// same rows; columns 16 kk .. 16 kk + 15), rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d,
+                                         int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// Host: a bf16 tensor map of `rank` dimensions (innermost first) over
+// `base`, strides in bytes of dimensions 1.., box `box` with the swizzle
+// of a box row (box[0] * 2 bytes: 32, 64 or 128).  cuTensorMapEncodeTiled
+// is looked up through the CUDA runtime's entry-point query, so nothing
+// links libcuda.  Returns 0 or a CUresult / cudaError_t code.
+inline int encode_map(CUtensorMap* map, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t found;
+#if CUDART_VERSION >= 12050
+    found = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                             12000, cudaEnableDefault, &q);
+#else
+    found = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                    cudaEnableDefault, &q);
+#endif
+    if (found != cudaSuccess) return static_cast<int>(found);
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const int row_bytes = static_cast<int>(box[0]) * 2;
+  const CUtensorMapSwizzle sw =
+      row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(r);
+}
+
+// Host: the number of SMs of the current device (cached).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+}  // namespace sm90

@@ -7,30 +7,57 @@
 // and dv in bf16.  Every (B, H, N, Dh) operand is a base pointer and its
 // (batch, head, row) strides (tiled_attention_fwd.cuh's Rows), so the
 // gradients land in whatever layout the caller holds (the qkv layout of
-// row 16, or three (B, N, E) buffers).  Three kernels, as the TPU's split
-// (the D row pass is XLA's there):
+// row 16, or three (B, N, H, Dh) buffers).
 //
-//   delta  D (B, N, H) fp32 = rowsum(do * o), one thread per (row, head);
-//   dq     one block per (image, head, 64-query tile), key tiles
-//          streamed: s, p = exp(s - lse), dp = do v^T, ds, dq += ds k;
-//   dk/dv  one block per (image, head, 64-key tile), query tiles
-//          streamed: s^T = k q^T, p^T, dp^T = v do^T, dv += bf16(p^T) do,
-//          dk += ds^T q.
+// What bounds it on the H100: at B = 64, N = 577, H = 12, Dh = 64 the
+// function needs five N^2 Dh products per (image, head) (s, dp, dq, dk,
+// dv), 10 B H N^2 Dh = 163.6 GFLOP against ~460 MB: 0.1655 ms on the
+// tensor cores, so operations.  The previous design (three launches, seven
+// products: s and dp recomputed by a dq kernel over query tiles and a
+// dk / dv kernel over key tiles, mma.sync on 16-row warp tiles, every B
+// fragment ldmatrix'ed by all four warps, a block barrier per 64-row tile,
+// a strided one-thread-per-(row, head) D pass) took 1.89 ms, 8.7 % of the
+// bound, 2.3x SDPA's backward.  This design:
 //
-// Each output row has one writer, so there are no atomics.  As in the
-// forward, four warps of 16 rows, a two-slot cp.async ring for the
-// streamed tiles (the query tiles' lse and D ride along), and bf16
-// mma.sync.m16n8k16 with fragments in registers: the fp32 accumulator
-// tiles of s and dp are turned into p and ds in place and packed to bf16
-// as the A fragment of the next product, so no score tile touches shared
-// memory.  The function needs five N^2 Dh products per (image, head) (s,
-// dp, dq, dk, dv); these kernels do seven (s and dp in both).
+//   rows     one warp per token row, all heads, coalesced: D = rowsum(do *
+//            o) and the row's lse into (B, H, 2, NP) fp32 (NP = N rounded up
+//            to 64; rows past N get lse = 1e30, D = 0, so their p is 0);
+//   main     one block per (image, head, 128-key tile): two consumer
+//            warpgroups of 64 keys and one producer warp.  The producer
+//            loads K and V once by TMA, then streams the 64-query tiles
+//            (q, do by TMA; their lse and D rows by bulk copy) through a
+//            three-stage mbarrier ring.  Per query tile each warpgroup
+//            runs five wgmma products: s^T = k q^T and dp^T = v do^T (all
+//            operands in shared memory), p^T and ds^T in registers from
+//            the fp32 accumulators, dv += bf16(p^T) do and dk += ds^T q
+//            (A from registers, q and do read MN-major), and dq = ds k
+//            over the warpgroup's 64 keys, its ds^T staged once in shared
+//            memory and read MN-major.  Each warpgroup adds its fp32 dq
+//            partial into an fp32 scratch (B, H, NP, Dh) by
+//            cp.reduce.async.bulk (add), in the accumulator's own order;
+//            dk and dv stay in registers to the end;
+//   dq       scale, round to bf16 and write into the caller's layout.
+//
+// The scratch is zeroed by the wrapper (torch.zeros): 126 MB at B = 64,
+// N = 577 (NP = 640), H = 12, Dh = 64.  dq is not bitwise deterministic:
+// its fp32 sum over the key tiles is taken by the memory system in no
+// fixed order (dk and dv have one writer a row and are).
+//
+// Measured on one H100 80GB HBM3 at 700 W (tools/compare_parent.py, one
+// run in turns with the previous design), B = 64, H = 12: 0.8776 / 0.8856
+// ms at N = 577 through row 16, 18.7-18.9 % of the bound, 1.09-1.13x
+// SDPA's backward in the same turns; 0.2737 / 0.2980 ms at N = 197
+// through row 17.  What holds it there: each warpgroup runs its five
+// products and the elementwise work between them in sequence, with one
+// barrier and three waits a query tile, and a block (two warpgroups, one
+// an SM for the registers) overlaps only two such chains; the row pass,
+// the zeroing and the dq pass move another ~420 MB.
 //
 // Math: s = (q . k) * scale in fp32 from bf16 q and k, keys >= n_real give
-// p = exp(-1e30 - lse) = 0; p = exp(s - lse); ds = bf16(p * (dp - D));
-// dq = (ds k) * scale; dk = (ds^T q) * scale; dv = bf16(p)^T do; each
-// rounded to bf16 once.  Query rows past N are zero-filled and give p = 0;
-// key rows in [n_real, N) get zero dk, dv.
+// p = 0; p = exp(s - lse); ds = bf16(p * (dp - D)); dq = (ds k) * scale;
+// dk = (ds^T q) * scale; dv = bf16(p)^T do; each rounded to bf16 once.
+// Query rows past N arrive as zeros and give p = 0; key rows in [n_real,
+// N) get zero dk, dv.
 
 #pragma once
 
@@ -38,360 +65,413 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"
+#include "sm90_common.cuh"
 #include "tiled_attention_fwd.cuh"
 
 namespace tiled_attention {
 namespace {
 
-__host__ __device__ inline size_t dq_smem(int dh) {
-  return (size_t)6 * kTile * (dh + kPad) * 2;  // q, do, two slots of k, v
+constexpr int kKeys = 128;       // keys per block
+constexpr int kQRows = 64;       // rows per query tile (and TMA box)
+constexpr int kStages = 3;       // query-tile ring
+constexpr int kBwdThreads = 288;  // two consumer warpgroups + a producer
+constexpr float kPadLse = 1e30f;
+
+__host__ __device__ inline int padded_rows(int N) {
+  return (N + kQRows - 1) / kQRows * kQRows;
 }
 
-__host__ __device__ inline size_t dkv_smem(int dh) {
-  // k, v, two slots of q and do, two slots of the tile's lse and D
-  return (size_t)6 * kTile * (dh + kPad) * 2 + (size_t)4 * kTile * 4;
-}
+// Shared memory of the main kernel, in bytes from a 1024-aligned base.
+struct BwdSmem {
+  int k, v, q, dout, ds, stage, lse, dd, bars, total;
+};
 
-// Stage kTile rows (row0 ..) of one head's DH columns at `src` (row
-// stride `rs`) into `dst` (row stride LD); rows >= N zero-filled.
-template <int DH>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long rs, int row0, int N,
-                                          int tid) {
-  constexpr int VPR = DH / 8;
-  for (int idx = tid; idx < kTile * VPR; idx += 32 * kWarps) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * 8;
-    const bool ok = row0 + r < N;
-    cp_async16(dst + r * (DH + kPad) + c,
-               src + (long long)(ok ? row0 + r : 0) * rs + c, ok);
-  }
-}
-
-// acc (16 x 64) = A (16 x DH, fragments in registers) . B^T, where B is
-// kTile rows of DH in shared memory ([n][k]: the B operand's col layout).
-template <int DH>
-__device__ __forceinline__ void product_abt(float (&acc)[kTile / 8][4],
-                                            const unsigned (&af)[DH / 16][4],
-                                            const __nv_bfloat16* bs,
-                                            int lane) {
-  constexpr int LD = DH + kPad;
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-    for (int jj = 0; jj < kTile / 16; ++jj) {
-      unsigned t[4];
-      ldmatrix_x4(t, bs + (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_16816(acc[2 * jj], af[kk], t);
-      mma_16816(acc[2 * jj + 1], af[kk], t + 2);
-    }
-}
-
-// acc (16 x DH) += bf16(T) (16 x 64, fp32 accumulator tiles in registers)
-// . B, where B is kTile rows of DH in shared memory ([k][n]).
-template <int DH>
-__device__ __forceinline__ void product_tb(float (&acc)[DH / 8][4],
-                                           const float (&t)[kTile / 8][4],
-                                           const __nv_bfloat16* bs,
-                                           int lane) {
-  constexpr int LD = DH + kPad;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const unsigned a[4] = {pack_bf16(t[2 * kk][0], t[2 * kk][1]),
-                           pack_bf16(t[2 * kk][2], t[2 * kk][3]),
-                           pack_bf16(t[2 * kk + 1][0], t[2 * kk + 1][1]),
-                           pack_bf16(t[2 * kk + 1][2], t[2 * kk + 1][3])};
-#pragma unroll
-    for (int jj = 0; jj < DH / 16; ++jj) {
-      unsigned f[4];
-      ldmatrix_x4_trans(
-          f, bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                 jj * 16 + (lane >> 4) * 8);
-      mma_16816(acc[2 * jj], a, f);
-      mma_16816(acc[2 * jj + 1], a, f + 2);
-    }
-  }
-}
-
-// The A fragments (16 rows of the warp x DH) of kTile rows in smem.
-template <int DH>
-__device__ __forceinline__ void load_a(unsigned (&af)[DH / 16][4],
-                                       const __nv_bfloat16* rows, int warp,
-                                       int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldmatrix_x4(af[kk], rows + (warp * 16 + (lane & 15)) * (DH + kPad) +
-                            kk * 16 + (lane >> 4) * 8);
-}
-
-// Rows g and g + 8 of the warp's 16 (row0 = the first), times `mul`, as
-// bf16 at `dst` (row stride rs); rows >= N are skipped.
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
-                                           __nv_bfloat16* dst, long long rs,
-                                           int row0, int N, float mul,
-                                           int lane) {
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + half * 8;
-    if (row >= N) continue;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<unsigned*>(dst + row * rs + j * 8 + t2) =
-          pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
-  }
-}
-
-template <int DH>
-__global__ void attention_delta_kernel(const __nv_bfloat16* __restrict__ dout,
-                                       Rows sdo,
-                                       const __nv_bfloat16* __restrict__ o,
-                                       Rows so, float* __restrict__ dd,
-                                       int B, int N, int heads) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * N * heads) return;
-  const int h = idx % heads;
-  const long long row = idx / heads;
-  const int b = row / N;
-  const int n = row % N;
-  const __nv_bfloat16* dr = head_rows(dout, sdo, b, h) + n * sdo.sr;
-  const __nv_bfloat16* orow = head_rows(o, so, b, h) + n * so.sr;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < DH; c += 8) {
-    const uint4 a = *reinterpret_cast<const uint4*>(dr + c);
-    const uint4 bv = *reinterpret_cast<const uint4*>(orow + c);
-    const __nv_bfloat16* ae = reinterpret_cast<const __nv_bfloat16*>(&a);
-    const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&bv);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      acc += __bfloat162float(ae[t]) * __bfloat162float(be[t]);
-  }
-  dd[idx] = acc;
+__host__ __device__ inline BwdSmem bwd_smem(int dh) {
+  const int rb = dh * 2;
+  BwdSmem s;
+  s.k = 0;
+  s.v = s.k + kKeys * rb;
+  s.q = s.v + kKeys * rb;
+  s.dout = s.q + kStages * kQRows * rb;
+  s.ds = s.dout + kStages * kQRows * rb;     // 2 x 2 tiles 64 x 64 bf16
+  s.stage = s.ds + 2 * kKeys * kQRows * 2;   // 2 tiles 64 x dh fp32
+  s.lse = s.stage + 2 * kQRows * dh * 4;
+  s.dd = s.lse + kStages * kQRows * 4;
+  s.bars = s.dd + kStages * kQRows * 4;
+  s.total = s.bars + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+  return s;
 }
 
 // The operands of one backward call.
 struct BwdArgs {
   const __nv_bfloat16 *q, *k, *v, *dout;
   Rows sq, sk, sv, sdo;
-  const float *lse, *dd;
+  const float* lse;  // (B, N, H)
+  float* rows;       // (B, H, 2, NP): lse, then D
+  float* dq_acc;     // (B, H, NP, Dh), zeroed
   __nv_bfloat16 *dq, *dk, *dv;
   Rows sdq, sdk, sdv;
   int N, heads, n_real;
   float scale;
 };
 
-template <int DH>
-__global__ void __launch_bounds__(32 * kWarps)
-attention_dq_kernel(const BwdArgs a) {
-  constexpr int LD = DH + kPad;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Os = Qs + kTile * LD;      // the do rows
-  __nv_bfloat16* Ks = Os + kTile * LD;      // two slots
-  __nv_bfloat16* Vs = Ks + 2 * kTile * LD;  // two slots
-
-  const int N = a.N;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const __nv_bfloat16* kb = head_rows(a.k, a.sk, b, h);
-  const __nv_bfloat16* vb = head_rows(a.v, a.sv, b, h);
-  const int ntiles = (a.n_real + kTile - 1) / kTile;
-
-  load_rows<DH>(Qs, head_rows(a.q, a.sq, b, h), a.sq.sr, q0, N, tid);
-  load_rows<DH>(Os, head_rows(a.dout, a.sdo, b, h), a.sdo.sr, q0, N, tid);
-  load_rows<DH>(Ks, kb, a.sk.sr, 0, N, tid);
-  load_rows<DH>(Vs, vb, a.sv.sr, 0, N, tid);
-  cp_async_commit();
-
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  float lr[2], dr[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + warp * 16 + g + half * 8;
-    const size_t st = ((size_t)b * N + row) * a.heads + h;
-    lr[half] = row < N ? a.lse[st] : 0.f;
-    dr[half] = row < N ? a.dd[st] : 0.f;
-  }
-  unsigned qf[DH / 16][4], of[DH / 16][4];
-  float dq[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq[j][c] = 0.f;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) {
-      const int slot = (kt + 1) & 1;
-      load_rows<DH>(Ks + slot * kTile * LD, kb, a.sk.sr, (kt + 1) * kTile,
-                    N, tid);
-      load_rows<DH>(Vs + slot * kTile * LD, vb, a.sv.sr, (kt + 1) * kTile,
-                    N, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (kt == 0) {
-      load_a<DH>(qf, Qs, warp, lane);
-      load_a<DH>(of, Os, warp, lane);
-    }
-    const __nv_bfloat16* ks = Ks + (kt & 1) * kTile * LD;
-    const __nv_bfloat16* vs = Vs + (kt & 1) * kTile * LD;
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    product_abt<DH>(s, qf, ks, lane);
-    product_abt<DH>(dp, of, vs, lane);
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = kt * kTile + j * 8 + t2 + (c & 1);
-        const float p =
-            col < a.n_real ? expf(s[j][c] * a.scale - lr[c >> 1]) : 0.f;
-        s[j][c] = p * (dp[j][c] - dr[c >> 1]);  // ds, rounded when packed
-      }
-    product_tb<DH>(dq, s, ks, lane);
-    __syncthreads();  // the slot just read is refilled next iteration
-  }
-  store_rows<DH>(dq, head_rows(a.dq, a.sdq, b, h), a.sdq.sr, q0 + warp * 16,
-                 N, a.scale, lane);
-}
+// TMA maps of q, k, v and do: (Dh, N, H, B), boxes of 64 rows.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
 
 template <int DH>
-__global__ void __launch_bounds__(32 * kWarps)
-attention_dkv_kernel(const BwdArgs a) {
-  constexpr int LD = DH + kPad;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kTile * LD;
-  __nv_bfloat16* Qs = Vs + kTile * LD;      // two slots
-  __nv_bfloat16* Os = Qs + 2 * kTile * LD;  // two slots of do
-  float* Ls = reinterpret_cast<float*>(Os + 2 * kTile * LD);  // two slots
-  float* Ds = Ls + 2 * kTile;                                 // two slots
-
-  const int N = a.N;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const __nv_bfloat16* qb = head_rows(a.q, a.sq, b, h);
-  const __nv_bfloat16* ob = head_rows(a.dout, a.sdo, b, h);
-  __nv_bfloat16* dkb = head_rows(a.dk, a.sdk, b, h);
-  __nv_bfloat16* dvb = head_rows(a.dv, a.sdv, b, h);
-
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[j][c] = dv[j][c] = 0.f;
-  if (k0 >= a.n_real) {  // every key of the tile masked: zero dk, dv
-    store_rows<DH>(dk, dkb, a.sdk.sr, k0 + warp * 16, N, 1.f, lane);
-    store_rows<DH>(dv, dvb, a.sdv.sr, k0 + warp * 16, N, 1.f, lane);
+__global__ void __launch_bounds__(256)
+attention_rows_kernel(const __nv_bfloat16* __restrict__ dout, Rows sdo,
+                      const __nv_bfloat16* __restrict__ o, Rows so,
+                      const float* __restrict__ lse, float* __restrict__ rows,
+                      int B, int N, int heads) {
+  constexpr int VPR = DH / 8;  // lanes (16-byte pieces) a head row
+  const int np = padded_rows(N);
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= (long long)B * np) return;
+  const int lane = threadIdx.x & 31;
+  const int b = row / np;
+  const int n = row % np;
+  float* base = rows + (size_t)b * heads * 2 * np + n;
+  if (n >= N) {
+    for (int h = lane; h < heads; h += 32) {
+      base[(size_t)h * 2 * np] = kPadLse;
+      base[(size_t)h * 2 * np + np] = 0.f;
+    }
     return;
   }
-  const int ntiles = (N + kTile - 1) / kTile;
-  auto load_q = [&](int slot, int qt) {
-    const int r0 = qt * kTile;
-    load_rows<DH>(Qs + slot * kTile * LD, qb, a.sq.sr, r0, N, tid);
-    load_rows<DH>(Os + slot * kTile * LD, ob, a.sdo.sr, r0, N, tid);
-    if (tid < kTile) {  // read by every warp only after a barrier
-      const int row = r0 + tid;
-      const size_t st = ((size_t)b * N + row) * a.heads + h;
-      Ls[slot * kTile + tid] = row < N ? a.lse[st] : 0.f;
-      Ds[slot * kTile + tid] = row < N ? a.dd[st] : 0.f;
+  for (int c0 = 0; c0 < heads * VPR; c0 += 32) {
+    const int c = c0 + lane;
+    const bool ok = c < heads * VPR;
+    const int h = ok ? c / VPR : 0;
+    const int col = (c % VPR) * 8;
+    float acc = 0.f;
+    if (ok) {
+      const uint4 a = *reinterpret_cast<const uint4*>(
+          head_rows(dout, sdo, b, h) + n * sdo.sr + col);
+      const uint4 bv = *reinterpret_cast<const uint4*>(
+          head_rows(o, so, b, h) + n * so.sr + col);
+      const __nv_bfloat16* ae = reinterpret_cast<const __nv_bfloat16*>(&a);
+      const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&bv);
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        acc += __bfloat162float(ae[t]) * __bfloat162float(be[t]);
     }
-  };
-  load_rows<DH>(Ks, head_rows(a.k, a.sk, b, h), a.sk.sr, k0, N, tid);
-  load_rows<DH>(Vs, head_rows(a.v, a.sv, b, h), a.sv.sr, k0, N, tid);
-  load_q(0, 0);
-  cp_async_commit();
-
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  bool kvalid[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half)
-    kvalid[half] = k0 + warp * 16 + g + half * 8 < a.n_real;
-  unsigned kf[DH / 16][4], vf[DH / 16][4];
-
-  for (int qt = 0; qt < ntiles; ++qt) {
-    if (qt + 1 < ntiles) load_q((qt + 1) & 1, qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (qt == 0) {
-      load_a<DH>(kf, Ks, warp, lane);
-      load_a<DH>(vf, Vs, warp, lane);
-    }
-    const int slot = qt & 1;
-    const __nv_bfloat16* qs = Qs + slot * kTile * LD;
-    const __nv_bfloat16* os = Os + slot * kTile * LD;
-    const float* ls = Ls + slot * kTile;
-    const float* ds = Ds + slot * kTile;
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    product_abt<DH>(s, kf, qs, lane);  // s^T: keys x queries
-    product_abt<DH>(dp, vf, os, lane);  // dp^T
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qi = j * 8 + t2 + (c & 1);
-        const float p = kvalid[c >> 1] && qt * kTile + qi < N
-                            ? expf(s[j][c] * a.scale - ls[qi])
-                            : 0.f;
-        s[j][c] = p;  // rounded to bf16 when packed for dv
-        dp[j][c] = p * (dp[j][c] - ds[qi]);  // ds, from the fp32 p
-      }
-    product_tb<DH>(dv, s, os, lane);
-    product_tb<DH>(dk, dp, qs, lane);
-    __syncthreads();  // the slot just read is refilled next iteration
+    for (int off = 1; off < VPR; off <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (ok && c % VPR == 0) base[(size_t)h * 2 * np + np] = acc;
   }
-  store_rows<DH>(dk, dkb, a.sdk.sr, k0 + warp * 16, N, a.scale, lane);
-  store_rows<DH>(dv, dvb, a.sdv.sr, k0 + warp * 16, N, 1.f, lane);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  for (int h = lane; h < heads; h += 32)
+    base[(size_t)h * 2 * np] = lse[((size_t)b * N + n) * heads + h];
 }
 
 template <int DH>
-int launch_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, float* dd,
-               int B, cudaStream_t stream) {
-  static const cudaError_t attr_dq =
-      allow_smem(attention_dq_kernel<DH>, dq_smem(DH));
-  static const cudaError_t attr_dkv =
-      allow_smem(attention_dkv_kernel<DH>, dkv_smem(DH));
-  if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
-  if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
-  const long long threads = (long long)B * a.N * a.heads;
-  attention_delta_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0,
-                               stream>>>(a.dout, a.sdo, o, so, dd, B, a.N,
-                                         a.heads);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.N + kTile - 1) / kTile, a.heads, B);
-  attention_dq_kernel<DH><<<grid, 32 * kWarps, dq_smem(DH), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_dkv_kernel<DH><<<grid, 32 * kWarps, dkv_smem(DH), stream>>>(a);
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using namespace sm90;
+  constexpr int RB = DH * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const BwdSmem L = bwd_smem(DH);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L.k);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L.v);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
+  __nv_bfloat16* Os = reinterpret_cast<__nv_bfloat16*>(smem + L.dout);
+  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + L.ds);
+  float* stage = reinterpret_cast<float*>(smem + L.stage);
+  float* Ls = reinterpret_cast<float*>(smem + L.lse);
+  float* DDs = reinterpret_cast<float*>(smem + L.dd);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int N = a.N;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k0 = blockIdx.x * kKeys;
+  const int tid = threadIdx.x;
+  const int np = padded_rows(N);
+  const int nq = np / kQRows;
+
+  if (k0 >= a.n_real) {  // every key of the tile masked: zero dk, dv
+    const int rows = min(kKeys, N - k0);
+    for (int idx = tid; idx < rows * (DH / 8); idx += kBwdThreads) {
+      const int r = k0 + idx / (DH / 8);
+      const int c = (idx % (DH / 8)) * 8;
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(head_rows(a.dk, a.sdk, b, h) + r * a.sdk.sr +
+                                c) = z;
+      *reinterpret_cast<uint4*>(head_rows(a.dv, a.sdv, b, h) + r * a.sdv.sr +
+                                c) = z;
+    }
+    return;
+  }
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp
+    if (tid == 256) {
+      mbar_expect_tx(kv_full, 4 * kQRows * RB);
+      for (int s = 0; s < 2; ++s) {
+        tma_load_4d(Ks + s * kQRows * DH, &maps.k, kv_full, 0,
+                    k0 + s * kQRows, h, b);
+        tma_load_4d(Vs + s * kQRows * DH, &maps.v, kv_full, 0,
+                    k0 + s * kQRows, h, b);
+      }
+      const float* rows = a.rows + ((size_t)b * a.heads + h) * 2 * np;
+      for (int qt = 0; qt < nq; ++qt) {
+        const int st = qt % kStages;
+        if (qt >= kStages) mbar_wait(&empty[st], (qt / kStages - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kQRows * RB + 2 * kQRows * 4);
+        tma_load_4d(Qs + st * kQRows * DH, &maps.q, &full[st], 0,
+                    qt * kQRows, h, b);
+        tma_load_4d(Os + st * kQRows * DH, &maps.dout, &full[st], 0,
+                    qt * kQRows, h, b);
+        bulk_load(Ls + st * kQRows, rows + qt * kQRows, kQRows * 4,
+                  &full[st]);
+        bulk_load(DDs + st * kQRows, rows + np + qt * kQRows, kQRows * 4,
+                  &full[st]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup w owns keys k0 + 64 w .. + 63.
+  const int w = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  bool kvalid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    kvalid[r] = k0 + w * 64 + warp * 16 + g + 8 * r < a.n_real;
+  const __nv_bfloat16* Kw = Ks + w * 64 * DH;
+  const __nv_bfloat16* Vw = Vs + w * 64 * DH;
+  float* stage_w = stage + w * kQRows * DH;
+  float* acc_base = a.dq_acc + ((size_t)b * a.heads + h) * np * DH;
+
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int st = qt % kStages;
+    mbar_wait(&full[st], (qt / kStages) & 1);
+    const __nv_bfloat16* qs = Qs + st * kQRows * DH;
+    const __nv_bfloat16* os = Os + st * kQRows * DH;
+    const float* ls = Ls + st * kQRows;
+    const float* dds = DDs + st * kQRows;
+
+    // s^T = k q^T, dp^T = v do^T: keys x queries; p^T is taken while dp^T
+    // is still in the tensor cores.  The query of s[i] is 8 (i / 4) + 2 t +
+    // (i & 1); p = exp(s scale - lse) by the full-precision expf, as the
+    // plain twin takes it.
+    float s[32], dp[32];
+    {
+      const uint64_t dkd = desc<RB>(Kw), dqd = desc<RB>(qs);
+      const uint64_t dvd = desc<RB>(Vw), dod = desc<RB>(os);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss<64, 0, 0>(s, dkd + 2 * kk, dqd + 2 * kk, kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss<64, 0, 0>(dp, dvd + 2 * kk, dod + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * j + c;
+        const float p = expf(s[i] * a.scale - ((c & 1) ? lv.y : lv.x));
+        s[i] = kvalid[c >> 1] ? p : 0.f;
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], s, kk);
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dv2 = *reinterpret_cast<const float2*>(dds + 8 * j + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * j + c;
+        dp[i] = s[i] * (dp[i] - ((c & 1) ? dv2.y : dv2.x));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], dp, kk);
+    // ds^T (bf16, the values of da) into this warpgroup's dq operand: row
+    // = key (128 B of 64 queries, 128-byte swizzle), two buffers by query
+    // tile.
+    unsigned char* dsb = reinterpret_cast<unsigned char*>(Ds) +
+                         ((qt & 1) * 2 + w) * 64 * kQRows * 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = warp * 16 + g + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(
+            dsb + swizzle<128>(key * 128 + (8 * j + 2 * t) * 2)) =
+            da[j >> 1][(j & 1) * 2 + r];
+    }
+    fence_proxy_async();
+    // dv += bf16(p^T) do, dk += ds^T q (do and q read MN-major).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DH, 1>(dv, pa[kk], desc<RB>(os + kk * 16 * DH), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DH, 1>(dk, da[kk], desc<RB>(qs + kk * 16 * DH), 1);
+    wgmma_commit();
+    // ds^T stored by the four warps; this warpgroup's last dq reduce has
+    // finished reading its stage.
+    if (wtid == 0) bulk_wait_read();
+    named_barrier(1 + w, 128);
+    // dq partial (64 queries x Dh) over this warpgroup's 64 keys = ds (A:
+    // ds^T read MN-major) . k (B: the key rows read MN-major).
+    float dq[DH / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<DH, 1, 1>(dq, desc<128>(dsb + kk * 16 * 128),
+                         desc<RB>(Kw + kk * 16 * DH), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+    mbar_arrive(&empty[st]);
+    // The fp32 partial, in accumulator order, added into the scratch.
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) stage_w[i * 128 + wtid] = dq[i];
+    fence_proxy_async();
+    named_barrier(1 + w, 128);
+    if (wtid == 0)
+      bulk_reduce_add_f32(acc_base + (size_t)qt * kQRows * DH, stage_w,
+                          kQRows * DH * 4);
+  }
+  if (wtid == 0) bulk_wait();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + w * 64 + warp * 16 + g + 8 * r;
+    if (key >= N) continue;
+    __nv_bfloat16* dkr = head_rows(a.dk, a.sdk, b, h) + key * a.sdk.sr;
+    __nv_bfloat16* dvr = head_rows(a.dv, a.sdv, b, h) + key * a.sdv.sr;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkr + col) = sm90::pack_bf16(
+          dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvr + col) =
+          sm90::pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dq = bf16(scratch * scale) into the caller's layout: one thread per
+// (image, head, query tile, consumer thread of a warpgroup), reading the
+// accumulator order both warpgroups of the main kernel added into.
+template <int DH>
+__global__ void __launch_bounds__(256)
+attention_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* dq,
+                    Rows sdq, int B, int N, int heads, float scale) {
+  const int np = padded_rows(N);
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int nq = np / kQRows;
+  if (idx >= (long long)B * heads * nq * 128) return;
+  const int wtid = idx & 127;
+  const long long tile = idx >> 7;  // (b, h, qt)
+  const int qt = tile % nq;
+  const int h = (tile / nq) % heads;
+  const int b = tile / ((long long)nq * heads);
+  const float* src = acc + tile * kQRows * DH + wtid;
+  const int warp = wtid >> 5;
+  const int g = (wtid & 31) >> 2;
+  const int t = wtid & 3;
+  __nv_bfloat16* base = head_rows(dq, sdq, b, h);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qt * kQRows + warp * 16 + g + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const float x0 = src[(4 * j + 2 * r) * 128];
+      const float x1 = src[(4 * j + 2 * r + 1) * 128];
+      *reinterpret_cast<uint32_t*>(base + row * sdq.sr + 8 * j + 2 * t) =
+          sm90::pack_bf16(x0 * scale, x1 * scale);
+    }
+  }
+}
+
+// A (Dh, N, H, B) map of one operand; the stride of a dimension of size 1
+// is never used and is given as a dense layout's, which TMA accepts.
+inline int operand_map(CUtensorMap* map, const __nv_bfloat16* p, Rows s,
+                       int dh, int N, int heads, int B) {
+  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)N, (uint64_t)heads,
+                            (uint64_t)B};
+  const uint64_t row = (uint64_t)dh * 2;
+  const uint64_t strides[3] = {
+      N > 1 ? (uint64_t)s.sr * 2 : row,
+      heads > 1 ? (uint64_t)s.sh * 2 : row * N,
+      B > 1 ? (uint64_t)s.sb * 2 : row * N * heads};
+  const uint32_t box[4] = {(uint32_t)dh, kQRows, 1, 1};
+  return sm90::encode_map(map, p, 4, dims, strides, box);
+}
+
+// The rows pass, the main kernel and the dq pass on `stream`; returns the
+// first error (cudaGetLastError() after each launch, or of the encoding).
+template <int DH>
+int launch_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
+               cudaStream_t stream) {
+  const int smem = bwd_smem(DH).total;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  BwdMaps maps;
+  int err = operand_map(&maps.q, a.q, a.sq, DH, a.N, a.heads, B);
+  if (!err) err = operand_map(&maps.k, a.k, a.sk, DH, a.N, a.heads, B);
+  if (!err) err = operand_map(&maps.v, a.v, a.sv, DH, a.N, a.heads, B);
+  if (!err) err = operand_map(&maps.dout, a.dout, a.sdo, DH, a.N, a.heads, B);
+  if (err) return err;
+  const int np = padded_rows(a.N);
+  const long long rows = (long long)B * np;
+  attention_rows_kernel<DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      a.dout, a.sdo, o, so, a.lse, a.rows, B, a.N, a.heads);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.N + kKeys - 1) / kKeys, a.heads, B);
+  attention_bwd_kernel<DH><<<grid, kBwdThreads, smem, stream>>>(maps, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long threads = (long long)B * a.heads * (np / kQRows) * 128;
+  attention_dq_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0,
+                            stream>>>(a.dq_acc, a.dq, a.sdq, B, a.N, a.heads,
+                                      a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 

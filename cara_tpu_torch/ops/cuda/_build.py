@@ -48,9 +48,9 @@ _SIGNATURES = {
     "cara_attn_proj": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     "cara_attn_proj_smem": [_I, _I, _I],
     "cara_blockwise_attention": [_P] * 3 + [_I] * 5 + [_F, _P],
-    "cara_blockwise_attention_bwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "cara_blockwise_attention_bwd": [_P] * 7 + [_I] * 5 + [_F, _P],
     "cara_flash_attention": [_P] * 5 + [_S] + [_I] * 4 + [_F, _P],
-    "cara_flash_attention_bwd": [_P] * 10 + [_S] + [_I] * 4 + [_F, _P],
+    "cara_flash_attention_bwd": [_P] * 11 + [_S] + [_I] * 4 + [_F, _P],
     "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
     "cara_wd_factor_grads": [_P, _I] + [_P] * 7 + [_I] * 3 + [_F, _U, _P],
     "cara_rank_z": [_P] * 3 + [_I] * 4 + [_P],

@@ -3,8 +3,9 @@ forward and backward: the attention of token counts past 512.
 
 Kernels: ``csrc/blockwise_attention.cu`` (forward, writes the output and
 the per-row log-sum-exp) and ``csrc/blockwise_attention_bwd.cu`` (the
-row pass D = rowsum(do * o), then dq by query tiles and dk / dv by key
-tiles).  They replace the TPU kernels of
+row pass D = rowsum(do * o), one ``wgmma`` kernel of five products per
+128-key tile whose dq partials are added into an fp32 scratch, and the
+pass that rounds dq).  They replace the TPU kernels of
 ``cara_tpu/ops/pallas/blockwise_attention.py``, TPU row 16:
 ``_fwd_kernel`` (``pallas_call`` in ``_fwd``) and ``_dq_kernel`` /
 ``_dkv_kernel`` (``_bwd_rule``).  ``fused_qkv_attention`` (row 1) holds a
@@ -12,10 +13,14 @@ head's whole key axis in one block and is capped at N = 512; ViT-B/16 at
 384 px has 577 tokens, so ``models/vit.py`` takes this attention above
 512, as ``cara_tpu/models/vit.py`` does once the padded token count
 passes ``MAX_NP_FULL_SCORES``.  What bounds it on the H100 and what the
-design does about it is in the sources' head comments: one block per
-(image, head, 64-row tile), the other axis streamed in 64-row tiles
-through a two-slot ``cp.async`` ring, ``mma.sync`` with the score tiles
-kept in registers.
+design does about it is in the sources' head comments: the forward one
+block per (image, head, 64-query tile), the key axis streamed in 64-key
+tiles through a two-slot ``cp.async`` ring, ``mma.sync`` with the score
+tiles kept in registers; the backward one block per (image, head,
+128-key tile), the query tiles streamed by TMA past two ``wgmma``
+warpgroups (``csrc/tiled_attention_bwd.cuh``).  dq's fp32 sum over the
+key tiles is taken in no fixed order, so it is not bitwise deterministic
+from call to call.
 
 Same interface as ``fused_qkv_attention``: qkv (B, N, 3E) with out-flat
 (3, H, Dh) columns -> (B, N, E), keys at or past ``n_real`` masked.  The
@@ -41,7 +46,7 @@ BLOCK_K = 128
 
 #: Forward kernel launches of :func:`blockwise_qkv_attention` (row 16).
 LAUNCHES = 0
-#: Backward kernel launches (the delta, dq and dk / dv kernels; row 16).
+#: Backward calls (the row pass, the main kernel and the dq pass; row 16).
 BWD_LAUNCHES = 0
 
 
@@ -145,6 +150,18 @@ def attention_fwd_cuda(qkv, heads: int, scale: float, n_real: int):
     return out, lse
 
 
+def bwd_scratch(b: int, n: int, heads: int, dh: int, device):
+    """The backward kernels' fp32 scratch (``csrc/tiled_attention_bwd.cuh``):
+    the (B, H, 2, NP) rows of lse and D, and the zeroed (B, H, NP, Dh) dq
+    sum (126 MB at B = 64, N = 577, H = 12, Dh = 64); NP = N rounded up to
+    64."""
+    np_ = -(-n // 64) * 64
+    rows = torch.empty((b, heads, 2, np_), device=device, dtype=torch.float32)
+    dq_acc = torch.zeros((b, heads, np_, dh), device=device,
+                         dtype=torch.float32)
+    return rows, dq_acc
+
+
 def attention_bwd_cuda(qkv, out, lse, do, heads: int, scale: float,
                        n_real: int):
     """Launch ``csrc/blockwise_attention_bwd.cu``: dqkv bf16."""
@@ -160,12 +177,12 @@ def attention_bwd_cuda(qkv, out, lse, do, heads: int, scale: float,
                          f"wants out and do (B, N, E) and fp32 lse "
                          f"(B, N, H), got {tuple(out.shape)}, "
                          f"{tuple(do.shape)}, {tuple(lse.shape)}")
-    dd = torch.empty((bsz, n, heads), device=dev, dtype=torch.float32)
+    rows, dq_acc = bwd_scratch(bsz, n, heads, dh, dev)
     dqkv = torch.empty_like(qkv)
     code = _build.lib().cara_blockwise_attention_bwd(
         qkv.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dd.data_ptr(), dqkv.data_ptr(), bsz, n, heads, dh, int(n_real),
-        float(scale), _build.stream_ptr(dev))
+        rows.data_ptr(), dq_acc.data_ptr(), dqkv.data_ptr(), bsz, n, heads,
+        dh, int(n_real), float(scale), _build.stream_ptr(dev))
     _build.check(code, "blockwise_attention_bwd")
     return dqkv
 

@@ -3,7 +3,8 @@ backward: the attention of full fine-tuning (``attn_impl="flash"``).
 
 Kernels: ``csrc/flash_attention.cu`` (forward, writes the output and the
 per-row log-sum-exp) and ``csrc/flash_attention_bwd.cu`` (the row pass
-D = rowsum(do * o), then dq by query tiles and dk / dv by key tiles).
+D = rowsum(do * o), one ``wgmma`` kernel of five products per 128-key
+tile, and the pass that rounds dq).
 They replace the TPU kernels of ``cara_tpu/ops/pallas/flash_attention.py``,
 TPU row 17: ``_attn_fwd_kernel`` (the ``pallas_call`` in ``_fwd``) and
 ``_attn_bwd_kernel`` (the ``pallas_call`` in ``_bwd_rule``).  Their tile
@@ -17,9 +18,12 @@ B = 64, N = 197, H = 12, Dh = 64 the forward needs 15.3 GFLOP against
 bytes (~0.023 / 0.041 ms); at N = 577 by operations (~0.068 / 0.166 ms).
 The TPU kernel holds each (g, N, N) score tile whole in VMEM, padded to a
 multiple of 128; a Hopper block has 227 KB, which the 577 x 577 tile does
-not fit, so the key axis is streamed in 64-key tiles through a
+not fit, so the forward streams the key axis in 64-key tiles through a
 ``cp.async`` ring with an online softmax, the score tile kept in
-``mma.sync`` registers, and N taken as it is (no padding).  The strides
+``mma.sync`` registers, and the backward streams the query axis by TMA
+past two ``wgmma`` warpgroups of one 128-key tile (dq's fp32 sum over the
+key tiles in no fixed order, so not bitwise deterministic); N is taken as
+it is (no padding).  The strides
 let the model's views pass with no copy: q, k, v split from the qkv GEMM
 output and transposed to (B, H, N, Dh), and the output written to a
 (B, N, H, Dh) buffer whose transpose back to (B, N, E) is free.
@@ -47,10 +51,11 @@ import ctypes
 import torch
 
 from cara_tpu_torch.ops.cuda import _build
+from cara_tpu_torch.ops.cuda.blockwise_attention import bwd_scratch
 
 #: Forward kernel launches of :func:`flash_attention` (row 17).
 LAUNCHES = 0
-#: Backward launches (one call: the delta, dq and dk / dv kernels).
+#: Backward calls (the row pass, the main kernel and the dq pass).
 BWD_LAUNCHES = 0
 #: The head width the kernels take.
 HEAD_DIM = 64
@@ -161,11 +166,11 @@ def attention_bwd_cuda(q, k, v, out, lse, do, scale: float):
                          f"= {(b, n, h)}, got {tuple(lse.shape)}")
     q, k, v, out, do = (_layout(t) for t in (q, k, v, out, do))
     dq, dk, dv = (_head_buffer(b, h, n, dh, q.device) for _ in range(3))
-    dd = torch.empty_like(lse)
+    rows, dq_acc = bwd_scratch(b, n, h, dh, q.device)
     code = _build.lib().cara_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq_acc.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(q, k, v, out, do, dq, dk, dv), b, n, h, dh, float(scale),
         _build.stream_ptr(q.device))
     _build.check(code, "flash_attention_bwd")

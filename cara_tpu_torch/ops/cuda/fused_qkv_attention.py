@@ -3,9 +3,10 @@
 Kernel: ``csrc/qkv_attention.cu``.  It replaces the TPU kernel
 ``cara_tpu/ops/pallas/fused_qkv_attention.py`` (``fused_qkv_attention``,
 ``_fwd``; per-head math ``_attn_heads``).  What bounds it on the H100 and
-what the design does about it is in the source's head comment: one block
-per (image, head, 64-query tile), that head's K and V resident in shared
-memory (> 48 KB, opt-in), fp32 softmax, bf16 tensor-core products.
+what the design does about it is in the source's head comment: one
+persistent block per SM over the (image, head) items, Q, K and V loaded
+once by TMA, S = Q K^T and O = P V by ``wgmma`` with the scores and P in
+registers (``sm_90a``).
 
 The wrapper is a ``torch.autograd.Function`` that keeps qkv, as the JAX
 rule's residual does.  Its backward replaces ``_bwd_rule`` /

@@ -13,7 +13,9 @@ fatal on failure:
    reference runs in fp32 with TF32 off): max |error| against the stated
    tolerance, the weight-dropout fold's keep pattern against the plain
    mask bit for bit, and the median time of kernel and plain (the plain
-   version on the same bf16 inputs) over 20 runs by CUDA events;
+   version on the same bf16 inputs) over 20 runs by CUDA events; then
+   row 1 (``fused_qkv_attention``) at B 16 past one 256-key chunk, N =
+   257 with keys >= 250 masked and N = 512 (its two-chunk path);
 4. the serving path: ViT-B/16 in21k at full width and depth from seed 0
    (tanh pre_logits, 10 classes) with a perturbed order-4 rank-8 CaRA
    adapter at scale 10, saved as an npz checkpoint, then served merged
@@ -44,8 +46,9 @@ fatal on failure:
    attention's 512): the kernel entries of TPU rows 15 and 16 at its
    shapes (the blockwise attention forward and backward,
    ``cp_dense_wd`` / ``cp_dense_ln_wd`` forward and backward, row 15's
-   factor gradients; the blockwise forward again at N = 640 with keys
-   >= 577 masked, and its log-sum-exp at both);
+   factor gradients; the blockwise forward and backward again at N = 640
+   with keys >= 577 masked (zero dk, dv there), and the forward's
+   log-sum-exp at both);
    ``vit_base_patch16_384_in21k`` served merged and unmerged as in 4;
    trained with element and with rank weight dropout as in 5 and 6, the
    gradient check at batch 16, 12 timed steps at batch 64.  Over these
@@ -1247,15 +1250,40 @@ def wd_keep_check(dev, inp) -> int:
 def kernel_phase(dev, inp, timed: bool = True) -> dict:
     """Each kernel against its fp32 plain version; returns per-kernel
     ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by`` and
-    ``library_ms``."""
+    ``library_ms``.  Then row 1 at the edges of its kernel's paths."""
     wd_keep_check(dev, inp)
-    return check_entries(dev, inp, kernel_calls(inp), timed)
+    out = check_entries(dev, inp, kernel_calls(inp), timed)
+    qkv_attention_edge_check(dev, inp)
+    return out
+
+
+# Row 1 past one 256-key chunk: ViT-L/14's 257 tokens (two chunks, keys
+# masked as at 224 px with padding) and the kernel's cap, 512.
+ROW1_EDGES = ((257, 250), (512, 512))
+
+
+def qkv_attention_edge_check(dev, inp, batch=16) -> None:
+    """Row 1 at each (N, n_real) of ``ROW1_EDGES`` (the two-chunk path: a
+    pass for the row max, a pass for exp, the sum and P V) against its fp32
+    plain version, ``KERNEL_TOL``, at ``inp``'s width."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    for n, n_real in ROW1_EDGES:
+        qkv = (torch.randn((batch, n, 3 * inp["e"]), generator=g, device=dev)
+               * 0.6).to(torch.bfloat16)
+        args = (inp["heads"], inp["sm"], n_real)
+        with torch.inference_mode():
+            got = fqa_mod.fused_qkv_attention(qkv, *args)
+        ref = fqa_mod.fused_qkv_attention_plain(qkv.float(), *args)
+        print(f"[kernel] fused_qkv_attention at B {batch}, N {n}, keys >= "
+              f"{n_real} masked:", flush=True)
+        _check_outputs("fused_qkv_attention", got, ref)
 
 
 def long_kernel_phase(dev, inp, timed: bool = True) -> dict:
     """:func:`kernel_phase` for the 384-px route's entries on ``inp`` (at
-    N = 577), then the blockwise attention forward at N = 640 with keys
-    >= 577 masked."""
+    N = 577), then the blockwise attention forward and backward at N = 640
+    with keys >= 577 masked (the backward's last key tile wholly so)."""
     out = check_entries(dev, inp, long_kernel_calls(inp), timed)
     args = (inp["heads"], inp["sm"], inp["n_real"])
     blockwise_lse_check(inp["qkv"], *args)
@@ -1271,6 +1299,25 @@ def long_kernel_phase(dev, inp, timed: bool = True) -> dict:
           "masked:", flush=True)
     _check_outputs("blockwise_qkv_attention", got, ref)
     blockwise_lse_check(qkv, *args)
+    cot = torch.randn((inp["b"], n, inp["e"]), generator=g,
+                      device=dev).to(torch.bfloat16)
+
+    def bwd(impl, dtype):
+        call = _grad_call(
+            lambda t: bwa_mod.blockwise_qkv_attention(t["qkv"], *args,
+                                                      impl=impl),
+            {"qkv": qkv}, ("qkv",), cot, dtype)
+        return dict(zip(("dq", "dk", "dv"), call()["qkv"].chunk(3, dim=-1)))
+
+    print(f"[kernel] blockwise_qkv_attention_bwd at N {n}, keys >= {nr} "
+          "masked:", flush=True)
+    got = bwd("auto", torch.bfloat16)
+    for key in ("dk", "dv"):
+        require(not got[key][:, nr:].any(),
+                f"blockwise_qkv_attention_bwd/{key}: keys past {nr} got a "
+                "gradient")
+    _check_outputs("blockwise_qkv_attention_bwd", got,
+                   bwd("plain", torch.float32))
     return out
 
 

@@ -43,6 +43,7 @@ from cara_tpu_torch.config import CaraConfig, get_model_config
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models import vit as t_vit
+from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
@@ -639,3 +640,109 @@ def test_quantized_predictor_on_card_matches_plain(dev, monkeypatch, mode):
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() <= (chip_smoke.LOGIT_RTOL
                                        * np.abs(ref).max())
+
+
+# Row 1's wgmma kernel: head widths 16, 32 and 64; one 64-key chunk (16
+# tokens), the 200-wide chunk (197), and the two-chunk path past 256 keys
+# (257, 512); keys masked in the 257 case.
+ROW1_CASES = [(dh, n, n_real) for dh in (16, 32, 64)
+              for n, n_real in ((16, 16), (197, 197), (257, 250), (512, 512))]
+
+
+@pytest.mark.parametrize("dh, n, n_real", ROW1_CASES,
+                         ids=[f"dh{d}_n{n}_r{r}" for d, n, r in ROW1_CASES])
+def test_qkv_attention_wgmma_matches_plain(dev, dh, n, n_real):
+    """Row 1 against ``fused_qkv_attention_plain`` in fp32, B 3 and 3
+    heads (so one block walks several (image, head) items), counted once."""
+    b, heads = 3, 3
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + dh)
+    qkv = (torch.randn((b, n, 3 * heads * dh), generator=g, device=dev)
+           * 0.8).to(torch.bfloat16)
+    sm = dh ** -0.5
+    before = _launches("fused_qkv_attention")
+    with torch.inference_mode():
+        out = fqa_mod.fused_qkv_attention(qkv, heads, sm, n_real)
+    torch.cuda.synchronize()
+    assert _launches("fused_qkv_attention") == before + 1
+    ref = fqa_mod.fused_qkv_attention_plain(qkv.float(), heads, sm, n_real)
+    _check("fused_qkv_attention", out, ref)
+
+
+def _bwd_grads(route, qkv, g, heads, sm, n_real, impl):
+    """dq, dk, dv of row 16 (the qkv layout) or row 17 (strided (B, H, N,
+    Dh) views of qkv) through autograd."""
+    b, n, e3 = qkv.shape
+    dh = e3 // 3 // heads
+    x = qkv.detach().requires_grad_(True)
+    if route == "blockwise":
+        out = bwa_mod.blockwise_qkv_attention(x, heads, sm, n_real,
+                                              impl=impl)
+        (d,) = torch.autograd.grad(out, x, g)
+        return d.chunk(3, dim=-1)
+    q, k, v = (t.transpose(1, 2)
+               for t in x.reshape(b, n, 3, heads, dh).unbind(2))
+    out = flash_mod.flash_attention(q, k, v, sm, impl=impl)
+    gh = g.reshape(b, n, heads, dh).transpose(1, 2)
+    return [t.transpose(1, 2).reshape(b, n, -1)
+            for t in torch.autograd.grad(out, (q, k, v), gh)]
+
+
+# (route, n, n_real, dh, b, heads): the tiled backward through both
+# wrappers; at N = 640 with n_real 577 the last key tile is wholly masked;
+# one image of one head (the size-1 dimensions of the TMA maps).
+BWD_CASES = [("blockwise", 197, 197, 64, 2, 3),
+             ("blockwise", 577, 577, 64, 2, 3),
+             ("blockwise", 640, 577, 64, 2, 3),
+             ("blockwise", 200, 100, 32, 2, 3),
+             ("blockwise", 70, 61, 16, 2, 3), ("flash", 197, 197, 64, 2, 3),
+             ("flash", 577, 577, 64, 2, 3), ("flash", 70, 70, 64, 1, 1)]
+
+
+@pytest.mark.parametrize("route, n, n_real, dh, b, heads", BWD_CASES,
+                         ids=[f"{r}_n{n}_r{nr}_dh{d}_b{b}_h{h}"
+                              for r, n, nr, d, b, h in BWD_CASES])
+def test_tiled_attention_bwd_wgmma_matches_plain(dev, monkeypatch, route, n,
+                                                 n_real, dh, b, heads):
+    """The five-product backward against the fp32 plain twin (relative L2
+    ``GRAD_REL_L2`` for dq, dk, dv; keys in [n_real, N) get exactly zero
+    dk, dv), counted once a call; then the same call again: its fp32 dq
+    sum (the scratch the wrapper zeroes) agrees with the first within
+    relative L2 1e-6 (a scratch left unzeroed would double it; the sums
+    differ only in the order of their fp32 additions), and dk and dv are
+    bit for bit the same."""
+    e = heads * dh
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + dh)
+    qkv = (torch.randn((b, n, 3 * e), generator=gen, device=dev)
+           * 0.6).to(torch.bfloat16)
+    g = torch.randn((b, n, e), generator=gen, device=dev).to(torch.bfloat16)
+    sm = dh ** -0.5
+    mod = bwa_mod if route == "blockwise" else flash_mod
+    sums = []
+    make = bwa_mod.bwd_scratch
+
+    def scratch(*args):
+        rows, dq_acc = make(*args)
+        sums.append(dq_acc)
+        return rows, dq_acc
+
+    monkeypatch.setattr(mod, "bwd_scratch", scratch)
+    before = mod.BWD_LAUNCHES
+    got = _bwd_grads(route, qkv, g, heads, sm, n_real, "auto")
+    torch.cuda.synchronize()
+    assert mod.BWD_LAUNCHES == before + 1
+    ref = _bwd_grads(route, qkv.float(), g.float(), heads, sm, n_real,
+                     "plain")
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(x).all(), name
+        rel = chip_smoke.rel_l2(x, r)
+        assert rel <= chip_smoke.GRAD_REL_L2, (name, rel)
+    if n_real < n:
+        assert not got[1][:, n_real:].any()
+        assert not got[2][:, n_real:].any()
+    again = _bwd_grads(route, qkv, g, heads, sm, n_real, "auto")
+    torch.cuda.synchronize()
+    assert len(sums) == 2
+    assert chip_smoke.rel_l2(sums[1], sums[0]) <= 1e-6
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])

@@ -1,0 +1,197 @@
+"""Time this tree's attention kernels and end-to-end paths beside another
+tree's (for example the parent commit unpacked by ``git archive``), in
+turns on one card.
+
+    git archive HEAD~1 | tar -x -C build/parent
+    python tools/compare_parent.py --other build/parent
+
+Each round runs in a child process whose working directory and import
+path are one tree (``--child``), so each tree's package, ``chip_smoke.py``
+and kernel library (built from that tree's sources into its own
+``build/kernels``) are used as they are.  The order is other, this, this,
+other (``--rounds`` pairs).  A child measures, on ViT-B/16 at batch 64 in
+bf16:
+
+- the kernels of TPU row 1 (forward, N = 197), row 16's backward (N =
+  577) and row 17's backward (N = 197 and 577), median of 20 CUDA-event
+  timed calls, beside SDPA (forward and backward) on the same inputs;
+- merged and adapter serving at 224 px (``Predictor.logits``, host
+  clock, 10 batches);
+- the rank step at 224 px, the element and rank steps at 384 px and the
+  full fine-tuning step at 224 px (median ms per step by CUDA events over
+  the steps after the fifth, on one fixed batch).
+
+Prints the card's name and power limit and one JSON line per child, and
+writes them to ``--out`` as one JSON file where it is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _kernels(cs, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from cara_tpu_torch.ops.cuda import blockwise_attention as bwa
+    from cara_tpu_torch.ops.cuda import flash_attention as fl
+    from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa
+
+    b, h, d = 64, 12, 64
+    sm = d ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(torch.bfloat16)
+
+    def heads(t, n):
+        return [x.transpose(1, 2) for x in t.reshape(b, n, 3, h, d).unbind(2)]
+
+    qkv = rnd(b, 197, 3 * h * d, std=0.6)
+    with torch.inference_mode():
+        out["row1_ms"] = cs.median_ms(
+            lambda: fqa.attention_cuda(qkv, h, sm, 197))
+        q, k, v = heads(qkv, 197)
+        out["row1_sdpa_ms"] = cs.median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
+    for n in (577, 197):
+        qkv = rnd(b, n, 3 * h * d, std=0.6)
+        g = rnd(b, n, h * d)
+        if n == 577:
+            o, lse = bwa.attention_fwd_cuda(qkv, h, sm, n)
+            out["row16_bwd_577_ms"] = cs.median_ms(
+                lambda: bwa.attention_bwd_cuda(qkv, o, lse, g, h, sm, n))
+        q, k, v = heads(qkv, n)
+        gh = g.reshape(b, n, h, d).transpose(1, 2)
+        o, lse = fl.attention_fwd_cuda(q, k, v, sm)
+        out[f"row17_bwd_{n}_ms"] = cs.median_ms(
+            lambda: fl.attention_bwd_cuda(q, k, v, o, lse, gh, sm))
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qq, kk, vv)
+        out[f"sdpa_bwd_{n}_ms"] = cs.median_ms(
+            lambda: torch.autograd.grad(so, (qq, kk, vv), gh,
+                                        retain_graph=True))
+    return out
+
+
+def _serving(cs, dev) -> dict:
+    import torch
+    from cara_tpu_torch.serving import Predictor
+
+    out = {}
+    images = cs.make_images(64, 224)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "vit_compare_seed_0.npz")
+        cs.make_checkpoint(ckpt)
+        for merge in (True, False):
+            pred = Predictor.from_checkpoint_auto(
+                ckpt, cs.MODEL, batch_size=64, merge=merge, device=dev,
+                dtype=torch.bfloat16)
+            for _ in range(3):
+                pred.logits(images)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                pred.logits(images)
+            rate = 10 * len(images) / (time.perf_counter() - t0)
+            out["serve_merged_img_s" if merge else "serve_adapter_img_s"] = (
+                rate)
+    return out
+
+
+def _train(cs, dev) -> dict:
+    import torch
+
+    out = {}
+    routes = (("rank_224", cs.MODEL, dict(impl="rank"), 20),
+              ("element_384", cs.MODEL_384, dict(impl="element"), 12),
+              ("rank_384", cs.MODEL_384, dict(impl="rank"), 12),
+              ("full_224", cs.MODEL, dict(method="full", lr=1e-4), 20))
+    for name, model, kw, steps in routes:
+        cfg, cara_cfg, frozen, state, data = cs.train_setup(
+            dev, model=model, batch=64, **kw)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        _, losses, ms, _ = cs.fixed_batch_steps(cfg, cara_cfg, frozen, state,
+                                                data, gen, steps)
+        out[f"step_{name}_ms"] = statistics.median(ms[5:])
+        out[f"step_{name}_loss_last"] = losses[-1]
+        del frozen, state, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def child() -> int:
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from cara_tpu_torch.ops.cuda import _build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    res = {"tree": os.getcwd(), "build_s": _build.BUILD_INFO["seconds"]}
+    res.update(_kernels(cs, dev))
+    res.update(_serving(cs, dev))
+    res.update(_train(cs, dev))
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--other", help="the tree to compare with")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="pairs of turns (other, this, this, other)")
+    parser.add_argument("--out", help="also write the results here (JSON)")
+    parser.add_argument("--child", action="store_true",
+                        help="measure the tree in the working directory")
+    args = parser.parse_args(argv)
+    if args.child:
+        return child()
+    if not args.other:
+        parser.error("--other is required")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(card.strip(), flush=True)
+    trees = {"other": os.path.abspath(args.other), "this": HERE}
+    order = ["other", "this", "this", "other"] * args.rounds
+    results = []
+    for label in order:
+        tree = trees[label]
+        env = dict(os.environ, PYTHONPATH=tree)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child"], cwd=tree,
+            env=env, capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+            return 1
+        res = dict(json.loads(lines[-1][7:]), label=label)
+        print(json.dumps(res), flush=True)
+        results.append(res)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card.strip(), "results": results}, f,
+                      indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
