@@ -14,16 +14,16 @@
 // padded token count passes the full-score kernel's 512 (ViT-B/16 at
 // 384 px, 577 tokens).  The TPU kernel walks (bq, bk) = up to 512-wide
 // tiles over a sequential key grid axis with m, l and the output
-// accumulator in VMEM scratch.  Here one block serves one (image, head,
-// 64-query tile), the key axis streamed in 64-key tiles through a
-// two-slot cp.async ring, every product on mma.sync with the score tile
-// in registers (tiled_attention_fwd.cuh).
+// accumulator in VMEM scratch.  Here persistent blocks, two an SM, walk
+// over (image, head, 128-query tile) items: a producer warp loads the
+// query rows once and streams K and V in 64-key tiles by TMA through an
+// mbarrier ring, and two wgmma warpgroups of 64 query rows keep the score
+// tile in registers (tiled_attention_fwd.cuh).
 //
 // What bounds it: at B = 64, N = 577, H = 12, Dh = 64 the call does
 // 4 B N^2 E = 65.5 GFLOP against ~230 MB, ~0.066 ms on the tensor cores
-// and ~0.069 ms on HBM, so both about equally.  This first version is
-// mma.sync at 46 KB of shared memory a block; wgmma, TMA and a wider
-// query tile per block are later work.
+// and ~0.068 ms on HBM, so both about equally; what the design does about
+// it, and its times, in tiled_attention_fwd.cuh.
 
 #include "tiled_attention_fwd.cuh"
 
@@ -40,8 +40,7 @@ int attention_fwd(const __nv_bfloat16* q, Rows sq, const __nv_bfloat16* k,
                   int heads, int dh, int n_real, float scale,
                   cudaStream_t stream) {
   using tiled_attention::launch_fwd;
-  if (n_real < 1 || n_real > N ||
-      tiled_attention::fwd_smem(dh) > tiled_attention::kMaxSmem)
+  if (n_real < 1 || n_real > N)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 16:
@@ -61,7 +60,8 @@ int attention_fwd(const __nv_bfloat16* q, Rows sq, const __nv_bfloat16* k,
 
 // qkv (B, N, 3E) bf16 -> out (B, N, E) bf16 and lse (B, N, heads) fp32;
 // keys >= n_real (1 <= n_real <= N) masked.  dh must be 16, 32 or 64.
-// Returns cudaGetLastError() (or the shared-memory attribute's error).
+// Returns cudaGetLastError() (or the shared-memory attribute's or a
+// tensor-map encoding's error).
 extern "C" int cara_blockwise_attention(const void* qkv, void* out, void* lse,
                                         int B, int N, int heads, int dh,
                                         int n_real, float scale,

@@ -9,11 +9,11 @@
 // buffer, so the model's transpose back to (B, N, E) is free), with the
 // per-row log-sum-exp (B, N, H) fp32 that flash_attention_bwd.cu reads.
 // The tile loop is tiled_attention_fwd.cuh's, shared with row 16
-// (blockwise_attention.cu): one block per (image, head, 64-query tile),
-// key tiles of 64 streamed through a two-slot cp.async ring, every
-// product on bf16 mma.sync with the score tile in registers and an
-// online softmax in fp32; N is taken as it is (rows past N zero-filled,
-// never written).
+// (blockwise_attention.cu): persistent blocks, two an SM, over (image,
+// head, 128-query tile) items, K and V streamed in 64-key tiles by TMA
+// through an mbarrier ring, two wgmma warpgroups of 64 query rows with the
+// score tile in registers and an online softmax in fp32; N is taken as it
+// is (rows past N zero-filled by TMA, never written).
 //
 // Replaces cara_tpu/ops/pallas/flash_attention.py _attn_fwd_kernel (the
 // pallas_call in _fwd), TPU row 17: the attention of full fine-tuning,
@@ -28,16 +28,15 @@
 // What bounds it: at B = 64, N = 197, H = 12, Dh = 64 the call needs
 // 4 B N^2 E = 15.3 GFLOP against 77.5 MB (q, k, v read once, o written),
 // ~0.015 ms on the tensor cores and ~0.023 ms on HBM, so bytes; at N = 577
-// both about equally (~0.068 ms).  This first version is mma.sync at 46 KB
-// of shared memory a block; wgmma, TMA and a wider query tile per block
-// are later work.
+// both about equally (~0.068 ms).  What the design does about it, and its
+// times, in tiled_attention_fwd.cuh.
 
 #include "tiled_attention_fwd.cuh"
 
 // q, k, v -> out (bf16, any (B, H, N, 64) strides in `strides`: q, k, v,
 // out, each (batch, head, row)) and lse (B, N, heads) fp32 contiguous.
 // Only head width 64.  Returns cudaGetLastError() (or the shared-memory
-// attribute's error, or cudaErrorInvalidValue).
+// attribute's or a tensor-map encoding's error, or cudaErrorInvalidValue).
 extern "C" int cara_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     const long long* strides, int B, int N,

@@ -1,9 +1,8 @@
 // The PTX wrappers the mma.sync kernels share (cp_site.cu, grad_gemm.cu,
-// the tiled forward of blockwise_attention.cu and flash_attention.cu,
-// tiled_attention_fwd.cuh): 16-byte cp.async
-// with zero fill, its commit and wait, ldmatrix of four 8x8 b16 tiles
-// (plain and transposed), the bf16 m16n8k16 mma with fp32 accumulators,
-// and the pack of two floats into a bf16x2 register.
+// attn_proj.cu, block_pair.cu, int8_dense.cu): 16-byte cp.async with zero
+// fill, its commit and wait, ldmatrix of four 8x8 b16 tiles (plain and
+// transposed), the bf16 m16n8k16 mma with fp32 accumulators, and the pack
+// of two floats into a bf16x2 register.
 
 #pragma once
 

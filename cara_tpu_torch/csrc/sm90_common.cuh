@@ -1,10 +1,10 @@
 // The Hopper (sm_90a) building blocks the wgmma attention kernels share
-// (qkv_attention.cu, tiled_attention_bwd.cuh): shared-memory matrix
-// descriptors for wgmma and its fence / commit / wait, mbarrier init,
-// expect-tx, arrive and wait, the TMA tile load and the bulk copies (a
-// plain load and an fp32 add-reduce into global memory), named barriers,
-// and on the host the encoding of a TMA tensor map.  The wgmma
-// instructions themselves are in sm90_wgmma.cuh.
+// (qkv_attention.cu, tiled_attention_fwd.cuh, tiled_attention_bwd.cuh):
+// shared-memory matrix descriptors for wgmma and its fence / commit /
+// wait, mbarrier init, expect-tx, arrive and wait, the TMA tile load and
+// store and the bulk copies (a plain load and an fp32 add-reduce into
+// global memory), named barriers, and on the host the encoding of a TMA
+// tensor map.  The wgmma instructions themselves are in sm90_wgmma.cuh.
 //
 // Swizzle: a tile whose rows are W = 32, 64 or 128 bytes (16, 32 or 64
 // bf16) is loaded by TMA with the swizzle of the same width, and wgmma
@@ -133,8 +133,8 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// TMA: the box of `map` at (c0, c1, c2) written from `src`; rows out of
-// range are not written.  Commits the bulk group.
+// TMA: the box of `map` at (c0, c1, c2[, c3]) written from `src`; rows
+// out of range are not written.  Commits the bulk group.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2) {
@@ -142,6 +142,17 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
       "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

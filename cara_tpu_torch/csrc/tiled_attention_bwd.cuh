@@ -1,6 +1,10 @@
 // Key-tiled (online-softmax) attention for Hopper (sm_90a), backward: the
 // kernels that blockwise_attention_bwd.cu (TPU row 16) and
-// flash_attention_bwd.cu (TPU row 17) both launch.
+// flash_attention_bwd.cu (TPU row 17) both launch, and whose main kernel
+// and dq pass qkv_attention_bwd.cu (TPU row 2) launches after its own
+// statistics pass (launch_bwd_tiles: row 2 has no forward output or lse,
+// so its (lse, D) rows come from tiled_attention_fwd.cuh's statistics
+// mode instead of the rows pass below).
 //
 // From q, k, v, the forward's output o and log-sum-exp lse (B, N, H)
 // (tiled_attention_fwd.cuh) and the output cotangent do, writes dq, dk
@@ -72,14 +76,8 @@ namespace tiled_attention {
 namespace {
 
 constexpr int kKeys = 128;       // keys per block
-constexpr int kQRows = 64;       // rows per query tile (and TMA box)
-constexpr int kStages = 3;       // query-tile ring
+constexpr int kStages = 3;       // query-tile ring (of kQRows rows)
 constexpr int kBwdThreads = 288;  // two consumer warpgroups + a producer
-constexpr float kPadLse = 1e30f;
-
-__host__ __device__ inline int padded_rows(int N) {
-  return (N + kQRows - 1) / kQRows * kQRows;
-}
 
 // Shared memory of the main kernel, in bytes from a 1024-aligned base.
 struct BwdSmem {
@@ -427,26 +425,11 @@ attention_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* dq,
   }
 }
 
-// A (Dh, N, H, B) map of one operand; the stride of a dimension of size 1
-// is never used and is given as a dense layout's, which TMA accepts.
-inline int operand_map(CUtensorMap* map, const __nv_bfloat16* p, Rows s,
-                       int dh, int N, int heads, int B) {
-  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)N, (uint64_t)heads,
-                            (uint64_t)B};
-  const uint64_t row = (uint64_t)dh * 2;
-  const uint64_t strides[3] = {
-      N > 1 ? (uint64_t)s.sr * 2 : row,
-      heads > 1 ? (uint64_t)s.sh * 2 : row * N,
-      B > 1 ? (uint64_t)s.sb * 2 : row * N * heads};
-  const uint32_t box[4] = {(uint32_t)dh, kQRows, 1, 1};
-  return sm90::encode_map(map, p, 4, dims, strides, box);
-}
-
-// The rows pass, the main kernel and the dq pass on `stream`; returns the
-// first error (cudaGetLastError() after each launch, or of the encoding).
+// The main kernel and the dq pass on `stream`, from the (lse, D) rows in
+// a.rows; returns the first error (cudaGetLastError() after each launch,
+// or of the encoding).
 template <int DH>
-int launch_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
-               cudaStream_t stream) {
+int launch_bwd_tiles(const BwdArgs& a, int B, cudaStream_t stream) {
   const int smem = bwd_smem(DH).total;
   static const cudaError_t attr = cudaFuncSetAttribute(
       attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -459,20 +442,28 @@ int launch_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
   if (!err) err = operand_map(&maps.dout, a.dout, a.sdo, DH, a.N, a.heads, B);
   if (err) return err;
   const int np = padded_rows(a.N);
-  const long long rows = (long long)B * np;
-  attention_rows_kernel<DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      a.dout, a.sdo, o, so, a.lse, a.rows, B, a.N, a.heads);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.N + kKeys - 1) / kKeys, a.heads, B);
   attention_bwd_kernel<DH><<<grid, kBwdThreads, smem, stream>>>(maps, a);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long threads = (long long)B * a.heads * (np / kQRows) * 128;
   attention_dq_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0,
                             stream>>>(a.dq_acc, a.dq, a.sdq, B, a.N, a.heads,
                                       a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The rows pass (D from the output o and the forward's lse), then the
+// main kernel and the dq pass: rows 16 and 17.
+template <int DH>
+int launch_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
+               cudaStream_t stream) {
+  const long long rows = (long long)B * padded_rows(a.N);
+  attention_rows_kernel<DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      a.dout, a.sdo, o, so, a.lse, a.rows, B, a.N, a.heads);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_bwd_tiles<DH>(a, B, stream);
 }
 
 }  // namespace

@@ -1,43 +1,87 @@
 // Key-tiled (online-softmax) attention for Hopper (sm_90a), forward: the
-// tile loop that blockwise_attention.cu (TPU row 16, the qkv layout) and
-// flash_attention.cu (TPU row 17, separate q, k, v) both launch.
+// kernel that blockwise_attention.cu (TPU row 16, the qkv layout) and
+// flash_attention.cu (TPU row 17, separate q, k, v) both launch, and, in
+// its statistics mode, the first pass of qkv_attention_bwd.cu (TPU row
+// 2's backward).
 //
 // Every operand is one (B, H, N, Dh) tensor given by a base pointer and
 // its (batch, head, row) strides in elements, the head dimension
 // contiguous, so the callers pass the views they hold as they lie: the
 // (B, N, 3E) qkv GEMM output (row stride 3E, head stride Dh; k and v at
 // column offsets E and 2E), transposed (B, H, N, Dh) views of it, or a
-// (B, N, E) output buffer (row stride E).  Rows must start on 16 bytes:
-// every stride a multiple of 8 elements, every base pointer 16-byte
-// aligned.  The per-row log-sum-exp that the backward
-// (tiled_attention_bwd.cuh) reads is (B, N, H) fp32, contiguous.
+// (B, N, E) output buffer (row stride E).  Each is read (or written) by a
+// TMA tensor map of its own strides: every stride a multiple of 8
+// elements, every base pointer 16-byte aligned.  The per-row log-sum-exp
+// that the backward (tiled_attention_bwd.cuh) reads is (B, N, H) fp32,
+// contiguous.
 //
-// One block serves one (image, head, 64-query tile): four warps of 16
-// query rows, the key axis streamed in 64-key tiles of K and V through
-// shared memory by a two-slot cp.async ring (the next tile loads while
-// this one is multiplied).  Every product runs on bf16 mma.sync.m16n8k16
-// with its fragments in registers: S = Q K^T stays in the accumulator
-// registers, the online-softmax update (running max, rescale, row sums)
-// runs on them in fp32, and P is packed to bf16 straight into the A
-// fragment of P V (the accumulator layout of two 16x8 tiles is the A
-// layout of one 16x16 tile), so no score tile touches shared memory.
-// 46 KB of shared memory a block at Dh = 64.
+// What bounds it on the H100: at B = 64, N = 577, H = 12, Dh = 64 the
+// call does 4 B N^2 E = 65.5 GFLOP against ~229 MB: 0.066 ms on the
+// tensor cores and 0.068 ms on HBM, both about equally; at N = 197 bytes
+// (77.5 MB, 0.023 ms).  The previous design (one block per 64-query tile,
+// four warps of mma.sync with every B fragment ldmatrix'ed from padded
+// shared memory, K and V streamed by a two-slot cp.async ring and read
+// again by each of a head's ten query tiles, 46 KB a block) ran at ~128
+// TFLOP/s: 0.5102 ms at N = 577 through row 16, 0.5603 through row 17,
+// 0.1811 at N = 197, about 2.1x SDPA (H100 80GB HBM3, 700 W).  This
+// design:
+//   - persistent blocks, two an SM, walk over the (image, head, 128-query
+//     tile) items, a head's query tiles one after the other, so its K and
+//     V come from L2 after the first tile;
+//   - a producer warp loads each item's 128 query rows by TMA (boxes of
+//     64 rows x Dh with the swizzle of a Dh * 2-byte row; rows past N
+//     arrive as zeros) into one of two slots, and streams K and V in
+//     64-key tiles through a three-stage mbarrier ring, the next item's
+//     rows and tiles loading while this one is computed;
+//   - two consumer warpgroups own 64 query rows each: S = Q K^T is one
+//     wgmma.m64n64k16 chain kept in registers (32 fp32 a thread), the
+//     online softmax runs on the accumulators in fp32, bf16(P) is wgmma's
+//     register A operand of O += P V with V read MN-major, and O is
+//     normalized at the end, written over the warpgroup's Q rows and
+//     stored by one TMA store into the caller's layout (rows past N are
+//     dropped by the store); lse goes from the registers.  A warpgroup
+//     whose rows all lie past N only passes the tiles on, and the 8-key
+//     groups past n_real take no exp.
+// The 64-key tile keeps a thread's registers under the 112 that let two
+// blocks (four warpgroups) share an SM; one block an SM with 128-key
+// tiles was slower at N = 577.  What holds it back: each warpgroup runs
+// S, the softmax and P V in sequence with a wait on the tensor cores after
+// each product, and the softmax's full-precision expf (several
+// instructions an element, as the plain twins take it, where the SFU's
+// 2^x alone is one) is issued by the same warps; the other warpgroups on
+// the SM hide only part of that.  Measured on one H100 80GB HBM3 at 700 W
+// (tools/compare_parent.py, two rounds in turns with the previous design;
+// 20 calls back to back): 0.366 ms at N = 577 through row 16 (previous
+// 0.483-0.487), 0.361-0.366 through row 17 (0.479-0.490), 18 % of the
+// bound, 1.6x SDPA's forward in the same turns; 0.072-0.094 ms at N = 197
+// through row 17 (0.089-0.091).
 //
-// Math: fp32 scores s = (q . k) * scale from bf16 q and k (q is not
-// pre-scaled in bf16); keys >= n_real set to -1e30; per key tile
+// Math (forward): fp32 scores s = (q . k) * scale from bf16 q and k (q is
+// not pre-scaled in bf16); keys >= n_real set to -1e30; per key tile
 // m' = max(m, rowmax s), p = exp(s - m'), l = l * exp(m - m') + rowsum p,
 // acc = acc * exp(m - m') + bf16(p) . v; out = bf16(acc / l) (l = 0 read
 // as 1), lse = m + log(max(l, 1e-30)).  Key tiles wholly past n_real are
-// skipped (their p is 0 and their rescale 1, exactly); rows and keys past
-// N are zero-filled and never written, so N needs no padding.
+// skipped (their p is 0 and their rescale 1, exactly).  exp is the
+// full-precision expf, as the plain twins take it.
+//
+// Statistics mode (STATS; row 2's backward, whose only residual is qkv):
+// the same loop, one block an SM and 128-key tiles, with do as a second
+// query operand and the products S = Q K^T and dP = dO V^T on wgmma; per
+// row m = max s, l = sum exp(s - m) and sum exp(s - m) dp, both rescaled
+// as m moves, give lse = m + log l and D = sum p dp with p = exp(s - lse),
+// in fp32 throughout (attn_bwd_tile takes D from the fp32 p and dp),
+// written into the (B, H, 2, NP) rows that tiled_attention_bwd.cuh's main
+// kernel reads (NP = N rounded up to 64; rows in [N, NP) get lse = 1e30
+// and D = 0, so their p is 0).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"
+#include "sm90_common.cuh"
 
 // Internal linkage: each source that includes this header gets its own
 // copy of the kernels (no template symbols shared across objects).
@@ -45,10 +89,18 @@ namespace tiled_attention {
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxSmem = 232448;  // H100: 227 KB per block (opt-in)
-constexpr int kWarps = 4;
-constexpr int kTile = 16 * kWarps;  // query rows per block, keys per tile
-constexpr int kPad = 8;  // smem row pad (bf16), against bank conflicts
+constexpr float kPadLse = 1e30f;
+constexpr int kQRows = 64;        // rows of a TMA box and a warpgroup tile
+constexpr int kFwdGroups = 2;     // consumer warpgroups: 64 query rows each
+constexpr int kFwdRows = kFwdGroups * kQRows;  // query rows of an item
+constexpr int kFwdStages = 3;     // K / V ring
+constexpr int kFwdThreads = 128 * kFwdGroups + 32;  // + a producer warp
+
+// Keys of a streamed tile: 64 in the forward, whose registers then let two
+// blocks share an SM; 128 in statistics mode (one block an SM).
+__host__ __device__ constexpr int fwd_keys(bool stats) {
+  return stats ? 128 : 64;
+}
 
 // One (B, H, N, Dh) operand: row n of head h of image b starts at
 // ptr + b * sb + h * sh + n * sr.
@@ -62,194 +114,409 @@ __device__ __forceinline__ T* head_rows(T* ptr, const Rows& s, int b,
   return ptr + b * s.sb + h * s.sh;
 }
 
-__host__ __device__ inline size_t fwd_smem(int dh) {
-  return (size_t)(kTile + 4 * kTile) * (dh + kPad) * 2;
+__host__ __device__ inline int padded_rows(int N) {
+  return (N + kQRows - 1) / kQRows * kQRows;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(32 * kWarps)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, Rows sq,
-                     const __nv_bfloat16* __restrict__ k, Rows sk,
-                     const __nv_bfloat16* __restrict__ v, Rows sv,
-                     __nv_bfloat16* __restrict__ out, Rows so,
-                     float* __restrict__ lse, int N, int heads, int n_real,
-                     float scale) {
-  constexpr int LD = DH + kPad;
-  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
-  constexpr int NT = kTile / 8;  // 16x8 score tiles per warp and key tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kTile * LD;      // two slots of kTile rows
-  __nv_bfloat16* Vs = Ks + 2 * kTile * LD;  // two slots of kTile rows
+// A (Dh, N, H, B) map of one operand, boxes of 64 rows; the stride of a
+// dimension of size 1 is never used and is given as a dense layout's,
+// which TMA accepts.
+inline int operand_map(CUtensorMap* map, const __nv_bfloat16* p, Rows s,
+                       int dh, int N, int heads, int B) {
+  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)N, (uint64_t)heads,
+                            (uint64_t)B};
+  const uint64_t row = (uint64_t)dh * 2;
+  const uint64_t strides[3] = {
+      N > 1 ? (uint64_t)s.sr * 2 : row,
+      heads > 1 ? (uint64_t)s.sh * 2 : row * N,
+      B > 1 ? (uint64_t)s.sb * 2 : row * N * heads};
+  const uint32_t box[4] = {(uint32_t)dh, kQRows, 1, 1};
+  return sm90::encode_map(map, p, 4, dims, strides, box);
+}
 
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const __nv_bfloat16* qb = head_rows(q, sq, b, h);
-  const __nv_bfloat16* kb = head_rows(k, sk, b, h);
-  const __nv_bfloat16* vb = head_rows(v, sv, b, h);
-  const int ntiles = (n_real + kTile - 1) / kTile;
+// Shared memory of the forward kernel, in bytes from a 1024-aligned base:
+// two slots of an item's query rows (and, in statistics mode, its do
+// rows), then the K / V ring, then the barriers.
+struct FwdSmem {
+  int q, kv, bars, total;
+};
 
-  auto load_kv = [&](int slot, int kt) {
-    __nv_bfloat16* ks = Ks + slot * kTile * LD;
-    __nv_bfloat16* vs = Vs + slot * kTile * LD;
-    for (int idx = tid; idx < kTile * VPR; idx += 32 * kWarps) {
-      const int r = idx / VPR;
-      const int c = (idx % VPR) * 8;
-      const int key = kt * kTile + r;
-      const bool ok = key < N;
-      const long long row = ok ? key : 0;
-      cp_async16(ks + r * LD + c, kb + row * sk.sr + c, ok);
-      cp_async16(vs + r * LD + c, vb + row * sv.sr + c, ok);
-    }
-  };
-  for (int idx = tid; idx < kTile * VPR; idx += 32 * kWarps) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * 8;
-    const bool ok = q0 + r < N;
-    const long long row = ok ? q0 + r : 0;
-    cp_async16(Qs + r * LD + c, qb + row * sq.sr + c, ok);
+__host__ __device__ inline FwdSmem fwd_smem(int dh, bool stats) {
+  const int rb = dh * 2;
+  FwdSmem s;
+  s.q = 0;
+  s.kv = s.q + 2 * (stats ? 2 : 1) * kFwdRows * rb;
+  s.bars = s.kv + kFwdStages * 2 * fwd_keys(stats) * rb;
+  s.total = s.bars + 8 * (4 + 2 * kFwdStages) + 1024;  // + alignment slack
+  return s;
+}
+
+// The scalars of one forward (or statistics) call.
+struct FwdArgs {
+  float* lse;   // forward: (B, N, H)
+  float* rows;  // statistics: (B, H, 2, NP), lse then D
+  int B, N, heads, n_real;
+  float scale;
+};
+
+// TMA maps of q, k, v and x: the output (forward) or do (statistics).
+struct FwdMaps {
+  CUtensorMap q, k, v, x;
+};
+
+// Keys >= n_real of the KEYS-key tile whose first key is col0 set to
+// -1e30; only the 8-column groups that reach n_real are visited.
+template <int KEYS>
+__device__ __forceinline__ void mask_tile(float (&s)[KEYS / 2], int col0,
+                                          int n_real, int t) {
+  if (col0 + KEYS <= n_real) return;
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j) {
+    if (col0 + 8 * j + 8 <= n_real) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col0 + 8 * j + 2 * t + (c & 1) >= n_real) s[4 * j + c] = kNegInf;
   }
-  load_kv(0, 0);
-  cp_async_commit();
+}
 
-  // Thread (g, t) of a warp holds rows g and g + 8 of its 16, columns
-  // 2t and 2t + 1 of every 16x8 accumulator tile.
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  unsigned qf[DH / 16][4];
-  float o[DH / 8][4];
+// The new running max m'[r] (scaled) of rows g and g + 8 from the raw
+// scores of a tile, and the rescale exp(m - m') of what came before.
+template <int KEYS>
+__device__ __forceinline__ void tile_max(const float (&s)[KEYS / 2],
+                                         float scale, float (&m)[2],
+                                         float (&corr)[2]) {
+  float mx[2][4];
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) load_kv((kt + 1) & 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (kt == 0) {
+    for (int u = 0; u < 4; ++u) mx[r][u] = kNegInf;
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                (lane >> 4) * 8);
-    }
-    const __nv_bfloat16* ks = Ks + (kt & 1) * kTile * LD;
-    const __nv_bfloat16* vs = Vs + (kt & 1) * kTile * LD;
-
-    // S = Q K^T: K lies [key][d], the B operand's col layout.
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int jj = 0; jj < NT / 2; ++jj) {
-        unsigned t[4];
-        ldmatrix_x4(t, ks + (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_16816(s[2 * jj], qf[kk], t);
-        mma_16816(s[2 * jj + 1], qf[kk], t + 2);
-      }
-
-    // Online softmax in fp32 on the accumulators.
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = kt * kTile + j * 8 + t2 + (c & 1);
-        const float val = col < n_real ? s[j][c] * scale : kNegInf;
-        s[j][c] = val;
-        mx[c >> 1] = fmaxf(mx[c >> 1], val);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[j][c] - m[c >> 1]);
-        s[j][c] = p;
-        l[c >> 1] += p;
-      }
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[j][c] *= corr[c >> 1];
-
-    // O += bf16(P) V: P from the registers, V [key][d] as [k][n].
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                       pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                       pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                       pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jj = 0; jj < DH / 16; ++jj) {
-        unsigned t[4];
-        ldmatrix_x4_trans(
-            t, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                   jj * 16 + (lane >> 4) * 8);
-        mma_16816(o[2 * jj], a, t);
-        mma_16816(o[2 * jj + 1], a, t + 2);
-      }
-    }
-    __syncthreads();  // the slot just read is refilled next iteration
-  }
-
+  for (int i = 0; i < KEYS / 2; ++i)
+    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3],
+                                           s[i]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  __nv_bfloat16* ob = head_rows(out, so, b, h);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + warp * 16 + g + half * 8;
-    if (row >= N) continue;
-    const float lt = l[half] == 0.f ? 1.f : l[half];
-    __nv_bfloat16* orow = ob + row * so.sr;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<unsigned*>(orow + j * 8 + t2) =
-          pack_bf16(o[j][2 * half] / lt, o[j][2 * half + 1] / lt);
-    if ((lane & 3) == 0)
-      lse[((size_t)b * N + row) * heads + h] =
-          m[half] + logf(fmaxf(l[half], 1e-30f));
+    float v = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float m_new = fmaxf(m[r], v * scale);
+    corr[r] = expf(m[r] - m_new);
+    m[r] = m_new;
   }
 }
 
+// S = Q K^T (raw scores) of one tile, issued and committed, not waited.
+template <int DH, int KEYS>
+__device__ __forceinline__ void issue_scores(float (&s)[KEYS / 2],
+                                             const __nv_bfloat16* qw,
+                                             const __nv_bfloat16* ks) {
+  constexpr int RB = DH * 2;
+  const uint64_t dq = sm90::desc<RB>(qw), dk = sm90::desc<RB>(ks);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    sm90::wgmma_ss<KEYS, 0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+  sm90::wgmma_commit();
+}
+
+// o += P V of one tile (P from the registers pa, V read MN-major), issued
+// and committed, not waited.
+template <int DH, int KEYS>
+__device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
+                                         const uint32_t (&pa)[KEYS / 16][4],
+                                         const __nv_bfloat16* vs) {
+  constexpr int RB = DH * 2;
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk)
+    sm90::wgmma_rs<DH, 1>(o, pa[kk], sm90::desc<RB>(vs + kk * 16 * DH), 1);
+  sm90::wgmma_commit();
+}
+
+// p = exp(s scale - m) in place (the full-precision expf, as the plain
+// twins take it) and this thread's share of the row sums, for the tile
+// whose first key is col0; the 8-column groups wholly at or past n_real
+// are set to 0 without an exp (a uniform branch).
+template <int KEYS>
+__device__ __forceinline__ void exp_tile(float (&s)[KEYS / 2], float scale,
+                                         const float (&m)[2], int col0,
+                                         int n_real, float (&ls)[2]) {
+  float part[2][2] = {};
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j) {
+    if (col0 + 8 * j >= n_real) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[4 * j + c] = 0.f;
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = c >> 1;
+      s[4 * j + c] = expf(fmaf(s[4 * j + c], scale, -m[r]));
+      part[r][j & 1] += s[4 * j + c];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) ls[r] = part[r][0] + part[r][1];
+}
+
+template <int DH, bool STATS>
+__global__ void __launch_bounds__(kFwdThreads, STATS ? 1 : 2)
+attention_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
+  using namespace sm90;
+  constexpr int RB = DH * 2;
+  constexpr int KEYS = fwd_keys(STATS);
+  constexpr int KB = KEYS / kQRows;             // TMA boxes of a K, V tile
+  constexpr int CONSUMERS = 128 * kFwdGroups;
+  constexpr int QOPS = STATS ? 2 : 1;           // q (and do)
+  constexpr int kSlot = QOPS * kFwdRows * DH;   // elements of a query slot
+  constexpr int kStage = 2 * KEYS * DH;         // elements of a K, V stage
+  constexpr uint32_t kBox = kQRows * RB;        // bytes of a TMA box
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const FwdSmem L = fwd_smem(DH, STATS);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
+  __nv_bfloat16* KVs = reinterpret_cast<__nv_bfloat16*>(smem + L.kv);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* kvfull = qempty + 2;
+  uint64_t* kvempty = kvfull + kFwdStages;
+
+  const int N = a.N;
+  const int nqt = (N + kFwdRows - 1) / kFwdRows;
+  const int items = a.B * a.heads * nqt;
+  const int ntiles = (a.n_real + KEYS - 1) / KEYS;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], kFwdGroups);
+    }
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&kvfull[s], 1);
+      mbar_init(&kvempty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp
+    if (tid == CONSUMERS) {
+      int kv = 0, local = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x, ++local) {
+        const int qt = it % nqt;
+        const int h = (it / nqt) % a.heads;
+        const int b = it / (nqt * a.heads);
+        const int slot = local & 1;
+        if (local >= 2) mbar_wait(&qempty[slot], ((local >> 1) - 1) & 1);
+        __nv_bfloat16* qd = Qs + slot * kSlot;
+        mbar_expect_tx(&qfull[slot], QOPS * kFwdGroups * kBox);
+        for (int r = 0; r < kFwdGroups; ++r) {
+          const int row = qt * kFwdRows + r * kQRows;
+          tma_load_4d(qd + r * kQRows * DH, &maps.q, &qfull[slot], 0, row,
+                      h, b);
+          if (STATS)
+            tma_load_4d(qd + (kFwdGroups + r) * kQRows * DH, &maps.x,
+                        &qfull[slot], 0, row, h, b);
+        }
+        for (int kt = 0; kt < ntiles; ++kt, ++kv) {
+          const int st = kv % kFwdStages;
+          if (kv >= kFwdStages)
+            mbar_wait(&kvempty[st], (kv / kFwdStages - 1) & 1);
+          __nv_bfloat16* kd = KVs + st * kStage;
+          mbar_expect_tx(&kvfull[st], 2 * KB * kBox);
+          for (int r = 0; r < KB; ++r) {
+            const int row = kt * KEYS + r * kQRows;
+            tma_load_4d(kd + r * kQRows * DH, &maps.k, &kvfull[st], 0, row,
+                        h, b);
+            tma_load_4d(kd + (KB + r) * kQRows * DH, &maps.v, &kvfull[st],
+                        0, row, h, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup w owns query rows 64 w .. 64 w + 63 of an item;
+  // thread (warp, g, t) holds rows warp * 16 + g and + 8 of them.  A
+  // warpgroup whose rows all lie past N only passes the key tiles on.
+  const int w = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float scale = a.scale;
+  int kv = 0, local = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++local) {
+    const int qt = it % nqt;
+    const int h = (it / nqt) % a.heads;
+    const int b = it / (nqt * a.heads);
+    const int slot = local & 1;
+    const int q0 = qt * kFwdRows + w * kQRows;  // this warpgroup's rows
+    __nv_bfloat16* qw = Qs + slot * kSlot + w * kQRows * DH;
+    const __nv_bfloat16* dw = qw + kFwdRows * DH;  // do (statistics)
+    mbar_wait(&qfull[slot], (local >> 1) & 1);
+
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[STATS ? 2 : DH / 2];  // o, or sum exp(s - m) dp a row
+#pragma unroll
+    for (int i = 0; i < (STATS ? 2 : DH / 2); ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < ntiles; ++kt, ++kv) {
+      const int st = kv % kFwdStages;
+      mbar_wait(&kvfull[st], (kv / kFwdStages) & 1);
+      if (q0 >= N) {
+        mbar_arrive(&kvempty[st]);
+        continue;
+      }
+      const __nv_bfloat16* ks = KVs + st * kStage;
+      const __nv_bfloat16* vs = ks + KEYS * DH;
+      float s[KEYS / 2], corr[2];
+      if constexpr (STATS) {
+        float dp[KEYS / 2];
+        wgmma_fence();
+        issue_scores<DH, KEYS>(s, qw, ks);
+        issue_scores<DH, KEYS>(dp, dw, vs);  // dP = dO V^T
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        mbar_arrive(&kvempty[st]);  // K and V are read
+        mask_tile<KEYS>(s, kt * KEYS, a.n_real, t);
+        tile_max<KEYS>(s, scale, m, corr);
+        float ls[2][2] = {}, sd[2][2] = {};
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const float e = expf(fmaf(s[i], scale, -m[r]));
+          ls[r][(i >> 2) & 1] += e;
+          sd[r][(i >> 2) & 1] = fmaf(e, dp[i], sd[r][(i >> 2) & 1]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = l[r] * corr[r] + (ls[r][0] + ls[r][1]);
+          acc[r] = acc[r] * corr[r] + (sd[r][0] + sd[r][1]);
+        }
+      } else {
+        wgmma_fence();
+        issue_scores<DH, KEYS>(s, qw, ks);
+        wgmma_wait<0>();
+        fence_regs(s);
+        mask_tile<KEYS>(s, kt * KEYS, a.n_real, t);
+        tile_max<KEYS>(s, scale, m, corr);
+        float ls[2];
+        exp_tile<KEYS>(s, scale, m, kt * KEYS, a.n_real, ls);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        uint32_t pa[KEYS / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) acc_to_a(pa[kk], s, kk);
+        wgmma_fence();
+        issue_pv<DH, KEYS>(acc, pa, vs);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&kvempty[st]);  // V is read
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if constexpr (STATS) {
+      const int np = padded_rows(N);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+      }
+      float* base = a.rows + ((size_t)b * a.heads + h) * 2 * np;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + warp * 16 + g + 8 * r;
+        if (t != 0 || row >= np) continue;
+        const bool real = row < N;
+        base[row] = real ? m[r] + logf(fmaxf(l[r], 1e-30f)) : kPadLse;
+        base[np + row] = real ? acc[r] / l[r] : 0.f;
+      }
+      named_barrier(1 + w, 128);  // every read of the slot is done
+      if (wtid == 0) mbar_arrive(&qempty[slot]);
+    } else {
+      // bf16(acc / l) over this warpgroup's Q rows (no longer read), then
+      // one TMA store of the 64 x Dh tile into the caller's layout.
+      if (q0 < N) {
+        unsigned char* ot = reinterpret_cast<unsigned char*>(qw);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float lt = l[r] == 0.f ? 1.f : l[r];
+          const uint32_t row = warp * 16 + g + 8 * r;
+#pragma unroll
+          for (int j = 0; j < DH / 8; ++j)
+            *reinterpret_cast<uint32_t*>(
+                ot + swizzle<RB>(row * RB + (8 * j + 2 * t) * 2)) =
+                pack_bf16(acc[4 * j + 2 * r] / lt,
+                          acc[4 * j + 2 * r + 1] / lt);
+          const int n = q0 + row;
+          if (t == 0 && n < N)
+            a.lse[((size_t)b * N + n) * a.heads + h] =
+                m[r] + logf(fmaxf(l[r], 1e-30f));
+        }
+        fence_proxy_async();
+      }
+      named_barrier(1 + w, 128);
+      if (wtid == 0) {
+        if (q0 < N) tma_store_4d(&maps.x, qw, 0, q0, h, b);
+        bulk_wait_read();  // the store has read the rows: free the slot
+        mbar_arrive(&qempty[slot]);
+      }
+    }
+  }
+  if (!STATS && wtid == 0) bulk_wait();
+}
+
+// One persistent block per SM (or per item, if fewer) over the items of
+// a forward (STATS = false: x is the output) or statistics pass (x is
+// do); returns cudaGetLastError() or the error of the attribute call or
+// of a tensor-map encoding.
+template <int DH, bool STATS>
+int launch_fwd_kernel(const __nv_bfloat16* q, Rows sq,
+                      const __nv_bfloat16* k, Rows sk,
+                      const __nv_bfloat16* v, Rows sv,
+                      const __nv_bfloat16* x, Rows sx, const FwdArgs& a,
+                      cudaStream_t stream) {
+  const int smem = fwd_smem(DH, STATS).total;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_fwd_kernel<DH, STATS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  FwdMaps maps;
+  int err = operand_map(&maps.q, q, sq, DH, a.N, a.heads, a.B);
+  if (!err) err = operand_map(&maps.k, k, sk, DH, a.N, a.heads, a.B);
+  if (!err) err = operand_map(&maps.v, v, sv, DH, a.N, a.heads, a.B);
+  if (!err) err = operand_map(&maps.x, x, sx, DH, a.N, a.heads, a.B);
+  if (err) return err;
+  const long long items =
+      (long long)a.B * a.heads * ((a.N + kFwdRows - 1) / kFwdRows);
+  const int slots = sm90::sm_count() * (STATS ? 1 : 2);  // blocks an SM
+  const int grid = items < slots ? (int)items : slots;
+  attention_fwd_kernel<DH, STATS>
+      <<<grid, kFwdThreads, smem, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward: out (any (B, H, N, Dh) strides) and lse (B, N, H) fp32.
 template <int DH>
 int launch_fwd(const __nv_bfloat16* q, Rows sq, const __nv_bfloat16* k,
                Rows sk, const __nv_bfloat16* v, Rows sv, __nv_bfloat16* out,
                Rows so, float* lse, int B, int N, int heads, int n_real,
                float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem(DH);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((N + kTile - 1) / kTile, heads, B);
-  attention_fwd_kernel<DH><<<grid, 32 * kWarps, smem, stream>>>(
-      q, sq, k, sk, v, sv, out, so, lse, N, heads, n_real, scale);
-  return static_cast<int>(cudaGetLastError());
+  const FwdArgs a{lse, nullptr, B, N, heads, n_real, scale};
+  return launch_fwd_kernel<DH, false>(q, sq, k, sk, v, sv, out, so, a,
+                                      stream);
 }
 
 }  // namespace

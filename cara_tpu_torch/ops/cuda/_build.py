@@ -43,8 +43,7 @@ _SIGNATURES = {
     "cara_cp_site": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
     "cara_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "cara_qkv_attention_smem": [_I, _I],
-    "cara_qkv_attention_bwd": [_P, _P, _P] + [_I] * 5 + [_F, _P],
-    "cara_qkv_attention_bwd_smem": [_I, _I],
+    "cara_qkv_attention_bwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     "cara_attn_proj": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     "cara_attn_proj_smem": [_I, _I, _I],
     "cara_blockwise_attention": [_P] * 3 + [_I] * 5 + [_F, _P],

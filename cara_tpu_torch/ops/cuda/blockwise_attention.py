@@ -13,11 +13,12 @@ head's whole key axis in one block and is capped at N = 512; ViT-B/16 at
 384 px has 577 tokens, so ``models/vit.py`` takes this attention above
 512, as ``cara_tpu/models/vit.py`` does once the padded token count
 passes ``MAX_NP_FULL_SCORES``.  What bounds it on the H100 and what the
-design does about it is in the sources' head comments: the forward one
-block per (image, head, 64-query tile), the key axis streamed in 64-key
-tiles through a two-slot ``cp.async`` ring, ``mma.sync`` with the score
-tiles kept in registers; the backward one block per (image, head,
-128-key tile), the query tiles streamed by TMA past two ``wgmma``
+design does about it is in the sources' head comments: the forward
+persistent blocks, two an SM, over (image, head, 128-query tile) items,
+the key axis streamed in 64-key tiles by TMA through an ``mbarrier`` ring
+past two ``wgmma`` warpgroups with the score tiles kept in registers
+(``csrc/tiled_attention_fwd.cuh``); the backward one block per (image,
+head, 128-key tile), the query tiles streamed by TMA past two ``wgmma``
 warpgroups (``csrc/tiled_attention_bwd.cuh``).  dq's fp32 sum over the
 key tiles is taken in no fixed order, so it is not bitwise deterministic
 from call to call.
@@ -151,10 +152,10 @@ def attention_fwd_cuda(qkv, heads: int, scale: float, n_real: int):
 
 
 def bwd_scratch(b: int, n: int, heads: int, dh: int, device):
-    """The backward kernels' fp32 scratch (``csrc/tiled_attention_bwd.cuh``):
-    the (B, H, 2, NP) rows of lse and D, and the zeroed (B, H, NP, Dh) dq
-    sum (126 MB at B = 64, N = 577, H = 12, Dh = 64); NP = N rounded up to
-    64."""
+    """The backward kernels' fp32 scratch (``csrc/tiled_attention_bwd.cuh``,
+    rows 2, 16 and 17): the (B, H, 2, NP) rows of lse and D, and the
+    zeroed (B, H, NP, Dh) dq sum (126 MB at B = 64, N = 577, H = 12, Dh =
+    64); NP = N rounded up to 64."""
     np_ = -(-n // 64) * 64
     rows = torch.empty((b, heads, 2, np_), device=device, dtype=torch.float32)
     dq_acc = torch.zeros((b, heads, np_, dh), device=device,

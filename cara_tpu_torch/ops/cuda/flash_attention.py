@@ -18,9 +18,9 @@ B = 64, N = 197, H = 12, Dh = 64 the forward needs 15.3 GFLOP against
 bytes (~0.023 / 0.041 ms); at N = 577 by operations (~0.068 / 0.166 ms).
 The TPU kernel holds each (g, N, N) score tile whole in VMEM, padded to a
 multiple of 128; a Hopper block has 227 KB, which the 577 x 577 tile does
-not fit, so the forward streams the key axis in 64-key tiles through a
-``cp.async`` ring with an online softmax, the score tile kept in
-``mma.sync`` registers, and the backward streams the query axis by TMA
+not fit, so the forward streams the key axis in 64-key tiles by TMA
+past two ``wgmma`` warpgroups with an online softmax, the score tile
+kept in registers, and the backward streams the query axis by TMA
 past two ``wgmma`` warpgroups of one 128-key tile (dq's fp32 sum over the
 key tiles in no fixed order, so not bitwise deterministic); N is taken as
 it is (no padding).  The strides

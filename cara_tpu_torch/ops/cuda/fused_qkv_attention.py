@@ -12,8 +12,13 @@ The wrapper is a ``torch.autograd.Function`` that keeps qkv, as the JAX
 rule's residual does.  Its backward replaces ``_bwd_rule`` /
 ``_bwd_kernel`` (per-head math ``attn_bwd_tile``): kernel
 ``csrc/qkv_attention_bwd.cu`` through :func:`attention_bwd_cuda`, with
-:func:`attention_bwd_plain` its twin; the attention-block backward of the
-element-dropout route launches the same kernel.
+:func:`attention_bwd_plain` its twin; the attention-block backwards of
+rows 4, 6 and 8 launch the same kernel.  It is the tiled backward of rows
+16 and 17 (``csrc/tiled_attention_bwd.cuh``: five ``wgmma`` products per
+128-key tile, dq summed in an fp32 scratch, so not bitwise deterministic)
+after a statistics pass that takes each row's log-sum-exp and D =
+rowsum(p dp) from fp32 p and dp, since JAX keeps no forward output; keys
+are streamed, so it takes every N the forward takes.
 
 :func:`fused_qkv_attention_proj` is the attention with the projection
 site fused after it, ``y = o W + b + s ((o U) V + cb)`` for ``o`` the
@@ -36,6 +41,7 @@ import torch
 
 from cara_tpu_torch.ops.cuda import _build, _bwd
 from cara_tpu_torch.ops.cuda._site import site_plain
+from cara_tpu_torch.ops.cuda.blockwise_attention import bwd_scratch
 from cara_tpu_torch.ops.cuda.cp_dense import (
     _factor_grads_cuda, _factor_grads_plain, cp_dense_dx_cuda,
     cp_dense_dx_plain)
@@ -156,7 +162,7 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, heads: int,
 def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
                        scale: float, n_real: int) -> torch.Tensor:
     """Launch ``csrc/qkv_attention_bwd.cu`` (no launch count; the
-    attention-block backward calls this directly)."""
+    attention-block backwards call this directly)."""
     bsz, n, e3 = qkv.shape
     e = e3 // 3
     dh = e // heads
@@ -166,14 +172,12 @@ def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
         raise ValueError(f"qkv_attention_bwd: qkv {tuple(qkv.shape)}, do "
                          f"{tuple(do.shape)}, heads={heads}; the kernel "
                          "takes head dims 16, 32 or 64")
-    lib = _build.lib()
-    if lib.cara_qkv_attention_bwd_smem(n, dh) == 0:
-        raise ValueError(f"qkv_attention_bwd: N={n} does not fit one "
-                         "block's shared memory")
+    rows, dq_acc = bwd_scratch(bsz, n, heads, dh, dev)
     out = torch.empty_like(qkv)
-    code = lib.cara_qkv_attention_bwd(
-        qkv.data_ptr(), do.data_ptr(), out.data_ptr(), bsz, n, heads, dh,
-        int(n_real), float(scale), _build.stream_ptr(dev))
+    code = _build.lib().cara_qkv_attention_bwd(
+        qkv.data_ptr(), do.data_ptr(), rows.data_ptr(), dq_acc.data_ptr(),
+        out.data_ptr(), bsz, n, heads, dh, int(n_real), float(scale),
+        _build.stream_ptr(dev))
     _build.check(code, "qkv_attention_bwd")
     return out
 

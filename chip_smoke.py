@@ -15,7 +15,9 @@ fatal on failure:
    mask bit for bit, and the median time of kernel and plain (the plain
    version on the same bf16 inputs) over 20 runs by CUDA events; then
    row 1 (``fused_qkv_attention``) at B 16 past one 256-key chunk, N =
-   257 with keys >= 250 masked and N = 512 (its two-chunk path);
+   257 with keys >= 250 masked and N = 512 (its two-chunk path); row 2
+   (its backward) at B 64 past the previous kernel's 352-token cap, N =
+   401 and N = 512 with keys >= 500 masked, as entries of their own;
 4. the serving path: ViT-B/16 in21k at full width and depth from seed 0
    (tanh pre_logits, 10 classes) with a perturbed order-4 rank-8 CaRA
    adapter at scale 10, saved as an npz checkpoint, then served merged
@@ -209,6 +211,14 @@ KERNELS = {
         dense_mod, "DX_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_dense.py:273"),
     "fused_qkv_attention_bwd": (
+        fqa_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "cara_tpu/ops/pallas/fused_qkv_attention.py:230"),
+    # Row 2's backward past 352 tokens (ROW2_EDGES; launches: the rank
+    # route at 224 px, the same kernel).
+    "fused_qkv_attention_bwd_401": (
+        fqa_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "cara_tpu/ops/pallas/fused_qkv_attention.py:230"),
+    "fused_qkv_attention_bwd_512": (
         fqa_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
         "cara_tpu/ops/pallas/fused_qkv_attention.py:230"),
     "cp_mlp_block_bwd": (
@@ -590,16 +600,6 @@ def kernel_calls(inp):
         return _grad_call(lambda t: dense_sites(t, impl), dense, DENSE_DIFF,
                           (inp["g_qkv"], inp["g_attn"]), dtype)
 
-    def attn_core_bwd(impl, dtype):
-        """dqkv split into its dq, dk and dv thirds (held apart: dq and
-        dk are a third the size of dv here)."""
-        call = _grad_call(
-            lambda t: fqa_mod.fused_qkv_attention(t["qkv"], h, sm, n,
-                                                  impl=impl),
-            {"qkv": qkv}, ("qkv",), inp["g_attn"], dtype)
-        return lambda: dict(zip(("dq", "dk", "dv"),
-                                call()["qkv"].chunk(3, dim=-1)))
-
     def mlp_block_bwd(impl, dtype):
         return _grad_call(
             lambda t: mlp_mod.cp_mlp_block(*(t[k] for k in mn), impl=impl),
@@ -644,13 +644,31 @@ def kernel_calls(inp):
                      dense_fwd("plain", torch.float32)),
         "cp_dense_dx": (dense_bwd("auto", bf), dense_bwd("plain", bf),
                         dense_bwd("plain", torch.float32)),
-        "fused_qkv_attention_bwd": (attn_core_bwd("auto", bf),
-                                    attn_core_bwd("plain", bf),
-                                    attn_core_bwd("plain", torch.float32)),
+        "fused_qkv_attention_bwd": row2_bwd_calls(inp),
         "cp_mlp_block_bwd": (mlp_block_bwd("auto", bf),
                              mlp_block_bwd("plain", bf),
                              mlp_block_bwd("plain", torch.float32)),
     }
+
+
+def row2_bwd_calls(inp):
+    """Row 2's entry: the kernel, plain and fp32 plain calls of
+    ``fused_qkv_attention``'s backward on ``inp["qkv"]`` (keys at or past
+    ``inp["n_real"]`` masked) and the cotangent ``inp["g_attn"]``, dqkv
+    split into its dq, dk and dv thirds (held apart: dq and dk are a third
+    the size of dv here)."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+
+    def call(impl, dtype):
+        grads = _grad_call(
+            lambda t: fqa_mod.fused_qkv_attention(t["qkv"], h, sm, n,
+                                                  impl=impl),
+            {"qkv": inp["qkv"]}, ("qkv",), inp["g_attn"], dtype)
+        return lambda: dict(zip(("dq", "dk", "dv"),
+                                grads()["qkv"].chunk(3, dim=-1)))
+
+    return (call("auto", torch.bfloat16), call("plain", torch.bfloat16),
+            call("plain", torch.float32))
 
 
 def long_kernel_calls(inp):
@@ -1278,6 +1296,29 @@ def qkv_attention_edge_check(dev, inp, batch=16) -> None:
         print(f"[kernel] fused_qkv_attention at B {batch}, N {n}, keys >= "
               f"{n_real} masked:", flush=True)
         _check_outputs("fused_qkv_attention", got, ref)
+
+
+# Row 2's backward past the previous kernel's shared-memory cap of 352
+# tokens, up to row 1's 512: (N, n_real), the second with keys masked.
+ROW2_EDGES = ((401, 401), (512, 500))
+
+
+def row2_edge_phase(dev, timed: bool = True, b: int = 64, e: int = 768,
+                    heads: int = 12) -> dict:
+    """Row 2's entry at each (N, n_real) of ``ROW2_EDGES``, named
+    ``fused_qkv_attention_bwd_<N>``, against its fp32 plain twin, timed
+    beside SDPA's backward, with its bound."""
+    out = {}
+    for n, n_real in ROW2_EDGES:
+        inp = kernel_inputs(dev, b=b, n=n, e=e, heads=heads, hidden=4 * e,
+                            n_real=n_real, seed=3)
+        print(f"[kernel] fused_qkv_attention_bwd at B {b}, N {n}, keys >= "
+              f"{n_real} masked:", flush=True)
+        name = "fused_qkv_attention_bwd"
+        res = check_entries(dev, inp, {name: row2_bwd_calls(inp)}, timed)
+        out[f"{name}_{n}"] = res[name]
+        del inp
+    return out
 
 
 def long_kernel_phase(dev, inp, timed: bool = True) -> dict:
@@ -2542,6 +2583,7 @@ def main(argv=None) -> int:
 
     stamp("built")
     results = kernel_phase(dev, kernel_inputs(dev))
+    results.update(row2_edge_phase(dev))
     results.update(long_kernel_phase(dev, kernel_inputs(dev, n=577)))
     results.update(flash_kernel_phase(dev, kernel_inputs(dev)))
     results.update(flash_kernel_phase(dev, kernel_inputs(dev, n=577),
@@ -2583,6 +2625,9 @@ def main(argv=None) -> int:
     launches.update({k: train["launches"][k] for k in TRAINING_KERNELS})
     split = training_phase(dev, steps=20, impl="rank")
     launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
+    for n, _ in ROW2_EDGES:
+        launches[f"fused_qkv_attention_bwd_{n}"] = launches[
+            "fused_qkv_attention_bwd"]
     other_routes_grad_check(dev, split["setup"])
     del train, split
     stamp("element and rank training")

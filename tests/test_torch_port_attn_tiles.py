@@ -14,6 +14,24 @@ torch on the CPU and held against the JAX package.
   Pallas kernel takes a token count that is a multiple of 128, so the
   cases pad to it and mask the keys past ``n_real`` (the cotangent is zero
   on those rows), as ``test_torch_port_blockwise.py`` does.
+- ``csrc/qkv_attention_bwd.cu`` (row 2's backward): the statistics pass
+  of ``csrc/tiled_attention_fwd.cuh`` (per 64-query tile, 128-key tiles in
+  order, the row max, the sum of exp(s - m) and of exp(s - m) dp rescaled
+  as the max moves, giving lse and D = rowsum(p dp) in fp32), then the
+  same main loop as rows 16 and 17, its key tiles and their halves in a
+  shuffled order.  :func:`stats_rows` and :func:`tiled_bwd_from_rows` are
+  held against ``jax.vjp`` of the Pallas ``fused_qkv_attention``
+  (interpret mode) at NP 256 and 512, n_real 197, 401 and 512, Dh 16, 32
+  and 64, and against the port's plain twin ``attention_bwd_plain``.
+- ``csrc/tiled_attention_fwd.cuh`` (rows 16 and 17's forward): 64-query
+  tiles (a warpgroup's half of a 128-query item) against 64-key tiles in
+  order (also 128, the statistics mode's tile), key tiles wholly past
+  ``n_real`` skipped, the online softmax
+  (running max, rescale, row sums), P rounded for P V, the output divided
+  by the row sum at the end and lse = m + log l.  :func:`tiled_fwd` is
+  held against the Pallas ``blockwise_qkv_attention`` forward and lse
+  (128 x 128 blocks) and the Pallas ``flash_attention`` forward at N 577
+  and 640 with keys past ``n_real`` masked.
 - ``csrc/qkv_attention.cu`` (row 1) above 256 keys: two 256-key chunks, a
   pass for the full row max, then a pass for exp, the row sum and P V.
   :func:`two_chunk_fwd` is held against the JAX ``fused_qkv_attention``.
@@ -28,13 +46,16 @@ import pytest
 import torch
 
 from cara_tpu_torch.ops.cuda import blockwise_attention as t_bwa
+from cara_tpu_torch.ops.cuda import flash_attention as t_flash
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as t_fqa
 from cara_tpu.ops.pallas import blockwise_attention as j_bwa
+from cara_tpu.ops.pallas import flash_attention as j_flash
 from cara_tpu.ops.pallas import fused_qkv_attention as j_fqa
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 HEADS = 2
 KEY_TILE, HALF, QUERY_TILE = 128, 64, 64
+FWD_KEY_TILE = 64  # the forward kernel's key tile
 PAD_LSE = 1e30
 NEG_INF = -1e30
 
@@ -50,28 +71,86 @@ def _head_major(t, heads):
     return t.reshape(b, n, heads, e // heads).transpose(1, 2)
 
 
+def _pad_rows(n):
+    return -(-n // QUERY_TILE) * QUERY_TILE
+
+
+def row_pass(out, lse, do, heads):
+    """Rows 16 and 17's row pass: (lse, D = rowsum(do * o)) rows (B, H,
+    NP), rows past N with lse = 1e30 and D = 0 (their p is 0)."""
+    b, n, _ = out.shape
+    np_ = _pad_rows(n)
+    g = _head_major(do, heads).float()
+    o = _head_major(out, heads).float()
+    lse_t = torch.full((b, heads, np_), PAD_LSE)
+    lse_t[..., :n] = lse.float().transpose(1, 2)
+    d_t = torch.zeros((b, heads, np_))
+    d_t[..., :n] = (g * o).sum(-1)
+    return lse_t, d_t
+
+
+def stats_rows(qkv, do, heads, scale, n_real):
+    """Row 2's statistics pass: per 64-query tile the 128-key tiles below
+    ``n_real`` in order, s = q k^T and dp = do v^T, the running max m of
+    the scaled scores, l = sum exp(s - m) and sum exp(s - m) dp rescaled
+    as m moves; (lse = m + log l, D = that sum / l) rows as
+    :func:`row_pass` gives them."""
+    b, n, e3 = qkv.shape
+    e = e3 // 3
+    q, k, v = (_head_major(qkv[..., i * e:(i + 1) * e], heads).float()
+               for i in range(3))
+    g = _head_major(do, heads).float()
+    np_ = _pad_rows(n)
+    lse_t = torch.full((b, heads, np_), PAD_LSE)
+    d_t = torch.zeros((b, heads, np_))
+    for q0 in range(0, n, QUERY_TILE):
+        qs, gs = q[:, :, q0:q0 + QUERY_TILE], g[:, :, q0:q0 + QUERY_TILE]
+        m = torch.full(qs.shape[:-1], NEG_INF)
+        l = torch.zeros(qs.shape[:-1])
+        sd = torch.zeros(qs.shape[:-1])
+        for k0 in range(0, n_real, KEY_TILE):
+            ks, vs = k[:, :, k0:k0 + KEY_TILE], v[:, :, k0:k0 + KEY_TILE]
+            s = qs @ ks.transpose(-1, -2)
+            col = torch.arange(k0, k0 + ks.shape[2])
+            s = torch.where(col < n_real, s, torch.full_like(s, NEG_INF))
+            dp = gs @ vs.transpose(-1, -2)
+            m_new = torch.maximum(m, s.amax(-1) * scale)
+            corr = torch.exp(m - m_new)
+            ex = torch.exp(s * scale - m_new[..., None])
+            l = l * corr + ex.sum(-1)
+            sd = sd * corr + (ex * dp).sum(-1)
+            m = m_new
+        rows = slice(q0, q0 + qs.shape[2])
+        lse_t[..., rows] = m + torch.log(l)
+        d_t[..., rows] = sd / l
+    return lse_t, d_t
+
+
 def tiled_bwd(qkv, out, lse, do, heads, scale, n_real, rng):
-    """dqkv (B, N, 3E) by the main kernel's decomposition, in the input's
-    dtype at its rounding points (p and ds rounded for the products)."""
+    """dqkv (B, N, 3E) by rows 16 and 17's decomposition: the row pass,
+    then :func:`tiled_bwd_from_rows`."""
+    lse_t, d_t = row_pass(out, lse, do, heads)
+    return tiled_bwd_from_rows(qkv, do, lse_t, d_t, heads, scale, n_real,
+                               rng)
+
+
+def tiled_bwd_from_rows(qkv, do, lse_t, d_t, heads, scale, n_real, rng):
+    """dqkv (B, N, 3E) by the main kernel's decomposition from the (lse,
+    D) rows, in the input's dtype at its rounding points (p and ds
+    rounded for the products)."""
     b, n, e3 = qkv.shape
     e = e3 // 3
     dt = qkv.dtype
     q, k, v = (_head_major(qkv[..., i * e:(i + 1) * e], heads).float()
                for i in range(3))
     g = _head_major(do, heads).float()
-    o = _head_major(out, heads).float()
     dh = e // heads
-    np_ = -(-n // QUERY_TILE) * QUERY_TILE
+    np_ = _pad_rows(n)
 
     def pad(t):
         return torch.nn.functional.pad(t, (0, 0, 0, np_ - n))
 
     qp, gp = pad(q), pad(g)
-    # The row pass: lse and D = rowsum(do * o), padded rows give p = 0.
-    lse_t = torch.full((b, heads, np_), PAD_LSE)
-    lse_t[..., :n] = lse.float().transpose(1, 2)
-    d_t = torch.zeros((b, heads, np_))
-    d_t[..., :n] = (g * o).sum(-1)
     dq_acc = torch.zeros((b, heads, np_, dh))
     dk = torch.zeros((b, heads, n, dh))
     dv = torch.zeros((b, heads, n, dh))
@@ -108,6 +187,39 @@ def tiled_bwd(qkv, out, lse, do, heads, scale, n_real, rng):
         return t.to(dt).transpose(1, 2).reshape(b, n, e)
 
     return torch.cat([flat(dq), flat(dk), flat(dv)], dim=-1)
+
+
+def tiled_fwd(q, k, v, scale, n_real, key_tile=FWD_KEY_TILE):
+    """Rows 16 and 17's forward on (B, H, N, Dh) q, k, v: (out (B, H, N,
+    Dh) in the input's dtype, lse (B, N, H) fp32) by 64-query tiles and
+    ``key_tile``-key tiles with the online softmax, as the kernel takes
+    them."""
+    b, h, n, dh = q.shape
+    dt = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros((b, h, n, dh))
+    lse = torch.zeros((b, h, n))
+    for q0 in range(0, n, QUERY_TILE):
+        qs = qf[:, :, q0:q0 + QUERY_TILE]
+        m = torch.full(qs.shape[:-1], NEG_INF)
+        l = torch.zeros(qs.shape[:-1])
+        acc = torch.zeros(qs.shape)
+        for k0 in range(0, n_real, key_tile):  # tiles past n_real skipped
+            ks, vs = kf[:, :, k0:k0 + key_tile], vf[:, :, k0:k0 + key_tile]
+            s = qs @ ks.transpose(-1, -2)
+            col = torch.arange(k0, k0 + ks.shape[2])
+            s = torch.where(col < n_real, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1) * scale)
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s * scale - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(dt).float() @ vs
+            m = m_new
+        rows = slice(q0, q0 + qs.shape[2])
+        lt = torch.where(l == 0, torch.ones_like(l), l)
+        out[:, :, rows] = acc / lt[..., None]
+        lse[:, :, rows] = m + torch.log(l.clamp_min(1e-30))
+    return out.to(dt), lse.transpose(1, 2)
 
 
 def two_chunk_fwd(qkv, heads, scale, n_real, chunk=256):
@@ -176,3 +288,78 @@ def test_two_chunk_forward_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
     plain = t_fqa.fused_qkv_attention_plain(t, HEADS, sm, n_real)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+# Row 2's backward: (NP, n_real) x head width; n_real 401 and 512 are the
+# token counts past the previous kernel's shared-memory cap of 352.
+ROW2_CASES = [(np_, n_real, dh) for dh in (16, 32, 64)
+              for np_, n_real in ((256, 197), (512, 401), (512, 512))]
+
+
+@pytest.mark.parametrize("np_, n_real, dh", ROW2_CASES,
+                         ids=[f"np{n}_r{r}_dh{d}" for n, r, d in ROW2_CASES])
+def test_row2_stats_and_tiles_match_jax(np_, n_real, dh):
+    e = HEADS * dh
+    sm = dh ** -0.5
+    a = _arrays(np_ + n_real + dh, qkv=((2, np_, 3 * e), 0.7),
+                g=((2, np_, e), 1.0))
+
+    def j_fn(x):
+        return j_fqa.fused_qkv_attention(x, HEADS, sm, n_real)
+
+    _, vjp = jax.vjp(j_fn, jnp.asarray(a["qkv"]))
+    (ref,) = vjp(jnp.asarray(a["g"]))
+    qkv, g = torch.from_numpy(a["qkv"]), torch.from_numpy(a["g"])
+    lse_t, d_t = stats_rows(qkv, g, HEADS, sm, n_real)
+    assert (lse_t.shape[-1] - np_) % QUERY_TILE == 0
+    got = tiled_bwd_from_rows(qkv, g, lse_t, d_t, HEADS, sm, n_real,
+                              np.random.default_rng(n_real + dh))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    plain = t_fqa.attention_bwd_plain(qkv, g, HEADS, sm, n_real)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    assert not got[:, n_real:, e:].any()  # masked keys: zero dk, dv
+
+
+# (route, N, n_real, head width): the forward's tile loop past 512 tokens,
+# the last key tile partly masked (577) or wholly past n_real (640 / 500).
+FWD_CASES = [("blockwise", 640, 577, 64), ("blockwise", 577, 500, 64),
+             ("blockwise", 640, 577, 16), ("flash", 577, 577, 64),
+             ("flash", 640, 640, 64)]
+
+
+@pytest.mark.parametrize("key_tile", [FWD_KEY_TILE, KEY_TILE],
+                         ids=["k64", "k128"])
+@pytest.mark.parametrize("route, n, n_real, dh", FWD_CASES,
+                         ids=[f"{r}_n{n}_r{nr}_dh{d}"
+                              for r, n, nr, d in FWD_CASES])
+def test_tiled_fwd_decomposition_matches_jax(route, n, n_real, dh,
+                                             key_tile):
+    e = HEADS * dh
+    sm = dh ** -0.5
+    np_ = -(-n // KEY_TILE) * KEY_TILE
+    qkv = _arrays(n + dh, qkv=((1, np_, 3 * e), 0.8))["qkv"]
+    qkv[:, n:] = 0.0  # the Pallas kernels' pad rows
+    t = torch.from_numpy(qkv[:, :n])
+    q, k, v = (_head_major(t[..., i * e:(i + 1) * e], HEADS)
+               for i in range(3))
+    out, lse = tiled_fwd(q, k, v, sm, n_real, key_tile)
+    # The blockwise Pallas forward's lse is the kernel's definition (and
+    # its rows past n_real keep their keys masked as here).
+    ref_out, (_, _, ref_lse) = j_bwa._fwd(jnp.asarray(qkv), HEADS, sm,
+                                          n_real, 1, 128, 128, None)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(ref_lse)[0:1, :n, :HEADS], **TOL)
+    flat = out.transpose(1, 2).reshape(1, n, e)
+    if route == "blockwise":
+        np.testing.assert_allclose(flat.numpy(), np.asarray(ref_out)[:, :n],
+                                   **TOL)
+        plain, plain_lse = t_bwa.blockwise_attention_fwd_plain(
+            t, HEADS, sm, n_real)
+        np.testing.assert_allclose(flat.numpy(), plain.numpy(), **TOL)
+        np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), **TOL)
+    else:
+        jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+        ref = j_flash.flash_attention(jq, jk, jv, sm)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+        plain = t_flash.flash_attention_fwd_plain(q, k, v, sm)
+        np.testing.assert_allclose(out.numpy(), plain.numpy(), **TOL)

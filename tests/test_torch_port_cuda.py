@@ -25,7 +25,12 @@ under each switch; for the dequant-fused int8 GEMM (row 18) ragged row
 counts, one or three column tiles and one or two k-steps, and a
 quantized Predictor with ``CARA_INT8_PALLAS=1``; for the whole-block
 eval kernel (row 19) head widths 64, 32 and 16, masked keys, a row group
-wholly past N and a delta scale other than 1.
+wholly past N and a delta scale other than 1; for row 2's backward (the
+statistics pass and the tiled main kernel) N 197, 257, 401 and 512, past
+the previous kernel's 352-token cap, with masked keys at head widths 64,
+32 and 16; for the tiled forward of rows 16 and 17 query and key boxes
+wholly or partly past N, key tiles wholly past n_real, size-1 image and
+head dimensions and more items than SMs.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -746,3 +751,105 @@ def test_tiled_attention_bwd_wgmma_matches_plain(dev, monkeypatch, route, n,
     assert len(sums) == 2
     assert chip_smoke.rel_l2(sums[1], sums[0]) <= 1e-6
     assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+# Row 2's backward (the statistics pass, then the tiled main kernel and the
+# dq pass): (dh, n, n_real, b, heads).  N 257, 401 and 512 are past the
+# previous kernel's cap of 352 tokens; keys masked at 250, 500, 380, 61.
+ROW2_CASES = [(64, 197, 197, 2, 3), (64, 257, 250, 2, 3),
+              (64, 401, 401, 2, 3), (64, 512, 500, 2, 3),
+              (32, 401, 380, 2, 3), (16, 512, 512, 2, 3),
+              (16, 70, 61, 1, 1)]
+
+
+@pytest.mark.parametrize("dh, n, n_real, b, heads", ROW2_CASES,
+                         ids=[f"dh{d}_n{n}_r{r}_b{b}_h{h}"
+                              for d, n, r, b, h in ROW2_CASES])
+def test_qkv_attention_bwd_tiled_matches_plain(dev, dh, n, n_real, b, heads):
+    """dq, dk, dv of ``fused_qkv_attention`` through its backward kernel
+    against ``attention_bwd_plain`` in fp32 (relative L2 ``GRAD_REL_L2``;
+    keys in [n_real, N) get exactly zero dk, dv), counted once a call; a
+    second call gives dk and dv bit for bit (dq's fp32 sum is taken in no
+    fixed order)."""
+    e = heads * dh
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + dh)
+    qkv = (torch.randn((b, n, 3 * e), generator=gen, device=dev)
+           * 0.6).to(torch.bfloat16)
+    g = torch.randn((b, n, e), generator=gen, device=dev).to(torch.bfloat16)
+    sm = dh ** -0.5
+
+    def grads():
+        x = qkv.detach().requires_grad_(True)
+        out = fqa_mod.fused_qkv_attention(x, heads, sm, n_real)
+        return torch.autograd.grad(out, x, g)[0].chunk(3, dim=-1)
+
+    before = fqa_mod.BWD_LAUNCHES
+    got = grads()
+    torch.cuda.synchronize()
+    assert fqa_mod.BWD_LAUNCHES == before + 1
+    ref = fqa_mod.attention_bwd_plain(qkv.float(), g.float(), heads, sm,
+                                      n_real).chunk(3, dim=-1)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(x).all(), name
+        rel = chip_smoke.rel_l2(x, r)
+        assert rel <= chip_smoke.GRAD_REL_L2, (name, rel)
+    if n_real < n:
+        assert not got[1][:, n_real:].any()
+        assert not got[2][:, n_real:].any()
+    again = grads()
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+# The tiled forward at tail shapes: (route, n, n_real, dh, b, heads).  At
+# N = 16 and 70 the second query box of an item and the second key box
+# of a tile lie wholly or partly past N; at N = 200 (n_real 100) and 640
+# (n_real 577) key tiles wholly past n_real are skipped; one image of one
+# head (the size-1 dimensions of the TMA maps); more items than SMs.
+FWD_CASES = [("blockwise", 16, 16, 64, 2, 3), ("blockwise", 70, 61, 16, 2, 3),
+             ("blockwise", 200, 100, 32, 2, 3),
+             ("blockwise", 640, 577, 64, 2, 3),
+             ("blockwise", 197, 197, 64, 1, 1),
+             ("blockwise", 577, 577, 64, 16, 12),
+             ("flash", 16, 16, 64, 2, 3), ("flash", 197, 197, 64, 3, 2),
+             ("flash", 577, 577, 64, 2, 3), ("flash", 70, 70, 64, 1, 1)]
+
+
+@pytest.mark.parametrize("route, n, n_real, dh, b, heads", FWD_CASES,
+                         ids=[f"{r}_n{n}_r{nr}_dh{d}_b{b}_h{h}"
+                              for r, n, nr, d, b, h in FWD_CASES])
+def test_tiled_attention_fwd_wgmma_matches_plain(dev, route, n, n_real, dh,
+                                                 b, heads):
+    """The wgmma forward of rows 16 and 17 against its fp32 plain twin
+    (``KERNEL_TOL``) and its log-sum-exp against the plain one
+    (``LSE_ATOL``), each wrapper call counted once."""
+    e = heads * dh
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + dh + b)
+    qkv = (torch.randn((b, n, 3 * e), generator=gen, device=dev)
+           * 0.8).to(torch.bfloat16)
+    sm = dh ** -0.5
+    _, ref_lse = bwa_mod.blockwise_attention_fwd_plain(qkv.float(), heads,
+                                                       sm, n_real)
+    if route == "blockwise":
+        before = bwa_mod.LAUNCHES
+        with torch.inference_mode():
+            out = bwa_mod.blockwise_qkv_attention(qkv, heads, sm, n_real)
+        assert bwa_mod.LAUNCHES == before + 1
+        ref, _ = bwa_mod.blockwise_attention_fwd_plain(qkv.float(), heads,
+                                                       sm, n_real)
+        _, lse = bwa_mod.attention_fwd_cuda(qkv, heads, sm, n_real)
+        _check("blockwise_qkv_attention", out, ref)
+    else:
+        q, k, v = (t.transpose(1, 2)
+                   for t in qkv.reshape(b, n, 3, heads, dh).unbind(2))
+        before = flash_mod.LAUNCHES
+        with torch.inference_mode():
+            out = flash_mod.flash_attention(q, k, v, sm)
+        assert flash_mod.LAUNCHES == before + 1
+        ref = flash_mod.flash_attention_fwd_plain(q.float(), k.float(),
+                                                  v.float(), sm)
+        _, lse = flash_mod.attention_fwd_cuda(q, k, v, sm)
+        _check("flash_attention", out, ref)
+    torch.cuda.synchronize()
+    assert (lse - ref_lse).abs().max().item() <= chip_smoke.LSE_ATOL

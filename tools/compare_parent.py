@@ -12,14 +12,18 @@ and kernel library (built from that tree's sources into its own
 other (``--rounds`` pairs).  A child measures, on ViT-B/16 at batch 64 in
 bf16:
 
-- the kernels of TPU row 1 (forward, N = 197), row 16's backward (N =
-  577) and row 17's backward (N = 197 and 577), median of 20 CUDA-event
-  timed calls, beside SDPA (forward and backward) on the same inputs;
-- merged and adapter serving at 224 px (``Predictor.logits``, host
-  clock, 10 batches);
-- the rank step at 224 px, the element and rank steps at 384 px and the
-  full fine-tuning step at 224 px (median ms per step by CUDA events over
-  the steps after the fifth, on one fixed batch).
+- the kernels of TPU row 1 (forward, N = 197), row 2 (backward, N = 197
+  and 512; a tree whose kernel refuses 512 gives null), row 16 (forward
+  and backward, N = 577) and row 17 (forward and backward, N = 197 and
+  577), median of 20 CUDA-event timed calls, beside SDPA (forward and
+  backward) on the same inputs; the forwards and row 2 also back to back
+  (``*_b2b_ms``: 20 calls between two events, so the card does not wait
+  for the host between them);
+- merged and adapter serving at 224 px and merged serving at 384 px
+  (``Predictor.logits``, host clock, 10 batches);
+- the rank and element steps at 224 px, the element and rank steps at
+  384 px and the full fine-tuning step at 224 px (median ms per step by
+  CUDA events over the steps after the fifth, on one fixed batch).
 
 Prints the card's name and power limit and one JSON line per child, and
 writes them to ``--out`` as one JSON file where it is given.
@@ -59,6 +63,27 @@ def _kernels(cs, dev) -> dict:
     def heads(t, n):
         return [x.transpose(1, 2) for x in t.reshape(b, n, 3, h, d).unbind(2)]
 
+    def sdpa_fwd(q, k, v):
+        with torch.inference_mode():
+            return F.scaled_dot_product_attention(q, k, v)
+
+    def b2b_ms(fn, reps=20):
+        """Device ms a call over ``reps`` calls between two events."""
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def timed(key, fn):
+        out[key + "_ms"] = cs.median_ms(fn)
+        out[key + "_b2b_ms"] = b2b_ms(fn)
+
     qkv = rnd(b, 197, 3 * h * d, std=0.6)
     with torch.inference_mode():
         out["row1_ms"] = cs.median_ms(
@@ -66,18 +91,30 @@ def _kernels(cs, dev) -> dict:
         q, k, v = heads(qkv, 197)
         out["row1_sdpa_ms"] = cs.median_ms(
             lambda: F.scaled_dot_product_attention(q, k, v))
-    for n in (577, 197):
+    for n in (577, 197, 512):
         qkv = rnd(b, n, 3 * h * d, std=0.6)
         g = rnd(b, n, h * d)
+        q, k, v = heads(qkv, n)
+        gh = g.reshape(b, n, h, d).transpose(1, 2)
+        if n in (197, 512):
+            try:
+                timed(f"row2_bwd_{n}",
+                      lambda: fqa.attention_bwd_cuda(qkv, g, h, sm, n))
+            except (RuntimeError, ValueError) as exc:  # a cap on N
+                print(f"row 2 at N {n}: {exc}", flush=True)
+                out[f"row2_bwd_{n}_ms"] = out[f"row2_bwd_{n}_b2b_ms"] = None
         if n == 577:
+            timed("row16_fwd_577",
+                  lambda: bwa.attention_fwd_cuda(qkv, h, sm, n))
             o, lse = bwa.attention_fwd_cuda(qkv, h, sm, n)
             out["row16_bwd_577_ms"] = cs.median_ms(
                 lambda: bwa.attention_bwd_cuda(qkv, o, lse, g, h, sm, n))
-        q, k, v = heads(qkv, n)
-        gh = g.reshape(b, n, h, d).transpose(1, 2)
-        o, lse = fl.attention_fwd_cuda(q, k, v, sm)
-        out[f"row17_bwd_{n}_ms"] = cs.median_ms(
-            lambda: fl.attention_bwd_cuda(q, k, v, o, lse, gh, sm))
+        if n in (197, 577):
+            timed(f"row17_fwd_{n}", lambda: fl.attention_fwd_cuda(q, k, v, sm))
+            o, lse = fl.attention_fwd_cuda(q, k, v, sm)
+            out[f"row17_bwd_{n}_ms"] = cs.median_ms(
+                lambda: fl.attention_bwd_cuda(q, k, v, o, lse, gh, sm))
+        timed(f"sdpa_fwd_{n}", lambda: sdpa_fwd(q, k, v))
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         so = F.scaled_dot_product_attention(qq, kk, vv)
         out[f"sdpa_bwd_{n}_ms"] = cs.median_ms(
@@ -91,22 +128,27 @@ def _serving(cs, dev) -> dict:
     from cara_tpu_torch.serving import Predictor
 
     out = {}
-    images = cs.make_images(64, 224)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "vit_compare_seed_0.npz")
-        cs.make_checkpoint(ckpt)
-        for merge in (True, False):
-            pred = Predictor.from_checkpoint_auto(
-                ckpt, cs.MODEL, batch_size=64, merge=merge, device=dev,
-                dtype=torch.bfloat16)
-            for _ in range(3):
-                pred.logits(images)
-            t0 = time.perf_counter()
-            for _ in range(10):
-                pred.logits(images)
-            rate = 10 * len(images) / (time.perf_counter() - t0)
-            out["serve_merged_img_s" if merge else "serve_adapter_img_s"] = (
-                rate)
+    runs = ((cs.MODEL, 224, (True, False), ""),
+            (cs.MODEL_384, 384, (True,), "_384"))
+    for model, size, merges, tag in runs:
+        images = cs.make_images(64, size)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "vit_compare_seed_0.npz")
+            cs.make_checkpoint(ckpt, model=model)
+            for merge in merges:
+                pred = Predictor.from_checkpoint_auto(
+                    ckpt, model, batch_size=64, merge=merge, device=dev,
+                    dtype=torch.bfloat16)
+                for _ in range(3):
+                    pred.logits(images)
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    pred.logits(images)
+                rate = 10 * len(images) / (time.perf_counter() - t0)
+                kind = "merged" if merge else "adapter"
+                out[f"serve_{kind}{tag}_img_s"] = rate
+                del pred
+        torch.cuda.empty_cache()
     return out
 
 
@@ -115,6 +157,7 @@ def _train(cs, dev) -> dict:
 
     out = {}
     routes = (("rank_224", cs.MODEL, dict(impl="rank"), 20),
+              ("element_224", cs.MODEL, dict(impl="element"), 20),
               ("element_384", cs.MODEL_384, dict(impl="element"), 12),
               ("rank_384", cs.MODEL_384, dict(impl="rank"), 12),
               ("full_224", cs.MODEL, dict(method="full", lr=1e-4), 20))
