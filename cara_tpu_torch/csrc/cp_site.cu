@@ -34,9 +34,9 @@
 // padding of r to 128 lanes is not ported.
 //
 // cara_rank_z exposes the pre-pass on its own, for the backward kernels:
-// gv = bf16(g V^T) and z = bf16(x U), the rank-space operands of
-// _cp_dense_dx_kernel (cp_dense.py) and _mlp_bwd_kernel (cp_mlp.py),
-// written 64 wide for grad_gemm.cu's rank step.
+// z = bf16(x U), the rank-space operand of the factor gradients and of
+// _mlp_bwd_kernel's fc1 recompute (cp_mlp.py), written 64 wide for
+// grad_gemm.cu's rank step (which folds g V^T in itself).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +123,6 @@ struct SiteArgs {
   __nv_bfloat16* out;
   int M, K, N, r;
   int has_ln, act, has_res;  // act: 0 none, 1 GELU, 2 dact
-  int u_trans;  // pre-pass only: U given as (r, K), z = pro(x) @ U^T
   float s;
 };
 
@@ -189,27 +188,17 @@ site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
         ln8(raw[it], p.mean[gm], p.rstd[gm], lsv, lbv);
       *reinterpret_cast<uint4*>(&As[row * ZA_LD + zcol]) = raw[it];
     }
-    if (p.u_trans) {
-      // U^T rows: columns k0 .. k0+kw of each of the r rows of (r, K),
-      // read along k (coalesced), written transposed.
-      for (int idx = tid; idx < p.r * kw; idx += ZTHREADS) {
-        const int j = idx / kw;
-        const int kk = idx % kw;
-        Us[kk * ULD + j] = u[(size_t)j * p.K + k0 + kk];
-      }
-    } else {
-      // U rows k0 .. k0+kw are kw*r contiguous values (a multiple of 8):
-      // 16-byte loads, scattered into the (kk, j) layout; the padding
-      // columns j >= r were zeroed before the loop.
-      for (int v = tid; v < kw * p.r / 8; v += ZTHREADS) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            u + (size_t)k0 * p.r + v * 8);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    // U rows k0 .. k0+kw are kw*r contiguous values (a multiple of 8):
+    // 16-byte loads, scattered into the (kk, j) layout; the padding
+    // columns j >= r were zeroed before the loop.
+    for (int v = tid; v < kw * p.r / 8; v += ZTHREADS) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(u + (size_t)k0 * p.r + v * 8);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int flat = v * 8 + q;
-          Us[(flat / p.r) * ULD + flat % p.r] = e[q];
-        }
+      for (int q = 0; q < 8; ++q) {
+        const int flat = v * 8 + q;
+        Us[(flat / p.r) * ULD + flat % p.r] = e[q];
       }
     }
     __syncthreads();
@@ -521,7 +510,6 @@ extern "C" int cara_cp_site(
   p.has_ln = has_ln;
   p.act = act;
   p.has_res = has_res;
-  p.u_trans = 0;
   p.s = s;
   if (has_ln) {
     const int rows_per_block = 8;
@@ -548,11 +536,10 @@ extern "C" int cara_cp_site(
 }
 
 // The rank pre-pass alone: z (M, 64) bf16 = bf16(x @ U), zero past r, for
-// x (M, K) bf16 and U (K, r), or U^T with u_trans (U given as (r, K)).
-// Needs K % 64 == 0, 1 <= r <= 64 and 16-byte aligned pointers; the Python
-// wrapper checks.  Returns cudaGetLastError().
+// x (M, K) bf16 and U (K, r).  Needs K % 64 == 0, 1 <= r <= 64 and 16-byte
+// aligned pointers; the Python wrapper checks.  Returns cudaGetLastError().
 extern "C" int cara_rank_z(const void* x, const void* u, void* z, int M,
-                           int K, int r, int u_trans, void* stream_ptr) {
+                           int K, int r, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (r < 1 || r > ZW || K % BK)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -561,7 +548,6 @@ extern "C" int cara_rank_z(const void* x, const void* u, void* z, int M,
   p.M = M;
   p.K = K;
   p.r = r;
-  p.u_trans = u_trans;
   const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
   __nv_bfloat16* zz = static_cast<__nv_bfloat16*>(z);
   if (r <= 16) launch_z<16>(p, uu, zz, stream);

@@ -1,5 +1,5 @@
-// The PTX wrappers the mma.sync kernels share (cp_site.cu, grad_gemm.cu,
-// attn_proj.cu, block_pair.cu, int8_dense.cu): 16-byte cp.async with zero
+// The PTX wrappers the mma.sync kernels share (cp_site.cu, attn_proj.cu,
+// block_pair.cu, int8_dense.cu): 16-byte cp.async with zero
 // fill, its commit and wait, ldmatrix of four 8x8 b16 tiles (plain and
 // transposed), the bf16 m16n8k16 mma with fp32 accumulators, and the pack
 // of two floats into a bf16x2 register.

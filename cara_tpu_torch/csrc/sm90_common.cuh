@@ -1,9 +1,11 @@
-// The Hopper (sm_90a) building blocks the wgmma attention kernels share
-// (qkv_attention.cu, tiled_attention_fwd.cuh, tiled_attention_bwd.cuh):
+// The Hopper (sm_90a) building blocks the wgmma kernels share
+// (qkv_attention.cu, tiled_attention_fwd.cuh, tiled_attention_bwd.cuh,
+// grad_gemm.cu):
 // shared-memory matrix descriptors for wgmma and its fence / commit /
 // wait, mbarrier init, expect-tx, arrive and wait, the TMA tile load and
 // store and the bulk copies (a plain load and an fp32 add-reduce into
-// global memory), named barriers, and on the host the encoding of a TMA
+// global memory), named barriers, the acquire load and release add of an
+// ordering counter in global memory, and on the host the encoding of a TMA
 // tensor map.  The wgmma instructions themselves are in sm90_wgmma.cuh.
 //
 // Swizzle: a tile whose rows are W = 32, 64 or 128 bytes (16, 32 or 64
@@ -17,6 +19,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 #include "sm90_wgmma.cuh"
 
@@ -43,6 +48,18 @@ __device__ __forceinline__ uint64_t desc(const void* p) {
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(8 * ROW_BYTES >> 4) << 32) |
          ((uint64_t)swizzle_mode(ROW_BYTES) << 62);
+}
+
+// Descriptor of an MN-major bf16 operand whose output axis spans several
+// 64-element (128-byte) swizzle atoms: each atom is its own 128-byte-row
+// tile (8-row groups 1024 bytes apart), `atom_bytes` after the previous
+// one (the leading byte offset; PTX's canonical MN-major layout with the
+// 128-byte swizzle).  A k-step of 16 rows starts 2048 bytes further on.
+__device__ __forceinline__ uint64_t desc_mn(const void* p,
+                                            uint32_t atom_bytes) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(atom_bytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -110,8 +127,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
-// TMA: one box of `map` at coordinates (c0, c1, c2[, c3]) into `dst`,
+// TMA: one box of `map` at coordinates (c0, c1[, c2[, c3]]) into `dst`,
 // completion counted in bytes on `bar`.  Out-of-range rows arrive as 0.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -133,8 +159,32 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// TMA: the box of `map` at (c0, c1, c2[, c3]) written from `src`; rows
+// TMA: the box of `map` at (c0, c1[, c2[, c3]]) written from `src`; rows
 // out of range are not written.  Commits the bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// TMA: the box of `map` at (c0, c1) added (fp32 add, in the memory
+// system) from `src`; out-of-range elements skipped.  Commits the group.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2) {
@@ -186,6 +236,40 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
+// Wait until every committed bulk group but the newest has completed.
+__device__ __forceinline__ void bulk_wait_1() {
+  asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+}
+
+// An ordering counter in global memory, for sums taken in a fixed order
+// across blocks: wait_turn spins (acquire loads) until the counter reads
+// `turn`, pass_turn adds 1 (release).  The fences between the generic and
+// the async proxy order a bulk reduce issued after wait_turn, or
+// completed before pass_turn, with the counter.  A wait that outlasts
+// some seconds traps rather than hang the card.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_turn(const int* p, int turn) {
+  for (long long spin = 0; ld_acquire(p) != turn; ++spin) {
+    if (spin > (1ll << 27)) __trap();
+    __nanosleep(64);
+  }
+  fence_proxy_async_global();
+}
+__device__ __forceinline__ void pass_turn(int* p) {
+  fence_proxy_async_global();
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(p)
+               : "memory");
+}
 
 // Byte offset `a` within a tile of ROW_BYTES-wide rows (1024-aligned base)
 // moved as TMA's swizzle of that width moves it.
@@ -209,14 +293,53 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d,
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// Host: a bf16 tensor map of `rank` dimensions (innermost first) over
-// `base`, strides in bytes of dimensions 1.., box `box` with the swizzle
-// of a box row (box[0] * 2 bytes: 32, 64 or 128).  cuTensorMapEncodeTiled
+// Host: a bf16 (`elem_bytes` 2) or fp32 (4) tensor map of `rank`
+// dimensions (innermost first) over `base`, strides in bytes of
+// dimensions 1.., box `box` with the swizzle of a box row (box[0] *
+// elem_bytes bytes: 32, 64 or 128).  cuTensorMapEncodeTiled
 // is looked up through the CUDA runtime's entry-point query, so nothing
-// links libcuda.  Returns 0 or a CUresult / cudaError_t code.
+// links libcuda.  The encoding depends on its arguments alone (not on the
+// memory at `base`), and a training step allocates its tensors at the
+// same addresses as the step before, so encoded maps are kept in a small
+// table keyed by every argument: a GEMM's few maps cost a lookup, not an
+// encoding each.  Returns 0 or a CUresult / cudaError_t code.
+struct MapKey {
+  const void* base;
+  int rank, elem_bytes;
+  uint64_t dims[5], strides[4];
+  uint32_t box[5];
+};
+
 inline int encode_map(CUtensorMap* map, const void* base, int rank,
                       const uint64_t* dims, const uint64_t* strides,
-                      const uint32_t* box) {
+                      const uint32_t* box, int elem_bytes = 2) {
+  constexpr int kSlots = 512;
+  static MapKey keys[kSlots];
+  static CUtensorMap maps[kSlots];
+  static bool used[kSlots];
+  static std::mutex mu;
+  MapKey key;
+  memset(&key, 0, sizeof(key));
+  key.base = base;
+  key.rank = rank;
+  key.elem_bytes = elem_bytes;
+  uint64_t h = (reinterpret_cast<uint64_t>(base) + elem_bytes) *
+               0x9E3779B97F4A7C15ull;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    h = (h ^ dims[i] ^ ((uint64_t)box[i] << 40)) * 0x100000001B3ull;
+    if (i + 1 < rank) {
+      key.strides[i] = strides[i];
+      h = (h ^ strides[i]) * 0x100000001B3ull;
+    }
+  }
+  const int slot = static_cast<int>((h >> 32) % kSlots);
+  std::lock_guard<std::mutex> lock(mu);
+  if (used[slot] && memcmp(&keys[slot], &key, sizeof(key)) == 0) {
+    *map = maps[slot];
+    return 0;
+  }
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -240,16 +363,31 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
       return static_cast<int>(cudaErrorSymbolNotFound);
     encode = reinterpret_cast<Encode>(fn);
   }
-  const int row_bytes = static_cast<int>(box[0]) * 2;
+  // The encoder wants a current context.  A thread that has made no
+  // runtime call yet has none (autograd's device thread, when a backward
+  // kernel of this library is its first CUDA work); setting the device
+  // binds the runtime's primary context to the thread.
+  int device = 0;
+  cudaGetDevice(&device);
+  cudaSetDevice(device);
+  const int row_bytes = static_cast<int>(box[0]) * elem_bytes;
   const CUtensorMapSwizzle sw =
       row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                         : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      map,
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      rank, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) {
+    keys[slot] = key;
+    maps[slot] = *map;
+    used[slot] = true;
+  }
   return static_cast<int>(r);
 }
 

@@ -26,9 +26,11 @@
 //   rows     one warp per token row, all heads, coalesced: D = rowsum(do *
 //            o) and the row's lse into (B, H, 2, NP) fp32 (NP = N rounded up
 //            to 64; rows past N get lse = 1e30, D = 0, so their p is 0);
-//   main     one block per (image, head, 128-key tile): two consumer
-//            warpgroups of 64 keys and one producer warp.  The producer
-//            loads K and V once by TMA, then streams the 64-query tiles
+//   main     one block per (image, head): two consumer warpgroups of 64
+//            keys, one producer warp and one dq writer warp, walking the
+//            128-key tiles in order.  For each key tile the producer
+//            loads K and V by TMA (two slots, so the next tile's land
+//            while this one is used), then streams the 64-query tiles
 //            (q, do by TMA; their lse and D rows by bulk copy) through a
 //            three-stage mbarrier ring.  Per query tile each warpgroup
 //            runs five wgmma products: s^T = k q^T and dp^T = v do^T (all
@@ -36,16 +38,29 @@
 //            the fp32 accumulators, dv += bf16(p^T) do and dk += ds^T q
 //            (A from registers, q and do read MN-major), and dq = ds k
 //            over the warpgroup's 64 keys, its ds^T staged once in shared
-//            memory and read MN-major.  Each warpgroup adds its fp32 dq
-//            partial into an fp32 scratch (B, H, NP, Dh) by
-//            cp.reduce.async.bulk (add), in the accumulator's own order;
-//            dk and dv stay in registers to the end;
+//            memory and read MN-major.  Each warpgroup stages its fp32
+//            dq partial (the accumulator's own order) in one of two
+//            buffers; the writer warp sums the two warpgroups' partials
+//            (warpgroup 0's plus warpgroup 1's, elementwise) and adds the
+//            sum into an fp32 scratch (B, H, NP, Dh) by
+//            cp.reduce.async.bulk (add); dk and dv stay in registers to
+//            the end of their key tile;
 //   dq       scale, round to bf16 and write into the caller's layout.
 //
 // The scratch is zeroed by the wrapper (torch.zeros): 126 MB at B = 64,
-// N = 577 (NP = 640), H = 12, Dh = 64.  dq is not bitwise deterministic:
-// its fp32 sum over the key tiles is taken by the memory system in no
-// fixed order (dk and dv have one writer a row and are).
+// N = 577 (NP = 640), H = 12, Dh = 64.  dq is bitwise deterministic: one
+// block owns all of an (image, head)'s dq, its writer adds a query
+// tile's parts in key-tile order, and an add completes in memory before
+// the next add to the same tile is issued (cp.async.bulk.wait_group, not
+// only its read of shared memory).  So dq = (((0 + t0) + t1) + ...) *
+// scale, t_kt = warpgroup 0's partial + warpgroup 1's of key tile kt,
+// each sum in fp32 (dk and dv have one writer a row).  FA3's
+// deterministic backward keeps a block per key tile and orders their adds
+// by a semaphore; tried here first, the blocks of the later key tiles
+// waited out each earlier tile's add round trip: at N = 577, 26-32 %
+// slower than the unordered adds (tools/compare_parent.py, one H100 80GB
+// HBM3 at 700 W).  With one block an (image, head), B = 64 and H = 12
+// give 768 blocks, 5.8 waves of one block an SM.
 //
 // Measured on one H100 80GB HBM3 at 700 W (tools/compare_parent.py, one
 // run in turns with the previous design), B = 64, H = 12: 0.8776 / 0.8856
@@ -75,9 +90,10 @@
 namespace tiled_attention {
 namespace {
 
-constexpr int kKeys = 128;       // keys per block
+constexpr int kKeys = 128;       // keys per key tile
 constexpr int kStages = 3;       // query-tile ring (of kQRows rows)
-constexpr int kBwdThreads = 288;  // two consumer warpgroups + a producer
+// Two consumer warpgroups, a producer warp and a dq writer warp.
+constexpr int kBwdThreads = 320;
 
 // Shared memory of the main kernel, in bytes from a 1024-aligned base.
 struct BwdSmem {
@@ -87,16 +103,16 @@ struct BwdSmem {
 __host__ __device__ inline BwdSmem bwd_smem(int dh) {
   const int rb = dh * 2;
   BwdSmem s;
-  s.k = 0;
-  s.v = s.k + kKeys * rb;
-  s.q = s.v + kKeys * rb;
+  s.k = 0;                      // two key tiles (K and V double-buffered)
+  s.v = s.k + 2 * kKeys * rb;
+  s.q = s.v + 2 * kKeys * rb;
   s.dout = s.q + kStages * kQRows * rb;
   s.ds = s.dout + kStages * kQRows * rb;     // 2 x 2 tiles 64 x 64 bf16
-  s.stage = s.ds + 2 * kKeys * kQRows * 2;   // 2 tiles 64 x dh fp32
-  s.lse = s.stage + 2 * kQRows * dh * 4;
+  s.stage = s.ds + 2 * kKeys * kQRows * 2;  // [2 buffers][2] 64 x dh fp32
+  s.lse = s.stage + 2 * 2 * kQRows * dh * 4;
   s.dd = s.lse + kStages * kQRows * 4;
   s.bars = s.dd + kStages * kQRows * 4;
-  s.total = s.bars + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+  s.total = s.bars + 8 * (2 * 2 + 2 * kStages + 4) + 1024;  // + alignment
   return s;
 }
 
@@ -182,34 +198,40 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
   float* stage = reinterpret_cast<float*>(smem + L.stage);
   float* Ls = reinterpret_cast<float*>(smem + L.lse);
   float* DDs = reinterpret_cast<float*>(smem + L.dd);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L.bars);
-  uint64_t* full = kv_full + 1;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L.bars);  // [2]
+  uint64_t* kv_empty = kv_full + 2;     // [2]: the key tile's products done
+  uint64_t* full = kv_empty + 2;
   uint64_t* empty = full + kStages;
+  uint64_t* dq_full = empty + kStages;  // [2]: both warpgroups staged
+  uint64_t* dq_empty = dq_full + 2;     // [2]: the writer's add read it
 
   const int N = a.N;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kKeys;
   const int tid = threadIdx.x;
   const int np = padded_rows(N);
   const int nq = np / kQRows;
+  const int nkt = (a.n_real + kKeys - 1) / kKeys;  // key tiles with a key
 
-  if (k0 >= a.n_real) {  // every key of the tile masked: zero dk, dv
-    const int rows = min(kKeys, N - k0);
-    for (int idx = tid; idx < rows * (DH / 8); idx += kBwdThreads) {
-      const int r = k0 + idx / (DH / 8);
-      const int c = (idx % (DH / 8)) * 8;
-      const uint4 z = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(head_rows(a.dk, a.sdk, b, h) + r * a.sdk.sr +
-                                c) = z;
-      *reinterpret_cast<uint4*>(head_rows(a.dv, a.sdv, b, h) + r * a.sdv.sr +
-                                c) = z;
-    }
-    return;
+  // Keys past the last tile with a valid key: zero dk, dv.
+  for (int idx = tid; idx < (N - min(N, nkt * kKeys)) * (DH / 8);
+       idx += kBwdThreads) {
+    const int r = nkt * kKeys + idx / (DH / 8);
+    const int c = (idx % (DH / 8)) * 8;
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(head_rows(a.dk, a.sdk, b, h) + r * a.sdk.sr +
+                              c) = z;
+    *reinterpret_cast<uint4*>(head_rows(a.dv, a.sdv, b, h) + r * a.sdv.sr +
+                              c) = z;
   }
 
   if (tid == 0) {
-    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 256);
+      mbar_init(&dq_full[s], 256);
+      mbar_init(&dq_empty[s], 1);
+    }
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
@@ -218,174 +240,224 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
   }
   __syncthreads();
 
+  // Iteration it = kt * nq + qt walks the key tiles in order and, for
+  // each, the query tiles; ring slots, dq buffers and their phases count
+  // it.
+  if (tid >= 288) {  // the dq writer warp
+    // Per iteration: the two warpgroups' partials summed into buffer half
+    // 0 (warpgroup 0's plus warpgroup 1's), then one bulk add into the
+    // scratch.  Adds to one query tile come nq iterations apart, in
+    // key-tile order, each complete before the next is issued (with nq
+    // >= 2 it is enough that all but the newest add have completed).
+    const int lane = tid & 31;
+    float* acc_base = a.dq_acc + ((size_t)b * a.heads + h) * np * DH;
+    for (int it = 0; it < nkt * nq; ++it) {
+      const int buf = it & 1;
+      const int qt = it % nq;
+      mbar_wait(&dq_full[buf], (it >> 1) & 1);
+      float4* s0 = reinterpret_cast<float4*>(stage + buf * 2 * kQRows * DH);
+      const float4* s1 = s0 + kQRows * DH / 4;
+      for (int i = lane; i < kQRows * DH / 4; i += 32) {
+        float4 x = s0[i];
+        const float4 y = s1[i];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+        s0[i] = x;
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        if (nq == 1) bulk_wait();
+        bulk_reduce_add_f32(acc_base + (size_t)qt * kQRows * DH,
+                            reinterpret_cast<const float*>(s0),
+                            kQRows * DH * 4);
+        bulk_wait_1();  // every add but this one complete and read
+        if (it > 0) mbar_arrive(&dq_empty[buf ^ 1]);
+      }
+      __syncwarp();
+    }
+    if (lane == 0) bulk_wait();
+    return;
+  }
   if (tid >= 256) {  // the producer warp
     if (tid == 256) {
-      mbar_expect_tx(kv_full, 4 * kQRows * RB);
-      for (int s = 0; s < 2; ++s) {
-        tma_load_4d(Ks + s * kQRows * DH, &maps.k, kv_full, 0,
-                    k0 + s * kQRows, h, b);
-        tma_load_4d(Vs + s * kQRows * DH, &maps.v, kv_full, 0,
-                    k0 + s * kQRows, h, b);
-      }
       const float* rows = a.rows + ((size_t)b * a.heads + h) * 2 * np;
-      for (int qt = 0; qt < nq; ++qt) {
-        const int st = qt % kStages;
-        if (qt >= kStages) mbar_wait(&empty[st], (qt / kStages - 1) & 1);
-        mbar_expect_tx(&full[st], 2 * kQRows * RB + 2 * kQRows * 4);
-        tma_load_4d(Qs + st * kQRows * DH, &maps.q, &full[st], 0,
-                    qt * kQRows, h, b);
-        tma_load_4d(Os + st * kQRows * DH, &maps.dout, &full[st], 0,
-                    qt * kQRows, h, b);
-        bulk_load(Ls + st * kQRows, rows + qt * kQRows, kQRows * 4,
-                  &full[st]);
-        bulk_load(DDs + st * kQRows, rows + np + qt * kQRows, kQRows * 4,
-                  &full[st]);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int kv = kt & 1;
+        if (kt >= 2) mbar_wait(&kv_empty[kv], ((kt >> 1) - 1) & 1);
+        mbar_expect_tx(&kv_full[kv], 4 * kQRows * RB);
+        for (int s = 0; s < 2; ++s) {
+          tma_load_4d(Ks + (kv * 2 + s) * kQRows * DH, &maps.k, &kv_full[kv],
+                      0, kt * kKeys + s * kQRows, h, b);
+          tma_load_4d(Vs + (kv * 2 + s) * kQRows * DH, &maps.v, &kv_full[kv],
+                      0, kt * kKeys + s * kQRows, h, b);
+        }
+        for (int qt = 0; qt < nq; ++qt) {
+          const int it = kt * nq + qt;
+          const int st = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
+          mbar_expect_tx(&full[st], 2 * kQRows * RB + 2 * kQRows * 4);
+          tma_load_4d(Qs + st * kQRows * DH, &maps.q, &full[st], 0,
+                      qt * kQRows, h, b);
+          tma_load_4d(Os + st * kQRows * DH, &maps.dout, &full[st], 0,
+                      qt * kQRows, h, b);
+          bulk_load(Ls + st * kQRows, rows + qt * kQRows, kQRows * 4,
+                    &full[st]);
+          bulk_load(DDs + st * kQRows, rows + np + qt * kQRows, kQRows * 4,
+                    &full[st]);
+        }
       }
     }
     return;
   }
 
-  // Consumers: warpgroup w owns keys k0 + 64 w .. + 63.
+  // Consumers: warpgroup w owns keys kt * 128 + 64 w .. + 63 of each key
+  // tile.
   const int w = tid >> 7;
   const int wtid = tid & 127;
   const int warp = wtid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  bool kvalid[2];
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int kv = kt & 1;
+    const int k0 = kt * kKeys;
+    bool kvalid[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    kvalid[r] = k0 + w * 64 + warp * 16 + g + 8 * r < a.n_real;
-  const __nv_bfloat16* Kw = Ks + w * 64 * DH;
-  const __nv_bfloat16* Vw = Vs + w * 64 * DH;
-  float* stage_w = stage + w * kQRows * DH;
-  float* acc_base = a.dq_acc + ((size_t)b * a.heads + h) * np * DH;
-
-  float dk[DH / 2], dv[DH / 2];
+    for (int r = 0; r < 2; ++r)
+      kvalid[r] = k0 + w * 64 + warp * 16 + g + 8 * r < a.n_real;
+    const __nv_bfloat16* Kw = Ks + (kv * 2 + w) * kQRows * DH;
+    const __nv_bfloat16* Vw = Vs + (kv * 2 + w) * kQRows * DH;
+    float dk[DH / 2], dv[DH / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
-  mbar_wait(kv_full, 0);
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(&kv_full[kv], (kt >> 1) & 1);
 
-  for (int qt = 0; qt < nq; ++qt) {
-    const int st = qt % kStages;
-    mbar_wait(&full[st], (qt / kStages) & 1);
-    const __nv_bfloat16* qs = Qs + st * kQRows * DH;
-    const __nv_bfloat16* os = Os + st * kQRows * DH;
-    const float* ls = Ls + st * kQRows;
-    const float* dds = DDs + st * kQRows;
+    for (int qt = 0; qt < nq; ++qt) {
+      const int it = kt * nq + qt;
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const __nv_bfloat16* qs = Qs + st * kQRows * DH;
+      const __nv_bfloat16* os = Os + st * kQRows * DH;
+      const float* ls = Ls + st * kQRows;
+      const float* dds = DDs + st * kQRows;
 
-    // s^T = k q^T, dp^T = v do^T: keys x queries; p^T is taken while dp^T
-    // is still in the tensor cores.  The query of s[i] is 8 (i / 4) + 2 t +
-    // (i & 1); p = exp(s scale - lse) by the full-precision expf, as the
-    // plain twin takes it.
-    float s[32], dp[32];
-    {
-      const uint64_t dkd = desc<RB>(Kw), dqd = desc<RB>(qs);
-      const uint64_t dvd = desc<RB>(Vw), dod = desc<RB>(os);
+      // s^T = k q^T, dp^T = v do^T: keys x queries; p^T is taken while
+      // dp^T is still in the tensor cores.  The query of s[i] is 8 (i / 4)
+      // + 2 t + (i & 1); p = exp(s scale - lse) by the full-precision
+      // expf, as the plain twin takes it.
+      float s[32], dp[32];
+      {
+        const uint64_t dkd = desc<RB>(Kw), dqd = desc<RB>(qs);
+        const uint64_t dvd = desc<RB>(Vw), dod = desc<RB>(os);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss<64, 0, 0>(s, dkd + 2 * kk, dqd + 2 * kk, kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss<64, 0, 0>(dp, dvd + 2 * kk, dod + 2 * kk, kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lv =
+            *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * j + c;
+          const float p = expf(s[i] * a.scale - ((c & 1) ? lv.y : lv.x));
+          s[i] = kvalid[c >> 1] ? p : 0.f;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], s, kk);
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dv2 =
+            *reinterpret_cast<const float2*>(dds + 8 * j + 2 * t);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * j + c;
+          dp[i] = s[i] * (dp[i] - ((c & 1) ? dv2.y : dv2.x));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], dp, kk);
+      // ds^T (bf16, the values of da) into this warpgroup's dq operand:
+      // row = key (128 B of 64 queries, 128-byte swizzle), two buffers by
+      // iteration.
+      unsigned char* dsb = reinterpret_cast<unsigned char*>(Ds) +
+                           ((it & 1) * 2 + w) * 64 * kQRows * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = warp * 16 + g + 8 * r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(
+              dsb + swizzle<128>(key * 128 + (8 * j + 2 * t) * 2)) =
+              da[j >> 1][(j & 1) * 2 + r];
+      }
+      fence_proxy_async();
+      // dv += bf16(p^T) do, dk += ds^T q (do and q read MN-major).
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss<64, 0, 0>(s, dkd + 2 * kk, dqd + 2 * kk, kk > 0);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DH, 1>(dv, pa[kk], desc<RB>(os + kk * 16 * DH), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DH, 1>(dk, da[kk], desc<RB>(qs + kk * 16 * DH), 1);
       wgmma_commit();
+      // ds^T stored by the four warps.
+      named_barrier(1 + w, 128);
+      // dq partial (64 queries x Dh) over this warpgroup's 64 keys = ds
+      // (A: ds^T read MN-major) . k (B: the key rows read MN-major).
+      float dq[DH / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss<64, 0, 0>(dp, dvd + 2 * kk, dod + 2 * kk, kk > 0);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DH, 1, 1>(dq, desc<128>(dsb + kk * 16 * 128),
+                           desc<RB>(Kw + kk * 16 * DH), kk > 0);
       wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      mbar_arrive(&empty[st]);
+      // The fp32 partial, in accumulator order, to the writer warp (its
+      // buffer free once the add of iteration it - 2 has read it).
+      const int buf = it & 1;
+      if (it >= 2) mbar_wait(&dq_empty[buf], ((it >> 1) - 1) & 1);
+      float* stage_w = stage + (buf * 2 + w) * kQRows * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) stage_w[i * 128 + wtid] = dq[i];
+      mbar_arrive(&dq_full[buf]);
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * j + c;
-        const float p = expf(s[i] * a.scale - ((c & 1) ? lv.y : lv.x));
-        s[i] = kvalid[c >> 1] ? p : 0.f;
-      }
-    }
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], s, kk);
-    wgmma_wait<0>();
-    fence_regs(dp);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dv2 = *reinterpret_cast<const float2*>(dds + 8 * j + 2 * t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * j + c;
-        dp[i] = s[i] * (dp[i] - ((c & 1) ? dv2.y : dv2.x));
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], dp, kk);
-    // ds^T (bf16, the values of da) into this warpgroup's dq operand: row
-    // = key (128 B of 64 queries, 128-byte swizzle), two buffers by query
-    // tile.
-    unsigned char* dsb = reinterpret_cast<unsigned char*>(Ds) +
-                         ((qt & 1) * 2 + w) * 64 * kQRows * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = warp * 16 + g + 8 * r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(
-            dsb + swizzle<128>(key * 128 + (8 * j + 2 * t) * 2)) =
-            da[j >> 1][(j & 1) * 2 + r];
-    }
-    fence_proxy_async();
-    // dv += bf16(p^T) do, dk += ds^T q (do and q read MN-major).
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<DH, 1>(dv, pa[kk], desc<RB>(os + kk * 16 * DH), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<DH, 1>(dk, da[kk], desc<RB>(qs + kk * 16 * DH), 1);
-    wgmma_commit();
-    // ds^T stored by the four warps; this warpgroup's last dq reduce has
-    // finished reading its stage.
-    if (wtid == 0) bulk_wait_read();
-    named_barrier(1 + w, 128);
-    // dq partial (64 queries x Dh) over this warpgroup's 64 keys = ds (A:
-    // ds^T read MN-major) . k (B: the key rows read MN-major).
-    float dq[DH / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss<DH, 1, 1>(dq, desc<128>(dsb + kk * 16 * 128),
-                         desc<RB>(Kw + kk * 16 * DH), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(dq);
-    mbar_arrive(&empty[st]);
-    // The fp32 partial, in accumulator order, added into the scratch.
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) stage_w[i * 128 + wtid] = dq[i];
-    fence_proxy_async();
-    named_barrier(1 + w, 128);
-    if (wtid == 0)
-      bulk_reduce_add_f32(acc_base + (size_t)qt * kQRows * DH, stage_w,
-                          kQRows * DH * 4);
-  }
-  if (wtid == 0) bulk_wait();
+    // Every product of this key tile is done: its K / V slot goes back.
+    mbar_arrive(&kv_empty[kv]);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + w * 64 + warp * 16 + g + 8 * r;
-    if (key >= N) continue;
-    __nv_bfloat16* dkr = head_rows(a.dk, a.sdk, b, h) + key * a.sdk.sr;
-    __nv_bfloat16* dvr = head_rows(a.dv, a.sdv, b, h) + key * a.sdv.sr;
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + w * 64 + warp * 16 + g + 8 * r;
+      if (key >= N) continue;
+      __nv_bfloat16* dkr = head_rows(a.dk, a.sdk, b, h) + key * a.sdk.sr;
+      __nv_bfloat16* dvr = head_rows(a.dv, a.sdv, b, h) + key * a.sdv.sr;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      *reinterpret_cast<uint32_t*>(dkr + col) = sm90::pack_bf16(
-          dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvr + col) =
-          sm90::pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      for (int j = 0; j < DH / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkr + col) = sm90::pack_bf16(
+            dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvr + col) =
+            sm90::pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -442,7 +514,7 @@ int launch_bwd_tiles(const BwdArgs& a, int B, cudaStream_t stream) {
   if (!err) err = operand_map(&maps.dout, a.dout, a.sdo, DH, a.N, a.heads, B);
   if (err) return err;
   const int np = padded_rows(a.N);
-  dim3 grid((a.N + kKeys - 1) / kKeys, a.heads, B);
+  dim3 grid(1, a.heads, B);
   attention_bwd_kernel<DH><<<grid, kBwdThreads, smem, stream>>>(maps, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

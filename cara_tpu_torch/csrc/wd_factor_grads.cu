@@ -3,10 +3,10 @@
 //   dtc = bf16( where(keep(k, n, seed), dT[k, n] * inv, 0) )
 //   dU  = dtc V^T   (K, r)      dV = U^T dtc   (r, N)      both fp32
 //
-// dT (K, N) is the site's dense cotangent x^T g in fp32, handed over as
-// `parts` partial planes (split-M GEMM outputs) that are summed here in a
-// fixed order; inv = s / (1 - rate); keep is the hash of wd_hash.cuh, so
-// the mask is the one the fold applied in the forward.
+// dT (K, N) is the site's dense cotangent x^T g in fp32 (grad_gemm.cu's
+// TN product, its contraction splits summed in a fixed order there); inv
+// = s / (1 - rate); keep is the hash of wd_hash.cuh, so the mask is the
+// one the fold applied in the forward.
 //
 // Replaces the finish step masked_site_grads
 // (cara_tpu/ops/pallas/cp_dense.py), which the TPU backward kernels
@@ -17,7 +17,7 @@
 // column's dV partial over the block's rows in registers; then each warp
 // reduces its row's dU over the chunk with shuffles.  Where K / 8 blocks
 // would leave SMs idle the columns are split across blocks as well.
-// Every element of the (K, N) planes is read once.  The dV partials (one
+// Every element of dT is read once.  The dV partials (one
 // per row block) and dU partials (one per column split) are summed by a
 // second kernel in a fixed order: no atomics, so runs repeat bit for
 // bit.  At ViT-B (K x N up to 3072 x 768, r = 8) the call reads 9-17 MB
@@ -41,7 +41,7 @@ constexpr int kSlots = 264;    // blocks that fill the card (132 SMs x 2)
 // accumulators in registers).
 template <int RMAX>
 __global__ void __launch_bounds__(kThreads)
-wd_factor_grads_kernel(const float* __restrict__ dt, int parts,
+wd_factor_grads_kernel(const float* __restrict__ dt,
                        const __nv_bfloat16* __restrict__ u,
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ seed,
@@ -67,7 +67,6 @@ wd_factor_grads_kernel(const float* __restrict__ dt, int parts,
   }
   __syncthreads();
   const uint32_t sd = static_cast<uint32_t>(*seed);
-  const size_t plane = (size_t)K * N;
 
   for (int n0 = c_begin; n0 < c_end; n0 += kChunk) {
     const int n = n0 + tid;
@@ -77,12 +76,8 @@ wd_factor_grads_kernel(const float* __restrict__ dt, int parts,
     for (int row = 0; row < kRows; ++row) {
       const int k = k0 + row;
       float c = 0.f;
-      if (k < K && n < c_end && wd_keep(k, n, sd, thr)) {
-        const float* src = dt + (size_t)k * N + n;
-        float sum = 0.f;
-        for (int p = 0; p < parts; ++p) sum += src[p * plane];
-        c = __bfloat162float(__float2bfloat16(sum * inv));
-      }
+      if (k < K && n < c_end && wd_keep(k, n, sd, thr))
+        c = __bfloat162float(__float2bfloat16(dt[(size_t)k * N + n] * inv));
       dtc[row][tid] = c;
 #pragma unroll
       for (int j = 0; j < RMAX; ++j) dva[j] = fmaf(us[row][j], c, dva[j]);
@@ -128,27 +123,27 @@ __global__ void sum_parts_kernel(const float* __restrict__ parts,
 }
 
 template <int RMAX>
-void launch(dim3 grid, const float* dt, int parts, const __nv_bfloat16* u,
+void launch(dim3 grid, const float* dt, const __nv_bfloat16* u,
             const __nv_bfloat16* v, const int* seed, float* du_part,
             float* dv_part, int K, int N, int r, int cols, float inv,
             uint32_t thr, cudaStream_t stream) {
   wd_factor_grads_kernel<RMAX><<<grid, kThreads, 0, stream>>>(
-      dt, parts, u, v, seed, du_part, dv_part, K, N, r, cols, inv, thr);
+      dt, u, v, seed, du_part, dv_part, K, N, r, cols, inv, thr);
 }
 
 }  // namespace
 
-// dt: `parts` fp32 (K, N) planes back to back; u (K, r), v (r, N) bf16;
+// dt: fp32 (K, N); u (K, r), v (r, N) bf16;
 // seed one int32 on the device -> du (K, r), dv (r, N) fp32.  Scratch:
 // dv_part fp32 of ceil(K / 8) * r * N, du_part fp32 of ceil(N / 256) * K
 // * r.  Needs 1 <= r <= 64.  Returns cudaGetLastError().
-extern "C" int cara_wd_factor_grads(const void* dt, int parts, const void* u,
+extern "C" int cara_wd_factor_grads(const void* dt, const void* u,
                                     const void* v, const void* seed, void* du,
                                     void* dv, void* dv_part, void* du_part,
                                     int K, int N, int r, float inv,
                                     unsigned thr, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (r < 1 || r > 64 || parts < 1)
+  if (r < 1 || r > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   // Rows alone give K / 8 blocks; split the columns too until about two
   // blocks a SM run (each split adds one dU partial).
@@ -165,17 +160,13 @@ extern "C" int cara_wd_factor_grads(const void* dt, int parts, const void* u,
   float* dup = static_cast<float*>(du_part);
   float* dvp = static_cast<float*>(dv_part);
   if (r <= 8)
-    launch<8>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
-              stream);
+    launch<8>(grid, d, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr, stream);
   else if (r <= 16)
-    launch<16>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
-               stream);
+    launch<16>(grid, d, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr, stream);
   else if (r <= 32)
-    launch<32>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
-               stream);
+    launch<32>(grid, d, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr, stream);
   else
-    launch<64>(grid, d, parts, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr,
-               stream);
+    launch<64>(grid, d, uu, vv, sd, dup, dvp, K, N, r, cols, inv, thr, stream);
   const int rn = r * N;
   sum_parts_kernel<<<(rn + 255) / 256, 256, 0, stream>>>(
       dvp, static_cast<float*>(dv), kblocks, rn);

@@ -51,9 +51,9 @@ _SIGNATURES = {
     "cara_flash_attention": [_P] * 5 + [_S] + [_I] * 4 + [_F, _P],
     "cara_flash_attention_bwd": [_P] * 11 + [_S] + [_I] * 4 + [_F, _P],
     "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
-    "cara_wd_factor_grads": [_P, _I] + [_P] * 7 + [_I] * 3 + [_F, _U, _P],
-    "cara_rank_z": [_P] * 3 + [_I] * 4 + [_P],
-    "cara_grad_gemm": [_I, _I] + [_P] * 10 + [_I] * 6 + [_P],
+    "cara_wd_factor_grads": [_P] * 8 + [_I] * 3 + [_F, _U, _P],
+    "cara_rank_z": [_P] * 3 + [_I] * 3 + [_P],
+    "cara_grad_gemm": [_I, _I] + [_P] * 13 + [_I] * 7 + [_P],
     "cara_ln_rows": [_P] * 4 + [_I, _I, _F, _P],
     "cara_gate_rows": [_P] * 3 + [_I, _I, _P],
     "cara_ln_bwd_residual": [_P] * 5 + [_I, _I, _F, _P],

@@ -4,12 +4,16 @@
 
 These are the products and row passes inside the TPU kernels
 ``_attn_block_bwd_wd_kernel``, ``_mlp_bwd_wd_kernel``, ``_mlp_bwd_kernel``
-and ``_cp_dense_dx_kernel``; they carry no launch counters of their own
-(the wrappers count).  Every launcher takes bf16 CUDA tensors (fp32 where
+and ``_cp_dense_dx_kernel``.  The wrappers count their calls; the GEMM
+launcher also counts its launches by layout and epilogue
+(``LAUNCHES_NT_DGELU`` and so on), so that a run can show which products
+its path went through.  Every launcher takes bf16 CUDA tensors (fp32 where
 it says so), checks them and raises on what the kernel does not take.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,10 +21,22 @@ from cara_tpu_torch.ops.cuda import _build
 
 NN, NT, TN = 0, 1, 2
 EPI_F32, EPI_BF16, EPI_PRE_GELU, EPI_DGELU = 0, 1, 2, 3
+LAUNCHES_NN_BF16 = LAUNCHES_NN_PRE_GELU = 0
+LAUNCHES_NT_BF16 = LAUNCHES_NT_F32 = LAUNCHES_NT_DGELU = 0
+LAUNCHES_TN_F32 = 0
+_COUNTERS = {(NN, EPI_BF16): "LAUNCHES_NN_BF16",
+             (NN, EPI_PRE_GELU): "LAUNCHES_NN_PRE_GELU",
+             (NT, EPI_BF16): "LAUNCHES_NT_BF16",
+             (NT, EPI_F32): "LAUNCHES_NT_F32",
+             (NT, EPI_DGELU): "LAUNCHES_NT_DGELU",
+             (TN, EPI_F32): "LAUNCHES_TN_F32"}
 _GEMM_BM = 128
-# Blocks that fill the card: 132 SMs, two GEMM blocks each.
-_SLOTS = 264
-#: Width of the rank pre-pass output: the GEMMs' 64-deep rank k-step.
+_SMS = 132  # the H100's SMs
+# The cost of one more split's turn in a TN product's ordered sum (its
+# add waits for the one before it), against the whole product: fitted to
+# device times of the ViT-B TN shapes by splits on one H100.
+_TURN_COST = 0.011
+#: Width of the rank operand z (M, 64): the GEMMs' 64-deep rank k-step.
 RANK_W = 64
 
 
@@ -44,23 +60,46 @@ def _f32(name, key, t, dev):
                          f"on {dev}")
 
 
+_TURNS = {}
+
+
+def _turns(dev, n: int):
+    """Ordering counters (int32, zero) for the split TN products on the
+    current stream, at least ``n``: ``grad_gemm.cu`` sets each back to
+    zero as its product ends, so one zeroed buffer a stream serves every
+    launch in stream order."""
+    key = (dev.index, _build.stream_ptr(dev))
+    turns = _TURNS.get(key)
+    if turns is None or turns.numel() < n:
+        turns = torch.zeros((max(n, 4096),), device=dev, dtype=torch.int32)
+        _TURNS[key] = turns
+    return turns
+
+
 def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
-         splits: int = 1, a2=None, b2=None):
+         splits: int = 1, a2=None, b2=None, fold_v=None):
     """One ``grad_gemm.cu`` product; returns the epilogue's outputs.
 
     NN: a (M, K), b (K, N).  NT: a (M, K), b (N, K).  TN: a (K, M),
-    b (K, N) -> (splits, M, N) fp32 partial planes.  F32 -> c32;
+    b (K, N), the contraction split over ``splits`` blocks a tile whose
+    sums the kernel adds in split order.  F32 -> c32 (M, N);
     BF16 -> c16; PRE_GELU -> (pre fp32, gelu bf16), pre = acc + bias1 +
     bias2; DGELU (``aux`` the fp32 pre-activation) -> (dpre bf16,
     column partial sums (M/128, N) fp32).
 
-    ``a2`` (M, 64) with ``b2`` adds the rank step ``a2 @ b2`` to the
-    accumulators (NN, NT): NN b2 = V (r, N); NT b2 = U (N, r8) with r8 a
-    multiple of 8 (:func:`pad_cols8`); a delta scale rides ``b2``
-    (:func:`scaled`)."""
+    NN: ``a2`` (M, 64) with ``b2`` = V (r, N) adds the rank step ``a2 @
+    b2`` to the accumulators.  NT: ``fold_v`` V (r, K) with ``b2`` = U
+    (N, r8), r8 = r rounded up to 8 (:func:`pad_cols8`), folds the rank
+    operand into the product: the kernel accumulates z = a V^T in fp32
+    beside it, rounds z to bf16, adds z @ b2^T and returns gv = z (M, 64),
+    zero past r, after the epilogue's outputs.  A delta scale rides
+    ``b2`` (:func:`scaled`)."""
     dev = a.device
+    if (layout, epi) not in _COUNTERS:
+        raise ValueError(f"grad_gemm has no epilogue {epi} for layout "
+                         f"{layout}")
     _build.check_cuda_inputs("grad_gemm", dev, a=a, b=b, bias1=bias1,
-                             bias2=bias2, a2=a2, b2=b2)
+                             bias2=bias2, a2=a2, b2=b2, fold_v=fold_v)
     if layout == TN:
         k, m = a.shape
         n = b.shape[1]
@@ -80,20 +119,32 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     for key, t in (("bias1", bias1), ("bias2", bias2)):
         if t is not None and t.shape != (n,):
             raise ValueError(f"grad_gemm: {key} must be ({n},)")
-    r2 = ldb2 = 0
-    if a2 is not None:
-        r2 = b2.shape[0] if layout == NN else b2.shape[1]
-        ldb2 = b2.shape[1]
-        ok = (layout != TN and a2.shape == (m, RANK_W) and 1 <= r2 <= RANK_W
-              and (b2.shape == (r2, n) if layout == NN
-                   else b2.shape[0] == n and r2 % 8 == 0))
-        if not ok:
+    r2 = ldb2 = rfold = 0
+    gv = None
+    if fold_v is not None:
+        rfold = fold_v.shape[0]
+        if (layout != NT or a2 is not None or b2 is None
+                or fold_v.shape != (rfold, k) or not 1 <= rfold <= RANK_W
+                or b2.shape != (n, -(-rfold // 8) * 8)):
+            raise ValueError(f"grad_gemm folded rank step: v "
+                             f"{tuple(fold_v.shape)} b2 "
+                             f"{None if b2 is None else tuple(b2.shape)} "
+                             f"(layout {layout}, a2 "
+                             f"{'set' if a2 is not None else 'None'})")
+        r2 = ldb2 = b2.shape[1]
+        gv = torch.empty((m, RANK_W), device=dev, dtype=torch.bfloat16)
+    elif a2 is not None:
+        r2, ldb2 = b2.shape
+        if not (layout == NN and a2.shape == (m, RANK_W)
+                and 1 <= r2 <= RANK_W and b2.shape == (r2, n)):
             raise ValueError(f"grad_gemm rank step: a2 {tuple(a2.shape)} b2 "
                              f"{tuple(b2.shape)} (layout {layout})")
     c32 = c16 = colpart = None
     if epi == EPI_F32:
-        c32 = torch.empty((splits, m, n) if layout == TN else (m, n),
-                          device=dev, dtype=torch.float32)
+        c32 = torch.empty((m, n), device=dev, dtype=torch.float32)
+    turn = None
+    if splits > 1:
+        turn = _turns(dev, -(-m // _GEMM_BM) * -(-n // _GEMM_BM))
     if epi in (EPI_BF16, EPI_PRE_GELU, EPI_DGELU):
         c16 = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
     if epi == EPI_PRE_GELU:
@@ -109,42 +160,51 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
         layout, epi, a.data_ptr(), b.data_ptr(), _build.ptr(c32),
         _build.ptr(c16), _build.ptr(bias1), _build.ptr(bias2),
         _build.ptr(aux), _build.ptr(colpart), _build.ptr(a2),
-        _build.ptr(b2), m, n, k, splits, r2, ldb2, _build.stream_ptr(dev))
+        _build.ptr(b2), _build.ptr(fold_v), _build.ptr(gv), _build.ptr(turn),
+        m, n, k, splits, r2, ldb2, rfold, _build.stream_ptr(dev))
     _build.check(code, "grad_gemm")
-    if epi == EPI_F32:
-        return c32
-    if epi == EPI_BF16:
-        return c16
-    if epi == EPI_PRE_GELU:
-        return c32, c16
-    return c16, colpart
+    globals()[_COUNTERS[layout, epi]] += 1
+    outs = {EPI_F32: (c32,), EPI_BF16: (c16,), EPI_PRE_GELU: (c32, c16),
+            EPI_DGELU: (c16, colpart)}[epi]
+    if gv is not None:
+        outs += (gv,)
+    return outs[0] if len(outs) == 1 else outs
 
 
+@functools.lru_cache(maxsize=256)
 def dt_splits(m: int, n: int, k: int) -> int:
-    """Contraction splits of a TN product (output (m, n), contraction k)
-    so that about two blocks per SM run: more splits for small planes
-    (up to 32 for a rank-space product, whose few output tiles must still
-    fill the card while each block streams its slice of the rows)."""
-    tiles = -(-m // _GEMM_BM) * -(-n // _GEMM_BM)
-    return max(1, min(32, _SLOTS // tiles, k // 64))
+    """Contraction splits s (1..32) of a TN F32 product (output (m, n),
+    contraction k): the s that minimises waves(s) / s + s * (plane / read
+    + turn), the time of the product's block waves (``grad_gemm.cu`` runs
+    m, n >= 256 as 256-wide blocks, one an SM, other outputs as 128-wide
+    blocks, two an SM) plus, for each split, its fp32 add of the output (4
+    m n bytes against the operands' 2 k (m + n)) and its turn in the
+    ordered sum.  At ViT-B (M = 12608): 2-3 for the dT products, 6-8 for
+    the rank-space ones, whose few output tiles must spread the reading
+    of the rows over the card."""
+    width, slots = (256, _SMS) if min(m, n) >= 256 else (128, 2 * _SMS)
+    tiles = -(-m // _GEMM_BM) * -(-n // width)
+    plane = 4 * m * n / (2 * k * (m + n))
+
+    def cost(s):
+        return -(-tiles * s // slots) / s + s * (plane + _TURN_COST)
+
+    return min(range(1, max(1, min(32, k // 64)) + 1), key=cost)
 
 
-def rank_z(x2, u, trans: bool = False):
-    """z = bf16(x2 @ U) (M, 64), zero past the rank, for x2 (M, K): U is
-    (K, r), or (r, K) with ``trans`` (then z = bf16(x2 @ U^T), the ``g
-    V^T`` of the backward).  The pre-pass of ``csrc/cp_site.cu``."""
+def rank_z(x2, u):
+    """z = bf16(x2 @ U) (M, 64), zero past the rank, for x2 (M, K) and U
+    (K, r).  The pre-pass of ``csrc/cp_site.cu``."""
     m, k = x2.shape
     dev = x2.device
     _build.check_cuda_inputs("rank_z", dev, x=x2, u=u)
-    r = u.shape[0] if trans else u.shape[1]
-    if (u.shape != ((r, k) if trans else (k, r)) or not 1 <= r <= RANK_W
-            or k % 64):
+    r = u.shape[1]
+    if u.shape != (k, r) or not 1 <= r <= RANK_W or k % 64:
         raise ValueError(f"rank_z needs K % 64 == 0 and rank 1..64: x "
-                         f"{tuple(x2.shape)} u {tuple(u.shape)} "
-                         f"(trans={trans})")
+                         f"{tuple(x2.shape)} u {tuple(u.shape)}")
     z = torch.empty((m, RANK_W), device=dev, dtype=torch.bfloat16)
     code = _build.lib().cara_rank_z(x2.data_ptr(), u.data_ptr(),
-                                    z.data_ptr(), m, k, r, int(trans),
+                                    z.data_ptr(), m, k, r,
                                     _build.stream_ptr(dev))
     _build.check(code, "rank_z")
     return z
@@ -170,15 +230,11 @@ def pad_cols8(u):
 
 def factor_grad(a, b):
     """fp32 ``a^T b`` over the M token rows for a (M, P), b (M, Q), one of
-    them 64 wide: a TN product split over M into partial planes, summed
-    in a fixed order (no atomics).  Reads each operand once."""
+    them 64 wide: a TN product split over M, the splits summed in a fixed
+    order (no unordered atomics).  Reads each operand once."""
     mrows, p = a.shape
     q = b.shape[1]
-    splits = dt_splits(p, q, mrows)
-    parts = gemm(TN, EPI_F32, a, b, splits=splits)
-    if splits == 1:
-        return parts[0]
-    return colsum(parts.reshape(splits, -1)).reshape(p, q)
+    return gemm(TN, EPI_F32, a, b, splits=dt_splits(p, q, mrows))
 
 
 def ln_rows(x2, ls, lb, eps: float):

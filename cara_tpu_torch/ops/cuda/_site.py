@@ -29,8 +29,10 @@ def site_plain(xa, w, b, u, v, cb: Optional[torch.Tensor], s: float):
 
 
 def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
-              dpm_rows=None, dact_g=None):
-    """Launch the site kernel on 2-D bf16 ``x2`` (M, K) -> (M, N).
+              dpm_rows=None, dact_g=None, return_z=False):
+    """Launch the site kernel on 2-D bf16 ``x2`` (M, K) -> (M, N), and
+    with ``return_z`` its rank operand z = bf16(pro(x) U) (M, 64), zero
+    past the rank (the backward's factor gradients read it).
 
     ``ln`` = (scale, bias, eps) or None; ``res`` (M, N) and ``dpm_rows``
     (M,) fp32 together select the residual epilogue; ``dact_g`` (M, N)
@@ -77,4 +79,4 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
         2 if dact_g is not None else int(gelu), int(res is not None),
         float(s), float(eps), _build.stream_ptr(dev))
     _build.check(code, "cp_site")
-    return out
+    return (out, z) if return_z else out

@@ -150,11 +150,11 @@ def _attn_block_bwd_cuda(g, x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
     """The backward on CUDA tensors, as launches (M = B*N rows):
 
     ``ln_rows`` xa = LN1(x); ``qkv_attention`` o from the kept qkv;
-    ``gate_rows`` g2 = bf16(g * dpm); row 12's dx (rank pre-pass gv2 =
-    bf16(g2 V2^T), NT do = bf16(g2 Wp^T + s gv2 U2^T)); the factor
+    ``gate_rows`` g2 = bf16(g * dpm); row 12's dx (NT do = bf16(g2 Wp^T
+    + s gv2 U2^T) with gv2 = bf16(g2 V2^T) folded in); the factor
     products du2 = s o^T gv2, z2 = bf16(o U2), dv2 = s z2^T g2 and
-    ``colsum`` dbp; ``qkv_attention_bwd`` dqkv; the rank pre-pass gv1 =
-    bf16(dqkv V1^T) and NT dxa = dqkv Wq^T + s gv1 U1^T (fp32);
+    ``colsum`` dbp; ``qkv_attention_bwd`` dqkv; NT dxa = dqkv Wq^T + s gv1
+    U1^T (fp32) with gv1 = bf16(dqkv V1^T) folded in;
     ``ln_bwd_residual`` dx = bf16(g + LN1'(dxa)); du1 = s xa^T gv1, z1 =
     bf16(xa U1), dv1 = s z1^T dqkv and ``colsum`` dbq."""
     bsz, n, e = x.shape
@@ -168,9 +168,8 @@ def _attn_block_bwd_cuda(g, x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
     du2, dv2, dbp = _factor_grads_cuda(o2, g2, gv2, u2, s)
     dqkv = attention_bwd_cuda(qkv, do.reshape(bsz, n, e), heads, sm_scale,
                               n_real).reshape(m, -1)
-    gv1 = _bwd.rank_z(dqkv, v1, trans=True)
-    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dqkv, wq, a2=gv1,
-                    b2=_bwd.pad_cols8(_bwd.scaled(u1, s)))
+    dxa, gv1 = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dqkv, wq,
+                         b2=_bwd.pad_cols8(_bwd.scaled(u1, s)), fold_v=v1)
     dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
     du1, dv1, dbq = _factor_grads_cuda(xa, dqkv, gv1, u1, s)
     return dx.reshape(bsz, n, e), dbq, du1, dv1, dbp, du2, dv2

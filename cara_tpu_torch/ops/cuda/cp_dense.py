@@ -20,20 +20,22 @@ megakernel off):
 * dx, TPU row 12 (``_cp_dense_dx_raw`` / ``_cp_dense_dx_kernel``):
   ``dx = g W^T + s bf16(g V^T) U^T``, also emitting ``gv = bf16(g V^T)``,
   with the LayerNorm input backward over the full row for
-  ``cp_dense_ln``.  Launches: the rank pre-pass of ``csrc/cp_site.cu``
-  writes gv 64 wide; ``csrc/grad_gemm.cu``'s NT product with one more
-  64-deep k-step (A = gv, B = U) on the same accumulators gives dx (bf16)
-  or, for the LN site, the fp32 d(LN(x)) that ``csrc/block_rows.cu``'s
-  LayerNorm pass without residual turns into dx.  The rank term stays in
-  rank space: folding it into a dense ``W + s U V`` would round a 1e-3
-  delta at W's 3e-2 scale.  What bounds it: at ViT-B the NT product is
-  15-45 GFLOP against 50-80 MB, so the tensor cores; the first version is
-  the ``mma.sync`` GEMM of ``grad_gemm.cu``.
+  ``cp_dense_ln``.  Launches: ``csrc/grad_gemm.cu``'s NT product with
+  its folded rank step, as the TPU kernel does it: gv accumulated in fp32
+  over the same k-tiles as g W^T, rounded to bf16 and written 64 wide,
+  then one more 64-deep k-step (A = gv, B = U) on the same accumulators,
+  gives dx (bf16) or, for the LN site, the fp32 d(LN(x)) that
+  ``csrc/block_rows.cu``'s LayerNorm pass without residual turns into dx.
+  The rank term stays in rank space: folding it into a dense ``W + s U
+  V`` would round a 1e-3 delta at W's 3e-2 scale.  What bounds it: at
+  ViT-B the NT product is 15-45 GFLOP against 50-80 MB, so the tensor
+  cores (``grad_gemm.cu``'s ``wgmma`` + TMA core).
 
 The factor and bias gradients (``du = s xa^T gv``, ``z = xa U``,
 ``dv = s z^T g``, ``db``) sit outside the Pallas kernels in JAX (XLA
 dot_generals); here they are ``grad_gemm.cu``'s TN product split over
-the token rows (``_bwd.factor_grad``) and column sums.  The backbone W,
+the token rows (``_bwd.factor_grad``) and column sums, z the one the
+forward's site kernel computed (kept for the backward).  The backbone W,
 b and the LayerNorm are frozen (no gradient), as in ``_bwd_rule`` /
 ``_bwd_ln_rule``; the LN input is recomputed in the backward.
 
@@ -175,13 +177,12 @@ def _check_site(name, t, width, w, u, v, kernel: bool):
 
 def cp_dense_dx_cuda(g2, w, u, v, s: float, ln=None, x2=None):
     """Row 12's launches on CUDA tensors: (dx (M, K) bf16, gv (M, 64)
-    bf16, zero past the rank)."""
-    gv = _bwd.rank_z(g2, v, trans=True)
+    bf16, zero past the rank).  gv = bf16(g V^T) comes out of the dx
+    product (its folded rank step), as the TPU kernel emits it."""
     u8 = _bwd.pad_cols8(_bwd.scaled(u, s))
     if ln is None:
-        dx = _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, w, a2=gv, b2=u8)
-        return dx, gv
-    dxl = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, g2, w, a2=gv, b2=u8)
+        return _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, w, b2=u8, fold_v=v)
+    dxl, gv = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, g2, w, b2=u8, fold_v=v)
     return _bwd.ln_bwd_residual(x2, dxl, ln[0], None, ln[1]), gv
 
 
@@ -215,10 +216,12 @@ def _factor_grads_plain(xa, g2, gv, u, s):
     return du, dv, g2.float().sum(0)
 
 
-def _factor_grads_cuda(xa, g2, gv, u, s):
+def _factor_grads_cuda(xa, g2, gv, u, s, z=None):
+    """du, dv, db from xa, g2, gv and z = bf16(xa U) (M, 64), which the
+    rank pre-pass computes when the forward did not keep it."""
     r = u.shape[1]
     du = _bwd.factor_grad(xa, gv)[:, :r]
-    dv = _bwd.factor_grad(_bwd.rank_z(xa, u), g2)[:r]
+    dv = _bwd.factor_grad(_bwd.rank_z(xa, u) if z is None else z, g2)[:r]
     if s != 1.0:
         du, dv = s * du, s * dv
     return du, dv, _bwd.colsum(g2)
@@ -234,23 +237,24 @@ class _CpDense(torch.autograd.Function):
         lead, k = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, k)
         ln = None if ln_scale is None else (ln_scale, ln_bias, ln_eps)
+        z = None
         if plain:
             out = cp_dense_plain(x2, w, b, u, v, cb, s, ln, act)
         else:
             x2 = x2.contiguous()
-            out = site_cuda(x2, w, b, u, v, cb, s, ln=ln,
-                            gelu=act == "gelu")
+            out, z = site_cuda(x2, w, b, u, v, cb, s, ln=ln,
+                               gelu=act == "gelu", return_z=True)
             if act is None:
                 LAUNCHES += 1
             else:
                 ACT_LAUNCHES += 1
-        ctx.save_for_backward(x2, w, b, u, v, cb, ln_scale, ln_bias)
+        ctx.save_for_backward(x2, w, b, u, v, cb, ln_scale, ln_bias, z)
         ctx.cfg = (lead, s, ln_eps, act, plain)
         return out.reshape(*lead, w.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        x2, w, b, u, v, cb, ls, lb = ctx.saved_tensors
+        x2, w, b, u, v, cb, ls, lb, z = ctx.saved_tensors
         lead, s, eps, act, plain = ctx.cfg
         g2 = g.reshape(-1, w.shape[1]).contiguous()
         if act is not None:  # g := dpre, the pre-activation recomputed
@@ -263,7 +267,7 @@ class _CpDense(torch.autograd.Function):
             du, dv, db = _factor_grads_plain(xa, g2, gv, u, s)
         else:
             xa = x2 if ls is None else _bwd.ln_rows(x2, ls, lb, eps)
-            du, dv, db = _factor_grads_cuda(xa, g2, gv, u, s)
+            du, dv, db = _factor_grads_cuda(xa, g2, gv, u, s, z)
         dcb = (s * db).to(g.dtype) if cb is not None else None
         return (dx.reshape(*lead, w.shape[0]), None, None, du.to(u.dtype),
                 dv.to(v.dtype), dcb, None, None, None, None, None, None)

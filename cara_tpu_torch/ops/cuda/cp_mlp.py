@@ -33,6 +33,7 @@ rank-space factor gradients over its sequential grid; here the same
 recompute (no save-pre mode) and the rank-space products are launches of
 ``csrc/block_rows.cu``, the rank pre-pass of ``csrc/cp_site.cu`` and
 ``csrc/grad_gemm.cu`` (its rank k-step keeps every delta in rank space,
+the two g V^T operands folded into the NT products that read g,
 its TN split sums the factor gradients over the token rows in a fixed
 order); see :func:`_mlp_block_bwd_cuda`.  What bounds it: three 59.5
 GFLOP products at ViT-B, so the tensor cores.
@@ -135,11 +136,11 @@ def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
 
     ``ln_rows`` xa = LN2(x); rank pre-pass z1 = bf16(xa U1); NN
     ``grad_gemm`` + rank step pre = xa W1 + b1 + s (z1 V1 + cb1) (fp32)
-    and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g dpm); pre-pass
-    gv2 = bf16(g2 V2^T); NT + rank step dpre = (g2 W2^T + s gv2 U2^T)
-    gelu'(pre), bf16, with its column sums; ``colsum`` ds1, ds2; pre-pass
-    gv1 = bf16(dpre V1^T); NT + rank step dxa = dpre W1^T + s gv1 U1^T
-    (fp32); ``ln_bwd_residual`` dx; pre-pass z2 = bf16(h U2); the four
+    and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g dpm); NT + folded
+    rank step dpre = (g2 W2^T + s gv2 U2^T) gelu'(pre), bf16, with its
+    column sums and gv2 = bf16(g2 V2^T); ``colsum`` ds1, ds2; NT + folded
+    rank step dxa = dpre W1^T + s gv1 U1^T (fp32) and gv1 = bf16(dpre
+    V1^T); ``ln_bwd_residual`` dx; pre-pass z2 = bf16(h U2); the four
     split TN factor products du1 = xa^T gv1, dv1 = z1^T dpre,
     du2 = h^T gv2, dv2 = z2^T g2 (fp32, summed over all M rows)."""
     if act != "gelu":
@@ -155,16 +156,14 @@ def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
                        bias2=_bwd.scaled(cb1, s), a2=z1,
                        b2=_bwd.scaled(v1, s))
     g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, lead))
-    gv2 = _bwd.rank_z(g2, v2, trans=True)
-    dprec, colpart = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU, g2, w2, aux=pre,
-                               a2=gv2,
-                               b2=_bwd.pad_cols8(_bwd.scaled(u2, s)))
+    dprec, colpart, gv2 = _bwd.gemm(
+        _bwd.NT, _bwd.EPI_DGELU, g2, w2, aux=pre,
+        b2=_bwd.pad_cols8(_bwd.scaled(u2, s)), fold_v=v2)
     del pre
     ds1 = _bwd.colsum(colpart)
     ds2 = _bwd.colsum(g2)
-    gv1 = _bwd.rank_z(dprec, v1, trans=True)
-    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1, a2=gv1,
-                    b2=_bwd.pad_cols8(_bwd.scaled(u1, s)))
+    dxa, gv1 = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1,
+                         b2=_bwd.pad_cols8(_bwd.scaled(u1, s)), fold_v=v1)
     dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
     del dxa
     z2 = _bwd.rank_z(h, u2)

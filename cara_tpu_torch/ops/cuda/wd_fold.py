@@ -17,12 +17,13 @@ stored: the forward fold and the backward finish regenerate it.
 * :func:`cp_wd_factor_grads` is TPU row 15, ``_cp_wd_factor_grads``
   (``cara_tpu/ops/pallas/cp_dense.py``), the factor gradients of one
   split element-dropout site (``ops/cuda/cp_dense.py`` ``cp_dense_wd``):
-  dT = x^T g as ``csrc/grad_gemm.cu``'s TN product split over the token
-  rows into fp32 partial planes, then the masked finish on them.  The
-  TPU kernel holds the whole (K, N) fp32 dT in VMEM over a sequential
-  grid; on the H100 the planes make the round trip through device memory
-  (K N 4 B each, 7 MB for the qkv site), and the product is bound by the
-  tensor cores (2 M K N = 131 GFLOP for qkv at M = 36928 tokens).
+  dT = x^T g as ``csrc/grad_gemm.cu``'s TN product, split over the token
+  rows and the splits added into one fp32 dT in order, then the masked
+  finish on it.  The TPU kernel holds the whole (K, N) fp32 dT in VMEM
+  over a sequential grid; on the H100 it makes the round trip through
+  device memory (K N 4 B, 7 MB for the qkv site), and the product is
+  bound by the tensor cores (2 M K N = 131 GFLOP for qkv at M = 36928
+  tokens).
 
 Seeds are int32 tensors of one element on the compute device (the kernels
 read them there, so drawing them costs no host sync).  A CUDA tensor
@@ -146,20 +147,19 @@ def masked_factor_grads_plain(dt, u, v, seed, s: float, rate: float,
     return dtc @ v.float().t(), u.float().t() @ dtc
 
 
-def masked_factor_grads_cuda(dt_parts, u, v, seed, s: float, rate: float):
-    """Launch ``csrc/wd_factor_grads.cu`` on ``dt_parts`` (S, K, N) fp32,
-    the split partial planes of dT summed in order (no launch count: the
-    block backward wrappers call this directly)."""
-    parts, k, n = dt_parts.shape
+def masked_factor_grads_cuda(dt, u, v, seed, s: float, rate: float):
+    """Launch ``csrc/wd_factor_grads.cu`` on ``dt`` (K, N) fp32 (no
+    launch count: the block backward wrappers call this directly)."""
+    k, n = dt.shape
     r = u.shape[1]
-    dev = dt_parts.device
+    dev = dt.device
     _build.check_cuda_inputs("wd_factor_grads", dev, u=u, v=v)
     _check_seed("wd_factor_grads", seed, dev)
     _check_rank("wd_factor_grads", r)
-    if (dt_parts.dtype != torch.float32 or not dt_parts.is_contiguous()
+    if (dt.dtype != torch.float32 or not dt.is_contiguous()
             or u.shape != (k, r) or v.shape != (r, n)):
-        raise ValueError("wd_factor_grads wants contiguous fp32 (S, K, N) "
-                         "dT parts, u (K, r) and v (r, N)")
+        raise ValueError("wd_factor_grads wants contiguous fp32 (K, N) dT, "
+                         "u (K, r) and v (r, N)")
     du = torch.empty((k, r), device=dev, dtype=torch.float32)
     dv = torch.empty((r, n), device=dev, dtype=torch.float32)
     dv_part = torch.empty(((k + 7) // 8, r, n), device=dev,
@@ -167,7 +167,7 @@ def masked_factor_grads_cuda(dt_parts, u, v, seed, s: float, rate: float):
     du_part = torch.empty(((n + 255) // 256, k, r), device=dev,
                           dtype=torch.float32)
     code = _build.lib().cara_wd_factor_grads(
-        dt_parts.data_ptr(), parts, u.data_ptr(), v.data_ptr(),
+        dt.data_ptr(), u.data_ptr(), v.data_ptr(),
         seed.data_ptr(), du.data_ptr(), dv.data_ptr(), dv_part.data_ptr(),
         du_part.data_ptr(), k, n, r, float(s / (1.0 - rate)),
         keep_threshold(rate), _build.stream_ptr(dev))
@@ -199,8 +199,8 @@ def cp_wd_factor_grads(xa, g2, u, v, seed, s: float, rate: float):
         return cp_wd_factor_grads_plain(xa, g2, u, v, seed, s, rate)
     if xa.device.type != "cuda":
         raise ValueError(f"no kernel for device {xa.device}")
-    parts = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, g2,
-                      splits=_bwd.dt_splits(k, n, m))
-    out = masked_factor_grads_cuda(parts, u, v, seed, s, rate)
+    dt = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, g2,
+                   splits=_bwd.dt_splits(k, n, m))
+    out = masked_factor_grads_cuda(dt, u, v, seed, s, rate)
     FACTOR_LAUNCHES += 1
     return out

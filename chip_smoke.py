@@ -111,7 +111,16 @@ fatal on failure:
    PNG requests over HTTP (``/stats`` counts them; its row 18 counter
    is 48 for each forward it ran); then the unmerged ViT-B forward with
    every block through row 19 (once a layer), its logits within 5 % of
-   the default route's.
+   the default route's;
+12. the GEMM core of the block backwards alone (``csrc/grad_gemm.cu``, run
+   with phase 3's): row 11's five products at B 64, N 197 (NN with the
+   PRE_GELU epilogue, NT with DGELU, NT dxa, the two TN dT products)
+   against their fp32 plain versions, timed beside ``torch.matmul`` on
+   the same bf16 operands (launches: the element training phase); then
+   determinism: the backwards of rows 2 (N 197, 512), 16 (N 577) and 17
+   (N 197, 577) called twice at B 64 give dq, dk and dv bit for bit, and
+   two runs of two rank steps of ViT-B at 224 px from one state and seed
+   end with every trainable leaf bit for bit.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -164,7 +173,7 @@ from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import quant as quant_lib
 from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.vit import vit_forward
-from cara_tpu_torch.ops.cuda import _build, wd_fold
+from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
 from cara_tpu_torch.ops.cuda import block_pair as pair_mod
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
@@ -173,7 +182,7 @@ from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
-from cara_tpu_torch.ops.layers import layer_norm
+from cara_tpu_torch.ops.layers import activation_grad, layer_norm
 from cara_tpu_torch.server import InferenceServer
 from cara_tpu_torch.serving import Predictor
 from cara_tpu_torch.train import steps as steps_lib
@@ -313,7 +322,28 @@ KERNELS = {
     "block_pair_fwd": (
         pair_mod, "LAUNCHES", "cara_tpu_torch/csrc/block_pair.cu",
         "cara_tpu/ops/pallas/block_pair.py:88"),
+    # The GEMM core of the block backwards alone, at row 11's five
+    # products (M = 12608, E 768, hidden 3072; launches: the element
+    # training phase, every launch of that layout and epilogue, the
+    # attention block's included).
+    "grad_gemm_nn_pre_gelu": (
+        _bwd, "LAUNCHES_NN_PRE_GELU", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "grad_gemm_nt_dgelu": (
+        _bwd, "LAUNCHES_NT_DGELU", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "grad_gemm_nt_dxa": (
+        _bwd, "LAUNCHES_NT_F32", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "grad_gemm_tn_dt1": (
+        _bwd, "LAUNCHES_TN_F32", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "grad_gemm_tn_dt2": (
+        _bwd, "LAUNCHES_TN_F32", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
 }
+GEMM_PRODUCTS = ("grad_gemm_nn_pre_gelu", "grad_gemm_nt_dgelu",
+                 "grad_gemm_nt_dxa", "grad_gemm_tn_dt1", "grad_gemm_tn_dt2")
 GELU_KERNELS = ("cp_dense_gelu", "cp_dense_dact", "cp_dense_wd_gelu",
                 "cp_dense_wd_dact")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
@@ -412,7 +442,14 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "fused_qkv_attention_proj": (2e-2, 2e-2),
               "cp_attn_block_bwd": (5e-2, 5e-2),
               "int8_dense": (2e-2, 2e-2),
-              "block_pair_fwd": (2e-2, 2e-2)}
+              "block_pair_fwd": (2e-2, 2e-2),
+              # one rounding to bf16 (h, dpre); fp32 outputs from the same
+              # bf16 operands differ only in the order of fp32 additions
+              "grad_gemm_nn_pre_gelu": (2e-2, 2e-2),
+              "grad_gemm_nt_dgelu": (2e-2, 2e-2),
+              "grad_gemm_nt_dxa": (1e-2, 1e-2),
+              "grad_gemm_tn_dt1": (1e-2, 1e-2),
+              "grad_gemm_tn_dt2": (1e-2, 1e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -1031,6 +1068,105 @@ def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
     return out
 
 
+def gemm_operands(inp) -> dict:
+    """Row 11's products' operands at ``inp``'s shapes (the MLP block of
+    ``inp["mlp"]``): xa = bf16(LN2(x)), the fp32 pre-activation, h =
+    bf16(gelu(pre)), g2 = the cotangent, dpre = bf16((g2 W2^T)
+    gelu'(pre)), and W1, b1, cb1, W2."""
+    m = inp["mlp"]
+    e = inp["e"]
+    bf = torch.bfloat16
+    xa = layer_norm(m["x"].reshape(-1, e).float(), m["ln_scale"].float(),
+                    m["ln_bias"].float(), 1e-6).to(bf)
+    pre = (xa.float() @ m["w1"].float() + m["b1"].float()
+           + m["cb1"].float())
+    g2 = inp["g_mlp"].reshape(-1, e)
+    dpre = ((g2.float() @ m["w2"].float().t())
+            * activation_grad(pre, "gelu")).to(bf)
+    return dict(xa=xa, pre=pre, h=F.gelu(pre).to(bf), g2=g2, dpre=dpre,
+                w1=m["w1"], b1=m["b1"], cb1=m["cb1"], w2=m["w2"])
+
+
+def gemm_kernel_calls(inp, o):
+    """:func:`kernel_calls` for ``GEMM_PRODUCTS`` on the operands ``o``
+    (:func:`gemm_operands`): ``_bwd.gemm`` against the same product and
+    epilogue in PyTorch, in bf16 (plain) and fp32; the DGELU column sums
+    per 128-row block as the kernel writes them.  With
+    :func:`gemm_library_calls`."""
+    e, hid = o["w1"].shape
+    rows = o["xa"].shape[0]
+    blocks = -(-rows // 128)
+
+    def cast(dtype):
+        return {k: v.to(dtype) if v.dtype == torch.bfloat16 else v
+                for k, v in o.items()}
+
+    def pre_gelu(t):
+        pre = (t["xa"] @ t["w1"]).float() + t["b1"].float() + t["cb1"].float()
+        return {"pre": pre, "out": F.gelu(pre).to(t["xa"].dtype)}
+
+    def dgelu(t):
+        dpre = (t["g2"] @ t["w2"].t()).float() * activation_grad(t["pre"],
+                                                                 "gelu")
+        pad = F.pad(dpre, (0, 0, 0, blocks * 128 - rows))
+        return {"out": dpre.to(t["g2"].dtype),
+                "colpart": pad.reshape(blocks, 128, hid).sum(1)}
+
+    def tn(a, b):
+        return {"out": _bwd.gemm(_bwd.TN, _bwd.EPI_F32, a, b,
+                                 splits=_bwd.dt_splits(a.shape[1],
+                                                       b.shape[1], rows))}
+
+    plain = {
+        "grad_gemm_nn_pre_gelu": pre_gelu,
+        "grad_gemm_nt_dgelu": dgelu,
+        "grad_gemm_nt_dxa": lambda t: {
+            "out": (t["dpre"] @ t["w1"].t()).float()},
+        "grad_gemm_tn_dt1": lambda t: {
+            "out": (t["xa"].t() @ t["dpre"]).float()},
+        "grad_gemm_tn_dt2": lambda t: {"out": (t["h"].t() @ t["g2"]).float()},
+    }
+    kernel = {
+        "grad_gemm_nn_pre_gelu": lambda: dict(zip(("pre", "out"), _bwd.gemm(
+            _bwd.NN, _bwd.EPI_PRE_GELU, o["xa"], o["w1"], bias1=o["b1"],
+            bias2=o["cb1"]))),
+        "grad_gemm_nt_dgelu": lambda: dict(zip(("out", "colpart"), _bwd.gemm(
+            _bwd.NT, _bwd.EPI_DGELU, o["g2"], o["w2"], aux=o["pre"]))),
+        "grad_gemm_nt_dxa": lambda: {"out": _bwd.gemm(
+            _bwd.NT, _bwd.EPI_F32, o["dpre"], o["w1"])},
+        "grad_gemm_tn_dt1": lambda: tn(o["xa"], o["dpre"]),
+        "grad_gemm_tn_dt2": lambda: tn(o["h"], o["g2"]),
+    }
+    bf16, f32 = cast(torch.bfloat16), cast(torch.float32)
+    return {name: (kernel[name], functools.partial(fn, bf16),
+                   functools.partial(fn, f32))
+            for name, fn in plain.items()}
+
+
+def gemm_library_calls(o) -> dict:
+    """One ``torch.matmul`` on the same bf16 operands for each of
+    ``GEMM_PRODUCTS`` (the product without its epilogue): a yardstick,
+    timed only."""
+    return {
+        "grad_gemm_nn_pre_gelu": lambda: torch.matmul(o["xa"], o["w1"]),
+        "grad_gemm_nt_dgelu": lambda: torch.matmul(o["g2"], o["w2"].t()),
+        "grad_gemm_nt_dxa": lambda: torch.matmul(o["dpre"], o["w1"].t()),
+        "grad_gemm_tn_dt1": lambda: torch.matmul(o["xa"].t(), o["dpre"]),
+        "grad_gemm_tn_dt2": lambda: torch.matmul(o["h"].t(), o["g2"]),
+    }
+
+
+def gemm_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """``GEMM_PRODUCTS`` at ``inp``'s shapes, each against its fp32 plain
+    version, timed beside ``torch.matmul``."""
+    o = gemm_operands(inp)
+    e, hid = o["w1"].shape
+    print(f"[kernel] grad_gemm.cu alone at row 11's products: M "
+          f"{o['xa'].shape[0]}, E {e}, hidden {hid}:", flush=True)
+    return check_entries(dev, inp, gemm_kernel_calls(inp, o), timed,
+                         library=gemm_library_calls(o) if timed else {})
+
+
 def kernel_work(inp) -> dict:
     """name -> (operations, bytes) of each entry's call at these inputs:
     the products the function needs (a backward recomputes what its
@@ -1079,7 +1215,19 @@ def kernel_work(inp) -> dict:
     # z1, z1 V1, gv2, gv2 U2^T, gv1, gv1 U1^T, z2 and the four factor
     # products of the MLP backward: 5 of width E, 6 of width hidden
     mlp_rank = 2 * rows * r * (5 * e + 6 * hid)
+    # row 11's products alone: each 2 M E hidden operations; bf16 operands
+    # read, outputs written (fp32 pre, dxa and dT; the DGELU column sums
+    # one fp32 row per 128-row block)
+    gemm = 2 * rows * e * hid
+    w_bytes = e * hid * 2
     return {
+        "grad_gemm_nn_pre_gelu": (gemm, act + w_bytes + 4 * hid
+                                  + rows * hid * 6),
+        "grad_gemm_nt_dgelu": (gemm, act + w_bytes + rows * hid * 6
+                               + -(-rows // 128) * hid * 4),
+        "grad_gemm_nt_dxa": (gemm, hid_act + w_bytes + rows * e * 4),
+        "grad_gemm_tn_dt1": (gemm, act + hid_act + e * hid * 4),
+        "grad_gemm_tn_dt2": (gemm, hid_act + act + e * hid * 4),
         "fused_qkv_attention": (attn, qkv_act + act),
         "cp_attn_block": (site(e, 3 * e) + attn + site(e, e),
                           2 * act + attn_w),
@@ -1155,6 +1303,81 @@ def kernel_work(inp) -> dict:
             qkv_act + 3 * act + attn_w + factor(e, 3 * e) + factor(e, e)
             + 4 * 5 * e),
     }
+
+
+# The tiled attention backward's entries held for bitwise determinism at
+# the smoke's batch: (entry, N).
+DETERMINISM_ROWS = (("fused_qkv_attention_bwd", 197),
+                    ("fused_qkv_attention_bwd", 512),
+                    ("blockwise_qkv_attention_bwd", 577),
+                    ("flash_attention_bwd", 197), ("flash_attention_bwd", 577))
+
+
+def attention_bwd_call(name, inp):
+    """The kernel call of an attention backward entry (rows 2, 16, 17) on
+    ``inp``'s qkv and cotangent: -> dict of dq, dk, dv."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    b, e = inp["b"], inp["e"]
+    if name == "fused_qkv_attention_bwd":
+        return row2_bwd_calls(inp)[0]
+    if name == "blockwise_qkv_attention_bwd":
+        call = _grad_call(
+            lambda t: bwa_mod.blockwise_qkv_attention(t["qkv"], h, sm, n),
+            {"qkv": inp["qkv"]}, ("qkv",), inp["g_attn"], torch.bfloat16)
+        return lambda: dict(zip(("dq", "dk", "dv"),
+                                call()["qkv"].chunk(3, dim=-1)))
+    qkv = inp["qkv"].detach().requires_grad_(True)
+    q, k, v = (t.transpose(1, 2)
+               for t in qkv.reshape(b, inp["n"], 3, h, e // h).unbind(2))
+    out = flash_mod.flash_attention(q, k, v, sm)
+    g = inp["g_attn"].reshape(b, inp["n"], h, e // h).transpose(1, 2)
+    return lambda: dict(zip(("dq", "dk", "dv"), torch.autograd.grad(
+        out, (q, k, v), g, retain_graph=True)))
+
+
+def determinism_phase(dev, b: int = 64, e: int = 768, heads: int = 12,
+                      steps: int = 2, batch: int = 64,
+                      model: str = MODEL) -> None:
+    """Bitwise determinism: each of ``DETERMINISM_ROWS`` called twice on
+    the same inputs at batch ``b`` gives dq, dk and dv bit for bit (dq's
+    fp32 sum is taken in key-tile order); then two runs of ``steps`` rank
+    steps of ViT-B at 224 px from the same state and seed end with every
+    trainable leaf bit for bit the same.  Fails the run on any
+    difference."""
+    for name, n in DETERMINISM_ROWS:
+        inp = kernel_inputs(dev, b=b, n=n, e=e, heads=heads, hidden=4 * e,
+                            seed=7)
+        call = attention_bwd_call(name, inp)
+        first = call()
+        second = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        same = {k: bool(torch.equal(first[k], second[k])) for k in first}
+        told = ", ".join(k + (" equal" if v else " DIFFERENT")
+                         for k, v in same.items())
+        print(f"[determinism] {name} at B {b}, N {n}: two calls give "
+              f"{told}", flush=True)
+        require(all(same.values()), f"{name} at N {n} is not bitwise "
+                "deterministic")
+        del inp, call, first, second
+    leaves = []
+    for _ in range(2):
+        cfg, cara_cfg, frozen, state, data = train_setup(
+            dev, model=model, batch=batch, impl="rank")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state, losses, _, _ = fixed_batch_steps(
+            cfg, cara_cfg, frozen, state, data, gen, steps, timed=False)
+        leaves.append(dict(steps_lib.tree_leaves(state.trainable)))
+        del frozen, data
+    differ = [k for k in leaves[0]
+              if not torch.equal(leaves[0][k], leaves[1][k])]
+    print(f"[determinism] rank route of {model}, batch {batch}: two runs of "
+          f"{steps} steps from one state and seed give "
+          f"{len(leaves[0]) - len(differ)} of {len(leaves[0])} trainable "
+          f"leaves bit for bit (losses {losses})", flush=True)
+    require(not differ, f"rank steps are not bitwise reproducible: "
+            f"{differ[:5]}")
 
 
 def bound(ops: float, nbytes: float):
@@ -2593,6 +2816,8 @@ def main(argv=None) -> int:
     results.update(attn_route_kernel_phase(dev, kernel_inputs(dev)))
     results.update(int8_kernel_phase(dev))
     results.update(pair_kernel_phase(dev, kernel_inputs(dev)))
+    results.update(gemm_kernel_phase(dev, kernel_inputs(dev)))
+    determinism_phase(dev)
 
     stamp("kernel entries")
     images = make_images(96, 224)
@@ -2621,8 +2846,9 @@ def main(argv=None) -> int:
         launches["int8_dense" + suffix] = launches["int8_dense"]
 
     stamp("quantized serving and the whole-block eval")
-    train = training_phase(dev)
-    launches.update({k: train["launches"][k] for k in TRAINING_KERNELS})
+    train = training_phase(dev, path=TRAINING_KERNELS + GEMM_PRODUCTS)
+    launches.update({k: train["launches"][k]
+                     for k in TRAINING_KERNELS + GEMM_PRODUCTS})
     split = training_phase(dev, steps=20, impl="rank")
     launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
     for n, _ in ROW2_EDGES:

@@ -7,8 +7,11 @@ torch on the CPU and held against the JAX package.
   query tile s^T, p^T, dp^T, ds^T, dv += p^T do and dk += ds^T q for the
   warpgroup's keys, and the warpgroup's dq partial added into an fp32 sum.
   :func:`tiled_bwd` does the same with the key tiles and their halves
-  visited in a shuffled order (the card adds the partials in no fixed
-  order), and is held against ``jax.vjp`` of the Pallas
+  visited in a shuffled order (any order the sum could be taken in), and,
+  with no ``rng``, in the card's fixed order: per key tile the two
+  warpgroups' partials summed (warpgroup 0's plus warpgroup 1's), those
+  sums added into dq in key-tile order.  Both are held against
+  ``jax.vjp`` of the Pallas
   ``blockwise_qkv_attention`` (128 x 128 blocks, interpret mode) and
   against the port's plain twin ``blockwise_attention_bwd_plain``.  The
   Pallas kernel takes a token count that is a multiple of 128, so the
@@ -19,8 +22,9 @@ torch on the CPU and held against the JAX package.
   order, the row max, the sum of exp(s - m) and of exp(s - m) dp rescaled
   as the max moves, giving lse and D = rowsum(p dp) in fp32), then the
   same main loop as rows 16 and 17, its key tiles and their halves in a
-  shuffled order.  :func:`stats_rows` and :func:`tiled_bwd_from_rows` are
-  held against ``jax.vjp`` of the Pallas ``fused_qkv_attention``
+  shuffled order, or in the card's fixed order.  :func:`stats_rows` and
+  :func:`tiled_bwd_from_rows` are held against ``jax.vjp`` of the Pallas
+  ``fused_qkv_attention``
   (interpret mode) at NP 256 and 512, n_real 197, 401 and 512, Dh 16, 32
   and 64, and against the port's plain twin ``attention_bwd_plain``.
 - ``csrc/tiled_attention_fwd.cuh`` (rows 16 and 17's forward): 64-query
@@ -137,7 +141,10 @@ def tiled_bwd(qkv, out, lse, do, heads, scale, n_real, rng):
 def tiled_bwd_from_rows(qkv, do, lse_t, d_t, heads, scale, n_real, rng):
     """dqkv (B, N, 3E) by the main kernel's decomposition from the (lse,
     D) rows, in the input's dtype at its rounding points (p and ds
-    rounded for the products)."""
+    rounded for the products).  ``rng`` shuffles the key tiles and their
+    halves, each half's dq partial added into the fp32 sum on its own;
+    ``rng=None`` takes the card's order: key tiles in order, each tile's
+    two partials summed first (half 0 plus half 1), then added."""
     b, n, e3 = qkv.shape
     e = e3 // 3
     dt = qkv.dtype
@@ -154,11 +161,14 @@ def tiled_bwd_from_rows(qkv, do, lse_t, d_t, heads, scale, n_real, rng):
     dq_acc = torch.zeros((b, heads, np_, dh))
     dk = torch.zeros((b, heads, n, dh))
     dv = torch.zeros((b, heads, n, dh))
-    for kt in rng.permutation(-(-n // KEY_TILE)):
+    tiles = -(-n // KEY_TILE)
+    for kt in range(tiles) if rng is None else rng.permutation(tiles):
         k0 = kt * KEY_TILE
         if k0 >= n_real:  # every key masked: dk, dv stay zero
             continue
-        for half in rng.permutation(2):  # the two warpgroups
+        # the tile's dq partial (both halves) or each half's on its own
+        dq_tile = torch.zeros_like(dq_acc)
+        for half in range(2) if rng is None else rng.permutation(2):
             a0 = k0 + half * HALF
             a1 = min(a0 + HALF, n)
             if a0 >= a1:
@@ -178,9 +188,14 @@ def tiled_bwd_from_rows(qkv, do, lse_t, d_t, heads, scale, n_real, rng):
                 ds_t = (p_t * (dp_t - d_t[:, :, None, rows])).to(dt).float()
                 dv_w += p_t.to(dt).float() @ gs
                 dk_w += ds_t @ qs
-                dq_acc[:, :, rows] += ds_t.transpose(-1, -2) @ ks
+                dq_tile[:, :, rows] += ds_t.transpose(-1, -2) @ ks
             dk[:, :, a0:a1] = dk_w * scale
             dv[:, :, a0:a1] = dv_w
+            if rng is not None:
+                dq_acc += dq_tile
+                dq_tile.zero_()
+        if rng is None:
+            dq_acc += dq_tile
     dq = dq_acc[:, :, :n] * scale
 
     def flat(t):
@@ -276,6 +291,35 @@ def test_tiled_bwd_decomposition_matches_jax(np_, n_real, dh, b):
     assert not got[:, n_real:, e:].any()  # masked keys: zero dk, dv
 
 
+@pytest.mark.parametrize("np_, n_real, dh, b", [(256, 197, 64, 2),
+                                                (640, 577, 16, 1)])
+def test_tiled_bwd_fixed_order_matches_jax(np_, n_real, dh, b):
+    """Rows 16 and 17's backward with dq summed in the card's fixed order
+    (key tiles in order, each tile's two warpgroup partials summed first)
+    against ``jax.vjp`` of the Pallas kernel and the plain twin."""
+    e = HEADS * dh
+    sm = dh ** -0.5
+    a = _arrays(np_ + dh + 1, qkv=((b, np_, 3 * e), 0.7),
+                g=((b, np_, e), 1.0))
+    a["g"][:, n_real:] = 0.0
+
+    def j_fn(x):
+        return j_bwa.blockwise_qkv_attention(x, HEADS, sm, n_real, 1, 128,
+                                             128)
+
+    _, vjp = jax.vjp(j_fn, jnp.asarray(a["qkv"]))
+    (ref,) = vjp(jnp.asarray(a["g"]))
+    qkv, g = torch.from_numpy(a["qkv"]), torch.from_numpy(a["g"])
+    out, lse = t_bwa.blockwise_attention_fwd_plain(qkv, HEADS, sm, n_real)
+    got = tiled_bwd(qkv, out, lse, g, HEADS, sm, n_real, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    plain = t_bwa.blockwise_attention_bwd_plain(qkv, out, lse, g, HEADS, sm,
+                                                n_real)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    again = tiled_bwd(qkv, out, lse, g, HEADS, sm, n_real, None)
+    assert torch.equal(got, again)
+
+
 def test_two_chunk_forward_matches_jax():
     np_, n_real, dh = 304, 300, 32
     e = HEADS * dh
@@ -314,6 +358,33 @@ def test_row2_stats_and_tiles_match_jax(np_, n_real, dh):
     assert (lse_t.shape[-1] - np_) % QUERY_TILE == 0
     got = tiled_bwd_from_rows(qkv, g, lse_t, d_t, HEADS, sm, n_real,
                               np.random.default_rng(n_real + dh))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    plain = t_fqa.attention_bwd_plain(qkv, g, HEADS, sm, n_real)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    assert not got[:, n_real:, e:].any()  # masked keys: zero dk, dv
+
+
+@pytest.mark.parametrize("np_, n_real, dh", [(256, 197, 64), (512, 401, 32),
+                                             (512, 512, 16)],
+                         ids=["np256_r197_dh64", "np512_r401_dh32",
+                              "np512_r512_dh16"])
+def test_row2_fixed_order_matches_jax(np_, n_real, dh):
+    """Row 2's statistics pass and main loop with dq summed in the card's
+    fixed order, against ``jax.vjp`` of the Pallas kernel and the plain
+    twin."""
+    e = HEADS * dh
+    sm = dh ** -0.5
+    a = _arrays(np_ + n_real + dh + 1, qkv=((2, np_, 3 * e), 0.7),
+                g=((2, np_, e), 1.0))
+
+    def j_fn(x):
+        return j_fqa.fused_qkv_attention(x, HEADS, sm, n_real)
+
+    _, vjp = jax.vjp(j_fn, jnp.asarray(a["qkv"]))
+    (ref,) = vjp(jnp.asarray(a["g"]))
+    qkv, g = torch.from_numpy(a["qkv"]), torch.from_numpy(a["g"])
+    lse_t, d_t = stats_rows(qkv, g, HEADS, sm, n_real)
+    got = tiled_bwd_from_rows(qkv, g, lse_t, d_t, HEADS, sm, n_real, None)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     plain = t_fqa.attention_bwd_plain(qkv, g, HEADS, sm, n_real)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)

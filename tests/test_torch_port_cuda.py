@@ -30,7 +30,11 @@ statistics pass and the tiled main kernel) N 197, 257, 401 and 512, past
 the previous kernel's 352-token cap, with masked keys at head widths 64,
 32 and 16; for the tiled forward of rows 16 and 17 query and key boxes
 wholly or partly past N, key tiles wholly past n_real, size-1 image and
-head dimensions and more items than SMs.
+head dimensions and more items than SMs; for the GEMM core of the block
+backwards (``grad_gemm.cu``) every layout and epilogue with and without
+the rank step (from memory or folded in), ragged M, N and K, N = 64 and
+split TN planes; for the tiled attention backward (rows 2, 16, 17) two
+calls on the same inputs giving dq, dk and dv bit for bit.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -38,6 +42,7 @@ for gradients).
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -48,12 +53,14 @@ from cara_tpu_torch.config import CaraConfig, get_model_config
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models import vit as t_vit
+from cara_tpu_torch.ops.cuda import _bwd
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.cuda import wd_fold
+from cara_tpu_torch.ops.layers import activation_grad
 from cara_tpu_torch.serving import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -712,10 +719,9 @@ def test_tiled_attention_bwd_wgmma_matches_plain(dev, monkeypatch, route, n,
     """The five-product backward against the fp32 plain twin (relative L2
     ``GRAD_REL_L2`` for dq, dk, dv; keys in [n_real, N) get exactly zero
     dk, dv), counted once a call; then the same call again: its fp32 dq
-    sum (the scratch the wrapper zeroes) agrees with the first within
-    relative L2 1e-6 (a scratch left unzeroed would double it; the sums
-    differ only in the order of their fp32 additions), and dk and dv are
-    bit for bit the same."""
+    sum (the scratch the wrapper zeroes; a scratch left unzeroed would
+    double it) is bit for bit the first's, the adds taken in key-tile
+    order, and dq, dk and dv are bit for bit the same."""
     e = heads * dh
     gen = torch.Generator(device=dev)
     gen.manual_seed(n + dh)
@@ -749,8 +755,9 @@ def test_tiled_attention_bwd_wgmma_matches_plain(dev, monkeypatch, route, n,
     again = _bwd_grads(route, qkv, g, heads, sm, n_real, "auto")
     torch.cuda.synchronize()
     assert len(sums) == 2
-    assert chip_smoke.rel_l2(sums[1], sums[0]) <= 1e-6
-    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    assert torch.equal(sums[1], sums[0])
+    for x, y in zip(again, got):
+        assert torch.equal(x, y)
 
 
 # Row 2's backward (the statistics pass, then the tiled main kernel and the
@@ -769,8 +776,8 @@ def test_qkv_attention_bwd_tiled_matches_plain(dev, dh, n, n_real, b, heads):
     """dq, dk, dv of ``fused_qkv_attention`` through its backward kernel
     against ``attention_bwd_plain`` in fp32 (relative L2 ``GRAD_REL_L2``;
     keys in [n_real, N) get exactly zero dk, dv), counted once a call; a
-    second call gives dk and dv bit for bit (dq's fp32 sum is taken in no
-    fixed order)."""
+    second call gives dq, dk and dv bit for bit (dq's fp32 sum is taken in
+    key-tile order)."""
     e = heads * dh
     gen = torch.Generator(device=dev)
     gen.manual_seed(n + dh)
@@ -798,7 +805,8 @@ def test_qkv_attention_bwd_tiled_matches_plain(dev, dh, n, n_real, b, heads):
         assert not got[1][:, n_real:].any()
         assert not got[2][:, n_real:].any()
     again = grads()
-    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    for x, y in zip(again, got):
+        assert torch.equal(x, y)
 
 
 # The tiled forward at tail shapes: (route, n, n_real, dh, b, heads).  At
@@ -853,3 +861,180 @@ def test_tiled_attention_fwd_wgmma_matches_plain(dev, route, n, n_real, dh,
         _check("flash_attention", out, ref)
     torch.cuda.synchronize()
     assert (lse - ref_lse).abs().max().item() <= chip_smoke.LSE_ATOL
+
+
+# grad_gemm.cu: (layout, epilogue, rank, m, n, k, r).  rank: None, "a2"
+# (NN: the rank operand from memory) or "fold" (NT: z = A V^T inside the
+# product); M ragged against the 128-row tile, N below one tile (the
+# second 64-column box of an MN-major B wholly past N) or ragged, K
+# ragged against the 64-deep k-tile; r 5 (folded z 16 wide) or 20 (64);
+# TN with its contraction in 1 or 3 splits.
+_LAYOUTS = {"nn": _bwd.NN, "nt": _bwd.NT, "tn": _bwd.TN}
+_EPIS = {"f32": _bwd.EPI_F32, "bf16": _bwd.EPI_BF16,
+         "pre_gelu": _bwd.EPI_PRE_GELU, "dgelu": _bwd.EPI_DGELU}
+GEMM_SHAPES = [(200, 200, 136, 5), (296, 64, 768, 20)]
+GEMM_CASES = (
+    [("nn", epi, rank, *shape) for epi in ("bf16", "pre_gelu")
+     for rank in (None, "a2") for shape in GEMM_SHAPES]
+    + [("nt", epi, rank, *shape) for epi in ("bf16", "f32", "dgelu")
+       for rank in (None, "fold") for shape in GEMM_SHAPES]
+    + [("tn", "f32", splits, *shape) for splits in (1, 3)
+       for shape in GEMM_SHAPES])
+
+
+@pytest.mark.parametrize(
+    "layout, epi, rank, m, n, k, r", GEMM_CASES,
+    ids=[f"{lay}_{epi}_{rank}_m{m}_n{n}_k{k}_r{r}"
+         for lay, epi, rank, m, n, k, r in GEMM_CASES])
+def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
+    """One ``grad_gemm.cu`` product against fp32 on the same bf16 inputs:
+    fp32 outputs within 1e-2 + 1e-2 |ref|, bf16 outputs within
+    ``KERNEL_TOL["cp_dense"]`` (one bf16 rounding), the DGELU column
+    sums (over every block) and the TN product (its splits summed in
+    order, bit for bit the same on a second call) within relative L2
+    1e-4; the rank step adds bf16(z) @ B2 with z = A2, or with the folded
+    z = bf16(A V^T), whose gv comes out within 1e-2 + 1e-2 |ref| and zero
+    past r; counted once by layout and epilogue.  For TN the ``rank``
+    column holds the number of contraction splits."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + n + k + r)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(torch.bfloat16)
+
+    lay, ep = _LAYOUTS[layout], _EPIS[epi]
+    a = rnd(k, m) if layout == "tn" else rnd(m, k)
+    b = rnd(n, k, std=k ** -0.5) if layout == "nt" else rnd(k, n,
+                                                            std=k ** -0.5)
+    kw = {}
+    if epi in ("bf16", "pre_gelu"):
+        kw["bias1"] = rnd(n, std=0.1)
+    if epi == "pre_gelu":
+        kw["bias2"] = rnd(n, std=0.1)
+    if epi == "dgelu":
+        kw["aux"] = torch.randn((m, n), generator=gen, device=dev)
+    splits = rank if layout == "tn" else 1
+    af, bf = a.float(), b.float()
+    acc = {"nn": lambda: af @ bf, "nt": lambda: af @ bf.t(),
+           "tn": lambda: af.t() @ bf}[layout]()
+    v = z = None
+    if rank is not None and layout != "tn":
+        if layout == "nn":
+            kw["b2"] = rnd(r, n)
+            b2r = kw["b2"].float()
+        else:
+            kw["b2"] = _bwd.pad_cols8(rnd(n, r))
+            b2r = kw["b2"].float()[:, :r].t()
+        if rank == "a2":  # NN
+            z = rnd(m, r)
+            kw["a2"] = torch.zeros((m, _bwd.RANK_W), device=dev,
+                                   dtype=torch.bfloat16)
+            kw["a2"][:, :r] = z
+        else:
+            v = rnd(r, k, std=k ** -0.5)
+            kw["fold_v"] = v
+            z = (af @ v.float().t()).to(torch.bfloat16)
+        acc = acc + z.float() @ b2r
+    counter = _bwd._COUNTERS[lay, ep]
+    before = getattr(_bwd, counter)
+    out = _bwd.gemm(lay, ep, a, b, splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert getattr(_bwd, counter) == before + 1
+    outs = list(out) if isinstance(out, tuple) else [out]
+    if rank == "fold":
+        gv = outs.pop()
+        assert gv.shape == (m, _bwd.RANK_W)
+        assert not gv[:, r:].any()
+        err = (gv[:, :r].float() - z.float()).abs()
+        assert (err <= 1e-2 + 1e-2 * z.float().abs()).all()
+
+    def close(x, ref, bf16):
+        assert x.shape == ref.shape and torch.isfinite(x).all()
+        atol, rtol = (chip_smoke.KERNEL_TOL["cp_dense"] if bf16
+                      else (1e-2, 1e-2))
+        err = (x.float() - ref).abs()
+        assert (err <= atol + rtol * ref.abs()).all(), err.max().item()
+
+    if epi == "f32" and layout == "tn":
+        assert chip_smoke.rel_l2(outs[0], acc) <= 1e-4
+        close(outs[0], acc, False)
+        again = _bwd.gemm(lay, ep, a, b, splits=splits, **kw)
+        assert torch.equal(again, outs[0])  # the splits' sum in order
+    elif epi == "f32":
+        close(outs[0], acc, False)
+    elif epi == "bf16":
+        close(outs[0], acc + kw["bias1"].float(), True)
+    elif epi == "pre_gelu":
+        pre = acc + kw["bias1"].float() + kw["bias2"].float()
+        close(outs[0], pre, False)
+        close(outs[1], torch.nn.functional.gelu(pre), True)
+    else:
+        dpre = acc * activation_grad(kw["aux"], "gelu")
+        close(outs[0], dpre, True)
+        assert outs[1].shape == (-(-m // 128), n)
+        assert chip_smoke.rel_l2(outs[1].sum(0), dpre.sum(0)) <= 1e-4
+
+
+# The tiled attention backward, twice on the same inputs: (row, n, b,
+# heads).  Row 2 at 197 and 512 tokens, row 16 at 577, row 17 at 197 and
+# 577, twelve heads of width 64 (the smoke holds the same at batch 64).
+DETERMINISM_CASES = [("row2", 197), ("row2", 512), ("row16", 577),
+                     ("row17", 197), ("row17", 577)]
+
+
+@pytest.mark.parametrize("row, n", DETERMINISM_CASES,
+                         ids=[f"{r}_n{n}" for r, n in DETERMINISM_CASES])
+def test_attention_bwd_is_bitwise_deterministic(dev, row, n):
+    """Two backward calls of rows 2, 16 and 17 on the same inputs give dq,
+    dk and dv bit for bit: the adds into dq's fp32 sum are taken in
+    key-tile order."""
+    b, heads, dh = 8, 12, 64
+    e = heads * dh
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    qkv = (torch.randn((b, n, 3 * e), generator=gen, device=dev)
+           * 0.6).to(torch.bfloat16)
+    g = torch.randn((b, n, e), generator=gen, device=dev).to(torch.bfloat16)
+    sm = dh ** -0.5
+
+    def grads():
+        if row == "row2":
+            x = qkv.detach().requires_grad_(True)
+            out = fqa_mod.fused_qkv_attention(x, heads, sm, n)
+            return torch.autograd.grad(out, x, g)[0].chunk(3, dim=-1)
+        route = "blockwise" if row == "row16" else "flash"
+        return _bwd_grads(route, qkv, g, heads, sm, n, "auto")
+
+    first = grads()
+    second = grads()
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.isfinite(x).all(), name
+        assert torch.equal(x, y), name
+
+
+def test_grad_gemm_from_a_fresh_thread(dev):
+    """A thread whose first CUDA work is a ``grad_gemm.cu`` launch (as
+    autograd's device thread is when a backward of this library runs
+    first) gets the product: the TMA maps are encoded with the primary
+    context bound to that thread."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    a = torch.randn((40, 136), generator=gen, device=dev).bfloat16()
+    b = torch.randn((72, 136), generator=gen, device=dev).bfloat16()
+    out = {}
+
+    def run():
+        try:
+            out["c"] = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, a, b)
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported below, in the test's thread
+            out["error"] = exc
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in out, out.get("error")
+    ref = a.float() @ b.float().t()
+    assert (out["c"] - ref).abs().max().item() <= 1e-2 * ref.abs().max()

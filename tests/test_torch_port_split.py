@@ -2,9 +2,10 @@
 package's split fused path.
 
 ``cp_dense`` / ``cp_dense_ln`` (forward and cotangents), the row 12 dx
-twin, the differentiable ``fused_qkv_attention`` and ``cp_mlp_block``,
-each against the Pallas kernel it replaces (interpret mode on the CPU,
-gradients through ``jax.vjp``); then ``vit_forward(train=True)`` for the
+twin and an emulation of its kernel's folded gv, the differentiable
+``fused_qkv_attention`` and ``cp_mlp_block``, each against the Pallas
+kernel it replaces (interpret mode on the CPU, gradients through
+``jax.vjp``); then ``vit_forward(train=True)`` for the
 rank, row and rate-0 routes and two rank train steps, with JAX's masks,
 seeds and gates injected; the CLI and the device default.  Inputs are
 numpy arrays from a seed, everything fp32, atol = rtol = 1e-4.
@@ -22,6 +23,7 @@ from cara_tpu_torch.cli import common as t_common
 from cara_tpu_torch.cli import vit_cp as t_cli
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import vit as t_vit
+from cara_tpu_torch.ops.cuda import _bwd as t_bwd
 from cara_tpu_torch.ops.cuda import cp_dense as t_dense
 from cara_tpu_torch.ops.cuda import cp_mlp as t_mlp
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as t_fqa
@@ -104,6 +106,47 @@ def test_torch_cp_dense_dx_plain_matches_jax_kernel(ln):
     _close(dx, dx_ref, "dx")
     _close(gv, np.asarray(gv_ref)[:, :R], "gv")
     assert t_dense.DX_LAUNCHES == 0  # CPU tensors launch nothing
+
+
+def folded_dx(g, w, u, v, s, ln=None, x=None, tile=64):
+    """Row 12 as ``grad_gemm.cu``'s NT product with its folded rank step
+    computes it: over 64-wide tiles of the contraction (N) the fp32
+    accumulators of g W^T and of z = g V^T, z rounded to the input's dtype
+    once at the end and emitted as gv, then the rank step s z U^T on the
+    same accumulators; ``ln`` = (scale, eps) with the raw input ``x``
+    adds the LayerNorm input backward."""
+    m, n = g.shape
+    acc = torch.zeros((m, w.shape[0]))
+    z = torch.zeros((m, v.shape[0]))
+    for n0 in range(0, n, tile):
+        gt = g[:, n0:n0 + tile].float()
+        acc += gt @ w[:, n0:n0 + tile].float().t()
+        z += gt @ v[:, n0:n0 + tile].float().t()
+    gv = z.to(g.dtype)
+    acc += s * (gv.float() @ u.float().t())
+    if ln is None:
+        return acc.to(g.dtype), gv
+    return t_bwd.ln_input_bwd_plain(x, acc, ln[0], ln[1]).to(g.dtype), gv
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["plain", "ln"])
+def test_folded_gv_dx_matches_jax_kernel(ln):
+    """The folded gv of row 12 (z accumulated over 64-wide tiles beside g
+    W^T, rounded once, then the rank step) against ``_cp_dense_dx_raw``
+    in interpret mode with 64-wide N tiles: dx and gv."""
+    m, n, s = 74, 3 * E, 2.0
+    a = _arrays(5, g=((m, n), 1.0), w=((E, n), 0.08), u=((E, R), 0.2),
+                v=((R, n), 0.2), x=((m, E), 1.2), ls=((E,), 0.1, 1.0))
+    ja = {k: jnp.asarray(v) for k, v in a.items()}
+    j_ln = (ja["ls"], EPS) if ln else None
+    dx_ref, gv_ref = j_dense._cp_dense_dx_raw(
+        ja["g"], ja["w"], ja["u"], ja["v"], s, 512, E, 64, None, ln=j_ln,
+        x=ja["x"])
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    dx, gv = folded_dx(t["g"], t["w"], t["u"], t["v"], s,
+                       (t["ls"], EPS) if ln else None, t["x"])
+    _close(dx, dx_ref, "dx")
+    _close(gv, np.asarray(gv_ref)[:, :R], "gv")
 
 
 @pytest.mark.parametrize("n, n_real", [(40, 33), (24, 24)])

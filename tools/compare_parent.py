@@ -19,12 +19,20 @@ bf16:
   backward) on the same inputs; the forwards and row 2 also back to back
   (``*_b2b_ms``: 20 calls between two events, so the card does not wait
   for the host between them);
+- TPU rows 11 (the element route's MLP-block backward) and 12 (both
+  split-route sites' dx with their factor gradients) at B = 64, N = 197
+  (``chip_smoke``'s entries), median of 20 timed calls and back to back,
+  with each row's device time split by launch (``torch.profiler``, five
+  calls); row 11's five ``grad_gemm`` products alone (NN ``PRE_GELU``, NT
+  ``DGELU``, NT dxa, the two TN dT products) with their TFLOP/s, beside
+  ``torch.matmul`` on the same bf16 shapes (a yardstick only);
 - merged and adapter serving at 224 px and merged serving at 384 px
   (``Predictor.logits``, host clock, 10 batches);
 - the rank and element steps at 224 px, the element and rank steps at
   384 px and the full fine-tuning step at 224 px (median ms per step by
   CUDA events over the steps after the fifth, on one fixed batch).
 
+``--only`` picks some of the sections (kernels, rows, serving, train).
 Prints the card's name and power limit and one JSON line per child, and
 writes them to ``--out`` as one JSON file where it is given.
 """
@@ -67,22 +75,9 @@ def _kernels(cs, dev) -> dict:
         with torch.inference_mode():
             return F.scaled_dot_product_attention(q, k, v)
 
-    def b2b_ms(fn, reps=20):
-        """Device ms a call over ``reps`` calls between two events."""
-        for _ in range(3):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     def timed(key, fn):
         out[key + "_ms"] = cs.median_ms(fn)
-        out[key + "_b2b_ms"] = b2b_ms(fn)
+        out[key + "_b2b_ms"] = _b2b_ms(fn)
 
     qkv = rnd(b, 197, 3 * h * d, std=0.6)
     with torch.inference_mode():
@@ -120,6 +115,94 @@ def _kernels(cs, dev) -> dict:
         out[f"sdpa_bwd_{n}_ms"] = cs.median_ms(
             lambda: torch.autograd.grad(so, (qq, kk, vv), gh,
                                         retain_graph=True))
+    return out
+
+
+def _b2b_ms(fn, reps=20):
+    """Device ms a call over ``reps`` calls between two events."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _launch_split(fn, calls=5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, and its launches a
+    call, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: [e.self_device_time_total / 1e3 / calls,
+                          e.count / calls]
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def _rows(cs, dev) -> dict:
+    import torch
+    from cara_tpu_torch.ops.cuda import _bwd
+
+    out = {}
+    inp = cs.kernel_inputs(dev)
+    calls = cs.kernel_calls(inp)
+    for key, name in (("row11", "cp_mlp_block_wd_bwd"),
+                      ("row12", "cp_dense_dx")):
+        fn = calls[name][0]
+        out[f"{key}_ms"] = cs.median_ms(fn)
+        out[f"{key}_b2b_ms"] = _b2b_ms(fn)
+        out[f"{key}_split"] = _launch_split(fn)
+    del calls, inp
+    torch.cuda.empty_cache()
+    m, e, hid = 64 * 197, 768, 3072
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(torch.bfloat16)
+
+    xa, g2 = rnd(m, e), rnd(m, e)
+    dprec, h = rnd(m, hid, std=0.1), rnd(m, hid)
+    w1, w2 = rnd(e, hid, std=0.02), rnd(hid, e, std=0.02)
+    b1, cb1 = rnd(hid, std=0.02), rnd(hid, std=0.02)
+    pre = torch.randn((m, hid), generator=gen, device=dev)
+    products = {
+        "nn_pre_gelu": (lambda: _bwd.gemm(_bwd.NN, _bwd.EPI_PRE_GELU, xa, w1,
+                                          bias1=b1, bias2=cb1),
+                        lambda: torch.matmul(xa, w1)),
+        "nt_dgelu": (lambda: _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU, g2, w2,
+                                       aux=pre),
+                     lambda: torch.matmul(g2, w2.t())),
+        "nt_dxa": (lambda: _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1),
+                   lambda: torch.matmul(dprec, w1.t())),
+        "tn_dt1": (lambda: _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, dprec,
+                                     splits=_bwd.dt_splits(e, hid, m)),
+                   lambda: torch.matmul(xa.t(), dprec)),
+        "tn_dt2": (lambda: _bwd.gemm(_bwd.TN, _bwd.EPI_F32, h, g2,
+                                     splits=_bwd.dt_splits(hid, e, m)),
+                   lambda: torch.matmul(h.t(), g2)),
+    }
+    flop = 2 * m * e * hid
+    for key, (kern, lib) in products.items():
+        ms, lib_ms = cs.median_ms(kern), cs.median_ms(lib)
+        out[f"gemm_{key}_ms"] = ms
+        out[f"gemm_{key}_tflops"] = flop / ms / 1e9
+        out[f"gemm_{key}_matmul_ms"] = lib_ms
+        out[f"gemm_{key}_matmul_tflops"] = flop / lib_ms / 1e9
     return out
 
 
@@ -175,7 +258,11 @@ def _train(cs, dev) -> dict:
     return out
 
 
-def child() -> int:
+SECTIONS = {"kernels": _kernels, "rows": _rows, "serving": _serving,
+            "train": _train}
+
+
+def child(only) -> int:
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -187,9 +274,8 @@ def child() -> int:
     torch.backends.cudnn.allow_tf32 = False
     _build.lib()
     res = {"tree": os.getcwd(), "build_s": _build.BUILD_INFO["seconds"]}
-    res.update(_kernels(cs, dev))
-    res.update(_serving(cs, dev))
-    res.update(_train(cs, dev))
+    for name in only:
+        res.update(SECTIONS[name](cs, dev))
     print("RESULT " + json.dumps(res), flush=True)
     return 0
 
@@ -200,11 +286,17 @@ def main(argv=None) -> int:
     parser.add_argument("--rounds", type=int, default=1,
                         help="pairs of turns (other, this, this, other)")
     parser.add_argument("--out", help="also write the results here (JSON)")
+    parser.add_argument("--only", default=",".join(SECTIONS),
+                        help="comma-separated sections to measure (of "
+                             f"{', '.join(SECTIONS)})")
     parser.add_argument("--child", action="store_true",
                         help="measure the tree in the working directory")
     args = parser.parse_args(argv)
+    only = args.only.split(",")
+    if not set(only) <= set(SECTIONS):
+        parser.error(f"--only takes sections of {', '.join(SECTIONS)}")
     if args.child:
-        return child()
+        return child(only)
     if not args.other:
         parser.error("--other is required")
     card = subprocess.run(
@@ -218,7 +310,8 @@ def main(argv=None) -> int:
         tree = trees[label]
         env = dict(os.environ, PYTHONPATH=tree)
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child"], cwd=tree,
+            [sys.executable, os.path.abspath(__file__), "--child", "--only",
+             args.only], cwd=tree,
             env=env, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("RESULT ")]
