@@ -1,13 +1,14 @@
-// Row and column passes of the block backward kernels (sm_90a).
+// Row and column passes around the GEMMs of the block kernels (sm_90a).
 //
-// The TPU backward kernels (cara_tpu/ops/pallas/cp_attn_block.py
-// _attn_block_bwd_wd_kernel, cara_tpu/ops/pallas/cp_mlp.py
-// _mlp_bwd_wd_kernel) do these steps on resident VMEM tiles between their
-// products; on Hopper they are separate memory-bound passes around the
-// GEMMs of grad_gemm.cu:
+// The TPU kernels (cara_tpu/ops/pallas/cp_dense.py _cp_dense_kernel,
+// cp_attn_block.py, cp_mlp.py, forward and backward) do these steps on
+// resident VMEM tiles between their products; on Hopper they are separate
+// memory-bound passes around the products of sm90_gemm.cuh (grad_gemm.cu,
+// cp_site.cu):
 //
-//   ln_rows          xa = bf16(LN(x))                (_ln_rows: the forward's
-//                    normalized row, kept for dT1 = xa^T dqkv / xa^T dpre)
+//   ln_rows          xa = bf16(LN(x))                (_ln_rows: a forward
+//                    site's LayerNorm prologue, and the normalized row the
+//                    backward's dT1 = xa^T dqkv / xa^T dpre reads)
 //   gate_rows        g2 = bf16(g * dpm[row])         (the drop-path gate)
 //   ln_bwd_residual  dx = bf16(g + LN'(x) . dxa)     (_ln_input_bwd + the
 //                    residual path of the cotangent; g null: no residual,
@@ -15,10 +16,11 @@
 //   colsum           fp32 column sums (bias cotangents), two passes in a
 //                    fixed order, no atomics
 //
-// One warp per row for the LayerNorm passes (E = 768 at ViT-B, three or
-// four reads of a 1.5 KB row that stays in L1); 16-byte vectors for the
-// gate.  Each pass is bound by its bytes (12608 rows of 768 at ViT-B: a
-// few MB, a few microseconds).
+// One warp per row for the LayerNorm passes (E = 768 at ViT-B: ln_rows
+// holds the row in registers and reads it once, ln_bwd_residual reads it
+// three or four times from L1); 16-byte vectors for the gate.  Each pass
+// is bound by its bytes (12608 rows of 768 at ViT-B: a few MB, a few
+// microseconds).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +54,12 @@ __device__ __forceinline__ void row_moments(const __nv_bfloat16* xr, int K,
   rs = rsqrtf(warp_sum(sq) / K + eps);
 }
 
+// One warp per row, the row held in registers: VPL 16-byte vectors a lane
+// (K <= 256 VPL, K % 8 == 0), read once; mean and 1/sqrt(var + eps) in
+// fp32, two passes over the registers (as _ln_rows computes
+// mean(square(x - mu))), then the scale and bias, rounded to bf16 and
+// stored 16 bytes a lane.  Bound by its bytes: 2 M K read and written.
+template <int VPL>
 __global__ void ln_rows_kernel(const __nv_bfloat16* __restrict__ x,
                                const __nv_bfloat16* __restrict__ ls,
                                const __nv_bfloat16* __restrict__ lb,
@@ -60,12 +68,46 @@ __global__ void ln_rows_kernel(const __nv_bfloat16* __restrict__ x,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= M) return;
-  const __nv_bfloat16* xr = x + (size_t)row * K;
-  float mu, rs;
-  row_moments(xr, K, eps, lane, mu, rs);
-  __nv_bfloat16* orow = out + (size_t)row * K;
-  for (int k = lane; k < K; k += 32)
-    orow[k] = __float2bfloat16((bf(xr[k]) - mu) * rs * bf(ls[k]) + bf(lb[k]));
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  const int vecs = K / 8;
+  uint4 raw[VPL];
+  float sum = 0.f;
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) {
+    const int c = lane + 32 * v;
+    raw[v] = c < vecs ? xr[c] : make_uint4(0, 0, 0, 0);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw[v]);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sum += bf(e[q]);
+  }
+  const float mu = warp_sum(sum) / K;
+  float sq = 0.f;
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) {
+    if (lane + 32 * v >= vecs) continue;
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw[v]);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float d = bf(e[q]) - mu;
+      sq += d * d;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(sq) / K + eps);
+  uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * K);
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) {
+    const int c = lane + 32 * v;
+    if (c >= vecs) continue;
+    const uint4 sv = reinterpret_cast<const uint4*>(ls)[c];
+    const uint4 bv = reinterpret_cast<const uint4*>(lb)[c];
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw[v]);
+    const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(&sv);
+    const __nv_bfloat16* bi = reinterpret_cast<const __nv_bfloat16*>(&bv);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      e[q] = __float2bfloat16((bf(e[q]) - mu) * rs * bf(sc[q]) + bf(bi[q]));
+    orow[c] = raw[v];
+  }
 }
 
 __global__ void gate_rows_kernel(const __nv_bfloat16* __restrict__ g,
@@ -139,17 +181,34 @@ constexpr int kColRows = 128;     // rows per block of the first colsum pass
 
 }  // namespace
 
-// xa (M, K) bf16 = LN(x) with bf16 scale and bias.
+// xa (M, K) bf16 = LN(x) with bf16 scale and bias: the forward sites'
+// LayerNorm prologue (cp_site.cu's A operand) and the backward's xa.
+// Needs K % 8 == 0, K <= 4096 and 16-byte aligned pointers.
 extern "C" int cara_ln_rows(const void* x, const void* ls, const void* lb,
                             void* out, int M, int K, float eps,
                             void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  ln_rows_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock,
-                   kRowsPerBlock * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(ls),
-      static_cast<const __nv_bfloat16*>(lb),
-      static_cast<__nv_bfloat16*>(out), M, K, eps);
+  if (K % 8 || K > 4096) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
+  const int threads = kRowsPerBlock * 32;
+  const auto* xx = static_cast<const __nv_bfloat16*>(x);
+  const auto* ss = static_cast<const __nv_bfloat16*>(ls);
+  const auto* bb = static_cast<const __nv_bfloat16*>(lb);
+  auto* oo = static_cast<__nv_bfloat16*>(out);
+  const int vpl = (K / 8 + 31) / 32;  // 16-byte vectors a lane
+  if (vpl <= 1)
+    ln_rows_kernel<1><<<grid, threads, 0, stream>>>(xx, ss, bb, oo, M, K, eps);
+  else if (vpl <= 2)
+    ln_rows_kernel<2><<<grid, threads, 0, stream>>>(xx, ss, bb, oo, M, K, eps);
+  else if (vpl <= 3)
+    ln_rows_kernel<3><<<grid, threads, 0, stream>>>(xx, ss, bb, oo, M, K, eps);
+  else if (vpl <= 4)
+    ln_rows_kernel<4><<<grid, threads, 0, stream>>>(xx, ss, bb, oo, M, K, eps);
+  else if (vpl <= 8)
+    ln_rows_kernel<8><<<grid, threads, 0, stream>>>(xx, ss, bb, oo, M, K, eps);
+  else
+    ln_rows_kernel<16><<<grid, threads, 0, stream>>>(xx, ss, bb, oo, M, K,
+                                                     eps);
   return static_cast<int>(cudaGetLastError());
 }
 

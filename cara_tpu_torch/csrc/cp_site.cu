@@ -1,146 +1,82 @@
 // Dense CaRA site for Hopper (sm_90a):
 //
-//   out = epi( pro(x) @ W + b + s * ((pro(x) @ U) @ V + cb) )
+//   out = epi( xa @ W + b + s * ((xa @ U) @ V + cb) )
 //
-// x (M, K), W (K, N), U (K, r), V (r, N), out (M, N); bf16 in and out,
-// fp32 accumulation.  pro is an optional LayerNorm (row statistics from a
-// small pass, applied while A tiles are loaded; the normalized row is
-// rounded to bf16 as the TPU kernel's _ln_rows does).  epi is an optional
-// exact-erf GELU and an optional residual  x_res + dpm[row] * y, or, in
-// the dact mode, dpre = g * gelu'(y) with g (M, N) the cotangent of the
-// GELU's output: the backward helper _cp_dense_dact_kernel
-// (cara_tpu/ops/pallas/cp_dense.py, row 13), which recomputes the fp32
-// pre-activation y on the tile and never writes it.
+// xa (M, K), W (K, N), U (K, r), V (r, N), out (M, N); bf16 in and out,
+// fp32 accumulation.  xa is x, or on a LayerNorm site bf16(LN(x)), written
+// by block_rows.cu's row pass before this product (the caller launches
+// it).  epi is an optional exact-erf GELU and an optional residual x_res +
+// dpm[row] * y, or, in the dact mode, dpre = g * gelu'(y) with g (M, N)
+// the cotangent of the GELU's output: the backward helper
+// _cp_dense_dact_kernel (cara_tpu/ops/pallas/cp_dense.py, row 13), which
+// recomputes the fp32 pre-activation y on the tile and never writes it.
 //
-// Replaces the dense parts of the TPU megakernels
-// cara_tpu/ops/pallas/cp_attn_block.py (_attn_block_fwd_kernel, the qkv
-// and proj sites) and cara_tpu/ops/pallas/cp_mlp.py (_mlp_fwd_kernel, the
-// fc1 and fc2 sites).  Those hold a whole image (or 256 rows) plus every
-// weight in up to 100 MB of VMEM; a Hopper block has 227 KB of shared
-// memory, so here each site is a tiled GEMM of its own and the qkv tensor
-// and the (M, 4E) hidden make a round trip through device memory.  At
-// ViT-B (M = 64*197, K = 768, N = 2304 or 3072) every site is bound by the
-// tensor cores, not by bytes (~300 FLOP per byte), so the first version
-// puts its effort in the GEMM: 128x128x64 block tiles, eight warps of
-// 64x32 each, ldmatrix + mma.sync.m16n8k16 (bf16 in, fp32 accumulate), a
-// three-stage cp.async ring so that loads overlap the products, two blocks
-// per SM.  Still to come: TMA, wgmma, and fusing the sites back together.
+// Replaces the dense parts of the TPU kernels _cp_dense_kernel /
+// _cp_dense_dact_kernel (cara_tpu/ops/pallas/cp_dense.py, row 13),
+// _mlp_fwd_kernel (cp_mlp.py, row 9: the fc1 and fc2 sites),
+// _attn_block_fwd_kernel (cp_attn_block.py, rows 5 and 7: the qkv and
+// proj sites) and the LN1 / qkv site of block_pair.py (row 19).  The TPU
+// kernels hold a row tile and every weight in VMEM, normalize x there
+// (the normalized x never reaches HBM) and keep z = xa U in a scratch
+// accumulator over the k grid; on Hopper each site is one product of the
+// wgmma + TMA core (sm90_gemm.cuh, NN with a site epilogue) and the LN
+// row pass writes xa once (19 MB at M 12608, K 768: a few microseconds)
+// so that the product's A operand is a plain TMA load, instead of each of
+// the 9-24 column blocks normalizing the same rows again.  That is a
+// traffic choice; the rounding point is the TPU's (xa = bf16(_ln_rows)).
 //
-// The rank-r product z = pro(x) @ U comes from a pre-pass (a skinny
-// tensor-core GEMM) and is rounded to bf16 before @V, as the TPU kernel does
-// (cp_attn_block.py:98-100, cp_mlp.py:91-93); the GEMM then adds z @ V
-// as one more tensor-core step on its accumulators.  The rank is the true
-// rank (zero-padded to the 64-deep k step inside the block): the TPU's
-// padding of r to 128 lanes is not ported.
+// The rank delta stays in rank space, as on the TPU: z = xa U is
+// accumulated in fp32 beside the main product over the same k-tiles (a
+// 16- or 64-wide wgmma on the A tile the block holds, U loaded MN-major
+// beside W), rounded to bf16 once, and multiplied by V as one more 16- or
+// 64-deep k-step on the main accumulators.  The delta scale s multiplies
+// (z V + cb) in fp32 (the accumulators are scaled by 1 / s before that
+// k-step and by s after it), never folded into a bf16 V.  The blocks of
+// column 0 write z (M, 64), zero past the rank, where the caller keeps it
+// for the backward's factor gradients.  Rank 0 (the element route's W'
+// form) has no rank step.
 //
-// cara_rank_z exposes the pre-pass on its own, for the backward kernels:
-// z = bf16(x U), the rank-space operand of the factor gradients and of
-// _mlp_bwd_kernel's fc1 recompute (cp_mlp.py), written 64 wide for
-// grad_gemm.cu's rank step (which folds g V^T in itself).
+// What bounds it: at ViT-B (M = 64 * 197 = 12608) the sites are 15-60
+// GFLOP against 25-80 MB, above the H100's ~295 FLOP/byte ridge: the
+// tensor cores.  Block width: 256 columns, one block an SM, where M and N
+// allow (every site of ViT-B), else 128, two blocks an SM.  The folded
+// z's registers beside a 128-wide block's accumulators spill (the two
+// blocks an SM leave 112 registers a thread) and ptxas serializes its
+// wgmma; a 256-wide block's fit, and its residual and dact epilogues
+// (bf16 read and written, 4 bytes an output) stay on the operations
+// side of the ridge.
+//
+// cara_rank_z is the rank product alone, z = bf16(xa U) (M, 64) zero past
+// r, for the backward wrappers that recompute it (_bwd.rank_z): a skinny
+// tensor-core GEMM that reads xa once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
-#include "gelu.cuh"
-#include "mma_common.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;
-constexpr int A_LD = BK + 8;   // padded smem strides (multiples of 8)
-constexpr int B_LD = BN + 8;
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (cols)
-constexpr int WM = 64;         // warp tile 64 x 32
-constexpr int WN = 32;
-
-__device__ __forceinline__ float bf(const __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// One warp per row: mean and 1/sqrt(var + eps) in fp32 (two passes over
-// the row, as _ln_rows computes mean(square(x - mu))).
-__global__ void row_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                                 float* __restrict__ mean,
-                                 float* __restrict__ rstd, int M, int K,
-                                 float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const __nv_bfloat16* xr = x + (size_t)row * K;
-  float sum = 0.f;
-  for (int k = lane; k < K; k += 32) sum += bf(xr[k]);
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  const float mu = sum / K;
-  float sq = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    const float d = bf(xr[k]) - mu;
-    sq += d * d;
-  }
-  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  if (lane == 0) {
-    mean[row] = mu;
-    rstd[row] = rsqrtf(sq / K + eps);
-  }
-}
-
-// LayerNorm of eight bf16 values in place: normalize in fp32 with the
-// row's statistics, apply the scale and bias (eight each, 16-byte loaded
-// by the caller), round to bf16 like the TPU kernel's xa.
-__device__ __forceinline__ void ln8(uint4& raw, float mu, float rs,
-                                    const uint4& lsv, const uint4& lbv) {
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-  const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(&lsv);
-  const __nv_bfloat16* bi = reinterpret_cast<const __nv_bfloat16*>(&lbv);
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    e[q] = __float2bfloat16((bf(e[q]) - mu) * rs * bf(sc[q]) + bf(bi[q]));
-}
-
-__device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-struct SiteArgs {
-  const __nv_bfloat16* x;
-  const float* mean;
-  const float* rstd;
-  const __nv_bfloat16* ls;
-  const __nv_bfloat16* lb;
-  const __nv_bfloat16* w;
-  const __nv_bfloat16* b;
-  const __nv_bfloat16* z;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* cb;
-  const __nv_bfloat16* res;
-  const float* dpm;
-  const __nv_bfloat16* g;  // dact mode: the cotangent (M, N)
-  __nv_bfloat16* out;
-  int M, K, N, r;
-  int has_ln, act, has_res;  // act: 0 none, 1 GELU, 2 dact
-  float s;
-};
-
-// z = bf16( pro(x) @ U ): a skinny GEMM (N = r) on the tensor cores.
-// Each block takes ZBM rows and walks K in ZBK-wide chunks; each of its
-// two warps owns 16 rows and RP/16 accumulator fragments (RP = r rounded
-// up to 16; the padding columns of U are zero in shared memory).  It
-// reads x once, so it is bound by that read.
+// z = bf16(x @ U): a skinny GEMM (N = r) on the tensor cores.  Each block
+// takes ZBM rows and walks K in ZBK-wide chunks; each of its two warps
+// owns 16 rows and RP/16 accumulator fragments (RP = r rounded up to 16;
+// the padding columns of U are zero in shared memory).  It reads x once,
+// so it is bound by that read.
 constexpr int ZBM = 32;
-constexpr int ZW = 64;  // width of the z buffer = the GEMM's k step
+constexpr int ZW = 64;  // width of the z buffer = the rank step's depth
 constexpr int ZBK = 128;
 constexpr int ZA_LD = ZBK + 8;
 constexpr int ZTHREADS = 64;
 
 template <int RP>
 __global__ void __launch_bounds__(ZTHREADS)
-site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
-              __nv_bfloat16* __restrict__ z) {
+rank_z_kernel(const __nv_bfloat16* __restrict__ x,
+              const __nv_bfloat16* __restrict__ u,
+              __nv_bfloat16* __restrict__ z, int M, int K, int r) {
   constexpr int ULD = RP + 8;
   __shared__ __align__(128) __nv_bfloat16 As[ZBM * ZA_LD];
   __shared__ __align__(128) __nv_bfloat16 Us[ZBK * ULD];
@@ -158,47 +94,30 @@ site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
     Us[(idx / RP) * ULD + idx % RP] = __float2bfloat16(0.f);
   __syncthreads();  // the zeros land before any thread scatters U
 
-  for (int k0 = 0; k0 < p.K; k0 += ZBK) {
-    const int kw = min(ZBK, p.K - k0);  // K % 64 == 0
-    uint4 raw[VA];
+  for (int k0 = 0; k0 < K; k0 += ZBK) {
+    const int kw = min(ZBK, K - k0);  // K % 64 == 0
 #pragma unroll
     for (int it = 0; it < VA; ++it) {
       const int vec = tid + it * ZTHREADS;
       const int row = vec / (ZBK / 8);
       const int col = (vec % (ZBK / 8)) * 8;
       const int gm = m0 + row;
-      raw[it] = make_uint4(0, 0, 0, 0);
-      if (gm < p.M && col < kw)
-        raw[it] = *reinterpret_cast<const uint4*>(p.x + (size_t)gm * p.K +
-                                                  k0 + col);
-    }
-    // Every vector of this thread has the same columns (ZTHREADS is a
-    // multiple of ZBK / 8): one 16-byte load each of LN scale and bias.
-    const int zcol = (tid % (ZBK / 8)) * 8;
-    uint4 lsv = make_uint4(0, 0, 0, 0), lbv = lsv;
-    if (p.has_ln && zcol < kw) {
-      lsv = load16(p.ls + k0 + zcol);
-      lbv = load16(p.lb + k0 + zcol);
-    }
-#pragma unroll
-    for (int it = 0; it < VA; ++it) {
-      const int row = (tid + it * ZTHREADS) / (ZBK / 8);
-      const int gm = m0 + row;
-      if (p.has_ln && gm < p.M && zcol < kw)
-        ln8(raw[it], p.mean[gm], p.rstd[gm], lsv, lbv);
-      *reinterpret_cast<uint4*>(&As[row * ZA_LD + zcol]) = raw[it];
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (gm < M && col < kw)
+        raw = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + col);
+      *reinterpret_cast<uint4*>(&As[row * ZA_LD + col]) = raw;
     }
     // U rows k0 .. k0+kw are kw*r contiguous values (a multiple of 8):
     // 16-byte loads, scattered into the (kk, j) layout; the padding
     // columns j >= r were zeroed before the loop.
-    for (int v = tid; v < kw * p.r / 8; v += ZTHREADS) {
+    for (int v = tid; v < kw * r / 8; v += ZTHREADS) {
       const uint4 raw =
-          *reinterpret_cast<const uint4*>(u + (size_t)k0 * p.r + v * 8);
+          *reinterpret_cast<const uint4*>(u + (size_t)k0 * r + v * 8);
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int flat = v * 8 + q;
-        Us[(flat / p.r) * ULD + flat % p.r] = e[q];
+        Us[(flat / r) * ULD + flat % r] = e[q];
       }
     }
     __syncthreads();
@@ -217,8 +136,7 @@ site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
     }
     __syncthreads();
   }
-  // z is written ZW columns wide (zeros past r), so the GEMM loads its
-  // delta k-tile like any other A tile.
+  // z is written ZW columns wide (zeros past r), the rank step's A2.
   float* zs = Zs[warp];
   const int er = lane >> 1;
   const int ec = (lane & 1) * 8;
@@ -228,7 +146,7 @@ site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
   for (int f = 0; f < RP / 16; ++f) {
     wmma::store_matrix_sync(zs, acc[f], 16, wmma::mem_row_major);
     __syncwarp();
-    if (gm < p.M) {
+    if (gm < M) {
       uint4 packed;
       __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&packed);
 #pragma unroll
@@ -238,304 +156,89 @@ site_z_kernel(const SiteArgs p, const __nv_bfloat16* __restrict__ u,
     }
     __syncwarp();
   }
-  if (gm < p.M)
+  if (gm < M)
     for (int c = RP + ec; c < ZW; c += 16)
       *reinterpret_cast<uint4*>(zrow + c) = make_uint4(0, 0, 0, 0);
 }
 
-constexpr int STAGES = 3;
-constexpr size_t A_STAGE = (size_t)BM * A_LD;  // bf16 elements
-constexpr size_t B_STAGE = (size_t)BK * B_LD;
-constexpr size_t GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2;
-static_assert(THREADS % (BK / 8) == 0 && ZTHREADS % (ZBK / 8) == 0,
-              "a thread's A vectors must share their columns");
-static_assert(ZW == BK, "the delta k-tile reads z as one A tile");
-
-constexpr int MI = WM / 16;  // m16 tiles per warp
-constexpr int NJ = WN / 8;   // n8 tiles per warp
-
-// One BK-deep step of the warp's 64x32 tile: A fragments by ldmatrix,
-// B fragments by ldmatrix.trans from the row-major (k, n) tile, then
-// MI x NJ mma.sync.m16n8k16.  `kmax` skips k16 halves that are all zero.
-__device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
-                                         const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b, int wr,
-                                         int wc, int lane, int kmax) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    if (kk >= kmax) break;
-    unsigned af[MI][4], bfr[NJ][2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-      ldmatrix_x4(af[i], a + (wr * WM + i * 16 + (lane & 15)) * A_LD + kk +
-                             (lane >> 4) * 8);
-#pragma unroll
-    for (int jj = 0; jj < NJ / 2; ++jj) {
-      unsigned t[4];
-      ldmatrix_x4_trans(t, b + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   B_LD +
-                               wc * WN + jj * 16 + (lane >> 4) * 8);
-      bfr[2 * jj][0] = t[0];
-      bfr[2 * jj][1] = t[1];
-      bfr[2 * jj + 1][0] = t[2];
-      bfr[2 * jj + 1][1] = t[3];
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_16816(acc[i][j], af[i], bfr[j]);
-  }
-}
-
-// Main loop: a STAGES-deep ring of (A, B) tiles filled by cp.async, so the
-// loads of the next STAGES-1 tiles overlap the products on this one.  For
-// an LN site the raw A tile is normalized in shared memory when it lands (the
-// row statistics come from row_stats_kernel), then rounded to bf16.  The
-// rank-r delta z @ V is one more k-tile of the same ring and the same
-// accumulators (z and V zero-padded to BK), so the epilogue adds only b,
-// cb, GELU (or g * gelu') and the residual, straight from the mma
-// registers.
-__global__ void __launch_bounds__(THREADS, 2)
-site_gemm_kernel(const SiteArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + STAGES * A_STAGE;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wr = warp >> 2;  // 0..1
-  const int wc = warp & 3;   // 0..3
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int KT = p.K / BK;
-
-  // Tile kt < KT: A = x[:, kt*BK:], B = W[kt*BK:, :].  Tile KT (when
-  // r > 0) is the rank-r delta: A = z (ZW = BK columns, zero past r),
-  // B = V rows, zero-filled past r.  All loads are 16-byte cp.async
-  // (zero-filled past M and N; N is a multiple of 8).
-  constexpr int VA = BM * BK / 8 / THREADS;
-  constexpr int VB = BK * BN / 8 / THREADS;
-  auto load_stage = [&](int st, int kt) {
-    const bool delta = kt == KT;
-    const __nv_bfloat16* asrc = delta ? p.z : p.x;
-    const size_t lda = delta ? ZW : p.K;
-    const int k0 = delta ? 0 : kt * BK;
-#pragma unroll
-    for (int it = 0; it < VA; ++it) {
-      const int vec = tid + it * THREADS;
-      const int row = vec / (BK / 8);
-      const int col = (vec % (BK / 8)) * 8;
-      const int gm = m0 + row;
-      const bool ok = gm < p.M;
-      cp_async16(As + st * A_STAGE + row * A_LD + col,
-                 ok ? asrc + gm * lda + k0 + col : asrc, ok);
-    }
-#pragma unroll
-    for (int it = 0; it < VB; ++it) {
-      const int vec = tid + it * THREADS;
-      const int row = vec / (BN / 8);
-      const int col = (vec % (BN / 8)) * 8;
-      const int gn = n0 + col;
-      const bool ok = gn < p.N && (!delta || row < p.r);
-      const __nv_bfloat16* bsrc =
-          delta ? p.v + (size_t)row * p.N + gn
-                : p.w + (size_t)(k0 + row) * p.N + gn;
-      cp_async16(Bs + st * B_STAGE + row * B_LD + col, ok ? bsrc : p.w, ok);
-    }
-  };
-
-  float acc[MI][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  // LN sites: this thread's A vectors share one column range (THREADS is
-  // a multiple of BK / 8); their rows' statistics are loaded once.
-  const int acol = (tid % (BK / 8)) * 8;
-  float row_mu[VA], row_rs[VA];
-#pragma unroll
-  for (int it = 0; it < VA; ++it) {
-    const int gm = m0 + (tid + it * THREADS) / (BK / 8);
-    const bool ok = p.has_ln && gm < p.M;
-    row_mu[it] = ok ? p.mean[gm] : 0.f;
-    row_rs[it] = ok ? p.rstd[gm] : 0.f;
-  }
-
-  const int KT_ALL = KT + (p.r > 0 ? 1 : 0);
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < KT_ALL) load_stage(st, st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT_ALL; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int st = kt % STAGES;
-    __nv_bfloat16* a = As + st * A_STAGE;
-    if (p.has_ln && kt < KT) {
-      const uint4 lsv = load16(p.ls + kt * BK + acol);
-      const uint4 lbv = load16(p.lb + kt * BK + acol);
-#pragma unroll
-      for (int it = 0; it < VA; ++it) {
-        const int row = (tid + it * THREADS) / (BK / 8);
-        if (m0 + row < p.M) {
-          uint4* slot = reinterpret_cast<uint4*>(a + row * A_LD + acol);
-          uint4 raw = *slot;
-          ln8(raw, row_mu[it], row_rs[it], lsv, lbv);
-          *slot = raw;
-        }
-      }
-      __syncthreads();
-    }
-    // Refill the slot consumed in the previous iteration: every thread
-    // is past that iteration's products (barrier above).
-    const int nk = kt + STAGES - 1;
-    if (nk < KT_ALL) load_stage(nk % STAGES, nk);
-    cp_async_commit();
-    if (kt == KT && p.s != 1.f) {
-      // acc += s * (z @ V): scale out before the delta tile, back after.
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][j][c] *= 1.f / p.s;
-    }
-    warp_mma(acc, a, Bs + st * B_STAGE, wr, wc, lane, kt < KT ? BK : p.r);
-  }
-  cp_async_wait<0>();
-  if (p.r > 0 && p.s != 1.f) {
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] *= p.s;
-  }
-
-  // Epilogue from the registers: thread (g, t) holds rows g and g + 8,
-  // columns 2t and 2t + 1 of every 16x8 accumulator tile.
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gm = m0 + wr * WM + i * 16 + g + half * 8;
-      if (gm >= p.M) continue;
-      const float gate = p.has_res ? p.dpm[gm] : 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int gn = n0 + wc * WN + j * 8 + t2;
-        if (gn >= p.N) continue;
-        const float2 bb = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(p.b + gn));
-        float y0 = acc[i][j][half * 2] + bb.x;
-        float y1 = acc[i][j][half * 2 + 1] + bb.y;
-        if (p.cb) {
-          const float2 cc = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.cb + gn));
-          y0 += p.s * cc.x;
-          y1 += p.s * cc.y;
-        }
-        if (p.act == 1) {
-          y0 = gelu(y0);
-          y1 = gelu(y1);
-        } else if (p.act == 2) {
-          const float2 gg = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  p.g + (size_t)gm * p.N + gn));
-          y0 = gg.x * gelu_grad(y0);
-          y1 = gg.y * gelu_grad(y1);
-        }
-        if (p.has_res) {
-          const float2 rr = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  p.res + (size_t)gm * p.N + gn));
-          y0 = rr.x + gate * y0;
-          y1 = rr.y + gate * y1;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)gm * p.N + gn) =
-            __floats2bfloat162_rn(y0, y1);
-      }
-    }
-  }
-}
-
 template <int RP>
-void launch_z(const SiteArgs& p, const __nv_bfloat16* u, __nv_bfloat16* z,
-              cudaStream_t stream) {
-  site_z_kernel<RP><<<(p.M + ZBM - 1) / ZBM, ZTHREADS, 0, stream>>>(p, u,
-                                                                    z);
+void launch_z(const __nv_bfloat16* x, const __nv_bfloat16* u,
+              __nv_bfloat16* z, int M, int K, int r, cudaStream_t stream) {
+  rank_z_kernel<RP><<<(M + ZBM - 1) / ZBM, ZTHREADS, 0, stream>>>(x, u, z,
+                                                                  M, K, r);
+}
+
+// The site's block width, RK / ZN (no rank step at r = 0; z 16 wide for r
+// <= 16, else 64) and epilogue, as template arguments.
+template <int E, int RK, int ZN>
+int launch_site(const GemmMaps& maps, const GemmArgs& p, cudaStream_t s) {
+  if (p.M >= 256 && p.N >= 256)
+    return launch<NN, E, 256, RK, ZN>(maps, p, 1, s);
+  return launch<NN, E, 128, RK, ZN>(maps, p, 1, s);
+}
+
+template <int E>
+int launch_rank(const GemmMaps& maps, const GemmArgs& p, int r,
+                cudaStream_t s) {
+  if (r == 0) return launch_site<E, 0, 0>(maps, p, s);
+  if (r <= 16) return launch_site<E, 1, 16>(maps, p, s);
+  return launch_site<E, 4, 64>(maps, p, s);
 }
 
 }  // namespace
 
-// One dense site: row statistics (when has_ln), the rank-r pre-pass
-// (when r > 0) and the GEMM with its epilogue, all on `stream`.
-// mean/rstd are fp32 (M,) scratch, z is bf16 (M, 64) scratch.  act 2
-// (dact) reads g (M, N) and writes g * gelu'(pre) to out.  Needs
-// K % 64 == 0, N % 8 == 0, r <= 64 and 16-byte aligned pointers; the Python
-// wrapper checks them.  Returns cudaGetLastError().
-extern "C" int cara_cp_site(
-    const void* x, const void* ln_scale, const void* ln_bias, const void* w,
-    const void* b, const void* u, const void* v, const void* cb,
-    const void* res, const void* dpm, const void* g, void* mean, void* rstd,
-    void* z, void* out, int M, int K, int N, int r, int has_ln, int act,
-    int has_res, float s, float ln_eps, void* stream_ptr) {
+// One dense site on `stream`: out (M, N) bf16 from xa (M, K) (already
+// normalized on an LN site), W (K, N), b (N,), U (K, r8) with r8 = r
+// rounded up to 8 (zero columns past r), V (r, N), cb (N,) or null.  act:
+// 0 none, 1 GELU, 2 dact (reads g (M, N), writes g * gelu'(pre));
+// has_res: out = res + dpm[row] * y with res (M, N) bf16 and dpm (M,)
+// fp32 (not with dact).  z (M, 64) or null: where given (r > 0), bf16(xa
+// U), zero past r, is written there.  Needs K and N multiples of 8, r <=
+// 64 and 16-byte aligned pointers; the Python wrapper checks them.
+// Returns cudaGetLastError() or the tensor-map encoding's error.
+extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
+                            const void* u, const void* v, const void* cb,
+                            const void* res, const void* dpm, const void* g,
+                            void* z, void* out, int M, int K, int N, int r,
+                            int act, int has_res, float s,
+                            void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  SiteArgs p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.mean = static_cast<const float*>(mean);
-  p.rstd = static_cast<const float*>(rstd);
-  p.ls = static_cast<const __nv_bfloat16*>(ln_scale);
-  p.lb = static_cast<const __nv_bfloat16*>(ln_bias);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.b = static_cast<const __nv_bfloat16*>(b);
-  p.z = static_cast<const __nv_bfloat16*>(z);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.cb = static_cast<const __nv_bfloat16*>(cb);
-  p.res = static_cast<const __nv_bfloat16*>(res);
+  if (r < 0 || r > BK || act < 0 || act > 2 || (act == 2 && has_res) ||
+      M < 1 || K < 8 || K % 8 || N % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmArgs p{};
+  p.c16 = static_cast<__nv_bfloat16*>(out);
+  p.bias1 = static_cast<const __nv_bfloat16*>(b);
+  p.bias2 = static_cast<const __nv_bfloat16*>(cb);
+  p.gv = r > 0 ? static_cast<__nv_bfloat16*>(z) : nullptr;
   p.dpm = static_cast<const float*>(dpm);
-  p.g = static_cast<const __nv_bfloat16*>(g);
-  p.out = static_cast<__nv_bfloat16*>(out);
   p.M = M;
-  p.K = K;
   p.N = N;
-  p.r = r;
-  p.has_ln = has_ln;
-  p.act = act;
-  p.has_res = has_res;
+  p.K = K;
+  p.k_split = K;
   p.s = s;
-  if (has_ln) {
-    const int rows_per_block = 8;
-    row_stats_kernel<<<(M + rows_per_block - 1) / rows_per_block,
-                       rows_per_block * 32, 0, stream>>>(
-        p.x, static_cast<float*>(mean), static_cast<float*>(rstd), M, K,
-        ln_eps);
+  const int zn = r == 0 ? 0 : r <= 16 ? 16 : 64;
+  const int r8 = (r + 7) / 8 * 8;
+  GemmMaps maps;
+  int err = map2d(&maps.a, xa, K, M, K, BM);
+  if (!err) err = map2d(&maps.b, w, N, K, N, 64);
+  if (!err && r > 0) {
+    err = map2d(&maps.v, u, r8, K, r8, BK, 2, zn);
+    if (!err) err = map2d(&maps.b2, v, N, r, N, 64);
   }
-  if (r > 0) {
-    const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
-    __nv_bfloat16* zz = static_cast<__nv_bfloat16*>(z);
-    if (r <= 16) launch_z<16>(p, uu, zz, stream);
-    else if (r <= 32) launch_z<32>(p, uu, zz, stream);
-    else launch_z<64>(p, uu, zz, stream);
-  }
-  // Set once: the attribute is per process (one device per process).
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      site_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(GEMM_SMEM));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  site_gemm_kernel<<<grid, THREADS, GEMM_SMEM, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (!err) err = map2d(&maps.c16, out, N, M, N, BM);
+  if (!err && (act == 2 || has_res))
+    err = map2d(&maps.aux, act == 2 ? g : res, N, M, N, BM);
+  if (err) return err;
+  if (act == 2) return launch_rank<EPI_SITE_DACT>(maps, p, r, stream);
+  if (has_res)
+    return act ? launch_rank<EPI_SITE_GELU_RES>(maps, p, r, stream)
+               : launch_rank<EPI_SITE_RES>(maps, p, r, stream);
+  return act ? launch_rank<EPI_SITE_GELU>(maps, p, r, stream)
+             : launch_rank<EPI_SITE>(maps, p, r, stream);
 }
 
-// The rank pre-pass alone: z (M, 64) bf16 = bf16(x @ U), zero past r, for
+// The rank product alone: z (M, 64) bf16 = bf16(x @ U), zero past r, for
 // x (M, K) bf16 and U (K, r).  Needs K % 64 == 0, 1 <= r <= 64 and 16-byte
 // aligned pointers; the Python wrapper checks.  Returns cudaGetLastError().
 extern "C" int cara_rank_z(const void* x, const void* u, void* z, int M,
@@ -543,15 +246,11 @@ extern "C" int cara_rank_z(const void* x, const void* u, void* z, int M,
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (r < 1 || r > ZW || K % BK)
     return static_cast<int>(cudaErrorInvalidValue);
-  SiteArgs p{};
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.M = M;
-  p.K = K;
-  p.r = r;
+  const __nv_bfloat16* xx = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
   __nv_bfloat16* zz = static_cast<__nv_bfloat16*>(z);
-  if (r <= 16) launch_z<16>(p, uu, zz, stream);
-  else if (r <= 32) launch_z<32>(p, uu, zz, stream);
-  else launch_z<64>(p, uu, zz, stream);
+  if (r <= 16) launch_z<16>(xx, uu, zz, M, K, r, stream);
+  else if (r <= 32) launch_z<32>(xx, uu, zz, M, K, r, stream);
+  else launch_z<64>(xx, uu, zz, M, K, r, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -300,9 +300,12 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d,
 // is looked up through the CUDA runtime's entry-point query, so nothing
 // links libcuda.  The encoding depends on its arguments alone (not on the
 // memory at `base`), and a training step allocates its tensors at the
-// same addresses as the step before, so encoded maps are kept in a small
-// table keyed by every argument: a GEMM's few maps cost a lookup, not an
-// encoding each.  Returns 0 or a CUresult / cudaError_t code.
+// same addresses as the step before, so encoded maps are kept in a table
+// keyed by every argument: a GEMM's few maps cost a lookup, not an
+// encoding each.  A ViT-B training step's products (the forward sites
+// and the block backwards of 12 layers) use several hundred maps, so the
+// table has 4096 slots (1 MB).  Returns 0 or a CUresult / cudaError_t
+// code.
 struct MapKey {
   const void* base;
   int rank, elem_bytes;
@@ -313,7 +316,7 @@ struct MapKey {
 inline int encode_map(CUtensorMap* map, const void* base, int rank,
                       const uint64_t* dims, const uint64_t* strides,
                       const uint32_t* box, int elem_bytes = 2) {
-  constexpr int kSlots = 512;
+  constexpr int kSlots = 4096;
   static MapKey keys[kSlots];
   static CUtensorMap maps[kSlots];
   static bool used[kSlots];

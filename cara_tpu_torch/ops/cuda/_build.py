@@ -40,7 +40,7 @@ _U = ctypes.c_uint
 _S = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 # name -> argtypes of the C entry points (see the .cu files).
 _SIGNATURES = {
-    "cara_cp_site": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
+    "cara_cp_site": [_P] * 11 + [_I] * 6 + [_F, _P],
     "cara_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "cara_qkv_attention_smem": [_I, _I],
     "cara_qkv_attention_bwd": [_P] * 5 + [_I] * 5 + [_F, _P],

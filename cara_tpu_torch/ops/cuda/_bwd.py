@@ -1,6 +1,7 @@
 """Launchers of the kernels the backward wrappers compose
-(``csrc/grad_gemm.cu``, ``csrc/block_rows.cu`` and the rank pre-pass of
-``csrc/cp_site.cu``), and the plain LayerNorm input backward they mirror.
+(``csrc/grad_gemm.cu``, ``csrc/block_rows.cu``, whose LayerNorm row pass
+the forward sites use too, and the rank product of ``csrc/cp_site.cu``),
+and the plain LayerNorm input backward they mirror.
 
 These are the products and row passes inside the TPU kernels
 ``_attn_block_bwd_wd_kernel``, ``_mlp_bwd_wd_kernel``, ``_mlp_bwd_kernel``
@@ -194,7 +195,7 @@ def dt_splits(m: int, n: int, k: int) -> int:
 
 def rank_z(x2, u):
     """z = bf16(x2 @ U) (M, 64), zero past the rank, for x2 (M, K) and U
-    (K, r).  The pre-pass of ``csrc/cp_site.cu``."""
+    (K, r): ``csrc/cp_site.cu``'s rank product alone."""
     m, k = x2.shape
     dev = x2.device
     _build.check_cuda_inputs("rank_z", dev, x=x2, u=u)
@@ -238,10 +239,13 @@ def factor_grad(a, b):
 
 
 def ln_rows(x2, ls, lb, eps: float):
-    """xa = bf16(LN(x2)) for x2 (M, K)."""
+    """xa = bf16(LN(x2)) for x2 (M, K), K % 8 == 0 and K <= 4096."""
     m, k = x2.shape
     dev = x2.device
     _build.check_cuda_inputs("ln_rows", dev, x=x2, ln_scale=ls, ln_bias=lb)
+    if k % 8 or k > 4096 or ls.shape != (k,) or lb.shape != (k,):
+        raise ValueError(f"ln_rows takes K % 8 == 0, K <= 4096 and (K,) "
+                         f"scale and bias, got x {tuple(x2.shape)}")
     out = torch.empty_like(x2)
     code = _build.lib().cara_ln_rows(
         x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), out.data_ptr(), m, k,

@@ -1,5 +1,6 @@
-"""The dense CaRA site shared by the two block kernels: its plain PyTorch
-math and its launcher for ``csrc/cp_site.cu``.
+"""The dense CaRA site shared by the block kernels, ``cp_dense`` and the
+whole-block eval: its plain PyTorch math and its launcher for
+``csrc/cp_site.cu``.
 
 ``out = epi(pro(x) @ W + b + s * ((pro(x) @ U) @ V + cb))`` with ``pro``
 an optional LayerNorm and ``epi`` an optional GELU and residual
@@ -7,6 +8,14 @@ an optional LayerNorm and ``epi`` an optional GELU and residual
 points follow the TPU kernels: the
 normalized row and ``z = pro(x) @ U`` are rounded to the input dtype,
 everything else accumulates in fp32 and is rounded once at the end.
+
+On the card a site is ``csrc/block_rows.cu``'s LayerNorm row pass (LN
+sites only: it writes ``xa = bf16(LN(x))``) and one ``cp_site.cu``
+product on the ``wgmma`` + TMA core, z folded into it.  The launches of
+that product are counted by epilogue: ``LAUNCHES_BF16`` (no activation
+or residual: qkv, the split route's projection), ``LAUNCHES_GELU`` (fc1),
+``LAUNCHES_RES`` (the residual with or without the GELU: the block
+kernels' projection and fc2) and ``LAUNCHES_DACT`` (the dact mode).
 """
 
 from __future__ import annotations
@@ -15,7 +24,13 @@ from typing import Optional
 
 import torch
 
-from cara_tpu_torch.ops.cuda import _build
+from cara_tpu_torch.ops.cuda import _build, _bwd
+from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
+
+LAUNCHES_BF16 = 0
+LAUNCHES_GELU = 0
+LAUNCHES_RES = 0
+LAUNCHES_DACT = 0
 
 
 def site_plain(xa, w, b, u, v, cb: Optional[torch.Tensor], s: float):
@@ -28,16 +43,34 @@ def site_plain(xa, w, b, u, v, cb: Optional[torch.Tensor], s: float):
     return xa.float() @ w.float() + b.float() + s * d
 
 
+def site_forward_plain(x2, w, b, u, v, cb, s, *, ln=None, gelu=False,
+                       res=None, dpm_rows=None, dact_g=None):
+    """Plain twin of :func:`site_cuda` (its output; z is
+    ``site_plain``'s): LN(x) rounded to ``x2.dtype``, the GELU, the
+    residual ``res + dpm_rows * y`` or the dact ``g * gelu'(y)`` on the
+    fp32 ``y``, the result rounded to ``x2.dtype``."""
+    xa = x2 if ln is None else layer_norm(x2, *ln)
+    y = site_plain(xa, w, b, u, v, cb, s)
+    if dact_g is not None:
+        return (dact_g.float() * activation_grad(y, "gelu")).to(x2.dtype)
+    if gelu:
+        y = activation(y, "gelu")
+    if res is not None:
+        y = res.float() + dpm_rows.float()[:, None] * y
+    return y.to(x2.dtype)
+
+
 def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
               dpm_rows=None, dact_g=None, return_z=False):
-    """Launch the site kernel on 2-D bf16 ``x2`` (M, K) -> (M, N), and
-    with ``return_z`` its rank operand z = bf16(pro(x) U) (M, 64), zero
-    past the rank (the backward's factor gradients read it).
+    """Launch the site on 2-D bf16 ``x2`` (M, K) -> (M, N), and with
+    ``return_z`` its rank operand z = bf16(pro(x) U) (M, 64), zero past
+    the rank (the backward's factor gradients read it).
 
     ``ln`` = (scale, bias, eps) or None; ``res`` (M, N) and ``dpm_rows``
     (M,) fp32 together select the residual epilogue; ``dact_g`` (M, N)
     selects the dact epilogue, ``bf16(g * gelu'(pre))`` from the fp32
     pre-activation, in place of the output."""
+    global LAUNCHES_BF16, LAUNCHES_GELU, LAUNCHES_RES, LAUNCHES_DACT
     m, k = x2.shape
     n = w.shape[1]
     r = u.shape[1]
@@ -46,11 +79,11 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
     _build.check_cuda_inputs("cp_site", dev, x=x2, w=w, b=b, u=u, v=v,
                              cb=cb, res=res, ln_scale=ls, ln_bias=lb,
                              g=dact_g)
-    if k % 64 or n % 8:
-        raise ValueError(f"cp_site needs K % 64 == 0 and N % 8 == 0, got "
+    if k % 8 or n % 8:
+        raise ValueError(f"cp_site needs K % 8 == 0 and N % 8 == 0, got "
                          f"K={k} N={n}")
-    if r > 64:
-        raise ValueError(f"cp_site supports rank <= 64, got {r}")
+    if r > _bwd.RANK_W:
+        raise ValueError(f"cp_site supports rank <= {_bwd.RANK_W}, got {r}")
     if w.shape != (k, n) or b.shape != (n,) or u.shape != (k, r) \
             or v.shape != (r, n) or (cb is not None and cb.shape != (n,)):
         raise ValueError(
@@ -66,17 +99,28 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
                                or res is not None):
         raise ValueError("cp_site dact needs g (M, N) and neither the GELU "
                          "nor the residual epilogue")
+    xa = x2 if ln is None else _bwd.ln_rows(x2, ls, lb, eps)
+    # U is read by TMA as (K, r8): rows of 16 bytes, zero columns past r.
+    u8 = _bwd.pad_cols8(u) if r else u
     out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
-    stats = torch.empty((2, m), device=dev, dtype=torch.float32)
-    # z = pro(x) @ U, written zero-padded to the GEMM's 64-deep k step.
-    z = torch.empty((m, 64), device=dev, dtype=torch.bfloat16)
+    z = None
+    if return_z:
+        z = (torch.empty if r else torch.zeros)(
+            (m, _bwd.RANK_W), device=dev, dtype=torch.bfloat16)
+    act = 2 if dact_g is not None else int(gelu)
     code = _build.lib().cara_cp_site(
-        _build.ptr(x2), _build.ptr(ls), _build.ptr(lb), _build.ptr(w),
-        _build.ptr(b), _build.ptr(u), _build.ptr(v), _build.ptr(cb),
-        _build.ptr(res), _build.ptr(dpm_rows), _build.ptr(dact_g),
-        stats[0].data_ptr(), stats[1].data_ptr(), z.data_ptr(),
-        out.data_ptr(), m, k, n, r, int(ln is not None),
-        2 if dact_g is not None else int(gelu), int(res is not None),
-        float(s), float(eps), _build.stream_ptr(dev))
+        xa.data_ptr(), w.data_ptr(), b.data_ptr(), _build.ptr(u8),
+        _build.ptr(v), _build.ptr(cb), _build.ptr(res),
+        _build.ptr(dpm_rows), _build.ptr(dact_g), _build.ptr(z),
+        out.data_ptr(), m, k, n, r, act, int(res is not None), float(s),
+        _build.stream_ptr(dev))
     _build.check(code, "cp_site")
+    if dact_g is not None:
+        LAUNCHES_DACT += 1
+    elif res is not None:
+        LAUNCHES_RES += 1
+    elif gelu:
+        LAUNCHES_GELU += 1
+    else:
+        LAUNCHES_BF16 += 1
     return (out, z) if return_z else out

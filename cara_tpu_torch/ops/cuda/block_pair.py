@@ -4,10 +4,11 @@ transformer block with CaRA deltas, the mid residual kept on chip.
 Replaces the TPU kernel ``cara_tpu/ops/pallas/block_pair.py``
 (``block_pair_fwd``, ``_pair_kernel``), which holds one image's whole
 block in VMEM so that the post-attention residual ``x_mid`` never goes
-to device memory.  On Hopper it is two launches:
+to device memory.  On Hopper it is three launches:
 
-1. ``csrc/cp_site.cu`` with the LayerNorm prologue: qkv = LN1(x) Wq + bq
-   + (z1 V1), z1 = LN1(x) U1 rounded to bf16 (as row 5's port);
+1. ``csrc/block_rows.cu``'s LayerNorm row pass and ``csrc/cp_site.cu``'s
+   product: qkv = LN1(x) Wq + bq + (z1 V1), z1 = LN1(x) U1 rounded to
+   bf16 (as row 5's port);
 2. ``csrc/block_pair.cu``, one block per (image, 32-query-row tile):
    attention -> proj site + delta + cb2 + residual -> x_mid in shared
    memory -> LN2 -> fc1 site + delta + cb1 + GELU in hidden chunks ->

@@ -5,10 +5,11 @@ Replaces the TPU megakernel ``cara_tpu/ops/pallas/cp_attn_block.py``
 (``cp_attn_block``, ``_ab_fwd`` / ``_attn_block_fwd_kernel``), which runs
 the whole half-block on one image's tiles resident in up to 100 MB of
 VMEM.  A Hopper block has 227 KB of shared memory, so the port composes
-three launches of two hand-written kernels:
+four launches of three hand-written kernels:
 
-1. ``csrc/cp_site.cu`` with the LayerNorm prologue: qkv = LN1(x) Wq + bq
-   + (z1 V1), z1 = LN1(x) U1 rounded to bf16 — written to device memory;
+1. ``csrc/block_rows.cu``'s LayerNorm row pass, xa = bf16(LN1(x)), then
+   ``csrc/cp_site.cu``'s product: qkv = xa Wq + bq + (z1 V1), z1 = xa U1
+   accumulated beside it and rounded to bf16 — written to device memory;
 2. ``csrc/qkv_attention.cu`` on that qkv — (B, N, E) written back;
 3. ``csrc/cp_site.cu`` with the residual epilogue: proj, its delta, cb2
    and ``x + dpm * y``.

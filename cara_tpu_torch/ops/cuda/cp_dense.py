@@ -8,9 +8,11 @@ GELU fused, and fc2 site once activation dropout turns the MLP
 megakernel off):
 
 * forward, TPU row 13 (``_cp_dense_raw`` / ``_cp_dense_kernel``): the
-  site kernel ``csrc/cp_site.cu`` through ``_site.site_cuda``, LayerNorm
-  prologue optional, z = pro(x) U rounded to bf16 before V, the exact-erf
-  GELU in the epilogue for ``act="gelu"``;
+  site through ``_site.site_cuda``, ``csrc/block_rows.cu``'s LayerNorm
+  row pass first for ``cp_dense_ln``, then ``csrc/cp_site.cu``'s product
+  on the ``wgmma`` + TMA core with z = pro(x) U accumulated beside it and
+  rounded to bf16 before V, the exact-erf GELU in the epilogue for
+  ``act="gelu"``;
 * the activation's backward, TPU row 13's helper
   (``_cp_dense_dact_kernel``): the same site kernel in its dact mode
   recomputes the fp32 pre-activation tile and writes ``dpre = bf16(g *
@@ -218,7 +220,7 @@ def _factor_grads_plain(xa, g2, gv, u, s):
 
 def _factor_grads_cuda(xa, g2, gv, u, s, z=None):
     """du, dv, db from xa, g2, gv and z = bf16(xa U) (M, 64), which the
-    rank pre-pass computes when the forward did not keep it."""
+    rank product computes when the forward did not keep it."""
     r = u.shape[1]
     du = _bwd.factor_grad(xa, gv)[:, :r]
     dv = _bwd.factor_grad(_bwd.rank_z(xa, u) if z is None else z, g2)[:r]

@@ -5,12 +5,13 @@
 Replaces the TPU megakernel ``cara_tpu/ops/pallas/cp_mlp.py``
 (``cp_mlp_block``, ``_mlp_fwd_raw`` / ``_mlp_fwd_kernel``), which keeps
 each 256-row tile's (rows, 4E) hidden activation in VMEM next to both
-weight matrices.  On Hopper the port composes two launches of
-``csrc/cp_site.cu``: fc1 with the LayerNorm prologue, its delta, cb1 and
-the exact-erf GELU epilogue, writing ``h`` (rounded to bf16 as the TPU
-kernel does before fc2); then fc2 with its delta, cb2 and the residual
-``x + dpm * y``.  ``h`` (M x 4E bf16, 77 MB at ViT-B batch 64) makes a
-round trip through HBM that the TPU kernel avoided; both GEMMs are
+weight matrices.  On Hopper the port composes ``csrc/block_rows.cu``'s
+LayerNorm row pass (xa = bf16(LN2(x))) and two launches of
+``csrc/cp_site.cu``: fc1 on xa with its delta, cb1 and the exact-erf GELU
+epilogue, writing ``h`` (rounded to bf16 as the TPU kernel does before
+fc2); then fc2 with its delta, cb2 and the residual ``x + dpm * y``.
+``h`` (M x 4E bf16, 77 MB at ViT-B batch 64) makes a round trip through
+HBM that the TPU kernel avoided; both GEMMs are
 tensor-core bound at ViT-B, so the first version accepts that, and fusing
 fc1 into fc2 is later work.  The TPU epilogue's A&S erf is replaced by the
 exact erf, as the JAX XLA path uses.  The save-pre mode is not ported.
@@ -31,7 +32,7 @@ the rank / row / no-dropout training route).  The TPU kernel recomputes
 LN2, the pre-activation and h per 256-row tile and accumulates the four
 rank-space factor gradients over its sequential grid; here the same
 recompute (no save-pre mode) and the rank-space products are launches of
-``csrc/block_rows.cu``, the rank pre-pass of ``csrc/cp_site.cu`` and
+``csrc/block_rows.cu``, the rank product of ``csrc/cp_site.cu`` and
 ``csrc/grad_gemm.cu`` (its rank k-step keeps every delta in rank space,
 the two g V^T operands folded into the NT products that read g,
 its TN split sums the factor gradients over the token rows in a fixed
@@ -134,13 +135,13 @@ def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
     """The backward on CUDA tensors, as launches (M rows; each rank-r
     operand is written 64 wide, zero past r, for the GEMMs' rank step):
 
-    ``ln_rows`` xa = LN2(x); rank pre-pass z1 = bf16(xa U1); NN
+    ``ln_rows`` xa = LN2(x); rank product z1 = bf16(xa U1); NN
     ``grad_gemm`` + rank step pre = xa W1 + b1 + s (z1 V1 + cb1) (fp32)
     and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g dpm); NT + folded
     rank step dpre = (g2 W2^T + s gv2 U2^T) gelu'(pre), bf16, with its
     column sums and gv2 = bf16(g2 V2^T); ``colsum`` ds1, ds2; NT + folded
     rank step dxa = dpre W1^T + s gv1 U1^T (fp32) and gv1 = bf16(dpre
-    V1^T); ``ln_bwd_residual`` dx; pre-pass z2 = bf16(h U2); the four
+    V1^T); ``ln_bwd_residual`` dx; rank product z2 = bf16(h U2); the four
     split TN factor products du1 = xa^T gv1, dv1 = z1^T dpre,
     du2 = h^T gv2, dv2 = z2^T g2 (fp32, summed over all M rows)."""
     if act != "gelu":

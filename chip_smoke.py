@@ -112,15 +112,20 @@ fatal on failure:
    is 48 for each forward it ran); then the unmerged ViT-B forward with
    every block through row 19 (once a layer), its logits within 5 % of
    the default route's;
-12. the GEMM core of the block backwards alone (``csrc/grad_gemm.cu``, run
-   with phase 3's): row 11's five products at B 64, N 197 (NN with the
-   PRE_GELU epilogue, NT with DGELU, NT dxa, the two TN dT products)
-   against their fp32 plain versions, timed beside ``torch.matmul`` on
-   the same bf16 operands (launches: the element training phase); then
-   determinism: the backwards of rows 2 (N 197, 512), 16 (N 577) and 17
-   (N 197, 577) called twice at B 64 give dq, dk and dv bit for bit, and
-   two runs of two rank steps of ViT-B at 224 px from one state and seed
-   end with every trainable leaf bit for bit.
+12. the GEMM core (``csrc/sm90_gemm.cuh``) alone, run with phase 3's:
+   row 11's five products at B 64, N 197 (``grad_gemm.cu``: NN with the
+   PRE_GELU epilogue, NT with DGELU, NT dxa, the two TN dT products;
+   launches: the element training phase) and the forward site's five
+   forms (``cp_site.cu`` with the LayerNorm row pass: qkv with LN1, proj
+   and fc2 with the residual, fc1 with LN2 and the GELU, fc1's dact;
+   delta scale 1.5; launches: adapter serving, the dact mode the rank
+   route with dropout) against their fp32 plain versions, timed beside
+   ``torch.matmul`` on the same bf16 operands; then determinism: the
+   backwards of rows 2 (N 197, 512), 16 (N 577) and 17 (N 197, 577)
+   called twice at B 64 give dq, dk and dv bit for bit, the five site
+   forms their outputs, and two runs of two rank steps of ViT-B at 224
+   px from one state and seed end with every trainable leaf bit for
+   bit.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -173,7 +178,7 @@ from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import quant as quant_lib
 from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.vit import vit_forward
-from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
+from cara_tpu_torch.ops.cuda import _build, _bwd, _site, wd_fold
 from cara_tpu_torch.ops.cuda import block_pair as pair_mod
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_attn_block as attn_mod
@@ -341,7 +346,38 @@ KERNELS = {
     "grad_gemm_tn_dt2": (
         _bwd, "LAUNCHES_TN_F32", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    # The forward CaRA site alone (csrc/cp_site.cu on the wgmma core of
+    # sm90_gemm.cuh, z folded in; the LayerNorm row pass of block_rows.cu
+    # before it on an LN site) at ViT-B's five forms, M = 12608
+    # (launches: adapter serving for the four block sites, rows 5 and 9
+    # in every layer, by epilogue; the rank route with dropout for the
+    # dact mode).
+    "cp_site_qkv_ln": (
+        _site, "LAUNCHES_BF16", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_attn_block.py:305"),
+    "cp_site_proj_res": (
+        _site, "LAUNCHES_RES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_attn_block.py:305"),
+    "cp_site_fc1_ln_gelu": (
+        _site, "LAUNCHES_GELU", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:253"),
+    "cp_site_fc2_res": (
+        _site, "LAUNCHES_RES", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:253"),
+    "cp_site_fc1_dact": (
+        _site, "LAUNCHES_DACT", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:356"),
 }
+SITE_PRODUCTS = ("cp_site_qkv_ln", "cp_site_proj_res", "cp_site_fc1_ln_gelu",
+                 "cp_site_fc2_res", "cp_site_fc1_dact")
+# The site entries whose launches adapter serving counts.
+SITE_SERVING = SITE_PRODUCTS[:4]
+# The delta scale of the site entries: not 1, so that the kernel's fp32
+# scale step runs.  The rounding of z to bf16 (the TPU's rounding point)
+# is multiplied by it: at 10 (the smoke checkpoints' CaRA scale) with
+# these inputs' factors (std 0.05) the bf16 plain twin itself misses
+# KERNEL_TOL against fp32 (0.067 at |ref| 0.02 on the qkv site).
+SITE_SCALE = 1.5
 GEMM_PRODUCTS = ("grad_gemm_nn_pre_gelu", "grad_gemm_nt_dgelu",
                  "grad_gemm_nt_dxa", "grad_gemm_tn_dt1", "grad_gemm_tn_dt2")
 GELU_KERNELS = ("cp_dense_gelu", "cp_dense_dact", "cp_dense_wd_gelu",
@@ -380,7 +416,7 @@ DROPOUT_ELEMENT_KERNELS = ("build_wd_weight", "cp_dense_wd",
                            "cp_dense_wd_gelu", "cp_dense_wd_dact")
 DROPOUT_RANK_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
                         "fused_qkv_attention_bwd", "cp_dense_gelu",
-                        "cp_dense_dact")
+                        "cp_dense_dact", "cp_site_fc1_dact")
 # What the 384-px route must not launch: the full-score attention and the
 # attention megakernels, capped at 512 tokens.
 SHORT_ATTENTION_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd",
@@ -449,7 +485,13 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "grad_gemm_nt_dgelu": (2e-2, 2e-2),
               "grad_gemm_nt_dxa": (1e-2, 1e-2),
               "grad_gemm_tn_dt1": (1e-2, 1e-2),
-              "grad_gemm_tn_dt2": (1e-2, 1e-2)}
+              "grad_gemm_tn_dt2": (1e-2, 1e-2),
+              # one rounding to bf16 each of xa, z and the output
+              "cp_site_qkv_ln": (2e-2, 2e-2),
+              "cp_site_proj_res": (2e-2, 2e-2),
+              "cp_site_fc1_ln_gelu": (2e-2, 2e-2),
+              "cp_site_fc2_res": (2e-2, 2e-2),
+              "cp_site_fc1_dact": (5e-2, 5e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -1167,6 +1209,87 @@ def gemm_kernel_phase(dev, inp, timed: bool = True) -> dict:
                          library=gemm_library_calls(o) if timed else {})
 
 
+def site_operands(inp) -> dict:
+    """name -> (positional arguments, keyword arguments) of
+    ``_site.site_cuda`` for each of ``SITE_PRODUCTS`` at ``inp``'s
+    shapes: the qkv site (LN1, no cb) on the attention block's x, the
+    projection with the residual on ``inp["o"]``, fc1 (LN2, GELU) on the
+    MLP block's x, fc2 with the residual on a hidden activation, and
+    fc1's dact mode on the hidden cotangent; drop-path gates by image,
+    delta scale ``SITE_SCALE``."""
+    a, m = inp["attn"], inp["mlp"]
+    b, n, e = inp["b"], inp["n"], inp["e"]
+    hid = m["w1"].shape[1]
+    x_attn, x_mlp = a["x"].reshape(-1, e), m["x"].reshape(-1, e)
+    dpm = inp["gates"].float().expand(b, n).reshape(-1).contiguous()
+    hidden = inp["g_hid"].reshape(-1, hid)
+    ln1 = (a["ln_scale"], a["ln_bias"], 1e-6)
+    ln2 = (m["ln_scale"], m["ln_bias"], 1e-6)
+    fc1 = (x_mlp, m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"],
+           SITE_SCALE)
+    return {
+        "cp_site_qkv_ln": ((x_attn, a["wq"], a["bq"], a["u1"], a["v1"],
+                            None, SITE_SCALE), dict(ln=ln1)),
+        "cp_site_proj_res": ((inp["o"].reshape(-1, e), a["wp"], a["bp"],
+                              a["u2"], a["v2"], a["cb2"], SITE_SCALE),
+                             dict(res=x_attn, dpm_rows=dpm)),
+        "cp_site_fc1_ln_gelu": (fc1, dict(ln=ln2, gelu=True)),
+        "cp_site_fc2_res": ((hidden, m["w2"], m["b2"], m["u2"], m["v2"],
+                             m["cb2"], SITE_SCALE),
+                            dict(res=x_mlp, dpm_rows=dpm)),
+        "cp_site_fc1_dact": (fc1, dict(ln=ln2, dact_g=hidden)),
+    }
+
+
+def site_kernel_calls(inp) -> dict:
+    """:func:`kernel_calls` for ``SITE_PRODUCTS``: ``_site.site_cuda``
+    against ``_site.site_forward_plain`` on the same inputs, in bf16 and
+    in fp32 (:func:`site_operands`)."""
+
+    def cast(t, dtype):
+        if isinstance(t, tuple):
+            return tuple(cast(v, dtype) for v in t)
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            return t.to(dtype)
+        return t
+
+    out = {}
+    for name, (args, kw) in site_operands(inp).items():
+        def plain(dtype, args=args, kw=kw):
+            return _site.site_forward_plain(
+                *cast(args, dtype), **{k: cast(v, dtype)
+                                       for k, v in kw.items()})
+
+        out[name] = (functools.partial(_site.site_cuda, *args, **kw),
+                     functools.partial(plain, torch.bfloat16),
+                     functools.partial(plain, torch.float32))
+    return out
+
+
+def site_library_calls(inp) -> dict:
+    """One ``torch.matmul`` of each site's dense product (x W, on xa =
+    bf16(LN(x)) for an LN site) on the same bf16 operands: a yardstick,
+    timed only."""
+    out = {}
+    for name, (args, kw) in site_operands(inp).items():
+        x2, w = args[0], args[1]
+        if "ln" in kw:
+            x2 = layer_norm(x2, *kw["ln"])
+        out[name] = functools.partial(torch.matmul, x2, w)
+    return out
+
+
+def site_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """``SITE_PRODUCTS`` at ``inp``'s shapes, each against its fp32 plain
+    version, timed beside ``torch.matmul``."""
+    print(f"[kernel] cp_site.cu at ViT-B's forward sites: M "
+          f"{inp['b'] * inp['n']}, E {inp['e']}, hidden "
+          f"{inp['mlp']['w1'].shape[1]}, rank {inp['attn']['u1'].shape[1]}, "
+          f"s {SITE_SCALE}:", flush=True)
+    return check_entries(dev, inp, site_kernel_calls(inp), timed,
+                         library=site_library_calls(inp) if timed else {})
+
+
 def kernel_work(inp) -> dict:
     """name -> (operations, bytes) of each entry's call at these inputs:
     the products the function needs (a backward recomputes what its
@@ -1220,7 +1343,19 @@ def kernel_work(inp) -> dict:
     # one fp32 row per 128-row block)
     gemm = 2 * rows * e * hid
     w_bytes = e * hid * 2
+    # the forward sites alone: x (or h) read, the output written, the
+    # residual or the cotangent read, the row gates (fp32) read
+    gates = rows * 4
+    qkv_w = nb(*(a[k] for k in ("wq", "bq", "u1", "v1", "ln_scale",
+                                "ln_bias")))
+    fc2_w = nb(*(m[k] for k in ("w2", "b2", "u2", "v2", "cb2")))
     return {
+        "cp_site_qkv_ln": (site(e, 3 * e), act + qkv_w + qkv_act),
+        "cp_site_proj_res": (site(e, e), 3 * act + proj_w + gates),
+        "cp_site_fc1_ln_gelu": (site(e, hid), act + fc1_w + hid_act),
+        "cp_site_fc2_res": (site(hid, e), hid_act + fc2_w + 2 * act
+                            + gates),
+        "cp_site_fc1_dact": (site(e, hid), act + fc1_w + 2 * hid_act),
         "grad_gemm_nn_pre_gelu": (gemm, act + w_bytes + 4 * hid
                                   + rows * hid * 6),
         "grad_gemm_nt_dgelu": (gemm, act + w_bytes + rows * hid * 6
@@ -1340,7 +1475,8 @@ def determinism_phase(dev, b: int = 64, e: int = 768, heads: int = 12,
                       model: str = MODEL) -> None:
     """Bitwise determinism: each of ``DETERMINISM_ROWS`` called twice on
     the same inputs at batch ``b`` gives dq, dk and dv bit for bit (dq's
-    fp32 sum is taken in key-tile order); then two runs of ``steps`` rank
+    fp32 sum is taken in key-tile order), each of ``SITE_PRODUCTS`` its
+    output at N 197; then two runs of ``steps`` rank
     steps of ViT-B at 224 px from the same state and seed end with every
     trainable leaf bit for bit the same.  Fails the run on any
     difference."""
@@ -1360,6 +1496,19 @@ def determinism_phase(dev, b: int = 64, e: int = 768, heads: int = 12,
         require(all(same.values()), f"{name} at N {n} is not bitwise "
                 "deterministic")
         del inp, call, first, second
+    # The forward sites (no split contraction): the same output twice.
+    inp = kernel_inputs(dev, b=b, n=197, e=e, heads=heads, hidden=4 * e,
+                        seed=7)
+    for name, (kern, _, _) in site_kernel_calls(inp).items():
+        first = kern()
+        second = kern()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        print(f"[determinism] {name} at B {b}, N 197: two calls give "
+              f"{'equal' if same else 'DIFFERENT'} outputs", flush=True)
+        require(same, f"{name} is not bitwise deterministic")
+    del inp
     leaves = []
     for _ in range(2):
         cfg, cara_cfg, frozen, state, data = train_setup(
@@ -2175,7 +2324,8 @@ def dropout_phase(dev, model=MODEL, batch=64, long_model=MODEL_384,
     Then gradient checks of the rank route with attention dropout too
     (``mha``), of the element route at 384 px (batch 16, then two steps
     whose launches are counted) and of one full fine-tuning step with
-    both rates.  Returns the GELU entries' launches.  ``model``,
+    both rates.  Returns the GELU entries' launches and the site's dact
+    mode's.  ``model``,
     ``long_model`` (with ``long_over``) and the batches shrink it for a
     rehearsal on the CPU."""
     launches = {}
@@ -2191,7 +2341,7 @@ def dropout_phase(dev, model=MODEL, batch=64, long_model=MODEL_384,
                           batch=batch, model=model, impl="rank",
                           overrides=DROPOUT, path=DROPOUT_RANK_KERNELS,
                           idle=MEGA_KERNELS, falls="halves")
-    for name in ("cp_dense_gelu", "cp_dense_dact"):
+    for name in ("cp_dense_gelu", "cp_dense_dact", "cp_site_fc1_dact"):
         launches[name] = rank["launches"][name]
     cfg, cara_cfg, frozen, state, data = rank.pop("setup")
     generator = torch.Generator(device=dev)
@@ -2817,6 +2967,7 @@ def main(argv=None) -> int:
     results.update(int8_kernel_phase(dev))
     results.update(pair_kernel_phase(dev, kernel_inputs(dev)))
     results.update(gemm_kernel_phase(dev, kernel_inputs(dev)))
+    results.update(site_kernel_phase(dev, kernel_inputs(dev)))
     determinism_phase(dev)
 
     stamp("kernel entries")
@@ -2829,7 +2980,7 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         reset_launches()
         serving_phase(dev, ckpt, MODEL, images)
-        launches = read_launches(SERVING_KERNELS)
+        launches = read_launches(SERVING_KERNELS + SITE_SERVING)
         print(f"[serve] kernel launches on the serving path: {launches}",
               flush=True)
         for name, count in launches.items():

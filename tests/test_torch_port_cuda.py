@@ -34,7 +34,11 @@ head dimensions and more items than SMs; for the GEMM core of the block
 backwards (``grad_gemm.cu``) every layout and epilogue with and without
 the rank step (from memory or folded in), ragged M, N and K, N = 64 and
 split TN planes; for the tiled attention backward (rows 2, 16, 17) two
-calls on the same inputs giving dq, dk and dv bit for bit.
+calls on the same inputs giving dq, dk and dv bit for bit; for the
+forward site on that core (``cp_site.cu``: rows 5, 7, 9, 13, 19's qkv
+site) every epilogue with and without the LayerNorm row pass, ranks 0, 8
+and 64, ViT-B's four (K, N) and 197, 12608 and 36928 rows, bit for bit
+on a second call, and the LayerNorm row pass alone.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -53,14 +57,14 @@ from cara_tpu_torch.config import CaraConfig, get_model_config
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models import vit as t_vit
-from cara_tpu_torch.ops.cuda import _bwd
+from cara_tpu_torch.ops.cuda import _bwd, _site
 from cara_tpu_torch.ops.cuda import blockwise_attention as bwa_mod
 from cara_tpu_torch.ops.cuda import cp_dense as dense_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.cuda import wd_fold
-from cara_tpu_torch.ops.layers import activation_grad
+from cara_tpu_torch.ops.layers import activation_grad, layer_norm
 from cara_tpu_torch.serving import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -1038,3 +1042,130 @@ def test_grad_gemm_from_a_fresh_thread(dev):
     assert "error" not in out, out.get("error")
     ref = a.float() @ b.float().t()
     assert (out["c"] - ref).abs().max().item() <= 1e-2 * ref.abs().max()
+
+
+# cp_site.cu on the wgmma core: (ln, act, res, rank, k, n, m).  The four
+# (K, N) of ViT-B's sites (qkv, proj, fc1, fc2), every epilogue (the
+# residual with or without the GELU, the dact mode), ranks 0 (no rank
+# step: the W' form), 8 (z 16 wide) and 64 (z 64 wide), and the row
+# counts of one image and of batch 64 at 224 and 384 px (197 and 577
+# tokens), ragged against the 128-row tile.
+SITE_EPIS = [("none", False), ("none", True), ("gelu", False),
+             ("gelu", True), ("dact", False)]
+SITE_KN = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+SITE_CASES = [(ln, act, res, r, k, n, m) for ln in (False, True)
+              for act, res in SITE_EPIS for r in (0, 8, 64)
+              for k, n in SITE_KN for m in (197, 12608, 36928)]
+
+
+def _site_inputs(dev, ln, act, res, r, k, n, m, seed):
+    """bf16 inputs of one site call and its keyword arguments."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std
+                + mean).to(torch.bfloat16)
+
+    args = (rnd(m, k), rnd(k, n, std=k ** -0.5), rnd(n, std=0.1),
+            rnd(k, r, std=k ** -0.5), rnd(r, n, std=0.05), rnd(n, std=0.1))
+    kw = {}
+    if ln:
+        kw["ln"] = (rnd(k, std=0.1, mean=1.0), rnd(k, std=0.1), 1e-6)
+    if act == "gelu":
+        kw["gelu"] = True
+    if act == "dact":
+        kw["dact_g"] = rnd(m, n)
+    if res:
+        kw["res"] = rnd(m, n)
+        keep = torch.rand((m,), generator=gen, device=dev) >= 0.1
+        kw["dpm_rows"] = keep.float() / 0.9
+    return args, kw
+
+
+def _f32(kw):
+    out = {}
+    for key, val in kw.items():
+        if key == "ln":
+            val = (val[0].float(), val[1].float(), val[2])
+        elif isinstance(val, torch.Tensor):
+            val = val.float()
+        out[key] = val
+    return out
+
+
+@pytest.mark.parametrize(
+    "ln, act, res, r, k, n, m", SITE_CASES,
+    ids=[f"{'ln' if ln else 'x'}_{act}{'_res' if res else ''}_r{r}_k{k}"
+         f"_n{n}_m{m}" for ln, act, res, r, k, n, m in SITE_CASES])
+def test_cp_site_wgmma_matches_plain(dev, ln, act, res, r, k, n, m):
+    """One forward site (the LN row pass on an LN site, then the
+    ``cp_site.cu`` product with z folded in) against the fp32 plain twin
+    on the same bf16 inputs at a delta scale of 2: the output within
+    ``KERNEL_TOL`` (the dact mode's at ``cp_site_fc1_dact``'s), z =
+    bf16(xa U) within ``cp_site_qkv_ln``'s and zero past the rank, a
+    second call bit for bit (no split contraction), counted once under
+    its epilogue."""
+    args, kw = _site_inputs(dev, ln, act, res, r, k, n, m, m + k + n + r)
+    s = 2.0
+    counter = ("LAUNCHES_DACT" if act == "dact" else "LAUNCHES_RES" if res
+               else "LAUNCHES_GELU" if act == "gelu" else "LAUNCHES_BF16")
+    before = getattr(_site, counter)
+    out, z = _site.site_cuda(*args, s, return_z=True, **kw)
+    again, z_again = _site.site_cuda(*args, s, return_z=True, **kw)
+    torch.cuda.synchronize()
+    assert getattr(_site, counter) == before + 2
+    assert torch.equal(out, again) and torch.equal(z, z_again)
+    a32, kw32 = [t.float() for t in args], _f32(kw)
+    ref = _site.site_forward_plain(*a32, s, **kw32)
+    _check("cp_site_fc1_dact" if act == "dact" else "cp_site_qkv_ln", out,
+           ref)
+    xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
+    assert z.shape == (m, _bwd.RANK_W) and not z[:, r:].any()
+    _check("cp_site_qkv_ln", z[:, :r], xa @ a32[3])
+
+
+@pytest.mark.parametrize("k", [64, 200, 768, 1024, 3072])
+def test_ln_rows_kernel_matches_plain(dev, k):
+    """The LayerNorm row pass (a forward site's prologue and the
+    backward's xa) against the plain ``layer_norm`` on the same bf16 rows,
+    within one bf16 ulp of the fp32 result; near zero, where the
+    normalized value cancels against the bias, within 1e-5 (the two fp32
+    means of up to 3072 values differ in their last bits)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    x = (torch.randn((777, k), generator=gen, device=dev) * 2
+         + 0.5).to(torch.bfloat16)
+    ls = (torch.randn((k,), generator=gen, device=dev) * 0.1
+          + 1).to(torch.bfloat16)
+    lb = (torch.randn((k,), generator=gen, device=dev) * 0.1
+          ).to(torch.bfloat16)
+    out = _bwd.ln_rows(x, ls, lb, 1e-6)
+    torch.cuda.synchronize()
+    ref = layer_norm(x.float(), ls.float(), lb.float(), 1e-6)
+    ulp = torch.finfo(torch.bfloat16).eps * ref.abs()
+    assert ((out.float() - ref).abs() <= ulp.clamp_min(1e-5)).all()
+
+
+def test_cp_site_from_a_fresh_thread(dev):
+    """A thread whose first CUDA work is a site launch (autograd's device
+    thread when a forward of this library runs in a backward's
+    recompute) gets the product: the TMA maps are encoded with the
+    primary context bound to that thread."""
+    args, kw = _site_inputs(dev, True, "gelu", False, 8, 768, 2304, 300, 3)
+    out = {}
+
+    def run():
+        try:
+            out["y"] = _site.site_cuda(*args, 1.0, **kw)
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported below, in the test's thread
+            out["error"] = exc
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in out, out.get("error")
+    ref = _site.site_forward_plain(*[t.float() for t in args], 1.0,
+                                   **_f32(kw))
+    _check("cp_site_fc1_ln_gelu", out["y"], ref)

@@ -20,12 +20,17 @@ bf16:
   (``*_b2b_ms``: 20 calls between two events, so the card does not wait
   for the host between them);
 - TPU rows 11 (the element route's MLP-block backward) and 12 (both
-  split-route sites' dx with their factor gradients) at B = 64, N = 197
+  split-route sites' dx with their factor gradients), the forwards of
+  rows 5 (the attention block), 7 (its element-dropout form), 9 (the MLP
+  block), 13 (both split sites; the fc1 site's GELU body forward and
+  dact) and 19 (the whole-block eval) at B = 64, N = 197
   (``chip_smoke``'s entries), median of 20 timed calls and back to back,
   with each row's device time split by launch (``torch.profiler``, five
   calls); row 11's five ``grad_gemm`` products alone (NN ``PRE_GELU``, NT
-  ``DGELU``, NT dxa, the two TN dT products) with their TFLOP/s, beside
-  ``torch.matmul`` on the same bf16 shapes (a yardstick only);
+  ``DGELU``, NT dxa, the two TN dT products) and the forward site's five
+  forms (qkv with LN, proj and fc2 with the residual, fc1 with LN and
+  GELU, fc1's dact; whole and as the product alone) with their TFLOP/s,
+  beside ``torch.matmul`` on the same bf16 shapes (a yardstick only);
 - merged and adapter serving at 224 px and merged serving at 384 px
   (``Predictor.logits``, host clock, 10 batches);
 - the rank and element steps at 224 px, the element and rank steps at
@@ -152,6 +157,62 @@ def _launch_split(fn, calls=5) -> dict:
             if e.self_device_time_total > 0}
 
 
+def _site_products(cs, dev, inp) -> dict:
+    """The forward site's five forms at ViT-B (M 12608) through
+    ``_site.site_cuda``, whose keywords both trees take: the whole site
+    (the LN pass included on an LN site) and the product alone on xa =
+    bf16(LN(x)), ms by events, TFLOP/s of its products (x W, x U, z V),
+    beside ``torch.matmul`` of x W on the same bf16 operands (a yardstick
+    only)."""
+    import torch
+    from cara_tpu_torch.ops.cuda import _site
+    from cara_tpu_torch.ops.layers import layer_norm
+
+    a, m = inp["attn"], inp["mlp"]
+    b, n, e = inp["b"], inp["n"], inp["e"]
+    hid = m["w1"].shape[1]
+    x_attn, xm = a["x"].reshape(-1, e), m["x"].reshape(-1, e)
+    dpm = inp["gates"].float().expand(b, n).reshape(-1).contiguous()
+    h = inp["g_hid"].reshape(-1, hid)
+    ln1 = (a["ln_scale"], a["ln_bias"], 1e-6)
+    ln2 = (m["ln_scale"], m["ln_bias"], 1e-6)
+    s = 1.5
+    forms = {
+        "qkv_ln": ((x_attn, a["wq"], a["bq"], a["u1"], a["v1"], None, s),
+                   dict(ln=ln1)),
+        "proj_res": ((inp["o"].reshape(-1, e), a["wp"], a["bp"], a["u2"],
+                      a["v2"], a["cb2"], s), dict(res=x_attn, dpm_rows=dpm)),
+        "fc1_ln_gelu": ((xm, m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"],
+                         s), dict(ln=ln2, gelu=True)),
+        "fc2_res": ((h, m["w2"], m["b2"], m["u2"], m["v2"], m["cb2"], s),
+                    dict(res=xm, dpm_rows=dpm)),
+        "fc1_dact": ((xm, m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"], s),
+                     dict(ln=ln2, dact_g=h)),
+    }
+    out = {}
+    for key, (args, kw) in forms.items():
+        x2, w, u = args[0], args[1], args[3]
+        rows, k = x2.shape
+        flop = 2 * rows * (k * w.shape[1] + k * u.shape[1]
+                           + u.shape[1] * w.shape[1])
+        ms = cs.median_ms(lambda: _site.site_cuda(*args, **kw))
+        out[f"site_{key}_ms"] = ms
+        out[f"site_{key}_split"] = _launch_split(
+            lambda: _site.site_cuda(*args, **kw))
+        pkw = dict(kw)
+        if "ln" in pkw:
+            x2 = layer_norm(x2, *pkw.pop("ln"))
+        pargs = (x2,) + args[1:]
+        pms = cs.median_ms(lambda: _site.site_cuda(*pargs, **pkw))
+        out[f"site_{key}_product_ms"] = pms
+        out[f"site_{key}_product_tflops"] = flop / pms / 1e9
+        lib = cs.median_ms(lambda: torch.matmul(x2, w))
+        out[f"site_{key}_matmul_ms"] = lib
+        out[f"site_{key}_matmul_tflops"] = (2 * rows * k * w.shape[1]
+                                            / lib / 1e9)
+    return out
+
+
 def _rows(cs, dev) -> dict:
     import torch
     from cara_tpu_torch.ops.cuda import _bwd
@@ -159,12 +220,23 @@ def _rows(cs, dev) -> dict:
     out = {}
     inp = cs.kernel_inputs(dev)
     calls = cs.kernel_calls(inp)
+    calls.update(cs.gelu_kernel_calls(inp))
+    from cara_tpu_torch.ops.cuda import block_pair as pair_mod
+    pair = cs.pair_args(inp)
+    calls["block_pair_fwd"] = (lambda: pair_mod.block_pair_fwd(
+        *pair, inp["heads"], inp["sm"], inp["n_real"], 1.0),)
     for key, name in (("row11", "cp_mlp_block_wd_bwd"),
-                      ("row12", "cp_dense_dx")):
+                      ("row12", "cp_dense_dx"), ("row5", "cp_attn_block"),
+                      ("row7", "cp_attn_block_wd"),
+                      ("row9", "cp_mlp_block"), ("row13", "cp_dense"),
+                      ("row13_gelu", "cp_dense_gelu"),
+                      ("row13_dact", "cp_dense_dact"),
+                      ("row19", "block_pair_fwd")):
         fn = calls[name][0]
         out[f"{key}_ms"] = cs.median_ms(fn)
         out[f"{key}_b2b_ms"] = _b2b_ms(fn)
         out[f"{key}_split"] = _launch_split(fn)
+    out.update(_site_products(cs, dev, inp))
     del calls, inp
     torch.cuda.empty_cache()
     m, e, hid = 64 * 197, 768, 3072
