@@ -15,6 +15,9 @@
 //                    the LayerNorm input-backward of _cp_dense_dx_kernel)
 //   colsum           fp32 column sums (bias cotangents), two passes in a
 //                    fixed order, no atomics
+//   gate_colsum      g2 = bf16(g * gate[row / per]) and the fp32 column
+//                    sums of g2 (the fc2 / proj bias cotangent) in one
+//                    launch: the saved-residual backwards' gate and sum
 //
 // One warp per row for the LayerNorm passes (E = 768 at ViT-B: ln_rows
 // holds the row in registers and reads it once, ln_bwd_residual reads it
@@ -179,6 +182,92 @@ __global__ void colsum_kernel(const T* __restrict__ in,
 constexpr int kRowsPerBlock = 8;  // warps per block of the row passes
 constexpr int kColRows = 128;     // rows per block of the first colsum pass
 
+// gate_colsum: a block takes kGateRows rows of a stripe of kGateVecs
+// 8-column vectors; its kGateLanes row lanes each walk every kGateLanes-th
+// row of them.  Each block writes its column sums (the lanes' added in
+// lane order) to partial[blockIdx.y]; the last block of a stripe to
+// finish (a counter a stripe, set back to 0 after) adds the stripe's
+// partials in order of blockIdx.y.  Every sum has a fixed order: two
+// calls agree bit for bit.
+constexpr int kGateVecs = 32;
+constexpr int kGateLanes = 8;
+constexpr int kGateRows = 128;
+
+__global__ void __launch_bounds__(kGateVecs * kGateLanes)
+gate_colsum_kernel(const __nv_bfloat16* __restrict__ g,
+                   const __nv_bfloat16* __restrict__ gate, int per,
+                   __nv_bfloat16* __restrict__ out, float* partial,
+                   float* __restrict__ ds, int* count, int M, int N) {
+  __shared__ float red[kGateLanes][kGateVecs * 8];
+  __shared__ bool last;
+  const int vl = threadIdx.x % kGateVecs;
+  const int lane = threadIdx.x / kGateVecs;
+  const int v = blockIdx.x * kGateVecs + vl;  // 8-column vector
+  const int vecs = N / 8;
+  const int m0 = blockIdx.y * kGateRows;
+  const int m1 = min(M, m0 + kGateRows);
+  float sum[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) sum[t] = 0.f;
+  if (v < vecs) {
+#pragma unroll 4
+    for (int m = m0 + lane; m < m1; m += kGateLanes) {
+      const float gt = bf(gate[m / per]);
+      uint4 raw = reinterpret_cast<const uint4*>(g + (size_t)m * N)[v];
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        e[t] = __float2bfloat16(bf(e[t]) * gt);
+        sum[t] += bf(e[t]);
+      }
+      reinterpret_cast<uint4*>(out + (size_t)m * N)[v] = raw;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) red[lane][vl * 8 + t] = sum[t];
+  __syncthreads();
+  if (lane == 0 && v < vecs) {
+    float* dst = partial + (size_t)blockIdx.y * N + 8 * v;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < kGateLanes; ++q) acc += red[q][vl * 8 + t];
+      dst[t] = acc;
+    }
+  }
+  // The partial is in memory before the counter moves.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&count[blockIdx.x], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int t = 0; t < 8; ++t) sum[t] = 0.f;
+  if (v < vecs) {
+#pragma unroll 4
+    for (int y = lane; y < (int)gridDim.y; y += kGateLanes) {
+      const float* src = partial + (size_t)y * N + 8 * v;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) sum[t] += __ldcg(src + t);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) red[lane][vl * 8 + t] = sum[t];
+  __syncthreads();
+  if (lane == 0 && v < vecs) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < kGateLanes; ++q) acc += red[q][vl * 8 + t];
+      ds[8 * v + t] = acc;
+    }
+  }
+  if (threadIdx.x == 0) count[blockIdx.x] = 0;
+}
+
 }  // namespace
 
 // xa (M, K) bf16 = LN(x) with bf16 scale and bias: the forward sites'
@@ -221,6 +310,27 @@ extern "C" int cara_gate_rows(const void* g, const void* dpm, void* out,
   gate_rows_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(dpm),
       static_cast<__nv_bfloat16*>(out), M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (M, N) bf16 = g * gate[row / per] (gate bf16, one value for each
+// `per` rows) and ds (N,) fp32 = the column sums of out.  partial is fp32
+// scratch of ceil(M / 128) * N, count int32 zeros, one for each stripe of
+// 256 columns (ceil(N / 256)), zero again when the launch ends.  N % 8 ==
+// 0, 16-byte aligned g and out.
+extern "C" int cara_gate_colsum(const void* g, const void* gate, int per,
+                                void* out, void* partial, void* ds,
+                                void* count, int M, int N,
+                                void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (N % 8 || per < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N / 8 + kGateVecs - 1) / kGateVecs,
+                  (M + kGateRows - 1) / kGateRows);
+  gate_colsum_kernel<<<grid, kGateVecs * kGateLanes, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(g),
+      static_cast<const __nv_bfloat16*>(gate), per,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(partial),
+      static_cast<float*>(ds), static_cast<int*>(count), M, N);
   return static_cast<int>(cudaGetLastError());
 }
 

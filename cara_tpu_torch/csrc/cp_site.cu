@@ -10,6 +10,10 @@
 // the cotangent of the GELU's output: the backward helper
 // _cp_dense_dact_kernel (cara_tpu/ops/pallas/cp_dense.py, row 13), which
 // recomputes the fp32 pre-activation y on the tile and never writes it.
+// The GELU site can also write y rounded to bf16 beside its output, staged
+// and stored by TMA like it: the saved pre-activation of the MLP block's
+// save-pre mode (_mlp_fwd_save_pre_kernel, cp_mlp.py, row 9), which the
+// backwards of rows 10 and 11 read in place of recomputing fc1.
 //
 // Replaces the dense parts of the TPU kernels _cp_dense_kernel /
 // _cp_dense_dact_kernel (cara_tpu/ops/pallas/cp_dense.py, row 13),
@@ -193,18 +197,21 @@ int launch_rank(const GemmMaps& maps, const GemmArgs& p, int r,
 // 0 none, 1 GELU, 2 dact (reads g (M, N), writes g * gelu'(pre));
 // has_res: out = res + dpm[row] * y with res (M, N) bf16 and dpm (M,)
 // fp32 (not with dact).  z (M, 64) or null: where given (r > 0), bf16(xa
-// U), zero past r, is written there.  Needs K and N multiples of 8, r <=
-// 64 and 16-byte aligned pointers; the Python wrapper checks them.
-// Returns cudaGetLastError() or the tensor-map encoding's error.
+// U), zero past r, is written there.  pre (M, N) or null: where given
+// (GELU, no residual), the pre-activation bf16(y) is written there.  Needs
+// K and N multiples of 8, r <= 64 and 16-byte aligned pointers; the
+// Python wrapper checks them.  Returns cudaGetLastError() or the
+// tensor-map encoding's error.
 extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
                             const void* u, const void* v, const void* cb,
                             const void* res, const void* dpm, const void* g,
-                            void* z, void* out, int M, int K, int N, int r,
-                            int act, int has_res, float s,
+                            void* z, void* out, void* pre, int M, int K,
+                            int N, int r, int act, int has_res, float s,
                             void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (r < 0 || r > BK || act < 0 || act > 2 || (act == 2 && has_res) ||
-      M < 1 || K < 8 || K % 8 || N % 8)
+      (pre != nullptr && (act != 1 || has_res)) || M < 1 || K < 8 ||
+      K % 8 || N % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   GemmArgs p{};
   p.c16 = static_cast<__nv_bfloat16*>(out);
@@ -227,6 +234,7 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
     if (!err) err = map2d(&maps.b2, v, N, r, N, 64);
   }
   if (!err) err = map2d(&maps.c16, out, N, M, N, BM);
+  if (!err && pre != nullptr) err = map2d(&maps.c16b, pre, N, M, N, BM);
   if (!err && (act == 2 || has_res))
     err = map2d(&maps.aux, act == 2 ? g : res, N, M, N, BM);
   if (err) return err;
@@ -234,6 +242,7 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
   if (has_res)
     return act ? launch_rank<EPI_SITE_GELU_RES>(maps, p, r, stream)
                : launch_rank<EPI_SITE_RES>(maps, p, r, stream);
+  if (pre != nullptr) return launch_rank<EPI_SITE_GELU_PRE>(maps, p, r, stream);
   return act ? launch_rank<EPI_SITE_GELU>(maps, p, r, stream)
              : launch_rank<EPI_SITE>(maps, p, r, stream);
 }

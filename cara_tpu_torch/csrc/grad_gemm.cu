@@ -3,7 +3,8 @@
 // the epilogues and the rank step):
 //
 //   NN   forward recompute (qkv, pre = xa W1 + b1 + s cb1 with PRE_GELU)
-//   NT   dx products g W'^T (BF16, F32; DGELU with gelu'(pre))
+//   NT   dx products g W'^T (BF16, F32; DGELU with gelu'(pre), DGELU_H
+//        with gelu'(pre) and h = gelu(pre) from the saved bf16 pre)
 //   TN   dense cotangents dT = x^T g (F32)
 //
 // NN and NT take an optional rank step, the delta scale folded into B2 by
@@ -19,7 +20,12 @@
 // _attn_block_bwd_wd_kernel (qkv recompute, g wp'^T, dqkv wq'^T, o^T g,
 // xa^T dqkv), cara_tpu/ops/pallas/cp_mlp.py _mlp_bwd_wd_kernel (row 11:
 // pre recompute, g w2'^T with gelu', dpre w1'^T, xa^T dpre, h^T g) and
-// cara_tpu/ops/pallas/cp_dense.py _cp_dense_dx_kernel (row 12's dx).  The
+// cara_tpu/ops/pallas/cp_dense.py _cp_dense_dx_kernel (row 12's dx).  In
+// the save-pre mode (_mlp_bwd_kernel(saved_pre=True),
+// _mlp_bwd_wd_pre_kernel) the pre recompute goes: DGELU_H reads the bf16
+// pre the forward site wrote (2 bytes an output against DGELU's 4) and
+// writes h = bf16(gelu(pre)) beside dpre, the h those kernels take from
+// the saved pre.  The
 // TPU kernels keep every intermediate of a 256-row tile in VMEM and
 // accumulate dT over the sequential grid; on Hopper the grid is parallel,
 // so the dT products reduce over the M = B * N token rows inside each
@@ -78,10 +84,11 @@ int launch_nt(const GemmMaps& maps, const GemmArgs& p, int rk, int bn,
 // one block an SM, where the output allows; 128, two blocks an SM, for M
 // or N < 256 and for the epilogues that move 6 bytes an output
 // (PRE_GELU's fp32 pre and bf16 h; DGELU's fp32 pre read and bf16 dpre
-// written), where the second block's products run while one block
-// stores.  _bwd.dt_splits assumes the same rule.
+// written; DGELU_H's bf16 pre read, dpre and h written), where the second
+// block's products run while one block stores.  _bwd.dt_splits assumes
+// the same rule.
 int pick_bn(int epi, int M, int N) {
-  return (M < 256 || N < 256 || epi == EPI_PRE_GELU || epi == EPI_DGELU)
+  return (M < 256 || N < 256 || epi == EPI_PRE_GELU || epi_dgelu(epi))
              ? 128
              : 256;
 }
@@ -89,8 +96,9 @@ int pick_bn(int epi, int M, int N) {
 }  // namespace
 
 // C = op(A) . op(B) [+ A2 . B2] with the given layout (0 NN, 1 NT,
-// 2 TN) and epilogue (0 F32, 1 BF16, 2 PRE_GELU, 3 DGELU); see the head
-// comment for the operand shapes.  `splits` > 1 (TN, F32 only) splits the
+// 2 TN) and epilogue (0 F32, 1 BF16, 2 PRE_GELU, 3 DGELU, 9 DGELU_H: aux
+// the bf16 pre-activation, h written to c16b); see the head comment for
+// the operand shapes.  `splits` > 1 (TN, F32 only) splits the
 // contraction over that many blocks a tile, summed into C in order; turn
 // then holds one zeroed int32 a 128 x 128 output tile, zero again when
 // the product ends (one launch at a time may use it: a stream's).  NN:
@@ -103,7 +111,7 @@ int pick_bn(int epi, int M, int N) {
 // the tensor-map encoding's error.
 extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
                               const void* b, void* c32, void* c16,
-                              const void* bias1, const void* bias2,
+                              void* c16b, const void* bias1, const void* bias2,
                               const void* aux, void* colpart, const void* a2,
                               const void* b2, const void* vfold, void* gv,
                               void* turn, int M, int N, int K, int splits,
@@ -115,7 +123,7 @@ extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
   p.c16 = static_cast<__nv_bfloat16*>(c16);
   p.bias1 = static_cast<const __nv_bfloat16*>(bias1);
   p.bias2 = static_cast<const __nv_bfloat16*>(bias2);
-  p.aux = static_cast<const float*>(aux);
+  p.aux = aux;
   p.colpart = static_cast<float*>(colpart);
   p.gv = static_cast<__nv_bfloat16*>(gv);
   p.turn = static_cast<int*>(turn);
@@ -160,6 +168,10 @@ extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
     err = map2d(&maps.c32, c32, N, M, N, BM, 4);
   if (!err && epi != EPI_F32) err = map2d(&maps.c16, c16, N, M, N, BM);
   if (!err && epi == EPI_DGELU) err = map2d(&maps.aux, aux, N, M, N, BM, 4);
+  if (!err && epi == EPI_DGELU_H) {
+    err = map2d(&maps.aux, aux, N, M, N, BM);
+    if (!err) err = map2d(&maps.c16b, c16b, N, M, N, BM);
+  }
   if (err) return err;
 
   if (layout == NN && epi == EPI_BF16)
@@ -172,6 +184,8 @@ extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
     return launch_nt<EPI_F32>(maps, p, rk, bn, stream);
   if (layout == NT && epi == EPI_DGELU)
     return launch_nt<EPI_DGELU>(maps, p, rk, bn, stream);
+  if (layout == NT && epi == EPI_DGELU_H)
+    return launch_nt<EPI_DGELU_H>(maps, p, rk, bn, stream);
   if (layout == TN && epi == EPI_F32)
     return launch_bn<TN, EPI_F32, 0, 0>(maps, p, splits, bn, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -39,11 +39,16 @@
 //   PRE_GELU  C32 = pre = acc + bias1 + bias2,  C16 = bf16(gelu(pre))
 //   DGELU     dpre = acc * gelu'(AUX),  C16 = bf16(dpre),  plus per-block
 //             fp32 column sums of dpre (the fc1 bias cotangent)
+//   DGELU_H   DGELU on the saved bf16 pre-activation AUX, and C16B =
+//             bf16(gelu(AUX)): the h of the saved-pre backward, from the
+//             erf the derivative already evaluates
 //   SITE_*    the forward CaRA site: y = acc + b + s (z V + cb), the
 //             delta scale s applied in fp32 (acc is scaled by 1 / s before
 //             the rank step and back after it), then
 //             SITE           C16 = bf16(y)
 //             SITE_GELU      C16 = bf16(gelu(y))
+//             SITE_GELU_PRE  C16 = bf16(gelu(y)), C16B = bf16(y): the
+//                            pre-activation kept for the backward
 //             SITE_DACT      C16 = bf16(G * gelu'(y)), G (M, N) bf16
 //             SITE_RES       C16 = bf16(RES + dpm[row] * y)
 //             SITE_GELU_RES  C16 = bf16(RES + dpm[row] * gelu(y))
@@ -76,11 +81,24 @@ enum {
   EPI_SITE_DACT = 6,
   EPI_SITE_RES = 7,
   EPI_SITE_GELU_RES = 8,
+  EPI_DGELU_H = 9,
+  EPI_SITE_GELU_PRE = 10,
 };
 
-__host__ __device__ constexpr bool epi_site(int e) { return e >= EPI_SITE; }
+__host__ __device__ constexpr bool epi_site(int e) {
+  return (e >= EPI_SITE && e <= EPI_SITE_GELU_RES) || e == EPI_SITE_GELU_PRE;
+}
+// The epilogues that sum dpre's columns.
+__host__ __device__ constexpr bool epi_dgelu(int e) {
+  return e == EPI_DGELU || e == EPI_DGELU_H;
+}
 __host__ __device__ constexpr bool epi_gelu(int e) {
-  return e == EPI_SITE_GELU || e == EPI_SITE_GELU_RES;
+  return e == EPI_SITE_GELU || e == EPI_SITE_GELU_RES ||
+         e == EPI_SITE_GELU_PRE;
+}
+// The epilogues with a second bf16 output, C16B.
+__host__ __device__ constexpr bool epi_c16b(int e) {
+  return e == EPI_DGELU_H || e == EPI_SITE_GELU_PRE;
 }
 __host__ __device__ constexpr bool epi_res(int e) {
   return e == EPI_SITE_RES || e == EPI_SITE_GELU_RES;
@@ -95,8 +113,8 @@ struct GemmArgs {
   __nv_bfloat16* c16;
   const __nv_bfloat16* bias1;  // the bias b of a site
   const __nv_bfloat16* bias2;  // a site's cb (may be null)
-  const float* aux;  // DGELU: the fp32 pre-activation (M, N)
-  float* colpart;    // DGELU: (gridDim.y, N) column sums of dpre
+  const void* aux;   // DGELU: the fp32 pre-activation (M, N); DGELU_H bf16
+  float* colpart;    // DGELU*: (gridDim.y, N) column sums of dpre
   __nv_bfloat16* gv;  // folded rank step: z out, (M, 64) (may be null: NN)
   const float* dpm;   // SITE_*RES: the per-row gate (M,)
   int* turn;  // TN split over blockIdx.z: one zeroed counter per tile
@@ -107,11 +125,11 @@ struct GemmArgs {
 
 // TMA maps: A and B by layout; A2 (M, 64) and B2 for a rank step from
 // memory; the folded operand (NT: V (r, K); NN: U (K, r8)); the fp32
-// output C32, the bf16 output C16 and the epilogue's (M, N) input (DGELU's
-// fp32 AUX; a site's bf16 residual or G), in boxes of 128 rows and 128
-// bytes.
+// output C32, the bf16 outputs C16 and C16B and the epilogue's (M, N)
+// input (DGELU's fp32 AUX, DGELU_H's bf16 one; a site's bf16 residual or
+// G), in boxes of 128 rows and 128 bytes.
 struct GemmMaps {
-  CUtensorMap a, b, a2, b2, v, c32, c16, aux;
+  CUtensorMap a, b, a2, b2, v, c32, c16, c16b, aux;
 };
 
 // One ring slot: the A tile (two 64-row halves, one per consumer
@@ -124,8 +142,9 @@ struct GemmMaps {
 // holds the output tile on its way out (fp32 and / or bf16, in 128-row
 // chunks of 128 bytes, 128-byte swizzle; DGELU's fp32 AUX tile beside its
 // bf16 output: 96 KB at most for a 128-wide block, 128 KB for a 256-wide
-// one; a site's bf16 input tile in the place of its output); behind the
-// barriers, DGELU's per-warp column sums.
+// one; a site's bf16 input tile in the place of its output; the second
+// bf16 tile, C16B's, after the first, where DGELU_H's AUX lands and its h
+// leaves); behind the barriers, DGELU's per-warp column sums.
 template <int BN, int ZN>
 struct Ring {
   static constexpr int STAGES = BN == 128 ? 3 : 4;
@@ -326,13 +345,15 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
   // the layout of 128-row boxes of 128 bytes (128-byte swizzle, which
   // spreads a warp's writes over the banks) and leave by TMA stores,
   // which skip rows and columns past M and N.  DGELU first brings its
-  // fp32 AUX tile in by TMA (zeros past the edges), a site its bf16
-  // residual or G tile, in the place of its output.
+  // fp32 AUX tile in by TMA (zeros past the edges), DGELU_H its bf16 one
+  // into C16B's tile, a site its bf16 residual or G tile, in the place of
+  // its output.
   named_barrier(3, 256);
   unsigned char* t32 = smem;  // fp32 tile: BN / 32 chunks of 16 KB
   unsigned char* t16 =        // bf16 tile: BN / 64 chunks of 16 KB
       smem + (E == EPI_PRE_GELU || E == EPI_DGELU ? BM * BN * 4 : 0);
-  if constexpr (E == EPI_DGELU || epi_aux16(E)) {
+  unsigned char* t16b = t16 + BM * BN * 2;  // the second bf16 tile
+  if constexpr (E == EPI_DGELU || E == EPI_DGELU_H || epi_aux16(E)) {
     if (tid == 0) {
       if constexpr (E == EPI_DGELU) {
         mbar_expect_tx(epi_full, BM * BN * 4);
@@ -341,10 +362,11 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
           tma_load_2d(t32 + c * BM * 128, &maps.aux, epi_full, n0 + 32 * c,
                       m0);
       } else {
+        unsigned char* in = E == EPI_DGELU_H ? t16b : t16;
         mbar_expect_tx(epi_full, BM * BN * 2);
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c)
-          tma_load_2d(t16 + c * BM * 128, &maps.aux, epi_full, n0 + 64 * c,
+          tma_load_2d(in + c * BM * 128, &maps.aux, epi_full, n0 + 64 * c,
                       m0);
       }
     }
@@ -381,6 +403,8 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
       uint32_t* o16 = reinterpret_cast<uint32_t*>(
           t16 + (col / 64) * BM * 128 +
           swizzle<128>(row * 128 + (col % 64) * 2));
+      uint32_t* o16b = reinterpret_cast<uint32_t*>(
+          reinterpret_cast<unsigned char*>(o16) + BM * BN * 2);
       const float a0 = acc[4 * j + 2 * half];
       const float a1 = acc[4 * j + 2 * half + 1];
       if constexpr (SITE) {
@@ -394,6 +418,7 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
           y0 = a0 + b1.x + p.s * b2.x;
           y1 = a1 + b1.y + p.s * b2.y;
         }
+        if constexpr (E == EPI_SITE_GELU_PRE) *o16b = pack_bf16(y0, y1);
         if constexpr (epi_gelu(E)) {
           y0 = gelu(y0);
           y1 = gelu(y1);
@@ -422,16 +447,27 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
       } else if (E == EPI_PRE_GELU) {
         *o32 = make_float2(y0, y1);
         *o16 = pack_bf16(gelu(y0), gelu(y1));
-      } else {  // EPI_DGELU: rows and columns past the edges are 0 here
+      } else if (E == EPI_DGELU) {  // rows, columns past the edges are 0
         const float2 pre = *o32;
         y0 *= gelu_grad(pre.x);
         y1 *= gelu_grad(pre.y);
         *o16 = pack_bf16(y0, y1);
         cs0 += y0;
         cs1 += y1;
+      } else {  // EPI_DGELU_H: h replaces the pre-activation in its tile
+        const uint32_t raw = *o16b;
+        const float2 pre = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw));
+        float h0, h1;
+        y0 *= gelu_and_grad(pre.x, h0);
+        y1 *= gelu_and_grad(pre.y, h1);
+        *o16 = pack_bf16(y0, y1);
+        *o16b = pack_bf16(h0, h1);
+        cs0 += y0;
+        cs1 += y1;
       }
     }
-    if (E == EPI_DGELU) {
+    if (epi_dgelu(E)) {
       // This warp's column sums, in a fixed order: the thread's two rows,
       // then across the 8 lanes of a column (shuffles).
       cs0 += __shfl_xor_sync(0xffffffffu, cs0, 4);
@@ -481,8 +517,13 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
       for (int c = 0; c < BN / 64; ++c)
         tma_store_2d(&maps.c16, t16 + c * BM * 128, n0 + 64 * c, m0);
     }
+    if (epi_c16b(E)) {
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c)
+        tma_store_2d(&maps.c16b, t16b + c * BM * 128, n0 + 64 * c, m0);
+    }
   }
-  if (E == EPI_DGELU && tid < BN && n0 + tid < p.N) {
+  if (epi_dgelu(E) && tid < BN && n0 + tid < p.N) {
     // The block's 128 rows: the eight warps' sums in a fixed order.
     float v = 0.f;
 #pragma unroll
@@ -527,7 +568,7 @@ template <int L, int E, int BN, int RK, int ZN>
 int launch(const GemmMaps& maps, const GemmArgs& p, int splits,
            cudaStream_t stream) {
   using R = Ring<BN, ZN>;
-  constexpr int smem = E == EPI_DGELU ? R::SMEM_DGELU : R::SMEM;
+  constexpr int smem = epi_dgelu(E) ? R::SMEM_DGELU : R::SMEM;
   // Set once: the attribute is per process (one device per process).
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_kernel<L, E, BN, RK, ZN>,

@@ -40,7 +40,7 @@ _U = ctypes.c_uint
 _S = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 # name -> argtypes of the C entry points (see the .cu files).
 _SIGNATURES = {
-    "cara_cp_site": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "cara_cp_site": [_P] * 12 + [_I] * 6 + [_F, _P],
     "cara_qkv_attention": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "cara_qkv_attention_smem": [_I, _I],
     "cara_qkv_attention_bwd": [_P] * 5 + [_I] * 5 + [_F, _P],
@@ -53,9 +53,10 @@ _SIGNATURES = {
     "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
     "cara_wd_factor_grads": [_P] * 8 + [_I] * 3 + [_F, _U, _P],
     "cara_rank_z": [_P] * 3 + [_I] * 3 + [_P],
-    "cara_grad_gemm": [_I, _I] + [_P] * 13 + [_I] * 7 + [_P],
+    "cara_grad_gemm": [_I, _I] + [_P] * 14 + [_I] * 7 + [_P],
     "cara_ln_rows": [_P] * 4 + [_I, _I, _F, _P],
     "cara_gate_rows": [_P] * 3 + [_I, _I, _P],
+    "cara_gate_colsum": [_P, _P, _I] + [_P] * 4 + [_I, _I, _P],
     "cara_ln_bwd_residual": [_P] * 5 + [_I, _I, _F, _P],
     "cara_colsum": [_P, _I, _P, _P, _I, _I, _P],
     "cara_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
@@ -166,10 +167,15 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def recorded(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (None skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_autograd(name: str, *tensors) -> None:
     """Raise when autograd would record through a forward-only kernel."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if recorded(*tensors):
         raise RuntimeError(
             f"{name} is forward only (inference, as in the reference): "
             "call it under torch.no_grad() or torch.inference_mode()")

@@ -15,21 +15,24 @@ it says so), checks them and raises on what the kernel does not take.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from cara_tpu_torch.ops.cuda import _build
 
 NN, NT, TN = 0, 1, 2
-EPI_F32, EPI_BF16, EPI_PRE_GELU, EPI_DGELU = 0, 1, 2, 3
+# The epilogues, numbered as in csrc/sm90_gemm.cuh (4-8 are cp_site.cu's).
+EPI_F32, EPI_BF16, EPI_PRE_GELU, EPI_DGELU, EPI_DGELU_H = 0, 1, 2, 3, 9
 LAUNCHES_NN_BF16 = LAUNCHES_NN_PRE_GELU = 0
 LAUNCHES_NT_BF16 = LAUNCHES_NT_F32 = LAUNCHES_NT_DGELU = 0
-LAUNCHES_TN_F32 = 0
+LAUNCHES_NT_DGELU_H = LAUNCHES_TN_F32 = 0
 _COUNTERS = {(NN, EPI_BF16): "LAUNCHES_NN_BF16",
              (NN, EPI_PRE_GELU): "LAUNCHES_NN_PRE_GELU",
              (NT, EPI_BF16): "LAUNCHES_NT_BF16",
              (NT, EPI_F32): "LAUNCHES_NT_F32",
              (NT, EPI_DGELU): "LAUNCHES_NT_DGELU",
+             (NT, EPI_DGELU_H): "LAUNCHES_NT_DGELU_H",
              (TN, EPI_F32): "LAUNCHES_TN_F32"}
 _GEMM_BM = 128
 _SMS = 132  # the H100's SMs
@@ -78,15 +81,17 @@ def _turns(dev, n: int):
 
 
 def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
-         splits: int = 1, a2=None, b2=None, fold_v=None):
+         splits: int = 1, a2=None, b2=None, fold_v=None, out=None):
     """One ``grad_gemm.cu`` product; returns the epilogue's outputs.
 
     NN: a (M, K), b (K, N).  NT: a (M, K), b (N, K).  TN: a (K, M),
     b (K, N), the contraction split over ``splits`` blocks a tile whose
-    sums the kernel adds in split order.  F32 -> c32 (M, N);
+    sums the kernel adds in split order.  F32 -> c32 (M, N), written
+    into ``out`` (a contiguous fp32 (M, N) tensor) where it is given;
     BF16 -> c16; PRE_GELU -> (pre fp32, gelu bf16), pre = acc + bias1 +
     bias2; DGELU (``aux`` the fp32 pre-activation) -> (dpre bf16,
-    column partial sums (M/128, N) fp32).
+    column partial sums (M/128, N) fp32); DGELU_H (``aux`` the bf16
+    pre-activation) -> (dpre, column partial sums, h = bf16(gelu(aux))).
 
     NN: ``a2`` (M, 64) with ``b2`` = V (r, N) adds the rank step ``a2 @
     b2`` to the accumulators.  NT: ``fold_v`` V (r, K) with ``b2`` = U
@@ -140,18 +145,27 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
                 and 1 <= r2 <= RANK_W and b2.shape == (r2, n)):
             raise ValueError(f"grad_gemm rank step: a2 {tuple(a2.shape)} b2 "
                              f"{tuple(b2.shape)} (layout {layout})")
-    c32 = c16 = colpart = None
-    if epi == EPI_F32:
+    c32 = c16 = c16b = colpart = None
+    if epi == EPI_F32 and out is not None:
+        _f32("grad_gemm", "out", out, dev)
+        if out.shape != (m, n):
+            raise ValueError(f"grad_gemm: out must be ({m}, {n})")
+        c32 = out
+    elif epi == EPI_F32:
         c32 = torch.empty((m, n), device=dev, dtype=torch.float32)
     turn = None
     if splits > 1:
         turn = _turns(dev, -(-m // _GEMM_BM) * -(-n // _GEMM_BM))
-    if epi in (EPI_BF16, EPI_PRE_GELU, EPI_DGELU):
+    if epi in (EPI_BF16, EPI_PRE_GELU, EPI_DGELU, EPI_DGELU_H):
         c16 = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
     if epi == EPI_PRE_GELU:
         c32 = torch.empty((m, n), device=dev, dtype=torch.float32)
-    if epi == EPI_DGELU:
-        _f32("grad_gemm", "aux", aux, dev)
+    if epi in (EPI_DGELU, EPI_DGELU_H):
+        if epi == EPI_DGELU:
+            _f32("grad_gemm", "aux", aux, dev)
+        else:
+            _build.check_cuda_inputs("grad_gemm", dev, aux=aux)
+            c16b = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
         if aux.shape != (m, n):
             raise ValueError("grad_gemm: aux must be the (M, N) "
                              "pre-activation")
@@ -159,14 +173,15 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
                               device=dev, dtype=torch.float32)
     code = _build.lib().cara_grad_gemm(
         layout, epi, a.data_ptr(), b.data_ptr(), _build.ptr(c32),
-        _build.ptr(c16), _build.ptr(bias1), _build.ptr(bias2),
+        _build.ptr(c16), _build.ptr(c16b), _build.ptr(bias1),
+        _build.ptr(bias2),
         _build.ptr(aux), _build.ptr(colpart), _build.ptr(a2),
         _build.ptr(b2), _build.ptr(fold_v), _build.ptr(gv), _build.ptr(turn),
         m, n, k, splits, r2, ldb2, rfold, _build.stream_ptr(dev))
     _build.check(code, "grad_gemm")
     globals()[_COUNTERS[layout, epi]] += 1
     outs = {EPI_F32: (c32,), EPI_BF16: (c16,), EPI_PRE_GELU: (c32, c16),
-            EPI_DGELU: (c16, colpart)}[epi]
+            EPI_DGELU: (c16, colpart), EPI_DGELU_H: (c16, colpart, c16b)}[epi]
     if gv is not None:
         outs += (gv,)
     return outs[0] if len(outs) == 1 else outs
@@ -217,6 +232,30 @@ def scaled(t, s: float):
     return t if s == 1.0 else (t * s).contiguous()
 
 
+def _sizes(shapes):
+    """Element counts of ``shapes``, each with its size rounded up to 4
+    (16 bytes of fp32: every cut starts aligned for 16-byte access)."""
+    return [(math.prod(s), -(-math.prod(s) // 4) * 4) for s in shapes]
+
+
+def flat_buffer(dev, shapes):
+    """One fp32 buffer holding tensors of ``shapes`` back to back
+    (:func:`cut`): a backward's small gradients, written in place by the
+    kernels, then scaled and cast in one launch each."""
+    return torch.empty((sum(p for _, p in _sizes(shapes)),), device=dev,
+                       dtype=torch.float32)
+
+
+def cut(flat, shapes):
+    """The contiguous views of :func:`flat_buffer`'s tensors in ``flat``
+    (or in a copy of it in another dtype)."""
+    views, off = [], 0
+    for shape, (n, p) in zip(shapes, _sizes(shapes)):
+        views.append(flat[off:off + n].view(shape))
+        off += p
+    return views
+
+
 def pad_cols8(u):
     """U (K, r) -> (K, r rounded up to 8), zero columns past r: the NT
     rank step's B operand (16-byte rows)."""
@@ -229,13 +268,14 @@ def pad_cols8(u):
     return out
 
 
-def factor_grad(a, b):
+def factor_grad(a, b, out=None):
     """fp32 ``a^T b`` over the M token rows for a (M, P), b (M, Q), one of
     them 64 wide: a TN product split over M, the splits summed in a fixed
-    order (no unordered atomics).  Reads each operand once."""
+    order (no unordered atomics).  Reads each operand once.  ``out``: as
+    in :func:`gemm`."""
     mrows, p = a.shape
     q = b.shape[1]
-    return gemm(TN, EPI_F32, a, b, splits=dt_splits(p, q, mrows))
+    return gemm(TN, EPI_F32, a, b, splits=dt_splits(p, q, mrows), out=out)
 
 
 def ln_rows(x2, ls, lb, eps: float):
@@ -270,6 +310,52 @@ def gate_rows(g2, dpm_rows):
     return out
 
 
+def gate_colsum(g2, gate, per: int, ds):
+    """bf16(g2 * gate[row // per]) for g2 (M, N) and ``gate`` (M / per,)
+    bf16, its fp32 column sums written into ``ds`` (contiguous (N,)), in
+    one launch (``block_rows.cu``), every sum in a fixed order."""
+    m, n = g2.shape
+    dev = g2.device
+    _build.check_cuda_inputs("gate_colsum", dev, g=g2)
+    # The gates are read one value at a time: any bf16 view (a row of the
+    # step's (2, B) gates) will do, aligned or not.
+    if (gate.device != dev or gate.dtype != torch.bfloat16
+            or not gate.is_contiguous()):
+        raise ValueError("gate_colsum: gate must be a contiguous bf16 "
+                         f"tensor on {dev}")
+    if n % 8 or per < 1 or gate.shape != (-(-m // per),):
+        raise ValueError(f"gate_colsum wants N % 8 == 0 and one gate for "
+                         f"each {per} rows, got g {tuple(g2.shape)} gate "
+                         f"{tuple(gate.shape)}")
+    _f32("gate_colsum", "ds", ds, dev)
+    if ds.shape != (n,):
+        raise ValueError(f"gate_colsum: ds must be ({n},)")
+    out = torch.empty_like(g2)
+    partial = torch.empty((-(-m // 128), n), device=dev,
+                          dtype=torch.float32)
+    code = _build.lib().cara_gate_colsum(
+        g2.data_ptr(), gate.data_ptr(), per, out.data_ptr(),
+        partial.data_ptr(), ds.data_ptr(),
+        _turns(dev, -(-n // 256)).data_ptr(), m, n, _build.stream_ptr(dev))
+    _build.check(code, "gate_colsum")
+    return out
+
+
+def gate_vector(dpm, lead, dtype):
+    """(gate, per) for :func:`gate_colsum`: the drop-path gate ``dpm``,
+    broadcastable to ``lead + (1,)``, in ``dtype`` (as JAX casts it to
+    x's), one value for each ``per`` rows of the flattened ``lead``: a
+    view of a per-image (B, 1, ...) gate, else one value a row."""
+    rows = 1
+    for d in lead:
+        rows *= d
+    if (dpm.dim() == len(lead) + 1 and dpm.shape[0] == lead[0]
+            and all(d == 1 for d in dpm.shape[1:])):
+        return dpm.reshape(-1).to(dtype).contiguous(), rows // lead[0]
+    return (torch.broadcast_to(dpm, lead + (1,)).reshape(-1).to(dtype)
+            .contiguous(), 1)
+
+
 def ln_bwd_residual(x2, dxa, ls, g2, eps: float):
     """bf16(g2 + LN'(x2) . dxa): the block's dx (x2, g2 (M, K) bf16, dxa
     (M, K) fp32); ``g2`` None drops the residual term."""
@@ -288,15 +374,18 @@ def ln_bwd_residual(x2, dxa, ls, g2, eps: float):
     return out
 
 
-def colsum(t):
-    """fp32 column sums of a (M, N) bf16 or fp32 tensor, fixed order."""
+def colsum(t, out=None):
+    """fp32 column sums of a (M, N) bf16 or fp32 tensor, fixed order;
+    into ``out`` (contiguous fp32 (N,)) where it is given."""
     m, n = t.shape
     dev = t.device
     if t.dtype == torch.float32:
         _f32("colsum", "input", t, dev)
     else:
         _build.check_cuda_inputs("colsum", dev, input=t)
-    out = torch.empty((n,), device=dev, dtype=torch.float32)
+    if out is None:
+        out = torch.empty((n,), device=dev, dtype=torch.float32)
+    _f32("colsum", "out", out, dev)
     partial = torch.empty(((m + 127) // 128, n), device=dev,
                           dtype=torch.float32)
     code = _build.lib().cara_colsum(

@@ -15,7 +15,9 @@ product on the ``wgmma`` + TMA core, z folded into it.  The launches of
 that product are counted by epilogue: ``LAUNCHES_BF16`` (no activation
 or residual: qkv, the split route's projection), ``LAUNCHES_GELU`` (fc1),
 ``LAUNCHES_RES`` (the residual with or without the GELU: the block
-kernels' projection and fc2) and ``LAUNCHES_DACT`` (the dact mode).
+kernels' projection and fc2) and ``LAUNCHES_DACT`` (the dact mode); of
+the GELU launches, ``LAUNCHES_GELU_PRE`` also wrote the pre-activation
+(the MLP block's save-pre mode).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ LAUNCHES_BF16 = 0
 LAUNCHES_GELU = 0
 LAUNCHES_RES = 0
 LAUNCHES_DACT = 0
+LAUNCHES_GELU_PRE = 0
 
 
 def site_plain(xa, w, b, u, v, cb: Optional[torch.Tensor], s: float):
@@ -61,16 +64,19 @@ def site_forward_plain(x2, w, b, u, v, cb, s, *, ln=None, gelu=False,
 
 
 def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
-              dpm_rows=None, dact_g=None, return_z=False):
+              dpm_rows=None, dact_g=None, return_z=False, return_pre=False):
     """Launch the site on 2-D bf16 ``x2`` (M, K) -> (M, N), and with
     ``return_z`` its rank operand z = bf16(pro(x) U) (M, 64), zero past
-    the rank (the backward's factor gradients read it).
+    the rank (the backward's factor gradients read it), then with
+    ``return_pre`` (GELU without residual) the pre-activation rounded to
+    bf16 (M, N), written beside the output by the same launch.
 
     ``ln`` = (scale, bias, eps) or None; ``res`` (M, N) and ``dpm_rows``
     (M,) fp32 together select the residual epilogue; ``dact_g`` (M, N)
     selects the dact epilogue, ``bf16(g * gelu'(pre))`` from the fp32
     pre-activation, in place of the output."""
     global LAUNCHES_BF16, LAUNCHES_GELU, LAUNCHES_RES, LAUNCHES_DACT
+    global LAUNCHES_GELU_PRE
     m, k = x2.shape
     n = w.shape[1]
     r = u.shape[1]
@@ -99,10 +105,14 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
                                or res is not None):
         raise ValueError("cp_site dact needs g (M, N) and neither the GELU "
                          "nor the residual epilogue")
+    if return_pre and (not gelu or res is not None):
+        raise ValueError("cp_site writes the pre-activation on a GELU site "
+                         "without the residual only")
     xa = x2 if ln is None else _bwd.ln_rows(x2, ls, lb, eps)
     # U is read by TMA as (K, r8): rows of 16 bytes, zero columns past r.
     u8 = _bwd.pad_cols8(u) if r else u
     out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+    pre = torch.empty_like(out) if return_pre else None
     z = None
     if return_z:
         z = (torch.empty if r else torch.zeros)(
@@ -112,8 +122,8 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
         xa.data_ptr(), w.data_ptr(), b.data_ptr(), _build.ptr(u8),
         _build.ptr(v), _build.ptr(cb), _build.ptr(res),
         _build.ptr(dpm_rows), _build.ptr(dact_g), _build.ptr(z),
-        out.data_ptr(), m, k, n, r, act, int(res is not None), float(s),
-        _build.stream_ptr(dev))
+        out.data_ptr(), _build.ptr(pre), m, k, n, r, act,
+        int(res is not None), float(s), _build.stream_ptr(dev))
     _build.check(code, "cp_site")
     if dact_g is not None:
         LAUNCHES_DACT += 1
@@ -121,6 +131,9 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
         LAUNCHES_RES += 1
     elif gelu:
         LAUNCHES_GELU += 1
+        LAUNCHES_GELU_PRE += return_pre
     else:
         LAUNCHES_BF16 += 1
-    return (out, z) if return_z else out
+    outs = (out,) + ((z,) if return_z else ()) + ((pre,) if return_pre
+                                                   else ())
+    return outs if len(outs) > 1 else out

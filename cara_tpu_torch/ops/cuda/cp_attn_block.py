@@ -31,10 +31,20 @@ recomputed.  The launches are listed at :func:`_attn_block_bwd_cuda`.
 weight dropout (``cp_attn_block_wd``, ``_ab_fwd_wd`` / ``_ab_bwd_wd_rule``
 and ``_attn_block_bwd_wd_kernel``): the forward folds both masked deltas
 into the weights (``ops/cuda/wd_fold.py``) and runs the three launches
-above with rank 0; the backward recomputes LN1 -> qkv -> attention (the
-TPU's recompute mode, ``CARA_ATTN_SAVE_QKV`` off) and composes
-``csrc/block_rows.cu``, ``csrc/grad_gemm.cu``, ``csrc/qkv_attention_bwd.cu``
-and ``csrc/wd_factor_grads.cu``; see :func:`_attn_block_wd_bwd_cuda`.
+above with rank 0; the backward composes ``csrc/block_rows.cu``,
+``csrc/grad_gemm.cu``, ``csrc/qkv_attention_bwd.cu`` and
+``csrc/wd_factor_grads.cu``.  In the save-qkv mode (``CARA_ATTN_SAVE_QKV``,
+as JAX's ``_save_qkv_on``: "1" or "0" force it, "auto" is on for CUDA
+tensors, as JAX's is on for the TPU, and off on the CPU; read at import
+into :data:`_SAVE_QKV`, decided at each call) a forward that autograd
+records keeps the qkv its site wrote (``_attn_block_fwd_save_kernel``) and
+the attention output, which is the same ``attention_cuda`` of the same
+qkv as the backward's recompute, bit for bit; the backward reads them in
+place of recomputing LN1 -> qkv and the attention
+(``_attn_block_bwd_wd_kernel(saved_qkv=True)``; LN1 stays, dT1 reads
+it): :func:`_attn_block_wd_bwd_saved_cuda`.  Off, it recomputes
+both: :func:`_attn_block_wd_bwd_cuda`.  qkv is 58 MB a layer at ViT-B
+batch 64, o 19.4 MB.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions.
@@ -42,9 +52,11 @@ A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from cara_tpu_torch.ops.cuda import _bwd, wd_fold
+from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
 from cara_tpu_torch.ops.cuda.cp_dense import (
     _factor_grads_cuda, _factor_grads_plain, cp_dense_dx_cuda,
@@ -62,11 +74,23 @@ BWD_LAUNCHES = 0
 WD_LAUNCHES = 0
 #: Backward kernel calls of :func:`cp_attn_block_wd` (TPU row 8).
 WD_BWD_LAUNCHES = 0
+#: The same in the save-qkv mode.
+WD_BWD_SAVED_LAUNCHES = 0
+
+_SAVE_QKV = os.environ.get("CARA_ATTN_SAVE_QKV", "auto")
+
+
+def _save_qkv_on(x) -> bool:
+    """Whether a recorded forward on ``x`` keeps qkv (``_save_qkv_on``):
+    "1" and "0" force, "auto" is on for CUDA tensors."""
+    if _SAVE_QKV in ("0", "1"):
+        return _SAVE_QKV == "1"
+    return x.device.type == "cuda"
 
 
 def _attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
                       ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps):
-    """The plain forward -> (out, qkv (B, N, 3E))."""
+    """The plain forward -> (out, qkv (B, N, 3E), attention output)."""
     bsz, n, e = x.shape
     dt = x.dtype
     xa = layer_norm(x, ln_scale, ln_bias, ln_eps)
@@ -74,7 +98,7 @@ def _attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
     o = fused_qkv_attention_plain(qkv, heads, sm_scale, n_real)
     y = site_plain(o, wp, bp, u2, v2, cb2, s)
     gate = dpm.float().reshape(bsz, 1, 1)
-    return (x.float() + gate * y).to(dt), qkv
+    return (x.float() + gate * y).to(dt), qkv, o
 
 
 def cp_attn_block_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
@@ -107,7 +131,7 @@ def _dpm_rows(dpm, bsz, n):
 def _attn_block_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
                      ln_bias, dpm, heads, sm_scale, n_real, s, ln_eps):
     """The three launches of the forward on CUDA tensors -> (out, qkv
-    (B, N, 3E))."""
+    (B, N, 3E), attention output (B, N, E))."""
     bsz, n, e = x.shape
     x2 = x.reshape(bsz * n, e)
     qkv = site_cuda(x2, wq, bq, u1, v1, None, s,
@@ -115,7 +139,7 @@ def _attn_block_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
     o = attention_cuda(qkv, heads, sm_scale, n_real)
     out = site_cuda(o.reshape(bsz * n, -1), wp, bp, u2, v2, cb2, s,
                     res=x2, dpm_rows=_dpm_rows(dpm, bsz, n))
-    return out.reshape(bsz, n, e), qkv
+    return out.reshape(bsz, n, e), qkv, o
 
 
 def cp_attn_block_bwd_plain(g, x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
@@ -187,9 +211,9 @@ class _AttnBlock(torch.autograd.Function):
         args = (x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale, ln_bias,
                 dpm, heads, sm_scale, n_real, s, ln_eps)
         if plain:
-            out, qkv = _attn_block_plain(*args)
+            out, qkv, _ = _attn_block_plain(*args)
         else:
-            out, qkv = _attn_block_cuda(*args)
+            out, qkv, _ = _attn_block_cuda(*args)
             LAUNCHES += 1
         ctx.save_for_backward(x, qkv, wq, u1, v1, wp, u2, v2, ln_scale,
                               ln_bias, dpm)
@@ -256,10 +280,13 @@ def cp_attn_block_wd_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
 def cp_attn_block_wd_bwd_plain(g, x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
                                ln_bias, dpm, seed1, seed2, heads: int,
                                sm_scale: float, n_real: int, s: float,
-                               rate: float, ln_eps: float = 1e-6):
+                               rate: float, ln_eps: float = 1e-6, qkv=None,
+                               o=None):
     """Plain twin of the backward (``_attn_block_bwd_wd_kernel`` with its
     rounding points): -> (dx, du1, dv1, du2, dv2, dcb2), dx in
-    ``x.dtype``, the rest fp32."""
+    ``x.dtype``, the rest fp32.  ``qkv`` and ``o``: the forward's (the
+    save-qkv mode, ``saved_qkv=True``), read in place of their recompute,
+    or both None."""
     bsz, n, e = x.shape
     dt = x.dtype
     m = bsz * n
@@ -268,9 +295,11 @@ def cp_attn_block_wd_bwd_plain(g, x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
     gate = _dpm_rows(dpm, bsz, n)[:, None]
     g2 = (g_res.float() * gate).to(dt)
     xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
-    qkv = (xa.float() @ wqp.float() + bq.float()).to(dt)
-    o2 = fused_qkv_attention_plain(qkv.reshape(bsz, n, -1), heads, sm_scale,
-                                   n_real).reshape(m, e)
+    if qkv is None:
+        qkv = (xa.float() @ wqp.float() + bq.float()).to(dt)
+        o = fused_qkv_attention_plain(qkv.reshape(bsz, n, -1), heads,
+                                      sm_scale, n_real)
+    o2 = o.reshape(m, e)
     do = g2.float() @ wpp.float().t()
     dt2 = o2.float().t() @ g2.float()
     dsp = g2.float().sum(0)
@@ -323,6 +352,52 @@ def _attn_block_wd_bwd_cuda(g, x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
     return dx.reshape(bsz, n, e), du1, dv1, du2, dv2, s * dsp
 
 
+def _attn_block_wd_bwd_saved_cuda(g, x, wqp, bq, wpp, u1, v1, u2, v2,
+                                  ln_scale, ln_bias, dpm, seed1, seed2,
+                                  heads, sm_scale, n_real, s, rate, ln_eps,
+                                  qkv, o):
+    """The save-qkv backward on CUDA tensors (``_attn_block_bwd_wd_kernel(
+    saved_qkv=True)``), as launches (M = B*N rows):
+
+    ``ln_rows`` xa = LN1(x) (dT1 reads it); the forward's ``qkv`` and
+    attention output ``o`` in place of the NN recompute and
+    ``qkv_attention``; ``gate_colsum`` g2 = bf16(g *
+    dpm) and dsp in one pass; NT do = bf16(g2 wp'^T); TN dT2 = o^T g2;
+    ``qkv_attention_bwd`` dqkv; NT dxa = dqkv wq'^T (fp32);
+    ``ln_bwd_residual`` dx; TN dT1 = xa^T dqkv; ``wd_factor_grads`` on
+    dT1 and dT2.  The five small gradients land in one fp32 buffer, cast
+    to x's dtype in one step."""
+    bsz, n, e = x.shape
+    m = bsz * n
+    x2 = x.reshape(m, e)
+    g_res = g.reshape(m, e)
+    e3, r1, r2 = wqp.shape[1], u1.shape[1], u2.shape[1]
+    shapes = ((e, r1), (r1, e3), (e, r2), (r2, e), (e,))
+    flat = _bwd.flat_buffer(x.device, shapes)
+    du1, dv1, du2, dv2, dsp = _bwd.cut(flat, shapes)
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    o2 = o.reshape(m, e)
+    g2 = _bwd.gate_colsum(g_res, *_bwd.gate_vector(
+        dpm.reshape(bsz, 1, 1), (bsz, n), x.dtype), ds=dsp)
+    do = _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, wpp)
+    dt2 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, o2, g2,
+                    splits=_bwd.dt_splits(e, e, m))
+    dqkv = attention_bwd_cuda(qkv, do.reshape(bsz, n, e), heads, sm_scale,
+                              n_real).reshape(m, -1)
+    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dqkv, wqp)
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    del dxa
+    dt1 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, dqkv,
+                    splits=_bwd.dt_splits(e, dqkv.shape[1], m))
+    wd_fold.masked_factor_grads_cuda(dt1, u1, v1, seed1, s, rate,
+                                     out=(du1, dv1))
+    wd_fold.masked_factor_grads_cuda(dt2, u2, v2, seed2, s, rate,
+                                     out=(du2, dv2))
+    if s != 1.0:  # the masked finish scales dU, dV itself
+        dsp.mul_(s)
+    return (dx.reshape(bsz, n, e), *_bwd.cut(flat.to(x.dtype), shapes))
+
+
 class _AttnBlockWd(torch.autograd.Function):
     """Gradients for x, u1, v1, u2, v2 and cb2; the backbone (wq, bq, wp,
     bp, LN1), the gate and the seeds are constants, as in
@@ -331,7 +406,7 @@ class _AttnBlockWd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
                 ln_bias, dpm, seed1, seed2, heads, sm_scale, n_real, s,
-                rate, ln_eps, plain):
+                rate, ln_eps, plain, save):
         global WD_LAUNCHES
         fold = (wd_fold.build_wd_weight_plain if plain
                 else wd_fold.build_wd_weight)
@@ -342,32 +417,39 @@ class _AttnBlockWd(torch.autograd.Function):
                 bp, *wd_fold.zero_rank(x, e, e), cb2, ln_scale, ln_bias, dpm,
                 heads, sm_scale, n_real, s, ln_eps)
         if plain:
-            out = cp_attn_block_plain(*args)
+            out, qkv, o = _attn_block_plain(*args)
         else:
-            out = _attn_block_cuda(*args)[0]
+            out, qkv, o = _attn_block_cuda(*args)
             WD_LAUNCHES += 1
+        if not save:
+            qkv = o = None
         ctx.save_for_backward(x, wqp, bq, wpp, u1, v1, u2, v2, ln_scale,
-                              ln_bias, dpm, seed1, seed2)
+                              ln_bias, dpm, seed1, seed2, qkv, o)
         ctx.cfg = (heads, sm_scale, n_real, s, rate, ln_eps, plain)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global WD_BWD_LAUNCHES
+        global WD_BWD_LAUNCHES, WD_BWD_SAVED_LAUNCHES
         (x, wqp, bq, wpp, u1, v1, u2, v2, ls, lb, dpm, seed1,
-         seed2) = ctx.saved_tensors
+         seed2, qkv, o) = ctx.saved_tensors
         heads, sm_scale, n_real, s, rate, ln_eps, plain = ctx.cfg
         args = (g.contiguous(), x, wqp, bq, wpp, u1, v1, u2, v2, ls, lb,
                 dpm, seed1, seed2, heads, sm_scale, n_real, s, rate, ln_eps)
         if plain:
-            dx, du1, dv1, du2, dv2, dcb2 = cp_attn_block_wd_bwd_plain(*args)
+            dx, du1, dv1, du2, dv2, dcb2 = cp_attn_block_wd_bwd_plain(
+                *args, qkv=qkv, o=o)
+        elif qkv is not None:
+            dx, du1, dv1, du2, dv2, dcb2 = _attn_block_wd_bwd_saved_cuda(
+                *args, qkv, o)
+            WD_BWD_SAVED_LAUNCHES += 1
         else:
             dx, du1, dv1, du2, dv2, dcb2 = _attn_block_wd_bwd_cuda(*args)
             WD_BWD_LAUNCHES += 1
         return (dx, None, None, du1.to(u1.dtype), dv1.to(v1.dtype), None,
                 None, du2.to(u2.dtype), dv2.to(v2.dtype), dcb2.to(x.dtype),
                 None, None, None, None, None, None, None, None, None, None,
-                None, None)
+                None, None, None)
 
 
 def cp_attn_block_wd(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
@@ -381,13 +463,15 @@ def cp_attn_block_wd(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ln_scale,
 
     ``impl="auto"`` launches the kernels for CUDA tensors and runs the
     plain versions for CPU tensors; ``impl="plain"`` runs the plain
-    versions on any device (the reference the kernels are held to)."""
+    versions on any device (the reference the kernels are held to).  A
+    recorded forward keeps qkv and o where :func:`_save_qkv_on` says."""
     _check_block(x, dpm, n_real)
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     plain = impl == "plain" or x.device.type == "cpu"
     if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    save = _save_qkv_on(x) and _build.recorded(x, u1, v1, u2, v2, cb2)
     return _AttnBlockWd.apply(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2,
                               ln_scale, ln_bias, dpm, seed1, seed2, heads,
-                              sm_scale, n_real, s, rate, ln_eps, plain)
+                              sm_scale, n_real, s, rate, ln_eps, plain, save)

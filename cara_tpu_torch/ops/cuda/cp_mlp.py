@@ -14,30 +14,46 @@ fc2); then fc2 with its delta, cb2 and the residual ``x + dpm * y``.
 HBM that the TPU kernel avoided; both GEMMs are
 tensor-core bound at ViT-B, so the first version accepts that, and fusing
 fc1 into fc2 is later work.  The TPU epilogue's A&S erf is replaced by the
-exact erf, as the JAX XLA path uses.  The save-pre mode is not ported.
+exact erf, as the JAX XLA path uses.
+
+The save-pre mode (``CARA_MLP_SAVE_PRE``, as JAX's ``_save_pre_on``: "1"
+or "0" force it, "auto" is on for CUDA tensors, as JAX's is on for the
+TPU, and off on the CPU; read at import into :data:`_SAVE_PRE`, decided at
+each call): a forward that autograd records (training; never serving or
+eval) has its fc1 site also write the pre-activation rounded to x's dtype
+(``_mlp_fwd_save_pre_kernel``), and the backwards of both blocks read it
+in place of recomputing fc1 (``_mlp_bwd_kernel(saved_pre=True)``,
+``_mlp_bwd_wd_pre_kernel``): :func:`_mlp_block_bwd_saved_cuda` and
+:func:`_mlp_block_wd_bwd_saved_cuda`.  h is then bf16(gelu(pre)) from the
+saved pre, as in JAX.  The pre-activation is 77.5 MB a layer at ViT-B
+batch 64 and 224 px.
 
 :func:`cp_mlp_block_wd` is the training form with exact element-wise
 weight dropout (``cp_mlp_block_wd``: ``_mlp_fwd_wd`` and
 ``_mlp_bwd_wd_rule`` / ``_mlp_bwd_wd_kernel``).  Its forward folds both
 masked deltas into the weights (``ops/cuda/wd_fold.py``) and runs the two
 launches above with rank 0 (counted in :data:`LAUNCHES`: it is the same
-kernel, TPU row 9).  Its backward recomputes the fp32 pre-activation
-(``CARA_MLP_SAVE_PRE`` off) and composes ``csrc/block_rows.cu``,
-``csrc/grad_gemm.cu`` and ``csrc/wd_factor_grads.cu``; see
-:func:`_mlp_block_wd_bwd_cuda`.
+kernel, TPU row 9).  Its backward reads the saved pre-activation (or,
+with ``CARA_MLP_SAVE_PRE`` off, recomputes it in fp32) and composes
+``csrc/block_rows.cu``, ``csrc/grad_gemm.cu`` and
+``csrc/wd_factor_grads.cu``; see :func:`_mlp_block_wd_bwd_saved_cuda`
+and :func:`_mlp_block_wd_bwd_cuda`.
 
 :func:`cp_mlp_block` is differentiable: its backward replaces
 ``_mlp_bwd_rule`` / ``_mlp_bwd_raw`` / ``_mlp_bwd_kernel`` (TPU row 10,
 the rank / row / no-dropout training route).  The TPU kernel recomputes
-LN2, the pre-activation and h per 256-row tile and accumulates the four
-rank-space factor gradients over its sequential grid; here the same
-recompute (no save-pre mode) and the rank-space products are launches of
+LN2 (and, without the save-pre mode, the pre-activation and h) per
+256-row tile and accumulates the four rank-space factor gradients over
+its sequential grid; here the same steps and the rank-space products are
+launches of
 ``csrc/block_rows.cu``, the rank product of ``csrc/cp_site.cu`` and
 ``csrc/grad_gemm.cu`` (its rank k-step keeps every delta in rank space,
 the two g V^T operands folded into the NT products that read g,
 its TN split sums the factor gradients over the token rows in a fixed
-order); see :func:`_mlp_block_bwd_cuda`.  What bounds it: three 59.5
-GFLOP products at ViT-B, so the tensor cores.
+order); see :func:`_mlp_block_bwd_cuda` (the recompute form, under
+``CARA_MLP_SAVE_PRE=0``) and :func:`_mlp_block_bwd_saved_cuda`.  What
+bounds it: two (saved) or three 59.5 GFLOP products at ViT-B, so the
+tensor cores.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions.
@@ -45,9 +61,11 @@ A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from cara_tpu_torch.ops.cuda import _bwd, wd_fold
+from cara_tpu_torch.ops.cuda import _build, _bwd, wd_fold
 from cara_tpu_torch.ops.cuda._site import site_cuda, site_plain
 from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 
@@ -58,6 +76,32 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 #: Backward kernel calls of :func:`cp_mlp_block_wd` (TPU row 11).
 WD_BWD_LAUNCHES = 0
+#: The same two backwards in the save-pre mode.
+BWD_SAVED_LAUNCHES = 0
+WD_BWD_SAVED_LAUNCHES = 0
+
+_SAVE_PRE = os.environ.get("CARA_MLP_SAVE_PRE", "auto")
+
+
+def _save_pre_on(x) -> bool:
+    """Whether a recorded forward on ``x`` keeps the pre-activation
+    (``_save_pre_on``): "1" and "0" force, "auto" is on for CUDA
+    tensors."""
+    if _SAVE_PRE in ("0", "1"):
+        return _SAVE_PRE == "1"
+    return x.device.type == "cuda"
+
+
+def _mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
+                     ln_bias, dpm, s, act, ln_eps):
+    """The plain forward -> (out, fp32 pre-activation)."""
+    dt = x.dtype
+    xa = layer_norm(x, ln_scale, ln_bias, ln_eps)
+    pre = site_plain(xa, w1, b1, u1, v1, cb1, s)
+    h = activation(pre, act).to(dt)
+    y = site_plain(h, w2, b2, u2, v2, cb2, s)
+    gate = torch.broadcast_to(dpm, x.shape[:-1] + (1,)).float()
+    return (x.float() + gate * y).to(dt), pre
 
 
 def cp_mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
@@ -65,12 +109,8 @@ def cp_mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
                        act: str = "gelu", ln_eps: float = 1e-6):
     """Plain PyTorch twin of :func:`cp_mlp_block` (LN2(x), z1, h and z2
     rounded to ``x.dtype``, as in ``_mlp_fwd_kernel``)."""
-    dt = x.dtype
-    xa = layer_norm(x, ln_scale, ln_bias, ln_eps)
-    h = activation(site_plain(xa, w1, b1, u1, v1, cb1, s), act).to(dt)
-    y = site_plain(h, w2, b2, u2, v2, cb2, s)
-    gate = torch.broadcast_to(dpm, x.shape[:-1] + (1,)).float()
-    return (x.float() + gate * y).to(dt)
+    return _mlp_block_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
+                            ln_scale, ln_bias, dpm, s, act, ln_eps)[0]
 
 
 def _dpm_rows(dpm, lead):
@@ -79,8 +119,10 @@ def _dpm_rows(dpm, lead):
 
 
 def _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
-                    ln_bias, dpm, s, act, ln_eps):
-    """The two launches of the forward on CUDA tensors."""
+                    ln_bias, dpm, s, act, ln_eps, save_pre=False):
+    """The two launches of the forward on CUDA tensors -> (out, the
+    pre-activation (M, 4E) bf16 written by the fc1 site with
+    ``save_pre``, else None)."""
     lead, e = x.shape[:-1], x.shape[-1]
     if act != "gelu":
         raise ValueError(f"the cp_site kernel's epilogue has exact GELU "
@@ -89,20 +131,25 @@ def _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
         raise ValueError(f"residual-fused MLP needs W2 out == E "
                          f"({w2.shape[1]} vs {e})")
     x2 = x.reshape(-1, e)
-    h = site_cuda(x2, w1, b1, u1, v1, cb1, s,
-                  ln=(ln_scale, ln_bias, ln_eps), gelu=True)
+    fc1 = site_cuda(x2, w1, b1, u1, v1, cb1, s,
+                    ln=(ln_scale, ln_bias, ln_eps), gelu=True,
+                    return_pre=save_pre)
+    h, pre = fc1 if save_pre else (fc1, None)
     out = site_cuda(h, w2, b2, u2, v2, cb2, s, res=x2,
                     dpm_rows=_dpm_rows(dpm, lead))
-    return out.reshape(*lead, e)
+    return out.reshape(*lead, e), pre
 
 
 def cp_mlp_block_bwd_plain(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
                            ln_scale, ln_bias, dpm, s: float = 1.0,
-                           act: str = "gelu", ln_eps: float = 1e-6):
+                           act: str = "gelu", ln_eps: float = 1e-6,
+                           pre=None):
     """Plain twin of the backward (``_mlp_bwd_kernel`` with its rounding
     points: g2, xa, z1, h, gv1, gv2, dpre and z2 rounded to ``x.dtype``):
     -> (dx, du1, dv1, dcb1, du2, dv2, dcb2), dx in ``x.dtype``, the rest
-    fp32."""
+    fp32.  ``pre``: the saved pre-activation (save-pre mode,
+    ``saved_pre=True``: read in place of the fc1 recompute, h =
+    gelu(pre) rounded), or None."""
     lead, e = x.shape[:-1], x.shape[-1]
     dt = x.dtype
     x2 = x.reshape(-1, e)
@@ -110,8 +157,11 @@ def cp_mlp_block_bwd_plain(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
     g2 = (g_res.float() * _dpm_rows(dpm, lead)[:, None]).to(dt)
     xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
     z1 = (xa.float() @ u1.float()).to(dt)
-    pre = (xa.float() @ w1.float() + b1.float()
-           + s * (z1.float() @ v1.float() + cb1.float()))
+    if pre is None:
+        pre = (xa.float() @ w1.float() + b1.float()
+               + s * (z1.float() @ v1.float() + cb1.float()))
+    else:
+        pre = pre.reshape(x2.shape[0], -1).float()
     h = activation(pre, act).to(dt)
     gv2 = (g2.float() @ v2.float().t()).to(dt)
     dh = g2.float() @ w2.float().t() + s * (gv2.float() @ u2.float().t())
@@ -178,41 +228,96 @@ def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
     return dx.reshape(x.shape), du1, dv1, s * ds1, du2, dv2, s * ds2
 
 
+def _mlp_block_bwd_saved_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
+                              ln_scale, ln_bias, dpm, s, act, ln_eps, pre):
+    """The save-pre backward on CUDA tensors (``_mlp_bwd_kernel(
+    saved_pre=True)``), as launches (M rows, hidden H; each rank-r operand
+    64 wide, zero past r, as in :func:`_mlp_block_bwd_cuda`):
+
+    ``ln_rows`` xa = LN2(x); rank product z1 = bf16(xa U1);
+    ``gate_colsum`` g2 = bf16(g dpm) and ds2 in one pass; NT DGELU_H +
+    folded rank step dpre = (g2 W2^T + s gv2 U2^T) gelu'(pre), bf16, its
+    column sums, gv2 = bf16(g2 V2^T) and h = bf16(gelu(pre)), all from the
+    saved bf16 ``pre`` (no fc1 recompute); ``colsum`` ds1; NT + folded
+    rank step dxa = dpre W1^T + s gv1 U1^T (fp32) and gv1;
+    ``ln_bwd_residual`` dx; rank product z2 = bf16(h U2); the four split
+    TN factor products.  The six small gradients land in one fp32 buffer,
+    scaled and cast to x's dtype in one step."""
+    if act != "gelu":
+        raise ValueError(f"the backward kernels have exact GELU only; "
+                         f"act={act!r} is not yet ported")
+    lead, e = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, e)
+    g_res = g.reshape(-1, e)
+    m, hid = x2.shape[0], w1.shape[1]
+    r1, r2 = u1.shape[1], u2.shape[1]
+    w = _bwd.RANK_W
+    shapes = ((e, w), (w, hid), (hid, w), (w, e), (hid,), (e,))
+    flat = _bwd.flat_buffer(x.device, shapes)
+    du1, dv1, du2, dv2, ds1, ds2 = _bwd.cut(flat, shapes)
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    z1 = _bwd.rank_z(xa, u1)
+    g2 = _bwd.gate_colsum(g_res, *_bwd.gate_vector(dpm, lead, x.dtype),
+                          ds=ds2)
+    dprec, colpart, h, gv2 = _bwd.gemm(
+        _bwd.NT, _bwd.EPI_DGELU_H, g2, w2, aux=pre.reshape(m, hid),
+        b2=_bwd.pad_cols8(_bwd.scaled(u2, s)), fold_v=v2)
+    _bwd.colsum(colpart, out=ds1)
+    dxa, gv1 = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1,
+                         b2=_bwd.pad_cols8(_bwd.scaled(u1, s)), fold_v=v1)
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    del dxa
+    z2 = _bwd.rank_z(h, u2)
+    _bwd.factor_grad(xa, gv1, out=du1)
+    _bwd.factor_grad(z1, dprec, out=dv1)
+    _bwd.factor_grad(h, gv2, out=du2)
+    _bwd.factor_grad(z2, g2, out=dv2)
+    du1, dv1, du2, dv2, ds1, ds2 = _bwd.cut(
+        _bwd.scaled(flat, s).to(x.dtype), shapes)
+    return (dx.reshape(x.shape), du1[:, :r1], dv1[:r1], ds1, du2[:, :r2],
+            dv2[:r2], ds2)
+
+
 class _MlpBlock(torch.autograd.Function):
     """Gradients for x, u1, v1, cb1, u2, v2 and cb2; the backbone (w1, b1,
     w2, b2, LN2) and the gate are constants, as in ``_mlp_bwd_rule``."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
-                ln_bias, dpm, s, act, ln_eps, plain):
+                ln_bias, dpm, s, act, ln_eps, plain, save):
         global LAUNCHES
         args = (x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                 ln_bias, dpm, s, act, ln_eps)
         if plain:
-            out = cp_mlp_block_plain(*args)
+            out, pre = _mlp_block_plain(*args)
+            pre = pre.to(x.dtype) if save else None
         else:
-            out = _mlp_block_cuda(*args)
+            out, pre = _mlp_block_cuda(*args, save_pre=save)
             LAUNCHES += 1
         ctx.save_for_backward(x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
-                              ln_bias, dpm)
+                              ln_bias, dpm, pre)
         ctx.cfg = (s, act, ln_eps, plain)
         ctx.dtypes = tuple(t.dtype for t in (u1, v1, cb1, u2, v2, cb2))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global BWD_LAUNCHES
+        global BWD_LAUNCHES, BWD_SAVED_LAUNCHES
         s, act, ln_eps, plain = ctx.cfg
-        args = (g.contiguous(), *ctx.saved_tensors, s, act, ln_eps)
+        *saved, pre = ctx.saved_tensors
+        args = (g.contiguous(), *saved, s, act, ln_eps)
         if plain:
-            grads = cp_mlp_block_bwd_plain(*args)
+            grads = cp_mlp_block_bwd_plain(*args, pre=pre)
+        elif pre is not None:
+            grads = _mlp_block_bwd_saved_cuda(*args, pre)
+            BWD_SAVED_LAUNCHES += 1
         else:
             grads = _mlp_block_bwd_cuda(*args)
             BWD_LAUNCHES += 1
         du1, dv1, dcb1, du2, dv2, dcb2 = (
             t.to(dt) for t, dt in zip(grads[1:], ctx.dtypes))
         return (grads[0], None, None, du1, dv1, dcb1, None, None, du2, dv2,
-                dcb2, None, None, None, None, None, None, None)
+                dcb2, None, None, None, None, None, None, None, None)
 
 
 def cp_mlp_block(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
@@ -224,14 +329,17 @@ def cp_mlp_block(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
     ``x`` (..., E); ``dpm`` broadcastable to ``x.shape[:-1] + (1,)`` (ones
     in eval, the per-image gates in training).  Callers fold the delta
     scale into ``v1``/``cb1``/``v2``/``cb2`` and pass ``s=1.0``.
-    ``impl="plain"`` runs the plain versions on any device."""
+    ``impl="plain"`` runs the plain versions on any device.  A recorded
+    forward keeps the pre-activation where :func:`_save_pre_on` says."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     plain = impl == "plain" or x.device.type == "cpu"
     if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    save = _save_pre_on(x) and _build.recorded(x, u1, v1, cb1, u2, v2, cb2)
     return _MlpBlock.apply(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
-                           ln_scale, ln_bias, dpm, s, act, ln_eps, plain)
+                           ln_scale, ln_bias, dpm, s, act, ln_eps, plain,
+                           save)
 
 
 def cp_mlp_block_wd_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
@@ -252,17 +360,21 @@ def cp_mlp_block_wd_plain(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
 def cp_mlp_block_wd_bwd_plain(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
                               ln_scale, ln_bias, dpm, seed1, seed2, s: float,
                               rate: float, act: str = "gelu",
-                              ln_eps: float = 1e-6):
+                              ln_eps: float = 1e-6, pre=None):
     """Plain twin of the backward (``_mlp_bwd_wd_kernel`` with its
-    rounding points): -> (dx, du1, dv1, dcb1, du2, dv2, dcb2), dx in
-    ``x.dtype``, the rest fp32."""
+    rounding points; with the saved ``pre``, ``_mlp_bwd_wd_pre_kernel``'s):
+    -> (dx, du1, dv1, dcb1, du2, dv2, dcb2), dx in ``x.dtype``, the rest
+    fp32."""
     lead, e = x.shape[:-1], x.shape[-1]
     dt = x.dtype
     x2 = x.reshape(-1, e)
     g_res = g.reshape(-1, e)
     g2 = (g_res.float() * _dpm_rows(dpm, lead)[:, None]).to(dt)
     xa = layer_norm(x2, ln_scale, ln_bias, ln_eps)
-    pre = xa.float() @ w1p.float() + b1.float() + s * cb1.float()
+    if pre is None:
+        pre = xa.float() @ w1p.float() + b1.float() + s * cb1.float()
+    else:
+        pre = pre.reshape(x2.shape[0], -1).float()
     h = activation(pre, act).to(dt)
     dh = g2.float() @ w2p.float().t()
     dpre = dh * activation_grad(pre, act)
@@ -320,6 +432,53 @@ def _mlp_block_wd_bwd_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
     return dx.reshape(x.shape), du1, dv1, s * ds1, du2, dv2, s * ds2
 
 
+def _mlp_block_wd_bwd_saved_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
+                                 ln_scale, ln_bias, dpm, seed1, seed2, s,
+                                 rate, act, ln_eps, pre):
+    """The save-pre backward on CUDA tensors (``_mlp_bwd_wd_pre_kernel``),
+    as launches (M rows, hidden H):
+
+    ``ln_rows`` xa = LN2(x); ``gate_colsum`` g2 = bf16(g * dpm) and ds2;
+    NT DGELU_H dpre = (g2 w2'^T) gelu'(pre), bf16, its column sums and h
+    = bf16(gelu(pre)), from the saved bf16 ``pre`` (no fc1 recompute);
+    ``colsum`` ds1; NT dxa = dpre w1'^T (fp32); ``ln_bwd_residual`` dx; TN
+    dT1 = xa^T dpre and dT2 = h^T g2; ``wd_factor_grads`` on both.  The
+    six small gradients land in one fp32 buffer, cast to x's dtype in one
+    step."""
+    if act != "gelu":
+        raise ValueError(f"the backward kernels have exact GELU only; "
+                         f"act={act!r} is not yet ported")
+    lead, e = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, e)
+    g_res = g.reshape(-1, e)
+    m, hid = x2.shape[0], w1p.shape[1]
+    r1, r2 = u1.shape[1], u2.shape[1]
+    shapes = ((e, r1), (r1, hid), (hid,), (hid, r2), (r2, e), (e,))
+    flat = _bwd.flat_buffer(x.device, shapes)
+    du1, dv1, ds1, du2, dv2, ds2 = _bwd.cut(flat, shapes)
+    xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
+    g2 = _bwd.gate_colsum(g_res, *_bwd.gate_vector(dpm, lead, x.dtype),
+                          ds=ds2)
+    dprec, colpart, h = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU_H, g2, w2p,
+                                  aux=pre.reshape(m, hid))
+    _bwd.colsum(colpart, out=ds1)
+    dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1p)
+    dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
+    del dxa
+    dt1 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, xa, dprec,
+                    splits=_bwd.dt_splits(e, hid, m))
+    dt2 = _bwd.gemm(_bwd.TN, _bwd.EPI_F32, h, g2,
+                    splits=_bwd.dt_splits(hid, e, m))
+    wd_fold.masked_factor_grads_cuda(dt1, u1, v1, seed1, s, rate,
+                                     out=(du1, dv1))
+    wd_fold.masked_factor_grads_cuda(dt2, u2, v2, seed2, s, rate,
+                                     out=(du2, dv2))
+    if s != 1.0:  # the masked finish scales dU, dV itself
+        ds1.mul_(s)
+        ds2.mul_(s)
+    return (dx.reshape(x.shape), *_bwd.cut(flat.to(x.dtype), shapes))
+
+
 class _MlpBlockWd(torch.autograd.Function):
     """Gradients for x, u1, v1, cb1, u2, v2 and cb2; the backbone (w1, b1,
     w2, b2, LN2), the gate and the seeds are constants, as in
@@ -327,7 +486,8 @@ class _MlpBlockWd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
-                ln_bias, dpm, seed1, seed2, s, rate, act, ln_eps, plain):
+                ln_bias, dpm, seed1, seed2, s, rate, act, ln_eps, plain,
+                save):
         global LAUNCHES
         fold = (wd_fold.build_wd_weight_plain if plain
                 else wd_fold.build_wd_weight)
@@ -338,25 +498,29 @@ class _MlpBlockWd(torch.autograd.Function):
                 *wd_fold.zero_rank(x, hid, w2.shape[1]), cb2, ln_scale,
                 ln_bias, dpm, s, act, ln_eps)
         if plain:
-            out = cp_mlp_block_plain(*args)
+            out, pre = _mlp_block_plain(*args)
+            pre = pre.to(x.dtype) if save else None
         else:
-            out = _mlp_block_cuda(*args)
+            out, pre = _mlp_block_cuda(*args, save_pre=save)
             LAUNCHES += 1
         ctx.save_for_backward(x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
-                              ln_scale, ln_bias, dpm, seed1, seed2)
+                              ln_scale, ln_bias, dpm, seed1, seed2, pre)
         ctx.cfg = (s, rate, act, ln_eps, plain)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global WD_BWD_LAUNCHES
+        global WD_BWD_LAUNCHES, WD_BWD_SAVED_LAUNCHES
         (x, w1p, b1, cb1, w2p, u1, v1, u2, v2, ls, lb, dpm, seed1,
-         seed2) = ctx.saved_tensors
+         seed2, pre) = ctx.saved_tensors
         s, rate, act, ln_eps, plain = ctx.cfg
         args = (g.contiguous(), x, w1p, b1, cb1, w2p, u1, v1, u2, v2, ls,
                 lb, dpm, seed1, seed2, s, rate, act, ln_eps)
         if plain:
-            grads = cp_mlp_block_wd_bwd_plain(*args)
+            grads = cp_mlp_block_wd_bwd_plain(*args, pre=pre)
+        elif pre is not None:
+            grads = _mlp_block_wd_bwd_saved_cuda(*args, pre)
+            WD_BWD_SAVED_LAUNCHES += 1
         else:
             grads = _mlp_block_wd_bwd_cuda(*args)
             WD_BWD_LAUNCHES += 1
@@ -364,7 +528,7 @@ class _MlpBlockWd(torch.autograd.Function):
         return (dx, None, None, du1.to(u1.dtype), dv1.to(v1.dtype),
                 dcb1.to(cb1.dtype), None, None, du2.to(u2.dtype),
                 dv2.to(v2.dtype), dcb2.to(x.dtype), None, None, None, None,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def cp_mlp_block_wd(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
@@ -375,12 +539,14 @@ def cp_mlp_block_wd(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
     dense deltas (``cara.py:81,92``), differentiable in x, u1, v1, cb1,
     u2, v2 and cb2.  ``seed1`` / ``seed2``: one-element int32 tensors on
     x's device (the fc1 and fc2 masks).  ``impl`` as in
-    ``cp_attn_block.cp_attn_block_wd``."""
+    ``cp_attn_block.cp_attn_block_wd``; the pre-activation kept as in
+    :func:`cp_mlp_block`."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     plain = impl == "plain" or x.device.type == "cpu"
     if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    save = _save_pre_on(x) and _build.recorded(x, u1, v1, cb1, u2, v2, cb2)
     return _MlpBlockWd.apply(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2,
                              ln_scale, ln_bias, dpm, seed1, seed2, s, rate,
-                             act, ln_eps, plain)
+                             act, ln_eps, plain, save)

@@ -147,9 +147,11 @@ def masked_factor_grads_plain(dt, u, v, seed, s: float, rate: float,
     return dtc @ v.float().t(), u.float().t() @ dtc
 
 
-def masked_factor_grads_cuda(dt, u, v, seed, s: float, rate: float):
+def masked_factor_grads_cuda(dt, u, v, seed, s: float, rate: float,
+                             out=None):
     """Launch ``csrc/wd_factor_grads.cu`` on ``dt`` (K, N) fp32 (no
-    launch count: the block backward wrappers call this directly)."""
+    launch count: the block backward wrappers call this directly);
+    ``out``: contiguous fp32 (dU, dV) to write into, or None."""
     k, n = dt.shape
     r = u.shape[1]
     dev = dt.device
@@ -160,8 +162,16 @@ def masked_factor_grads_cuda(dt, u, v, seed, s: float, rate: float):
             or u.shape != (k, r) or v.shape != (r, n)):
         raise ValueError("wd_factor_grads wants contiguous fp32 (K, N) dT, "
                          "u (K, r) and v (r, N)")
-    du = torch.empty((k, r), device=dev, dtype=torch.float32)
-    dv = torch.empty((r, n), device=dev, dtype=torch.float32)
+    if out is None:
+        du = torch.empty((k, r), device=dev, dtype=torch.float32)
+        dv = torch.empty((r, n), device=dev, dtype=torch.float32)
+    else:
+        du, dv = out
+        if (du.shape != (k, r) or dv.shape != (r, n) or any(
+                t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != dev for t in out)):
+            raise ValueError("wd_factor_grads: out must be contiguous fp32 "
+                             "(K, r) and (r, N) on dT's device")
     dv_part = torch.empty(((k + 7) // 8, r, n), device=dev,
                           dtype=torch.float32)
     du_part = torch.empty(((n + 255) // 256, k, r), device=dev,

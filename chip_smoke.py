@@ -115,17 +115,34 @@ fatal on failure:
 12. the GEMM core (``csrc/sm90_gemm.cuh``) alone, run with phase 3's:
    row 11's five products at B 64, N 197 (``grad_gemm.cu``: NN with the
    PRE_GELU epilogue, NT with DGELU, NT dxa, the two TN dT products;
-   launches: the element training phase) and the forward site's five
+   launches: the element training phase) and the forward site's six
    forms (``cp_site.cu`` with the LayerNorm row pass: qkv with LN1, proj
-   and fc2 with the residual, fc1 with LN2 and the GELU, fc1's dact;
-   delta scale 1.5; launches: adapter serving, the dact mode the rank
-   route with dropout) against their fp32 plain versions, timed beside
+   and fc2 with the residual, fc1 with LN2 and the GELU, fc1's dact,
+   and fc1 writing its bf16 pre-activation beside h; delta scale 1.5;
+   launches: adapter serving, the dact mode the rank route with
+   dropout, the pre-activation form the element training phase)
+   against their fp32 plain versions, timed beside
    ``torch.matmul`` on the same bf16 operands; then determinism: the
    backwards of rows 2 (N 197, 512), 16 (N 577) and 17 (N 197, 577)
-   called twice at B 64 give dq, dk and dv bit for bit, the five site
+   called twice at B 64 give dq, dk and dv bit for bit, the six site
    forms their outputs, and two runs of two rank steps of ViT-B at 224
    px from one state and seed end with every trainable leaf bit for
-   bit.
+   bit;
+13. the saved-residual modes (run after 6): by default, as on the TPU,
+   the training forwards keep the MLP block's pre-activation
+   (``CARA_MLP_SAVE_PRE``) and the attention block's qkv and output
+   (``CARA_ATTN_SAVE_QKV``), and the backwards of rows 8, 10 and 11 read
+   them (the ``*_saved`` entries of phase 3, held against their plain
+   twins at the saved rounding points; the recompute entries run with
+   both switches "0"), and no recompute form (nor its NN PRE_GELU or NT
+   DGELU product) launches on the default element and rank routes at
+   224 or 384 px; the element and rank steps at 224 px with both
+   switches "0" (every recompute form launches, no saved one, no fc1
+   site writes its pre-activation), then both forms timed in turns on
+   one setup, with the peak memory of each, and two such steps of each
+   route at 384 px (rows 10 and 11's recompute forms at N 577).
+   Serving writes no saved residual.  Every training phase prints its
+   peak memory.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -140,8 +157,9 @@ line is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
-at 384 px, of full fine-tuning and the linear probe at 224 px, of the
-element and rank routes with activation dropout 0.1 at 224 px, and of
+at 384 px (at 224 px also with both saved-residual switches "0"), of
+full fine-tuning and the linear probe at 224 px, of the element and
+rank routes with activation dropout 0.1 at 224 px, and of
 the rank route under each attention-block switch (``torch.profiler``),
 with the busy share; then merged serving at batch 64 in bf16, int8 with
 and without ``CARA_INT8_PALLAS=1`` and w8a8 (also with row-major codes):
@@ -238,6 +256,21 @@ KERNELS = {
     "cp_mlp_block_bwd": (
         mlp_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:292"),
+    # Rows 8, 11 and 10 in the TPU's default saved-residual modes: the
+    # backward reads the qkv and attention output, or the pre-activation,
+    # its forward kept (launches: the element and rank training phases).
+    # The three entries above are the recompute forms, both switches "0"
+    # (launches: the recompute phase).
+    "cp_attn_block_wd_bwd_saved": (
+        attn_mod, "WD_BWD_SAVED_LAUNCHES",
+        "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "cara_tpu/ops/pallas/cp_attn_block.py:578"),
+    "cp_mlp_block_wd_bwd_saved": (
+        mlp_mod, "WD_BWD_SAVED_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "cp_mlp_block_bwd_saved": (
+        mlp_mod, "BWD_SAVED_LAUNCHES", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:292"),
     "blockwise_qkv_attention": (
         bwa_mod, "LAUNCHES", "cara_tpu_torch/csrc/blockwise_attention.cu",
         "cara_tpu/ops/pallas/blockwise_attention.py:228"),
@@ -327,15 +360,19 @@ KERNELS = {
     "block_pair_fwd": (
         pair_mod, "LAUNCHES", "cara_tpu_torch/csrc/block_pair.cu",
         "cara_tpu/ops/pallas/block_pair.py:88"),
-    # The GEMM core of the block backwards alone, at row 11's five
-    # products (M = 12608, E 768, hidden 3072; launches: the element
-    # training phase, every launch of that layout and epilogue, the
-    # attention block's included).
+    # The GEMM core of the block backwards alone, at row 11's products
+    # (M = 12608, E 768, hidden 3072; launches: the element training
+    # phase, every launch of that layout and epilogue, the attention
+    # block's included; for the recompute form's NN PRE_GELU and NT
+    # DGELU the recompute phase), the saved form's NT DGELU_H among them.
     "grad_gemm_nn_pre_gelu": (
         _bwd, "LAUNCHES_NN_PRE_GELU", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:579"),
     "grad_gemm_nt_dgelu": (
         _bwd, "LAUNCHES_NT_DGELU", "cara_tpu_torch/csrc/grad_gemm.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:579"),
+    "grad_gemm_nt_dgelu_h": (
+        _bwd, "LAUNCHES_NT_DGELU_H", "cara_tpu_torch/csrc/grad_gemm.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:579"),
     "grad_gemm_nt_dxa": (
         _bwd, "LAUNCHES_NT_F32", "cara_tpu_torch/csrc/grad_gemm.cu",
@@ -367,9 +404,17 @@ KERNELS = {
     "cp_site_fc1_dact": (
         _site, "LAUNCHES_DACT", "cara_tpu_torch/csrc/cp_site.cu",
         "cara_tpu/ops/pallas/cp_dense.py:356"),
+    # launches: the element and rank training routes (save-pre default)
+    "cp_site_fc1_ln_gelu_pre": (
+        _site, "LAUNCHES_GELU_PRE", "cara_tpu_torch/csrc/cp_site.cu",
+        "cara_tpu/ops/pallas/cp_mlp.py:253"),
 }
 SITE_PRODUCTS = ("cp_site_qkv_ln", "cp_site_proj_res", "cp_site_fc1_ln_gelu",
-                 "cp_site_fc2_res", "cp_site_fc1_dact")
+                 "cp_site_fc2_res", "cp_site_fc1_dact",
+                 "cp_site_fc1_ln_gelu_pre")
+# The fc1 site of a training forward in the save-pre mode: h and the
+# pre-activation (bf16) from one launch.
+SAVE_PRE_SITE = "cp_site_fc1_ln_gelu_pre"
 # The site entries whose launches adapter serving counts.
 SITE_SERVING = SITE_PRODUCTS[:4]
 # The delta scale of the site entries: not 1, so that the kernel's fp32
@@ -379,19 +424,29 @@ SITE_SERVING = SITE_PRODUCTS[:4]
 # KERNEL_TOL against fp32 (0.067 at |ref| 0.02 on the qkv site).
 SITE_SCALE = 1.5
 GEMM_PRODUCTS = ("grad_gemm_nn_pre_gelu", "grad_gemm_nt_dgelu",
-                 "grad_gemm_nt_dxa", "grad_gemm_tn_dt1", "grad_gemm_tn_dt2")
+                 "grad_gemm_nt_dgelu_h", "grad_gemm_nt_dxa",
+                 "grad_gemm_tn_dt1", "grad_gemm_tn_dt2")
+# The products only the recompute forms launch.
+GEMM_RECOMPUTE = ("grad_gemm_nn_pre_gelu", "grad_gemm_nt_dgelu")
+# The recompute form of each saved-residual entry.
+SAVED_FORMS = {"cp_attn_block_wd_bwd": "cp_attn_block_wd_bwd_saved",
+               "cp_mlp_block_wd_bwd": "cp_mlp_block_wd_bwd_saved",
+               "cp_mlp_block_bwd": "cp_mlp_block_bwd_saved"}
+# What the rank route launches only in the recompute form.
+RANK_RECOMPUTE = ("cp_mlp_block_bwd",) + GEMM_RECOMPUTE
 GELU_KERNELS = ("cp_dense_gelu", "cp_dense_dact", "cp_dense_wd_gelu",
                 "cp_dense_wd_dact")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 MODEL_384 = "vit_base_patch16_384_in21k"
 SERVING_KERNELS = ("fused_qkv_attention", "cp_attn_block", "cp_mlp_block")
 TRAINING_KERNELS = ("build_wd_weight", "cp_attn_block_wd",
-                    "cp_attn_block_wd_bwd", "cp_mlp_block_wd_bwd")
+                    "cp_attn_block_wd_bwd_saved", "cp_mlp_block_wd_bwd_saved")
 # The rank / row / no-dropout route: the kernels it launches.
 SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
-                 "fused_qkv_attention_bwd", "cp_mlp_block", "cp_mlp_block_bwd")
+                 "fused_qkv_attention_bwd", "cp_mlp_block",
+                 "cp_mlp_block_bwd_saved")
 NEW_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention_bwd",
-                     "cp_mlp_block_bwd")
+                     "cp_mlp_block_bwd_saved")
 # The 384-px route's entries (rows 16 and 15 and the split element sites),
 # checked at N = 577, and the kernels each 384 phase launches.
 LONG_KERNELS = ("blockwise_qkv_attention", "blockwise_qkv_attention_bwd",
@@ -400,16 +455,18 @@ LONG_SERVING_KERNELS = ("blockwise_qkv_attention", "cp_dense",
                         "cp_mlp_block")
 LONG_ELEMENT_KERNELS = ("build_wd_weight", "cp_dense_wd", "cp_dense_wd_bwd",
                         "cp_wd_factor_grads", "blockwise_qkv_attention",
-                        "blockwise_qkv_attention_bwd", "cp_mlp_block_wd_bwd")
+                        "blockwise_qkv_attention_bwd",
+                        "cp_mlp_block_wd_bwd_saved")
 LONG_SPLIT_KERNELS = ("cp_dense", "cp_dense_dx", "blockwise_qkv_attention",
                       "blockwise_qkv_attention_bwd", "cp_mlp_block",
-                      "cp_mlp_block_bwd")
+                      "cp_mlp_block_bwd_saved")
 # Activation dropout turns both block megakernels off (the MLP one on
 # every route, the attention one on the element route): the dropout
 # routes launch the split sites, row 13's GELU body among them.
 DROPOUT = {"dropout_rate": 0.1}
 MEGA_KERNELS = ("cp_attn_block", "cp_attn_block_wd", "cp_attn_block_wd_bwd",
-                "cp_mlp_block", "cp_mlp_block_bwd", "cp_mlp_block_wd_bwd")
+                "cp_mlp_block", "cp_mlp_block_bwd", "cp_mlp_block_wd_bwd",
+                *SAVED_FORMS.values())
 DROPOUT_ELEMENT_KERNELS = ("build_wd_weight", "cp_dense_wd",
                            "cp_dense_wd_bwd", "cp_wd_factor_grads",
                            "fused_qkv_attention", "fused_qkv_attention_bwd",
@@ -421,7 +478,8 @@ DROPOUT_RANK_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
 # attention megakernels, capped at 512 tokens.
 SHORT_ATTENTION_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd",
                            "cp_attn_block", "cp_attn_block_wd",
-                           "cp_attn_block_wd_bwd")
+                           "cp_attn_block_wd_bwd",
+                           "cp_attn_block_wd_bwd_saved")
 BLOCKWISE_KERNELS = ("blockwise_qkv_attention", "blockwise_qkv_attention_bwd")
 # The attention-block switches: name -> (``models.vit`` settings, the
 # environment of a child process that runs the phase's CLI, or None to
@@ -434,13 +492,14 @@ SWITCHES = {
     "CARA_ATTN_MEGA=1": (
         {"_ATTN_MEGA": "1"}, {"CARA_ATTN_MEGA": "1"},
         ("cp_attn_block", "cp_attn_block_bwd", "cp_mlp_block",
-         "cp_mlp_block_bwd"),
+         "cp_mlp_block_bwd_saved"),
         ("fused_qkv_attention", "fused_qkv_attention_bwd", "cp_dense",
          "cp_dense_dx", "fused_qkv_attention_proj")),
     "CARA_ATTN_MEGA=0,CARA_ATTNPROJ=1": (
         {"_ATTN_MEGA": "0", "_ATTNPROJ": True}, None,
         ("cp_dense", "cp_dense_dx", "fused_qkv_attention_proj",
-         "fused_qkv_attention_proj_bwd", "cp_mlp_block", "cp_mlp_block_bwd"),
+         "fused_qkv_attention_proj_bwd", "cp_mlp_block",
+         "cp_mlp_block_bwd_saved"),
         ("fused_qkv_attention", "fused_qkv_attention_bwd", "cp_attn_block",
          "cp_attn_block_bwd")),
 }
@@ -449,7 +508,7 @@ ADAPTER_KERNELS = ("build_wd_weight", "cp_attn_block", "cp_mlp_block",
                    "cp_attn_block_wd", "cp_attn_block_wd_bwd",
                    "cp_mlp_block_wd_bwd", "cp_dense", "cp_dense_dx",
                    "cp_mlp_block_bwd", "cp_dense_wd", "cp_dense_wd_bwd",
-                   "cp_wd_factor_grads")
+                   "cp_wd_factor_grads", *SAVED_FORMS.values())
 # |kernel - fp32 plain| <= ATOL + RTOL * |ref|, elementwise.  The kernels
 # round their intermediates (qkv, P, z, h; in the backward do, dqkv, ds,
 # dpre) and their outputs to bf16, the reference does not; bf16 keeps 8
@@ -467,6 +526,9 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_dense": (2e-2, 2e-2),
               "cp_dense_dx": (5e-2, 5e-2),
               "cp_mlp_block_bwd": (5e-2, 5e-2),
+              "cp_attn_block_wd_bwd_saved": (5e-2, 5e-2),
+              "cp_mlp_block_wd_bwd_saved": (5e-2, 5e-2),
+              "cp_mlp_block_bwd_saved": (5e-2, 5e-2),
               "blockwise_qkv_attention": (2e-3, 1e-2),
               "flash_attention": (2e-3, 1e-2),
               "cp_dense_wd": (2e-2, 2e-2),
@@ -483,6 +545,7 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               # bf16 operands differ only in the order of fp32 additions
               "grad_gemm_nn_pre_gelu": (2e-2, 2e-2),
               "grad_gemm_nt_dgelu": (2e-2, 2e-2),
+              "grad_gemm_nt_dgelu_h": (2e-2, 2e-2),
               "grad_gemm_nt_dxa": (1e-2, 1e-2),
               "grad_gemm_tn_dt1": (1e-2, 1e-2),
               "grad_gemm_tn_dt2": (1e-2, 1e-2),
@@ -491,12 +554,13 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_site_proj_res": (2e-2, 2e-2),
               "cp_site_fc1_ln_gelu": (2e-2, 2e-2),
               "cp_site_fc2_res": (2e-2, 2e-2),
-              "cp_site_fc1_dact": (5e-2, 5e-2)}
+              "cp_site_fc1_dact": (5e-2, 5e-2),
+              "cp_site_fc1_ln_gelu_pre": (2e-2, 2e-2)}
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
 # (|dq|, |dk| ~0.03) is below an elementwise bound's atol.
-ELEMENTWISE_KEYS = ("out", "x", "o", "qkv", "proj")
+ELEMENTWISE_KEYS = ("out", "x", "o", "qkv", "proj", "h", "pre16")
 # Factor and bias gradients reduce over B*N = 12608 rows of bf16
 # products: held by ||kernel - ref|| / ||ref|| (relative L2).
 GRAD_REL_L2 = 2e-2
@@ -614,6 +678,19 @@ def _fold_sites(inp):
             "fc2": (m["w2"], m["u2"], m["v2"], sd[3])}
 
 
+@contextlib.contextmanager
+def save_switch(value: str):
+    """Both saved-residual switches (``cp_mlp._SAVE_PRE``,
+    ``cp_attn_block._SAVE_QKV``) set to ``value`` inside the block,
+    restored after it; a recorded forward decides at its call."""
+    old = mlp_mod._SAVE_PRE, attn_mod._SAVE_QKV
+    mlp_mod._SAVE_PRE = attn_mod._SAVE_QKV = value
+    try:
+        yield
+    finally:
+        mlp_mod._SAVE_PRE, attn_mod._SAVE_QKV = old
+
+
 def _grad_call(fwd, inp_tree, diff, grads_out, dtype):
     """One forward ``fwd(leaves)`` (its graph kept; one output tensor or a
     tuple), returning a call that runs only its backward against
@@ -652,13 +729,20 @@ def kernel_calls(inp):
     def mlp_wd(*args, impl="auto"):
         return mlp_mod.cp_mlp_block_wd(*args, s3, s4, 1.0, rate, impl=impl)
 
-    def attn_bwd(impl, dtype):
-        return _grad_call(lambda t: attn_wd(*(t[k] for k in an), impl=impl),
-                          aw, ATTN_DIFF, inp["g_attn"], dtype)
+    # The block backwards' forwards run here, with the saved-residual
+    # switches "0" (the recompute forms) or "1" (the saved forms and their
+    # plain twins at the saved rounding points).
+    def attn_bwd(impl, dtype, save="0"):
+        with save_switch(save):
+            return _grad_call(
+                lambda t: attn_wd(*(t[k] for k in an), impl=impl), aw,
+                ATTN_DIFF, inp["g_attn"], dtype)
 
-    def mlp_bwd(impl, dtype):
-        return _grad_call(lambda t: mlp_wd(*(t[k] for k in mn), impl=impl),
-                          mw, MLP_DIFF, inp["g_mlp"], dtype)
+    def mlp_bwd(impl, dtype, save="0"):
+        with save_switch(save):
+            return _grad_call(
+                lambda t: mlp_wd(*(t[k] for k in mn), impl=impl), mw,
+                MLP_DIFF, inp["g_mlp"], dtype)
 
     # The split path's two dense sites: qkv (LN prologue, no cb) on x and
     # the projection on an attention output o.
@@ -679,12 +763,14 @@ def kernel_calls(inp):
         return _grad_call(lambda t: dense_sites(t, impl), dense, DENSE_DIFF,
                           (inp["g_qkv"], inp["g_attn"]), dtype)
 
-    def mlp_block_bwd(impl, dtype):
-        return _grad_call(
-            lambda t: mlp_mod.cp_mlp_block(*(t[k] for k in mn), impl=impl),
-            mw, MLP_DIFF, inp["g_mlp"], dtype)
+    def mlp_block_bwd(impl, dtype, save="0"):
+        with save_switch(save):
+            return _grad_call(
+                lambda t: mlp_mod.cp_mlp_block(*(t[k] for k in mn),
+                                               impl=impl),
+                mw, MLP_DIFF, inp["g_mlp"], dtype)
 
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     return {
         "fused_qkv_attention": (
             lambda: fqa_mod.fused_qkv_attention(qkv, h, sm, n),
@@ -727,6 +813,15 @@ def kernel_calls(inp):
         "cp_mlp_block_bwd": (mlp_block_bwd("auto", bf),
                              mlp_block_bwd("plain", bf),
                              mlp_block_bwd("plain", torch.float32)),
+        "cp_attn_block_wd_bwd_saved": (
+            attn_bwd("auto", bf, "1"), attn_bwd("plain", bf, "1"),
+            attn_bwd("plain", f32, "1")),
+        "cp_mlp_block_wd_bwd_saved": (
+            mlp_bwd("auto", bf, "1"), mlp_bwd("plain", bf, "1"),
+            mlp_bwd("plain", f32, "1")),
+        "cp_mlp_block_bwd_saved": (
+            mlp_block_bwd("auto", bf, "1"), mlp_block_bwd("plain", bf, "1"),
+            mlp_block_bwd("plain", f32, "1")),
     }
 
 
@@ -1112,9 +1207,10 @@ def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
 
 def gemm_operands(inp) -> dict:
     """Row 11's products' operands at ``inp``'s shapes (the MLP block of
-    ``inp["mlp"]``): xa = bf16(LN2(x)), the fp32 pre-activation, h =
-    bf16(gelu(pre)), g2 = the cotangent, dpre = bf16((g2 W2^T)
-    gelu'(pre)), and W1, b1, cb1, W2."""
+    ``inp["mlp"]``): xa = bf16(LN2(x)), the fp32 pre-activation and
+    (pre16) its bf16 rounding, the saved form's, h = bf16(gelu(pre)), g2
+    = the cotangent, dpre = bf16((g2 W2^T) gelu'(pre)), and W1, b1, cb1,
+    W2."""
     m = inp["mlp"]
     e = inp["e"]
     bf = torch.bfloat16
@@ -1125,8 +1221,9 @@ def gemm_operands(inp) -> dict:
     g2 = inp["g_mlp"].reshape(-1, e)
     dpre = ((g2.float() @ m["w2"].float().t())
             * activation_grad(pre, "gelu")).to(bf)
-    return dict(xa=xa, pre=pre, h=F.gelu(pre).to(bf), g2=g2, dpre=dpre,
-                w1=m["w1"], b1=m["b1"], cb1=m["cb1"], w2=m["w2"])
+    return dict(xa=xa, pre=pre, pre16=pre.to(bf), h=F.gelu(pre).to(bf),
+                g2=g2, dpre=dpre, w1=m["w1"], b1=m["b1"], cb1=m["cb1"],
+                w2=m["w2"])
 
 
 def gemm_kernel_calls(inp, o):
@@ -1147,12 +1244,16 @@ def gemm_kernel_calls(inp, o):
         pre = (t["xa"] @ t["w1"]).float() + t["b1"].float() + t["cb1"].float()
         return {"pre": pre, "out": F.gelu(pre).to(t["xa"].dtype)}
 
-    def dgelu(t):
-        dpre = (t["g2"] @ t["w2"].t()).float() * activation_grad(t["pre"],
-                                                                 "gelu")
+    def dgelu(t, key="pre"):
+        dpre = (t["g2"] @ t["w2"].t()).float() * activation_grad(
+            t[key].float(), "gelu")
         pad = F.pad(dpre, (0, 0, 0, blocks * 128 - rows))
         return {"out": dpre.to(t["g2"].dtype),
                 "colpart": pad.reshape(blocks, 128, hid).sum(1)}
+
+    def dgelu_h(t):  # on the saved bf16 pre, h = gelu(pre) beside dpre
+        return dict(dgelu(t, "pre16"),
+                    h=F.gelu(t["pre16"].float()).to(t["g2"].dtype))
 
     def tn(a, b):
         return {"out": _bwd.gemm(_bwd.TN, _bwd.EPI_F32, a, b,
@@ -1162,6 +1263,7 @@ def gemm_kernel_calls(inp, o):
     plain = {
         "grad_gemm_nn_pre_gelu": pre_gelu,
         "grad_gemm_nt_dgelu": dgelu,
+        "grad_gemm_nt_dgelu_h": dgelu_h,
         "grad_gemm_nt_dxa": lambda t: {
             "out": (t["dpre"] @ t["w1"].t()).float()},
         "grad_gemm_tn_dt1": lambda t: {
@@ -1174,6 +1276,10 @@ def gemm_kernel_calls(inp, o):
             bias2=o["cb1"]))),
         "grad_gemm_nt_dgelu": lambda: dict(zip(("out", "colpart"), _bwd.gemm(
             _bwd.NT, _bwd.EPI_DGELU, o["g2"], o["w2"], aux=o["pre"]))),
+        "grad_gemm_nt_dgelu_h": lambda: dict(zip(
+            ("out", "colpart", "h"), _bwd.gemm(
+                _bwd.NT, _bwd.EPI_DGELU_H, o["g2"], o["w2"],
+                aux=o["pre16"]))),
         "grad_gemm_nt_dxa": lambda: {"out": _bwd.gemm(
             _bwd.NT, _bwd.EPI_F32, o["dpre"], o["w1"])},
         "grad_gemm_tn_dt1": lambda: tn(o["xa"], o["dpre"]),
@@ -1192,6 +1298,7 @@ def gemm_library_calls(o) -> dict:
     return {
         "grad_gemm_nn_pre_gelu": lambda: torch.matmul(o["xa"], o["w1"]),
         "grad_gemm_nt_dgelu": lambda: torch.matmul(o["g2"], o["w2"].t()),
+        "grad_gemm_nt_dgelu_h": lambda: torch.matmul(o["g2"], o["w2"].t()),
         "grad_gemm_nt_dxa": lambda: torch.matmul(o["dpre"], o["w1"].t()),
         "grad_gemm_tn_dt1": lambda: torch.matmul(o["xa"].t(), o["dpre"]),
         "grad_gemm_tn_dt2": lambda: torch.matmul(o["h"].t(), o["g2"]),
@@ -1214,9 +1321,10 @@ def site_operands(inp) -> dict:
     ``_site.site_cuda`` for each of ``SITE_PRODUCTS`` at ``inp``'s
     shapes: the qkv site (LN1, no cb) on the attention block's x, the
     projection with the residual on ``inp["o"]``, fc1 (LN2, GELU) on the
-    MLP block's x, fc2 with the residual on a hidden activation, and
-    fc1's dact mode on the hidden cotangent; drop-path gates by image,
-    delta scale ``SITE_SCALE``."""
+    MLP block's x, fc2 with the residual on a hidden activation,
+    fc1's dact mode on the hidden cotangent, and fc1 writing its
+    pre-activation beside h; drop-path gates by image, delta scale
+    ``SITE_SCALE``."""
     a, m = inp["attn"], inp["mlp"]
     b, n, e = inp["b"], inp["n"], inp["e"]
     hid = m["w1"].shape[1]
@@ -1238,13 +1346,15 @@ def site_operands(inp) -> dict:
                              m["cb2"], SITE_SCALE),
                             dict(res=x_mlp, dpm_rows=dpm)),
         "cp_site_fc1_dact": (fc1, dict(ln=ln2, dact_g=hidden)),
+        SAVE_PRE_SITE: (fc1, dict(ln=ln2, gelu=True, return_pre=True)),
     }
 
 
 def site_kernel_calls(inp) -> dict:
     """:func:`kernel_calls` for ``SITE_PRODUCTS``: ``_site.site_cuda``
     against ``_site.site_forward_plain`` on the same inputs, in bf16 and
-    in fp32 (:func:`site_operands`)."""
+    in fp32 (:func:`site_operands`); the save-pre site's two outputs as
+    {"h", "pre16"}, the plain pre-activation rounded to the dtype."""
 
     def cast(t, dtype):
         if isinstance(t, tuple):
@@ -1254,13 +1364,20 @@ def site_kernel_calls(inp) -> dict:
         return t
 
     out = {}
+    def with_pre(kern):
+        return lambda: dict(zip(("h", "pre16"), kern()))
+
     for name, (args, kw) in site_operands(inp).items():
         def plain(dtype, args=args, kw=kw):
-            return _site.site_forward_plain(
-                *cast(args, dtype), **{k: cast(v, dtype)
-                                       for k, v in kw.items()})
+            kw = {k: cast(v, dtype) for k, v in kw.items()}
+            if not kw.pop("return_pre", False):
+                return _site.site_forward_plain(*cast(args, dtype), **kw)
+            return {"h": _site.site_forward_plain(*cast(args, dtype), **kw),
+                    "pre16": _site.site_forward_plain(
+                        *cast(args, dtype), **dict(kw, gelu=False))}
 
-        out[name] = (functools.partial(_site.site_cuda, *args, **kw),
+        kern = functools.partial(_site.site_cuda, *args, **kw)
+        out[name] = (with_pre(kern) if kw.get("return_pre") else kern,
                      functools.partial(plain, torch.bfloat16),
                      functools.partial(plain, torch.float32))
     return out
@@ -1356,10 +1473,15 @@ def kernel_work(inp) -> dict:
         "cp_site_fc2_res": (site(hid, e), hid_act + fc2_w + 2 * act
                             + gates),
         "cp_site_fc1_dact": (site(e, hid), act + fc1_w + 2 * hid_act),
+        # h and the bf16 pre-activation written
+        SAVE_PRE_SITE: (site(e, hid), act + fc1_w + 2 * hid_act),
         "grad_gemm_nn_pre_gelu": (gemm, act + w_bytes + 4 * hid
                                   + rows * hid * 6),
         "grad_gemm_nt_dgelu": (gemm, act + w_bytes + rows * hid * 6
                                + -(-rows // 128) * hid * 4),
+        # the bf16 pre read, dpre and h written
+        "grad_gemm_nt_dgelu_h": (gemm, act + w_bytes + rows * hid * 6
+                                 + -(-rows // 128) * hid * 4),
         "grad_gemm_nt_dxa": (gemm, hid_act + w_bytes + rows * e * 4),
         "grad_gemm_tn_dt1": (gemm, act + hid_act + e * hid * 4),
         "grad_gemm_tn_dt2": (gemm, hid_act + act + e * hid * 4),
@@ -1391,6 +1513,22 @@ def kernel_work(inp) -> dict:
             3 * 2 * rows * e * hid + mlp_rank,
             3 * act + mlp_w + factor(e, hid) + factor(hid, e)
             + 4 * (hid + e)),
+        # the saved forms: the backward's own products (no fc1 or qkv
+        # product, no z1 V1, no attention forward), and the saved
+        # residual read (the pre-activation; qkv and the attention output)
+        "cp_mlp_block_bwd_saved": (
+            2 * 2 * rows * e * hid + 2 * rows * r * 5 * (e + hid),
+            3 * act + mlp_w + factor(e, hid) + factor(hid, e)
+            + 4 * (hid + e) + hid_act),
+        "cp_mlp_block_wd_bwd_saved": (
+            4 * 2 * rows * e * hid + finish[2] + finish[3],
+            3 * act + mlp_w + factor(e, hid) + factor(hid, e)
+            + 4 * (hid + e) + hid_act),
+        "cp_attn_block_wd_bwd_saved": (
+            2 * rows * (3 * e * e) * 2 + 2 * rows * e * e * 2 + attn_bwd
+            + finish[0] + finish[1],
+            3 * act + attn_w + factor(e, 3 * e) + factor(e, e) + qkv_act
+            + act),
         # s, p v; its output and the (B, N, H) fp32 log-sum-exp
         "blockwise_qkv_attention": (attn, qkv_act + act + lse),
         # s, dp, dq, dk and dv over the valid keys (the kernels recompute
@@ -1500,11 +1638,12 @@ def determinism_phase(dev, b: int = 64, e: int = 768, heads: int = 12,
     inp = kernel_inputs(dev, b=b, n=197, e=e, heads=heads, hidden=4 * e,
                         seed=7)
     for name, (kern, _, _) in site_kernel_calls(inp).items():
-        first = kern()
-        second = kern()
+        first, second = kern(), kern()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        same = bool(torch.equal(first, second))
+        if not isinstance(first, dict):
+            first, second = {"out": first}, {"out": second}
+        same = all(torch.equal(first[k], second[k]) for k in first)
         print(f"[determinism] {name} at B {b}, N 197: two calls give "
               f"{'equal' if same else 'DIFFERENT'} outputs", flush=True)
         require(same, f"{name} is not bitwise deterministic")
@@ -2219,8 +2358,14 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
     frozen_sum = sum(t.double().sum().item()
                      for _, t in steps_lib.tree_leaves(frozen))
     reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     state, losses, ms, wall = fixed_batch_steps(
         cfg, cara_cfg, frozen, state, data, generator, steps, timed=timed)
+    if dev.type == "cuda":
+        print(f"{tag} {steps} steps at batch {batch}: peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB "
+              "allocated", flush=True)
     print(f"{tag} loss over {steps} steps on one batch: "
           + " ".join(f"{v:.4f}" for v in losses), flush=True)
     require(all(np.isfinite(losses)), "non-finite training loss")
@@ -2725,6 +2870,115 @@ def switched_rank_phases(dev, steps=20, model=MODEL, batch=64, timed=True,
     return launches
 
 
+# The environment that selects the recompute forms, as a user sets it.
+RECOMPUTE_ENV = {"CARA_MLP_SAVE_PRE": "0", "CARA_ATTN_SAVE_QKV": "0"}
+
+
+def recompute_steps(dev, model, impl, batch, steps, path, timed=True):
+    """``steps`` steps of the ``impl`` route of ``model`` with both
+    saved-residual switches "0" (``save_switch``): every kernel of
+    ``path`` launches, no saved form, and no fc1 site writes its
+    pre-activation.  -> (the setup, its state after the steps, the
+    generator, the launches)."""
+    tag = (f"[train:{impl}:recompute]" if model == MODEL
+           else f"[train:{impl}:recompute:{model}]")
+    setup = train_setup(dev, model=model, batch=batch, impl=impl)
+    cfg, cara_cfg, frozen, state, data = setup
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    reset_launches()
+    with save_switch("0"):
+        state, losses, _, _ = fixed_batch_steps(
+            cfg, cara_cfg, frozen, state, data, generator, steps,
+            timed=timed)
+    got = read_launches(tuple(KERNELS))
+    print(f"{tag} {steps} steps at batch {batch} with CARA_MLP_SAVE_PRE=0 "
+          f"CARA_ATTN_SAVE_QKV=0: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; kernel launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    require(all(np.isfinite(losses)), "non-finite recompute loss")
+    for name in path:
+        require(got[name] > 0, f"{name} never launched on {model} with "
+                "the saved-residual switches 0")
+    for name in (*SAVED_FORMS.values(), SAVE_PRE_SITE):
+        require(got[name] == 0, f"{name} launched on {model} with the "
+                "saved-residual switches 0")
+    return setup, state, generator, got
+
+
+def recompute_phase(dev, steps=8, long_steps=2, rounds=3, batch=64,
+                    model=MODEL, timed=True) -> dict:
+    """The element and rank routes with both saved-residual switches "0":
+    :func:`recompute_steps`, ``steps`` steps each, in which every
+    recompute form of rows 8, 10 and 11 (and the recompute's NN PRE_GELU
+    and NT DGELU products) launches; then the saved (default) and the
+    recompute form timed in turns on one setup (``rounds`` rounds of six
+    steps a form, the order reversed every other round, the first step
+    of a turn dropped), with each form's peak memory; then
+    ``cli.vit_cp`` for one epoch in a child whose environment sets both
+    switches to "0" (``RECOMPUTE_ENV``, read at import): the recompute
+    forms launch there and no saved one.  Last, ``long_steps`` steps of
+    each route at 384 px (N 577), rows 10 and 11's recompute forms.
+    Returns the launches of the recompute entries."""
+    launches = {}
+    paths = {"element": ("cp_attn_block_wd_bwd", "cp_mlp_block_wd_bwd",
+                         *GEMM_RECOMPUTE),
+             "rank": RANK_RECOMPUTE}
+    for impl, path in paths.items():
+        tag = f"[train:{impl}:recompute]"
+        setup, state, generator, got = recompute_steps(
+            dev, model, impl, batch, steps, path, timed=timed)
+        cfg, cara_cfg, frozen, _, data = setup
+        # the two GEMM entries keep the element route's launches
+        launches.update({name: got[name] for name in path
+                         if name not in launches})
+        with tempfile.TemporaryDirectory() as tmp:
+            child = cli_child(
+                ["--synthetic", "--dataset", "svhn", "--model", model,
+                 "--dim", "8", "--epochs", "1", "--batch-size", str(batch),
+                 "--eval-batch-size", str(batch), "--synthetic-size",
+                 str(2 * batch), "--out-dir", tmp, "--backbone",
+                 os.path.join(tmp, "none.npz"), "--weight-dropout-impl",
+                 impl, "--device", str(dev)], RECOMPUTE_ENV)
+        print(f"{tag} cli.vit_cp child with {RECOMPUTE_ENV}: kernel "
+              f"launches { {k: v for k, v in child.items() if v} }",
+              flush=True)
+        for name in path[:2]:
+            require(child[name] > 0, f"{name} never launched by the CLI "
+                    f"child with {RECOMPUTE_ENV}")
+        for name in SAVED_FORMS.values():
+            require(child[name] == 0, f"{name} launched by the CLI child "
+                    f"with {RECOMPUTE_ENV}")
+        if timed:
+            turns = {"saved": [], "recompute": []}
+            peak = {}
+            for r in range(rounds):
+                for form in (("saved", "recompute") if r % 2 == 0
+                             else ("recompute", "saved")):
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    with save_switch("1" if form == "saved" else "0"):
+                        state, _, ms, _ = fixed_batch_steps(
+                            cfg, cara_cfg, frozen, state, data, generator,
+                            6)
+                    turns[form] += ms[1:]
+                    peak[form] = (torch.cuda.max_memory_allocated(dev)
+                                  / 2 ** 30)
+            med = {k: statistics.median(v) for k, v in turns.items()}
+            print(f"{tag} ms per step by CUDA events in turns ({rounds} "
+                  f"rounds, {len(turns['saved'])} steps a form): saved "
+                  f"{med['saved']:.3f} (peak {peak['saved']:.3f} GiB), "
+                  f"recompute {med['recompute']:.3f} (peak "
+                  f"{peak['recompute']:.3f} GiB); saved / recompute "
+                  f"{med['saved'] / med['recompute']:.4f}", flush=True)
+        del setup, state, frozen, data
+    long_paths = {"element": ("cp_mlp_block_wd_bwd", *GEMM_RECOMPUTE),
+                  "rank": RANK_RECOMPUTE}
+    for impl, path in long_paths.items():
+        recompute_steps(dev, MODEL_384, impl, batch, long_steps, path,
+                        timed=False)
+    return launches
+
+
 def full_step_384(dev, batch=16) -> dict:
     """One full fine-tuning step of ViT-B/16 at 384 px (577 tokens): the
     flash attention at any token count, as on the TPU, so the flash
@@ -2947,6 +3201,9 @@ def main(argv=None) -> int:
         for method in ("full", "linear"):
             profile_steps(dev, method)
         for impl in ("element", "rank"):
+            with save_switch("0"):
+                profile_steps(dev, impl, label="recompute")
+        for impl in ("element", "rank"):
             profile_steps(dev, impl, overrides=DROPOUT)
         for name, (values, _, _, _) in SWITCHES.items():
             with attn_switch(**values):
@@ -2981,10 +3238,13 @@ def main(argv=None) -> int:
         reset_launches()
         serving_phase(dev, ckpt, MODEL, images)
         launches = read_launches(SERVING_KERNELS + SITE_SERVING)
-        print(f"[serve] kernel launches on the serving path: {launches}",
-              flush=True)
+        print(f"[serve] kernel launches on the serving path: {launches}; "
+              f"fc1 sites with the pre-activation "
+              f"{_site.LAUNCHES_GELU_PRE}", flush=True)
         for name, count in launches.items():
             require(count > 0, f"{name} never launched on the serving path")
+        require(_site.LAUNCHES_GELU_PRE == 0,
+                "serving wrote a saved pre-activation")
         attnproj_eval_check(dev, ckpt, MODEL, images)
         stamp("serving")
         # Quantized serving (row 18) and the whole-block eval (row 19).
@@ -2997,10 +3257,16 @@ def main(argv=None) -> int:
         launches["int8_dense" + suffix] = launches["int8_dense"]
 
     stamp("quantized serving and the whole-block eval")
-    train = training_phase(dev, path=TRAINING_KERNELS + GEMM_PRODUCTS)
-    launches.update({k: train["launches"][k]
-                     for k in TRAINING_KERNELS + GEMM_PRODUCTS})
-    split = training_phase(dev, steps=20, impl="rank")
+    # The default routes run rows 8, 10 and 11 in the saved forms only.
+    saved_products = tuple(k for k in GEMM_PRODUCTS
+                           if k not in GEMM_RECOMPUTE)
+    element_path = TRAINING_KERNELS + saved_products + (SAVE_PRE_SITE,)
+    train = training_phase(dev, path=element_path,
+                           idle=tuple(SAVED_FORMS) + GEMM_RECOMPUTE)
+    launches.update({k: train["launches"][k] for k in element_path})
+    split = training_phase(dev, steps=20, impl="rank",
+                           path=SPLIT_KERNELS + (SAVE_PRE_SITE,),
+                           idle=RANK_RECOMPUTE)
     launches.update({k: split["launches"][k] for k in NEW_SPLIT_KERNELS})
     for n, _ in ROW2_EDGES:
         launches[f"fused_qkv_attention_bwd_{n}"] = launches[
@@ -3008,6 +3274,9 @@ def main(argv=None) -> int:
     other_routes_grad_check(dev, split["setup"])
     del train, split
     stamp("element and rank training")
+    # The recompute forms of rows 8, 10 and 11, against the saved ones.
+    launches.update(recompute_phase(dev))
+    stamp("the recompute forms")
     # The rank route's attention-block switches: rows 6, 3 and 4.
     launches.update(switched_rank_phases(dev))
     stamp("the switched rank routes")
@@ -3030,11 +3299,14 @@ def main(argv=None) -> int:
     for name in SHORT_ATTENTION_KERNELS:
         require(served[name] == 0, f"{name} launched serving 384 px")
     del images
-    for impl, path in (("element", LONG_ELEMENT_KERNELS),
-                       ("rank", LONG_SPLIT_KERNELS)):
+    for impl, path, recompute in (
+            ("element", LONG_ELEMENT_KERNELS,
+             ("cp_mlp_block_wd_bwd",) + GEMM_RECOMPUTE),
+            ("rank", LONG_SPLIT_KERNELS, RANK_RECOMPUTE)):
         long = training_phase(dev, steps=12, plain_steps=2, model=MODEL_384,
-                              impl=impl, path=path, grad_batch=16,
-                              idle=SHORT_ATTENTION_KERNELS)
+                              impl=impl, path=path + (SAVE_PRE_SITE,),
+                              grad_batch=16,
+                              idle=SHORT_ATTENTION_KERNELS + recompute)
         if impl == "element":
             launches.update({k: long["launches"][k] for k in LONG_KERNELS})
         del long

@@ -133,9 +133,13 @@ def test_training_kernels_match_plain(dev, shape):
         out = kern()
         torch.cuda.synchronize()
         chip_smoke._check_outputs(name, out, ref32())
-    # a zero gate passes the residual and its cotangent through untouched
-    dx = calls["cp_attn_block_wd_bwd"][0]()["x"]
-    assert torch.equal(dx[0], inp["g_attn"][0])
+    # a zero gate passes the residual and its cotangent through untouched,
+    # in the saved-residual form and in the recompute form
+    for name in ("cp_attn_block_wd_bwd", "cp_attn_block_wd_bwd_saved",
+                 "cp_mlp_block_wd_bwd", "cp_mlp_block_wd_bwd_saved"):
+        dx = calls[name][0]()["x"]
+        assert torch.equal(dx[0], inp["g_attn" if "attn" in name
+                                     else "g_mlp"][0]), name
 
 
 
@@ -155,8 +159,9 @@ def test_split_route_kernels_match_plain(dev, shape):
         out = kern()
         torch.cuda.synchronize()
         chip_smoke._check_outputs(name, out, ref32())
-    dx = calls["cp_mlp_block_bwd"][0]()["x"]
-    assert torch.equal(dx[0], inp["g_mlp"][0])
+    for name in ("cp_mlp_block_bwd", "cp_mlp_block_bwd_saved"):
+        dx = calls[name][0]()["x"]
+        assert torch.equal(dx[0], inp["g_mlp"][0]), name
 
 
 @pytest.mark.parametrize("ln", [False, True], ids=["proj", "qkv_ln"])
@@ -219,17 +224,18 @@ def test_wd_fold_keep_pattern_is_exact(dev, rate):
 
 def test_train_step_on_card_matches_plain(dev):
     """A tiny model's train step through the kernels: every gradient
-    within chip_smoke's bound of the fp32 plain path, and two steps."""
+    within chip_smoke's bound of the fp32 plain path, and two steps, each
+    layer's MLP backward in the default saved-residual form."""
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     cfg, cc, frozen, state, data = chip_smoke.train_setup(
         dev, model="vit_tiny_test", batch=6, rank=4)
     chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
-    before = _launches("cp_mlp_block_wd_bwd")
+    before = _launches("cp_mlp_block_wd_bwd_saved")
     _, losses, _, _ = chip_smoke.fixed_batch_steps(
         cfg, cc, frozen, state, data, g, 2)
     assert np.isfinite(losses).all()
-    assert _launches("cp_mlp_block_wd_bwd") == before + 2 * cfg.depth
+    assert _launches("cp_mlp_block_wd_bwd_saved") == before + 2 * cfg.depth
 
 
 def test_gate_and_scale(dev):
@@ -875,12 +881,14 @@ def test_tiled_attention_fwd_wgmma_matches_plain(dev, route, n, n_real, dh,
 # TN with its contraction in 1 or 3 splits.
 _LAYOUTS = {"nn": _bwd.NN, "nt": _bwd.NT, "tn": _bwd.TN}
 _EPIS = {"f32": _bwd.EPI_F32, "bf16": _bwd.EPI_BF16,
-         "pre_gelu": _bwd.EPI_PRE_GELU, "dgelu": _bwd.EPI_DGELU}
+         "pre_gelu": _bwd.EPI_PRE_GELU, "dgelu": _bwd.EPI_DGELU,
+         "dgelu_h": _bwd.EPI_DGELU_H}
 GEMM_SHAPES = [(200, 200, 136, 5), (296, 64, 768, 20)]
 GEMM_CASES = (
     [("nn", epi, rank, *shape) for epi in ("bf16", "pre_gelu")
      for rank in (None, "a2") for shape in GEMM_SHAPES]
-    + [("nt", epi, rank, *shape) for epi in ("bf16", "f32", "dgelu")
+    + [("nt", epi, rank, *shape)
+       for epi in ("bf16", "f32", "dgelu", "dgelu_h")
        for rank in (None, "fold") for shape in GEMM_SHAPES]
     + [("tn", "f32", splits, *shape) for splits in (1, 3)
        for shape in GEMM_SHAPES])
@@ -896,8 +904,9 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
     ``KERNEL_TOL["cp_dense"]`` (one bf16 rounding), the DGELU column
     sums (over every block) and the TN product (its splits summed in
     order, bit for bit the same on a second call) within relative L2
-    1e-4; the rank step adds bf16(z) @ B2 with z = A2, or with the folded
-    z = bf16(A V^T), whose gv comes out within 1e-2 + 1e-2 |ref| and zero
+    1e-4, DGELU_H's h = gelu(the bf16 pre-activation) as a bf16
+    output; the rank step adds bf16(z) @ B2 with z = A2, or with the
+    folded z = bf16(A V^T), whose gv comes out within 1e-2 + 1e-2 |ref| and zero
     past r; counted once by layout and epilogue.  For TN the ``rank``
     column holds the number of contraction splits."""
     gen = torch.Generator(device=dev)
@@ -918,6 +927,8 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
         kw["bias2"] = rnd(n, std=0.1)
     if epi == "dgelu":
         kw["aux"] = torch.randn((m, n), generator=gen, device=dev)
+    if epi == "dgelu_h":
+        kw["aux"] = rnd(m, n)
     splits = rank if layout == "tn" else 1
     af, bf = a.float(), b.float()
     acc = {"nn": lambda: af @ bf, "nt": lambda: af @ bf.t(),
@@ -974,10 +985,12 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
         close(outs[0], pre, False)
         close(outs[1], torch.nn.functional.gelu(pre), True)
     else:
-        dpre = acc * activation_grad(kw["aux"], "gelu")
+        dpre = acc * activation_grad(kw["aux"].float(), "gelu")
         close(outs[0], dpre, True)
         assert outs[1].shape == (-(-m // 128), n)
         assert chip_smoke.rel_l2(outs[1].sum(0), dpre.sum(0)) <= 1e-4
+        if epi == "dgelu_h":
+            close(outs[2], torch.nn.functional.gelu(kw["aux"].float()), True)
 
 
 # The tiled attention backward, twice on the same inputs: (row, n, b,
@@ -1123,6 +1136,61 @@ def test_cp_site_wgmma_matches_plain(dev, ln, act, res, r, k, n, m):
     xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
     assert z.shape == (m, _bwd.RANK_W) and not z[:, r:].any()
     _check("cp_site_qkv_ln", z[:, :r], xa @ a32[3])
+
+
+# The fc1 site's saved pre-activation: (ln, rank, k, n, m).
+PRE_CASES = [(ln, r, k, n, m) for ln in (False, True) for r in (0, 8, 64)
+             for k, n in ((768, 3072), (64, 200)) for m in (197, 12608)]
+
+
+@pytest.mark.parametrize(
+    "ln, r, k, n, m", PRE_CASES,
+    ids=[f"{'ln' if ln else 'x'}_r{r}_k{k}_n{n}_m{m}"
+         for ln, r, k, n, m in PRE_CASES])
+def test_cp_site_pre_output_matches_plain(dev, ln, r, k, n, m):
+    """The GELU site with its second output (the save-pre mode's
+    pre-activation, bf16): the output bit for bit the same as without it,
+    the pre-activation within ``cp_site_qkv_ln``'s tolerance of the fp32
+    plain one (one bf16 rounding) and counted under
+    ``LAUNCHES_GELU_PRE``."""
+    args, kw = _site_inputs(dev, ln, "gelu", False, r, k, n, m, 7 + m + r)
+    s = 2.0
+    before = _site.LAUNCHES_GELU_PRE
+    out, pre = _site.site_cuda(*args, s, return_pre=True, **kw)
+    plain_out = _site.site_cuda(*args, s, **kw)
+    torch.cuda.synchronize()
+    assert _site.LAUNCHES_GELU_PRE == before + 1
+    assert torch.equal(out, plain_out)
+    a32, kw32 = [t.float() for t in args], _f32(kw)
+    xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
+    ref = _site.site_plain(xa, *a32[1:], s)
+    _check("cp_site_qkv_ln", pre, ref)
+
+
+@pytest.mark.parametrize("m, n, per", [(12608, 768, 197), (197, 3072, 1),
+                                       (111, 64, 37), (36928, 200, 577)])
+def test_gate_colsum_kernel_matches_plain(dev, m, n, per):
+    """``gate_colsum`` on an unaligned gate view: g2 = bf16(g *
+    gate[row // per]) bit for bit against the plain product, its fp32
+    column sums within 1e-5 relative L2 of the sums of the rounded g2, a
+    second call bit for bit (a fixed order, the stripe counters set back
+    to 0)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + n)
+    g = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+    # a view 2 bytes into its buffer, as a row of the step's (2, B) gates
+    gate = (torch.rand((m // per + 1,), generator=gen, device=dev) * 2
+            ).to(torch.bfloat16)[1:]
+    gate[0] = 0.0
+    ds, ds2 = (torch.empty((n,), device=dev) for _ in range(2))
+    out = _bwd.gate_colsum(g, gate, per, ds)
+    out2 = _bwd.gate_colsum(g, gate, per, ds2)
+    torch.cuda.synchronize()
+    want = (g.float() * gate.float().repeat_interleave(per)[:, None]
+            ).to(torch.bfloat16)
+    assert torch.equal(out, want)
+    assert chip_smoke.rel_l2(ds, want.float().sum(0)) <= 1e-5
+    assert torch.equal(out, out2) and torch.equal(ds, ds2)
 
 
 @pytest.mark.parametrize("k", [64, 200, 768, 1024, 3072])

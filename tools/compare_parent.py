@@ -19,15 +19,20 @@ bf16:
   backward) on the same inputs; the forwards and row 2 also back to back
   (``*_b2b_ms``: 20 calls between two events, so the card does not wait
   for the host between them);
-- TPU rows 11 (the element route's MLP-block backward) and 12 (both
+- TPU rows 11 (the element route's MLP-block backward), 10 (the rank
+  route's) and 8 (the element route's attention-block backward), each in
+  its recompute form and, where the tree has it, its saved-residual form
+  (``*_saved``: the forward kept the pre-activation, or qkv and the
+  attention output), 12 (both
   split-route sites' dx with their factor gradients), the forwards of
   rows 5 (the attention block), 7 (its element-dropout form), 9 (the MLP
   block), 13 (both split sites; the fc1 site's GELU body forward and
   dact) and 19 (the whole-block eval) at B = 64, N = 197
   (``chip_smoke``'s entries), median of 20 timed calls and back to back,
-  with each row's device time split by launch (``torch.profiler``, five
-  calls); row 11's five ``grad_gemm`` products alone (NN ``PRE_GELU``, NT
-  ``DGELU``, NT dxa, the two TN dT products) and the forward site's five
+  the host's time to issue one call (``*_host_ms``), with each row's
+  device time split by launch (``torch.profiler``, five calls); row
+  11's five ``grad_gemm`` products alone (NN ``PRE_GELU``, NT ``DGELU``,
+  NT dxa, the two TN dT products) and the forward site's five
   forms (qkv with LN, proj and fc2 with the residual, fc1 with LN and
   GELU, fc1's dact; whole and as the product alone) with their TFLOP/s,
   beside ``torch.matmul`` on the same bf16 shapes (a yardstick only);
@@ -139,6 +144,21 @@ def _b2b_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def _host_ms(fn, reps=20) -> float:
+    """Median host ms to issue one ``fn()`` (the card idle before it, no
+    synchronize inside): the wrappers' Python, ctypes and launch cost."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _launch_split(fn, calls=5) -> dict:
     """Device ms a call of each kernel ``fn`` launches, and its launches a
     call, from ``torch.profiler``."""
@@ -226,15 +246,23 @@ def _rows(cs, dev) -> dict:
     calls["block_pair_fwd"] = (lambda: pair_mod.block_pair_fwd(
         *pair, inp["heads"], inp["sm"], inp["n_real"], 1.0),)
     for key, name in (("row11", "cp_mlp_block_wd_bwd"),
+                      ("row11_saved", "cp_mlp_block_wd_bwd_saved"),
+                      ("row10", "cp_mlp_block_bwd"),
+                      ("row10_saved", "cp_mlp_block_bwd_saved"),
+                      ("row8", "cp_attn_block_wd_bwd"),
+                      ("row8_saved", "cp_attn_block_wd_bwd_saved"),
                       ("row12", "cp_dense_dx"), ("row5", "cp_attn_block"),
                       ("row7", "cp_attn_block_wd"),
                       ("row9", "cp_mlp_block"), ("row13", "cp_dense"),
                       ("row13_gelu", "cp_dense_gelu"),
                       ("row13_dact", "cp_dense_dact"),
                       ("row19", "block_pair_fwd")):
+        if name not in calls:  # a tree without the saved forms
+            continue
         fn = calls[name][0]
         out[f"{key}_ms"] = cs.median_ms(fn)
         out[f"{key}_b2b_ms"] = _b2b_ms(fn)
+        out[f"{key}_host_ms"] = _host_ms(fn)
         out[f"{key}_split"] = _launch_split(fn)
     out.update(_site_products(cs, dev, inp))
     del calls, inp
