@@ -4,7 +4,7 @@
 //   o   = attention(qkv)                                  (keys >= n_real
 //   xm  = bf16(x + o Wp + bp + s ((o U2) V2 + cb2))        masked)
 //   xa2 = LN2(xm)
-//   h   = bf16(gelu(xa2 W1 + b1 + s ((xa2 U1) V1 + cb1)))
+//   h   = bf16(act(xa2 W1 + b1 + s ((xa2 U1) V1 + cb1)))
 //   y   = bf16(xm + h W2 + b2 + s ((h U2') V2' + cb2'))
 //
 // qkv (B, N, 3E) bf16 out-flat (3, H, Dh) as the qkv site writes it, x
@@ -32,7 +32,7 @@
 // 3. LN2 of x_mid (fp32 statistics, one warp per four rows) into the o
 //    tile's space, then z1 = bf16(xa2 U1);
 // 4. the hidden dimension in 128-wide chunks: fc1 (+ the rank step, b1,
-//    s cb1, exact-erf GELU) into a 32 x 128 bf16 h chunk in shared
+//    s cb1, the activation) into a 32 x 128 bf16 h chunk in shared
 //    memory, then fc2 on that chunk accumulated into registers across the
 //    chunks (32 x E fp32: 96 a thread at E 768), with h U2' as one more
 //    128-column slice of the same accumulators, so that z2' is rounded
@@ -55,6 +55,11 @@
 // multicast by TMA), wgmma and a warp-specialised ring are later work.
 // The kernel masks its own ragged edge: q rows past N are zero, their
 // outputs never written; keys >= n_real are masked.
+//
+// act is the exact-erf GELU or CLIP's quick_gelu, y sigma(1.702 y) (the
+// TPU kernel's act argument), a template parameter of the kernel
+// (gelu.cuh): the fc1 epilogue is the only place it differs, one expf an
+// hidden value in place of erff, far below the block's operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -201,7 +206,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NJ][4],
   }
 }
 
-template <int DH>
+template <int DH, int ACT>
 __global__ void __launch_bounds__(kThreads, 1)
 block_pair_kernel(const PairArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -448,8 +453,8 @@ block_pair_kernel(const PairArgs p) {
           const float2 cc = bf2(p.mcb1 + c0 + col);
           *reinterpret_cast<__nv_bfloat162*>(Hs + row * H_LD + col) =
               __floats2bfloat162_rn(
-                  gelu(acc[j][half * 2] + bb.x + p.s * cc.x),
-                  gelu(acc[j][half * 2 + 1] + bb.y + p.s * cc.y));
+                  act_fwd<ACT>(acc[j][half * 2] + bb.x + p.s * cc.x),
+                  act_fwd<ACT>(acc[j][half * 2 + 1] + bb.y + p.s * cc.y));
         }
       }
       __syncthreads();  // the h chunk is whole
@@ -553,18 +558,18 @@ size_t smem_bytes(int N, int e, int dh) {
   return make_layout((N + 15) & ~15, dh, e).total;
 }
 
-template <int DH>
+template <int DH, int ACT>
 int launch(const PairArgs& p, int B, cudaStream_t stream) {
   const int e = p.heads * DH;
   const size_t smem = smem_bytes(p.N, e, DH);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // Opt in once per process to the largest block this kernel can use.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      block_pair_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_pair_kernel<DH, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((p.N + QT - 1) / QT, B);
-  block_pair_kernel<DH><<<grid, kThreads, smem, stream>>>(p);
+  block_pair_kernel<DH, ACT><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -580,9 +585,10 @@ extern "C" int cara_block_pair_smem(int N, int e, int dh) {
 // y (B, N, E) from qkv (B, N, 3E) and x (B, N, E): see the head comment.
 // dh must be 16, 32 or 64, E = heads * dh a multiple of 128 and at most
 // 768, hidden a multiple of 128, 1 <= r <= ldu <= 64 with ldu a multiple
-// of 8 (u2, mu1 (E, ldu) and mu2 (hidden, ldu) zero past r).  Pointers
-// 16-byte aligned; the Python wrapper checks.  Returns cudaGetLastError()
-// (or the error of the shared-memory attribute call).
+// of 8 (u2, mu1 (E, ldu) and mu2 (hidden, ldu) zero past r); act 0 the
+// exact-erf GELU, 1 quick_gelu.  Pointers 16-byte aligned; the Python
+// wrapper checks.  Returns cudaGetLastError() (or the error of the
+// shared-memory attribute call).
 extern "C" int cara_block_pair(
     const void* qkv, const void* x, const void* wp, const void* bp,
     const void* u2, const void* v2, const void* cb2, const void* ls2,
@@ -590,11 +596,11 @@ extern "C" int cara_block_pair(
     const void* mv1, const void* mcb1, const void* w2, const void* b2,
     const void* mu2, const void* mv2, const void* mcb2, void* out, int B,
     int N, int heads, int dh, int hidden, int n_real, int r, int ldu,
-    float scale, float s, float ln_eps, void* stream_ptr) {
+    int act, float scale, float s, float ln_eps, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int e = heads * dh;
   if (e % BN || e > MAXSL * BN || hidden % HC || r < 1 || r > ldu ||
-      ldu > ZW || ldu % 8)
+      ldu > ZW || ldu % 8 || act < 0 || act > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto bfp = [](const void* v) {
     return static_cast<const __nv_bfloat16*>(v);
@@ -630,9 +636,15 @@ extern "C" int cara_block_pair(
   p.s = s;
   p.ln_eps = ln_eps;
   switch (dh) {
-    case 16: return launch<16>(p, B, stream);
-    case 32: return launch<32>(p, B, stream);
-    case 64: return launch<64>(p, B, stream);
+    case 16:
+      return act ? launch<16, ACT_QUICK_GELU>(p, B, stream)
+                 : launch<16, ACT_GELU>(p, B, stream);
+    case 32:
+      return act ? launch<32, ACT_QUICK_GELU>(p, B, stream)
+                 : launch<32, ACT_GELU>(p, B, stream);
+    case 64:
+      return act ? launch<64, ACT_QUICK_GELU>(p, B, stream)
+                 : launch<64, ACT_GELU>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,15 +5,17 @@
 // xa (M, K), W (K, N), U (K, r), V (r, N), out (M, N); bf16 in and out,
 // fp32 accumulation.  xa is x, or on a LayerNorm site bf16(LN(x)), written
 // by block_rows.cu's row pass before this product (the caller launches
-// it).  epi is an optional exact-erf GELU and an optional residual x_res +
-// dpm[row] * y, or, in the dact mode, dpre = g * gelu'(y) with g (M, N)
-// the cotangent of the GELU's output: the backward helper
-// _cp_dense_dact_kernel (cara_tpu/ops/pallas/cp_dense.py, row 13), which
-// recomputes the fp32 pre-activation y on the tile and never writes it.
-// The GELU site can also write y rounded to bf16 beside its output, staged
-// and stored by TMA like it: the saved pre-activation of the MLP block's
-// save-pre mode (_mlp_fwd_save_pre_kernel, cp_mlp.py, row 9), which the
-// backwards of rows 10 and 11 read in place of recomputing fc1.
+// it).  epi is an optional activation (the exact-erf GELU or CLIP's
+// quick_gelu, y sigma(1.702 y): a template parameter of the epilogue,
+// gelu.cuh) and an optional residual x_res + dpm[row] * y, or, in the
+// dact mode, dpre = g * act'(y) with g (M, N) the cotangent of the
+// activation's output: the backward helper _cp_dense_dact_kernel
+// (cara_tpu/ops/pallas/cp_dense.py, row 13), which recomputes the fp32
+// pre-activation y on the tile and never writes it.  The activation site
+// can also write y rounded to bf16 beside its output, staged and stored
+// by TMA like it: the saved pre-activation of the MLP block's save-pre
+// mode (_mlp_fwd_save_pre_kernel, cp_mlp.py, row 9), which the backwards
+// of rows 10 and 11 read in place of recomputing fc1.
 //
 // Replaces the dense parts of the TPU kernels _cp_dense_kernel /
 // _cp_dense_dact_kernel (cara_tpu/ops/pallas/cp_dense.py, row 13),
@@ -50,6 +52,19 @@
 // (bf16 read and written, 4 bytes an output) stay on the operations
 // side of the ridge.
 //
+// quick_gelu (act 3, its dact 4) replaces the act="quick_gelu" mode of
+// the same TPU kernels (_cp_dense_kernel / _cp_dense_dact_kernel,
+// _mlp_fwd_kernel and its save-pre form: CLIP ViT-L/14's fc1).  Its
+// epilogue costs one expf an output where the GELU's costs erff and expf,
+// on the same tile and the same bytes, so the same bound holds (at CLIP's
+// fc1, M 16448, K 1024, N 4096: 138 GFLOP against ~180 MB, the tensor
+// cores).  Its instances are those the paths launch: the activation site
+// with and without its pre output and the dact mode, at every rank class
+// and block width; the residual epilogue takes the GELU or none (no site
+// of either package has an activation and a residual).  They are built
+// in a source file of their own, cp_site_quick.cu, so that the two files
+// compile side by side.
+//
 // cara_rank_z is the rank product alone, z = bf16(xa U) (M, 64) zero past
 // r, for the backward wrappers that recompute it (_bwd.rank_z): a skinny
 // tensor-core GEMM that reads xa once.
@@ -59,7 +74,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include "sm90_gemm.cuh"
+#include "cp_site.cuh"
 
 using namespace nvcuda;
 
@@ -172,33 +187,17 @@ void launch_z(const __nv_bfloat16* x, const __nv_bfloat16* u,
                                                                   M, K, r);
 }
 
-// The site's block width, RK / ZN (no rank step at r = 0; z 16 wide for r
-// <= 16, else 64) and epilogue, as template arguments.
-template <int E, int RK, int ZN>
-int launch_site(const GemmMaps& maps, const GemmArgs& p, cudaStream_t s) {
-  if (p.M >= 256 && p.N >= 256)
-    return launch<NN, E, 256, RK, ZN>(maps, p, 1, s);
-  return launch<NN, E, 128, RK, ZN>(maps, p, 1, s);
-}
-
-template <int E>
-int launch_rank(const GemmMaps& maps, const GemmArgs& p, int r,
-                cudaStream_t s) {
-  if (r == 0) return launch_site<E, 0, 0>(maps, p, s);
-  if (r <= 16) return launch_site<E, 1, 16>(maps, p, s);
-  return launch_site<E, 4, 64>(maps, p, s);
-}
-
 }  // namespace
 
 // One dense site on `stream`: out (M, N) bf16 from xa (M, K) (already
 // normalized on an LN site), W (K, N), b (N,), U (K, r8) with r8 = r
 // rounded up to 8 (zero columns past r), V (r, N), cb (N,) or null.  act:
-// 0 none, 1 GELU, 2 dact (reads g (M, N), writes g * gelu'(pre));
-// has_res: out = res + dpm[row] * y with res (M, N) bf16 and dpm (M,)
-// fp32 (not with dact).  z (M, 64) or null: where given (r > 0), bf16(xa
-// U), zero past r, is written there.  pre (M, N) or null: where given
-// (GELU, no residual), the pre-activation bf16(y) is written there.  Needs
+// 0 none, 1 GELU, 2 GELU dact (reads g (M, N), writes g * gelu'(pre)), 3
+// quick_gelu, 4 quick_gelu dact; has_res: out = res + dpm[row] * y with
+// res (M, N) bf16 and dpm (M,) fp32 (act 0 or 1 only).  z (M, 64) or
+// null: where given (r > 0), bf16(xa U), zero past r, is written there.
+// pre (M, N) or null: where given (act 1 or 3, no residual), the
+// pre-activation bf16(y) is written there.  Needs
 // K and N multiples of 8, r <= 64 and 16-byte aligned pointers; the
 // Python wrapper checks them.  Returns cudaGetLastError() or the
 // tensor-map encoding's error.
@@ -209,9 +208,10 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
                             int N, int r, int act, int has_res, float s,
                             void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (r < 0 || r > BK || act < 0 || act > 2 || (act == 2 && has_res) ||
-      (pre != nullptr && (act != 1 || has_res)) || M < 1 || K < 8 ||
-      K % 8 || N % 8)
+  const bool dact = act == 2 || act == 4;
+  if (r < 0 || r > BK || act < 0 || act > 4 || (has_res && act > 1) ||
+      (pre != nullptr && ((act != 1 && act != 3) || has_res)) || M < 1 ||
+      K < 8 || K % 8 || N % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   GemmArgs p{};
   p.c16 = static_cast<__nv_bfloat16*>(out);
@@ -235,16 +235,23 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
   }
   if (!err) err = map2d(&maps.c16, out, N, M, N, BM);
   if (!err && pre != nullptr) err = map2d(&maps.c16b, pre, N, M, N, BM);
-  if (!err && (act == 2 || has_res))
-    err = map2d(&maps.aux, act == 2 ? g : res, N, M, N, BM);
+  if (!err && (dact || has_res))
+    err = map2d(&maps.aux, dact ? g : res, N, M, N, BM);
   if (err) return err;
-  if (act == 2) return launch_rank<EPI_SITE_DACT>(maps, p, r, stream);
   if (has_res)
     return act ? launch_rank<EPI_SITE_GELU_RES>(maps, p, r, stream)
                : launch_rank<EPI_SITE_RES>(maps, p, r, stream);
-  if (pre != nullptr) return launch_rank<EPI_SITE_GELU_PRE>(maps, p, r, stream);
-  return act ? launch_rank<EPI_SITE_GELU>(maps, p, r, stream)
-             : launch_rank<EPI_SITE>(maps, p, r, stream);
+  switch (act) {
+    case 1:
+      return pre ? launch_rank<EPI_SITE_GELU_PRE>(maps, p, r, stream)
+                 : launch_rank<EPI_SITE_GELU>(maps, p, r, stream);
+    case 2: return launch_rank<EPI_SITE_DACT>(maps, p, r, stream);
+    case 3:
+    case 4:  // the quick_gelu instances, built in cp_site_quick.cu
+      return sm90gemm::launch_site_quick(dact, pre != nullptr, maps, p, r,
+                                         stream);
+    default: return launch_rank<EPI_SITE>(maps, p, r, stream);
+  }
 }
 
 // The rank product alone: z (M, 64) bf16 = bf16(x @ U), zero past r, for

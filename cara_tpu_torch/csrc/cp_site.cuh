@@ -1,0 +1,38 @@
+// The forward CaRA site's launch on the wgmma + TMA core (sm90_gemm.cuh),
+// shared by cp_site.cu (the entry points and the GELU instances) and
+// cp_site_quick.cu (the quick_gelu instances): the two files compile side
+// by side, each with its own template instances.
+
+#pragma once
+
+#include "sm90_gemm.cuh"
+
+namespace {
+
+// The site's block width, RK / ZN (no rank step at r = 0; z 16 wide for r
+// <= 16, else 64), epilogue and activation, as template arguments.
+template <int E, int RK, int ZN, int ACT>
+int launch_site(const GemmMaps& maps, const GemmArgs& p, cudaStream_t s) {
+  if (p.M >= 256 && p.N >= 256)
+    return launch<NN, E, 256, RK, ZN, ACT>(maps, p, 1, s);
+  return launch<NN, E, 128, RK, ZN, ACT>(maps, p, 1, s);
+}
+
+template <int E, int ACT = ACT_GELU>
+int launch_rank(const GemmMaps& maps, const GemmArgs& p, int r,
+                cudaStream_t s) {
+  if (r == 0) return launch_site<E, 0, 0, ACT>(maps, p, s);
+  if (r <= 16) return launch_site<E, 1, 16, ACT>(maps, p, s);
+  return launch_site<E, 4, 64, ACT>(maps, p, s);
+}
+
+}  // namespace
+
+namespace sm90gemm {
+
+// The quick_gelu site (cp_site_quick.cu): its dact mode (dact), or the
+// activation with (pre) or without its pre-activation output.
+int launch_site_quick(bool dact, bool pre, const GemmMaps& maps,
+                      const GemmArgs& p, int r, cudaStream_t stream);
+
+}  // namespace sm90gemm

@@ -47,6 +47,15 @@
 // (0.357-0.365), torch.matmul on the same shapes 0.092-0.121.  The folded
 // variants at a 128-wide block spill (96 registers for two blocks an SM)
 // and ptxas serializes their wgmma.
+//
+// The activation of PRE_GELU, DGELU and DGELU_H is a template parameter
+// (gelu.cuh): the exact-erf GELU, or CLIP's quick_gelu for the
+// act="quick_gelu" mode of the same TPU kernels (_mlp_bwd_kernel,
+// _mlp_bwd_wd_kernel and their saved-pre forms: CLIP ViT-L/14's MLP
+// blocks), y sigma(1.702 y) and sigma + 1.702 y sigma (1 - sigma) from
+// one expf.  The same tiles and bytes, so the same bound and the same
+// 128-wide blocks for these 6-byte epilogues; only those three
+// epilogues have quick instances (NN and NT, each rank step).
 
 #include "sm90_gemm.cuh"
 
@@ -54,30 +63,30 @@ namespace {
 
 // The block width: 128 or 256 columns (pick_bn); the epilogues that move
 // 6 bytes an output always take 128.
-template <int L, int E, int RK, int ZN>
+template <int L, int E, int RK, int ZN, int ACT = ACT_GELU>
 int launch_bn(const GemmMaps& maps, const GemmArgs& p, int splits, int bn,
               cudaStream_t stream) {
   if constexpr (E == EPI_F32 || E == EPI_BF16)
     if (bn == 256) return launch<L, E, 256, RK, ZN>(maps, p, splits, stream);
-  return launch<L, E, 128, RK, ZN>(maps, p, splits, stream);
+  return launch<L, E, 128, RK, ZN, ACT>(maps, p, splits, stream);
 }
 
 // NN: no rank step, or A2 from memory 16 or 64 deep (rk 1 or 4).
-template <int E>
+template <int E, int ACT = ACT_GELU>
 int launch_nn(const GemmMaps& maps, const GemmArgs& p, int rk, int bn,
               cudaStream_t stream) {
-  if (rk == 1) return launch_bn<NN, E, 1, 0>(maps, p, 1, bn, stream);
-  if (rk == 4) return launch_bn<NN, E, 4, 0>(maps, p, 1, bn, stream);
-  return launch_bn<NN, E, 0, 0>(maps, p, 1, bn, stream);
+  if (rk == 1) return launch_bn<NN, E, 1, 0, ACT>(maps, p, 1, bn, stream);
+  if (rk == 4) return launch_bn<NN, E, 4, 0, ACT>(maps, p, 1, bn, stream);
+  return launch_bn<NN, E, 0, 0, ACT>(maps, p, 1, bn, stream);
 }
 
 // NT: no rank step, or the folded one with z 16 or 64 wide.
-template <int E>
+template <int E, int ACT = ACT_GELU>
 int launch_nt(const GemmMaps& maps, const GemmArgs& p, int rk, int bn,
               cudaStream_t stream) {
-  if (rk == 1) return launch_bn<NT, E, 1, 16>(maps, p, 1, bn, stream);
-  if (rk == 4) return launch_bn<NT, E, 4, 64>(maps, p, 1, bn, stream);
-  return launch_bn<NT, E, 0, 0>(maps, p, 1, bn, stream);
+  if (rk == 1) return launch_bn<NT, E, 1, 16, ACT>(maps, p, 1, bn, stream);
+  if (rk == 4) return launch_bn<NT, E, 4, 64, ACT>(maps, p, 1, bn, stream);
+  return launch_bn<NT, E, 0, 0, ACT>(maps, p, 1, bn, stream);
 }
 
 // The block width (measured at ViT-B's shapes on one H100): 256 columns,
@@ -97,8 +106,10 @@ int pick_bn(int epi, int M, int N) {
 
 // C = op(A) . op(B) [+ A2 . B2] with the given layout (0 NN, 1 NT,
 // 2 TN) and epilogue (0 F32, 1 BF16, 2 PRE_GELU, 3 DGELU, 9 DGELU_H: aux
-// the bf16 pre-activation, h written to c16b); see the head comment for
-// the operand shapes.  `splits` > 1 (TN, F32 only) splits the
+// the bf16 pre-activation, h written to c16b); act picks the activation
+// of PRE_GELU, DGELU and DGELU_H (0 the exact-erf GELU, 1 quick_gelu;
+// 0 for the other epilogues); see the head comment for the operand
+// shapes.  `splits` > 1 (TN, F32 only) splits the
 // contraction over that many blocks a tile, summed into C in order; turn
 // then holds one zeroed int32 a 128 x 128 output tile, zero again when
 // the product ends (one launch at a time may use it: a stream's).  NN:
@@ -109,7 +120,7 @@ int pick_bn(int epi, int M, int N) {
 // rank step.  Needs M (TN), N and K (NN, NT) multiples of 8 and 16-byte
 // aligned pointers; the wrapper checks.  Returns cudaGetLastError() or
 // the tensor-map encoding's error.
-extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
+extern "C" int cara_grad_gemm(int layout, int epi, int act, const void* a,
                               const void* b, void* c32, void* c16,
                               void* c16b, const void* bias1, const void* bias2,
                               const void* aux, void* colpart, const void* a2,
@@ -130,7 +141,8 @@ extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
   p.M = M;
   p.N = N;
   p.K = K;
-  if (splits < 1 ||
+  const bool act_epi = epi == EPI_PRE_GELU || epi_dgelu(epi);
+  if (splits < 1 || act < 0 || act > 1 || (act && !act_epi) ||
       (splits > 1 && !(layout == TN && epi == EPI_F32 && turn != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   int rk = 0;  // the rank step's k-steps of 16
@@ -177,15 +189,21 @@ extern "C" int cara_grad_gemm(int layout, int epi, const void* a,
   if (layout == NN && epi == EPI_BF16)
     return launch_nn<EPI_BF16>(maps, p, rk, bn, stream);
   if (layout == NN && epi == EPI_PRE_GELU)
-    return launch_nn<EPI_PRE_GELU>(maps, p, rk, bn, stream);
+    return act ? launch_nn<EPI_PRE_GELU, ACT_QUICK_GELU>(maps, p, rk, bn,
+                                                        stream)
+               : launch_nn<EPI_PRE_GELU>(maps, p, rk, bn, stream);
   if (layout == NT && epi == EPI_BF16)
     return launch_nt<EPI_BF16>(maps, p, rk, bn, stream);
   if (layout == NT && epi == EPI_F32)
     return launch_nt<EPI_F32>(maps, p, rk, bn, stream);
   if (layout == NT && epi == EPI_DGELU)
-    return launch_nt<EPI_DGELU>(maps, p, rk, bn, stream);
+    return act ? launch_nt<EPI_DGELU, ACT_QUICK_GELU>(maps, p, rk, bn,
+                                                     stream)
+               : launch_nt<EPI_DGELU>(maps, p, rk, bn, stream);
   if (layout == NT && epi == EPI_DGELU_H)
-    return launch_nt<EPI_DGELU_H>(maps, p, rk, bn, stream);
+    return act ? launch_nt<EPI_DGELU_H, ACT_QUICK_GELU>(maps, p, rk, bn,
+                                                       stream)
+               : launch_nt<EPI_DGELU_H>(maps, p, rk, bn, stream);
   if (layout == TN && epi == EPI_F32)
     return launch_bn<TN, EPI_F32, 0, 0>(maps, p, splits, bn, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -36,22 +36,26 @@
 // Epilogues:
 //   F32       C32 = acc                                 (dxa, dT partials)
 //   BF16      C16 = bf16(acc [+ bias1])                 (qkv, do)
-//   PRE_GELU  C32 = pre = acc + bias1 + bias2,  C16 = bf16(gelu(pre))
-//   DGELU     dpre = acc * gelu'(AUX),  C16 = bf16(dpre),  plus per-block
+//   PRE_GELU  C32 = pre = acc + bias1 + bias2,  C16 = bf16(act(pre))
+//   DGELU     dpre = acc * act'(AUX),  C16 = bf16(dpre),  plus per-block
 //             fp32 column sums of dpre (the fc1 bias cotangent)
 //   DGELU_H   DGELU on the saved bf16 pre-activation AUX, and C16B =
-//             bf16(gelu(AUX)): the h of the saved-pre backward, from the
-//             erf the derivative already evaluates
+//             bf16(act(AUX)): the h of the saved-pre backward, from the
+//             erf (or exponential) the derivative already evaluates
 //   SITE_*    the forward CaRA site: y = acc + b + s (z V + cb), the
 //             delta scale s applied in fp32 (acc is scaled by 1 / s before
 //             the rank step and back after it), then
 //             SITE           C16 = bf16(y)
-//             SITE_GELU      C16 = bf16(gelu(y))
-//             SITE_GELU_PRE  C16 = bf16(gelu(y)), C16B = bf16(y): the
+//             SITE_GELU      C16 = bf16(act(y))
+//             SITE_GELU_PRE  C16 = bf16(act(y)), C16B = bf16(y): the
 //                            pre-activation kept for the backward
-//             SITE_DACT      C16 = bf16(G * gelu'(y)), G (M, N) bf16
+//             SITE_DACT      C16 = bf16(G * act'(y)), G (M, N) bf16
 //             SITE_RES       C16 = bf16(RES + dpm[row] * y)
-//             SITE_GELU_RES  C16 = bf16(RES + dpm[row] * gelu(y))
+//             SITE_GELU_RES  C16 = bf16(RES + dpm[row] * act(y))
+//
+// act is the template parameter ACT (gelu.cuh): the exact-erf GELU
+// (ACT_GELU, the default) or CLIP's quick_gelu (ACT_QUICK_GELU), the
+// same epilogue code at compile time, so that neither form pays a branch.
 
 #pragma once
 
@@ -63,7 +67,41 @@
 #include "gelu.cuh"
 #include "sm90_common.cuh"
 
+// The arguments and the TMA maps of one product: outside the anonymous
+// namespace below, so that a launcher in another source file (the
+// site's quick_gelu instances, cp_site_quick.cu) takes the same types.
+namespace sm90gemm {
+
+struct GemmArgs {
+  float* c32;
+  __nv_bfloat16* c16;
+  const __nv_bfloat16* bias1;  // the bias b of a site
+  const __nv_bfloat16* bias2;  // a site's cb (may be null)
+  const void* aux;   // DGELU: the fp32 pre-activation (M, N); DGELU_H bf16
+  float* colpart;    // DGELU*: (gridDim.y, N) column sums of dpre
+  __nv_bfloat16* gv;  // folded rank step: z out, (M, 64) (may be null: NN)
+  const float* dpm;   // SITE_*RES: the per-row gate (M,)
+  int* turn;  // TN split over blockIdx.z: one zeroed counter per tile
+  int M, N, K;
+  int k_split;  // contraction rows per blockIdx.z
+  float s;      // SITE_*: the delta scale
+};
+
+// TMA maps: A and B by layout; A2 (M, 64) and B2 for a rank step from
+// memory; the folded operand (NT: V (r, K); NN: U (K, r8)); the fp32
+// output C32, the bf16 outputs C16 and C16B and the epilogue's (M, N)
+// input (DGELU's fp32 AUX, DGELU_H's bf16 one; a site's bf16 residual or
+// G), in boxes of 128 rows and 128 bytes.
+struct GemmMaps {
+  CUtensorMap a, b, a2, b2, v, c32, c16, c16b, aux;
+};
+
+}  // namespace sm90gemm
+
 namespace {
+
+using sm90gemm::GemmArgs;
+using sm90gemm::GemmMaps;
 
 constexpr int BM = 128;
 constexpr int BK = 64;
@@ -108,30 +146,6 @@ __host__ __device__ constexpr bool epi_aux16(int e) {
   return epi_res(e) || e == EPI_SITE_DACT;
 }
 
-struct GemmArgs {
-  float* c32;
-  __nv_bfloat16* c16;
-  const __nv_bfloat16* bias1;  // the bias b of a site
-  const __nv_bfloat16* bias2;  // a site's cb (may be null)
-  const void* aux;   // DGELU: the fp32 pre-activation (M, N); DGELU_H bf16
-  float* colpart;    // DGELU*: (gridDim.y, N) column sums of dpre
-  __nv_bfloat16* gv;  // folded rank step: z out, (M, 64) (may be null: NN)
-  const float* dpm;   // SITE_*RES: the per-row gate (M,)
-  int* turn;  // TN split over blockIdx.z: one zeroed counter per tile
-  int M, N, K;
-  int k_split;  // contraction rows per blockIdx.z
-  float s;      // SITE_*: the delta scale
-};
-
-// TMA maps: A and B by layout; A2 (M, 64) and B2 for a rank step from
-// memory; the folded operand (NT: V (r, K); NN: U (K, r8)); the fp32
-// output C32, the bf16 outputs C16 and C16B and the epilogue's (M, N)
-// input (DGELU's fp32 AUX, DGELU_H's bf16 one; a site's bf16 residual or
-// G), in boxes of 128 rows and 128 bytes.
-struct GemmMaps {
-  CUtensorMap a, b, a2, b2, v, c32, c16, c16b, aux;
-};
-
 // One ring slot: the A tile (two 64-row halves, one per consumer
 // warpgroup: 64 rows of 128 bytes K-major, or one 64 x 64 box of A^T),
 // the B tile (BN rows or columns), and (folded rank step) the tile of the
@@ -160,7 +174,7 @@ struct Ring {
   static_assert(BARS >= BM * BN * (BN == 128 ? 6 : 4), "epilogue tile");
 };
 
-template <int L, int E, int BN, int RK, int ZN>
+template <int L, int E, int BN, int RK, int ZN, int ACT = ACT_GELU>
 __global__ void __launch_bounds__(THREADS, (Ring<BN, ZN>::BLOCKS))
 gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
   using namespace sm90;
@@ -420,16 +434,16 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
         }
         if constexpr (E == EPI_SITE_GELU_PRE) *o16b = pack_bf16(y0, y1);
         if constexpr (epi_gelu(E)) {
-          y0 = gelu(y0);
-          y1 = gelu(y1);
+          y0 = act_fwd<ACT>(y0);
+          y1 = act_fwd<ACT>(y1);
         }
         if constexpr (epi_aux16(E)) {
           const uint32_t raw = *o16;
           const float2 in = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(&raw));
           if constexpr (E == EPI_SITE_DACT) {
-            y0 = in.x * gelu_grad(y0);
-            y1 = in.y * gelu_grad(y1);
+            y0 = in.x * act_grad<ACT>(y0);
+            y1 = in.y * act_grad<ACT>(y1);
           } else {
             y0 = in.x + gate[half] * y0;
             y1 = in.y + gate[half] * y1;
@@ -446,11 +460,11 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
         *o16 = pack_bf16(y0, y1);
       } else if (E == EPI_PRE_GELU) {
         *o32 = make_float2(y0, y1);
-        *o16 = pack_bf16(gelu(y0), gelu(y1));
+        *o16 = pack_bf16(act_fwd<ACT>(y0), act_fwd<ACT>(y1));
       } else if (E == EPI_DGELU) {  // rows, columns past the edges are 0
         const float2 pre = *o32;
-        y0 *= gelu_grad(pre.x);
-        y1 *= gelu_grad(pre.y);
+        y0 *= act_grad<ACT>(pre.x);
+        y1 *= act_grad<ACT>(pre.y);
         *o16 = pack_bf16(y0, y1);
         cs0 += y0;
         cs1 += y1;
@@ -459,8 +473,8 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
         const float2 pre = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&raw));
         float h0, h1;
-        y0 *= gelu_and_grad(pre.x, h0);
-        y1 *= gelu_and_grad(pre.y, h1);
+        y0 *= act_and_grad<ACT>(pre.x, h0);
+        y1 *= act_and_grad<ACT>(pre.y, h1);
         *o16 = pack_bf16(y0, y1);
         *o16b = pack_bf16(h0, h1);
         cs0 += y0;
@@ -564,18 +578,19 @@ int map2d(CUtensorMap* map, const void* base, int inner, int rows, int ld,
   return sm90::encode_map(map, base, 2, dims, strides, box, elem_bytes);
 }
 
-template <int L, int E, int BN, int RK, int ZN>
+template <int L, int E, int BN, int RK, int ZN, int ACT = ACT_GELU>
 int launch(const GemmMaps& maps, const GemmArgs& p, int splits,
            cudaStream_t stream) {
   using R = Ring<BN, ZN>;
   constexpr int smem = epi_dgelu(E) ? R::SMEM_DGELU : R::SMEM;
   // Set once: the attribute is per process (one device per process).
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<L, E, BN, RK, ZN>,
+      gemm_kernel<L, E, BN, RK, ZN, ACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
-  gemm_kernel<L, E, BN, RK, ZN><<<grid, THREADS, smem, stream>>>(maps, p);
+  gemm_kernel<L, E, BN, RK, ZN, ACT><<<grid, THREADS, smem, stream>>>(maps,
+                                                                   p);
   return static_cast<int>(cudaGetLastError());
 }
 

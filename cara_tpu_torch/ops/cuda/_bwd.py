@@ -8,8 +8,11 @@ These are the products and row passes inside the TPU kernels
 and ``_cp_dense_dx_kernel``.  The wrappers count their calls; the GEMM
 launcher also counts its launches by layout and epilogue
 (``LAUNCHES_NT_DGELU`` and so on), so that a run can show which products
-its path went through.  Every launcher takes bf16 CUDA tensors (fp32 where
-it says so), checks them and raises on what the kernel does not take.
+its path went through; the quick_gelu forms of the activation epilogues
+count apart (``LAUNCHES_NN_PRE_QUICK_GELU``, ``LAUNCHES_NT_DQUICK_GELU``,
+``LAUNCHES_NT_DQUICK_GELU_H``).  Every launcher takes bf16 CUDA tensors
+(fp32 where it says so), checks them and raises on what the kernel does
+not take.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ EPI_F32, EPI_BF16, EPI_PRE_GELU, EPI_DGELU, EPI_DGELU_H = 0, 1, 2, 3, 9
 LAUNCHES_NN_BF16 = LAUNCHES_NN_PRE_GELU = 0
 LAUNCHES_NT_BF16 = LAUNCHES_NT_F32 = LAUNCHES_NT_DGELU = 0
 LAUNCHES_NT_DGELU_H = LAUNCHES_TN_F32 = 0
+LAUNCHES_NN_PRE_QUICK_GELU = LAUNCHES_NT_DQUICK_GELU = 0
+LAUNCHES_NT_DQUICK_GELU_H = 0
+#: The activations of PRE_GELU, DGELU and DGELU_H, by ``cara_grad_gemm``'s
+#: ``act`` code.
+ACTS = {"gelu": 0, "quick_gelu": 1}
+_ACT_EPIS = (EPI_PRE_GELU, EPI_DGELU, EPI_DGELU_H)
+_QUICK_COUNTERS = {(NN, EPI_PRE_GELU): "LAUNCHES_NN_PRE_QUICK_GELU",
+                   (NT, EPI_DGELU): "LAUNCHES_NT_DQUICK_GELU",
+                   (NT, EPI_DGELU_H): "LAUNCHES_NT_DQUICK_GELU_H"}
 _COUNTERS = {(NN, EPI_BF16): "LAUNCHES_NN_BF16",
              (NN, EPI_PRE_GELU): "LAUNCHES_NN_PRE_GELU",
              (NT, EPI_BF16): "LAUNCHES_NT_BF16",
@@ -81,7 +93,8 @@ def _turns(dev, n: int):
 
 
 def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
-         splits: int = 1, a2=None, b2=None, fold_v=None, out=None):
+         splits: int = 1, a2=None, b2=None, fold_v=None, out=None,
+         act: str = "gelu"):
     """One ``grad_gemm.cu`` product; returns the epilogue's outputs.
 
     NN: a (M, K), b (K, N).  NT: a (M, K), b (N, K).  TN: a (K, M),
@@ -92,6 +105,8 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     bias2; DGELU (``aux`` the fp32 pre-activation) -> (dpre bf16,
     column partial sums (M/128, N) fp32); DGELU_H (``aux`` the bf16
     pre-activation) -> (dpre, column partial sums, h = bf16(gelu(aux))).
+    ``act`` ("gelu" or "quick_gelu") is the activation of PRE_GELU, DGELU
+    and DGELU_H in place of the GELU.
 
     NN: ``a2`` (M, 64) with ``b2`` = V (r, N) adds the rank step ``a2 @
     b2`` to the accumulators.  NT: ``fold_v`` V (r, K) with ``b2`` = U
@@ -104,6 +119,9 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     if (layout, epi) not in _COUNTERS:
         raise ValueError(f"grad_gemm has no epilogue {epi} for layout "
                          f"{layout}")
+    if act not in ACTS:
+        raise ValueError(f"grad_gemm: act must be one of {tuple(ACTS)}, "
+                         f"got {act!r}")
     _build.check_cuda_inputs("grad_gemm", dev, a=a, b=b, bias1=bias1,
                              bias2=bias2, a2=a2, b2=b2, fold_v=fold_v)
     if layout == TN:
@@ -171,15 +189,16 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
                              "pre-activation")
         colpart = torch.empty(((m + _GEMM_BM - 1) // _GEMM_BM, n),
                               device=dev, dtype=torch.float32)
+    quick = act == "quick_gelu" and epi in _ACT_EPIS
     code = _build.lib().cara_grad_gemm(
-        layout, epi, a.data_ptr(), b.data_ptr(), _build.ptr(c32),
-        _build.ptr(c16), _build.ptr(c16b), _build.ptr(bias1),
-        _build.ptr(bias2),
+        layout, epi, int(quick), a.data_ptr(), b.data_ptr(),
+        _build.ptr(c32), _build.ptr(c16), _build.ptr(c16b),
+        _build.ptr(bias1), _build.ptr(bias2),
         _build.ptr(aux), _build.ptr(colpart), _build.ptr(a2),
         _build.ptr(b2), _build.ptr(fold_v), _build.ptr(gv), _build.ptr(turn),
         m, n, k, splits, r2, ldb2, rfold, _build.stream_ptr(dev))
     _build.check(code, "grad_gemm")
-    globals()[_COUNTERS[layout, epi]] += 1
+    globals()[(_QUICK_COUNTERS if quick else _COUNTERS)[layout, epi]] += 1
     outs = {EPI_F32: (c32,), EPI_BF16: (c16,), EPI_PRE_GELU: (c32, c16),
             EPI_DGELU: (c16, colpart), EPI_DGELU_H: (c16, colpart, c16b)}[epi]
     if gv is not None:

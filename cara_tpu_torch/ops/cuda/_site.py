@@ -3,21 +3,25 @@ whole-block eval: its plain PyTorch math and its launcher for
 ``csrc/cp_site.cu``.
 
 ``out = epi(pro(x) @ W + b + s * ((pro(x) @ U) @ V + cb))`` with ``pro``
-an optional LayerNorm and ``epi`` an optional GELU and residual
-``x_res + dpm * y``, or ``g * gelu'(y)`` (the dact mode).  Rounding
-points follow the TPU kernels: the
+an optional LayerNorm and ``epi`` an optional activation ``act`` (the
+exact-erf ``"gelu"`` or CLIP's ``"quick_gelu"``) and residual ``x_res +
+dpm * y``, or ``g * act'(y)`` (the dact mode).  Rounding points follow
+the TPU kernels: the
 normalized row and ``z = pro(x) @ U`` are rounded to the input dtype,
 everything else accumulates in fp32 and is rounded once at the end.
 
 On the card a site is ``csrc/block_rows.cu``'s LayerNorm row pass (LN
 sites only: it writes ``xa = bf16(LN(x))``) and one ``cp_site.cu``
 product on the ``wgmma`` + TMA core, z folded into it.  The launches of
-that product are counted by epilogue: ``LAUNCHES_BF16`` (no activation
-or residual: qkv, the split route's projection), ``LAUNCHES_GELU`` (fc1),
-``LAUNCHES_RES`` (the residual with or without the GELU: the block
-kernels' projection and fc2) and ``LAUNCHES_DACT`` (the dact mode); of
-the GELU launches, ``LAUNCHES_GELU_PRE`` also wrote the pre-activation
-(the MLP block's save-pre mode).
+that product are counted by epilogue and activation: ``LAUNCHES_BF16``
+(no activation or residual: qkv, the split route's projection),
+``LAUNCHES_GELU`` (fc1), ``LAUNCHES_RES`` (the residual with or without
+the GELU: the block kernels' projection and fc2) and ``LAUNCHES_DACT``
+(the dact mode); of the GELU launches, ``LAUNCHES_GELU_PRE`` also wrote
+the pre-activation (the MLP block's save-pre mode).  The quick_gelu
+forms count apart: ``LAUNCHES_QUICK_GELU``, ``LAUNCHES_QUICK_GELU_PRE``
+and ``LAUNCHES_QUICK_DACT``.  The residual epilogue takes the GELU or no
+activation: no site of either package has an activation and a residual.
 """
 
 from __future__ import annotations
@@ -34,6 +38,16 @@ LAUNCHES_GELU = 0
 LAUNCHES_RES = 0
 LAUNCHES_DACT = 0
 LAUNCHES_GELU_PRE = 0
+LAUNCHES_QUICK_GELU = 0
+LAUNCHES_QUICK_GELU_PRE = 0
+LAUNCHES_QUICK_DACT = 0
+#: The activations of a site, and their codes in ``cara_cp_site``'s
+#: ``act`` (the dact mode of each is its code plus one).
+ACTS = {None: 0, "gelu": 1, "quick_gelu": 3}
+
+
+def _count(name: str) -> None:
+    globals()[name] += 1
 
 
 def site_plain(xa, w, b, u, v, cb: Optional[torch.Tensor], s: float):
@@ -46,37 +60,36 @@ def site_plain(xa, w, b, u, v, cb: Optional[torch.Tensor], s: float):
     return xa.float() @ w.float() + b.float() + s * d
 
 
-def site_forward_plain(x2, w, b, u, v, cb, s, *, ln=None, gelu=False,
+def site_forward_plain(x2, w, b, u, v, cb, s, *, ln=None, act=None,
                        res=None, dpm_rows=None, dact_g=None):
     """Plain twin of :func:`site_cuda` (its output; z is
-    ``site_plain``'s): LN(x) rounded to ``x2.dtype``, the GELU, the
-    residual ``res + dpm_rows * y`` or the dact ``g * gelu'(y)`` on the
-    fp32 ``y``, the result rounded to ``x2.dtype``."""
+    ``site_plain``'s): LN(x) rounded to ``x2.dtype``, the activation,
+    the residual ``res + dpm_rows * y`` or the dact ``g * act'(y)`` on
+    the fp32 ``y``, the result rounded to ``x2.dtype``."""
     xa = x2 if ln is None else layer_norm(x2, *ln)
     y = site_plain(xa, w, b, u, v, cb, s)
     if dact_g is not None:
-        return (dact_g.float() * activation_grad(y, "gelu")).to(x2.dtype)
-    if gelu:
-        y = activation(y, "gelu")
+        return (dact_g.float() * activation_grad(y, act)).to(x2.dtype)
+    if act is not None:
+        y = activation(y, act)
     if res is not None:
         y = res.float() + dpm_rows.float()[:, None] * y
     return y.to(x2.dtype)
 
 
-def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
+def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, act=None, res=None,
               dpm_rows=None, dact_g=None, return_z=False, return_pre=False):
     """Launch the site on 2-D bf16 ``x2`` (M, K) -> (M, N), and with
     ``return_z`` its rank operand z = bf16(pro(x) U) (M, 64), zero past
     the rank (the backward's factor gradients read it), then with
-    ``return_pre`` (GELU without residual) the pre-activation rounded to
-    bf16 (M, N), written beside the output by the same launch.
+    ``return_pre`` (an activation without residual) the pre-activation
+    rounded to bf16 (M, N), written beside the output by the same launch.
 
-    ``ln`` = (scale, bias, eps) or None; ``res`` (M, N) and ``dpm_rows``
-    (M,) fp32 together select the residual epilogue; ``dact_g`` (M, N)
-    selects the dact epilogue, ``bf16(g * gelu'(pre))`` from the fp32
-    pre-activation, in place of the output."""
-    global LAUNCHES_BF16, LAUNCHES_GELU, LAUNCHES_RES, LAUNCHES_DACT
-    global LAUNCHES_GELU_PRE
+    ``ln`` = (scale, bias, eps) or None; ``act`` None, "gelu" or
+    "quick_gelu"; ``res`` (M, N) and ``dpm_rows`` (M,) fp32 together
+    select the residual epilogue (with the GELU or no activation);
+    ``dact_g`` (M, N) selects the dact epilogue, ``bf16(g * act'(pre))``
+    from the fp32 pre-activation, in place of the output."""
     m, k = x2.shape
     n = w.shape[1]
     r = u.shape[1]
@@ -101,13 +114,19 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
                 or not dpm_rows.is_contiguous() or dpm_rows.device != dev:
             raise ValueError("cp_site residual needs res (M, N) and fp32 "
                              "contiguous dpm (M,) on the same device")
-    if dact_g is not None and (dact_g.shape != (m, n) or gelu
+    if act not in ACTS:
+        raise ValueError(f"cp_site: act must be one of {tuple(ACTS)}, got "
+                         f"{act!r}")
+    if res is not None and act not in (None, "gelu"):
+        raise ValueError(f"cp_site's residual epilogue takes the GELU or no "
+                         f"activation, got act={act!r}")
+    if dact_g is not None and (dact_g.shape != (m, n) or act is None
                                or res is not None):
-        raise ValueError("cp_site dact needs g (M, N) and neither the GELU "
-                         "nor the residual epilogue")
-    if return_pre and (not gelu or res is not None):
-        raise ValueError("cp_site writes the pre-activation on a GELU site "
-                         "without the residual only")
+        raise ValueError("cp_site dact needs g (M, N), an activation and "
+                         "no residual epilogue")
+    if return_pre and (act is None or res is not None):
+        raise ValueError("cp_site writes the pre-activation on an "
+                         "activation site without the residual only")
     xa = x2 if ln is None else _bwd.ln_rows(x2, ls, lb, eps)
     # U is read by TMA as (K, r8): rows of 16 bytes, zero columns past r.
     u8 = _bwd.pad_cols8(u) if r else u
@@ -117,23 +136,25 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, gelu=False, res=None,
     if return_z:
         z = (torch.empty if r else torch.zeros)(
             (m, _bwd.RANK_W), device=dev, dtype=torch.bfloat16)
-    act = 2 if dact_g is not None else int(gelu)
     code = _build.lib().cara_cp_site(
         xa.data_ptr(), w.data_ptr(), b.data_ptr(), _build.ptr(u8),
         _build.ptr(v), _build.ptr(cb), _build.ptr(res),
         _build.ptr(dpm_rows), _build.ptr(dact_g), _build.ptr(z),
-        out.data_ptr(), _build.ptr(pre), m, k, n, r, act,
-        int(res is not None), float(s), _build.stream_ptr(dev))
+        out.data_ptr(), _build.ptr(pre), m, k, n, r,
+        ACTS[act] + (dact_g is not None), int(res is not None), float(s),
+        _build.stream_ptr(dev))
     _build.check(code, "cp_site")
+    quick = "QUICK_" if act == "quick_gelu" else ""
     if dact_g is not None:
-        LAUNCHES_DACT += 1
+        _count(f"LAUNCHES_{quick}DACT")
     elif res is not None:
-        LAUNCHES_RES += 1
-    elif gelu:
-        LAUNCHES_GELU += 1
-        LAUNCHES_GELU_PRE += return_pre
+        _count("LAUNCHES_RES")
+    elif act is not None:
+        _count(f"LAUNCHES_{quick}GELU")
+        if return_pre:
+            _count(f"LAUNCHES_{quick}GELU_PRE")
     else:
-        LAUNCHES_BF16 += 1
+        _count("LAUNCHES_BF16")
     outs = (out,) + ((z,) if return_z else ()) + ((pre,) if return_pre
                                                    else ())
     return outs if len(outs) > 1 else out

@@ -11,9 +11,11 @@ to device memory.  On Hopper it is three launches:
    bf16 (as row 5's port);
 2. ``csrc/block_pair.cu``, one block per (image, 32-query-row tile):
    attention -> proj site + delta + cb2 + residual -> x_mid in shared
-   memory -> LN2 -> fc1 site + delta + cb1 + GELU in hidden chunks ->
+   memory -> LN2 -> fc1 site + delta + cb1 + activation in hidden chunks ->
    fc2 site + delta + cb2 accumulated over the chunks -> residual.
-   Neither x_mid nor the hidden activation leaves the chip.
+   Neither x_mid nor the hidden activation leaves the chip.  The
+   activation (the exact-erf GELU, or CLIP's quick_gelu for
+   ``act="quick_gelu"``) is a template parameter of the kernel.
 
 The reference has no switch that turns it on in the model (its
 docstring's ``CARA_BLOCK_PAIR`` is read nowhere), so neither does the
@@ -35,8 +37,10 @@ from cara_tpu_torch.ops.cuda.cp_attn_block import cp_attn_block_plain
 from cara_tpu_torch.ops.cuda.cp_mlp import cp_mlp_block_plain
 from cara_tpu_torch.ops.cuda.fused_qkv_attention import _check_np
 
-#: Number of (two-launch) kernel calls made by :func:`block_pair_fwd`.
+#: Number of (two-launch) kernel calls made by :func:`block_pair_fwd`
+#: with the GELU, and with quick_gelu.
 LAUNCHES = 0
+QUICK_LAUNCHES = 0
 
 
 def block_pair_fwd_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1,
@@ -59,7 +63,7 @@ def block_pair_fwd_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1,
 
 def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
                     b1, mu1, mv1, mcb1, w2, b2, mu2, mv2, mcb2, ls2, lb2,
-                    heads, sm_scale, n_real, s, ln_eps):
+                    heads, sm_scale, n_real, s, ln_eps, act="gelu"):
     """The two launches on CUDA tensors (no launch count)."""
     bsz, n, e = x.shape
     dh = e // heads
@@ -82,13 +86,17 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
                  mu2=mu2, mv2=mv2, mcb2=mcb2)
     bad = {k: tuple(t.shape) for k, t in given.items()
            if tuple(t.shape) != shapes[k]}
+    if act not in _bwd.ACTS:  # cara_block_pair's codes are grad_gemm's
+        raise ValueError(f"block_pair: act must be one of "
+                         f"{tuple(_bwd.ACTS)}, got {act!r}")
     if (bad or heads * dh != e or dh not in (16, 32, 64) or e % 128
             or e > 768 or hid % 128 or not 1 <= r <= _bwd.RANK_W):
         raise ValueError(
             f"block_pair: E={e}, heads={heads}, hidden={hid}, rank {r}, "
             f"mismatched shapes {bad}; the kernel takes head dims 16, 32 "
-            "or 64, E a multiple of 128 up to 768, hidden a multiple of "
-            "128 and rank 1..64, one rank for all three sites")
+            "or 64, E a multiple of 128 up to 768 (ROADMAP.md queue 2: "
+            "row 19 past E 768), hidden a multiple of 128 and rank 1..64, "
+            "one rank for all three sites")
     lib = _build.lib()
     if lib.cara_block_pair_smem(n, e, dh) == 0:
         raise ValueError(f"block_pair: N={n}, E={e} does not fit one "
@@ -100,7 +108,7 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
         lb2.data_ptr(), w1.data_ptr(), b1.data_ptr(), mu1p.data_ptr(),
         mv1.data_ptr(), mcb1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         mu2p.data_ptr(), mv2.data_ptr(), mcb2.data_ptr(), out.data_ptr(),
-        bsz, n, heads, dh, hid, int(n_real), r, u2p.shape[1],
+        bsz, n, heads, dh, hid, int(n_real), r, u2p.shape[1], _bwd.ACTS[act],
         float(sm_scale), float(s), float(ln_eps), _build.stream_ptr(dev))
     _build.check(code, "block_pair")
     return out
@@ -131,10 +139,10 @@ def block_pair_fwd(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1,
                                     ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if act != "gelu":
-        raise ValueError(f"the block_pair kernel has the exact GELU only; "
-                         f"act={act!r} is not ported")
-    global LAUNCHES
-    out = block_pair_cuda(*args, heads, sm_scale, n_real, s, ln_eps)
-    LAUNCHES += 1
+    global LAUNCHES, QUICK_LAUNCHES
+    out = block_pair_cuda(*args, heads, sm_scale, n_real, s, ln_eps, act)
+    if act == "quick_gelu":
+        QUICK_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -11,14 +11,14 @@ megakernel off):
   site through ``_site.site_cuda``, ``csrc/block_rows.cu``'s LayerNorm
   row pass first for ``cp_dense_ln``, then ``csrc/cp_site.cu``'s product
   on the ``wgmma`` + TMA core with z = pro(x) U accumulated beside it and
-  rounded to bf16 before V, the exact-erf GELU in the epilogue for
-  ``act="gelu"``;
+  rounded to bf16 before V, the activation in the epilogue: the
+  exact-erf GELU for ``act="gelu"``, CLIP's ``y sigmoid(1.702 y)`` for
+  ``act="quick_gelu"`` (a template form of the same epilogue);
 * the activation's backward, TPU row 13's helper
   (``_cp_dense_dact_kernel``): the same site kernel in its dact mode
   recomputes the fp32 pre-activation tile and writes ``dpre = bf16(g *
-  gelu'(pre))``; the pre-activation never reaches memory.  The backward
-  below then runs with ``g := dpre``.  ``"quick_gelu"`` has plain
-  versions only (a CUDA tensor raises);
+  act'(pre))``; the pre-activation never reaches memory.  The backward
+  below then runs with ``g := dpre``;
 * dx, TPU row 12 (``_cp_dense_dx_raw`` / ``_cp_dense_dx_kernel``):
   ``dx = g W^T + s bf16(g V^T) U^T``, also emitting ``gv = bf16(g V^T)``,
   with the LayerNorm input backward over the full row for
@@ -55,14 +55,15 @@ the masked factor gradients on x or LN(x) (row 15,
 db``.
 
 With an activation the element sites fuse it as the plain ones do: the
-GELU epilogue on W' with rank 0, and the dact helper on W' with rank 0
-(the rank delta already sits in W'), as ``_bwd_wd_rule`` does.
+activation epilogue on W' with rank 0, and the dact helper on W' with
+rank 0 (the rank delta already sits in W'), as ``_bwd_wd_rule`` does.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions, which keep the TPU kernels'
 rounding points.  ``LAUNCHES`` counts row 13 without an activation,
-``ACT_LAUNCHES`` row 13 with one (any of the four forms),
-``DACT_LAUNCHES`` the dact helper, ``DX_LAUNCHES`` row 12,
+``ACT_LAUNCHES`` row 13 with the GELU (any of the four forms),
+``DACT_LAUNCHES`` its dact helper, ``QUICK_ACT_LAUNCHES`` and
+``QUICK_DACT_LAUNCHES`` the same with quick_gelu, ``DX_LAUNCHES`` row 12,
 ``WD_LAUNCHES`` and ``WD_BWD_LAUNCHES`` the element-dropout sites'
 forwards and backwards.
 """
@@ -83,8 +84,11 @@ ACTS = (None, "gelu", "quick_gelu")
 LAUNCHES = 0
 #: Forward kernel calls with the GELU epilogue, any of the four forms.
 ACT_LAUNCHES = 0
-#: Calls of the dact helper (the activation's backward).
+#: Calls of the dact helper (the activation's backward) of the GELU.
 DACT_LAUNCHES = 0
+#: The same two with the quick_gelu epilogue.
+QUICK_ACT_LAUNCHES = 0
+QUICK_DACT_LAUNCHES = 0
 #: dx kernel calls of their backward (row 12).
 DX_LAUNCHES = 0
 #: Forward calls of :func:`cp_dense_wd` / :func:`cp_dense_ln_wd` (the
@@ -114,24 +118,24 @@ def cp_dense_dact_plain(g2, x2, w, b, u, v, cb: Optional[torch.Tensor],
     return (g2.float() * activation_grad(pre, act)).to(g2.dtype)
 
 
-def _check_act(act, plain: bool) -> None:
+def _check_act(act) -> None:
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
-    if act == "quick_gelu" and not plain:
-        raise NotImplementedError(
-            "the site kernels have the exact-erf GELU epilogue only; "
-            "quick_gelu runs on the plain versions (ROADMAP.md queue 1: "
-            "Interop)")
+
+
+def _count_act(act, gelu: str, quick: str) -> None:
+    """One more launch in the counter of ``act``'s form."""
+    name = quick if act == "quick_gelu" else gelu
+    globals()[name] += 1
 
 
 def _dact(g2, x2, w, b, u, v, cb, s, ln, act, plain: bool):
     """dpre through the plain twin or the site kernel's dact mode
-    (counted in :data:`DACT_LAUNCHES`)."""
-    global DACT_LAUNCHES
+    (counted in :data:`DACT_LAUNCHES` or :data:`QUICK_DACT_LAUNCHES`)."""
     if plain:
         return cp_dense_dact_plain(g2, x2, w, b, u, v, cb, s, ln, act)
-    out = site_cuda(x2, w, b, u, v, cb, s, ln=ln, dact_g=g2)
-    DACT_LAUNCHES += 1
+    out = site_cuda(x2, w, b, u, v, cb, s, ln=ln, act=act, dact_g=g2)
+    _count_act(act, "DACT_LAUNCHES", "QUICK_DACT_LAUNCHES")
     return out
 
 
@@ -144,7 +148,7 @@ def cp_dense_dact(g2, x2, w, b, u, v, cb: Optional[torch.Tensor], s: float,
     plain = x2.device.type == "cpu"
     if not plain and x2.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2.device}")
-    _check_act(act, plain)
+    _check_act(act)
     if act is None:
         raise ValueError("cp_dense_dact needs an activation")
     _check_site("cp_dense_dact", x2, w.shape[0], w, u, v, not plain)
@@ -235,7 +239,7 @@ class _CpDense(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, u, v, cb, ln_scale, ln_bias, s, ln_eps, act,
                 plain):
-        global LAUNCHES, ACT_LAUNCHES
+        global LAUNCHES
         lead, k = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, k)
         ln = None if ln_scale is None else (ln_scale, ln_bias, ln_eps)
@@ -244,12 +248,12 @@ class _CpDense(torch.autograd.Function):
             out = cp_dense_plain(x2, w, b, u, v, cb, s, ln, act)
         else:
             x2 = x2.contiguous()
-            out, z = site_cuda(x2, w, b, u, v, cb, s, ln=ln,
-                               gelu=act == "gelu", return_z=True)
+            out, z = site_cuda(x2, w, b, u, v, cb, s, ln=ln, act=act,
+                               return_z=True)
             if act is None:
                 LAUNCHES += 1
             else:
-                ACT_LAUNCHES += 1
+                _count_act(act, "ACT_LAUNCHES", "QUICK_ACT_LAUNCHES")
         ctx.save_for_backward(x2, w, b, u, v, cb, ln_scale, ln_bias, z)
         ctx.cfg = (lead, s, ln_eps, act, plain)
         return out.reshape(*lead, w.shape[1])
@@ -282,7 +286,7 @@ def _plain(name, x, w, u, v, impl, act=None) -> bool:
     plain = impl == "plain" or x.device.type == "cpu"
     if not plain and x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check_act(act, plain)
+    _check_act(act)
     _check_site(name, x, w.shape[0], w, u, v, not plain)
     return plain
 
@@ -343,7 +347,7 @@ class _CpDenseWd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, u, v, cb, seed, ln_scale, ln_bias, s, rate,
                 ln_eps, act, plain):
-        global WD_LAUNCHES, ACT_LAUNCHES
+        global WD_LAUNCHES
         lead, k = x.shape[:-1], x.shape[-1]
         n = w.shape[1]
         x2 = x.reshape(-1, k)
@@ -355,11 +359,10 @@ class _CpDenseWd(torch.autograd.Function):
         else:
             x2 = x2.contiguous()
             wp = wd_fold.build_wd_weight(w, u, v, seed, s, rate)
-            out = site_cuda(x2, wp, b, u0, v0, cb, s, ln=ln,
-                            gelu=act == "gelu")
+            out = site_cuda(x2, wp, b, u0, v0, cb, s, ln=ln, act=act)
             WD_LAUNCHES += 1
             if act is not None:
-                ACT_LAUNCHES += 1
+                _count_act(act, "ACT_LAUNCHES", "QUICK_ACT_LAUNCHES")
         ctx.save_for_backward(x2, wp, b, u, v, cb, seed, ln_scale, ln_bias)
         ctx.cfg = (lead, s, rate, ln_eps, act, plain)
         return out.reshape(*lead, n)

@@ -1,20 +1,25 @@
 """MLP half-block with CaRA deltas:
-``x + dpm * (gelu(LN2(x) W1 + b1 + (LN2(x) U1) V1 + cb1) W2 + b2
-+ (h U2) V2 + cb2)``.
+``x + dpm * (act(LN2(x) W1 + b1 + (LN2(x) U1) V1 + cb1) W2 + b2
++ (h U2) V2 + cb2)``, ``act`` the exact-erf GELU or CLIP's quick_gelu
+``y sigmoid(1.702 y)`` (``act="quick_gelu"``, CLIP ViT-L/14).
 
 Replaces the TPU megakernel ``cara_tpu/ops/pallas/cp_mlp.py``
 (``cp_mlp_block``, ``_mlp_fwd_raw`` / ``_mlp_fwd_kernel``), which keeps
 each 256-row tile's (rows, 4E) hidden activation in VMEM next to both
 weight matrices.  On Hopper the port composes ``csrc/block_rows.cu``'s
 LayerNorm row pass (xa = bf16(LN2(x))) and two launches of
-``csrc/cp_site.cu``: fc1 on xa with its delta, cb1 and the exact-erf GELU
+``csrc/cp_site.cu``: fc1 on xa with its delta, cb1 and the activation
 epilogue, writing ``h`` (rounded to bf16 as the TPU kernel does before
 fc2); then fc2 with its delta, cb2 and the residual ``x + dpm * y``.
 ``h`` (M x 4E bf16, 77 MB at ViT-B batch 64) makes a round trip through
 HBM that the TPU kernel avoided; both GEMMs are
 tensor-core bound at ViT-B, so the first version accepts that, and fusing
 fc1 into fc2 is later work.  The TPU epilogue's A&S erf is replaced by the
-exact erf, as the JAX XLA path uses.
+exact erf, as the JAX XLA path uses.  Every launch takes the activation
+as a template form of its epilogue (``csrc/gelu.cuh``): the quick_gelu
+forms of the fc1 site, its saved pre-activation, and the backwards'
+``PRE_GELU`` / ``DGELU`` / ``DGELU_H`` products run the same tiles with
+one ``expf`` an output in place of ``erff``, so the same bounds hold.
 
 The save-pre mode (``CARA_MLP_SAVE_PRE``, as JAX's ``_save_pre_on``: "1"
 or "0" force it, "auto" is on for CUDA tensors, as JAX's is on for the
@@ -24,7 +29,7 @@ eval) has its fc1 site also write the pre-activation rounded to x's dtype
 (``_mlp_fwd_save_pre_kernel``), and the backwards of both blocks read it
 in place of recomputing fc1 (``_mlp_bwd_kernel(saved_pre=True)``,
 ``_mlp_bwd_wd_pre_kernel``): :func:`_mlp_block_bwd_saved_cuda` and
-:func:`_mlp_block_wd_bwd_saved_cuda`.  h is then bf16(gelu(pre)) from the
+:func:`_mlp_block_wd_bwd_saved_cuda`.  h is then bf16(act(pre)) from the
 saved pre, as in JAX.  The pre-activation is 77.5 MB a layer at ViT-B
 batch 64 and 224 px.
 
@@ -56,7 +61,8 @@ bounds it: two (saved) or three 59.5 GFLOP products at ViT-B, so the
 tensor cores.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
-``impl="plain"``, takes the plain versions.
+``impl="plain"``, takes the plain versions.  The counters below count the
+GELU forms; each has a ``QUICK_`` twin that counts the quick_gelu forms.
 """
 
 from __future__ import annotations
@@ -79,8 +85,19 @@ WD_BWD_LAUNCHES = 0
 #: The same two backwards in the save-pre mode.
 BWD_SAVED_LAUNCHES = 0
 WD_BWD_SAVED_LAUNCHES = 0
+#: The five counters above for the quick_gelu forms.
+QUICK_LAUNCHES = 0
+QUICK_BWD_LAUNCHES = 0
+QUICK_WD_BWD_LAUNCHES = 0
+QUICK_BWD_SAVED_LAUNCHES = 0
+QUICK_WD_BWD_SAVED_LAUNCHES = 0
 
 _SAVE_PRE = os.environ.get("CARA_MLP_SAVE_PRE", "auto")
+
+
+def _count(name: str, act: str) -> None:
+    """One more launch in the counter ``name`` of ``act``'s form."""
+    globals()[("QUICK_" if act == "quick_gelu" else "") + name] += 1
 
 
 def _save_pre_on(x) -> bool:
@@ -124,15 +141,12 @@ def _mlp_block_cuda(x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
     pre-activation (M, 4E) bf16 written by the fc1 site with
     ``save_pre``, else None)."""
     lead, e = x.shape[:-1], x.shape[-1]
-    if act != "gelu":
-        raise ValueError(f"the cp_site kernel's epilogue has exact GELU "
-                         f"only; act={act!r} is not yet ported")
     if w2.shape[1] != e:
         raise ValueError(f"residual-fused MLP needs W2 out == E "
                          f"({w2.shape[1]} vs {e})")
     x2 = x.reshape(-1, e)
     fc1 = site_cuda(x2, w1, b1, u1, v1, cb1, s,
-                    ln=(ln_scale, ln_bias, ln_eps), gelu=True,
+                    ln=(ln_scale, ln_bias, ln_eps), act=act,
                     return_pre=save_pre)
     h, pre = fc1 if save_pre else (fc1, None)
     out = site_cuda(h, w2, b2, u2, v2, cb2, s, res=x2,
@@ -149,7 +163,7 @@ def cp_mlp_block_bwd_plain(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
     -> (dx, du1, dv1, dcb1, du2, dv2, dcb2), dx in ``x.dtype``, the rest
     fp32.  ``pre``: the saved pre-activation (save-pre mode,
     ``saved_pre=True``: read in place of the fc1 recompute, h =
-    gelu(pre) rounded), or None."""
+    act(pre) rounded), or None."""
     lead, e = x.shape[:-1], x.shape[-1]
     dt = x.dtype
     x2 = x.reshape(-1, e)
@@ -187,16 +201,13 @@ def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
 
     ``ln_rows`` xa = LN2(x); rank product z1 = bf16(xa U1); NN
     ``grad_gemm`` + rank step pre = xa W1 + b1 + s (z1 V1 + cb1) (fp32)
-    and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g dpm); NT + folded
-    rank step dpre = (g2 W2^T + s gv2 U2^T) gelu'(pre), bf16, with its
+    and h = bf16(act(pre)); ``gate_rows`` g2 = bf16(g dpm); NT + folded
+    rank step dpre = (g2 W2^T + s gv2 U2^T) act'(pre), bf16, with its
     column sums and gv2 = bf16(g2 V2^T); ``colsum`` ds1, ds2; NT + folded
     rank step dxa = dpre W1^T + s gv1 U1^T (fp32) and gv1 = bf16(dpre
     V1^T); ``ln_bwd_residual`` dx; rank product z2 = bf16(h U2); the four
     split TN factor products du1 = xa^T gv1, dv1 = z1^T dpre,
     du2 = h^T gv2, dv2 = z2^T g2 (fp32, summed over all M rows)."""
-    if act != "gelu":
-        raise ValueError(f"the backward kernels have exact GELU only; "
-                         f"act={act!r} is not yet ported")
     lead, e = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, e)
     g_res = g.reshape(-1, e)
@@ -205,11 +216,11 @@ def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
     z1 = _bwd.rank_z(xa, u1)
     pre, h = _bwd.gemm(_bwd.NN, _bwd.EPI_PRE_GELU, xa, w1, bias1=b1,
                        bias2=_bwd.scaled(cb1, s), a2=z1,
-                       b2=_bwd.scaled(v1, s))
+                       b2=_bwd.scaled(v1, s), act=act)
     g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, lead))
     dprec, colpart, gv2 = _bwd.gemm(
         _bwd.NT, _bwd.EPI_DGELU, g2, w2, aux=pre,
-        b2=_bwd.pad_cols8(_bwd.scaled(u2, s)), fold_v=v2)
+        b2=_bwd.pad_cols8(_bwd.scaled(u2, s)), fold_v=v2, act=act)
     del pre
     ds1 = _bwd.colsum(colpart)
     ds2 = _bwd.colsum(g2)
@@ -236,16 +247,13 @@ def _mlp_block_bwd_saved_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
 
     ``ln_rows`` xa = LN2(x); rank product z1 = bf16(xa U1);
     ``gate_colsum`` g2 = bf16(g dpm) and ds2 in one pass; NT DGELU_H +
-    folded rank step dpre = (g2 W2^T + s gv2 U2^T) gelu'(pre), bf16, its
-    column sums, gv2 = bf16(g2 V2^T) and h = bf16(gelu(pre)), all from the
+    folded rank step dpre = (g2 W2^T + s gv2 U2^T) act'(pre), bf16, its
+    column sums, gv2 = bf16(g2 V2^T) and h = bf16(act(pre)), all from the
     saved bf16 ``pre`` (no fc1 recompute); ``colsum`` ds1; NT + folded
     rank step dxa = dpre W1^T + s gv1 U1^T (fp32) and gv1;
     ``ln_bwd_residual`` dx; rank product z2 = bf16(h U2); the four split
     TN factor products.  The six small gradients land in one fp32 buffer,
     scaled and cast to x's dtype in one step."""
-    if act != "gelu":
-        raise ValueError(f"the backward kernels have exact GELU only; "
-                         f"act={act!r} is not yet ported")
     lead, e = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, e)
     g_res = g.reshape(-1, e)
@@ -261,7 +269,7 @@ def _mlp_block_bwd_saved_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
                           ds=ds2)
     dprec, colpart, h, gv2 = _bwd.gemm(
         _bwd.NT, _bwd.EPI_DGELU_H, g2, w2, aux=pre.reshape(m, hid),
-        b2=_bwd.pad_cols8(_bwd.scaled(u2, s)), fold_v=v2)
+        b2=_bwd.pad_cols8(_bwd.scaled(u2, s)), fold_v=v2, act=act)
     _bwd.colsum(colpart, out=ds1)
     dxa, gv1 = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1,
                          b2=_bwd.pad_cols8(_bwd.scaled(u1, s)), fold_v=v1)
@@ -285,7 +293,6 @@ class _MlpBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                 ln_bias, dpm, s, act, ln_eps, plain, save):
-        global LAUNCHES
         args = (x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                 ln_bias, dpm, s, act, ln_eps)
         if plain:
@@ -293,7 +300,7 @@ class _MlpBlock(torch.autograd.Function):
             pre = pre.to(x.dtype) if save else None
         else:
             out, pre = _mlp_block_cuda(*args, save_pre=save)
-            LAUNCHES += 1
+            _count("LAUNCHES", act)
         ctx.save_for_backward(x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
                               ln_bias, dpm, pre)
         ctx.cfg = (s, act, ln_eps, plain)
@@ -302,7 +309,6 @@ class _MlpBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global BWD_LAUNCHES, BWD_SAVED_LAUNCHES
         s, act, ln_eps, plain = ctx.cfg
         *saved, pre = ctx.saved_tensors
         args = (g.contiguous(), *saved, s, act, ln_eps)
@@ -310,10 +316,10 @@ class _MlpBlock(torch.autograd.Function):
             grads = cp_mlp_block_bwd_plain(*args, pre=pre)
         elif pre is not None:
             grads = _mlp_block_bwd_saved_cuda(*args, pre)
-            BWD_SAVED_LAUNCHES += 1
+            _count("BWD_SAVED_LAUNCHES", act)
         else:
             grads = _mlp_block_bwd_cuda(*args)
-            BWD_LAUNCHES += 1
+            _count("BWD_LAUNCHES", act)
         du1, dv1, dcb1, du2, dv2, dcb2 = (
             t.to(dt) for t, dt in zip(grads[1:], ctx.dtypes))
         return (grads[0], None, None, du1, dv1, dcb1, None, None, du2, dv2,
@@ -398,14 +404,11 @@ def _mlp_block_wd_bwd_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
     """The backward on CUDA tensors, as launches (M rows, hidden H):
 
     ``ln_rows`` xa = LN2(x); NN ``grad_gemm`` pre = xa w1' + b1 + cb1
-    (fp32) and h = bf16(gelu(pre)); ``gate_rows`` g2 = bf16(g * dpm); NT
-    dpre = (g2 w2'^T) gelu'(pre), bf16, with its fp32 column sums per
+    (fp32) and h = bf16(act(pre)); ``gate_rows`` g2 = bf16(g * dpm); NT
+    dpre = (g2 w2'^T) act'(pre), bf16, with its fp32 column sums per
     block; ``colsum`` ds1 and ds2; NT dxa = dpre w1'^T (fp32);
     ``ln_bwd_residual`` dx; TN dT1 = xa^T dpre and dT2 = h^T g2;
     ``wd_factor_grads`` on both."""
-    if act != "gelu":
-        raise ValueError(f"the backward kernels have exact GELU only; "
-                         f"act={act!r} is not yet ported")
     if s != 1.0:
         raise ValueError("the pre-activation epilogue adds cb1 unscaled; "
                          "fold the delta scale into cb1 and pass s=1.0")
@@ -415,9 +418,10 @@ def _mlp_block_wd_bwd_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
     m, hid = x2.shape[0], w1p.shape[1]
     xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)
     pre, h = _bwd.gemm(_bwd.NN, _bwd.EPI_PRE_GELU, xa, w1p, bias1=b1,
-                       bias2=cb1)
+                       bias2=cb1, act=act)
     g2 = _bwd.gate_rows(g_res, _dpm_rows(dpm, lead))
-    dprec, colpart = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU, g2, w2p, aux=pre)
+    dprec, colpart = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU, g2, w2p, aux=pre,
+                               act=act)
     del pre
     ds1 = _bwd.colsum(colpart)
     ds2 = _bwd.colsum(g2)
@@ -439,15 +443,12 @@ def _mlp_block_wd_bwd_saved_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
     as launches (M rows, hidden H):
 
     ``ln_rows`` xa = LN2(x); ``gate_colsum`` g2 = bf16(g * dpm) and ds2;
-    NT DGELU_H dpre = (g2 w2'^T) gelu'(pre), bf16, its column sums and h
-    = bf16(gelu(pre)), from the saved bf16 ``pre`` (no fc1 recompute);
+    NT DGELU_H dpre = (g2 w2'^T) act'(pre), bf16, its column sums and h
+    = bf16(act(pre)), from the saved bf16 ``pre`` (no fc1 recompute);
     ``colsum`` ds1; NT dxa = dpre w1'^T (fp32); ``ln_bwd_residual`` dx; TN
     dT1 = xa^T dpre and dT2 = h^T g2; ``wd_factor_grads`` on both.  The
     six small gradients land in one fp32 buffer, cast to x's dtype in one
     step."""
-    if act != "gelu":
-        raise ValueError(f"the backward kernels have exact GELU only; "
-                         f"act={act!r} is not yet ported")
     lead, e = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, e)
     g_res = g.reshape(-1, e)
@@ -460,7 +461,7 @@ def _mlp_block_wd_bwd_saved_cuda(g, x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
     g2 = _bwd.gate_colsum(g_res, *_bwd.gate_vector(dpm, lead, x.dtype),
                           ds=ds2)
     dprec, colpart, h = _bwd.gemm(_bwd.NT, _bwd.EPI_DGELU_H, g2, w2p,
-                                  aux=pre.reshape(m, hid))
+                                  aux=pre.reshape(m, hid), act=act)
     _bwd.colsum(colpart, out=ds1)
     dxa = _bwd.gemm(_bwd.NT, _bwd.EPI_F32, dprec, w1p)
     dx = _bwd.ln_bwd_residual(x2, dxa, ln_scale, g_res, ln_eps)
@@ -488,7 +489,6 @@ class _MlpBlockWd(torch.autograd.Function):
     def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                 ln_bias, dpm, seed1, seed2, s, rate, act, ln_eps, plain,
                 save):
-        global LAUNCHES
         fold = (wd_fold.build_wd_weight_plain if plain
                 else wd_fold.build_wd_weight)
         w1p = fold(w1, u1, v1, seed1, s, rate)
@@ -502,7 +502,7 @@ class _MlpBlockWd(torch.autograd.Function):
             pre = pre.to(x.dtype) if save else None
         else:
             out, pre = _mlp_block_cuda(*args, save_pre=save)
-            LAUNCHES += 1
+            _count("LAUNCHES", act)
         ctx.save_for_backward(x, w1p, b1, cb1, w2p, u1, v1, u2, v2,
                               ln_scale, ln_bias, dpm, seed1, seed2, pre)
         ctx.cfg = (s, rate, act, ln_eps, plain)
@@ -510,7 +510,6 @@ class _MlpBlockWd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global WD_BWD_LAUNCHES, WD_BWD_SAVED_LAUNCHES
         (x, w1p, b1, cb1, w2p, u1, v1, u2, v2, ls, lb, dpm, seed1,
          seed2, pre) = ctx.saved_tensors
         s, rate, act, ln_eps, plain = ctx.cfg
@@ -520,10 +519,10 @@ class _MlpBlockWd(torch.autograd.Function):
             grads = cp_mlp_block_wd_bwd_plain(*args, pre=pre)
         elif pre is not None:
             grads = _mlp_block_wd_bwd_saved_cuda(*args, pre)
-            WD_BWD_SAVED_LAUNCHES += 1
+            _count("WD_BWD_SAVED_LAUNCHES", act)
         else:
             grads = _mlp_block_wd_bwd_cuda(*args)
-            WD_BWD_LAUNCHES += 1
+            _count("WD_BWD_LAUNCHES", act)
         dx, du1, dv1, dcb1, du2, dv2, dcb2 = grads
         return (dx, None, None, du1.to(u1.dtype), dv1.to(v1.dtype),
                 dcb1.to(cb1.dtype), None, None, du2.to(u2.dtype),

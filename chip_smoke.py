@@ -142,7 +142,25 @@ fatal on failure:
    one setup, with the peak memory of each, and two such steps of each
    route at 384 px (rows 10 and 11's recompute forms at N 577).
    Serving writes no saved residual.  Every training phase prints its
-   peak memory.
+   peak memory;
+14. CLIP ViT-L/14 (``vit_large_patch14_224_clip``: 24 layers, E 1024, 16
+   heads, hidden 4096, 257 tokens, ``ln_pre``, LayerNorm eps 1e-5, a
+   768-wide projection before the 10-class head, quick_gelu in every MLP
+   block) at full width and depth, run after 9 (``clip_phase``): the
+   quick_gelu forms' entries (``QUICK_FORMS``: rows 9, 10 and 11 whole in
+   the saved forms, row 13's body and dact, the fc1 site with and
+   without its pre output and its dact, ``grad_gemm.cu``'s ``DGELU_H``,
+   ``PRE_GELU`` and ``DGELU``) at M = 64 x 257, K 1024 / N 4096 and K
+   4096 / N 1024, and row 19 with quick_gelu at phase 3's ViT-B shapes,
+   each against its fp32 plain version (run with phase 3's); then CLIP
+   served merged and unmerged as in 4, trained on the element and rank
+   routes as in 5 and 6 (gradient check at batch 16, 14 timed steps at
+   batch 64, peak memory), two steps of each with both saved-residual
+   switches "0", two rank steps with ``dropout_rate`` 0.1 (row 13's
+   quick_gelu body), and ``cli.vit_cp --model vit_large_patch14_224_clip``
+   in a child; the quick_gelu forms launch, the GELU forms never, and the
+   recompute forms only with the switches "0"; last, ViT-B served
+   unmerged with quick_gelu, every block through row 19.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -158,6 +176,7 @@ line is ``{"ok": true, "device": {...}}``.
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
 at 384 px (at 224 px also with both saved-residual switches "0"), of
+the same two routes of CLIP ViT-L/14, of
 full fine-tuning and the linear probe at 224 px, of the element and
 rank routes with activation dropout 0.1 at 224 px, and of
 the rank route under each attention-block switch (``torch.profiler``),
@@ -205,7 +224,7 @@ from cara_tpu_torch.ops.cuda import cp_mlp as mlp_mod
 from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
-from cara_tpu_torch.ops.layers import activation_grad, layer_norm
+from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 from cara_tpu_torch.server import InferenceServer
 from cara_tpu_torch.serving import Predictor
 from cara_tpu_torch.train import steps as steps_lib
@@ -556,6 +575,63 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
               "cp_site_fc2_res": (2e-2, 2e-2),
               "cp_site_fc1_dact": (5e-2, 5e-2),
               "cp_site_fc1_ln_gelu_pre": (2e-2, 2e-2)}
+# CLIP ViT-L/14 (24 layers, E 1024, 16 heads, hidden 4096, 257 tokens,
+# ln_pre, LayerNorm eps 1e-5, a 768-wide projection) runs its MLP blocks
+# with quick_gelu, y sigmoid(1.702 y): the quick_gelu forms of rows 9,
+# 10, 11, 13 and 19, each an entry of its own -> (its GELU twin, whose
+# module, source, TPU kernel, tolerance and work it shares; the counter
+# of its own form).  Launches: the CLIP phases (row 19's: the unmerged
+# ViT-B forward with quick_gelu through it, its E <= 768).
+MODEL_CLIP = "vit_large_patch14_224_clip"
+QUICK_FORMS = {
+    "cp_mlp_block_quick": ("cp_mlp_block", "QUICK_LAUNCHES"),
+    "cp_mlp_block_bwd_saved_quick": ("cp_mlp_block_bwd_saved",
+                                     "QUICK_BWD_SAVED_LAUNCHES"),
+    "cp_mlp_block_wd_bwd_saved_quick": ("cp_mlp_block_wd_bwd_saved",
+                                        "QUICK_WD_BWD_SAVED_LAUNCHES"),
+    "cp_dense_quick_gelu": ("cp_dense_gelu", "QUICK_ACT_LAUNCHES"),
+    "cp_dense_quick_dact": ("cp_dense_dact", "QUICK_DACT_LAUNCHES"),
+    "cp_site_fc1_ln_quick_gelu": ("cp_site_fc1_ln_gelu",
+                                  "LAUNCHES_QUICK_GELU"),
+    "cp_site_fc1_ln_quick_gelu_pre": (SAVE_PRE_SITE,
+                                      "LAUNCHES_QUICK_GELU_PRE"),
+    "cp_site_fc1_quick_dact": ("cp_site_fc1_dact", "LAUNCHES_QUICK_DACT"),
+    "grad_gemm_nn_pre_quick_gelu": ("grad_gemm_nn_pre_gelu",
+                                    "LAUNCHES_NN_PRE_QUICK_GELU"),
+    "grad_gemm_nt_dquick_gelu": ("grad_gemm_nt_dgelu",
+                                 "LAUNCHES_NT_DQUICK_GELU"),
+    "grad_gemm_nt_dquick_gelu_h": ("grad_gemm_nt_dgelu_h",
+                                   "LAUNCHES_NT_DQUICK_GELU_H"),
+    "block_pair_fwd_quick": ("block_pair_fwd", "QUICK_LAUNCHES"),
+}
+for _name, (_twin, _counter) in QUICK_FORMS.items():
+    KERNELS[_name] = (KERNELS[_twin][0], _counter) + KERNELS[_twin][2:]
+    KERNEL_TOL[_name] = KERNEL_TOL[_twin]
+# The GELU forms, none of which a CLIP phase may launch.
+GELU_FORMS = tuple(twin for twin, _ in QUICK_FORMS.values())
+# The quick_gelu entries' GELU twin names at CLIP's shapes (the kernel
+# phase builds them as the twins, then renames them).
+QUICK_ENTRIES = {twin: name for name, (twin, _) in QUICK_FORMS.items()}
+# The recompute forms' quick_gelu products, which the default CLIP routes
+# must not launch; the saved forms, which the recompute steps must not.
+QUICK_RECOMPUTE = ("grad_gemm_nn_pre_quick_gelu", "grad_gemm_nt_dquick_gelu")
+QUICK_SAVED = ("cp_attn_block_wd_bwd_saved", "cp_mlp_block_bwd_saved_quick",
+               "cp_mlp_block_wd_bwd_saved_quick",
+               "cp_site_fc1_ln_quick_gelu_pre")
+CLIP_SERVING_KERNELS = ("fused_qkv_attention", "cp_attn_block",
+                        "cp_mlp_block_quick", "cp_site_fc1_ln_quick_gelu")
+CLIP_ELEMENT_KERNELS = ("build_wd_weight", "cp_attn_block_wd",
+                        "cp_attn_block_wd_bwd_saved",
+                        "cp_mlp_block_wd_bwd_saved_quick",
+                        "cp_site_fc1_ln_quick_gelu_pre",
+                        "grad_gemm_nt_dquick_gelu_h")
+CLIP_RANK_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
+                     "fused_qkv_attention_bwd", "cp_mlp_block_quick",
+                     "cp_mlp_block_bwd_saved_quick",
+                     "cp_site_fc1_ln_quick_gelu_pre",
+                     "grad_gemm_nt_dquick_gelu_h")
+CLIP_DROPOUT_KERNELS = ("cp_dense_quick_gelu", "cp_dense_quick_dact",
+                        "cp_site_fc1_quick_dact")
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -615,11 +691,13 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_inputs(dev, b=64, n=197, e=768, heads=12, hidden=3072, r=8,
-                  seed=0, n_real=None, zero_gates=2):
+                  seed=0, n_real=None, zero_gates=2, act="gelu", eps=1e-6):
     """bf16 inputs at the main path's shapes, from a seeded generator;
     keys at or past ``n_real`` (default ``n``) are masked.  The training
     kernels get drop-path gates ``1/(1-p)`` with the first ``zero_gates``
-    images dropped, four int32 mask seeds and output cotangents."""
+    images dropped, four int32 mask seeds and output cotangents.  ``act``
+    and ``eps`` are the MLP entries' activation and LayerNorm eps (CLIP:
+    "quick_gelu", 1e-5)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
 
@@ -633,7 +711,7 @@ def kernel_inputs(dev, b=64, n=197, e=768, heads=12, hidden=3072, r=8,
                           device=dev, dtype=torch.int32)
     return dict(
         b=b, n=n, n_real=n if n_real is None else n_real, e=e, heads=heads,
-        sm=(e // heads) ** -0.5,
+        sm=(e // heads) ** -0.5, act=act, eps=eps,
         qkv=rnd(b, n, 3 * e, std=0.6),
         attn=dict(x=rnd(b, n, e), wq=rnd(e, 3 * e, std=0.02),
                   bq=rnd(3 * e, std=0.02), u1=rnd(e, r, std=0.05),
@@ -710,24 +788,19 @@ def kernel_calls(inp):
     """name -> (kernel call, plain call on the same inputs, fp32 plain);
     each returns a tensor or a dict of tensors."""
     h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
-    a, m = inp["attn"], inp["mlp"]
+    a = inp["attn"]
     a32 = {k: v.float() for k, v in a.items()}
-    m32 = {k: v.float() for k, v in m.items()}
-    an, mn = ATTN_ARGS, MLP_ARGS
+    an = ATTN_ARGS
     qkv = inp["qkv"]
-    s1, s2, s3, s4 = inp["seeds"]
+    s1, s2 = inp["seeds"][:2]
     rate = DROP_RATE
     folds = _fold_sites(inp)
     aw = dict(a, dpm=inp["gates"])
-    mw = dict(m, dpm=inp["gates"].reshape(-1, 1, 1))
     aw32 = {k: v.float() for k, v in aw.items()}
 
     def attn_wd(*args, impl="auto"):
         return attn_mod.cp_attn_block_wd(*args, s1, s2, h, sm, n, 1.0, rate,
                                          impl=impl)
-
-    def mlp_wd(*args, impl="auto"):
-        return mlp_mod.cp_mlp_block_wd(*args, s3, s4, 1.0, rate, impl=impl)
 
     # The block backwards' forwards run here, with the saved-residual
     # switches "0" (the recompute forms) or "1" (the saved forms and their
@@ -737,12 +810,6 @@ def kernel_calls(inp):
             return _grad_call(
                 lambda t: attn_wd(*(t[k] for k in an), impl=impl), aw,
                 ATTN_DIFF, inp["g_attn"], dtype)
-
-    def mlp_bwd(impl, dtype, save="0"):
-        with save_switch(save):
-            return _grad_call(
-                lambda t: mlp_wd(*(t[k] for k in mn), impl=impl), mw,
-                MLP_DIFF, inp["g_mlp"], dtype)
 
     # The split path's two dense sites: qkv (LN prologue, no cb) on x and
     # the projection on an attention output o.
@@ -763,15 +830,8 @@ def kernel_calls(inp):
         return _grad_call(lambda t: dense_sites(t, impl), dense, DENSE_DIFF,
                           (inp["g_qkv"], inp["g_attn"]), dtype)
 
-    def mlp_block_bwd(impl, dtype, save="0"):
-        with save_switch(save):
-            return _grad_call(
-                lambda t: mlp_mod.cp_mlp_block(*(t[k] for k in mn),
-                                               impl=impl),
-                mw, MLP_DIFF, inp["g_mlp"], dtype)
-
     bf, f32 = torch.bfloat16, torch.float32
-    return {
+    return {**mlp_kernel_calls(inp),
         "fused_qkv_attention": (
             lambda: fqa_mod.fused_qkv_attention(qkv, h, sm, n),
             lambda: fqa_mod.fused_qkv_attention_plain(qkv, h, sm, n),
@@ -783,10 +843,6 @@ def kernel_calls(inp):
                                                  n),
             lambda: attn_mod.cp_attn_block_plain(*(a32[k] for k in an), h,
                                                  sm, n)),
-        "cp_mlp_block": (
-            lambda: mlp_mod.cp_mlp_block(*(m[k] for k in mn)),
-            lambda: mlp_mod.cp_mlp_block_plain(*(m[k] for k in mn)),
-            lambda: mlp_mod.cp_mlp_block_plain(*(m32[k] for k in mn))),
         "build_wd_weight": (
             lambda: {k: wd_fold.build_wd_weight(w, u, v, sd, 1.0, rate)
                      for k, (w, u, v, sd) in folds.items()},
@@ -803,26 +859,67 @@ def kernel_calls(inp):
                 *(aw32[k] for k in an), s1, s2, h, sm, n, 1.0, rate)),
         "cp_attn_block_wd_bwd": (attn_bwd("auto", bf), attn_bwd("plain", bf),
                                  attn_bwd("plain", torch.float32)),
-        "cp_mlp_block_wd_bwd": (mlp_bwd("auto", bf), mlp_bwd("plain", bf),
-                                mlp_bwd("plain", torch.float32)),
         "cp_dense": (dense_fwd("auto", bf), dense_fwd("plain", bf),
                      dense_fwd("plain", torch.float32)),
         "cp_dense_dx": (dense_bwd("auto", bf), dense_bwd("plain", bf),
                         dense_bwd("plain", torch.float32)),
         "fused_qkv_attention_bwd": row2_bwd_calls(inp),
-        "cp_mlp_block_bwd": (mlp_block_bwd("auto", bf),
-                             mlp_block_bwd("plain", bf),
-                             mlp_block_bwd("plain", torch.float32)),
         "cp_attn_block_wd_bwd_saved": (
             attn_bwd("auto", bf, "1"), attn_bwd("plain", bf, "1"),
             attn_bwd("plain", f32, "1")),
-        "cp_mlp_block_wd_bwd_saved": (
+    }
+
+
+def mlp_kernel_calls(inp, names=None):
+    """:func:`kernel_calls`' entries of the MLP block (rows 9, 10 and 11,
+    the backwards in both residual forms) with ``inp``'s activation and
+    LayerNorm eps; ``names`` picks some (their backwards' forwards run
+    as the calls are made)."""
+    m = inp["mlp"]
+    m32 = {k: v.float() for k, v in m.items()}
+    mn = MLP_ARGS
+    s3, s4 = inp["seeds"][2:]
+    kw = dict(act=inp["act"], ln_eps=inp["eps"])
+    mw = dict(m, dpm=inp["gates"].reshape(-1, 1, 1))
+
+    def mlp_wd(*args, impl="auto"):
+        return mlp_mod.cp_mlp_block_wd(*args, s3, s4, 1.0, DROP_RATE,
+                                       impl=impl, **kw)
+
+    def mlp_bwd(impl, dtype, save="0"):
+        with save_switch(save):
+            return _grad_call(
+                lambda t: mlp_wd(*(t[k] for k in mn), impl=impl), mw,
+                MLP_DIFF, inp["g_mlp"], dtype)
+
+    def mlp_block_bwd(impl, dtype, save="0"):
+        with save_switch(save):
+            return _grad_call(
+                lambda t: mlp_mod.cp_mlp_block(*(t[k] for k in mn),
+                                               impl=impl, **kw),
+                mw, MLP_DIFF, inp["g_mlp"], dtype)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    makers = {
+        "cp_mlp_block": lambda: (
+            lambda: mlp_mod.cp_mlp_block(*(m[k] for k in mn), **kw),
+            lambda: mlp_mod.cp_mlp_block_plain(*(m[k] for k in mn), **kw),
+            lambda: mlp_mod.cp_mlp_block_plain(*(m32[k] for k in mn),
+                                               **kw)),
+        "cp_mlp_block_wd_bwd": lambda: (
+            mlp_bwd("auto", bf), mlp_bwd("plain", bf), mlp_bwd("plain", f32)),
+        "cp_mlp_block_bwd": lambda: (
+            mlp_block_bwd("auto", bf), mlp_block_bwd("plain", bf),
+            mlp_block_bwd("plain", f32)),
+        "cp_mlp_block_wd_bwd_saved": lambda: (
             mlp_bwd("auto", bf, "1"), mlp_bwd("plain", bf, "1"),
             mlp_bwd("plain", f32, "1")),
-        "cp_mlp_block_bwd_saved": (
+        "cp_mlp_block_bwd_saved": lambda: (
             mlp_block_bwd("auto", bf, "1"), mlp_block_bwd("plain", bf, "1"),
             mlp_block_bwd("plain", f32, "1")),
     }
+    return {k: make() for k, make in makers.items()
+            if names is None or k in names}
 
 
 def row2_bwd_calls(inp):
@@ -924,6 +1021,7 @@ def gelu_kernel_calls(inp):
     on the kernels' fold of the same seed)."""
     m = inp["mlp"]
     e, hid = inp["e"], m["w1"].shape[1]
+    act, eps = inp["act"], inp["eps"]
     s3 = inp["seeds"][2]
     rate = DROP_RATE
     x2 = m["x"].reshape(-1, e)
@@ -932,17 +1030,18 @@ def gelu_kernel_calls(inp):
     wp = wd_fold.build_wd_weight(m["w1"], m["u1"], m["v1"], s3, 1.0, rate)
 
     def ln(dtype):
-        return (m["ln_scale"].to(dtype), m["ln_bias"].to(dtype), 1e-6)
+        return (m["ln_scale"].to(dtype), m["ln_bias"].to(dtype), eps)
 
     def fwd(dtype, impl, wd):
         t = {k: m[k].to(dtype) for k in ("x", "ln_scale", "ln_bias") + site}
         args = (t["x"],) + tuple(t[k] for k in site)
         if wd:
             return lambda: dense_mod.cp_dense_ln_wd(
-                *args, t["ln_scale"], t["ln_bias"], s3, 1.0, rate,
-                impl=impl, act="gelu")
+                *args, t["ln_scale"], t["ln_bias"], s3, 1.0, rate, eps,
+                impl=impl, act=act)
         return lambda: dense_mod.cp_dense_ln(
-            *args, t["ln_scale"], t["ln_bias"], impl=impl, act="gelu")
+            *args, t["ln_scale"], t["ln_bias"], ln_eps=eps, impl=impl,
+            act=act)
 
     def dact(dtype, impl, wd):
         if wd:
@@ -952,8 +1051,8 @@ def gelu_kernel_calls(inp):
         args = [t.to(dtype) for t in (g2, x2, w, m["b1"], u, v, m["cb1"])]
         if impl == "plain":
             return lambda: dense_mod.cp_dense_dact_plain(*args, 1.0,
-                                                         ln(dtype))
-        return lambda: dense_mod.cp_dense_dact(*args, 1.0, ln(dtype))
+                                                         ln(dtype), act)
+        return lambda: dense_mod.cp_dense_dact(*args, 1.0, ln(dtype), act)
 
     bf, f32 = torch.bfloat16, torch.float32
     out = {}
@@ -1153,7 +1252,8 @@ def split_halves(inp, args):
     b = args[0].shape[0]
     ones = args[0].new_ones((b, 1))
     xm = attn_mod.cp_attn_block(*args[:12], ones, h, sm, n)
-    return mlp_mod.cp_mlp_block(xm, *args[12:], ones.reshape(b, 1, 1))
+    return mlp_mod.cp_mlp_block(xm, *args[12:], ones.reshape(b, 1, 1),
+                                act=inp["act"])
 
 
 def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
@@ -1162,8 +1262,12 @@ def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
     max |difference| within twice the forward tolerance (each is within
     it of the fp32 reference).  No PyTorch call computes a block, so the
     entry's ``library_ms`` is None; ``split_ms`` is the split halves'
-    time, its yardstick."""
+    time, its yardstick.  With ``inp["act"]`` "quick_gelu" the entry is
+    ``block_pair_fwd_quick``."""
     h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    act = inp["act"]
+    name = QUICK_ENTRIES["block_pair_fwd"] if act != "gelu" \
+        else "block_pair_fwd"
     args = pair_args(inp)
     args32 = tuple(t.float() for t in args)
     a, m = inp["attn"], inp["mlp"]
@@ -1176,32 +1280,33 @@ def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
     weights = sum(2 * t.numel() for t in args[1:])
     # the two halves' products; x read and y written (qkv, the attention
     # output, x_mid and h are the kernels' own)
-    work = {"block_pair_fwd": (
+    work = {name: (
         site(e, 3 * e) + 4 * inp["b"] * inp["n"] * n * e + site(e, e)
         + site(e, hid) + site(hid, e), 2 * rows * e * 2 + weights)}
-    print(f"[kernel] block_pair_fwd (row 19) at B {inp['b']}, N "
+    print(f"[kernel] {name} (row 19, {act}) at B {inp['b']}, N "
           f"{inp['n']}, E {e}, H {h}, hidden {hid}:", flush=True)
     out = check_entries(
-        dev, inp, {"block_pair_fwd": (
-            lambda: pair_mod.block_pair_fwd(*args, h, sm, n, 1.0),
-            lambda: pair_mod.block_pair_fwd_plain(*args, h, sm, n, 1.0),
-            lambda: pair_mod.block_pair_fwd_plain(*args32, h, sm, n, 1.0))},
+        dev, inp, {name: (
+            lambda: pair_mod.block_pair_fwd(*args, h, sm, n, 1.0, act=act),
+            lambda: pair_mod.block_pair_fwd_plain(*args, h, sm, n, 1.0, act),
+            lambda: pair_mod.block_pair_fwd_plain(*args32, h, sm, n, 1.0,
+                                                  act))},
         timed, work=work, library={})
-    got = pair_mod.block_pair_fwd(*args, h, sm, n, 1.0).float()
+    got = pair_mod.block_pair_fwd(*args, h, sm, n, 1.0, act=act).float()
     ref = split_halves(inp, args).float()
-    atol, rtol = KERNEL_TOL["block_pair_fwd"]
+    atol, rtol = KERNEL_TOL[name]
     err = (got - ref).abs()
     excess = (err - 2 * (atol + rtol * ref.abs())).max().item()
-    print(f"[kernel] block_pair_fwd vs the split halves (rows 5 + 9): "
+    print(f"[kernel] {name} vs the split halves (rows 5 + 9): "
           f"max|diff| {err.max().item():.3e}, tolerance 2 x (atol {atol} "
           f"+ rtol {rtol}*|ref|) ({'ok' if excess <= 0 else 'MISS'})",
           flush=True)
-    require(excess <= 0, "block_pair_fwd disagrees with the split halves")
+    require(excess <= 0, f"{name} disagrees with the split halves")
     split_ms = median_ms(lambda: split_halves(inp, args)) if timed else None
     if timed:
-        print(f"[kernel] block_pair_fwd: split halves (rows 5 + 9) "
+        print(f"[kernel] {name}: split halves (rows 5 + 9) "
               f"{split_ms:.4f} ms", flush=True)
-    out["block_pair_fwd"]["split_ms"] = split_ms
+    out[name]["split_ms"] = split_ms
     return out
 
 
@@ -1212,18 +1317,18 @@ def gemm_operands(inp) -> dict:
     = the cotangent, dpre = bf16((g2 W2^T) gelu'(pre)), and W1, b1, cb1,
     W2."""
     m = inp["mlp"]
-    e = inp["e"]
+    e, act = inp["e"], inp["act"]
     bf = torch.bfloat16
     xa = layer_norm(m["x"].reshape(-1, e).float(), m["ln_scale"].float(),
-                    m["ln_bias"].float(), 1e-6).to(bf)
+                    m["ln_bias"].float(), inp["eps"]).to(bf)
     pre = (xa.float() @ m["w1"].float() + m["b1"].float()
            + m["cb1"].float())
     g2 = inp["g_mlp"].reshape(-1, e)
     dpre = ((g2.float() @ m["w2"].float().t())
-            * activation_grad(pre, "gelu")).to(bf)
-    return dict(xa=xa, pre=pre, pre16=pre.to(bf), h=F.gelu(pre).to(bf),
-                g2=g2, dpre=dpre, w1=m["w1"], b1=m["b1"], cb1=m["cb1"],
-                w2=m["w2"])
+            * activation_grad(pre, act)).to(bf)
+    return dict(xa=xa, pre=pre, pre16=pre.to(bf),
+                h=activation(pre, act).to(bf), g2=g2, dpre=dpre, w1=m["w1"],
+                b1=m["b1"], cb1=m["cb1"], w2=m["w2"], act=act)
 
 
 def gemm_kernel_calls(inp, o):
@@ -1235,25 +1340,26 @@ def gemm_kernel_calls(inp, o):
     e, hid = o["w1"].shape
     rows = o["xa"].shape[0]
     blocks = -(-rows // 128)
+    act = o["act"]
 
     def cast(dtype):
-        return {k: v.to(dtype) if v.dtype == torch.bfloat16 else v
-                for k, v in o.items()}
+        return {k: v.to(dtype) if isinstance(v, torch.Tensor)
+                and v.dtype == torch.bfloat16 else v for k, v in o.items()}
 
     def pre_gelu(t):
         pre = (t["xa"] @ t["w1"]).float() + t["b1"].float() + t["cb1"].float()
-        return {"pre": pre, "out": F.gelu(pre).to(t["xa"].dtype)}
+        return {"pre": pre, "out": activation(pre, act).to(t["xa"].dtype)}
 
     def dgelu(t, key="pre"):
         dpre = (t["g2"] @ t["w2"].t()).float() * activation_grad(
-            t[key].float(), "gelu")
+            t[key].float(), act)
         pad = F.pad(dpre, (0, 0, 0, blocks * 128 - rows))
         return {"out": dpre.to(t["g2"].dtype),
                 "colpart": pad.reshape(blocks, 128, hid).sum(1)}
 
     def dgelu_h(t):  # on the saved bf16 pre, h = gelu(pre) beside dpre
         return dict(dgelu(t, "pre16"),
-                    h=F.gelu(t["pre16"].float()).to(t["g2"].dtype))
+                    h=activation(t["pre16"].float(), act).to(t["g2"].dtype))
 
     def tn(a, b):
         return {"out": _bwd.gemm(_bwd.TN, _bwd.EPI_F32, a, b,
@@ -1273,13 +1379,14 @@ def gemm_kernel_calls(inp, o):
     kernel = {
         "grad_gemm_nn_pre_gelu": lambda: dict(zip(("pre", "out"), _bwd.gemm(
             _bwd.NN, _bwd.EPI_PRE_GELU, o["xa"], o["w1"], bias1=o["b1"],
-            bias2=o["cb1"]))),
+            bias2=o["cb1"], act=act))),
         "grad_gemm_nt_dgelu": lambda: dict(zip(("out", "colpart"), _bwd.gemm(
-            _bwd.NT, _bwd.EPI_DGELU, o["g2"], o["w2"], aux=o["pre"]))),
+            _bwd.NT, _bwd.EPI_DGELU, o["g2"], o["w2"], aux=o["pre"],
+            act=act))),
         "grad_gemm_nt_dgelu_h": lambda: dict(zip(
             ("out", "colpart", "h"), _bwd.gemm(
                 _bwd.NT, _bwd.EPI_DGELU_H, o["g2"], o["w2"],
-                aux=o["pre16"]))),
+                aux=o["pre16"], act=act))),
         "grad_gemm_nt_dxa": lambda: {"out": _bwd.gemm(
             _bwd.NT, _bwd.EPI_F32, o["dpre"], o["w1"])},
         "grad_gemm_tn_dt1": lambda: tn(o["xa"], o["dpre"]),
@@ -1331,8 +1438,9 @@ def site_operands(inp) -> dict:
     x_attn, x_mlp = a["x"].reshape(-1, e), m["x"].reshape(-1, e)
     dpm = inp["gates"].float().expand(b, n).reshape(-1).contiguous()
     hidden = inp["g_hid"].reshape(-1, hid)
-    ln1 = (a["ln_scale"], a["ln_bias"], 1e-6)
-    ln2 = (m["ln_scale"], m["ln_bias"], 1e-6)
+    ln1 = (a["ln_scale"], a["ln_bias"], inp["eps"])
+    ln2 = (m["ln_scale"], m["ln_bias"], inp["eps"])
+    act = inp["act"]
     fc1 = (x_mlp, m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"],
            SITE_SCALE)
     return {
@@ -1341,12 +1449,12 @@ def site_operands(inp) -> dict:
         "cp_site_proj_res": ((inp["o"].reshape(-1, e), a["wp"], a["bp"],
                               a["u2"], a["v2"], a["cb2"], SITE_SCALE),
                              dict(res=x_attn, dpm_rows=dpm)),
-        "cp_site_fc1_ln_gelu": (fc1, dict(ln=ln2, gelu=True)),
+        "cp_site_fc1_ln_gelu": (fc1, dict(ln=ln2, act=act)),
         "cp_site_fc2_res": ((hidden, m["w2"], m["b2"], m["u2"], m["v2"],
                              m["cb2"], SITE_SCALE),
                             dict(res=x_mlp, dpm_rows=dpm)),
-        "cp_site_fc1_dact": (fc1, dict(ln=ln2, dact_g=hidden)),
-        SAVE_PRE_SITE: (fc1, dict(ln=ln2, gelu=True, return_pre=True)),
+        "cp_site_fc1_dact": (fc1, dict(ln=ln2, act=act, dact_g=hidden)),
+        SAVE_PRE_SITE: (fc1, dict(ln=ln2, act=act, return_pre=True)),
     }
 
 
@@ -1374,7 +1482,7 @@ def site_kernel_calls(inp) -> dict:
                 return _site.site_forward_plain(*cast(args, dtype), **kw)
             return {"h": _site.site_forward_plain(*cast(args, dtype), **kw),
                     "pre16": _site.site_forward_plain(
-                        *cast(args, dtype), **dict(kw, gelu=False))}
+                        *cast(args, dtype), **dict(kw, act=None))}
 
         kern = functools.partial(_site.site_cuda, *args, **kw)
         out[name] = (with_pre(kern) if kw.get("return_pre") else kern,
@@ -2301,7 +2409,8 @@ def cli_child(argv, env) -> dict:
 def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
                    model=MODEL, impl="element", path=None, grad_batch=None,
                    idle=(), method="cara", lr=1e-3, overrides=None,
-                   cli_extra=(), falls="last", switch=None) -> dict:
+                   cli_extra=(), falls="last", switch=None,
+                   cli=True) -> dict:
     """One training route (``impl`` weight dropout at 0.1, or ``method``
     "linear" / "full" without an adapter, at learning rate ``lr``; the
     model's config changed by ``overrides``, e.g. its dropout rates): (a)
@@ -2309,7 +2418,8 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
     images, all by default), (b) a falling loss over ``steps`` steps on a
     fixed batch (the linear probe: only the head moved), (c) ms per step
     and img/s, kernel and plain, (d) ``cli.vit_cp --synthetic`` with the
-    same overrides and ``cli_extra``, whose best checkpoint is served.
+    same overrides and ``cli_extra``, whose best checkpoint is served
+    (left out with ``cli`` False).
     ``switch`` names the ``SWITCHES`` entry the caller set (for the tag;
     where it has an environment the CLI runs in a child process with it,
     and every kernel of ``path`` must launch there too).  Launch counters
@@ -2408,41 +2518,46 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
               f"the host clock over {steps} steps; plain path (bf16) "
               f"{out['plain_ms_per_step']:.3f} ms per step", flush=True)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--synthetic", "--dataset", "svhn", "--model", model,
-                "--dim", "8", "--epochs", "11", "--batch-size", str(batch),
-                "--eval-batch-size", str(batch), "--synthetic-size",
-                str(2 * batch), "--log-every", "11", "--out-dir", tmp,
-                "--backbone", os.path.join(tmp, "none.npz"),
-                "--weight-dropout-impl", impl, "--device", str(dev),
-                "--method", method, "--lr", str(lr), *cli_extra]
-        for key, value in overrides.items():
-            argv += ["--model-override", f"{key}={value}"]
-        t0 = time.perf_counter()
-        if cli_env is None:
-            acc = vit_cp_cli.main(argv)
-        else:
-            child = cli_child(argv, cli_env)
-            acc = "in the child"
-            print(f"{tag} the child's kernel launches: "
-                  f"{ {k: v for k, v in child.items() if v} }", flush=True)
-            for name in path:
-                require(child[name] > 0, f"{name} never launched by the "
-                        f"CLI child with {cli_env}")
-        ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
-        print(f"{tag} cli.vit_cp depth {cfg.depth}: best acc {acc}, "
-              f"{time.perf_counter() - t0:.1f} s, checkpoints {ckpts}",
-              flush=True)
-        require(len(ckpts) == 1, "the CLI wrote no best checkpoint")
-        trained = read_launches(tuple(KERNELS))
-        pred = Predictor.from_checkpoint_auto(
-            os.path.join(tmp, ckpts[0]), model, batch_size=batch, device=dev,
-            dtype=torch.bfloat16)
-        logits = pred.logits(make_images(8, cfg.image_size, 5))
-        require(logits.shape == (8, 10) and bool(np.isfinite(logits).all()),
-                f"served checkpoint gave {logits.shape} logits")
-        print(f"{tag} the best checkpoint serves: logits {logits.shape}",
-              flush=True)
+    trained = read_launches(tuple(KERNELS))
+    if cli:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--synthetic", "--dataset", "svhn", "--model", model,
+                    "--dim", "8", "--epochs", "11", "--batch-size",
+                    str(batch), "--eval-batch-size", str(batch),
+                    "--synthetic-size",
+                    str(2 * batch), "--log-every", "11", "--out-dir", tmp,
+                    "--backbone", os.path.join(tmp, "none.npz"),
+                    "--weight-dropout-impl", impl, "--device", str(dev),
+                    "--method", method, "--lr", str(lr), *cli_extra]
+            for key, value in overrides.items():
+                argv += ["--model-override", f"{key}={value}"]
+            t0 = time.perf_counter()
+            if cli_env is None:
+                acc = vit_cp_cli.main(argv)
+            else:
+                child = cli_child(argv, cli_env)
+                acc = "in the child"
+                print(f"{tag} the child's kernel launches: "
+                      f"{ {k: v for k, v in child.items() if v} }",
+                      flush=True)
+                for name in path:
+                    require(child[name] > 0, f"{name} never launched by the "
+                            f"CLI child with {cli_env}")
+            ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+            print(f"{tag} cli.vit_cp depth {cfg.depth}: best acc {acc}, "
+                  f"{time.perf_counter() - t0:.1f} s, checkpoints {ckpts}",
+                  flush=True)
+            require(len(ckpts) == 1, "the CLI wrote no best checkpoint")
+            trained = read_launches(tuple(KERNELS))
+            pred = Predictor.from_checkpoint_auto(
+                os.path.join(tmp, ckpts[0]), model, batch_size=batch,
+                device=dev, dtype=torch.bfloat16)
+            logits = pred.logits(make_images(8, cfg.image_size, 5))
+            require(logits.shape == (8, 10)
+                    and bool(np.isfinite(logits).all()),
+                    f"served checkpoint gave {logits.shape} logits")
+            print(f"{tag} the best checkpoint serves: logits {logits.shape}",
+                  flush=True)
     out["launches"] = read_launches(tuple(KERNELS))
     print(f"{tag} kernel launches on the training path: "
           f"{ {k: v for k, v in out['launches'].items() if v} }",
@@ -2800,6 +2915,9 @@ def pair_eval_check(dev, ckpt, model, images, batch=64) -> int:
     pred = Predictor.from_checkpoint_auto(
         ckpt, model, batch_size=batch, merge=False, device=dev,
         dtype=torch.bfloat16)
+    pair, mlp = "block_pair_fwd", "cp_mlp_block"
+    if pred.cfg.activation != "gelu":  # the checkpoint's quick_gelu
+        pair, mlp = QUICK_ENTRIES[pair], QUICK_ENTRIES[mlp]
     x = images[:batch]
     ref = pred.logits(x)
     old = vit_lib._block
@@ -2807,22 +2925,21 @@ def pair_eval_check(dev, ckpt, model, images, batch=64) -> int:
     try:
         reset_launches()
         got = pred.logits(x)
-        launches = read_launches(("block_pair_fwd", "cp_attn_block",
-                                  "cp_mlp_block"))
+        launches = read_launches((pair, "cp_attn_block", mlp))
     finally:
         vit_lib._block = old
     err = float(np.abs(got - ref).max())
     tol = LOGIT_RTOL * float(np.abs(ref).max())
-    print(f"[serve:block_pair] batch {len(x)}, every block through row "
-          f"19: launches {launches}; max|logits - default route's| "
-          f"{err:.4e}, tolerance {tol:.4e}", flush=True)
-    require(launches["block_pair_fwd"] == pred.cfg.depth
-            and launches["cp_attn_block"] == 0
-            and launches["cp_mlp_block"] == 0,
+    print(f"[serve:block_pair] batch {len(x)}, {pred.cfg.activation}, "
+          f"every block through row 19: launches {launches}; "
+          f"max|logits - default route's| {err:.4e}, tolerance {tol:.4e}",
+          flush=True)
+    require(launches[pair] == pred.cfg.depth
+            and launches["cp_attn_block"] == 0 and launches[mlp] == 0,
             f"the row 19 eval did not run it in every layer: {launches}")
     require(bool(np.isfinite(got).all()) and err <= tol,
             "row 19 eval logits disagree with the default route's")
-    return launches["block_pair_fwd"]
+    return launches[pair]
 
 
 def switched_rank_phases(dev, steps=20, model=MODEL, batch=64, timed=True,
@@ -2874,33 +2991,41 @@ def switched_rank_phases(dev, steps=20, model=MODEL, batch=64, timed=True,
 RECOMPUTE_ENV = {"CARA_MLP_SAVE_PRE": "0", "CARA_ATTN_SAVE_QKV": "0"}
 
 
-def recompute_steps(dev, model, impl, batch, steps, path, timed=True):
-    """``steps`` steps of the ``impl`` route of ``model`` with both
-    saved-residual switches "0" (``save_switch``): every kernel of
-    ``path`` launches, no saved form, and no fc1 site writes its
-    pre-activation.  -> (the setup, its state after the steps, the
-    generator, the launches)."""
+def recompute_steps(dev, model, impl, batch, steps, path, timed=True,
+                    saved=(*SAVED_FORMS.values(), SAVE_PRE_SITE),
+                    overrides=None):
+    """``steps`` steps of the ``impl`` route of ``model`` (its config
+    changed by ``overrides``) with both saved-residual switches "0"
+    (``save_switch``): every kernel of ``path`` launches, none of
+    ``saved`` (the saved forms, the fc1 site writing its pre-activation).
+    -> (the setup, its state after the steps, the generator, the
+    launches)."""
     tag = (f"[train:{impl}:recompute]" if model == MODEL
            else f"[train:{impl}:recompute:{model}]")
-    setup = train_setup(dev, model=model, batch=batch, impl=impl)
+    setup = train_setup(dev, model=model, batch=batch, impl=impl,
+                        **(overrides or {}))
     cfg, cara_cfg, frozen, state, data = setup
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     with save_switch("0"):
         state, losses, _, _ = fixed_batch_steps(
             cfg, cara_cfg, frozen, state, data, generator, steps,
             timed=timed)
     got = read_launches(tuple(KERNELS))
+    peak = (f"; peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+            "GiB allocated" if dev.type == "cuda" else "")
     print(f"{tag} {steps} steps at batch {batch} with CARA_MLP_SAVE_PRE=0 "
           f"CARA_ATTN_SAVE_QKV=0: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; kernel launches "
+          f"{losses[-1]:.4f}{peak}; kernel launches "
           f"{ {k: v for k, v in got.items() if v} }", flush=True)
     require(all(np.isfinite(losses)), "non-finite recompute loss")
     for name in path:
         require(got[name] > 0, f"{name} never launched on {model} with "
                 "the saved-residual switches 0")
-    for name in (*SAVED_FORMS.values(), SAVE_PRE_SITE):
+    for name in saved:
         require(got[name] == 0, f"{name} launched on {model} with the "
                 "saved-residual switches 0")
     return setup, state, generator, got
@@ -2979,6 +3104,179 @@ def recompute_phase(dev, steps=8, long_steps=2, rounds=3, batch=64,
     return launches
 
 
+def quick_kernel_phase(dev, inp, timed: bool = True) -> dict:
+    """The quick_gelu entries of ``QUICK_FORMS`` but row 19's at
+    ``inp``'s shapes (``inp["act"]`` "quick_gelu"; CLIP ViT-L/14's: M =
+    64 x 257, E 1024, hidden 4096, rank 8, eps 1e-5): each built as its
+    GELU twin's entry with the activation, held against its fp32 plain
+    version with the twin's tolerance, bound by the twin's work at these
+    shapes.  No PyTorch call computes any of them (library None)."""
+    require(inp["act"] == "quick_gelu", "the quick entries need quick_gelu")
+    print(f"[kernel] the quick_gelu forms at B {inp['b']}, N {inp['n']}, "
+          f"E {inp['e']}, hidden {inp['mlp']['w1'].shape[1]}, rank "
+          f"{inp['attn']['u1'].shape[1]}, LayerNorm eps {inp['eps']}:",
+          flush=True)
+    twins = set(QUICK_ENTRIES) - {"block_pair_fwd"}
+    calls = mlp_kernel_calls(inp, names=twins)
+    for more in (gelu_kernel_calls(inp), site_kernel_calls(inp),
+                 gemm_kernel_calls(inp, gemm_operands(inp))):
+        calls.update({k: v for k, v in more.items() if k in twins})
+    require(set(calls) == twins, f"quick entries missing: "
+            f"{sorted(twins - set(calls))}")
+    work = kernel_work(inp)
+    return check_entries(
+        dev, inp, {QUICK_ENTRIES[k]: v for k, v in calls.items()}, timed,
+        work={QUICK_ENTRIES[k]: work[k] for k in calls}, library={})
+
+
+def _add_launches(total, got, names) -> None:
+    for name in names:
+        total[name] = total.get(name, 0) + got[name]
+
+
+def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
+               pair_model=MODEL, timed=True) -> dict:
+    """CLIP ViT-L/14 (``MODEL_CLIP``) at full width and depth from seed 0
+    with a perturbed order-4 rank-8 CaRA adapter at scale 10, 10 classes
+    on its 768-wide projection, bf16, ``batch`` images (``overrides``
+    shrink it for a rehearsal on the CPU):
+
+    1. served merged and unmerged as :func:`serving_phase` does (logits
+       within ``LOGIT_RTOL`` of the fp32 plain forward): rows 1 and 5
+       launch, row 9 in its quick_gelu form, and no GELU form;
+    2. the element and the rank route as :func:`training_phase` (the
+       gradient check on ``grad_batch`` images, ``steps`` timed steps,
+       peak memory; no CLI): the saved forms of rows 8, 10 and 11 run,
+       with quick_gelu, and no recompute form and no GELU form;
+    3. two steps of each route with both saved-residual switches "0":
+       the recompute forms of rows 10 and 11 with quick_gelu, and no
+       saved one;
+    4. the rank route with ``dropout_rate`` 0.1: the gradient check on
+       half of ``grad_batch``, then two steps, which run row 13's
+       quick_gelu body and its dact helper;
+    5. ``cli.vit_cp --model vit_large_patch14_224_clip --synthetic`` in a
+       child for four steps (two epochs of two batches);
+    6. row 19 with quick_gelu: ``pair_model`` (ViT-B, row 19's E <= 768)
+       served unmerged with quick_gelu in place of its GELU, every block
+       through row 19 (:func:`pair_eval_check`).
+
+    Returns the quick_gelu entries' launches."""
+    over = dict(overrides or {})
+    cfg = get_model_config(MODEL_CLIP, num_classes=10, **over)
+    print(f"[clip] {MODEL_CLIP}: depth {cfg.depth}, E {cfg.embed_dim}, "
+          f"heads {cfg.num_heads}, hidden {cfg.hidden_dim}, "
+          f"{cfg.num_patches + 1} tokens, {cfg.activation}, ln_pre "
+          f"{cfg.ln_pre}, LayerNorm eps {cfg.layernorm_eps}, proj_dim "
+          f"{cfg.proj_dim}, batch {batch}, bf16", flush=True)
+    launches = {}
+    none_gelu = GELU_FORMS + ("cp_mlp_block_bwd", "cp_mlp_block_wd_bwd")
+    images = make_images(96, cfg.image_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "clip_smoke_seed_0.npz")
+        make_checkpoint(ckpt, model=MODEL_CLIP, **over)
+        reset_launches()
+        serving_phase(dev, ckpt, MODEL_CLIP, images, batch_size=batch,
+                      timed=timed, tag="serve:clip")
+        served = read_launches(tuple(KERNELS))
+    del images
+    print(f"[serve:clip] kernel launches on the serving path: "
+          f"{ {k: v for k, v in served.items() if v} }", flush=True)
+    for name in CLIP_SERVING_KERNELS:
+        require(served[name] > 0, f"{name} never launched serving CLIP")
+    for name in none_gelu:
+        require(served[name] == 0, f"{name} launched serving CLIP")
+    _add_launches(launches, served, ("cp_mlp_block_quick",
+                                     "cp_site_fc1_ln_quick_gelu"))
+
+    common = dict(model=MODEL_CLIP, batch=batch, steps=steps,
+                  plain_steps=2, grad_batch=grad_batch, cli=False,
+                  overrides=over or None, timed=timed)
+    for impl, path, own in (
+            ("element", CLIP_ELEMENT_KERNELS,
+             ("cp_mlp_block_wd_bwd_saved_quick",)),
+            ("rank", CLIP_RANK_KERNELS, ("cp_mlp_block_bwd_saved_quick",))):
+        out = training_phase(
+            dev, impl=impl, path=path, idle=none_gelu + QUICK_RECOMPUTE
+            + ("cp_attn_block_wd_bwd",), **common)
+        _add_launches(launches, out["launches"], own + (
+            "cp_site_fc1_ln_quick_gelu_pre", "grad_gemm_nt_dquick_gelu_h"))
+        del out
+
+    for impl, path, counter in (
+            ("element", ("cp_attn_block_wd_bwd",) + QUICK_RECOMPUTE,
+             "QUICK_WD_BWD_LAUNCHES"),
+            ("rank", QUICK_RECOMPUTE, "QUICK_BWD_LAUNCHES")):
+        before = getattr(mlp_mod, counter)
+        _, _, _, got = recompute_steps(
+            dev, MODEL_CLIP, impl, batch, 2, path, timed=timed,
+            saved=QUICK_SAVED, overrides=over)
+        rows = getattr(mlp_mod, counter) - before
+        print(f"[train:{impl}:recompute:{MODEL_CLIP}] the MLP block's "
+              f"recompute form with quick_gelu ({counter}): {rows} "
+              "launches", flush=True)
+        require(rows > 0, f"{impl}: the quick_gelu recompute form of the "
+                "MLP block never launched")
+        for name in none_gelu:
+            require(got[name] == 0, f"{name} launched by the CLIP "
+                    "recompute steps")
+        _add_launches(launches, got, QUICK_RECOMPUTE)
+
+    tag = f"[train:rank:dropout:{MODEL_CLIP}]"
+    dcfg, dcc, frozen, state, data = train_setup(
+        dev, model=MODEL_CLIP, batch=batch, impl="rank", **over, **DROPOUT)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    grad_check(dev, dcfg, dcc, frozen, state,
+               {k: v[:max(1, grad_batch // 2)] for k, v in data.items()},
+               generator, tag=tag)
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, _, _ = fixed_batch_steps(dcfg, dcc, frozen, state, data,
+                                            generator, 2, timed=timed)
+    got = read_launches(tuple(KERNELS))
+    peak = (f"; peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+            "GiB allocated" if dev.type == "cuda" else "")
+    print(f"{tag} 2 steps at batch {batch}: loss {losses}{peak}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    require(all(np.isfinite(losses)), "non-finite CLIP dropout loss")
+    for name in CLIP_DROPOUT_KERNELS:
+        require(got[name] > 0, f"{name} never launched by the CLIP "
+                "dropout steps")
+    for name in none_gelu + ("cp_mlp_block_quick",
+                             "cp_mlp_block_bwd_saved_quick"):
+        require(got[name] == 0, f"{name} launched by the CLIP dropout "
+                "steps")
+    _add_launches(launches, got, CLIP_DROPOUT_KERNELS)
+    del frozen, state, data
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--dataset", "svhn", "--model", MODEL_CLIP,
+                "--dim", "8", "--epochs", "2", "--batch-size", "32",
+                "--eval-batch-size", "32", "--synthetic-size", "64",
+                "--log-every", "1", "--out-dir", tmp, "--backbone",
+                os.path.join(tmp, "none.npz"), "--device", str(dev)]
+        for key, value in over.items():
+            argv += ["--model-override", f"{key}={value}"]
+        t0 = time.perf_counter()
+        child = cli_child(argv, {})
+    print(f"[clip] cli.vit_cp child, 4 steps: "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{ {k: v for k, v in child.items() if v} }", flush=True)
+    for name in CLIP_ELEMENT_KERNELS:
+        require(child[name] > 0, f"{name} never launched by the CLIP CLI")
+    for name in none_gelu:
+        require(child[name] == 0, f"{name} launched by the CLIP CLI")
+
+    images = make_images(64, get_model_config(pair_model).image_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "vit_quick_gelu_seed_0.npz")
+        make_checkpoint(ckpt, model=pair_model, activation="quick_gelu")
+        launches["block_pair_fwd_quick"] = pair_eval_check(
+            dev, ckpt, pair_model, images, batch=batch)
+    return launches
+
+
 def full_step_384(dev, batch=16) -> dict:
     """One full fine-tuning step of ViT-B/16 at 384 px (577 tokens): the
     flash attention at any token count, as on the TPU, so the flash
@@ -3033,7 +3331,8 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
     cfg, cara_cfg, frozen, state, data = train_setup(
         dev, model=model, batch=batch, impl=impl, method=method,
         lr=1e-4 if method == "full" else 1e-3, **(overrides or {}))
-    tag = f"[profile:{impl}]" if model == MODEL else f"[profile:{impl}:384]"
+    where = {MODEL: "", MODEL_384: ":384", MODEL_CLIP: ":clip"}[model]
+    tag = f"[profile:{impl}{where}]"
     if overrides:
         tag = tag[:-1] + ":dropout]"
     if label:
@@ -3195,7 +3494,7 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}", flush=True)
     if args.profile:
-        for model in (MODEL, MODEL_384):
+        for model in (MODEL, MODEL_384, MODEL_CLIP):
             for impl in ("element", "rank"):
                 profile_steps(dev, impl, model=model)
         for method in ("full", "linear"):
@@ -3225,6 +3524,11 @@ def main(argv=None) -> int:
     results.update(pair_kernel_phase(dev, kernel_inputs(dev)))
     results.update(gemm_kernel_phase(dev, kernel_inputs(dev)))
     results.update(site_kernel_phase(dev, kernel_inputs(dev)))
+    results.update(quick_kernel_phase(dev, kernel_inputs(
+        dev, n=257, e=1024, heads=16, hidden=4096, act="quick_gelu",
+        eps=1e-5)))
+    results.update(pair_kernel_phase(dev, kernel_inputs(
+        dev, act="quick_gelu")))
     determinism_phase(dev)
 
     stamp("kernel entries")
@@ -3283,6 +3587,9 @@ def main(argv=None) -> int:
     # Activation and attention dropout: row 13's GELU body.
     launches.update(dropout_phase(dev))
     stamp("dropout")
+    # CLIP ViT-L/14 at full width and depth: the quick_gelu forms.
+    launches.update(clip_phase(dev))
+    stamp("CLIP ViT-L/14")
 
     # The 384-px route: 577 tokens, past the full-score attention's 512.
     images = make_images(96, 384)

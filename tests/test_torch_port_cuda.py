@@ -64,7 +64,7 @@ from cara_tpu_torch.ops.cuda import flash_attention as flash_mod
 from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.cuda import wd_fold
-from cara_tpu_torch.ops.layers import activation_grad, layer_norm
+from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 from cara_tpu_torch.serving import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -451,47 +451,104 @@ def test_no_adapter_train_step_on_card_matches_plain(dev, method):
 @pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=["n17_dh64_r5",
                                                      "n197_dh32_r8"])
 def test_gelu_site_kernels_match_plain(dev, shape):
-    """Row 13's GELU body on the fc1 site: the forward with the GELU
-    epilogue and the dact helper, in the LN form with the rank delta and
-    the W' form at rank 0, against their fp32 plain twins, each counted
-    once per call; then both forms' backward through autograd (dact,
-    then row 12 or the W' dx and row 15) against the plain path;
-    quick_gelu has no kernel."""
+    """Row 13's activation body on the fc1 site, with the GELU and with
+    quick_gelu: the forward with the activation epilogue and the dact
+    helper, in the LN form with the rank delta and the W' form at rank
+    0, against their fp32 plain twins, each counted once per call under
+    its activation's counter (the other activation's unchanged); then
+    both forms' backward through autograd (dact, then row 12 or the W'
+    dx and row 15) against the plain path."""
     b, n, n_real, e, heads, hidden, r = shape
-    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
-                                   hidden=hidden, r=r, seed=8, n_real=n_real)
-    calls = chip_smoke.gelu_kernel_calls(inp)
-    assert sorted(calls) == sorted(chip_smoke.GELU_KERNELS)
-    for name, (kern, _, ref32) in calls.items():
-        before = _launches(name)
+    counters = {"gelu": ("ACT_LAUNCHES", "DACT_LAUNCHES"),
+                "quick_gelu": ("QUICK_ACT_LAUNCHES", "QUICK_DACT_LAUNCHES")}
+    every = sum(counters.values(), ())
+    for act, (fwd_counter, dact_counter) in counters.items():
+        inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                       hidden=hidden, r=r, seed=8,
+                                       n_real=n_real, act=act)
+        calls = chip_smoke.gelu_kernel_calls(inp)
+        assert sorted(calls) == sorted(chip_smoke.GELU_KERNELS)
+        for name, (kern, _, ref32) in calls.items():
+            before = {c: getattr(dense_mod, c) for c in every}
+            out = kern()
+            torch.cuda.synchronize()
+            chip_smoke._check_outputs(name, out, ref32())
+            mine = dact_counter if name.endswith("_dact") else fwd_counter
+            assert {c: getattr(dense_mod, c) - before[c] for c in every} \
+                == {c: int(c == mine) for c in every}, (act, name)
+        m = inp["mlp"]
+        seed = inp["seeds"][2]
+        diff = ("x", "u1", "v1", "cb1")
+
+        def site(t, impl, wd):
+            args = (t["x"], t["w1"], t["b1"], t["u1"], t["v1"], t["cb1"],
+                    t["ln_scale"], t["ln_bias"])
+            if wd:
+                return dense_mod.cp_dense_ln_wd(
+                    *args, seed, 2.0, chip_smoke.DROP_RATE, impl=impl,
+                    act=act)
+            return dense_mod.cp_dense_ln(*args, 2.0, impl=impl, act=act)
+
+        for wd in (False, True):
+            before = getattr(dense_mod, dact_counter)
+            got = chip_smoke._grad_call(lambda t: site(t, "auto", wd), m,
+                                        diff, inp["g_hid"], torch.bfloat16)()
+            assert getattr(dense_mod, dact_counter) == before + 1
+            ref = chip_smoke._grad_call(lambda t: site(t, "plain", wd), m,
+                                        diff, inp["g_hid"], torch.float32)()
+            chip_smoke._check_outputs("cp_dense_dact", got, ref)
+
+
+# The MLP block's counters (chip_smoke.QUICK_FORMS names the quick ones)
+# by entry, and the GEMM products each backward form launches once.
+MLP_FORMS = {"cp_mlp_block": ("LAUNCHES", ()),
+             "cp_mlp_block_bwd": ("BWD_LAUNCHES",
+                                  ("NN_PRE_{}GELU", "NT_D{}GELU")),
+             "cp_mlp_block_wd_bwd": ("WD_BWD_LAUNCHES",
+                                     ("NN_PRE_{}GELU", "NT_D{}GELU")),
+             "cp_mlp_block_bwd_saved": ("BWD_SAVED_LAUNCHES",
+                                        ("NT_D{}GELU_H",)),
+             "cp_mlp_block_wd_bwd_saved": ("WD_BWD_SAVED_LAUNCHES",
+                                           ("NT_D{}GELU_H",))}
+
+
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=["n17_dh64_r5",
+                                                     "n197_dh32_r8"])
+def test_mlp_kernels_by_activation_match_plain(dev, shape, act):
+    """Rows 9, 10 and 11 with each activation (CLIP's quick_gelu at its
+    LayerNorm eps 1e-5), the backwards in the recompute and the saved
+    forms, against their fp32 plain twins with a zero gate: each call
+    counted once under its form and activation, the GEMM products it
+    launches once each under theirs, and the other activation's counters
+    unchanged."""
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(
+        dev, b=b, n=n, e=e, heads=heads, hidden=hidden, r=r, seed=12,
+        n_real=n_real, zero_gates=1, act=act,
+        eps=1e-5 if act == "quick_gelu" else 1e-6)
+    quick = "QUICK_" if act == "quick_gelu" else ""
+    mlp_counters = [p + c for c, _ in MLP_FORMS.values()
+                    for p in ("", "QUICK_")]
+    gemm_counters = [f"LAUNCHES_{c.format(p)}" for _, cs in MLP_FORMS.values()
+                     for c in cs for p in ("", "QUICK_")]
+    calls = chip_smoke.mlp_kernel_calls(inp)
+    for name, (counter, products) in MLP_FORMS.items():
+        kern, _, ref32 = calls[name]
+        before = {c: getattr(chip_smoke.mlp_mod, c) for c in mlp_counters}
+        gemm_before = {c: getattr(_bwd, c) for c in gemm_counters}
         out = kern()
         torch.cuda.synchronize()
         chip_smoke._check_outputs(name, out, ref32())
-        assert _launches(name) == before + 1, name
-    m = inp["mlp"]
-    seed = inp["seeds"][2]
-    diff = ("x", "u1", "v1", "cb1")
-
-    def site(t, impl, wd):
-        args = (t["x"], t["w1"], t["b1"], t["u1"], t["v1"], t["cb1"],
-                t["ln_scale"], t["ln_bias"])
-        if wd:
-            return dense_mod.cp_dense_ln_wd(*args, seed, 2.0,
-                                            chip_smoke.DROP_RATE, impl=impl,
-                                            act="gelu")
-        return dense_mod.cp_dense_ln(*args, 2.0, impl=impl, act="gelu")
-
-    for wd in (False, True):
-        before = dense_mod.DACT_LAUNCHES
-        got = chip_smoke._grad_call(lambda t: site(t, "auto", wd), m, diff,
-                                    inp["g_hid"], torch.bfloat16)()
-        assert dense_mod.DACT_LAUNCHES == before + 1
-        ref = chip_smoke._grad_call(lambda t: site(t, "plain", wd), m, diff,
-                                    inp["g_hid"], torch.float32)()
-        chip_smoke._check_outputs("cp_dense_dact", got, ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense_mod.cp_dense(m["x"], m["w1"], m["b1"], m["u1"], m["v1"],
-                           m["cb1"], act="quick_gelu")
+        assert {c: getattr(chip_smoke.mlp_mod, c) - before[c]
+                for c in mlp_counters} == {
+                    c: int(c == quick + counter) for c in mlp_counters}, name
+        mine = {f"LAUNCHES_{c.format(quick)}" for c in products}
+        assert {c: getattr(_bwd, c) - gemm_before[c]
+                for c in gemm_counters} == {
+                    c: int(c in mine) for c in gemm_counters}, name
+        if name != "cp_mlp_block":  # a zero gate passes the cotangent
+            assert torch.equal(out["x"][0], inp["g_mlp"][0]), name
 
 
 @pytest.mark.parametrize("route, over, impls, names", [
@@ -523,6 +580,33 @@ def test_regularised_and_impl_train_steps_on_card_match_plain(
     chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g, impls=impls)
     for name in names:
         assert _launches(name) > before[name], name
+
+
+@pytest.mark.parametrize("route, over, names", [
+    ("element", {}, chip_smoke.CLIP_ELEMENT_KERNELS),
+    ("rank", {}, chip_smoke.CLIP_RANK_KERNELS),
+    ("rank", chip_smoke.DROPOUT, chip_smoke.CLIP_DROPOUT_KERNELS)],
+    ids=["element", "rank", "rank-dropout"])
+def test_clip_train_steps_on_card_match_plain(dev, route, over, names):
+    """A small CLIP ViT-L/14 (E 128, two heads of width 64, depth 2,
+    ``ln_pre``, quick_gelu, LayerNorm eps 1e-5, a 48-wide projection) on
+    the element and rank routes and with activation dropout: every
+    gradient within chip_smoke's bound of the fp32 plain path, the
+    route's quick_gelu forms launched and no GELU form."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model=chip_smoke.MODEL_CLIP, batch=4, rank=4, impl=route,
+        image_size=56, embed_dim=128, num_heads=2, depth=2, proj_dim=48,
+        **over)
+    assert (cfg.activation, cfg.layernorm_eps) == ("quick_gelu", 1e-5)
+    watched = names + chip_smoke.GELU_FORMS
+    before = {k: _launches(k) for k in watched}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in names:
+        assert _launches(name) > before[name], name
+    for name in chip_smoke.GELU_FORMS:
+        assert _launches(name) == before[name], name
 
 
 # (b, n, n_real, e, heads, hidden, r): head dims 64, 32 and 16; masked
@@ -637,6 +721,31 @@ def test_block_pair_kernel_matches_plain(dev, shape):
     torch.cuda.synchronize()
     _check("block_pair_fwd", got, chip_smoke.pair_mod.block_pair_fwd_plain(
         *(t.float() for t in args), heads, sm, n_real, 1.3))
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=["dh64", "dh32", "dh16"])
+def test_block_pair_quick_gelu_kernel_matches_plain(dev, shape):
+    """Row 19 with quick_gelu against its fp32 plain version and the
+    split halves (rows 5 and 9 with quick_gelu), and at a delta scale of
+    1.3: three calls, each counted under ``QUICK_LAUNCHES`` and none
+    under the GELU's ``LAUNCHES``."""
+    b, n, n_real, e, heads, hidden, r = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=13,
+                                   n_real=n_real, act="quick_gelu")
+    pair = chip_smoke.pair_mod
+    before = (pair.LAUNCHES, pair.QUICK_LAUNCHES)
+    out = chip_smoke.pair_kernel_phase(dev, inp, timed=False)
+    assert out["block_pair_fwd_quick"]["max_abs_err"] is not None
+    args = chip_smoke.pair_args(inp)
+    sm = (e // heads) ** -0.5
+    got = pair.block_pair_fwd(*args, heads, sm, n_real, 1.3,
+                              act="quick_gelu")
+    torch.cuda.synchronize()
+    assert (pair.LAUNCHES, pair.QUICK_LAUNCHES) == (before[0],
+                                                   before[1] + 3)
+    _check("block_pair_fwd_quick", got, pair.block_pair_fwd_plain(
+        *(t.float() for t in args), heads, sm, n_real, 1.3, "quick_gelu"))
 
 
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])
@@ -884,11 +993,15 @@ _EPIS = {"f32": _bwd.EPI_F32, "bf16": _bwd.EPI_BF16,
          "pre_gelu": _bwd.EPI_PRE_GELU, "dgelu": _bwd.EPI_DGELU,
          "dgelu_h": _bwd.EPI_DGELU_H}
 GEMM_SHAPES = [(200, 200, 136, 5), (296, 64, 768, 20)]
+# The quick_gelu forms of the activation epilogues ("pre_quick_gelu",
+# "dquick_gelu", "dquick_gelu_h") at the same shapes.
 GEMM_CASES = (
-    [("nn", epi, rank, *shape) for epi in ("bf16", "pre_gelu")
+    [("nn", epi, rank, *shape)
+     for epi in ("bf16", "pre_gelu", "pre_quick_gelu")
      for rank in (None, "a2") for shape in GEMM_SHAPES]
     + [("nt", epi, rank, *shape)
-       for epi in ("bf16", "f32", "dgelu", "dgelu_h")
+       for epi in ("bf16", "f32", "dgelu", "dgelu_h", "dquick_gelu",
+                   "dquick_gelu_h")
        for rank in (None, "fold") for shape in GEMM_SHAPES]
     + [("tn", "f32", splits, *shape) for splits in (1, 3)
        for shape in GEMM_SHAPES])
@@ -908,7 +1021,9 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
     output; the rank step adds bf16(z) @ B2 with z = A2, or with the
     folded z = bf16(A V^T), whose gv comes out within 1e-2 + 1e-2 |ref| and zero
     past r; counted once by layout and epilogue.  For TN the ``rank``
-    column holds the number of contraction splits."""
+    column holds the number of contraction splits.  The activation
+    epilogues with quick_gelu in place of the GELU ("quick" in ``epi``)
+    are held to the same bounds and counted apart."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m + n + k + r)
 
@@ -916,6 +1031,8 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
         return (torch.randn(shape, generator=gen, device=dev)
                 * std).to(torch.bfloat16)
 
+    act = "quick_gelu" if "quick" in epi else "gelu"
+    epi = epi.replace("quick_", "")
     lay, ep = _LAYOUTS[layout], _EPIS[epi]
     a = rnd(k, m) if layout == "tn" else rnd(m, k)
     b = rnd(n, k, std=k ** -0.5) if layout == "nt" else rnd(k, n,
@@ -951,9 +1068,10 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
             kw["fold_v"] = v
             z = (af @ v.float().t()).to(torch.bfloat16)
         acc = acc + z.float() @ b2r
-    counter = _bwd._COUNTERS[lay, ep]
+    counter = (_bwd._QUICK_COUNTERS if act == "quick_gelu"
+               else _bwd._COUNTERS)[lay, ep]
     before = getattr(_bwd, counter)
-    out = _bwd.gemm(lay, ep, a, b, splits=splits, **kw)
+    out = _bwd.gemm(lay, ep, a, b, splits=splits, act=act, **kw)
     torch.cuda.synchronize()
     assert getattr(_bwd, counter) == before + 1
     outs = list(out) if isinstance(out, tuple) else [out]
@@ -983,14 +1101,14 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
     elif epi == "pre_gelu":
         pre = acc + kw["bias1"].float() + kw["bias2"].float()
         close(outs[0], pre, False)
-        close(outs[1], torch.nn.functional.gelu(pre), True)
+        close(outs[1], activation(pre, act), True)
     else:
-        dpre = acc * activation_grad(kw["aux"].float(), "gelu")
+        dpre = acc * activation_grad(kw["aux"].float(), act)
         close(outs[0], dpre, True)
         assert outs[1].shape == (-(-m // 128), n)
         assert chip_smoke.rel_l2(outs[1].sum(0), dpre.sum(0)) <= 1e-4
         if epi == "dgelu_h":
-            close(outs[2], torch.nn.functional.gelu(kw["aux"].float()), True)
+            close(outs[2], activation(kw["aux"].float(), act), True)
 
 
 # The tiled attention backward, twice on the same inputs: (row, n, b,
@@ -1069,6 +1187,11 @@ SITE_KN = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 SITE_CASES = [(ln, act, res, r, k, n, m) for ln in (False, True)
               for act, res in SITE_EPIS for r in (0, 8, 64)
               for k, n in SITE_KN for m in (197, 12608, 36928)]
+# The quick_gelu forms (the activation and its dact mode) at the fc1
+# shapes of ViT-B and of CLIP ViT-L/14 (K 1024, N 4096; 64 x 257 rows).
+SITE_CASES += [(ln, act, False, r, k, n, m) for ln in (False, True)
+               for act in ("quick_gelu", "quick_dact") for r in (0, 8, 64)
+               for k, n in ((768, 3072), (1024, 4096)) for m in (197, 16448)]
 
 
 def _site_inputs(dev, ln, act, res, r, k, n, m, seed):
@@ -1085,9 +1208,9 @@ def _site_inputs(dev, ln, act, res, r, k, n, m, seed):
     kw = {}
     if ln:
         kw["ln"] = (rnd(k, std=0.1, mean=1.0), rnd(k, std=0.1), 1e-6)
-    if act == "gelu":
-        kw["gelu"] = True
-    if act == "dact":
+    if act != "none":
+        kw["act"] = "quick_gelu" if act.startswith("quick") else "gelu"
+    if act.endswith("dact"):
         kw["dact_g"] = rnd(m, n)
     if res:
         kw["res"] = rnd(m, n)
@@ -1118,11 +1241,13 @@ def test_cp_site_wgmma_matches_plain(dev, ln, act, res, r, k, n, m):
     ``KERNEL_TOL`` (the dact mode's at ``cp_site_fc1_dact``'s), z =
     bf16(xa U) within ``cp_site_qkv_ln``'s and zero past the rank, a
     second call bit for bit (no split contraction), counted once under
-    its epilogue."""
+    its epilogue and activation."""
     args, kw = _site_inputs(dev, ln, act, res, r, k, n, m, m + k + n + r)
     s = 2.0
-    counter = ("LAUNCHES_DACT" if act == "dact" else "LAUNCHES_RES" if res
-               else "LAUNCHES_GELU" if act == "gelu" else "LAUNCHES_BF16")
+    quick = "QUICK_" if act.startswith("quick") else ""
+    counter = ("LAUNCHES_RES" if res else "LAUNCHES_BF16" if act == "none"
+               else f"LAUNCHES_{quick}DACT" if act.endswith("dact")
+               else f"LAUNCHES_{quick}GELU")
     before = getattr(_site, counter)
     out, z = _site.site_cuda(*args, s, return_z=True, **kw)
     again, z_again = _site.site_cuda(*args, s, return_z=True, **kw)
@@ -1131,8 +1256,8 @@ def test_cp_site_wgmma_matches_plain(dev, ln, act, res, r, k, n, m):
     assert torch.equal(out, again) and torch.equal(z, z_again)
     a32, kw32 = [t.float() for t in args], _f32(kw)
     ref = _site.site_forward_plain(*a32, s, **kw32)
-    _check("cp_site_fc1_dact" if act == "dact" else "cp_site_qkv_ln", out,
-           ref)
+    _check("cp_site_fc1_dact" if act.endswith("dact") else "cp_site_qkv_ln",
+           out, ref)
     xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
     assert z.shape == (m, _bwd.RANK_W) and not z[:, r:].any()
     _check("cp_site_qkv_ln", z[:, :r], xa @ a32[3])
@@ -1165,6 +1290,42 @@ def test_cp_site_pre_output_matches_plain(dev, ln, r, k, n, m):
     xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
     ref = _site.site_plain(xa, *a32[1:], s)
     _check("cp_site_qkv_ln", pre, ref)
+
+
+# The quick_gelu site's saved pre-activation: (ln, rank, k, n, m) at the
+# fc1 shapes of ViT-B and CLIP ViT-L/14.
+QUICK_PRE_CASES = [(ln, r, k, n, m) for ln in (False, True)
+                   for r in (0, 8, 64)
+                   for k, n in ((768, 3072), (1024, 4096))
+                   for m in (197, 16448)]
+
+
+@pytest.mark.parametrize(
+    "ln, r, k, n, m", QUICK_PRE_CASES,
+    ids=[f"{'ln' if ln else 'x'}_r{r}_k{k}_n{n}_m{m}"
+         for ln, r, k, n, m in QUICK_PRE_CASES])
+def test_cp_site_quick_pre_output_matches_plain(dev, ln, r, k, n, m):
+    """The quick_gelu site with its pre-activation output (CLIP's fc1 in
+    the save-pre mode): the output bit for bit the same as without it and
+    within ``cp_site_fc1_ln_gelu``'s tolerance of the fp32 plain one, the
+    pre-activation within ``cp_site_qkv_ln``'s, counted once under
+    ``LAUNCHES_QUICK_GELU_PRE`` and never under the GELU's counters."""
+    args, kw = _site_inputs(dev, ln, "quick_gelu", False, r, k, n, m,
+                            9 + m + r)
+    s = 2.0
+    before = (_site.LAUNCHES_QUICK_GELU_PRE, _site.LAUNCHES_GELU,
+              _site.LAUNCHES_GELU_PRE)
+    out, pre = _site.site_cuda(*args, s, return_pre=True, **kw)
+    plain_out = _site.site_cuda(*args, s, **kw)
+    torch.cuda.synchronize()
+    assert (_site.LAUNCHES_QUICK_GELU_PRE, _site.LAUNCHES_GELU,
+            _site.LAUNCHES_GELU_PRE) == (before[0] + 1, *before[1:])
+    assert torch.equal(out, plain_out)
+    a32, kw32 = [t.float() for t in args], _f32(kw)
+    _check("cp_site_fc1_ln_gelu", out, _site.site_forward_plain(
+        *a32, s, **kw32))
+    xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
+    _check("cp_site_qkv_ln", pre, _site.site_plain(xa, *a32[1:], s))
 
 
 @pytest.mark.parametrize("m, n, per", [(12608, 768, 197), (197, 3072, 1),

@@ -94,13 +94,13 @@ def test_plain_site_matches_cp_dense_kernels(form, r, s):
     kw = {}
     if ln:
         kw["ln"] = (t["ls"], t["lb"], EPS)
-    if form == "ln_gelu":
-        kw["gelu"] = True
+    act = "gelu" if form in ("ln_gelu", "dact") else None
+    if act:
+        kw["act"] = act
     if form == "dact":
         kw["dact_g"] = t["g"]
     got = _site.site_forward_plain(t["x"], t["w"], t["b"], tu, tv, t["cb"],
                                    s, **kw)
-    act = "gelu" if form in ("ln_gelu", "dact") else None
     if form == "dact":
         want = j_dense._cp_dense_raw(
             j["x"], j["w"], j["b"], ju, jv, j["cb"], s, 256, n, k, True,
@@ -139,7 +139,7 @@ def test_plain_sites_match_mlp_fwd_kernel(r, s):
     rows = torch.from_numpy(np.repeat(dpm.reshape(2), 37))
     h = _site.site_forward_plain(x2, t["w1"], t["b1"], t["u1"], t["v1"],
                                  t["cb1"], s, ln=(t["ls"], t["lb"], EPS),
-                                 gelu=True)
+                                 act="gelu")
     got = _site.site_forward_plain(h, t["w2"], t["b2"], t["u2"], t["v2"],
                                    t["cb2"], s, res=x2, dpm_rows=rows)
     j = {key: jnp.asarray(val) for key, val in a.items()}

@@ -28,7 +28,9 @@ bf16:
   rows 5 (the attention block), 7 (its element-dropout form), 9 (the MLP
   block), 13 (both split sites; the fc1 site's GELU body forward and
   dact) and 19 (the whole-block eval) at B = 64, N = 197
-  (``chip_smoke``'s entries), median of 20 timed calls and back to back,
+  (``chip_smoke``'s entries; in a tree with the quick_gelu forms, rows 9,
+  10, 11, 13 and 19 with quick_gelu too, ``*_quick``), median of 20
+  timed calls and back to back,
   the host's time to issue one call (``*_host_ms``), with each row's
   device time split by launch (``torch.profiler``, five calls); row
   11's five ``grad_gemm`` products alone (NN ``PRE_GELU``, NT ``DGELU``,
@@ -179,11 +181,15 @@ def _launch_split(fn, calls=5) -> dict:
 
 def _site_products(cs, dev, inp) -> dict:
     """The forward site's five forms at ViT-B (M 12608) through
-    ``_site.site_cuda``, whose keywords both trees take: the whole site
+    ``_site.site_cuda`` (its GELU named as the tree's keywords name it:
+    ``act="gelu"``, or ``gelu=True`` in a tree before the activation
+    argument, whose dact mode was the GELU's alone): the whole site
     (the LN pass included on an LN site) and the product alone on xa =
     bf16(LN(x)), ms by events, TFLOP/s of its products (x W, x U, z V),
     beside ``torch.matmul`` of x W on the same bf16 operands (a yardstick
     only)."""
+    import inspect
+
     import torch
     from cara_tpu_torch.ops.cuda import _site
     from cara_tpu_torch.ops.layers import layer_norm
@@ -197,17 +203,20 @@ def _site_products(cs, dev, inp) -> dict:
     ln1 = (a["ln_scale"], a["ln_bias"], 1e-6)
     ln2 = (m["ln_scale"], m["ln_bias"], 1e-6)
     s = 1.5
+    has_act = "act" in inspect.signature(_site.site_cuda).parameters
+    gelu = {"act": "gelu"} if has_act else {"gelu": True}
+    dact = {"act": "gelu"} if has_act else {}
     forms = {
         "qkv_ln": ((x_attn, a["wq"], a["bq"], a["u1"], a["v1"], None, s),
                    dict(ln=ln1)),
         "proj_res": ((inp["o"].reshape(-1, e), a["wp"], a["bp"], a["u2"],
                       a["v2"], a["cb2"], s), dict(res=x_attn, dpm_rows=dpm)),
         "fc1_ln_gelu": ((xm, m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"],
-                         s), dict(ln=ln2, gelu=True)),
+                         s), dict(ln=ln2, **gelu)),
         "fc2_res": ((h, m["w2"], m["b2"], m["u2"], m["v2"], m["cb2"], s),
                     dict(res=xm, dpm_rows=dpm)),
         "fc1_dact": ((xm, m["w1"], m["b1"], m["u1"], m["v1"], m["cb1"], s),
-                     dict(ln=ln2, dact_g=h)),
+                     dict(ln=ln2, dact_g=h, **dact)),
     }
     out = {}
     for key, (args, kw) in forms.items():
@@ -230,6 +239,36 @@ def _site_products(cs, dev, inp) -> dict:
         out[f"site_{key}_matmul_ms"] = lib
         out[f"site_{key}_matmul_tflops"] = (2 * rows * k * w.shape[1]
                                             / lib / 1e9)
+    return out
+
+
+def _quick_rows(cs, dev) -> dict:
+    """The quick_gelu forms of rows 9, 10 and 11 (saved), 13 (forward
+    and dact) and 19 at the ViT-B shapes of their GELU forms
+    (``*_quick``), timed as :func:`_rows` times those, so that the two
+    activations compare in one child."""
+    from cara_tpu_torch.ops.cuda import block_pair as pair_mod
+
+    inp = cs.kernel_inputs(dev, act="quick_gelu")
+    calls = cs.mlp_kernel_calls(inp, names=(
+        "cp_mlp_block", "cp_mlp_block_bwd_saved",
+        "cp_mlp_block_wd_bwd_saved"))
+    calls.update(cs.gelu_kernel_calls(inp))
+    pair = cs.pair_args(inp)
+    calls["block_pair_fwd"] = (lambda: pair_mod.block_pair_fwd(
+        *pair, inp["heads"], inp["sm"], inp["n_real"], 1.0,
+        act="quick_gelu"),)
+    out = {}
+    for key, name in (("row9_quick", "cp_mlp_block"),
+                      ("row10_saved_quick", "cp_mlp_block_bwd_saved"),
+                      ("row11_saved_quick", "cp_mlp_block_wd_bwd_saved"),
+                      ("row13_quick_gelu", "cp_dense_gelu"),
+                      ("row13_quick_dact", "cp_dense_dact"),
+                      ("row19_quick", "block_pair_fwd")):
+        fn = calls[name][0]
+        out[f"{key}_ms"] = cs.median_ms(fn)
+        out[f"{key}_b2b_ms"] = _b2b_ms(fn)
+        out[f"{key}_split"] = _launch_split(fn)
     return out
 
 
@@ -265,6 +304,8 @@ def _rows(cs, dev) -> dict:
         out[f"{key}_host_ms"] = _host_ms(fn)
         out[f"{key}_split"] = _launch_split(fn)
     out.update(_site_products(cs, dev, inp))
+    if hasattr(cs, "QUICK_FORMS"):  # a tree with the quick_gelu forms
+        out.update(_quick_rows(cs, dev))
     del calls, inp
     torch.cuda.empty_cache()
     m, e, hid = 64 * 197, 768, 3072
