@@ -31,7 +31,7 @@ namespace {
 
 using tiled_attention::Rows;
 
-// The forward at head width dh (16, 32 or 64); keys >= n_real
+// The forward at head width dh (16, 32, 64 or 80); keys >= n_real
 // (1 <= n_real <= N) masked.  Returns cudaGetLastError() (or the
 // shared-memory attribute's error, or cudaErrorInvalidValue).
 int attention_fwd(const __nv_bfloat16* q, Rows sq, const __nv_bfloat16* k,
@@ -52,6 +52,9 @@ int attention_fwd(const __nv_bfloat16* q, Rows sq, const __nv_bfloat16* k,
     case 64:
       return launch_fwd<64>(q, sq, k, sk, v, sv, out, so, lse, B, N, heads,
                             n_real, scale, stream);
+    case 80:
+      return launch_fwd<80>(q, sq, k, sk, v, sv, out, so, lse, B, N, heads,
+                            n_real, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -59,7 +62,7 @@ int attention_fwd(const __nv_bfloat16* q, Rows sq, const __nv_bfloat16* k,
 }  // namespace
 
 // qkv (B, N, 3E) bf16 -> out (B, N, E) bf16 and lse (B, N, heads) fp32;
-// keys >= n_real (1 <= n_real <= N) masked.  dh must be 16, 32 or 64.
+// keys >= n_real (1 <= n_real <= N) masked.  dh must be 16, 32, 64 or 80.
 // Returns cudaGetLastError() (or the shared-memory attribute's or a
 // tensor-map encoding's error).
 extern "C" int cara_blockwise_attention(const void* qkv, void* out, void* lse,

@@ -15,8 +15,8 @@
 // _dkv_kernel (the two pallas_calls of _bwd_rule), TPU row 16, plus the
 // row pass D = rowsum(do * o) that JAX computes in XLA between them.  What
 // bounds it and what the design does about it: tiled_attention_bwd.cuh.
-// dq is summed over the key tiles through an fp32 scratch by the memory
-// system, so it is not bitwise deterministic.
+// dq is summed over the key tiles through an fp32 scratch in key-tile
+// order, so it is bitwise deterministic.
 
 #include "tiled_attention_bwd.cuh"
 
@@ -25,7 +25,7 @@ namespace {
 using tiled_attention::BwdArgs;
 using tiled_attention::Rows;
 
-// The row pass, dq, dk and dv at head width dh (16, 32 or 64).  Keys >=
+// The row pass, dq, dk and dv at head width dh (16, 32, 64 or 80).  Keys >=
 // a.n_real (1 <= n_real <= N) masked.  Returns cudaGetLastError() of the
 // first launch that failed (or cudaErrorInvalidValue).
 int attention_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
@@ -37,6 +37,7 @@ int attention_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
     case 16: return launch_bwd<16>(a, o, so, B, stream);
     case 32: return launch_bwd<32>(a, o, so, B, stream);
     case 64: return launch_bwd<64>(a, o, so, B, stream);
+    case 80: return launch_bwd<80>(a, o, so, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -46,7 +47,7 @@ int attention_bwd(const BwdArgs& a, const __nv_bfloat16* o, Rows so, int B,
 // qkv (B, N, 3E), o and do (B, N, E) bf16, lse (B, N, heads) fp32 ->
 // dqkv (B, N, 3E) bf16.  Scratch: rows (B, heads, 2, NP) fp32 and dq_acc
 // (B, heads, NP, dh) fp32 zeroed, NP = N rounded up to 64.  Keys >= n_real
-// (1 <= n_real <= N) masked; dh must be 16, 32 or 64.  Returns
+// (1 <= n_real <= N) masked; dh must be 16, 32, 64 or 80.  Returns
 // cudaGetLastError() of the first launch that failed.
 extern "C" int cara_blockwise_attention_bwd(const void* qkv, const void* o,
                                             const void* dout, const void* lse,

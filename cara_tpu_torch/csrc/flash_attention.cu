@@ -33,22 +33,40 @@
 
 #include "tiled_attention_fwd.cuh"
 
-// q, k, v -> out (bf16, any (B, H, N, 64) strides in `strides`: q, k, v,
+namespace {
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* lse, const tiled_attention::Rows* s, int B, int N,
+           int heads, float scale, cudaStream_t stream) {
+  return tiled_attention::launch_fwd<DH>(
+      static_cast<const __nv_bfloat16*>(q), s[0],
+      static_cast<const __nv_bfloat16*>(k), s[1],
+      static_cast<const __nv_bfloat16*>(v), s[2],
+      static_cast<__nv_bfloat16*>(out), s[3], static_cast<float*>(lse), B, N,
+      heads, N, scale, stream);
+}
+
+}  // namespace
+
+// q, k, v -> out (bf16, any (B, H, N, Dh) strides in `strides`: q, k, v,
 // out, each (batch, head, row)) and lse (B, N, heads) fp32 contiguous.
-// Only head width 64.  Returns cudaGetLastError() (or the shared-memory
-// attribute's or a tensor-map encoding's error, or cudaErrorInvalidValue).
+// Head width dh 16, 32, 64 or 80 (the instances rows 2 and 16 build too).
+// Returns cudaGetLastError() (or the shared-memory attribute's or a
+// tensor-map encoding's error, or cudaErrorInvalidValue).
 extern "C" int cara_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     const long long* strides, int B, int N,
                                     int heads, int dh, float scale,
                                     void* stream_ptr) {
-  using namespace tiled_attention;
-  if (dh != 64 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Rows* s = reinterpret_cast<const Rows*>(strides);
-  return launch_fwd<64>(static_cast<const __nv_bfloat16*>(q), s[0],
-                        static_cast<const __nv_bfloat16*>(k), s[1],
-                        static_cast<const __nv_bfloat16*>(v), s[2],
-                        static_cast<__nv_bfloat16*>(out), s[3],
-                        static_cast<float*>(lse), B, N, heads, N, scale,
-                        reinterpret_cast<cudaStream_t>(stream_ptr));
+  if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* s = reinterpret_cast<const tiled_attention::Rows*>(strides);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream_ptr);
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, out, lse, s, B, N, heads, scale, st);
+    case 32: return launch<32>(q, k, v, out, lse, s, B, N, heads, scale, st);
+    case 64: return launch<64>(q, k, v, out, lse, s, B, N, heads, scale, st);
+    case 80: return launch<80>(q, k, v, out, lse, s, B, N, heads, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -19,7 +19,7 @@
 // from rowsum(do * o) on the bf16 output (the same sum in exact
 // arithmetic; a bf16-level difference).  ds is rounded to bf16 before the
 // dq and dk products, as on the TPU.  dq is summed over the key tiles
-// through an fp32 scratch by the memory system, so it is not bitwise
+// through an fp32 scratch in key-tile order, so it is bitwise
 // deterministic.
 //
 // What bounds it: at B = 64, N = 197, H = 12, Dh = 64 the function needs
@@ -32,9 +32,9 @@
 // q, k, v, o, do (bf16) and lse (B, N, heads) fp32 -> dq, dk, dv (bf16).
 // Scratch: rows (B, heads, 2, NP) fp32 and dq_acc (B, heads, NP, dh) fp32
 // zeroed, NP = N rounded up to 64.  `strides` holds the (batch, head, row)
-// strides of q, k, v, o, do, dq, dk, dv in that order.  Only head width
-// 64.  Returns cudaGetLastError() of the first launch that failed (or
-// cudaErrorInvalidValue).
+// strides of q, k, v, o, do, dq, dk, dv in that order.  Head width dh 16,
+// 32, 64 or 80.  Returns cudaGetLastError() of the first launch that failed
+// (or cudaErrorInvalidValue).
 extern "C" int cara_flash_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const void* lse,
@@ -44,7 +44,7 @@ extern "C" int cara_flash_attention_bwd(const void* q, const void* k,
                                         int B, int N, int heads, int dh,
                                         float scale, void* stream_ptr) {
   using namespace tiled_attention;
-  if (dh != 64 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Rows* s = reinterpret_cast<const Rows*>(strides);
   BwdArgs a{static_cast<const __nv_bfloat16*>(q),
             static_cast<const __nv_bfloat16*>(k),
@@ -56,6 +56,13 @@ extern "C" int cara_flash_attention_bwd(const void* q, const void* k,
             static_cast<__nv_bfloat16*>(dk),
             static_cast<__nv_bfloat16*>(dv), s[5], s[6], s[7],
             N, heads, N, scale};
-  return launch_bwd<64>(a, static_cast<const __nv_bfloat16*>(o), s[3], B,
-                        reinterpret_cast<cudaStream_t>(stream_ptr));
+  const auto* ov = static_cast<const __nv_bfloat16*>(o);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream_ptr);
+  switch (dh) {
+    case 16: return launch_bwd<16>(a, ov, s[3], B, st);
+    case 32: return launch_bwd<32>(a, ov, s[3], B, st);
+    case 64: return launch_bwd<64>(a, ov, s[3], B, st);
+    case 80: return launch_bwd<80>(a, ov, s[3], B, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

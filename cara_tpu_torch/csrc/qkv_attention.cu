@@ -34,7 +34,15 @@
 //     tile's place;
 //   - above 256 keys (ViT-L/14, ViT-H/14: 257 tokens) the keys go in two
 //     256-wide chunks with the same code: pass 1 takes the row max, pass 2
-//     the exponentials, the sum and P V.
+//     the exponentials, the sum and P V;
+//   - at Dh 80 (ViT-H/14) a head is a 64-column and a 16-column part
+//     (sm90_common.cuh, HeadTile): two TMA boxes and descriptors a tile,
+//     the score k-steps four on the first part and one on the second,
+//     P V and the output store one a part.  Q, K and V of an item would
+//     not fit one block past ~300 tokens (247,808 bytes at 512), so K and
+//     V alone make the item's slot (163,840 bytes at 512; two slots up to
+//     256 tokens) and each warpgroup streams its query tiles through a
+//     ring of three (kRing), loading the next while it computes one.
 // Measured on one H100 80GB HBM3 at 700 W (tools/compare_parent.py, one
 // run in turns with the previous design): 0.0735 / 0.0787 ms, 29-31 % of
 // the bound, 1.1-1.2x SDPA's 0.0614 / 0.0695 in the same turns.  What
@@ -64,14 +72,21 @@ using namespace sm90;
 constexpr int kMaxSmem = 232448;  // H100: 227 KB per block (opt-in)
 constexpr int kThreads = 256;     // two consumer warpgroups
 constexpr int kSlab = 64;         // rows of one TMA box (and query tile)
+constexpr int kRing = 3;          // query tiles of a warpgroup's ring
 constexpr float kNegInf = -1e30f;
 
 __host__ __device__ constexpr int slabs(int rows) {
   return (rows + kSlab - 1) / kSlab;
 }
 
-// Rows of one item in shared memory: Q (the query tiles), then K and V
-// (each `nch` chunks of the chunk width rounded up to 16, in 64-row slabs).
+// Whether the query tiles stream through a ring (Dh 80: Q resident as well
+// as K and V would not fit one block past ~300 tokens) rather than arrive
+// with the item.
+__host__ __device__ constexpr bool q_ring(int dh) { return dh > 64; }
+
+// Rows of one item's slot in shared memory: Q (the query tiles, none when
+// they stream through the ring), then K and V (each `nch` chunks of the
+// chunk width rounded up to 16, in 64-row slabs).
 struct Plan {
   int nch, q_slabs, kv_slabs;  // kv_slabs: per chunk
   __host__ __device__ int rows() const {
@@ -79,16 +94,28 @@ struct Plan {
   }
 };
 
-__host__ __device__ inline Plan make_plan(int N, int nk) {
+__host__ __device__ inline Plan make_plan(int N, int nk, bool ring) {
   Plan p;
   p.nch = N > nk ? 2 : 1;
-  p.q_slabs = slabs(N);
+  p.q_slabs = ring ? 0 : slabs(N);
   p.kv_slabs = slabs((nk + 15) & ~15);
   return p;
 }
 
+// The TMA maps of the qkv input and the output, one a part of the head.
+template <int DH>
+struct Maps {
+  static constexpr int P = HeadTile<DH>::PARTS;
+  CUtensorMap in[P], out[P];
+};
+
 __host__ __device__ inline int chunk_width(int N) {
   return N <= 64 ? 64 : N <= 128 ? 128 : N <= 200 ? 200 : 256;
+}
+
+// Rows of a K or V chunk in shared memory (a head stack, HeadTile).
+__host__ __device__ constexpr int chunk_rows(int nk) {
+  return slabs((nk + 15) & ~15) * kSlab;
 }
 
 // S (64 x NK) = Q tile . K chunk^T, fp32 in the accumulator layout.
@@ -96,12 +123,12 @@ template <int DH, int NK>
 __device__ __forceinline__ void scores(float (&s)[NK / 2],
                                        const __nv_bfloat16* qt,
                                        const __nv_bfloat16* kc) {
-  constexpr int RB = DH * 2;
-  const uint64_t dq = desc<RB>(qt), dk = desc<RB>(kc);
+  constexpr int KR = chunk_rows(NK);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
-    wgmma_ss<NK, 0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    wgmma_ss<NK, 0, 0>(s, head_kdesc<DH, kSlab>(qt, kk),
+                       head_kdesc<DH, KR>(kc, kk), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -154,7 +181,6 @@ __device__ __forceinline__ void softmax_pv(float (&s)[NK / 2],
                                            float (&l)[2], float (&o)[DH / 2],
                                            const __nv_bfloat16* vc) {
   constexpr int KSTEPS = (NK + 15) / 16;
-  constexpr int RB = DH * 2;
   float ls[2][4] = {};
 #pragma unroll
   for (int i = 0; i < NK / 2; ++i) {
@@ -176,46 +202,62 @@ __device__ __forceinline__ void softmax_pv(float (&s)[NK / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk)
-    wgmma_rs<DH, 1>(o, pa[kk], desc<RB>(vc + kk * 16 * DH), 1);
+    wgmma_rs_head<DH, chunk_rows(NK)>(o, pa[kk], vc, kk, 1);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
 }
 
-// Q, K and V of item (b, h) into one slot: q_slabs boxes of Q, then per
-// chunk kv_slabs boxes of K and of V, all counted on `bar`.
-template <int DH>
-__device__ __forceinline__ void load_item(const CUtensorMap* map,
+// Q, K and V of item (b, h) into one slot: q_slabs boxes of Q (each its
+// own 64-row stack), then per chunk kv_slabs boxes of K and of V (a chunk
+// one stack of chunk_rows(NK) rows), all counted on `bar`.
+template <int DH, int NK>
+__device__ __forceinline__ void load_item(const CUtensorMap* maps,
                                           uint64_t* bar, __nv_bfloat16* dst,
-                                          const Plan& pl, int nk, int b,
-                                          int h, int heads) {
+                                          const Plan& pl, int b, int h,
+                                          int heads) {
+  constexpr int KR = chunk_rows(NK);
   const int e = heads * DH;
   mbar_expect_tx(bar, (uint32_t)pl.rows() * DH * 2);
   __nv_bfloat16* p = dst;
   for (int s = 0; s < pl.q_slabs; ++s, p += kSlab * DH)
-    tma_load_3d(p, map, bar, h * DH, s * kSlab, b);
+    tma_load_head_3d<DH, kSlab>(p, 0, maps, bar, h * DH, s * kSlab, b);
   for (int part = 1; part <= 2; ++part)  // K, then V
-    for (int c = 0; c < pl.nch; ++c)
-      for (int s = 0; s < pl.kv_slabs; ++s, p += kSlab * DH)
-        tma_load_3d(p, map, bar, part * e + h * DH, c * nk + s * kSlab, b);
+    for (int c = 0; c < pl.nch; ++c, p += KR * DH)
+      for (int s = 0; s < pl.kv_slabs; ++s)
+        tma_load_head_3d<DH, KR>(p, s * kSlab, maps, bar,
+                                 part * e + h * DH, c * NK + s * kSlab, b);
+}
+
+// Query tile qt of item `it` into a ring slot of one warpgroup.
+template <int DH>
+__device__ __forceinline__ void load_query(const CUtensorMap* maps,
+                                           uint64_t* bar, __nv_bfloat16* dst,
+                                           int it, int qt, int heads) {
+  mbar_expect_tx(bar, kSlab * DH * 2);
+  tma_load_head_3d<DH, kSlab>(dst, 0, maps, bar, (it % heads) * DH,
+                              qt * kSlab, it / heads);
 }
 
 template <int DH, int NK>
 __global__ void __launch_bounds__(kThreads, 1)
-qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
-                     const __grid_constant__ CUtensorMap omap, int B, int N,
+qkv_attention_kernel(const __grid_constant__ Maps<DH> maps, int B, int N,
                      int heads, int n_real, float scale, int prescale,
                      int slots) {
-  constexpr int RB = DH * 2;
+  constexpr bool RING = q_ring(DH);
   extern __shared__ unsigned char smem_raw[];
   // Swizzled tiles want 1024-byte alignment; the barriers sit in front.
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* qfull = full + 2;  // [warpgroup][kRing] (RING)
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem + 1024);
 
-  const Plan pl = make_plan(N, NK);
+  const Plan pl = make_plan(N, NK, RING);
   const int slot_elems = pl.rows() * DH;
+  // RING: warpgroup wg's query tiles stream through its kRing slots after
+  // the item slots.
+  __nv_bfloat16* ring = tiles + slots * slot_elems;
   const int items = B * heads;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -224,12 +266,14 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int ntq = pl.q_slabs;
+  const int ntq = slabs(N);  // query tiles of an item
   // The scale still to apply to the scores: none after the pre-scaled q.
   const float sc = prescale ? 1.f : scale;
 
   if (tid == 0) {
     for (int s = 0; s < slots; ++s) mbar_init(&full[s], 1);
+    if (RING)
+      for (int s = 0; s < 2 * kRing; ++s) mbar_init(&qfull[s], 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -237,11 +281,15 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
     for (int s = 0; s < slots; ++s) {
       const int it = blockIdx.x + s * gridDim.x;
       if (it < items)
-        load_item<DH>(&map, &full[s], tiles + s * slot_elems, pl, NK,
-                      it / heads, it % heads, heads);
+        load_item<DH, NK>(maps.in, &full[s], tiles + s * slot_elems, pl,
+                          it / heads, it % heads, heads);
     }
+  // RING: the warpgroup's first query tile (qt = wg of the first item).
+  if (RING && wtid == 0 && blockIdx.x < items && wg < ntq)
+    load_query<DH>(maps.in, &qfull[wg * kRing], ring + wg * kRing * kSlab * DH,
+                   blockIdx.x, wg, heads);
 
-  int k = 0;
+  int k = 0, j = 0;  // j: the warpgroup's query tiles so far (RING)
   for (int it = blockIdx.x; it < items; it += gridDim.x, ++k) {
     const int slot = k % slots;
     const int b = it / heads;
@@ -252,8 +300,28 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
     const __nv_bfloat16* vs = ks + pl.nch * pl.kv_slabs * kSlab * DH;
     const int kc_elems = pl.kv_slabs * kSlab * DH;
 
-    for (int qt = wg; qt < ntq; qt += 2) {
+    for (int qt = wg; qt < ntq; qt += 2, ++j) {
       __nv_bfloat16* qtile = qs + qt * kSlab * DH;
+      if constexpr (RING) {
+        // Tile j in ring slot j % kRing; tile j + 1 (the next of this item,
+        // or the first of the next) loads into the slot of tile j - 2,
+        // whose store has read it once all but the newest store (tile
+        // j - 1's PARTS groups) have.
+        __nv_bfloat16* wring = ring + wg * kRing * kSlab * DH;
+        qtile = wring + (j % kRing) * kSlab * DH;
+        if (wtid == 0) {
+          const bool same = qt + 2 < ntq;
+          const int nit = same ? it : it + gridDim.x;
+          if (nit < items) {
+            const int ns = (j + 1) % kRing;
+            bulk_wait_read_n<HeadTile<DH>::PARTS>();
+            load_query<DH>(maps.in, &qfull[wg * kRing + ns],
+                           wring + ns * kSlab * DH, nit, same ? qt + 2 : wg,
+                           heads);
+          }
+        }
+        mbar_wait(&qfull[wg * kRing + j % kRing], (j / kRing) & 1);
+      }
       if (prescale) {
         // q = bf16(q * scale) in place (the swizzle moves whole 16-byte
         // pieces, so every element is scaled wherever it lies).  A scale
@@ -265,8 +333,8 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
           uint4 x = *p;
           __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&x);
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            el[j] = __float2bfloat16(__bfloat162float(el[j]) * scale);
+          for (int u = 0; u < 8; ++u)
+            el[u] = __float2bfloat16(__bfloat162float(el[u]) * scale);
           *p = x;
         }
         fence_proxy_async();
@@ -310,23 +378,26 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
       for (int r = 0; r < 2; ++r) {
         const uint32_t row = warp * 16 + g + 8 * r;
 #pragma unroll
-        for (int j = 0; j < DH / 8; ++j)
+        for (int c = 0; c < DH / 8; ++c)
           *reinterpret_cast<uint32_t*>(
-              ot + swizzle<RB>(row * RB + (8 * j + 2 * t) * 2)) =
-              pack_bf16(o[4 * j + 2 * r] * inv[r],
-                        o[4 * j + 2 * r + 1] * inv[r]);
+              ot + head_byte<DH, kSlab>(row, 8 * c + 2 * t)) =
+              pack_bf16(o[4 * c + 2 * r] * inv[r],
+                        o[4 * c + 2 * r + 1] * inv[r]);
       }
       fence_proxy_async();
       named_barrier(1 + wg, 128);
-      if (wtid == 0) tma_store_3d(&omap, qtile, h * DH, qt * kSlab, b);
+      if (wtid == 0) tma_store_head_3d<DH>(maps.out, qtile, h * DH,
+                                           qt * kSlab, b);
     }
-    if (wtid == 0) bulk_wait_read();  // the stores have read their tiles
+    // The stores have read their tiles (RING: they read the ring, not the
+    // slot).
+    if (!RING && wtid == 0) bulk_wait_read();
     __syncthreads();  // every read of this slot is done: refill it
     if (tid == 0) {
       const int next = it + slots * gridDim.x;
       if (next < items)
-        load_item<DH>(&map, &full[slot], qs, pl, NK, next / heads,
-                      next % heads, heads);
+        load_item<DH, NK>(maps.in, &full[slot], qs, pl, next / heads,
+                          next % heads, heads);
     }
   }
   if (wtid == 0) bulk_wait();
@@ -334,9 +405,12 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap map,
 
 // Shared-memory bytes of one block with `slots` slots at (N, dh).
 size_t smem_bytes(int N, int dh, int slots) {
-  const Plan pl = make_plan(N, chunk_width(N));
-  // 1024 bytes of alignment slack and 1024 for the barriers.
-  return 2048 + (size_t)slots * pl.rows() * dh * 2;
+  const bool ring = q_ring(dh);
+  const Plan pl = make_plan(N, chunk_width(N), ring);
+  // 1024 bytes of alignment slack and 1024 for the barriers; the query
+  // ring of both warpgroups.
+  return 2048 + (size_t)slots * pl.rows() * dh * 2 +
+         (ring ? (size_t)2 * kRing * kSlab * dh * 2 : 0);
 }
 
 template <int DH, int NK>
@@ -349,21 +423,22 @@ int launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int N,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const uint64_t e = (uint64_t)heads * DH;
-  CUtensorMap map, omap;
+  Maps<DH> maps;
   const uint64_t dims[3] = {3 * e, (uint64_t)N, (uint64_t)B};
   const uint64_t strides[2] = {3 * e * 2, 3 * e * 2 * N};
   const uint64_t odims[3] = {e, (uint64_t)N, (uint64_t)B};
   const uint64_t ostrides[2] = {e * 2, e * 2 * N};
   const uint32_t box[3] = {DH, kSlab, 1};
-  int enc = encode_map(&map, qkv, 3, dims, strides, box);
-  if (enc == 0) enc = encode_map(&omap, out, 3, odims, ostrides, box);
+  int enc = encode_head_maps<DH>(maps.in, qkv, 3, dims, strides, box);
+  if (enc == 0)
+    enc = encode_head_maps<DH>(maps.out, out, 3, odims, ostrides, box);
   if (enc != 0) return enc;
   int ex;
   const int prescale = frexpf(scale, &ex) != 0.5f;  // not a power of two
   const int items = B * heads;
   const int grid = items < sm_count() ? items : sm_count();
   qkv_attention_kernel<DH, NK><<<grid, kThreads, smem, stream>>>(
-      map, omap, B, N, heads, n_real, scale, prescale, slots);
+      maps, B, N, heads, n_real, scale, prescale, slots);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,7 +469,7 @@ extern "C" int cara_qkv_attention_smem(int N, int dh) {
 }
 
 // qkv (B, N, 3E) bf16 -> out (B, N, E) bf16, keys >= n_real masked.
-// dh must be 16, 32 or 64, N at most 512; qkv 16-byte aligned.  Returns
+// dh must be 16, 32, 64 or 80, N at most 512; qkv 16-byte aligned.  Returns
 // cudaGetLastError() (or the error of the shared-memory attribute call or
 // of the tensor-map encoding).
 extern "C" int cara_qkv_attention(const void* qkv, void* out, int B, int N,
@@ -409,6 +484,7 @@ extern "C" int cara_qkv_attention(const void* qkv, void* out, int B, int N,
     case 16: return launch_dh<16>(in, o, B, N, heads, n_real, scale, stream);
     case 32: return launch_dh<32>(in, o, B, N, heads, n_real, scale, stream);
     case 64: return launch_dh<64>(in, o, B, N, heads, n_real, scale, stream);
+    case 80: return launch_dh<80>(in, o, B, N, heads, n_real, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

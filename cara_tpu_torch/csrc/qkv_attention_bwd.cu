@@ -48,9 +48,9 @@
 // once.  The scores are s = (q . k) * scale in fp32 and dk = (ds^T q) *
 // scale, where attn_bwd_tile takes qs = bf16(q * scale), s = qs . k and
 // dk = ds^T qs: the same at a power-of-two scale (Dh 16, 64), a bf16-level
-// difference at Dh 32.  dq's fp32 sum over the key tiles is taken by the
-// memory system in no fixed order, so dq is not bitwise deterministic from
-// call to call (dk and dv are); the previous design was.
+// difference at Dh 32 and 80.  dq's fp32 sum over the key tiles is taken
+// in key-tile order (tiled_attention_bwd.cuh), so dq, dk and dv are
+// bitwise deterministic from call to call.
 
 #include "tiled_attention_bwd.cuh"
 
@@ -75,7 +75,7 @@ int launch(const BwdArgs& a, int B, cudaStream_t stream) {
 // qkv (B, N, 3E), do (B, N, E) bf16 -> dqkv (B, N, 3E) bf16, keys >=
 // n_real (1 <= n_real <= N) masked.  Scratch: rows (B, heads, 2, NP) fp32
 // and dq_acc (B, heads, NP, dh) fp32 zeroed, NP = N rounded up to 64.  dh
-// must be 16, 32 or 64.  Returns cudaGetLastError() of the first launch
+// must be 16, 32, 64 or 80.  Returns cudaGetLastError() of the first launch
 // that failed (or cudaErrorInvalidValue, or a tensor-map encoding error).
 extern "C" int cara_qkv_attention_bwd(const void* qkv, const void* dout,
                                       void* rows, void* dq_acc, void* dqkv,
@@ -99,6 +99,7 @@ extern "C" int cara_qkv_attention_bwd(const void* qkv, const void* dout,
     case 16: return launch<16>(a, B, stream);
     case 32: return launch<32>(a, B, stream);
     case 64: return launch<64>(a, B, stream);
+    case 80: return launch<80>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,7 +11,8 @@
 // Swizzle: a tile whose rows are W = 32, 64 or 128 bytes (16, 32 or 64
 // bf16) is loaded by TMA with the swizzle of the same width, and wgmma
 // reads it with the matching layout type.  Its base must be aligned to 8
-// rows (256, 512 or 1024 bytes).
+// rows (256, 512 or 1024 bytes).  A head wider than 64 columns (Dh 80) is
+// one such tile a part (HeadTile below).
 
 #pragma once
 
@@ -62,6 +63,105 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p,
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// A head's Dh columns as swizzle parts, for the attention kernels: part 0
+// is min(Dh, 64) columns (Dh 16, 32 and 64 are one part, the swizzle of a
+// Dh * 2-byte row), part 1 the rest, 16 or 32 columns (Dh 80 = 64 + 16: a
+// 160-byte row has no swizzle mode, and the 128-byte swizzle caps a TMA
+// box row at 128 bytes).  A stack of ROWS rows of a head (ROWS a multiple
+// of 64: a tile, a key chunk) keeps its parts one after the other, part 0
+// (ROWS x W0) then part 1 (ROWS x W1), each with the swizzle of its own
+// row width, so that within a part 8-row groups are a constant stride
+// apart (a wgmma operand of up to ROWS rows) and a 1024-aligned stack puts
+// part 1 on a 256-byte boundary.  Single-part widths lay out exactly as a
+// dense ROWS x Dh tile.
+//   - a product that reduces over Dh (s = q k^T, dp = do v^T) takes its
+//     16-column k-steps in order, W0 / 16 on part 0 then W1 / 16 on part 1,
+//     each with its part's K-major descriptor (head_kdesc);
+//   - a product whose output is Dh wide (P V, dv, dk, dq) is one wgmma a
+//     part, n = W0 and n = W1, each into its slice of the accumulator
+//     (wgmma_rs_head, wgmma_ss_head): the slices together hold the
+//     accumulator of one n = Dh product (d[4j + c] at column 8j + ...);
+//   - TMA moves a 64-row box a part (maps[p], box width W_p, at column
+//     c0 + col(p)), counted on one barrier (tma_load_head_*,
+//     tma_store_head_*).
+// No padding: every product does Dh columns of work.
+template <int DH>
+struct HeadTile {
+  static constexpr int W0 = DH > 64 ? 64 : DH;
+  static constexpr int W1 = DH - W0;
+  static constexpr int PARTS = W1 > 0 ? 2 : 1;
+  static_assert(W0 == 16 || W0 == 32 || W0 == 64, "part 0: 16, 32 or 64");
+  static_assert(W1 == 0 || W1 == 16 || W1 == 32, "part 1: 16 or 32");
+  __host__ __device__ static constexpr int width(int p) { return p ? W1 : W0; }
+  __host__ __device__ static constexpr int col(int p) { return p ? W0 : 0; }
+  // Elements from a ROWS-row stack's start to its part p.
+  template <int ROWS>
+  __host__ __device__ static constexpr int off(int p) {
+    return p ? ROWS * W0 : 0;
+  }
+};
+
+// K-major descriptor of k-step kk (Dh columns 16 kk .. 16 kk + 15) of the
+// ROWS-row head stack at t.
+template <int DH, int ROWS>
+__device__ __forceinline__ uint64_t head_kdesc(const __nv_bfloat16* t,
+                                               int kk) {
+  using H = HeadTile<DH>;
+  if constexpr (H::PARTS == 2) {
+    if (kk >= H::W0 / 16)
+      return desc<2 * H::W1>(t + H::template off<ROWS>(1)) +
+             2 * (kk - H::W0 / 16);
+  }
+  return desc<2 * H::W0>(t) + 2 * kk;
+}
+
+// MN-major descriptor of part P of k-step kk (stack rows 16 kk .. 16 kk +
+// 15, the reduction axis) of the ROWS-row head stack at t.
+template <int DH, int ROWS, int P>
+__device__ __forceinline__ uint64_t head_mndesc(const __nv_bfloat16* t,
+                                                int kk) {
+  using H = HeadTile<DH>;
+  constexpr int W = H::width(P);
+  return desc<2 * W>(t + H::template off<ROWS>(P) + kk * 16 * W);
+}
+
+// The slice of part P in an accumulator of one n = Dh product.
+template <int DH, int P>
+__device__ __forceinline__ float (&acc_part(float (&d)[DH / 2]))
+    [HeadTile<DH>::width(P) / 2] {
+  return *reinterpret_cast<float(*)[HeadTile<DH>::width(P) / 2]>(
+      d + (P ? HeadTile<DH>::W0 / 2 : 0));
+}
+
+// d (64 x Dh) (+)= A . B for B the 16-row k-step kk of the ROWS-row head
+// stack at t read MN-major, A from registers: one wgmma a part.
+template <int DH, int ROWS>
+__device__ __forceinline__ void wgmma_rs_head(float (&d)[DH / 2],
+                                              const uint32_t (&a)[4],
+                                              const __nv_bfloat16* t, int kk,
+                                              int scale_d) {
+  using H = HeadTile<DH>;
+  wgmma_rs<H::W0, 1>(acc_part<DH, 0>(d), a, head_mndesc<DH, ROWS, 0>(t, kk),
+                     scale_d);
+  if constexpr (H::PARTS == 2)
+    wgmma_rs<H::W1, 1>(acc_part<DH, 1>(d), a,
+                       head_mndesc<DH, ROWS, 1>(t, kk), scale_d);
+}
+
+// The same with A in shared memory by descriptor (TA = 1: MN-major).
+template <int DH, int ROWS, int TA>
+__device__ __forceinline__ void wgmma_ss_head(float (&d)[DH / 2],
+                                              uint64_t da,
+                                              const __nv_bfloat16* t, int kk,
+                                              int scale_d) {
+  using H = HeadTile<DH>;
+  wgmma_ss<H::W0, TA, 1>(acc_part<DH, 0>(d), da,
+                         head_mndesc<DH, ROWS, 0>(t, kk), scale_d);
+  if constexpr (H::PARTS == 2)
+    wgmma_ss<H::W1, TA, 1>(acc_part<DH, 1>(d), da,
+                           head_mndesc<DH, ROWS, 1>(t, kk), scale_d);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -84,6 +184,19 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // Shared-memory writes of the generic proxy made visible to TMA and wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Registers of each thread of the calling warpgroup raised (inc) or
+// lowered (dec) to N: a warpgroup that only issues copies hands its
+// registers to the consumer warpgroups (every warp of the warpgroup
+// executes it, before any divergence).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Barrier `id` (1..15) over `count` threads (a multiple of 32).
@@ -233,6 +346,11 @@ __device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// ... every committed bulk group but the newest N.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read_n() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
@@ -276,6 +394,67 @@ __device__ __forceinline__ void pass_turn(int* p) {
 template <int ROW_BYTES>
 __device__ __forceinline__ uint32_t swizzle(uint32_t a) {
   return a ^ ((a >> 3) & ((ROW_BYTES / 16 - 1) << 4));
+}
+
+// Byte offset of the element pair (row, col), (row, col + 1) (col even) in
+// the ROWS-row head stack, swizzled as its part's TMA box lays it out.
+template <int DH, int ROWS>
+__device__ __forceinline__ uint32_t head_byte(int row, int col) {
+  using H = HeadTile<DH>;
+  if constexpr (H::PARTS == 2) {
+    if (col >= H::W0)
+      return 2 * H::template off<ROWS>(1) +
+             swizzle<2 * H::W1>(row * 2 * H::W1 + (col - H::W0) * 2);
+  }
+  return swizzle<2 * H::W0>(row * 2 * H::W0 + col * 2);
+}
+
+// TMA: rows r0 .. r0 + 63 of the ROWS-row head stack at `stack` from the
+// box of each part's map at (c0, c1[, c2, c3]); c0 the head's first column.
+template <int DH, int ROWS>
+__device__ __forceinline__ void tma_load_head_3d(__nv_bfloat16* stack, int r0,
+                                                 const CUtensorMap* maps,
+                                                 uint64_t* bar, int c0,
+                                                 int c1, int c2) {
+  using H = HeadTile<DH>;
+#pragma unroll
+  for (int p = 0; p < H::PARTS; ++p)
+    tma_load_3d(stack + H::template off<ROWS>(p) + r0 * H::width(p),
+                &maps[p], bar, c0 + H::col(p), c1, c2);
+}
+template <int DH, int ROWS>
+__device__ __forceinline__ void tma_load_head_4d(__nv_bfloat16* stack, int r0,
+                                                 const CUtensorMap* maps,
+                                                 uint64_t* bar, int c0,
+                                                 int c1, int c2, int c3) {
+  using H = HeadTile<DH>;
+#pragma unroll
+  for (int p = 0; p < H::PARTS; ++p)
+    tma_load_4d(stack + H::template off<ROWS>(p) + r0 * H::width(p),
+                &maps[p], bar, c0 + H::col(p), c1, c2, c3);
+}
+// TMA: a 64-row head tile written by one store a part (each commits its
+// bulk group: HeadTile<DH>::PARTS groups).
+template <int DH>
+__device__ __forceinline__ void tma_store_head_3d(const CUtensorMap* maps,
+                                                  const __nv_bfloat16* tile,
+                                                  int c0, int c1, int c2) {
+  using H = HeadTile<DH>;
+#pragma unroll
+  for (int p = 0; p < H::PARTS; ++p)
+    tma_store_3d(&maps[p], tile + H::template off<64>(p), c0 + H::col(p), c1,
+                 c2);
+}
+template <int DH>
+__device__ __forceinline__ void tma_store_head_4d(const CUtensorMap* maps,
+                                                  const __nv_bfloat16* tile,
+                                                  int c0, int c1, int c2,
+                                                  int c3) {
+  using H = HeadTile<DH>;
+#pragma unroll
+  for (int p = 0; p < H::PARTS; ++p)
+    tma_store_4d(&maps[p], tile + H::template off<64>(p), c0 + H::col(p), c1,
+                 c2, c3);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -392,6 +571,24 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
     used[slot] = true;
   }
   return static_cast<int>(r);
+}
+
+// Host: one bf16 map a part of a head (HeadTile<DH>) over the same
+// tensor: `dims`, `strides` and `box` as encode_map's, box[0] (the head
+// columns) replaced by the part's width, hence its swizzle.
+template <int DH>
+inline int encode_head_maps(CUtensorMap* maps, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
+  using H = HeadTile<DH>;
+  for (int p = 0; p < H::PARTS; ++p) {
+    uint32_t b[5];
+    for (int i = 0; i < rank; ++i) b[i] = box[i];
+    b[0] = H::width(p);
+    const int err = encode_map(&maps[p], base, rank, dims, strides, b);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // Host: the number of SMs of the current device (cached).

@@ -72,6 +72,13 @@
 // an SM for the registers) overlaps only two such chains; the row pass,
 // the zeroing and the dq pass move another ~420 MB.
 //
+// At Dh 80 (ViT-H/14) the tiles hold a 64-column and a 16-column part
+// (sm90_common.cuh, HeadTile): s^T and dp^T reduce over four k-steps on
+// the first part and one on the second; dv, dk and dq are one wgmma a
+// part.  Two dq staging buffers would put the block at 260,720 bytes, so
+// it keeps one (dq_bufs), and the registers come from setmaxnreg (above
+// bwd_threads).  dq's order is the same.
+//
 // Math: s = (q . k) * scale in fp32 from bf16 q and k, keys >= n_real give
 // p = 0; p = exp(s - lse); ds = bf16(p * (dp - D)); dq = (ds k) * scale;
 // dk = (ds^T q) * scale; dv = bf16(p)^T do; each rounded to bf16 once.
@@ -92,8 +99,29 @@ namespace {
 
 constexpr int kKeys = 128;       // keys per key tile
 constexpr int kStages = 3;       // query-tile ring (of kQRows rows)
-// Two consumer warpgroups, a producer warp and a dq writer warp.
-constexpr int kBwdThreads = 320;
+// Two consumer warpgroups, a producer warp and a dq writer warp: 320
+// threads, at most 168 registers each (ptxas's count for one block an
+// SM), which at Dh 80 spill 64 bytes: dk, dv and dq (40 fp32 each) beside
+// s^T and dp^T (32 each).  Past Dh 64 the two service warps and two idle
+// ones make a third warpgroup, which lowers its registers to kServiceRegs
+// while the consumers raise theirs to kConsumerRegs (setmaxnreg, as FA3
+// does; 2 x 128 x 232 + 128 x 40 = 64512, the block's 384 x 168): ptxas
+// then spills 8 bytes.  It honours the split only where the lowered warps
+// can reach no consumer code (the service branch below returns), and
+// failed to allocate the consumers at 216.  Measured against the 320-thread
+// form (tools/compare_parent.py; PERF.md): 3-6 % faster.
+__host__ __device__ constexpr int bwd_threads(int dh) {
+  return dh > 64 ? 384 : 320;
+}
+constexpr int kServiceRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Buffers of the fp32 dq partials (each holds both warpgroups' 64 x Dh):
+// two up to Dh 64, so that a warpgroup stages one while the writer adds the
+// other; one at Dh 80, where two would put the block at 260,720 bytes,
+// past the 232,448 it may have (two query-tile stages in place of three
+// would still need 239,712).
+__host__ __device__ constexpr int dq_bufs(int dh) { return dh > 64 ? 1 : 2; }
 
 // Shared memory of the main kernel, in bytes from a 1024-aligned base.
 struct BwdSmem {
@@ -108,8 +136,8 @@ __host__ __device__ inline BwdSmem bwd_smem(int dh) {
   s.q = s.v + 2 * kKeys * rb;
   s.dout = s.q + kStages * kQRows * rb;
   s.ds = s.dout + kStages * kQRows * rb;     // 2 x 2 tiles 64 x 64 bf16
-  s.stage = s.ds + 2 * kKeys * kQRows * 2;  // [2 buffers][2] 64 x dh fp32
-  s.lse = s.stage + 2 * 2 * kQRows * dh * 4;
+  s.stage = s.ds + 2 * kKeys * kQRows * 2;  // [buffers][2] 64 x dh fp32
+  s.lse = s.stage + dq_bufs(dh) * 2 * kQRows * dh * 4;
   s.dd = s.lse + kStages * kQRows * 4;
   s.bars = s.dd + kStages * kQRows * 4;
   s.total = s.bars + 8 * (2 * 2 + 2 * kStages + 4) + 1024;  // + alignment
@@ -129,9 +157,12 @@ struct BwdArgs {
   float scale;
 };
 
-// TMA maps of q, k, v and do: (Dh, N, H, B), boxes of 64 rows.
+// TMA maps of q, k, v and do: (Dh, N, H, B), boxes of 64 rows, one a
+// part of the head.
+template <int DH>
 struct BwdMaps {
-  CUtensorMap q, k, v, dout;
+  static constexpr int P = sm90::HeadTile<DH>::PARTS;
+  CUtensorMap q[P], k[P], v[P], dout[P];
 };
 
 template <int DH>
@@ -140,7 +171,11 @@ attention_rows_kernel(const __nv_bfloat16* __restrict__ dout, Rows sdo,
                       const __nv_bfloat16* __restrict__ o, Rows so,
                       const float* __restrict__ lse, float* __restrict__ rows,
                       int B, int N, int heads) {
-  constexpr int VPR = DH / 8;  // lanes (16-byte pieces) a head row
+  constexpr int VPR = DH / 8;  // 16-byte pieces a head row
+  // lanes a head row: VPR rounded up to a power of two (Dh 80: 10 of 16
+  // lanes read), so that the xor shuffles sum within a head
+  constexpr int LPH = VPR <= 1 ? 1 : VPR <= 2 ? 2 : VPR <= 4 ? 4
+                    : VPR <= 8 ? 8 : 16;
   const int np = padded_rows(N);
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= (long long)B * np) return;
@@ -155,13 +190,13 @@ attention_rows_kernel(const __nv_bfloat16* __restrict__ dout, Rows sdo,
     }
     return;
   }
-  for (int c0 = 0; c0 < heads * VPR; c0 += 32) {
+  for (int c0 = 0; c0 < heads * LPH; c0 += 32) {
     const int c = c0 + lane;
-    const bool ok = c < heads * VPR;
-    const int h = ok ? c / VPR : 0;
-    const int col = (c % VPR) * 8;
+    const bool ok = c < heads * LPH;
+    const int h = ok ? c / LPH : 0;
+    const int col = (c % LPH) * 8;
     float acc = 0.f;
-    if (ok) {
+    if (ok && c % LPH < VPR) {
       const uint4 a = *reinterpret_cast<const uint4*>(
           head_rows(dout, sdo, b, h) + n * sdo.sr + col);
       const uint4 bv = *reinterpret_cast<const uint4*>(
@@ -173,19 +208,22 @@ attention_rows_kernel(const __nv_bfloat16* __restrict__ dout, Rows sdo,
         acc += __bfloat162float(ae[t]) * __bfloat162float(be[t]);
     }
 #pragma unroll
-    for (int off = 1; off < VPR; off <<= 1)
+    for (int off = 1; off < LPH; off <<= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (ok && c % VPR == 0) base[(size_t)h * 2 * np + np] = acc;
+    if (ok && c % LPH == 0) base[(size_t)h * 2 * np + np] = acc;
   }
   for (int h = lane; h < heads; h += 32)
     base[(size_t)h * 2 * np] = lse[((size_t)b * N + n) * heads + h];
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+__global__ void __launch_bounds__(bwd_threads(DH), 1)
+attention_bwd_kernel(const __grid_constant__ BwdMaps<DH> maps,
+                     const BwdArgs a) {
   using namespace sm90;
   constexpr int RB = DH * 2;
+  constexpr int NBUF = dq_bufs(DH);
+  constexpr int THREADS = bwd_threads(DH);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -202,20 +240,20 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
   uint64_t* kv_empty = kv_full + 2;     // [2]: the key tile's products done
   uint64_t* full = kv_empty + 2;
   uint64_t* empty = full + kStages;
-  uint64_t* dq_full = empty + kStages;  // [2]: both warpgroups staged
-  uint64_t* dq_empty = dq_full + 2;     // [2]: the writer's add read it
+  uint64_t* dq_full = empty + kStages;  // [NBUF]: both warpgroups staged
+  uint64_t* dq_empty = dq_full + 2;     // [NBUF]: the writer's add read it
 
+  const int tid = threadIdx.x;
   const int N = a.N;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
   const int np = padded_rows(N);
   const int nq = np / kQRows;
   const int nkt = (a.n_real + kKeys - 1) / kKeys;  // key tiles with a key
 
   // Keys past the last tile with a valid key: zero dk, dv.
   for (int idx = tid; idx < (N - min(N, nkt * kKeys)) * (DH / 8);
-       idx += kBwdThreads) {
+       idx += THREADS) {
     const int r = nkt * kKeys + idx / (DH / 8);
     const int c = (idx % (DH / 8)) * 8;
     const uint4 z = make_uint4(0, 0, 0, 0);
@@ -229,6 +267,8 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
     for (int s = 0; s < 2; ++s) {
       mbar_init(&kv_full[s], 1);
       mbar_init(&kv_empty[s], 256);
+    }
+    for (int s = 0; s < NBUF; ++s) {
       mbar_init(&dq_full[s], 256);
       mbar_init(&dq_empty[s], 1);
     }
@@ -242,46 +282,65 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
 
   // Iteration it = kt * nq + qt walks the key tiles in order and, for
   // each, the query tiles; ring slots, dq buffers and their phases count
-  // it.
-  if (tid >= 288) {  // the dq writer warp
-    // Per iteration: the two warpgroups' partials summed into buffer half
-    // 0 (warpgroup 0's plus warpgroup 1's), then one bulk add into the
-    // scratch.  Adds to one query tile come nq iterations apart, in
-    // key-tile order, each complete before the next is issued (with nq
-    // >= 2 it is enough that all but the newest add have completed).
-    const int lane = tid & 31;
-    float* acc_base = a.dq_acc + ((size_t)b * a.heads + h) * np * DH;
-    for (int it = 0; it < nkt * nq; ++it) {
-      const int buf = it & 1;
-      const int qt = it % nq;
-      mbar_wait(&dq_full[buf], (it >> 1) & 1);
-      float4* s0 = reinterpret_cast<float4*>(stage + buf * 2 * kQRows * DH);
-      const float4* s1 = s0 + kQRows * DH / 4;
-      for (int i = lane; i < kQRows * DH / 4; i += 32) {
-        float4 x = s0[i];
-        const float4 y = s1[i];
-        x.x += y.x;
-        x.y += y.y;
-        x.z += y.z;
-        x.w += y.w;
-        s0[i] = x;
+  // it.  The service warps (and the idle ones) take only the branch below,
+  // so that their lowered register count covers all they run.
+  if (tid >= 256) {
+    if constexpr (THREADS > 320) setmaxnreg_dec<kServiceRegs>();
+    if (tid >= 288) {  // the dq writer warp
+      if (tid >= 320) return;  // the idle warps
+      // Per iteration: the two warpgroups' partials summed into buffer half
+      // 0 (warpgroup 0's plus warpgroup 1's), then one bulk add into the
+      // scratch.  Adds to one query tile come nq iterations apart, in
+      // key-tile order, each complete before the next is issued (with nq
+      // >= 2 it is enough that all but the newest add have completed).
+      const int lane = tid & 31;
+      float* acc_base = a.dq_acc + ((size_t)b * a.heads + h) * np * DH;
+      for (int it = 0; it < nkt * nq; ++it) {
+        const int buf = it % NBUF;
+        const int qt = it % nq;
+        mbar_wait(&dq_full[buf], (it / NBUF) & 1);
+        float4* s0 = reinterpret_cast<float4*>(stage + buf * 2 * kQRows * DH);
+        const float4* s1 = s0 + kQRows * DH / 4;
+        for (int i = lane; i < kQRows * DH / 4; i += 32) {
+          float4 x = s0[i];
+          const float4 y = s1[i];
+          x.x += y.x;
+          x.y += y.y;
+          x.z += y.z;
+          x.w += y.w;
+          s0[i] = x;
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          if constexpr (NBUF == 2) {
+            if (nq == 1) bulk_wait();
+            bulk_reduce_add_f32(acc_base + (size_t)qt * kQRows * DH,
+                                reinterpret_cast<const float*>(s0),
+                                kQRows * DH * 4);
+            bulk_wait_1();  // every add but this one complete and read
+            if (it > 0) mbar_arrive(&dq_empty[buf ^ 1]);
+          } else {
+            // The add of it - nq (<= it - 2, or it - 1 when nq = 1) complete,
+            // then this one issued; the buffer is free once it is read.
+            if (nq == 1) {
+              bulk_wait();
+            } else {
+              bulk_wait_1();
+            }
+            bulk_reduce_add_f32(acc_base + (size_t)qt * kQRows * DH,
+                                reinterpret_cast<const float*>(s0),
+                                kQRows * DH * 4);
+            bulk_wait_read();
+            mbar_arrive(&dq_empty[0]);
+          }
+        }
+        __syncwarp();
       }
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) {
-        if (nq == 1) bulk_wait();
-        bulk_reduce_add_f32(acc_base + (size_t)qt * kQRows * DH,
-                            reinterpret_cast<const float*>(s0),
-                            kQRows * DH * 4);
-        bulk_wait_1();  // every add but this one complete and read
-        if (it > 0) mbar_arrive(&dq_empty[buf ^ 1]);
-      }
-      __syncwarp();
+      if (lane == 0) bulk_wait();
+      return;
     }
-    if (lane == 0) bulk_wait();
-    return;
-  }
-  if (tid >= 256) {  // the producer warp
+    // The producer warp.
     if (tid == 256) {
       const float* rows = a.rows + ((size_t)b * a.heads + h) * 2 * np;
       for (int kt = 0; kt < nkt; ++kt) {
@@ -289,20 +348,22 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
         if (kt >= 2) mbar_wait(&kv_empty[kv], ((kt >> 1) - 1) & 1);
         mbar_expect_tx(&kv_full[kv], 4 * kQRows * RB);
         for (int s = 0; s < 2; ++s) {
-          tma_load_4d(Ks + (kv * 2 + s) * kQRows * DH, &maps.k, &kv_full[kv],
-                      0, kt * kKeys + s * kQRows, h, b);
-          tma_load_4d(Vs + (kv * 2 + s) * kQRows * DH, &maps.v, &kv_full[kv],
-                      0, kt * kKeys + s * kQRows, h, b);
+          tma_load_head_4d<DH, kQRows>(Ks + (kv * 2 + s) * kQRows * DH, 0,
+                                       maps.k, &kv_full[kv], 0,
+                                       kt * kKeys + s * kQRows, h, b);
+          tma_load_head_4d<DH, kQRows>(Vs + (kv * 2 + s) * kQRows * DH, 0,
+                                       maps.v, &kv_full[kv], 0,
+                                       kt * kKeys + s * kQRows, h, b);
         }
         for (int qt = 0; qt < nq; ++qt) {
           const int it = kt * nq + qt;
           const int st = it % kStages;
           if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
           mbar_expect_tx(&full[st], 2 * kQRows * RB + 2 * kQRows * 4);
-          tma_load_4d(Qs + st * kQRows * DH, &maps.q, &full[st], 0,
-                      qt * kQRows, h, b);
-          tma_load_4d(Os + st * kQRows * DH, &maps.dout, &full[st], 0,
-                      qt * kQRows, h, b);
+          tma_load_head_4d<DH, kQRows>(Qs + st * kQRows * DH, 0, maps.q,
+                                       &full[st], 0, qt * kQRows, h, b);
+          tma_load_head_4d<DH, kQRows>(Os + st * kQRows * DH, 0, maps.dout,
+                                       &full[st], 0, qt * kQRows, h, b);
           bulk_load(Ls + st * kQRows, rows + qt * kQRows, kQRows * 4,
                     &full[st]);
           bulk_load(DDs + st * kQRows, rows + np + qt * kQRows, kQRows * 4,
@@ -312,6 +373,7 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
     }
     return;
   }
+  if constexpr (THREADS > 320) setmaxnreg_inc<kConsumerRegs>();
 
   // Consumers: warpgroup w owns keys kt * 128 + 64 w .. + 63 of each key
   // tile.
@@ -350,16 +412,16 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
       // expf, as the plain twin takes it.
       float s[32], dp[32];
       {
-        const uint64_t dkd = desc<RB>(Kw), dqd = desc<RB>(qs);
-        const uint64_t dvd = desc<RB>(Vw), dod = desc<RB>(os);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk)
-          wgmma_ss<64, 0, 0>(s, dkd + 2 * kk, dqd + 2 * kk, kk > 0);
+          wgmma_ss<64, 0, 0>(s, head_kdesc<DH, kQRows>(Kw, kk),
+                             head_kdesc<DH, kQRows>(qs, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk)
-          wgmma_ss<64, 0, 0>(dp, dvd + 2 * kk, dod + 2 * kk, kk > 0);
+          wgmma_ss<64, 0, 0>(dp, head_kdesc<DH, kQRows>(Vw, kk),
+                             head_kdesc<DH, kQRows>(os, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -411,10 +473,10 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DH, 1>(dv, pa[kk], desc<RB>(os + kk * 16 * DH), 1);
+        wgmma_rs_head<DH, kQRows>(dv, pa[kk], os, kk, 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DH, 1>(dk, da[kk], desc<RB>(qs + kk * 16 * DH), 1);
+        wgmma_rs_head<DH, kQRows>(dk, da[kk], qs, kk, 1);
       wgmma_commit();
       // ds^T stored by the four warps.
       named_barrier(1 + w, 128);
@@ -424,8 +486,8 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss<DH, 1, 1>(dq, desc<128>(dsb + kk * 16 * 128),
-                           desc<RB>(Kw + kk * 16 * DH), kk > 0);
+        wgmma_ss_head<DH, kQRows, 1>(dq, desc<128>(dsb + kk * 16 * 128), Kw,
+                                     kk, kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -433,9 +495,9 @@ attention_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
       fence_regs(dq);
       mbar_arrive(&empty[st]);
       // The fp32 partial, in accumulator order, to the writer warp (its
-      // buffer free once the add of iteration it - 2 has read it).
-      const int buf = it & 1;
-      if (it >= 2) mbar_wait(&dq_empty[buf], ((it >> 1) - 1) & 1);
+      // buffer free once the add of iteration it - NBUF has read it).
+      const int buf = it % NBUF;
+      if (it >= NBUF) mbar_wait(&dq_empty[buf], (it / NBUF - 1) & 1);
       float* stage_w = stage + (buf * 2 + w) * kQRows * DH;
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) stage_w[i * 128 + wtid] = dq[i];
@@ -507,15 +569,16 @@ int launch_bwd_tiles(const BwdArgs& a, int B, cudaStream_t stream) {
       attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  BwdMaps maps;
-  int err = operand_map(&maps.q, a.q, a.sq, DH, a.N, a.heads, B);
-  if (!err) err = operand_map(&maps.k, a.k, a.sk, DH, a.N, a.heads, B);
-  if (!err) err = operand_map(&maps.v, a.v, a.sv, DH, a.N, a.heads, B);
-  if (!err) err = operand_map(&maps.dout, a.dout, a.sdo, DH, a.N, a.heads, B);
+  BwdMaps<DH> maps;
+  int err = operand_maps<DH>(maps.q, a.q, a.sq, a.N, a.heads, B);
+  if (!err) err = operand_maps<DH>(maps.k, a.k, a.sk, a.N, a.heads, B);
+  if (!err) err = operand_maps<DH>(maps.v, a.v, a.sv, a.N, a.heads, B);
+  if (!err) err = operand_maps<DH>(maps.dout, a.dout, a.sdo, a.N, a.heads, B);
   if (err) return err;
   const int np = padded_rows(a.N);
   dim3 grid(1, a.heads, B);
-  attention_bwd_kernel<DH><<<grid, kBwdThreads, smem, stream>>>(maps, a);
+  attention_bwd_kernel<DH><<<grid, bwd_threads(DH), smem, stream>>>(maps,
+                                                                    a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long threads = (long long)B * a.heads * (np / kQRows) * 128;

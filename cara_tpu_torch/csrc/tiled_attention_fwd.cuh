@@ -25,12 +25,13 @@
 // TFLOP/s: 0.5102 ms at N = 577 through row 16, 0.5603 through row 17,
 // 0.1811 at N = 197, about 2.1x SDPA (H100 80GB HBM3, 700 W).  This
 // design:
-//   - persistent blocks, two an SM, walk over the (image, head, 128-query
-//     tile) items, a head's query tiles one after the other, so its K and
-//     V come from L2 after the first tile;
+//   - persistent blocks, two an SM (one past Dh 64), walk over the (image,
+//     head, 128-query tile) items, a head's query tiles one after the
+//     other, so its K and V come from L2 after the first tile;
 //   - a producer warp loads each item's 128 query rows by TMA (boxes of
-//     64 rows x Dh with the swizzle of a Dh * 2-byte row; rows past N
-//     arrive as zeros) into one of two slots, and streams K and V in
+//     64 rows x Dh with the swizzle of a Dh * 2-byte row, one a part of
+//     the head past Dh 64; rows past N arrive as zeros) into one of two
+//     slots, and streams K and V in
 //     64-key tiles through a three-stage mbarrier ring, the next item's
 //     rows and tiles loading while this one is computed;
 //   - two consumer warpgroups own 64 query rows each: S = Q K^T is one
@@ -64,6 +65,11 @@
 // skipped (their p is 0 and their rescale 1, exactly).  exp is the
 // full-precision expf, as the plain twins take it.
 //
+// At Dh 80 (ViT-H/14) every 64-row tile of a head holds a 64-column and a
+// 16-column part (sm90_common.cuh, HeadTile): Q K^T takes four k-steps on
+// the first and one on the second, P V one wgmma a part (n64 and n16),
+// TMA one box a part; one block an SM (fwd_blocks).
+//
 // Statistics mode (STATS; row 2's backward, whose only residual is qkv):
 // the same loop, one block an SM and 128-key tiles, with do as a second
 // query operand and the products S = Q K^T and dP = dO V^T on wgmma; per
@@ -96,6 +102,14 @@ constexpr int kFwdRows = kFwdGroups * kQRows;  // query rows of an item
 constexpr int kFwdStages = 3;     // K / V ring
 constexpr int kFwdThreads = 128 * kFwdGroups + 32;  // + a producer warp
 
+// Blocks an SM: two for the forward up to Dh 64 (96 registers a thread);
+// one in statistics mode and past Dh 64, where two would spill 148 bytes
+// (Dh 80's 40-float output accumulator) and ran 6-14 % slower than one
+// (tools/compare_parent.py; PERF.md).
+__host__ __device__ constexpr int fwd_blocks(int dh, bool stats) {
+  return stats || dh > 64 ? 1 : 2;
+}
+
 // Keys of a streamed tile: 64 in the forward, whose registers then let two
 // blocks share an SM; 128 in statistics mode (one block an SM).
 __host__ __device__ constexpr int fwd_keys(bool stats) {
@@ -118,20 +132,21 @@ __host__ __device__ inline int padded_rows(int N) {
   return (N + kQRows - 1) / kQRows * kQRows;
 }
 
-// A (Dh, N, H, B) map of one operand, boxes of 64 rows; the stride of a
-// dimension of size 1 is never used and is given as a dense layout's,
-// which TMA accepts.
-inline int operand_map(CUtensorMap* map, const __nv_bfloat16* p, Rows s,
-                       int dh, int N, int heads, int B) {
-  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)N, (uint64_t)heads,
+// The (Dh, N, H, B) maps of one operand, one a part of the head
+// (sm90::HeadTile), boxes of 64 rows; the stride of a dimension of size 1
+// is never used and is given as a dense layout's, which TMA accepts.
+template <int DH>
+inline int operand_maps(CUtensorMap* maps, const __nv_bfloat16* p, Rows s,
+                        int N, int heads, int B) {
+  const uint64_t dims[4] = {(uint64_t)DH, (uint64_t)N, (uint64_t)heads,
                             (uint64_t)B};
-  const uint64_t row = (uint64_t)dh * 2;
+  const uint64_t row = (uint64_t)DH * 2;
   const uint64_t strides[3] = {
       N > 1 ? (uint64_t)s.sr * 2 : row,
       heads > 1 ? (uint64_t)s.sh * 2 : row * N,
       B > 1 ? (uint64_t)s.sb * 2 : row * N * heads};
-  const uint32_t box[4] = {(uint32_t)dh, kQRows, 1, 1};
-  return sm90::encode_map(map, p, 4, dims, strides, box);
+  const uint32_t box[4] = {(uint32_t)DH, kQRows, 1, 1};
+  return sm90::encode_head_maps<DH>(maps, p, 4, dims, strides, box);
 }
 
 // Shared memory of the forward kernel, in bytes from a 1024-aligned base:
@@ -159,9 +174,12 @@ struct FwdArgs {
   float scale;
 };
 
-// TMA maps of q, k, v and x: the output (forward) or do (statistics).
+// TMA maps of q, k, v and x: the output (forward) or do (statistics),
+// one a part of the head.
+template <int DH>
 struct FwdMaps {
-  CUtensorMap q, k, v, x;
+  static constexpr int P = sm90::HeadTile<DH>::PARTS;
+  CUtensorMap q[P], k[P], v[P], x[P];
 };
 
 // Keys >= n_real of the KEYS-key tile whose first key is col0 set to
@@ -210,11 +228,10 @@ template <int DH, int KEYS>
 __device__ __forceinline__ void issue_scores(float (&s)[KEYS / 2],
                                              const __nv_bfloat16* qw,
                                              const __nv_bfloat16* ks) {
-  constexpr int RB = DH * 2;
-  const uint64_t dq = sm90::desc<RB>(qw), dk = sm90::desc<RB>(ks);
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
-    sm90::wgmma_ss<KEYS, 0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    sm90::wgmma_ss<KEYS, 0, 0>(s, sm90::head_kdesc<DH, kQRows>(qw, kk),
+                               sm90::head_kdesc<DH, KEYS>(ks, kk), kk > 0);
   sm90::wgmma_commit();
 }
 
@@ -224,10 +241,9 @@ template <int DH, int KEYS>
 __device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
                                          const uint32_t (&pa)[KEYS / 16][4],
                                          const __nv_bfloat16* vs) {
-  constexpr int RB = DH * 2;
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk)
-    sm90::wgmma_rs<DH, 1>(o, pa[kk], sm90::desc<RB>(vs + kk * 16 * DH), 1);
+    sm90::wgmma_rs_head<DH, KEYS>(o, pa[kk], vs, kk, 1);
   sm90::wgmma_commit();
 }
 
@@ -259,8 +275,9 @@ __device__ __forceinline__ void exp_tile(float (&s)[KEYS / 2], float scale,
 }
 
 template <int DH, bool STATS>
-__global__ void __launch_bounds__(kFwdThreads, STATS ? 1 : 2)
-attention_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
+__global__ void __launch_bounds__(kFwdThreads, fwd_blocks(DH, STATS))
+attention_fwd_kernel(const __grid_constant__ FwdMaps<DH> maps,
+                     const FwdArgs a) {
   using namespace sm90;
   constexpr int RB = DH * 2;
   constexpr int KEYS = fwd_keys(STATS);
@@ -313,11 +330,12 @@ attention_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
         mbar_expect_tx(&qfull[slot], QOPS * kFwdGroups * kBox);
         for (int r = 0; r < kFwdGroups; ++r) {
           const int row = qt * kFwdRows + r * kQRows;
-          tma_load_4d(qd + r * kQRows * DH, &maps.q, &qfull[slot], 0, row,
-                      h, b);
+          tma_load_head_4d<DH, kQRows>(qd + r * kQRows * DH, 0, maps.q,
+                                       &qfull[slot], 0, row, h, b);
           if (STATS)
-            tma_load_4d(qd + (kFwdGroups + r) * kQRows * DH, &maps.x,
-                        &qfull[slot], 0, row, h, b);
+            tma_load_head_4d<DH, kQRows>(qd + (kFwdGroups + r) * kQRows * DH,
+                                         0, maps.x, &qfull[slot], 0, row, h,
+                                         b);
         }
         for (int kt = 0; kt < ntiles; ++kt, ++kv) {
           const int st = kv % kFwdStages;
@@ -327,10 +345,10 @@ attention_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
           mbar_expect_tx(&kvfull[st], 2 * KB * kBox);
           for (int r = 0; r < KB; ++r) {
             const int row = kt * KEYS + r * kQRows;
-            tma_load_4d(kd + r * kQRows * DH, &maps.k, &kvfull[st], 0, row,
-                        h, b);
-            tma_load_4d(kd + (KB + r) * kQRows * DH, &maps.v, &kvfull[st],
-                        0, row, h, b);
+            tma_load_head_4d<DH, KEYS>(kd, r * kQRows, maps.k, &kvfull[st],
+                                       0, row, h, b);
+            tma_load_head_4d<DH, KEYS>(kd + KEYS * DH, r * kQRows, maps.v,
+                                       &kvfull[st], 0, row, h, b);
           }
         }
       }
@@ -457,7 +475,7 @@ attention_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
 #pragma unroll
           for (int j = 0; j < DH / 8; ++j)
             *reinterpret_cast<uint32_t*>(
-                ot + swizzle<RB>(row * RB + (8 * j + 2 * t) * 2)) =
+                ot + head_byte<DH, kQRows>(row, 8 * j + 2 * t)) =
                 pack_bf16(acc[4 * j + 2 * r] / lt,
                           acc[4 * j + 2 * r + 1] / lt);
           const int n = q0 + row;
@@ -469,7 +487,7 @@ attention_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
       }
       named_barrier(1 + w, 128);
       if (wtid == 0) {
-        if (q0 < N) tma_store_4d(&maps.x, qw, 0, q0, h, b);
+        if (q0 < N) tma_store_head_4d<DH>(maps.x, qw, 0, q0, h, b);
         bulk_wait_read();  // the store has read the rows: free the slot
         mbar_arrive(&qempty[slot]);
       }
@@ -493,15 +511,15 @@ int launch_fwd_kernel(const __nv_bfloat16* q, Rows sq,
       attention_fwd_kernel<DH, STATS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  FwdMaps maps;
-  int err = operand_map(&maps.q, q, sq, DH, a.N, a.heads, a.B);
-  if (!err) err = operand_map(&maps.k, k, sk, DH, a.N, a.heads, a.B);
-  if (!err) err = operand_map(&maps.v, v, sv, DH, a.N, a.heads, a.B);
-  if (!err) err = operand_map(&maps.x, x, sx, DH, a.N, a.heads, a.B);
+  FwdMaps<DH> maps;
+  int err = operand_maps<DH>(maps.q, q, sq, a.N, a.heads, a.B);
+  if (!err) err = operand_maps<DH>(maps.k, k, sk, a.N, a.heads, a.B);
+  if (!err) err = operand_maps<DH>(maps.v, v, sv, a.N, a.heads, a.B);
+  if (!err) err = operand_maps<DH>(maps.x, x, sx, a.N, a.heads, a.B);
   if (err) return err;
   const long long items =
       (long long)a.B * a.heads * ((a.N + kFwdRows - 1) / kFwdRows);
-  const int slots = sm90::sm_count() * (STATS ? 1 : 2);  // blocks an SM
+  const int slots = sm90::sm_count() * fwd_blocks(DH, STATS);
   const int grid = items < slots ? (int)items : slots;
   attention_fwd_kernel<DH, STATS>
       <<<grid, kFwdThreads, smem, stream>>>(maps, a);

@@ -20,8 +20,8 @@ past two ``wgmma`` warpgroups with the score tiles kept in registers
 (``csrc/tiled_attention_fwd.cuh``); the backward one block per (image,
 head, 128-key tile), the query tiles streamed by TMA past two ``wgmma``
 warpgroups (``csrc/tiled_attention_bwd.cuh``).  dq's fp32 sum over the
-key tiles is taken in no fixed order, so it is not bitwise deterministic
-from call to call.
+key tiles is taken in key-tile order, so it is bitwise deterministic from
+call to call.  The kernels take the head widths of :data:`HEAD_DIMS`.
 
 Same interface as ``fused_qkv_attention``: qkv (B, N, 3E) with out-flat
 (3, H, Dh) columns -> (B, N, E), keys at or past ``n_real`` masked.  The
@@ -44,6 +44,13 @@ NEG_INF = -1e30
 #: Key block of the plain forward: the TPU kernel's at 577 tokens (the
 #: padded 640 is cut into 128-wide blocks).
 BLOCK_K = 128
+
+#: Head widths the attention kernels take (rows 1, 2, 16 and 17): the
+#: registry's, ViT-H/14's 80 as 64 + 16 columns (``sm90::HeadTile``).
+HEAD_DIMS = (16, 32, 64, 80)
+#: The ROADMAP item of every other width.
+HEAD_DIMS_TODO = ("ROADMAP.md queue 2: Attention at head widths other "
+                  "than 16, 32, 64 and 80")
 
 #: Forward kernel launches of :func:`blockwise_qkv_attention` (row 16).
 LAUNCHES = 0
@@ -127,12 +134,21 @@ def blockwise_attention_bwd_plain(qkv, out, lse, do, heads: int,
     return torch.cat([flat(dq), flat(dk), flat(dv)], dim=-1)
 
 
+def check_head_dim(name: str, dh: int) -> None:
+    """Raise, naming the ROADMAP item, on a head width the attention
+    kernels do not take."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh}; the kernels take "
+                         f"{', '.join(map(str, HEAD_DIMS))} "
+                         f"({HEAD_DIMS_TODO})")
+
+
 def _check_dh(name, e3, heads):
     e = e3 // 3
     dh = e // heads
-    if e3 != 3 * e or heads * dh != e or dh not in (16, 32, 64):
-        raise ValueError(f"{name}: 3E={e3}, heads={heads} gives head dim "
-                         f"{dh}; the kernel takes 16, 32 or 64")
+    if e3 != 3 * e or heads * dh != e:
+        raise ValueError(f"{name}: 3E={e3} is not 3 x {heads} heads")
+    check_head_dim(name, dh)
     return e, dh
 
 

@@ -22,7 +22,7 @@ not fit, so the forward streams the key axis in 64-key tiles by TMA
 past two ``wgmma`` warpgroups with an online softmax, the score tile
 kept in registers, and the backward streams the query axis by TMA
 past two ``wgmma`` warpgroups of one 128-key tile (dq's fp32 sum over the
-key tiles in no fixed order, so not bitwise deterministic); N is taken as
+key tiles in key-tile order, so bitwise deterministic); N is taken as
 it is (no padding).  The strides
 let the model's views pass with no copy: q, k, v split from the qkv GEMM
 output and transposed to (B, H, N, Dh), and the output written to a
@@ -40,8 +40,9 @@ The wrapper is a ``torch.autograd.Function``; the kernels keep q, k, v,
 the output and its log-sum-exp, the plain twin q, k and v (as the JAX
 rule's residual).  A CUDA tensor launches the kernels (or raises); a CPU
 tensor, or ``impl="plain"``, takes the plain twins.  The kernels take
-head width 64 only (every ViT-B / ViT-L of the registry); another width
-on the card raises.
+head widths of ``blockwise_attention.HEAD_DIMS`` (16, 32, 64 and 80: the
+test model's, ViT-B / ViT-L's and ViT-H/14's, the same instances as rows
+2 and 16); another width on the card raises.
 """
 
 from __future__ import annotations
@@ -51,16 +52,13 @@ import ctypes
 import torch
 
 from cara_tpu_torch.ops.cuda import _build
-from cara_tpu_torch.ops.cuda.blockwise_attention import bwd_scratch
+from cara_tpu_torch.ops.cuda.blockwise_attention import (bwd_scratch,
+                                                         check_head_dim)
 
 #: Forward kernel launches of :func:`flash_attention` (row 17).
 LAUNCHES = 0
 #: Backward calls (the row pass, the main kernel and the dq pass).
 BWD_LAUNCHES = 0
-#: The head width the kernels take.
-HEAD_DIM = 64
-_TODO = ("ROADMAP.md queue 2: flash attention at head widths other than "
-         "64")
 
 
 def flash_attention_fwd_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -114,13 +112,11 @@ def _strides(*tensors):
 
 
 def _check(name, **operands):
-    """Same (B, H, N, 64) shape, device and bf16 type for every operand;
-    returns the shape."""
+    """Same (B, H, N, Dh) shape, device and bf16 type for every operand,
+    Dh one the kernels take; returns the shape."""
     q = operands["q"]
     b, h, n, dh = q.shape
-    if dh != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh}; the kernels take "
-                         f"{HEAD_DIM} only ({_TODO})")
+    check_head_dim(name, dh)
     for key, t in operands.items():
         if t.shape != q.shape:
             raise ValueError(f"{name}: {key} is {tuple(t.shape)}, q "

@@ -15,10 +15,11 @@ rule's residual does.  Its backward replaces ``_bwd_rule`` /
 :func:`attention_bwd_plain` its twin; the attention-block backwards of
 rows 4, 6 and 8 launch the same kernel.  It is the tiled backward of rows
 16 and 17 (``csrc/tiled_attention_bwd.cuh``: five ``wgmma`` products per
-128-key tile, dq summed in an fp32 scratch, so not bitwise deterministic)
-after a statistics pass that takes each row's log-sum-exp and D =
-rowsum(p dp) from fp32 p and dp, since JAX keeps no forward output; keys
-are streamed, so it takes every N the forward takes.
+128-key tile, dq summed in an fp32 scratch in key-tile order, so bitwise
+deterministic) after a statistics pass that takes each row's log-sum-exp
+and D = rowsum(p dp) from fp32 p and dp, since JAX keeps no forward
+output; keys are streamed, so it takes every N the forward takes.  Both
+kernels take the head widths of ``blockwise_attention.HEAD_DIMS``.
 
 :func:`fused_qkv_attention_proj` is the attention with the projection
 site fused after it, ``y = o W + b + s ((o U) V + cb)`` for ``o`` the
@@ -41,13 +42,16 @@ import torch
 
 from cara_tpu_torch.ops.cuda import _build, _bwd
 from cara_tpu_torch.ops.cuda._site import site_plain
-from cara_tpu_torch.ops.cuda.blockwise_attention import bwd_scratch
+from cara_tpu_torch.ops.cuda.blockwise_attention import (bwd_scratch,
+                                                         check_head_dim)
 from cara_tpu_torch.ops.cuda.cp_dense import (
     _factor_grads_cuda, _factor_grads_plain, cp_dense_dx_cuda,
     cp_dense_dx_plain)
 
 NEG_INF = -1e30
 MAX_NP_FULL_SCORES = 512
+# Row 3's kernel holds a 64 x E output tile beside K and V in one block.
+_ATTNPROJ_TODO = "ROADMAP.md queue 2: Row 3 at ViT-H/14"
 
 #: Number of kernel launches made by :func:`fused_qkv_attention`.
 LAUNCHES = 0
@@ -106,9 +110,9 @@ def attention_cuda(qkv: torch.Tensor, heads: int, scale: float,
     dh = e // heads
     dev = qkv.device
     _build.check_cuda_inputs("qkv_attention", dev, qkv=qkv)
-    if e3 != 3 * e or heads * dh != e or dh not in (16, 32, 64):
-        raise ValueError(f"qkv_attention: 3E={e3}, heads={heads} gives "
-                         f"head dim {dh}; the kernel takes 16, 32 or 64")
+    if e3 != 3 * e or heads * dh != e:
+        raise ValueError(f"qkv_attention: 3E={e3} is not 3 x {heads} heads")
+    check_head_dim("qkv_attention", dh)
     lib = _build.lib()
     if lib.cara_qkv_attention_smem(n, dh) == 0:
         raise ValueError(f"qkv_attention: N={n} does not fit one block's "
@@ -168,10 +172,10 @@ def attention_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
     dh = e // heads
     dev = qkv.device
     _build.check_cuda_inputs("qkv_attention_bwd", dev, qkv=qkv, do=do)
-    if do.shape != (bsz, n, e) or heads * dh != e or dh not in (16, 32, 64):
+    if do.shape != (bsz, n, e) or heads * dh != e:
         raise ValueError(f"qkv_attention_bwd: qkv {tuple(qkv.shape)}, do "
-                         f"{tuple(do.shape)}, heads={heads}; the kernel "
-                         "takes head dims 16, 32 or 64")
+                         f"{tuple(do.shape)}, heads={heads}")
+    check_head_dim("qkv_attention_bwd", dh)
     rows, dq_acc = bwd_scratch(bsz, n, heads, dh, dev)
     out = torch.empty_like(qkv)
     code = _build.lib().cara_qkv_attention_bwd(
@@ -259,11 +263,11 @@ def attn_proj_cuda(qkv, w, b, u, v, cb, heads: int, scale: float,
             f"attn_proj: qkv {tuple(qkv.shape)}, heads {heads}, w "
             f"{tuple(w.shape)}, u {tuple(u.shape)}, v {tuple(v.shape)}; the "
             "kernel takes head dims 16, 32 or 64, E a multiple of 64 and "
-            "rank <= 64")
+            f"rank <= 64 ({_ATTNPROJ_TODO})")
     lib = _build.lib()
     if lib.cara_attn_proj_smem(n, e, dh) == 0:
         raise ValueError(f"attn_proj: N={n}, E={e} does not fit one "
-                         "block's shared memory")
+                         f"block's shared memory ({_ATTNPROJ_TODO})")
     out = torch.empty((bsz, n, e), device=dev, dtype=torch.bfloat16)
     code = lib.cara_attn_proj(
         qkv.data_ptr(), w.data_ptr(), b.data_ptr(), u8.data_ptr(),

@@ -160,7 +160,22 @@ fatal on failure:
    quick_gelu body), and ``cli.vit_cp --model vit_large_patch14_224_clip``
    in a child; the quick_gelu forms launch, the GELU forms never, and the
    recompute forms only with the switches "0"; last, ViT-B served
-   unmerged with quick_gelu, every block through row 19.
+   unmerged with quick_gelu, every block through row 19;
+15. ViT-H/14 (``vit_huge_patch14_224_in21k``: 32 layers, E 1280, 16
+   heads of width 80, hidden 5120, 257 tokens) at full width and depth,
+   run after 14 (``huge_phase``): the kernel entries of rows 1 (N 257,
+   401, 512), 2 (257, 512), 16 (577) and 17 (257, 577) at head width 80,
+   and of row 17 at 16 and 32 (``DH_FORMS``, run with phase 3's, beside
+   SDPA; launches: the ViT-H phase, and the test model's full steps for
+   16 and 32, ``narrow_flash_phase``, run with 8), determinism of rows 2,
+   16 and 17 at Dh 80 (run with 12); then ViT-H served merged and
+   unmerged at batch 64, the element and rank routes (gradient check at
+   batch 16, 10 timed steps at batch 64, peak memory), full fine-tuning
+   through row 17 (gradient check of every leaf at batch 8, 10 steps),
+   two rank steps under ``CARA_ATTN_MEGA=1``, at 336 px (577 tokens:
+   row 16) served at batch 16 with a rank gradient check at batch 4,
+   four steps and a full step, and ``cli.vit_cp --model
+   vit_huge_patch14_224_in21k`` in a child.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -176,7 +191,7 @@ line is ``{"ok": true, "device": {...}}``.
 ``--profile`` only builds and then prints the device time by kernel of
 five ViT-B train steps of the element and of the rank route, at 224 and
 at 384 px (at 224 px also with both saved-residual switches "0"), of
-the same two routes of CLIP ViT-L/14, of
+the same two routes of CLIP ViT-L/14 and of ViT-H/14, of
 full fine-tuning and the linear probe at 224 px, of the element and
 rank routes with activation dropout 0.1 at 224 px, and of
 the rank route under each attention-block switch (``torch.profiler``),
@@ -632,6 +647,47 @@ CLIP_RANK_KERNELS = ("cp_dense", "cp_dense_dx", "fused_qkv_attention",
                      "grad_gemm_nt_dquick_gelu_h")
 CLIP_DROPOUT_KERNELS = ("cp_dense_quick_gelu", "cp_dense_quick_dact",
                         "cp_site_fc1_quick_dact")
+# ViT-H/14 (32 layers, E 1280, 16 heads of width 80, hidden 5120, 257
+# tokens): rows 1, 2, 16 and 17 at head width 80, which the kernels take
+# as a 64-column and a 16-column part (csrc/sm90_common.cuh, HeadTile);
+# and row 17 at the other widths of the registry's attention instances,
+# 16 (the test model) and 32.  Each an entry of its own -> (the entry
+# whose module, counter, source, TPU kernel, tolerance and work rule it
+# shares; N; head width).  Launches: row 1 (one instance from 257 to 512
+# tokens, the two-chunk path) over ViT-H's serving and rank route, row 2
+# (one instance) over its rank route, row 16 and the flash attention at
+# 577 tokens over its 336-px steps, the flash attention at 257 over its
+# full fine-tuning, at 16 and 32 over the test model's full steps.
+MODEL_HUGE = "vit_huge_patch14_224_in21k"
+DH_FORMS = {
+    "fused_qkv_attention_dh80": ("fused_qkv_attention", 257, 80),
+    "fused_qkv_attention_dh80_401": ("fused_qkv_attention", 401, 80),
+    "fused_qkv_attention_dh80_512": ("fused_qkv_attention", 512, 80),
+    "fused_qkv_attention_bwd_dh80": ("fused_qkv_attention_bwd", 257, 80),
+    "fused_qkv_attention_bwd_dh80_512": ("fused_qkv_attention_bwd", 512,
+                                         80),
+    "blockwise_qkv_attention_dh80": ("blockwise_qkv_attention", 577, 80),
+    "blockwise_qkv_attention_bwd_dh80": ("blockwise_qkv_attention_bwd", 577,
+                                         80),
+    "flash_attention_dh80": ("flash_attention", 257, 80),
+    "flash_attention_bwd_dh80": ("flash_attention_bwd", 257, 80),
+    "flash_attention_dh80_577": ("flash_attention", 577, 80),
+    "flash_attention_bwd_dh80_577": ("flash_attention_bwd", 577, 80),
+    "flash_attention_dh16": ("flash_attention", 197, 16),
+    "flash_attention_bwd_dh16": ("flash_attention_bwd", 197, 16),
+    "flash_attention_dh32": ("flash_attention", 197, 32),
+    "flash_attention_bwd_dh32": ("flash_attention_bwd", 197, 32),
+}
+for _name, (_base, _, _) in DH_FORMS.items():
+    KERNELS[_name] = KERNELS[_base]
+    if _base in KERNEL_TOL:  # a backward's gradients: GRAD_REL_L2
+        KERNEL_TOL[_name] = KERNEL_TOL[_base]
+# ViT-H's routes: what each launches.  Its element route's row 2 runs
+# inside row 8 (uncounted there); the rank route counts it.
+HUGE_SERVING_KERNELS = SERVING_KERNELS + SITE_SERVING
+HUGE_ELEMENT_KERNELS = TRAINING_KERNELS + ("grad_gemm_nt_dgelu_h",
+                                           SAVE_PRE_SITE)
+HUGE_RANK_KERNELS = SPLIT_KERNELS + (SAVE_PRE_SITE,)
 # Outputs held elementwise (forwards, dx); every other key of a gradient
 # dict by relative L2: the factor and bias gradients, and the attention
 # backward's dq, dk and dv, whose typical size at the smoke's inputs
@@ -1687,11 +1743,17 @@ def kernel_work(inp) -> dict:
 
 
 # The tiled attention backward's entries held for bitwise determinism at
-# the smoke's batch: (entry, N).
-DETERMINISM_ROWS = (("fused_qkv_attention_bwd", 197),
-                    ("fused_qkv_attention_bwd", 512),
-                    ("blockwise_qkv_attention_bwd", 577),
-                    ("flash_attention_bwd", 197), ("flash_attention_bwd", 577))
+# the smoke's batch: (entry, N, heads, head width): ViT-B's twelve heads
+# of 64, then ViT-H's sixteen of 80 (one dq staging buffer).
+DETERMINISM_ROWS = (("fused_qkv_attention_bwd", 197, 12, 64),
+                    ("fused_qkv_attention_bwd", 512, 12, 64),
+                    ("blockwise_qkv_attention_bwd", 577, 12, 64),
+                    ("flash_attention_bwd", 197, 12, 64),
+                    ("flash_attention_bwd", 577, 12, 64),
+                    ("fused_qkv_attention_bwd", 257, 16, 80),
+                    ("fused_qkv_attention_bwd", 512, 16, 80),
+                    ("blockwise_qkv_attention_bwd", 577, 16, 80),
+                    ("flash_attention_bwd", 257, 16, 80))
 
 
 def attention_bwd_call(name, inp):
@@ -1722,13 +1784,13 @@ def determinism_phase(dev, b: int = 64, e: int = 768, heads: int = 12,
     """Bitwise determinism: each of ``DETERMINISM_ROWS`` called twice on
     the same inputs at batch ``b`` gives dq, dk and dv bit for bit (dq's
     fp32 sum is taken in key-tile order), each of ``SITE_PRODUCTS`` its
-    output at N 197; then two runs of ``steps`` rank
+    output at N 197 and width ``e``; then two runs of ``steps`` rank
     steps of ViT-B at 224 px from the same state and seed end with every
     trainable leaf bit for bit the same.  Fails the run on any
     difference."""
-    for name, n in DETERMINISM_ROWS:
-        inp = kernel_inputs(dev, b=b, n=n, e=e, heads=heads, hidden=4 * e,
-                            seed=7)
+    for name, n, h, dh in DETERMINISM_ROWS:
+        inp = kernel_inputs(dev, b=b, n=n, e=h * dh, heads=h,
+                            hidden=4 * h * dh, seed=7)
         call = attention_bwd_call(name, inp)
         first = call()
         second = call()
@@ -1737,10 +1799,10 @@ def determinism_phase(dev, b: int = 64, e: int = 768, heads: int = 12,
         same = {k: bool(torch.equal(first[k], second[k])) for k in first}
         told = ", ".join(k + (" equal" if v else " DIFFERENT")
                          for k, v in same.items())
-        print(f"[determinism] {name} at B {b}, N {n}: two calls give "
-              f"{told}", flush=True)
-        require(all(same.values()), f"{name} at N {n} is not bitwise "
-                "deterministic")
+        print(f"[determinism] {name} at B {b}, N {n}, {h} heads of {dh}: "
+              f"two calls give {told}", flush=True)
+        require(all(same.values()), f"{name} at N {n}, head width {dh} is "
+                "not bitwise deterministic")
         del inp, call, first, second
     # The forward sites (no split contraction): the same output twice.
     inp = kernel_inputs(dev, b=b, n=197, e=e, heads=heads, hidden=4 * e,
@@ -1940,6 +2002,60 @@ def row2_edge_phase(dev, timed: bool = True, b: int = 64, e: int = 768,
     return out
 
 
+def row1_calls(inp):
+    """Row 1's entry: the kernel, plain and fp32 plain calls of
+    ``fused_qkv_attention`` on ``inp["qkv"]``."""
+    h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
+    qkv = inp["qkv"]
+    return (lambda: fqa_mod.fused_qkv_attention(qkv, h, sm, n),
+            lambda: fqa_mod.fused_qkv_attention_plain(qkv, h, sm, n),
+            lambda: fqa_mod.fused_qkv_attention_plain(qkv.float(), h, sm, n))
+
+
+def dh_kernel_phase(dev, timed: bool = True, b: int = 64,
+                    forms=None) -> dict:
+    """The entries of ``DH_FORMS`` (``forms`` a subset): each its base
+    entry's call at its N and head width -- sixteen heads at Dh 80
+    (ViT-H/14: E 1280, hidden 5120), twelve at 16 and 32 -- held against
+    its fp32 plain version, timed beside SDPA, bound by its base entry's
+    work rule at these shapes.  At N 512 keys >= 500 are masked."""
+    forms = DH_FORMS if forms is None else forms
+    groups = {}
+    for name, (base, n, dh) in forms.items():
+        groups.setdefault((n, dh), []).append((name, base))
+    out = {}
+    for (n, dh), entries in groups.items():
+        heads = 16 if dh == 80 else 12
+        inp = kernel_inputs(dev, b=b, n=n, e=heads * dh, heads=heads,
+                            hidden=4 * heads * dh, seed=n + dh,
+                            n_real=500 if n == 512 else n)
+        bases = {base for _, base in entries}
+        calls = {"fused_qkv_attention": row1_calls,
+                 "fused_qkv_attention_bwd": row2_bwd_calls}
+        made = {}
+        for base in bases:
+            if base in calls:
+                made[base] = calls[base](inp)
+        if bases & set(BLOCKWISE_KERNELS):
+            made.update({k: v for k, v in long_kernel_calls(inp).items()
+                         if k in bases})
+        if bases & set(FLASH_KERNELS):
+            made.update({k: v for k, v in flash_kernel_calls(inp).items()
+                         if k in bases})
+        masked = (f", keys >= {inp['n_real']} masked"
+                  if inp["n_real"] < n else "")
+        print(f"[kernel] at B {b}, N {n}{masked}, {heads} heads of width "
+              f"{dh}: "
+              f"{', '.join(name for name, _ in entries)}", flush=True)
+        res = check_entries(dev, inp, made, timed)
+        for name, base in entries:
+            out[name] = res[base]
+        del inp, made, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def long_kernel_phase(dev, inp, timed: bool = True) -> dict:
     """:func:`kernel_phase` for the 384-px route's entries on ``inp`` (at
     N = 577), then the blockwise attention forward and backward at N = 640
@@ -2043,15 +2159,22 @@ def _seeded_backbone(cfg, seed):
 def init_backbone(cfg, seed):
     """``convert.init_vit_params(cfg, seed)``: a fresh copy of arrays drawn
     once a process for each weight shape and seed (a ViT-B draw takes
-    ~4 s on the host; the smoke and ``--profile`` make a dozen).  The
-    rates, on which no weight depends, are left out of the key."""
+    ~4 s on the host, a ViT-H one ~30; the smoke and ``--profile`` make a
+    dozen).  The rates, on which no weight depends, are left out of the
+    key, and so is the image size: another size takes the 224-px draw
+    with a position embedding of its own length drawn from ``seed``."""
     key = dataclasses.replace(cfg, dropout_rate=0.0, attn_dropout_rate=0.0,
-                              drop_path_rate=0.0)
+                              drop_path_rate=0.0, image_size=224)
 
     def copy(tree):
         return {k: copy(v) if isinstance(v, dict) else np.array(v)
                 for k, v in tree.items()}
-    return copy(_seeded_backbone(key, seed))
+    tree = copy(_seeded_backbone(key, seed))
+    if cfg.seq_len != key.seq_len:
+        tree["pos_embed"] = convert._trunc_normal(
+            np.random.default_rng(seed), (1, cfg.seq_len, cfg.embed_dim),
+            0.02)
+    return tree
 
 
 def make_checkpoint(path, model=MODEL, num_classes=10, rank=8, scale=10.0,
@@ -2417,7 +2540,8 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
     gradients against the fp32 plain path (on the first ``grad_batch``
     images, all by default), (b) a falling loss over ``steps`` steps on a
     fixed batch (the linear probe: only the head moved), (c) ms per step
-    and img/s, kernel and plain, (d) ``cli.vit_cp --synthetic`` with the
+    and img/s, kernel and (over ``plain_steps`` steps, none when 0)
+    plain, (d) ``cli.vit_cp --synthetic`` with the
     same overrides and ``cli_extra``, whose best checkpoint is served
     (left out with ``cli`` False).
     ``switch`` names the ``SWITCHES`` entry the caller set (for the tag;
@@ -2509,14 +2633,19 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
         steady = ms[5:] if len(ms) > 8 else ms
         out["ms_per_step"] = statistics.median(steady)
         out["img_per_s"] = steps * batch / wall
-        _, _, pms, _ = fixed_batch_steps(cfg, cara_cfg, frozen, state, data,
-                                         generator, plain_steps,
-                                         impl="plain")
-        out["plain_ms_per_step"] = statistics.median(pms[1:] or pms)
+        out["plain_ms_per_step"] = None
+        if plain_steps:
+            _, _, pms, _ = fixed_batch_steps(cfg, cara_cfg, frozen, state,
+                                             data, generator, plain_steps,
+                                             impl="plain")
+            out["plain_ms_per_step"] = statistics.median(pms[1:] or pms)
+        plain = out["plain_ms_per_step"]
         print(f"{tag} median {out['ms_per_step']:.3f} ms per step (CUDA "
-              f"events, steps 6-{steps}), {out['img_per_s']:.1f} img/s on "
-              f"the host clock over {steps} steps; plain path (bf16) "
-              f"{out['plain_ms_per_step']:.3f} ms per step", flush=True)
+              f"events, steps {6 if len(ms) > 8 else 1}-{steps}), "
+              f"{out['img_per_s']:.1f} img/s on the host clock over {steps} "
+              f"steps; plain path (bf16) "
+              f"{'not timed' if plain is None else f'{plain:.3f} ms'} per "
+              "step", flush=True)
 
     trained = read_launches(tuple(KERNELS))
     if cli:
@@ -3277,28 +3406,216 @@ def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
     return launches
 
 
-def full_step_384(dev, batch=16) -> dict:
-    """One full fine-tuning step of ViT-B/16 at 384 px (577 tokens): the
-    flash attention at any token count, as on the TPU, so the flash
-    counters grow and the blockwise ones do not."""
+def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
+               long_size=336, long_batch=16, long_grad_batch=4,
+               overrides=None, timed=True) -> dict:
+    """ViT-H/14 (``MODEL_HUGE``) at full width and depth from seed 0 with a
+    perturbed order-4 rank-8 CaRA adapter at scale 10, 10 classes, bf16,
+    ``batch`` images (``overrides`` shrink it for a rehearsal on the
+    CPU); every attention at head width 80:
+
+    1. served merged and unmerged as :func:`serving_phase` does (logits
+       within ``LOGIT_RTOL`` of the fp32 plain forward): rows 1, 5 and 9
+       launch;
+    2. the element and the rank route as :func:`training_phase` (the
+       gradient check on ``grad_batch`` images, ``steps`` timed steps,
+       peak memory; no CLI, no plain timing): the saved forms of rows 8,
+       10 and 11, row 2 inside row 8 on the element route and on its own
+       on the rank route;
+    3. full fine-tuning (lr 1e-4) through row 17: the gradient check of
+       every leaf on ``full_grad_batch`` images, ``steps`` timed steps,
+       peak memory;
+    4. the rank route with ``CARA_ATTN_MEGA=1`` (rows 5 and 6), two steps;
+    5. at ``long_size`` px (577 tokens: row 16): served merged and
+       unmerged at ``long_batch``, the rank route's gradient check on
+       ``long_grad_batch`` images and four steps at ``long_batch``, one
+       full fine-tuning step on ``long_grad_batch`` images (row 17 at 577
+       tokens);
+    6. ``cli.vit_cp --model vit_huge_patch14_224_in21k --synthetic`` in a
+       child for four steps (two epochs of two batches).
+
+    Returns the launches of the Dh-80 entries of ``DH_FORMS``."""
+    over = dict(overrides or {})
+    cfg = get_model_config(MODEL_HUGE, num_classes=10, **over)
+    print(f"[huge] {MODEL_HUGE}: depth {cfg.depth}, E {cfg.embed_dim}, "
+          f"heads {cfg.num_heads} of width {cfg.head_dim}, hidden "
+          f"{cfg.hidden_dim}, {cfg.num_patches + 1} tokens, batch {batch}, "
+          "bf16", flush=True)
+    got = {}
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def serve(size, n_images, serve_batch, tag):
+        images = make_images(n_images, size)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "vit_huge_smoke_seed_0.npz")
+            t0 = time.perf_counter()
+            make_checkpoint(ckpt, model=MODEL_HUGE,
+                            **dict(over, image_size=size))
+            print(f"[{tag}] checkpoint written in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            reset_launches()
+            serving_phase(dev, ckpt, MODEL_HUGE, images,
+                          batch_size=serve_batch, timed=timed, tag=tag)
+            served = read_launches(tuple(KERNELS))
+        print(f"[{tag}] kernel launches on the serving path: "
+              f"{ {k: v for k, v in served.items() if v} }", flush=True)
+        free()
+        return served
+
+    served = serve(cfg.image_size, 96, batch, "serve:huge")
+    for name in HUGE_SERVING_KERNELS:
+        require(served[name] > 0, f"{name} never launched serving ViT-H")
+    _add_launches(got, served, ("fused_qkv_attention",))
+
+    common = dict(model=MODEL_HUGE, batch=batch, steps=steps, plain_steps=0,
+                  grad_batch=grad_batch, cli=False, overrides=over or None,
+                  timed=timed)
+    saved_idle = GEMM_RECOMPUTE + tuple(SAVED_FORMS)
+    out = training_phase(dev, impl="element", path=HUGE_ELEMENT_KERNELS,
+                         idle=saved_idle, **common)
+    del out
+    free()
+    out = training_phase(dev, impl="rank", path=HUGE_RANK_KERNELS,
+                         idle=saved_idle, **common)
+    _add_launches(got, out["launches"], ("fused_qkv_attention",
+                                         "fused_qkv_attention_bwd"))
+    setup = out.pop("setup")
+    del out
+
+    # The attention megakernel and its backward (rows 5, 6), two steps.
+    values, _, path, idle = SWITCHES["CARA_ATTN_MEGA=1"]
+    scfg, scc, frozen, state, data = setup
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    with attn_switch(**values):
+        reset_launches()
+        state, losses, ms, _ = fixed_batch_steps(
+            scfg, scc, frozen, state, data, generator, 2, timed=timed)
+        mega = read_launches(tuple(KERNELS))
+    print(f"[train:rank:CARA_ATTN_MEGA=1:{MODEL_HUGE}] 2 steps at batch "
+          f"{batch}: loss {losses}, ms {ms}; kernel launches "
+          f"{ {k: v for k, v in mega.items() if v} }", flush=True)
+    require(all(np.isfinite(losses)), "non-finite ViT-H loss under "
+            "CARA_ATTN_MEGA=1")
+    for name in path:
+        require(mega[name] > 0, f"{name} never launched by ViT-H under "
+                "CARA_ATTN_MEGA=1")
+    for name in idle:
+        require(mega[name] == 0, f"{name} launched by ViT-H under "
+                "CARA_ATTN_MEGA=1")
+    del setup, scfg, scc, frozen, state, data
+    free()
+
+    out = training_phase(
+        dev, method="full", lr=1e-4, path=FLASH_KERNELS,
+        idle=("fused_qkv_attention", "fused_qkv_attention_bwd")
+        + BLOCKWISE_KERNELS + ADAPTER_KERNELS,
+        **dict(common, grad_batch=full_grad_batch))
+    _add_launches(got, out["launches"], FLASH_KERNELS)
+    del out
+    free()
+
+    # 577 tokens: row 16 (and row 17 for full fine-tuning).
+    long_over = dict(over, image_size=long_size)
+    served = serve(long_size, 2 * long_batch, long_batch,
+                   f"serve:huge:{long_size}")
+    for name in LONG_SERVING_KERNELS:
+        require(served[name] > 0, f"{name} never launched serving ViT-H at "
+                f"{long_size} px")
+    for name in SHORT_ATTENTION_KERNELS:
+        require(served[name] == 0, f"{name} launched serving ViT-H at "
+                f"{long_size} px")
+    _add_launches(got, served, ("blockwise_qkv_attention",))
+    out = training_phase(
+        dev, impl="rank", path=LONG_SPLIT_KERNELS,
+        idle=SHORT_ATTENTION_KERNELS + RANK_RECOMPUTE,
+        **dict(common, batch=long_batch, steps=4,
+               grad_batch=long_grad_batch, overrides=long_over))
+    _add_launches(got, out["launches"], BLOCKWISE_KERNELS)
+    del out
+    free()
+    full = full_step_577(dev, batch=long_grad_batch, model=MODEL_HUGE,
+                         timed=timed, **long_over)
+    for name in FLASH_KERNELS:
+        got[name + "_577"] = full[name]
+    free()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--dataset", "svhn", "--model", MODEL_HUGE,
+                "--dim", "8", "--epochs", "2", "--batch-size", "32",
+                "--eval-batch-size", "32", "--synthetic-size", "64",
+                "--log-every", "1", "--out-dir", tmp, "--backbone",
+                os.path.join(tmp, "none.npz"), "--device", str(dev)]
+        for key, value in over.items():
+            argv += ["--model-override", f"{key}={value}"]
+        t0 = time.perf_counter()
+        child = cli_child(argv, {})
+    print(f"[huge] cli.vit_cp child, 4 steps: "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{ {k: v for k, v in child.items() if v} }", flush=True)
+    for name in HUGE_ELEMENT_KERNELS:
+        require(child[name] > 0, f"{name} never launched by the ViT-H CLI")
+
+    # Every entry of one kernel instance takes that instance's launches.
+    return {name: got[base + ("_577" if n == 577 and base in FLASH_KERNELS
+                              else "")]
+            for name, (base, n, dh) in DH_FORMS.items() if dh == 80}
+
+
+def narrow_flash_phase(dev, steps=6, batch=64, timed=True) -> dict:
+    """Full fine-tuning of the test model (``vit_tiny_test``: four heads of
+    width 16) and of the same with two heads (width 32) as
+    :func:`training_phase` (the gradient check, ``steps`` steps at lr
+    1e-3, no CLI): row 17 at those widths.  Returns the launches of the
+    Dh 16 and 32 entries of ``DH_FORMS``."""
+    launches = {}
+    for dh, over in ((16, {}), (32, {"num_heads": 2})):
+        out = training_phase(dev, timed=timed, steps=steps, plain_steps=1,
+                             batch=batch, model="vit_tiny_test",
+                             method="full", lr=1e-3, path=FLASH_KERNELS,
+                             overrides=over, cli=False)
+        require(out["setup"][0].head_dim == dh, "head width")
+        for name in FLASH_KERNELS:
+            launches[f"{name}_dh{dh}"] = out["launches"][name]
+        del out
+    return launches
+
+
+def full_step_577(dev, batch=16, model=MODEL_384, timed=True,
+                  **overrides) -> dict:
+    """One full fine-tuning step of ViT-B/16 at 384 px (or ``model`` with
+    ``overrides``; 577 tokens): the flash attention at any token count,
+    as on the TPU, so the flash counters grow and the blockwise ones do
+    not."""
     cfg, cara_cfg, frozen, state, data = train_setup(
-        dev, model=MODEL_384, batch=batch, method="full", lr=1e-4)
+        dev, model=model, batch=batch, method="full", lr=1e-4, **overrides)
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     state, losses, ms, _ = fixed_batch_steps(cfg, cara_cfg, frozen, state,
-                                             data, generator, 1)
+                                             data, generator, 1, timed=timed)
+    ms = ms or [float("nan")]
+    peak = (f"; peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+            "GiB allocated" if dev.type == "cuda" else "")
     launches = read_launches(tuple(KERNELS))
-    print(f"[train:full:{MODEL_384}] one step at batch {batch}: loss "
-          f"{losses[0]:.4f}, {ms[0]:.3f} ms (CUDA events, the first step); "
-          f"kernel launches { {k: v for k, v in launches.items() if v} }",
-          flush=True)
-    require(bool(np.isfinite(losses[0])), "non-finite loss at 384 px")
+    print(f"[train:full:{model}] one step at batch {batch}: loss "
+          f"{losses[0]:.4f}, {ms[0]:.3f} ms (CUDA events, the first step)"
+          f"{peak}; kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    tokens = cfg.num_patches + 1
+    require(bool(np.isfinite(losses[0])), f"non-finite loss at {tokens} "
+            "tokens")
     for name in FLASH_KERNELS:
-        require(launches[name] > 0, f"{name} never launched at 384 px")
+        require(launches[name] > 0, f"{name} never launched at {tokens} "
+                "tokens")
     for name in BLOCKWISE_KERNELS + SHORT_ATTENTION_KERNELS:
         require(launches[name] == 0, f"{name} launched by full fine-tuning "
-                "at 384 px")
+                f"at {tokens} tokens")
     return launches
 
 
@@ -3331,7 +3648,8 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
     cfg, cara_cfg, frozen, state, data = train_setup(
         dev, model=model, batch=batch, impl=impl, method=method,
         lr=1e-4 if method == "full" else 1e-3, **(overrides or {}))
-    where = {MODEL: "", MODEL_384: ":384", MODEL_CLIP: ":clip"}[model]
+    where = {MODEL: "", MODEL_384: ":384", MODEL_CLIP: ":clip",
+             MODEL_HUGE: ":huge"}[model]
     tag = f"[profile:{impl}{where}]"
     if overrides:
         tag = tag[:-1] + ":dropout]"
@@ -3494,7 +3812,7 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}", flush=True)
     if args.profile:
-        for model in (MODEL, MODEL_384, MODEL_CLIP):
+        for model in (MODEL, MODEL_384, MODEL_CLIP, MODEL_HUGE):
             for impl in ("element", "rank"):
                 profile_steps(dev, impl, model=model)
         for method in ("full", "linear"):
@@ -3529,6 +3847,7 @@ def main(argv=None) -> int:
         eps=1e-5)))
     results.update(pair_kernel_phase(dev, kernel_inputs(
         dev, act="quick_gelu")))
+    results.update(dh_kernel_phase(dev))
     determinism_phase(dev)
 
     stamp("kernel entries")
@@ -3590,6 +3909,9 @@ def main(argv=None) -> int:
     # CLIP ViT-L/14 at full width and depth: the quick_gelu forms.
     launches.update(clip_phase(dev))
     stamp("CLIP ViT-L/14")
+    # ViT-H/14 at full width and depth: the attention at head width 80.
+    launches.update(huge_phase(dev))
+    stamp("ViT-H/14")
 
     # The 384-px route: 577 tokens, past the full-score attention's 512.
     images = make_images(96, 384)
@@ -3631,9 +3953,11 @@ def main(argv=None) -> int:
                    path=no_flash[:1],
                    idle=no_flash[1:] + FLASH_KERNELS + BLOCKWISE_KERNELS
                    + ADAPTER_KERNELS)
-    long_full = full_step_384(dev)
+    long_full = full_step_577(dev)
     for name in FLASH_KERNELS:
         launches[name + "_577"] = long_full[name]
+    # Row 17 at head widths 16 and 32.
+    launches.update(narrow_flash_phase(dev))
 
     stamp("without an adapter")
     kernels = []

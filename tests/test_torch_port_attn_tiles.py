@@ -40,6 +40,11 @@ torch on the CPU and held against the JAX package.
   pass for the full row max, then a pass for exp, the row sum and P V.
   :func:`two_chunk_fwd` is held against the JAX ``fused_qkv_attention``.
 
+At ViT-H/14's head width 80 the kernels reduce over Dh in two parts, the
+64-column one and then the 16-column tail (``sm90::HeadTile``); the
+mirrors take the scores (and dp) in that order (:func:`dot_dh`), and the
+Dh-80 cases of each loop hold it against the Pallas kernels.
+
 fp32 throughout, atol = rtol = 1e-4.
 """
 
@@ -79,6 +84,16 @@ def _pad_rows(n):
     return -(-n // QUERY_TILE) * QUERY_TILE
 
 
+def dot_dh(a, b):
+    """a @ b^T over the head dimension as the kernels' k-steps sum it:
+    one part up to 64 columns; past 64 (Dh 80) the 64-column part, then
+    the tail added."""
+    if a.shape[-1] <= 64:
+        return a @ b.transpose(-1, -2)
+    return (a[..., :64] @ b[..., :64].transpose(-1, -2)
+            + a[..., 64:] @ b[..., 64:].transpose(-1, -2))
+
+
 def row_pass(out, lse, do, heads):
     """Rows 16 and 17's row pass: (lse, D = rowsum(do * o)) rows (B, H,
     NP), rows past N with lse = 1e30 and D = 0 (their p is 0)."""
@@ -114,10 +129,10 @@ def stats_rows(qkv, do, heads, scale, n_real):
         sd = torch.zeros(qs.shape[:-1])
         for k0 in range(0, n_real, KEY_TILE):
             ks, vs = k[:, :, k0:k0 + KEY_TILE], v[:, :, k0:k0 + KEY_TILE]
-            s = qs @ ks.transpose(-1, -2)
+            s = dot_dh(qs, ks)
             col = torch.arange(k0, k0 + ks.shape[2])
             s = torch.where(col < n_real, s, torch.full_like(s, NEG_INF))
-            dp = gs @ vs.transpose(-1, -2)
+            dp = dot_dh(gs, vs)
             m_new = torch.maximum(m, s.amax(-1) * scale)
             corr = torch.exp(m - m_new)
             ex = torch.exp(s * scale - m_new[..., None])
@@ -180,11 +195,11 @@ def tiled_bwd_from_rows(qkv, do, lse_t, d_t, heads, scale, n_real, rng):
             for q0 in range(0, np_, QUERY_TILE):
                 rows = slice(q0, q0 + QUERY_TILE)
                 qs, gs = qp[:, :, rows], gp[:, :, rows]
-                s_t = ks @ qs.transpose(-1, -2)  # keys x queries
+                s_t = dot_dh(ks, qs)  # keys x queries
                 p_t = torch.where(
                     valid, torch.exp(s_t * scale - lse_t[:, :, None, rows]),
                     torch.zeros(()))
-                dp_t = vs @ gs.transpose(-1, -2)
+                dp_t = dot_dh(vs, gs)
                 ds_t = (p_t * (dp_t - d_t[:, :, None, rows])).to(dt).float()
                 dv_w += p_t.to(dt).float() @ gs
                 dk_w += ds_t @ qs
@@ -221,7 +236,7 @@ def tiled_fwd(q, k, v, scale, n_real, key_tile=FWD_KEY_TILE):
         acc = torch.zeros(qs.shape)
         for k0 in range(0, n_real, key_tile):  # tiles past n_real skipped
             ks, vs = kf[:, :, k0:k0 + key_tile], vf[:, :, k0:k0 + key_tile]
-            s = qs @ ks.transpose(-1, -2)
+            s = dot_dh(qs, ks)
             col = torch.arange(k0, k0 + ks.shape[2])
             s = torch.where(col < n_real, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(-1) * scale)
@@ -267,7 +282,8 @@ def two_chunk_fwd(qkv, heads, scale, n_real, chunk=256):
 @pytest.mark.parametrize("np_, n_real, dh, b", [(256, 197, 16, 2),
                                                 (256, 197, 64, 2),
                                                 (640, 577, 16, 1),
-                                                (640, 577, 64, 1)])
+                                                (640, 577, 64, 1),
+                                                (640, 577, 80, 1)])
 def test_tiled_bwd_decomposition_matches_jax(np_, n_real, dh, b):
     e = HEADS * dh
     sm = dh ** -0.5
@@ -292,7 +308,8 @@ def test_tiled_bwd_decomposition_matches_jax(np_, n_real, dh, b):
 
 
 @pytest.mark.parametrize("np_, n_real, dh, b", [(256, 197, 64, 2),
-                                                (640, 577, 16, 1)])
+                                                (640, 577, 16, 1),
+                                                (256, 197, 80, 2)])
 def test_tiled_bwd_fixed_order_matches_jax(np_, n_real, dh, b):
     """Rows 16 and 17's backward with dq summed in the card's fixed order
     (key tiles in order, each tile's two warpgroup partials summed first)
@@ -336,8 +353,9 @@ def test_two_chunk_forward_matches_jax():
 
 # Row 2's backward: (NP, n_real) x head width; n_real 401 and 512 are the
 # token counts past the previous kernel's shared-memory cap of 352.
-ROW2_CASES = [(np_, n_real, dh) for dh in (16, 32, 64)
-              for np_, n_real in ((256, 197), (512, 401), (512, 512))]
+ROW2_CASES = ([(np_, n_real, dh) for dh in (16, 32, 64)
+               for np_, n_real in ((256, 197), (512, 401), (512, 512))]
+              + [(320, 257, 80), (512, 512, 80)])
 
 
 @pytest.mark.parametrize("np_, n_real, dh", ROW2_CASES,
@@ -365,9 +383,9 @@ def test_row2_stats_and_tiles_match_jax(np_, n_real, dh):
 
 
 @pytest.mark.parametrize("np_, n_real, dh", [(256, 197, 64), (512, 401, 32),
-                                             (512, 512, 16)],
+                                             (512, 512, 16), (512, 401, 80)],
                          ids=["np256_r197_dh64", "np512_r401_dh32",
-                              "np512_r512_dh16"])
+                              "np512_r512_dh16", "np512_r401_dh80"])
 def test_row2_fixed_order_matches_jax(np_, n_real, dh):
     """Row 2's statistics pass and main loop with dq summed in the card's
     fixed order, against ``jax.vjp`` of the Pallas kernel and the plain
@@ -395,7 +413,8 @@ def test_row2_fixed_order_matches_jax(np_, n_real, dh):
 # the last key tile partly masked (577) or wholly past n_real (640 / 500).
 FWD_CASES = [("blockwise", 640, 577, 64), ("blockwise", 577, 500, 64),
              ("blockwise", 640, 577, 16), ("flash", 577, 577, 64),
-             ("flash", 640, 640, 64)]
+             ("flash", 640, 640, 64), ("blockwise", 640, 577, 80),
+             ("flash", 577, 577, 80)]
 
 
 @pytest.mark.parametrize("key_tile", [FWD_KEY_TILE, KEY_TILE],

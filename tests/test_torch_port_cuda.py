@@ -7,38 +7,42 @@ on a machine with one GPU and ``nvcc``::
         tests/test_torch_port_cuda.py
 
 (``--noconftest``: the suite's conftest sets JAX up, and the port needs
-no JAX.)  The shapes are small and ragged on purpose: token counts that
+no JAX.) The shapes are small and ragged on purpose: token counts that
 are not multiples of 16, masked keys, row counts that are not multiples
 of the 128-row GEMM tile, ranks that are not multiples of 16, head
-widths 16, 32 and 64; for the training kernels zero drop-path gates and
-the weight-dropout fold's keep pattern, bit for bit; for the rank / row /
-no-dropout route's kernels (``cp_dense``, its dx, the attention backward,
-the MLP block backward) ranks 5 and 8, a delta scale other than 1 and
-one step of each route; for the 384-px route's kernels (the blockwise
-attention, the element-dropout sites and row 15) key tiles wholly past
-``n_real``, and a tiny model at 577 tokens; for row 17 (the flash
-attention) strided and contiguous q, k, v at 197 and 577 tokens, a head
-width other than 64 refused, and a train step without an adapter; for
-the attention-block switches (rows 3, 4 and 6) masked keys, idle query
-warps, head widths 64, 32 and 16, ranks 5, 8 and 40, and a rank step
-under each switch; for the dequant-fused int8 GEMM (row 18) ragged row
-counts, one or three column tiles and one or two k-steps, and a
-quantized Predictor with ``CARA_INT8_PALLAS=1``; for the whole-block
+widths 16, 32, 64 and 80; for the training kernels zero drop-path gates
+and the weight-dropout fold's keep pattern, bit for bit; for the rank /
+row / no-dropout route's kernels (``cp_dense``, its dx, the attention
+backward, the MLP block backward) ranks 5 and 8, a delta scale other
+than 1 and one step of each route; for the 384-px route's kernels (the
+blockwise attention, the element-dropout sites and row 15) key tiles
+wholly past ``n_real``, and a tiny model at 577 tokens; for row 17 (the
+flash attention) strided and contiguous q, k, v at 197 and 577 tokens, a
+head width the kernels do not take refused, and a train step without an
+adapter; for the attention-block switches (rows 3, 4 and 6) masked keys,
+idle query warps, head widths 64, 32 and 16, ranks 5, 8 and 40, and a
+rank step under each switch; for the dequant-fused int8 GEMM (row 18)
+ragged row counts, one or three column tiles and one or two k-steps, and
+a quantized Predictor with ``CARA_INT8_PALLAS=1``; for the whole-block
 eval kernel (row 19) head widths 64, 32 and 16, masked keys, a row group
 wholly past N and a delta scale other than 1; for row 2's backward (the
 statistics pass and the tiled main kernel) N 197, 257, 401 and 512, past
 the previous kernel's 352-token cap, with masked keys at head widths 64,
-32 and 16; for the tiled forward of rows 16 and 17 query and key boxes
-wholly or partly past N, key tiles wholly past n_real, size-1 image and
-head dimensions and more items than SMs; for the GEMM core of the block
-backwards (``grad_gemm.cu``) every layout and epilogue with and without
-the rank step (from memory or folded in), ragged M, N and K, N = 64 and
-split TN planes; for the tiled attention backward (rows 2, 16, 17) two
-calls on the same inputs giving dq, dk and dv bit for bit; for the
-forward site on that core (``cp_site.cu``: rows 5, 7, 9, 13, 19's qkv
-site) every epilogue with and without the LayerNorm row pass, ranks 0, 8
-and 64, ViT-B's four (K, N) and 197, 12608 and 36928 rows, bit for bit
-on a second call, and the LayerNorm row pass alone.
+32, 16 and 80; for ViT-H/14's head width 80 (64 + 16 columns) rows 1, 2,
+16 and 17 against their plain versions, row 1 at every chunk plan up to
+N 512, and a small ViT-H on the serving, element, rank and full routes;
+for row 17 at head widths 16 and 32; for the tiled forward of rows 16
+and 17 query and key boxes wholly or partly past N, key tiles wholly
+past n_real, size-1 image and head dimensions and more items than SMs;
+for the GEMM core of the block backwards (``grad_gemm.cu``) every layout
+and epilogue with and without the rank step (from memory or folded in),
+ragged M, N and K, N = 64 and split TN planes; for the tiled attention
+backward (rows 2, 16, 17) two calls on the same inputs giving dq, dk and
+dv bit for bit; for the forward site on that core (``cp_site.cu``: rows
+5, 7, 9, 13, 19's qkv site) every epilogue with and without the
+LayerNorm row pass, ranks 0, 8 and 64, ViT-B's four (K, N) and 197,
+12608 and 36928 rows, bit for bit on a second call, and the LayerNorm
+row pass alone.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -392,7 +396,7 @@ def test_vit_forward_577_tokens_on_card_matches_plain(dev, adapter):
 
 
 # (b, n, heads): row 17 at the token counts of ViT-B/16 at 224 and 384 px
-# (head width 64, the only one its kernels take).
+# (head width 64; the other widths are cases of the tiled tests below).
 FLASH_SHAPES = [(3, 197, 2), (2, 577, 3)]
 
 
@@ -421,7 +425,7 @@ def test_flash_attention_kernels_match_plain(dev, shape):
 
 
 def test_flash_attention_refuses_other_head_widths(dev):
-    q = torch.zeros((2, 4, 50, 32), device=dev, dtype=torch.bfloat16)
+    q = torch.zeros((2, 4, 50, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ROADMAP"):
         flash_mod.flash_attention(q, q, q, 0.25)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -609,6 +613,71 @@ def test_clip_train_steps_on_card_match_plain(dev, route, over, names):
         assert _launches(name) == before[name], name
 
 
+# A small ViT-H/14: four heads of width 80 (E 320, so that every site
+# takes it: K and N multiples of 64), depth 2, 17 tokens at 56 px, or 577
+# at 336 px (row 16 at Dh 80).
+HUGE_SMALL = dict(embed_dim=320, num_heads=4, depth=2, image_size=56)
+
+
+@pytest.mark.parametrize("adapter, size", [(False, 56), (True, 56),
+                                           (True, 336)],
+                         ids=["merged", "adapter", "adapter-577"])
+def test_huge_forward_on_card_matches_plain(dev, adapter, size):
+    """The small ViT-H's bf16 eval forward through the kernels (row 1 at
+    17 tokens, row 16 at 577, head width 80) against the fp32 plain
+    forward on the same weights, within chip_smoke's logit bound."""
+    cfg = get_model_config(chip_smoke.MODEL_HUGE, num_classes=10,
+                           **dict(HUGE_SMALL, image_size=size))
+    assert cfg.head_dim == 80
+    cc = CaraConfig(rank=4, scale=3.0)
+    params = convert.params_from_numpy(convert.init_vit_params(cfg, 0), dev)
+    cara = convert.params_from_numpy(convert.perturb_adapter(
+        convert.init_cara_params(cfg, cc, 1), 2, std=0.1), dev)
+    if adapter:
+        cara = _cast(cara, torch.bfloat16)
+    else:
+        params, cara, cc = merge_cara(params, cara, cfg, cc), None, None
+    params = _cast(params, torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, size, size, 3)).astype(np.float32)).to(dev)
+    # 577 tokens: row 16; the adapter at 17 tokens: the attention block
+    # (row 5, whose attention is row 1's kernel); merged: row 1 itself.
+    name = ("blockwise_qkv_attention" if size > 224 else
+            "cp_attn_block" if adapter else "fused_qkv_attention")
+    before = _launches(name)
+    with torch.inference_mode():
+        out = t_vit.vit_forward(params, x.bfloat16(), cfg,
+                                cara_params=cara, cara_cfg=cc)
+        ref = t_vit.vit_forward(_cast(params, torch.float32), x, cfg,
+                                cara_params=_cast(cara, torch.float32),
+                                cara_cfg=cc, impl="plain")
+    tol = chip_smoke.LOGIT_RTOL * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert _launches(name) > before
+
+
+@pytest.mark.parametrize("route, method, names", [
+    ("element", "cara", ("cp_attn_block_wd", "cp_attn_block_wd_bwd_saved")),
+    ("rank", "cara", ("fused_qkv_attention", "fused_qkv_attention_bwd")),
+    ("element", "full", chip_smoke.FLASH_KERNELS)],
+    ids=["element", "rank", "full"])
+def test_huge_train_steps_on_card_match_plain(dev, route, method, names):
+    """The small ViT-H on the element and rank routes and in full
+    fine-tuning (row 17 at head width 80): every gradient within
+    chip_smoke's bound of the fp32 plain path, the route's attention
+    kernels launched."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, model=chip_smoke.MODEL_HUGE, batch=4, rank=4, impl=route,
+        method=method, lr=1e-4, **HUGE_SMALL)
+    assert cfg.head_dim == 80
+    before = {k: _launches(k) for k in names}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in names:
+        assert _launches(name) > before[name], name
+
+
 # (b, n, n_real, e, heads, hidden, r): head dims 64, 32 and 16; masked
 # keys; at N = 37 the last query warp of the 64-row tile is wholly past
 # N; ranks 5, 8 and 40 (the attention + projection kernel's z step pads
@@ -616,6 +685,21 @@ def test_clip_train_steps_on_card_match_plain(dev, route, over, names):
 ATTN_ROUTE_SHAPES = [(3, 37, 30, 128, 2, 512, 5),
                      (2, 197, 197, 256, 8, 1024, 8),
                      (5, 50, 41, 64, 4, 256, 40)]
+
+
+def test_attn_proj_refuses_vit_h_naming_its_roadmap_item(dev):
+    """Row 3 (``CARA_ATTNPROJ=1``) takes head widths up to 64 and E up to
+    what one block holds: at ViT-H's E 1280 and Dh 80 it raises, naming
+    its ROADMAP item."""
+    e, heads, r = 1280, 16, 8
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    qkv = torch.zeros((2, 257, 3 * e), **bf)
+    w, b, cb = (torch.zeros((e, e), **bf), torch.zeros((e,), **bf),
+                torch.zeros((e,), **bf))
+    u, v = torch.zeros((e, r), **bf), torch.zeros((r, e), **bf)
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2: Row 3"):
+        fqa_mod.fused_qkv_attention_proj(qkv, w, b, u, v, cb, heads,
+                                         80 ** -0.5, 257)
 
 
 @pytest.mark.parametrize("shape", ATTN_ROUTE_SHAPES,
@@ -775,9 +859,15 @@ def test_quantized_predictor_on_card_matches_plain(dev, monkeypatch, mode):
 
 # Row 1's wgmma kernel: head widths 16, 32 and 64; one 64-key chunk (16
 # tokens), the 200-wide chunk (197), and the two-chunk path past 256 keys
-# (257, 512); keys masked in the 257 case.
-ROW1_CASES = [(dh, n, n_real) for dh in (16, 32, 64)
-              for n, n_real in ((16, 16), (197, 197), (257, 250), (512, 512))]
+# (257, 512); keys masked in the 257 case.  Head width 80 (the query ring,
+# two item slots up to 256 tokens, one past) also at 401 and 512 with
+# masked keys.
+ROW1_CASES = ([(dh, n, n_real) for dh in (16, 32, 64)
+               for n, n_real in ((16, 16), (197, 197), (257, 250),
+                                 (512, 512))]
+              + [(80, n, n_real) for n, n_real in (
+                  (16, 16), (70, 70), (197, 197), (257, 250), (401, 401),
+                  (512, 500))])
 
 
 @pytest.mark.parametrize("dh, n, n_real", ROW1_CASES,
@@ -827,7 +917,12 @@ BWD_CASES = [("blockwise", 197, 197, 64, 2, 3),
              ("blockwise", 640, 577, 64, 2, 3),
              ("blockwise", 200, 100, 32, 2, 3),
              ("blockwise", 70, 61, 16, 2, 3), ("flash", 197, 197, 64, 2, 3),
-             ("flash", 577, 577, 64, 2, 3), ("flash", 70, 70, 64, 1, 1)]
+             ("flash", 577, 577, 64, 2, 3), ("flash", 70, 70, 64, 1, 1),
+             ("blockwise", 577, 577, 80, 2, 3),
+             ("blockwise", 640, 577, 80, 2, 3),
+             ("flash", 257, 257, 80, 2, 3), ("flash", 577, 577, 80, 2, 3),
+             ("flash", 70, 70, 80, 1, 1), ("flash", 197, 197, 32, 2, 3),
+             ("flash", 70, 70, 16, 2, 4)]
 
 
 @pytest.mark.parametrize("route, n, n_real, dh, b, heads", BWD_CASES,
@@ -885,7 +980,8 @@ def test_tiled_attention_bwd_wgmma_matches_plain(dev, monkeypatch, route, n,
 ROW2_CASES = [(64, 197, 197, 2, 3), (64, 257, 250, 2, 3),
               (64, 401, 401, 2, 3), (64, 512, 500, 2, 3),
               (32, 401, 380, 2, 3), (16, 512, 512, 2, 3),
-              (16, 70, 61, 1, 1)]
+              (16, 70, 61, 1, 1), (80, 257, 257, 2, 3),
+              (80, 512, 500, 2, 3), (80, 70, 61, 1, 1)]
 
 
 @pytest.mark.parametrize("dh, n, n_real, b, heads", ROW2_CASES,
@@ -939,7 +1035,12 @@ FWD_CASES = [("blockwise", 16, 16, 64, 2, 3), ("blockwise", 70, 61, 16, 2, 3),
              ("blockwise", 197, 197, 64, 1, 1),
              ("blockwise", 577, 577, 64, 16, 12),
              ("flash", 16, 16, 64, 2, 3), ("flash", 197, 197, 64, 3, 2),
-             ("flash", 577, 577, 64, 2, 3), ("flash", 70, 70, 64, 1, 1)]
+             ("flash", 577, 577, 64, 2, 3), ("flash", 70, 70, 64, 1, 1),
+             ("blockwise", 577, 577, 80, 2, 3),
+             ("blockwise", 640, 577, 80, 2, 3),
+             ("blockwise", 577, 577, 80, 16, 16), ("flash", 16, 16, 80, 2, 3),
+             ("flash", 257, 257, 80, 3, 2), ("flash", 70, 70, 80, 1, 1),
+             ("flash", 200, 200, 32, 2, 3), ("flash", 70, 70, 16, 2, 3)]
 
 
 @pytest.mark.parametrize("route, n, n_real, dh, b, heads", FWD_CASES,
@@ -1111,20 +1212,26 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
             close(outs[2], activation(kw["aux"].float(), act), True)
 
 
-# The tiled attention backward, twice on the same inputs: (row, n, b,
-# heads).  Row 2 at 197 and 512 tokens, row 16 at 577, row 17 at 197 and
-# 577, twelve heads of width 64 (the smoke holds the same at batch 64).
-DETERMINISM_CASES = [("row2", 197), ("row2", 512), ("row16", 577),
-                     ("row17", 197), ("row17", 577)]
+# The tiled attention backward, twice on the same inputs: (row, n, head
+# width).  Row 2 at 197 and 512 tokens, row 16 at 577, row 17 at 197 and
+# 577, twelve heads of width 64 (the smoke holds the same at batch 64);
+# then sixteen heads of width 80 (ViT-H/14: one dq staging buffer) at its
+# 257 and 577 tokens.
+DETERMINISM_CASES = [("row2", 197, 64), ("row2", 512, 64),
+                     ("row16", 577, 64), ("row17", 197, 64),
+                     ("row17", 577, 64), ("row2", 257, 80),
+                     ("row2", 512, 80), ("row16", 577, 80),
+                     ("row17", 257, 80), ("row17", 577, 80)]
 
 
-@pytest.mark.parametrize("row, n", DETERMINISM_CASES,
-                         ids=[f"{r}_n{n}" for r, n in DETERMINISM_CASES])
-def test_attention_bwd_is_bitwise_deterministic(dev, row, n):
+@pytest.mark.parametrize("row, n, dh", DETERMINISM_CASES,
+                         ids=[f"{r}_n{n}" + ("" if d == 64 else f"_dh{d}")
+                              for r, n, d in DETERMINISM_CASES])
+def test_attention_bwd_is_bitwise_deterministic(dev, row, n, dh):
     """Two backward calls of rows 2, 16 and 17 on the same inputs give dq,
     dk and dv bit for bit: the adds into dq's fp32 sum are taken in
     key-tile order."""
-    b, heads, dh = 8, 12, 64
+    b, heads = 8, 12 if dh == 64 else 16
     e = heads * dh
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)

@@ -19,6 +19,9 @@ bf16:
   backward) on the same inputs; the forwards and row 2 also back to back
   (``*_b2b_ms``: 20 calls between two events, so the card does not wait
   for the host between them);
+- the same kernels at head width 80 (ViT-H/14: rows 1 and 2 at N 257,
+  rows 16 and 17 at 577, row 17 at 257) and row 17 at 16 and 32, back to
+  back (null where a tree refuses the width);
 - TPU rows 11 (the element route's MLP-block backward), 10 (the rank
   route's) and 8 (the element route's attention-block backward), each in
   its recompute form and, where the tree has it, its saved-residual form
@@ -44,7 +47,8 @@ bf16:
   384 px and the full fine-tuning step at 224 px (median ms per step by
   CUDA events over the steps after the fifth, on one fixed batch).
 
-``--only`` picks some of the sections (kernels, rows, serving, train).
+``--only`` picks some of the sections (kernels, widths, rows, serving,
+train).
 Prints the card's name and power limit and one JSON line per child, and
 writes them to ``--out`` as one JSON file where it is given.
 """
@@ -127,6 +131,74 @@ def _kernels(cs, dev) -> dict:
         out[f"sdpa_bwd_{n}_ms"] = cs.median_ms(
             lambda: torch.autograd.grad(so, (qq, kk, vv), gh,
                                         retain_graph=True))
+    return out
+
+
+def _widths(cs, dev) -> dict:
+    """The attention kernels at other head widths, device ms back to back
+    (``*_b2b_ms``, median of five runs of 20 calls): rows 1 and 2 at N
+    257, rows 16 and 17 forward and backward at 577 and row 17 at 257,
+    sixteen heads of width 80 (ViT-H/14, B 64); row 17 at widths 16 and
+    32 (B 64, N 197, twelve heads).  A tree whose kernels refuse a width
+    gives null for it."""
+    import torch
+    from cara_tpu_torch.ops.cuda import blockwise_attention as bwa
+    from cara_tpu_torch.ops.cuda import flash_attention as fl
+    from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa
+
+    b = 64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(torch.bfloat16)
+
+    def b2b(key, make):
+        try:
+            fn = make()
+            out[key + "_b2b_ms"] = statistics.median(
+                _b2b_ms(fn) for _ in range(5))
+        except (RuntimeError, ValueError) as exc:  # a width refused
+            print(f"{key}: {exc}", flush=True)
+            out[key + "_b2b_ms"] = None
+
+    for dh, h, n, rows in ((80, 16, 257, ("row1", "row2", "row17")),
+                           (80, 16, 577, ("row16", "row17")),
+                           (16, 12, 197, ("row17",)),
+                           (32, 12, 197, ("row17",))):
+        sm = dh ** -0.5
+        qkv = rnd(b, n, 3 * h * dh, std=0.6)
+        g = rnd(b, n, h * dh)
+        q, k, v = [x.transpose(1, 2)
+                   for x in qkv.reshape(b, n, 3, h, dh).unbind(2)]
+        gh = g.reshape(b, n, h, dh).transpose(1, 2)
+        tag = f"dh{dh}_{n}"
+        if "row1" in rows:
+            b2b(f"row1_{tag}", lambda: lambda: fqa.attention_cuda(
+                qkv, h, sm, n))
+        if "row2" in rows:
+            b2b(f"row2_bwd_{tag}", lambda: lambda: fqa.attention_bwd_cuda(
+                qkv, g, h, sm, n))
+        if "row16" in rows:
+            b2b(f"row16_fwd_{tag}", lambda: lambda: bwa.attention_fwd_cuda(
+                qkv, h, sm, n))
+
+            def row16_bwd():
+                o, lse = bwa.attention_fwd_cuda(qkv, h, sm, n)
+                return lambda: bwa.attention_bwd_cuda(qkv, o, lse, g, h, sm,
+                                                      n)
+            b2b(f"row16_bwd_{tag}", row16_bwd)
+        b2b(f"row17_fwd_{tag}", lambda: lambda: fl.attention_fwd_cuda(
+            q, k, v, sm))
+
+        def row17_bwd():
+            o, lse = fl.attention_fwd_cuda(q, k, v, sm)
+            return lambda: fl.attention_bwd_cuda(q, k, v, o, lse, gh, sm)
+        b2b(f"row17_bwd_{tag}", row17_bwd)
+        del qkv, g, q, k, v, gh
+        torch.cuda.empty_cache()
     return out
 
 
@@ -399,8 +471,8 @@ def _train(cs, dev) -> dict:
     return out
 
 
-SECTIONS = {"kernels": _kernels, "rows": _rows, "serving": _serving,
-            "train": _train}
+SECTIONS = {"kernels": _kernels, "widths": _widths, "rows": _rows,
+            "serving": _serving, "train": _train}
 
 
 def child(only) -> int:
