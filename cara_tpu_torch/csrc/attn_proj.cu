@@ -1,404 +1,641 @@
 // Attention + projection + CaRA delta in one kernel, for Hopper (sm_90a):
+// wgmma and TMA.
 //
 //   y = o @ W + b + s * ((o @ U) @ V + cb),   o = attention(qkv)
 //
 // qkv (B, N, 3E) bf16 out-flat (3, H, Dh) as the qkv site writes it,
 // W (E, E), b (E,), U (E, r) given r8 columns wide (zero past r), V
-// (r, E), cb (E,), y (B, N, E) bf16; fp32 accumulation.
+// (r, E), cb (E,), y (B, N, E) bf16; fp32 accumulation.  Head widths 16,
+// 32, 64 and 80 (sm90_common.cuh, HeadTile), E = H * Dh up to 1280, N up
+// to 512 with keys >= n_real masked, rank up to 64.
 //
 // Replaces cara_tpu/ops/pallas/fused_qkv_attention.py row 3
 // (fused_qkv_attention_proj: _fwd_proj, _fwd_proj_kernel), whose point is
 // that the attention output never goes to device memory: on the TPU the
-// (bb, NP, E) output stays in VMEM for the projection GEMM.  Here one
-// block takes one image and one 64-query tile (four warps of 16 rows):
+// (bb, NP, E) output stays in VMEM for the projection GEMM.  Here it
+// stays in shared memory.  One block takes one image and one 64-query
+// tile; two consumer warpgroups share the block's 64 rows, each with a
+// producer warp of its own that feeds its ring of shared-memory slots by
+// TMA (completion on mbarriers).
 //
-// 1. for each of the H heads, that head's K and V (all keys, zero past N)
-//    and the block's scaled q rows go to shared memory, each warp runs
-//    the per-warp softmax of qkv_attention.cu (attention_warp.cuh) and
-//    writes bf16(o) into a 64 x E shared-memory tile, at the head's
-//    columns.  The attention output exists only in that tile;
-// 2. z = bf16(o @ U) (64 x r) from the tile, as the TPU kernel rounds it;
-// 3. the projection: for each 128-column slice of y, o @ W over E in
-//    64-deep steps (a three-stage cp.async ring of W tiles in the space
-//    K and V used), one more step z @ V on the same accumulators, then b
-//    and s * cb added in the epilogue from the mma.sync registers, as
-//    cp_site.cu's epilogue does.
+// Shared memory (one block an SM; the plan in make_plan):
+//   - the o tile: 64 rows x E (rounded up to 64 columns) bf16 as 64-column
+//     atoms of 128-byte rows with the 128-byte swizzle, the K-major layout
+//     wgmma reads as its A operand; no padding (163,840 bytes at E 1280,
+//     98,304 at E 768).  TMA first loads the block's q rows into it (q
+//     columns, zero past N and past E), so that head h's q sits at the
+//     columns its o will take;
+//   - two rings, one a warpgroup, in what is left (32 KB each at E 1280,
+//     64 KB at E 768): 64-key K or V tiles of one head during the
+//     attention, then 8 KB slots of W (32 k-rows x 128
+//     columns), U (64 k-rows) and V tiles for the projection.  A producer
+//     starts the projection's loads once its warpgroup has released every
+//     attention slot.
 //
-// Shared memory at ViT-B (E 768, Dh 64, N 197): the o tile 97 KB, K and
-// V (then the W ring) 59 KB, q (then z) 9 KB, the softmax scratch 6 KB:
-// 171 KB, one block per SM.  What bounds it: the function moves ~79 MB
-// and does ~23 GFLOP (bound ~0.024 ms, by bytes); this first version is
-// bound by latency instead: one block of four warps per SM walks the
-// heads one after another with no overlap between a head's K / V loads
-// and its softmax, and the attention of a 64-row tile re-reads the
-// image's K and V (from L2) once per query tile.  Double-buffered head
-// loads, more warps per block and wgmma for the projection are later
-// work.  The kernel masks its own ragged edge: q rows past N are zero,
-// their outputs never written; keys >= n_real are masked.
+// 1. Attention: warpgroup w takes heads w, w + 2, ...  (The q tile is
+//    first rounded to bf16(q * scale) in place where the scale is not a
+//    power of two.)  Per head, a max pass streams the K tiles (S = Q K^T
+//    by wgmma, Q read from the o tile's columns of the head, keys >=
+//    n_real masked) for each row's final max; then a second pass streams
+//    K and V again: S, p = exp((s - max) * scale) in fp32 by the
+//    full-precision expf, l += p, bf16(p) as wgmma's register A operand
+//    of O += P V.  P is rounded against the final max, as
+//    _attn_heads and row 1 (qkv_attention.cu) round it, so o agrees with
+//    the row-1 recompute that the backward (row 4) reads.  bf16(O / l) is
+//    written over the head's q columns, each column pair at its swizzled
+//    address (Dh 80's heads straddle the atoms).
+// 2. z = bf16(o U) (64 x 16 or 64: the rank depth is a template
+//    parameter), each warpgroup over the whole o tile, kept in registers
+//    as a wgmma A operand.
+// 3. The projection, in passes of 256 columns, warpgroup w taking
+//    columns 128 w .. + 127 of each: acc = o W over E in 32-deep tiles,
+//    one group of wgmma in flight while the next tile lands (the last
+//    tile issued after the loop, so that no group is pending at its
+//    exit: C7515); then acc / s + z V by register-A wgmma (b and cb load
+//    meanwhile), and y = s (acc / s + z V + cb) + b in fp32 (the delta
+//    scale applied in fp32 as in the forward sites, cp_site.cu), stored
+//    as bf16 pairs.
+//
+// What bounds it: at ViT-H/14 (B 64, N 257, E 1280) the function does 21.6
+// GFLOP of attention and 53.9 of projection against ~172 MB (bound ~0.077
+// ms, by operations); at ViT-B (N 197, E 768) ~23 GFLOP against 79 MB
+// (~0.024 ms, bytes).  What holds this design back (SM clocks by phase,
+// PERF.md): the attention takes ~60 % of a block, its max pass a third of
+// that (every key tile is scored twice) and the exponentials with their
+// waits the rest; each 64-row block re-reads all of W (3.3 MB at E 1280)
+// from L2, and its image's K and V; the last query tile of an image may
+// hold one real row (N 257) but costs a full block.  Halving the W bytes a
+// tile moved nothing, so the projection is not fed too slowly from L2.
+// Tried and dropped: 64-deep W tiles (fewer slots at E 1280, slower);
+// the next key tile's scores issued before this tile's max or
+// exponentials, with q's atoms waited and scaled head by head (slower by
+// a fifth at ViT-H); the next head's max pass beside this head's
+// exponentials (ptxas serialized it, C7515); the epilogue's bias loads
+// inside the main loop (C7511).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
-#include "attention_warp.cuh"
-#include "mma_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-using attn_warp::kPad;
+using namespace sm90;
 
 constexpr int kMaxSmem = 232448;  // H100: 227 KB per block (opt-in)
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int QT = 16 * kWarps;   // query rows per block
-constexpr int BN = 128;           // output columns per projection pass
-constexpr int BK = 64;            // k depth of a ring stage
-constexpr int B_LD = BN + 8;      // padded smem strides (multiples of 8)
-constexpr int STAGES = 3;
-constexpr size_t B_STAGE = (size_t)BK * B_LD;  // bf16 elements
-constexpr int ZW = 64;            // the rank k-step: r <= 64
-constexpr int Z_LD = ZW + 8;
-constexpr int WM = 32;            // warp tile 32 x 64: 2 x 2 warps
-constexpr int WN = 64;
-constexpr int MI = WM / 16;
-constexpr int NJ = WN / 8;
+constexpr int kRows = 64;         // query rows of a block: one wgmma M
+constexpr int kGroups = 2;        // consumer warpgroups
+constexpr int kConsumers = 128 * kGroups;
+constexpr int kThreads = kConsumers + 32 * kGroups;  // + a producer warp each
+constexpr int kKeys = 64;         // keys of a streamed K or V tile
+constexpr int kAtom = kRows * 128;  // one 64-column atom of the o tile
+constexpr int kWk = 32;           // k-rows of a W or V tile
+constexpr int kUk = 64;           // k-rows of a U tile
+constexpr int kBN = 128;          // columns of a warpgroup's pass
+constexpr int kWBox = kWk * 128;  // one 64-column TMA box of a W tile
+constexpr int kWTile = 2 * kWBox;   // a projection slot: 8 KB
+constexpr int kMaxSlots = 8;
+constexpr int kMaxE = 1280;
+constexpr float kNegInf = -1e30f;
 
-__host__ __device__ inline size_t align128(size_t v) {
-  return (v + 127) & ~size_t(127);
-}
-
-__host__ __device__ inline size_t larger(size_t a, size_t b) {
-  return a > b ? a : b;
-}
-
-struct Layout {
-  size_t o, k, v, q, s, p, total;
-  int ldo;
+// The byte plan of one block's shared memory from a 1024-aligned base:
+// the o tile, the two rings, the barriers.
+struct Plan {
+  int atoms;   // 64-column atoms of the o tile
+  int ring;    // bytes of one warpgroup's ring
+  int na, np;  // its attention and projection slots
+  int bars, total;
 };
 
-// o tile (QT x (E + kPad)); K and V of one head (npp x (dh + kPad)
-// each), which the W ring reuses; the scaled q rows, which the z tile
-// reuses; per warp a 16x16 fp32 score tile and a 16x16 bf16 P tile.
-__host__ __device__ inline Layout make_layout(int npp, int dh, int e) {
-  Layout L;
-  L.ldo = e + kPad;
-  const size_t ld = dh + kPad;
-  const size_t kv = align128((size_t)npp * ld * 2);
-  L.o = 0;
-  L.k = L.o + align128((size_t)QT * L.ldo * 2);
-  L.v = L.k + kv;
-  L.q = L.k + align128(larger(2 * kv, STAGES * B_STAGE * 2));
-  L.s = L.q + align128(larger((size_t)QT * ld * 2, (size_t)QT * Z_LD * 2));
-  L.p = L.s + align128((size_t)kWarps * 256 * 4);
-  L.total = L.p + align128((size_t)kWarps * 256 * 2);
-  return L;
+__host__ __device__ inline Plan make_plan(int e, int dh) {
+  Plan p;
+  p.atoms = (e + 63) / 64;
+  const int ot = p.atoms * kAtom;
+  // 1024 bytes of alignment slack and 1024 for the barriers.
+  const int room = kMaxSmem - 2048 - ot;
+  p.ring = room > 0 ? room / kGroups / 1024 * 1024 : 0;
+  const int na = p.ring / (kKeys * dh * 2);
+  const int np = p.ring / kWTile;
+  p.na = na < kMaxSlots ? na : kMaxSlots;
+  p.np = np < kMaxSlots ? np : kMaxSlots;
+  p.bars = ot + kGroups * p.ring;
+  p.total = p.bars + 2048;
+  return p;
 }
 
-struct ProjArgs {
-  const __nv_bfloat16* qkv;
-  const __nv_bfloat16* w;
+// The barriers: the q tile's, then per warpgroup its attention slots'
+// full / empty and its projection slots' full / empty.
+struct Bars {
+  uint64_t *afull, *aempty, *pfull, *pempty;
+};
+
+__device__ __forceinline__ Bars group_bars(uint64_t* base, int g) {
+  uint64_t* b = base + 1 + g * 4 * kMaxSlots;
+  return {b, b + kMaxSlots, b + 2 * kMaxSlots, b + 3 * kMaxSlots};
+}
+
+template <int DH>
+struct Maps {
+  static constexpr int P = HeadTile<DH>::PARTS;
+  CUtensorMap q;      // (E, N, B) over qkv's q columns: 64 x 64 boxes
+  CUtensorMap kv[P];  // (3E, N, B): 64-row head boxes, one a part
+  CUtensorMap w;      // (E, E): 64-column x 32-row boxes
+  CUtensorMap u;      // (r8, E): ZN-column x 32-row boxes
+  CUtensorMap v;      // (E, r): 64-column x 32-row boxes
+};
+
+struct Args {
   const __nv_bfloat16* b;
-  const __nv_bfloat16* u;  // (E, ldu), zero past r
-  const __nv_bfloat16* v;  // (r, E)
   const __nv_bfloat16* cb;
   __nv_bfloat16* out;
-  int N, heads, n_real, r, ldu;
+  int N, heads, n_real, e, prescale;
   float scale, s;
 };
 
-// One 64-deep step of the warp's 32x64 tile: A (row-major, lda) from
-// shared memory by ldmatrix, B from the row-major (k, n) ring tile by
-// ldmatrix.trans, then MI x NJ mma.sync.m16n8k16.  `kmax` skips k16
-// halves that are all zero (the rank step).
-__device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int wr,
-                                         int wc, int lane, int kmax) {
+// K-major descriptor of the 16 o-tile columns from `col` (a multiple of
+// 16) on: its atom's descriptor, 32 bytes a k-step further into the row.
+__device__ __forceinline__ uint64_t ot_desc(const unsigned char* ot,
+                                            int col) {
+  return desc<128>(ot + (col >> 6) * kAtom) + ((col & 63) >> 3);
+}
+
+// S (64 x 64) = Q_h . K tile^T, raw fp32 scores, waited for.
+template <int DH>
+__device__ __forceinline__ void head_scores(float (&s)[kKeys / 2],
+                                            const unsigned char* ot, int c_h,
+                                            const __nv_bfloat16* ks) {
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    if (kk >= kmax) break;
-    unsigned af[MI][4], bfr[NJ][2];
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss<kKeys, 0, 0>(s, ot_desc(ot, c_h + 16 * kk),
+                          head_kdesc<DH, kKeys>(ks, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// Keys >= n_real of the tile whose first key is col0 set to -1e30; only
+// the 8-column groups that reach n_real are visited (a uniform branch).
+__device__ __forceinline__ void mask_keys(float (&s)[kKeys / 2], int col0,
+                                          int n_real, int t) {
+  if (col0 + kKeys <= n_real) return;
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
-      ldmatrix_x4(af[i], a + (wr * WM + i * 16 + (lane & 15)) * lda + kk +
-                             (lane >> 4) * 8);
+  for (int j = 0; j < kKeys / 8; ++j) {
+    if (col0 + 8 * j + 8 <= n_real) continue;
 #pragma unroll
-    for (int jj = 0; jj < NJ / 2; ++jj) {
-      unsigned t[4];
-      ldmatrix_x4_trans(t, b + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   B_LD +
-                               wc * WN + jj * 16 + (lane >> 4) * 8);
-      bfr[2 * jj][0] = t[0];
-      bfr[2 * jj][1] = t[1];
-      bfr[2 * jj + 1][0] = t[2];
-      bfr[2 * jj + 1][1] = t[3];
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_16816(acc[i][j], af[i], bfr[j]);
+    for (int c = 0; c < 4; ++c)
+      if (col0 + 8 * j + 2 * t + (c & 1) >= n_real) s[4 * j + c] = kNegInf;
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-attn_proj_kernel(const ProjArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int npp = (p.N + 15) & ~15;
-  const int e = p.heads * DH;
-  const Layout L = make_layout(npp, DH, e);
-  __nv_bfloat16* Os = reinterpret_cast<__nv_bfloat16*>(smem + L.o);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L.k);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L.v);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
-  __nv_bfloat16* Bs = Ks;  // the W ring, once the heads are done
-  __nv_bfloat16* Zs = Qs;  // z, once the heads are done
+// The running row max m[r] (rows g and g + 8 of the warp's 16) of the raw
+// scores, reduced over the quad that holds a row.
+__device__ __forceinline__ void row_max(const float (&s)[kKeys / 2],
+                                        float (&m)[2]) {
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mx[r][u] = m[r];
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i)
+    mx[(i >> 1) & 1][(i >> 2) & 3] =
+        fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+}
 
-  const int img = blockIdx.y;
-  const int q0 = blockIdx.x * QT;
+// p = exp((s - m) sc) in place (sc the scale still to apply to the raw
+// scores, 1 after the pre-scaled q; masked keys give 0) and this thread's
+// share of the row sums added to l; the 8-column groups wholly at or past
+// n_real take no exp (a uniform branch).
+__device__ __forceinline__ void exp_tile(float (&s)[kKeys / 2],
+                                         const float (&m)[2], float sc,
+                                         int col0, int n_real,
+                                         float (&l)[2]) {
+  float ls[2][2] = {};
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    if (col0 + 8 * j >= n_real) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[4 * j + c] = 0.f;
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s[4 * j + c] = expf((s[4 * j + c] - m[c >> 1]) * sc);
+      ls[c >> 1][j & 1] += s[4 * j + c];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] += ls[r][0] + ls[r][1];
+}
+
+template <int DH, int RK>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
+  constexpr int ZN = 16 * RK;                 // z columns
+  constexpr int VT = (16 * RK + kWk - 1) / kWk;  // V tiles of the rank step
+  constexpr int SK = kKeys * DH * 2;          // bytes of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const Plan pl = make_plan(a.e, DH);
+  unsigned char* ot = smem;
+  uint64_t* bar_base = reinterpret_cast<uint64_t*>(smem + pl.bars);
+  uint64_t* qfull = bar_base;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const size_t row_stride = 3 * (size_t)e;
-  const __nv_bfloat16* qkv = p.qkv + (size_t)img * p.N * row_stride;
-  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
-  constexpr int LD = DH + kPad;
-  float* S = reinterpret_cast<float*>(smem + L.s) + warp * 256;
-  __nv_bfloat16* P = reinterpret_cast<__nv_bfloat16*>(smem + L.p) +
-                     warp * 256;
-  const int qw = q0 + warp * 16;
+  const int q0 = blockIdx.x * kRows;
+  const int img = blockIdx.y;
+  const int nkt = (a.n_real + kKeys - 1) / kKeys;  // key tiles
+  const int KT = (a.e + kWk - 1) / kWk;            // projection k-tiles
+  const int KU = (a.e + kUk - 1) / kUk;            // z's k-tiles
 
-  // A warp wholly past N computes no attention: its o rows are zero.
-  if (qw >= p.N)
-    for (int row = 0; row < 16; ++row)
-      for (int c = lane * 8; c < e; c += 256)
-        *reinterpret_cast<uint4*>(Os + (warp * 16 + row) * L.ldo + c) =
-            make_uint4(0, 0, 0, 0);
-
-  // 1. The heads, one after another, into the o tile.
-  for (int h = 0; h < p.heads; ++h) {
-    const __nv_bfloat16* base = qkv + h * DH;
-    for (int idx = tid; idx < npp * VPR; idx += kThreads) {
-      const int key = idx / VPR;
-      const int c = (idx % VPR) * 8;
-      const bool ok = key < p.N;
-      const __nv_bfloat16* r = base + (ok ? key : 0) * row_stride + c;
-      cp_async16(Ks + key * LD + c, r + e, ok);
-      cp_async16(Vs + key * LD + c, r + 2 * e, ok);
-    }
-    cp_async_commit();
-    for (int idx = tid; idx < QT * VPR; idx += kThreads) {
-      const int row = idx / VPR;
-      const int c = (idx % VPR) * 8;
-      const int q = q0 + row;
-      uint4 qv = make_uint4(0, 0, 0, 0);
-      if (q < p.N) {
-        qv = *reinterpret_cast<const uint4*>(base + q * row_stride + c);
-        __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&qv);
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          el[t] = __float2bfloat16(__bfloat162float(el[t]) * p.scale);
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int g = 0; g < kGroups; ++g) {
+      const Bars bb = group_bars(bar_base, g);
+      for (int s = 0; s < kMaxSlots; ++s) {
+        mbar_init(&bb.afull[s], 1);
+        mbar_init(&bb.aempty[s], 128);
+        mbar_init(&bb.pfull[s], 1);
+        mbar_init(&bb.pempty[s], 128);
       }
-      *reinterpret_cast<uint4*>(Qs + row * LD + c) = qv;
     }
-    cp_async_wait<0>();
-    __syncthreads();
-    if (qw < p.N) {  // warp-uniform
-      attn_warp::AccFrag o[DH / 16];
-      const float inv_l = attn_warp::warp_attention<DH>(
-          o, Qs + warp * 16 * LD, Ks, Vs, npp, p.n_real, S, P, lane);
-      attn_warp::store_rows<DH>(
-          o, inv_l, S, Os + (warp * 16 + (lane >> 1)) * L.ldo + h * DH,
-          true, lane);
-    }
-    __syncthreads();  // the next head overwrites K, V and q
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // The projection passes: C (64 x 128) = o @ src[:, n0:n0+128] over E
-  // in 64-deep ring steps, then (with `delta`) z @ V[:, n0:] as one more
-  // step; src is (E, ld) with columns >= ncols zero-filled.
-  const int wr = warp >> 1;
-  const int wc = warp & 1;
-  const int KT = e / BK;
-  auto load_stage = [&](int st, const __nv_bfloat16* src, int ld,
-                        int k0, int krows, int n0, int ncols) {
-#pragma unroll
-    for (int it = 0; it < BK * BN / 8 / kThreads; ++it) {
-      const int vec = tid + it * kThreads;
-      const int row = vec / (BN / 8);
-      const int col = (vec % (BN / 8)) * 8;
-      const int gn = n0 + col;
-      const bool ok = row < krows && gn < ncols;
-      cp_async16(Bs + st * B_STAGE + row * B_LD + col,
-                 ok ? src + (size_t)(k0 + row) * ld + gn : src, ok);
+  if (tid >= kConsumers) {  // the producer warps, one a warpgroup
+    const int g = (tid - kConsumers) >> 5;
+    if ((tid & 31) != 0) return;
+    unsigned char* ring = smem + pl.atoms * kAtom + g * pl.ring;
+    const Bars bb = group_bars(bar_base, g);
+    if (g == 0) {  // the block's q rows into the o tile
+      mbar_expect_tx(qfull, pl.atoms * kAtom);
+      for (int at = 0; at < pl.atoms; ++at)
+        tma_load_3d(ot + at * kAtom, &maps.q, qfull, 64 * at, q0, img);
     }
-  };
-  auto gemm = [&](float (&acc)[MI][NJ][4], const __nv_bfloat16* src,
-                  int ld, int n0, int ncols, bool delta) {
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-    const int total = KT + (delta ? 1 : 0);
-    auto issue = [&](int t) {
-      if (t < KT)
-        load_stage(t % STAGES, src, ld, t * BK, BK, n0, ncols);
-      else
-        load_stage(t % STAGES, p.v, e, 0, p.r, n0, e);
+    // The attention: per head the K tiles (the max pass), then K and V
+    // tile by tile.
+    int ia = 0;
+    auto load_kv = [&](int which, int h, int j) {
+      const int s = ia % pl.na;
+      if (ia >= pl.na) mbar_wait(&bb.aempty[s], (ia / pl.na - 1) & 1);
+      mbar_expect_tx(&bb.afull[s], SK);
+      tma_load_head_3d<DH, kKeys>(
+          reinterpret_cast<__nv_bfloat16*>(ring + s * SK), 0, maps.kv,
+          &bb.afull[s], which * a.e + h * DH, j * kKeys, img);
+      ++ia;
     };
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < total) issue(st);
-      cp_async_commit();
-    }
-    for (int t = 0; t < total; ++t) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      // Refill the slot consumed in the previous step: every thread is
-      // past that step's products (barrier above).
-      if (t + STAGES - 1 < total) issue(t + STAGES - 1);
-      cp_async_commit();
-      const __nv_bfloat16* bt = Bs + (t % STAGES) * B_STAGE;
-      if (t < KT) {
-        warp_mma(acc, Os + t * BK, L.ldo, bt, wr, wc, lane, BK);
-      } else {
-        // acc += s * (z @ V): scale out before the delta step, back after.
-        const float inv = p.s != 1.f ? 1.f / p.s : 1.f;
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][j][c] *= inv;
-        warp_mma(acc, Zs, Z_LD, bt, wr, wc, lane, p.r);
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][j][c] *= p.s;
+    for (int h = g; h < a.heads; h += kGroups) {
+      for (int j = 0; j < nkt; ++j) load_kv(1, h, j);
+      for (int j = 0; j < nkt; ++j) {
+        load_kv(1, h, j);
+        load_kv(2, h, j);
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free for the next pass
+    // Every attention slot released before the projection's tiles land
+    // in the same bytes.
+    for (int i = ia > pl.na ? ia - pl.na : 0; i < ia; ++i)
+      mbar_wait(&bb.aempty[i % pl.na], (i / pl.na) & 1);
+    int ip = 0;
+    auto slot = [&](uint32_t bytes) {
+      const int s = ip % pl.np;
+      if (ip >= pl.np) mbar_wait(&bb.pempty[s], (ip / pl.np - 1) & 1);
+      mbar_expect_tx(&bb.pfull[s], bytes);
+      ++ip;
+      return s;
+    };
+    if (RK > 0)
+      for (int t = 0; t < KU; ++t) {
+        const int s = slot(kUk * ZN * 2);
+        tma_load_2d(ring + s * kWTile, &maps.u, &bb.pfull[s], 0, kUk * t);
+      }
+    for (int c0 = kBN * g; c0 < a.e; c0 += kBN * kGroups) {
+      for (int t = 0; t < KT + (RK > 0 ? VT : 0); ++t) {
+        const bool rank = t >= KT;
+        const CUtensorMap* m = rank ? &maps.v : &maps.w;
+        const int k = kWk * (rank ? t - KT : t);
+        const int s = slot(kWTile);
+        tma_load_2d(ring + s * kWTile, m, &bb.pfull[s], c0, k);
+        tma_load_2d(ring + s * kWTile + kWBox, m, &bb.pfull[s], c0 + 64, k);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup w; thread (warp, g, t) holds rows warp * 16 + g
+  // and + 8 of the block's 64.
+  const int w = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const Bars bb = group_bars(bar_base, w);
+  unsigned char* ring = smem + pl.atoms * kAtom + w * pl.ring;
+
+  mbar_wait(qfull, 0);
+  if (a.prescale) {
+    // q = bf16(q * scale) in place over the whole tile (the swizzle moves
+    // whole 16-byte pieces, so every element is scaled wherever it lies;
+    // the zeros past N and E stay zero).
+    uint4* p = reinterpret_cast<uint4*>(ot);
+    for (int i = tid; i < pl.atoms * kAtom / 16; i += kConsumers) {
+      uint4 x = p[i];
+      __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&x);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        el[u] = __float2bfloat16(__bfloat162float(el[u]) * a.scale);
+      p[i] = x;
+    }
+    fence_proxy_async();
+    named_barrier(1, kConsumers);
+  }
+  const float sc = a.prescale ? 1.f : a.scale;
+  auto aslot = [&](int i) {  // attention entry i, once it has landed
+    mbar_wait(&bb.afull[i % pl.na], (i / pl.na) & 1);
+    return reinterpret_cast<const __nv_bfloat16*>(ring + (i % pl.na) * SK);
   };
+  auto arelease = [&](int i) { mbar_arrive(&bb.aempty[i % pl.na]); };
 
-  // Thread (g, t) of an mma tile holds rows g and g + 8, columns 2t and
-  // 2t + 1 of every 16x8 accumulator tile.
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  float acc[MI][NJ][4];
-
-  // 2. z = bf16(o @ U) into the (now free) q space, zero past r.
-  if (p.r > 0) {
-    gemm(acc, p.u, p.ldu, 0, p.ldu, false);
-    if (wc == 0) {  // columns 0 .. 63
+  // 1. The attention of this warpgroup's heads into the o tile.
+  int ia = 0;
+  for (int h = w; h < a.heads; h += kGroups) {
+    const int c_h = h * DH;
+    float s[kKeys / 2];
+    // The max pass: K tiles ia .. ia + nkt - 1.
+    float m[2] = {kNegInf, kNegInf};
+    for (int j = 0; j < nkt; ++j, ++ia) {
+      head_scores<DH>(s, ot, c_h, aslot(ia));
+      arelease(ia);
+      mask_keys(s, j * kKeys, a.n_real, t);
+      row_max(s, m);
+    }
+    // The exp / P V pass: K tile j at entry ia + 2 j, V tile j at + 1.
+    float l[2] = {0.f, 0.f};
+    float o[DH / 2];
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    for (int j = 0; j < nkt; ++j, ia += 2) {
+      head_scores<DH>(s, ot, c_h, aslot(ia));
+      arelease(ia);
+      mask_keys(s, j * kKeys, a.n_real, t);
+      exp_tile(s, m, sc, j * kKeys, a.n_real, l);
+      uint32_t pa[kKeys / 16][4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
+      for (int kk = 0; kk < kKeys / 16; ++kk) acc_to_a(pa[kk], s, kk);
+      const __nv_bfloat16* vs = aslot(ia + 1);
+      wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            const int row = wr * WM + i * 16 + g + half * 8;
-            *reinterpret_cast<__nv_bfloat162*>(Zs + row * Z_LD + j * 8 +
-                                               t2) =
-                __floats2bfloat162_rn(acc[i][j][half * 2],
-                                      acc[i][j][half * 2 + 1]);
-          }
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs_head<DH, kKeys>(o, pa[kk], vs, kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      arelease(ia + 1);
+    }
+    // bf16(o / l) over the head's q columns (no longer read).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float inv = 1.f / l[r];
+      const int row = warp * 16 + gq + 8 * r;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        const int col = c_h + 8 * c + 2 * t;
+        *reinterpret_cast<uint32_t*>(
+            ot + (col >> 6) * kAtom + swizzle<128>(row * 128 + (col & 63) * 2)) =
+            pack_bf16(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+      }
     }
   }
+  fence_proxy_async();
+  named_barrier(1, kConsumers);  // every head's o is in the tile
 
-  // 3. y = o @ W + b + s * (z @ V + cb), 128 columns a pass.
-  for (int n0 = 0; n0 < e; n0 += BN) {
-    gemm(acc, p.w, e, n0, e, p.r > 0);
+  // The projection's slots: entry i in slot i % np.
+  int ip = 0;
+  auto pwait = [&](int i) {
+    mbar_wait(&bb.pfull[i % pl.np], (i / pl.np) & 1);
+    return ring + (i % pl.np) * kWTile;
+  };
+  auto prelease = [&](int i) { mbar_arrive(&bb.pempty[i % pl.np]); };
+
+  // 2. z = bf16(o U), zero past the rank, as register A fragments.
+  uint32_t zf[RK > 0 ? RK : 1][4];
+  if constexpr (RK > 0) {
+    float z[ZN / 2];
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
+    for (int i = 0; i < ZN / 2; ++i) z[i] = 0.f;
+    auto issue = [&](int i) {
+      const unsigned char* us = pwait(ip + i);
+      const uint64_t du = desc<2 * ZN>(us);
+      wgmma_fence();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int q = q0 + wr * WM + i * 16 + g + half * 8;
-        if (q >= p.N) continue;
-        __nv_bfloat16* orow = p.out + ((size_t)img * p.N + q) * e;
+      for (int kk = 0; kk < kUk / 16; ++kk)
+        wgmma_ss<ZN, 0, 1>(z, ot_desc(ot, kUk * i + 16 * kk),
+                           du + 2 * ZN * kk, 1);
+      wgmma_commit();
+    };
+    for (int i = 0; i < KU - 1; ++i) {
+      issue(i);
+      wgmma_wait<1>();
+      if (i > 0) prelease(ip + i - 1);
+    }
+    issue(KU - 1);
+    wgmma_wait<0>();
+    fence_regs(z);
+    if (KU > 1) prelease(ip + KU - 2);
+    prelease(ip + KU - 1);
+    ip += KU;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int gn = n0 + wc * WN + j * 8 + t2;
-          if (gn >= e) continue;
-          const float2 bb = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.b + gn));
-          const float2 cc = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.cb + gn));
-          const float y0 = acc[i][j][half * 2] + bb.x + p.s * cc.x;
-          const float y1 = acc[i][j][half * 2 + 1] + bb.y + p.s * cc.y;
-          *reinterpret_cast<__nv_bfloat162*>(orow + gn) =
-              __floats2bfloat162_rn(y0, y1);
+    for (int kk = 0; kk < RK; ++kk) acc_to_a(zf[kk], z, kk);
+  }
+
+  // 3. y = o W + b + s (z V + cb), this warpgroup's 128 columns of each
+  // 256-column pass.
+  for (int c0 = kBN * w; c0 < a.e; c0 += kBN * kGroups) {
+    float acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    auto issue = [&](int i) {
+      const unsigned char* ws = pwait(ip + i);
+      const uint64_t dw = desc_mn(ws, kWBox);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWk / 16; ++kk)
+        wgmma_ss<kBN, 0, 1>(acc, ot_desc(ot, kWk * i + 16 * kk),
+                            dw + 128 * kk, 1);
+      wgmma_commit();
+    };
+    for (int i = 0; i < KT - 1; ++i) {
+      issue(i);
+      wgmma_wait<1>();
+      if (i > 0) prelease(ip + i - 1);
+    }
+    issue(KT - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (KT > 1) prelease(ip + KT - 2);
+    prelease(ip + KT - 1);
+    ip += KT;
+    // The epilogue's biases, loaded while the rank step runs.
+    uint32_t bw[kBN / 8], cw[kBN / 8];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * t;
+      const bool in = col < a.e;
+      bw[j] = in ? *reinterpret_cast<const uint32_t*>(a.b + col) : 0u;
+      cw[j] = in ? *reinterpret_cast<const uint32_t*>(a.cb + col) : 0u;
+    }
+    if constexpr (RK > 0) {
+      // acc / s + z V, so that the epilogue's s (acc / s + z V + cb) + b
+      // applies the delta scale in fp32.
+      const float inv = 1.f / a.s;
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) acc[i] *= inv;
+#pragma unroll
+      for (int vt = 0; vt < VT; ++vt) {
+        const unsigned char* vs = pwait(ip);
+        const uint64_t dv = desc_mn(vs, kWBox);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWk / 16; ++kk)
+          if (vt * (kWk / 16) + kk < RK)
+            wgmma_rs<kBN, 1>(acc, zf[vt * (kWk / 16) + kk], dv + 128 * kk,
+                             1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        prelease(ip);
+        ++ip;
+      }
+    }
+    // Epilogue: thread (warp, g, t) holds rows warp * 16 + g (+ 8) and
+    // columns 8 j + 2 t (+ 1) of the 128; rows past N are not written.
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * t;
+      if (col >= a.e) continue;
+      const float2 b1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&bw[j]));
+      const float2 b2 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&cw[j]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + warp * 16 + gq + 8 * r;
+        if (row >= a.N) continue;
+        const float a0 = acc[4 * j + 2 * r], a1 = acc[4 * j + 2 * r + 1];
+        float y0, y1;
+        if constexpr (RK > 0) {
+          y0 = fmaf(a.s, a0 + b2.x, b1.x);
+          y1 = fmaf(a.s, a1 + b2.y, b1.y);
+        } else {
+          y0 = a0 + b1.x + a.s * b2.x;
+          y1 = a1 + b1.y + a.s * b2.y;
         }
+        *reinterpret_cast<uint32_t*>(
+            a.out + ((size_t)img * a.N + row) * a.e + col) = pack_bf16(y0, y1);
       }
     }
   }
 }
 
-size_t smem_bytes(int N, int e, int dh) {
-  return make_layout((N + 15) & ~15, dh, e).total;
-}
-
-template <int DH>
-int launch(const ProjArgs& p, int B, cudaStream_t stream) {
-  const int e = p.heads * DH;
-  const size_t smem = smem_bytes(p.N, e, DH);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+template <int DH, int RK>
+int launch(const __nv_bfloat16* qkv, const __nv_bfloat16* w,
+           const __nv_bfloat16* u, const __nv_bfloat16* v, const Args& a,
+           int B, int r, int ldu, cudaStream_t stream) {
+  const Plan pl = make_plan(a.e, DH);
+  if (pl.na < 1 || pl.np < 2) return static_cast<int>(cudaErrorInvalidValue);
   // Opt in once per process to the largest block this kernel can use.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_proj_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_proj_kernel<DH, RK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((p.N + QT - 1) / QT, B);
-  attn_proj_kernel<DH><<<grid, kThreads, smem, stream>>>(p);
+  const uint64_t e = a.e, n = a.N;
+  Maps<DH> maps;
+  const uint64_t row = 3 * e * 2;
+  const uint64_t strides[2] = {row, row * n};
+  const uint64_t qdims[3] = {e, n, (uint64_t)B};
+  const uint32_t qbox[3] = {64, kRows, 1};
+  int err = encode_map(&maps.q, qkv, 3, qdims, strides, qbox);
+  const uint64_t kvdims[3] = {3 * e, n, (uint64_t)B};
+  const uint32_t kvbox[3] = {DH, kKeys, 1};
+  if (!err) err = encode_head_maps<DH>(maps.kv, qkv, 3, kvdims, strides,
+                                       kvbox);
+  const uint32_t box64[2] = {64, kWk};
+  const uint64_t wdims[2] = {e, e}, wstride[1] = {e * 2};
+  if (!err) err = encode_map(&maps.w, w, 2, wdims, wstride, box64);
+  if (RK > 0) {
+    const uint64_t udims[2] = {(uint64_t)ldu, e}, ustride[1] = {
+        (uint64_t)ldu * 2};
+    const uint32_t ubox[2] = {16 * RK, kUk};
+    if (!err) err = encode_map(&maps.u, u, 2, udims, ustride, ubox);
+    const uint64_t vdims[2] = {e, (uint64_t)r};
+    if (!err) err = encode_map(&maps.v, v, 2, vdims, wstride, box64);
+  }
+  if (err) return err;
+  dim3 grid((a.N + kRows - 1) / kRows, B);
+  attn_proj_kernel<DH, RK><<<grid, kThreads, pl.total, stream>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dh(const __nv_bfloat16* qkv, const __nv_bfloat16* w,
+              const __nv_bfloat16* u, const __nv_bfloat16* v, const Args& a,
+              int B, int r, int ldu, cudaStream_t stream) {
+  if (r == 0) return launch<DH, 0>(qkv, w, u, v, a, B, r, ldu, stream);
+  if (r <= 16) return launch<DH, 1>(qkv, w, u, v, a, B, r, ldu, stream);
+  return launch<DH, 4>(qkv, w, u, v, a, B, r, ldu, stream);
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs (0 when it does not fit), so that
-// the wrapper can refuse a shape before launching.
-extern "C" int cara_attn_proj_smem(int N, int e, int dh) {
-  const size_t smem = smem_bytes(N, e, dh);
-  return smem > kMaxSmem ? 0 : static_cast<int>(smem);
-}
-
 // y (B, N, E) = attention(qkv) @ w + b + s * ((attention(qkv) @ u) @ v +
-// cb), keys >= n_real masked.  dh must be 16, 32 or 64, E = heads * dh a
-// multiple of 64, 0 <= r <= ldu <= 64 with ldu a multiple of 8 (u is
-// (E, ldu), zero past r).  Pointers 16-byte aligned; the
-// Python wrapper checks.  Returns cudaGetLastError() (or the error of the
-// shared-memory attribute call).
+// cb), keys >= n_real masked.  dh must be 16, 32, 64 or 80, E = heads * dh
+// at most 1280, 1 <= n_real <= N <= 512, 0 <= r <= ldu <= 64 with ldu a
+// multiple of 8 (u is (E, ldu), zero past r).  Pointers 16-byte aligned;
+// the Python wrapper checks.  Returns cudaGetLastError() (or the error of
+// the shared-memory attribute call or of a tensor-map encoding).
 extern "C" int cara_attn_proj(const void* qkv, const void* w, const void* b,
                               const void* u, const void* v, const void* cb,
                               void* out, int B, int N, int heads, int dh,
                               int n_real, int r, int ldu, float scale,
                               float s, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if ((heads * dh) % BK || r < 0 || r > ldu || ldu > ZW || ldu % 8)
+  const int e = heads * dh;
+  if (e > kMaxE || e % 16 || N < 1 || N > 512 || n_real < 1 ||
+      n_real > N || r < 0 || r > ldu || ldu > 64 || ldu % 8 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  ProjArgs p;
-  p.qkv = static_cast<const __nv_bfloat16*>(qkv);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.b = static_cast<const __nv_bfloat16*>(b);
-  p.u = static_cast<const __nv_bfloat16*>(u);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.cb = static_cast<const __nv_bfloat16*>(cb);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.N = N;
-  p.heads = heads;
-  p.n_real = n_real;
-  p.r = r;
-  p.ldu = ldu;
-  p.scale = scale;
-  p.s = s;
+  Args a;
+  a.b = static_cast<const __nv_bfloat16*>(b);
+  a.cb = static_cast<const __nv_bfloat16*>(cb);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.N = N;
+  a.heads = heads;
+  a.n_real = n_real;
+  a.e = e;
+  int ex;
+  a.prescale = frexpf(scale, &ex) != 0.5f;  // not a power of two
+  a.scale = scale;
+  a.s = s;
+  const __nv_bfloat16* in = static_cast<const __nv_bfloat16*>(qkv);
+  const __nv_bfloat16* ww = static_cast<const __nv_bfloat16*>(w);
+  const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
+  const __nv_bfloat16* vv = static_cast<const __nv_bfloat16*>(v);
   switch (dh) {
-    case 16: return launch<16>(p, B, stream);
-    case 32: return launch<32>(p, B, stream);
-    case 64: return launch<64>(p, B, stream);
+    case 16: return launch_dh<16>(in, ww, uu, vv, a, B, r, ldu, stream);
+    case 32: return launch_dh<32>(in, ww, uu, vv, a, B, r, ldu, stream);
+    case 64: return launch_dh<64>(in, ww, uu, vv, a, B, r, ldu, stream);
+    case 80: return launch_dh<80>(in, ww, uu, vv, a, B, r, ldu, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -45,7 +45,6 @@ _SIGNATURES = {
     "cara_qkv_attention_smem": [_I, _I],
     "cara_qkv_attention_bwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     "cara_attn_proj": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
-    "cara_attn_proj_smem": [_I, _I, _I],
     "cara_blockwise_attention": [_P] * 3 + [_I] * 5 + [_F, _P],
     "cara_blockwise_attention_bwd": [_P] * 7 + [_I] * 5 + [_F, _P],
     "cara_flash_attention": [_P] * 5 + [_S] + [_I] * 4 + [_F, _P],

@@ -24,13 +24,16 @@ kernels take the head widths of ``blockwise_attention.HEAD_DIMS``.
 :func:`fused_qkv_attention_proj` is the attention with the projection
 site fused after it, ``y = o W + b + s ((o U) V + cb)`` for ``o`` the
 attention output: TPU row 3 (``fused_qkv_attention_proj``, ``_fwd_proj``
-/ ``_fwd_proj_kernel``), the kernel ``csrc/attn_proj.cu``, in which ``o``
-stays in shared memory between the attention and the projection.  Its
-backward, rows 3 and 4 (``_bwd_proj_rule``), composes the port's
-kernels: row 12's dx (``cp_dense.cp_dense_dx_cuda``) for d(o) and gv,
-row 1's kernel to recompute ``o`` (the TPU's ``_attn_raw``), the
-rank-space factor products and column sums of the split sites, and row
-2's kernel for dqkv (the TPU's ``_attn_bwd_raw``).
+/ ``_fwd_proj_kernel``), the kernel ``csrc/attn_proj.cu`` (``wgmma`` +
+TMA: keys streamed through a ring, ``o`` kept in shared memory between
+the attention and the projection, never in device memory).  It takes
+every head width of ``blockwise_attention.HEAD_DIMS``, E up to
+:data:`MAX_PROJ_E` and every N up to 512.  Its backward, rows 3 and 4
+(``_bwd_proj_rule``), composes the port's kernels: row 12's dx
+(``cp_dense.cp_dense_dx_cuda``) for d(o) and gv, row 1's kernel to
+recompute ``o`` (the TPU's ``_attn_raw``), the rank-space factor
+products and column sums of the split sites, and row 2's kernel for
+dqkv (the TPU's ``_attn_bwd_raw``).
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor, or
 ``impl="plain"``, takes the plain versions.
@@ -50,8 +53,10 @@ from cara_tpu_torch.ops.cuda.cp_dense import (
 
 NEG_INF = -1e30
 MAX_NP_FULL_SCORES = 512
-# Row 3's kernel holds a 64 x E output tile beside K and V in one block.
-_ATTNPROJ_TODO = "ROADMAP.md queue 2: Row 3 at ViT-H/14"
+#: Widest E row 3's kernel takes (ViT-H/14's): its 64-row o tile (64 x E
+#: bf16, 160 KB) leaves two 32 KB rings of one block's shared memory.
+MAX_PROJ_E = 1280
+_PROJ_WIDE_TODO = "ROADMAP.md queue 2: Row 3 past E 1280"
 
 #: Number of kernel launches made by :func:`fused_qkv_attention`.
 LAUNCHES = 0
@@ -256,18 +261,18 @@ def attn_proj_cuda(qkv, w, b, u, v, cb, heads: int, scale: float,
     u8 = _bwd.pad_cols8(u)
     _build.check_cuda_inputs("attn_proj", dev, qkv=qkv, w=w, b=b, u=u8, v=v,
                              cb=cb)
-    if (e3 != 3 * e or heads * dh != e or dh not in (16, 32, 64) or e % 64
+    if (e3 != 3 * e or heads * dh != e or e > MAX_PROJ_E
             or w.shape != (e, e) or b.shape != (e,) or u.shape != (e, r)
-            or v.shape != (r, e) or r > _bwd.RANK_W or cb.shape != (e,)):
+            or v.shape != (r, e) or cb.shape != (e,)):
         raise ValueError(
             f"attn_proj: qkv {tuple(qkv.shape)}, heads {heads}, w "
             f"{tuple(w.shape)}, u {tuple(u.shape)}, v {tuple(v.shape)}; the "
-            "kernel takes head dims 16, 32 or 64, E a multiple of 64 and "
-            f"rank <= 64 ({_ATTNPROJ_TODO})")
+            f"kernel takes E = heads x Dh up to {MAX_PROJ_E} "
+            f"({_PROJ_WIDE_TODO})")
+    check_head_dim("attn_proj", dh)
+    if r > _bwd.RANK_W:
+        raise ValueError(f"attn_proj supports rank <= {_bwd.RANK_W}, got {r}")
     lib = _build.lib()
-    if lib.cara_attn_proj_smem(n, e, dh) == 0:
-        raise ValueError(f"attn_proj: N={n}, E={e} does not fit one "
-                         f"block's shared memory ({_ATTNPROJ_TODO})")
     out = torch.empty((bsz, n, e), device=dev, dtype=torch.bfloat16)
     code = lib.cara_attn_proj(
         qkv.data_ptr(), w.data_ptr(), b.data_ptr(), u8.data_ptr(),

@@ -82,7 +82,11 @@ fatal on failure:
    entries of TPU row 3 (``fused_qkv_attention_proj``, the attention and
    the projection site in one kernel), its backward with row 4, and row 6
    (``cp_attn_block``'s backward) at phase 3's shapes (run with phase
-   3's); the unmerged ViT-B forward of phase 4's checkpoint at batch 64
+   3's), and row 3's forward and backward again at ViT-B's 401 and 512
+   tokens (keys >= 500 masked), at CLIP ViT-L/14's E 1024 and at
+   ViT-H/14's E 1280 with heads of width 80, 257 tokens
+   (``PROJ_FORMS``, run after 15's entries); the unmerged ViT-B forward
+   of phase 4's checkpoint at batch 64
    with ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (row 3 in every layer,
    logits within 5 % of the default route's); the rank route as in 6
    with ``CARA_ATTN_MEGA=1`` (set in ``models.vit`` around the phase and
@@ -172,7 +176,12 @@ fatal on failure:
    unmerged at batch 64, the element and rank routes (gradient check at
    batch 16, 10 timed steps at batch 64, peak memory), full fine-tuning
    through row 17 (gradient check of every leaf at batch 8, 10 steps),
-   two rank steps under ``CARA_ATTN_MEGA=1``, at 336 px (577 tokens:
+   two rank steps under ``CARA_ATTN_MEGA=1``, the rank route under
+   ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (rows 3 and 4: the gradient check
+   at batch 16, four steps at batch 64 timed in turns with the default
+   rank route over three rounds, row 3 and its backward once a layer a
+   step and the split projection site never, the unmerged eval at batch
+   64 within 5 % of the default route's logits), at 336 px (577 tokens:
    row 16) served at batch 16 with a rank gradient check at batch 4,
    four steps and a full step, and ``cli.vit_cp --model
    vit_huge_patch14_224_in21k`` in a child.
@@ -537,6 +546,8 @@ SWITCHES = {
         ("fused_qkv_attention", "fused_qkv_attention_bwd", "cp_attn_block",
          "cp_attn_block_bwd")),
 }
+# The attention + projection switch (rows 3 and 4).
+ATTNPROJ = "CARA_ATTN_MEGA=0,CARA_ATTNPROJ=1"
 # The adapter's kernels, which the routes without one must not launch.
 ADAPTER_KERNELS = ("build_wd_weight", "cp_attn_block", "cp_mlp_block",
                    "cp_attn_block_wd", "cp_attn_block_wd_bwd",
@@ -679,6 +690,38 @@ DH_FORMS = {
     "flash_attention_bwd_dh32": ("flash_attention_bwd", 197, 32),
 }
 for _name, (_base, _, _) in DH_FORMS.items():
+    KERNELS[_name] = KERNELS[_base]
+    if _base in KERNEL_TOL:  # a backward's gradients: GRAD_REL_L2
+        KERNEL_TOL[_name] = KERNEL_TOL[_base]
+# Row 3 (``CARA_ATTNPROJ=1``: the attention and the projection site in
+# one kernel) and its backward with row 4 past ViT-B's 197 tokens and at
+# the wider registry models: each an entry of its own -> (the entry whose
+# module, counter, source, TPU kernel, tolerance and work rule it shares;
+# N, n_real, E, heads).  ViT-B at 401 and 512 tokens (keys >= 500 masked
+# there, as ROW2_EDGES), CLIP ViT-L/14 (E 1024, 16 heads of 64) and
+# ViT-H/14 (E 1280, 16 heads of 80) at 257.  Launches: an entry takes
+# those of its kernel instance (head width and rank depth): the ViT-B
+# switched rank phase's for the head width 64 (ViT-B at 197-512 tokens
+# and CLIP run that instance), ViT-H's switched rank step's for 80.
+PROJ_FORMS = {
+    "fused_qkv_attention_proj_401": ("fused_qkv_attention_proj", 401, 401,
+                                     768, 12),
+    "fused_qkv_attention_proj_bwd_401": ("fused_qkv_attention_proj_bwd",
+                                         401, 401, 768, 12),
+    "fused_qkv_attention_proj_512": ("fused_qkv_attention_proj", 512, 500,
+                                     768, 12),
+    "fused_qkv_attention_proj_bwd_512": ("fused_qkv_attention_proj_bwd",
+                                         512, 500, 768, 12),
+    "fused_qkv_attention_proj_clip": ("fused_qkv_attention_proj", 257, 257,
+                                      1024, 16),
+    "fused_qkv_attention_proj_bwd_clip": ("fused_qkv_attention_proj_bwd",
+                                          257, 257, 1024, 16),
+    "fused_qkv_attention_proj_dh80": ("fused_qkv_attention_proj", 257, 257,
+                                      1280, 16),
+    "fused_qkv_attention_proj_bwd_dh80": ("fused_qkv_attention_proj_bwd",
+                                          257, 257, 1280, 16),
+}
+for _name, (_base, *_) in PROJ_FORMS.items():
     KERNELS[_name] = KERNELS[_base]
     if _base in KERNEL_TOL:  # a backward's gradients: GRAD_REL_L2
         KERNEL_TOL[_name] = KERNEL_TOL[_base]
@@ -1240,6 +1283,37 @@ def attn_route_kernel_phase(dev, inp, timed: bool = True) -> dict:
           f"{inp['b']}, N {inp['n']}, E {inp['e']}, H {inp['heads']}:",
           flush=True)
     return check_entries(dev, inp, attn_route_kernel_calls(inp), timed)
+
+
+def proj_kernel_phase(dev, timed: bool = True, b: int = 64,
+                      forms=None) -> dict:
+    """The entries of ``PROJ_FORMS`` (``forms`` a subset): row 3's forward
+    and its backward at each entry's N, n_real, E and heads (Dh = E /
+    heads, hidden 4 E, rank 8), held against the fp32 plain twins, timed
+    beside SDPA + ``torch.addmm`` (and SDPA's backward + the dx GEMM),
+    bound by the base entries' work rule at these shapes."""
+    forms = PROJ_FORMS if forms is None else forms
+    groups = {}
+    for name, (base, *shape) in forms.items():
+        groups.setdefault(tuple(shape), []).append((name, base))
+    out = {}
+    for (n, n_real, e, heads), entries in groups.items():
+        inp = kernel_inputs(dev, b=b, n=n, e=e, heads=heads, hidden=4 * e,
+                            seed=n + e, n_real=n_real)
+        bases = {base for _, base in entries}
+        made = {k: v for k, v in attn_route_kernel_calls(inp).items()
+                if k in bases}
+        masked = f", keys >= {n_real} masked" if n_real < n else ""
+        print(f"[kernel] row 3 at B {b}, N {n}{masked}, E {e}, {heads} "
+              f"heads of width {e // heads}: "
+              f"{', '.join(name for name, _ in entries)}", flush=True)
+        res = check_entries(dev, inp, made, timed)
+        for name, base in entries:
+            out[name] = res[base]
+        del inp, made, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 # Row 18's entries: name suffix -> (M, K, N), the qkv and fc2 sites of
@@ -2767,19 +2841,19 @@ def dropout_phase(dev, model=MODEL, batch=64, long_model=MODEL_384,
     return launches
 
 
-def attnproj_eval_check(dev, ckpt, model, images, batch=64) -> None:
+def attnproj_eval_check(dev, ckpt, model, images, batch=64) -> int:
     """The unmerged forward of ``ckpt`` at ``batch`` with the attention
     megakernel off (``CARA_ATTN_MEGA=0``) and ``CARA_ATTNPROJ=1``: row 3's
     forward serves in every layer, and the logits stay within
     ``LOGIT_RTOL`` of max |logits| of the default route's (the
-    megakernel)."""
+    megakernel).  Returns row 3's launches."""
     pred = Predictor.from_checkpoint_auto(
         ckpt, model, batch_size=batch, merge=False, device=dev,
         dtype=torch.bfloat16)
     x = images[:batch]
     ref = pred.logits(x)
     reset_launches()
-    with attn_switch(**SWITCHES["CARA_ATTN_MEGA=0,CARA_ATTNPROJ=1"][0]):
+    with attn_switch(**SWITCHES[ATTNPROJ][0]):
         got = pred.logits(x)
     launches = read_launches(("fused_qkv_attention_proj", "cp_attn_block",
                               "fused_qkv_attention"))
@@ -2795,6 +2869,7 @@ def attnproj_eval_check(dev, ckpt, model, images, batch=64) -> None:
             f"{launches}")
     require(bool(np.isfinite(got).all()) and err <= tol,
             "attnproj eval logits disagree with the default route's")
+    return launches["fused_qkv_attention_proj"]
 
 
 # Quantized serving against the unquantized bf16 Predictor on the same
@@ -3406,6 +3481,68 @@ def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
     return launches
 
 
+def attnproj_rank_steps(dev, setup, grad_batch, model=MODEL_HUGE, steps=4,
+                        rounds=3, timed=True) -> dict:
+    """The rank route of ``setup`` (cfg, cara_cfg, frozen, state, one fixed
+    batch) with ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (rows 3 and 4): the
+    gradient check of every trainable leaf on the first ``grad_batch``
+    images, then ``rounds`` rounds of ``steps`` steps (one more, dropped,
+    a turn) of the default rank route and of the switched one in turns on
+    the same batch.  In each switched turn row 3's forward and its
+    backward launch once a layer a step, the split projection site never
+    (``cp_dense`` launches only for the qkv sites, once a layer a step),
+    the switch's kernels launch and the split attention's do not.
+    Returns the switched turns' launches of rows 3 and 4."""
+    values, _, path, idle = SWITCHES[ATTNPROJ]
+    cfg, cara_cfg, frozen, state, data = setup
+    tag = f"[train:rank:{ATTNPROJ}:{model}]"
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    gdata = {k: v[:grad_batch] for k, v in data.items()}
+    with attn_switch(**values):
+        grad_check(dev, cfg, cara_cfg, frozen, state, gdata, generator,
+                   tag=tag)
+    rows = ("fused_qkv_attention_proj", "fused_qkv_attention_proj_bwd")
+    launches = dict.fromkeys(rows, 0)
+    turns = {"default": [], ATTNPROJ: []}
+    for r in range(rounds):
+        for route in list(turns) if r % 2 == 0 else list(turns)[::-1]:
+            with attn_switch(**({} if route == "default" else values)):
+                reset_launches()
+                state, losses, ms, _ = fixed_batch_steps(
+                    cfg, cara_cfg, frozen, state, data, generator,
+                    steps + 1, timed=timed)
+                got = read_launches(tuple(KERNELS))
+            require(all(np.isfinite(losses)), f"non-finite loss on the "
+                    f"{route} rank route of {model}")
+            turns[route] += ms[1:]
+            if route == "default":
+                continue
+            per = (steps + 1) * cfg.depth
+            print(f"{tag} turn {r}: loss {losses[-1]:.4f}; launches "
+                  f"{ {k: v for k, v in got.items() if v} }", flush=True)
+            require(all(got[k] == per for k in rows) and got["cp_dense"]
+                    == per, f"{model} under {ATTNPROJ}: rows 3 / 4 and "
+                    f"the qkv site must launch once a layer a step ({per}), "
+                    f"the split projection site never: "
+                    f"{ {k: got[k] for k in rows + ('cp_dense',)} }")
+            for name in path:
+                require(got[name] > 0, f"{name} never launched by "
+                        f"{model} under {ATTNPROJ}")
+            for name in idle:
+                require(got[name] == 0, f"{name} launched by {model} "
+                        f"under {ATTNPROJ}")
+            _add_launches(launches, got, rows)
+    if timed:
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        print(f"{tag} ms per step by CUDA events in turns ({rounds} rounds, "
+              f"{len(turns['default'])} steps a route, batch "
+              f"{len(data['label'])}): " + "; ".join(
+                  f"{k} {v:.3f} ({v / med['default']:.3f}x the default)"
+                  for k, v in med.items()), flush=True)
+    return launches
+
+
 def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
                long_size=336, long_batch=16, long_grad_batch=4,
                overrides=None, timed=True) -> dict:
@@ -3426,6 +3563,11 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
        every leaf on ``full_grad_batch`` images, ``steps`` timed steps,
        peak memory;
     4. the rank route with ``CARA_ATTN_MEGA=1`` (rows 5 and 6), two steps;
+       then with ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (rows 3 and 4,
+       :func:`attnproj_rank_steps`): the gradient check on
+       ``grad_batch`` images, four steps timed in turns with the default
+       rank route; the unmerged eval of 1.'s checkpoint under the same
+       switch (:func:`attnproj_eval_check`);
     5. at ``long_size`` px (577 tokens: row 16): served merged and
        unmerged at ``long_batch``, the rank route's gradient check on
        ``long_grad_batch`` images and four steps at ``long_batch``, one
@@ -3434,7 +3576,8 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
     6. ``cli.vit_cp --model vit_huge_patch14_224_in21k --synthetic`` in a
        child for four steps (two epochs of two batches).
 
-    Returns the launches of the Dh-80 entries of ``DH_FORMS``."""
+    Returns the launches of the Dh-80 entries of ``DH_FORMS`` and
+    ``PROJ_FORMS``."""
     over = dict(overrides or {})
     cfg = get_model_config(MODEL_HUGE, num_classes=10, **over)
     print(f"[huge] {MODEL_HUGE}: depth {cfg.depth}, E {cfg.embed_dim}, "
@@ -3447,7 +3590,7 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-    def serve(size, n_images, serve_batch, tag):
+    def serve(size, n_images, serve_batch, tag, attnproj=False):
         images = make_images(n_images, size)
         with tempfile.TemporaryDirectory() as tmp:
             ckpt = os.path.join(tmp, "vit_huge_smoke_seed_0.npz")
@@ -3460,15 +3603,19 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
             serving_phase(dev, ckpt, MODEL_HUGE, images,
                           batch_size=serve_batch, timed=timed, tag=tag)
             served = read_launches(tuple(KERNELS))
+            if attnproj:  # the adapter's eval through row 3
+                served["fused_qkv_attention_proj"] = attnproj_eval_check(
+                    dev, ckpt, MODEL_HUGE, images, batch=serve_batch)
         print(f"[{tag}] kernel launches on the serving path: "
               f"{ {k: v for k, v in served.items() if v} }", flush=True)
         free()
         return served
 
-    served = serve(cfg.image_size, 96, batch, "serve:huge")
+    served = serve(cfg.image_size, 96, batch, "serve:huge", attnproj=True)
     for name in HUGE_SERVING_KERNELS:
         require(served[name] > 0, f"{name} never launched serving ViT-H")
-    _add_launches(got, served, ("fused_qkv_attention",))
+    _add_launches(got, served, ("fused_qkv_attention",
+                                "fused_qkv_attention_proj"))
 
     common = dict(model=MODEL_HUGE, batch=batch, steps=steps, plain_steps=0,
                   grad_batch=grad_batch, cli=False, overrides=over or None,
@@ -3506,6 +3653,11 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
     for name in idle:
         require(mega[name] == 0, f"{name} launched by ViT-H under "
                 "CARA_ATTN_MEGA=1")
+    # Rows 3 and 4 (CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1), in turns with the
+    # default rank route.
+    _add_launches(got, attnproj_rank_steps(
+        dev, (scfg, scc, frozen, state, data), grad_batch, timed=timed),
+        ("fused_qkv_attention_proj", "fused_qkv_attention_proj_bwd"))
     del setup, scfg, scc, frozen, state, data
     free()
 
@@ -3560,9 +3712,13 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
         require(child[name] > 0, f"{name} never launched by the ViT-H CLI")
 
     # Every entry of one kernel instance takes that instance's launches.
-    return {name: got[base + ("_577" if n == 577 and base in FLASH_KERNELS
-                              else "")]
-            for name, (base, n, dh) in DH_FORMS.items() if dh == 80}
+    out = {name: got[base + ("_577" if n == 577 and base in FLASH_KERNELS
+                             else "")]
+           for name, (base, n, dh) in DH_FORMS.items() if dh == 80}
+    out.update({name: got[base]
+                for name, (base, _, _, e, heads) in PROJ_FORMS.items()
+                if e // heads == 80})
+    return out
 
 
 def narrow_flash_phase(dev, steps=6, batch=64, timed=True) -> dict:
@@ -3848,6 +4004,7 @@ def main(argv=None) -> int:
     results.update(pair_kernel_phase(dev, kernel_inputs(
         dev, act="quick_gelu")))
     results.update(dh_kernel_phase(dev))
+    results.update(proj_kernel_phase(dev))
     determinism_phase(dev)
 
     stamp("kernel entries")
@@ -3912,6 +4069,10 @@ def main(argv=None) -> int:
     # ViT-H/14 at full width and depth: the attention at head width 80.
     launches.update(huge_phase(dev))
     stamp("ViT-H/14")
+    # Row 3's head-width-64 entries: the ViT-B switched phase's instance.
+    for name, (base, _, _, e, heads) in PROJ_FORMS.items():
+        if e // heads == 64:
+            launches[name] = launches[base]
 
     # The 384-px route: 577 tokens, past the full-score attention's 512.
     images = make_images(96, 384)

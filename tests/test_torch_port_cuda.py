@@ -21,10 +21,13 @@ flash attention) strided and contiguous q, k, v at 197 and 577 tokens, a
 head width the kernels do not take refused, and a train step without an
 adapter; for the attention-block switches (rows 3, 4 and 6) masked keys,
 idle query warps, head widths 64, 32 and 16, ranks 5, 8 and 40, and a
-rank step under each switch; for the dequant-fused int8 GEMM (row 18)
-ragged row counts, one or three column tiles and one or two k-steps, and
-a quantized Predictor with ``CARA_INT8_PALLAS=1``; for the whole-block
-eval kernel (row 19) head widths 64, 32 and 16, masked keys, a row group
+rank step under each switch; row 3 and its backward at ViT-B's 197, 401
+and 512 tokens, CLIP ViT-L/14's E 1024 and ViT-H/14's E 1280 (head width
+80, 257 and 512 tokens), delta scale 1.5, a rank past 64 refused; for
+the dequant-fused int8 GEMM (row 18) ragged row counts, one or three
+column tiles and one or two k-steps, and a quantized Predictor with
+``CARA_INT8_PALLAS=1``; for the whole-block eval kernel (row 19) head
+widths 64, 32 and 16, masked keys, a row group
 wholly past N and a delta scale other than 1; for row 2's backward (the
 statistics pass and the tiled main kernel) N 197, 257, 401 and 512, past
 the previous kernel's 352-token cap, with masked keys at head widths 64,
@@ -681,25 +684,62 @@ def test_huge_train_steps_on_card_match_plain(dev, route, method, names):
 # (b, n, n_real, e, heads, hidden, r): head dims 64, 32 and 16; masked
 # keys; at N = 37 the last query warp of the 64-row tile is wholly past
 # N; ranks 5, 8 and 40 (the attention + projection kernel's z step pads
-# them to 8, 8 and 40 columns).
+# them to 8, 8 and 40 columns; rank depths 16, 16 and 64).
 ATTN_ROUTE_SHAPES = [(3, 37, 30, 128, 2, 512, 5),
                      (2, 197, 197, 256, 8, 1024, 8),
                      (5, 50, 41, 64, 4, 256, 40)]
 
 
-def test_attn_proj_refuses_vit_h_naming_its_roadmap_item(dev):
-    """Row 3 (``CARA_ATTNPROJ=1``) takes head widths up to 64 and E up to
-    what one block holds: at ViT-H's E 1280 and Dh 80 it raises, naming
-    its ROADMAP item."""
-    e, heads, r = 1280, 16, 8
-    bf = dict(device=dev, dtype=torch.bfloat16)
-    qkv = torch.zeros((2, 257, 3 * e), **bf)
-    w, b, cb = (torch.zeros((e, e), **bf), torch.zeros((e,), **bf),
-                torch.zeros((e,), **bf))
-    u, v = torch.zeros((e, r), **bf), torch.zeros((r, e), **bf)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2: Row 3"):
-        fqa_mod.fused_qkv_attention_proj(qkv, w, b, u, v, cb, heads,
-                                         80 ** -0.5, 257)
+# Row 3 at the smoke's shapes (e, heads, n, n_real): ViT-B at 197, 401
+# and 512 tokens (keys >= 500 masked), CLIP ViT-L/14 and ViT-H/14 (Dh 80)
+# at 257, ViT-H at 512; rank 8, delta scale 1.5.
+ATTN_PROJ_SHAPES = [(768, 12, 197, 197), (768, 12, 401, 401),
+                    (768, 12, 512, 500), (1024, 16, 257, 257),
+                    (1280, 16, 257, 257), (1280, 16, 512, 512)]
+
+
+@pytest.mark.parametrize("shape", ATTN_PROJ_SHAPES,
+                         ids=["vitb_197", "vitb_401", "vitb_512_500",
+                              "clip_257", "vith_257", "vith_512"])
+def test_attn_proj_kernel_matches_plain_at_every_width(dev, shape):
+    """Row 3's forward and its backward with row 4 (``CARA_ATTNPROJ=1``)
+    against their fp32 plain twins, each counted once per call; then a
+    rank past 64 refused."""
+    e, heads, n, n_real = shape
+    inp = chip_smoke.kernel_inputs(dev, b=2, n=n, e=e, heads=heads,
+                                   hidden=4 * e, r=8, seed=e + n,
+                                   n_real=n_real)
+    a = inp["attn"]
+    args = dict(qkv=inp["qkv"], w=a["wp"], b=a["bp"], u=a["u2"], v=a["v2"],
+                cb=a["cb2"])
+    diff = ("qkv", "b", "u", "v", "cb")
+
+    def run(impl, dtype):
+        t = {k: v.detach().to(dtype).requires_grad_(k in diff)
+             for k, v in args.items()}
+        out = fqa_mod.fused_qkv_attention_proj(
+            t["qkv"], t["w"], t["b"], t["u"], t["v"], t["cb"], heads,
+            inp["sm"], n_real, 1.5, impl=impl)
+        grads = torch.autograd.grad(out, [t[k] for k in diff],
+                                    inp["g_attn"].to(dtype))
+        dq, dk, dv = grads[0].chunk(3, dim=-1)
+        return out, dict(zip(("dq", "dk", "dv", "db", "du", "dv2", "dcb"),
+                             (dq, dk, dv) + tuple(grads[1:])))
+
+    before = (fqa_mod.PROJ_LAUNCHES, fqa_mod.PROJ_BWD_LAUNCHES)
+    out, grads = run("auto", torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (fqa_mod.PROJ_LAUNCHES, fqa_mod.PROJ_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_grads = run("plain", torch.float32)
+    chip_smoke._check_outputs("fused_qkv_attention_proj", out, ref)
+    chip_smoke._check_outputs("fused_qkv_attention_proj_bwd", grads,
+                              ref_grads)
+    u65 = torch.zeros((e, 65), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rank <= 64"):
+        fqa_mod.fused_qkv_attention_proj(
+            args["qkv"], args["w"], args["b"], u65, u65.t().contiguous(),
+            args["cb"], heads, inp["sm"], n_real)
 
 
 @pytest.mark.parametrize("shape", ATTN_ROUTE_SHAPES,

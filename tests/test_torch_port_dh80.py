@@ -14,7 +14,13 @@ route in interpret mode, as the JAX package's own tests run it:
   handed to the port;
 * one full fine-tuning step (``method="full"``, ``attn_impl="flash"``:
   row 17) with JAX's drop-path gates: the loss and every leaf's
-  gradient.
+  gradient;
+* under ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (monkeypatched in both
+  packages), where the attention and the projection site are one call
+  (``fused_qkv_attention_proj``, TPU rows 3 and 4): the eval logits, one
+  rank-route step's loss and every trainable leaf's gradient, and the
+  call's forward and cotangents against ``jax.vjp`` at Dh 80 with keys
+  past ``n_real`` masked.
 
 Inputs are made with numpy from a seed; fp32, atol = rtol = 1e-4.
 """
@@ -32,9 +38,11 @@ import test_torch_port_train as port_train
 from cara_tpu_torch.config import CaraConfig, get_model_config
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import vit as t_vit
+from cara_tpu_torch.ops.cuda import fused_qkv_attention as t_fqa
 from cara_tpu_torch.train import steps as t_steps
 from cara_tpu import config as j_config
 from cara_tpu.models import vit as j_vit
+from cara_tpu.ops.pallas import fused_qkv_attention as j_fqa
 from cara_tpu.train import steps as j_steps
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -139,3 +147,82 @@ def test_small_huge_full_step_grads_match_jax():
     rand = _grads_against_jax(cfg, cc, params, {}, batch, j_cfg, j_cc,
                               "full", "flash", "xla")
     assert (rand["gates"] == 0).any()  # a dropped path is exercised
+
+
+def _attnproj(monkeypatch):
+    """``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` on both sides; returns the
+    names of the packages whose ``fused_qkv_attention_proj`` was called."""
+    for mod in (j_vit, t_vit):
+        monkeypatch.setattr(mod, "_ATTN_MEGA", "0")
+        monkeypatch.setattr(mod, "_ATTNPROJ", True)
+    called = set()
+    for tag, mod in (("jax", j_fqa), ("port", t_fqa)):
+        fn = mod.fused_qkv_attention_proj
+
+        def spy(*args, _fn=fn, _tag=tag, **kw):
+            called.add(_tag)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, "fused_qkv_attention_proj", spy)
+    return called
+
+
+def test_small_huge_eval_logits_under_attnproj_match_jax(monkeypatch):
+    """The adapter's eval forward of the small ViT-H through row 3 at Dh
+    80 on both sides."""
+    called = _attnproj(monkeypatch)
+    cfg, cc, params, cara, batch, j_cfg, j_cc = _setup("rank")
+    impls = dict(attn_impl="fused", dense_impl="fused")
+    ref = j_vit.vit_forward(params, jnp.asarray(batch["image"]), j_cfg,
+                            cara_params=cara, cara_cfg=j_cc, **impls)
+    with torch.no_grad():
+        out = t_vit.vit_forward(convert.params_from_numpy(params, "cpu"),
+                                torch.from_numpy(batch["image"]), cfg,
+                                cara_params=convert.params_from_numpy(
+                                    cara, "cpu"), cara_cfg=cc, **impls)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert called == {"jax", "port"}
+
+
+def test_small_huge_rank_step_under_attnproj_matches_jax(monkeypatch):
+    """One rank-route step of the small ViT-H through rows 3 and 4: the
+    loss and every trainable leaf's gradient."""
+    called = _attnproj(monkeypatch)
+    _grads_against_jax(*_setup("rank"), "cara", "fused", "fused")
+    assert called == {"jax", "port"}
+
+
+def test_fused_qkv_attention_proj_dh80_matches_jax_vjp():
+    """Rows 3 and 4 at Dh 80 (two heads, E 160, rank 4, delta scale 1.7),
+    keys >= 20 of 24 masked: the forward and the cotangents of qkv, the
+    bias and the factors against ``jax.vjp`` of the Pallas kernel in
+    interpret mode."""
+    e, heads, n, n_real, r, s = 160, 2, 24, 20, 4, 1.7
+    rng = np.random.default_rng(5)
+
+    def arr(*shape, std):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    a = dict(qkv=arr(2, n, 3 * e, std=0.7), w=arr(e, e, std=0.1),
+             b=arr(e, std=0.1), u=arr(e, r, std=0.1), v=arr(r, e, std=0.1),
+             cb=arr(e, std=0.1), g=arr(2, n, e, std=1.0))
+    diff = ("qkv", "b", "u", "v", "cb")
+    sm = 80 ** -0.5
+    ja = {k: jnp.asarray(v) for k, v in a.items()}
+
+    def j_fn(qkv, b, u, v, cb):
+        return j_fqa.fused_qkv_attention_proj(qkv, ja["w"], b, u, v, cb,
+                                              heads, sm, n_real, s)
+
+    ref, vjp = jax.vjp(j_fn, *(ja[k] for k in diff))
+    ref_grads = vjp(ja["g"])
+    ta = {k: torch.from_numpy(v).requires_grad_(k in diff)
+          for k, v in a.items()}
+    out = t_fqa.fused_qkv_attention_proj(
+        ta["qkv"], ta["w"], ta["b"], ta["u"], ta["v"], ta["cb"], heads, sm,
+        n_real, s)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    grads = torch.autograd.grad(out, [ta[k] for k in diff], ta["g"])
+    for name, got, want in zip(diff, grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=name)
+    assert not grads[0][:, :, e:3 * e].reshape(2, n, 2, e)[:, n_real:].any()

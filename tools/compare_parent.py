@@ -47,8 +47,12 @@ bf16:
   384 px and the full fine-tuning step at 224 px (median ms per step by
   CUDA events over the steps after the fifth, on one fixed batch).
 
+- TPU row 3 (the attention + projection kernel) at ViT-B 197, 401 and
+  512 tokens, CLIP ViT-L/14 and ViT-H/14 at 257, beside SDPA +
+  ``torch.addmm`` (null where a tree refuses the shape).
+
 ``--only`` picks some of the sections (kernels, widths, rows, serving,
-train).
+train, proj).
 Prints the card's name and power limit and one JSON line per child, and
 writes them to ``--out`` as one JSON file where it is given.
 """
@@ -471,8 +475,50 @@ def _train(cs, dev) -> dict:
     return out
 
 
+# Row 3's shapes: (tag, N, n_real, E, heads), ViT-B at 197, 401 and 512
+# tokens (keys >= 500 masked), CLIP ViT-L/14 and ViT-H/14 at 257.
+PROJ_SHAPES = (("vitb", 197, 197, 768, 12), ("vitb_401", 401, 401, 768, 12),
+               ("vitb_512", 512, 500, 768, 12), ("clip", 257, 257, 1024, 16),
+               ("vith", 257, 257, 1280, 16))
+
+
+def _proj(cs, dev) -> dict:
+    """Row 3's forward (``attn_proj_cuda``: the attention and the
+    projection site in one kernel, ``CARA_ATTNPROJ=1``) at B 64 and each
+    of ``PROJ_SHAPES`` (rank 8): back to back (``*_b2b_ms``, median of
+    five runs of 20 calls) and single calls by events (``*_ms``), beside
+    SDPA + ``torch.addmm`` on the same inputs (a yardstick only).  A tree
+    whose kernel refuses a shape gives null for it."""
+    import torch
+    from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa
+
+    out = {}
+    for tag, n, n_real, e, heads in PROJ_SHAPES:
+        inp = cs.kernel_inputs(dev, b=64, n=n, e=e, heads=heads,
+                               hidden=4 * e, seed=n + e, n_real=n_real)
+        a = inp["attn"]
+
+        def fwd(inp=inp, a=a, heads=heads, n_real=n_real):
+            return fqa.attn_proj_cuda(inp["qkv"], a["wp"], a["bp"], a["u2"],
+                                      a["v2"], a["cb2"], heads, inp["sm"],
+                                      n_real, 1.0)
+
+        lib = cs.library_calls(inp)["fused_qkv_attention_proj"]
+        for key, fn in ((f"row3_{tag}", fwd), (f"sdpa_addmm_{tag}", lib)):
+            try:
+                out[key + "_b2b_ms"] = statistics.median(
+                    _b2b_ms(fn) for _ in range(5))
+                out[key + "_ms"] = cs.median_ms(fn)
+            except (RuntimeError, ValueError) as exc:  # a shape refused
+                print(f"{key}: {exc}", flush=True)
+                out[key + "_b2b_ms"] = out[key + "_ms"] = None
+        del inp, a
+        torch.cuda.empty_cache()
+    return out
+
+
 SECTIONS = {"kernels": _kernels, "widths": _widths, "rows": _rows,
-            "serving": _serving, "train": _train}
+            "serving": _serving, "train": _train, "proj": _proj}
 
 
 def child(only) -> int:
