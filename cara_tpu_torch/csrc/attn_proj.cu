@@ -32,7 +32,8 @@
 //     starts the projection's loads once its warpgroup has released every
 //     attention slot.
 //
-// 1. Attention: warpgroup w takes heads w, w + 2, ...  (The q tile is
+// 1. Attention (attn_tile.cuh, shared with block_pair.cu): warpgroup w
+//    takes heads w, w + 2, ...  (The q tile is
 //    first rounded to bf16(q * scale) in place where the scale is not a
 //    power of two.)  Per head, a max pass streams the K tiles (S = Q K^T
 //    by wgmma, Q read from the o tile's columns of the head, keys >=
@@ -78,19 +79,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace sm90;
+using namespace attn_tile;
 
 constexpr int kMaxSmem = 232448;  // H100: 227 KB per block (opt-in)
-constexpr int kRows = 64;         // query rows of a block: one wgmma M
 constexpr int kGroups = 2;        // consumer warpgroups
 constexpr int kConsumers = 128 * kGroups;
 constexpr int kThreads = kConsumers + 32 * kGroups;  // + a producer warp each
-constexpr int kKeys = 64;         // keys of a streamed K or V tile
-constexpr int kAtom = kRows * 128;  // one 64-column atom of the o tile
 constexpr int kWk = 32;           // k-rows of a W or V tile
 constexpr int kUk = 64;           // k-rows of a U tile
 constexpr int kBN = 128;          // columns of a warpgroup's pass
@@ -98,7 +98,6 @@ constexpr int kWBox = kWk * 128;  // one 64-column TMA box of a W tile
 constexpr int kWTile = 2 * kWBox;   // a projection slot: 8 KB
 constexpr int kMaxSlots = 8;
 constexpr int kMaxE = 1280;
-constexpr float kNegInf = -1e30f;
 
 // The byte plan of one block's shared memory from a 1024-aligned base:
 // the o tile, the two rings, the barriers.
@@ -153,89 +152,6 @@ struct Args {
   int N, heads, n_real, e, prescale;
   float scale, s;
 };
-
-// K-major descriptor of the 16 o-tile columns from `col` (a multiple of
-// 16) on: its atom's descriptor, 32 bytes a k-step further into the row.
-__device__ __forceinline__ uint64_t ot_desc(const unsigned char* ot,
-                                            int col) {
-  return desc<128>(ot + (col >> 6) * kAtom) + ((col & 63) >> 3);
-}
-
-// S (64 x 64) = Q_h . K tile^T, raw fp32 scores, waited for.
-template <int DH>
-__device__ __forceinline__ void head_scores(float (&s)[kKeys / 2],
-                                            const unsigned char* ot, int c_h,
-                                            const __nv_bfloat16* ks) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wgmma_ss<kKeys, 0, 0>(s, ot_desc(ot, c_h + 16 * kk),
-                          head_kdesc<DH, kKeys>(ks, kk), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(s);
-}
-
-// Keys >= n_real of the tile whose first key is col0 set to -1e30; only
-// the 8-column groups that reach n_real are visited (a uniform branch).
-__device__ __forceinline__ void mask_keys(float (&s)[kKeys / 2], int col0,
-                                          int n_real, int t) {
-  if (col0 + kKeys <= n_real) return;
-#pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
-    if (col0 + 8 * j + 8 <= n_real) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (col0 + 8 * j + 2 * t + (c & 1) >= n_real) s[4 * j + c] = kNegInf;
-  }
-}
-
-// The running row max m[r] (rows g and g + 8 of the warp's 16) of the raw
-// scores, reduced over the quad that holds a row.
-__device__ __forceinline__ void row_max(const float (&s)[kKeys / 2],
-                                        float (&m)[2]) {
-  float mx[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) mx[r][u] = m[r];
-#pragma unroll
-  for (int i = 0; i < kKeys / 2; ++i)
-    mx[(i >> 1) & 1][(i >> 2) & 3] =
-        fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m[r] = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-  }
-}
-
-// p = exp((s - m) sc) in place (sc the scale still to apply to the raw
-// scores, 1 after the pre-scaled q; masked keys give 0) and this thread's
-// share of the row sums added to l; the 8-column groups wholly at or past
-// n_real take no exp (a uniform branch).
-__device__ __forceinline__ void exp_tile(float (&s)[kKeys / 2],
-                                         const float (&m)[2], float sc,
-                                         int col0, int n_real,
-                                         float (&l)[2]) {
-  float ls[2][2] = {};
-#pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
-    if (col0 + 8 * j >= n_real) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[4 * j + c] = 0.f;
-      continue;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[4 * j + c] = expf((s[4 * j + c] - m[c >> 1]) * sc);
-      ls[c >> 1][j & 1] += s[4 * j + c];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] += ls[r][0] + ls[r][1];
-}
 
 template <int DH, int RK>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -370,52 +286,18 @@ attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
   int ia = 0;
   for (int h = w; h < a.heads; h += kGroups) {
     const int c_h = h * DH;
-    float s[kKeys / 2];
-    // The max pass: K tiles ia .. ia + nkt - 1.
-    float m[2] = {kNegInf, kNegInf};
-    for (int j = 0; j < nkt; ++j, ++ia) {
-      head_scores<DH>(s, ot, c_h, aslot(ia));
-      arelease(ia);
-      mask_keys(s, j * kKeys, a.n_real, t);
-      row_max(s, m);
-    }
-    // The exp / P V pass: K tile j at entry ia + 2 j, V tile j at + 1.
-    float l[2] = {0.f, 0.f};
-    float o[DH / 2];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
-    for (int j = 0; j < nkt; ++j, ia += 2) {
-      head_scores<DH>(s, ot, c_h, aslot(ia));
-      arelease(ia);
-      mask_keys(s, j * kKeys, a.n_real, t);
-      exp_tile(s, m, sc, j * kKeys, a.n_real, l);
-      uint32_t pa[kKeys / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) acc_to_a(pa[kk], s, kk);
-      const __nv_bfloat16* vs = aslot(ia + 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk)
-        wgmma_rs_head<DH, kKeys>(o, pa[kk], vs, kk, 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-      arelease(ia + 1);
-    }
+    float o[DH / 2], inv[2];
+    head_attention<DH>(o, inv, ot, c_h, nkt, a.n_real, sc, t, ia, aslot,
+                       arelease);
     // bf16(o / l) over the head's q columns (no longer read).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      const float inv = 1.f / l[r];
       const int row = warp * 16 + gq + 8 * r;
 #pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        const int col = c_h + 8 * c + 2 * t;
-        *reinterpret_cast<uint32_t*>(
-            ot + (col >> 6) * kAtom + swizzle<128>(row * 128 + (col & 63) * 2)) =
-            pack_bf16(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
-      }
+      for (int c = 0; c < DH / 8; ++c)
+        *reinterpret_cast<uint32_t*>(ot + ot_byte(row, c_h + 8 * c + 2 * t)) =
+            pack_bf16(o[4 * c + 2 * r] * inv[r],
+                      o[4 * c + 2 * r + 1] * inv[r]);
     }
   }
   fence_proxy_async();

@@ -60,7 +60,6 @@ _SIGNATURES = {
     "cara_colsum": [_P, _I, _P, _P, _I, _I, _P],
     "cara_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
     "cara_block_pair": [_P] * 20 + [_I] * 9 + [_F] * 3 + [_P],
-    "cara_block_pair_smem": [_I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -9,18 +9,28 @@ to device memory.  On Hopper it is three launches:
 1. ``csrc/block_rows.cu``'s LayerNorm row pass and ``csrc/cp_site.cu``'s
    product: qkv = LN1(x) Wq + bq + (z1 V1), z1 = LN1(x) U1 rounded to
    bf16 (as row 5's port);
-2. ``csrc/block_pair.cu``, one block per (image, 32-query-row tile):
-   attention -> proj site + delta + cb2 + residual -> x_mid in shared
-   memory -> LN2 -> fc1 site + delta + cb1 + activation in hidden chunks ->
-   fc2 site + delta + cb2 accumulated over the chunks -> residual.
+2. ``csrc/block_pair.cu`` (the kernel in ``csrc/block_pair.cuh``, its
+   quick_gelu instances in ``csrc/block_pair_quick.cu``): a cluster of
+   ceil(E / 256) blocks a (64-query tile, image) on ``wgmma`` and TMA.
+   Block c runs the heads h = c (mod k) and stores their output into
+   every block's 64 x E tile (distributed shared memory); each block
+   owns 256 columns of the projection + delta + residual (x_mid, kept in
+   registers), LN2's row statistics are merged across the cluster, and
+   each block sends its xa2 columns to every block by bulk copies; then
+   the hidden in 64-wide chunks: each block computes one chunk a step
+   (fc1 + delta + the activation) and copies it to every block, which
+   runs fc2 and the rank sum z2' = h U2' on all of them for its columns.
    Neither x_mid nor the hidden activation leaves the chip.  The
    activation (the exact-erf GELU, or CLIP's quick_gelu for
-   ``act="quick_gelu"``) is a template parameter of the kernel.
+   ``act="quick_gelu"``) is a template parameter.
 
-The reference has no switch that turns it on in the model (its
-docstring's ``CARA_BLOCK_PAIR`` is read nowhere), so neither does the
-port: ``models/vit.py`` keeps the two half-block kernels.  Eval only, as
-in JAX: no backward, and the wrapper raises when autograd would record
+The kernel takes head widths 16, 32, 64 and 80 (``blockwise_attention.
+HEAD_DIMS``), E = heads x Dh up to 1280 (every model of the registry),
+hidden a multiple of 128, N up to 512 and rank 1..64.  The reference has
+no switch that turns it on in the model (its docstring's
+``CARA_BLOCK_PAIR`` is read nowhere), so neither does the port:
+``models/vit.py`` keeps the two half-block kernels.  Eval only, as in
+JAX: no backward, and the wrapper raises when autograd would record
 through it.  The TPU's token padding is not ported: ``x`` is (B, N, E)
 unpadded, keys at or past ``n_real`` are masked.  A CUDA tensor
 launches the kernels (or raises); a CPU tensor, or ``impl="plain"``,
@@ -33,6 +43,7 @@ import torch
 
 from cara_tpu_torch.ops.cuda import _build, _bwd
 from cara_tpu_torch.ops.cuda._site import site_cuda
+from cara_tpu_torch.ops.cuda.blockwise_attention import check_head_dim
 from cara_tpu_torch.ops.cuda.cp_attn_block import cp_attn_block_plain
 from cara_tpu_torch.ops.cuda.cp_mlp import cp_mlp_block_plain
 from cara_tpu_torch.ops.cuda.fused_qkv_attention import _check_np
@@ -41,6 +52,12 @@ from cara_tpu_torch.ops.cuda.fused_qkv_attention import _check_np
 #: with the GELU, and with quick_gelu.
 LAUNCHES = 0
 QUICK_LAUNCHES = 0
+
+#: Widest E the kernel takes (ViT-H/14's): a cluster of five blocks, each
+#: holding the whole 64 x E tile (160 KB at E 1280) beside five 8 KB
+#: chunks of the hidden activation.
+MAX_E = 1280
+_WIDE_TODO = "ROADMAP.md queue 2: Row 19 past E 1280"
 
 
 def block_pair_fwd_plain(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1,
@@ -70,8 +87,6 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
     hid = w1.shape[1]
     r = u2.shape[1]
     dev = x.device
-    x2 = x.reshape(bsz * n, e)
-    qkv = site_cuda(x2, wq, bq, u1, v1, None, s, ln=(ls1, lb1, ln_eps))
     u2p, mu1p, mu2p = (_bwd.pad_cols8(t) for t in (u2, mu1, mu2))
     tensors = dict(x=x, wp=wp, bp=bp, u2=u2p, v2=v2, cb2=cb2, ls2=ls2,
                    lb2=lb2, w1=w1, b1=b1, mu1=mu1p, mv1=mv1, mcb1=mcb1,
@@ -89,18 +104,21 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
     if act not in _bwd.ACTS:  # cara_block_pair's codes are grad_gemm's
         raise ValueError(f"block_pair: act must be one of "
                          f"{tuple(_bwd.ACTS)}, got {act!r}")
-    if (bad or heads * dh != e or dh not in (16, 32, 64) or e % 128
-            or e > 768 or hid % 128 or not 1 <= r <= _bwd.RANK_W):
+    if bad or heads * dh != e or hid % 128 or not 1 <= r <= _bwd.RANK_W:
         raise ValueError(
             f"block_pair: E={e}, heads={heads}, hidden={hid}, rank {r}, "
-            f"mismatched shapes {bad}; the kernel takes head dims 16, 32 "
-            "or 64, E a multiple of 128 up to 768 (ROADMAP.md queue 2: "
-            "row 19 past E 768), hidden a multiple of 128 and rank 1..64, "
-            "one rank for all three sites")
+            f"mismatched shapes {bad}; the kernel takes hidden a multiple "
+            "of 128 and rank 1..64, one rank for all three sites")
+    if e > MAX_E:
+        raise ValueError(f"block_pair: E={e}; the kernel takes E = heads x "
+                         f"Dh up to {MAX_E} ({_WIDE_TODO})")
+    check_head_dim("block_pair", dh)
+    if s == 0:
+        raise ValueError("block_pair: the kernel folds the delta scale into "
+                         "its accumulators (acc / s + z V) and takes s != 0")
+    qkv = site_cuda(x.reshape(bsz * n, e), wq, bq, u1, v1, None, s,
+                    ln=(ls1, lb1, ln_eps))
     lib = _build.lib()
-    if lib.cara_block_pair_smem(n, e, dh) == 0:
-        raise ValueError(f"block_pair: N={n}, E={e} does not fit one "
-                         "block's shared memory")
     out = torch.empty_like(x)
     code = lib.cara_block_pair(
         qkv.data_ptr(), x.data_ptr(), wp.data_ptr(), bp.data_ptr(),

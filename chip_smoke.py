@@ -155,25 +155,31 @@ fatal on failure:
    the saved forms, row 13's body and dact, the fc1 site with and
    without its pre output and its dact, ``grad_gemm.cu``'s ``DGELU_H``,
    ``PRE_GELU`` and ``DGELU``) at M = 64 x 257, K 1024 / N 4096 and K
-   4096 / N 1024, and row 19 with quick_gelu at phase 3's ViT-B shapes,
-   each against its fp32 plain version (run with phase 3's); then CLIP
-   served merged and unmerged as in 4, trained on the element and rank
+   4096 / N 1024, and row 19 with quick_gelu at phase 3's ViT-B shapes
+   and at CLIP's (``PAIR_FORMS``: B 64, N 257, E 1024, 16 heads, hidden
+   4096, LayerNorm eps 1e-5, also against the split halves), each against
+   its fp32 plain version (run with phase 3's); then CLIP
+   served merged and unmerged as in 4, then unmerged with every block
+   through row 19 (its quick_gelu form once a layer, logits within 5 % of
+   the default route's), trained on the element and rank
    routes as in 5 and 6 (gradient check at batch 16, 14 timed steps at
    batch 64, peak memory), two steps of each with both saved-residual
    switches "0", two rank steps with ``dropout_rate`` 0.1 (row 13's
    quick_gelu body), and ``cli.vit_cp --model vit_large_patch14_224_clip``
    in a child; the quick_gelu forms launch, the GELU forms never, and the
-   recompute forms only with the switches "0"; last, ViT-B served
-   unmerged with quick_gelu, every block through row 19;
+   recompute forms only with the switches "0";
 15. ViT-H/14 (``vit_huge_patch14_224_in21k``: 32 layers, E 1280, 16
    heads of width 80, hidden 5120, 257 tokens) at full width and depth,
    run after 14 (``huge_phase``): the kernel entries of rows 1 (N 257,
    401, 512), 2 (257, 512), 16 (577) and 17 (257, 577) at head width 80,
    and of row 17 at 16 and 32 (``DH_FORMS``, run with phase 3's, beside
    SDPA; launches: the ViT-H phase, and the test model's full steps for
-   16 and 32, ``narrow_flash_phase``, run with 8), determinism of rows 2,
-   16 and 17 at Dh 80 (run with 12); then ViT-H served merged and
-   unmerged at batch 64, the element and rank routes (gradient check at
+   16 and 32, ``narrow_flash_phase``, run with 8), and of row 19 at B 64,
+   N 257, E 1280, 16 heads of 80, hidden 5120 (``PAIR_FORMS``, also
+   against the split halves), determinism of rows 2, 16 and 17 at Dh 80
+   (run with 12); then ViT-H served merged and unmerged at batch 64, and
+   unmerged with every block through row 19 (logits within 5 % of the
+   default route's), the element and rank routes (gradient check at
    batch 16, 10 timed steps at batch 64, peak memory), full fine-tuning
    through row 17 (gradient check of every leaf at batch 8, 10 steps),
    two rank steps under ``CARA_ATTN_MEGA=1``, the rank route under
@@ -606,8 +612,8 @@ KERNEL_TOL = {"fused_qkv_attention": (1e-2, 1e-2),
 # with quick_gelu, y sigmoid(1.702 y): the quick_gelu forms of rows 9,
 # 10, 11, 13 and 19, each an entry of its own -> (its GELU twin, whose
 # module, source, TPU kernel, tolerance and work it shares; the counter
-# of its own form).  Launches: the CLIP phases (row 19's: the unmerged
-# ViT-B forward with quick_gelu through it, its E <= 768).
+# of its own form).  Launches: the CLIP phases (row 19's: CLIP's unmerged
+# forward through it).
 MODEL_CLIP = "vit_large_patch14_224_clip"
 QUICK_FORMS = {
     "cp_mlp_block_quick": ("cp_mlp_block", "QUICK_LAUNCHES"),
@@ -633,6 +639,24 @@ QUICK_FORMS = {
 for _name, (_twin, _counter) in QUICK_FORMS.items():
     KERNELS[_name] = (KERNELS[_twin][0], _counter) + KERNELS[_twin][2:]
     KERNEL_TOL[_name] = KERNEL_TOL[_twin]
+# Row 19 at the wider registry models, each an entry of its own -> (the
+# entry whose module, counter, source, TPU kernel and tolerance it shares;
+# N, E, heads, hidden, activation, LayerNorm eps): CLIP ViT-L/14 (E 1024,
+# 16 heads of 64, quick_gelu: a cluster of four blocks) and ViT-H/14 (E
+# 1280, 16 heads of 80: five blocks) at 257 tokens.  Launches: an entry
+# takes those of its kernel instance (head width, rank depth and
+# activation): CLIP's unmerged eval through row 19 for the quick_gelu
+# instance at head width 64 (``block_pair_fwd_quick`` too), ViT-H's for
+# 80.
+PAIR_FORMS = {
+    "block_pair_fwd_clip": ("block_pair_fwd_quick", 257, 1024, 16, 4096,
+                            "quick_gelu", 1e-5),
+    "block_pair_fwd_huge": ("block_pair_fwd", 257, 1280, 16, 5120, "gelu",
+                            1e-6),
+}
+for _name, (_base, *_) in PAIR_FORMS.items():
+    KERNELS[_name] = KERNELS[_base]
+    KERNEL_TOL[_name] = KERNEL_TOL[_base]
 # The GELU forms, none of which a CLIP phase may launch.
 GELU_FORMS = tuple(twin for twin, _ in QUICK_FORMS.values())
 # The quick_gelu entries' GELU twin names at CLIP's shapes (the kernel
@@ -1381,23 +1405,26 @@ def split_halves(inp, args):
     h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
     b = args[0].shape[0]
     ones = args[0].new_ones((b, 1))
-    xm = attn_mod.cp_attn_block(*args[:12], ones, h, sm, n)
+    xm = attn_mod.cp_attn_block(*args[:12], ones, h, sm, n,
+                                ln_eps=inp["eps"])
     return mlp_mod.cp_mlp_block(xm, *args[12:], ones.reshape(b, 1, 1),
-                                act=inp["act"])
+                                act=inp["act"], ln_eps=inp["eps"])
 
 
-def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
+def pair_kernel_phase(dev, inp, timed: bool = True, name=None) -> dict:
     """Row 19's entry at ``inp``'s shapes against its fp32 plain version,
     then against the port's split halves (rows 5 and 9) on the card:
     max |difference| within twice the forward tolerance (each is within
     it of the fp32 reference).  No PyTorch call computes a block, so the
     entry's ``library_ms`` is None; ``split_ms`` is the split halves'
     time, its yardstick.  With ``inp["act"]`` "quick_gelu" the entry is
-    ``block_pair_fwd_quick``."""
+    ``block_pair_fwd_quick``, unless ``name`` names it (``PAIR_FORMS``).
+    ``inp["eps"]`` is both LayerNorms' eps."""
     h, sm, n = inp["heads"], inp["sm"], inp["n_real"]
-    act = inp["act"]
-    name = QUICK_ENTRIES["block_pair_fwd"] if act != "gelu" \
-        else "block_pair_fwd"
+    act, eps = inp["act"], inp["eps"]
+    if name is None:
+        name = QUICK_ENTRIES["block_pair_fwd"] if act != "gelu" \
+            else "block_pair_fwd"
     args = pair_args(inp)
     args32 = tuple(t.float() for t in args)
     a, m = inp["attn"], inp["mlp"]
@@ -1414,15 +1441,19 @@ def pair_kernel_phase(dev, inp, timed: bool = True) -> dict:
         site(e, 3 * e) + 4 * inp["b"] * inp["n"] * n * e + site(e, e)
         + site(e, hid) + site(hid, e), 2 * rows * e * 2 + weights)}
     print(f"[kernel] {name} (row 19, {act}) at B {inp['b']}, N "
-          f"{inp['n']}, E {e}, H {h}, hidden {hid}:", flush=True)
+          f"{inp['n']}, E {e}, H {h} of width {e // h}, hidden {hid}, "
+          f"LayerNorm eps {eps}:", flush=True)
     out = check_entries(
         dev, inp, {name: (
-            lambda: pair_mod.block_pair_fwd(*args, h, sm, n, 1.0, act=act),
-            lambda: pair_mod.block_pair_fwd_plain(*args, h, sm, n, 1.0, act),
+            lambda: pair_mod.block_pair_fwd(*args, h, sm, n, 1.0, act=act,
+                                            ln_eps=eps),
+            lambda: pair_mod.block_pair_fwd_plain(*args, h, sm, n, 1.0, act,
+                                                  eps),
             lambda: pair_mod.block_pair_fwd_plain(*args32, h, sm, n, 1.0,
-                                                  act))},
+                                                  act, eps))},
         timed, work=work, library={})
-    got = pair_mod.block_pair_fwd(*args, h, sm, n, 1.0, act=act).float()
+    got = pair_mod.block_pair_fwd(*args, h, sm, n, 1.0, act=act,
+                                  ln_eps=eps).float()
     ref = split_halves(inp, args).float()
     atol, rtol = KERNEL_TOL[name]
     err = (got - ref).abs()
@@ -3339,7 +3370,7 @@ def _add_launches(total, got, names) -> None:
 
 
 def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
-               pair_model=MODEL, timed=True) -> dict:
+               timed=True) -> dict:
     """CLIP ViT-L/14 (``MODEL_CLIP``) at full width and depth from seed 0
     with a perturbed order-4 rank-8 CaRA adapter at scale 10, 10 classes
     on its 768-wide projection, bf16, ``batch`` images (``overrides``
@@ -3360,9 +3391,9 @@ def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
        quick_gelu body and its dact helper;
     5. ``cli.vit_cp --model vit_large_patch14_224_clip --synthetic`` in a
        child for four steps (two epochs of two batches);
-    6. row 19 with quick_gelu: ``pair_model`` (ViT-B, row 19's E <= 768)
-       served unmerged with quick_gelu in place of its GELU, every block
-       through row 19 (:func:`pair_eval_check`).
+    6. row 19 with quick_gelu: 1.'s checkpoint served unmerged with every
+       block through row 19 (:func:`pair_eval_check`, run right after 1.
+       while the checkpoint exists): its quick_gelu form in every layer.
 
     Returns the quick_gelu entries' launches."""
     over = dict(overrides or {})
@@ -3382,6 +3413,9 @@ def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
         serving_phase(dev, ckpt, MODEL_CLIP, images, batch_size=batch,
                       timed=timed, tag="serve:clip")
         served = read_launches(tuple(KERNELS))
+        launches["block_pair_fwd_clip"] = pair_eval_check(
+            dev, ckpt, MODEL_CLIP, images, batch=batch)
+        launches["block_pair_fwd_quick"] = launches["block_pair_fwd_clip"]
     del images
     print(f"[serve:clip] kernel launches on the serving path: "
           f"{ {k: v for k, v in served.items() if v} }", flush=True)
@@ -3471,13 +3505,6 @@ def clip_phase(dev, batch=64, steps=14, grad_batch=16, overrides=None,
         require(child[name] > 0, f"{name} never launched by the CLIP CLI")
     for name in none_gelu:
         require(child[name] == 0, f"{name} launched by the CLIP CLI")
-
-    images = make_images(64, get_model_config(pair_model).image_size)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "vit_quick_gelu_seed_0.npz")
-        make_checkpoint(ckpt, model=pair_model, activation="quick_gelu")
-        launches["block_pair_fwd_quick"] = pair_eval_check(
-            dev, ckpt, pair_model, images, batch=batch)
     return launches
 
 
@@ -3553,7 +3580,9 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
 
     1. served merged and unmerged as :func:`serving_phase` does (logits
        within ``LOGIT_RTOL`` of the fp32 plain forward): rows 1, 5 and 9
-       launch;
+       launch; then unmerged with every block through row 19
+       (:func:`pair_eval_check`: once a layer, logits within
+       ``LOGIT_RTOL`` of the default route's);
     2. the element and the rank route as :func:`training_phase` (the
        gradient check on ``grad_batch`` images, ``steps`` timed steps,
        peak memory; no CLI, no plain timing): the saved forms of rows 8,
@@ -3576,8 +3605,8 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
     6. ``cli.vit_cp --model vit_huge_patch14_224_in21k --synthetic`` in a
        child for four steps (two epochs of two batches).
 
-    Returns the launches of the Dh-80 entries of ``DH_FORMS`` and
-    ``PROJ_FORMS``."""
+    Returns the launches of the Dh-80 entries of ``DH_FORMS``,
+    ``PROJ_FORMS`` and ``PAIR_FORMS``."""
     over = dict(overrides or {})
     cfg = get_model_config(MODEL_HUGE, num_classes=10, **over)
     print(f"[huge] {MODEL_HUGE}: depth {cfg.depth}, E {cfg.embed_dim}, "
@@ -3590,7 +3619,7 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-    def serve(size, n_images, serve_batch, tag, attnproj=False):
+    def serve(size, n_images, serve_batch, tag, evals=False):
         images = make_images(n_images, size)
         with tempfile.TemporaryDirectory() as tmp:
             ckpt = os.path.join(tmp, "vit_huge_smoke_seed_0.npz")
@@ -3603,19 +3632,22 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
             serving_phase(dev, ckpt, MODEL_HUGE, images,
                           batch_size=serve_batch, timed=timed, tag=tag)
             served = read_launches(tuple(KERNELS))
-            if attnproj:  # the adapter's eval through row 3
+            if evals:  # the adapter's eval through row 3, then row 19
                 served["fused_qkv_attention_proj"] = attnproj_eval_check(
+                    dev, ckpt, MODEL_HUGE, images, batch=serve_batch)
+                served["block_pair_fwd_huge"] = pair_eval_check(
                     dev, ckpt, MODEL_HUGE, images, batch=serve_batch)
         print(f"[{tag}] kernel launches on the serving path: "
               f"{ {k: v for k, v in served.items() if v} }", flush=True)
         free()
         return served
 
-    served = serve(cfg.image_size, 96, batch, "serve:huge", attnproj=True)
+    served = serve(cfg.image_size, 96, batch, "serve:huge", evals=True)
     for name in HUGE_SERVING_KERNELS:
         require(served[name] > 0, f"{name} never launched serving ViT-H")
     _add_launches(got, served, ("fused_qkv_attention",
-                                "fused_qkv_attention_proj"))
+                                "fused_qkv_attention_proj",
+                                "block_pair_fwd_huge"))
 
     common = dict(model=MODEL_HUGE, batch=batch, steps=steps, plain_steps=0,
                   grad_batch=grad_batch, cli=False, overrides=over or None,
@@ -3718,6 +3750,7 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
     out.update({name: got[base]
                 for name, (base, _, _, e, heads) in PROJ_FORMS.items()
                 if e // heads == 80})
+    out["block_pair_fwd_huge"] = got["block_pair_fwd_huge"]
     return out
 
 
@@ -4003,6 +4036,12 @@ def main(argv=None) -> int:
         eps=1e-5)))
     results.update(pair_kernel_phase(dev, kernel_inputs(
         dev, act="quick_gelu")))
+    for name, (_, n, e, heads, hidden, act, eps) in PAIR_FORMS.items():
+        results.update(pair_kernel_phase(dev, kernel_inputs(
+            dev, n=n, e=e, heads=heads, hidden=hidden, act=act, eps=eps,
+            seed=n + e), name=name))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     results.update(dh_kernel_phase(dev))
     results.update(proj_kernel_phase(dev))
     determinism_phase(dev)

@@ -821,12 +821,25 @@ def test_int8_dense_refuses_what_the_kernel_does_not_take(dev):
 
 
 # Row 19: head widths 64, 32 and 16, masked keys, a 16-row group wholly
-# past N (N = 37, 50), ranks 8, 5 and 3.
+# past N (N = 37, 50), ranks 8, 5 and 3; ViT-L/16's width (E 1024, a
+# cluster of four blocks), CLIP's (N 257), ViT-H's (E 1280, Dh 80: five
+# blocks) at N 257 and at N 512 with keys >= 500 masked, a small Dh-80
+# shape (E 160: one block, its second warpgroup without columns),
+# ViT-B's width at rank 40 (z 64 wide), hidden 512 over three blocks
+# (steps of 3, 3 and 2 chunks) and E 384 (two blocks, the second's second
+# warpgroup without columns).
 PAIR_SHAPES = [(2, 197, 197, 256, 4, 1024, 8), (3, 37, 30, 128, 4, 512, 5),
-               (2, 50, 41, 128, 8, 512, 3)]
+               (2, 50, 41, 128, 8, 512, 3), (2, 197, 197, 1024, 16, 4096, 8),
+               (2, 257, 257, 1024, 16, 4096, 8),
+               (2, 257, 257, 1280, 16, 5120, 8),
+               (2, 512, 500, 1280, 16, 5120, 8), (3, 37, 30, 160, 2, 640, 3),
+               (2, 97, 97, 768, 12, 3072, 40), (2, 50, 41, 768, 12, 512, 4),
+               (2, 37, 30, 384, 6, 512, 5)]
+PAIR_IDS = ["dh64", "dh32", "dh16", "vitl16", "clip", "huge", "huge_512",
+            "dh80", "vitb_r40", "ragged_steps", "e384"]
 
 
-@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=["dh64", "dh32", "dh16"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=PAIR_IDS)
 def test_block_pair_kernel_matches_plain(dev, shape):
     """Row 19 against its fp32 plain version and the split halves (rows 5
     and 9) on the card, counted once per call; with a delta scale other
@@ -847,7 +860,7 @@ def test_block_pair_kernel_matches_plain(dev, shape):
         *(t.float() for t in args), heads, sm, n_real, 1.3))
 
 
-@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=["dh64", "dh32", "dh16"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=PAIR_IDS)
 def test_block_pair_quick_gelu_kernel_matches_plain(dev, shape):
     """Row 19 with quick_gelu against its fp32 plain version and the
     split halves (rows 5 and 9 with quick_gelu), and at a delta scale of
@@ -870,6 +883,23 @@ def test_block_pair_quick_gelu_kernel_matches_plain(dev, shape):
                                                    before[1] + 3)
     _check("block_pair_fwd_quick", got, pair.block_pair_fwd_plain(
         *(t.float() for t in args), heads, sm, n_real, 1.3, "quick_gelu"))
+
+
+def test_block_pair_refuses_what_the_kernel_does_not_take(dev):
+    """On CUDA tensors E past 1280 and a head width outside HEAD_DIMS
+    raise, each naming its ROADMAP item, before any launch."""
+    pair = chip_smoke.pair_mod
+    before = (pair.LAUNCHES, pair.QUICK_LAUNCHES)
+    for e, heads, item in ((1536, 16, "ROADMAP.md queue 2: Row 19 past E "
+                            "1280"),
+                           (768, 16, "ROADMAP.md queue 2: Attention at head "
+                            "widths other than 16, 32, 64 and 80")):
+        inp = chip_smoke.kernel_inputs(dev, b=1, n=17, e=e, heads=heads,
+                                       hidden=512, r=4)
+        with pytest.raises(ValueError, match=item):
+            pair.block_pair_fwd(*chip_smoke.pair_args(inp), heads,
+                                (e // heads) ** -0.5, 17, 1.0)
+    assert (pair.LAUNCHES, pair.QUICK_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])
