@@ -1,124 +1,223 @@
-// Folded masked weight for exact element-wise weight dropout (sm_90a):
+// Folded masked weights for exact element-wise weight dropout (sm_90a),
+// every weight of a block call in one launch:
 //
-//   W' = bf16( W + where(keep(k, n, seed), (U V)[k, n] * inv, 0) )
+//   W'_i = bf16(W_i + where(keep(k, n, seed_i), (U_i V_i)[k, n] * inv, 0))
 //
 // with inv = s / (1 - rate) and keep the coordinate hash of wd_hash.cuh.
 // W (K, N), U (K, r), V (r, N) bf16; the rank-r dot is summed in fp32 from
-// the bf16 factors and W + delta is rounded once, as the TPU kernel's
-// _masked_delta / _build_wd_kernel do.  Where the mask drops an element
-// the output is W itself (W + 0).
+// the bf16 factors in the order j = 0 .. r - 1 and W + delta is rounded
+// once, as the TPU kernel's _masked_delta / _build_wd_kernel do.  Where
+// the mask drops an element the output is W itself (W + 0).
 //
 // Replaces cara_tpu/ops/pallas/cp_dense.py _build_wd_weight (body
-// _build_wd_kernel, mask hash_keep).  The TPU kernel folds one
-// (512, 1024) tile per grid step; here a block folds 32 rows x 256
-// columns: its V columns (bf16) and U rows (fp32) sit in shared memory,
-// each thread owns 4 rows x 8 contiguous columns (one 16-byte load of W
-// and one store of W' per row).  At ViT-B (K x N up to 768 x 3072, r = 8)
-// the call moves ~9.4 MB and does ~38 MFMA: it is bound by the bytes of W
-// and W' (~3 us at 3.35 TB/s), and the hash costs a few integer ops per
-// element.  It runs once per site per step; the forward and backward
-// GEMMs then read W' like any dense weight.
+// _build_wd_kernel, mask hash_keep), which folds one weight a call, a
+// (512, 1024) tile a grid step.  On the H100 a fold moves the bytes of W
+// and W' (a ViT-B attention pair, 768 x 2304 + 768 x 768, 9.4 MB: 2.8 us
+// at 3.35 TB/s; ViT-H's attention pair 26.2 MB, 7.8 us, its MLP pair
+// 52.4 MB, 15.6 us), and its arithmetic takes about as long: r FMA, the
+// hash's ~12 integer operations (the INT32 pipe issues at half the FP32
+// rate) and the conversions, ~30 instructions an element at r = 8.  A
+// launch a weight made the block call a string of host launches.  So:
+//   - one launch folds up to four weights (a block call's two): the grid
+//     is one flat list of tiles over all of them, each block finds its
+//     weight from the descriptors' first tiles;
+//   - the grid is persistent, four blocks an SM, each walking the flat
+//     list of 16 x 256 tiles; a thread owns 2 rows x 8 columns of a tile
+//     and issues its 16-byte loads of the next tile's W before it
+//     computes this tile's rank product and hash, so that the memory
+//     stream runs under the arithmetic; V's 16-byte rows and U's
+//     elements come through L1 (the 32 lanes of a warp share its rows),
+//     no shared memory and no barrier;
+//   - the smallest pair (ViT-B's attention weights) is 576 tiles, so
+//     every block has work.
+// An element's arithmetic does not depend on the tiling, so neither does
+// the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "wd_hash.cuh"
 
 namespace {
 
-constexpr int kRows = 32;      // rows per block
-constexpr int kCols = 256;     // columns per block
-constexpr int kThreads = 256;  // 32 column groups of 8 x 8 row groups of 4
+constexpr int kRT = 2;         // rows a thread
+constexpr int kRows = 8 * kRT;  // rows a tile
+constexpr int kCols = 256;     // columns a tile
+constexpr int kThreads = 256;  // 32 column groups of 8 x 8 row groups
+constexpr int kBlocksPerSM = 4;
 constexpr int kRMax = 64;
+constexpr int kMaxFolds = 4;
 
-__global__ void __launch_bounds__(kThreads)
-wd_fold_kernel(const __nv_bfloat16* __restrict__ w,
-               const __nv_bfloat16* __restrict__ u,
-               const __nv_bfloat16* __restrict__ v,
-               const int* __restrict__ seed, __nv_bfloat16* __restrict__ out,
-               int K, int N, int r, float inv, uint32_t thr) {
-  __shared__ __align__(16) __nv_bfloat16 vs[kRMax][kCols];
-  __shared__ float us[kRows][kRMax];
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.y * kRows;
-  const int n0 = blockIdx.x * kCols;
-  // V rows j < r, columns n0 .. n0+255 (zero past N; N % 8 == 0).
-  for (int idx = tid; idx < r * (kCols / 8); idx += kThreads) {
-    const int j = idx / (kCols / 8);
-    const int c = (idx % (kCols / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (n0 + c < N)
-      val = *reinterpret_cast<const uint4*>(v + (size_t)j * N + n0 + c);
-    *reinterpret_cast<uint4*>(&vs[j][c]) = val;
-  }
-  for (int idx = tid; idx < kRows * r; idx += kThreads) {
-    const int row = idx / r;
-    const int j = idx % r;
-    us[row][j] = k0 + row < K
-                     ? __bfloat162float(u[(size_t)(k0 + row) * r + j])
-                     : 0.f;
-  }
-  __syncthreads();
+struct Fold {
+  const __nv_bfloat16* w;
+  const __nv_bfloat16* u;
+  const __nv_bfloat16* v;
+  const int* seed;
+  __nv_bfloat16* out;
+  int K, N, r;
+  int tiles_n;  // column tiles
+  int first;    // its first tile in the flat list
+};
 
-  const int cg = tid % (kCols / 8);  // column group: 8 columns
-  const int rg = tid / (kCols / 8);  // row group: 4 rows
-  const int c0 = cg * 8;
-  float acc[4][8];
+struct Folds {
+  Fold f[kMaxFolds];
+  int count;
+  float inv;
+  uint32_t thr;
+};
+
+// A thread's place in a tile: its fold, rows k0 .. k0 + rows - 1 and
+// columns n .. n + 7 (rows <= 0: nothing in this tile).
+struct Pos {
+  int fi, k0, n, rows;
+};
+
+__device__ __forceinline__ Pos locate(const Folds& fs, int t, int tid) {
+  Pos p;
+  p.fi = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 1; j < kMaxFolds; ++j)
+    if (j < fs.count && t >= fs.f[j].first) p.fi = j;
+  const Fold& f = fs.f[p.fi];
+  const int lt = t - f.first;
+  p.k0 = (lt / f.tiles_n) * kRows + (tid / (kCols / 8)) * kRT;
+  p.n = (lt % f.tiles_n) * kCols + (tid % (kCols / 8)) * 8;
+  p.rows = p.n < f.N ? min(kRT, f.K - p.k0) : 0;
+  return p;
+}
+
+// W's rows of a tile, 16 bytes each, read once (evict first).
+__device__ __forceinline__ void load_w(const Folds& fs, const Pos& p,
+                                       uint4 (&w)[kRT]) {
+  const Fold& f = fs.f[p.fi];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i)
+    if (i < p.rows)
+      w[i] = __ldcs(reinterpret_cast<const uint4*>(
+          f.w + (size_t)(p.k0 + i) * f.N + p.n));
+}
+
+// The rank product, the mask and W + delta for a tile whose W is in `w`.
+__device__ __forceinline__ void fold_tile(const Folds& fs, const Pos& p,
+                                          const uint4 (&w)[kRT]) {
+  const Fold& f = fs.f[p.fi];
+  float acc[kRT][8];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  for (int j = 0; j < r; ++j) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(&vs[j][c0]);
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  for (int j = 0; j < f.r; ++j) {
+    const uint4 vraw =
+        __ldg(reinterpret_cast<const uint4*>(f.v + (size_t)j * f.N + p.n));
+    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vraw);
     float vv[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) vv[c] = __bfloat162float(ve[c]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float uk = us[rg * 4 + i][j];
+    for (int i = 0; i < kRT; ++i) {
+      const float uk =
+          i < p.rows ? __bfloat162float(f.u[(size_t)(p.k0 + i) * f.r + j])
+                     : 0.f;
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(uk, vv[c], acc[i][c]);
     }
   }
-
-  const uint32_t sd = static_cast<uint32_t>(*seed);
-  const int n = n0 + c0;
-  if (n >= N) return;
+  const uint32_t sd = static_cast<uint32_t>(__ldg(f.seed));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + rg * 4 + i;
-    if (k >= K) break;
-    const size_t off = (size_t)k * N + n;
-    const uint4 wraw = *reinterpret_cast<const uint4*>(w + off);
-    const __nv_bfloat16* we = reinterpret_cast<const __nv_bfloat16*>(&wraw);
+  for (int i = 0; i < kRT; ++i) {
+    if (i >= p.rows) break;
+    const int k = p.k0 + i;
+    const __nv_bfloat16* we = reinterpret_cast<const __nv_bfloat16*>(&w[i]);
     uint4 packed;
     __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(&packed);
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float d = wd_keep(k, n + c, sd, thr) ? acc[i][c] * inv : 0.f;
+      const float d =
+          wd_keep(k, p.n + c, sd, fs.thr) ? acc[i][c] * fs.inv : 0.f;
       pe[c] = __float2bfloat16(__bfloat162float(we[c]) + d);
     }
-    *reinterpret_cast<uint4*>(out + off) = packed;
+    *reinterpret_cast<uint4*>(f.out + (size_t)k * f.N + p.n) = packed;
   }
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ...; the next tile's
+// W loads are issued before this tile's rank product and hash, so the
+// memory stream does not stop while a block computes.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+wd_fold_kernel(const __grid_constant__ Folds fs, int tiles) {
+  const int tid = threadIdx.x;
+  int t = blockIdx.x;
+  Pos cur = locate(fs, t, tid);
+  uint4 w[kRT];
+  load_w(fs, cur, w);
+  while (true) {
+    const int tn = t + gridDim.x;
+    Pos nxt;
+    uint4 wn[kRT];
+    if (tn < tiles) {
+      nxt = locate(fs, tn, tid);
+      load_w(fs, nxt, wn);
+    }
+    if (cur.rows > 0) fold_tile(fs, cur, w);
+    if (tn >= tiles) break;
+    t = tn;
+    cur = nxt;
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) w[i] = wn[i];
+  }
+}
+
+// The card's SM count (cached; one device per process).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
 }
 
 }  // namespace
 
-// W (K, N), U (K, r), V (r, N) bf16, seed one int32 on the device ->
-// out (K, N) bf16.  Needs N % 8 == 0, 1 <= r <= 64 and 16-byte aligned
-// pointers (the wrapper checks).  Returns cudaGetLastError().
-extern "C" int cara_wd_fold(const void* w, const void* u, const void* v,
-                            const void* seed, void* out, int K, int N, int r,
-                            float inv, unsigned thr, void* stream_ptr) {
+// `count` (1..4) folds in one launch: desc holds 8 values a fold, the
+// device addresses of W (K, N), U (K, r), V (r, N) (bf16), the seed (one
+// int32) and the output W' (K, N) (bf16), then K, N and r.  inv = s / (1 -
+// rate), thr the keep threshold.  Needs N % 8 == 0, 1 <= r <= 64 and
+// 16-byte aligned W, V and W' (the wrapper checks).  Returns
+// cudaGetLastError().
+extern "C" int cara_wd_fold(int count, const long long* desc, float inv,
+                            unsigned thr, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (r < 1 || r > kRMax || N % 8) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + kCols - 1) / kCols, (K + kRows - 1) / kRows);
-  wd_fold_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(u),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seed),
-      static_cast<__nv_bfloat16*>(out), K, N, r, inv, thr);
+  if (count < 1 || count > kMaxFolds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Folds fs = {};
+  int tiles = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* d = desc + 8 * i;
+    Fold& f = fs.f[i];
+    f.w = reinterpret_cast<const __nv_bfloat16*>(d[0]);
+    f.u = reinterpret_cast<const __nv_bfloat16*>(d[1]);
+    f.v = reinterpret_cast<const __nv_bfloat16*>(d[2]);
+    f.seed = reinterpret_cast<const int*>(d[3]);
+    f.out = reinterpret_cast<__nv_bfloat16*>(d[4]);
+    f.K = static_cast<int>(d[5]);
+    f.N = static_cast<int>(d[6]);
+    f.r = static_cast<int>(d[7]);
+    if (f.K < 1 || f.N < 8 || f.N % 8 || f.r < 1 || f.r > kRMax)
+      return static_cast<int>(cudaErrorInvalidValue);
+    f.tiles_n = (f.N + kCols - 1) / kCols;
+    f.first = tiles;
+    tiles += f.tiles_n * ((f.K + kRows - 1) / kRows);
+  }
+  fs.count = count;
+  fs.inv = inv;
+  fs.thr = thr;
+  const int grid = std::min(tiles, kBlocksPerSM * sm_count());
+  wd_fold_kernel<<<grid, kThreads, 0, stream>>>(fs, tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -136,9 +136,9 @@ def matk(x: torch.Tensor, kernel, impl: str = "auto") -> torch.Tensor:
     * ``{"q", "scale"}`` (w8): with ``CARA_INT8_PALLAS=1`` (read at each
       call, as the reference reads it), a CUDA ``x`` and a 2-D kernel
       whose dims are multiples of 128, the dequant-fused GEMM kernel
-      (TPU row 18, ``ops/cuda/int8_dense.py``) with a zero bias, or
-      its plain version for ``impl="plain"``; otherwise ``(x @ q) *
-      scale`` in ``x.dtype``."""
+      (TPU row 18, ``ops/cuda/int8_dense.py``) without a bias (the
+      reference's zero bias), or its plain version for
+      ``impl="plain"``; otherwise ``(x @ q) * scale`` in ``x.dtype``."""
     if isinstance(kernel, dict) and "qa" in kernel:
         wq, s = kernel["qa"], kernel["scale"]
         x32 = x.float()
@@ -153,8 +153,7 @@ def matk(x: torch.Tensor, kernel, impl: str = "auto") -> torch.Tensor:
         if (os.environ.get("CARA_INT8_PALLAS") == "1" and x.is_cuda
                 and wq.dim() == 2 and wq.shape[0] % mult == 0
                 and wq.shape[1] % mult == 0):
-            return int8_mod.int8_dense(x, wq, s.reshape(-1),
-                                       x.new_zeros((wq.shape[1],)),
+            return int8_mod.int8_dense(x, wq, s.reshape(-1), None,
                                        impl=impl)
         return (x @ wq.to(x.dtype)) * s.to(x.dtype)
     return x @ kernel

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "cara_blockwise_attention_bwd": [_P] * 7 + [_I] * 5 + [_F, _P],
     "cara_flash_attention": [_P] * 5 + [_S] + [_I] * 4 + [_F, _P],
     "cara_flash_attention_bwd": [_P] * 11 + [_S] + [_I] * 4 + [_F, _P],
-    "cara_wd_fold": [_P] * 5 + [_I] * 3 + [_F, _U, _P],
+    "cara_wd_fold": [_I, _S, _F, _U, _P],
     "cara_wd_factor_grads": [_P] * 8 + [_I] * 3 + [_F, _U, _P],
     "cara_rank_z": [_P] * 3 + [_I] * 3 + [_P],
     "cara_grad_gemm": [_I] * 3 + [_P] * 14 + [_I] * 7 + [_P],
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "cara_gate_colsum": [_P, _P, _I] + [_P] * 4 + [_I, _I, _P],
     "cara_ln_bwd_residual": [_P] * 5 + [_I, _I, _F, _P],
     "cara_colsum": [_P, _I, _P, _P, _I, _I, _P],
-    "cara_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
+    "cara_int8_dense": [_P] * 6 + [_I] * 6 + [_P],
     "cara_block_pair": [_P] * 20 + [_I] * 9 + [_F] * 3 + [_P],
 }
 

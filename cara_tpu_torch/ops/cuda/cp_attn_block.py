@@ -30,7 +30,8 @@ recomputed.  The launches are listed at :func:`_attn_block_bwd_cuda`.
 :func:`cp_attn_block_wd` is the training form with exact element-wise
 weight dropout (``cp_attn_block_wd``, ``_ab_fwd_wd`` / ``_ab_bwd_wd_rule``
 and ``_attn_block_bwd_wd_kernel``): the forward folds both masked deltas
-into the weights (``ops/cuda/wd_fold.py``) and runs the three launches
+into the weights in one launch (``ops/cuda/wd_fold.py``
+``build_wd_weights``) and runs the three launches
 above with rank 0; the backward composes ``csrc/block_rows.cu``,
 ``csrc/grad_gemm.cu``, ``csrc/qkv_attention_bwd.cu`` and
 ``csrc/wd_factor_grads.cu``.  In the save-qkv mode (``CARA_ATTN_SAVE_QKV``,
@@ -408,10 +409,9 @@ class _AttnBlockWd(torch.autograd.Function):
                 ln_bias, dpm, seed1, seed2, heads, sm_scale, n_real, s,
                 rate, ln_eps, plain, save):
         global WD_LAUNCHES
-        fold = (wd_fold.build_wd_weight_plain if plain
-                else wd_fold.build_wd_weight)
-        wqp = fold(wq, u1, v1, seed1, s, rate)
-        wpp = fold(wp, u2, v2, seed2, s, rate)
+        fold = (wd_fold.build_wd_weights_plain if plain
+                else wd_fold.build_wd_weights)
+        wqp, wpp = fold([(wq, u1, v1, seed1), (wp, u2, v2, seed2)], s, rate)
         e = x.shape[-1]
         args = (x, wqp, bq, *wd_fold.zero_rank(x, e, wq.shape[1]), wpp,
                 bp, *wd_fold.zero_rank(x, e, e), cb2, ln_scale, ln_bias, dpm,

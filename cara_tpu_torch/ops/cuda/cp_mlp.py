@@ -36,7 +36,8 @@ batch 64 and 224 px.
 :func:`cp_mlp_block_wd` is the training form with exact element-wise
 weight dropout (``cp_mlp_block_wd``: ``_mlp_fwd_wd`` and
 ``_mlp_bwd_wd_rule`` / ``_mlp_bwd_wd_kernel``).  Its forward folds both
-masked deltas into the weights (``ops/cuda/wd_fold.py``) and runs the two
+masked deltas into the weights in one launch (``ops/cuda/wd_fold.py``
+``build_wd_weights``) and runs the two
 launches above with rank 0 (counted in :data:`LAUNCHES`: it is the same
 kernel, TPU row 9).  Its backward reads the saved pre-activation (or,
 with ``CARA_MLP_SAVE_PRE`` off, recomputes it in fp32) and composes
@@ -489,10 +490,9 @@ class _MlpBlockWd(torch.autograd.Function):
     def forward(ctx, x, w1, b1, u1, v1, cb1, w2, b2, u2, v2, cb2, ln_scale,
                 ln_bias, dpm, seed1, seed2, s, rate, act, ln_eps, plain,
                 save):
-        fold = (wd_fold.build_wd_weight_plain if plain
-                else wd_fold.build_wd_weight)
-        w1p = fold(w1, u1, v1, seed1, s, rate)
-        w2p = fold(w2, u2, v2, seed2, s, rate)
+        fold = (wd_fold.build_wd_weights_plain if plain
+                else wd_fold.build_wd_weights)
+        w1p, w2p = fold([(w1, u1, v1, seed1), (w2, u2, v2, seed2)], s, rate)
         e, hid = w1.shape
         args = (x, w1p, b1, *wd_fold.zero_rank(x, e, hid), cb1, w2p, b2,
                 *wd_fold.zero_rank(x, hid, w2.shape[1]), cb2, ln_scale,

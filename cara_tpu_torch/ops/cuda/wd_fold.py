@@ -7,9 +7,15 @@ The mask is the TPU package's ``hash_keep``
 coordinates and the int32 seed reaches ``rate * 2**32``.  It is never
 stored: the forward fold and the backward finish regenerate it.
 
-* :func:`build_wd_weight` replaces ``_build_wd_weight`` (kernel
+* :func:`build_wd_weights` replaces ``_build_wd_weight`` (kernel
   ``csrc/wd_fold.cu``): ``W' = W + s/(1-p) * (U V) (.) keep`` rounded
-  once, so the block kernels then run on a dense weight.
+  once, so the block kernels then run on a dense weight.  The TPU kernel
+  folds one weight a call; on the H100 a fold takes microseconds (the
+  bytes of W and W', and about as long of hash and rank arithmetic), so
+  a launch a weight was mostly host cost, and one launch here folds
+  every weight of a block call (up to four) over one persistent grid.
+  :func:`build_wd_weight` is its one-weight call (the split element
+  sites, ``ops/cuda/cp_dense.py``).
 * :func:`masked_factor_grads_cuda` is the finish ``masked_site_grads``
   (kernel ``csrc/wd_factor_grads.cu``): ``dtc = bf16(dT (.) keep *
   s/(1-p))``, ``dU = dtc V^T``, ``dV = U^T dtc``; the block backward
@@ -32,12 +38,17 @@ launches the kernel (or raises); a CPU tensor takes the plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cara_tpu_torch.ops.cuda import _build, _bwd
 
-#: Number of kernel launches made by :func:`build_wd_weight`.
+#: Number of kernel launches made by :func:`build_wd_weights` (one a
+#: call, whatever its number of weights).
 LAUNCHES = 0
+#: The most weights one launch folds.
+MAX_FOLDS = 4
 #: Launch pairs (dT product, masked finish) of :func:`cp_wd_factor_grads`.
 FACTOR_LAUNCHES = 0
 
@@ -106,34 +117,64 @@ def _check_rank(name, r):
         raise ValueError(f"{name}: the kernel takes ranks 1..64, got {r}")
 
 
-def build_wd_weight(w, u, v, seed, s: float, rate: float):
-    """Folded masked weight ``W'`` (K, N) in ``w.dtype``: W (K, N),
-    U (K, r), V (r, N); ``s`` the delta scale, ``rate`` the drop rate."""
+def build_wd_weights_plain(sites, s: float, rate: float):
+    """Plain twin of :func:`build_wd_weights`: each site's
+    :func:`build_wd_weight_plain`."""
+    return [build_wd_weight_plain(w, u, v, seed, s, rate)
+            for w, u, v, seed in sites]
+
+
+def build_wd_weights(sites, s: float, rate: float):
+    """Folded masked weights ``[W'_i]`` (K_i, N_i) of ``sites``, a list of
+    (W (K, N), U (K, r), V (r, N), seed) sharing the delta scale ``s`` and
+    the drop rate ``rate``: one launch on the card (at most
+    ``MAX_FOLDS`` sites)."""
     global LAUNCHES
-    k, n = w.shape
-    r = u.shape[1]
-    if u.shape != (k, r) or v.shape != (r, n):
-        raise ValueError(f"build_wd_weight shapes: w {tuple(w.shape)} u "
-                         f"{tuple(u.shape)} v {tuple(v.shape)}")
+    if not 1 <= len(sites) <= MAX_FOLDS:
+        raise ValueError(f"build_wd_weights folds 1..{MAX_FOLDS} weights "
+                         f"a call, got {len(sites)}")
+    for w, u, v, _ in sites:
+        k, n = w.shape
+        r = u.shape[1]
+        if u.shape != (k, r) or v.shape != (r, n):
+            raise ValueError(f"build_wd_weight shapes: w {tuple(w.shape)} "
+                             f"u {tuple(u.shape)} v {tuple(v.shape)}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"drop rate must be in [0, 1), got {rate}")
-    if w.device.type == "cpu":
-        return build_wd_weight_plain(w, u, v, seed, s, rate)
-    if w.device.type != "cuda":
-        raise ValueError(f"no kernel for device {w.device}")
-    _build.check_cuda_inputs("wd_fold", w.device, w=w, u=u, v=v)
-    _check_seed("wd_fold", seed, w.device)
-    _check_rank("wd_fold", r)
-    if n % 8:
-        raise ValueError(f"wd_fold needs N % 8 == 0, got N={n}")
-    out = torch.empty_like(w)
+    dev = sites[0][0].device
+    if any(t.device != dev for site in sites for t in site[:3]):
+        raise ValueError("build_wd_weights: the sites lie on different "
+                         "devices")
+    if dev.type == "cpu":
+        return build_wd_weights_plain(sites, s, rate)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    outs, desc = [], []
+    for w, u, v, seed in sites:
+        k, n = w.shape
+        _build.check_cuda_inputs("wd_fold", dev, w=w, u=u, v=v)
+        _check_seed("wd_fold", seed, dev)
+        _check_rank("wd_fold", u.shape[1])
+        if n % 8:
+            raise ValueError(f"wd_fold needs N % 8 == 0, got N={n}")
+        out = torch.empty_like(w)
+        outs.append(out)
+        desc += [w.data_ptr(), u.data_ptr(), v.data_ptr(), seed.data_ptr(),
+                 out.data_ptr(), k, n, u.shape[1]]
     code = _build.lib().cara_wd_fold(
-        w.data_ptr(), u.data_ptr(), v.data_ptr(), seed.data_ptr(),
-        out.data_ptr(), k, n, r, float(s / (1.0 - rate)),
-        keep_threshold(rate), _build.stream_ptr(w.device))
+        len(sites), (ctypes.c_longlong * len(desc))(*desc),
+        float(s / (1.0 - rate)), keep_threshold(rate),
+        _build.stream_ptr(dev))
     _build.check(code, "wd_fold")
     LAUNCHES += 1
-    return out
+    return outs
+
+
+def build_wd_weight(w, u, v, seed, s: float, rate: float):
+    """Folded masked weight ``W'`` (K, N) in ``w.dtype``: W (K, N),
+    U (K, r), V (r, N); ``s`` the delta scale, ``rate`` the drop rate
+    (:func:`build_wd_weights` of one site)."""
+    return build_wd_weights([(w, u, v, seed)], s, rate)[0]
 
 
 def masked_factor_grads_plain(dt, u, v, seed, s: float, rate: float,

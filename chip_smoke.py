@@ -99,8 +99,12 @@ fatal on failure:
 11. quantized serving and the whole-block eval kernel (run after 4, on
    its checkpoint): the kernel entries of TPU row 18 (``int8_dense``, the
    dequant-fused int8 GEMM) at M = 12608 and 197 for the qkv (768 ->
-   2304) and fc2 (3072 -> 768) sites, with ``torch._weight_int8pack_mm``
-   as the yardstick, and of row 19 (``block_pair_fwd``) at phase 3's
+   2304) and fc2 (3072 -> 768) sites and at M = 16448 and 257 for
+   ViT-H/14's (1280 -> 3840, 5120 -> 1280), with
+   ``torch._weight_int8pack_mm`` as the yardstick (``torch.matmul`` on
+   the codes dequantized in advance printed beside it), of row 14 at
+   ViT-H/14's widths (a layer's four folds in two grouped launches;
+   ViT-B's are phase 3's), and of row 19 (``block_pair_fwd``) at phase 3's
    shapes, also against the port's split halves (rows 5 and 9) on the
    card, whose time is its yardstick (run with phase 3's); the
    checkpoint served through ``Predictor.from_checkpoint_auto`` merged
@@ -177,10 +181,13 @@ fatal on failure:
    16 and 32, ``narrow_flash_phase``, run with 8), and of row 19 at B 64,
    N 257, E 1280, 16 heads of 80, hidden 5120 (``PAIR_FORMS``, also
    against the split halves), determinism of rows 2, 16 and 17 at Dh 80
-   (run with 12); then ViT-H served merged and unmerged at batch 64, and
+   (run with 12); then ViT-H served merged and unmerged at batch 64,
    unmerged with every block through row 19 (logits within 5 % of the
-   default route's), the element and rank routes (gradient check at
-   batch 16, 10 timed steps at batch 64, peak memory), full fine-tuning
+   default route's), and merged weight-only int8 with and without
+   ``CARA_INT8_PALLAS=1`` (row 18 128 times a forward, ``QUANT_BOUNDS``
+   against the bf16 Predictor, img/s), the element and rank routes
+   (gradient check at batch 16, 10 timed steps at batch 64, peak
+   memory), full fine-tuning
    through row 17 (gradient check of every leaf at batch 8, 10 steps),
    two rank steps under ``CARA_ATTN_MEGA=1``, the rank route under
    ``CARA_ATTN_MEGA=0 CARA_ATTNPROJ=1`` (rows 3 and 4: the gradient check
@@ -190,7 +197,7 @@ fatal on failure:
    64 within 5 % of the default route's logits), at 336 px (577 tokens:
    row 16) served at batch 16 with a rank gradient check at batch 4,
    four steps and a full step, and ``cli.vit_cp --model
-   vit_huge_patch14_224_in21k`` in a child.
+   vit_huge_patch14_224_in21k`` in a child (at full width, 8 layers).
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -273,6 +280,10 @@ KERNELS = {
         mlp_mod, "LAUNCHES", "cara_tpu_torch/csrc/cp_site.cu",
         "cara_tpu/ops/pallas/cp_mlp.py:253"),
     "build_wd_weight": (
+        wd_fold, "LAUNCHES", "cara_tpu_torch/csrc/wd_fold.cu",
+        "cara_tpu/ops/pallas/cp_dense.py:565"),
+    # Row 14 at ViT-H/14's widths (launches: its element training).
+    "build_wd_weight_huge": (
         wd_fold, "LAUNCHES", "cara_tpu_torch/csrc/wd_fold.cu",
         "cara_tpu/ops/pallas/cp_dense.py:565"),
     "cp_attn_block_wd": (
@@ -389,21 +400,15 @@ KERNELS = {
         attn_mod, "BWD_LAUNCHES", "cara_tpu_torch/csrc/qkv_attention_bwd.cu",
         "cara_tpu/ops/pallas/cp_attn_block.py:356"),
     # Row 18, the dequant-fused int8 GEMM of quantized serving with
-    # CARA_INT8_PALLAS=1, at the qkv site (768 -> 2304) and the fc2 site
-    # (3072 -> 768), batch 64 and batch 1 (launches: the quantized
-    # serving phase, every site of every layer).
-    "int8_dense": (
+    # CARA_INT8_PALLAS=1, at the qkv site and the fc2 site, batch 64 and
+    # batch 1 (the split contraction), of ViT-B (768 -> 2304, 3072 ->
+    # 768) and ViT-H/14 (1280 -> 3840, 5120 -> 1280) (launches: each
+    # model's quantized serving, every site of every layer).
+    **{"int8_dense" + suffix: (
         int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
-        "cara_tpu/ops/pallas/int8_dense.py:64"),
-    "int8_dense_m197": (
-        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
-        "cara_tpu/ops/pallas/int8_dense.py:64"),
-    "int8_dense_fc2": (
-        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
-        "cara_tpu/ops/pallas/int8_dense.py:64"),
-    "int8_dense_fc2_m197": (
-        int8_mod, "LAUNCHES", "cara_tpu_torch/csrc/int8_dense.cu",
-        "cara_tpu/ops/pallas/int8_dense.py:64"),
+        "cara_tpu/ops/pallas/int8_dense.py:64")
+       for suffix in ("", "_m197", "_fc2", "_fc2_m197", "_huge",
+                      "_huge_m257", "_huge_fc2", "_huge_fc2_m257")},
     # Row 19, the whole-block eval kernel (launches: the unmerged ViT-B
     # forward with every block through it).
     "block_pair_fwd": (
@@ -560,6 +565,9 @@ ADAPTER_KERNELS = ("build_wd_weight", "cp_attn_block", "cp_mlp_block",
                    "cp_mlp_block_wd_bwd", "cp_dense", "cp_dense_dx",
                    "cp_mlp_block_bwd", "cp_dense_wd", "cp_dense_wd_bwd",
                    "cp_wd_factor_grads", *SAVED_FORMS.values())
+# Timed calls of a yardstick (default 20): torch._weight_int8pack_mm is a
+# matrix-vector kernel, 48-234 ms a call at row 18's batch-64 shapes.
+LIBRARY_ITERS = {"int8_dense": 5}
 # |kernel - fp32 plain| <= ATOL + RTOL * |ref|, elementwise.  The kernels
 # round their intermediates (qkv, P, z, h; in the backward do, dqkv, ds,
 # dpre) and their outputs to bf16, the reference does not; bf16 keeps 8
@@ -871,12 +879,53 @@ DENSE_DIFF = ("x", "u1", "v1", "o", "u2", "v2", "cb2")
 FOLD_SITES = ("qkv", "proj", "fc1", "fc2")
 
 
+# The sites a block call folds in one launch: the attention block's
+# pair, the MLP block's pair.
+FOLD_PAIRS = (("qkv", "proj"), ("fc1", "fc2"))
+
+
 def _fold_sites(inp):
     a, m, sd = inp["attn"], inp["mlp"], inp["seeds"]
     return {"qkv": (a["wq"], a["u1"], a["v1"], sd[0]),
             "proj": (a["wp"], a["u2"], a["v2"], sd[1]),
             "fc1": (m["w1"], m["u1"], m["v1"], sd[2]),
             "fc2": (m["w2"], m["u2"], m["v2"], sd[3])}
+
+
+def fold_calls(folds, rate, s=1.0):
+    """Row 14's entry on a layer's four sites: (the grouped fold, two
+    launches as the block calls make them; its plain twin; fp32 plain),
+    each site -> W'."""
+    def pairs(fold, dtype=None):
+        out = {}
+        for pair in FOLD_PAIRS:
+            sites = [folds[k] for k in pair]
+            if dtype is not None:
+                sites = [(w.to(dtype), u.to(dtype), v.to(dtype), sd)
+                         for w, u, v, sd in sites]
+            out.update(zip(pair, fold(sites, s, rate)))
+        return out
+
+    return (lambda: pairs(wd_fold.build_wd_weights),
+            lambda: pairs(wd_fold.build_wd_weights_plain),
+            lambda: pairs(wd_fold.build_wd_weights_plain, torch.float32))
+
+
+def fold_kernel_phase(dev, timed: bool = True, name="build_wd_weight_huge",
+                      e=1280, hidden=5120, r=8) -> dict:
+    """Row 14's entry at other widths (by default ViT-H/14's: 1280 ->
+    3840, 1280 -> 1280, 1280 -> 5120, 5120 -> 1280), the layer's four
+    folds in two grouped launches, against the fp32 plain fold."""
+    inp = kernel_inputs(dev, b=1, n=17, e=e, heads=16, hidden=hidden, r=r,
+                        seed=e)
+    print(f"[kernel] {name} (row 14) at E {e}, hidden {hidden}, rank {r}:",
+          flush=True)
+    res = check_entries(
+        dev, inp, {"build_wd_weight": fold_calls(_fold_sites(inp),
+                                                 DROP_RATE)},
+        timed, work={"build_wd_weight": kernel_work(inp)["build_wd_weight"]},
+        library={})
+    return {name: res["build_wd_weight"]}
 
 
 @contextlib.contextmanager
@@ -966,14 +1015,7 @@ def kernel_calls(inp):
                                                  n),
             lambda: attn_mod.cp_attn_block_plain(*(a32[k] for k in an), h,
                                                  sm, n)),
-        "build_wd_weight": (
-            lambda: {k: wd_fold.build_wd_weight(w, u, v, sd, 1.0, rate)
-                     for k, (w, u, v, sd) in folds.items()},
-            lambda: {k: wd_fold.build_wd_weight_plain(w, u, v, sd, 1.0, rate)
-                     for k, (w, u, v, sd) in folds.items()},
-            lambda: {k: wd_fold.build_wd_weight_plain(
-                w.float(), u.float(), v.float(), sd, 1.0, rate)
-                for k, (w, u, v, sd) in folds.items()}),
+        "build_wd_weight": fold_calls(folds, rate),
         "cp_attn_block_wd": (
             lambda: attn_wd(*(aw[k] for k in an)),
             lambda: attn_mod.cp_attn_block_wd_plain(
@@ -1341,9 +1383,13 @@ def proj_kernel_phase(dev, timed: bool = True, b: int = 64,
 
 
 # Row 18's entries: name suffix -> (M, K, N), the qkv and fc2 sites of
-# ViT-B at batch 64 (M = 64 * 197) and at batch 1.
+# ViT-B at batch 64 (M = 64 * 197) and at batch 1, and of ViT-H/14 (M =
+# 64 * 257 and 257).  At batch 1 the wrapper splits the contraction.
 INT8_SHAPES = {"": (12608, 768, 2304), "_m197": (197, 768, 2304),
-               "_fc2": (12608, 3072, 768), "_fc2_m197": (197, 3072, 768)}
+               "_fc2": (12608, 3072, 768), "_fc2_m197": (197, 3072, 768),
+               "_huge": (16448, 1280, 3840), "_huge_m257": (257, 1280, 3840),
+               "_huge_fc2": (16448, 5120, 1280),
+               "_huge_fc2_m257": (257, 5120, 1280)}
 
 
 def int8_inputs(dev, m, k, n, seed=0) -> dict:
@@ -1365,7 +1411,9 @@ def int8_kernel_phase(dev, timed: bool = True, shapes=None) -> dict:
     """Row 18's entries at ``shapes`` (``INT8_SHAPES``): the kernel
     against its fp32 plain version; its yardstick is
     ``torch._weight_int8pack_mm`` on the same x, codes and scale (no
-    bias), a PyTorch call the port never makes."""
+    bias), a PyTorch call the port never makes.  A second yardstick is
+    printed: ``torch.matmul`` on the codes dequantized to bf16 in
+    advance, which reads twice the weight's bytes."""
     out = {}
     for suffix, (m, k, n) in (shapes or INT8_SHAPES).items():
         t = int8_inputs(dev, m, k, n)
@@ -1386,6 +1434,16 @@ def int8_kernel_phase(dev, timed: bool = True, shapes=None) -> dict:
                                         *args32))},
             timed, work=work, library=library)
         out["int8_dense" + suffix] = res["int8_dense"]
+        bn, splits = int8_mod.plan(m, k, n, int8_mod.sm_count(dev))
+        print(f"[kernel] int8_dense{suffix}: blocks {bn} wide, the "
+              f"contraction split {splits} ways", flush=True)
+        if timed:
+            wd = t["wq"].to(torch.bfloat16)
+            ms = median_ms(lambda: torch.matmul(t["x"], wd))
+            print(f"[kernel] int8_dense{suffix}: torch.matmul on the codes "
+                  f"dequantized in advance (reads twice the weight's "
+                  f"bytes, no scale or bias) {ms:.4f} ms", flush=True)
+            del wd
     return out
 
 
@@ -2012,7 +2070,7 @@ def _check_outputs(name, out, ref) -> float:
         require(bool(torch.isfinite(o).all()), f"{name}/{key}: non-finite")
         err = (o - r).abs()
         max_err = max(max_err, err.max().item())
-        if key in ELEMENTWISE_KEYS or name == "build_wd_weight":
+        if key in ELEMENTWISE_KEYS or name.startswith("build_wd_weight"):
             atol, rtol = KERNEL_TOL[name]
             excess = (err - (atol + rtol * r.abs())).max().item()
             print(f"[kernel] {name}/{key}: max|err| {err.max().item():.3e} "
@@ -2243,7 +2301,8 @@ def check_entries(dev, inp, calls, timed: bool, work=None,
             ms = median_ms(kern)
             plain_ms = median_ms(plain)
             if name in library:
-                lib_ms = median_ms(library[name])
+                lib_ms = median_ms(library[name],
+                                   iters=LIBRARY_ITERS.get(name, 20))
             print(f"[kernel] {name}: median {ms:.4f} ms, plain "
                   f"(bf16 inputs) {plain_ms:.4f} ms over 20 runs; bound "
                   f"{bound_ms:.4f} ms by {bound_by} ({work[name][0]:.4e} "
@@ -2707,6 +2766,10 @@ def training_phase(dev, timed=True, steps=30, plain_steps=3, batch=64,
               "allocated", flush=True)
     print(f"{tag} loss over {steps} steps on one batch: "
           + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    if method == "cara" and impl == "element":
+        print(f"{tag} row 14's fold launches a step: "
+              f"{wd_fold.LAUNCHES / steps:g} (one a block call's pair; "
+              f"{cfg.depth} layers)", flush=True)
     require(all(np.isfinite(losses)), "non-finite training loss")
     if falls == "halves":
         half = len(losses) // 2
@@ -2959,19 +3022,23 @@ def quant_logit_check(tag, got, ref, mode) -> None:
     require(agree >= ARGMAX_AGREE, f"{tag}: argmax agreement {agree}")
 
 
+QUANT_MODES = (("int8", True), ("w8a8", True), ("int8", False))
+
+
 def quant_serving_phase(dev, ckpt, model, images, batch=64,
-                        timed=True) -> int:
-    """Phase 4's checkpoint served quantized through
-    ``Predictor.from_checkpoint_auto``: merged ``quantize="int8"`` and
-    ``"w8a8"``, unmerged ``"int8"``, each held against the unquantized
-    bf16 Predictor of the same merge on ``batch`` images
-    (``QUANT_BOUNDS``).  Every bucket's forward is run with
-    ``CARA_INT8_PALLAS`` unset and set: row 18 launches 4 x depth times a
-    forward with it on the weight-only modes, and never without it or on
-    w8a8.  Returns row 18's launches."""
+                        timed=True, modes=QUANT_MODES) -> int:
+    """A checkpoint served quantized through
+    ``Predictor.from_checkpoint_auto``, each of ``modes`` (quantize mode,
+    merged) (by default merged ``quantize="int8"`` and ``"w8a8"``,
+    unmerged ``"int8"``) held against the unquantized bf16 Predictor of
+    the same merge on ``batch`` images (``QUANT_BOUNDS``).  Every
+    bucket's forward is run with ``CARA_INT8_PALLAS`` unset and set: row
+    18 launches 4 x depth times a forward with it on the weight-only
+    modes, and never without it or on w8a8.  Returns row 18's
+    launches."""
     x = images[:batch]
     refs = {}
-    for merge in (True, False):
+    for merge in sorted({merge for _, merge in modes}, reverse=True):
         base = Predictor.from_checkpoint_auto(
             ckpt, model, batch_size=batch, merge=merge, device=dev,
             dtype=torch.bfloat16)
@@ -2981,7 +3048,7 @@ def quant_serving_phase(dev, ckpt, model, images, batch=64,
                   f"{host_timing(base, images, batch)}", flush=True)
         del base
     launches = 0
-    for mode, merge in (("int8", True), ("w8a8", True), ("int8", False)):
+    for mode, merge in modes:
         pred = Predictor.from_checkpoint_auto(
             ckpt, model, batch_size=batch, merge=merge, device=dev,
             dtype=torch.bfloat16, quantize=mode)
@@ -3572,7 +3639,7 @@ def attnproj_rank_steps(dev, setup, grad_batch, model=MODEL_HUGE, steps=4,
 
 def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
                long_size=336, long_batch=16, long_grad_batch=4,
-               overrides=None, timed=True) -> dict:
+               cli_depth=8, overrides=None, timed=True) -> dict:
     """ViT-H/14 (``MODEL_HUGE``) at full width and depth from seed 0 with a
     perturbed order-4 rank-8 CaRA adapter at scale 10, 10 classes, bf16,
     ``batch`` images (``overrides`` shrink it for a rehearsal on the
@@ -3582,7 +3649,10 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
        within ``LOGIT_RTOL`` of the fp32 plain forward): rows 1, 5 and 9
        launch; then unmerged with every block through row 19
        (:func:`pair_eval_check`: once a layer, logits within
-       ``LOGIT_RTOL`` of the default route's);
+       ``LOGIT_RTOL`` of the default route's); then merged weight-only
+       int8 (:func:`quant_serving_phase`: row 18 launches 4 x 32 times a
+       forward with ``CARA_INT8_PALLAS=1``, logits within
+       ``QUANT_BOUNDS`` of the bf16 Predictor's);
     2. the element and the rank route as :func:`training_phase` (the
        gradient check on ``grad_batch`` images, ``steps`` timed steps,
        peak memory; no CLI, no plain timing): the saved forms of rows 8,
@@ -3603,10 +3673,13 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
        full fine-tuning step on ``long_grad_batch`` images (row 17 at 577
        tokens);
     6. ``cli.vit_cp --model vit_huge_patch14_224_in21k --synthetic`` in a
-       child for four steps (two epochs of two batches).
+       child for four steps (two epochs of two batches), full width at
+       ``cli_depth`` layers (its checkpoint's write and the model's
+       set-up scale with depth).
 
     Returns the launches of the Dh-80 entries of ``DH_FORMS``,
-    ``PROJ_FORMS`` and ``PAIR_FORMS``."""
+    ``PROJ_FORMS`` and ``PAIR_FORMS``, and of the ViT-H entries of rows 14
+    and 18 (its element route's folds, its int8 serving)."""
     over = dict(overrides or {})
     cfg = get_model_config(MODEL_HUGE, num_classes=10, **over)
     print(f"[huge] {MODEL_HUGE}: depth {cfg.depth}, E {cfg.embed_dim}, "
@@ -3637,6 +3710,12 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
                     dev, ckpt, MODEL_HUGE, images, batch=serve_batch)
                 served["block_pair_fwd_huge"] = pair_eval_check(
                     dev, ckpt, MODEL_HUGE, images, batch=serve_batch)
+                free()
+                # weight-only int8, merged, through row 18 (128 launches
+                # a forward with CARA_INT8_PALLAS=1)
+                served["int8_dense_huge"] = quant_serving_phase(
+                    dev, ckpt, MODEL_HUGE, images, batch=serve_batch,
+                    timed=timed, modes=(("int8", True),))
         print(f"[{tag}] kernel launches on the serving path: "
               f"{ {k: v for k, v in served.items() if v} }", flush=True)
         free()
@@ -3647,7 +3726,7 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
         require(served[name] > 0, f"{name} never launched serving ViT-H")
     _add_launches(got, served, ("fused_qkv_attention",
                                 "fused_qkv_attention_proj",
-                                "block_pair_fwd_huge"))
+                                "block_pair_fwd_huge", "int8_dense_huge"))
 
     common = dict(model=MODEL_HUGE, batch=batch, steps=steps, plain_steps=0,
                   grad_batch=grad_batch, cli=False, overrides=over or None,
@@ -3655,6 +3734,7 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
     saved_idle = GEMM_RECOMPUTE + tuple(SAVED_FORMS)
     out = training_phase(dev, impl="element", path=HUGE_ELEMENT_KERNELS,
                          idle=saved_idle, **common)
+    got["build_wd_weight_huge"] = out["launches"]["build_wd_weight"]
     del out
     free()
     out = training_phase(dev, impl="rank", path=HUGE_RANK_KERNELS,
@@ -3733,11 +3813,11 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
                 "--eval-batch-size", "32", "--synthetic-size", "64",
                 "--log-every", "1", "--out-dir", tmp, "--backbone",
                 os.path.join(tmp, "none.npz"), "--device", str(dev)]
-        for key, value in over.items():
+        for key, value in dict({"depth": cli_depth}, **over).items():
             argv += ["--model-override", f"{key}={value}"]
         t0 = time.perf_counter()
         child = cli_child(argv, {})
-    print(f"[huge] cli.vit_cp child, 4 steps: "
+    print(f"[huge] cli.vit_cp child at depth {cli_depth}, 4 steps: "
           f"{time.perf_counter() - t0:.1f} s; kernel launches "
           f"{ {k: v for k, v in child.items() if v} }", flush=True)
     for name in HUGE_ELEMENT_KERNELS:
@@ -3751,6 +3831,9 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
                 for name, (base, _, _, e, heads) in PROJ_FORMS.items()
                 if e // heads == 80})
     out["block_pair_fwd_huge"] = got["block_pair_fwd_huge"]
+    out["build_wd_weight_huge"] = got["build_wd_weight_huge"]
+    out.update({"int8_dense" + suffix: got["int8_dense_huge"]
+                for suffix in INT8_SHAPES if suffix.startswith("_huge")})
     return out
 
 
@@ -4028,6 +4111,7 @@ def main(argv=None) -> int:
     results.update(gelu_kernel_phase(dev, kernel_inputs(dev, n=577)))
     results.update(attn_route_kernel_phase(dev, kernel_inputs(dev)))
     results.update(int8_kernel_phase(dev))
+    results.update(fold_kernel_phase(dev))
     results.update(pair_kernel_phase(dev, kernel_inputs(dev)))
     results.update(gemm_kernel_phase(dev, kernel_inputs(dev)))
     results.update(site_kernel_phase(dev, kernel_inputs(dev)))
@@ -4073,7 +4157,8 @@ def main(argv=None) -> int:
         launches["block_pair_fwd"] = pair_eval_check(dev, ckpt, MODEL,
                                                      images)
     for suffix in INT8_SHAPES:
-        launches["int8_dense" + suffix] = launches["int8_dense"]
+        if not suffix.startswith("_huge"):
+            launches["int8_dense" + suffix] = launches["int8_dense"]
 
     stamp("quantized serving and the whole-block eval")
     # The default routes run rows 8, 10 and 11 in the saved forms only.

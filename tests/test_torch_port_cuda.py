@@ -114,9 +114,10 @@ def test_kernels_match_plain(dev, shape):
         out = kern()
         torch.cuda.synchronize()
         chip_smoke._check_outputs(name, out, ref32())
-        # the fold entry folds the four sites of a layer, the dense
-        # entries run the qkv and the projection site
-        want = {"build_wd_weight": 4, "cp_dense": 2, "cp_dense_dx": 2}
+        # the fold entry folds the four sites of a layer in two grouped
+        # launches (a block call's pair each), the dense entries run the
+        # qkv and the projection site
+        want = {"build_wd_weight": 2, "cp_dense": 2, "cp_dense_dx": 2}
         assert _launches(name) == before + want.get(name, 1), name
 
 
@@ -217,16 +218,51 @@ def test_split_route_train_step_on_card_matches_plain(dev, over):
 
 @pytest.mark.parametrize("rate", [0.1, 0.3])
 def test_wd_fold_keep_pattern_is_exact(dev, rate):
+    """The keep pattern bit for bit, one weight a call and the three
+    weights in one grouped launch (each its own shape, seed and rank)."""
+    sites = []
     for (k, n, r), seed in zip([(64, 192, 5), (200, 72, 8), (768, 2304, 8)],
                                [-2 ** 31, 12345, 2 ** 31 - 1]):
         sd = torch.tensor([[seed]], dtype=torch.int32, device=dev)
-        out = wd_fold.build_wd_weight(
-            torch.zeros((k, n), device=dev, dtype=torch.bfloat16),
-            torch.ones((k, r), device=dev, dtype=torch.bfloat16),
-            torch.ones((r, n), device=dev, dtype=torch.bfloat16), sd, 1.0,
-            rate)
-        keep = wd_fold.hash_keep_plain(0, 0, k, n, sd, rate, dev)
-        assert torch.equal(out != 0, keep), (k, n, seed)
+        sites.append((torch.zeros((k, n), device=dev, dtype=torch.bfloat16),
+                      torch.ones((k, r), device=dev, dtype=torch.bfloat16),
+                      torch.ones((r, n), device=dev, dtype=torch.bfloat16),
+                      sd))
+    before = _launches("build_wd_weight")
+    grouped = wd_fold.build_wd_weights(sites, 1.0, rate)
+    assert _launches("build_wd_weight") == before + 1
+    for site, out_g in zip(sites, grouped):
+        k, n = site[0].shape
+        out = wd_fold.build_wd_weight(*site, 1.0, rate)
+        keep = wd_fold.hash_keep_plain(0, 0, k, n, site[3], rate, dev)
+        assert torch.equal(out != 0, keep), (k, n)
+        assert torch.equal(out_g, out), (k, n)
+
+
+def test_wd_fold_grouped_matches_plain(dev):
+    """A block call's two weights of different shapes and ranks in one
+    launch, each within the fold's tolerance of the fp32 plain fold and
+    bit for bit the one-weight call's."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def rnd(*shape, std):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(
+            torch.bfloat16)
+
+    sites = [(rnd(320, 1280, std=0.02), rnd(320, 8, std=0.2),
+              rnd(8, 1280, std=0.2),
+              torch.tensor([7], dtype=torch.int32, device=dev)),
+             (rnd(1280, 328, std=0.02), rnd(1280, 5, std=0.2),
+              rnd(5, 328, std=0.2),
+              torch.tensor([-9], dtype=torch.int32, device=dev))]
+    outs = wd_fold.build_wd_weights(sites, 1.5, 0.1)
+    torch.cuda.synchronize()
+    for (w, u, v, sd), out in zip(sites, outs):
+        _check("build_wd_weight", out, wd_fold.build_wd_weight_plain(
+            w.float(), u.float(), v.float(), sd, 1.5, 0.1))
+        assert torch.equal(out, wd_fold.build_wd_weight(w, u, v, sd, 1.5,
+                                                        0.1))
 
 
 def test_train_step_on_card_matches_plain(dev):
@@ -782,16 +818,20 @@ def test_switched_rank_train_step_on_card_matches_plain(dev, switch):
         assert _launches(name) > before[name], name
 
 
-# Row 18 at small ragged shapes: row counts that are not multiples of the
-# 128-row tile, one and three 128-column tiles, one and two 128-deep
-# k-steps.
+# Row 18: row counts that are not multiples of the 128-row tile, one and
+# three 128-column tiles, one and two 128-deep k-steps (these small grids
+# split the contraction); batch 1 (M 1, 16, 197, 257) at K 3072 and 5120,
+# where the contraction is split 8 to 16 ways; ViT-H's qkv width (1280 ->
+# 3840) at a ragged M whose grid takes 256-wide blocks whole, and a
+# 128-wide grid whole (N 384).
 INT8_SHAPES = [(197, 128, 128), (333, 256, 384), (333, 128, 384),
-               (197, 256, 128)]
+               (197, 256, 128), (1, 3072, 768), (16, 3072, 768),
+               (197, 3072, 768), (257, 5120, 1280), (1, 5120, 1280),
+               (2057, 1280, 3840), (4500, 256, 384)]
 
 
 @pytest.mark.parametrize("shape", INT8_SHAPES,
-                         ids=["m197_k128_n128", "m333_k256_n384",
-                              "m333_k128_n384", "m197_k256_n128"])
+                         ids=[f"m{m}_k{k}_n{n}" for m, k, n in INT8_SHAPES])
 def test_int8_dense_kernel_matches_plain(dev, shape):
     """Row 18 against its fp32 plain version, counted once per call, on
     2-D and (B, N, K) inputs."""
@@ -806,6 +846,25 @@ def test_int8_dense_kernel_matches_plain(dev, shape):
     got3 = int8_mod.int8_dense(t["x"].reshape(1, m, k), t["wq"],
                                t["scale"], t["b"])
     assert torch.equal(got3.reshape(m, n), got)
+    # without a bias (what matk passes)
+    _check("int8_dense", int8_mod.int8_dense(t["x"], t["wq"], t["scale"],
+                                             None),
+           int8_mod.int8_dense_plain(t["x"].float(), t["wq"],
+                                     t["scale"].float(), None))
+
+
+@pytest.mark.parametrize("shape", [(197, 3072, 768), (1, 768, 2304)],
+                         ids=["m197_k3072_n768", "m1_k768_n2304"])
+def test_int8_dense_split_is_bitwise_reproducible(dev, shape):
+    """At a split-K shape two calls give the same bits: the partials are
+    summed in split order, no atomics."""
+    m, k, n = shape
+    assert int8_mod.plan(m, k, n)[1] > 1
+    t = chip_smoke.int8_inputs(dev, m, k, n, seed=5)
+    args = (t["x"], t["wq"], t["scale"], t["b"])
+    first = int8_mod.int8_dense(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(int8_mod.int8_dense(*args), first)
 
 
 def test_int8_dense_refuses_what_the_kernel_does_not_take(dev):

@@ -145,12 +145,18 @@ def test_matk_switch_on_cpu_takes_no_kernel(monkeypatch):
     np.testing.assert_allclose(_np(plain), _np(off), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("m", [128, 197])
-def test_int8_dense_plain_matches_pallas(m):
+# (M, K, N): two k-steps of the Pallas kernel's 128, and (batch 1) one
+# row and 16 rows at K 256, N 384, the shapes the card splits over K.
+@pytest.mark.parametrize("m, k, n", [
+    pytest.param(128, 128, 256, id="128"),
+    pytest.param(197, 128, 256, id="197"),
+    pytest.param(1, 256, 384, id="m1_k256_n384"),
+    pytest.param(16, 256, 384, id="m16_k256_n384")])
+def test_int8_dense_plain_matches_pallas(m, k, n):
     rng = np.random.default_rng(7 + m)
-    x = rng.standard_normal((m, 128)).astype(np.float32)
-    w = (rng.standard_normal((128, 256)) * 0.05).astype(np.float32)
-    b = (rng.standard_normal(256) * 0.1).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.1).astype(np.float32)
     q = j_quant.quantize_kernel(jnp.asarray(w))
     want = j_int8_dense(jnp.asarray(x), q["q"], q["scale"].reshape(-1),
                         jnp.asarray(b), 64, 128, 128, True)
@@ -162,9 +168,9 @@ def test_int8_dense_plain_matches_pallas(m):
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     np.testing.assert_array_equal(_np(plain), _np(got))
     # (..., K) inputs keep their leading axes
-    got3 = t_int8.int8_dense(torch.from_numpy(x).reshape(1, m, 128),
+    got3 = t_int8.int8_dense(torch.from_numpy(x).reshape(1, m, k),
                              t["q"], t["scale"], torch.from_numpy(b))
-    assert got3.shape == (1, m, 256)
+    assert got3.shape == (1, m, n)
 
 
 def test_int8_dense_refuses_autograd():

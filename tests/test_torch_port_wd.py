@@ -71,6 +71,30 @@ def test_build_wd_weight_plain_matches_jax(k, n, r, s, rate, seed):
     assert np.array_equal(out.numpy()[~keep], w[~keep])
 
 
+def test_build_wd_weights_grouped_matches_jax():
+    """Two sites of different shapes, seeds and ranks folded by one
+    grouped call, each against JAX's ``_build_wd_weight``; the counter
+    does not move on the CPU."""
+    specs = [((64, 192, 4), 5), ((136, 72, 8), -2 ** 31)]
+    s, rate = 1.7, 0.2
+    arrays = [_fold_inputs(k, n, r, 20 + i)
+              for i, ((k, n, r), _) in enumerate(specs)]
+    sites = [(*(torch.from_numpy(a) for a in arr), _seed_t(seed))
+             for arr, (_, seed) in zip(arrays, specs)]
+    before = wd_fold.LAUNCHES
+    outs = wd_fold.build_wd_weights(sites, s, rate)
+    assert wd_fold.LAUNCHES == before and len(outs) == 2
+    for out, (w, u, v), ((k, n, _), seed) in zip(outs, arrays, specs):
+        ref = np.asarray(j_dense._build_wd_weight(
+            jnp.asarray(w), jnp.asarray(u), jnp.asarray(v), jnp.int32(seed),
+            s, rate, None))
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+        keep = wd_fold.hash_keep_plain(0, 0, k, n, seed, rate).numpy()
+        assert np.array_equal(out.numpy()[~keep], w[~keep])
+    with pytest.raises(ValueError, match="1..4 weights"):
+        wd_fold.build_wd_weights(sites * 3, s, rate)
+
+
 @pytest.mark.parametrize("m, k, n, r, rate, seed",
                          [(48, 64, 128, 4, 0.1, 9), (40, 128, 64, 8, 0.3, -5)])
 def test_masked_factor_grads_plain_matches_jax(m, k, n, r, rate, seed):

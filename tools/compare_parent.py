@@ -50,9 +50,17 @@ bf16:
 - TPU row 3 (the attention + projection kernel) at ViT-B 197, 401 and
   512 tokens, CLIP ViT-L/14 and ViT-H/14 at 257, beside SDPA +
   ``torch.addmm`` (null where a tree refuses the shape).
+- TPU row 18 (the dequant-fused int8 GEMM) at ``INT8_SHAPES`` (ViT-B and
+  ViT-H/14's qkv and fc2 sites at batch 64 and 1) and row 14 (the
+  element-dropout fold) over a layer's four weights at ViT-B and ViT-H
+  widths (grouped two a launch where the tree has ``build_wd_weights``,
+  else one a launch), single calls by events, back to back and by
+  launch, with a digest of the fold's outputs (``fold_*_sha256``: two
+  trees whose digests agree folded the same bits); merged ViT-B serving
+  in bf16 and int8 with ``CARA_INT8_PALLAS`` unset and set.
 
 ``--only`` picks some of the sections (kernels, widths, rows, serving,
-train, proj).
+train, proj, quant).
 Prints the card's name and power limit and one JSON line per child, and
 writes them to ``--out`` as one JSON file where it is given.
 """
@@ -517,8 +525,96 @@ def _proj(cs, dev) -> dict:
     return out
 
 
+# Row 18's shapes: (tag, M, K, N).
+INT8_SHAPES = (("vitb_qkv", 12608, 768, 2304),
+               ("vitb_qkv_m197", 197, 768, 2304),
+               ("vitb_fc2", 12608, 3072, 768),
+               ("vitb_fc2_m197", 197, 3072, 768),
+               ("vith_qkv", 16448, 1280, 3840),
+               ("vith_qkv_m257", 257, 1280, 3840),
+               ("vith_fc2", 16448, 5120, 1280),
+               ("vith_fc2_m257", 257, 5120, 1280))
+# Row 14's layers: (tag, E, hidden).
+FOLD_WIDTHS = (("vitb", 768, 3072), ("vith", 1280, 5120))
+
+
+def _quant(cs, dev) -> dict:
+    """Rows 18 and 14 (see the module docs) and int8 serving."""
+    import hashlib
+
+    import torch
+    from cara_tpu_torch.ops.cuda import int8_dense as i8
+    from cara_tpu_torch.ops.cuda import wd_fold
+    from cara_tpu_torch.serving import Predictor
+
+    out = {}
+    for tag, m, k, n in INT8_SHAPES:
+        t = cs.int8_inputs(dev, m, k, n)
+
+        def row18(t=t):
+            return i8.int8_dense(t["x"], t["wq"], t["scale"], t["b"])
+
+        wd = t["wq"].to(torch.bfloat16)
+        for key, fn in ((f"row18_{tag}", row18),
+                        (f"dequant_matmul_{tag}",
+                         lambda t=t, wd=wd: torch.matmul(t["x"], wd))):
+            out[key + "_ms"] = cs.median_ms(fn)
+            out[key + "_b2b_ms"] = statistics.median(
+                _b2b_ms(fn) for _ in range(5))
+        out[f"row18_{tag}_launch"] = _launch_split(row18)
+        del t, wd
+    torch.cuda.empty_cache()
+    grouped = hasattr(wd_fold, "build_wd_weights")
+    for tag, e, hidden in FOLD_WIDTHS:
+        inp = cs.kernel_inputs(dev, b=1, n=17, e=e, heads=16, hidden=hidden,
+                               seed=e)
+        folds = cs._fold_sites(inp)
+        for pair in (("qkv", "proj"), ("fc1", "fc2")):
+            sites = [folds[s] for s in pair]
+            if grouped:
+                def fn(sites=sites):
+                    return wd_fold.build_wd_weights(sites, 1.0, cs.DROP_RATE)
+            else:
+                def fn(sites=sites):
+                    return [wd_fold.build_wd_weight(*site, 1.0, cs.DROP_RATE)
+                            for site in sites]
+            key = f"row14_{tag}_{'_'.join(pair)}"
+            digest = hashlib.sha256()
+            for w in fn():
+                digest.update(w.contiguous().view(torch.int16).cpu()
+                              .numpy().tobytes())
+            out[f"fold_{tag}_{'_'.join(pair)}_sha256"] = digest.hexdigest()
+            out[key + "_ms"] = cs.median_ms(fn)
+            out[key + "_b2b_ms"] = statistics.median(
+                _b2b_ms(fn) for _ in range(5))
+            out[key + "_launch"] = _launch_split(fn)
+        del inp, folds
+    images = cs.make_images(64, 224)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "vit_compare_seed_0.npz")
+        cs.make_checkpoint(ckpt)
+        for label, quantize, switch in (("bf16", None, False),
+                                        ("int8", "int8", False),
+                                        ("int8_switch", "int8", True)):
+            pred = Predictor.from_checkpoint_auto(
+                ckpt, cs.MODEL, batch_size=64, merge=True, device=dev,
+                dtype=torch.bfloat16, quantize=quantize)
+            with cs.int8_switch(switch):
+                for _ in range(3):
+                    pred.logits(images)
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    pred.logits(images)
+                out[f"serve_merged_{label}_img_s"] = (
+                    10 * len(images) / (time.perf_counter() - t0))
+            del pred
+    torch.cuda.empty_cache()
+    return out
+
+
 SECTIONS = {"kernels": _kernels, "widths": _widths, "rows": _rows,
-            "serving": _serving, "train": _train, "proj": _proj}
+            "serving": _serving, "train": _train, "proj": _proj,
+            "quant": _quant}
 
 
 def child(only) -> int:
@@ -580,6 +676,13 @@ def main(argv=None) -> int:
         res = dict(json.loads(lines[-1][7:]), label=label)
         print(json.dumps(res), flush=True)
         results.append(res)
+    # The fold's output digests: equal in every child, or where they differ.
+    for key in sorted({k for r in results for k in r
+                       if k.endswith("_sha256")}):
+        seen = {r["label"]: r.get(key) for r in results}
+        same = len(set(seen.values())) == 1
+        print(f"{key}: {'the same in every child' if same else seen}",
+              flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
