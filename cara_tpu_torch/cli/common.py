@@ -22,11 +22,8 @@ DATASET_CHOICES = sorted(VTAB_TASKS)
 
 _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 _PARALLEL = "ROADMAP.md queue 1: parallelism"
-_TRAIN = "ROADMAP.md queue 1: training modules still to port"
 # dest -> (default, where the feature stands).
 UNPORTED = {
-    "merged_eval": (False, "ROADMAP.md queue 1: cli/export.py and merged "
-                    "eval"),
     "lora_alpha": (None, _PEFT),
     "fact_scale": (None, _PEFT), "fact_core_rank": (0, _PEFT),
     "vpt_tokens": (8, _PEFT), "adapter_scale": (None, _PEFT),
@@ -36,11 +33,6 @@ UNPORTED = {
     "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
     "dcn_mesh": (None, _PARALLEL), "pipeline": (None, _PARALLEL),
     "fsdp": (False, _PARALLEL), "distributed": (False, _PARALLEL),
-    "grad_accum": (1, _TRAIN), "no_remat": (False, _TRAIN),
-    "resume_dir": (None, _TRAIN), "resume_every_steps": (0, _TRAIN),
-    "profile_dir": (None, _TRAIN), "memory_report": (False, _TRAIN),
-    "nan_check": (False, _TRAIN), "wandb": (False, _TRAIN),
-    "compilation_cache": (None, _TRAIN),
 }
 
 
@@ -102,8 +94,14 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dcn-mesh", default=None, type=str)
     p.add_argument("--pipeline", default=None, type=str)
     p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--no-remat", action="store_true")
-    p.add_argument("--grad-accum", default=1, type=int)
+    p.add_argument("--no-remat", action="store_true",
+                   help="Keep every block's activations for the backward "
+                        "(default: recompute them where the dense form is "
+                        "not the fused one: --method full|linear, "
+                        "--dense-impl xla)")
+    p.add_argument("--grad-accum", default=1, type=int,
+                   help="Microbatches a step: gradients summed in fp32, "
+                        "one optimizer update (the batch must divide)")
     p.add_argument("--attn-impl", default="auto",
                    choices=["auto", "fused", "flash", "xla"],
                    help="fused (auto: the attention kernel on the qkv GEMM "
@@ -115,14 +113,26 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="fused (auto with an adapter: the site kernels and "
                         "block megakernels) or xla (GEMMs with the CP delta "
                         "beside them; auto without an adapter)")
-    p.add_argument("--wandb", action="store_true")
-    p.add_argument("--memory-report", action="store_true")
-    p.add_argument("--profile-dir", default=None, type=str)
-    p.add_argument("--resume-dir", default=None, type=str)
-    p.add_argument("--resume-every-steps", default=0, type=int)
-    p.add_argument("--nan-check", action="store_true")
+    p.add_argument("--wandb", action="store_true",
+                   help="Tee the metric lines (with lambda telemetry) to "
+                        "wandb where it imports and starts")
+    p.add_argument("--memory-report", action="store_true",
+                   help="Print the first train step's device memory once")
+    p.add_argument("--profile-dir", default=None, type=str,
+                   help="Write a torch.profiler Chrome trace of the "
+                        "training loop here")
+    p.add_argument("--resume-dir", default=None, type=str,
+                   help="Resume snapshots: restore the newest at start, "
+                        "save one on SIGTERM")
+    p.add_argument("--resume-every-steps", default=0, type=int,
+                   help="Also save a resume snapshot every N steps")
+    p.add_argument("--nan-check", action="store_true",
+                   help="Raise FloatingPointError on a NaN or Inf in a "
+                        "step's loss, logits or gradients")
     p.add_argument("--distributed", action="store_true")
-    p.add_argument("--compilation-cache", default=None, type=str)
+    p.add_argument("--compilation-cache", default=None, type=str,
+                   help="Directory of the CUDA kernel build "
+                        "(default: $CARA_JIT_CACHE, else build/kernels)")
 
 
 def refuse_unported(args) -> None:
@@ -157,6 +167,16 @@ def adapter_scale_wd(args, hp_scale: float, hp_wd: float):
                 "(no adapter at all)")
         return 1.0, 0.0
     return hp_scale, (hp_wd if wd_flag is None else wd_flag)
+
+
+def setup_runtime(args) -> None:
+    """Process-wide set-up before any kernel runs
+    (``cara_tpu/cli/common.py:552-554``): the kernel build cache.  JAX's
+    ``--nan-check`` switches on ``jax_debug_nans`` here; the port's check
+    is a train-step option (``make_train_step(nan_check=True)``)."""
+    from cara_tpu_torch.utils.jit_cache import enable_compilation_cache
+
+    enable_compilation_cache(getattr(args, "compilation_cache", None))
 
 
 def resolve_dtype(name: str) -> torch.dtype:

@@ -1,0 +1,151 @@
+"""Checkpoint export CLI (port of ``cara_tpu/cli/export.py``): a full
+checkpoint -> a merged or adapter-only artifact.
+
+* ``--mode merged`` folds the CP adapter into the dense backbone (exact
+  in eval): a plain ViT for serving, no adapter cost.  The fold runs in
+  fp32 on ``--device`` (the card by default) with TF32 off, so the merged
+  weights are those of JAX's fp32 merge.
+* ``--mode adapter`` keeps only the CP factors and the head (an npz that
+  both packages' ``load_adapter`` read).
+* ``--mode full`` re-saves a (backbone, adapter) pair as one artifact.
+
+The scale and model checks are JAX's: a merged or adapter export needs
+the delta scale (from the checkpoint's meta or ``--scale``) and a merge
+the model (meta or ``--model``).  ``--mode stablehlo`` and ``--tome-r``
+are not ported (ROADMAP.md queue 1: the PEFT zoo), nor ``--mode torch``
+and ``.pt`` input (ROADMAP.md queue 1: interop).
+
+    python -m cara_tpu_torch.cli.export --ckpt vit_svhn_*.npz \\
+        --out merged.npz --mode merged [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+
+import torch
+
+from cara_tpu_torch.cli.common import resolve_device
+from cara_tpu_torch.config import get_model_config
+from cara_tpu_torch.models.convert import params_from_numpy
+from cara_tpu_torch.models.merge import merge_cara
+from cara_tpu_torch.train import checkpoint as ckpt_lib
+
+_PEFT = "ROADMAP.md queue 1: the PEFT zoo"
+_INTEROP = "ROADMAP.md queue 1: interop"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--ckpt", required=True, type=str,
+                   help="Input full-model checkpoint (.npz)")
+    p.add_argument("--out", required=True, type=str)
+    p.add_argument("--mode", default="merged",
+                   choices=["merged", "adapter", "full", "stablehlo",
+                            "torch"],
+                   help="stablehlo and torch are not yet ported")
+    p.add_argument("--model", default=None,
+                   help="Model name (default: from checkpoint meta)")
+    p.add_argument("--dim", default=32, type=int, help="CP rank")
+    p.add_argument("--scale", default=None, type=float,
+                   help="Delta scale (default: from checkpoint meta; "
+                        "REQUIRED if the checkpoint records none: the "
+                        "per-task scale spans 0.1-100 and a wrong default "
+                        "silently mis-merges)")
+    p.add_argument("--cp-order", default=None, type=int,
+                   choices=[2, 3, 4, 5],
+                   help="CP order (default: from checkpoint meta)")
+    p.add_argument("--device", default=None, type=str,
+                   help="Where the merge runs (default: cuda, which needs "
+                        "a card)")
+    # The stablehlo mode's options, parsed and refused with it.
+    p.add_argument("--batch-size", default=64, type=int,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"], help=argparse.SUPPRESS)
+    p.add_argument("--platforms", default="cpu,tpu", help=argparse.SUPPRESS)
+    p.add_argument("--quantize", default=None,
+                   choices=[None, "int8", "w8a8"], help=argparse.SUPPRESS)
+    p.add_argument("--tome-r", default=0, type=int, help=argparse.SUPPRESS)
+    return p.parse_args(argv)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def main(argv=None) -> str:
+    args = parse_args(argv)
+    if args.mode == "stablehlo":
+        raise SystemExit(f"--mode stablehlo is not yet ported to "
+                         f"cara_tpu_torch ({_PEFT})")
+    if args.mode == "torch" or args.ckpt.endswith((".pt", ".pth", ".bin")):
+        raise SystemExit(f".pt checkpoints (--mode torch, .pt input) are "
+                         f"not yet ported to cara_tpu_torch ({_INTEROP})")
+    if args.quantize:
+        raise SystemExit(
+            "--quantize only applies to --mode stablehlo (npz modes keep "
+            "full-precision weights; quantize at serve time instead: "
+            "serve --quantize)")
+    if args.tome_r:
+        raise SystemExit(f"--tome-r is not yet ported to cara_tpu_torch "
+                         f"({_PEFT})")
+    params, cara_params, meta = ckpt_lib.load_model(args.ckpt)
+    if cara_params is None and args.mode != "full":
+        raise SystemExit("checkpoint has no adapter subtree")
+    if args.scale is not None:
+        scale = args.scale
+    elif "scale" in meta:
+        scale = float(meta["scale"])
+    elif args.mode == "full":
+        scale = None  # full re-saves the factors verbatim
+    else:
+        raise SystemExit(
+            "checkpoint records no delta scale and --scale was not given; "
+            "refusing to default to 1.0 (vtab_config scales span 0.1-100, "
+            "a wrong scale silently mis-merges the adapter)")
+
+    if args.mode == "adapter":
+        ckpt_lib.save_adapter(args.out, cara_params, params.get("head"),
+                              {**meta, "scale": scale})
+    elif args.mode == "merged":
+        num_classes = params["head"]["kernel"].shape[-1] \
+            if "head" in params else 0
+        model_name = args.model or meta.get("model")
+        if model_name is None:
+            raise SystemExit(
+                "checkpoint records no model name and --model was not given")
+        # Geometry overrides recorded at training time travel in meta;
+        # the stored head fixes num_classes regardless.
+        mo = {k: v for k, v in meta.get("model_overrides", {}).items()
+              if k != "num_classes"}
+        cfg = get_model_config(model_name, num_classes=num_classes, **mo)
+        try:
+            cara_cfg = ckpt_lib.infer_cara_cfg(
+                cara_params, meta, scale=scale, cp_order=args.cp_order)
+        except (ValueError, NotImplementedError) as exc:
+            raise SystemExit(str(exc))
+        device = resolve_device(args.device)
+        with _no_tf32():
+            merged = merge_cara(
+                params_from_numpy(params, device, torch.float32),
+                params_from_numpy(cara_params, device, torch.float32),
+                cfg, cara_cfg)
+        ckpt_lib.save_model(args.out, merged, None,
+                            {**meta, "merged": True, "scale": scale})
+    else:
+        ckpt_lib.save_model(args.out, params, cara_params, meta)
+    print(f"wrote {args.out} ({args.mode})")
+    return args.out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,95 @@
+"""Batch prediction CLI (port of ``cara_tpu/cli/predict.py``): classify
+image files with a trained checkpoint.
+
+Decodes each file with PIL (``data.vtab.load_image_u8``: RGB, bicubic
+resize, the reference's normalization), then runs
+``Predictor.from_checkpoint_auto`` on ``--device`` (the card by default)
+with the adapter folded into the dense weights (``--no-merge`` keeps
+it), and prints one JSON line an image: its top-k classes and their
+logits.  The native C++ decoder that JAX tries first is not ported
+(ROADMAP.md queue 1: training modules still to port), nor
+``--exported`` and ``--tome-r`` (ROADMAP.md queue 1: the PEFT zoo) or
+``.pt`` checkpoints (ROADMAP.md queue 1: interop).
+
+    python -m cara_tpu_torch.cli.predict --ckpt vit_svhn_*.npz \\
+        --model vit_base_patch16_224_in21k images/*.png [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from cara_tpu_torch.cli.common import resolve_device
+from cara_tpu_torch.data.vtab import load_image_u8, normalize
+from cara_tpu_torch.serving import Predictor
+
+_MODEL_DEFAULT = "vit_base_patch16_224_in21k"
+_PEFT = "ROADMAP.md queue 1: the PEFT zoo"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("images", nargs="+", help="Image files (jpeg/png)")
+    p.add_argument("--ckpt", default=None, type=str)
+    p.add_argument("--exported", default=None, type=str,
+                   help="not yet ported")
+    p.add_argument("--model", default=_MODEL_DEFAULT)
+    p.add_argument("--num-classes", default=None, type=int,
+                   help="Override (default: inferred from the checkpoint)")
+    p.add_argument("--batch-size", default=64, type=int)
+    p.add_argument("--no-merge", action="store_true",
+                   help="Keep the adapter path instead of folding weights")
+    p.add_argument("--scale", default=None, type=float,
+                   help="Delta scale (default: from checkpoint meta; "
+                        "required if the checkpoint records none)")
+    p.add_argument("--top", default=1, type=int, help="Top-k to report")
+    p.add_argument("--tome-r", default=0, type=int, help="not yet ported")
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device (default: cuda, which needs a card)")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="Serving dtype (the CUDA kernels take bfloat16)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.exported or args.tome_r:
+        raise SystemExit(f"--exported and --tome-r are not yet ported to "
+                         f"cara_tpu_torch ({_PEFT})")
+    if args.ckpt is None:
+        raise SystemExit("pass --ckpt")
+    if args.ckpt.endswith((".pt", ".pth", ".bin")):
+        raise SystemExit(".pt checkpoints are not yet ported to "
+                         "cara_tpu_torch (ROADMAP.md queue 1: interop)")
+    try:
+        pred = Predictor.from_checkpoint_auto(
+            args.ckpt, args.model, num_classes=args.num_classes,
+            scale=args.scale, merge=not args.no_merge,
+            batch_size=args.batch_size, dtype=getattr(torch, args.dtype),
+            device=resolve_device(args.device))
+    except ValueError as exc:  # e.g. missing delta scale
+        raise SystemExit(str(exc))
+    size = pred.cfg.image_size
+    imgs = np.stack([
+        normalize(load_image_u8(p, size).astype(np.float32) / 255.0)
+        for p in args.images])
+    logits = pred.logits(imgs)
+    topk = np.argsort(-logits, axis=-1)[:, :args.top]
+    results = []
+    for path, classes, lg in zip(args.images, topk, logits):
+        rec = {"image": path,
+               "classes": classes.tolist(),
+               "scores": [round(float(lg[c]), 4) for c in classes]}
+        results.append(rec)
+        print(json.dumps(rec))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -18,8 +18,15 @@ trainables), evaluates every 10 epochs through the serving kernels (the
 flash attention for ``full``) and keeps the best checkpoint as
 ``vit_{dataset}_{acc}_seed_{seed}.npz`` in ``--out-dir``, a file both
 packages' ``load_model`` and serve CLIs read.  ``--evaluate X.npz`` only
-evaluates (a checkpoint of ``full`` through the flash attention).  On
+evaluates (a checkpoint of ``full`` through the flash attention;
+``--merged-eval`` folds the adapter into the dense weights first).  On
 ``--device cpu`` every kernel runs its plain PyTorch version.
+
+The JAX CLI's single-device training features are ported:
+``--grad-accum N``, ``--no-remat``, ``--resume-dir`` /
+``--resume-every-steps`` (with SIGTERM handling), ``--profile-dir``,
+``--memory-report``, ``--nan-check``, ``--wandb`` and
+``--compilation-cache`` (the kernel build's directory).
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ from cara_tpu_torch.config import NO_ADAPTER
 from cara_tpu_torch.data import vtab as vtab_lib
 from cara_tpu_torch.data.vtab_config import get_task_hparams
 from cara_tpu_torch.models.convert import params_from_numpy
+from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.train import checkpoint as ckpt_lib
 from cara_tpu_torch.train import loop as loop_lib
 from cara_tpu_torch.train import steps as steps_lib
+from cara_tpu_torch.utils.logging import MetricLogger
 
 
 def parse_args(argv=None):
@@ -47,7 +56,9 @@ def parse_args(argv=None):
                    help="Number of trainable ranks (CP rank)")
     p.add_argument("--evaluate", default=None, type=str,
                    help="Checkpoint path: evaluate only, then exit")
-    p.add_argument("--merged-eval", action="store_true")
+    p.add_argument("--merged-eval", action="store_true",
+                   help="With --evaluate: fold the adapter into the dense "
+                        "weights first (merged-weight inference path)")
     common.add_common_args(p)
     args = p.parse_args(argv)
     common.refuse_unported(args)
@@ -56,6 +67,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> float:
     args = parse_args(argv)
+    common.setup_runtime(args)
     print(args)
     device = common.resolve_device(args.device)
     dtype = common.resolve_dtype(args.dtype)
@@ -79,6 +91,11 @@ def main(argv=None) -> float:
         batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
         image_size=model.cfg.image_size, seed=seed, synthetic=args.synthetic,
         synthetic_size=args.synthetic_size)
+    logger = MetricLogger(use_wandb=args.wandb, wandb_kwargs={
+        "project": "cara-tpu",
+        "name": f"LR__{args.dataset}__{args.lr}-Scale_{hp.scale}"
+                f"-Rank_{args.dim}",
+    } if args.wandb else None, enabled=True)
     if args.evaluate is not None:
         print("Only evaluation")
         if args.evaluate.endswith((".pt", ".pth")):
@@ -95,6 +112,9 @@ def main(argv=None) -> float:
             # the method that wrote it picks the attention (full: flash)
             cara_cfg = dataclasses.replace(
                 cara_cfg, method=meta["method"], weight_dropout=0.0)
+        if args.merged_eval and cara_params is not None:
+            params = merge_cara(params, cara_params, model.cfg, cara_cfg)
+            cara_params = None
         eval_step = steps_lib.make_eval_step(
             model.cfg, cara_cfg, compute_dtype=dtype,
             attn_impl=args.attn_impl, dense_impl=args.dense_impl)
@@ -113,20 +133,34 @@ def main(argv=None) -> float:
         train_loader.steps_per_epoch(), total_epochs=args.epochs,
         method=model.cara_cfg.method)
     keeper = ckpt_lib.BestCheckpointKeeper(args.out_dir, args.dataset, seed)
-    fit_cfg = loop_lib.FitConfig(epochs=args.epochs, eval_every=10,
-                                 eval_start=1, log_every=args.log_every)
+    fit_cfg = loop_lib.FitConfig(
+        epochs=args.epochs, eval_every=10, eval_start=1,
+        log_every=args.log_every, lambda_telemetry=hp.logger or args.wandb,
+        profile_dir=args.profile_dir, memory_report=args.memory_report,
+        resume_dir=args.resume_dir,
+        resume_every_steps=args.resume_every_steps)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
+    state, fit_cfg = loop_lib.maybe_resume(args.resume_dir, state, fit_cfg,
+                                           generator)
     result = loop_lib.fit(
         cfg=model.cfg, cara_cfg=model.cara_cfg, frozen=frozen, state=state,
         train_loader=train_loader, eval_loader=eval_loader, device=device,
-        generator=generator, fit_cfg=fit_cfg, keeper=keeper,
+        generator=generator, fit_cfg=fit_cfg, logger=logger, keeper=keeper,
         eval_step=eval_step, compute_dtype=dtype, attn_impl=args.attn_impl,
         dense_impl=args.dense_impl,
+        remat=False if args.no_remat else "auto",
+        grad_accum=args.grad_accum, nan_check=args.nan_check,
         ckpt_meta={"model": args.model, "dataset": args.dataset,
                    **({"model_overrides": mo} if mo else {})})
+    if result["preempted"]:
+        hint = (f"relaunch with --resume-dir {args.resume_dir} to continue"
+                if args.resume_dir else
+                "no --resume-dir was set; optimizer state was NOT saved")
+        print(f"Preempted (SIGTERM) at step {result['state'].step} — {hint}")
     print(f"Accuracy: {result['best_acc']}")
     print(f"Throughput: {result['images_per_sec']:.1f} images/sec")
+    logger.finish()
     return result["best_acc"]
 
 

@@ -65,10 +65,12 @@ takes them from ``randomness``.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint as checkpoint_lib
 
 from cara_tpu_torch.config import CaraConfig, ViTConfig
 from cara_tpu_torch.models import cara as cara_lib
@@ -546,6 +548,22 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
     return out
 
 
+# The matmuls whose outputs the "dots" remat policy keeps
+# (``jax.checkpoint_policies.checkpoint_dots``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return checkpoint_lib.CheckpointPolicy.MUST_SAVE
+    return checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(
+    checkpoint_lib.create_selective_checkpoint_contexts, _dots_policy)
+
+
 def resolve_impls(attn_impl: str, dense_impl: str,
                   cara_cfg: Optional[CaraConfig], quantized: bool = False):
     """(attn_impl, dense_impl) of a forward with (``cara_cfg``) or without
@@ -588,7 +606,7 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 generator: Optional[torch.Generator] = None,
                 randomness: Optional[Dict[str, Any]] = None,
                 attn_impl: str = "auto",
-                dense_impl: str = "auto") -> torch.Tensor:
+                dense_impl: str = "auto", remat=False) -> torch.Tensor:
     """Images (B, H, W, C) NHWC -> logits (B, num_classes).
 
     ``params`` / ``cara_params`` are tensor trees on ``x``'s device (see
@@ -599,7 +617,15 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     ``generator``, the dropout masks one layer at a time.  ``attn_impl``
     ("fused", "flash", "xla" or "auto", the fused one) and
     ``dense_impl`` ("fused", "xla" or "auto", fused with an adapter and
-    XLA without or on int8-quantized blocks) pick the block's forms."""
+    XLA without or on int8-quantized blocks) pick the block's forms.
+
+    ``remat`` (``vit.py:1435-1441``): True runs each block of a recorded
+    training forward under ``torch.utils.checkpoint.checkpoint`` (its
+    activations recomputed in the backward), "dots" keeps the matmul
+    outputs and recomputes the rest (PyTorch's selective checkpoint
+    policy), False keeps everything.  The layer's dropout masks are drawn
+    before its checkpointed body, so the recompute sees the same masks;
+    every other random input of the block comes from ``randomness``."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
@@ -636,6 +662,7 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     if cara_params is not None:
         a1, p1 = cara_lib.stacked_layer_slices(cara_params, cfg, cara_cfg)
     blocks = _unstack(params["blocks"], cfg.depth)
+    remat = remat and train and torch.is_grad_enabled()
     for layer in range(cfg.depth):
         rand = None
         if train:
@@ -648,11 +675,23 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                              else [m[layer] for m in rows]),
                     "masks": None if masks is None else masks[layer],
                     "generator": generator}
-        tokens = _block(
-            tokens, blocks[layer],
-            None if a1 is None else a1[layer],
-            None if p1 is None else p1[layer],
-            cfg, cara_params, cara_cfg, impl, rand, attn_impl, dense_impl)
+            if remat and rand["masks"] is None:
+                rand["masks"] = draw_layer_masks(
+                    layer_mask_specs(cfg, cara_cfg, tokens.shape[0],
+                                     attn_impl, dense_impl),
+                    cfg, cara_cfg, generator, tokens.device, tokens.dtype)
+        block = functools.partial(
+            _block, bp=blocks[layer], f1=None if a1 is None else a1[layer],
+            p1=None if p1 is None else p1[layer], cfg=cfg,
+            cara_params=cara_params, cara_cfg=cara_cfg, impl=impl,
+            rand=rand, attn_impl=attn_impl, dense_impl=dense_impl)
+        if remat:
+            # Every random input is drawn already: no RNG state to keep.
+            tokens = checkpoint_lib.checkpoint(
+                block, tokens, use_reentrant=False, preserve_rng_state=False,
+                **({"context_fn": _DOTS_CONTEXT} if remat == "dots" else {}))
+        else:
+            tokens = block(tokens)
     if cfg.use_cls_token:
         # LayerNorm is per token: only the cls row feeds the head.
         feat = layer_norm(tokens[:, 0], params["norm"]["scale"],

@@ -1,17 +1,33 @@
-"""Single-file npz model checkpoints and the best-checkpoint keeper (port
-of ``cara_tpu/train/checkpoint.py``; the resume snapshots are not ported).
+"""Checkpoints (port of ``cara_tpu/train/checkpoint.py``): single-file
+npz models, adapter-only files, the best-checkpoint keeper and the
+mid-training resume snapshots.
 
-The format is the JAX package's: one ``.npz`` whose keys are the
-``/``-joined paths of the nested tree under ``params/`` (backbone + head)
-and ``cara/`` (adapter), plus a ``__meta__`` uint8 JSON blob.  A file
-either package writes loads in the other.  Trees load as numpy arrays;
+The model and adapter formats are the JAX package's: one ``.npz`` whose
+keys are the ``/``-joined paths of the nested tree under ``params/``
+(backbone + head), ``cara/`` (adapter) and, in an adapter-only file,
+``head/``, plus a ``__meta__`` uint8 JSON blob.  A file either package
+writes loads in the other.  Trees load as numpy arrays;
 ``models.convert.params_from_numpy`` moves them to a device.
+
+The resume snapshots keep JAX's layout of directories
+(``step_{step:08d}/`` with ``extra.json`` beside the state, the newest
+``keep_last`` kept) but not its orbax format, which the card's machine
+does not have: ``state.npz`` holds the step, the trainables, AdamW's
+first and second moments under ``trainable/``, ``mu/`` and ``nu/``
+(``steps.adam_moments``; a restore rebuilds the state through
+``steps.train_state_from_numpy``) and the state of the run's
+``torch.Generator``.  A snapshot is written into
+a temporary directory that is then renamed, so a crash never leaves a
+torn one.  The port does not read JAX's orbax snapshots, nor JAX the
+port's.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import shutil
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -19,6 +35,8 @@ import numpy as np
 import torch
 
 from cara_tpu_torch.config import CaraConfig
+from cara_tpu_torch.train.steps import (adam_moments, train_state_from_numpy,
+                                        tree_leaves)
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -68,8 +86,7 @@ def save_model(path: str, params: Dict[str, Any],
     if cara_params is not None:
         flat.update(flatten_tree({"cara": cara_params}))
     if meta is not None:
-        flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
-                                         dtype=np.uint8)
+        flat["__meta__"] = _meta_blob(meta)
     np.savez(path, **flat)
 
 
@@ -77,11 +94,48 @@ def load_model(path: str) -> Tuple[Dict, Optional[Dict], Dict]:
     """Returns (params, cara_params_or_None, meta) as numpy trees."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files if k != "__meta__"}
-        meta = {}
-        if "__meta__" in z.files:
-            meta = json.loads(bytes(z["__meta__"].tolist()).decode())
+        meta = _read_meta(z)
     tree = unflatten_tree(flat)
     return tree.get("params", {}), tree.get("cara"), meta
+
+
+def _meta_blob(meta) -> np.ndarray:
+    return np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+
+
+def _read_meta(z) -> Dict[str, Any]:
+    if "__meta__" not in z.files:
+        return {}
+    return json.loads(bytes(z["__meta__"].tolist()).decode())
+
+
+def save_adapter(path: str, cara_params: Dict[str, Any],
+                 head: Optional[Dict[str, Any]] = None,
+                 meta: Optional[Dict[str, Any]] = None) -> None:
+    """Adapter-only artifact: CP factors (+ classifier head)."""
+    flat = flatten_tree({"cara": cara_params})
+    if head is not None:
+        flat.update(flatten_tree({"head": head}))
+    if meta is not None:
+        flat["__meta__"] = _meta_blob(meta)
+    np.savez(path, **flat)
+
+
+def is_adapter_checkpoint(path: str) -> bool:
+    """True for adapter-only artifacts (a ``cara/`` subtree but no
+    ``params/`` backbone)."""
+    with np.load(path) as z:
+        return (any(k.startswith("cara/") for k in z.files)
+                and not any(k.startswith("params/") for k in z.files))
+
+
+def load_adapter(path: str) -> Tuple[Dict, Optional[Dict], Dict]:
+    """Returns (cara_params, head_or_None, meta) as numpy trees."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files if k != "__meta__"}
+        meta = _read_meta(z)
+    tree = unflatten_tree(flat)
+    return tree.get("cara", {}), tree.get("head"), meta
 
 
 def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
@@ -155,3 +209,112 @@ class BestCheckpointKeeper:
                                         daemon=True)
         self._thread.start()
         return new_path
+
+
+# --- mid-training resume ---------------------------------------------------
+
+
+def _step_dirs(ckpt_dir: str):
+    """Steps of the complete snapshots in ``ckpt_dir`` (``step_%08d``
+    directories; a temporary one being written is not complete)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d[5:]) for d in os.listdir(ckpt_dir)
+                  if d.startswith("step_") and d[5:].isdigit())
+
+
+def snapshot_arrays(state, generator=None) -> Dict[str, np.ndarray]:
+    """The flat arrays of a resume snapshot of ``state`` (and the state
+    of ``generator``), as :func:`save_train_state` writes them."""
+    mu, nu = adam_moments(state)
+    flat = {"step": np.asarray(state.step, np.int64)}
+    flat.update(flatten_tree(to_numpy_tree(
+        {"trainable": state.trainable, "mu": mu, "nu": nu})))
+    if generator is not None:
+        flat["generator"] = generator.get_state().numpy()
+    return flat
+
+
+def digest(flat: Dict[str, np.ndarray]) -> str:
+    """sha256 over a flat tree's keys, dtypes, shapes and bytes."""
+    h = hashlib.sha256()
+    for key in sorted(flat):
+        arr = np.ascontiguousarray(flat[key])
+        h.update(f"{key}:{arr.dtype.str}:{arr.shape}".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def save_train_state(ckpt_dir: str, step: int, state, extra=None,
+                     keep_last: int = 3, generator=None) -> str:
+    """Save the resumable state (the step, trainables, AdamW's moments and,
+    when given, the run's ``generator``) as ``step_{step:08d}/``; returns
+    the :func:`digest` of what was written.
+
+    Keeps only the newest ``keep_last`` snapshots, pruned after the new
+    one lands, so a crash mid-save never leaves the directory empty
+    (``keep_last=0`` keeps all).  The snapshot is written under a
+    temporary name and renamed into place; an existing snapshot of the
+    same step is replaced, as orbax's ``force=True`` does."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = f"{path}.tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    flat = snapshot_arrays(state, generator)
+    np.savez(os.path.join(tmp, "state.npz"), **flat)
+    if extra is not None:
+        with open(os.path.join(tmp, "extra.json"), "w") as f:
+            json.dump(extra, f)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+    if keep_last > 0:
+        for old in _step_dirs(ckpt_dir)[:-keep_last]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{old:08d}"),
+                          ignore_errors=True)
+    return digest(flat)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = _step_dirs(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def load_snapshot(ckpt_dir: str, step: int) -> Dict[str, np.ndarray]:
+    """The flat arrays of the snapshot of ``step``."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", "state.npz")
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def restore_train_state(ckpt_dir: str, step: int, template, generator=None):
+    """The snapshot of ``step`` as a new
+    :class:`~cara_tpu_torch.train.steps.TrainState` on the device of
+    ``template`` (one from ``init_train_state`` with the same trainable
+    tree), whose optimizer's settings it keeps
+    (:func:`~cara_tpu_torch.train.steps.train_state_from_numpy`);
+    ``generator`` (when given and saved) takes the saved state.  Returns
+    (state, extra) as JAX's returns (restored, extra)."""
+    flat = load_snapshot(ckpt_dir, step)
+    tree = unflatten_tree({k: v for k, v in flat.items()
+                           if k.split("/")[0] in ("trainable", "mu", "nu")})
+    want = {p: tuple(t.shape) for p, t in tree_leaves(template.trainable)}
+    got = {p: a.shape for p, a in flatten_tree(
+        tree.get("trainable", {})).items()}
+    if got != want:
+        raise ValueError(f"snapshot step {step} does not match the "
+                         f"trainable tree ({sorted(set(want) ^ set(got))[:4]}"
+                         " differ)")
+    device = next(iter(tree_leaves(template.trainable)))[1].device
+    state = train_state_from_numpy(int(flat["step"]), tree["trainable"],
+                                   tree["mu"], tree["nu"], device,
+                                   **template.opt.hparams)
+    if generator is not None and "generator" in flat:
+        generator.set_state(torch.from_numpy(flat["generator"]))
+    extra = None
+    extra_path = os.path.join(ckpt_dir, f"step_{step:08d}", "extra.json")
+    if os.path.exists(extra_path):
+        with open(extra_path) as f:
+            extra = json.load(f)
+    return state, extra

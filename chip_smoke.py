@@ -197,7 +197,33 @@ fatal on failure:
    64 within 5 % of the default route's logits), at 336 px (577 tokens:
    row 16) served at batch 16 with a rank gradient check at batch 4,
    four steps and a full step, and ``cli.vit_cp --model
-   vit_huge_patch14_224_in21k`` in a child (at full width, 8 layers).
+   vit_huge_patch14_224_in21k`` in a child (at full width, 8 layers);
+   after the full fine-tuning step (its gradient check with remat on),
+   the step with remat on, off, and as 8 microbatches of 8, in turns;
+16. the training CLI's single-device features (run after 6): gradient
+   accumulation on the element route at batch 64 (``accum_phase``: the
+   accumulated 4 x 16 step's gradients against the fp32 plain path's
+   accumulated step, every leaf within 5's bound, then 4 x 16 and one
+   pass of 64 timed in turns with their peak memory); ``--nan-check``
+   (``nan_phase``: a batch with one NaN image raises
+   ``FloatingPointError``, the checked and unchecked steps in turns);
+   resume and preemption through the CLI (``resume_phase``: a ViT-B/16
+   child with ``--resume-dir --memory-report --profile-dir`` gets
+   SIGTERM after its first logged step and exits 0 with "Preempted
+   (SIGTERM) at step k", ``latest_step`` reads k, the relaunch with
+   ``--compilation-cache`` at a copy of the built library loads it
+   without building, resumes from step k and runs to its end; the
+   digests of the saved, the written and the restored state agree; the
+   trace holds the sites' and products' ``gemm_kernel``, the attention
+   and the fold); then on the relaunch's checkpoint
+   (``export_phase``) ``cli.export`` merged / adapter / full, the merged
+   arrays against an fp32 merge on the card (1e-6 of each array's
+   largest value, with a merge at half the scale and the unmerged
+   backbone as controls that must miss it), the merged export served
+   against ``merge=True`` (1 %), ``--evaluate
+   --merged-eval`` and ``cli.predict`` on PNG files; full fine-tuning of
+   ViT-B (8) with its gradient check repeated with remat off, then timed
+   with remat on and off (``remat_phase``).
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -211,10 +237,13 @@ before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` only builds and then prints the device time by kernel of
+five ViT-B element steps as 4 microbatches of 16 and of ViT-H/14 full
+fine-tuning with remat on, off and as 8 microbatches of 8, then of
 five ViT-B train steps of the element and of the rank route, at 224 and
 at 384 px (at 224 px also with both saved-residual switches "0"), of
 the same two routes of CLIP ViT-L/14 and of ViT-H/14, of
-full fine-tuning and the linear probe at 224 px, of the element and
+full fine-tuning (remat on, JAX's "auto", and off) and the linear probe
+at 224 px, of the element and
 rank routes with activation dropout 0.1 at 224 px, and of
 the rank route under each attention-block switch (``torch.profiler``),
 with the busy share; then merged serving at batch 64 in bf16, int8 with
@@ -231,6 +260,7 @@ import functools
 import io
 import json
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -244,13 +274,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cara_tpu_torch.cli import export as export_cli
+from cara_tpu_torch.cli import predict as predict_cli
 from cara_tpu_torch.cli import vit_cp as vit_cp_cli
 from cara_tpu_torch.config import NO_ADAPTER, CaraConfig, get_model_config
-from cara_tpu_torch.data.vtab import normalize
+from cara_tpu_torch.data.vtab import load_image_u8, normalize
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import quant as quant_lib
 from cara_tpu_torch.models import vit as vit_lib
+from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models.vit import vit_forward
 from cara_tpu_torch.ops.cuda import _build, _bwd, _site, wd_fold
 from cara_tpu_torch.ops.cuda import block_pair as pair_mod
@@ -264,6 +297,7 @@ from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 from cara_tpu_torch.server import InferenceServer
 from cara_tpu_torch.serving import Predictor
+from cara_tpu_torch.train import checkpoint as ckpt_lib
 from cara_tpu_torch.train import steps as steps_lib
 from cara_tpu_torch.train.checkpoint import save_model
 
@@ -777,6 +811,12 @@ GRAD_REL_L2 = 2e-2
 LSE_ATOL = 1e-3
 # Logits: bf16 through 12 layers against fp32 on the same weights.
 LOGIT_RTOL = 0.05
+# ``export_phase``: the merged export's arrays against an fp32 merge of
+# its checkpoint on the card (the same fold: only summation order could
+# differ), and its served logits against ``merge=True`` (the same merged
+# weights rounded to bf16 once each), relative to the largest value.
+EXPORT_WEIGHT_RTOL = 1e-6
+EXPORT_LOGIT_RTOL = 1e-2
 # One train step's gradient of each trainable leaf, bf16 kernels against
 # the fp32 plain path: relative L2.  The error of bf16 rounding (2^-8) at
 # every rounded intermediate, forward and backward, through 12 layers; a
@@ -2517,25 +2557,36 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
     return cfg, cara_cfg, frozen, state, data
 
 
+def _fp32_randomness(rand):
+    """``rand`` with its floating draws in fp32; the dropout masks stay as
+    drawn: keep masks are boolean and the block casts weight masks to its
+    compute dtype."""
+    return {k: (v if k == "masks" else [t.float() for t in v]
+                if isinstance(v, list)
+                else v.float() if v.is_floating_point() else v)
+            for k, v in rand.items()}
+
+
 def step_grads(cfg, cara_cfg, frozen_c, state, data, rand,
-               dtype=torch.bfloat16, impl="auto", impls=("auto", "auto")):
+               dtype=torch.bfloat16, impl="auto", impls=("auto", "auto"),
+               grad_accum=1, remat="auto"):
     """(loss, grads) of one train step on the ``dtype``-rounded backbone
-    ``frozen_c`` with the randomness ``rand``; ``dtype=None`` is the fp32
-    plain path on the same weights and randomness (cast to fp32)."""
+    ``frozen_c`` with the randomness ``rand`` (a list of one a
+    microbatch with ``grad_accum`` > 1: the accumulated step of
+    ``steps_lib.loss_and_grads``); ``dtype=None`` is the fp32 plain
+    path on the same weights and randomness (cast to fp32).  ``remat``
+    resolves as the train step's."""
     if dtype is None:
         frozen_c = steps_lib.cast_floating(frozen_c, torch.float32)
-        # the dropout masks stay as drawn: keep masks are boolean and the
-        # block casts weight masks to its compute dtype
-        rand = {k: (v if k == "masks" else [t.float() for t in v]
-                    if isinstance(v, list)
-                    else v.float() if v.is_floating_point() else v)
-                for k, v in rand.items()}
+        rand = ([_fp32_randomness(r) for r in rand]
+                if isinstance(rand, list) else _fp32_randomness(rand))
         impl = "plain"
     attn_impl, dense_impl = steps_lib.resolve_impls(*impls, cara_cfg)
     loss, _, grads = steps_lib.loss_and_grads(
-        cfg, cara_cfg, state.trainable, frozen_c, data, compute_dtype=dtype,
-        impl=impl, randomness=rand, attn_impl=attn_impl,
-        dense_impl=dense_impl)
+        cfg, cara_cfg, state.trainable, frozen_c, data,
+        grad_accum=grad_accum, randomness=rand, compute_dtype=dtype,
+        impl=impl, attn_impl=attn_impl, dense_impl=dense_impl,
+        remat=steps_lib.resolve_remat(remat, dense_impl))
     return loss, grads
 
 
@@ -2552,7 +2603,7 @@ def _perturbed(data, k, dev):
 
 def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
                dtype=torch.bfloat16, tag=None,
-               impls=("auto", "auto")) -> dict:
+               impls=("auto", "auto"), grad_accum=1, remat="auto") -> dict:
     """(a) One step's gradients of every trainable leaf through the
     kernels (``dtype`` compute) against the fp32 plain path on the same
     (``dtype``-rounded) backbone and the same drop-path gates and masks,
@@ -2562,13 +2613,23 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
     points in other summation orders) and fp32: a leaf's bound is the
     larger of ``TRAIN_GRAD_REL_L2`` and the plain path's worst error over
     the step and its copies, and the kernels' error on the step must stay
-    within it.  ``impls`` are the step's (attn_impl, dense_impl)."""
+    within it.  ``impls`` are the step's (attn_impl, dense_impl); the
+    step runs under ``remat``, by default the train step's "auto" (on
+    for the routes without an adapter).  ``grad_accum`` > 1 checks the
+    accumulated step:
+    ``grad_accum`` microbatches, one weight-dropout draw, gates and masks
+    of their own (``steps_lib.microbatch_randomness``), on every path."""
     tag = f"[train:{_route(cara_cfg)}]" if tag is None else tag
     attn_impl, dense_impl = steps_lib.resolve_impls(*impls, cara_cfg)
-    rand = vit_lib.draw_randomness(
-        cfg, data["image"].shape[0], dev, generator, dtype,
-        cara_cfg if cara_cfg.method == "cara" else None, masks=True,
-        attn_impl=attn_impl, dense_impl=dense_impl)
+    remat = steps_lib.resolve_remat(remat, dense_impl)
+    print(f"{tag} gradient check: remat {remat}, {grad_accum} "
+          f"microbatch(es) of {data['image'].shape[0] // grad_accum}",
+          flush=True)
+    rand = steps_lib.microbatch_randomness(
+        cfg, cara_cfg, data["image"].shape[0], grad_accum, dev, generator,
+        dtype, masks=True, attn_impl=attn_impl, dense_impl=dense_impl)
+    if grad_accum == 1:
+        rand = rand[0]
     frozen_c = steps_lib.cast_floating(frozen, dtype)
     paths = [p for p, _ in steps_lib.tree_leaves(state.trainable)]
     # per realization: {"kernel" | "plain": path -> relative L2}
@@ -2576,11 +2637,13 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
     for k in range(NOISE_DRAWS + 1):
         args = (cfg, cara_cfg, frozen_c, state, _perturbed(data, k, dev),
                 rand)
-        ref_loss, ref = step_grads(*args, dtype=None, impls=impls)
+        ref_loss, ref = step_grads(*args, dtype=None, impls=impls,
+                                   grad_accum=grad_accum, remat=remat)
         row = {}
         for name, impl in (("kernel", "auto"), ("plain", "plain")):
             loss, grads = step_grads(*args, dtype=dtype, impl=impl,
-                                     impls=impls)
+                                     impls=impls, grad_accum=grad_accum,
+                                     remat=remat)
             for path, g in zip(paths, grads):
                 require(bool(torch.isfinite(g).all()),
                         f"{name} grad {path}: non-finite")
@@ -2631,12 +2694,14 @@ def _route(cara_cfg) -> str:
 
 
 def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
-                      dtype=torch.bfloat16, impl="auto", timed=True):
+                      dtype=torch.bfloat16, impl="auto", timed=True,
+                      **step_kw):
     """(b, c) ``steps`` train steps on one fixed batch: the losses, the
     median device ms per step (CUDA events) and img/s on the host clock
-    (synchronized at both ends)."""
+    (synchronized at both ends).  ``step_kw`` go to ``make_train_step``
+    (``remat``, ``grad_accum``, ``nan_check``)."""
     step_fn = steps_lib.make_train_step(cfg, cara_cfg, compute_dtype=dtype,
-                                        impl=impl)
+                                        impl=impl, **step_kw)
     frozen_c = steps_lib.cast_floating(frozen, dtype)
     losses, times = [], []
     if timed:
@@ -3779,6 +3844,11 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
         + BLOCKWISE_KERNELS + ADAPTER_KERNELS,
         **dict(common, grad_batch=full_grad_batch))
     _add_launches(got, out["launches"], FLASH_KERNELS)
+    # Remat on (the "auto" policy: its gradient check above) and off, and
+    # an effective batch of 64 as 8 microbatches of 8.
+    free()
+    remat_phase(dev, out.pop("setup"), 3, f"[remat:full:{MODEL_HUGE}]",
+                accum=8, timed=timed)
     del out
     free()
 
@@ -3906,14 +3976,16 @@ def other_routes_grad_check(dev, setup) -> dict:
 
 
 def profile_steps(dev, impl, steps=5, batch=64, top=24,
-                  model=MODEL, overrides=None, label=None) -> None:
+                  model=MODEL, overrides=None, label=None,
+                  step_kw=None) -> None:
     """``--profile``: device time by kernel of ``steps`` train steps of
     ``model`` on the ``impl`` route (or, for "linear" / "full", that
     method without an adapter) after three warm-up steps from
     ``torch.profiler``, and the busy share: the kernels' summed time over
     the step time by CUDA events of as many steps run without the
     profiler (whose own host cost stretches its window).  ``label``
-    names a switch the caller set in the tag."""
+    names a switch the caller set in the tag; ``step_kw`` go to
+    ``make_train_step`` (``grad_accum``, ``remat``)."""
     from torch.profiler import ProfilerActivity, profile
 
     method = impl if impl in NO_ADAPTER else "cara"
@@ -3930,7 +4002,8 @@ def profile_steps(dev, impl, steps=5, batch=64, top=24,
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
     step_fn = steps_lib.make_train_step(cfg, cara_cfg,
-                                        compute_dtype=torch.bfloat16)
+                                        compute_dtype=torch.bfloat16,
+                                        **(step_kw or {}))
     frozen_c = steps_lib.cast_floating(frozen, torch.bfloat16)
     for _ in range(3):
         state, _ = step_fn(state, frozen_c, data, generator=generator)
@@ -4053,6 +4126,364 @@ def profile_serving(dev, batch=64, iters=5, rounds=4, top=12) -> None:
                   flush=True)
 
 
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def timed_variants(dev, setup, variants, steps, tag, rounds=1,
+                   timed=True) -> dict:
+    """``variants`` (name -> ``make_train_step`` options) of the train step
+    on one setup, ``steps`` steps each, in turns over ``rounds`` rounds:
+    the median ms a step by CUDA events (steps 2 on) and the peak device
+    memory of each, printed with ``tag``."""
+    cfg, cara_cfg, frozen, state, data = setup
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    out = {name: {"ms": [], "peak_gib": 0.0} for name in variants}
+    for _ in range(rounds):
+        for name, kw in variants.items():
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            state, losses, ms, _ = fixed_batch_steps(
+                cfg, cara_cfg, frozen, state, data, generator, steps,
+                timed=timed, **kw)
+            require(all(np.isfinite(losses)), f"{tag} {name}: non-finite")
+            out[name]["ms"] += ms[1:]
+            if dev.type == "cuda":
+                out[name]["peak_gib"] = max(out[name]["peak_gib"],
+                                            _peak_gib(dev))
+    for name, rec in out.items():
+        rec["median_ms"] = statistics.median(rec["ms"]) if rec["ms"] else None
+        print(f"{tag} {name} ({variants[name]}): median "
+              f"{rec['median_ms'] if rec['ms'] else 'not timed'} ms a step "
+              f"(CUDA events, {len(rec['ms'])} steps in {rounds} round(s)), "
+              f"peak {rec['peak_gib']:.3f} GiB allocated", flush=True)
+    return out
+
+
+def accum_phase(dev, setup, micro=4, steps=8, timed=True) -> dict:
+    """Gradient accumulation on the element route (``setup`` from
+    :func:`training_phase`, batch 64): the accumulated step's gradient
+    check (``micro`` microbatches, every leaf against the fp32 plain
+    path's accumulated step, :func:`grad_check`'s bound), then the
+    accumulated step and the one-pass step timed in turns, with the
+    peak memory of each."""
+    cfg, cara_cfg, frozen, state, data = setup
+    batch = data["label"].shape[0]
+    tag = f"[accum:{_route(cara_cfg)}]"
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(1)
+    out = grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
+                     tag=tag, grad_accum=micro)
+    out.update(timed_variants(
+        dev, setup, {f"one pass of {batch}": {},
+                     f"{micro} x {batch // micro}": {"grad_accum": micro}},
+        steps, tag, rounds=2, timed=timed))
+    return out
+
+
+def nan_phase(dev, setup, steps=8, timed=True) -> None:
+    """``--nan-check`` on the element route: a batch with one image all NaN
+    raises ``FloatingPointError`` (the step not taken), and the check's
+    cost on clean steps, timed in turns with the unchecked step."""
+    cfg, cara_cfg, frozen, state, data = setup
+    step_fn = steps_lib.make_train_step(cfg, cara_cfg,
+                                        compute_dtype=torch.bfloat16,
+                                        nan_check=True)
+    bad = dict(data, image=data["image"].clone())
+    bad["image"][3] = float("nan")
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(2)
+    frozen_c = steps_lib.cast_floating(frozen, torch.bfloat16)
+    before = state.step
+    try:
+        step_fn(state, frozen_c, bad, generator=generator)
+        raised = None
+    except FloatingPointError as exc:
+        raised = str(exc)
+    print(f"[nan-check] a batch with one NaN image: {raised}", flush=True)
+    require(raised is not None and state.step == before,
+            "--nan-check let a NaN batch through")
+    timed_variants(dev, setup, {"unchecked": {},
+                                "nan_check": {"nan_check": True}},
+                   steps, "[nan-check]", rounds=2, timed=timed)
+
+
+def remat_phase(dev, setup, steps, tag, accum=None, timed=True,
+                check_off=False) -> None:
+    """A route without an adapter (``setup`` from :func:`training_phase`,
+    whose gradient check ran with the "auto" remat, on): with
+    ``check_off``, the same gradient check with ``remat=False``; the step
+    with remat "auto" and with ``remat=False`` (``--no-remat``) timed in
+    turns with each one's peak memory; with ``accum``, the step as
+    ``accum`` microbatches too."""
+    if check_off:
+        cfg, cara_cfg, frozen, state, data = setup
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
+                   tag=tag[:-1] + ":no-remat]", remat=False)
+    variants = {"remat auto (on)": {}, "no remat": {"remat": False}}
+    if accum:
+        batch = setup[4]["label"].shape[0]
+        variants[f"{accum} x {batch // accum}"] = {"grad_accum": accum}
+    timed_variants(dev, setup, variants, steps, tag, timed=timed)
+
+
+def resume_args(model, tmp, dev) -> list:
+    """The CLI arguments of :func:`resume_phase`'s children: 2 epochs of
+    8 steps of batch 32 and an eval of 64 images, the 2-class task (so
+    that the final eval's accuracy is above 0 and a checkpoint is kept)."""
+    return ["--synthetic", "--dataset", "patch_camelyon", "--model", model,
+            "--dim", "8", "--epochs", "2", "--batch-size", "32",
+            "--eval-batch-size", "64", "--synthetic-size", "256",
+            "--log-every", "1", "--backbone", os.path.join(tmp, "none.npz"),
+            "--device", str(dev)]
+# The port's kernels a trace of an element step must hold: the sites and
+# the GEMM core's products, the attention, the fold.
+TRACE_KERNELS = ("gemm_kernel", "qkv_attention_kernel", "wd_fold_kernel")
+
+
+def _resume_child(argv, wrap, sigterm=False, timeout=600):
+    """``cli.vit_cp`` with ``argv`` in a child process; ``wrap`` is code
+    run before it (it may instrument ``train.checkpoint``).  With
+    ``sigterm`` the child gets SIGTERM once it has logged its first step.
+    Returns (its stdout lines, its launch counters, its build info)."""
+    code = "\n".join([
+        "import json, sys, chip_smoke",
+        "from cara_tpu_torch.train import checkpoint as c",
+        "from cara_tpu_torch.ops.cuda import _build",
+        wrap,
+        "chip_smoke.vit_cp_cli.main(sys.argv[1:])",
+        "print(json.dumps({'launches': chip_smoke.read_launches(",
+        "    tuple(chip_smoke.KERNELS)), 'build': {",
+        "    'cached': _build.BUILD_INFO['cached'],",
+        "    'dir': str(_build.BUILD_DIR)}}))"])
+    lines = []
+    with tempfile.TemporaryFile(mode="w+") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code, *argv],
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        try:
+            deadline = time.perf_counter() + timeout
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if (sigterm and proc.poll() is None
+                        and line.startswith("{") and '"loss"' in line):
+                    proc.send_signal(signal.SIGTERM)
+                    sigterm = False
+                    print(f"  child: {line.rstrip()}\n  parent: SIGTERM",
+                          flush=True)
+                require(time.perf_counter() < deadline, "child timed out")
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        require(proc.returncode == 0, f"cli.vit_cp child exited "
+                f"{proc.returncode}: {err.read()[-3000:]}")
+    tail = json.loads(lines[-1])
+    return lines[:-1], tail["launches"], tail["build"]
+
+
+def resume_phase(dev, tmp, model=MODEL) -> str:
+    """Resume and preemption through the CLI at ViT-B width: a child with
+    ``--resume-dir`` (and ``--memory-report``, ``--profile-dir``) gets
+    SIGTERM once it has logged its first step, exits 0 with "Preempted
+    (SIGTERM) at step k", and ``latest_step`` reads k; the digest of the
+    snapshot it saved, of the file, and of the state a relaunch restored
+    agree; the relaunch, with ``--compilation-cache`` at a directory that
+    holds a copy of the built library, prints "resumed from ... step k",
+    loads the library without building it and runs to its end.  The
+    trace of the first child holds the port's sites, attention and fold.
+    Returns the relaunch's best checkpoint."""
+    resume, prof, cache = (os.path.join(tmp, d) for d in
+                           ("resume", "prof", "cache"))
+    out_dir = os.path.join(tmp, "out")
+    os.makedirs(cache)
+    for name in (_build.LIB_NAME, _build.LIB_NAME + ".sha256"):
+        shutil.copy2(_build.BUILD_DIR / name, os.path.join(cache, name))
+    cached_files = sorted(os.listdir(cache))
+    argv = resume_args(model, tmp, dev) + ["--out-dir", out_dir,
+                                            "--resume-dir", resume]
+    save_wrap = "\n".join([
+        "real = c.save_train_state",
+        "def save(*a, **k):",
+        "    d = real(*a, **k)",
+        "    print(json.dumps({'saved_digest': d, 'step': a[1]}), "
+        "flush=True)",
+        "    return d",
+        "c.save_train_state = save"])
+    t0 = time.perf_counter()
+    lines, launches, _ = _resume_child(
+        argv + ["--memory-report", "--profile-dir", prof], save_wrap,
+        sigterm=True)
+    t1 = time.perf_counter()
+    for line in lines[-5:]:
+        print(f"  child: {line}", flush=True)
+    preempted = [l for l in lines if l.startswith("Preempted (SIGTERM)")]
+    require(len(preempted) == 1, "the child did not report its preemption")
+    k = int(preempted[0].split("at step ")[1].split()[0])
+    saved = [json.loads(l) for l in lines if '"saved_digest"' in l]
+    memory = [l for l in lines if l.startswith('{"train_step_memory"')]
+    print(f"[resume] first child: {t1 - t0:.1f} s, preempted at step {k}, "
+          f"snapshots {saved}; {memory}", flush=True)
+    require(len(memory) == 1 and (dev.type != "cuda" or json.loads(
+        memory[0])["train_step_memory"]["total_mib"] > 0),
+        "no memory report line")
+    require(ckpt_lib.latest_step(resume) == k == saved[-1]["step"],
+            f"latest_step {ckpt_lib.latest_step(resume)}, preempted at {k}")
+    on_disk = ckpt_lib.digest(ckpt_lib.load_snapshot(resume, k))
+    require(on_disk == saved[-1]["saved_digest"],
+            "the snapshot on disk is not what the child saved")
+    traces = os.listdir(prof)
+    require(len(traces) == 1, f"--profile-dir wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    print(f"[profile] {traces[0]}: {len(events)} events, "
+          f"{len(kernels)} kernel names, the port's: "
+          f"{sorted({n for n in kernels for w in TRACE_KERNELS if w in n})}",
+          flush=True)
+    for want in TRACE_KERNELS:
+        require(any(want in n for n in kernels),
+                f"the trace holds no {want}")
+
+    restore_wrap = "\n".join([
+        "real = c.restore_train_state",
+        "def restore(d, step, template, generator=None):",
+        "    out = real(d, step, template, generator)",
+        "    print(json.dumps({'restored_digest': c.digest(",
+        "        c.snapshot_arrays(out[0], generator))}), flush=True)",
+        "    return out",
+        "c.restore_train_state = restore"])
+    lines, launches, build = _resume_child(
+        argv + ["--compilation-cache", cache], restore_wrap)
+    for line in lines[-4:]:
+        print(f"  child: {line}", flush=True)
+    print(f"[resume] relaunch: {time.perf_counter() - t1:.1f} s; kernel "
+          f"build {build}", flush=True)
+    resumed = [l for l in lines if l.startswith("[cara_tpu] resumed from")]
+    require(len(resumed) == 1 and f"step {k} " in resumed[0],
+            f"the relaunch did not resume from step {k}: {resumed}")
+    restored = [json.loads(l)["restored_digest"] for l in lines
+                if '"restored_digest"' in l]
+    require(restored == [on_disk], "the restored state is not the saved one")
+    require(build["cached"] is True and build["dir"] == cache
+            and sorted(os.listdir(cache)) == cached_files,
+            f"--compilation-cache built again: {build}, "
+            f"{sorted(os.listdir(cache))}")
+    for name in TRAINING_KERNELS:
+        require(launches[name] > 0, f"{name} never launched by the relaunch")
+    ckpts = sorted(f for f in os.listdir(out_dir) if f.endswith(".npz"))
+    require(len(ckpts) == 1, f"the relaunch wrote {ckpts}")
+    print(f"[resume] digests: saved = on disk = restored ({on_disk[:16]}); "
+          f"best checkpoint {ckpts[0]}", flush=True)
+    return os.path.join(out_dir, ckpts[0])
+
+
+def export_phase(dev, ckpt, tmp, n_images=64, model=MODEL) -> None:
+    """``cli.export`` merged / adapter / full of ``ckpt`` on the card: the
+    merged export's arrays within ``EXPORT_WEIGHT_RTOL`` of an fp32 merge
+    of ``ckpt`` on the card at its recorded scale, while the same merge
+    at half the scale and the backbone without its adapter (the
+    controls) must miss that bound; the merged export served through
+    ``Predictor.from_checkpoint_auto`` against ``merge=True`` on
+    ``ckpt`` (within ``EXPORT_LOGIT_RTOL``); the adapter file holds the
+    factors and head; the full one the original arrays; ``cli.vit_cp
+    --evaluate --merged-eval`` prints an accuracy; ``cli.predict`` on
+    PNG files classifies them as the Predictor does."""
+    reset_launches()
+    paths = {}
+    for mode in ("merged", "adapter", "full"):
+        paths[mode] = os.path.join(tmp, f"export_{mode}.npz")
+        t0 = time.perf_counter()
+        export_cli.main(["--ckpt", ckpt, "--out", paths[mode], "--mode",
+                         mode, "--device", str(dev)])
+        print(f"[export] --mode {mode}: {time.perf_counter() - t0:.3f} s, "
+              f"{os.path.getsize(paths[mode]) / 2 ** 20:.3f} MiB", flush=True)
+    params, cara, meta = ckpt_lib.load_model(ckpt)
+    a_cara, a_head, a_meta = ckpt_lib.load_adapter(paths["adapter"])
+    require(ckpt_lib.is_adapter_checkpoint(paths["adapter"])
+            and a_meta["scale"] == meta["scale"]
+            and sorted(a_cara) == sorted(cara) and a_head is not None,
+            "the adapter export lost its factors, head or scale")
+    f_params, f_cara, _ = ckpt_lib.load_model(paths["full"])
+    want = ckpt_lib.flatten_tree({"p": params, "c": cara})
+    got = ckpt_lib.flatten_tree({"p": f_params, "c": f_cara})
+    require(sorted(got) == sorted(want)
+            and all(np.array_equal(got[k], want[k]) for k in want),
+            "the full export differs from its input")
+    cfg = get_model_config(model, num_classes=params["head"]["kernel"].shape[
+        -1], **meta.get("model_overrides", {}))
+    exported = ckpt_lib.flatten_tree(ckpt_lib.load_model(paths["merged"])[0])
+
+    def weight_err(want):  # worst array's max |diff| / max |value|
+        require(sorted(want) == sorted(exported),
+                "the merged export holds other arrays")
+        return max(float(np.abs(exported[k] - want[k]).max()) / max(
+            float(np.abs(want[k]).max()), float(np.abs(exported[k]).max()),
+            1e-30) for k in want)
+
+    def merged_at(scale):  # fp32 on the card, TF32 off (``main``)
+        return ckpt_lib.flatten_tree(merge_cara(
+            convert.params_from_numpy(params, dev, torch.float32),
+            convert.params_from_numpy(cara, dev, torch.float32), cfg,
+            ckpt_lib.infer_cara_cfg(cara, meta, scale=scale)))
+
+    scale = float(meta["scale"])
+    errs = {"the merge at the recorded scale": weight_err(merged_at(scale)),
+            "control: half the scale": weight_err(merged_at(scale / 2)),
+            "control: the adapter dropped": weight_err(
+                ckpt_lib.flatten_tree(params))}
+    print(f"[export] merged arrays, worst max|diff| / max|value| (bound "
+          f"{EXPORT_WEIGHT_RTOL:.0e}): " + "; ".join(
+              f"{k} {v:.4e}" for k, v in errs.items()), flush=True)
+    first, *controls = errs.values()
+    require(first <= EXPORT_WEIGHT_RTOL,
+            "the merged export differs from the merge of its checkpoint")
+    require(all(c > EXPORT_WEIGHT_RTOL for c in controls),
+            "a wrong merge passes the merged export's check")
+    size = cfg.image_size
+    images = make_images(n_images, size, seed=7)
+    merged = Predictor.from_checkpoint_auto(paths["merged"], model,
+                                            device=dev, dtype=torch.bfloat16)
+    require(merged._cara is None, "the merged export carries an adapter")
+    ref = Predictor.from_checkpoint_auto(ckpt, model, merge=True, device=dev,
+                                         dtype=torch.bfloat16)
+    got, want = merged.logits(images), ref.logits(images)
+    err = float(np.abs(got - want).max())
+    tol = EXPORT_LOGIT_RTOL * float(np.abs(want).max())
+    print(f"[export] merged export served: max|logits - merge=True on the "
+          f"checkpoint| {err:.4e}, tolerance {tol:.4e}", flush=True)
+    require(err <= tol, "the merged export serves other logits")
+    acc = vit_cp_cli.main(resume_args(model, tmp, dev)
+                          + ["--evaluate", ckpt, "--merged-eval"])
+    print(f"[export] --evaluate --merged-eval: accuracy {acc}", flush=True)
+    require(0.0 <= acc <= 1.0, f"--merged-eval accuracy {acc}")
+    files = []
+    for i in range(4):
+        files.append(os.path.join(tmp, f"img{i}.png"))
+        with open(files[-1], "wb") as f:
+            f.write(_png(images[i]))
+    t0 = time.perf_counter()
+    results = predict_cli.main(["--ckpt", ckpt, "--model", model, "--top",
+                                "2", "--device", str(dev), *files])
+    decoded = np.stack([normalize(load_image_u8(p, size).astype(np.float32)
+                                  / 255.0) for p in files])
+    top = np.argsort(-ref.logits(decoded), axis=-1)[:, 0]
+    print(f"[predict] {time.perf_counter() - t0:.3f} s: "
+          f"{[r['classes'] for r in results]}; the Predictor's top-1 "
+          f"{top.tolist()}", flush=True)
+    require([r["classes"][0] for r in results] == top.tolist(),
+            "cli.predict disagrees with the Predictor")
+    launched = read_launches(("fused_qkv_attention",))
+    require(launched["fused_qkv_attention"] > 0,
+            "the exported model's forward launched no attention kernel")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4084,11 +4515,20 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}", flush=True)
     if args.profile:
+        # Gradient accumulation and remat first.
+        profile_steps(dev, "element", label="4x16",
+                      step_kw={"grad_accum": 4})
+        for kw, label in (({}, "remat"), ({"remat": False}, "no-remat"),
+                          ({"grad_accum": 8}, "remat:8x8")):
+            profile_steps(dev, "full", model=MODEL_HUGE, label=label,
+                          step_kw=kw)
         for model in (MODEL, MODEL_384, MODEL_CLIP, MODEL_HUGE):
             for impl in ("element", "rank"):
                 profile_steps(dev, impl, model=model)
         for method in ("full", "linear"):
             profile_steps(dev, method)
+        profile_steps(dev, "full", label="no-remat",
+                      step_kw={"remat": False})
         for impl in ("element", "rank"):
             with save_switch("0"):
                 profile_steps(dev, impl, label="recompute")
@@ -4176,8 +4616,20 @@ def main(argv=None) -> int:
         launches[f"fused_qkv_attention_bwd_{n}"] = launches[
             "fused_qkv_attention_bwd"]
     other_routes_grad_check(dev, split["setup"])
-    del train, split
+    del split
     stamp("element and rank training")
+    # Gradient accumulation (4 x 16 against one pass of 64) and the NaN
+    # check on the element route's setup.
+    setup = train.pop("setup")
+    accum_phase(dev, setup)
+    nan_phase(dev, setup)
+    del train, setup
+    stamp("gradient accumulation and the NaN check")
+    # Resume and preemption through the CLI, then export, merged eval and
+    # predict on the relaunch's checkpoint.
+    with tempfile.TemporaryDirectory() as tmp:
+        export_phase(dev, resume_phase(dev, tmp), tmp)
+    stamp("resume, the build cache, profiling, export and predict")
     # The recompute forms of rows 8, 10 and 11, against the saved ones.
     launches.update(recompute_phase(dev))
     stamp("the recompute forms")
@@ -4233,6 +4685,7 @@ def main(argv=None) -> int:
                           path=FLASH_KERNELS,
                           idle=no_flash + BLOCKWISE_KERNELS + ADAPTER_KERNELS)
     launches.update({k: full["launches"][k] for k in FLASH_KERNELS})
+    remat_phase(dev, full.pop("setup"), 6, "[remat:full]", check_off=True)
     del full
     training_phase(dev, steps=10, plain_steps=2, method="linear",
                    path=no_flash[:1],
