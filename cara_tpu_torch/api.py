@@ -25,6 +25,7 @@ from cara_tpu_torch.config import (NO_ADAPTER, PORTED_METHODS, CaraConfig,
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import npz as npz_lib
 from cara_tpu_torch.models.cara import cara_param_shapes
+from cara_tpu_torch.models.torch_import import TORCH_SUFFIXES
 
 
 @dataclasses.dataclass
@@ -72,6 +73,7 @@ def build_model(
     seed: int = 0,
     backbone_path: Optional[str] = None,
     cp_order: int = 4,
+    delta_impl: str = "factorized",
     weight_dropout: Optional[float] = None,
     weight_dropout_impl: str = "element",
     model_overrides: Optional[Dict[str, Any]] = None,
@@ -82,8 +84,12 @@ def build_model(
     resolves to the method's default: the reference's 0.1 for CaRA, 0
     for ``linear`` / ``full``, whose adapter tree is empty
     (``cara_tpu/models/cara.py:142-147``).  ``weight_dropout_impl`` is
-    "element" (the reference's), "rank" or "row".  Other adapter methods
-    and delta paths are not ported (ROADMAP.md queue 1)."""
+    "element" (the reference's), "rank" or "row"; ``cp_order`` 2-5 and
+    ``delta_impl`` "factorized" or "materialized" (the dense deltas,
+    element-masked in training).  A ``backbone_path`` ending in .pt,
+    .pth or .bin is a HuggingFace CLIP vision tower
+    (``models/clip_import.py``), any other an npz.  Other adapter methods
+    are not ported (ROADMAP.md queue 1)."""
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method={method!r} is not yet ported to cara_tpu_torch "
@@ -95,14 +101,23 @@ def build_model(
         weight_dropout = 0.1 if method == "cara" else 0.0
     cara_cfg = CaraConfig(
         method=method, rank=rank, scale=scale, l_mu=l_mu, l_std=l_std,
-        cp_order=cp_order, weight_dropout=weight_dropout,
+        cp_order=cp_order, delta_impl=delta_impl,
+        weight_dropout=weight_dropout,
         weight_dropout_impl=weight_dropout_impl)
     # A given num_classes always gets a fresh head; otherwise the npz's
     # own head is kept where its width matches.
     load_cfg = cfg if num_classes is None else dataclasses.replace(
         cfg, num_classes=0)
+    if delta_impl not in ("factorized", "materialized"):
+        raise ValueError(f"delta_impl must be 'factorized' or "
+                         f"'materialized', got {delta_impl!r}")
     if backbone_path and os.path.exists(backbone_path):
-        params = npz_lib.load_npz_backbone(backbone_path, load_cfg)
+        if backbone_path.endswith(TORCH_SUFFIXES):
+            from cara_tpu_torch.models import clip_import
+
+            params = clip_import.load_clip_backbone(backbone_path, cfg)
+        else:
+            params = npz_lib.load_npz_backbone(backbone_path, load_cfg)
         params = npz_lib.maybe_resize_pos_embed(params, cfg)
     else:
         params = convert.init_vit_params(

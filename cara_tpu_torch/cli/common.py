@@ -28,8 +28,6 @@ UNPORTED = {
     "fact_scale": (None, _PEFT), "fact_core_rank": (0, _PEFT),
     "vpt_tokens": (8, _PEFT), "adapter_scale": (None, _PEFT),
     "adapter_dropout": (None, _PEFT), "moe": (None, _PEFT),
-    "delta_impl": ("factorized", "ROADMAP.md queue 1: CP orders and "
-                   "dim_experiment"),
     "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
     "dcn_mesh": (None, _PARALLEL), "pipeline": (None, _PARALLEL),
     "fsdp": (False, _PARALLEL), "distributed": (False, _PARALLEL),
@@ -87,7 +85,12 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--vpt-tokens", default=8, type=int)
     p.add_argument("--adapter-scale", default=None, type=float)
     p.add_argument("--adapter-dropout", default=None, type=float)
-    p.add_argument("--delta-impl", default="factorized", type=str)
+    p.add_argument("--delta-impl", default="factorized",
+                   choices=["factorized", "materialized"],
+                   help="CP delta path: factorized = rank-space (the "
+                        "kernels); materialized = the dense deltas with "
+                        "element-wise weight dropout (the reference's "
+                        "exact semantics, the XLA dense forms)")
     p.add_argument("--mesh", default=None, type=str)
     p.add_argument("--moe", default=None, type=str)
     p.add_argument("--hbm-gb", default=None, type=float)

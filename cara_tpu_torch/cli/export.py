@@ -1,5 +1,6 @@
 """Checkpoint export CLI (port of ``cara_tpu/cli/export.py``): a full
-checkpoint -> a merged or adapter-only artifact.
+checkpoint (an npz, or a reference ``.pt``, which needs ``--model``) ->
+a merged, adapter-only, full or reference ``.pt`` artifact.
 
 * ``--mode merged`` folds the CP adapter into the dense backbone (exact
   in eval): a plain ViT for serving, no adapter cost.  The fold runs in
@@ -8,12 +9,15 @@ checkpoint -> a merged or adapter-only artifact.
 * ``--mode adapter`` keeps only the CP factors and the head (an npz that
   both packages' ``load_adapter`` read).
 * ``--mode full`` re-saves a (backbone, adapter) pair as one artifact.
+* ``--mode torch`` writes the reference's ``.pt`` (a timm state dict with
+  ``CP_*``, ``models/torch_export.py``), which its ``--evaluate`` loads;
+  a ``.pt`` records no scale (the reference takes it from its task
+  table).
 
 The scale and model checks are JAX's: a merged or adapter export needs
 the delta scale (from the checkpoint's meta or ``--scale``) and a merge
 the model (meta or ``--model``).  ``--mode stablehlo`` and ``--tome-r``
-are not ported (ROADMAP.md queue 1: the PEFT zoo), nor ``--mode torch``
-and ``.pt`` input (ROADMAP.md queue 1: interop).
+are not ported (ROADMAP.md queue 1: the PEFT zoo).
 
     python -m cara_tpu_torch.cli.export --ckpt vit_svhn_*.npz \\
         --out merged.npz --mode merged [--device cpu]
@@ -28,24 +32,26 @@ import torch
 
 from cara_tpu_torch.cli.common import resolve_device
 from cara_tpu_torch.config import get_model_config
+from cara_tpu_torch.models import torch_import
 from cara_tpu_torch.models.convert import params_from_numpy
 from cara_tpu_torch.models.merge import merge_cara
+from cara_tpu_torch.models.torch_export import save_torch_checkpoint
 from cara_tpu_torch.train import checkpoint as ckpt_lib
 
 _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
-_INTEROP = "ROADMAP.md queue 1: interop"
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--ckpt", required=True, type=str,
-                   help="Input full-model checkpoint (.npz)")
+                   help="Input full-model checkpoint (.npz, or a "
+                        "reference .pt with --model)")
     p.add_argument("--out", required=True, type=str)
     p.add_argument("--mode", default="merged",
                    choices=["merged", "adapter", "full", "stablehlo",
                             "torch"],
-                   help="stablehlo and torch are not yet ported")
+                   help="stablehlo is not yet ported")
     p.add_argument("--model", default=None,
                    help="Model name (default: from checkpoint meta)")
     p.add_argument("--dim", default=32, type=int, help="CP rank")
@@ -87,9 +93,6 @@ def main(argv=None) -> str:
     if args.mode == "stablehlo":
         raise SystemExit(f"--mode stablehlo is not yet ported to "
                          f"cara_tpu_torch ({_PEFT})")
-    if args.mode == "torch" or args.ckpt.endswith((".pt", ".pth", ".bin")):
-        raise SystemExit(f".pt checkpoints (--mode torch, .pt input) are "
-                         f"not yet ported to cara_tpu_torch ({_INTEROP})")
     if args.quantize:
         raise SystemExit(
             "--quantize only applies to --mode stablehlo (npz modes keep "
@@ -98,22 +101,57 @@ def main(argv=None) -> str:
     if args.tome_r:
         raise SystemExit(f"--tome-r is not yet ported to cara_tpu_torch "
                          f"({_PEFT})")
-    params, cara_params, meta = ckpt_lib.load_model(args.ckpt)
-    if cara_params is None and args.mode != "full":
+    if torch_import.is_torch_checkpoint(args.ckpt):
+        # A reference .pt: converted in memory, then exported like an
+        # npz; it records no model name and no scale.
+        if args.model is None:
+            raise SystemExit(".pt import needs --model (torch checkpoints "
+                             "record no model name)")
+        params, cara_params, info = torch_import.load_torch_checkpoint(
+            args.ckpt, get_model_config(args.model))
+        meta = {"model": args.model}
+        if cara_params is not None:
+            meta["cp_order"] = info["cp_order"]
+    else:
+        params, cara_params, meta = ckpt_lib.load_model(args.ckpt)
+    if cara_params is None and args.mode not in ("full", "torch"):
+        # torch mode without an adapter: a merged checkpoint exports as a
+        # plain timm state dict.
         raise SystemExit("checkpoint has no adapter subtree")
     if args.scale is not None:
         scale = args.scale
     elif "scale" in meta:
         scale = float(meta["scale"])
-    elif args.mode == "full":
-        scale = None  # full re-saves the factors verbatim
+    elif args.mode in ("full", "torch"):
+        scale = None  # re-saved verbatim; a .pt carries no scale
     else:
         raise SystemExit(
             "checkpoint records no delta scale and --scale was not given; "
             "refusing to default to 1.0 (vtab_config scales span 0.1-100, "
             "a wrong scale silently mis-merges the adapter)")
 
-    if args.mode == "adapter":
+    if args.mode == "torch":
+        model_name = args.model or meta.get("model")
+        if model_name is None:
+            raise SystemExit(
+                "checkpoint records no model name and --model was not given")
+        mo = {k: v for k, v in meta.get("model_overrides", {}).items()
+              if k != "num_classes"}
+        cfg = get_model_config(model_name, **mo)
+        order = args.cp_order or int(meta.get("cp_order", 0)) or (
+            4 if cara_params is None else
+            max((int(k[1]) for k in cara_params
+                 if len(k) == 2 and k[0] == "A" and k[1].isdigit()),
+                default=4))
+        if cara_params is not None and "scale" in meta:
+            print(f"note: .pt carries no delta scale; upstream --evaluate "
+                  f"applies its per-task vtab_config table — this "
+                  f"checkpoint was trained with scale={meta['scale']}")
+        try:
+            save_torch_checkpoint(args.out, params, cara_params, cfg, order)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+    elif args.mode == "adapter":
         ckpt_lib.save_adapter(args.out, cara_params, params.get("head"),
                               {**meta, "scale": scale})
     elif args.mode == "merged":

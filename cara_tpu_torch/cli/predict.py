@@ -8,8 +8,9 @@ with the adapter folded into the dense weights (``--no-merge`` keeps
 it), and prints one JSON line an image: its top-k classes and their
 logits.  The native C++ decoder that JAX tries first is not ported
 (ROADMAP.md queue 1: training modules still to port), nor
-``--exported`` and ``--tome-r`` (ROADMAP.md queue 1: the PEFT zoo) or
-``.pt`` checkpoints (ROADMAP.md queue 1: interop).
+``--exported`` and ``--tome-r`` (ROADMAP.md queue 1: the PEFT zoo).  A
+reference ``.pt`` checkpoint needs ``--scale`` when it carries an
+adapter.
 
     python -m cara_tpu_torch.cli.predict --ckpt vit_svhn_*.npz \\
         --model vit_base_patch16_224_in21k images/*.png [--device cpu]
@@ -64,9 +65,6 @@ def main(argv=None):
                          f"cara_tpu_torch ({_PEFT})")
     if args.ckpt is None:
         raise SystemExit("pass --ckpt")
-    if args.ckpt.endswith((".pt", ".pth", ".bin")):
-        raise SystemExit(".pt checkpoints are not yet ported to "
-                         "cara_tpu_torch (ROADMAP.md queue 1: interop)")
     try:
         pred = Predictor.from_checkpoint_auto(
             args.ckpt, args.model, num_classes=args.num_classes,

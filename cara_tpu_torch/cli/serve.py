@@ -1,14 +1,18 @@
 """Online inference daemon: HTTP serving with dynamic micro-batching on the
-GPU (port of ``cara_tpu/cli/serve.py``, single task).
+GPU (port of ``cara_tpu/cli/serve.py``).
 
 Run: ``python -m cara_tpu_torch.cli.serve --ckpt vit_cifar_*.npz --port 8000``
-(add ``--no-merge`` to keep the adapter unfolded).  ``--quantize int8``
-serves int8 block weights (weight-only), ``--quantize w8a8`` int8
-activations too (``models/quant.py``); with ``CARA_INT8_PALLAS=1`` in the
-environment the weight-only GEMMs run the dequant-fused int8 kernel on
-the card (TPU row 18).  The options of the JAX CLI that serve a
-StableHLO artifact, several tasks or ToMe are accepted but refused,
-naming the ROADMAP item that ports them.
+(add ``--no-merge`` to keep the adapter unfolded; a reference ``.pt``
+needs ``--scale``).  ``--quantize int8`` serves int8 block weights
+(weight-only), ``--quantize w8a8`` int8 activations too
+(``models/quant.py``); with ``CARA_INT8_PALLAS=1`` in the environment the
+weight-only GEMMs run the dequant-fused int8 kernel on the card (TPU row
+18).  Several ``--ckpt`` (each ``name=path``, or a path named by the
+dataset in its meta) serve those task adapters over one shared backbone
+(``serving.MultiTaskPredictor``; ``--backbone X.npz`` where every
+checkpoint is adapter-only): ``POST /predict?task=<name>``.  The options
+of the JAX CLI that serve a StableHLO artifact or ToMe are accepted but
+refused, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -17,17 +21,18 @@ import argparse
 
 import torch
 
-from cara_tpu_torch.serving import Predictor
+from cara_tpu_torch.serving import MultiTaskPredictor, Predictor
 
 _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
-_MULTI_TASK = "ROADMAP.md queue 1: MultiTaskPredictor"
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--ckpt", action="append", default=None,
-                   help="Checkpoint (.npz) written by either package")
+                   help="Checkpoint (.npz written by either package, or a "
+                        "reference .pt); repeat as name=path to serve "
+                        "several tasks over one backbone")
     p.add_argument("--model", default="vit_base_patch16_224_in21k")
     p.add_argument("--num-classes", default=None, type=int)
     p.add_argument("--scale", default=None, type=float,
@@ -65,9 +70,33 @@ def parse_args(argv=None):
                         "kernel), 'w8a8' int8 activations too")
     # JAX-CLI options whose paths are not yet ported: refused below.
     p.add_argument("--exported", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--backbone", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--backbone", default=None,
+                   help="Multi-task: the shared backbone npz when every "
+                        "--ckpt is adapter-only")
     p.add_argument("--tome-r", default=0, type=int, help=argparse.SUPPRESS)
     return p.parse_args(argv)
+
+
+def _task_name(spec: str) -> tuple:
+    """'name=path' -> (name, path); a bare path -> (the dataset in its
+    meta, or its stem; path).  A bare path that holds '=' (runs/lr=1e-3/
+    best.npz) is recognized by existing on disk and never split."""
+    import json
+    import os
+
+    import numpy as np
+
+    if "=" in spec and not os.path.exists(spec):
+        return tuple(spec.split("=", 1))
+    name = None
+    try:
+        with np.load(spec) as z:
+            if "__meta__" in z.files:
+                name = json.loads(
+                    bytes(z["__meta__"].tolist()).decode()).get("dataset")
+    except Exception:
+        pass
+    return (name or os.path.splitext(os.path.basename(spec))[0], spec)
 
 
 def _parse_buckets(spec: str):
@@ -80,24 +109,41 @@ def _parse_buckets(spec: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, value, item in (
-            ("--exported", args.exported, _PEFT),
-            ("--backbone", args.backbone, _MULTI_TASK),
-            ("--tome-r", args.tome_r, _PEFT)):
+    for flag, value in (("--exported", args.exported),
+                        ("--tome-r", args.tome_r)):
         if value:
             raise SystemExit(f"{flag} is not yet ported to cara_tpu_torch "
-                             f"({item}; use python -m cara_tpu.cli.serve)")
+                             f"({_PEFT}; use python -m cara_tpu.cli.serve)")
     if not args.ckpt:
         raise SystemExit("pass --ckpt")
+    kw = dict(batch_size=args.max_batch, dtype=getattr(torch, args.dtype),
+              device=args.device, buckets=_parse_buckets(args.buckets),
+              quantize=args.quantize)
     if len(args.ckpt) > 1:
-        raise SystemExit("multi-task serving (several --ckpt) is not yet "
-                         f"ported to cara_tpu_torch ({_MULTI_TASK})")
-    pred = Predictor.from_checkpoint_auto(
-        args.ckpt[0], args.model, num_classes=args.num_classes,
-        scale=args.scale, merge=not args.no_merge,
-        batch_size=args.max_batch, dtype=getattr(torch, args.dtype),
-        device=args.device, buckets=_parse_buckets(args.buckets),
-        quantize=args.quantize)
+        if args.no_merge:
+            raise SystemExit("--no-merge is a single-task option "
+                             "(multi-task serving always runs the "
+                             "shared-backbone adapter path)")
+        if args.scale is not None or args.num_classes is not None:
+            raise SystemExit("--scale/--num-classes are single-task "
+                             "options; per-task scale/head come from each "
+                             "checkpoint's meta in multi-task mode")
+        named = [_task_name(c) for c in args.ckpt]
+        ckpts = dict(named)
+        if len(ckpts) != len(named):
+            dupes = sorted({n for n, _ in named
+                            if sum(1 for m, _ in named if m == n) > 1})
+            raise SystemExit(
+                f"duplicate task name(s) {dupes} — disambiguate with "
+                "explicit name=path specs")
+        pred = MultiTaskPredictor.from_checkpoints(
+            ckpts, args.model, backbone=args.backbone, **kw)
+        print(f"multi-task: {len(ckpts)} adapters over one backbone "
+              f"({', '.join(ckpts)})", flush=True)
+    else:
+        pred = Predictor.from_checkpoint_auto(
+            args.ckpt[0], args.model, num_classes=args.num_classes,
+            scale=args.scale, merge=not args.no_merge, **kw)
 
     from cara_tpu_torch.server import InferenceServer
 

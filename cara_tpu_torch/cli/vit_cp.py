@@ -19,7 +19,10 @@ flash attention for ``full``) and keeps the best checkpoint as
 ``vit_{dataset}_{acc}_seed_{seed}.npz`` in ``--out-dir``, a file both
 packages' ``load_model`` and serve CLIs read.  ``--evaluate X.npz`` only
 evaluates (a checkpoint of ``full`` through the flash attention;
-``--merged-eval`` folds the adapter into the dense weights first).  On
+``--merged-eval`` folds the adapter into the dense weights first; a
+reference ``.pt`` takes its rank and CP order from the file and its scale
+from the task table).  ``--delta-impl materialized`` trains on the dense
+deltas (the XLA dense forms, element-wise weight dropout).  On
 ``--device cpu`` every kernel runs its plain PyTorch version.
 
 The JAX CLI's single-device training features are ported:
@@ -42,6 +45,7 @@ from cara_tpu_torch.config import NO_ADAPTER
 from cara_tpu_torch.data import vtab as vtab_lib
 from cara_tpu_torch.data.vtab_config import get_task_hparams
 from cara_tpu_torch.models.convert import params_from_numpy
+from cara_tpu_torch.models import torch_import
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.train import checkpoint as ckpt_lib
 from cara_tpu_torch.train import loop as loop_lib
@@ -83,7 +87,7 @@ def main(argv=None) -> float:
     model = api.build_model(
         args.model, method=args.method, rank=args.dim, scale=scale,
         l_mu=hp.init_mean, l_std=hp.init_std, num_classes=num_classes,
-        seed=seed, backbone_path=args.backbone,
+        seed=seed, backbone_path=args.backbone, delta_impl=args.delta_impl,
         weight_dropout=weight_dropout,
         weight_dropout_impl=args.weight_dropout_impl, model_overrides=mo)
     train_loader, eval_loader = vtab_lib.get_data(
@@ -98,13 +102,19 @@ def main(argv=None) -> float:
     } if args.wandb else None, enabled=True)
     if args.evaluate is not None:
         print("Only evaluation")
-        if args.evaluate.endswith((".pt", ".pth")):
-            raise SystemExit(
-                "reference .pt checkpoints are not yet ported (ROADMAP.md "
-                "queue 1: interop, models/torch_import.py)")
-        params, cara_params, meta = ckpt_lib.load_model(args.evaluate)
-        params = params_from_numpy(params, device, torch.float32)
         cara_cfg = model.cara_cfg
+        if torch_import.is_torch_checkpoint(args.evaluate):
+            # A reference .pt: scale and lambda init come from the task
+            # table (model.cara_cfg), rank and order from the artifact.
+            params, cara_params, info = torch_import.load_torch_checkpoint(
+                args.evaluate, model.cfg)
+            meta = {}
+            if cara_params is not None:
+                cara_cfg = dataclasses.replace(
+                    cara_cfg, rank=info["rank"], cp_order=info["cp_order"])
+        else:
+            params, cara_params, meta = ckpt_lib.load_model(args.evaluate)
+        params = params_from_numpy(params, device, torch.float32)
         if cara_params is not None:
             cara_params = params_from_numpy(cara_params, device,
                                             torch.float32)

@@ -120,21 +120,27 @@ def qkv_delta(x: torch.Tensor, params: Dict[str, torch.Tensor],
               materialized: bool, drop_mask: Optional[torch.Tensor] = None,
               comp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-layer qkv delta of the XLA block forms (``cara_tpu``'s
-    ``qkv_delta``), orders 3, 4 and 5: ``x`` (B, N, E) the attention
-    input (post-LN), ``f1`` this layer's A1 slice -> (B, N, 3, H, Dh),
+    ``qkv_delta``), orders 2-5: ``x`` (B, N, E) the attention input
+    (post-LN), ``f1`` this layer's A1 slice -> (B, N, 3, H, Dh),
     unscaled.  ``materialized`` builds the dense (3, E, H*Dh) tensor and
     multiplies it by ``drop_mask`` (the inverted element mask, or None);
     otherwise the rank-space chain with ``comp_mask`` (r,) on lambda.
-    The masks are drawn by the caller."""
+    Order 2 always materializes (its contract mode is E*E, so the chain
+    saves nothing; ``cara.py:283-292``) and takes ``drop_mask`` on every
+    route.  The masks are drawn by the caller."""
     from cara_tpu_torch.ops import cp as cp_ops
 
     e, h, d = model.embed_dim, model.num_heads, model.head_dim
     b, n = x.shape[:2]
     order = cara.cp_order
-    if order not in (3, 4, 5):
-        raise NotImplementedError(
-            f"qkv_delta of cp_order={order} is not yet ported (ROADMAP.md "
-            "queue 1: CP orders and dim_experiment)")
+    if order not in (2, 3, 4, 5):
+        raise ValueError(f"cp_order must be in {{2,3,4,5}}, got {order}")
+    if order == 2:
+        t = cp_ops.cp_to_tensor(params["R1"], (f1, params["A2"]))
+        t = t.reshape(3, e, e)
+        if drop_mask is not None:
+            t = t * drop_mask
+        return torch.einsum("bne,keo->bnko", x, t).reshape(b, n, 3, h, d)
     if materialized:
         if order == 5:
             t = cp_ops.cp_to_tensor(

@@ -40,6 +40,10 @@ layer loop is plain Python (eager PyTorch has no ``scan`` to lower).
 * ``dense_impl="xla"``: the GEMMs (``F.linear``, as XLA ops outside any
   Pallas kernel in the reference) with the CP deltas of ``ops/cp.py``
   beside them, the element route's masks on the materialized deltas.
+  CaRA at CP order 2 (whose qkv delta is always the dense (3, E, E)
+  tensor) and with ``delta_impl="materialized"`` (every site's dense
+  delta, masked element-wise in training on any weight-dropout route)
+  always take this form, as on the TPU.
   Blocks quantized by ``models/quant.py`` (int8 quant dicts in place of
   the four block kernels) take this form only ("auto" resolves to it,
   "fused" is refused): :func:`matk` computes each GEMM, the bias added
@@ -197,6 +201,14 @@ def _keep_mask(shape, rate: float, generator, device) -> torch.Tensor:
         1.0 - rate, generator=generator)
 
 
+def materialized_delta(cara_cfg: Optional[CaraConfig]) -> bool:
+    """Whether an adapter's dense deltas are materialized on every site
+    (``delta_impl="materialized"``): then its weight dropout is the
+    element mask on each dense delta, whatever ``weight_dropout_impl``
+    says (``vit.py:477-499``)."""
+    return cara_cfg is not None and cara_cfg.delta_impl == "materialized"
+
+
 def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
                      batch: int, attn_impl: str = "fused",
                      dense_impl: str = "fused") -> Dict[str, tuple]:
@@ -205,10 +217,13 @@ def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
     ``"weight"`` (the inverted element mask of weight dropout on a dense
     delta of the XLA forms): ``do1`` / ``do2`` / ``do3`` (the proj, GELU
     and fc2 outputs; ``k_do1..3``), ``attn`` (the probabilities of
-    ``mha``; ``k_attn``), and on the element route ``qkv`` where the qkv
-    delta is the XLA one (any attention but the fused one without
-    attention dropout, or ``dense_impl="xla"``) and ``proj`` / ``fc1`` /
-    ``fc2`` under ``dense_impl="xla"`` (``k_wd_*``)."""
+    ``mha``; ``k_attn``), and the dense masks (``k_wd_*``): ``qkv`` where
+    the qkv delta is the XLA one (any attention but the fused one without
+    attention dropout, or ``dense_impl="xla"``) on the element route, with
+    the materialized delta, and at CP order 2 on every route but the row
+    one (order 2 always materializes its qkv delta); ``proj`` / ``fc1`` /
+    ``fc2`` under ``dense_impl="xla"`` on the element route and with the
+    materialized delta."""
     e, h, n, hid = cfg.embed_dim, cfg.num_heads, cfg.seq_len, cfg.hidden_dim
     out = {}
     if cfg.dropout_rate > 0.0:
@@ -216,14 +231,17 @@ def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
                    do3=((batch, n, e), "keep"))
     if cfg.attn_dropout_rate > 0.0:
         out["attn"] = ((batch, h, n, n), "keep")
-    if (cara_cfg is not None and cara_cfg.weight_dropout_impl == "element"
-            and cara_cfg.weight_dropout > 0.0):
-        fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
-        if dense_impl == "xla" or not fused_attn:
+    if cara_cfg is None or cara_cfg.weight_dropout <= 0.0:
+        return out
+    impl = cara_cfg.weight_dropout_impl
+    dense = materialized_delta(cara_cfg) or impl == "element"
+    fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
+    if dense_impl == "xla" or not fused_attn:
+        if dense or (cara_cfg.cp_order == 2 and impl != "row"):
             out["qkv"] = ((3, e, e), "weight")
-        if dense_impl == "xla":
-            out.update(proj=((e, e), "weight"), fc1=((hid, e), "weight"),
-                       fc2=((hid, e), "weight"))
+    if dense_impl == "xla" and dense:
+        out.update(proj=((e, e), "weight"), fc1=((hid, e), "weight"),
+                   fc2=((hid, e), "weight"))
     return out
 
 
@@ -244,7 +262,7 @@ def draw_layer_masks(specs, cfg: ViTConfig, cara_cfg, generator, device,
 
 
 def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
-           rand=None, attn_impl="fused", dense_impl="fused"):
+           rand=None, attn_impl="fused", dense_impl="fused", scale=None):
     """One transformer block (``cara_tpu``'s ``_block``).  In eval
     (``rand`` None) drop-path and dropout are identities; in training
     ``rand`` holds the layer's randomness: ``seeds`` (qkv, proj, fc1,
@@ -253,7 +271,9 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     masks or None), and ``masks``, this layer's :func:`layer_mask_specs`
     masks, or None to draw them now from ``generator``.  ``attn_impl``
     ("fused", "flash" or "xla") and ``dense_impl`` ("fused" or "xla")
-    pick the forms as the TPU's ``_block`` does."""
+    pick the forms as the TPU's ``_block`` does.  ``scale`` (a 0-d
+    tensor in ``x.dtype``, or None for ``cara_cfg.scale``) is the delta
+    scale."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -264,7 +284,10 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     long = n > fqa_mod.MAX_NP_FULL_SCORES
     use_cara = cara_params is not None
     rate = cara_cfg.weight_dropout if use_cara else 0.0
-    use_elem = (train and use_cara and rate > 0.0
+    # The materialized delta (and CP order 2, whose dense forms
+    # ``resolve_impls`` pins) draws its element masks in ``masks``.
+    materialized = use_cara and materialized_delta(cara_cfg)
+    use_elem = (train and use_cara and rate > 0.0 and not materialized
                 and cara_cfg.weight_dropout_impl == "element")
     fused_dense = dense_impl == "fused" and use_cara
     fused_plain = dense_impl == "fused" and not use_cara
@@ -278,7 +301,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                  and not long)
     mlp_mega = (fused_dense or fused_plain) and cfg.dropout_rate == 0.0
     comp = rows = None
-    if train and use_cara and not use_elem:
+    if train and use_cara and not use_elem and not materialized:
         comp, rows = rand.get("comp"), rand.get("rows")
     masks = None
     if train:
@@ -302,8 +325,9 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
             t = dropout(t, cfg.dropout_rate, masks[name])
         return x + t * gate(i)
 
-    def wmask(name):  # the element route's mask on a dense XLA delta
-        return masks[name].to(dt) if use_elem else None
+    def wmask(name):  # the element mask on a dense XLA delta
+        m = None if masks is None else masks.get(name)
+        return None if m is None else m.to(dt)
 
     def site_comp(site):
         return None if comp is None else comp[site]
@@ -318,7 +342,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         return fqa_mod.fused_qkv_attention(qkv, h, d ** -0.5, n, impl=impl)
 
     if use_cara:
-        s = cara_cfg.scale
+        s = cara_cfg.scale if scale is None else scale
 
         def fold(t):  # the delta scale rides the factors; kernels at s=1
             return (t * s).to(dt).contiguous()
@@ -332,6 +356,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
 
         p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
         p1_up, p1_down = p1[1:1 + mr], p1[1 + mr:1 + 2 * mr]
+    if fused_dense:  # the kernels' collapsed (U, V) pairs
         u1, v1 = site_uv(0, cara_lib.qkv_uv, cara_params, f1, cfg, cara_cfg)
         u2, v2 = site_uv(1, cara_lib.rows_out_uv, p1[0:1], p2, p3, r2)
         cb_proj = fold(cara_params["bias1"])
@@ -375,8 +400,8 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
             if use_cara:
                 delta = cara_lib.qkv_delta(
                     row_x(xa, 0), cara_params, f1, cfg, cara_cfg,
-                    materialized=use_elem, drop_mask=wmask("qkv"),
-                    comp_mask=site_comp(0))
+                    materialized=use_elem or materialized,
+                    drop_mask=wmask("qkv"), comp_mask=site_comp(0))
                 qkv = qkv + delta.reshape(b, n, 3 * e).to(dt) * s
         if attn_proj:  # the attention output stays in the kernel
             proj = fqa_mod.fused_qkv_attention_proj(
@@ -405,7 +430,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                                           impl=impl)
             else:
                 proj = _dense(attn_out, bp["proj"], impl)
-                if use_elem:
+                if use_elem or materialized:
                     pd = cp_ops.rows_delta_out_materialized(
                         attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
                 elif use_cara:
@@ -416,7 +441,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         x = branch(proj, 0, "do1")
 
     # --- MLP (vit.py:835-1087) ---
-    if use_cara:
+    if fused_dense:
         u3, v3 = site_uv(2, cara_lib.rows_out_uv, p1_up, p2, p3, r2)
         u4, v4 = site_uv(3, cara_lib.rows_in_uv, p1_down, p2, p3, r2)
         fc_args = (bp["fc1"]["kernel"], bp["fc1"]["bias"], u3, v3,
@@ -451,7 +476,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     else:
         xm = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.layernorm_eps)
         up = _dense(xm, bp["fc1"], impl)
-        if use_elem:
+        if use_elem or materialized:
             ud = cp_ops.rows_delta_out_materialized(xm, p1_up, p2, p3, r2,
                                                     wmask("fc1"))
         elif use_cara:
@@ -469,7 +494,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         down = dense_mod.cp_dense(hidden, *fc2_args, 1.0, impl=impl)
     else:
         down = _dense(hidden, bp["fc2"], impl)
-        if use_elem:
+        if use_elem or materialized:
             dd = cp_ops.rows_delta_in_materialized(hidden, p1_down, p2, p3,
                                                    r2, wmask("fc2"))
         elif use_cara:
@@ -490,11 +515,6 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
         raise NotImplementedError(
             f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
             "not yet ported (ROADMAP.md queue 1: the PEFT zoo)")
-    if cara_cfg.cp_order == 2 or cara_cfg.delta_impl == "materialized":
-        raise NotImplementedError(
-            "cp_order=2 and delta_impl='materialized' train on the "
-            "materialized delta, not yet ported (ROADMAP.md queue 1: CP "
-            "orders and dim_experiment)")
     if cara_cfg.weight_dropout_impl not in WEIGHT_DROPOUT_IMPLS:
         raise ValueError(
             f"weight_dropout_impl must be one of {WEIGHT_DROPOUT_IMPLS}, "
@@ -532,6 +552,8 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
         gates.append(mask.to(dtype) / keep.to(dtype).to(device))
     out = {"seeds": seeds, "gates": torch.stack(gates)}
     rate = 0.0 if cara_cfg is None else cara_cfg.weight_dropout
+    if materialized_delta(cara_cfg):
+        rate = 0.0  # element masks on the dense deltas, in ``masks``
     if rate > 0.0 and cara_cfg.weight_dropout_impl == "rank":
         out["comp"] = weight_dropout_mask((depth, 4, cara_cfg.rank), rate,
                                           dtype, generator, device)
@@ -573,7 +595,10 @@ def resolve_impls(attn_impl: str, dense_impl: str,
     attention for "fused" and refuses the fused dense sites, whose
     backward gives the backbone no gradient.  ``quantized`` blocks (int8
     quant dicts) take the XLA dense forms, with or without an adapter,
-    and refuse "fused" (``vit.py:1297-1311``)."""
+    and refuse "fused" (``vit.py:1297-1311``).  CaRA at CP order 2 or
+    with the materialized delta takes the XLA dense forms, whatever is
+    asked: the fused sites consume the rank-space (U, V) pair, which
+    neither has (``vit.py:562-563``, ``resolve_dense_impl``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -582,6 +607,9 @@ def resolve_impls(attn_impl: str, dense_impl: str,
                          f"{dense_impl!r}")
     method = None if cara_cfg is None else cara_cfg.method
     attn_impl = "fused" if attn_impl == "auto" else attn_impl
+    if method == "cara" and (cara_cfg.cp_order == 2
+                             or materialized_delta(cara_cfg)):
+        dense_impl = "xla"
     if dense_impl == "auto":
         dense_impl = "fused" if method == "cara" and not quantized else "xla"
     if quantized and dense_impl == "fused":
@@ -606,7 +634,9 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 generator: Optional[torch.Generator] = None,
                 randomness: Optional[Dict[str, Any]] = None,
                 attn_impl: str = "auto",
-                dense_impl: str = "auto", remat=False) -> torch.Tensor:
+                dense_impl: str = "auto", remat=False,
+                scale_override: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """Images (B, H, W, C) NHWC -> logits (B, num_classes).
 
     ``params`` / ``cara_params`` are tensor trees on ``x``'s device (see
@@ -625,7 +655,13 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     outputs and recomputes the rest (PyTorch's selective checkpoint
     policy), False keeps everything.  The layer's dropout masks are drawn
     before its checkpointed body, so the recompute sees the same masks;
-    every other random input of the block comes from ``randomness``."""
+    every other random input of the block comes from ``randomness``.
+
+    ``scale_override`` (``vit.py:1180``): a 0-d tensor replacing
+    ``cara_cfg.scale``, cast to the compute dtype as JAX casts it; it
+    rides the collapsed factors (``v * s``, ``cb * s``), so one set of
+    kernel calls at scale 1 serves every per-task scale
+    (``serving.MultiTaskPredictor``)."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
@@ -643,10 +679,6 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
             raise NotImplementedError(
                 f"method={cara_cfg.method!r} (moe={cara_cfg.moe}) is not yet "
                 "ported to cara_tpu_torch; CaRA adapters only")
-        if cara_cfg.cp_order == 2:
-            raise NotImplementedError(
-                "cp_order=2 has no rank-space form for the block kernels "
-                "and its materialized path is not yet ported")
         if not isinstance(cara_params, dict) or "A1" not in cara_params:
             raise ValueError("cara_cfg.method='cara' wants the CP factor tree "
                              "(A1..., P1-P3, R1/R2, bias1-3)")
@@ -662,6 +694,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     if cara_params is not None:
         a1, p1 = cara_lib.stacked_layer_slices(cara_params, cfg, cara_cfg)
     blocks = _unstack(params["blocks"], cfg.depth)
+    if scale_override is not None:
+        scale_override = scale_override.to(tokens.dtype)
     remat = remat and train and torch.is_grad_enabled()
     for layer in range(cfg.depth):
         rand = None
@@ -684,7 +718,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
             _block, bp=blocks[layer], f1=None if a1 is None else a1[layer],
             p1=None if p1 is None else p1[layer], cfg=cfg,
             cara_params=cara_params, cara_cfg=cara_cfg, impl=impl,
-            rand=rand, attn_impl=attn_impl, dense_impl=dense_impl)
+            rand=rand, attn_impl=attn_impl, dense_impl=dense_impl,
+            scale=scale_override)
         if remat:
             # Every random input is drawn already: no RNG state to keep.
             tokens = checkpoint_lib.checkpoint(

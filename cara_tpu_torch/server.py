@@ -196,9 +196,13 @@ class InferenceServer:
 
     Endpoints:
       ``POST /predict``  image bytes -> ``{"class", "classes", "scores",
-                         "batched_with", "latency_ms"}``
-      ``GET /healthz``   liveness + model info
-      ``GET /stats``     batcher counters (occupancy, latency)
+                         "batched_with", "latency_ms"}``; with a
+                         :class:`~cara_tpu_torch.serving.MultiTaskPredictor`,
+                         ``POST /predict?task=<name>`` routes to that
+                         task's batcher (one a task; 400 without ``task``,
+                         404 for an unknown one)
+      ``GET /healthz``   liveness + model info (+ the served task names)
+      ``GET /stats``     batcher counters (occupancy, latency), per task
     """
 
     def __init__(self, predictor, *, host: str = "127.0.0.1",
@@ -208,9 +212,15 @@ class InferenceServer:
         self._pred = predictor
         self._top = top
         self._timeout = request_timeout_s
-        self.batcher = MicroBatcher(predictor.logits_async,
-                                    predictor.batch_size, max_wait_ms,
-                                    max_wait_cap_ms=max_wait_cap_ms)
+        self.batchers = {}
+        for t in getattr(predictor, "names", None) or [None]:
+            fn = (predictor.logits_async if t is None
+                  else (lambda imgs, _t=t: predictor.logits_async(imgs, _t)))
+            self.batchers[t] = MicroBatcher(fn, predictor.batch_size,
+                                            max_wait_ms,
+                                            max_wait_cap_ms=max_wait_cap_ms)
+        self.batcher = next(iter(self.batchers.values()))  # default route
+        batchers = self.batchers
         image_size = predictor.cfg.image_size
         outer = self
 
@@ -230,26 +240,55 @@ class InferenceServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    self._json(200, {"status": "ok",
-                                     "image_size": image_size,
-                                     "max_batch": outer.batcher.max_batch})
+                    info = {"status": "ok", "image_size": image_size,
+                            "max_batch": outer.batcher.max_batch}
+                    if None not in batchers:
+                        info["tasks"] = list(batchers)
+                    self._json(200, info)
                 elif self.path == "/stats":
-                    self._json(200, outer.batcher.snapshot())
+                    if None in batchers:
+                        self._json(200, outer.batcher.snapshot())
+                    else:
+                        self._json(200, {t: b.snapshot()
+                                         for t, b in batchers.items()})
                 else:
                     self._json(404, {"error": f"no route {self.path}"})
 
             def do_POST(self):
-                if self.path != "/predict":
-                    self._json(404, {"error": f"no route {self.path}"})
-                    return
+                from urllib.parse import parse_qs, urlparse
+
+                # The body is read before any answer: an error answer that
+                # left it unread could reset the client's connection.
                 try:
-                    n = int(self.headers.get("Content-Length", 0))
-                    img = decode_image_bytes(self.rfile.read(n), image_size)
+                    body = self.rfile.read(
+                        int(self.headers.get("Content-Length", 0)))
+                except ValueError as exc:
+                    self._json(400, {"error": f"bad request: {exc}"})
+                    return
+                url = urlparse(self.path)
+                if url.path != "/predict":
+                    self._json(404, {"error": f"no route {url.path}"})
+                    return
+                task = parse_qs(url.query).get("task", [None])[0]
+                if None in batchers:  # single-task predictor
+                    batcher = batchers[None]
+                elif task is None:
+                    self._json(400, {"error": "multi-task server: pass "
+                                     "?task=<name>", "tasks": list(batchers)})
+                    return
+                elif task not in batchers:
+                    self._json(404, {"error": f"unknown task {task!r}",
+                                     "tasks": list(batchers)})
+                    return
+                else:
+                    batcher = batchers[task]
+                try:
+                    img = decode_image_bytes(body, image_size)
                 except Exception as exc:
                     self._json(400, {"error": f"bad image: {exc}"})
                     return
                 try:
-                    row, req = outer.batcher.submit(img).result(
+                    row, req = batcher.submit(img).result(
                         timeout=outer._timeout)
                 except TimeoutError:
                     # A bare TimeoutError stringifies to "" — say what
@@ -301,4 +340,5 @@ class InferenceServer:
         self._httpd.server_close()
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=5)
-        self.batcher.close()
+        for b in self.batchers.values():
+            b.close()

@@ -1,4 +1,4 @@
-"""Inference / serving path (port of ``cara_tpu/serving.py``, single task).
+"""Inference / serving path (port of ``cara_tpu/serving.py``).
 
 Load a checkpoint once, fold the adapter into dense weights (exact in
 eval) or keep it, keep the weights resident on ``device`` in the serving
@@ -14,8 +14,13 @@ an unmerged adapter's delta adds on top.  With ``CARA_INT8_PALLAS=1`` in
 the environment (read at each forward) the weight-only GEMMs on the card
 run the dequant-fused int8 kernel (TPU row 18).
 
-``MultiTaskPredictor``, the StableHLO export and ToMe stay in
-``cara_tpu`` for now.
+:class:`MultiTaskPredictor` serves T CaRA task adapters over one shared
+frozen backbone: the tasks' factor trees and zero-padded heads are
+stacked on the device and a task is picked by index, its delta scale
+riding the collapsed factors (``vit_forward(scale_override=...)``), so
+every task runs the same kernel calls.  The StableHLO export
+(``ExportedPredictor``) and ToMe stay in ``cara_tpu`` for now (ROADMAP.md
+queue 1: the PEFT zoo).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models.quant import (
     column_major_codes, quantize_block_weights)
 from cara_tpu_torch.models.vit import vit_forward
+
+_PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 
 
 def _dispatch_batched(call, images, batch_size: int,
@@ -143,14 +150,23 @@ class Predictor:
     def from_checkpoint_auto(cls, ckpt: str, model: str,
                              num_classes: Optional[int] = None,
                              scale: Optional[float] = None, **kw):
-        """Build from an npz checkpoint, inferring num_classes from the
-        stored head and the delta scale / rank / order from its meta;
-        refuses to default a missing scale."""
+        """Build from a checkpoint, inferring num_classes from the stored
+        head and the delta scale / rank / order from its meta; refuses to
+        default a missing scale.  A reference ``.pt`` (``models/
+        torch_import.py``) records no scale: ``scale`` is then required
+        when it carries an adapter."""
         from cara_tpu_torch.config import get_model_config
+        from cara_tpu_torch.models import torch_import
         from cara_tpu_torch.train.checkpoint import (
             infer_cara_cfg, load_model)
 
-        params, cara_params, meta = load_model(ckpt)
+        if torch_import.is_torch_checkpoint(ckpt):
+            params, cara_params, info = torch_import.load_torch_checkpoint(
+                ckpt, get_model_config(model))
+            meta = ({"cp_order": info["cp_order"]}
+                    if cara_params is not None else {})
+        else:
+            params, cara_params, meta = load_model(ckpt)
         if num_classes is None and "head" in params:
             num_classes = int(params["head"]["kernel"].shape[-1])
         mo = {k: v for k, v in meta.get("model_overrides", {}).items()
@@ -190,3 +206,180 @@ class Predictor:
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         return np.argmax(self.logits(images), axis=-1)
+
+
+class MultiTaskPredictor:
+    """Serve T task adapters over ONE shared frozen backbone.
+
+    The backbone stays resident once, beside the T stacked adapters and
+    heads; a task is an index into the stacks (views, no copy), and its
+    delta scale a 0-d tensor that ``vit_forward`` folds into the
+    collapsed factors (``v * s``, ``cb * s``) with the kernels at scale
+    1, as ``cara_tpu``'s does (``vit.py:663-672``).  The adapters must
+    share the CP rank and order; they may differ in delta scale, head
+    width and class count (the heads are zero-padded to the widest and
+    the logits sliced back)."""
+
+    def __init__(self, params: Dict[str, Any], cfg: ViTConfig,
+                 tasks: Dict[str, Dict[str, Any]], *, batch_size: int = 64,
+                 dtype: torch.dtype = torch.bfloat16, device="cuda",
+                 quantize: Optional[str] = None, buckets="auto"):
+        """``tasks``: ordered ``{name: {"cara": factor tree, "head":
+        {kernel, bias}, "scale": float, "cp_order": int}}`` (numpy or
+        tensor trees).  ``quantize``: "int8" (weight-only) or "w8a8" on
+        the shared backbone's block kernels only; the per-task deltas and
+        heads stay in ``dtype`` and add on top of the quantized GEMMs."""
+        import dataclasses
+
+        if not tasks:
+            raise ValueError("no tasks given")
+        if quantize not in (None, "int8", "w8a8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if any("router" in t["cara"] for t in tasks.values()):
+            raise ValueError(
+                "MoE adapter checkpoints cannot join a multi-task group "
+                "(the group step stacks plain factor trees); serve them "
+                "with their own Predictor")
+        for t in tasks.values():
+            if "A1" not in t["cara"] or "R1" not in t["cara"]:
+                raise NotImplementedError(
+                    f"multi-task groups of adapter trees with keys "
+                    f"{sorted(t['cara'])} (LoRA, FacT, VPT, SSF, BitFit, "
+                    f"bottleneck adapters) are not yet ported to "
+                    f"cara_tpu_torch ({_PEFT}); CaRA factor trees only")
+        ranks = {int(np.shape(t["cara"]["R1"])[0]) for t in tasks.values()}
+        orders = {int(t.get("cp_order", 4)) for t in tasks.values()}
+        if len(ranks) != 1 or len(orders) != 1:
+            raise ValueError(
+                f"adapters must share CP rank/order to stack; got ranks="
+                f"{sorted(ranks)} orders={sorted(orders)}")
+        self.device = torch.device(device)
+        self.names = list(tasks)
+        self._tid = {n: i for i, n in enumerate(self.names)}
+        self._num_classes = {n: int(np.shape(t["head"]["kernel"])[-1])
+                             for n, t in tasks.items()}
+        cmax = max(self._num_classes.values())
+
+        def to_dev(a):
+            return (a if isinstance(a, torch.Tensor)
+                    else torch.from_numpy(np.asarray(a, np.float32))).to(
+                        self.device, dtype)
+
+        def padded(a, width):  # zero-pad the class axis to ``width``
+            a = to_dev(a)
+            return torch.nn.functional.pad(a, (0, width - a.shape[-1]))
+
+        heads = [t["head"] for t in tasks.values()]
+        self._hk = torch.stack([padded(h["kernel"], cmax) for h in heads])
+        self._hb = torch.stack([padded(h["bias"], cmax) for h in heads])
+        self._cara = {k: torch.stack([to_dev(t["cara"][k])
+                                      for t in tasks.values()])
+                      for k in next(iter(tasks.values()))["cara"]}
+        self._scales = torch.tensor([float(t["scale"])
+                                     for t in tasks.values()],
+                                    dtype=torch.float32, device=self.device)
+        base = params_from_numpy({k: v for k, v in params.items()
+                                  if k != "head"}, self.device, torch.float32)
+        if quantize is not None:
+            base = quantize_block_weights(
+                base, mode="w8a8" if quantize == "w8a8" else "w8")
+            if quantize == "w8a8":
+                base = column_major_codes(base)
+        self._base = map_floating(base, lambda t: t.to(dtype))
+        self.quantize = quantize
+        self.cfg = dataclasses.replace(cfg, num_classes=cmax)
+        self._cara_cfg = CaraConfig(rank=ranks.pop(), scale=1.0,
+                                    cp_order=orders.pop())
+        self.batch_size = batch_size
+        self.buckets = _resolve_buckets(buckets, batch_size)
+        self._dtype = dtype
+
+    @classmethod
+    def from_checkpoints(cls, ckpts: Dict[str, str], model,
+                         backbone: Optional[str] = None, **kw):
+        """``ckpts``: {task: path} of full and/or adapter-only ``.npz``
+        checkpoints; ``model`` a registry name or a :class:`ViTConfig`.
+        The shared backbone is the first full checkpoint's, or the npz at
+        ``backbone``; every checkpoint must record its delta scale, and
+        any recorded model name must be ``model``."""
+        from cara_tpu_torch.config import get_model_config
+        from cara_tpu_torch.models import npz as npz_lib
+        from cara_tpu_torch.train.checkpoint import (
+            is_adapter_checkpoint, load_adapter, load_model)
+
+        params = None
+        model_names = {}
+        tasks: Dict[str, Dict[str, Any]] = {}
+        for name, path in ckpts.items():
+            if is_adapter_checkpoint(path):
+                cara, head, meta = load_adapter(path)
+            else:
+                full, cara, meta = load_model(path)
+                head = full.get("head")
+                if params is None:
+                    params = full
+            if meta.get("model"):
+                model_names[name] = meta["model"]
+            if cara is None or head is None:
+                raise ValueError(f"{path}: need an adapter + head for "
+                                 f"task {name!r}")
+            if "scale" not in meta:
+                raise ValueError(f"{path}: checkpoint records no delta "
+                                 "scale — re-export with meta or use "
+                                 "single-task Predictor(scale=...)")
+            tasks[name] = {"cara": cara, "head": head,
+                           "scale": float(meta["scale"]),
+                           "cp_order": int(meta.get("cp_order", 4))}
+        want = model if isinstance(model, str) else None
+        distinct = set(model_names.values()) | ({want} if want else set())
+        if len(distinct) > 1:
+            raise ValueError(
+                f"checkpoints disagree on the backbone model: {model_names}"
+                + (f" vs requested {want!r}" if want else "")
+                + " — multi-task serving shares ONE backbone")
+        cfg = (model if isinstance(model, ViTConfig)
+               else get_model_config(model, num_classes=0))
+        if params is None:
+            if backbone is None:
+                raise ValueError(
+                    "all checkpoints are adapter-only; pass backbone= "
+                    "(the pretrained npz) for the shared frozen weights")
+            params = npz_lib.load_npz_backbone(backbone, cfg)
+            params = npz_lib.maybe_resize_pos_embed(params, cfg)
+        return cls(params, cfg, tasks, **kw)
+
+    def _call(self, chunk: np.ndarray, tid: int) -> torch.Tensor:
+        """Queue one padded chunk's forward for task ``tid``."""
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                self.device, self._dtype, non_blocking=True)
+            cara = {k: v[tid] for k, v in self._cara.items()}
+            p = dict(self._base, head={"kernel": self._hk[tid],
+                                       "bias": self._hb[tid]})
+            return vit_forward(p, x, self.cfg, cara_params=cara,
+                               cara_cfg=self._cara_cfg,
+                               scale_override=self._scales[tid]).float()
+
+    def logits_async(self, images: np.ndarray, task: str):
+        """Dispatch only; returns a zero-arg fetch() of (N,
+        num_classes[task]) float32 logits."""
+        tid = self._tid[task]
+        fetch = _dispatch_batched(lambda c: self._call(c, tid), images,
+                                  self.batch_size, self.buckets)
+        nc = self._num_classes[task]
+        return lambda: fetch()[:, :nc]
+
+    def logits(self, images: np.ndarray, task: str) -> np.ndarray:
+        """(N, H, W, C) -> (N, num_classes[task]) float32; any N."""
+        return self.logits_async(images, task)()
+
+    def warmup(self) -> None:
+        """Run every bucket once through the first task: the tasks share
+        every kernel call, so this warms them all."""
+        s = self.cfg.image_size
+        for b in self.buckets:
+            self.logits(np.zeros((b, s, s, self.cfg.in_chans), np.float32),
+                        self.names[0])
+
+    def predict(self, images: np.ndarray, task: str) -> np.ndarray:
+        return np.argmax(self.logits(images, task), axis=-1)

@@ -151,10 +151,11 @@ fatal on failure:
    route at 384 px (rows 10 and 11's recompute forms at N 577).
    Serving writes no saved residual.  Every training phase prints its
    peak memory;
-14. CLIP ViT-L/14 (``vit_large_patch14_224_clip``: 24 layers, E 1024, 16
-   heads, hidden 4096, 257 tokens, ``ln_pre``, LayerNorm eps 1e-5, a
-   768-wide projection before the 10-class head, quick_gelu in every MLP
-   block) at full width and depth, run after 9 (``clip_phase``): the
+14. CLIP ViT-L/14 (``vit_large_patch14_224_clip``: E 1024, 16 heads,
+   hidden 4096, 257 tokens, ``ln_pre``, LayerNorm eps 1e-5, a 768-wide
+   projection before the 10-class head, quick_gelu in every MLP block)
+   at full width and 12 of its 24 layers (``CLIP_DEPTH``), run after 9
+   (``clip_phase``): the
    quick_gelu forms' entries (``QUICK_FORMS``: rows 9, 10 and 11 whole in
    the saved forms, row 13's body and dact, the fc1 site with and
    without its pre output and its dact, ``grad_gemm.cu``'s ``DGELU_H``,
@@ -172,10 +173,11 @@ fatal on failure:
    quick_gelu body), and ``cli.vit_cp --model vit_large_patch14_224_clip``
    in a child; the quick_gelu forms launch, the GELU forms never, and the
    recompute forms only with the switches "0";
-15. ViT-H/14 (``vit_huge_patch14_224_in21k``: 32 layers, E 1280, 16
-   heads of width 80, hidden 5120, 257 tokens) at full width and depth,
-   run after 14 (``huge_phase``): the kernel entries of rows 1 (N 257,
-   401, 512), 2 (257, 512), 16 (577) and 17 (257, 577) at head width 80,
+15. ViT-H/14 (``vit_huge_patch14_224_in21k``: E 1280, 16 heads of width
+   80, hidden 5120, 257 tokens) at full width and 16 of its 32 layers
+   (``HUGE_DEPTH``), run after 14 (``huge_phase``): the kernel entries
+   of rows 1 (N 257, 401, 512), 2 (257, 512), 16 (577) and 17 (257, 577)
+   at head width 80,
    and of row 17 at 16 and 32 (``DH_FORMS``, run with phase 3's, beside
    SDPA; launches: the ViT-H phase, and the test model's full steps for
    16 and 32, ``narrow_flash_phase``, run with 8), and of row 19 at B 64,
@@ -223,7 +225,40 @@ fatal on failure:
    against ``merge=True`` (1 %), ``--evaluate
    --merged-eval`` and ``cli.predict`` on PNG files; full fine-tuning of
    ViT-B (8) with its gradient check repeated with remat off, then timed
-   with remat on and off (``remat_phase``).
+   with remat on and off (``remat_phase``);
+17. multi-task serving (run after 11, ``multitask_phase``): three CaRA
+   tasks (delta scales 0.1, 10 and 100; 2, 10 and 102 classes) over one
+   ViT-B/16 backbone at full width and depth in a ``MultiTaskPredictor``
+   at batch 64: each task's logits within 5 % of its fp32 plain forward,
+   the same bits with the tasks asked in the other order, rows 1, 5 and 9
+   launched, one task with every block through row 19; a stream of 288
+   requests over the three tasks through ``InferenceServer`` (one
+   batcher a task; img/s, ``/stats`` per task, ``POST /predict?task=``
+   and its 400 / 404); the group and a single-task adapter ``Predictor``
+   timed in turns; the group with ``quantize="int8"`` within
+   ``QUANT_BOUNDS``, row 18 launching 4 x 12 times a forward with
+   ``CARA_INT8_PALLAS=1``; ``python -m cara_tpu_torch.cli.serve`` in a
+   child with two ``name=path`` adapter-only checkpoints and
+   ``--backbone`` (a Google-format npz);
+18. CP orders (run after 6, ``orders_phase``): ViT-B/16 at full width and
+   depth, rank 16, batch 64, on the element route at orders 3 and 5, the
+   rank route at order 5, order 2 and order 4 with the materialized
+   delta (the XLA dense forms): each one step's gradient check as in 5
+   on 16 images, 10 steps on one batch (a falling loss, ms a step by
+   CUDA events against order 4's element step, peak memory), the route's
+   kernels launched (the dense deltas launch only the attention's), the
+   eval forward within 5 % of fp32 plain; then ``python -m
+   cara_tpu_torch.cli.dim_experiment --synthetic --dims 5 --ranks 32``
+   in a child at 4 layers, preempted by SIGTERM and relaunched to its
+   end;
+19. interop (``interop_phase`` after 16 on its checkpoint,
+   ``clip_import_phase`` after 14): ``cli.export --mode torch`` writes the
+   reference's ``.pt``, which reads back to the same arrays, evaluates
+   (``cli.vit_cp --evaluate X.pt`` in a child) to the npz's accuracy and
+   exports merged to the npz's merged arrays bit for bit; a
+   HuggingFace-layout CLIP ViT-L/14 state dict written from seed at full
+   width and depth, built through ``api.build_model(backbone_path=
+   X.bin)``: every array equal, merged serving within 5 % of fp32 plain.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -268,12 +303,15 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cara_tpu_torch import api
+from cara_tpu_torch.cli import dim_experiment as dim_cli
 from cara_tpu_torch.cli import export as export_cli
 from cara_tpu_torch.cli import predict as predict_cli
 from cara_tpu_torch.cli import vit_cp as vit_cp_cli
@@ -282,6 +320,7 @@ from cara_tpu_torch.data.vtab import load_image_u8, normalize
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import quant as quant_lib
+from cara_tpu_torch.models import torch_import
 from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models.vit import vit_forward
@@ -296,7 +335,7 @@ from cara_tpu_torch.ops.cuda import fused_qkv_attention as fqa_mod
 from cara_tpu_torch.ops.cuda import int8_dense as int8_mod
 from cara_tpu_torch.ops.layers import activation, activation_grad, layer_norm
 from cara_tpu_torch.server import InferenceServer
-from cara_tpu_torch.serving import Predictor
+from cara_tpu_torch.serving import MultiTaskPredictor, Predictor
 from cara_tpu_torch.train import checkpoint as ckpt_lib
 from cara_tpu_torch.train import steps as steps_lib
 from cara_tpu_torch.train.checkpoint import save_model
@@ -736,6 +775,11 @@ CLIP_DROPOUT_KERNELS = ("cp_dense_quick_gelu", "cp_dense_quick_dact",
 # 577 tokens over its 336-px steps, the flash attention at 257 over its
 # full fine-tuning, at 16 and 32 over the test model's full steps.
 MODEL_HUGE = "vit_huge_patch14_224_in21k"
+# The smoke's ViT-H/14 phase runs 16 of its 32 layers and its CLIP
+# ViT-L/14 phase 12 of 24 (full width), to leave the run's time to the
+# multi-task, CP-order and interop phases.
+HUGE_DEPTH = 16
+CLIP_DEPTH = 12
 DH_FORMS = {
     "fused_qkv_attention_dh80": ("fused_qkv_attention", 257, 80),
     "fused_qkv_attention_dh80_401": ("fused_qkv_attention", 401, 80),
@@ -2409,16 +2453,20 @@ def _get(port, path):
         return json.loads(r.read())
 
 
-def serve_requests(srv, images, clients=8):
-    """Submit every image through the batcher from ``clients`` threads;
-    returns the logits in image order."""
+def serve_requests(srv, images, clients=8, tasks=None):
+    """Submit every image through the batcher (with ``tasks``, image i
+    through task tasks[i mod len(tasks)]'s) from ``clients`` threads;
+    returns the logits in image order (with ``tasks``, a list: the
+    tasks' class counts differ)."""
     futures = [None] * len(images)
     errors = []
 
     def client(k):
         try:
             for i in range(k, len(images), clients):
-                futures[i] = srv.batcher.submit(images[i])
+                batcher = (srv.batcher if tasks is None
+                           else srv.batchers[tasks[i % len(tasks)]])
+                futures[i] = batcher.submit(images[i])
         except Exception as exc:  # recorded and raised below
             errors.append(exc)
 
@@ -2430,7 +2478,7 @@ def serve_requests(srv, images, clients=8):
         t.join(timeout=60)
     require(not errors, f"submit failed: {errors}")
     rows = [f.result(timeout=300)[0] for f in futures]
-    return np.stack(rows)
+    return rows if tasks else np.stack(rows)
 
 
 def reference_logits(pred, images, chunk=32):
@@ -2523,9 +2571,10 @@ def read_launches(names) -> dict:
 
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
                 batch=64, seed=0, impl="element", method="cara", lr=1e-3,
-                **overrides):
+                cp_order=4, delta_impl="factorized", **overrides):
     """Seeded ViT + perturbed CaRA adapter (weight dropout 0.1 of the
-    ``impl`` kind, the model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
+    ``impl`` kind, CP order ``cp_order``, the ``delta_impl`` form, the
+    model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
     state, one fixed device batch of normalized images); ``overrides``
     change the model's config.  ``method`` "linear" or "full" trains
     without an adapter; the backbone is then rounded to bf16 values
@@ -2537,9 +2586,19 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
     if method == "cara":
         cara_cfg = CaraConfig(rank=rank, scale=scale,
                               weight_dropout=DROP_RATE,
-                              weight_dropout_impl=impl)
+                              weight_dropout_impl=impl, cp_order=cp_order,
+                              delta_impl=delta_impl)
         cara = convert.perturb_adapter(
             convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2)
+        if cp_order == 2:
+            # Order 2's A2 (E^2, r) stands for order 4's A2 (E, r) x A3
+            # (H, r) x A4 (Dh, r), whose orthogonal columns have entries
+            # of about 1 / sqrt(H) and 1 / sqrt(Dh): at the same noise its
+            # dense delta would be sqrt(E) times larger (at scale 10 a
+            # qkv delta 13x the backbone's weights, whose bf16 forward is
+            # chaotic: gradients 1.35 relative L2 off fp32 on the plain
+            # path too).  Scaled to order 4's size.
+            cara["A2"] = cara["A2"] / np.float32(np.sqrt(cfg.embed_dim))
     else:
         cara_cfg = CaraConfig(method=method, weight_dropout=0.0)
         cara = {}
@@ -3185,10 +3244,13 @@ def quant_cli_child(ckpt, model, images, requests=8, extra=()) -> None:
             f"serve child: row 18 launched {got} times")
 
 
-def _serve_child(code, argv, err, images, requests):
+def _serve_child(code, argv, err, images, requests, tasks=None,
+                 tag="serve:int8:cli"):
     """Run the serve child of :func:`quant_cli_child`, post ``requests``
     PNGs, read ``/stats``, stop it with SIGTERM: (its stdout after the
-    stop, or None if it exited nonzero; the stats)."""
+    stop, or None if it exited nonzero; the stats).  With ``tasks`` (a
+    multi-task child) request i goes to ``?task=tasks[i % len(tasks)]``
+    and ``/stats`` counts each task's."""
     proc = subprocess.Popen(
         [sys.executable, "-c", code, *argv], stdout=subprocess.PIPE,
         stderr=err, text=True, env=dict(os.environ, CARA_INT8_PALLAS="1"))
@@ -3212,9 +3274,11 @@ def _serve_child(code, argv, err, images, requests):
         def post(k):
             try:
                 for i in range(k, requests, 4):
+                    query = (f"?task={tasks[i % len(tasks)]}" if tasks
+                             else "")
                     req = urllib.request.Request(
-                        f"http://127.0.0.1:{port}/predict", data=bodies[i],
-                        method="POST")
+                        f"http://127.0.0.1:{port}/predict{query}",
+                        data=bodies[i], method="POST")
                     with urllib.request.urlopen(req, timeout=120) as r:
                         answers[i] = json.loads(r.read())
             except Exception as exc:  # recorded and raised below
@@ -3229,10 +3293,12 @@ def _serve_child(code, argv, err, images, requests):
         require(not errors and all(a is not None for a in answers),
                 f"serve child: requests failed: {errors}")
         stats = _get(port, "/stats")
-        print(f"[serve:int8:cli] /stats {json.dumps(stats)}; classes "
+        print(f"[{tag}] /stats {json.dumps(stats)}; classes "
               f"{[a['class'] for a in answers]}", flush=True)
-        require(stats["requests"] == requests,
-                f"serve child answered {stats['requests']} of {requests}")
+        answered = (sum(stats[t]["requests"] for t in tasks) if tasks
+                    else stats["requests"])
+        require(answered == requests,
+                f"serve child answered {answered} of {requests}")
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=120)
     finally:
@@ -3243,13 +3309,15 @@ def _serve_child(code, argv, err, images, requests):
 
 
 def _pair_block(x, bp, f1, p1, cfg, cara_params, cara_cfg, impl, rand=None,
-                attn_impl="fused", dense_impl="fused"):
+                attn_impl="fused", dense_impl="fused", scale=None):
     """``models.vit._block`` of an eval block with a CaRA adapter, in one
-    call of row 19: the factors collapsed and the delta scale folded as
-    ``_block`` does for the two half-block kernels."""
+    call of row 19: the factors collapsed and the delta scale (``scale``,
+    a task's ``scale_override``, or the config's) folded as ``_block``
+    does for the two half-block kernels."""
     require(rand is None and cara_params is not None,
             "the row 19 eval check runs adapter blocks in eval")
-    dt, mr, s = x.dtype, cfg.mlp_ratio, cara_cfg.scale
+    dt, mr = x.dtype, cfg.mlp_ratio
+    s = cara_cfg.scale if scale is None else scale
     p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
 
     def uv(fn, *args):
@@ -3883,7 +3951,8 @@ def huge_phase(dev, batch=64, steps=10, grad_batch=16, full_grad_batch=8,
                 "--eval-batch-size", "32", "--synthetic-size", "64",
                 "--log-every", "1", "--out-dir", tmp, "--backbone",
                 os.path.join(tmp, "none.npz"), "--device", str(dev)]
-        for key, value in dict({"depth": cli_depth}, **over).items():
+        for key, value in dict(over, depth=min(cli_depth,
+                                               cfg.depth)).items():
             argv += ["--model-override", f"{key}={value}"]
         t0 = time.perf_counter()
         child = cli_child(argv, {})
@@ -4245,17 +4314,18 @@ def resume_args(model, tmp, dev) -> list:
 TRACE_KERNELS = ("gemm_kernel", "qkv_attention_kernel", "wd_fold_kernel")
 
 
-def _resume_child(argv, wrap, sigterm=False, timeout=600):
-    """``cli.vit_cp`` with ``argv`` in a child process; ``wrap`` is code
-    run before it (it may instrument ``train.checkpoint``).  With
-    ``sigterm`` the child gets SIGTERM once it has logged its first step.
-    Returns (its stdout lines, its launch counters, its build info)."""
+def _resume_child(argv, wrap, sigterm=False, timeout=600, cli="vit_cp_cli"):
+    """``cli.vit_cp`` (or the CLI module ``chip_smoke.<cli>``) with
+    ``argv`` in a child process; ``wrap`` is code run before it (it may
+    instrument ``train.checkpoint``).  With ``sigterm`` the child gets
+    SIGTERM once it has logged its first step.  Returns (its stdout
+    lines, its launch counters, its build info)."""
     code = "\n".join([
         "import json, sys, chip_smoke",
         "from cara_tpu_torch.train import checkpoint as c",
         "from cara_tpu_torch.ops.cuda import _build",
         wrap,
-        "chip_smoke.vit_cp_cli.main(sys.argv[1:])",
+        f"chip_smoke.{cli}.main(sys.argv[1:])",
         "print(json.dumps({'launches': chip_smoke.read_launches(",
         "    tuple(chip_smoke.KERNELS)), 'build': {",
         "    'cached': _build.BUILD_INFO['cached'],",
@@ -4282,7 +4352,7 @@ def _resume_child(argv, wrap, sigterm=False, timeout=600):
                 proc.kill()
                 proc.wait()
         err.seek(0)
-        require(proc.returncode == 0, f"cli.vit_cp child exited "
+        require(proc.returncode == 0, f"{cli} child exited "
                 f"{proc.returncode}: {err.read()[-3000:]}")
     tail = json.loads(lines[-1])
     return lines[:-1], tail["launches"], tail["build"]
@@ -4484,6 +4554,609 @@ def export_phase(dev, ckpt, tmp, n_images=64, model=MODEL) -> None:
             "the exported model's forward launched no attention kernel")
 
 
+# The multi-task group of ``multitask_phase``: (task, delta scale, classes).
+MULTITASK = (("svhn", 0.1, 2), ("dtd", 10.0, 10), ("caltech101", 100.0, 102))
+# The CP orders and delta forms of ``orders_phase``: (weight-dropout impl,
+# CP order, delta form, gradient check).  Order 4's element step (no
+# check: ``training_phase`` holds it) is the yardstick of the others.
+ORDER_ROUTES = (("element", 4, "factorized", False),
+                ("element", 3, "factorized", True),
+                ("element", 5, "factorized", True),
+                ("rank", 5, "factorized", True),
+                ("element", 2, "factorized", True),
+                ("element", 4, "materialized", True))
+# What the dense deltas (order 2, materialized) launch: the attention
+# only; their products are the XLA form's matmuls.
+DENSE_DELTA_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd")
+# The unmerged eval: the block megakernels (rows 5 and 9, the attention
+# inside row 5) and their sites.
+ADAPTER_SERVING_KERNELS = ("cp_attn_block", "cp_mlp_block") + SITE_SERVING
+
+
+def google_npz(path, params, cfg) -> None:
+    """Write ``params`` (the port's tree) as a Google-format ViT npz, the
+    inverse of ``models.npz.convert_npz_dict`` (what ``--backbone``
+    reads)."""
+    e, h, d, p = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.patch_size
+    b = params["blocks"]
+    z = {"embedding/kernel": params["embed"]["kernel"].reshape(
+             p, p, cfg.in_chans, e),
+         "embedding/bias": params["embed"]["bias"], "cls": params["cls"],
+         "Transformer/posembed_input/pos_embedding": params["pos_embed"],
+         "Transformer/encoder_norm/scale": params["norm"]["scale"],
+         "Transformer/encoder_norm/bias": params["norm"]["bias"]}
+    if "pre_logits" in params:
+        z["pre_logits/kernel"] = params["pre_logits"]["kernel"]
+        z["pre_logits/bias"] = params["pre_logits"]["bias"]
+    attn = "MultiHeadDotProductAttention_1"
+    for i in range(cfg.depth):
+        pre = f"Transformer/encoderblock_{i}/"
+        z[pre + "LayerNorm_0/scale"] = b["ln1_scale"][i]
+        z[pre + "LayerNorm_0/bias"] = b["ln1_bias"][i]
+        z[pre + "LayerNorm_2/scale"] = b["ln2_scale"][i]
+        z[pre + "LayerNorm_2/bias"] = b["ln2_bias"][i]
+        qk = b["qkv"]["kernel"][i].reshape(e, 3, h, d)
+        qb = b["qkv"]["bias"][i].reshape(3, h, d)
+        for j, n in enumerate(("query", "key", "value")):
+            z[f"{pre}{attn}/{n}/kernel"] = qk[:, j]
+            z[f"{pre}{attn}/{n}/bias"] = qb[j]
+        z[f"{pre}{attn}/out/kernel"] = b["proj"]["kernel"][i].reshape(h, d, e)
+        z[f"{pre}{attn}/out/bias"] = b["proj"]["bias"][i]
+        z[pre + "MlpBlock_3/Dense_0/kernel"] = b["fc1"]["kernel"][i]
+        z[pre + "MlpBlock_3/Dense_0/bias"] = b["fc1"]["bias"][i]
+        z[pre + "MlpBlock_3/Dense_1/kernel"] = b["fc2"]["kernel"][i]
+        z[pre + "MlpBlock_3/Dense_1/bias"] = b["fc2"]["bias"][i]
+    np.savez(path, **{k: np.asarray(v, np.float32) for k, v in z.items()})
+
+
+def multitask_group(cfg, rank=8, order=4, seed=30) -> dict:
+    """``MULTITASK``'s tasks for ``MultiTaskPredictor``: a perturbed CaRA
+    adapter (``rank``, ``order``) and a fresh head each, numpy trees."""
+    tasks = {}
+    for i, (name, scale, classes) in enumerate(MULTITASK):
+        cara = convert.perturb_adapter(convert.init_cara_params(
+            cfg, CaraConfig(rank=rank, cp_order=order), seed + i),
+            seed + 10 + i)
+        tasks[name] = {"cara": cara, "scale": scale, "cp_order": order,
+                       "head": api.linear_init(seed + 20 + i,
+                                               api._head_in_dim(cfg),
+                                               classes)}
+    return tasks
+
+
+def multitask_reference(pred, images, task, chunk=32):
+    """fp32 plain forward of ``task`` on the predictor's own (bf16)
+    backbone, adapter, head and scale."""
+    tid = pred._tid[task]
+    params = dict(convert.map_floating(pred._base, lambda t: t.float()),
+                  head={"kernel": pred._hk[tid].float(),
+                        "bias": pred._hb[tid].float()})
+    cara = {k: v[tid].float() for k, v in pred._cara.items()}
+    outs = []
+    with torch.inference_mode():
+        for s in range(0, len(images), chunk):
+            x = torch.from_numpy(images[s:s + chunk]).to(pred.device)
+            outs.append(vit_forward(
+                params, x, pred.cfg, cara_params=cara,
+                cara_cfg=pred._cara_cfg, impl="plain",
+                scale_override=pred._scales[tid]).cpu().numpy())
+    return np.concatenate(outs)[:, :pred._num_classes[task]]
+
+
+def _logit_check(tag, got, ref) -> None:
+    err = float(np.abs(got - ref).max())
+    tol = LOGIT_RTOL * float(np.abs(ref).max())
+    print(f"[{tag}] max|logits - fp32 plain| {err:.4e}, tolerance "
+          f"{tol:.4e} ({LOGIT_RTOL} x max|ref|)", flush=True)
+    require(bool(np.isfinite(got).all()), f"{tag}: non-finite logits")
+    require(err <= tol, f"{tag}: logits disagree with the plain path")
+
+
+def _post(port, query, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict{query}",
+                                 data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def multitask_phase(dev, model=MODEL, batch=64, n_images=96, rounds=2,
+                    timed=True, cli=True) -> dict:
+    """Multi-task serving: ``MULTITASK``'s three CaRA tasks (delta scales
+    0.1, 10 and 100; 2, 10 and 102 classes) over one backbone of
+    ``model`` at full width and depth, bf16, ``batch`` a call:
+
+    1. ``MultiTaskPredictor``: each task's logits on ``n_images`` images
+       within ``LOGIT_RTOL`` of its fp32 plain forward; the same bits when
+       the tasks are asked in the other order; rows 1, 5 and 9 launch
+       (the tasks share every kernel call: the scale rides the factors);
+       then one task with every block through row 19;
+    2. ``InferenceServer``: a stream of 3 x ``n_images`` requests cycling
+       over the tasks from 8 client threads (img/s on the host clock,
+       each answer within ``LOGIT_RTOL`` of its task's fp32 forward),
+       ``/stats`` per task, ``POST /predict?task=`` over HTTP and its 400
+       / 404; the group's img/s at ``batch`` in turns with a single-task
+       adapter ``Predictor`` on the same backbone;
+    3. the group with ``quantize="int8"`` (the shared backbone only),
+       with ``CARA_INT8_PALLAS`` unset and set (row 18 launches 4 x depth
+       times a forward with it), within ``QUANT_BOUNDS`` of the bf16
+       group's logits;
+    4. ``python -m cara_tpu_torch.cli.serve`` in a child with two
+       ``name=path`` adapter-only checkpoints and ``--backbone`` (a
+       Google-format npz), answering 8 requests over HTTP.
+
+    Returns the launches of rows 5, 9, 18 and 19 over 1-3."""
+    cfg = get_model_config(model, num_classes=0)
+    params = init_backbone(get_model_config(model, num_classes=10), 0)
+    params.pop("head")
+    tasks = multitask_group(cfg)
+    names = list(tasks)
+    images = make_images(n_images, cfg.image_size, seed=11)
+    print(f"[multitask] {model}: depth {cfg.depth}, tasks "
+          f"{[(n, s, c) for n, s, c in MULTITASK]} (name, scale, classes), "
+          f"rank 8, order 4, batch {batch}, bf16", flush=True)
+    pred = MultiTaskPredictor(params, cfg, tasks, batch_size=batch,
+                              device=dev)
+    reset_launches()
+    first = {}
+    for name in names:
+        first[name] = pred.logits(images, name)
+        require(first[name].shape == (n_images, tasks[name]["head"][
+            "kernel"].shape[-1]), f"{name}: logits {first[name].shape}")
+        _logit_check(f"multitask:{name}", first[name],
+                     multitask_reference(pred, images, name))
+    launches = read_launches(ADAPTER_SERVING_KERNELS)
+    print(f"[multitask] kernel launches: {launches}", flush=True)
+    for kname, count in launches.items():
+        require(count > 0, f"{kname} never launched serving the tasks")
+    for name in reversed(names):
+        require(np.array_equal(pred.logits(images, name), first[name]),
+                f"{name}: other bits when the tasks come in another order")
+    print("[multitask] the same bits with the tasks in the reverse order",
+          flush=True)
+    out = {k: launches[k] for k in ("cp_attn_block", "cp_mlp_block")}
+    # One task with every block through row 19.
+    old = vit_lib._block
+    vit_lib._block = _pair_block
+    try:
+        reset_launches()
+        got = pred.logits(images[:batch], "caltech101")
+        pair = read_launches(("block_pair_fwd", "cp_attn_block"))
+    finally:
+        vit_lib._block = old
+    err = float(np.abs(got - first["caltech101"][:batch]).max())
+    tol = LOGIT_RTOL * float(np.abs(first["caltech101"]).max())
+    print(f"[multitask:block_pair] caltech101 (scale 100) through row 19: "
+          f"launches {pair}; max|logits - default route's| {err:.4e}, "
+          f"tolerance {tol:.4e}", flush=True)
+    require(pair["block_pair_fwd"] == cfg.depth
+            and pair["cp_attn_block"] == 0 and err <= tol,
+            "the tasks' row 19 eval disagrees")
+    out["block_pair_fwd"] = pair["block_pair_fwd"]
+
+    # The mixed stream through the server, then HTTP.
+    reset_launches()
+    srv = InferenceServer(pred, port=0).start(warmup=True)
+    try:
+        stream = np.concatenate([images] * len(names))
+        t0 = time.perf_counter()
+        rows = serve_requests(srv, stream, tasks=names)
+        wall = time.perf_counter() - t0
+        health = _get(srv.port, "/healthz")
+        body = _png(images[0])
+        answers = {n: _post(srv.port, f"?task={n}", body) for n in names}
+        bad = (_post(srv.port, "", body), _post(srv.port, "?task=x", body))
+        stats = _get(srv.port, "/stats")
+    finally:
+        srv.close()
+    out["cp_attn_block"] += read_launches(("cp_attn_block",))[
+        "cp_attn_block"]
+    for i, row in enumerate(rows):
+        name = names[i % len(names)]
+        ref = first[name][i % n_images]
+        require(row.shape == ref.shape and float(np.abs(row - ref).max())
+                <= LOGIT_RTOL * float(np.abs(first[name]).max()),
+                f"stream request {i} ({name}) disagrees")
+    print(f"[multitask:server] {len(rows)} requests over {len(names)} tasks "
+          f"from 8 threads: {len(rows) / wall:.1f} img/s (host clock, "
+          f"{wall:.3f} s); /stats {json.dumps(stats)}", flush=True)
+    require(health.get("tasks") == names, f"healthz: {health}")
+    for name in names:
+        require(stats[name]["requests"] == n_images + 1,
+                f"/stats counts {stats[name]['requests']} for {name}")
+        code, ans = answers[name]
+        require(code == 200 and max(ans["classes"]) < tasks[name]["head"][
+            "kernel"].shape[-1], f"POST ?task={name}: {code} {ans}")
+    require([c for c, _ in bad] == [400, 404], f"bad requests: {bad}")
+    print(f"[multitask:server] POST ?task=: {[answers[n][1]['class'] for n in names]}; "
+          f"no task {bad[0][0]}, unknown task {bad[1][0]}", flush=True)
+    if timed:
+        single = Predictor(
+            dict(params, head=tasks["dtd"]["head"]),
+            get_model_config(model, num_classes=10),
+            cara_params=tasks["dtd"]["cara"],
+            cara_cfg=CaraConfig(rank=8, scale=tasks["dtd"]["scale"]),
+            merge=False, batch_size=batch, device=dev)
+        x = images[:batch]
+        rates = {"multi-task": [], "single-task adapter": []}
+        for r in range(rounds):
+            for label in (("multi-task", "single-task adapter") if r % 2 == 0
+                          else ("single-task adapter", "multi-task")):
+                calls = ([lambda n=n: pred.logits(x, n) for n in names]
+                         if label == "multi-task" else
+                         [lambda: single.logits(x)])
+                calls[0]()
+                t0 = time.perf_counter()
+                for i in range(12):
+                    calls[i % len(calls)]()
+                rates[label].append(12 * len(x) / (time.perf_counter() - t0))
+        print(f"[multitask] img/s at batch {len(x)} in turns (host clock): "
+              + "; ".join(f"{k} " + ", ".join(f"{v:.1f}" for v in vs)
+                          for k, vs in rates.items()), flush=True)
+        del single
+
+    # int8 on the shared backbone.
+    q = MultiTaskPredictor(params, cfg, tasks, batch_size=batch, device=dev,
+                           quantize="int8")
+    x = images[:batch]
+    out["int8_dense"] = 0
+    for switch in (False, True):
+        with int8_switch(switch):
+            for name in names:
+                reset_launches()
+                got = q.logits(x, name)
+                n8 = int8_mod.LAUNCHES
+                want = 4 * cfg.depth if switch else 0
+                tag = (f"multitask:int8:{name}"
+                       f"{':CARA_INT8_PALLAS=1' if switch else ''}")
+                require(n8 == want, f"{tag}: row 18 launched {n8}, want "
+                        f"{want}")
+                out["int8_dense"] += n8
+                quant_logit_check(tag, got, first[name][:batch], "int8")
+            if timed:
+                q.logits(x, names[0])
+                t0 = time.perf_counter()
+                for i in range(9):
+                    q.logits(x, names[i % 3])
+                print(f"[multitask:int8{':CARA_INT8_PALLAS=1' if switch else ''}]"
+                      f" {9 * len(x) / (time.perf_counter() - t0):.1f} img/s "
+                      f"at batch {len(x)} (host clock)", flush=True)
+    del q, pred
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    if cli:
+        with tempfile.TemporaryDirectory() as tmp:
+            bb = os.path.join(tmp, "backbone.npz")
+            t0 = time.perf_counter()
+            google_npz(bb, params, cfg)
+            argv = ["--model", model, "--backbone", bb, "--port", "0",
+                    "--max-batch", str(batch), "--max-wait-ms", "20",
+                    "--device", str(dev)]
+            for name in ("svhn", "caltech101"):
+                path = os.path.join(tmp, f"{name}_adapter.npz")
+                ckpt_lib.save_adapter(
+                    path, tasks[name]["cara"], tasks[name]["head"],
+                    {"scale": tasks[name]["scale"], "cp_order": 4,
+                     "model": model, "dataset": name})
+                argv += ["--ckpt", f"{name}={path}"]
+            print(f"[multitask:cli] backbone npz and adapters written in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            code = ("import json, sys, chip_smoke; "
+                    "from cara_tpu_torch.cli import serve; "
+                    "serve.main(sys.argv[1:]); print(json.dumps("
+                    "chip_smoke.read_launches(('cp_attn_block',))))")
+            with tempfile.TemporaryFile(mode="w+") as err:
+                t0 = time.perf_counter()
+                got, stats = _serve_child(code, argv, err, images, 8,
+                                          tasks=["svhn", "caltech101"],
+                                          tag="multitask:cli")
+                err.seek(0)
+                require(got is not None,
+                        f"multi-task serve child failed: {err.read()[-2000:]}")
+            child = json.loads(got.strip().splitlines()[-1])
+            print(f"[multitask:cli] child {time.perf_counter() - t0:.1f} s; "
+                  f"its row 5 launches {child['cp_attn_block']}", flush=True)
+            require(child["cp_attn_block"] > 0,
+                    "the serve child launched no adapter kernel")
+    return out
+
+
+def eval_check(dev, cfg, cc, frozen, state, data, tag) -> dict:
+    """The trained adapter's eval forward in bf16 (the kernels) against
+    the fp32 plain forward on the same bf16-rounded weights: max |error|
+    within ``LOGIT_RTOL`` of max |logits|, or, where larger, the plain
+    path's own worst error in bf16 over the batch and ``NOISE_DRAWS``
+    copies with perturbed images (the gradient check's policy: a large
+    dense delta, as order 2's perturbed (E^2, r) factor gives, makes the
+    bf16 forward itself drift).  Returns the first forward's launches of
+    rows 5 and 9."""
+    t = steps_lib.cast_floating(state.trainable, torch.bfloat16)
+    params = steps_lib.merge_params(
+        steps_lib.cast_floating(frozen, torch.bfloat16), t)
+    params32 = convert.map_floating(params, lambda v: v.float())
+    cara32 = convert.map_floating(t["cara"], lambda v: v.float())
+    errs = []
+    with torch.inference_mode():
+        for k in range(NOISE_DRAWS + 1):
+            x = _perturbed(data, k, dev)["image"]
+            if k == 0:
+                reset_launches()
+            got = vit_forward(params, x.to(torch.bfloat16), cfg, t["cara"],
+                              cc).float()
+            if k == 0:
+                evals = read_launches(("cp_attn_block", "cp_mlp_block"))
+            plain = vit_forward(params, x.to(torch.bfloat16), cfg,
+                                t["cara"], cc, impl="plain").float()
+            ref = vit_forward(params32, x.float(), cfg, cara32, cc,
+                              impl="plain")
+            errs.append((float((got - ref).abs().max()),
+                         float((plain - ref).abs().max()),
+                         float(ref.abs().max())))
+            require(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+    kern, plain0, top = errs[0]
+    worst = max(e[1] for e in errs)
+    bound = max(LOGIT_RTOL * top, worst)
+    print(f"[{tag}] max|logits - fp32 plain| {kern:.4e} (bf16 plain "
+          f"{plain0:.4e}, its worst over {len(errs)} realizations "
+          f"{worst:.4e}); bound {bound:.4e} (the larger of that and "
+          f"{LOGIT_RTOL} x max|ref| {LOGIT_RTOL * top:.4e})", flush=True)
+    require(kern <= bound, f"{tag}: logits disagree with the plain path")
+    return evals
+
+
+def orders_phase(dev, model=MODEL, batch=64, grad_batch=16, steps=10,
+                 rank=16, routes=ORDER_ROUTES, overrides=None, timed=True,
+                 cli=True) -> dict:
+    """CP orders 2, 3 and 5 and the materialized delta, at ``model``'s
+    full width and depth, rank ``rank``, weight dropout 0.1, bf16: for
+    each of ``routes`` (impl, order, delta form, check) one step's
+    gradients of every leaf on ``grad_batch`` images against the fp32
+    plain path (:func:`grad_check`), then ``steps`` steps on one batch of
+    ``batch`` (the loss falls by the means of the two halves, ms a step
+    by CUDA events, peak memory),
+    the kernels of the route launched (the element route's at orders 3 /
+    5, the rank route's at 5; only the attention's for the dense deltas
+    of order 2 and the materialized form, whose products are matmuls),
+    and the eval forward at ``batch`` against fp32 plain
+    (:func:`eval_check`).  Order 4's element step, unchecked, is timed beside them.
+    Then ``python -m cara_tpu_torch.cli.dim_experiment --synthetic --dims
+    5 --ranks 32`` in a child at 4 layers, preempted by SIGTERM after its
+    first step and relaunched to its end.  Returns the launches of the
+    kernels of the element route at orders 3 and 5 (rows 7, 8, 11, 14),
+    the rank route's (rows 10, 12, 13) and the eval's (rows 5, 9)."""
+    over = dict(overrides or {})
+    got = {}
+    ms = {}
+    for impl, order, delta, check in routes:
+        dense = order == 2 or delta == "materialized"
+        tag = f"[orders:{impl}:order {order}:{delta}]"
+        cfg, cc, frozen, state, data = train_setup(
+            dev, model=model, rank=rank, batch=batch, impl=impl,
+            cp_order=order, delta_impl=delta, **over)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        if check:
+            grad_check(dev, cfg, cc, frozen, state,
+                       {k: v[:grad_batch] for k, v in data.items()},
+                       generator, tag=tag)
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        state, losses, step_ms, _ = fixed_batch_steps(
+            cfg, cc, frozen, state, data, generator, steps, timed=timed)
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else float("nan"))
+        launched = read_launches(tuple(KERNELS))
+        half = len(losses) // 2
+        print(f"{tag} loss over {steps} steps: "
+              + " ".join(f"{v:.4f}" for v in losses), flush=True)
+        require(all(np.isfinite(losses)) and statistics.mean(
+            losses[half:]) < statistics.mean(losses[:half]),
+            f"{tag} the loss did not fall (the means of the halves)")
+        if timed:
+            ms[(impl, order, delta)] = statistics.median(step_ms[3:])
+            print(f"{tag} median {ms[(impl, order, delta)]:.3f} ms per step "
+                  f"(CUDA events, steps 4-{steps}, batch {batch}); peak "
+                  f"{peak:.3f} GiB allocated", flush=True)
+        path = (DENSE_DELTA_KERNELS if dense else
+                TRAINING_KERNELS if impl == "element" else SPLIT_KERNELS)
+        idle = ADAPTER_KERNELS if dense else ()
+        print(f"{tag} kernel launches: "
+              f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+        for name in path:
+            require(launched[name] > 0, f"{tag} {name} never launched")
+        for name in idle:
+            require(launched[name] == 0, f"{tag} {name} launched")
+        if check and not dense:
+            _add_launches(got, launched, path)
+        evals = eval_check(dev, cfg, cc, frozen, state, data,
+                           f"orders:eval:order {order}:{delta}")
+        if not dense:
+            require(min(evals.values()) > 0, f"{tag} eval: {evals}")
+            _add_launches(got, evals, tuple(evals))
+        del cfg, cc, frozen, state, data
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if timed and ("element", 4, "factorized") in ms:
+        base = ms[("element", 4, "factorized")]
+        print("[orders] ms per step against order 4's element step "
+              f"({base:.3f}): " + "; ".join(
+                  f"{i}:{o}:{d} {v:.3f} ({v / base:.2f}x)"
+                  for (i, o, d), v in ms.items()), flush=True)
+    if cli:
+        with tempfile.TemporaryDirectory() as tmp:
+            resume = os.path.join(tmp, "resume")
+            argv = ["--synthetic", "--dataset", "patch_camelyon", "--model",
+                    model, "--dims", "5", "--ranks", "32", "--epochs", "2",
+                    "--batch-size", "32", "--eval-batch-size", "64",
+                    "--synthetic-size", "128", "--log-every", "1",
+                    "--backbone", os.path.join(tmp, "none.npz"),
+                    "--out-dir", tmp, "--resume-dir", resume,
+                    "--device", str(dev), "--model-override",
+                    f"depth={over.get('depth', 4)}"]
+            for key, value in over.items():
+                if key != "depth":
+                    argv += ["--model-override", f"{key}={value}"]
+            t0 = time.perf_counter()
+            lines, _, _ = _resume_child(argv, "", sigterm=True,
+                                        cli="dim_cli")
+            pre = [l for l in lines if l.startswith("Preempted (SIGTERM)")]
+            require(len(pre) == 1, "the dim_experiment child was not "
+                    "preempted")
+            k = int(pre[0].split("at step ")[1].split()[0])
+            t1 = time.perf_counter()
+            lines, launches, _ = _resume_child(argv, "", cli="dim_cli")
+            resumed = [l for l in lines
+                       if l.startswith("[cara_tpu] resumed from")]
+            acc = [l for l in lines if l.startswith("Accuracy:")]
+            ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+            print(f"[orders:dim_experiment] --dims 5 --ranks 32, 4 layers: "
+                  f"preempted at step {k} after {t1 - t0:.1f} s; relaunch "
+                  f"{time.perf_counter() - t1:.1f} s: {resumed}, {acc}, "
+                  f"checkpoints {ckpts}", flush=True)
+            require(len(resumed) == 1 and f"step {k} " in resumed[0],
+                    "the dim_experiment relaunch did not resume")
+            require(len(acc) == 1 and len(ckpts) == 1,
+                    "the dim_experiment relaunch kept no checkpoint")
+            for name in TRAINING_KERNELS:
+                require(launches[name] > 0, f"{name} never launched by "
+                        "the dim_experiment child")
+    return got
+
+
+def to_hf_clip(params, cfg) -> dict:
+    """``params`` (a CLIP tower in the port's layout) as a HuggingFace
+    ``CLIPVisionModelWithProjection`` state dict (torch tensors), the
+    inverse of ``models.clip_import``; HF's patch embedding has no bias."""
+    e, p = cfg.embed_dim, cfg.patch_size
+    vm = "vision_model."
+    b = params["blocks"]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    sd = {vm + "embeddings.class_embedding": t(params["cls"].reshape(e)),
+          vm + "embeddings.patch_embedding.weight": t(
+              params["embed"]["kernel"].reshape(p, p, cfg.in_chans, e)
+              .transpose(3, 2, 0, 1)),
+          vm + "embeddings.position_embedding.weight": t(
+              params["pos_embed"][0]),
+          vm + "pre_layrnorm.weight": t(params["ln_pre"]["scale"]),
+          vm + "pre_layrnorm.bias": t(params["ln_pre"]["bias"]),
+          vm + "post_layernorm.weight": t(params["norm"]["scale"]),
+          vm + "post_layernorm.bias": t(params["norm"]["bias"]),
+          "visual_projection.weight": t(params["proj_out"]["kernel"].T)}
+    for i in range(cfg.depth):
+        pre = vm + f"encoder.layers.{i}."
+        qw, qb = b["qkv"]["kernel"][i].T, b["qkv"]["bias"][i]
+        for j, n in enumerate(("q", "k", "v")):
+            sd[pre + f"self_attn.{n}_proj.weight"] = t(qw[j * e:(j + 1) * e])
+            sd[pre + f"self_attn.{n}_proj.bias"] = t(qb[j * e:(j + 1) * e])
+        for ours, theirs in (("proj", "self_attn.out_proj"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            sd[pre + theirs + ".weight"] = t(b[ours]["kernel"][i].T)
+            sd[pre + theirs + ".bias"] = t(b[ours]["bias"][i])
+        for n, key in (("1", "ln1"), ("2", "ln2")):
+            sd[pre + f"layer_norm{n}.weight"] = t(b[key + "_scale"][i])
+            sd[pre + f"layer_norm{n}.bias"] = t(b[key + "_bias"][i])
+    return sd
+
+
+def clip_import_phase(dev, tmp, model=MODEL_CLIP, batch=64,
+                      overrides=None) -> None:
+    """A HuggingFace-layout state dict of ``model`` (CLIP ViT-L/14 at full
+    width and depth) written from seed 0 to a ``.bin``, built through
+    ``api.build_model(backbone_path=...)`` (``models.clip_import``): the
+    imported tower equals the seeded arrays, and merged serving of it
+    with a perturbed adapter gives logits within ``LOGIT_RTOL`` of its
+    fp32 plain forward."""
+    over = dict(overrides or {})
+    cfg = get_model_config(model, num_classes=10, **over)
+    src = init_backbone(cfg, 0)
+    src["embed"]["bias"] = np.zeros_like(src["embed"]["bias"])
+    path = os.path.join(tmp, "clip_vision.bin")
+    t0 = time.perf_counter()
+    torch.save(to_hf_clip(src, cfg), path)
+    t1 = time.perf_counter()
+    built = api.build_model(model, rank=8, scale=10.0, num_classes=10,
+                            backbone_path=path, model_overrides=over)
+    t2 = time.perf_counter()
+    want = ckpt_lib.flatten_tree({k: v for k, v in src.items()
+                                  if k != "head"})
+    have = ckpt_lib.flatten_tree({k: v for k, v in built.params.items()
+                                  if k != "head"})
+    require(sorted(have) == sorted(want)
+            and all(np.array_equal(have[k], want[k]) for k in want),
+            "the imported CLIP tower differs from the seeded arrays")
+    print(f"[clip:import] {model}: HF state dict written in {t1 - t0:.3f} s "
+          f"({os.path.getsize(path) / 2 ** 20:.1f} MiB), built through "
+          f"clip_import in {t2 - t1:.3f} s; every array equal", flush=True)
+    pred = Predictor(built.params, built.cfg, cara_params=(
+        convert.perturb_adapter(built.cara_params, 3)),
+        cara_cfg=built.cara_cfg, merge=True, batch_size=batch, device=dev)
+    images = make_images(batch, cfg.image_size, seed=12)
+    reset_launches()
+    got = pred.logits(images)
+    _logit_check("clip:import:merged", got, reference_logits(pred, images))
+    require(read_launches(("fused_qkv_attention",))["fused_qkv_attention"]
+            > 0, "the imported CLIP tower's forward launched no attention")
+
+
+def interop_phase(dev, ckpt, tmp, model=MODEL) -> None:
+    """The reference's ``.pt`` of ``ckpt`` (the resumed run's best
+    checkpoint): ``cli.export --mode torch`` writes it
+    (``models.torch_export``); ``models.torch_import`` reads back the
+    same arrays; ``cli.vit_cp --evaluate X.pt`` in a child (rank and
+    order from the file) gives the npz ``--evaluate``'s accuracy on the
+    same synthetic split; ``cli.export`` merges the ``.pt`` into the
+    arrays of the npz's merged export."""
+    params, cara, meta = ckpt_lib.load_model(ckpt)
+    cfg = get_model_config(model, num_classes=params["head"]["kernel"].shape[
+        -1], **meta.get("model_overrides", {}))
+    pt = os.path.join(tmp, "vit_resumed.pt")
+    t0 = time.perf_counter()
+    export_cli.main(["--ckpt", ckpt, "--out", pt, "--mode", "torch"])
+    print(f"[interop] --mode torch: {time.perf_counter() - t0:.3f} s, "
+          f"{os.path.getsize(pt) / 2 ** 20:.3f} MiB", flush=True)
+    back, back_cara, info = torch_import.load_torch_checkpoint(pt, cfg)
+    want = ckpt_lib.flatten_tree({"p": params, "c": cara})
+    have = ckpt_lib.flatten_tree({"p": back, "c": back_cara})
+    require(sorted(have) == sorted(want)
+            and all(np.array_equal(have[k], want[k]) for k in want)
+            and info == {"cp_order": meta["cp_order"],
+                         "rank": cara["R1"].shape[0]},
+            "the .pt does not read back to the checkpoint's arrays")
+    argv = resume_args(model, tmp, dev)
+    acc_npz = vit_cp_cli.main(argv + ["--evaluate", ckpt])
+    t0 = time.perf_counter()
+    lines, launches, _ = _resume_child(argv + ["--evaluate", pt], "")
+    acc = [float(l.split()[1]) for l in lines if l.startswith("Accuracy:")]
+    print(f"[interop] --evaluate X.pt in a child ({time.perf_counter() - t0:.1f}"
+          f" s): accuracy {acc}, the npz's {acc_npz}; child launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    require(acc == [acc_npz], "the .pt evaluates to another accuracy")
+    for name in ADAPTER_SERVING_KERNELS:
+        require(launches[name] > 0, f"{name} never launched evaluating the "
+                ".pt")
+    merged = os.path.join(tmp, "export_merged_pt.npz")
+    export_cli.main(["--ckpt", pt, "--model", model, "--scale",
+                     str(meta["scale"]), "--out", merged, "--mode",
+                     "merged", "--device", str(dev)])
+    a = ckpt_lib.flatten_tree(ckpt_lib.load_model(merged)[0])
+    b = ckpt_lib.flatten_tree(ckpt_lib.load_model(
+        os.path.join(tmp, "export_merged.npz"))[0])
+    require(sorted(a) == sorted(b)
+            and all(np.array_equal(a[k], b[k]) for k in b),
+            "the .pt's merged export differs from the npz's")
+    print("[interop] cli.export of the .pt (merged): the npz's merged "
+          "export's arrays, bit for bit", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4596,11 +5269,16 @@ def main(argv=None) -> int:
         quant_cli_child(ckpt, MODEL, images)
         launches["block_pair_fwd"] = pair_eval_check(dev, ckpt, MODEL,
                                                      images)
+    stamp("quantized serving and the whole-block eval")
+    # Three tasks over one backbone: rows 5, 9, 18 and 19 at per-task
+    # scales.
+    for name, count in multitask_phase(dev).items():
+        launches[name] += count
     for suffix in INT8_SHAPES:
         if not suffix.startswith("_huge"):
             launches["int8_dense" + suffix] = launches["int8_dense"]
 
-    stamp("quantized serving and the whole-block eval")
+    stamp("multi-task serving")
     # The default routes run rows 8, 10 and 11 in the saved forms only.
     saved_products = tuple(k for k in GEMM_PRODUCTS
                            if k not in GEMM_RECOMPUTE)
@@ -4618,6 +5296,11 @@ def main(argv=None) -> int:
     other_routes_grad_check(dev, split["setup"])
     del split
     stamp("element and rank training")
+    # CP orders 2, 3 and 5 and the materialized delta, and the
+    # dim_experiment CLI.
+    for name, count in orders_phase(dev).items():
+        launches[name] = launches.get(name, 0) + count
+    stamp("CP orders and dim_experiment")
     # Gradient accumulation (4 x 16 against one pass of 64) and the NaN
     # check on the element route's setup.
     setup = train.pop("setup")
@@ -4628,8 +5311,11 @@ def main(argv=None) -> int:
     # Resume and preemption through the CLI, then export, merged eval and
     # predict on the relaunch's checkpoint.
     with tempfile.TemporaryDirectory() as tmp:
-        export_phase(dev, resume_phase(dev, tmp), tmp)
-    stamp("resume, the build cache, profiling, export and predict")
+        ckpt = resume_phase(dev, tmp)
+        export_phase(dev, ckpt, tmp)
+        # The reference's .pt of the same checkpoint.
+        interop_phase(dev, ckpt, tmp)
+    stamp("resume, the build cache, profiling, export, predict and .pt")
     # The recompute forms of rows 8, 10 and 11, against the saved ones.
     launches.update(recompute_phase(dev))
     stamp("the recompute forms")
@@ -4640,10 +5326,15 @@ def main(argv=None) -> int:
     launches.update(dropout_phase(dev))
     stamp("dropout")
     # CLIP ViT-L/14 at full width and depth: the quick_gelu forms.
-    launches.update(clip_phase(dev))
+    launches.update(clip_phase(dev, overrides={"depth": CLIP_DEPTH}))
+    # A HuggingFace-layout CLIP tower (all 24 layers) through the
+    # importer.
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_import_phase(dev, tmp)
     stamp("CLIP ViT-L/14")
-    # ViT-H/14 at full width and depth: the attention at head width 80.
-    launches.update(huge_phase(dev))
+    # ViT-H/14 at full width and half its depth: the attention at head
+    # width 80.
+    launches.update(huge_phase(dev, overrides={"depth": HUGE_DEPTH}))
     stamp("ViT-H/14")
     # Row 3's head-width-64 entries: the ViT-B switched phase's instance.
     for name, (base, _, _, e, heads) in PROJ_FORMS.items():

@@ -73,7 +73,6 @@ def test_torch_export_matches_jax(tmp_path, mode):
 
 @pytest.mark.parametrize("extra, match", [
     (["--mode", "stablehlo"], "PEFT zoo"),
-    (["--mode", "torch"], "interop"),
     (["--tome-r", "4"], "PEFT zoo"),
     (["--quantize", "int8"], "only applies to --mode stablehlo"),
 ])
@@ -82,9 +81,6 @@ def test_torch_export_refuses_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
         t_export.main(["--ckpt", ckpt, "--out", str(tmp_path / "o.npz"),
                        "--device", "cpu", *extra])
-    with pytest.raises(SystemExit, match="interop"):
-        t_export.main(["--ckpt", str(tmp_path / "x.pt"), "--out",
-                       str(tmp_path / "o.npz")])
 
 
 def test_torch_export_checks_scale_and_model_as_jax(tmp_path):
@@ -167,5 +163,15 @@ def test_torch_predict_matches_jax(tmp_path, capsys, monkeypatch):
     for extra in (["--exported", "x"], ["--tome-r", "2"]):
         with pytest.raises(SystemExit, match="PEFT zoo"):
             t_predict.main(["--ckpt", ckpt, *extra, paths[0]])
-    with pytest.raises(SystemExit, match="interop"):
-        t_predict.main(["--ckpt", "x.pt", paths[0]])
+    # a reference .pt of the same weights predicts the same (its scale
+    # comes from --scale)
+    from cara_tpu_torch.models.torch_export import save_torch_checkpoint
+
+    params, cara, meta = t_ckpt.load_model(ckpt)
+    pt = str(tmp_path / "same.pt")
+    save_torch_checkpoint(pt, params, cara, get_model_config(
+        MODEL, **meta.get("model_overrides", {})), 4)
+    got_pt = t_predict.main(["--ckpt", pt, "--model", MODEL, "--top", "2",
+                             "--scale", str(meta["scale"]), "--device",
+                             "cpu", "--dtype", "float32", *paths])
+    assert [r["classes"] for r in got_pt] == [r["classes"] for r in got]

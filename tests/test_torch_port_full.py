@@ -316,7 +316,7 @@ def test_torch_cli_full_trains_and_its_checkpoint_serves(tmp_path,
     (["--method", "full", "--weight-dropout", "0.1"], "does not apply"),
     (["--method", "lora"], "ROADMAP"),
     (["--method", "full", "--dense-impl", "fused"], "backbone-weight"),
-    (["--delta-impl", "materialized"], "ROADMAP")])
+    (["--pipeline", "2,4"], "ROADMAP")])
 def test_torch_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(SystemExit, match=match):
         t_cli.main(["--synthetic", "--device", "cpu", *extra])

@@ -156,7 +156,11 @@ def test_cli_refuses_unported_paths(tmp_path):
         t_cli.main(["--ckpt", os.fspath(tmp_path / "x.npz"),
                     "--tome-r", "2"])
     with pytest.raises(SystemExit, match="not yet ported"):
-        t_cli.main(["--ckpt", "a.npz", "--ckpt", "b.npz"])
+        t_cli.main(["--ckpt", "a.npz", "--exported", "x"])
+    # several checkpoints serve as tasks (test_torch_port_multitask.py);
+    # the single-task options are refused with them
+    with pytest.raises(SystemExit, match="single-task option"):
+        t_cli.main(["--ckpt", "a.npz", "--ckpt", "b.npz", "--no-merge"])
 
 
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])

@@ -128,16 +128,38 @@ def test_vit_forward_train_matches_jax():
 @pytest.mark.parametrize("field, value", [
     ("delta_impl", "materialized"), ("cp_order", 2), ("moe_experts", 2)])
 def test_vit_forward_train_refuses_unported_routes(field, value):
-    cfg, cc, params, cara, batch, _, _ = _setup()
+    """MoE and the other adapter families still raise, naming the
+    ROADMAP; the materialized delta and CP order 2 (the dense deltas)
+    are ported: their training forward matches JAX's with its element
+    masks injected (``test_torch_port_orders.py`` holds every order)."""
+    from test_torch_port_dropout import jax_randomness as masked
+
     over = {field: value}
     if field == "moe_experts":
         over["weight_dropout_impl"] = "rank"
+    moe = field == "moe_experts"
+    cfg, cc, params, cara, batch, j_cfg, j_cc = _setup(
+        **({} if moe else over))
     cc = dataclasses.replace(cc, **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vit.vit_forward(convert.params_from_numpy(params, "cpu"),
-                          torch.from_numpy(batch["image"]), cfg,
-                          cara_params=convert.params_from_numpy(cara, "cpu"),
-                          cara_cfg=cc, train=True)
+    args = (convert.params_from_numpy(params, "cpu"),
+            torch.from_numpy(batch["image"]), cfg)
+    if moe:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_vit.vit_forward(*args,
+                              cara_params=convert.params_from_numpy(cara,
+                                                                    "cpu"),
+                              cara_cfg=cc, train=True)
+    else:
+        rng = jax.random.PRNGKey(7)
+        ref = j_vit.vit_forward(params, jnp.asarray(batch["image"]), j_cfg,
+                                cara_params=cara, cara_cfg=j_cc, train=True,
+                                rng=rng, attn_impl="fused",
+                                dense_impl="fused")
+        rand = masked(rng, cfg, B, cc, "fused", "xla")
+        out = t_vit.vit_forward(
+            *args, cara_params=convert.params_from_numpy(cara, "cpu"),
+            cara_cfg=cc, train=True, randomness=rand)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_vit.check_trainable(cfg, CaraConfig(method="lora"))
 
@@ -340,7 +362,7 @@ def test_cli_trains_and_checkpoint_loads_in_both_packages(tmp_path):
     assert logits.shape == (3, 2) and np.isfinite(logits).all()
     # a flag whose feature is not ported is refused, naming the ROADMAP
     with pytest.raises(SystemExit, match="ROADMAP"):
-        t_cli.main(["--synthetic", "--delta-impl", "materialized"])
+        t_cli.main(["--synthetic", "--mesh", "2,1"])
 
 
 def test_keeper_rotates_and_writes_host_copies(tmp_path):
