@@ -7,7 +7,7 @@
 // W (E, E), b (E,), U (E, r) given r8 columns wide (zero past r), V
 // (r, E), cb (E,), y (B, N, E) bf16; fp32 accumulation.  Head widths 16,
 // 32, 64 and 80 (sm90_common.cuh, HeadTile), E = H * Dh up to 1280, N up
-// to 512 with keys >= n_real masked, rank up to 64.
+// to 512 with keys >= n_real masked, any rank.
 //
 // Replaces cara_tpu/ops/pallas/fused_qkv_attention.py row 3
 // (fused_qkv_attention_proj: _fwd_proj, _fwd_proj_kernel), whose point is
@@ -47,7 +47,13 @@
 //    address (Dh 80's heads straddle the atoms).
 // 2. z = bf16(o U) (64 x 16 or 64: the rank depth is a template
 //    parameter), each warpgroup over the whole o tile, kept in registers
-//    as a wgmma A operand.
+//    as a wgmma A operand.  Past rank 64 (RK_LOOP) z would not fit beside
+//    the accumulators, and at E 1280 the 64 x E o tile leaves no shared
+//    memory for it, so each pass of step 3 forms z in chunks of 64 rank
+//    columns after its o W: z_c = bf16(o U_c) from U's tiles through the
+//    ring, then z_c V_c by register-A wgmma, then the next chunk.  The
+//    registers and slots stay at rank 64's; each pass recomputes its z
+//    chunks (64 x 64 x E a chunk, half a pass's o W), the price of that.
 // 3. The projection, in passes of 256 columns, warpgroup w taking
 //    columns 128 w .. + 127 of each: acc = o W over E in 32-deep tiles,
 //    one group of wgmma in flight while the next tile lands (the last
@@ -98,6 +104,8 @@ constexpr int kWBox = kWk * 128;  // one 64-column TMA box of a W tile
 constexpr int kWTile = 2 * kWBox;   // a projection slot: 8 KB
 constexpr int kMaxSlots = 8;
 constexpr int kMaxE = 1280;
+constexpr int RK_LOOP = -1;  // past rank 64: z in chunks of 64, each pass
+constexpr int kRankTile = 64;
 
 // The byte plan of one block's shared memory from a 1024-aligned base:
 // the o tile, the two rings, the barriers.
@@ -150,14 +158,18 @@ struct Args {
   const __nv_bfloat16* cb;
   __nv_bfloat16* out;
   int N, heads, n_real, e, prescale;
+  int rc;  // RK_LOOP: rank chunks of 64
   float scale, s;
 };
 
 template <int DH, int RK>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
-  constexpr int ZN = 16 * RK;                 // z columns
-  constexpr int VT = (16 * RK + kWk - 1) / kWk;  // V tiles of the rank step
+  constexpr bool LOOP = RK == RK_LOOP;
+  // k-steps of a z (chunk); 1 at r = 0, where no z is formed.
+  constexpr int RKT = LOOP ? 4 : RK > 0 ? RK : 1;
+  constexpr int ZN = 16 * RKT;                // z columns
+  constexpr int VT = (16 * RKT + kWk - 1) / kWk;  // V tiles of a rank step
   constexpr int SK = kKeys * DH * 2;          // bytes of a K or V tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -234,15 +246,26 @@ attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
         const int s = slot(kUk * ZN * 2);
         tma_load_2d(ring + s * kWTile, &maps.u, &bb.pfull[s], 0, kUk * t);
       }
+    auto load_w = [&](const CUtensorMap* m, int c0, int k) {
+      const int s = slot(kWTile);
+      tma_load_2d(ring + s * kWTile, m, &bb.pfull[s], c0, k);
+      tma_load_2d(ring + s * kWTile + kWBox, m, &bb.pfull[s], c0 + 64, k);
+    };
     for (int c0 = kBN * g; c0 < a.e; c0 += kBN * kGroups) {
       for (int t = 0; t < KT + (RK > 0 ? VT : 0); ++t) {
         const bool rank = t >= KT;
-        const CUtensorMap* m = rank ? &maps.v : &maps.w;
-        const int k = kWk * (rank ? t - KT : t);
-        const int s = slot(kWTile);
-        tma_load_2d(ring + s * kWTile, m, &bb.pfull[s], c0, k);
-        tma_load_2d(ring + s * kWTile + kWBox, m, &bb.pfull[s], c0 + 64, k);
+        load_w(rank ? &maps.v : &maps.w, c0, kWk * (rank ? t - KT : t));
       }
+      if constexpr (LOOP)  // each chunk's U tiles, then its V tiles
+        for (int c = 0; c < a.rc; ++c) {
+          for (int t = 0; t < KU; ++t) {
+            const int s = slot(kUk * ZN * 2);
+            tma_load_2d(ring + s * kWTile, &maps.u, &bb.pfull[s], ZN * c,
+                        kUk * t);
+          }
+          for (int t = 0; t < VT; ++t)
+            load_w(&maps.v, c0, ZN * c + kWk * t);
+        }
     }
     return;
   }
@@ -311,9 +334,10 @@ attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
   };
   auto prelease = [&](int i) { mbar_arrive(&bb.pempty[i % pl.np]); };
 
-  // 2. z = bf16(o U), zero past the rank, as register A fragments.
-  uint32_t zf[RK > 0 ? RK : 1][4];
-  if constexpr (RK > 0) {
+  // 2. z = bf16(o U), zero past the rank, as register A fragments: from
+  // the next KU ring entries (U's tiles; past rank 64 a chunk's).
+  uint32_t zf[RKT][4];
+  auto form_z = [&]() {
     float z[ZN / 2];
 #pragma unroll
     for (int i = 0; i < ZN / 2; ++i) z[i] = 0.f;
@@ -339,8 +363,27 @@ attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
     prelease(ip + KU - 1);
     ip += KU;
 #pragma unroll
-    for (int kk = 0; kk < RK; ++kk) acc_to_a(zf[kk], z, kk);
-  }
+    for (int kk = 0; kk < RKT; ++kk) acc_to_a(zf[kk], z, kk);
+  };
+  // acc += z V for the next VT ring entries (V's tiles; the rank step).
+  auto rank_v = [&](float (&acc)[kBN / 2]) {
+#pragma unroll
+    for (int vt = 0; vt < VT; ++vt) {
+      const unsigned char* vs = pwait(ip);
+      const uint64_t dv = desc_mn(vs, kWBox);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWk / 16; ++kk)
+        if (vt * (kWk / 16) + kk < RKT)
+          wgmma_rs<kBN, 1>(acc, zf[vt * (kWk / 16) + kk], dv + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      prelease(ip);
+      ++ip;
+    }
+  };
+  if constexpr (RK > 0) form_z();
 
   // 3. y = o W + b + s (z V + cb), this warpgroup's 128 columns of each
   // 256-column pass.
@@ -378,27 +421,19 @@ attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
       bw[j] = in ? *reinterpret_cast<const uint32_t*>(a.b + col) : 0u;
       cw[j] = in ? *reinterpret_cast<const uint32_t*>(a.cb + col) : 0u;
     }
-    if constexpr (RK > 0) {
+    if constexpr (RK != 0) {
       // acc / s + z V, so that the epilogue's s (acc / s + z V + cb) + b
       // applies the delta scale in fp32.
       const float inv = 1.f / a.s;
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) acc[i] *= inv;
-#pragma unroll
-      for (int vt = 0; vt < VT; ++vt) {
-        const unsigned char* vs = pwait(ip);
-        const uint64_t dv = desc_mn(vs, kWBox);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kWk / 16; ++kk)
-          if (vt * (kWk / 16) + kk < RK)
-            wgmma_rs<kBN, 1>(acc, zf[vt * (kWk / 16) + kk], dv + 128 * kk,
-                             1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
-        prelease(ip);
-        ++ip;
+      if constexpr (LOOP) {
+        for (int c = 0; c < a.rc; ++c) {
+          form_z();
+          rank_v(acc);
+        }
+      } else {
+        rank_v(acc);
       }
     }
     // Epilogue: thread (warp, g, t) holds rows warp * 16 + g (+ 8) and
@@ -417,7 +452,7 @@ attn_proj_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
         if (row >= a.N) continue;
         const float a0 = acc[4 * j + 2 * r], a1 = acc[4 * j + 2 * r + 1];
         float y0, y1;
-        if constexpr (RK > 0) {
+        if constexpr (RK != 0) {
           y0 = fmaf(a.s, a0 + b2.x, b1.x);
           y1 = fmaf(a.s, a1 + b2.y, b1.y);
         } else {
@@ -456,10 +491,10 @@ int launch(const __nv_bfloat16* qkv, const __nv_bfloat16* w,
   const uint32_t box64[2] = {64, kWk};
   const uint64_t wdims[2] = {e, e}, wstride[1] = {e * 2};
   if (!err) err = encode_map(&maps.w, w, 2, wdims, wstride, box64);
-  if (RK > 0) {
+  if (RK != 0) {
     const uint64_t udims[2] = {(uint64_t)ldu, e}, ustride[1] = {
         (uint64_t)ldu * 2};
-    const uint32_t ubox[2] = {16 * RK, kUk};
+    const uint32_t ubox[2] = {RK == RK_LOOP ? 64u : 16u * RK, kUk};
     if (!err) err = encode_map(&maps.u, u, 2, udims, ustride, ubox);
     const uint64_t vdims[2] = {e, (uint64_t)r};
     if (!err) err = encode_map(&maps.v, v, 2, vdims, wstride, box64);
@@ -476,15 +511,18 @@ int launch_dh(const __nv_bfloat16* qkv, const __nv_bfloat16* w,
               int B, int r, int ldu, cudaStream_t stream) {
   if (r == 0) return launch<DH, 0>(qkv, w, u, v, a, B, r, ldu, stream);
   if (r <= 16) return launch<DH, 1>(qkv, w, u, v, a, B, r, ldu, stream);
-  return launch<DH, 4>(qkv, w, u, v, a, B, r, ldu, stream);
+  if (r <= kRankTile)
+    return launch<DH, 4>(qkv, w, u, v, a, B, r, ldu, stream);
+  return launch<DH, RK_LOOP>(qkv, w, u, v, a, B, r, ldu, stream);
 }
 
 }  // namespace
 
 // y (B, N, E) = attention(qkv) @ w + b + s * ((attention(qkv) @ u) @ v +
 // cb), keys >= n_real masked.  dh must be 16, 32, 64 or 80, E = heads * dh
-// at most 1280, 1 <= n_real <= N <= 512, 0 <= r <= ldu <= 64 with ldu a
-// multiple of 8 (u is (E, ldu), zero past r).  Pointers 16-byte aligned;
+// at most 1280, 1 <= n_real <= N <= 512, 0 <= r <= ldu with ldu a
+// multiple of 8 up to 64, or past rank 64 r rounded up to 64 (u is (E,
+// ldu), zero past r).  Pointers 16-byte aligned;
 // the Python wrapper checks.  Returns cudaGetLastError() (or the error of
 // the shared-memory attribute call or of a tensor-map encoding).
 extern "C" int cara_attn_proj(const void* qkv, const void* w, const void* b,
@@ -495,7 +533,10 @@ extern "C" int cara_attn_proj(const void* qkv, const void* w, const void* b,
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int e = heads * dh;
   if (e > kMaxE || e % 16 || N < 1 || N > 512 || n_real < 1 ||
-      n_real > N || r < 0 || r > ldu || ldu > 64 || ldu % 8 || B < 1)
+      n_real > N || r < 0 || r > ldu || ldu % 8 || B < 1 ||
+      (r <= kRankTile && ldu > kRankTile) ||
+      (r > kRankTile &&
+       ldu != (r + kRankTile - 1) / kRankTile * kRankTile))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.b = static_cast<const __nv_bfloat16*>(b);
@@ -509,6 +550,7 @@ extern "C" int cara_attn_proj(const void* qkv, const void* w, const void* b,
   a.prescale = frexpf(scale, &ex) != 0.5f;  // not a power of two
   a.scale = scale;
   a.s = s;
+  a.rc = ldu / kRankTile;
   const __nv_bfloat16* in = static_cast<const __nv_bfloat16*>(qkv);
   const __nv_bfloat16* ww = static_cast<const __nv_bfloat16*>(w);
   const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);

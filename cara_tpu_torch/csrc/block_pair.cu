@@ -7,9 +7,12 @@
 
 // y (B, N, E) from qkv (B, N, 3E) and x (B, N, E): see block_pair.cuh.
 // dh must be 16, 32, 64 or 80, E = heads * dh at most 1280, hidden a
-// multiple of 128, 1 <= n_real <= N <= 512, 1 <= r <= ldu <= 64 with ldu
-// a multiple of 8 (u2, mu1 (E, ldu) and mu2 (hidden, ldu) zero past r),
-// s != 0; act 0 the exact-erf GELU, 1 quick_gelu.  Pointers 16-byte
+// multiple of 128, 1 <= n_real <= N <= 512, 1 <= r <= ldu with ldu a
+// multiple of 8 up to 64, or past rank 64 r rounded up to 64 (u2, mu1 (E,
+// ldu) and mu2 (hidden, ldu) zero past r), s != 0; act 0 the exact-erf
+// GELU, 1 quick_gelu.  Past rank 64 scratch holds B ceil(N / 64)
+// ceil(E / 256) (ldu / 64) 48 256 fp32 words (block_pair.cuh, RK_LOOP);
+// else it may be null.  Pointers 16-byte
 // aligned; the Python wrapper checks.  Returns cudaGetLastError() (or the
 // error of the shared-memory attribute call, of a tensor-map encoding or
 // of the cluster launch).
@@ -18,7 +21,8 @@ extern "C" int cara_block_pair(
     const void* u2, const void* v2, const void* cb2, const void* ls2,
     const void* lb2, const void* w1, const void* b1, const void* mu1,
     const void* mv1, const void* mcb1, const void* w2, const void* b2,
-    const void* mu2, const void* mv2, const void* mcb2, void* out, int B,
+    const void* mu2, const void* mv2, const void* mcb2, void* out,
+    void* scratch, int B,
     int N, int heads, int dh, int hidden, int n_real, int r, int ldu,
     int act, float scale, float s, float ln_eps, void* stream_ptr) {
   using namespace block_pair;
@@ -26,7 +30,11 @@ extern "C" int cara_block_pair(
   const int e = heads * dh;
   if (heads < 1 || e > kMaxE || e % 16 || hidden < 128 || hidden % 128 ||
       N < 1 || N > 512 || n_real < 1 || n_real > N || r < 1 || r > ldu ||
-      ldu > 64 || ldu % 8 || act < 0 || act > 1 || B < 1 || s == 0.f)
+      ldu % 8 || (r <= kRankTile && ldu > kRankTile) ||
+      (r > kRankTile &&
+       (ldu != (r + kRankTile - 1) / kRankTile * kRankTile ||
+        scratch == nullptr)) ||
+      act < 0 || act > 1 || B < 1 || s == 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   auto bfp = [](const void* v) {
     return static_cast<const __nv_bfloat16*>(v);
@@ -53,6 +61,8 @@ extern "C" int cara_block_pair(
   a.b2 = bfp(b2);
   a.cbh = bfp(mcb2);
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.scratch = static_cast<float*>(scratch);
+  a.rc = ldu / kRankTile;
   a.N = N;
   a.heads = heads;
   a.n_real = n_real;

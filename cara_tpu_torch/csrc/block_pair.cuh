@@ -14,9 +14,23 @@
 // the whole hidden row has been summed; everything else accumulates in
 // fp32 (the TPU kernel's rounding points).  Head widths 16, 32, 64 and 80
 // (HeadTile), E = H Dh up to 1280, hidden a multiple of 128, N up to 512
-// with keys >= n_real masked, rank 1..64 (the depth of z, 16 or 64, and
-// the activation, the exact-erf GELU or quick_gelu, are template
-// parameters: no wgmma sits behind a branch ptxas cannot prove uniform).
+// with keys >= n_real masked, any rank (the depth of z, 16 or 64, or
+// chunks of 64 past rank 64, and the activation, the exact-erf GELU or
+// quick_gelu, are template parameters: no wgmma sits behind a branch
+// ptxas cannot prove uniform).
+//
+// Past rank 64 (RK_LOOP) the three z go in chunks of 64 rank columns, so
+// that the registers stay at rank 64's: z2 = bf16(o U2) chunk by chunk
+// after o Wp (o stays in the A tile), each chunk's V2 step right after
+// it; z1 = bf16(xa2 U1) and z2' (h U2', summed over the whole hidden) are
+// needed at every step of the MLP and have no room in shared memory (at
+// E 1280 a warpgroup's phase-B ring is two 4 KB slots), so each consumer
+// thread parks its own fragments of them, 48 words a chunk, in a device
+// scratch buffer that only it reads back (L1 / L2; no fence, no other
+// reader): z1's A fragments once, z2''s fp32 sums around each step's
+// products.  Per step the fc1 rank step takes the chunks one after
+// another, and z2' += h U2' runs chunk by chunk over the step's k hidden
+// chunks after their fc2.
 //
 // Replaces cara_tpu/ops/pallas/block_pair.py (block_pair_fwd,
 // _pair_kernel), the whole-block eval megakernel, whose point is that the
@@ -93,9 +107,10 @@
 //   E 1280 (k 5): 160 + 40 + 5 + 2 KB;           8 / 28 KB (2 / 7 slots;
 //                 two 10 KB K / V slots at Dh 80)
 // Registers of a consumer thread: the 64-register accumulator, z2' (8 or
-// 32), z1 as A fragments (4 or 16), fc1's 16, h's 8 pairs, besides the
-// addresses; the service warpgroup hands its registers to the consumers
-// (setmaxnreg: 232 each; no spills).
+// 32; past rank 64 one chunk's 32 at a time), z1 as A fragments (4 or 16;
+// one chunk's), fc1's 16, h's 8 pairs, besides the addresses; the service
+// warpgroup hands its registers to the consumers (setmaxnreg: 232 each;
+// no spills).
 //
 // What bounds it on the H100: the whole block with the qkv site does
 // 188.6 GFLOP at ViT-B (B 64, N 197: 0.19 ms at the bf16 peak) and 674
@@ -149,6 +164,11 @@ constexpr int kMaxSlots = 16;
 constexpr int kMaxE = 1280;
 constexpr int kMaxCluster = (kMaxE + kCW - 1) / kCW;
 constexpr int kBarBytes = 2048;
+constexpr int RK_LOOP = -1;  // past rank 64: z in chunks of 64
+constexpr int kRankTile = 64;
+// Scratch words of a consumer thread a rank chunk (RK_LOOP): z1's A
+// fragments (16), then z2''s fp32 sums (32).
+constexpr int kZWords = 48;
 
 // The byte plan of one block's shared memory from its 1024-aligned base.
 struct Plan {
@@ -319,7 +339,7 @@ struct Maps {
   CUtensorMap u2;     // (ldu, E): ZN-column x KU-row boxes
   CUtensorMap u1;     // (ldu, E): the same
   CUtensorMap w1;     // (hidden, E): 32-column x 64-row boxes
-  CUtensorMap v1;     // (hidden, r): 32-column x 16 RK-row boxes
+  CUtensorMap v1;     // (hidden, r): 32-column x ZN-row boxes
   CUtensorMap w2;     // (E, hidden): 64-column x 16-row boxes
   CUtensorMap vh;     // (E, r): V2', the same
   CUtensorMap uh;     // (ldu, hidden): U2', ZN-column x KUH-row boxes
@@ -328,7 +348,9 @@ struct Maps {
 struct Args {
   const __nv_bfloat16 *x, *bp, *cb2, *ls2, *lb2, *b1, *cb1, *b2, *cbh;
   __nv_bfloat16* out;
+  float* scratch;  // RK_LOOP: kZWords x 256 words a block and rank chunk
   int N, heads, n_real, e, hidden, prescale;
+  int rc;          // RK_LOOP: rank chunks of 64
   float scale, s, eps;
 };
 
@@ -386,7 +408,9 @@ __device__ __forceinline__ void rank_step(float (&acc)[kBN / 2],
 template <int DH, int RK, int ACT>
 __global__ void __launch_bounds__(kThreads, 1)
 block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
-  constexpr int ZN = 16 * RK;                 // z columns
+  constexpr bool LOOP = RK == RK_LOOP;
+  constexpr int RKT = LOOP ? 4 : RK;          // k-steps of a z (chunk)
+  constexpr int ZN = 16 * RKT;                // z columns
   constexpr int KU = kSlot / (2 * ZN);      // k-rows of a U tile
   constexpr int KUH = KU < kHC ? KU : kHC;    // ... of a U2' tile
   constexpr int SK = kKeys * DH * 2;          // bytes of a K or V tile
@@ -484,22 +508,34 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
     // z2's U2 tiles, Wp's, V2's.
     i = 0;
     if (has) {
-      for (int t = 0; t < NU; ++t) load(pr, kSlot, &maps.u2, 0, KU * t);
+      if (!LOOP)
+        for (int t = 0; t < NU; ++t) load(pr, kSlot, &maps.u2, 0, KU * t);
       for (int t = 0; t < KT; ++t) load_w(pr, &maps.wp, kWk * t);
-      for (int t = 0; t < RK; ++t) load_w(pr, &maps.v2, kWk * t);
+      if (!LOOP)
+        for (int t = 0; t < RK; ++t) load_w(pr, &maps.v2, kWk * t);
+      else  // per rank chunk: its U2 tiles, then its V2 tiles
+        for (int q = 0; q < a.rc; ++q) {
+          for (int t = 0; t < NU; ++t)
+            load(pr, kSlot, &maps.u2, ZN * q, KU * t);
+          for (int t = 0; t < RKT; ++t)
+            load_w(pr, &maps.v2, ZN * q + kWk * t);
+        }
     }
     ring_drain(pr, i);
     // Phase B: U1 and the first step's W1 and V1 tiles; then per step s
     // the next step's W1 and V1 tiles (the consumers run fc1 of step s + 1
     // before fc2 of step s), then per chunk of step s W2's and U2''s; V2'.
     i = 0;
-    for (int t = 0; t < NU; ++t) load(br, kSlot, &maps.u1, 0, KU * t);
+    for (int q = 0; q < (LOOP ? a.rc : 1); ++q)
+      for (int t = 0; t < NU; ++t)
+        load(br, kSlot, &maps.u1, ZN * q, KU * t);
     auto load_fc1 = [&](int s) {
       const int j = s * k + c;
       if (s >= nsteps || j >= nch) return;
       for (int t = 0; t < KT1; ++t)
         load(br, kSlot, &maps.w1, kHC * j + 32 * g, kW1k * t);
-      load(br, 32 * ZN * 2, &maps.v1, kHC * j + 32 * g, 0);
+      for (int q = 0; q < (LOOP ? a.rc : 1); ++q)
+        load(br, 32 * ZN * 2, &maps.v1, kHC * j + 32 * g, ZN * q);
     };
     load_fc1(0);
     for (int s = 0; s < nsteps; ++s) {
@@ -509,12 +545,21 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
         const int jj = s * k + cc;
         for (int t = 0; t < kHC / kWk; ++t)
           load_w(br, &maps.w2, kHC * jj + kWk * t);
-        for (int t = 0; t < kHC / KUH; ++t)
-          load(br, KUH * ZN * 2, &maps.uh, 0, kHC * jj + KUH * t);
+        if (!LOOP)
+          for (int t = 0; t < kHC / KUH; ++t)
+            load(br, KUH * ZN * 2, &maps.uh, 0, kHC * jj + KUH * t);
       }
+      if (LOOP)  // per rank chunk, the U2' tiles of the step's chunks
+        for (int q = 0; q < a.rc; ++q)
+          for (int cc = 0; cc < k && s * k + cc < nch; ++cc)
+            for (int t = 0; t < kHC / KUH; ++t)
+              load(br, KUH * ZN * 2, &maps.uh, ZN * q,
+                   kHC * (s * k + cc) + KUH * t);
     }
     if (has)
-      for (int t = 0; t < RK; ++t) load_w(br, &maps.vh, kWk * t);
+      for (int q = 0; q < (LOOP ? a.rc : 1); ++q)
+        for (int t = 0; t < RKT; ++t)
+          load_w(br, &maps.vh, ZN * q + kWk * t);
     return;
   }
 
@@ -536,6 +581,16 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
   const int c0 = kCW * c + kBN * w;
   const bool has = c0 < a.e;
   const float inv_s = 1.f / a.s;
+  // RK_LOOP: this thread's scratch words of rank chunk q (kZWords each,
+  // 256 threads apart, so that a warp's accesses are coalesced).
+  float* zs = nullptr;
+  if constexpr (LOOP)
+    zs = a.scratch +
+         (((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+          blockIdx.x) * a.rc * kZWords * kConsumers + tid;
+  auto zword = [&](int q, int word) -> float& {
+    return zs[((size_t)q * kZWords + word) * kConsumers];
+  };
   // Every block's shared memory in the cluster's window.
   uint32_t peer[kMaxCluster];
 #pragma unroll
@@ -623,9 +678,11 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
   for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
   if (has) {
     int ip = 0;
-    uint32_t zf[RK][4];
-    tile_z<RK>(zf, ot, pr, ip, NU);
-    ip += NU;
+    uint32_t zf[RKT][4];
+    if constexpr (!LOOP) {
+      tile_z<RK>(zf, ot, pr, ip, NU);
+      ip += NU;
+    }
     auto issue = [&](int i) {
       const uint64_t dw = desc_mn(ring_wait(pr, ip + i), kWBox);
       wgmma_fence();
@@ -645,7 +702,17 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
     ip += KT;
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) acc[i] *= inv_s;
-    rank_step<RK>(acc, zf, pr, ip);
+    if constexpr (LOOP) {
+      // z2 a chunk at a time from o (still in the A tile), then its V2.
+      for (int q = 0; q < a.rc; ++q) {
+        tile_z<RKT>(zf, ot, pr, ip, NU);
+        ip += NU;
+        rank_step<RKT>(acc, zf, pr, ip);
+        ip += RKT;
+      }
+    } else {
+      rank_step<RK>(acc, zf, pr, ip);
+    }
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = c0 + 8 * j + 2 * t;
@@ -787,12 +854,27 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
   // runs while the other blocks write the h of step s, before fc2 of
   // step s: its W1 tiles come through the ring ahead of W2's.
   int ib = 0;
-  uint32_t zf1[RK][4];
-  tile_z<RK>(zf1, ot, br, ib, NU);
-  ib += NU;
+  uint32_t zf1[RKT][4];
   float zh[ZN / 2];
 #pragma unroll
   for (int i = 0; i < ZN / 2; ++i) zh[i] = 0.f;
+  if constexpr (LOOP) {
+    // z1's chunks into this thread's scratch, z2''s sums there zeroed.
+    for (int q = 0; q < a.rc; ++q) {
+      tile_z<RKT>(zf1, ot, br, ib, NU);
+      ib += NU;
+#pragma unroll
+      for (int kk = 0; kk < RKT; ++kk)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          zword(q, 4 * kk + u) = __uint_as_float(zf1[kk][u]);
+#pragma unroll
+      for (int i = 0; i < ZN / 2; ++i) zword(q, 16 + i) = 0.f;
+    }
+  } else {
+    tile_z<RK>(zf1, ot, br, ib, NU);
+    ib += NU;
+  }
   const unsigned char* hs = smem + pl.hs;
   uint32_t hv[8];  // this thread's h pairs of the chunk
   auto fc1 = [&](int s) {
@@ -823,16 +905,24 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
     ib += KT1;
 #pragma unroll
     for (int i = 0; i < 16; ++i) a1[i] *= inv_s;
-    const unsigned char* vs = ring_wait(br, ib);
-    wgmma_fence();
+    for (int q = 0; q < (LOOP ? a.rc : 1); ++q) {
+      if constexpr (LOOP)  // chunk q of z1 back from the scratch
 #pragma unroll
-    for (int kk = 0; kk < RK; ++kk)
-      wgmma_rs<32, 1>(a1, zf1[kk], desc<64>(vs + 1024 * kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(a1);
-    ring_release(br, ib);
-    ++ib;
+        for (int kk = 0; kk < RKT; ++kk)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            zf1[kk][u] = __float_as_uint(zword(q, 4 * kk + u));
+      const unsigned char* vs = ring_wait(br, ib);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < RKT; ++kk)
+        wgmma_rs<32, 1>(a1, zf1[kk], desc<64>(vs + 1024 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(a1);
+      ring_release(br, ib);
+      ++ib;
+    }
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = kHC * j + 32 * w + 8 * jj + 2 * t;
@@ -900,23 +990,55 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
           }
         }
         ib += kHC / kWk;
+        if constexpr (!LOOP) {
 #pragma unroll
-        for (int i = 0; i < kHC / KUH; ++i) {
-          const uint64_t du = desc<2 * ZN>(ring_wait(br, ib + i));
-          wgmma_fence();
+          for (int i = 0; i < kHC / KUH; ++i) {
+            const uint64_t du = desc<2 * ZN>(ring_wait(br, ib + i));
+            wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < KUH / 16; ++kk)
-            wgmma_ss<ZN, 0, 1>(zh, dh + 2 * (KUH / 16 * i + kk),
-                               du + 2 * ZN * kk, 1);
-          wgmma_commit();
+            for (int kk = 0; kk < KUH / 16; ++kk)
+              wgmma_ss<ZN, 0, 1>(zh, dh + 2 * (KUH / 16 * i + kk),
+                                 du + 2 * ZN * kk, 1);
+            wgmma_commit();
+          }
         }
         wgmma_wait<0>();
         fence_regs(acc);
         fence_regs(zh);
         ring_release(br, ib - 1);
+        if constexpr (!LOOP) {
 #pragma unroll
-        for (int i = 0; i < kHC / KUH; ++i) ring_release(br, ib + i);
-        ib += kHC / KUH;
+          for (int i = 0; i < kHC / KUH; ++i) ring_release(br, ib + i);
+          ib += kHC / KUH;
+        }
+      }
+      if constexpr (LOOP) {
+        // z2' += h U2' a rank chunk at a time over the step's chunks, its
+        // sums from and back to this thread's scratch.
+        for (int q = 0; q < a.rc; ++q) {
+#pragma unroll
+          for (int i = 0; i < ZN / 2; ++i) zh[i] = zword(q, 16 + i);
+          for (int cc = 0; cc < k && s * k + cc < nch; ++cc) {
+            const uint64_t dh = desc<128>(hs + (set * k + cc) * kHSlot);
+#pragma unroll
+            for (int i = 0; i < kHC / KUH; ++i) {
+              const uint64_t du = desc<2 * ZN>(ring_wait(br, ib + i));
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < KUH / 16; ++kk)
+                wgmma_ss<ZN, 0, 1>(zh, dh + 2 * (KUH / 16 * i + kk),
+                                   du + 2 * ZN * kk, 1);
+              wgmma_commit();
+            }
+            wgmma_wait<0>();
+            fence_regs(zh);
+#pragma unroll
+            for (int i = 0; i < kHC / KUH; ++i) ring_release(br, ib + i);
+            ib += kHC / KUH;
+          }
+#pragma unroll
+          for (int i = 0; i < ZN / 2; ++i) zword(q, 16 + i) = zh[i];
+        }
       }
     }
     if (nbuf == 1 && s + 1 < nsteps) signal(3 + s, false);  // set done
@@ -924,12 +1046,18 @@ block_pair_kernel(const __grid_constant__ Maps<DH> maps, const Args a) {
 
   // 5. y = bf16(x_mid + h W2 + b2 + s (z2' V2' + cb2')), z2' = bf16(h U2').
   if (!has) return;
-  uint32_t zf2[RK][4];
-#pragma unroll
-  for (int kk = 0; kk < RK; ++kk) acc_to_a(zf2[kk], zh, kk);
+  uint32_t zf2[RKT][4];
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) acc[i] *= inv_s;
-  rank_step<RK>(acc, zf2, br, ib);
+  for (int q = 0; q < (LOOP ? a.rc : 1); ++q) {
+    if constexpr (LOOP)
+#pragma unroll
+      for (int i = 0; i < ZN / 2; ++i) zh[i] = zword(q, 16 + i);
+#pragma unroll
+    for (int kk = 0; kk < RKT; ++kk) acc_to_a(zf2[kk], zh, kk);
+    rank_step<RKT>(acc, zf2, br, ib);
+    ib += RKT;
+  }
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int col = c0 + 8 * j + 2 * t;
@@ -955,7 +1083,7 @@ struct Ptrs {
 template <int DH, int RK, int ACT>
 int launch(const Ptrs& g, const Args& a, int B, int r, int ldu,
            cudaStream_t stream) {
-  constexpr int ZN = 16 * RK;
+  constexpr int ZN = RK == RK_LOOP ? 64 : 16 * RK;
   constexpr int KU = kSlot / (2 * ZN);
   constexpr int KUH = KU < kHC ? KU : kHC;
   const Plan pl = make_plan(a.e, DH);
@@ -1016,20 +1144,24 @@ int launch(const Ptrs& g, const Args& a, int B, int r, int ldu,
 template <int ACT>
 int launch_act(const Ptrs& g, const Args& a, int B, int dh, int r, int ldu,
                cudaStream_t stream) {
-  const bool wide = r > 16;
+  const int rk = r <= 16 ? 1 : r <= kRankTile ? 4 : RK_LOOP;
   switch (dh) {
     case 16:
-      return wide ? launch<16, 4, ACT>(g, a, B, r, ldu, stream)
-                  : launch<16, 1, ACT>(g, a, B, r, ldu, stream);
+      return rk == 1   ? launch<16, 1, ACT>(g, a, B, r, ldu, stream)
+             : rk == 4 ? launch<16, 4, ACT>(g, a, B, r, ldu, stream)
+                       : launch<16, RK_LOOP, ACT>(g, a, B, r, ldu, stream);
     case 32:
-      return wide ? launch<32, 4, ACT>(g, a, B, r, ldu, stream)
-                  : launch<32, 1, ACT>(g, a, B, r, ldu, stream);
+      return rk == 1   ? launch<32, 1, ACT>(g, a, B, r, ldu, stream)
+             : rk == 4 ? launch<32, 4, ACT>(g, a, B, r, ldu, stream)
+                       : launch<32, RK_LOOP, ACT>(g, a, B, r, ldu, stream);
     case 64:
-      return wide ? launch<64, 4, ACT>(g, a, B, r, ldu, stream)
-                  : launch<64, 1, ACT>(g, a, B, r, ldu, stream);
+      return rk == 1   ? launch<64, 1, ACT>(g, a, B, r, ldu, stream)
+             : rk == 4 ? launch<64, 4, ACT>(g, a, B, r, ldu, stream)
+                       : launch<64, RK_LOOP, ACT>(g, a, B, r, ldu, stream);
     case 80:
-      return wide ? launch<80, 4, ACT>(g, a, B, r, ldu, stream)
-                  : launch<80, 1, ACT>(g, a, B, r, ldu, stream);
+      return rk == 1   ? launch<80, 1, ACT>(g, a, B, r, ldu, stream)
+             : rk == 4 ? launch<80, 4, ACT>(g, a, B, r, ldu, stream)
+                       : launch<80, RK_LOOP, ACT>(g, a, B, r, ldu, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -67,7 +67,19 @@
 //
 // cara_rank_z is the rank product alone, z = bf16(xa U) (M, 64) zero past
 // r, for the backward wrappers that recompute it (_bwd.rank_z): a skinny
-// tensor-core GEMM that reads xa once.
+// tensor-core GEMM that reads xa once.  Past rank 64 it writes z (M, R),
+// R = 64 ceil(r / 64), a 64-column chunk a block (the chunk the fastest
+// grid index, so that a row block's chunks run together and share its
+// rows in L2), from U given (K, R) zero past r.
+//
+// Past rank 64 a folded z would hold R / 2 fp32 registers a thread beside
+// the accumulators (spills, and ptxas serializes the wgmma), so the site
+// runs that pre-pass first (one more read of xa: 19 MB at ViT-B's qkv
+// site, ~6 us at 3.35 TB/s) and its rank step reads z from memory as
+// ceil(r / 64) k-tiles of 64 through the same ring (sm90_gemm.cuh,
+// RK_LOOP; the GELU instances built in cp_site_chunks.cu, so that they
+// compile beside these).  The rounding points do not move: z is summed
+// in fp32 and rounded to bf16 once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,11 +103,15 @@ constexpr int ZBK = 128;
 constexpr int ZA_LD = ZBK + 8;
 constexpr int ZTHREADS = 64;
 
-template <int RP>
+// CHUNK (RP 64, past rank 64): block (c, y) writes z's columns 64 c ..
+// 64 c + 63 of rows 32 y .., U (K, ldz) and z (M, ldz) zero-padded to ldz
+// = R columns.  Otherwise one chunk: U (K, r), z (M, 64).
+template <int RP, bool CHUNK = false>
 __global__ void __launch_bounds__(ZTHREADS)
 rank_z_kernel(const __nv_bfloat16* __restrict__ x,
               const __nv_bfloat16* __restrict__ u,
-              __nv_bfloat16* __restrict__ z, int M, int K, int r) {
+              __nv_bfloat16* __restrict__ z, int M, int K, int r, int ldz) {
+  static_assert(!CHUNK || RP == ZW, "a chunk is 64 columns");
   constexpr int ULD = RP + 8;
   __shared__ __align__(128) __nv_bfloat16 As[ZBM * ZA_LD];
   __shared__ __align__(128) __nv_bfloat16 Us[ZBK * ULD];
@@ -103,7 +119,8 @@ rank_z_kernel(const __nv_bfloat16* __restrict__ x,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int m0 = blockIdx.x * ZBM;
+  const int m0 = (CHUNK ? blockIdx.y : blockIdx.x) * ZBM;
+  const int c0 = CHUNK ? blockIdx.x * ZW : 0;
   constexpr int VA = ZBM * ZBK / 8 / ZTHREADS;  // 16-byte vectors a thread
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RP / 16];
@@ -114,7 +131,7 @@ rank_z_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();  // the zeros land before any thread scatters U
 
   for (int k0 = 0; k0 < K; k0 += ZBK) {
-    const int kw = min(ZBK, K - k0);  // K % 64 == 0
+    const int kw = min(ZBK, K - k0);  // K % 8 == 0
 #pragma unroll
     for (int it = 0; it < VA; ++it) {
       const int vec = tid + it * ZTHREADS;
@@ -128,7 +145,17 @@ rank_z_kernel(const __nv_bfloat16* __restrict__ x,
     }
     // U rows k0 .. k0+kw are kw*r contiguous values (a multiple of 8):
     // 16-byte loads, scattered into the (kk, j) layout; the padding
-    // columns j >= r were zeroed before the loop.
+    // columns j >= r were zeroed before the loop.  A chunk reads its 64
+    // columns of the padded U's rows, 16 bytes at a time.
+    if constexpr (CHUNK) {
+      for (int v = tid; v < kw * (ZW / 8); v += ZTHREADS) {
+        const int row = v / (ZW / 8);
+        const int col = (v % (ZW / 8)) * 8;
+        *reinterpret_cast<uint4*>(&Us[row * ULD + col]) =
+            *reinterpret_cast<const uint4*>(u + (size_t)(k0 + row) * ldz +
+                                            c0 + col);
+      }
+    } else
     for (int v = tid; v < kw * r / 8; v += ZTHREADS) {
       const uint4 raw =
           *reinterpret_cast<const uint4*>(u + (size_t)k0 * r + v * 8);
@@ -155,12 +182,12 @@ rank_z_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __syncthreads();
   }
-  // z is written ZW columns wide (zeros past r), the rank step's A2.
+  // z is written ldz columns wide (zeros past r), the rank step's A2.
   float* zs = Zs[warp];
   const int er = lane >> 1;
   const int ec = (lane & 1) * 8;
   const int gm = m0 + warp * 16 + er;
-  __nv_bfloat16* zrow = z + (size_t)gm * ZW;
+  __nv_bfloat16* zrow = z + (size_t)gm * ldz + c0;
 #pragma unroll
   for (int f = 0; f < RP / 16; ++f) {
     wmma::store_matrix_sync(zs, acc[f], 16, wmma::mem_row_major);
@@ -183,24 +210,35 @@ rank_z_kernel(const __nv_bfloat16* __restrict__ x,
 template <int RP>
 void launch_z(const __nv_bfloat16* x, const __nv_bfloat16* u,
               __nv_bfloat16* z, int M, int K, int r, cudaStream_t stream) {
-  rank_z_kernel<RP><<<(M + ZBM - 1) / ZBM, ZTHREADS, 0, stream>>>(x, u, z,
-                                                                  M, K, r);
+  rank_z_kernel<RP><<<(M + ZBM - 1) / ZBM, ZTHREADS, 0, stream>>>(
+      x, u, z, M, K, r, ZW);
+}
+
+// Past rank 64: z (M, R) from U (K, R), both zero past r.
+void launch_z_chunks(const __nv_bfloat16* x, const __nv_bfloat16* u,
+                     __nv_bfloat16* z, int M, int K, int r,
+                     cudaStream_t stream) {
+  const int ldz = (r + ZW - 1) / ZW * ZW;
+  const dim3 grid(ldz / ZW, (M + ZBM - 1) / ZBM);
+  rank_z_kernel<ZW, true><<<grid, ZTHREADS, 0, stream>>>(x, u, z, M, K, r,
+                                                         ldz);
 }
 
 }  // namespace
 
 // One dense site on `stream`: out (M, N) bf16 from xa (M, K) (already
 // normalized on an LN site), W (K, N), b (N,), U (K, r8) with r8 = r
-// rounded up to 8 (zero columns past r), V (r, N), cb (N,) or null.  act:
-// 0 none, 1 GELU, 2 GELU dact (reads g (M, N), writes g * gelu'(pre)), 3
-// quick_gelu, 4 quick_gelu dact; has_res: out = res + dpm[row] * y with
-// res (M, N) bf16 and dpm (M,) fp32 (act 0 or 1 only).  z (M, 64) or
-// null: where given (r > 0), bf16(xa U), zero past r, is written there.
-// pre (M, N) or null: where given (act 1 or 3, no residual), the
-// pre-activation bf16(y) is written there.  Needs
-// K and N multiples of 8, r <= 64 and 16-byte aligned pointers; the
-// Python wrapper checks them.  Returns cudaGetLastError() or the
-// tensor-map encoding's error.
+// rounded up to 8 (past rank 64: R = r rounded up to 64; zero columns
+// past r), V (r, N), cb (N,) or null.  act: 0 none, 1 GELU, 2 GELU dact
+// (reads g (M, N), writes g * gelu'(pre)), 3 quick_gelu, 4 quick_gelu
+// dact; has_res: out = res + dpm[row] * y with res (M, N) bf16 and dpm
+// (M,) fp32 (act 0 or 1 only).  z (M, 64) or null: where given (r > 0),
+// bf16(xa U), zero past r, is written there; past rank 64 z (M, R) is
+// required (the rank pre-pass writes it and the product reads it).  pre
+// (M, N) or null: where given (act 1 or 3, no residual), the
+// pre-activation bf16(y) is written there.  Needs K and N multiples of 8
+// and 16-byte aligned pointers; the Python wrapper checks them.  Returns
+// cudaGetLastError() or the tensor-map encoding's error.
 extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
                             const void* u, const void* v, const void* cb,
                             const void* res, const void* dpm, const void* g,
@@ -209,9 +247,9 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
                             void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const bool dact = act == 2 || act == 4;
-  if (r < 0 || r > BK || act < 0 || act > 4 || (has_res && act > 1) ||
+  if (r < 0 || act < 0 || act > 4 || (has_res && act > 1) ||
       (pre != nullptr && ((act != 1 && act != 3) || has_res)) || M < 1 ||
-      K < 8 || K % 8 || N % 8)
+      K < 8 || K % 8 || N % 8 || (r > BK && z == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   GemmArgs p{};
   p.c16 = static_cast<__nv_bfloat16*>(out);
@@ -226,10 +264,15 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
   p.s = s;
   const int zn = r == 0 ? 0 : r <= 16 ? 16 : 64;
   const int r8 = (r + 7) / 8 * 8;
+  const int rw = (r + BK - 1) / BK * BK;  // past rank 64: z's width R
   GemmMaps maps;
   int err = map2d(&maps.a, xa, K, M, K, BM);
   if (!err) err = map2d(&maps.b, w, N, K, N, 64);
-  if (!err && r > 0) {
+  if (!err && r > BK) {
+    p.rc = rw / BK;
+    err = map2d(&maps.a2, z, rw, M, rw, BM);
+    if (!err) err = map2d(&maps.b2, v, N, r, N, 64);
+  } else if (!err && r > 0) {
     err = map2d(&maps.v, u, r8, K, r8, BK, 2, zn);
     if (!err) err = map2d(&maps.b2, v, N, r, N, 64);
   }
@@ -238,6 +281,13 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
   if (!err && (dact || has_res))
     err = map2d(&maps.aux, dact ? g : res, N, M, N, BM);
   if (err) return err;
+  if (r > BK) {
+    // z (M, R) first: the rank step reads it.
+    launch_z_chunks(static_cast<const __nv_bfloat16*>(xa),
+                    static_cast<const __nv_bfloat16*>(u),
+                    static_cast<__nv_bfloat16*>(z), M, K, r, stream);
+    p.gv = nullptr;
+  }
   if (has_res)
     return act ? launch_rank<EPI_SITE_GELU_RES>(maps, p, r, stream)
                : launch_rank<EPI_SITE_RES>(maps, p, r, stream);
@@ -255,17 +305,19 @@ extern "C" int cara_cp_site(const void* xa, const void* w, const void* b,
 }
 
 // The rank product alone: z (M, 64) bf16 = bf16(x @ U), zero past r, for
-// x (M, K) bf16 and U (K, r).  Needs K % 64 == 0, 1 <= r <= 64 and 16-byte
+// x (M, K) bf16 and U (K, r); past rank 64 z (M, R) from U (K, R), R = r
+// rounded up to 64, U zero past r.  Needs K % 8 == 0, r >= 1 and 16-byte
 // aligned pointers; the Python wrapper checks.  Returns cudaGetLastError().
 extern "C" int cara_rank_z(const void* x, const void* u, void* z, int M,
                            int K, int r, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (r < 1 || r > ZW || K % BK)
+  if (r < 1 || K < 8 || K % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* xx = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* uu = static_cast<const __nv_bfloat16*>(u);
   __nv_bfloat16* zz = static_cast<__nv_bfloat16*>(z);
-  if (r <= 16) launch_z<16>(xx, uu, zz, M, K, r, stream);
+  if (r > ZW) launch_z_chunks(xx, uu, zz, M, K, r, stream);
+  else if (r <= 16) launch_z<16>(xx, uu, zz, M, K, r, stream);
   else if (r <= 32) launch_z<32>(xx, uu, zz, M, K, r, stream);
   else launch_z<64>(xx, uu, zz, M, K, r, stream);
   return static_cast<int>(cudaGetLastError());

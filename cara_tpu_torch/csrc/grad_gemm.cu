@@ -10,7 +10,11 @@
 // NN and NT take an optional rank step, the delta scale folded into B2 by
 // the caller: NN reads A2 = bf16(x U) (M, 64) from memory (cara_rank_z of
 // cp_site.cu), B2 = V (r, N); NT folds gv = bf16(g V^T) in, as
-// _cp_dense_dx_kernel does, B2 = U (N, r8), r8 = r rounded up to 8.  That
+// _cp_dense_dx_kernel does, B2 = U (N, r8), r8 = r rounded up to 8.  Past
+// rank 64 both read A2 (M, R) from memory, R = r rounded up to 64 (NT: gv
+// written by cara_rank_z first, B2 = U (N, R)), in R / 64 k-tiles of 64
+// (sm90_gemm.cuh, RK_LOOP): a folded gv would hold R / 2 more fp32
+// registers a thread beside the accumulators.  That
 // is the TPU kernels' rank-space delta: _cp_dense_dx_kernel's g W^T + s
 // (g V^T) U^T (cp_dense.py, row 12) and _mlp_bwd_kernel's fc1 recompute,
 // dh and dxa (cp_mlp.py, row 10).  The delta is never folded into a dense
@@ -71,21 +75,27 @@ int launch_bn(const GemmMaps& maps, const GemmArgs& p, int splits, int bn,
   return launch<L, E, 128, RK, ZN, ACT>(maps, p, splits, stream);
 }
 
-// NN: no rank step, or A2 from memory 16 or 64 deep (rk 1 or 4).
+// NN: no rank step, or A2 from memory 16 or 64 deep (rk 1 or 4), or p.rc
+// tiles of 64 (RK_LOOP).
 template <int E, int ACT = ACT_GELU>
 int launch_nn(const GemmMaps& maps, const GemmArgs& p, int rk, int bn,
               cudaStream_t stream) {
   if (rk == 1) return launch_bn<NN, E, 1, 0, ACT>(maps, p, 1, bn, stream);
   if (rk == 4) return launch_bn<NN, E, 4, 0, ACT>(maps, p, 1, bn, stream);
+  if (rk == RK_LOOP)
+    return launch_bn<NN, E, RK_LOOP, 0, ACT>(maps, p, 1, bn, stream);
   return launch_bn<NN, E, 0, 0, ACT>(maps, p, 1, bn, stream);
 }
 
-// NT: no rank step, or the folded one with z 16 or 64 wide.
+// NT: no rank step, the folded one with z 16 or 64 wide, or past rank 64
+// gv from memory in p.rc tiles of 64 (RK_LOOP).
 template <int E, int ACT = ACT_GELU>
 int launch_nt(const GemmMaps& maps, const GemmArgs& p, int rk, int bn,
               cudaStream_t stream) {
   if (rk == 1) return launch_bn<NT, E, 1, 16, ACT>(maps, p, 1, bn, stream);
   if (rk == 4) return launch_bn<NT, E, 4, 64, ACT>(maps, p, 1, bn, stream);
+  if (rk == RK_LOOP)
+    return launch_bn<NT, E, RK_LOOP, 0, ACT>(maps, p, 1, bn, stream);
   return launch_bn<NT, E, 0, 0, ACT>(maps, p, 1, bn, stream);
 }
 
@@ -114,12 +124,14 @@ int pick_bn(int epi, int M, int N) {
 // then holds one zeroed int32 a 128 x 128 output tile, zero again when
 // the product ends (one launch at a time may use it: a stream's).  NN:
 // a2 (M, 64) and b2 (r2, N), r2 <= 64, add the rank step (null a2:
-// none).  NT: vfold (rfold, K), rfold <= 64, folds the
-// rank operand in: z = bf16(A vfold^T), written to gv (M, 64), is A2 for
-// B2 = b2 (N, ldb2) of depth r2 (rfold rounded up to 8); null vfold: no
-// rank step.  Needs M (TN), N and K (NN, NT) multiples of 8 and 16-byte
-// aligned pointers; the wrapper checks.  Returns cudaGetLastError() or
-// the tensor-map encoding's error.
+// none); past rank 64 a2 is (M, R), R = r2 rounded up to 64.  NT: vfold
+// (rfold, K), rfold <= 64, folds the rank operand in: z = bf16(A
+// vfold^T), written to gv (M, 64), is A2 for B2 = b2 (N, ldb2) of depth
+// r2 (rfold rounded up to 8); or, past rank 64, a2 (M, R) from memory
+// (null vfold) with b2 (N, ldb2 = R) zero past the rank r2; null vfold
+// and a2: no rank step.  Needs M (TN), N and K (NN, NT) multiples of 8
+// and 16-byte aligned pointers; the wrapper checks.  Returns
+// cudaGetLastError() or the tensor-map encoding's error.
 extern "C" int cara_grad_gemm(int layout, int epi, int act, const void* a,
                               const void* b, void* c32, void* c16,
                               void* c16b, const void* bias1, const void* bias2,
@@ -145,19 +157,26 @@ extern "C" int cara_grad_gemm(int layout, int epi, int act, const void* a,
   if (splits < 1 || act < 0 || act > 1 || (act && !act_epi) ||
       (splits > 1 && !(layout == TN && epi == EPI_F32 && turn != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  int rk = 0;  // the rank step's k-steps of 16
+  int rk = 0;  // the rank step's k-steps of 16, or RK_LOOP
+  const int rw = (r2 + BK - 1) / BK * BK;  // A2's width past rank 64
   if (layout == NN && a2 != nullptr) {
-    if (b2 == nullptr || r2 < 1 || r2 > BK)
+    if (b2 == nullptr || r2 < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    rk = r2 <= 16 ? 1 : 4;
+    rk = r2 <= 16 ? 1 : r2 <= BK ? 4 : RK_LOOP;
   } else if (layout == NT && vfold != nullptr) {
     rk = rfold <= 16 ? 1 : 4;
     if (b2 == nullptr || gv == nullptr || rfold < 1 || rfold > BK ||
-        K < 1 || r2 != (rfold + 7) / 8 * 8 || ldb2 < r2 || ldb2 % 8)
+        K < 1 || r2 != (rfold + 7) / 8 * 8 || ldb2 < r2 || ldb2 % 8 ||
+        a2 != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (layout == NT && a2 != nullptr) {
+    rk = RK_LOOP;
+    if (b2 == nullptr || r2 <= BK || ldb2 != rw)
       return static_cast<int>(cudaErrorInvalidValue);
   } else if (a2 != nullptr || vfold != nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rk == RK_LOOP) p.rc = rw / BK;
   const int per = (K + splits - 1) / splits;
   p.k_split = splits > 1 ? (per + BK - 1) / BK * BK : K;
 
@@ -168,13 +187,17 @@ extern "C" int cara_grad_gemm(int layout, int epi, int act, const void* a,
   if (!err)
     err = layout == NT ? map2d(&maps.b, b, K, N, K, bn)
                        : map2d(&maps.b, b, N, K, N, 64);
+  const int lda2 = rk == RK_LOOP ? rw : BK;
   if (!err && rk && layout == NN) {
-    err = map2d(&maps.a2, a2, BK, M, BK, BM);
+    err = map2d(&maps.a2, a2, lda2, M, lda2, BM);
     if (!err) err = map2d(&maps.b2, b2, N, r2, N, 64);
   }
   if (!err && rk && layout == NT) {
     err = map2d(&maps.b2, b2, r2, N, ldb2, bn);
-    if (!err) err = map2d(&maps.v, vfold, K, rfold, K, 16 * rk);
+    if (!err && rk == RK_LOOP)
+      err = map2d(&maps.a2, a2, lda2, M, lda2, BM);
+    else if (!err)
+      err = map2d(&maps.v, vfold, K, rfold, K, 16 * rk);
   }
   if (!err && (epi == EPI_F32 || epi == EPI_PRE_GELU))
     err = map2d(&maps.c32, c32, N, M, N, BM, 4);

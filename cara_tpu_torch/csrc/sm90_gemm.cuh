@@ -22,16 +22,24 @@
 // pre-activation, a site's residual or cotangent) brings its tile in the
 // same way first.
 //
-// The rank step (RK > 0): one more k-tile, RK k-steps of 16, on the same
-// accumulators, acc += A2 . B2, A2 the rank operand (zero past the rank r)
-// and B2 the other rank factor.  NN reads A2 (M, 64) from memory, or (ZN >
-// 0) folds it in: z = A U accumulated in fp32 over the same k-tiles as the
-// main product (one more small wgmma on the A tile the block already
-// holds, U (K, r8) loaded MN-major beside B), rounded to bf16 once, staged
-// in shared memory as A2 and written out (M, 64) by the blocks of column 0
-// where the caller asks for it; B2 = V (r, N).  NT folds gv = A V^T the
-// same way, V (r, K) loaded K-major, B2 = U (N, r8).  No pre-pass, no
-// second read of A.
+// The rank step (RK != 0): more k-tiles on the same accumulators, acc +=
+// A2 . B2, A2 the rank operand (zero past the rank r) and B2 the other
+// rank factor.  Up to rank 64 it is one k-tile of RK k-steps of 16 (RK 1
+// or 4).  NN reads A2 (M, 64) from memory, or (ZN > 0) folds it in: z = A U
+// accumulated in fp32 over the same k-tiles as the main product (one more
+// small wgmma on the A tile the block already holds, U (K, r8) loaded
+// MN-major beside B), rounded to bf16 once, staged in shared memory as A2
+// and written out (M, 64) by the blocks of column 0 where the caller asks
+// for it; B2 = V (r, N).  NT folds gv = A V^T the same way, V (r, K)
+// loaded K-major, B2 = U (N, r8).  No pre-pass, no second read of A.
+// Past rank 64 (RK == RK_LOOP) a folded z would hold R / 2 more fp32
+// registers a thread beside the accumulators (R = 64 ceil(r / 64)), so A2
+// (M, R) comes from memory, written by a pre-pass (cara_rank_z, one read
+// of A), and the rank step is p.rc = R / 64 more k-tiles of 64 through
+// the same ring: A2's columns 64 c .. 64 c + 63 and B2's rank rows (NN:
+// V (r, N)) or columns (NT: U (N, R)) 64 c .. + 63, zero past r.  Every
+// tile is four k-steps, so the loop over them is uniform: its trip count
+// is a run-time value like the main loop's, its depth a constant.
 //
 // Epilogues:
 //   F32       C32 = acc                                 (dxa, dT partials)
@@ -84,14 +92,15 @@ struct GemmArgs {
   int* turn;  // TN split over blockIdx.z: one zeroed counter per tile
   int M, N, K;
   int k_split;  // contraction rows per blockIdx.z
+  int rc;       // RK_LOOP: the rank step's k-tiles of 64, ceil(r / 64)
   float s;      // SITE_*: the delta scale
 };
 
-// TMA maps: A and B by layout; A2 (M, 64) and B2 for a rank step from
-// memory; the folded operand (NT: V (r, K); NN: U (K, r8)); the fp32
-// output C32, the bf16 outputs C16 and C16B and the epilogue's (M, N)
-// input (DGELU's fp32 AUX, DGELU_H's bf16 one; a site's bf16 residual or
-// G), in boxes of 128 rows and 128 bytes.
+// TMA maps: A and B by layout; A2 (M, 64, or R past rank 64) and B2 for
+// a rank step from memory; the folded operand (NT: V (r, K); NN: U (K,
+// r8)); the fp32 output C32, the bf16 outputs C16 and C16B and the
+// epilogue's (M, N) input (DGELU's fp32 AUX, DGELU_H's bf16 one; a site's
+// bf16 residual or G), in boxes of 128 rows and 128 bytes.
 struct GemmMaps {
   CUtensorMap a, b, a2, b2, v, c32, c16, c16b, aux;
 };
@@ -109,6 +118,8 @@ constexpr int THREADS = 288;  // two consumer warpgroups + a producer warp
 constexpr int ATOM = 64 * BK * 2;  // one 64 x 64 bf16 box: 8 KB
 
 enum { NN = 0, NT = 1, TN = 2 };
+// RK of the rank step past rank 64: p.rc k-tiles of 64 from memory.
+constexpr int RK_LOOP = -1;
 enum {
   EPI_F32 = 0,
   EPI_BF16 = 1,
@@ -183,8 +194,11 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
   constexpr int TA = L == TN;
   constexpr int TB = L != NT;
   constexpr bool SITE = epi_site(E);
-  static_assert(!SITE || (L == NN && (RK == 0 || ZN > 0)),
-                "a site is NN with its rank step folded in, or none");
+  constexpr bool RANK = RK != 0;
+  static_assert(!SITE || (L == NN && (RK == 0 || ZN > 0 || RK == RK_LOOP)),
+                "a site is NN with its rank step folded in, from memory "
+                "past rank 64, or none");
+  static_assert(RK != RK_LOOP || ZN == 0, "past rank 64 A2 is read");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -197,6 +211,8 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
   const int kbeg = blockIdx.z * p.k_split;
   const int kend = min(p.K, kbeg + p.k_split);
   const int KT = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  // The rank step's k-tiles after the KT of the contraction.
+  const int RT = RK == RK_LOOP ? p.rc : RANK ? 1 : 0;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -210,19 +226,20 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
 
   if (tid >= 256) {  // the producer warp
     if (tid == 256) {
-      // Tiles 0 .. KT - 1 of the contraction, then (RK > 0) the rank step
-      // in slot KT % STAGES: B2, and A2 unless the consumers stage it.
-      for (int kt = 0; kt < KT + (RK > 0); ++kt) {
+      // Tiles 0 .. KT - 1 of the contraction, then the rank step's RT
+      // tiles (rank columns 64 (kt - KT) ..): B2, and A2 unless the
+      // consumers stage it.
+      for (int kt = 0; kt < KT + RT; ++kt) {
         const int s = kt % STAGES;
         if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
         unsigned char* as = smem + s * R::SLOT;
         unsigned char* bs = as + R::A;
-        const bool rank = kt == KT;
+        const bool rank = kt >= KT;
         const CUtensorMap* mb = rank ? &maps.b2 : &maps.b;
-        const int k = rank ? 0 : kbeg + kt * BK;
+        const int k = rank ? BK * (kt - KT) : kbeg + kt * BK;
         mbar_expect_tx(&full[s], rank ? (ZN ? 0 : R::A) + R::B : R::SLOT);
         if (rank) {
-          if (!ZN) tma_load_2d(as, &maps.a2, &full[s], 0, m0);
+          if (!ZN) tma_load_2d(as, &maps.a2, &full[s], k, m0);
         } else if (L == TN) {
           tma_load_2d(as, &maps.a, &full[s], m0, k);
           tma_load_2d(as + ATOM, &maps.a, &full[s], m0 + 64, k);
@@ -350,6 +367,38 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
       wgmma_ss<BN, 0, TB>(acc, da + 2 * kk, db + (TB ? 128 : 2) * kk, 1);
     wgmma_commit();
   }
+  if constexpr (RK == RK_LOOP) {
+    // Past rank 64: the rank step's p.rc tiles, each four k-steps of A2
+    // (from memory) . B2, one group in flight as in the main loop; each
+    // tile releases the one before it (first the contraction's last).
+    // The contraction's last group is waited for first: a group pending
+    // into the second loop made ptxas serialize the DGELU instances'
+    // wgmma (C7515).
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if constexpr (SITE) {
+      // acc / s + z V (see above), once the contraction is complete.
+      const float inv = 1.f / p.s;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] *= inv;
+    }
+    for (int c = 0; c < p.rc; ++c) {
+      const int kt = KT + c;
+      const int s = kt % STAGES;
+      unsigned char* as = smem + s * R::SLOT + w * ATOM;
+      unsigned char* bs = smem + s * R::SLOT + R::A;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint64_t da = desc<128>(as);
+      const uint64_t db = TB ? desc_mn(bs, ATOM) : desc<128>(bs);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss<BN, 0, TB>(acc, da + 2 * kk, db + (TB ? 128 : 2) * kk, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+  }
   wgmma_wait<0>();
   fence_regs(acc);
 
@@ -425,7 +474,7 @@ gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
         // y = acc + b + s (z V + cb): with a rank step acc holds
         // acc / s + z V (see above).
         float y0, y1;
-        if constexpr (RK > 0) {
+        if constexpr (RANK) {
           y0 = fmaf(p.s, a0 + b2.x, b1.x);
           y1 = fmaf(p.s, a1 + b2.y, b1.y);
         } else {

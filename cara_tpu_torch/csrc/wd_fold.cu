@@ -31,7 +31,11 @@
 //   - the smallest pair (ViT-B's attention weights) is 576 tiles, so
 //     every block has work.
 // An element's arithmetic does not depend on the tiling, so neither does
-// the output.
+// the output.  The rank loop reads U's and V's elements as it goes (no
+// tile of them is staged), so any rank runs in the same registers: a
+// thread's 2 x 8 fp32 sums, j = 0 .. r - 1 in order (at r 128 the rank
+// FMA, 128 an element, take the place of the hash as the larger part).
+// The keep pattern does not depend on r.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,7 +52,6 @@ constexpr int kRows = 8 * kRT;  // rows a tile
 constexpr int kCols = 256;     // columns a tile
 constexpr int kThreads = 256;  // 32 column groups of 8 x 8 row groups
 constexpr int kBlocksPerSM = 4;
-constexpr int kRMax = 64;
 constexpr int kMaxFolds = 4;
 
 struct Fold {
@@ -187,8 +190,8 @@ int sm_count() {
 // `count` (1..4) folds in one launch: desc holds 8 values a fold, the
 // device addresses of W (K, N), U (K, r), V (r, N) (bf16), the seed (one
 // int32) and the output W' (K, N) (bf16), then K, N and r.  inv = s / (1 -
-// rate), thr the keep threshold.  Needs N % 8 == 0, 1 <= r <= 64 and
-// 16-byte aligned W, V and W' (the wrapper checks).  Returns
+// rate), thr the keep threshold.  Needs N % 8 == 0, r >= 1 and 16-byte
+// aligned W, V and W' (the wrapper checks).  Returns
 // cudaGetLastError().
 extern "C" int cara_wd_fold(int count, const long long* desc, float inv,
                             unsigned thr, void* stream_ptr) {
@@ -208,7 +211,7 @@ extern "C" int cara_wd_fold(int count, const long long* desc, float inv,
     f.K = static_cast<int>(d[5]);
     f.N = static_cast<int>(d[6]);
     f.r = static_cast<int>(d[7]);
-    if (f.K < 1 || f.N < 8 || f.N % 8 || f.r < 1 || f.r > kRMax)
+    if (f.K < 1 || f.N < 8 || f.N % 8 || f.r < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     f.tiles_n = (f.N + kCols - 1) / kCols;
     f.first = tiles;

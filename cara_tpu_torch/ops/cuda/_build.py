@@ -59,7 +59,7 @@ _SIGNATURES = {
     "cara_ln_bwd_residual": [_P] * 5 + [_I, _I, _F, _P],
     "cara_colsum": [_P, _I, _P, _P, _I, _I, _P],
     "cara_int8_dense": [_P] * 6 + [_I] * 6 + [_P],
-    "cara_block_pair": [_P] * 20 + [_I] * 9 + [_F] * 3 + [_P],
+    "cara_block_pair": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],
 }
 
 _lock = threading.Lock()

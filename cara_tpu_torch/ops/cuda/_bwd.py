@@ -52,8 +52,16 @@ _SMS = 132  # the H100's SMs
 # add waits for the one before it), against the whole product: fitted to
 # device times of the ViT-B TN shapes by splits on one H100.
 _TURN_COST = 0.011
-#: Width of the rank operand z (M, 64): the GEMMs' 64-deep rank k-step.
+#: The GEMMs' rank k-tile: a rank operand z is 64 wide up to rank 64 and
+#: ``rank_width(r)`` = r rounded up to 64 past it, zero past r.
 RANK_W = 64
+
+
+def rank_width(r: int) -> int:
+    """Width of the rank operands z and gv of a rank-r site: ``RANK_W``
+    up to rank 64, else r rounded up to a multiple of it (the rank step's
+    k-tiles of 64)."""
+    return -(-max(r, 1) // RANK_W) * RANK_W
 
 
 def ln_input_bwd_plain(x, dxa, ls, eps: float):
@@ -108,13 +116,15 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     ``act`` ("gelu" or "quick_gelu") is the activation of PRE_GELU, DGELU
     and DGELU_H in place of the GELU.
 
-    NN: ``a2`` (M, 64) with ``b2`` = V (r, N) adds the rank step ``a2 @
-    b2`` to the accumulators.  NT: ``fold_v`` V (r, K) with ``b2`` = U
-    (N, r8), r8 = r rounded up to 8 (:func:`pad_cols8`), folds the rank
-    operand into the product: the kernel accumulates z = a V^T in fp32
-    beside it, rounds z to bf16, adds z @ b2^T and returns gv = z (M, 64),
-    zero past r, after the epilogue's outputs.  A delta scale rides
-    ``b2`` (:func:`scaled`)."""
+    NN: ``a2`` (M, ``rank_width(r)``) with ``b2`` = V (r, N) adds the
+    rank step ``a2 @ b2`` to the accumulators.  NT: ``fold_v`` V (r, K)
+    with ``b2`` = U (N, r8), r8 = r rounded up to 8 (:func:`pad_cols8`),
+    folds the rank operand into the product: the kernel accumulates z = a
+    V^T in fp32 beside it, rounds z to bf16, adds z @ b2^T and returns gv
+    = z (M, ``rank_width(r)``), zero past r, after the epilogue's outputs.
+    Past rank 64 gv comes from the rank product first (:func:`rank_z`)
+    and the GEMM reads it in k-tiles of 64.  A delta scale rides ``b2``
+    (:func:`scaled`)."""
     dev = a.device
     if (layout, epi) not in _COUNTERS:
         raise ValueError(f"grad_gemm has no epilogue {epi} for layout "
@@ -148,19 +158,26 @@ def gemm(layout: int, epi: int, a, b, *, bias1=None, bias2=None, aux=None,
     if fold_v is not None:
         rfold = fold_v.shape[0]
         if (layout != NT or a2 is not None or b2 is None
-                or fold_v.shape != (rfold, k) or not 1 <= rfold <= RANK_W
+                or fold_v.shape != (rfold, k) or rfold < 1
                 or b2.shape != (n, -(-rfold // 8) * 8)):
             raise ValueError(f"grad_gemm folded rank step: v "
                              f"{tuple(fold_v.shape)} b2 "
                              f"{None if b2 is None else tuple(b2.shape)} "
                              f"(layout {layout}, a2 "
                              f"{'set' if a2 is not None else 'None'})")
-        r2 = ldb2 = b2.shape[1]
-        gv = torch.empty((m, RANK_W), device=dev, dtype=torch.bfloat16)
+        if rfold > RANK_W:
+            # gv = bf16(a V^T) (M, R) first; the product reads it.
+            rw = rank_width(rfold)
+            a2 = rank_z(a, fold_v.t())
+            b2 = pad_cols(b2, rw)
+            gv, fold_v, r2, ldb2 = a2, None, rfold, rw
+        else:
+            r2 = ldb2 = b2.shape[1]
+            gv = torch.empty((m, RANK_W), device=dev, dtype=torch.bfloat16)
     elif a2 is not None:
         r2, ldb2 = b2.shape
-        if not (layout == NN and a2.shape == (m, RANK_W)
-                and 1 <= r2 <= RANK_W and b2.shape == (r2, n)):
+        if not (layout == NN and a2.shape == (m, rank_width(r2))
+                and r2 >= 1 and b2.shape == (r2, n)):
             raise ValueError(f"grad_gemm rank step: a2 {tuple(a2.shape)} b2 "
                              f"{tuple(b2.shape)} (layout {layout})")
     c32 = c16 = c16b = colpart = None
@@ -228,16 +245,20 @@ def dt_splits(m: int, n: int, k: int) -> int:
 
 
 def rank_z(x2, u):
-    """z = bf16(x2 @ U) (M, 64), zero past the rank, for x2 (M, K) and U
-    (K, r): ``csrc/cp_site.cu``'s rank product alone."""
+    """z = bf16(x2 @ U) (M, ``rank_width(r)``), zero past the rank, for
+    x2 (M, K) and U (K, r): ``csrc/cp_site.cu``'s rank product alone (U
+    may be a view; past rank 64 the kernel reads it zero-padded to the
+    width of z)."""
     m, k = x2.shape
     dev = x2.device
-    _build.check_cuda_inputs("rank_z", dev, x=x2, u=u)
     r = u.shape[1]
-    if u.shape != (k, r) or not 1 <= r <= RANK_W or k % 64:
-        raise ValueError(f"rank_z needs K % 64 == 0 and rank 1..64: x "
+    if u.shape != (k, r) or r < 1 or k % 8:
+        raise ValueError(f"rank_z needs K % 8 == 0 and rank >= 1: x "
                          f"{tuple(x2.shape)} u {tuple(u.shape)}")
-    z = torch.empty((m, RANK_W), device=dev, dtype=torch.bfloat16)
+    rw = rank_width(r)
+    u = pad_cols(u, rw) if r > RANK_W else u.contiguous()
+    _build.check_cuda_inputs("rank_z", dev, x=x2, u=u)
+    z = torch.empty((m, rw), device=dev, dtype=torch.bfloat16)
     code = _build.lib().cara_rank_z(x2.data_ptr(), u.data_ptr(),
                                     z.data_ptr(), m, k, r,
                                     _build.stream_ptr(dev))
@@ -275,23 +296,35 @@ def cut(flat, shapes):
     return views
 
 
-def pad_cols8(u):
-    """U (K, r) -> (K, r rounded up to 8), zero columns past r: the NT
-    rank step's B operand (16-byte rows)."""
+def pad_cols(u, width: int):
+    """U (K, r) -> (K, width), zero columns past r (contiguous)."""
     k, r = u.shape
-    r8 = -(-r // 8) * 8
-    if r8 == r:
-        return u
-    out = u.new_zeros((k, r8))
+    if width == r:
+        return u.contiguous()
+    out = u.new_zeros((k, width))
     out[:, :r] = u
     return out
 
 
+def pad_cols8(u):
+    """U (K, r) -> (K, r rounded up to 8), zero columns past r: the NT
+    rank step's B operand (16-byte rows)."""
+    return pad_cols(u, -(-u.shape[1] // 8) * 8)
+
+
+def pad_rank(u):
+    """U (K, r) -> the width the forward kernels read it at: r rounded up
+    to 8, and past rank 64 to :func:`rank_width` (their 64-wide rank
+    chunks); zero columns past r."""
+    r = u.shape[1]
+    return pad_cols(u, rank_width(r)) if r > RANK_W else pad_cols8(u)
+
+
 def factor_grad(a, b, out=None):
     """fp32 ``a^T b`` over the M token rows for a (M, P), b (M, Q), one of
-    them 64 wide: a TN product split over M, the splits summed in a fixed
-    order (no unordered atomics).  Reads each operand once.  ``out``: as
-    in :func:`gemm`."""
+    them a rank operand (``rank_width(r)`` wide): a TN product split over
+    M, the splits summed in a fixed order (no unordered atomics).  Reads
+    each operand once.  ``out``: as in :func:`gemm`."""
     mrows, p = a.shape
     q = b.shape[1]
     return gemm(TN, EPI_F32, a, b, splits=dt_splits(p, q, mrows), out=out)

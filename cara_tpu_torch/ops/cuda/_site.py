@@ -80,8 +80,9 @@ def site_forward_plain(x2, w, b, u, v, cb, s, *, ln=None, act=None,
 def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, act=None, res=None,
               dpm_rows=None, dact_g=None, return_z=False, return_pre=False):
     """Launch the site on 2-D bf16 ``x2`` (M, K) -> (M, N), and with
-    ``return_z`` its rank operand z = bf16(pro(x) U) (M, 64), zero past
-    the rank (the backward's factor gradients read it), then with
+    ``return_z`` its rank operand z = bf16(pro(x) U) (M,
+    ``_bwd.rank_width(r)``), zero past the rank (the backward's factor
+    gradients read it), then with
     ``return_pre`` (an activation without residual) the pre-activation
     rounded to bf16 (M, N), written beside the output by the same launch.
 
@@ -101,8 +102,6 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, act=None, res=None,
     if k % 8 or n % 8:
         raise ValueError(f"cp_site needs K % 8 == 0 and N % 8 == 0, got "
                          f"K={k} N={n}")
-    if r > _bwd.RANK_W:
-        raise ValueError(f"cp_site supports rank <= {_bwd.RANK_W}, got {r}")
     if w.shape != (k, n) or b.shape != (n,) or u.shape != (k, r) \
             or v.shape != (r, n) or (cb is not None and cb.shape != (n,)):
         raise ValueError(
@@ -128,14 +127,16 @@ def site_cuda(x2, w, b, u, v, cb, s, *, ln=None, act=None, res=None,
         raise ValueError("cp_site writes the pre-activation on an "
                          "activation site without the residual only")
     xa = x2 if ln is None else _bwd.ln_rows(x2, ls, lb, eps)
-    # U is read by TMA as (K, r8): rows of 16 bytes, zero columns past r.
-    u8 = _bwd.pad_cols8(u) if r else u
+    # U is read by TMA as (K, r8): rows of 16 bytes, zero columns past r;
+    # past rank 64 the rank pre-pass reads it (K, R), R the width of z,
+    # and the product reads that z (M, R) from memory.
+    u8 = _bwd.pad_rank(u) if r else u
     out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
     pre = torch.empty_like(out) if return_pre else None
     z = None
-    if return_z:
+    if return_z or r > _bwd.RANK_W:
         z = (torch.empty if r else torch.zeros)(
-            (m, _bwd.RANK_W), device=dev, dtype=torch.bfloat16)
+            (m, _bwd.rank_width(r)), device=dev, dtype=torch.bfloat16)
     code = _build.lib().cara_cp_site(
         xa.data_ptr(), w.data_ptr(), b.data_ptr(), _build.ptr(u8),
         _build.ptr(v), _build.ptr(cb), _build.ptr(res),

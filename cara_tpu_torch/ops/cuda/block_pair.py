@@ -26,7 +26,9 @@ to device memory.  On Hopper it is three launches:
 
 The kernel takes head widths 16, 32, 64 and 80 (``blockwise_attention.
 HEAD_DIMS``), E = heads x Dh up to 1280 (every model of the registry),
-hidden a multiple of 128, N up to 512 and rank 1..64.  The reference has
+hidden a multiple of 128, N up to 512 and any rank (past rank 64 in
+chunks of 64, two kinds of z parked in a device scratch buffer: see
+``csrc/block_pair.cuh``).  The reference has
 no switch that turns it on in the model (its docstring's
 ``CARA_BLOCK_PAIR`` is read nowhere), so neither does the port:
 ``models/vit.py`` keeps the two half-block kernels.  Eval only, as in
@@ -87,7 +89,7 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
     hid = w1.shape[1]
     r = u2.shape[1]
     dev = x.device
-    u2p, mu1p, mu2p = (_bwd.pad_cols8(t) for t in (u2, mu1, mu2))
+    u2p, mu1p, mu2p = (_bwd.pad_rank(t) for t in (u2, mu1, mu2))
     tensors = dict(x=x, wp=wp, bp=bp, u2=u2p, v2=v2, cb2=cb2, ls2=ls2,
                    lb2=lb2, w1=w1, b1=b1, mu1=mu1p, mv1=mv1, mcb1=mcb1,
                    w2=w2, b2=b2, mu2=mu2p, mv2=mv2, mcb2=mcb2)
@@ -104,11 +106,11 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
     if act not in _bwd.ACTS:  # cara_block_pair's codes are grad_gemm's
         raise ValueError(f"block_pair: act must be one of "
                          f"{tuple(_bwd.ACTS)}, got {act!r}")
-    if bad or heads * dh != e or hid % 128 or not 1 <= r <= _bwd.RANK_W:
+    if bad or heads * dh != e or hid % 128 or r < 1:
         raise ValueError(
             f"block_pair: E={e}, heads={heads}, hidden={hid}, rank {r}, "
             f"mismatched shapes {bad}; the kernel takes hidden a multiple "
-            "of 128 and rank 1..64, one rank for all three sites")
+            "of 128 and one rank of at least 1 for all three sites")
     if e > MAX_E:
         raise ValueError(f"block_pair: E={e}; the kernel takes E = heads x "
                          f"Dh up to {MAX_E} ({_WIDE_TODO})")
@@ -120,14 +122,20 @@ def block_pair_cuda(x, wq, bq, u1, v1, wp, bp, u2, v2, cb2, ls1, lb1, w1,
                     ln=(ls1, lb1, ln_eps))
     lib = _build.lib()
     out = torch.empty_like(x)
+    scratch = None
+    if r > _bwd.RANK_W:  # 48 words a consumer thread, block and chunk
+        blocks = bsz * -(-n // 64) * -(-e // 256)
+        scratch = torch.empty((blocks * (u2p.shape[1] // 64) * 48 * 256,),
+                              device=dev, dtype=torch.float32)
     code = lib.cara_block_pair(
         qkv.data_ptr(), x.data_ptr(), wp.data_ptr(), bp.data_ptr(),
         u2p.data_ptr(), v2.data_ptr(), cb2.data_ptr(), ls2.data_ptr(),
         lb2.data_ptr(), w1.data_ptr(), b1.data_ptr(), mu1p.data_ptr(),
         mv1.data_ptr(), mcb1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         mu2p.data_ptr(), mv2.data_ptr(), mcb2.data_ptr(), out.data_ptr(),
-        bsz, n, heads, dh, hid, int(n_real), r, u2p.shape[1], _bwd.ACTS[act],
-        float(sm_scale), float(s), float(ln_eps), _build.stream_ptr(dev))
+        _build.ptr(scratch), bsz, n, heads, dh, hid, int(n_real), r,
+        u2p.shape[1], _bwd.ACTS[act], float(sm_scale), float(s),
+        float(ln_eps), _build.stream_ptr(dev))
     _build.check(code, "block_pair")
     return out
 

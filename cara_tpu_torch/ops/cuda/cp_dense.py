@@ -25,7 +25,9 @@ megakernel off):
   ``cp_dense_ln``.  Launches: ``csrc/grad_gemm.cu``'s NT product with
   its folded rank step, as the TPU kernel does it: gv accumulated in fp32
   over the same k-tiles as g W^T, rounded to bf16 and written 64 wide,
-  then one more 64-deep k-step (A = gv, B = U) on the same accumulators,
+  then one more 64-deep k-step (A = gv, B = U) on the same accumulators
+  (past rank 64: gv (M, r rounded up to 64) from the rank product first,
+  then read by the NT product as that many k-tiles of 64),
   gives dx (bf16) or, for the LN site, the fp32 d(LN(x)) that
   ``csrc/block_rows.cu``'s LayerNorm pass without residual turns into dx.
   The rank term stays in rank space: folding it into a dense ``W + s U
@@ -182,9 +184,10 @@ def _check_site(name, t, width, w, u, v, kernel: bool):
 
 
 def cp_dense_dx_cuda(g2, w, u, v, s: float, ln=None, x2=None):
-    """Row 12's launches on CUDA tensors: (dx (M, K) bf16, gv (M, 64)
-    bf16, zero past the rank).  gv = bf16(g V^T) comes out of the dx
-    product (its folded rank step), as the TPU kernel emits it."""
+    """Row 12's launches on CUDA tensors: (dx (M, K) bf16, gv (M,
+    ``_bwd.rank_width(r)``) bf16, zero past the rank).  gv = bf16(g V^T)
+    comes out of the dx product (its folded rank step), as the TPU kernel
+    emits it."""
     u8 = _bwd.pad_cols8(_bwd.scaled(u, s))
     if ln is None:
         return _bwd.gemm(_bwd.NT, _bwd.EPI_BF16, g2, w, b2=u8, fold_v=v)
@@ -194,7 +197,8 @@ def cp_dense_dx_cuda(g2, w, u, v, s: float, ln=None, x2=None):
 
 def _dx(g2, w, u, v, s, ln, x2, plain: bool):
     """Row 12 through the plain twin (gv (M, r)) or the kernels (gv
-    (M, 64), zero past the rank; counted in :data:`DX_LAUNCHES`)."""
+    (M, ``rank_width(r)``), zero past the rank; counted in
+    :data:`DX_LAUNCHES`)."""
     global DX_LAUNCHES
     if plain:
         return cp_dense_dx_plain(g2, w, u, v, s, ln, x2)
@@ -223,8 +227,9 @@ def _factor_grads_plain(xa, g2, gv, u, s):
 
 
 def _factor_grads_cuda(xa, g2, gv, u, s, z=None):
-    """du, dv, db from xa, g2, gv and z = bf16(xa U) (M, 64), which the
-    rank product computes when the forward did not keep it."""
+    """du, dv, db from xa, g2, gv and z = bf16(xa U) (M,
+    ``rank_width(r)``), which the rank product computes when the forward
+    did not keep it."""
     r = u.shape[1]
     du = _bwd.factor_grad(xa, gv)[:, :r]
     dv = _bwd.factor_grad(_bwd.rank_z(xa, u) if z is None else z, g2)[:r]

@@ -198,7 +198,8 @@ def cp_mlp_block_bwd_plain(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
 def _mlp_block_bwd_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2, ln_scale,
                         ln_bias, dpm, s, act, ln_eps):
     """The backward on CUDA tensors, as launches (M rows; each rank-r
-    operand is written 64 wide, zero past r, for the GEMMs' rank step):
+    operand is written ``_bwd.rank_width(r)`` wide, zero past r, for
+    the GEMMs' rank step):
 
     ``ln_rows`` xa = LN2(x); rank product z1 = bf16(xa U1); NN
     ``grad_gemm`` + rank step pre = xa W1 + b1 + s (z1 V1 + cb1) (fp32)
@@ -244,7 +245,8 @@ def _mlp_block_bwd_saved_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
                               ln_scale, ln_bias, dpm, s, act, ln_eps, pre):
     """The save-pre backward on CUDA tensors (``_mlp_bwd_kernel(
     saved_pre=True)``), as launches (M rows, hidden H; each rank-r operand
-    64 wide, zero past r, as in :func:`_mlp_block_bwd_cuda`):
+    ``rank_width(r)`` wide, zero past r, as in
+    :func:`_mlp_block_bwd_cuda`):
 
     ``ln_rows`` xa = LN2(x); rank product z1 = bf16(xa U1);
     ``gate_colsum`` g2 = bf16(g dpm) and ds2 in one pass; NT DGELU_H +
@@ -260,8 +262,8 @@ def _mlp_block_bwd_saved_cuda(g, x, w1, b1, u1, v1, cb1, w2, u2, v2,
     g_res = g.reshape(-1, e)
     m, hid = x2.shape[0], w1.shape[1]
     r1, r2 = u1.shape[1], u2.shape[1]
-    w = _bwd.RANK_W
-    shapes = ((e, w), (w, hid), (hid, w), (w, e), (hid,), (e,))
+    w1w, w2w = _bwd.rank_width(r1), _bwd.rank_width(r2)
+    shapes = ((e, w1w), (w1w, hid), (hid, w2w), (w2w, e), (hid,), (e,))
     flat = _bwd.flat_buffer(x.device, shapes)
     du1, dv1, du2, dv2, ds1, ds2 = _bwd.cut(flat, shapes)
     xa = _bwd.ln_rows(x2, ln_scale, ln_bias, ln_eps)

@@ -258,7 +258,7 @@ def attn_proj_cuda(qkv, w, b, u, v, cb, heads: int, scale: float,
     dh = e // heads
     r = u.shape[1]
     dev = qkv.device
-    u8 = _bwd.pad_cols8(u)
+    u8 = _bwd.pad_rank(u)
     _build.check_cuda_inputs("attn_proj", dev, qkv=qkv, w=w, b=b, u=u8, v=v,
                              cb=cb)
     if (e3 != 3 * e or heads * dh != e or e > MAX_PROJ_E
@@ -270,8 +270,6 @@ def attn_proj_cuda(qkv, w, b, u, v, cb, heads: int, scale: float,
             f"kernel takes E = heads x Dh up to {MAX_PROJ_E} "
             f"({_PROJ_WIDE_TODO})")
     check_head_dim("attn_proj", dh)
-    if r > _bwd.RANK_W:
-        raise ValueError(f"attn_proj supports rank <= {_bwd.RANK_W}, got {r}")
     lib = _build.lib()
     out = torch.empty((bsz, n, e), device=dev, dtype=torch.bfloat16)
     code = lib.cara_attn_proj(

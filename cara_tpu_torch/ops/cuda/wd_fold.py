@@ -51,6 +51,10 @@ LAUNCHES = 0
 MAX_FOLDS = 4
 #: Launch pairs (dT product, masked finish) of :func:`cp_wd_factor_grads`.
 FACTOR_LAUNCHES = 0
+#: Launches of the masked finish (``csrc/wd_factor_grads.cu``) by any
+#: caller: :func:`cp_wd_factor_grads` and the block backwards of rows 8
+#: and 11.
+MASKED_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 
@@ -113,8 +117,9 @@ def _check_seed(name, seed, device):
 
 
 def _check_rank(name, r):
-    if not 1 <= r <= 64:
-        raise ValueError(f"{name}: the kernel takes ranks 1..64, got {r}")
+    if r < 1:
+        raise ValueError(f"{name}: the kernel takes a rank of at least 1, "
+                         f"got {r}")
 
 
 def build_wd_weights_plain(sites, s: float, rate: float):
@@ -190,9 +195,11 @@ def masked_factor_grads_plain(dt, u, v, seed, s: float, rate: float,
 
 def masked_factor_grads_cuda(dt, u, v, seed, s: float, rate: float,
                              out=None):
-    """Launch ``csrc/wd_factor_grads.cu`` on ``dt`` (K, N) fp32 (no
-    launch count: the block backward wrappers call this directly);
-    ``out``: contiguous fp32 (dU, dV) to write into, or None."""
+    """Launch ``csrc/wd_factor_grads.cu`` on ``dt`` (K, N) fp32, counted
+    in :data:`MASKED_LAUNCHES` (the block backward wrappers call this
+    directly); ``out``: contiguous fp32 (dU, dV) to write into, or
+    None."""
+    global MASKED_LAUNCHES
     k, n = dt.shape
     r = u.shape[1]
     dev = dt.device
@@ -223,6 +230,7 @@ def masked_factor_grads_cuda(dt, u, v, seed, s: float, rate: float,
         du_part.data_ptr(), k, n, r, float(s / (1.0 - rate)),
         keep_threshold(rate), _build.stream_ptr(dev))
     _build.check(code, "wd_factor_grads")
+    MASKED_LAUNCHES += 1
     return du, dv
 
 

@@ -835,6 +835,29 @@ for _name, (_base, *_) in PROJ_FORMS.items():
     KERNELS[_name] = KERNELS[_base]
     if _base in KERNEL_TOL:  # a backward's gradients: GRAD_REL_L2
         KERNEL_TOL[_name] = KERNEL_TOL[_base]
+# Past rank 64: the rank-dependent rows (3-15 and 19) at ViT-B's shapes
+# and rank RANK_WIDE, where the GEMM core's rank step runs in k-tiles of
+# 64, the fold and the masked factor gradients in rank chunks and rows 3
+# and 19 form z in chunks of 64.  Each an entry of its own -> the rank-8
+# entry whose module, counter, source, TPU kernel, tolerance and work rule
+# it shares.  Launches: ``ranks_phase``, every run of which is at rank
+# RANK_WIDE (the element and rank routes, both switches, unmerged serving
+# and the eval through row 19).  Row 15's entry counts every launch of
+# its masked finish (``wd_fold.MASKED_LAUNCHES``), which the element
+# route's block backwards (rows 8 and 11) run at 224 px.
+RANK_WIDE = 128
+RANK_FORMS = {f"{base}_r{RANK_WIDE}": base for base in (
+    "fused_qkv_attention_proj", "fused_qkv_attention_proj_bwd",
+    "cp_attn_block", "cp_attn_block_bwd", "cp_attn_block_wd",
+    "cp_attn_block_wd_bwd_saved", "cp_mlp_block", "cp_mlp_block_bwd_saved",
+    "cp_mlp_block_wd_bwd_saved", "cp_dense_dx", "cp_dense",
+    "build_wd_weight", "cp_wd_factor_grads", "block_pair_fwd")}
+for _name, _base in RANK_FORMS.items():
+    KERNELS[_name] = KERNELS[_base]
+    if _base in KERNEL_TOL:  # a backward's gradients: GRAD_REL_L2
+        KERNEL_TOL[_name] = KERNEL_TOL[_base]
+KERNELS[f"cp_wd_factor_grads_r{RANK_WIDE}"] = (
+    (wd_fold, "MASKED_LAUNCHES") + KERNELS["cp_wd_factor_grads"][2:])
 # ViT-H's routes: what each launches.  Its element route's row 2 runs
 # inside row 8 (uncounted there); the rank route counts it.
 HUGE_SERVING_KERNELS = SERVING_KERNELS + SITE_SERVING
@@ -912,9 +935,11 @@ def kernel_inputs(dev, b=64, n=197, e=768, heads=12, hidden=3072, r=8,
     kernels get drop-path gates ``1/(1-p)`` with the first ``zero_gates``
     images dropped, four int32 mask seeds and output cotangents.  ``act``
     and ``eps`` are the MLP entries' activation and LayerNorm eps (CLIP:
-    "quick_gelu", 1e-5)."""
+    "quick_gelu", 1e-5).  Past rank 64 the CP factors' std shrinks by
+    (64 / r) ** (1 / 4), so that the delta keeps rank 64's size."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    f = 0.05 * min(1.0, 64 / max(r, 1)) ** 0.25  # the CP factors' std
 
     def rnd(*shape, std=1.0, mean=0.0):
         t = torch.randn(shape, generator=g, device=dev) * std + mean
@@ -929,18 +954,18 @@ def kernel_inputs(dev, b=64, n=197, e=768, heads=12, hidden=3072, r=8,
         sm=(e // heads) ** -0.5, act=act, eps=eps,
         qkv=rnd(b, n, 3 * e, std=0.6),
         attn=dict(x=rnd(b, n, e), wq=rnd(e, 3 * e, std=0.02),
-                  bq=rnd(3 * e, std=0.02), u1=rnd(e, r, std=0.05),
-                  v1=rnd(r, 3 * e, std=0.05), wp=rnd(e, e, std=0.02),
-                  bp=rnd(e, std=0.02), u2=rnd(e, r, std=0.05),
-                  v2=rnd(r, e, std=0.05), cb2=rnd(e, std=0.02),
+                  bq=rnd(3 * e, std=0.02), u1=rnd(e, r, std=f),
+                  v1=rnd(r, 3 * e, std=f), wp=rnd(e, e, std=0.02),
+                  bp=rnd(e, std=0.02), u2=rnd(e, r, std=f),
+                  v2=rnd(r, e, std=f), cb2=rnd(e, std=0.02),
                   ln_scale=rnd(e, std=0.1, mean=1.0),
                   ln_bias=rnd(e, std=0.1),
                   dpm=torch.ones((b, 1), device=dev, dtype=torch.bfloat16)),
         mlp=dict(x=rnd(b, n, e), w1=rnd(e, hidden, std=0.02),
-                 b1=rnd(hidden, std=0.02), u1=rnd(e, r, std=0.05),
-                 v1=rnd(r, hidden, std=0.05), cb1=rnd(hidden, std=0.02),
+                 b1=rnd(hidden, std=0.02), u1=rnd(e, r, std=f),
+                 v1=rnd(r, hidden, std=f), cb1=rnd(hidden, std=0.02),
                  w2=rnd(hidden, e, std=0.02), b2=rnd(e, std=0.02),
-                 u2=rnd(hidden, r, std=0.05), v2=rnd(r, e, std=0.05),
+                 u2=rnd(hidden, r, std=f), v2=rnd(r, e, std=f),
                  cb2=rnd(e, std=0.02), ln_scale=rnd(e, std=0.1, mean=1.0),
                  ln_bias=rnd(e, std=0.1),
                  dpm=torch.ones((b, 1, 1), device=dev,
@@ -2662,7 +2687,8 @@ def _perturbed(data, k, dev):
 
 def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
                dtype=torch.bfloat16, tag=None,
-               impls=("auto", "auto"), grad_accum=1, remat="auto") -> dict:
+               impls=("auto", "auto"), grad_accum=1, remat="auto",
+               lazy=False) -> dict:
     """(a) One step's gradients of every trainable leaf through the
     kernels (``dtype`` compute) against the fp32 plain path on the same
     (``dtype``-rounded) backbone and the same drop-path gates and masks,
@@ -2677,7 +2703,10 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
     for the routes without an adapter).  ``grad_accum`` > 1 checks the
     accumulated step:
     ``grad_accum`` microbatches, one weight-dropout draw, gates and masks
-    of their own (``steps_lib.microbatch_randomness``), on every path."""
+    of their own (``steps_lib.microbatch_randomness``), on every path.
+    ``lazy``: the perturbed copies run only where a leaf of the step
+    misses ``TRAIN_GRAD_REL_L2`` (the verdict is the same: they can only
+    raise a leaf's bound above it)."""
     tag = f"[train:{_route(cara_cfg)}]" if tag is None else tag
     attn_impl, dense_impl = steps_lib.resolve_impls(*impls, cara_cfg)
     remat = steps_lib.resolve_remat(remat, dense_impl)
@@ -2713,6 +2742,8 @@ def grad_check(dev, cfg, cara_cfg, frozen, state, data, generator,
         print(f"{tag} realization {k} ({what}): " + "; ".join(
             f"{name} worst {_worst(e)}" for name, e in row.items()),
             flush=True)
+        if lazy and max(row["kernel"].values()) <= TRAIN_GRAD_REL_L2:
+            break
     misses = []
     for path in paths:
         kern = errs[0]["kernel"][path]
@@ -5029,6 +5060,254 @@ def orders_phase(dev, model=MODEL, batch=64, grad_batch=16, steps=10,
     return got
 
 
+def rank_kernel_phase(dev, timed: bool = True, r: int = RANK_WIDE) -> dict:
+    """The entries of ``RANK_FORMS``: rows 3-15 and 19 at ViT-B's shapes
+    (B 64, N 197) and rank ``r``, each against its fp32 plain version and
+    timed beside it (bound from :func:`kernel_work`, which counts the
+    true rank), and the fold's keep pattern at that rank."""
+    inp = kernel_inputs(dev, r=r, seed=r)
+    print(f"[kernel] the rank-dependent rows at rank {r} (B {inp['b']}, N "
+          f"{inp['n']}, E {inp['e']}):", flush=True)
+    wd_keep_check(dev, inp)
+    calls = {**kernel_calls(inp), **attn_route_kernel_calls(inp),
+             **long_kernel_calls(inp)}
+    work = kernel_work(inp)
+    lib = library_calls(inp) if timed else {}
+    pair = f"block_pair_fwd_r{r}"
+    forms = {k: b for k, b in RANK_FORMS.items() if k != pair}
+    out = check_entries(
+        dev, inp, {k: calls[b] for k, b in forms.items()}, timed,
+        work={k: work[b] for k, b in forms.items()},
+        library={k: lib[b] for k, b in forms.items() if b in lib})
+    del calls
+    out.update(pair_kernel_phase(dev, inp, timed, name=pair))
+    return out
+
+
+def _rank_launches(total, tag) -> None:
+    """Add this run's launches of the ``RANK_FORMS`` entries to
+    ``total`` (every counter was set to 0 before the run)."""
+    got = read_launches(tuple(RANK_FORMS))
+    print(f"{tag} launches of the rank-{RANK_WIDE} entries: "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    _add_launches(total, got, tuple(RANK_FORMS))
+
+
+def _device_ms_per_step(cfg, cara_cfg, frozen, state, data, generator,
+                        steps=2, tag=None, top=5) -> float:
+    """The kernels' device time a train step on one batch (one step
+    unprofiled, then ``steps`` under ``torch.profiler``), summed over
+    every CUDA kernel the profiler records; with ``tag`` the ``top``
+    kernels by device time are printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn = steps_lib.make_train_step(cfg, cara_cfg,
+                                        compute_dtype=torch.bfloat16)
+    frozen_c = steps_lib.cast_floating(frozen, torch.bfloat16)
+    state, _ = step_fn(state, frozen_c, data, generator=generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step_fn(state, frozen_c, data, generator=generator)
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("Optimizer.")), reverse=True)
+    if tag:
+        for ms, name in rows[:top]:
+            print(f"{tag} {ms:8.3f} ms a step  {name[:90]}", flush=True)
+    return sum(ms for ms, _ in rows)
+
+
+def ranks_phase(dev, rank=RANK_WIDE, base_rank=8, batch=64, grad_batch=16,
+                steps=6, switch_steps=2, rounds=2, turn_steps=3,
+                cli_rank=96, cli_depth=4, timed=True) -> dict:
+    """Past rank 64: ViT-B/16 at full width and depth, rank ``rank``,
+    scale 10, batch ``batch``, bf16.  (a) The element and rank routes:
+    one step's gradients of every leaf on ``grad_batch`` images against
+    the fp32 plain path (:func:`grad_check`, the perturbed copies only
+    where a leaf misses 5e-2), ``steps`` steps on one batch (the loss
+    falls by the means of the halves; ms a step by CUDA events with the
+    spread; peak memory), each kernel of the route launched.  (b) The
+    rank route under ``CARA_ATTN_MEGA=1`` and under ``CARA_ATTNPROJ=1``:
+    the gradient check and ``switch_steps`` steps, the switch's kernels
+    launched and the split attention's not.  (c) Both routes at rank
+    ``rank`` and at ``base_rank`` timed in turns on one batch each
+    (``rounds`` rounds of ``turn_steps`` steps, one more dropped a turn,
+    the order reversed every other round), then their kernels' device time
+    a step by the profiler.  (d) A rank-``rank``
+    checkpoint served unmerged by ``Predictor`` (img/s on the host clock)
+    and its eval with every block through row 19, both within
+    ``LOGIT_RTOL`` of the fp32 plain forward.  (e) ``cli.vit_cp
+    --synthetic --dim cli_rank`` at ``cli_depth`` layers in a child.
+    Returns the launches of the ``RANK_FORMS`` entries over (a), (b) and
+    (d)."""
+    launches = {}
+    setups = {}
+    paths = {"element": TRAINING_KERNELS + ("grad_gemm_nt_dgelu_h",
+                                            SAVE_PRE_SITE),
+             "rank": SPLIT_KERNELS + (SAVE_PRE_SITE,)}
+    for impl, path in paths.items():
+        tag = f"[ranks:{impl}:r{rank}]"
+        cfg, cc, frozen, state, data = train_setup(dev, rank=rank,
+                                                   batch=batch, impl=impl)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        grad_check(dev, cfg, cc, frozen, state,
+                   {k: v[:grad_batch] for k, v in data.items()}, generator,
+                   tag=tag, lazy=True)
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        state, losses, ms, _ = fixed_batch_steps(
+            cfg, cc, frozen, state, data, generator, steps, timed=timed)
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else float("nan"))
+        got = read_launches(tuple(KERNELS))
+        half = len(losses) // 2
+        print(f"{tag} loss over {steps} steps: "
+              + " ".join(f"{v:.4f}" for v in losses), flush=True)
+        require(all(np.isfinite(losses)) and statistics.mean(
+            losses[half:]) < statistics.mean(losses[:half]),
+            f"{tag} the loss did not fall (the means of the halves)")
+        if timed:
+            tail = ms[2:]
+            print(f"{tag} median {statistics.median(tail):.3f} ms per step "
+                  f"(CUDA events, steps 3-{steps}: {min(tail):.3f}-"
+                  f"{max(tail):.3f}), batch {batch}; peak {peak:.3f} GiB "
+                  "allocated", flush=True)
+        for name in path:
+            require(got[name] > 0, f"{tag} {name} never launched")
+        if impl == "element":
+            require(wd_fold.MASKED_LAUNCHES > 0,
+                    f"{tag} the masked factor gradients never launched")
+        _rank_launches(launches, tag)
+        setups[impl] = [cfg, cc, frozen, state, data]
+
+    cfg, cc, frozen, state, data = setups["rank"]
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(1)
+    for name in ("CARA_ATTN_MEGA=1", ATTNPROJ):
+        values, _, path, idle = SWITCHES[name]
+        tag = f"[ranks:rank:{name}:r{rank}]"
+        with attn_switch(**values):
+            grad_check(dev, cfg, cc, frozen, state,
+                       {k: v[:grad_batch] for k, v in data.items()},
+                       generator, tag=tag, lazy=True)
+            reset_launches()
+            state, losses, _, _ = fixed_batch_steps(
+                cfg, cc, frozen, state, data, generator, switch_steps,
+                timed=False)
+            got = read_launches(tuple(KERNELS))
+            require(all(np.isfinite(losses)), f"{tag} non-finite loss")
+            _rank_launches(launches, tag)
+        for k in path:
+            require(got[k] > 0, f"{tag} {k} never launched")
+        for k in idle:
+            require(got[k] == 0, f"{tag} {k} launched")
+    setups["rank"][3] = state
+
+    if timed:
+        base = {impl: list(train_setup(dev, rank=base_rank, batch=batch,
+                                       impl=impl)) for impl in paths}
+        keys = [(impl, r) for impl in paths for r in (base_rank, rank)]
+        turns = {k: [] for k in keys}
+        for rd in range(rounds):
+            for impl, r in keys if rd % 2 == 0 else keys[::-1]:
+                setup = setups[impl] if r == rank else base[impl]
+                c, cc_, fr, st, da = setup
+                st, _, ms, _ = fixed_batch_steps(c, cc_, fr, st, da,
+                                                 generator, turn_steps + 1)
+                setup[3] = st
+                turns[(impl, r)] += ms[1:]
+        device = {k: _device_ms_per_step(
+            *(setups[k[0]] if k[1] == rank else base[k[0]]), generator,
+            tag=f"[ranks:{k[0]}:r{k[1]}:device]") for k in keys}
+        for impl in paths:
+            lo, hi = (statistics.median(turns[(impl, r)])
+                      for r in (base_rank, rank))
+            spread = {r: (min(turns[(impl, r)]), max(turns[(impl, r)]))
+                      for r in (base_rank, rank)}
+            d_lo, d_hi = device[(impl, base_rank)], device[(impl, rank)]
+            print(f"[ranks:{impl}] ms per step by CUDA events in turns "
+                  f"({rounds} rounds, {len(turns[(impl, rank)])} steps a "
+                  f"rank): rank {base_rank} {lo:.3f} "
+                  f"({spread[base_rank][0]:.3f}-{spread[base_rank][1]:.3f}), "
+                  f"rank {rank} {hi:.3f} ({spread[rank][0]:.3f}-"
+                  f"{spread[rank][1]:.3f}): {hi / lo:.3f}x; device time by "
+                  f"the profiler {d_lo:.3f} and {d_hi:.3f} ms a step: "
+                  f"{d_hi / d_lo:.3f}x", flush=True)
+        del base
+    del setups, cfg, cc, frozen, state, data
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, f"vit_smoke_r{rank}_seed_0.npz")
+        make_checkpoint(ckpt, rank=rank)
+        pred = Predictor.from_checkpoint_auto(
+            ckpt, MODEL, batch_size=batch, merge=False, device=dev,
+            dtype=torch.bfloat16)
+        images = make_images(batch, pred.cfg.image_size, seed=21)
+        ref = reference_logits(pred, images)
+        tol = LOGIT_RTOL * float(np.abs(ref).max())
+        for route in ("adapter", "block_pair"):
+            tag = f"[ranks:serve:{route}:r{rank}]"
+            old = vit_lib._block
+            if route == "block_pair":
+                vit_lib._block = _pair_block
+            try:
+                reset_launches()
+                got = pred.logits(images)
+                _rank_launches(launches, tag)
+                counts = read_launches(("cp_attn_block", "cp_mlp_block",
+                                        "block_pair_fwd"))
+                if timed:
+                    iters = 10
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        pred.logits(images)
+                    dt = time.perf_counter() - t0
+            finally:
+                vit_lib._block = old
+            err = float(np.abs(got - ref).max())
+            print(f"{tag} batch {batch}: max|logits - fp32 plain| "
+                  f"{err:.4e}, tolerance {tol:.4e} ({LOGIT_RTOL} x "
+                  f"max|ref|); launches "
+                  f"{counts}" + (f"; {iters * batch / dt:.1f} img/s "
+                                 f"(Predictor.logits, host clock)"
+                                 if timed else ""), flush=True)
+            require(bool(np.isfinite(got).all()) and err <= tol,
+                    f"{tag} logits disagree with the plain path")
+            want = (("block_pair_fwd",) if route == "block_pair"
+                    else ("cp_attn_block", "cp_mlp_block"))
+            for k in want:
+                require(counts[k] >= pred.cfg.depth, f"{tag} {k}: {counts}")
+        del pred
+
+    if cli_rank:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--synthetic", "--dataset", "svhn", "--model", MODEL,
+                    "--dim", str(cli_rank), "--epochs", "1",
+                    "--batch-size", str(batch), "--eval-batch-size",
+                    str(batch), "--synthetic-size", str(2 * batch),
+                    "--log-every", "1", "--out-dir", tmp,
+                    "--backbone", os.path.join(tmp, "none.npz"),
+                    "--device", str(dev), "--model-override",
+                    f"depth={cli_depth}"]
+            t0 = time.perf_counter()
+            child = cli_child(argv, {})
+            print(f"[ranks:cli] cli.vit_cp --dim {cli_rank}, {cli_depth} "
+                  f"layers: {time.perf_counter() - t0:.1f} s; launches "
+                  f"{ {k: v for k, v in child.items() if v} }", flush=True)
+            for name in TRAINING_KERNELS:
+                require(child[name] > 0, f"{name} never launched by the "
+                        f"--dim {cli_rank} child")
+    return launches
+
+
 def to_hf_clip(params, cfg) -> dict:
     """``params`` (a CLIP tower in the port's layout) as a HuggingFace
     ``CLIPVisionModelWithProjection`` state dict (torch tensors), the
@@ -5241,6 +5520,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     results.update(dh_kernel_phase(dev))
     results.update(proj_kernel_phase(dev))
+    results.update(rank_kernel_phase(dev))
     determinism_phase(dev)
 
     stamp("kernel entries")
@@ -5301,6 +5581,10 @@ def main(argv=None) -> int:
     for name, count in orders_phase(dev).items():
         launches[name] = launches.get(name, 0) + count
     stamp("CP orders and dim_experiment")
+    # Past rank 64: ViT-B at rank RANK_WIDE on both routes, both
+    # switches, unmerged serving and row 19; a --dim 96 CLI child.
+    launches.update(ranks_phase(dev))
+    stamp(f"rank {RANK_WIDE}")
     # Gradient accumulation (4 x 16 against one pass of 64) and the NaN
     # check on the element route's setup.
     setup = train.pop("setup")

@@ -23,7 +23,7 @@ adapter; for the attention-block switches (rows 3, 4 and 6) masked keys,
 idle query warps, head widths 64, 32 and 16, ranks 5, 8 and 40, and a
 rank step under each switch; row 3 and its backward at ViT-B's 197, 401
 and 512 tokens, CLIP ViT-L/14's E 1024 and ViT-H/14's E 1280 (head width
-80, 257 and 512 tokens), delta scale 1.5, a rank past 64 refused; for
+80, 257 and 512 tokens), delta scale 1.5, ranks 8, 65 and 128; for
 the dequant-fused int8 GEMM (row 18) ragged row counts, one or three
 column tiles and one or two k-steps, and a quantized Predictor with
 ``CARA_INT8_PALLAS=1``; for the whole-block eval kernel (row 19) head
@@ -45,7 +45,11 @@ dv bit for bit; for the forward site on that core (``cp_site.cu``: rows
 5, 7, 9, 13, 19's qkv site) every epilogue with and without the
 LayerNorm row pass, ranks 0, 8 and 64, ViT-B's four (K, N) and 197,
 12608 and 36928 rows, bit for bit on a second call, and the LayerNorm
-row pass alone.
+row pass alone; past rank 64 (ranks 65, 96, 128 and 200: the GEMM
+core's rank step in k-tiles of 64, the rank pre-pass, the fold and the
+masked factor gradients in rank chunks, rows 3 and 19 with z in chunks)
+every rank-dependent row against its plain version, the site and the
+GEMM core at ViT-B's shapes.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -739,11 +743,16 @@ ATTN_PROJ_SHAPES = [(768, 12, 197, 197), (768, 12, 401, 401),
                               "clip_257", "vith_257", "vith_512"])
 def test_attn_proj_kernel_matches_plain_at_every_width(dev, shape):
     """Row 3's forward and its backward with row 4 (``CARA_ATTNPROJ=1``)
-    against their fp32 plain twins, each counted once per call; then a
-    rank past 64 refused."""
+    against their fp32 plain twins, each counted once per call, at rank
+    8 and past rank 64 (65 and 128: z in chunks of 64)."""
+    for r in (8, 65, 128):
+        _attn_proj_case(dev, shape, r)
+
+
+def _attn_proj_case(dev, shape, r):
     e, heads, n, n_real = shape
     inp = chip_smoke.kernel_inputs(dev, b=2, n=n, e=e, heads=heads,
-                                   hidden=4 * e, r=8, seed=e + n,
+                                   hidden=4 * e, r=r, seed=e + n + r,
                                    n_real=n_real)
     a = inp["attn"]
     args = dict(qkv=inp["qkv"], w=a["wp"], b=a["bp"], u=a["u2"], v=a["v2"],
@@ -771,11 +780,6 @@ def test_attn_proj_kernel_matches_plain_at_every_width(dev, shape):
     chip_smoke._check_outputs("fused_qkv_attention_proj", out, ref)
     chip_smoke._check_outputs("fused_qkv_attention_proj_bwd", grads,
                               ref_grads)
-    u65 = torch.zeros((e, 65), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="rank <= 64"):
-        fqa_mod.fused_qkv_attention_proj(
-            args["qkv"], args["w"], args["b"], u65, u65.t().contiguous(),
-            args["cb"], heads, inp["sm"], n_real)
 
 
 @pytest.mark.parametrize("shape", ATTN_ROUTE_SHAPES,
@@ -1235,6 +1239,19 @@ GEMM_CASES = (
        for rank in (None, "fold") for shape in GEMM_SHAPES]
     + [("tn", "f32", splits, *shape) for splits in (1, 3)
        for shape in GEMM_SHAPES])
+# Past rank 64 (the rank step in k-tiles of 64 from memory; NT's gv from
+# the rank product first): every NN and NT form at ranks 65 and 128, the
+# bf16 forms at 96 and 200 too.
+GEMM_CASES += (
+    [("nn", epi, "a2", m, n, k, r)
+     for epi in ("bf16", "pre_gelu", "pre_quick_gelu")
+     for r in ((65, 96, 128, 200) if epi == "bf16" else (65, 128))
+     for m, n, k, _ in GEMM_SHAPES]
+    + [("nt", epi, "fold", m, n, k, r)
+       for epi in ("bf16", "f32", "dgelu", "dgelu_h", "dquick_gelu",
+                   "dquick_gelu_h")
+       for r in ((65, 96, 128, 200) if epi == "bf16" else (65, 128))
+       for m, n, k, _ in GEMM_SHAPES])
 
 
 @pytest.mark.parametrize(
@@ -1290,7 +1307,7 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
             b2r = kw["b2"].float()[:, :r].t()
         if rank == "a2":  # NN
             z = rnd(m, r)
-            kw["a2"] = torch.zeros((m, _bwd.RANK_W), device=dev,
+            kw["a2"] = torch.zeros((m, _bwd.rank_width(r)), device=dev,
                                    dtype=torch.bfloat16)
             kw["a2"][:, :r] = z
         else:
@@ -1307,10 +1324,15 @@ def test_grad_gemm_wgmma_matches_plain(dev, layout, epi, rank, m, n, k, r):
     outs = list(out) if isinstance(out, tuple) else [out]
     if rank == "fold":
         gv = outs.pop()
-        assert gv.shape == (m, _bwd.RANK_W)
+        assert gv.shape == (m, _bwd.rank_width(r))
         assert not gv[:, r:].any()
         err = (gv[:, :r].float() - z.float()).abs()
         assert (err <= 1e-2 + 1e-2 * z.float().abs()).all()
+        if r > _bwd.RANK_W:
+            # gv from the rank product (its own fp32 order): an element
+            # rounded to the next bf16 moves the product by up to
+            # |b2| ulp(z), so the product is held on the gv it read.
+            acc = acc + (gv[:, :r].float() - z.float()) @ b2r
 
     def close(x, ref, bf16):
         assert x.shape == ref.shape and torch.isfinite(x).all()
@@ -1428,6 +1450,15 @@ SITE_CASES = [(ln, act, res, r, k, n, m) for ln in (False, True)
 SITE_CASES += [(ln, act, False, r, k, n, m) for ln in (False, True)
                for act in ("quick_gelu", "quick_dact") for r in (0, 8, 64)
                for k, n in ((768, 3072), (1024, 4096)) for m in (197, 16448)]
+# Past rank 64 (the rank pre-pass, then the rank step in k-tiles of 64):
+# every epilogue at ranks 65 and 128 on ViT-B's qkv and fc2 shapes, 96
+# and 200 on the qkv site, and the quick_gelu forms at 128.
+SITE_CASES += [(ln, act, res, r, k, n, m) for ln in (False, True)
+               for act, res in SITE_EPIS for r in (65, 128)
+               for k, n in ((768, 2304), (3072, 768)) for m in (197, 12608)]
+SITE_CASES += [(True, "none", False, r, 768, 2304, 12608) for r in (96, 200)]
+SITE_CASES += [(True, act, False, 128, 768, 3072, 12608)
+               for act in ("quick_gelu", "quick_dact")]
 
 
 def _site_inputs(dev, ln, act, res, r, k, n, m, seed):
@@ -1439,8 +1470,12 @@ def _site_inputs(dev, ln, act, res, r, k, n, m, seed):
         return (torch.randn(shape, generator=gen, device=dev) * std
                 + mean).to(torch.bfloat16)
 
+    # Past rank 64 V's std shrinks by sqrt(64 / r), so that the delta
+    # keeps rank 64's size (the fp32 reference does not round z, whose
+    # bf16 rounding the kernel's delta carries in every rank term).
+    v_std = 0.05 * min(1.0, 64 / max(r, 1)) ** 0.5
     args = (rnd(m, k), rnd(k, n, std=k ** -0.5), rnd(n, std=0.1),
-            rnd(k, r, std=k ** -0.5), rnd(r, n, std=0.05), rnd(n, std=0.1))
+            rnd(k, r, std=k ** -0.5), rnd(r, n, std=v_std), rnd(n, std=0.1))
     kw = {}
     if ln:
         kw["ln"] = (rnd(k, std=0.1, mean=1.0), rnd(k, std=0.1), 1e-6)
@@ -1495,7 +1530,7 @@ def test_cp_site_wgmma_matches_plain(dev, ln, act, res, r, k, n, m):
     _check("cp_site_fc1_dact" if act.endswith("dact") else "cp_site_qkv_ln",
            out, ref)
     xa = a32[0] if not ln else layer_norm(a32[0], *kw32["ln"])
-    assert z.shape == (m, _bwd.RANK_W) and not z[:, r:].any()
+    assert z.shape == (m, _bwd.rank_width(r)) and not z[:, r:].any()
     _check("cp_site_qkv_ln", z[:, :r], xa @ a32[3])
 
 
@@ -1634,3 +1669,43 @@ def test_cp_site_from_a_fresh_thread(dev):
     ref = _site.site_forward_plain(*[t.float() for t in args], 1.0,
                                    **_f32(kw))
     _check("cp_site_fc1_ln_gelu", out["y"], ref)
+
+
+# Past rank 64: (b, n, n_real, e, heads, hidden) of the small blocks, at
+# ranks 65, 96, 128 and 200.
+RANK_SHAPES = [(2, 37, 30, 128, 2, 512), (2, 50, 41, 256, 4, 1024)]
+RANK_CASES = [(shape, r) for shape in RANK_SHAPES for r in (65, 96, 128, 200)]
+
+
+@pytest.mark.parametrize("shape, r", RANK_CASES,
+                         ids=[f"e{s[3]}_r{r}" for s, r in RANK_CASES])
+def test_rank_dependent_kernels_past_rank_64_match_plain(dev, shape, r):
+    """Every rank-dependent row past rank 64 against its fp32 plain
+    version (the smoke's entries, ``KERNEL_TOL`` / ``GRAD_REL_L2``):
+    rows 5 and 7-13 and their backwards (the GEMM core's rank step in
+    k-tiles of 64), row 14's fold and its keep pattern, row 15 and the
+    masked factor gradients inside rows 8 and 11 (rank chunks on a grid
+    axis), row 3 and its backward, row 6 and row 19 (z in chunks of
+    64); each kernel launched."""
+    b, n, n_real, e, heads, hidden = shape
+    inp = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                   hidden=hidden, r=r, seed=r + e,
+                                   n_real=n_real)
+    chip_smoke.wd_keep_check(dev, inp)
+    calls = {**chip_smoke.kernel_calls(inp),
+             **chip_smoke.attn_route_kernel_calls(inp),
+             **{k: v for k, v in chip_smoke.long_kernel_calls(inp).items()
+                if k in ("cp_dense_wd", "cp_dense_wd_bwd",
+                         "cp_wd_factor_grads")}}
+    for name, (kern, _, ref32) in calls.items():
+        before = _launches(name)
+        out = kern()
+        torch.cuda.synchronize()
+        chip_smoke._check_outputs(name, out, ref32())
+        assert _launches(name) > before, name
+    out = chip_smoke.pair_kernel_phase(dev, inp, timed=False)
+    assert out["block_pair_fwd"]["max_abs_err"] is not None
+    quick = chip_smoke.kernel_inputs(dev, b=b, n=n, e=e, heads=heads,
+                                     hidden=hidden, r=r, seed=r + e + 1,
+                                     n_real=n_real, act="quick_gelu")
+    chip_smoke.pair_kernel_phase(dev, quick, timed=False)

@@ -25,12 +25,14 @@ import torch
 
 import test_torch_port_train as port_train
 from test_torch_port_dropout import jax_randomness
+from cara_tpu_torch import config as t_config
 from cara_tpu_torch.cli import dim_experiment as t_dim
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import merge as t_merge
 from cara_tpu_torch.models import vit as t_vit
 from cara_tpu_torch.train import loop as t_loop
 from cara_tpu_torch.train import steps as t_steps
+from cara_tpu import config as j_config
 from cara_tpu.cli import dim_experiment as j_dim
 from cara_tpu.models import merge as j_merge
 from cara_tpu.models import vit as j_vit
@@ -239,3 +241,54 @@ def test_torch_dim_experiment_cli_trains_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert f"Accuracy: {acc}" in out
     assert 0.0 <= acc <= 1.0
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_torch_order_2_bf16_drift_is_no_worse_than_jax():
+    """Order 2 under a large delta in bf16: ViT-B's width (E 768, 12
+    heads, hidden 3072) at 2 layers, 2 images of 224 px, rank 16, scale
+    10, the order-2 factors perturbed at std 0.02 with no 1 / sqrt(E)
+    scaling (a qkv delta about 13x the backbone's weights).  One bf16
+    eval forward of ``cara_tpu`` (Pallas attention in interpret mode, the
+    XLA dense forms order 2 takes) and one of the port, each against its
+    own fp32 logits by relative L2: the port's drift is at most the
+    larger of 0.05 and 1.5x JAX's, so that bf16 arithmetic, not a rounding
+    point of the port, is what moves the logits."""
+    over = dict(num_classes=10, depth=2)
+    cfg = t_config.get_model_config("vit_base_patch16_224_in21k", **over)
+    cc = t_config.CaraConfig(rank=16, scale=10.0, weight_dropout=0.1,
+                             cp_order=2)
+    j_cfg = j_config.get_model_config("vit_base_patch16_224_in21k", **over)
+    j_cc = j_config.CaraConfig(**dataclasses.asdict(cc))
+    params = convert.init_vit_params(cfg, 0)
+    cara = convert.perturb_adapter(convert.init_cara_params(cfg, cc, 1), 2)
+    x = np.random.default_rng(3).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+
+    def j_logits(dtype):
+        p, c = (j_steps.cast_floating(t, dtype) for t in (params, cara))
+        return j_vit.vit_forward(p, jnp.asarray(x, dtype), j_cfg,
+                                 cara_params=c, cara_cfg=j_cc,
+                                 attn_impl="fused", dense_impl="xla")
+
+    def t_logits(dtype):
+        p, c = (t_steps.cast_floating(convert.params_from_numpy(t, "cpu"),
+                                      dtype) for t in (params, cara))
+        with torch.no_grad():
+            return t_vit.vit_forward(p, torch.from_numpy(x).to(dtype), cfg,
+                                     c, cc).float().numpy()
+
+    j16, j32 = j_logits(jnp.bfloat16), j_logits(jnp.float32)
+    t16, t32 = t_logits(torch.bfloat16), t_logits(torch.float32)
+    jax_drift, port_drift = _rel_l2(j16, j32), _rel_l2(t16, t32)
+    print(f"order 2, bf16 against fp32 logits, relative L2: cara_tpu "
+          f"{jax_drift:.4e}, port {port_drift:.4e}; max|port - cara_tpu| "
+          f"fp32 {np.abs(t32 - np.asarray(j32)).max():.4e}, bf16 "
+          f"{np.abs(t16 - np.asarray(j16, np.float32)).max():.4e}, "
+          f"max|logits| {np.abs(t32).max():.4e}")
+    assert np.isfinite(port_drift)
+    assert port_drift <= max(0.05, 1.5 * jax_drift), (port_drift, jax_drift)

@@ -7,8 +7,10 @@ LN sites) and one ``csrc/cp_site.cu`` product; their plain twins are
 LayerNorm's plain twin against JAX's ``_ln_rows`` on bf16 rows (the
 rounding point the row pass writes), within one bf16 ulp (1e-6 near
 zero); the plain site with delta scale 1 and 10 and rank 0 (the element
-route's W' form) and 8, against ``_cp_dense_kernel`` (no activation,
-GELU, with and without the LN prologue), ``_cp_dense_dact_kernel`` and
+route's W' form), 8, and 96 and 128 (past rank 64, where JAX pads the
+rank to 128 and the port's kernels take it in k-tiles of 64), against
+``_cp_dense_kernel`` (no activation, GELU, with and without the LN
+prologue), ``_cp_dense_dact_kernel`` and
 ``_mlp_fwd_kernel`` (fc1, GELU, fc2 and the gated residual) in interpret
 mode, fp32, atol = rtol = 1e-4.
 """
@@ -79,7 +81,7 @@ def _uv(a, r, k, n):
 
 
 @pytest.mark.parametrize("s", [1.0, 10.0])
-@pytest.mark.parametrize("r", [0, 8])
+@pytest.mark.parametrize("r", [0, 8, 96, 128])
 @pytest.mark.parametrize("form", ["dense", "ln", "ln_gelu", "dact"])
 def test_plain_site_matches_cp_dense_kernels(form, r, s):
     """``site_forward_plain`` against ``_cp_dense_kernel`` (``cp_dense``,
@@ -116,16 +118,20 @@ def test_plain_site_matches_cp_dense_kernels(form, r, s):
 
 
 @pytest.mark.parametrize("s", [1.0, 10.0])
-@pytest.mark.parametrize("r", [0, 8])
+@pytest.mark.parametrize("r", [0, 8, 96, 128])
 def test_plain_sites_match_mlp_fwd_kernel(r, s):
     """The MLP block as two plain sites (fc1 with LN2 and the GELU, fc2
     with the gated residual) against ``_mlp_fwd_kernel``
     (``cp_mlp_block``), fp32, one gate of 0 among them."""
+    # Past rank 8 each factor's std shrinks by (8 / r) ** (1 / 4), so that
+    # the delta keeps rank 8's size (its variance grows with r).
+    f = min(1.0, 8 / max(r, 1)) ** 0.25
     a = _arrays(30 + r, x=((2, 37, E), 1.2), w1=((E, HIDDEN), 0.125),
-                b1=((HIDDEN,), 0.05), u1=((E, max(r, 1)), 0.2),
-                v1=((max(r, 1), HIDDEN), 0.2), cb1=((HIDDEN,), 0.1),
+                b1=((HIDDEN,), 0.05), u1=((E, max(r, 1)), 0.2 * f),
+                v1=((max(r, 1), HIDDEN), 0.2 * f), cb1=((HIDDEN,), 0.1),
                 w2=((HIDDEN, E), 0.06), b2=((E,), 0.05),
-                u2=((HIDDEN, max(r, 1)), 0.1), v2=((max(r, 1), E), 0.2),
+                u2=((HIDDEN, max(r, 1)), 0.1 * f),
+                v2=((max(r, 1), E), 0.2 * f),
                 cb2=((E,), 0.1), ls=((E,), 0.1, 1.0), lb=((E,), 0.1))
     dpm = np.array([0.0, 1.0 / 0.9], np.float32).reshape(2, 1, 1)
     if not r:

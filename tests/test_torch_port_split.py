@@ -113,8 +113,10 @@ def folded_dx(g, w, u, v, s, ln=None, x=None, tile=64):
     computes it: over 64-wide tiles of the contraction (N) the fp32
     accumulators of g W^T and of z = g V^T, z rounded to the input's dtype
     once at the end and emitted as gv, then the rank step s z U^T on the
-    same accumulators; ``ln`` = (scale, eps) with the raw input ``x``
-    adds the LayerNorm input backward."""
+    same accumulators, one 64-wide chunk of z at a time (past rank 64 gv
+    comes from the rank product first and the step takes ceil(r / 64)
+    k-tiles); ``ln`` = (scale, eps) with the raw input ``x`` adds the
+    LayerNorm input backward."""
     m, n = g.shape
     acc = torch.zeros((m, w.shape[0]))
     z = torch.zeros((m, v.shape[0]))
@@ -123,20 +125,26 @@ def folded_dx(g, w, u, v, s, ln=None, x=None, tile=64):
         acc += gt @ w[:, n0:n0 + tile].float().t()
         z += gt @ v[:, n0:n0 + tile].float().t()
     gv = z.to(g.dtype)
-    acc += s * (gv.float() @ u.float().t())
+    for c0 in range(0, gv.shape[1], 64):
+        acc += s * (gv[:, c0:c0 + 64].float() @ u[:, c0:c0 + 64].float().t())
     if ln is None:
         return acc.to(g.dtype), gv
     return t_bwd.ln_input_bwd_plain(x, acc, ln[0], ln[1]).to(g.dtype), gv
 
 
-@pytest.mark.parametrize("ln", [False, True], ids=["plain", "ln"])
-def test_folded_gv_dx_matches_jax_kernel(ln):
+@pytest.mark.parametrize("ln, r", [(False, R), (True, R), (False, 96)],
+                         ids=["plain", "ln", "plain_r96"])
+def test_folded_gv_dx_matches_jax_kernel(ln, r):
     """The folded gv of row 12 (z accumulated over 64-wide tiles beside g
     W^T, rounded once, then the rank step) against ``_cp_dense_dx_raw``
-    in interpret mode with 64-wide N tiles: dx and gv."""
+    in interpret mode with 64-wide N tiles: dx and gv; at rank 96 the
+    rank step over z's two 64-wide chunks (JAX pads the rank to 128),
+    each factor's std shrunk by (R / r) ** (1 / 4) so that the delta
+    keeps rank R's size."""
     m, n, s = 74, 3 * E, 2.0
-    a = _arrays(5, g=((m, n), 1.0), w=((E, n), 0.08), u=((E, R), 0.2),
-                v=((R, n), 0.2), x=((m, E), 1.2), ls=((E,), 0.1, 1.0))
+    f = 0.2 * (R / r) ** 0.25
+    a = _arrays(5, g=((m, n), 1.0), w=((E, n), 0.08), u=((E, r), f),
+                v=((r, n), f), x=((m, E), 1.2), ls=((E,), 0.1, 1.0))
     ja = {k: jnp.asarray(v) for k, v in a.items()}
     j_ln = (ja["ls"], EPS) if ln else None
     dx_ref, gv_ref = j_dense._cp_dense_dx_raw(
@@ -146,7 +154,7 @@ def test_folded_gv_dx_matches_jax_kernel(ln):
     dx, gv = folded_dx(t["g"], t["w"], t["u"], t["v"], s,
                        (t["ls"], EPS) if ln else None, t["x"])
     _close(dx, dx_ref, "dx")
-    _close(gv, np.asarray(gv_ref)[:, :R], "gv")
+    _close(gv, np.asarray(gv_ref)[:, :r], "gv")
 
 
 @pytest.mark.parametrize("n, n_real", [(40, 33), (24, 24)])

@@ -71,13 +71,20 @@ ATTN_ARGS = ("x", "wq", "bq", "u1", "v1", "wp", "bp", "u2", "v2", "cb2",
 ATTN_DIFF = ("x", "u1", "v1", "u2", "v2", "cb2")
 
 
-@pytest.mark.parametrize("n, n_real, zero_gate",
-                         [(37, 37, False), (40, 33, True)])
-def test_cp_attn_block_wd_matches_jax(n, n_real, zero_gate):
+# Rank 96 past the kernels' 64-wide rank tile: the fold and the masked
+# factor gradients in rank chunks on the card, JAX's rank padded to 128.
+# Each factor's std shrinks by (R / r) ** (1 / 4) there, so that the
+# delta keeps rank R's size.
+@pytest.mark.parametrize("n, n_real, zero_gate, r",
+                         [(37, 37, False, R), (40, 33, True, R),
+                          (37, 37, False, 96)],
+                         ids=["37-37-False", "40-33-True", "37-37-False-r96"])
+def test_cp_attn_block_wd_matches_jax(n, n_real, zero_gate, r):
+    f = 0.2 * (R / r) ** 0.25
     a = _arrays(3, x=((B, n, E), 1.2), wq=((E, 3 * E), 0.08),
-                bq=((3 * E,), 0.05), u1=((E, R), 0.2), v1=((R, 3 * E), 0.2),
-                wp=((E, E), 0.08), bp=((E,), 0.05), u2=((E, R), 0.2),
-                v2=((R, E), 0.2), cb2=((E,), 0.1), ls=((E,), 0.1, 1.0),
+                bq=((3 * E,), 0.05), u1=((E, r), f), v1=((r, 3 * E), f),
+                wp=((E, E), 0.08), bp=((E,), 0.05), u2=((E, r), f),
+                v2=((r, E), f), cb2=((E,), 0.1), ls=((E,), 0.1, 1.0),
                 lb=((E,), 0.1), g=((B, n, E), 1.0))
     a["g"][:, n_real:] = 0.0  # padding rows carry no cotangent
     dpm = _gate(zero_gate).reshape(B, 1)
@@ -117,13 +124,16 @@ MLP_ARGS = ("x", "w1", "b1", "u1", "v1", "cb1", "w2", "b2", "u2", "v2",
 MLP_DIFF = ("x", "u1", "v1", "cb1", "u2", "v2", "cb2")
 
 
-@pytest.mark.parametrize("n, zero_gate", [(37, False), (16, True)])
-def test_cp_mlp_block_wd_matches_jax(n, zero_gate):
+@pytest.mark.parametrize("n, zero_gate, r", [(37, False, R), (16, True, R),
+                                             (37, False, 96)],
+                         ids=["37-False", "16-True", "37-False-r96"])
+def test_cp_mlp_block_wd_matches_jax(n, zero_gate, r):
+    f = 0.2 * (R / r) ** 0.25  # as in the attention block's test
     m = _arrays(4, x=((B, n, E), 1.2), w1=((E, HIDDEN), 0.08),
-                b1=((HIDDEN,), 0.05), u1=((E, R), 0.2),
-                v1=((R, HIDDEN), 0.2), cb1=((HIDDEN,), 0.1),
+                b1=((HIDDEN,), 0.05), u1=((E, r), f),
+                v1=((r, HIDDEN), f), cb1=((HIDDEN,), 0.1),
                 w2=((HIDDEN, E), 0.08), b2=((E,), 0.05),
-                u2=((HIDDEN, R), 0.2), v2=((R, E), 0.2), cb2=((E,), 0.1),
+                u2=((HIDDEN, r), f), v2=((r, E), f), cb2=((E,), 0.1),
                 ls=((E,), 0.1, 1.0), lb=((E,), 0.1), g=((B, n, E), 1.0))
     dpm = _gate(zero_gate).reshape(B, 1, 1)
     (ts1, ts2), (js1, js2) = _seeds()
