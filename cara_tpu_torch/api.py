@@ -1,5 +1,6 @@
-"""High-level model construction (port of ``cara_tpu/api.py``: CaRA, and
-the non-adapter control rows ``linear`` and ``full``).
+"""High-level model construction (port of ``cara_tpu/api.py``: CaRA,
+LoRA, FacT-TT / TK, and the non-adapter control rows ``linear`` and
+``full``).
 
 The reference's public surface is ``cara(config)`` returning a patched
 timm module (``src/cara/cara.py:169-188``); the functional equivalent
@@ -24,7 +25,6 @@ from cara_tpu_torch.config import (NO_ADAPTER, PORTED_METHODS, CaraConfig,
                                    ViTConfig, get_model_config)
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import npz as npz_lib
-from cara_tpu_torch.models.cara import cara_param_shapes
 from cara_tpu_torch.models.torch_import import TORCH_SUFFIXES
 
 
@@ -33,18 +33,15 @@ class CaraModel:
     cfg: ViTConfig
     cara_cfg: CaraConfig
     params: Dict[str, Any]        # backbone + head (head is trainable)
-    cara_params: Dict[str, Any]   # CP adapter (trainable); {} for linear/full
+    cara_params: Dict[str, Any]   # adapter (trainable); {} for linear/full
 
     @property
     def trainable_count(self) -> int:
-        """CP parameters only, head excluded: the reference's printed
+        """Adapter parameters only, head excluded: the reference's printed
         "Total parameters" (``vit_cp.py:175-183``).  The non-adapter
         control rows have no adapter tree: ``linear`` reports the head
         (what trains), ``full`` the whole model."""
-        if self.cara_cfg.method in NO_ADAPTER:
-            return self.cara_cfg.trainable_param_count(self.cfg)
-        return sum(int(np.prod(s)) for s in
-                   cara_param_shapes(self.cfg, self.cara_cfg).values())
+        return self.cara_cfg.trainable_param_count(self.cfg)
 
 
 def _head_in_dim(cfg: ViTConfig) -> int:
@@ -77,6 +74,7 @@ def build_model(
     weight_dropout: Optional[float] = None,
     weight_dropout_impl: str = "element",
     model_overrides: Optional[Dict[str, Any]] = None,
+    fact_core_rank: int = 0,
 ) -> CaraModel:
     """Backbone (the npz at ``backbone_path`` when it exists, else random)
     + CaRA adapter + a fresh head of ``num_classes``, as the reference
@@ -88,8 +86,11 @@ def build_model(
     ``delta_impl`` "factorized" or "materialized" (the dense deltas,
     element-masked in training).  A ``backbone_path`` ending in .pt,
     .pth or .bin is a HuggingFace CLIP vision tower
-    (``models/clip_import.py``), any other an npz.  Other adapter methods
-    are not ported (ROADMAP.md queue 1)."""
+    (``models/clip_import.py``), any other an npz.  ``method`` "lora",
+    "fact_tt" or "fact_tk" builds LoRA's or FacT's tree (weight dropout
+    0 by default; ``fact_core_rank`` is FacT-TK's core rank, 0 for
+    ``rank``).  Other adapter methods are not ported (ROADMAP.md queue
+    1)."""
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method={method!r} is not yet ported to cara_tpu_torch "
@@ -103,7 +104,8 @@ def build_model(
         method=method, rank=rank, scale=scale, l_mu=l_mu, l_std=l_std,
         cp_order=cp_order, delta_impl=delta_impl,
         weight_dropout=weight_dropout,
-        weight_dropout_impl=weight_dropout_impl)
+        weight_dropout_impl=weight_dropout_impl,
+        fact_core_rank=fact_core_rank)
     # A given num_classes always gets a fresh head; otherwise the npz's
     # own head is kept where its width matches.
     load_cfg = cfg if num_classes is None else dataclasses.replace(

@@ -14,7 +14,8 @@ import dataclasses
 
 import torch
 
-from cara_tpu_torch.config import NO_ADAPTER, PORTED_METHODS, ViTConfig
+from cara_tpu_torch.config import (FACT_METHODS, NO_ADAPTER, PORTED_METHODS,
+                                   ViTConfig)
 from cara_tpu_torch.data.vtab import VTAB_TASKS
 from cara_tpu_torch.models.vit import WEIGHT_DROPOUT_IMPLS
 
@@ -24,8 +25,6 @@ _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 _PARALLEL = "ROADMAP.md queue 1: parallelism"
 # dest -> (default, where the feature stands).
 UNPORTED = {
-    "lora_alpha": (None, _PEFT),
-    "fact_scale": (None, _PEFT), "fact_core_rank": (0, _PEFT),
     "vpt_tokens": (8, _PEFT), "adapter_scale": (None, _PEFT),
     "adapter_dropout": (None, _PEFT), "moe": (None, _PEFT),
     "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
@@ -77,11 +76,17 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "kernels)")
     # The JAX CLI's other flags: parsed, refused unless at their default.
     p.add_argument("--method", default="cara", type=str,
-                   help="cara (the adapter), linear (the head over the "
-                        "frozen backbone) or full (every weight)")
-    p.add_argument("--lora-alpha", default=None, type=float)
-    p.add_argument("--fact-scale", default=None, type=float)
-    p.add_argument("--fact-core-rank", default=0, type=int)
+                   help="cara (the adapter), lora, fact_tt / fact_tk "
+                        "(FacT's tensor-train / Tucker factors), linear "
+                        "(the head over the frozen backbone) or full "
+                        "(every weight)")
+    p.add_argument("--lora-alpha", default=None, type=float,
+                   help="LoRA: delta scale alpha / rank (default alpha = "
+                        "rank)")
+    p.add_argument("--fact-scale", default=None, type=float,
+                   help="FacT: delta scale (default 1.0)")
+    p.add_argument("--fact-core-rank", default=0, type=int,
+                   help="FacT-TK: Tucker core rank (0: the rank)")
     p.add_argument("--vpt-tokens", default=8, type=int)
     p.add_argument("--adapter-scale", default=None, type=float)
     p.add_argument("--adapter-dropout", default=None, type=float)
@@ -155,14 +160,38 @@ def refuse_unported(args) -> None:
             "auto or xla")
 
 
+def adapter_impl_kwargs(args) -> dict:
+    """``build_model`` keyword arguments of the adapter flags
+    (``cara_tpu/cli/common.py:197-211``): the weight-dropout impl, the
+    method, and FacT-TK's ``--fact-core-rank``."""
+    kw = {"weight_dropout_impl": args.weight_dropout_impl}
+    method = getattr(args, "method", "cara")
+    if method != "cara":
+        kw["method"] = method
+    if method == "fact_tk" and getattr(args, "fact_core_rank", 0):
+        kw["fact_core_rank"] = args.fact_core_rank
+    return kw
+
+
 def adapter_scale_wd(args, hp_scale: float, hp_wd: float):
-    """(delta scale, weight-dropout rate) for ``args.method``: CaRA keeps
-    the task table's values (``--weight-dropout`` overrides the rate);
-    ``linear`` / ``full`` have no adapter at all, so the scale is 1.0,
-    the rate 0 and ``--weight-dropout`` is refused
-    (``cara_tpu/cli/common.py:287-292``)."""
+    """(delta scale, weight-dropout rate) for ``args.method``
+    (``cara_tpu/cli/common.py:248-292``): CaRA keeps the task table's
+    values (``--weight-dropout`` overrides the rate); LoRA's scale is
+    ``alpha / rank`` (``--lora-alpha``, alpha = rank by default), FacT's
+    ``--fact-scale`` (1.0 by default), both with rate 0 unless
+    ``--weight-dropout`` is given; ``linear`` / ``full`` have no adapter
+    at all, so the scale is 1.0, the rate 0 and ``--weight-dropout`` is
+    refused."""
     wd_flag = getattr(args, "weight_dropout", None)
     method = getattr(args, "method", "cara")
+    if method == "lora":
+        alpha = getattr(args, "lora_alpha", None)
+        alpha = float(args.dim) if alpha is None else float(alpha)
+        return alpha / args.dim, (0.0 if wd_flag is None else wd_flag)
+    if method in FACT_METHODS:
+        s = getattr(args, "fact_scale", None)
+        return (1.0 if s is None else float(s)), (
+            0.0 if wd_flag is None else wd_flag)
     if method in NO_ADAPTER:
         if wd_flag:
             raise SystemExit(

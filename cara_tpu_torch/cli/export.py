@@ -2,12 +2,14 @@
 checkpoint (an npz, or a reference ``.pt``, which needs ``--model``) ->
 a merged, adapter-only, full or reference ``.pt`` artifact.
 
-* ``--mode merged`` folds the CP adapter into the dense backbone (exact
-  in eval): a plain ViT for serving, no adapter cost.  The fold runs in
-  fp32 on ``--device`` (the card by default) with TF32 off, so the merged
-  weights are those of JAX's fp32 merge.
-* ``--mode adapter`` keeps only the CP factors and the head (an npz that
-  both packages' ``load_adapter`` read).
+* ``--mode merged`` folds the adapter (CaRA's CP factors, LoRA's pairs
+  or FacT's factors, the method from the checkpoint's meta or its tree)
+  into the dense backbone (exact in eval): a plain ViT for serving, no
+  adapter cost.  The fold runs in fp32 on ``--device`` (the card by
+  default) with TF32 off, so the merged weights are those of JAX's fp32
+  merge.
+* ``--mode adapter`` keeps only the adapter tree and the head (an npz
+  that both packages' ``load_adapter`` read).
 * ``--mode full`` re-saves a (backbone, adapter) pair as one artifact.
 * ``--mode torch`` writes the reference's ``.pt`` (a timm state dict with
   ``CP_*``, ``models/torch_export.py``), which its ``--evaluate`` loads;

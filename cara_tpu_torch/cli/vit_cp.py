@@ -1,6 +1,9 @@
 """Main train/eval CLI (port of ``cara_tpu/cli/vit_cp.py``): published
 order-4 CaRA with exact element-wise weight dropout, or the structured
-rank / row weight dropout (``--weight-dropout-impl``); or, with
+rank / row weight dropout (``--weight-dropout-impl``); with ``--method
+lora`` (``--lora-alpha``) or ``fact_tt`` / ``fact_tk`` (``--fact-scale``,
+``--fact-core-rank``) the paper's comparison adapters, through the same
+site kernels; or, with
 ``--method linear|full``, the non-adapter control rows: the linear probe
 (the head over the frozen backbone) and full fine-tuning (every weight,
 through the flash attention).  Activation and attention dropout
@@ -85,11 +88,11 @@ def main(argv=None) -> float:
     scale, weight_dropout = common.adapter_scale_wd(args, hp.scale,
                                                     hp.weight_dropout)
     model = api.build_model(
-        args.model, method=args.method, rank=args.dim, scale=scale,
+        args.model, rank=args.dim, scale=scale,
         l_mu=hp.init_mean, l_std=hp.init_std, num_classes=num_classes,
         seed=seed, backbone_path=args.backbone, delta_impl=args.delta_impl,
-        weight_dropout=weight_dropout,
-        weight_dropout_impl=args.weight_dropout_impl, model_overrides=mo)
+        weight_dropout=weight_dropout, model_overrides=mo,
+        **common.adapter_impl_kwargs(args))
     train_loader, eval_loader = vtab_lib.get_data(
         args.dataset, root=args.data_root, evaluate=True,
         batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
@@ -114,6 +117,10 @@ def main(argv=None) -> float:
                     cara_cfg, rank=info["rank"], cp_order=info["cp_order"])
         else:
             params, cara_params, meta = ckpt_lib.load_model(args.evaluate)
+            if cara_params is not None and "A1" not in cara_params:
+                # LoRA / FacT: method, rank and scale from the artifact,
+                # so --method need not be repeated at eval
+                cara_cfg = ckpt_lib.infer_cara_cfg(cara_params, meta)
         params = params_from_numpy(params, device, torch.float32)
         if cara_params is not None:
             cara_params = params_from_numpy(cara_params, device,

@@ -212,18 +212,31 @@ class CaraConfig:
         For ViT-B/16 order-4 this reproduces the reference's printed count
         ``2526*rank + 4608`` (shapes ``src/cara/cara.py:112-125``, print
         ``image_classification/vit_cp.py:175-183``): rank 32 -> 85,440.
-        The non-adapter control rows count what trains: the head alone
-        (``"linear"``) or the whole model (``"full"``).  The PEFT zoo's
-        other counts raise until their modules are ported.
+        LoRA counts its per-layer A / B pairs at the four sites, FacT its
+        shared factors (ViT-B/16 at rank 8: LoRA 1,179,648, FacT-TT
+        21,504).  The non-adapter control rows count what trains: the
+        head alone (``"linear"``) or the whole model (``"full"``).  The
+        PEFT zoo's other counts raise until their modules are ported.
         """
         if self.method in NO_ADAPTER:
             head = vit_param_counts(model)["head"]
             return head if self.method == "linear" else sum(
                 vit_param_counts(model).values())
+        if self.method == "lora":
+            from cara_tpu_torch.models.lora import lora_param_shapes
+
+            return sum(int(_prod(s))
+                       for site in lora_param_shapes(model, self).values()
+                       for s in site.values())
+        if self.method in FACT_METHODS:
+            from cara_tpu_torch.models.fact import fact_param_shapes
+
+            return sum(int(_prod(s))
+                       for s in fact_param_shapes(model, self).values())
         if self.method != "cara":
             raise NotImplementedError(
                 f"method={self.method!r} is not yet ported to "
-                "cara_tpu_torch (CaRA, linear and full so far)")
+                "cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
         from cara_tpu_torch.models.cara import cara_param_shapes
 
         shapes = cara_param_shapes(model, self)
@@ -233,8 +246,15 @@ class CaraConfig:
 #: The training methods without an adapter: the linear probe (the head
 #: over the frozen backbone) and full fine-tuning (every leaf).
 NO_ADAPTER = ("linear", "full")
+#: FacT's tensor-train and Tucker forms (``models/fact.py``).
+FACT_METHODS = ("fact_tt", "fact_tk")
+#: The methods whose delta is LoRA's per-site (A, B) pair: LoRA, and FacT
+#: once ``models.fact.expand_to_lora`` has expanded its shared factors.
+LORA_FAMILY = ("lora",) + FACT_METHODS
+#: The low-rank delta methods, which run through the fused CaRA sites.
+ADAPTER_METHODS = ("cara",) + LORA_FAMILY
 #: The training methods ported so far.
-PORTED_METHODS = ("cara",) + NO_ADAPTER
+PORTED_METHODS = ADAPTER_METHODS + NO_ADAPTER
 
 
 def vit_param_counts(model: ViTConfig) -> dict:

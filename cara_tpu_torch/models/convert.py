@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from cara_tpu_torch.config import CaraConfig, ViTConfig
+from cara_tpu_torch.config import FACT_METHODS, CaraConfig, ViTConfig
 from cara_tpu_torch.models.cara import cara_param_shapes
 
 Tree = Dict[str, Any]
@@ -138,12 +138,24 @@ def _orthogonal(rng, shape):
 
 def init_cara_params(cfg: ViTConfig, cara_cfg: CaraConfig,
                      seed: int) -> Tree:
-    """CaRA factor tree (numpy fp32) with the reference's init scheme:
-    xavier A1/P1, orthogonal mode factors, zero contract-mode factors
-    (A2 at order 4, P2) and biases, so the delta is exactly 0."""
+    """Adapter tree (numpy fp32) of ``cara_cfg.method``, its delta
+    exactly 0 (``cara_tpu/models/cara.py:110-128``): LoRA's per-site A / B
+    tree (``models/lora.py``), FacT's shared factors (``models/fact.py``),
+    or CaRA's factors with the reference's init scheme: xavier A1/P1,
+    orthogonal mode factors, zero contract-mode factors (A2 at order 4,
+    P2) and biases."""
+    if cara_cfg.method == "lora":
+        from cara_tpu_torch.models.lora import init_lora_params
+
+        return init_lora_params(cfg, cara_cfg, seed)
+    if cara_cfg.method in FACT_METHODS:
+        from cara_tpu_torch.models.fact import init_fact_params
+
+        return init_fact_params(cfg, cara_cfg, seed)
     if cara_cfg.method != "cara":
         raise NotImplementedError(
-            f"method={cara_cfg.method!r} is not yet ported")
+            f"method={cara_cfg.method!r} is not yet ported "
+            "(ROADMAP.md queue 1: the PEFT zoo)")
     rng = np.random.default_rng(seed)
     inits = dict(_QKV_INITS[cara_cfg.cp_order])
     inits.update(P1="xavier", P2="zeros", P3="orthogonal")
@@ -166,15 +178,23 @@ def init_cara_params(cfg: ViTConfig, cara_cfg: CaraConfig,
 
 
 def perturb_adapter(cara_params: Tree, seed: int, std: float = 0.02) -> Tree:
-    """Fill the zero-initialized factors and the biases with seeded
-    ``N(0, std)`` noise so the adapter's delta is nonzero (a freshly
-    initialized adapter is the identity, which would hide a wrong delta
-    path).  Returns a new tree; other leaves are shared."""
+    """Fill the zero-initialized factors (CaRA's contract modes, LoRA's
+    B, FacT's G / C) and CaRA's biases with seeded ``N(0, std)`` noise so
+    the adapter's delta is nonzero (a freshly initialized adapter is the
+    identity, which would hide a wrong delta path).  Nested trees are
+    walked in key order.  Returns a new tree; other leaves are shared."""
     rng = np.random.default_rng(seed)
-    out = dict(cara_params)
-    for name, val in cara_params.items():
-        arr = np.asarray(val)
-        if name.startswith("bias") or not arr.any():
-            out[name] = (std * rng.standard_normal(arr.shape)).astype(
-                arr.dtype)
-    return out
+
+    def walk(tree):
+        out = dict(tree)
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                out[name] = walk(val)
+                continue
+            arr = np.asarray(val)
+            if name.startswith("bias") or not arr.any():
+                out[name] = (std * rng.standard_normal(arr.shape)).astype(
+                    arr.dtype)
+        return out
+
+    return walk(cara_params)

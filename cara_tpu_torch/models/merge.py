@@ -1,9 +1,11 @@
-"""Merged-weight serving: fold the CP deltas into the dense backbone (port
-of ``cara_tpu/models/merge.py``, CaRA trees only).
+"""Merged-weight serving: fold the adapter deltas into the dense backbone
+(port of ``cara_tpu/models/merge.py``: CaRA, LoRA and FacT trees).
 
-In eval the delta is exactly linear, so per layer:
+In eval the delta is exactly linear, so per layer, for CaRA:
 ``qkv += s*T_qkv``, ``proj += s*T_proj.T`` (+ ``s*bias1``),
-``fc1 += s*T_up.T`` (+ ``s*bias2``), ``fc2 += s*T_down`` (+ ``s*bias3``).
+``fc1 += s*T_up.T`` (+ ``s*bias2``), ``fc2 += s*T_down`` (+ ``s*bias3``);
+for LoRA ``W_site += s * A @ B`` (``lora.merge_lora``), and FacT expands
+to LoRA first (``fact.merge_fact``).
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ from typing import Any, Dict
 
 import torch
 
-from cara_tpu_torch.config import CaraConfig, ViTConfig
+from cara_tpu_torch.config import FACT_METHODS, CaraConfig, ViTConfig
 from cara_tpu_torch.models import cara as cara_lib
+from cara_tpu_torch.models import fact as fact_lib
+from cara_tpu_torch.models import lora as lora_lib
 from cara_tpu_torch.ops import cp as cp_ops
 
 
@@ -39,12 +43,19 @@ def _qkv_tensor(params, f1, model: ViTConfig, cara: CaraConfig):
 
 def merge_cara(params: Dict[str, Any], cara_params: Dict[str, Any],
                model: ViTConfig, cara: CaraConfig) -> Dict[str, Any]:
-    """Return a new backbone tree with the CaRA adapter folded in.  The
-    fold runs in the backbone's dtype on its device."""
+    """Return a new backbone tree with the adapter folded in, dispatched
+    on the family as JAX's (``merge.py:56-92``): FacT trees (the method or
+    the U/V factor shape) through ``fact.merge_fact``, LoRA trees through
+    ``lora.merge_lora``, CaRA's here.  The fold runs in the backbone's
+    dtype on its device."""
+    if cara.method in FACT_METHODS or fact_lib.is_fact_params(cara_params):
+        return fact_lib.merge_fact(params, cara_params, model, cara)
+    if cara.method == "lora" or lora_lib.is_lora_params(cara_params):
+        return lora_lib.merge_lora(params, cara_params, model, cara)
     if cara.method != "cara" or "A1" not in cara_params:
         raise NotImplementedError(
             f"merge for method={cara.method!r} is not yet ported to "
-            "cara_tpu_torch (CaRA factor trees only)")
+            "cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
     if cara.moe:
         raise ValueError("MoE adapters cannot be merged (per-token routing)")
     e, mr, n_layers = model.embed_dim, model.mlp_ratio, model.depth

@@ -1,5 +1,6 @@
-"""Forward of the Vision Transformer with optional CaRA adapters (port of
-``cara_tpu/models/vit.py``): eval, and the training forward of the
+"""Forward of the Vision Transformer with optional CaRA, LoRA or FacT
+adapters (port of ``cara_tpu/models/vit.py``): eval, and the training
+forward of the
 element-wise, rank, row and no weight-dropout routes and of the backbone
 without an adapter, with drop-path, activation dropout
 (``cfg.dropout_rate``) and attention dropout (``cfg.attn_dropout_rate``).
@@ -69,6 +70,7 @@ takes them from ``randomness``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 from typing import Any, Dict, Optional
@@ -76,8 +78,11 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils.checkpoint as checkpoint_lib
 
-from cara_tpu_torch.config import CaraConfig, ViTConfig
+from cara_tpu_torch.config import (ADAPTER_METHODS, FACT_METHODS,
+                                   LORA_FAMILY, CaraConfig, ViTConfig)
 from cara_tpu_torch.models import cara as cara_lib
+from cara_tpu_torch.models import fact as fact_lib
+from cara_tpu_torch.models import lora as lora_lib
 from cara_tpu_torch.models.quant import is_quantized
 from cara_tpu_torch.ops import cp as cp_ops
 from cara_tpu_torch.ops.cp import weight_dropout_mask
@@ -223,7 +228,11 @@ def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
     the materialized delta, and at CP order 2 on every route but the row
     one (order 2 always materializes its qkv delta); ``proj`` / ``fc1`` /
     ``fc2`` under ``dense_impl="xla"`` on the element route and with the
-    materialized delta."""
+    materialized delta.  The dense masks take the layout of the method's
+    delta: CaRA's tensors, qkv (3, E, E), proj (E, E), fc1 and fc2 (hid,
+    E); LoRA's and FacT's (in, out) products ``A @ B``, qkv (E, 3E), proj
+    (E, E), fc1 (E, hid), fc2 (hid, E)
+    (``cara_tpu/models/lora.py:141-142``)."""
     e, h, n, hid = cfg.embed_dim, cfg.num_heads, cfg.seq_len, cfg.hidden_dim
     out = {}
     if cfg.dropout_rate > 0.0:
@@ -235,13 +244,17 @@ def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
         return out
     impl = cara_cfg.weight_dropout_impl
     dense = materialized_delta(cara_cfg) or impl == "element"
+    lora = cara_cfg.method in LORA_FAMILY
+    shapes = (lora_lib.element_mask_shapes(cfg) if lora else
+              {"qkv": (3, e, e), "proj": (e, e), "fc1": (hid, e),
+               "fc2": (hid, e)})
+    order2 = not lora and cara_cfg.cp_order == 2
     fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
     if dense_impl == "xla" or not fused_attn:
-        if dense or (cara_cfg.cp_order == 2 and impl != "row"):
-            out["qkv"] = ((3, e, e), "weight")
+        if dense or (order2 and impl != "row"):
+            out["qkv"] = (shapes["qkv"], "weight")
     if dense_impl == "xla" and dense:
-        out.update(proj=((e, e), "weight"), fc1=((hid, e), "weight"),
-                   fc2=((hid, e), "weight"))
+        out.update({k: (shapes[k], "weight") for k in ("proj", "fc1", "fc2")})
     return out
 
 
@@ -273,7 +286,10 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     ("fused", "flash" or "xla") and ``dense_impl`` ("fused" or "xla")
     pick the forms as the TPU's ``_block`` does.  ``scale`` (a 0-d
     tensor in ``x.dtype``, or None for ``cara_cfg.scale``) is the delta
-    scale."""
+    scale.  ``f1`` / ``p1`` are this layer's CaRA row slices (A1, P1) or,
+    for LoRA, its qkv pair and its {proj, fc1, fc2} pairs; each site's
+    (U, V) comes from ``adapter_uv`` (JAX's ``_adapter_uv``), and LoRA's
+    adapter biases are zeros."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -283,6 +299,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     # and the attention megakernel give way to the blockwise attention.
     long = n > fqa_mod.MAX_NP_FULL_SCORES
     use_cara = cara_params is not None
+    lora = use_cara and cara_cfg.method == "lora"
     rate = cara_cfg.weight_dropout if use_cara else 0.0
     # The materialized delta (and CP order 2, whose dense forms
     # ``resolve_impls`` pins) draws its element masks in ``masks``.
@@ -347,22 +364,51 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         def fold(t):  # the delta scale rides the factors; kernels at s=1
             return (t * s).to(dt).contiguous()
 
-        def site_uv(site, uv_fn, *args):
-            """The site's (U, V), rank mask on lambda, row mask on U."""
-            u, v = uv_fn(*args, site_comp(site))
+        if lora:  # LoRA's per-layer pairs are the (U, V) form already
+            def adapter_uv(site, comp):
+                sp = f1 if site == 0 else p1[lora_lib.SITES[site]]
+                return lora_lib.site_uv(sp, comp)
+
+            cb_proj, cb_down = x.new_zeros((e,)), x.new_zeros((e,))
+            cb_up = x.new_zeros((cfg.hidden_dim,))
+        else:
+            p2, p3, r2 = (cara_params["P2"], cara_params["P3"],
+                          cara_params["R2"])
+            p1_up, p1_down = p1[1:1 + mr], p1[1 + mr:1 + 2 * mr]
+
+            def adapter_uv(site, comp):
+                if site == 0:
+                    return cara_lib.qkv_uv(cara_params, f1, cfg, cara_cfg,
+                                           comp)
+                if site == 3:
+                    return cara_lib.rows_in_uv(p1_down, p2, p3, r2, comp)
+                return cara_lib.rows_out_uv(p1[0:1] if site == 1 else p1_up,
+                                            p2, p3, r2, comp)
+
+            cb_proj, cb_up, cb_down = (cara_params["bias1"],
+                                       cara_params["bias2"],
+                                       cara_params["bias3"])
+
+        def site_uv(site):
+            """The site's (U, V), rank mask on V, row mask on U."""
+            u, v = adapter_uv(site, site_comp(site))
             if rows is not None:
                 u = u * rows[site][:, None]
             return u.to(dt).contiguous(), fold(v)
 
-        p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
-        p1_up, p1_down = p1[1:1 + mr], p1[1 + mr:1 + 2 * mr]
+        def lora_delta(t, site):
+            """LoRA's XLA delta of ``site`` on ``t``, unscaled."""
+            name = lora_lib.SITES[site]
+            return lora_lib.delta(
+                row_x(t, site), f1 if site == 0 else p1[name],
+                element=use_elem or materialized, drop_mask=wmask(name),
+                comp_mask=site_comp(site))
     if fused_dense:  # the kernels' collapsed (U, V) pairs
-        u1, v1 = site_uv(0, cara_lib.qkv_uv, cara_params, f1, cfg, cara_cfg)
-        u2, v2 = site_uv(1, cara_lib.rows_out_uv, p1[0:1], p2, p3, r2)
-        cb_proj = fold(cara_params["bias1"])
+        u1, v1 = site_uv(0)
+        u2, v2 = site_uv(1)
         attn_args = (x, bp["qkv"]["kernel"], bp["qkv"]["bias"], u1, v1,
                      bp["proj"]["kernel"], bp["proj"]["bias"], u2, v2,
-                     cb_proj, bp["ln1_scale"], bp["ln1_bias"])
+                     fold(cb_proj), bp["ln1_scale"], bp["ln1_bias"])
     elif attn_mega:  # the megakernel without an adapter: zero factors
         zero = x.new_zeros
         attn_args = (x, bp["qkv"]["kernel"], bp["qkv"]["bias"],
@@ -397,11 +443,14 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
             xa = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"],
                             cfg.layernorm_eps)
             qkv = _dense(xa, bp["qkv"], impl)
-            if use_cara:
+            if lora:
+                delta = lora_delta(xa, 0)
+            elif use_cara:
                 delta = cara_lib.qkv_delta(
                     row_x(xa, 0), cara_params, f1, cfg, cara_cfg,
                     materialized=use_elem or materialized,
                     drop_mask=wmask("qkv"), comp_mask=site_comp(0))
+            if use_cara:
                 qkv = qkv + delta.reshape(b, n, 3 * e).to(dt) * s
         if attn_proj:  # the attention output stays in the kernel
             proj = fqa_mod.fused_qkv_attention_proj(
@@ -430,24 +479,27 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                                           impl=impl)
             else:
                 proj = _dense(attn_out, bp["proj"], impl)
-                if use_elem or materialized:
-                    pd = cp_ops.rows_delta_out_materialized(
-                        attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
+                if lora:  # no adapter bias
+                    proj = proj + lora_delta(attn_out, 1) * s
                 elif use_cara:
-                    pd = cp_ops.rows_delta_out_factorized(
-                        row_x(attn_out, 1), p1[0:1], p2, p3, r2, site_comp(1))
-                if use_cara:
-                    proj = proj + (pd + cara_params["bias1"]) * s
+                    if use_elem or materialized:
+                        pd = cp_ops.rows_delta_out_materialized(
+                            attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
+                    else:
+                        pd = cp_ops.rows_delta_out_factorized(
+                            row_x(attn_out, 1), p1[0:1], p2, p3, r2,
+                            site_comp(1))
+                    proj = proj + (pd + cb_proj) * s
         x = branch(proj, 0, "do1")
 
     # --- MLP (vit.py:835-1087) ---
     if fused_dense:
-        u3, v3 = site_uv(2, cara_lib.rows_out_uv, p1_up, p2, p3, r2)
-        u4, v4 = site_uv(3, cara_lib.rows_in_uv, p1_down, p2, p3, r2)
+        u3, v3 = site_uv(2)
+        u4, v4 = site_uv(3)
         fc_args = (bp["fc1"]["kernel"], bp["fc1"]["bias"], u3, v3,
-                   fold(cara_params["bias2"]))
+                   fold(cb_up))
         fc2_args = (bp["fc2"]["kernel"], bp["fc2"]["bias"], u4, v4,
-                    fold(cara_params["bias3"]))
+                    fold(cb_down))
     elif mlp_mega:  # the megakernel without an adapter: zero factors
         hid = cfg.hidden_dim
         zero = x.new_zeros
@@ -476,14 +528,16 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     else:
         xm = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.layernorm_eps)
         up = _dense(xm, bp["fc1"], impl)
-        if use_elem or materialized:
-            ud = cp_ops.rows_delta_out_materialized(xm, p1_up, p2, p3, r2,
-                                                    wmask("fc1"))
+        if lora:
+            up = up + lora_delta(xm, 2) * s
         elif use_cara:
-            ud = cp_ops.rows_delta_out_factorized(
-                row_x(xm, 2), p1_up, p2, p3, r2, site_comp(2))
-        if use_cara:
-            up = up + (ud + cara_params["bias2"]) * s
+            if use_elem or materialized:
+                ud = cp_ops.rows_delta_out_materialized(
+                    xm, p1_up, p2, p3, r2, wmask("fc1"))
+            else:
+                ud = cp_ops.rows_delta_out_factorized(
+                    row_x(xm, 2), p1_up, p2, p3, r2, site_comp(2))
+            up = up + (ud + cb_up) * s
         hidden = activation(up, cfg.activation)
     if train and cfg.dropout_rate > 0.0:
         hidden = dropout(hidden, cfg.dropout_rate, masks["do2"])
@@ -494,14 +548,16 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         down = dense_mod.cp_dense(hidden, *fc2_args, 1.0, impl=impl)
     else:
         down = _dense(hidden, bp["fc2"], impl)
-        if use_elem or materialized:
-            dd = cp_ops.rows_delta_in_materialized(hidden, p1_down, p2, p3,
-                                                   r2, wmask("fc2"))
+        if lora:
+            down = down + lora_delta(hidden, 3) * s
         elif use_cara:
-            dd = cp_ops.rows_delta_in_factorized(
-                row_x(hidden, 3), p1_down, p2, p3, r2, site_comp(3))
-        if use_cara:
-            down = down + (dd + cara_params["bias3"]) * s
+            if use_elem or materialized:
+                dd = cp_ops.rows_delta_in_materialized(
+                    hidden, p1_down, p2, p3, r2, wmask("fc2"))
+            else:
+                dd = cp_ops.rows_delta_in_factorized(
+                    row_x(hidden, 3), p1_down, p2, p3, r2, site_comp(3))
+            down = down + (dd + cb_down) * s
     return branch(down, 1, "do3")
 
 
@@ -511,7 +567,7 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     an adapter (the linear probe and full fine-tuning)."""
     if cara_cfg is None:
         return
-    if cara_cfg.method != "cara" or cara_cfg.moe:
+    if cara_cfg.method not in ADAPTER_METHODS or cara_cfg.moe:
         raise NotImplementedError(
             f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
             "not yet ported (ROADMAP.md queue 1: the PEFT zoo)")
@@ -606,12 +662,12 @@ def resolve_impls(attn_impl: str, dense_impl: str,
         raise ValueError(f"dense_impl must be one of {DENSE_IMPLS}, got "
                          f"{dense_impl!r}")
     method = None if cara_cfg is None else cara_cfg.method
+    adapter = method in ADAPTER_METHODS
     attn_impl = "fused" if attn_impl == "auto" else attn_impl
-    if method == "cara" and (cara_cfg.cp_order == 2
-                             or materialized_delta(cara_cfg)):
+    if adapter and (cara_cfg.cp_order == 2 or materialized_delta(cara_cfg)):
         dense_impl = "xla"
     if dense_impl == "auto":
-        dense_impl = "fused" if method == "cara" and not quantized else "xla"
+        dense_impl = "fused" if adapter and not quantized else "xla"
     if quantized and dense_impl == "fused":
         raise ValueError(
             "int8-quantized weights require dense_impl='xla': the fused "
@@ -661,11 +717,37 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     ``cara_cfg.scale``, cast to the compute dtype as JAX casts it; it
     rides the collapsed factors (``v * s``, ``cb * s``), so one set of
     kernel calls at scale 1 serves every per-task scale
-    (``serving.MultiTaskPredictor``)."""
+    (``serving.MultiTaskPredictor``).
+
+    LoRA (``method="lora"``) takes its per-site tree; FacT (``"fact_tt"``,
+    ``"fact_tk"``) is expanded into that tree first, under autograd
+    (``fact.expand_to_lora``, ``vit.py:1196-1211``), and runs as LoRA."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if cara_cfg is not None:
+        if cara_cfg.method not in ADAPTER_METHODS or cara_cfg.moe:
+            raise NotImplementedError(
+                f"method={cara_cfg.method!r} (moe={cara_cfg.moe}) is not yet "
+                "ported to cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
+        if cara_cfg.method in FACT_METHODS:
+            if not fact_lib.is_fact_params(cara_params):
+                raise ValueError(
+                    f"cara_cfg.method={cara_cfg.method!r} wants the shared "
+                    "factor tree of models.fact.init_fact_params (U/V + G "
+                    f"or P/C); got keys {sorted(cara_params)}")
+            cara_params = fact_lib.expand_to_lora(cara_params, cfg, cara_cfg)
+            cara_cfg = dataclasses.replace(cara_cfg, method="lora")
+        if cara_cfg.method == "lora":
+            if not lora_lib.is_lora_params(cara_params):
+                raise ValueError(
+                    "cara_cfg.method='lora' wants the per-site {a, b} tree "
+                    "of models.lora.init_lora_params; got keys "
+                    f"{sorted(cara_params)}")
+        elif not isinstance(cara_params, dict) or "A1" not in cara_params:
+            raise ValueError("cara_cfg.method='cara' wants the CP factor tree "
+                             "(A1..., P1-P3, R1/R2, bias1-3)")
     attn_impl, dense_impl = resolve_impls(
         attn_impl, dense_impl, cara_cfg,
         quantized=is_quantized(params["blocks"]["qkv"]["kernel"]))
@@ -674,14 +756,6 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
         if randomness is None:
             randomness = draw_randomness(cfg, x.shape[0], x.device,
                                          generator, x.dtype, cara_cfg)
-    if cara_cfg is not None:
-        if cara_cfg.method != "cara" or cara_cfg.moe:
-            raise NotImplementedError(
-                f"method={cara_cfg.method!r} (moe={cara_cfg.moe}) is not yet "
-                "ported to cara_tpu_torch; CaRA adapters only")
-        if not isinstance(cara_params, dict) or "A1" not in cara_params:
-            raise ValueError("cara_cfg.method='cara' wants the CP factor tree "
-                             "(A1..., P1-P3, R1/R2, bias1-3)")
     tokens = patch_embed(params, x, cfg)
     if cfg.use_cls_token:
         cls = params["cls"].to(tokens.dtype).expand(tokens.shape[0], 1, -1)
@@ -691,7 +765,11 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
         tokens = layer_norm(tokens, params["ln_pre"]["scale"],
                             params["ln_pre"]["bias"], cfg.layernorm_eps)
     a1 = p1 = None
-    if cara_params is not None:
+    if cara_params is not None and cara_cfg.method == "lora":
+        # LoRA's layer stacks, one unbind a leaf (see ``_unstack``)
+        qkv_stack, rest = lora_lib.layer_stacks(cara_params)
+        a1, p1 = _unstack(qkv_stack, cfg.depth), _unstack(rest, cfg.depth)
+    elif cara_params is not None:
         a1, p1 = cara_lib.stacked_layer_slices(cara_params, cfg, cara_cfg)
     blocks = _unstack(params["blocks"], cfg.depth)
     if scale_override is not None:

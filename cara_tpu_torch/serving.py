@@ -14,11 +14,12 @@ an unmerged adapter's delta adds on top.  With ``CARA_INT8_PALLAS=1`` in
 the environment (read at each forward) the weight-only GEMMs on the card
 run the dequant-fused int8 kernel (TPU row 18).
 
-:class:`MultiTaskPredictor` serves T CaRA task adapters over one shared
-frozen backbone: the tasks' factor trees and zero-padded heads are
-stacked on the device and a task is picked by index, its delta scale
-riding the collapsed factors (``vit_forward(scale_override=...)``), so
-every task runs the same kernel calls.  The StableHLO export
+:class:`MultiTaskPredictor` serves T task adapters of one family (CaRA,
+LoRA or FacT) over one shared frozen backbone: the tasks' factor trees
+and zero-padded heads are stacked on the device and a task is picked by
+index, its delta scale riding the collapsed factors
+(``vit_forward(scale_override=...)``), so every task runs the same kernel
+calls.  The StableHLO export
 (``ExportedPredictor``) and ToMe stay in ``cara_tpu`` for now (ROADMAP.md
 queue 1: the PEFT zoo).
 """
@@ -31,6 +32,8 @@ import numpy as np
 import torch
 
 from cara_tpu_torch.config import CaraConfig, ViTConfig
+from cara_tpu_torch.models import fact as fact_lib
+from cara_tpu_torch.models import lora as lora_lib
 from cara_tpu_torch.models.convert import map_floating, params_from_numpy
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models.quant import (
@@ -87,7 +90,8 @@ def _resolve_buckets(buckets, batch_size: int) -> tuple:
 
 
 class Predictor:
-    """Batched image classifier over a merged (or adapter) CaRA model."""
+    """Batched image classifier over a merged (or adapter) CaRA, LoRA or
+    FacT model."""
 
     def __init__(
         self,
@@ -208,6 +212,38 @@ class Predictor:
         return np.argmax(self.logits(images), axis=-1)
 
 
+def _family(tree) -> str:
+    """The adapter family of a factor tree, as JAX's group check names it:
+    "lora", "fact_tt" / "fact_tk" or "cara"; other trees raise."""
+    if lora_lib.is_lora_params(tree):
+        return "lora"
+    method = fact_lib.detect_method(tree)
+    if method is not None:
+        return method
+    if "A1" in tree and "R1" in tree:
+        return "cara"
+    raise NotImplementedError(
+        f"multi-task groups of adapter trees with keys {sorted(tree)} (VPT, "
+        "SSF, BitFit, bottleneck adapters) are not yet ported to "
+        f"cara_tpu_torch ({_PEFT}); CaRA, LoRA and FacT trees only")
+
+
+def _stack_trees(trees, to_dev):
+    """One tree whose leaves stack the tasks' leaves on a new leading
+    axis (nested trees walked key by key)."""
+    first = trees[0]
+    return {k: (_stack_trees([t[k] for t in trees], to_dev)
+                if isinstance(first[k], dict)
+                else torch.stack([to_dev(t[k]) for t in trees]))
+            for k in first}
+
+
+def _select(tree, tid: int):
+    """Task ``tid``'s tree of a stacked tree (views, no copy)."""
+    return {k: _select(v, tid) if isinstance(v, dict) else v[tid]
+            for k, v in tree.items()}
+
+
 class MultiTaskPredictor:
     """Serve T task adapters over ONE shared frozen backbone.
 
@@ -215,10 +251,11 @@ class MultiTaskPredictor:
     heads; a task is an index into the stacks (views, no copy), and its
     delta scale a 0-d tensor that ``vit_forward`` folds into the
     collapsed factors (``v * s``, ``cb * s``) with the kernels at scale
-    1, as ``cara_tpu``'s does (``vit.py:663-672``).  The adapters must
-    share the CP rank and order; they may differ in delta scale, head
-    width and class count (the heads are zero-padded to the widest and
-    the logits sliced back)."""
+    1, as ``cara_tpu``'s does (``vit.py:663-672``).  The adapters must be
+    of one family (CaRA, LoRA, FacT-TT or FacT-TK; ``serving.py:340-416``)
+    and share the rank, CaRA's CP order and FacT-TK's core rank; they may
+    differ in delta scale, head width and class count (the heads are
+    zero-padded to the widest and the logits sliced back)."""
 
     def __init__(self, params: Dict[str, Any], cfg: ViTConfig,
                  tasks: Dict[str, Dict[str, Any]], *, batch_size: int = 64,
@@ -240,19 +277,33 @@ class MultiTaskPredictor:
                 "MoE adapter checkpoints cannot join a multi-task group "
                 "(the group step stacks plain factor trees); serve them "
                 "with their own Predictor")
-        for t in tasks.values():
-            if "A1" not in t["cara"] or "R1" not in t["cara"]:
-                raise NotImplementedError(
-                    f"multi-task groups of adapter trees with keys "
-                    f"{sorted(t['cara'])} (LoRA, FacT, VPT, SSF, BitFit, "
-                    f"bottleneck adapters) are not yet ported to "
-                    f"cara_tpu_torch ({_PEFT}); CaRA factor trees only")
-        ranks = {int(np.shape(t["cara"]["R1"])[0]) for t in tasks.values()}
-        orders = {int(t.get("cp_order", 4)) for t in tasks.values()}
+        families = {_family(t["cara"]) for t in tasks.values()}
+        if len(families) > 1:
+            raise ValueError(
+                "cannot stack adapters of different families "
+                f"({sorted(families)}) in one multi-task group (the trees "
+                "differ in structure); serve each family in its own group")
+        method = families.pop()
+        trees = [t["cara"] for t in tasks.values()]
+        orders = {4}  # CaRA's alone
+        core_ranks = {0}  # FacT-TK's alone
+        if method == "lora":
+            ranks = {int(np.shape(c["qkv"]["a"])[-1]) for c in trees}
+        elif method in ("fact_tt", "fact_tk"):
+            ranks = {int(np.shape(c["U"])[-1]) for c in trees}
+            if method == "fact_tk":
+                core_ranks = {int(np.shape(c["C"])[0]) for c in trees}
+        else:
+            ranks = {int(np.shape(c["R1"])[0]) for c in trees}
+            orders = {int(t.get("cp_order", 4)) for t in tasks.values()}
         if len(ranks) != 1 or len(orders) != 1:
             raise ValueError(
                 f"adapters must share CP rank/order to stack; got ranks="
                 f"{sorted(ranks)} orders={sorted(orders)}")
+        if len(core_ranks) != 1:
+            raise ValueError(
+                "FacT-TK adapters must share the core rank to stack; got "
+                f"{sorted(core_ranks)}")
         self.device = torch.device(device)
         self.names = list(tasks)
         self._tid = {n: i for i, n in enumerate(self.names)}
@@ -272,9 +323,7 @@ class MultiTaskPredictor:
         heads = [t["head"] for t in tasks.values()]
         self._hk = torch.stack([padded(h["kernel"], cmax) for h in heads])
         self._hb = torch.stack([padded(h["bias"], cmax) for h in heads])
-        self._cara = {k: torch.stack([to_dev(t["cara"][k])
-                                      for t in tasks.values()])
-                      for k in next(iter(tasks.values()))["cara"]}
+        self._cara = _stack_trees(trees, to_dev)
         self._scales = torch.tensor([float(t["scale"])
                                      for t in tasks.values()],
                                     dtype=torch.float32, device=self.device)
@@ -288,8 +337,10 @@ class MultiTaskPredictor:
         self._base = map_floating(base, lambda t: t.to(dtype))
         self.quantize = quantize
         self.cfg = dataclasses.replace(cfg, num_classes=cmax)
-        self._cara_cfg = CaraConfig(rank=ranks.pop(), scale=1.0,
-                                    cp_order=orders.pop())
+        self._cara_cfg = CaraConfig(
+            method=method, rank=ranks.pop(), scale=1.0,
+            cp_order=orders.pop(), fact_core_rank=core_ranks.pop(),
+            weight_dropout=0.1 if method == "cara" else 0.0)
         self.batch_size = batch_size
         self.buckets = _resolve_buckets(buckets, batch_size)
         self._dtype = dtype
@@ -353,7 +404,7 @@ class MultiTaskPredictor:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
                 self.device, self._dtype, non_blocking=True)
-            cara = {k: v[tid] for k, v in self._cara.items()}
+            cara = _select(self._cara, tid)
             p = dict(self._base, head={"kernel": self._hk[tid],
                                        "bias": self._hb[tid]})
             return vit_forward(p, x, self.cfg, cara_params=cara,

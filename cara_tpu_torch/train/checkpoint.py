@@ -34,7 +34,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from cara_tpu_torch.config import CaraConfig
+from cara_tpu_torch.config import FACT_METHODS, CaraConfig
+from cara_tpu_torch.models import fact as fact_lib
+from cara_tpu_torch.models import lora as lora_lib
 from cara_tpu_torch.train.steps import (adam_moments, train_state_from_numpy,
                                         tree_leaves)
 
@@ -139,15 +141,26 @@ def load_adapter(path: str) -> Tuple[Dict, Optional[Dict], Dict]:
 
 
 def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
-    """Rebuild the :class:`CaraConfig` of a loaded CaRA factor tree from
-    the artifact meta.  Raises when the delta scale is neither recorded
-    nor given (per-task scales span 0.1-100; a silent 1.0 would mis-apply
-    the adapter).  Other adapter families are not yet ported."""
-    method = str(meta.get("method", "") or "cara")
-    if method != "cara" or "R1" not in cara_params:
+    """Rebuild the :class:`CaraConfig` of a loaded adapter tree from the
+    artifact meta (``cara_tpu/train/checkpoint.py:170-197``): the method
+    from the meta's ``method`` or the tree's shape (FacT's U/V factors,
+    LoRA's per-site {a, b} pairs, CaRA's CP factors), the rank (and
+    FacT-TK's core rank) from the tree, the dropout rate and impl from the
+    meta.  Raises when the delta scale is neither recorded nor given
+    (per-task scales span 0.1-100; a silent 1.0 would mis-apply the
+    adapter).  Other adapter families are not yet ported."""
+    meta_method = str(meta.get("method", "") or "")
+    fact = (meta_method in FACT_METHODS
+            or fact_lib.detect_method(cara_params) is not None)
+    lora = meta_method == "lora" or (
+        not fact and lora_lib.is_lora_params(cara_params))
+    cara = (meta_method in ("", "cara") and not fact and not lora
+            and "R1" in cara_params)
+    if not (fact or lora or cara):
         raise NotImplementedError(
-            f"adapter method {method!r} (keys {sorted(cara_params)}) is not "
-            "yet ported to cara_tpu_torch; CaRA factor trees only")
+            f"adapter method {meta_method or '?'!r} (keys "
+            f"{sorted(cara_params)}) is not yet ported to cara_tpu_torch "
+            "(ROADMAP.md queue 1: the PEFT zoo)")
     if scale is None:
         if "scale" not in meta:
             raise ValueError(
@@ -155,6 +168,19 @@ def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
                 "refusing to default to 1.0 (a wrong scale silently "
                 "mis-applies the adapter)")
         scale = float(meta["scale"])
+    if fact or lora:
+        kw = dict(weight_dropout=float(meta.get("weight_dropout", 0.0)),
+                  weight_dropout_impl=str(
+                      meta.get("weight_dropout_impl", "element")))
+        if fact:
+            return CaraConfig(
+                method=meta_method or fact_lib.detect_method(cara_params),
+                scale=scale, rank=int(np.shape(cara_params["U"])[-1]),
+                fact_core_rank=(int(np.shape(cara_params["C"])[0])
+                                if "C" in cara_params else 0), **kw)
+        return CaraConfig(method="lora", scale=scale,
+                          rank=int(np.shape(cara_params["qkv"]["a"])[-1]),
+                          **kw)
     return CaraConfig(
         rank=int(np.shape(cara_params["R1"])[-1]), scale=scale,
         cp_order=int(cp_order if cp_order is not None

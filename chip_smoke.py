@@ -258,7 +258,22 @@ fatal on failure:
    exports merged to the npz's merged arrays bit for bit; a
    HuggingFace-layout CLIP ViT-L/14 state dict written from seed at full
    width and depth, built through ``api.build_model(backbone_path=
-   X.bin)``: every array equal, merged serving within 5 % of fp32 plain.
+   X.bin)``: every array equal, merged serving within 5 % of fp32 plain;
+20. LoRA and FacT (``peft_phase``, after the rank-128 phase): ViT-B/16 at
+   full width and depth, rank 8, scale 10, batch 64, bf16, each method's
+   zero factor perturbed from a seed (``PEFT_STD``); for LoRA, FacT-TT
+   and FacT-TK the element route (weight dropout 0.1) and the rate-0
+   route through the CaRA sites' kernels: the gradient check as in 5 on
+   16 images (LoRA and TK on the element route, TT on rate 0), six steps
+   on one batch (a falling loss, ms a step), the launches of rows 1, 2,
+   5 and 7-14 over the steps printed as differences; each route's
+   methods and CaRA rank 8 timed in turns, with the profiler's device
+   time a step; LoRA and FacT-TK served unmerged and merged (each
+   within 5 % of fp32 plain, img/s); two LoRA tasks at scales 2 and 8
+   through ``MultiTaskPredictor``, each task against its single-task
+   ``Predictor``; ``cli.vit_cp --method fact_tk --fact-core-rank 4`` at
+   4 layers in a child, its checkpoint exported by ``cli.export --mode
+   merged`` and served against the unmerged one.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -315,7 +330,8 @@ from cara_tpu_torch.cli import dim_experiment as dim_cli
 from cara_tpu_torch.cli import export as export_cli
 from cara_tpu_torch.cli import predict as predict_cli
 from cara_tpu_torch.cli import vit_cp as vit_cp_cli
-from cara_tpu_torch.config import NO_ADAPTER, CaraConfig, get_model_config
+from cara_tpu_torch.config import (LORA_FAMILY, NO_ADAPTER, CaraConfig,
+                                   get_model_config)
 from cara_tpu_torch.data.vtab import load_image_u8, normalize
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import convert
@@ -897,6 +913,26 @@ TRAIN_GRAD_REL_L2 = 5e-2
 NOISE_DRAWS = 8
 NOISE_STD = 1e-3
 DROP_RATE = 0.1
+# LoRA and FacT (PR 22): the methods, the std of the seeded noise in each
+# one's zero factor (LoRA's B, TT's G, TK's C; at PEFT_SCALE the ViT-B qkv
+# delta is then about a fifth of the backbone's product on LN'd input,
+# CaRA's perturbation in size), the delta scale, FacT-TK's core rank, the
+# route of each method's gradient check (both kernel families held), and
+# the counters of the TPU rows the phase's steps launch.
+PEFT_METHODS = ("lora", "fact_tt", "fact_tk")
+PEFT_STD = {"lora": 0.006, "fact_tt": 0.12, "fact_tk": 0.5}
+PEFT_SCALE = 10.0
+PEFT_CORE_RANK = 4
+PEFT_GRAD_ROUTE = {"lora": "element", "fact_tt": "rate0",
+                   "fact_tk": "element"}
+PEFT_ROWS = (("1", "fused_qkv_attention"), ("2", "fused_qkv_attention_bwd"),
+             ("5", "cp_attn_block"), ("7", "cp_attn_block_wd"),
+             ("8", "cp_attn_block_wd_bwd_saved"), ("9", "cp_mlp_block"),
+             ("10", "cp_mlp_block_bwd_saved"),
+             ("11", "cp_mlp_block_wd_bwd_saved"), ("12", "cp_dense_dx"),
+             ("13", "cp_dense"), ("14", "build_wd_weight"))
+PEFT_PATHS = {"element": TRAINING_KERNELS + ("cp_mlp_block",),
+              "rate0": SPLIT_KERNELS}
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 # cores and HBM3.  A kernel's bound is the larger of its work over each.
 PEAK_FLOPS = 989e12
@@ -2596,10 +2632,13 @@ def read_launches(names) -> dict:
 
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
                 batch=64, seed=0, impl="element", method="cara", lr=1e-3,
-                cp_order=4, delta_impl="factorized", **overrides):
-    """Seeded ViT + perturbed CaRA adapter (weight dropout 0.1 of the
-    ``impl`` kind, CP order ``cp_order``, the ``delta_impl`` form, the
-    model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
+                cp_order=4, delta_impl="factorized", fact_core_rank=0,
+                **overrides):
+    """Seeded ViT + perturbed adapter (weight dropout 0.1 of the ``impl``
+    kind, or none for ``impl="rate0"``; CaRA at CP order ``cp_order`` in
+    the ``delta_impl`` form, or ``method`` "lora", "fact_tt" / "fact_tk"
+    (core rank ``fact_core_rank``) with its zero factor perturbed by
+    ``PEFT_STD``; the model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
     state, one fixed device batch of normalized images); ``overrides``
     change the model's config.  ``method`` "linear" or "full" trains
     without an adapter; the backbone is then rounded to bf16 values
@@ -2608,9 +2647,18 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
     path computes with)."""
     cfg = get_model_config(model, num_classes=num_classes, **overrides)
     params = init_backbone(cfg, seed)
-    if method == "cara":
+    rate = 0.0 if impl == "rate0" else DROP_RATE
+    impl = "element" if impl == "rate0" else impl
+    if method in LORA_FAMILY:
+        cara_cfg = CaraConfig(method=method, rank=rank, scale=scale,
+                              weight_dropout=rate, weight_dropout_impl=impl,
+                              fact_core_rank=fact_core_rank)
+        cara = convert.perturb_adapter(
+            convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2,
+            std=PEFT_STD[method])
+    elif method == "cara":
         cara_cfg = CaraConfig(rank=rank, scale=scale,
-                              weight_dropout=DROP_RATE,
+                              weight_dropout=rate,
                               weight_dropout_impl=impl, cp_order=cp_order,
                               delta_impl=delta_impl)
         cara = convert.perturb_adapter(
@@ -2776,11 +2824,12 @@ def _worst(errs: dict) -> str:
 
 
 def _route(cara_cfg) -> str:
-    if cara_cfg.method != "cara":
+    if cara_cfg.method in NO_ADAPTER:
         return cara_cfg.method
-    if cara_cfg.weight_dropout <= 0.0:
-        return "rate0"
-    return cara_cfg.weight_dropout_impl
+    route = ("rate0" if cara_cfg.weight_dropout <= 0.0
+             else cara_cfg.weight_dropout_impl)
+    return route if cara_cfg.method == "cara" else (
+        f"{cara_cfg.method}:{route}")
 
 
 def fixed_batch_steps(cfg, cara_cfg, frozen, state, data, generator, steps,
@@ -4674,10 +4723,10 @@ def multitask_reference(pred, images, task, chunk=32):
     return np.concatenate(outs)[:, :pred._num_classes[task]]
 
 
-def _logit_check(tag, got, ref) -> None:
+def _logit_check(tag, got, ref, against="fp32 plain") -> None:
     err = float(np.abs(got - ref).max())
     tol = LOGIT_RTOL * float(np.abs(ref).max())
-    print(f"[{tag}] max|logits - fp32 plain| {err:.4e}, tolerance "
+    print(f"[{tag}] max|logits - {against}| {err:.4e}, tolerance "
           f"{tol:.4e} ({LOGIT_RTOL} x max|ref|)", flush=True)
     require(bool(np.isfinite(got).all()), f"{tag}: non-finite logits")
     require(err <= tol, f"{tag}: logits disagree with the plain path")
@@ -5094,11 +5143,13 @@ def _rank_launches(total, tag) -> None:
 
 
 def _device_ms_per_step(cfg, cara_cfg, frozen, state, data, generator,
-                        steps=2, tag=None, top=5) -> float:
+                        steps=2, tag=None, top=5, native=False):
     """The kernels' device time a train step on one batch (one step
     unprofiled, then ``steps`` under ``torch.profiler``), summed over
     every CUDA kernel the profiler records; with ``tag`` the ``top``
-    kernels by device time are printed."""
+    kernels by device time are printed.  ``native``: return (total, the
+    share of PyTorch's own ``at::native`` kernels: elementwise ops,
+    reductions, copies)."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn = steps_lib.make_train_step(cfg, cara_cfg,
@@ -5118,12 +5169,15 @@ def _device_ms_per_step(cfg, cara_cfg, frozen, state, data, generator,
     if tag:
         for ms, name in rows[:top]:
             print(f"{tag} {ms:8.3f} ms a step  {name[:90]}", flush=True)
-    return sum(ms for ms, _ in rows)
+    total = sum(ms for ms, _ in rows)
+    if native:
+        return total, sum(ms for ms, name in rows if "at::native" in name)
+    return total
 
 
-def ranks_phase(dev, rank=RANK_WIDE, base_rank=8, batch=64, grad_batch=16,
-                steps=6, switch_steps=2, rounds=2, turn_steps=3,
-                cli_rank=96, cli_depth=4, timed=True) -> dict:
+def ranks_phase(dev, rank=RANK_WIDE, batch=64, grad_batch=16,
+                steps=6, switch_steps=2, cli_rank=96, cli_depth=4,
+                timed=True) -> dict:
     """Past rank 64: ViT-B/16 at full width and depth, rank ``rank``,
     scale 10, batch ``batch``, bf16.  (a) The element and rank routes:
     one step's gradients of every leaf on ``grad_batch`` images against
@@ -5133,17 +5187,15 @@ def ranks_phase(dev, rank=RANK_WIDE, base_rank=8, batch=64, grad_batch=16,
     spread; peak memory), each kernel of the route launched.  (b) The
     rank route under ``CARA_ATTN_MEGA=1`` and under ``CARA_ATTNPROJ=1``:
     the gradient check and ``switch_steps`` steps, the switch's kernels
-    launched and the split attention's not.  (c) Both routes at rank
-    ``rank`` and at ``base_rank`` timed in turns on one batch each
-    (``rounds`` rounds of ``turn_steps`` steps, one more dropped a turn,
-    the order reversed every other round), then their kernels' device time
-    a step by the profiler.  (d) A rank-``rank``
-    checkpoint served unmerged by ``Predictor`` (img/s on the host clock)
-    and its eval with every block through row 19, both within
-    ``LOGIT_RTOL`` of the fp32 plain forward.  (e) ``cli.vit_cp
+    launched and the split attention's not.  (Since PR 22 the smoke no
+    longer times rank 8 in turns here, for its time limit: ``peft_phase``
+    times CaRA rank 8, ``tools/compare_parent.py`` any two trees.)  (c) A
+    rank-``rank`` checkpoint served unmerged by ``Predictor`` (img/s on
+    the host clock) and its eval with every block through row 19, both
+    within ``LOGIT_RTOL`` of the fp32 plain forward.  (d) ``cli.vit_cp
     --synthetic --dim cli_rank`` at ``cli_depth`` layers in a child.
     Returns the launches of the ``RANK_FORMS`` entries over (a), (b) and
-    (d)."""
+    (c)."""
     launches = {}
     setups = {}
     paths = {"element": TRAINING_KERNELS + ("grad_gemm_nt_dgelu_h",
@@ -5207,39 +5259,6 @@ def ranks_phase(dev, rank=RANK_WIDE, base_rank=8, batch=64, grad_batch=16,
             require(got[k] > 0, f"{tag} {k} never launched")
         for k in idle:
             require(got[k] == 0, f"{tag} {k} launched")
-    setups["rank"][3] = state
-
-    if timed:
-        base = {impl: list(train_setup(dev, rank=base_rank, batch=batch,
-                                       impl=impl)) for impl in paths}
-        keys = [(impl, r) for impl in paths for r in (base_rank, rank)]
-        turns = {k: [] for k in keys}
-        for rd in range(rounds):
-            for impl, r in keys if rd % 2 == 0 else keys[::-1]:
-                setup = setups[impl] if r == rank else base[impl]
-                c, cc_, fr, st, da = setup
-                st, _, ms, _ = fixed_batch_steps(c, cc_, fr, st, da,
-                                                 generator, turn_steps + 1)
-                setup[3] = st
-                turns[(impl, r)] += ms[1:]
-        device = {k: _device_ms_per_step(
-            *(setups[k[0]] if k[1] == rank else base[k[0]]), generator,
-            tag=f"[ranks:{k[0]}:r{k[1]}:device]") for k in keys}
-        for impl in paths:
-            lo, hi = (statistics.median(turns[(impl, r)])
-                      for r in (base_rank, rank))
-            spread = {r: (min(turns[(impl, r)]), max(turns[(impl, r)]))
-                      for r in (base_rank, rank)}
-            d_lo, d_hi = device[(impl, base_rank)], device[(impl, rank)]
-            print(f"[ranks:{impl}] ms per step by CUDA events in turns "
-                  f"({rounds} rounds, {len(turns[(impl, rank)])} steps a "
-                  f"rank): rank {base_rank} {lo:.3f} "
-                  f"({spread[base_rank][0]:.3f}-{spread[base_rank][1]:.3f}), "
-                  f"rank {rank} {hi:.3f} ({spread[rank][0]:.3f}-"
-                  f"{spread[rank][1]:.3f}): {hi / lo:.3f}x; device time by "
-                  f"the profiler {d_lo:.3f} and {d_hi:.3f} ms a step: "
-                  f"{d_hi / d_lo:.3f}x", flush=True)
-        del base
     del setups, cfg, cc, frozen, state, data
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5306,6 +5325,236 @@ def ranks_phase(dev, rank=RANK_WIDE, base_rank=8, batch=64, grad_batch=16,
                 require(child[name] > 0, f"{name} never launched by the "
                         f"--dim {cli_rank} child")
     return launches
+
+
+def _row_diffs(before, after) -> dict:
+    """The launches of ``PEFT_ROWS`` between two ``read_launches``."""
+    return {f"row {row} {name}": after[name] - before[name]
+            for row, name in PEFT_ROWS}
+
+
+def peft_serving(dev, method, batch=64, n_images=64, iters=20,
+                 timed=True, tmp=None, model=MODEL) -> None:
+    """A ViT-B checkpoint with a perturbed ``method`` adapter served
+    unmerged (rows 5 and 9 a layer) and merged by ``Predictor``: both
+    within ``LOGIT_RTOL`` of the fp32 plain forward, img/s of each on the
+    host clock."""
+    path = os.path.join(tmp, f"vit_{method}_seed_0.npz")
+    cfg, cc, _, state, _ = train_setup(
+        dev, model=model, method=method, impl="rate0", batch=1,
+        scale=PEFT_SCALE,
+        fact_core_rank=PEFT_CORE_RANK if method == "fact_tk" else 0)
+    params = init_backbone(cfg, 0)
+    params["head"] = ckpt_lib.to_numpy_tree(state.trainable["head"])
+    save_model(path, params, state.trainable["cara"],
+               {**dataclasses.asdict(cc), "model": model})
+    images = make_images(n_images, cfg.image_size, seed=23)
+    ref = None
+    for merge in (False, True):
+        tag = f"[peft:serve:{method}:{'merged' if merge else 'adapter'}]"
+        pred = Predictor.from_checkpoint_auto(
+            path, model, batch_size=batch, merge=merge, device=dev,
+            dtype=torch.bfloat16)
+        if ref is None:
+            ref = reference_logits(pred, images)
+        before = read_launches(("cp_attn_block", "cp_mlp_block"))
+        got = pred.logits(images)
+        after = read_launches(("cp_attn_block", "cp_mlp_block"))
+        rate = ""
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pred.logits(images)
+            rate = (f"; {iters * n_images / (time.perf_counter() - t0):.1f}"
+                    " img/s (Predictor.logits, host clock)")
+        _logit_check(tag[1:-1], got, ref)
+        fused = {k: after[k] - before[k] for k in after}
+        print(f"{tag} batch {batch}: block megakernel launches {fused}"
+              f"{rate}", flush=True)
+        for k, v in fused.items():
+            require(v == (0 if merge else cfg.depth), f"{tag} {k}: {v}")
+        del pred
+
+
+def peft_multitask(dev, batch=64, n_images=64,
+                   tasks=(("a", 2.0, 10), ("b", 8.0, 5)),
+                   model=MODEL) -> None:
+    """Two LoRA tasks at different scales and class counts over one ViT-B
+    backbone (``MultiTaskPredictor``): each task's logits against its
+    own single-task unmerged ``Predictor`` (the scale on the config, not
+    riding ``scale_override``), within ``LOGIT_RTOL``."""
+    cfg = get_model_config(model, num_classes=0)
+    params = init_backbone(cfg, 0)
+    group = {}
+    for i, (name, scale, classes) in enumerate(tasks):
+        cc = CaraConfig(method="lora", rank=8, scale=scale,
+                        weight_dropout=0.0)
+        group[name] = {
+            "cara": convert.perturb_adapter(convert.init_cara_params(
+                cfg, cc, 40 + i), 50 + i, std=PEFT_STD["lora"]),
+            "head": api.linear_init(60 + i, api._head_in_dim(cfg), classes),
+            "scale": scale, "cp_order": 4}
+    multi = MultiTaskPredictor(params, cfg, group, batch_size=batch,
+                               device=dev, dtype=torch.bfloat16)
+    images = make_images(n_images, cfg.image_size, seed=24)
+    for name, scale, classes in tasks:
+        task = group[name]
+        single = Predictor(
+            dict(params, head=task["head"]),
+            dataclasses.replace(cfg, num_classes=classes),
+            cara_params=task["cara"],
+            cara_cfg=CaraConfig(method="lora", rank=8, scale=scale,
+                                weight_dropout=0.0),
+            merge=False, batch_size=batch, device=dev, dtype=torch.bfloat16)
+        got = multi.logits(images, name)
+        require(got.shape == (n_images, classes),
+                f"peft:multitask:{name}: shape {got.shape}")
+        _logit_check(f"peft:multitask:{name} (scale {scale})", got,
+                     single.logits(images), "its single-task Predictor")
+        del single
+
+
+def peft_phase(dev, batch=64, grad_batch=16, steps=6, rounds=2,
+               turn_steps=3, cli_depth=4, timed=True, model=MODEL) -> None:
+    """LoRA and FacT (TT, TK) at ViT-B/16 full width and depth, rank 8,
+    scale ``PEFT_SCALE``, bf16, batch ``batch``, seed 0, through the CaRA
+    sites' kernels.  (a) For each method, the element route (weight
+    dropout 0.1) and the rate-0 route: on the route of
+    ``PEFT_GRAD_ROUTE`` one step's gradients of every leaf on
+    ``grad_batch`` images against the fp32 plain path (:func:`grad_check`),
+    then ``steps`` steps on one batch (a falling loss; ms a step), with
+    the launches of ``PEFT_ROWS`` before and after printed as
+    differences and the route's kernels required.  (b) Each route's
+    methods and CaRA rank 8 timed in turns (``rounds`` rounds of
+    ``turn_steps`` steps, one more dropped a turn, the order reversed
+    every other round), then the kernels' device time a step by the
+    profiler, with PyTorch's ``at::native`` kernels' share (CaRA's
+    collapse runs there).  (c) LoRA and FacT-TK served unmerged and
+    merged, and two
+    LoRA tasks through ``MultiTaskPredictor``.  (d) ``cli.vit_cp --method
+    fact_tk --fact-core-rank 4 --synthetic`` at ``cli_depth`` layers in a
+    child, then ``cli.export --mode merged`` on its checkpoint, whose
+    merged logits agree with the unmerged ones."""
+    setups = {}
+    for method in PEFT_METHODS:
+        core = PEFT_CORE_RANK if method == "fact_tk" else 0
+        for route, path in PEFT_PATHS.items():
+            tag = f"[peft:{method}:{route}]"
+            setup = list(train_setup(dev, model=model, method=method,
+                                     impl=route, batch=batch,
+                                     scale=PEFT_SCALE, fact_core_rank=core))
+            cfg, cc, frozen, state, data = setup
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(0)
+            if route == PEFT_GRAD_ROUTE[method]:
+                print(f"{tag} {cc.trainable_param_count(cfg)} adapter "
+                      "parameters", flush=True)
+                grad_check(dev, cfg, cc, frozen, state,
+                           {k: v[:grad_batch] for k, v in data.items()},
+                           generator, tag=tag, lazy=True)
+            before = read_launches(tuple(KERNELS))
+            state, losses, ms, _ = fixed_batch_steps(
+                cfg, cc, frozen, state, data, generator, steps, timed=timed)
+            after = read_launches(tuple(KERNELS))
+            setup[3] = state
+            setups[(method, route)] = setup
+            half = len(losses) // 2
+            print(f"{tag} loss over {steps} steps: "
+                  + " ".join(f"{v:.4f}" for v in losses)
+                  + (f"; ms a step (CUDA events): "
+                     + " ".join(f"{v:.3f}" for v in ms) if timed else ""),
+                  flush=True)
+            print(f"{tag} launches over the {steps} steps: "
+                  f"{_row_diffs(before, after)}", flush=True)
+            require(all(np.isfinite(losses)) and statistics.mean(
+                losses[half:]) < statistics.mean(losses[:half]),
+                f"{tag} the loss did not fall (the means of the halves)")
+            for name in path:
+                require(after[name] > before[name],
+                        f"{tag} {name} never launched")
+
+    if timed:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(1)
+        for route in PEFT_PATHS:
+            setups[("cara", route)] = list(train_setup(
+                dev, model=model, rank=8, impl=route, batch=batch))
+            keys = [(m, route) for m in PEFT_METHODS + ("cara",)]
+            turns = {k: [] for k in keys}
+            for rd in range(rounds):
+                for key in keys if rd % 2 == 0 else keys[::-1]:
+                    c, cc, fr, st, da = setups[key]
+                    st, _, ms, _ = fixed_batch_steps(c, cc, fr, st, da,
+                                                     generator,
+                                                     turn_steps + 1)
+                    setups[key][3] = st
+                    turns[key] += ms[1:]
+            device = {k: _device_ms_per_step(
+                *setups[k], generator, tag=f"[peft:{k[0]}:{route}:device]",
+                top=3, native=True) for k in keys}
+            base_ms = statistics.median(turns[("cara", route)])
+            base_dev = device[("cara", route)][0]
+            for key in keys:
+                med = statistics.median(turns[key])
+                dev_ms, native = device[key]
+                print(f"[peft:{route}] {key[0]}: ms a step by CUDA events "
+                      f"in turns ({rounds} rounds, {len(turns[key])} "
+                      f"steps) {med:.3f} ({min(turns[key]):.3f}-"
+                      f"{max(turns[key]):.3f}), {med / base_ms:.3f}x CaRA "
+                      f"rank 8; device time by the profiler {dev_ms:.3f} "
+                      f"ms a step, {dev_ms / base_dev:.3f}x (PyTorch's "
+                      f"at::native kernels {native:.3f}, the rest "
+                      f"{dev_ms - native:.3f})", flush=True)
+            for key in keys:
+                setups.pop(key)
+    setups.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for method in ("lora", "fact_tk"):
+            peft_serving(dev, method, batch=batch, timed=timed, tmp=tmp,
+                         model=model)
+        peft_multitask(dev, batch=batch, model=model)
+        if not cli_depth:
+            return
+        out = os.path.join(tmp, "cli")
+        argv = ["--synthetic", "--dataset", "patch_camelyon", "--model",
+                model, "--method", "fact_tk", "--fact-core-rank",
+                str(PEFT_CORE_RANK), "--dim", "8", "--epochs", "1",
+                "--batch-size", str(batch), "--eval-batch-size", str(batch),
+                "--synthetic-size", str(2 * batch), "--log-every", "1",
+                "--out-dir", out, "--backbone", os.path.join(tmp, "none.npz"),
+                "--device", str(dev), "--model-override",
+                f"depth={cli_depth}"]
+        t0 = time.perf_counter()
+        child = cli_child(argv, {})
+        print(f"[peft:cli] cli.vit_cp --method fact_tk --fact-core-rank "
+              f"{PEFT_CORE_RANK}, {cli_depth} layers: "
+              f"{time.perf_counter() - t0:.1f} s; launches "
+              f"{ {k: v for k, v in child.items() if v} }", flush=True)
+        for name in PEFT_PATHS["rate0"]:  # FacT's default rate is 0
+            require(child[name] > 0, f"{name} never launched by the "
+                    "--method fact_tk child")
+        files = [f for f in os.listdir(out) if f.endswith(".npz")]
+        require(len(files) == 1, f"the fact_tk child wrote {files}")
+        ckpt = os.path.join(out, files[0])
+        _, tree, meta = ckpt_lib.load_model(ckpt)
+        require(meta.get("method") == "fact_tk"
+                and tree["C"].shape == (PEFT_CORE_RANK, 8, 8),
+                f"the fact_tk checkpoint records {meta.get('method')}, "
+                f"C {tree['C'].shape}")
+        merged = os.path.join(tmp, "merged.npz")
+        export_cli.main(["--ckpt", ckpt, "--out", merged, "--mode",
+                         "merged", "--device", str(dev)])
+        kw = dict(batch_size=batch, device=dev, dtype=torch.bfloat16)
+        got = Predictor.from_checkpoint_auto(merged, model, **kw)
+        images = make_images(batch, got.cfg.image_size, seed=25)
+        got = got.logits(images)
+        want = Predictor.from_checkpoint_auto(ckpt, model, merge=False,
+                                              **kw).logits(images)
+        _logit_check("peft:cli: the exported merged checkpoint", got, want,
+                     "the unmerged checkpoint")
 
 
 def to_hf_clip(params, cfg) -> dict:
@@ -5585,6 +5834,9 @@ def main(argv=None) -> int:
     # switches, unmerged serving and row 19; a --dim 96 CLI child.
     launches.update(ranks_phase(dev))
     stamp(f"rank {RANK_WIDE}")
+    # LoRA and FacT (TT, TK) at ViT-B through the CaRA sites' kernels.
+    peft_phase(dev)
+    stamp("LoRA and FacT")
     # Gradient accumulation (4 x 16 against one pass of 64) and the NaN
     # check on the element route's setup.
     setup = train.pop("setup")

@@ -49,7 +49,8 @@ row pass alone; past rank 64 (ranks 65, 96, 128 and 200: the GEMM
 core's rank step in k-tiles of 64, the rank pre-pass, the fold and the
 masked factor gradients in rank chunks, rows 3 and 19 with z in chunks)
 every rank-dependent row against its plain version, the site and the
-GEMM core at ViT-B's shapes.
+GEMM core at ViT-B's shapes; a LoRA and a FacT-TK block at ViT-B width
+on the element and rate-0 routes through the CaRA sites' kernels.
 Inputs are bf16 from a seeded generator; the reference is the plain
 version in fp32 on the same inputs with TF32 off, held to
 ``chip_smoke.KERNEL_TOL`` (and ``GRAD_REL_L2`` / ``TRAIN_GRAD_REL_L2``
@@ -820,6 +821,43 @@ def test_switched_rank_train_step_on_card_matches_plain(dev, switch):
         chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
     for name in path:
         assert _launches(name) > before[name], name
+
+
+@pytest.mark.parametrize("route", ["element", "rate0"])
+@pytest.mark.parametrize("method", ["lora", "fact_tk"])
+def test_peft_block_on_card_matches_plain(dev, method, route):
+    """One LoRA or FacT-TK block at ViT-B width (E 768, 12 heads, hidden
+    3072, 197 tokens, rank 8, the zero factor perturbed) through the CaRA
+    sites' kernels: the eval logits within chip_smoke's bound of the
+    fp32 plain forward, one train step's gradient of every leaf within
+    its bound (``chip_smoke.grad_check``), the route's kernels launched."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cfg, cc, frozen, state, data = chip_smoke.train_setup(
+        dev, batch=4, method=method, impl=route,
+        scale=chip_smoke.PEFT_SCALE,
+        fact_core_rank=chip_smoke.PEFT_CORE_RANK if method == "fact_tk"
+        else 0, depth=1)
+    path = chip_smoke.PEFT_PATHS[route]
+    before = {k: _launches(k) for k in path + ("cp_attn_block",)}
+    chip_smoke.grad_check(dev, cfg, cc, frozen, state, data, g)
+    for name in path:
+        assert _launches(name) > before[name], name
+    params, cara = (convert.map_floating(t, lambda t: t.detach())
+                    for t in (dict(frozen, head=state.trainable["head"]),
+                              state.trainable["cara"]))
+    x = data["image"]
+    with torch.inference_mode():
+        out = t_vit.vit_forward(_cast(params, torch.bfloat16), x.bfloat16(),
+                                cfg, cara_params=_cast(cara, torch.bfloat16),
+                                cara_cfg=cc)
+        ref = t_vit.vit_forward(
+            _cast(_cast(params, torch.bfloat16), torch.float32), x, cfg,
+            cara_params=_cast(_cast(cara, torch.bfloat16), torch.float32),
+            cara_cfg=cc, impl="plain")
+    tol = chip_smoke.LOGIT_RTOL * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert _launches("cp_attn_block") > before["cp_attn_block"]
 
 
 # Row 18: row counts that are not multiples of the 128-row tile, one and

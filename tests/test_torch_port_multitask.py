@@ -17,6 +17,7 @@ import urllib.error
 import urllib.request
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -29,7 +30,9 @@ from cara_tpu_torch.cli import serve as t_cli
 from cara_tpu_torch.config import CaraConfig, get_model_config
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.train import checkpoint as t_ckpt
+from cara_tpu import config as j_config
 from cara_tpu import serving as j_serving
+from cara_tpu.models import ssf as j_ssf
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MODEL = "vit_tiny_test"
@@ -149,11 +152,12 @@ def test_torch_multitask_from_checkpoints_matches_jax(tmp_path):
     ("rank", ValueError, "share CP rank/order"),
     ("order", ValueError, "share CP rank/order"),
     ("moe", ValueError, "MoE adapter"),
-    ("lora", NotImplementedError, "ROADMAP.md queue 1: the PEFT zoo"),
+    ("ssf", NotImplementedError, "ROADMAP.md queue 1: the PEFT zoo"),
 ])
 def test_torch_multitask_refuses_mixed_groups_as_jax(group, error, match):
-    """Mixed ranks or orders and MoE trees raise as JAX raises them; a
-    LoRA group raises until the PEFT zoo is ported (JAX serves it)."""
+    """Mixed ranks or orders and MoE trees raise as JAX raises them; an
+    SSF group raises until the PEFT zoo's next slice is ported (JAX
+    refuses it too: a group stacks low-rank factor trees)."""
     tasks = _tasks()
     if group == "rank":
         tasks["dtd"] = _tasks(rank=8)["dtd"]
@@ -163,15 +167,16 @@ def test_torch_multitask_refuses_mixed_groups_as_jax(group, error, match):
         tasks["dtd"] = dict(tasks["dtd"], cara={"experts": {},
                                                  "router": {}})
     else:
-        lora = {"qkv": {"a": np.zeros((2, 64, 4), np.float32),
-                        "b": np.zeros((2, 4, 192), np.float32)}}
-        tasks = {n: dict(t, cara=lora) for n, t in tasks.items()}
+        ssf = jax.device_get(j_ssf.init_ssf_params(
+            jax.random.PRNGKey(0), j_config.get_model_config(MODEL),
+            j_config.CaraConfig(method="ssf", weight_dropout=0.0)))
+        tasks = {n: dict(t, cara=ssf) for n, t in tasks.items()}
     cfg = get_model_config(MODEL, num_classes=0)
     with pytest.raises(error, match=match):
         t_serving.MultiTaskPredictor(_backbone(), cfg, tasks, device="cpu")
-    if group != "lora":
-        with pytest.raises(ValueError, match=match):
-            j_serving.MultiTaskPredictor(_backbone(), cfg, tasks)
+    with pytest.raises(ValueError, match=(
+            "low-rank factor trees" if group == "ssf" else match)):
+        j_serving.MultiTaskPredictor(_backbone(), cfg, tasks)
 
 
 def _get(port, path):
