@@ -1,6 +1,7 @@
 """High-level model construction (port of ``cara_tpu/api.py``: CaRA,
-LoRA, FacT-TT / TK, and the non-adapter control rows ``linear`` and
-``full``).
+LoRA, FacT-TT / TK, VPT deep / shallow, SSF, BitFit, the Houlsby and
+AdaptFormer bottleneck adapters, and the non-adapter control rows
+``linear`` and ``full``).
 
 The reference's public surface is ``cara(config)`` returning a patched
 timm module (``src/cara/cara.py:169-188``); the functional equivalent
@@ -75,6 +76,8 @@ def build_model(
     weight_dropout_impl: str = "element",
     model_overrides: Optional[Dict[str, Any]] = None,
     fact_core_rank: int = 0,
+    vpt_tokens: int = 8,
+    adapter_dropout: Optional[float] = None,
 ) -> CaraModel:
     """Backbone (the npz at ``backbone_path`` when it exists, else random)
     + CaRA adapter + a fresh head of ``num_classes``, as the reference
@@ -89,8 +92,11 @@ def build_model(
     (``models/clip_import.py``), any other an npz.  ``method`` "lora",
     "fact_tt" or "fact_tk" builds LoRA's or FacT's tree (weight dropout
     0 by default; ``fact_core_rank`` is FacT-TK's core rank, 0 for
-    ``rank``).  Other adapter methods are not ported (ROADMAP.md queue
-    1)."""
+    ``rank``); "vpt_deep" / "vpt_shallow" ``vpt_tokens`` prompts a stack,
+    "ssf", "bitfit", and the bottleneck adapters "adapter" / "adaptformer"
+    of width ``rank`` with internal dropout ``adapter_dropout`` (None: 0.1
+    for AdaptFormer, its release's, and 0 for Houlsby; ``api.py:98-101``).
+    MoE is not ported (ROADMAP.md queue 1)."""
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method={method!r} is not yet ported to cara_tpu_torch "
@@ -100,12 +106,15 @@ def build_model(
         cfg = dataclasses.replace(cfg, num_classes=num_classes)
     if weight_dropout is None:
         weight_dropout = 0.1 if method == "cara" else 0.0
+    if adapter_dropout is None:
+        adapter_dropout = 0.1 if method == "adaptformer" else 0.0
     cara_cfg = CaraConfig(
         method=method, rank=rank, scale=scale, l_mu=l_mu, l_std=l_std,
         cp_order=cp_order, delta_impl=delta_impl,
         weight_dropout=weight_dropout,
         weight_dropout_impl=weight_dropout_impl,
-        fact_core_rank=fact_core_rank)
+        fact_core_rank=fact_core_rank, vpt_tokens=vpt_tokens,
+        adapter_dropout=adapter_dropout)
     # A given num_classes always gets a fresh head; otherwise the npz's
     # own head is kept where its width matches.
     load_cfg = cfg if num_classes is None else dataclasses.replace(

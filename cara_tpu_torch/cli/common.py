@@ -14,8 +14,9 @@ import dataclasses
 
 import torch
 
-from cara_tpu_torch.config import (FACT_METHODS, NO_ADAPTER, PORTED_METHODS,
-                                   ViTConfig)
+from cara_tpu_torch.config import (BOTTLENECK_METHODS, FACT_METHODS,
+                                   FOLD_METHODS, NO_ADAPTER, PORTED_METHODS,
+                                   VPT_METHODS, ViTConfig)
 from cara_tpu_torch.data.vtab import VTAB_TASKS
 from cara_tpu_torch.models.vit import WEIGHT_DROPOUT_IMPLS
 
@@ -25,8 +26,7 @@ _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 _PARALLEL = "ROADMAP.md queue 1: parallelism"
 # dest -> (default, where the feature stands).
 UNPORTED = {
-    "vpt_tokens": (8, _PEFT), "adapter_scale": (None, _PEFT),
-    "adapter_dropout": (None, _PEFT), "moe": (None, _PEFT),
+    "moe": (None, _PEFT),
     "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
     "dcn_mesh": (None, _PARALLEL), "pipeline": (None, _PARALLEL),
     "fsdp": (False, _PARALLEL), "distributed": (False, _PARALLEL),
@@ -77,9 +77,12 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     # The JAX CLI's other flags: parsed, refused unless at their default.
     p.add_argument("--method", default="cara", type=str,
                    help="cara (the adapter), lora, fact_tt / fact_tk "
-                        "(FacT's tensor-train / Tucker factors), linear "
-                        "(the head over the frozen backbone) or full "
-                        "(every weight)")
+                        "(FacT's tensor-train / Tucker factors), vpt_deep "
+                        "/ vpt_shallow (prompt tokens), ssf (scale and "
+                        "shift), bitfit (bias deltas), adapter / "
+                        "adaptformer (Houlsby / AdaptFormer bottleneck "
+                        "modules, width --dim), linear (the head over the "
+                        "frozen backbone) or full (every weight)")
     p.add_argument("--lora-alpha", default=None, type=float,
                    help="LoRA: delta scale alpha / rank (default alpha = "
                         "rank)")
@@ -87,9 +90,14 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="FacT: delta scale (default 1.0)")
     p.add_argument("--fact-core-rank", default=0, type=int,
                    help="FacT-TK: Tucker core rank (0: the rank)")
-    p.add_argument("--vpt-tokens", default=8, type=int)
-    p.add_argument("--adapter-scale", default=None, type=float)
-    p.add_argument("--adapter-dropout", default=None, type=float)
+    p.add_argument("--vpt-tokens", default=8, type=int,
+                   help="VPT: prompt tokens a stack")
+    p.add_argument("--adapter-scale", default=None, type=float,
+                   help="Bottleneck adapters: output scale (default 1.0 "
+                        "Houlsby, 0.1 AdaptFormer)")
+    p.add_argument("--adapter-dropout", default=None, type=float,
+                   help="Bottleneck adapters: internal dropout rate "
+                        "(default 0 Houlsby, 0.1 AdaptFormer)")
     p.add_argument("--delta-impl", default="factorized",
                    choices=["factorized", "materialized"],
                    help="CP delta path: factorized = rank-space (the "
@@ -162,14 +170,23 @@ def refuse_unported(args) -> None:
 
 def adapter_impl_kwargs(args) -> dict:
     """``build_model`` keyword arguments of the adapter flags
-    (``cara_tpu/cli/common.py:197-211``): the weight-dropout impl, the
-    method, and FacT-TK's ``--fact-core-rank``."""
+    (``cara_tpu/cli/common.py:197-218``): the weight-dropout impl, the
+    method, FacT-TK's ``--fact-core-rank``, VPT's ``--vpt-tokens`` and
+    the bottleneck adapters' ``--adapter-dropout`` (0.1 for AdaptFormer,
+    0 for Houlsby when not given)."""
     kw = {"weight_dropout_impl": args.weight_dropout_impl}
     method = getattr(args, "method", "cara")
     if method != "cara":
         kw["method"] = method
     if method == "fact_tk" and getattr(args, "fact_core_rank", 0):
         kw["fact_core_rank"] = args.fact_core_rank
+    if method in VPT_METHODS:
+        kw["vpt_tokens"] = getattr(args, "vpt_tokens", 8)
+    if method in BOTTLENECK_METHODS:
+        rate = getattr(args, "adapter_dropout", None)
+        if rate is None:
+            rate = 0.1 if method == "adaptformer" else 0.0
+        kw["adapter_dropout"] = float(rate)
     return kw
 
 
@@ -179,7 +196,11 @@ def adapter_scale_wd(args, hp_scale: float, hp_wd: float):
     values (``--weight-dropout`` overrides the rate); LoRA's scale is
     ``alpha / rank`` (``--lora-alpha``, alpha = rank by default), FacT's
     ``--fact-scale`` (1.0 by default), both with rate 0 unless
-    ``--weight-dropout`` is given; ``linear`` / ``full`` have no adapter
+    ``--weight-dropout`` is given; VPT, SSF and BitFit have no delta
+    weight (scale 1.0, rate 0, ``--weight-dropout`` refused); the
+    bottleneck adapters take ``--adapter-scale`` (1.0 Houlsby, 0.1
+    AdaptFormer by default) and refuse ``--weight-dropout``
+    (``--adapter-dropout`` instead); ``linear`` / ``full`` have no adapter
     at all, so the scale is 1.0, the rate 0 and ``--weight-dropout`` is
     refused."""
     wd_flag = getattr(args, "weight_dropout", None)
@@ -192,6 +213,21 @@ def adapter_scale_wd(args, hp_scale: float, hp_wd: float):
         s = getattr(args, "fact_scale", None)
         return (1.0 if s is None else float(s)), (
             0.0 if wd_flag is None else wd_flag)
+    if method in VPT_METHODS + FOLD_METHODS:
+        if wd_flag:
+            raise SystemExit(
+                f"--weight-dropout does not apply to --method {method} "
+                "(no delta weight to drop)")
+        return 1.0, 0.0
+    if method in BOTTLENECK_METHODS:
+        if wd_flag:
+            raise SystemExit(
+                f"--weight-dropout does not apply to --method {method} "
+                "(bottleneck adapters regularize via --adapter-dropout)")
+        s = getattr(args, "adapter_scale", None)
+        if s is None:
+            s = 0.1 if method == "adaptformer" else 1.0
+        return float(s), 0.0
     if method in NO_ADAPTER:
         if wd_flag:
             raise SystemExit(

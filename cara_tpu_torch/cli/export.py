@@ -2,12 +2,13 @@
 checkpoint (an npz, or a reference ``.pt``, which needs ``--model``) ->
 a merged, adapter-only, full or reference ``.pt`` artifact.
 
-* ``--mode merged`` folds the adapter (CaRA's CP factors, LoRA's pairs
-  or FacT's factors, the method from the checkpoint's meta or its tree)
-  into the dense backbone (exact in eval): a plain ViT for serving, no
-  adapter cost.  The fold runs in fp32 on ``--device`` (the card by
-  default) with TF32 off, so the merged weights are those of JAX's fp32
-  merge.
+* ``--mode merged`` folds the adapter (CaRA's CP factors, LoRA's pairs,
+  FacT's factors, SSF's scales and shifts or BitFit's bias deltas, the
+  method from the checkpoint's meta or its tree) into the dense backbone
+  (exact in eval): a plain ViT for serving, no adapter cost.  VPT's
+  prompts and the bottleneck adapters cannot fold and are refused.  The
+  fold runs in fp32 on ``--device`` (the card by default) with TF32 off,
+  so the merged weights are those of JAX's fp32 merge.
 * ``--mode adapter`` keeps only the adapter tree and the head (an npz
   that both packages' ``load_adapter`` read).
 * ``--mode full`` re-saves a (backbone, adapter) pair as one artifact.
@@ -175,10 +176,13 @@ def main(argv=None) -> str:
             raise SystemExit(str(exc))
         device = resolve_device(args.device)
         with _no_tf32():
-            merged = merge_cara(
-                params_from_numpy(params, device, torch.float32),
-                params_from_numpy(cara_params, device, torch.float32),
-                cfg, cara_cfg)
+            try:
+                merged = merge_cara(
+                    params_from_numpy(params, device, torch.float32),
+                    params_from_numpy(cara_params, device, torch.float32),
+                    cfg, cara_cfg)
+            except ValueError as exc:  # VPT, the bottleneck adapters
+                raise SystemExit(str(exc))
         ckpt_lib.save_model(args.out, merged, None,
                             {**meta, "merged": True, "scale": scale})
     else:

@@ -5,12 +5,12 @@ Decodes each file with PIL (``data.vtab.load_image_u8``: RGB, bicubic
 resize, the reference's normalization), then runs
 ``Predictor.from_checkpoint_auto`` on ``--device`` (the card by default)
 with the adapter folded into the dense weights (``--no-merge`` keeps
-it), and prints one JSON line an image: its top-k classes and their
-logits.  The native C++ decoder that JAX tries first is not ported
-(ROADMAP.md queue 1: training modules still to port), nor
-``--exported`` and ``--tome-r`` (ROADMAP.md queue 1: the PEFT zoo).  A
-reference ``.pt`` checkpoint needs ``--scale`` when it carries an
-adapter.
+it; VPT prompts and bottleneck adapters always stay unfolded), and
+prints one JSON line an image: its top-k classes and their logits.
+The native C++ decoder that JAX tries first is not ported (ROADMAP.md
+queue 1: training modules still to port), nor ``--exported`` and
+``--tome-r`` (ROADMAP.md queue 1: the PEFT zoo).  A reference ``.pt``
+checkpoint needs ``--scale`` when it carries an adapter.
 
     python -m cara_tpu_torch.cli.predict --ckpt vit_svhn_*.npz \\
         --model vit_base_patch16_224_in21k images/*.png [--device cpu]

@@ -2,8 +2,9 @@
 GPU (port of ``cara_tpu/cli/serve.py``).
 
 Run: ``python -m cara_tpu_torch.cli.serve --ckpt vit_cifar_*.npz --port 8000``
-(add ``--no-merge`` to keep the adapter unfolded; a reference ``.pt``
-needs ``--scale``).  ``--quantize int8`` serves int8 block weights
+(add ``--no-merge`` to keep the adapter unfolded; VPT prompts and
+bottleneck adapters are never folded; a reference ``.pt`` needs
+``--scale``).  ``--quantize int8`` serves int8 block weights
 (weight-only), ``--quantize w8a8`` int8 activations too
 (``models/quant.py``); with ``CARA_INT8_PALLAS=1`` in the environment the
 weight-only GEMMs run the dequant-fused int8 kernel on the card (TPU row

@@ -3,7 +3,10 @@ order-4 CaRA with exact element-wise weight dropout, or the structured
 rank / row weight dropout (``--weight-dropout-impl``); with ``--method
 lora`` (``--lora-alpha``) or ``fact_tt`` / ``fact_tk`` (``--fact-scale``,
 ``--fact-core-rank``) the paper's comparison adapters, through the same
-site kernels; or, with
+site kernels; with ``--method vpt_deep|vpt_shallow`` (``--vpt-tokens``),
+``ssf``, ``bitfit`` or ``adapter|adaptformer`` (``--dim`` the bottleneck
+width, ``--adapter-scale``, ``--adapter-dropout``) the other PEFT
+baselines, through the fused attention and the XLA dense forms; or, with
 ``--method linear|full``, the non-adapter control rows: the linear probe
 (the head over the frozen backbone) and full fine-tuning (every weight,
 through the flash attention).  Activation and attention dropout
@@ -118,8 +121,9 @@ def main(argv=None) -> float:
         else:
             params, cara_params, meta = ckpt_lib.load_model(args.evaluate)
             if cara_params is not None and "A1" not in cara_params:
-                # LoRA / FacT: method, rank and scale from the artifact,
-                # so --method need not be repeated at eval
+                # LoRA / FacT / VPT / SSF / BitFit / bottleneck adapters:
+                # method, rank and scale from the artifact, so --method
+                # need not be repeated at eval
                 cara_cfg = ckpt_lib.infer_cara_cfg(cara_params, meta)
         params = params_from_numpy(params, device, torch.float32)
         if cara_params is not None:

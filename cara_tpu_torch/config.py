@@ -214,9 +214,10 @@ class CaraConfig:
         ``image_classification/vit_cp.py:175-183``): rank 32 -> 85,440.
         LoRA counts its per-layer A / B pairs at the four sites, FacT its
         shared factors (ViT-B/16 at rank 8: LoRA 1,179,648, FacT-TT
-        21,504).  The non-adapter control rows count what trains: the
-        head alone (``"linear"``) or the whole model (``"full"``).  The
-        PEFT zoo's other counts raise until their modules are ported.
+        21,504), VPT its prompts, SSF its (gamma, beta) pairs, BitFit its
+        bias deltas and the bottleneck adapters their down / up pairs.
+        The non-adapter control rows count what trains: the head alone
+        (``"linear"``) or the whole model (``"full"``).
         """
         if self.method in NO_ADAPTER:
             head = vit_param_counts(model)["head"]
@@ -233,10 +234,26 @@ class CaraConfig:
 
             return sum(int(_prod(s))
                        for s in fact_param_shapes(model, self).values())
-        if self.method != "cara":
-            raise NotImplementedError(
-                f"method={self.method!r} is not yet ported to "
-                "cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
+        if self.method in VPT_METHODS:
+            from cara_tpu_torch.models.vpt import vpt_param_shapes
+
+            return sum(int(_prod(s))
+                       for s in vpt_param_shapes(model, self).values())
+        if self.method == "ssf":
+            from cara_tpu_torch.models.ssf import ssf_param_shapes
+
+            return sum(int(_prod(s))
+                       for s in _shape_leaves(ssf_param_shapes(model)))
+        if self.method == "bitfit":
+            from cara_tpu_torch.models.bitfit import bitfit_param_shapes
+
+            return sum(int(_prod(s))
+                       for s in _shape_leaves(bitfit_param_shapes(model)))
+        if self.method in BOTTLENECK_METHODS:
+            from cara_tpu_torch.models.adapter import adapter_param_shapes
+
+            return sum(int(_prod(s)) for s in _shape_leaves(
+                adapter_param_shapes(model, self)))
         from cara_tpu_torch.models.cara import cara_param_shapes
 
         shapes = cara_param_shapes(model, self)
@@ -253,8 +270,18 @@ FACT_METHODS = ("fact_tt", "fact_tk")
 LORA_FAMILY = ("lora",) + FACT_METHODS
 #: The low-rank delta methods, which run through the fused CaRA sites.
 ADAPTER_METHODS = ("cara",) + LORA_FAMILY
+#: VPT's deep and shallow prompts (``models/vpt.py``).
+VPT_METHODS = ("vpt_deep", "vpt_shallow")
+#: SSF and BitFit, which fold into the frozen weights
+#: (``models/ssf.py``, ``models/bitfit.py``).
+FOLD_METHODS = ("ssf", "bitfit")
+#: The Houlsby and AdaptFormer bottleneck modules (``models/adapter.py``).
+BOTTLENECK_METHODS = ("adapter", "adaptformer")
+#: The PEFT zoo's methods without a low-rank delta: none reaches the
+#: fused CaRA sites; they run the fused attention and the XLA dense forms.
+ZOO_METHODS = VPT_METHODS + FOLD_METHODS + BOTTLENECK_METHODS
 #: The training methods ported so far.
-PORTED_METHODS = ADAPTER_METHODS + NO_ADAPTER
+PORTED_METHODS = ADAPTER_METHODS + ZOO_METHODS + NO_ADAPTER
 
 
 def vit_param_counts(model: ViTConfig) -> dict:
@@ -281,6 +308,15 @@ def vit_param_counts(model: ViTConfig) -> dict:
                  if model.num_classes > 0 else 0),
     }
     return counts
+
+
+def _shape_leaves(tree):
+    """The shape tuples of a nested dict of them."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _shape_leaves(v)
+    else:
+        yield tree
 
 
 def _prod(xs: Tuple[int, ...]) -> int:

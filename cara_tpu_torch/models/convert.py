@@ -21,14 +21,17 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from cara_tpu_torch.config import FACT_METHODS, CaraConfig, ViTConfig
+from cara_tpu_torch.config import (BOTTLENECK_METHODS, FACT_METHODS,
+                                   VPT_METHODS, CaraConfig, ViTConfig)
 from cara_tpu_torch.models.cara import cara_param_shapes
 
 Tree = Dict[str, Any]
 
 
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
-    """Nested dict of array-likes -> the same dict of tensors on ``device``.
+    """Nested dict of array-likes -> the same dict of tensors on
+    ``device``: a backbone, or any method's adapter tree (CaRA's flat
+    factors, the nested per-site or per-layer trees of the others).
 
     Floating leaves are cast to ``dtype`` (kept as stored when None);
     integer leaves keep their type; ``None`` leaves stay ``None``.
@@ -138,12 +141,32 @@ def _orthogonal(rng, shape):
 
 def init_cara_params(cfg: ViTConfig, cara_cfg: CaraConfig,
                      seed: int) -> Tree:
-    """Adapter tree (numpy fp32) of ``cara_cfg.method``, its delta
-    exactly 0 (``cara_tpu/models/cara.py:110-128``): LoRA's per-site A / B
-    tree (``models/lora.py``), FacT's shared factors (``models/fact.py``),
-    or CaRA's factors with the reference's init scheme: xavier A1/P1,
-    orthogonal mode factors, zero contract-mode factors (A2 at order 4,
-    P2) and biases."""
+    """Adapter tree (numpy fp32) of ``cara_cfg.method``
+    (``cara_tpu/models/cara.py:110-158``): LoRA's per-site A / B tree
+    (``models/lora.py``), FacT's shared factors (``models/fact.py``), VPT's
+    prompts, SSF's (gamma, beta) pairs, BitFit's bias deltas, the
+    bottleneck adapters' down / up pairs (``models/vpt.py``, ``ssf.py``,
+    ``bitfit.py``, ``adapter.py``), or CaRA's factors with the reference's
+    init scheme: xavier A1/P1, orthogonal mode factors, zero contract-mode
+    factors (A2 at order 4, P2) and biases.  The delta is exactly 0 but
+    for VPT's prompts and SSF's near-identity draw."""
+    method = cara_cfg.method
+    if method in VPT_METHODS:
+        from cara_tpu_torch.models.vpt import init_vpt_params
+
+        return init_vpt_params(cfg, cara_cfg, seed)
+    if method == "ssf":
+        from cara_tpu_torch.models.ssf import init_ssf_params
+
+        return init_ssf_params(cfg, seed)
+    if method == "bitfit":
+        from cara_tpu_torch.models.bitfit import init_bitfit_params
+
+        return init_bitfit_params(cfg)
+    if method in BOTTLENECK_METHODS:
+        from cara_tpu_torch.models.adapter import init_adapter_params
+
+        return init_adapter_params(cfg, cara_cfg, seed)
     if cara_cfg.method == "lora":
         from cara_tpu_torch.models.lora import init_lora_params
 
@@ -179,7 +202,8 @@ def init_cara_params(cfg: ViTConfig, cara_cfg: CaraConfig,
 
 def perturb_adapter(cara_params: Tree, seed: int, std: float = 0.02) -> Tree:
     """Fill the zero-initialized factors (CaRA's contract modes, LoRA's
-    B, FacT's G / C) and CaRA's biases with seeded ``N(0, std)`` noise so
+    B, FacT's G / C, the bottleneck adapters' up kernels, BitFit's
+    deltas) and the biases with seeded ``N(0, std)`` noise so
     the adapter's delta is nonzero (a freshly initialized adapter is the
     identity, which would hide a wrong delta path).  Nested trees are
     walked in key order.  Returns a new tree; other leaves are shared."""

@@ -1,11 +1,14 @@
 """Merged-weight serving: fold the adapter deltas into the dense backbone
-(port of ``cara_tpu/models/merge.py``: CaRA, LoRA and FacT trees).
+(port of ``cara_tpu/models/merge.py``: CaRA, LoRA, FacT, SSF and BitFit
+trees; VPT and the bottleneck adapters cannot fold and raise).
 
 In eval the delta is exactly linear, so per layer, for CaRA:
 ``qkv += s*T_qkv``, ``proj += s*T_proj.T`` (+ ``s*bias1``),
 ``fc1 += s*T_up.T`` (+ ``s*bias2``), ``fc2 += s*T_down`` (+ ``s*bias3``);
 for LoRA ``W_site += s * A @ B`` (``lora.merge_lora``), and FacT expands
-to LoRA first (``fact.merge_fact``).
+to LoRA first (``fact.merge_fact``).  SSF folds into the adjacent linear
+and LayerNorm weights (``ssf.merge_ssf``), BitFit adds its bias deltas
+(``bitfit.merge_bitfit``).
 """
 
 from __future__ import annotations
@@ -14,10 +17,15 @@ from typing import Any, Dict
 
 import torch
 
-from cara_tpu_torch.config import FACT_METHODS, CaraConfig, ViTConfig
+from cara_tpu_torch.config import (BOTTLENECK_METHODS, FACT_METHODS,
+                                   VPT_METHODS, CaraConfig, ViTConfig)
+from cara_tpu_torch.models import adapter as adapter_lib
+from cara_tpu_torch.models import bitfit as bitfit_lib
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import fact as fact_lib
 from cara_tpu_torch.models import lora as lora_lib
+from cara_tpu_torch.models import ssf as ssf_lib
+from cara_tpu_torch.models import vpt as vpt_lib
 from cara_tpu_torch.ops import cp as cp_ops
 
 
@@ -44,10 +52,29 @@ def _qkv_tensor(params, f1, model: ViTConfig, cara: CaraConfig):
 def merge_cara(params: Dict[str, Any], cara_params: Dict[str, Any],
                model: ViTConfig, cara: CaraConfig) -> Dict[str, Any]:
     """Return a new backbone tree with the adapter folded in, dispatched
-    on the family as JAX's (``merge.py:56-92``): FacT trees (the method or
+    on the family as JAX's (``merge.py:56-92``): VPT and bottleneck trees
+    raise JAX's ``ValueError``s; SSF and BitFit trees fold through
+    ``ssf.merge_ssf`` / ``bitfit.merge_bitfit``, FacT trees (the method or
     the U/V factor shape) through ``fact.merge_fact``, LoRA trees through
     ``lora.merge_lora``, CaRA's here.  The fold runs in the backbone's
     dtype on its device."""
+    if cara.method in VPT_METHODS or vpt_lib.is_vpt_params(cara_params):
+        raise ValueError(
+            "VPT is architectural (learnable prompt tokens, not a weight "
+            "delta) and cannot fold into dense weights — serve the "
+            "adapter path (Predictor(merge=False) does this automatically "
+            "for prompt trees)")
+    if (cara.method in BOTTLENECK_METHODS
+            or adapter_lib.is_adapter_params(cara_params)):
+        raise ValueError(
+            "bottleneck adapters are nonlinear (gelu/relu between the "
+            "down/up projections) and cannot fold into dense weights — "
+            "serve the adapter path (Predictor(merge=False) does this "
+            "automatically for bottleneck trees)")
+    if cara.method == "ssf" or ssf_lib.is_ssf_params(cara_params):
+        return ssf_lib.merge_ssf(params, cara_params, model, cara)
+    if cara.method == "bitfit" or bitfit_lib.is_bitfit_params(cara_params):
+        return bitfit_lib.merge_bitfit(params, cara_params, model, cara)
     if cara.method in FACT_METHODS or fact_lib.is_fact_params(cara_params):
         return fact_lib.merge_fact(params, cara_params, model, cara)
     if cara.method == "lora" or lora_lib.is_lora_params(cara_params):

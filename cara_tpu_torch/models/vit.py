@@ -1,4 +1,5 @@
 """Forward of the Vision Transformer with optional CaRA, LoRA or FacT
+adapters, or the PEFT zoo's VPT prompts, SSF, BitFit and bottleneck
 adapters (port of ``cara_tpu/models/vit.py``): eval, and the training
 forward of the
 element-wise, rank, row and no weight-dropout routes and of the backbone
@@ -78,11 +79,16 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils.checkpoint as checkpoint_lib
 
-from cara_tpu_torch.config import (ADAPTER_METHODS, FACT_METHODS,
-                                   LORA_FAMILY, CaraConfig, ViTConfig)
+from cara_tpu_torch.config import (ADAPTER_METHODS, BOTTLENECK_METHODS,
+                                   FACT_METHODS, LORA_FAMILY, VPT_METHODS,
+                                   ZOO_METHODS, CaraConfig, ViTConfig)
+from cara_tpu_torch.models import adapter as adapter_lib
+from cara_tpu_torch.models import bitfit as bitfit_lib
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import fact as fact_lib
 from cara_tpu_torch.models import lora as lora_lib
+from cara_tpu_torch.models import ssf as ssf_lib
+from cara_tpu_torch.models import vpt as vpt_lib
 from cara_tpu_torch.models.quant import is_quantized
 from cara_tpu_torch.ops import cp as cp_ops
 from cara_tpu_torch.ops.cp import weight_dropout_mask
@@ -232,14 +238,25 @@ def layer_mask_specs(cfg: ViTConfig, cara_cfg: Optional[CaraConfig],
     delta: CaRA's tensors, qkv (3, E, E), proj (E, E), fc1 and fc2 (hid,
     E); LoRA's and FacT's (in, out) products ``A @ B``, qkv (E, 3E), proj
     (E, E), fc1 (E, hid), fc2 (hid, E)
-    (``cara_tpu/models/lora.py:141-142``)."""
+    (``cara_tpu/models/lora.py:141-142``).  The bottleneck adapters at an
+    ``adapter_dropout`` above 0 add ``ad_attn`` (Houlsby only) and
+    ``ad_mlp``, kind ``"adapter"``: the (B, N, r) keep masks of their
+    internal dropout (``k_ad``'s two halves, ``vit.py:439-469``).  VPT's
+    layers run N + P tokens."""
     e, h, n, hid = cfg.embed_dim, cfg.num_heads, cfg.seq_len, cfg.hidden_dim
+    if cara_cfg is not None and cara_cfg.method in VPT_METHODS:
+        n += cara_cfg.vpt_tokens
     out = {}
     if cfg.dropout_rate > 0.0:
         out.update(do1=((batch, n, e), "keep"), do2=((batch, n, hid), "keep"),
                    do3=((batch, n, e), "keep"))
     if cfg.attn_dropout_rate > 0.0:
         out["attn"] = ((batch, h, n, n), "keep")
+    if (cara_cfg is not None and cara_cfg.method in BOTTLENECK_METHODS
+            and cara_cfg.adapter_dropout > 0.0):
+        if cara_cfg.method == "adapter":
+            out["ad_attn"] = ((batch, n, cara_cfg.rank), "adapter")
+        out["ad_mlp"] = ((batch, n, cara_cfg.rank), "adapter")
     if cara_cfg is None or cara_cfg.weight_dropout <= 0.0:
         return out
     impl = cara_cfg.weight_dropout_impl
@@ -268,6 +285,9 @@ def draw_layer_masks(specs, cfg: ViTConfig, cara_cfg, generator, device,
             rate = (cfg.attn_dropout_rate if name == "attn"
                     else cfg.dropout_rate)
             out[name] = _keep_mask(shape, rate, generator, device)
+        elif kind == "adapter":
+            out[name] = _keep_mask(shape, cara_cfg.adapter_dropout,
+                                   generator, device)
         else:
             out[name] = weight_dropout_mask(shape, cara_cfg.weight_dropout,
                                             dtype, generator, device)
@@ -275,7 +295,8 @@ def draw_layer_masks(specs, cfg: ViTConfig, cara_cfg, generator, device,
 
 
 def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
-           rand=None, attn_impl="fused", dense_impl="fused", scale=None):
+           rand=None, attn_impl="fused", dense_impl="fused", scale=None,
+           ad=None):
     """One transformer block (``cara_tpu``'s ``_block``).  In eval
     (``rand`` None) drop-path and dropout are identities; in training
     ``rand`` holds the layer's randomness: ``seeds`` (qkv, proj, fc1,
@@ -289,7 +310,11 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     scale.  ``f1`` / ``p1`` are this layer's CaRA row slices (A1, P1) or,
     for LoRA, its qkv pair and its {proj, fc1, fc2} pairs; each site's
     (U, V) comes from ``adapter_uv`` (JAX's ``_adapter_uv``), and LoRA's
-    adapter biases are zeros."""
+    adapter biases are zeros.  ``ad`` is this layer's bottleneck-adapter
+    {site: {kernel, bias}} (``cara_params`` None, ``cara_cfg`` the
+    adapter's): Houlsby's modules on the projection's and fc2's outputs,
+    AdaptFormer's beside the MLP on the pre-LN2 stream, scaled
+    (``vit.py:866-885, 1079-1087``)."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -309,6 +334,8 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     fused_dense = dense_impl == "fused" and use_cara
     fused_plain = dense_impl == "fused" and not use_cara
     fused_attn = attn_impl == "fused" and cfg.attn_dropout_rate == 0.0
+    ad_seq = ad is not None and cara_cfg.method == "adapter"
+    ad_rate = cara_cfg.adapter_dropout if ad is not None else 0.0
     # Activation dropout cannot ride inside the block megakernels, and the
     # attention one runs where ``_attn_mega_on`` says.
     attn_mega = ((fused_dense or fused_plain) and fused_attn and not long
@@ -341,6 +368,13 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         if cfg.dropout_rate > 0.0:
             t = dropout(t, cfg.dropout_rate, masks[name])
         return x + t * gate(i)
+
+    def ad_module(t, site, act):
+        """A bottleneck module of ``ad`` on ``t`` (``ad_attn`` /
+        ``ad_mlp`` its dropout mask in training)."""
+        keep = masks[f"ad_{site}"] if train and ad_rate > 0.0 else None
+        return adapter_lib.bottleneck(t, ad[f"{site}_down"], ad[f"{site}_up"],
+                                      act, keep, ad_rate)
 
     def wmask(name):  # the element mask on a dense XLA delta
         m = None if masks is None else masks.get(name)
@@ -490,7 +524,16 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                             row_x(attn_out, 1), p1[0:1], p2, p3, r2,
                             site_comp(1))
                     proj = proj + (pd + cb_proj) * s
+        if ad_seq:  # Houlsby: z + up(gelu(down(z))) on the sublayer output
+            proj = proj + ad_module(proj, "attn", "gelu")
         x = branch(proj, 0, "do1")
+
+    ad_par = None
+    if ad is not None and not ad_seq:
+        # AdaptFormer: on the pre-LN2 stream, joined after the MLP branch
+        # outside its dropout and drop-path.
+        s_ad = cara_cfg.scale if scale is None else scale
+        ad_par = ad_module(x, "mlp", "relu") * s_ad
 
     # --- MLP (vit.py:835-1087) ---
     if fused_dense:
@@ -558,7 +601,10 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                 dd = cp_ops.rows_delta_in_factorized(
                     row_x(hidden, 3), p1_down, p2, p3, r2, site_comp(3))
             down = down + (dd + cb_down) * s
-    return branch(down, 1, "do3")
+    if ad_seq:
+        down = down + ad_module(down, "mlp", "gelu")
+    x = branch(down, 1, "do3")
+    return x if ad_par is None else x + ad_par
 
 
 def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
@@ -567,7 +613,7 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     an adapter (the linear probe and full fine-tuning)."""
     if cara_cfg is None:
         return
-    if cara_cfg.method not in ADAPTER_METHODS or cara_cfg.moe:
+    if cara_cfg.method not in ADAPTER_METHODS + ZOO_METHODS or cara_cfg.moe:
         raise NotImplementedError(
             f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
             "not yet ported (ROADMAP.md queue 1: the PEFT zoo)")
@@ -654,7 +700,12 @@ def resolve_impls(attn_impl: str, dense_impl: str,
     and refuse "fused" (``vit.py:1297-1311``).  CaRA at CP order 2 or
     with the materialized delta takes the XLA dense forms, whatever is
     asked: the fused sites consume the rank-space (U, V) pair, which
-    neither has (``vit.py:562-563``, ``resolve_dense_impl``)."""
+    neither has (``vit.py:562-563``, ``resolve_dense_impl``).  The PEFT
+    zoo's methods (VPT, SSF, BitFit, the bottleneck adapters) have no
+    low-rank delta for the fused sites: "auto" resolves to the fused
+    attention and the XLA dense forms (``vit.py:1118-1128``), and the
+    bottleneck adapters refuse "fused", which has no point to insert them
+    at (``vit.py:1271-1276``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -672,6 +723,12 @@ def resolve_impls(attn_impl: str, dense_impl: str,
         raise ValueError(
             "int8-quantized weights require dense_impl='xla': the fused "
             "kernels consume dense kernel arrays, not quant dicts")
+    if method in BOTTLENECK_METHODS and dense_impl == "fused":
+        raise ValueError(
+            "bottleneck adapters are nonlinear modules on the XLA "
+            "block path — the fused megakernels have no insertion "
+            "point for them (dense_impl='fused' would silently skip "
+            "the adapters); use dense_impl='auto' or 'xla'")
     if method == "full":
         if dense_impl == "fused":
             raise ValueError(
@@ -721,17 +778,61 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
 
     LoRA (``method="lora"``) takes its per-site tree; FacT (``"fact_tt"``,
     ``"fact_tk"``) is expanded into that tree first, under autograd
-    (``fact.expand_to_lora``, ``vit.py:1196-1211``), and runs as LoRA."""
+    (``fact.expand_to_lora``, ``vit.py:1196-1211``), and runs as LoRA.
+    SSF and BitFit fold into ``params`` under autograd
+    (``vit.py:1212-1237``) and the plain forward runs on the result.
+    VPT inserts its prompts after the position embedding (and ``ln_pre``),
+    VPT-Deep replaces them before every block, and a mean-pool model
+    strips them before its head (``vit.py:1337-1340, 1415-1420,
+    1451-1454``).  The bottleneck adapters ride the blocks as per-layer
+    slices of their tree (``_block``'s ``ad``)."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    prompts = ad_tree = None
     if cara_cfg is not None:
-        if cara_cfg.method not in ADAPTER_METHODS or cara_cfg.moe:
+        method = cara_cfg.method
+        if method not in ADAPTER_METHODS + ZOO_METHODS or cara_cfg.moe:
             raise NotImplementedError(
-                f"method={cara_cfg.method!r} (moe={cara_cfg.moe}) is not yet "
+                f"method={method!r} (moe={cara_cfg.moe}) is not yet "
                 "ported to cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
-        if cara_cfg.method in FACT_METHODS:
+        if method == "ssf":
+            if not ssf_lib.is_ssf_params(cara_params):
+                raise ValueError(
+                    "cara_cfg.method='ssf' wants the (gamma, beta) tree "
+                    "from models.ssf.init_ssf_params; got keys "
+                    f"{sorted(cara_params)}")
+            params = ssf_lib.apply_ssf(params, cara_params)
+        elif method == "bitfit":
+            if not bitfit_lib.is_bitfit_params(cara_params):
+                raise ValueError(
+                    "cara_cfg.method='bitfit' wants the bias-delta tree "
+                    "from models.bitfit.init_bitfit_params; got keys "
+                    f"{sorted(cara_params)}")
+            params = bitfit_lib.apply_bitfit(params, cara_params)
+        elif method in VPT_METHODS:
+            if not vpt_lib.is_vpt_params(cara_params):
+                raise ValueError(
+                    f"cara_cfg.method={method!r} wants the "
+                    "{'prompts'} tree from models.vpt.init_vpt_params; got "
+                    f"keys {sorted(cara_params)}")
+            vpt_lib.check_geometry(cara_params, cfg, cara_cfg)
+            prompts = cara_params["prompts"]
+        elif method in BOTTLENECK_METHODS:
+            if not adapter_lib.is_adapter_params(cara_params):
+                raise ValueError(
+                    f"cara_cfg.method={method!r} wants the "
+                    "layer-stacked bottleneck tree from "
+                    "models.adapter.init_adapter_params; got keys "
+                    f"{sorted(cara_params)}")
+            adapter_lib.check_geometry(cara_params, cfg, cara_cfg)
+            ad_tree = cara_params
+        if method in ZOO_METHODS:
+            # The tree is consumed: the blocks run without a delta, with
+            # ``cara_cfg`` for the zoo's masks and the adapters' settings.
+            cara_params = None
+        if method in FACT_METHODS:
             if not fact_lib.is_fact_params(cara_params):
                 raise ValueError(
                     f"cara_cfg.method={cara_cfg.method!r} wants the shared "
@@ -745,7 +846,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                     "cara_cfg.method='lora' wants the per-site {a, b} tree "
                     "of models.lora.init_lora_params; got keys "
                     f"{sorted(cara_params)}")
-        elif not isinstance(cara_params, dict) or "A1" not in cara_params:
+        elif method == "cara" and (not isinstance(cara_params, dict)
+                                   or "A1" not in cara_params):
             raise ValueError("cara_cfg.method='cara' wants the CP factor tree "
                              "(A1..., P1-P3, R1/R2, bias1-3)")
     attn_impl, dense_impl = resolve_impls(
@@ -764,6 +866,11 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     if cfg.ln_pre:
         tokens = layer_norm(tokens, params["ln_pre"]["scale"],
                             params["ln_pre"]["bias"], cfg.layernorm_eps)
+    pos0 = 1 if cfg.use_cls_token else 0
+    deep = prompts is not None and cara_cfg.method == "vpt_deep"
+    if prompts is not None:  # between the cls and the patch tokens
+        tokens = vpt_lib.insert_prompts(tokens, prompts[0], pos0)
+    ad_layers = None if ad_tree is None else _unstack(ad_tree, cfg.depth)
     a1 = p1 = None
     if cara_params is not None and cara_cfg.method == "lora":
         # LoRA's layer stacks, one unbind a leaf (see ``_unstack``)
@@ -776,6 +883,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
         scale_override = scale_override.to(tokens.dtype)
     remat = remat and train and torch.is_grad_enabled()
     for layer in range(cfg.depth):
+        if deep:  # this layer's prompts replace the slots
+            tokens = vpt_lib.set_prompts(tokens, prompts[layer], pos0)
         rand = None
         if train:
             rows, masks = randomness.get("rows"), randomness.get("masks")
@@ -797,7 +906,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
             p1=None if p1 is None else p1[layer], cfg=cfg,
             cara_params=cara_params, cara_cfg=cara_cfg, impl=impl,
             rand=rand, attn_impl=attn_impl, dense_impl=dense_impl,
-            scale=scale_override)
+            scale=scale_override,
+            ad=None if ad_layers is None else ad_layers[layer])
         if remat:
             # Every random input is drawn already: no RNG state to keep.
             tokens = checkpoint_lib.checkpoint(
@@ -805,6 +915,9 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 **({"context_fn": _DOTS_CONTEXT} if remat == "dots" else {}))
         else:
             tokens = block(tokens)
+    if prompts is not None and not cfg.use_cls_token:
+        # mean-pool reads the patch tokens only; the cls row is position 0
+        tokens = vpt_lib.strip_prompts(tokens, prompts.shape[1], pos0)
     if cfg.use_cls_token:
         # LayerNorm is per token: only the cls row feeds the head.
         feat = layer_norm(tokens[:, 0], params["norm"]["scale"],

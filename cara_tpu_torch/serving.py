@@ -32,15 +32,17 @@ import numpy as np
 import torch
 
 from cara_tpu_torch.config import CaraConfig, ViTConfig
+from cara_tpu_torch.models import adapter as adapter_lib
+from cara_tpu_torch.models import bitfit as bitfit_lib
 from cara_tpu_torch.models import fact as fact_lib
 from cara_tpu_torch.models import lora as lora_lib
+from cara_tpu_torch.models import ssf as ssf_lib
+from cara_tpu_torch.models import vpt as vpt_lib
 from cara_tpu_torch.models.convert import map_floating, params_from_numpy
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models.quant import (
     column_major_codes, quantize_block_weights)
 from cara_tpu_torch.models.vit import vit_forward
-
-_PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 
 
 def _dispatch_batched(call, images, batch_size: int,
@@ -90,8 +92,9 @@ def _resolve_buckets(buckets, batch_size: int) -> tuple:
 
 
 class Predictor:
-    """Batched image classifier over a merged (or adapter) CaRA, LoRA or
-    FacT model."""
+    """Batched image classifier over a merged (or adapter) model of any
+    ported method: CaRA, LoRA, FacT, SSF and BitFit merge; VPT and the
+    bottleneck adapters always serve unmerged."""
 
     def __init__(
         self,
@@ -111,7 +114,10 @@ class Predictor:
         layout (``train.checkpoint.load_model``).  The merge runs in fp32
         on ``device``, then ``quantize`` (None, "int8" or "w8a8")
         quantizes the block kernels, and the floating weights are cast to
-        ``dtype`` (the int8 codes stay int8), in the reference's order."""
+        ``dtype`` (the int8 codes stay int8), in the reference's order.
+        VPT prompts and bottleneck adapters cannot fold into the weights
+        and are served unmerged whatever ``merge`` says
+        (``cara_tpu/serving.py:113-121``)."""
         if quantize not in (None, "int8", "w8a8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = torch.device(device)
@@ -119,7 +125,8 @@ class Predictor:
         if cara_params is not None:
             cara_params = params_from_numpy(cara_params, self.device,
                                             torch.float32)
-            if merge:
+            if merge and not ("prompts" in cara_params
+                              or "mlp_down" in cara_params):
                 params = merge_cara(params, cara_params, cfg, cara_cfg)
                 cara_params = cara_cfg = None
         if quantize is not None:
@@ -213,19 +220,20 @@ class Predictor:
 
 
 def _family(tree) -> str:
-    """The adapter family of a factor tree, as JAX's group check names it:
-    "lora", "fact_tt" / "fact_tk" or "cara"; other trees raise."""
+    """The adapter family of a factor tree, as JAX's group check names it
+    (``cara_tpu/serving.py:345-352``): "lora", "fact_tt" / "fact_tk" or
+    "cara"; VPT, SSF, BitFit and bottleneck trees raise JAX's
+    ``ValueError``."""
     if lora_lib.is_lora_params(tree):
         return "lora"
-    method = fact_lib.detect_method(tree)
-    if method is not None:
-        return method
-    if "A1" in tree and "R1" in tree:
-        return "cara"
-    raise NotImplementedError(
-        f"multi-task groups of adapter trees with keys {sorted(tree)} (VPT, "
-        "SSF, BitFit, bottleneck adapters) are not yet ported to "
-        f"cara_tpu_torch ({_PEFT}); CaRA, LoRA and FacT trees only")
+    if (vpt_lib.is_vpt_params(tree) or ssf_lib.is_ssf_params(tree)
+            or bitfit_lib.is_bitfit_params(tree)
+            or adapter_lib.is_adapter_params(tree)):
+        raise ValueError(
+            "multi-task groups stack low-rank factor trees "
+            "(cara/lora/fact); serve VPT/SSF/BitFit/bottleneck-"
+            "adapter checkpoints with their own Predictor each")
+    return fact_lib.detect_method(tree) or "cara"
 
 
 def _stack_trees(trees, to_dev):

@@ -34,9 +34,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from cara_tpu_torch.config import FACT_METHODS, CaraConfig
+from cara_tpu_torch.config import (BOTTLENECK_METHODS, FACT_METHODS,
+                                   VPT_METHODS, CaraConfig)
+from cara_tpu_torch.models import adapter as adapter_lib
+from cara_tpu_torch.models import bitfit as bitfit_lib
 from cara_tpu_torch.models import fact as fact_lib
 from cara_tpu_torch.models import lora as lora_lib
+from cara_tpu_torch.models import ssf as ssf_lib
+from cara_tpu_torch.models import vpt as vpt_lib
 from cara_tpu_torch.train.steps import (adam_moments, train_state_from_numpy,
                                         tree_leaves)
 
@@ -142,14 +147,44 @@ def load_adapter(path: str) -> Tuple[Dict, Optional[Dict], Dict]:
 
 def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
     """Rebuild the :class:`CaraConfig` of a loaded adapter tree from the
-    artifact meta (``cara_tpu/train/checkpoint.py:170-197``): the method
-    from the meta's ``method`` or the tree's shape (FacT's U/V factors,
-    LoRA's per-site {a, b} pairs, CaRA's CP factors), the rank (and
-    FacT-TK's core rank) from the tree, the dropout rate and impl from the
-    meta.  Raises when the delta scale is neither recorded nor given
-    (per-task scales span 0.1-100; a silent 1.0 would mis-apply the
-    adapter).  Other adapter families are not yet ported."""
+    artifact meta (``cara_tpu/train/checkpoint.py:121-197``): the method
+    from the meta's ``method`` or the tree's shape (VPT's prompts, SSF's
+    pairs, BitFit's deltas, the bottleneck pairs, FacT's U/V factors,
+    LoRA's per-site {a, b} pairs, CaRA's CP factors), the rank (FacT-TK's
+    core rank, VPT's token count) from the tree, the dropout rates and
+    impl from the meta.  VPT, SSF and BitFit have no delta scale (1.0);
+    Houlsby adapters default to 1.0 and AdaptFormer refuses a missing
+    scale.  Other methods raise when the delta scale is neither recorded
+    nor given (per-task scales span 0.1-100; a silent 1.0 would mis-apply
+    the adapter).  MoE is not yet ported."""
     meta_method = str(meta.get("method", "") or "")
+    if meta_method in VPT_METHODS or vpt_lib.is_vpt_params(cara_params):
+        return CaraConfig(
+            method=meta_method or vpt_lib.detect_method(cara_params),
+            scale=1.0, weight_dropout=0.0,
+            vpt_tokens=int(np.shape(cara_params["prompts"])[1]))
+    if meta_method == "ssf" or ssf_lib.is_ssf_params(cara_params):
+        return CaraConfig(method="ssf", scale=1.0, weight_dropout=0.0)
+    if meta_method == "bitfit" or bitfit_lib.is_bitfit_params(cara_params):
+        return CaraConfig(method="bitfit", scale=1.0, weight_dropout=0.0)
+    if (meta_method in BOTTLENECK_METHODS
+            or adapter_lib.is_adapter_params(cara_params)):
+        method = meta_method or adapter_lib.detect_method(cara_params)
+        if scale is None:
+            if "scale" in meta:
+                scale = float(meta["scale"])
+            elif method == "adapter":
+                scale = 1.0  # Houlsby adapters are unscaled by definition
+            else:
+                raise ValueError(
+                    "adaptformer checkpoint records no delta scale and "
+                    "none was given — the parallel-branch scale (official "
+                    "default 0.1) changes the forward; pass scale= "
+                    "explicitly")
+        return CaraConfig(
+            method=method, scale=scale, weight_dropout=0.0,
+            rank=int(np.shape(cara_params["mlp_down"]["kernel"])[-1]),
+            adapter_dropout=float(meta.get("adapter_dropout", 0.0)))
     fact = (meta_method in FACT_METHODS
             or fact_lib.detect_method(cara_params) is not None)
     lora = meta_method == "lora" or (

@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from cara_tpu_torch.config import (ADAPTER_METHODS, PORTED_METHODS,
-                                   CaraConfig, ViTConfig)
+                                   ZOO_METHODS, CaraConfig, ViTConfig)
 from cara_tpu_torch.models.convert import map_floating, params_from_numpy
 from cara_tpu_torch.models.vit import (draw_randomness, layer_mask_specs,
                                        resolve_impls, vit_forward)
@@ -66,9 +66,10 @@ def prep_images(x: torch.Tensor, dtype=None) -> torch.Tensor:
 def split_trainable(params: Params, cara_params: Params,
                     method: str = "cara") -> Tuple[Params, Params]:
     """(frozen backbone, trainable = {"cara": adapter, "head": head}).
-    The adapter is CaRA's flat factor tree, LoRA's nested per-site tree
-    or FacT's shared factors; the optimizer walks any of them
-    (:func:`tree_leaves`).
+    The adapter is CaRA's flat factor tree, LoRA's nested per-site tree,
+    FacT's shared factors, VPT's prompts, SSF's (gamma, beta) pairs,
+    BitFit's bias deltas or the bottleneck adapters' per-site pairs; the
+    optimizer walks any of them (:func:`tree_leaves`).
 
     ``method="full"`` (full fine-tuning) freezes nothing: the backbone
     moves into ``trainable["backbone"]`` and the frozen tree is empty.
@@ -261,7 +262,8 @@ def microbatch_randomness(cfg: ViTConfig, cara_cfg: CaraConfig, batch: int,
     masks a layer draws) and ``masks``; where a layer draws element
     masks, every microbatch's masks are drawn here, so that they can
     share them."""
-    adapter = cara_cfg if cara_cfg.method in ADAPTER_METHODS else None
+    adapter = (cara_cfg if cara_cfg.method in ADAPTER_METHODS + ZOO_METHODS
+               else None)
     specs = layer_mask_specs(cfg, adapter, batch // grad_accum,
                              draw.get("attn_impl", "fused"),
                              draw.get("dense_impl", "fused"))

@@ -18,6 +18,7 @@ fatal on failure:
    257 with keys >= 250 masked and N = 512 (its two-chunk path); row 2
    (its backward) at B 64 past the previous kernel's 352-token cap, N =
    401 and N = 512 with keys >= 500 masked, as entries of their own;
+   rows 1 and 2 at VPT's lengths, N = 205 and 397 (``ZOO_FORMS``);
 4. the serving path: ViT-B/16 in21k at full width and depth from seed 0
    (tanh pre_logits, 10 classes) with a perturbed order-4 rank-8 CaRA
    adapter at scale 10, saved as an npz checkpoint, then served merged
@@ -273,7 +274,24 @@ fatal on failure:
    through ``MultiTaskPredictor``, each task against its single-task
    ``Predictor``; ``cli.vit_cp --method fact_tk --fact-core-rank 4`` at
    4 layers in a child, its checkpoint exported by ``cli.export --mode
-   merged`` and served against the unmerged one.
+   merged`` and served against the unmerged one;
+21. the PEFT zoo (``zoo_phase``, after 20): ViT-B/16 at full width and
+   depth, bf16, batch 64, seed 0; VPT-Deep and VPT-Shallow (8 prompts,
+   205 tokens), SSF, BitFit, Houlsby and AdaptFormer (width 8, internal
+   dropout 0.1, AdaptFormer at scale 0.1), their zero leaves perturbed
+   from a seed (``ZOO_STD``): each method's gradient check as in 5 on 16
+   images and six steps on one batch (a falling loss, ms a step), rows 1
+   and 2 launched and no CaRA site; the methods and CaRA rank 8 timed in
+   turns with the profiler's device time a step; each served from its
+   checkpoint unmerged and with ``merge=True`` (SSF and BitFit fold, the
+   others stay unmerged), within 5 % of the unmerged fp32 plain forward,
+   row 1 launched 12 times a forward; SSF unmerged with
+   ``quantize="int8"`` and ``CARA_INT8_PALLAS=1`` (row 18, within
+   ``QUANT_BOUNDS``); SSF exported merged by ``cli.export`` and served
+   against the unmerged checkpoint, VPT refused; VPT-Deep at 200 prompts
+   (397 tokens) and at 384 px (585 tokens: row 16, not rows 1 and 2):
+   the gradient check and three steps on 8 images.  Rows 1 and 2 at 205
+   and 397 tokens are entries of the ``kernels`` line.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -815,7 +833,16 @@ DH_FORMS = {
     "flash_attention_dh32": ("flash_attention", 197, 32),
     "flash_attention_bwd_dh32": ("flash_attention_bwd", 197, 32),
 }
-for _name, (_base, _, _) in DH_FORMS.items():
+# Rows 1 and 2 at the lengths VPT gives ViT-B/16 at 224 px: 197 tokens
+# and 8 prompts (205), and 200 prompts (397); launches: the zoo phase's
+# VPT-Deep steps at those lengths.
+ZOO_FORMS = {
+    "fused_qkv_attention_205": ("fused_qkv_attention", 205, 64),
+    "fused_qkv_attention_bwd_205": ("fused_qkv_attention_bwd", 205, 64),
+    "fused_qkv_attention_397": ("fused_qkv_attention", 397, 64),
+    "fused_qkv_attention_bwd_397": ("fused_qkv_attention_bwd", 397, 64),
+}
+for _name, (_base, _, _) in {**DH_FORMS, **ZOO_FORMS}.items():
     KERNELS[_name] = KERNELS[_base]
     if _base in KERNEL_TOL:  # a backward's gradients: GRAD_REL_L2
         KERNEL_TOL[_name] = KERNEL_TOL[_base]
@@ -933,6 +960,23 @@ PEFT_ROWS = (("1", "fused_qkv_attention"), ("2", "fused_qkv_attention_bwd"),
              ("13", "cp_dense"), ("14", "build_wd_weight"))
 PEFT_PATHS = {"element": TRAINING_KERNELS + ("cp_mlp_block",),
               "rate0": SPLIT_KERNELS}
+# The PEFT zoo (``zoo_phase``): the six methods without a low-rank delta,
+# which train and serve through the fused attention (rows 1, 2; row 16
+# past 512 tokens) and the XLA dense forms.  Bottleneck width ZOO_RANK,
+# the adapters' internal dropout ZOO_DROP (AdaptFormer's default; Houlsby
+# at the same rate, so that both draw masks), VPT's ZOO_PROMPTS tokens
+# (ZOO_LONG_PROMPTS for row 2's upper range).  ZOO_STD: the std of the
+# seeded noise on the tree's zero leaves (the up projections and biases,
+# BitFit's deltas), so that the gradient check has signal; VPT's prompts
+# and SSF's pairs are drawn nonzero.
+ZOO_METHODS = ("vpt_deep", "vpt_shallow", "ssf", "bitfit", "adapter",
+               "adaptformer")
+ZOO_STD = {"bitfit": 0.02, "adapter": 0.02, "adaptformer": 0.02}
+ZOO_RANK = 8
+ZOO_DROP = 0.1
+ZOO_PROMPTS = 8
+ZOO_LONG_PROMPTS = 200
+ZOO_ROWS = PEFT_ROWS[:2]
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 # cores and HBM3.  A kernel's bound is the larger of its work over each.
 PEAK_FLOPS = 989e12
@@ -2633,12 +2677,14 @@ def read_launches(names) -> dict:
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
                 batch=64, seed=0, impl="element", method="cara", lr=1e-3,
                 cp_order=4, delta_impl="factorized", fact_core_rank=0,
-                **overrides):
+                vpt_tokens=ZOO_PROMPTS, adapter_dropout=0.0, **overrides):
     """Seeded ViT + perturbed adapter (weight dropout 0.1 of the ``impl``
     kind, or none for ``impl="rate0"``; CaRA at CP order ``cp_order`` in
     the ``delta_impl`` form, or ``method`` "lora", "fact_tt" / "fact_tk"
     (core rank ``fact_core_rank``) with its zero factor perturbed by
-    ``PEFT_STD``; the model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
+    ``PEFT_STD``; a ``ZOO_METHODS`` tree, ``vpt_tokens`` prompts or
+    ``adapter_dropout``, its zero leaves perturbed by ``ZOO_STD``; the
+    model's drop-path) -> (cfg, cara_cfg, fp32 frozen,
     state, one fixed device batch of normalized images); ``overrides``
     change the model's config.  ``method`` "linear" or "full" trains
     without an adapter; the backbone is then rounded to bf16 values
@@ -2656,6 +2702,14 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
         cara = convert.perturb_adapter(
             convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2,
             std=PEFT_STD[method])
+    elif method in ZOO_METHODS:
+        cara_cfg = CaraConfig(method=method, rank=rank, scale=scale,
+                              weight_dropout=0.0, vpt_tokens=vpt_tokens,
+                              adapter_dropout=adapter_dropout)
+        cara = convert.init_cara_params(cfg, cara_cfg, seed + 1)
+        if method in ZOO_STD:
+            cara = convert.perturb_adapter(cara, seed + 2,
+                                           std=ZOO_STD[method])
     elif method == "cara":
         cara_cfg = CaraConfig(rank=rank, scale=scale,
                               weight_dropout=rate,
@@ -3389,13 +3443,13 @@ def _serve_child(code, argv, err, images, requests, tasks=None,
 
 
 def _pair_block(x, bp, f1, p1, cfg, cara_params, cara_cfg, impl, rand=None,
-                attn_impl="fused", dense_impl="fused", scale=None):
+                attn_impl="fused", dense_impl="fused", scale=None, ad=None):
     """``models.vit._block`` of an eval block with a CaRA adapter, in one
     call of row 19: the factors collapsed and the delta scale (``scale``,
     a task's ``scale_override``, or the config's) folded as ``_block``
     does for the two half-block kernels."""
-    require(rand is None and cara_params is not None,
-            "the row 19 eval check runs adapter blocks in eval")
+    require(rand is None and cara_params is not None and ad is None,
+            "the row 19 eval check runs CaRA blocks in eval")
     dt, mr = x.dtype, cfg.mlp_ratio
     s = cara_cfg.scale if scale is None else scale
     p2, p3, r2 = cara_params["P2"], cara_params["P3"], cara_params["R2"]
@@ -5414,7 +5468,7 @@ def peft_multitask(dev, batch=64, n_images=64,
         del single
 
 
-def peft_phase(dev, batch=64, grad_batch=16, steps=6, rounds=2,
+def peft_phase(dev, batch=64, grad_batch=16, steps=6, rounds=1,
                turn_steps=3, cli_depth=4, timed=True, model=MODEL) -> None:
     """LoRA and FacT (TT, TK) at ViT-B/16 full width and depth, rank 8,
     scale ``PEFT_SCALE``, bf16, batch ``batch``, seed 0, through the CaRA
@@ -5555,6 +5609,229 @@ def peft_phase(dev, batch=64, grad_batch=16, steps=6, rounds=2,
                                               **kw).logits(images)
         _logit_check("peft:cli: the exported merged checkpoint", got, want,
                      "the unmerged checkpoint")
+
+
+def _zoo_kw(method) -> dict:
+    """``train_setup``'s keywords of a ``ZOO_METHODS`` method: the
+    bottleneck width, the default scale (AdaptFormer 0.1, 1.0 else) and
+    the adapters' dropout."""
+    bottleneck = method in ("adapter", "adaptformer")
+    return dict(method=method, rank=ZOO_RANK,
+                scale=0.1 if method == "adaptformer" else 1.0,
+                adapter_dropout=ZOO_DROP if bottleneck else 0.0)
+
+
+def zoo_train(dev, method, tag, steps, grad_batch, batch, model=MODEL,
+              timed=True, rows=ZOO_ROWS, idle=ADAPTER_KERNELS,
+              **kw) -> tuple:
+    """One ``ZOO_METHODS`` setup: the gradient check on ``grad_batch``
+    images, then ``steps`` steps on one batch (a falling loss, ms a step),
+    the launches of ``rows`` required and of ``idle`` refused.  Returns
+    (setup, the launches of ``rows`` over the steps)."""
+    setup = list(train_setup(dev, model=model, batch=batch,
+                             **{**_zoo_kw(method), **kw}))
+    cfg, cc, frozen, state, data = setup
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    forms = steps_lib.resolve_impls("auto", "auto", cc)
+    print(f"{tag} {cc.trainable_param_count(cfg)} trainable parameters "
+          f"(head apart), {cfg.seq_len} + "
+          f"{cc.vpt_tokens if method.startswith('vpt') else 0} tokens, "
+          f"forms {forms}", flush=True)
+    require(forms == ("fused", "xla"), f"{tag} resolved to {forms}")
+    # AdaptFormer's ReLU flips its gates where bf16 moves h across 0, on
+    # the kernels' path and the plain one alike: its down projection's
+    # gradient is 3-13 % off fp32 on both, so its bound takes every
+    # perturbed copy.
+    grad_check(dev, cfg, cc, frozen, state,
+               {k: v[:grad_batch] for k, v in data.items()}, generator,
+               tag=tag, lazy=method != "adaptformer")
+    before = read_launches(tuple(KERNELS))
+    state, losses, ms, _ = fixed_batch_steps(cfg, cc, frozen, state, data,
+                                             generator, steps, timed=timed)
+    after = read_launches(tuple(KERNELS))
+    setup[3] = state
+    diffs = {name: after[name] - before[name] for name in after}
+    half = len(losses) // 2
+    print(f"{tag} loss over {steps} steps: "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + (f"; ms a step (CUDA events): "
+             + " ".join(f"{v:.3f}" for v in ms) if timed else ""),
+          flush=True)
+    print(f"{tag} launches over the {steps} steps: "
+          f"{ {k: v for k, v in diffs.items() if v} }", flush=True)
+    require(all(np.isfinite(losses)) and statistics.mean(
+        losses[half:]) < statistics.mean(losses[:half]),
+        f"{tag} the loss did not fall (the means of the halves)")
+    for _, name in rows:
+        require(diffs[name] > 0, f"{tag} {name} never launched")
+    for name in idle:
+        require(diffs[name] == 0, f"{tag} {name} launched")
+    return setup, {name: diffs[name] for _, name in rows}
+
+
+def zoo_serving(dev, setup, tmp, batch=64, n_images=64, iters=10,
+                timed=True, model=MODEL) -> str:
+    """The setup's trees saved as a checkpoint and served by
+    ``Predictor.from_checkpoint_auto``: unmerged, and with ``merge=True``
+    (SSF and BitFit fold; VPT and the bottleneck adapters stay unmerged),
+    each within ``LOGIT_RTOL`` of the unmerged fp32 plain forward, row 1
+    launched and no CaRA site; img/s on the host clock.  SSF's unmerged
+    ``quantize="int8"`` forward with ``CARA_INT8_PALLAS=1`` launches row
+    18 4 x depth times within ``QUANT_BOUNDS``.  Returns the path."""
+    cfg, cc, _, state, _ = setup
+    method = cc.method
+    path = os.path.join(tmp, f"vit_{method}_seed_0.npz")
+    params = init_backbone(cfg, 0)
+    params["head"] = ckpt_lib.to_numpy_tree(state.trainable["head"])
+    save_model(path, params, ckpt_lib.to_numpy_tree(state.trainable["cara"]),
+               {**dataclasses.asdict(cc), "model": model})
+    images = make_images(n_images, cfg.image_size, seed=26)
+    kw = dict(batch_size=batch, device=dev, dtype=torch.bfloat16)
+    ref = got_unmerged = None
+    for merge in (False, True):
+        tag = f"[zoo:serve:{method}:{'merged' if merge else 'adapter'}]"
+        pred = Predictor.from_checkpoint_auto(path, model, merge=merge, **kw)
+        folds = method in ("ssf", "bitfit")
+        require((pred._cara is None) == (merge and folds),
+                f"{tag} merged {pred._cara is None}")
+        if ref is None:
+            ref = reference_logits(pred, images)
+        before = read_launches(tuple(KERNELS))
+        got = pred.logits(images)
+        after = read_launches(tuple(KERNELS))
+        diffs = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        rate = ""
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pred.logits(images)
+            rate = (f"; {iters * n_images / (time.perf_counter() - t0):.1f}"
+                    " img/s (Predictor.logits, host clock)")
+        _logit_check(tag[1:-1], got, ref, "the unmerged fp32 plain forward")
+        print(f"{tag} batch {batch}: launches {diffs}{rate}", flush=True)
+        require(diffs.get("fused_qkv_attention", 0) == cfg.depth,
+                f"{tag} row 1 launched {diffs}")
+        require(not set(diffs) & set(ADAPTER_KERNELS),
+                f"{tag} a CaRA site launched: {diffs}")
+        if not merge:
+            got_unmerged = got
+        del pred
+    if method == "ssf":
+        tag = "zoo:serve:ssf:int8:adapter:CARA_INT8_PALLAS=1"
+        pred = Predictor.from_checkpoint_auto(path, model, merge=False,
+                                              quantize="int8", **kw)
+        with int8_switch(True):
+            reset_launches()
+            got = pred.logits(images)
+            count = int8_mod.LAUNCHES
+            print(f"[{tag}] row 18 launches a forward {count} (want "
+                  f"{4 * cfg.depth})"
+                  + (f"; {host_timing(pred, images, batch)}" if timed
+                     else ""), flush=True)
+        require(count == 4 * cfg.depth, f"{tag}: row 18 launched {count}")
+        quant_logit_check(tag, got, got_unmerged, "int8")
+        del pred
+    return path
+
+
+def zoo_phase(dev, batch=64, grad_batch=16, steps=6, long_steps=3,
+              long_batch=8, turn_steps=3, timed=True, model=MODEL,
+              long_model=MODEL_384, long_over=None) -> dict:
+    """The PEFT zoo at ViT-B/16 full width and depth, bf16, batch
+    ``batch``, seed 0 (``ZOO_METHODS``: VPT-Deep and -Shallow at
+    ``ZOO_PROMPTS`` tokens, SSF, BitFit, Houlsby and AdaptFormer at width
+    ``ZOO_RANK`` with dropout ``ZOO_DROP``).  (a) Each method: the
+    gradient check of every trainable leaf on ``grad_batch`` images, then
+    ``steps`` steps (:func:`zoo_train`: rows 1 and 2 launched, no CaRA
+    site).  (b) The methods and CaRA rank 8 (element route) timed in
+    turns, ``turn_steps`` steps each (one more dropped), then the kernels'
+    device time a step by the profiler.  (c) Each method served
+    (:func:`zoo_serving`; SSF also int8 with row 18), SSF's checkpoint
+    exported merged by ``cli.export`` (the merged checkpoint served
+    against the unmerged one) and VPT's refused.  (d) VPT-Deep at
+    ``ZOO_LONG_PROMPTS`` prompts (397 tokens) and at 384 px (585 tokens:
+    the blockwise attention, row 16, and not rows 1 and 2; ``long_model``
+    with ``long_over`` its config's overrides): the gradient check and
+    ``long_steps`` steps on ``long_batch`` images.  Returns the launches
+    of the ``ZOO_FORMS`` entries."""
+    launches = {}
+    setups = {}
+    for method in ZOO_METHODS:
+        setup, rows = zoo_train(dev, method, f"[zoo:{method}]", steps,
+                                grad_batch, batch, model=model, timed=timed)
+        setups[method] = setup
+        if method == "vpt_deep":
+            launches["fused_qkv_attention_205"] = rows["fused_qkv_attention"]
+            launches["fused_qkv_attention_bwd_205"] = rows[
+                "fused_qkv_attention_bwd"]
+    if timed:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(1)
+        setups["cara"] = list(train_setup(dev, model=model, rank=8,
+                                          batch=batch))
+        turns = {k: [] for k in setups}
+        for key, (c, cc, fr, st, da) in setups.items():
+            st, _, ms, _ = fixed_batch_steps(c, cc, fr, st, da, generator,
+                                             turn_steps + 1)
+            setups[key][3] = st
+            turns[key] += ms[1:]
+        device = {k: _device_ms_per_step(*setups[k], generator,
+                                         tag=f"[zoo:{k}:device]", top=3,
+                                         native=True) for k in setups}
+        base_ms = statistics.median(turns["cara"])
+        base_dev = device["cara"][0]
+        for key in setups:
+            med = statistics.median(turns[key])
+            dev_ms, native = device[key]
+            print(f"[zoo] {key}: ms a step by CUDA events in turns "
+                  f"({len(turns[key])} steps) {med:.3f} "
+                  f"({min(turns[key]):.3f}-{max(turns[key]):.3f}), "
+                  f"{med / base_ms:.3f}x CaRA rank 8 (element); device "
+                  f"time by the profiler {dev_ms:.3f} ms a step, "
+                  f"{dev_ms / base_dev:.3f}x (PyTorch's at::native "
+                  f"kernels {native:.3f}, the rest {dev_ms - native:.3f})",
+                  flush=True)
+        setups.pop("cara")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {m: zoo_serving(dev, setups.pop(m), tmp, batch=batch,
+                                timed=timed, model=model)
+                 for m in ZOO_METHODS}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        merged = os.path.join(tmp, "merged.npz")
+        export_cli.main(["--ckpt", ckpts["ssf"], "--out", merged, "--mode",
+                         "merged", "--device", str(dev)])
+        kw = dict(batch_size=batch, device=dev, dtype=torch.bfloat16)
+        got = Predictor.from_checkpoint_auto(merged, model, **kw)
+        images = make_images(batch, got.cfg.image_size, seed=27)
+        got = got.logits(images)
+        want = Predictor.from_checkpoint_auto(ckpts["ssf"], model,
+                                              merge=False,
+                                              **kw).logits(images)
+        _logit_check("zoo:export: the exported merged SSF checkpoint", got,
+                     want, "the unmerged checkpoint")
+        try:
+            export_cli.main(["--ckpt", ckpts["vpt_deep"], "--out", merged,
+                             "--mode", "merged", "--device", str(dev)])
+        except SystemExit as exc:
+            print(f"[zoo:export] VPT refused: {exc}", flush=True)
+            require("cannot fold" in str(exc), f"VPT export: {exc}")
+        else:
+            require(False, "cli.export merged a VPT checkpoint")
+    _, rows = zoo_train(dev, "vpt_deep", "[zoo:vpt_deep:P200]", long_steps,
+                        long_batch, long_batch, model=model, timed=timed,
+                        vpt_tokens=ZOO_LONG_PROMPTS)
+    launches["fused_qkv_attention_397"] = rows["fused_qkv_attention"]
+    launches["fused_qkv_attention_bwd_397"] = rows["fused_qkv_attention_bwd"]
+    long_rows = tuple(("16", name) for name in BLOCKWISE_KERNELS)
+    zoo_train(dev, "vpt_deep", "[zoo:vpt_deep:384]", long_steps, long_batch,
+              long_batch, model=long_model, timed=timed, rows=long_rows,
+              idle=ADAPTER_KERNELS + SHORT_ATTENTION_KERNELS,
+              **(long_over or {}))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 def to_hf_clip(params, cfg) -> dict:
@@ -5768,6 +6045,7 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     results.update(dh_kernel_phase(dev))
+    results.update(dh_kernel_phase(dev, forms=ZOO_FORMS))
     results.update(proj_kernel_phase(dev))
     results.update(rank_kernel_phase(dev))
     determinism_phase(dev)
@@ -5837,6 +6115,10 @@ def main(argv=None) -> int:
     # LoRA and FacT (TT, TK) at ViT-B through the CaRA sites' kernels.
     peft_phase(dev)
     stamp("LoRA and FacT")
+    # VPT, SSF, BitFit and the bottleneck adapters at ViT-B: the fused
+    # attention (rows 1, 2; row 16 at 384 px) and the XLA dense forms.
+    launches.update(zoo_phase(dev))
+    stamp("the PEFT zoo")
     # Gradient accumulation (4 x 16 against one pass of 64) and the NaN
     # check on the element route's setup.
     setup = train.pop("setup")

@@ -186,8 +186,10 @@ def jax_randomness(rng, cfg, batch, cara_cfg=None, attn_impl="fused",
     """``test_torch_port_train.jax_randomness`` plus each layer's masks
     (``t_vit.layer_mask_specs`` for these impls) as ``cara_tpu``'s
     ``_block`` draws them: ``k_do1..3`` and ``k_attn`` from the layer's
-    ``split(skey, 7)``, the element route's dense masks from its
-    ``k_wd_*`` keys (``weight_dropout_mask``)."""
+    ``split(skey, 7)``, the bottleneck adapters' ``ad_attn`` / ``ad_mlp``
+    from the two halves of its ``k_ad`` (the seventh), the element
+    route's dense masks from its ``k_wd_*`` keys
+    (``weight_dropout_mask``)."""
     out = port_train.jax_randomness(rng, cfg, batch, cara_cfg)
     specs = t_vit.layer_mask_specs(cfg, cara_cfg, batch, attn_impl,
                                    dense_impl)
@@ -209,6 +211,10 @@ def jax_randomness(rng, cfg, batch, cara_cfg=None, attn_impl="fused",
                         else cfg.dropout_rate)
                 m[name] = torch.from_numpy(np.array(jax.random.bernoulli(
                     sk[skey_of[name]], 1.0 - rate, shape)))
+            elif kind == "adapter":
+                k_ad = jax.random.split(sk[6])[0 if name == "ad_attn" else 1]
+                m[name] = torch.from_numpy(np.array(jax.random.bernoulli(
+                    k_ad, 1.0 - cara_cfg.adapter_dropout, shape)))
             else:
                 m[name] = torch.from_numpy(np.array(
                     j_cp.weight_dropout_mask(wk[wkey_of[name]], shape,

@@ -228,7 +228,7 @@ def test_torch_split_merge_and_counts_match_jax(method):
     j_model = j_api.build_model(MODEL, method=method, num_classes=7, rank=4)
     assert model.trainable_count == j_model.trainable_count
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_api.build_model(MODEL, method="ssf")
+        t_api.build_model(MODEL, method="moe")
 
 
 def test_torch_no_adapter_checkpoints_cross_load(tmp_path):
@@ -314,7 +314,7 @@ def test_torch_cli_full_trains_and_its_checkpoint_serves(tmp_path,
 
 @pytest.mark.parametrize("extra, match", [
     (["--method", "full", "--weight-dropout", "0.1"], "does not apply"),
-    (["--method", "ssf"], "ROADMAP"),
+    (["--method", "moe"], "ROADMAP"),
     (["--method", "full", "--dense-impl", "fused"], "backbone-weight"),
     (["--pipeline", "2,4"], "ROADMAP")])
 def test_torch_cli_refuses_what_is_not_ported(extra, match):

@@ -152,12 +152,11 @@ def test_torch_multitask_from_checkpoints_matches_jax(tmp_path):
     ("rank", ValueError, "share CP rank/order"),
     ("order", ValueError, "share CP rank/order"),
     ("moe", ValueError, "MoE adapter"),
-    ("ssf", NotImplementedError, "ROADMAP.md queue 1: the PEFT zoo"),
+    ("ssf", ValueError, "low-rank factor trees"),
 ])
 def test_torch_multitask_refuses_mixed_groups_as_jax(group, error, match):
-    """Mixed ranks or orders and MoE trees raise as JAX raises them; an
-    SSF group raises until the PEFT zoo's next slice is ported (JAX
-    refuses it too: a group stacks low-rank factor trees)."""
+    """Mixed ranks or orders, MoE trees and an SSF group raise as JAX
+    raises them (a group stacks low-rank factor trees)."""
     tasks = _tasks()
     if group == "rank":
         tasks["dtd"] = _tasks(rank=8)["dtd"]
@@ -174,8 +173,7 @@ def test_torch_multitask_refuses_mixed_groups_as_jax(group, error, match):
     cfg = get_model_config(MODEL, num_classes=0)
     with pytest.raises(error, match=match):
         t_serving.MultiTaskPredictor(_backbone(), cfg, tasks, device="cpu")
-    with pytest.raises(ValueError, match=(
-            "low-rank factor trees" if group == "ssf" else match)):
+    with pytest.raises(ValueError, match=match):
         j_serving.MultiTaskPredictor(_backbone(), cfg, tasks)
 
 

@@ -161,8 +161,8 @@ def test_vit_forward_train_refuses_unported_routes(field, value):
             cara_cfg=cc, train=True, randomness=rand)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vit.check_trainable(cfg, CaraConfig(method="ssf",
-                                              weight_dropout=0.0))
+        t_vit.check_trainable(cfg, CaraConfig(
+            moe_experts=2, weight_dropout_impl="rank"))
 
 
 def _flat(tree, prefix=""):
