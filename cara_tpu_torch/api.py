@@ -1,7 +1,7 @@
-"""High-level model construction (port of ``cara_tpu/api.py``: CaRA,
-LoRA, FacT-TT / TK, VPT deep / shallow, SSF, BitFit, the Houlsby and
-AdaptFormer bottleneck adapters, and the non-adapter control rows
-``linear`` and ``full``).
+"""High-level model construction (port of ``cara_tpu/api.py``: CaRA
+and its mixture of experts, LoRA, FacT-TT / TK, VPT deep / shallow, SSF,
+BitFit, the Houlsby and AdaptFormer bottleneck adapters, and the
+non-adapter control rows ``linear`` and ``full``).
 
 The reference's public surface is ``cara(config)`` returning a patched
 timm module (``src/cara/cara.py:169-188``); the functional equivalent
@@ -41,7 +41,12 @@ class CaraModel:
         """Adapter parameters only, head excluded: the reference's printed
         "Total parameters" (``vit_cp.py:175-183``).  The non-adapter
         control rows have no adapter tree: ``linear`` reports the head
-        (what trains), ``full`` the whole model."""
+        (what trains), ``full`` the whole model.  A mixture of experts
+        counts its tree: the X experts and the router."""
+        if self.cara_cfg.moe:
+            from cara_tpu_torch.train.checkpoint import flatten_tree
+
+            return sum(a.size for a in flatten_tree(self.cara_params).values())
         return self.cara_cfg.trainable_param_count(self.cfg)
 
 
@@ -74,6 +79,9 @@ def build_model(
     delta_impl: str = "factorized",
     weight_dropout: Optional[float] = None,
     weight_dropout_impl: str = "element",
+    moe_experts: int = 0,
+    moe_top_k: int = 2,
+    moe_aux_coef: float = 0.01,
     model_overrides: Optional[Dict[str, Any]] = None,
     fact_core_rank: int = 0,
     vpt_tokens: int = 8,
@@ -96,7 +104,10 @@ def build_model(
     "ssf", "bitfit", and the bottleneck adapters "adapter" / "adaptformer"
     of width ``rank`` with internal dropout ``adapter_dropout`` (None: 0.1
     for AdaptFormer, its release's, and 0 for Houlsby; ``api.py:98-101``).
-    MoE is not ported (ROADMAP.md queue 1)."""
+    ``moe_experts > 1`` builds CaRA's mixture of experts
+    (``models/moe.py``): the {"experts", "router"} tree, routed top
+    ``moe_top_k``, training adding ``moe_aux_coef`` times the load-balance
+    loss."""
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method={method!r} is not yet ported to cara_tpu_torch "
@@ -113,8 +124,9 @@ def build_model(
         cp_order=cp_order, delta_impl=delta_impl,
         weight_dropout=weight_dropout,
         weight_dropout_impl=weight_dropout_impl,
-        fact_core_rank=fact_core_rank, vpt_tokens=vpt_tokens,
-        adapter_dropout=adapter_dropout)
+        moe_experts=moe_experts, moe_top_k=moe_top_k,
+        moe_aux_coef=moe_aux_coef, fact_core_rank=fact_core_rank,
+        vpt_tokens=vpt_tokens, adapter_dropout=adapter_dropout)
     # A given num_classes always gets a fresh head; otherwise the npz's
     # own head is kept where its width matches.
     load_cfg = cfg if num_classes is None else dataclasses.replace(

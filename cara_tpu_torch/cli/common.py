@@ -26,7 +26,6 @@ _PEFT = "ROADMAP.md queue 1: the PEFT zoo"
 _PARALLEL = "ROADMAP.md queue 1: parallelism"
 # dest -> (default, where the feature stands).
 UNPORTED = {
-    "moe": (None, _PEFT),
     "mesh": (None, _PARALLEL), "hbm_gb": (None, _PARALLEL),
     "dcn_mesh": (None, _PARALLEL), "pipeline": (None, _PARALLEL),
     "fsdp": (False, _PARALLEL), "distributed": (False, _PARALLEL),
@@ -105,7 +104,11 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "element-wise weight dropout (the reference's "
                         "exact semantics, the XLA dense forms)")
     p.add_argument("--mesh", default=None, type=str)
-    p.add_argument("--moe", default=None, type=str)
+    p.add_argument("--moe", default=None, type=str, metavar="X[,K]",
+                   help="Mixture-of-expert adapters (models/moe.py): X "
+                        "CaRA adapters with a per-token top-K router "
+                        "(default K=2); implies weight-dropout-impl rank "
+                        "and the XLA dense forms")
     p.add_argument("--hbm-gb", default=None, type=float)
     p.add_argument("--dcn-mesh", default=None, type=str)
     p.add_argument("--pipeline", default=None, type=str)
@@ -170,10 +173,12 @@ def refuse_unported(args) -> None:
 
 def adapter_impl_kwargs(args) -> dict:
     """``build_model`` keyword arguments of the adapter flags
-    (``cara_tpu/cli/common.py:197-218``): the weight-dropout impl, the
-    method, FacT-TK's ``--fact-core-rank``, VPT's ``--vpt-tokens`` and
-    the bottleneck adapters' ``--adapter-dropout`` (0.1 for AdaptFormer,
-    0 for Houlsby when not given)."""
+    (``cara_tpu/cli/common.py:197-243``): the weight-dropout impl, the
+    method, FacT-TK's ``--fact-core-rank``, VPT's ``--vpt-tokens``, the
+    bottleneck adapters' ``--adapter-dropout`` (0.1 for AdaptFormer, 0
+    for Houlsby when not given) and ``--moe X[,K]`` (CaRA only; K is
+    min(2, X) when not given), which turns the element impl into the rank
+    one with a printed note."""
     kw = {"weight_dropout_impl": args.weight_dropout_impl}
     method = getattr(args, "method", "cara")
     if method != "cara":
@@ -187,6 +192,28 @@ def adapter_impl_kwargs(args) -> dict:
         if rate is None:
             rate = 0.1 if method == "adaptformer" else 0.0
         kw["adapter_dropout"] = float(rate)
+    spec = getattr(args, "moe", None)
+    if not spec:
+        return kw
+    if method != "cara":
+        raise SystemExit("--moe is CaRA-only (models.moe stacks CP factor "
+                         f"trees); drop --method {method} or --moe")
+    try:
+        parts = [int(v) for v in spec.split(",")]
+    except ValueError:
+        raise SystemExit(f"--moe wants 'X[,K]' integers, got {spec!r}")
+    if len(parts) not in (1, 2):
+        raise SystemExit(f"--moe wants 'X[,K]', got {spec!r}")
+    x = parts[0]
+    k = parts[1] if len(parts) > 1 else min(2, x)
+    if x < 2 or k < 1 or k > x:
+        raise SystemExit(
+            f"--moe wants X >= 2 experts and 1 <= K <= X, got {spec!r}")
+    kw.update(moe_experts=x, moe_top_k=k)
+    if kw["weight_dropout_impl"] == "element":
+        print("--moe: weight-dropout-impl element -> rank "
+              "(MoE semantics, models/moe.py)")
+        kw["weight_dropout_impl"] = "rank"
     return kw
 
 

@@ -6,7 +6,8 @@ a merged, adapter-only, full or reference ``.pt`` artifact.
   FacT's factors, SSF's scales and shifts or BitFit's bias deltas, the
   method from the checkpoint's meta or its tree) into the dense backbone
   (exact in eval): a plain ViT for serving, no adapter cost.  VPT's
-  prompts and the bottleneck adapters cannot fold and are refused.  The
+  prompts, the bottleneck adapters and a mixture of experts (its
+  per-token routing) cannot fold and are refused.  The
   fold runs in fp32 on ``--device`` (the card by default) with TF32 off,
   so the merged weights are those of JAX's fp32 merge.
 * ``--mode adapter`` keeps only the adapter tree and the head (an npz
@@ -19,8 +20,9 @@ a merged, adapter-only, full or reference ``.pt`` artifact.
 
 The scale and model checks are JAX's: a merged or adapter export needs
 the delta scale (from the checkpoint's meta or ``--scale``) and a merge
-the model (meta or ``--model``).  ``--mode stablehlo`` and ``--tome-r``
-are not ported (ROADMAP.md queue 1: the PEFT zoo).
+the model (meta or ``--model``).  ``--mode stablehlo`` is not ported
+(ROADMAP.md queue 1: the PEFT zoo); ``--quantize`` and ``--tome-r``
+apply to it alone, as in JAX.
 
     python -m cara_tpu_torch.cli.export --ckpt vit_svhn_*.npz \\
         --out merged.npz --mode merged [--device cpu]
@@ -77,7 +79,9 @@ def parse_args(argv=None):
     p.add_argument("--platforms", default="cpu,tpu", help=argparse.SUPPRESS)
     p.add_argument("--quantize", default=None,
                    choices=[None, "int8", "w8a8"], help=argparse.SUPPRESS)
-    p.add_argument("--tome-r", default=0, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--tome-r", default=0, type=int,
+                   help="ToMe token merging: only with --mode stablehlo "
+                        "(merge at serve time instead: serve --tome-r)")
     return p.parse_args(argv)
 
 
@@ -102,8 +106,9 @@ def main(argv=None) -> str:
             "full-precision weights; quantize at serve time instead: "
             "serve --quantize)")
     if args.tome_r:
-        raise SystemExit(f"--tome-r is not yet ported to cara_tpu_torch "
-                         f"({_PEFT})")
+        raise SystemExit(
+            "--tome-r only applies to --mode stablehlo (npz modes keep the "
+            "exact forward; merge at serve time instead: serve --tome-r)")
     if torch_import.is_torch_checkpoint(args.ckpt):
         # A reference .pt: converted in memory, then exported like an
         # npz; it records no model name and no scale.
@@ -174,6 +179,11 @@ def main(argv=None) -> str:
                 cara_params, meta, scale=scale, cp_order=args.cp_order)
         except (ValueError, NotImplementedError) as exc:
             raise SystemExit(str(exc))
+        if cara_cfg.moe:
+            raise SystemExit(
+                "MoE adapters cannot be merged (per-token routing is "
+                "input-dependent); use --mode adapter/full, or --mode "
+                "stablehlo which embeds the unmerged forward")
         device = resolve_device(args.device)
         with _no_tf32():
             try:

@@ -7,9 +7,10 @@ resize, the reference's normalization), then runs
 with the adapter folded into the dense weights (``--no-merge`` keeps
 it; VPT prompts and bottleneck adapters always stay unfolded), and
 prints one JSON line an image: its top-k classes and their logits.
-The native C++ decoder that JAX tries first is not ported (ROADMAP.md
-queue 1: training modules still to port), nor ``--exported`` and
-``--tome-r`` (ROADMAP.md queue 1: the PEFT zoo).  A reference ``.pt``
+``--tome-r R`` merges R token pairs a layer (``models/tome.py``; merged
+path only).  The native C++ decoder that JAX tries first is not ported
+(ROADMAP.md queue 1: training modules still to port), nor ``--exported``
+(ROADMAP.md queue 1: the PEFT zoo).  A reference ``.pt``
 checkpoint needs ``--scale`` when it carries an adapter.
 
     python -m cara_tpu_torch.cli.predict --ckpt vit_svhn_*.npz \\
@@ -49,7 +50,9 @@ def parse_args(argv=None):
                    help="Delta scale (default: from checkpoint meta; "
                         "required if the checkpoint records none)")
     p.add_argument("--top", default=1, type=int, help="Top-k to report")
-    p.add_argument("--tome-r", default=0, type=int, help="not yet ported")
+    p.add_argument("--tome-r", default=0, type=int,
+                   help="ToMe token merging: merge this many token pairs "
+                        "a layer (models/tome.py); merged path only")
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: cuda, which needs a card)")
     p.add_argument("--dtype", default="bfloat16",
@@ -60,15 +63,18 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.exported or args.tome_r:
-        raise SystemExit(f"--exported and --tome-r are not yet ported to "
-                         f"cara_tpu_torch ({_PEFT})")
+    if args.exported:
+        raise SystemExit(f"--exported is not yet ported to cara_tpu_torch "
+                         f"({_PEFT})")
     if args.ckpt is None:
         raise SystemExit("pass --ckpt")
+    if args.tome_r and args.no_merge:
+        raise SystemExit("--tome-r needs the merged dense forward; drop "
+                         "--no-merge")
     try:
         pred = Predictor.from_checkpoint_auto(
             args.ckpt, args.model, num_classes=args.num_classes,
-            scale=args.scale, merge=not args.no_merge,
+            scale=args.scale, merge=not args.no_merge, tome_r=args.tome_r,
             batch_size=args.batch_size, dtype=getattr(torch, args.dtype),
             device=resolve_device(args.device))
     except ValueError as exc:  # e.g. missing delta scale

@@ -11,9 +11,10 @@ weight-only GEMMs run the dequant-fused int8 kernel on the card (TPU row
 18).  Several ``--ckpt`` (each ``name=path``, or a path named by the
 dataset in its meta) serve those task adapters over one shared backbone
 (``serving.MultiTaskPredictor``; ``--backbone X.npz`` where every
-checkpoint is adapter-only): ``POST /predict?task=<name>``.  The options
-of the JAX CLI that serve a StableHLO artifact or ToMe are accepted but
-refused, naming the ROADMAP item that ports them.
+checkpoint is adapter-only): ``POST /predict?task=<name>``.  ``--tome-r
+R`` serves one merged checkpoint with ToMe token merging
+(``models/tome.py``).  ``--exported`` (a StableHLO artifact) is accepted
+but refused, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -74,7 +75,10 @@ def parse_args(argv=None):
     p.add_argument("--backbone", default=None,
                    help="Multi-task: the shared backbone npz when every "
                         "--ckpt is adapter-only")
-    p.add_argument("--tome-r", default=0, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--tome-r", default=0, type=int,
+                   help="ToMe token merging: merge this many token pairs "
+                        "a layer (models/tome.py); single-task merged "
+                        "serving only")
     return p.parse_args(argv)
 
 
@@ -110,13 +114,15 @@ def _parse_buckets(spec: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, value in (("--exported", args.exported),
-                        ("--tome-r", args.tome_r)):
-        if value:
-            raise SystemExit(f"{flag} is not yet ported to cara_tpu_torch "
-                             f"({_PEFT}; use python -m cara_tpu.cli.serve)")
+    if args.exported:
+        raise SystemExit(f"--exported is not yet ported to cara_tpu_torch "
+                         f"({_PEFT}; use python -m cara_tpu.cli.serve)")
     if not args.ckpt:
         raise SystemExit("pass --ckpt")
+    if args.tome_r and (args.no_merge or len(args.ckpt) > 1):
+        raise SystemExit("--tome-r serves a single merged checkpoint (not "
+                         "--exported / --no-merge / multi-task: token "
+                         "merging needs the dense in-process forward)")
     kw = dict(batch_size=args.max_batch, dtype=getattr(torch, args.dtype),
               device=args.device, buckets=_parse_buckets(args.buckets),
               quantize=args.quantize)
@@ -144,7 +150,8 @@ def main(argv=None):
     else:
         pred = Predictor.from_checkpoint_auto(
             args.ckpt[0], args.model, num_classes=args.num_classes,
-            scale=args.scale, merge=not args.no_merge, **kw)
+            scale=args.scale, merge=not args.no_merge,
+            tome_r=args.tome_r, **kw)
 
     from cara_tpu_torch.server import InferenceServer
 

@@ -1,6 +1,8 @@
 """Main train/eval CLI (port of ``cara_tpu/cli/vit_cp.py``): published
 order-4 CaRA with exact element-wise weight dropout, or the structured
-rank / row weight dropout (``--weight-dropout-impl``); with ``--method
+rank / row weight dropout (``--weight-dropout-impl``), or with ``--moe
+X[,K]`` X CaRA experts behind a per-token top-K router (rank weight
+dropout, the XLA dense forms); with ``--method
 lora`` (``--lora-alpha``) or ``fact_tt`` / ``fact_tk`` (``--fact-scale``,
 ``--fact-core-rank``) the paper's comparison adapters, through the same
 site kernels; with ``--method vpt_deep|vpt_shallow`` (``--vpt-tokens``),
@@ -120,7 +122,19 @@ def main(argv=None) -> float:
                     cara_cfg, rank=info["rank"], cp_order=info["cp_order"])
         else:
             params, cara_params, meta = ckpt_lib.load_model(args.evaluate)
-            if cara_params is not None and "A1" not in cara_params:
+            if cara_params is not None and "router" in cara_params:
+                # a mixture of experts: its routing from the meta (the
+                # router's width where it records none), so that --moe
+                # need not be repeated at eval
+                cara_cfg = dataclasses.replace(
+                    cara_cfg,
+                    moe_experts=int(meta.get(
+                        "moe_experts",
+                        cara_params["router"]["kernel"].shape[-1])),
+                    moe_top_k=int(meta.get("moe_top_k", 2)),
+                    weight_dropout_impl=meta.get("weight_dropout_impl",
+                                                 "rank"))
+            elif cara_params is not None and "A1" not in cara_params:
                 # LoRA / FacT / VPT / SSF / BitFit / bottleneck adapters:
                 # method, rank and scale from the artifact, so --method
                 # need not be repeated at eval

@@ -70,49 +70,59 @@ def qkv_uv(params: Dict[str, torch.Tensor], f1: torch.Tensor,
            comp_mask: Optional[torch.Tensor] = None):
     """Collapse the qkv CP factors into ``delta = (x @ U) @ V`` with
     U (E, r) and V (r, 3E), the V columns out-flat (3, H, Dh).
-    ``comp_mask`` (r,) multiplies lambda (rank weight dropout)."""
+    ``comp_mask`` (r,) multiplies lambda (rank weight dropout).  Every
+    leaf may carry leading axes (the experts' stack of ``models/moe.py``,
+    JAX's ``vmap`` of this function): U (..., E, r), V (..., r, 3E)."""
     e, r = model.embed_dim, cara.rank
     order = cara.cp_order
+    lead = f1.shape[:-2]
+
+    def flat_t(m):  # (..., 3, a, b, r) -> (..., r, 3E)
+        return m.reshape(*lead, 3 * e, r).transpose(-1, -2)
+
     if order == 4:
         lam = params["R1"] if comp_mask is None else params["R1"] * comp_mask
-        m = ((f1 * lam[None, :])[:, None, None, :]
-             * params["A3"][None, :, None, :]
-             * params["A4"][None, None, :, :])
-        return params["A2"], m.reshape(3 * e, r).T
+        m = ((f1 * lam[..., None, :])[..., :, None, None, :]
+             * params["A3"][..., None, :, None, :]
+             * params["A4"][..., None, None, :, :])
+        return params["A2"], flat_t(m)
     if order == 5:
-        lam = params["R1"] * f1[0]
+        lam = params["R1"] * f1[..., 0, :]
         if comp_mask is not None:
             lam = lam * comp_mask
-        m = ((params["A2"] * lam[None, :])[:, None, None, :]
-             * params["A4"][None, :, None, :]
-             * params["A5"][None, None, :, :])
-        return params["A3"], m.reshape(3 * e, r).T
+        m = ((params["A2"] * lam[..., None, :])[..., :, None, None, :]
+             * params["A4"][..., None, :, None, :]
+             * params["A5"][..., None, None, :, :])
+        return params["A3"], flat_t(m)
     if order == 3:
         lam = params["R1"] if comp_mask is None else params["R1"] * comp_mask
-        m = (f1 * lam[None, :])[:, None, :] * params["A3"][None]
-        return params["A2"], m.reshape(3 * e, r).T
+        m = ((f1 * lam[..., None, :])[..., :, None, :]
+             * params["A3"][..., None, :, :])
+        return params["A2"], flat_t(m)
     raise ValueError(f"qkv_uv unsupported for cp_order={order}")
 
 
 def rows_out_uv(p1, p2, p3, r2, comp_mask=None):
     """(U, V) for the ``x @ T.T`` sites (projection, MLP up):
-    U = p3 (E, r), V (r, rows*E); ``comp_mask`` multiplies lambda."""
+    U = p3 (E, r), V (r, rows*E); ``comp_mask`` multiplies lambda.
+    Leading axes ride along, as in :func:`qkv_uv`."""
     lam = r2 if comp_mask is None else r2 * comp_mask
-    rows, r = p1.shape
-    e = p2.shape[0]
-    v = ((p1 * lam[None, :])[:, None, :] * p2[None, :, :]).reshape(
-        rows * e, r).T
-    return p3, v
+    *lead, rows, r = p1.shape
+    e = p2.shape[-2]
+    v = ((p1 * lam[..., None, :])[..., :, None, :]
+         * p2[..., None, :, :]).reshape(*lead, rows * e, r)
+    return p3, v.transpose(-1, -2)
 
 
 def rows_in_uv(p1, p2, p3, r2, comp_mask=None):
     """(U, V) for the ``x @ T`` site (MLP down): U (rows*E, r), V (r, E);
-    ``comp_mask`` multiplies lambda."""
+    ``comp_mask`` multiplies lambda.  Leading axes ride along."""
     lam = r2 if comp_mask is None else r2 * comp_mask
-    rows, r = p1.shape
-    e = p2.shape[0]
-    u = (p1[:, None, :] * p2[None, :, :]).reshape(rows * e, r)
-    return u, lam[:, None] * p3.T
+    *lead, rows, r = p1.shape
+    e = p2.shape[-2]
+    u = (p1[..., :, None, :] * p2[..., None, :, :]).reshape(
+        *lead, rows * e, r)
+    return u, lam[..., :, None] * p3.transpose(-1, -2)
 
 
 def qkv_delta(x: torch.Tensor, params: Dict[str, torch.Tensor],

@@ -148,9 +148,14 @@ def init_cara_params(cfg: ViTConfig, cara_cfg: CaraConfig,
     bottleneck adapters' down / up pairs (``models/vpt.py``, ``ssf.py``,
     ``bitfit.py``, ``adapter.py``), or CaRA's factors with the reference's
     init scheme: xavier A1/P1, orthogonal mode factors, zero contract-mode
-    factors (A2 at order 4, P2) and biases.  The delta is exactly 0 but
-    for VPT's prompts and SSF's near-identity draw."""
+    factors (A2 at order 4, P2) and biases; with ``cara_cfg.moe`` the
+    {"experts", "router"} tree of ``models/moe.py``.  The delta is
+    exactly 0 but for VPT's prompts and SSF's near-identity draw."""
     method = cara_cfg.method
+    if cara_cfg.moe:
+        from cara_tpu_torch.models.moe import init_moe_params
+
+        return init_moe_params(cfg, cara_cfg, seed)
     if method in VPT_METHODS:
         from cara_tpu_torch.models.vpt import init_vpt_params
 

@@ -79,12 +79,15 @@ def merge_cara(params: Dict[str, Any], cara_params: Dict[str, Any],
         return fact_lib.merge_fact(params, cara_params, model, cara)
     if cara.method == "lora" or lora_lib.is_lora_params(cara_params):
         return lora_lib.merge_lora(params, cara_params, model, cara)
+    if cara.moe or ("experts" in cara_params and "router" in cara_params):
+        raise ValueError(
+            "MoE adapters cannot be merged into the dense backbone — the "
+            "delta is input-dependent (per-token routing); serve them "
+            "unmerged (adapter checkpoints work in eval/serving as-is)")
     if cara.method != "cara" or "A1" not in cara_params:
         raise NotImplementedError(
             f"merge for method={cara.method!r} is not yet ported to "
             "cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
-    if cara.moe:
-        raise ValueError("MoE adapters cannot be merged (per-token routing)")
     e, mr, n_layers = model.embed_dim, model.mlp_ratio, model.depth
     s = cara.scale
     a1, p1 = cara_lib.stacked_layer_slices(cara_params, model, cara)

@@ -1,9 +1,9 @@
-"""Forward of the Vision Transformer with optional CaRA, LoRA or FacT
-adapters, or the PEFT zoo's VPT prompts, SSF, BitFit and bottleneck
-adapters (port of ``cara_tpu/models/vit.py``): eval, and the training
-forward of the
-element-wise, rank, row and no weight-dropout routes and of the backbone
-without an adapter, with drop-path, activation dropout
+"""Forward of the Vision Transformer with optional CaRA (or its mixture
+of experts), LoRA or FacT adapters, or the PEFT zoo's VPT prompts, SSF,
+BitFit and bottleneck adapters (port of ``cara_tpu/models/vit.py``):
+eval, and the training forward of the element-wise, rank, row and no
+weight-dropout routes and of the backbone without an adapter, with
+drop-path, activation dropout
 (``cfg.dropout_rate``) and attention dropout (``cfg.attn_dropout_rate``).
 
 Layouts are the JAX package's: NHWC images, (in, out) kernels, blocks
@@ -87,6 +87,7 @@ from cara_tpu_torch.models import bitfit as bitfit_lib
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import fact as fact_lib
 from cara_tpu_torch.models import lora as lora_lib
+from cara_tpu_torch.models import moe as moe_lib
 from cara_tpu_torch.models import ssf as ssf_lib
 from cara_tpu_torch.models import vpt as vpt_lib
 from cara_tpu_torch.models.quant import is_quantized
@@ -296,7 +297,7 @@ def draw_layer_masks(specs, cfg: ViTConfig, cara_cfg, generator, device,
 
 def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
            rand=None, attn_impl="fused", dense_impl="fused", scale=None,
-           ad=None):
+           ad=None, moe_gates=None):
     """One transformer block (``cara_tpu``'s ``_block``).  In eval
     (``rand`` None) drop-path and dropout are identities; in training
     ``rand`` holds the layer's randomness: ``seeds`` (qkv, proj, fc1,
@@ -314,7 +315,12 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     {site: {kernel, bias}} (``cara_params`` None, ``cara_cfg`` the
     adapter's): Houlsby's modules on the projection's and fc2's outputs,
     AdaptFormer's beside the MLP on the pre-LN2 stream, scaled
-    (``vit.py:866-885, 1079-1087``)."""
+    (``vit.py:866-885, 1079-1087``).  ``moe_gates`` (B, N, X) are the
+    router's gates of a mixture of experts (``models/moe.py``):
+    ``cara_params`` is then the expert-stacked tree, ``f1`` / ``p1`` its
+    (X, rows, r) slices, ``comp`` (4, X, r), and each site adds the
+    gate-weighted delta and bias of ``moe_lib`` on the XLA dense forms
+    (``vit.py:743-751, 783-788, 837-843, 998-1004, 1051-1057``)."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     mr = cfg.mlp_ratio
     b, n = x.shape[:2]
@@ -325,6 +331,7 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
     long = n > fqa_mod.MAX_NP_FULL_SCORES
     use_cara = cara_params is not None
     lora = use_cara and cara_cfg.method == "lora"
+    moe = moe_gates is not None
     rate = cara_cfg.weight_dropout if use_cara else 0.0
     # The materialized delta (and CP order 2, whose dense forms
     # ``resolve_impls`` pins) draws its element masks in ``masks``.
@@ -408,7 +415,10 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         else:
             p2, p3, r2 = (cara_params["P2"], cara_params["P3"],
                           cara_params["R2"])
-            p1_up, p1_down = p1[1:1 + mr], p1[1 + mr:1 + 2 * mr]
+            # P1's rows of the layer (an expert axis leads under MoE)
+            p1_proj, p1_up, p1_down = (p1[..., 0:1, :],
+                                       p1[..., 1:1 + mr, :],
+                                       p1[..., 1 + mr:1 + 2 * mr, :])
 
             def adapter_uv(site, comp):
                 if site == 0:
@@ -416,12 +426,12 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                                            comp)
                 if site == 3:
                     return cara_lib.rows_in_uv(p1_down, p2, p3, r2, comp)
-                return cara_lib.rows_out_uv(p1[0:1] if site == 1 else p1_up,
+                return cara_lib.rows_out_uv(p1_proj if site == 1 else p1_up,
                                             p2, p3, r2, comp)
 
-            cb_proj, cb_up, cb_down = (cara_params["bias1"],
-                                       cara_params["bias2"],
-                                       cara_params["bias3"])
+            cb_proj, cb_up, cb_down = (
+                moe_lib.moe_bias(moe_gates, cara_params[k]) if moe
+                else cara_params[k] for k in ("bias1", "bias2", "bias3"))
 
         def site_uv(site):
             """The site's (U, V), rank mask on V, row mask on U."""
@@ -479,6 +489,9 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
             qkv = _dense(xa, bp["qkv"], impl)
             if lora:
                 delta = lora_delta(xa, 0)
+            elif moe:
+                delta = moe_lib.moe_qkv_delta(xa, cara_params, f1, moe_gates,
+                                              cfg, cara_cfg, site_comp(0))
             elif use_cara:
                 delta = cara_lib.qkv_delta(
                     row_x(xa, 0), cara_params, f1, cfg, cara_cfg,
@@ -516,12 +529,16 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
                 if lora:  # no adapter bias
                     proj = proj + lora_delta(attn_out, 1) * s
                 elif use_cara:
-                    if use_elem or materialized:
+                    if moe:
+                        pd = moe_lib.moe_rows_delta_out(
+                            attn_out, p1_proj, cara_params, moe_gates,
+                            site_comp(1))
+                    elif use_elem or materialized:
                         pd = cp_ops.rows_delta_out_materialized(
-                            attn_out, p1[0:1], p2, p3, r2, wmask("proj"))
+                            attn_out, p1_proj, p2, p3, r2, wmask("proj"))
                     else:
                         pd = cp_ops.rows_delta_out_factorized(
-                            row_x(attn_out, 1), p1[0:1], p2, p3, r2,
+                            row_x(attn_out, 1), p1_proj, p2, p3, r2,
                             site_comp(1))
                     proj = proj + (pd + cb_proj) * s
         if ad_seq:  # Houlsby: z + up(gelu(down(z))) on the sublayer output
@@ -574,7 +591,10 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         if lora:
             up = up + lora_delta(xm, 2) * s
         elif use_cara:
-            if use_elem or materialized:
+            if moe:
+                ud = moe_lib.moe_rows_delta_out(xm, p1_up, cara_params,
+                                                moe_gates, site_comp(2))
+            elif use_elem or materialized:
                 ud = cp_ops.rows_delta_out_materialized(
                     xm, p1_up, p2, p3, r2, wmask("fc1"))
             else:
@@ -594,7 +614,10 @@ def _block(x, bp, f1, p1, cfg: ViTConfig, cara_params, cara_cfg, impl,
         if lora:
             down = down + lora_delta(hidden, 3) * s
         elif use_cara:
-            if use_elem or materialized:
+            if moe:
+                dd = moe_lib.moe_rows_delta_in(hidden, p1_down, cara_params,
+                                               moe_gates, site_comp(3))
+            elif use_elem or materialized:
                 dd = cp_ops.rows_delta_in_materialized(
                     hidden, p1_down, p2, p3, r2, wmask("fc2"))
             else:
@@ -613,10 +636,12 @@ def check_trainable(cfg: ViTConfig, cara_cfg: Optional[CaraConfig]) -> None:
     an adapter (the linear probe and full fine-tuning)."""
     if cara_cfg is None:
         return
-    if cara_cfg.method not in ADAPTER_METHODS + ZOO_METHODS or cara_cfg.moe:
+    if cara_cfg.method not in ADAPTER_METHODS + ZOO_METHODS:
         raise NotImplementedError(
-            f"training method={cara_cfg.method!r} (moe={cara_cfg.moe}) is "
-            "not yet ported (ROADMAP.md queue 1: the PEFT zoo)")
+            f"training method={cara_cfg.method!r} is not yet ported "
+            "(ROADMAP.md queue 1: the PEFT zoo)")
+    if cara_cfg.moe:
+        moe_lib.validate_moe(cara_cfg, train=True)
     if cara_cfg.weight_dropout_impl not in WEIGHT_DROPOUT_IMPLS:
         raise ValueError(
             f"weight_dropout_impl must be one of {WEIGHT_DROPOUT_IMPLS}, "
@@ -635,7 +660,8 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
     ``dtype``: ``bernoulli(1 - r) / (1 - r)`` with r from
     ``linspace(0, drop_path_rate, depth)`` (``_dp_gate``).  With
     ``cara_cfg`` at a rate above 0, the rank route adds ``comp`` (depth,
-    4, r) (``_rank_comp``) and the row route ``rows``, four (depth, K)
+    4, r) (``_rank_comp``; (depth, 4, X, r) for X experts, ``moe.py``'s
+    ``_comp_masks``) and the row route ``rows``, four (depth, K)
     masks for the qkv, proj, fc1 (K = E) and fc2 (K = hidden) sites
     (``_row_u``), all inverted masks in ``dtype``.  The dropout masks
     (:func:`layer_mask_specs` for these impls) are drawn per layer inside
@@ -657,8 +683,10 @@ def draw_randomness(cfg: ViTConfig, batch: int, device,
     if materialized_delta(cara_cfg):
         rate = 0.0  # element masks on the dense deltas, in ``masks``
     if rate > 0.0 and cara_cfg.weight_dropout_impl == "rank":
-        out["comp"] = weight_dropout_mask((depth, 4, cara_cfg.rank), rate,
-                                          dtype, generator, device)
+        experts = (cara_cfg.moe_experts,) if cara_cfg.moe else ()
+        out["comp"] = weight_dropout_mask(
+            (depth, 4, *experts, cara_cfg.rank), rate, dtype, generator,
+            device)
     elif rate > 0.0 and cara_cfg.weight_dropout_impl == "row":
         e = cfg.embed_dim
         out["rows"] = [weight_dropout_mask((depth, k), rate, dtype,
@@ -705,7 +733,9 @@ def resolve_impls(attn_impl: str, dense_impl: str,
     low-rank delta for the fused sites: "auto" resolves to the fused
     attention and the XLA dense forms (``vit.py:1118-1128``), and the
     bottleneck adapters refuse "fused", which has no point to insert them
-    at (``vit.py:1271-1276``)."""
+    at (``vit.py:1271-1276``).  Mixture-of-expert adapters take the XLA
+    dense forms and refuse "fused", whose kernels have no expert axis
+    (``vit.py:1287-1291``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
@@ -716,6 +746,11 @@ def resolve_impls(attn_impl: str, dense_impl: str,
     adapter = method in ADAPTER_METHODS
     attn_impl = "fused" if attn_impl == "auto" else attn_impl
     if adapter and (cara_cfg.cp_order == 2 or materialized_delta(cara_cfg)):
+        dense_impl = "xla"
+    if cara_cfg is not None and cara_cfg.moe:
+        if dense_impl == "fused":
+            raise ValueError("MoE adapters require dense_impl='xla' — the "
+                             "fused factor kernels have no expert axis")
         dense_impl = "xla"
     if dense_impl == "auto":
         dense_impl = "fused" if adapter and not quantized else "xla"
@@ -748,8 +783,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                 randomness: Optional[Dict[str, Any]] = None,
                 attn_impl: str = "auto",
                 dense_impl: str = "auto", remat=False,
-                scale_override: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                scale_override: Optional[torch.Tensor] = None,
+                return_moe_aux: bool = False):
     """Images (B, H, W, C) NHWC -> logits (B, num_classes).
 
     ``params`` / ``cara_params`` are tensor trees on ``x``'s device (see
@@ -785,7 +820,14 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     VPT-Deep replaces them before every block, and a mean-pool model
     strips them before its head (``vit.py:1337-1340, 1415-1420,
     1451-1454``).  The bottleneck adapters ride the blocks as per-layer
-    slices of their tree (``_block``'s ``ad``)."""
+    slices of their tree (``_block``'s ``ad``).
+
+    Mixture-of-expert adapters (``cara_cfg.moe``, ``models/moe.py``) take
+    the {"experts", "router"} tree: the router runs once on the post-stem
+    tokens (after the position embedding and ``ln_pre``) and its gates
+    ride every block (``vit.py:1360-1368``).  ``return_moe_aux=True``
+    returns ``(logits, aux)``, aux the load-balance loss (a 0-d fp32
+    zero without MoE), which training adds times ``moe_aux_coef``."""
     if (cara_params is None) != (cara_cfg is None):
         raise ValueError("cara_params and cara_cfg must be provided together")
     if impl not in IMPLS:
@@ -793,10 +835,17 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     prompts = ad_tree = None
     if cara_cfg is not None:
         method = cara_cfg.method
-        if method not in ADAPTER_METHODS + ZOO_METHODS or cara_cfg.moe:
+        if method not in ADAPTER_METHODS + ZOO_METHODS:
             raise NotImplementedError(
-                f"method={method!r} (moe={cara_cfg.moe}) is not yet "
-                "ported to cara_tpu_torch (ROADMAP.md queue 1: the PEFT zoo)")
+                f"method={method!r} is not yet ported to cara_tpu_torch "
+                "(ROADMAP.md queue 1: the PEFT zoo)")
+        if cara_cfg.moe:
+            moe_lib.validate_moe(cara_cfg, train=train)
+            if not moe_lib.is_moe_params(cara_params):
+                raise ValueError(
+                    "cara_cfg.moe_experts > 1 wants the {'experts', "
+                    "'router'} param tree from models.moe.init_moe_params; "
+                    f"got keys {sorted(cara_params)}")
         if method == "ssf":
             if not ssf_lib.is_ssf_params(cara_params):
                 raise ValueError(
@@ -846,8 +895,9 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
                     "cara_cfg.method='lora' wants the per-site {a, b} tree "
                     "of models.lora.init_lora_params; got keys "
                     f"{sorted(cara_params)}")
-        elif method == "cara" and (not isinstance(cara_params, dict)
-                                   or "A1" not in cara_params):
+        elif method == "cara" and not cara_cfg.moe and (
+                not isinstance(cara_params, dict)
+                or "A1" not in cara_params):
             raise ValueError("cara_cfg.method='cara' wants the CP factor tree "
                              "(A1..., P1-P3, R1/R2, bias1-3)")
     attn_impl, dense_impl = resolve_impls(
@@ -871,8 +921,13 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
     if prompts is not None:  # between the cls and the patch tokens
         tokens = vpt_lib.insert_prompts(tokens, prompts[0], pos0)
     ad_layers = None if ad_tree is None else _unstack(ad_tree, cfg.depth)
-    a1 = p1 = None
-    if cara_params is not None and cara_cfg.method == "lora":
+    a1 = p1 = gates = aux = None
+    if cara_params is not None and cara_cfg.moe:
+        gates, aux = moe_lib.route(tokens, cara_params["router"],
+                                   cara_cfg.moe_top_k)
+        cara_params = cara_params["experts"]
+        a1, p1 = moe_lib.moe_stacked_layer_slices(cara_params, cfg, cara_cfg)
+    elif cara_params is not None and cara_cfg.method == "lora":
         # LoRA's layer stacks, one unbind a leaf (see ``_unstack``)
         qkv_stack, rest = lora_lib.layer_stacks(cara_params)
         a1, p1 = _unstack(qkv_stack, cfg.depth), _unstack(rest, cfg.depth)
@@ -907,7 +962,8 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
             cara_params=cara_params, cara_cfg=cara_cfg, impl=impl,
             rand=rand, attn_impl=attn_impl, dense_impl=dense_impl,
             scale=scale_override,
-            ad=None if ad_layers is None else ad_layers[layer])
+            ad=None if ad_layers is None else ad_layers[layer],
+            moe_gates=gates)
         if remat:
             # Every random input is drawn already: no RNG state to keep.
             tokens = checkpoint_lib.checkpoint(
@@ -930,6 +986,10 @@ def vit_forward(params: Params, x: torch.Tensor, cfg: ViTConfig,
         feat = torch.tanh(linear(feat, pl_["kernel"], pl_["bias"]))
     if cfg.proj_dim is not None:
         feat = feat @ params["proj_out"]["kernel"]
-    if "head" not in params:
+    if "head" in params:
+        feat = linear(feat, params["head"]["kernel"], params["head"]["bias"])
+    if not return_moe_aux:
         return feat
-    return linear(feat, params["head"]["kernel"], params["head"]["bias"])
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=feat.device)
+    return feat, aux

@@ -73,17 +73,23 @@ def dropout(x: torch.Tensor, rate: float,
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         attn_drop_rate: float = 0.0,
-        keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        keep: Optional[torch.Tensor] = None,
+        key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference's attention (``cara_tpu/ops/layers.py`` ``mha``) on
     (B, H, N, Dh) q, k, v -> (B, N, H * Dh), with :func:`dropout` on the
     probabilities (``keep`` (B, H, N, N) boolean, or None).  Rounding
     points as there: scores in the input dtype times the scale, the
     softmax in fp32 and rounded to the input dtype before the dropout and
-    the second product.  JAX leaves it to XLA, not to a Pallas kernel, so
-    plain PyTorch is its port."""
+    the second product.  ``key_bias`` (broadcastable to (B, H, N, N), or
+    None) adds to the fp32 scores before the softmax: ToMe's
+    proportional attention, ``log(token size)`` (``models/tome.py``).
+    JAX leaves it to XLA, not to a Pallas kernel, so plain PyTorch is its
+    port."""
     b, h, n, d = q.shape
     attn = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
     attn = attn.to(torch.promote_types(q.dtype, torch.float32))
+    if key_bias is not None:
+        attn = attn + key_bias.to(attn.dtype)
     attn = torch.softmax(attn, dim=-1).to(q.dtype)
     attn = dropout(attn, attn_drop_rate, keep)
     out = torch.einsum("bhnm,bhmd->bhnd", attn, v)

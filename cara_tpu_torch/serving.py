@@ -12,16 +12,17 @@ quantizes the four block kernels after the merge (``models/quant.py``);
 the blocks then run the XLA dense forms through ``models.vit.matk``, and
 an unmerged adapter's delta adds on top.  With ``CARA_INT8_PALLAS=1`` in
 the environment (read at each forward) the weight-only GEMMs on the card
-run the dequant-fused int8 kernel (TPU row 18).
+run the dequant-fused int8 kernel (TPU row 18).  ``tome_r`` serves a
+dense (merged, plain or quantized) model with ToMe token merging
+(``models/tome.py``).
 
 :class:`MultiTaskPredictor` serves T task adapters of one family (CaRA,
 LoRA or FacT) over one shared frozen backbone: the tasks' factor trees
 and zero-padded heads are stacked on the device and a task is picked by
 index, its delta scale riding the collapsed factors
 (``vit_forward(scale_override=...)``), so every task runs the same kernel
-calls.  The StableHLO export
-(``ExportedPredictor``) and ToMe stay in ``cara_tpu`` for now (ROADMAP.md
-queue 1: the PEFT zoo).
+calls.  The StableHLO export (``ExportedPredictor``) stays in
+``cara_tpu`` for now (ROADMAP.md queue 1: the PEFT zoo).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from cara_tpu_torch.models.convert import map_floating, params_from_numpy
 from cara_tpu_torch.models.merge import merge_cara
 from cara_tpu_torch.models.quant import (
     column_major_codes, quantize_block_weights)
+from cara_tpu_torch.models.tome import tome_forward
 from cara_tpu_torch.models.vit import vit_forward
 
 
@@ -93,8 +95,8 @@ def _resolve_buckets(buckets, batch_size: int) -> tuple:
 
 class Predictor:
     """Batched image classifier over a merged (or adapter) model of any
-    ported method: CaRA, LoRA, FacT, SSF and BitFit merge; VPT and the
-    bottleneck adapters always serve unmerged."""
+    ported method: CaRA, LoRA, FacT, SSF and BitFit merge; CaRA's mixture
+    of experts, VPT and the bottleneck adapters always serve unmerged."""
 
     def __init__(
         self,
@@ -109,15 +111,19 @@ class Predictor:
         device="cuda",
         buckets="auto",
         quantize: Optional[str] = None,
+        tome_r: int = 0,
     ):
         """``params`` / ``cara_params``: numpy or tensor trees in the JAX
         layout (``train.checkpoint.load_model``).  The merge runs in fp32
         on ``device``, then ``quantize`` (None, "int8" or "w8a8")
         quantizes the block kernels, and the floating weights are cast to
         ``dtype`` (the int8 codes stay int8), in the reference's order.
-        VPT prompts and bottleneck adapters cannot fold into the weights
-        and are served unmerged whatever ``merge`` says
-        (``cara_tpu/serving.py:113-121``)."""
+        A mixture of experts (per-token routing), VPT prompts and
+        bottleneck adapters cannot fold into the weights and are served
+        unmerged whatever ``merge`` says (``cara_tpu/serving.py:113-121``).
+        ``tome_r`` > 0 merges that many token pairs a layer
+        (``models.tome.tome_forward``); it wants a dense forward, so an
+        adapter left unmerged raises (``serving.py:155-180``)."""
         if quantize not in (None, "int8", "w8a8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = torch.device(device)
@@ -125,7 +131,8 @@ class Predictor:
         if cara_params is not None:
             cara_params = params_from_numpy(cara_params, self.device,
                                             torch.float32)
-            if merge and not ("prompts" in cara_params
+            if merge and not ("router" in cara_params
+                              or "prompts" in cara_params
                               or "mlp_down" in cara_params):
                 params = merge_cara(params, cara_params, cfg, cara_cfg)
                 cara_params = cara_cfg = None
@@ -144,6 +151,12 @@ class Predictor:
         self._cara = (None if cara_params is None
                       else map_floating(cara_params, lambda t: t.to(dtype)))
         self._cara_cfg = cara_cfg
+        self.tome_r = int(tome_r)
+        if self.tome_r > 0 and cara_params is not None:
+            raise ValueError(
+                "tome_r requires a dense forward — merge the adapter "
+                "first (merge=True; MoE adapters cannot merge and do "
+                "not compose with ToMe)")
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: ViTConfig,
@@ -194,6 +207,8 @@ class Predictor:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
                 self.device, self._dtype, non_blocking=True)
+            if self.tome_r > 0:
+                return tome_forward(self._params, x, self.cfg, self.tome_r)
             return vit_forward(self._params, x, self.cfg,
                                cara_params=self._cara,
                                cara_cfg=self._cara_cfg)

@@ -150,13 +150,16 @@ def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
     artifact meta (``cara_tpu/train/checkpoint.py:121-197``): the method
     from the meta's ``method`` or the tree's shape (VPT's prompts, SSF's
     pairs, BitFit's deltas, the bottleneck pairs, FacT's U/V factors,
-    LoRA's per-site {a, b} pairs, CaRA's CP factors), the rank (FacT-TK's
-    core rank, VPT's token count) from the tree, the dropout rates and
-    impl from the meta.  VPT, SSF and BitFit have no delta scale (1.0);
-    Houlsby adapters default to 1.0 and AdaptFormer refuses a missing
-    scale.  Other methods raise when the delta scale is neither recorded
-    nor given (per-task scales span 0.1-100; a silent 1.0 would mis-apply
-    the adapter).  MoE is not yet ported."""
+    LoRA's per-site {a, b} pairs, CaRA's CP factors or their mixture of
+    experts' {"experts", "router"} tree), the rank (FacT-TK's core rank,
+    VPT's token count) from the tree, the dropout rates and impl from the
+    meta; a mixture's experts, top-k and aux coefficient from the meta,
+    the router's width where it records none.  VPT, SSF and BitFit have
+    no delta scale (1.0); Houlsby adapters default to 1.0 and AdaptFormer
+    refuses a missing scale.  Other methods raise when the delta scale is
+    neither recorded nor given (per-task scales span 0.1-100; a silent 1.0
+    would mis-apply the adapter)."""
+    moe = "router" in cara_params and "experts" in cara_params
     meta_method = str(meta.get("method", "") or "")
     if meta_method in VPT_METHODS or vpt_lib.is_vpt_params(cara_params):
         return CaraConfig(
@@ -185,12 +188,12 @@ def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
             method=method, scale=scale, weight_dropout=0.0,
             rank=int(np.shape(cara_params["mlp_down"]["kernel"])[-1]),
             adapter_dropout=float(meta.get("adapter_dropout", 0.0)))
-    fact = (meta_method in FACT_METHODS
-            or fact_lib.detect_method(cara_params) is not None)
+    fact = meta_method in FACT_METHODS or (
+        not moe and fact_lib.detect_method(cara_params) is not None)
     lora = meta_method == "lora" or (
-        not fact and lora_lib.is_lora_params(cara_params))
+        not moe and not fact and lora_lib.is_lora_params(cara_params))
     cara = (meta_method in ("", "cara") and not fact and not lora
-            and "R1" in cara_params)
+            and ("R1" in cara_params or moe))
     if not (fact or lora or cara):
         raise NotImplementedError(
             f"adapter method {meta_method or '?'!r} (keys "
@@ -216,11 +219,20 @@ def infer_cara_cfg(cara_params, meta, scale=None, cp_order=None):
         return CaraConfig(method="lora", scale=scale,
                           rank=int(np.shape(cara_params["qkv"]["a"])[-1]),
                           **kw)
-    return CaraConfig(
-        rank=int(np.shape(cara_params["R1"])[-1]), scale=scale,
+    r1 = cara_params["experts"]["R1"] if moe else cara_params["R1"]
+    kw = dict(
+        rank=int(np.shape(r1)[-1]), scale=scale,
         cp_order=int(cp_order if cp_order is not None
                      else meta.get("cp_order", 4)),
         weight_dropout=float(meta.get("weight_dropout", 0.1)))
+    if moe:
+        kw.update(
+            moe_experts=int(meta.get(
+                "moe_experts", np.shape(cara_params["router"]["kernel"])[-1])),
+            moe_top_k=int(meta.get("moe_top_k", 2)),
+            moe_aux_coef=float(meta.get("moe_aux_coef", 0.01)),
+            weight_dropout_impl=str(meta.get("weight_dropout_impl", "rank")))
+    return CaraConfig(**kw)
 
 
 class BestCheckpointKeeper:

@@ -11,7 +11,10 @@ the caller (:func:`cast_floating`).
 
 ``grad_accum > 1`` splits the batch into that many microbatches run one
 after another, their gradients summed in fp32 and scaled by
-``1 / grad_accum`` (``steps.py:482-511``): one AdamW update a step.  As
+``1 / grad_accum`` (``steps.py:482-511``): one AdamW update a step.
+With mixture-of-expert adapters the loss adds ``moe_aux_coef`` times the
+router's load-balance loss over each microbatch's tokens
+(``steps.py:458-476``).  As
 in JAX, the weight-dropout draw (the mask seeds, the rank or row masks,
 the element masks of the XLA dense forms) is one for the whole step and
 the per-sample draws (drop-path gates, dropout masks) are new in every
@@ -235,15 +238,18 @@ def _loss_grads_logits(cfg, cara_cfg, trainable, frozen, batch, *,
         trainable, compute_dtype)
     x = prep_images(batch["image"], compute_dtype)
     cara = t["cara"] or None
-    logits = vit_forward(merge_params(frozen, t), x, cfg,
-                         cara_params=cara,
-                         cara_cfg=cara_cfg if cara is not None else None,
-                         impl=impl, train=True, generator=generator,
-                         randomness=randomness, attn_impl=attn_impl,
-                         dense_impl=dense_impl, remat=remat)
+    moe = cara is not None and cara_cfg.moe
+    logits, aux = vit_forward(
+        merge_params(frozen, t), x, cfg, cara_params=cara,
+        cara_cfg=cara_cfg if cara is not None else None, impl=impl,
+        train=True, generator=generator, randomness=randomness,
+        attn_impl=attn_impl, dense_impl=dense_impl, remat=remat,
+        return_moe_aux=True)
     logits = mask_padded_classes(logits.float(), batch)
     labels = batch["label"].long()
     loss = torch.nn.functional.cross_entropy(logits, labels)
+    if moe:  # the Switch load-balance term (``steps.py:473-476``)
+        loss = loss + cara_cfg.moe_aux_coef * aux
     acc = (logits.argmax(-1) == labels).float().mean()
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), acc, grads, logits.detach()

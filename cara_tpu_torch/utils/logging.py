@@ -52,9 +52,12 @@ class MetricLogger:
                      histogram: bool = False) -> Dict[str, Any]:
         """Mean / std of the CP weight vectors R1 and R2 (numpy or tensor
         leaves), plus 16-bin histograms with ``histogram`` (the stdout
-        analog of the reference's wandb.Histogram telemetry).  A tree
-        without them (the linear probe and full fine-tuning, whose adapter
-        tree is empty) has no lambda to report."""
+        analog of the reference's wandb.Histogram telemetry); a mixture of
+        experts' tree pools every expert's vectors.  A tree without them
+        (the linear probe and full fine-tuning, whose adapter tree is
+        empty) has no lambda to report."""
+        if "experts" in cara_params and "R1" not in cara_params:
+            cara_params = cara_params["experts"]
         if "R1" not in cara_params:
             return {}
         r1 = _host(cara_params["R1"])

@@ -291,7 +291,26 @@ fatal on failure:
    against the unmerged checkpoint, VPT refused; VPT-Deep at 200 prompts
    (397 tokens) and at 384 px (585 tokens: row 16, not rows 1 and 2):
    the gradient check and three steps on 8 images.  Rows 1 and 2 at 205
-   and 397 tokens are entries of the ``kernels`` line.
+   and 397 tokens are entries of the ``kernels`` line;
+22. ToMe (``tome_phase``, after 11, on the serving checkpoint merged):
+   at r 0, 8 and 13 the bf16 forward within 5 % of the port's fp32 plain
+   ``tome_forward`` at the same r, no kernel of the port launched, two
+   calls bit for bit; img/s in turns with merged serving and a forward's
+   device time by kernel; ``quantize="int8"`` at r 8 with
+   ``CARA_INT8_PALLAS=1``: row 18 48 launches a forward, within
+   ``QUANT_BOUNDS``, its device time a launch and its entries at the last
+   layer's M (printed, not in the ``kernels`` line); ``cli.serve --tome-r
+   8`` in a child answers requests;
+23. CaRA's mixture of experts (``moe_phase``, after 21): ViT-B/16 at full
+   width and depth, bf16, batch 64, 4 experts routed top 2, rank 8 on
+   the rank route, scale 10: the gradient check as in 5 on 16 images
+   (router included), six steps (a falling loss with the aux term, peak
+   memory), rows 1 and 2 launched and no other kernel; timed in turns
+   with CaRA rank 8 on its fused sites and at ``dense_impl="xla"``, with
+   the profiler's device time a step; served with ``merge=True`` (kept
+   unmerged) within 5 % of fp32 plain; ``merge_cara`` and
+   ``MultiTaskPredictor`` refuse it; ``cli.vit_cp --moe 4,2`` at 4 layers
+   in a child, and ``--evaluate`` of its checkpoint without ``--moe``.
 
 Each kernel entry also carries its bound: the least time the card could
 take for the work at these inputs (the larger of its operations over the
@@ -354,6 +373,7 @@ from cara_tpu_torch.data.vtab import load_image_u8, normalize
 from cara_tpu_torch.models import cara as cara_lib
 from cara_tpu_torch.models import convert
 from cara_tpu_torch.models import quant as quant_lib
+from cara_tpu_torch.models import tome as tome_lib
 from cara_tpu_torch.models import torch_import
 from cara_tpu_torch.models import vit as vit_lib
 from cara_tpu_torch.models.merge import merge_cara
@@ -977,6 +997,14 @@ ZOO_DROP = 0.1
 ZOO_PROMPTS = 8
 ZOO_LONG_PROMPTS = 200
 ZOO_ROWS = PEFT_ROWS[:2]
+# CaRA's mixture of experts (``moe_phase``): X experts routed top K, rank
+# 8 on the rank route (the XLA dense forms; rows 1 and 2 only).
+MOE_EXPERTS = 4
+MOE_TOP_K = 2
+# ToMe (``tome_phase``): the merge counts a layer served, and the one on
+# the int8 backbone.
+TOME_RS = (0, 8, 13)
+TOME_INT8_R = 8
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 # cores and HBM3.  A kernel's bound is the larger of its work over each.
 PEAK_FLOPS = 989e12
@@ -2677,10 +2705,13 @@ def read_launches(names) -> dict:
 def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
                 batch=64, seed=0, impl="element", method="cara", lr=1e-3,
                 cp_order=4, delta_impl="factorized", fact_core_rank=0,
-                vpt_tokens=ZOO_PROMPTS, adapter_dropout=0.0, **overrides):
+                vpt_tokens=ZOO_PROMPTS, adapter_dropout=0.0, moe_experts=0,
+                moe_top_k=2, **overrides):
     """Seeded ViT + perturbed adapter (weight dropout 0.1 of the ``impl``
     kind, or none for ``impl="rate0"``; CaRA at CP order ``cp_order`` in
-    the ``delta_impl`` form, or ``method`` "lora", "fact_tt" / "fact_tk"
+    the ``delta_impl`` form, or its mixture of ``moe_experts`` experts
+    routed top ``moe_top_k`` (the zero factors and the router's bias
+    perturbed as CaRA's), or ``method`` "lora", "fact_tt" / "fact_tk"
     (core rank ``fact_core_rank``) with its zero factor perturbed by
     ``PEFT_STD``; a ``ZOO_METHODS`` tree, ``vpt_tokens`` prompts or
     ``adapter_dropout``, its zero leaves perturbed by ``ZOO_STD``; the
@@ -2714,7 +2745,8 @@ def train_setup(dev, model=MODEL, num_classes=10, rank=8, scale=10.0,
         cara_cfg = CaraConfig(rank=rank, scale=scale,
                               weight_dropout=rate,
                               weight_dropout_impl=impl, cp_order=cp_order,
-                              delta_impl=delta_impl)
+                              delta_impl=delta_impl,
+                              moe_experts=moe_experts, moe_top_k=moe_top_k)
         cara = convert.perturb_adapter(
             convert.init_cara_params(cfg, cara_cfg, seed + 1), seed + 2)
         if cp_order == 2:
@@ -2932,10 +2964,11 @@ def attn_switch(**values):
             setattr(vit_lib, k, v)
 
 
-def cli_child(argv, env) -> dict:
+def cli_child(argv, env, out=None) -> dict:
     """``cli.vit_cp`` with ``argv`` in a child process whose environment
     adds ``env`` (the ``CARA_*`` switches are read at import, as JAX reads
-    them); returns the child's launch counters."""
+    them); returns the child's launch counters (and appends its stdout's
+    lines to the list ``out`` when given)."""
     code = ("import json, sys, chip_smoke; "
             "chip_smoke.vit_cp_cli.main(sys.argv[1:]); "
             "print(json.dumps(chip_smoke.read_launches("
@@ -2944,6 +2977,8 @@ def cli_child(argv, env) -> dict:
                           env=dict(os.environ, **env), capture_output=True,
                           text=True, timeout=900)
     lines = proc.stdout.strip().splitlines()
+    if out is not None:
+        out.extend(lines)
     for line in lines[-4:-1]:
         print(f"  child: {line}", flush=True)
     require(proc.returncode == 0, f"cli.vit_cp child failed ({env}): "
@@ -3443,12 +3478,15 @@ def _serve_child(code, argv, err, images, requests, tasks=None,
 
 
 def _pair_block(x, bp, f1, p1, cfg, cara_params, cara_cfg, impl, rand=None,
-                attn_impl="fused", dense_impl="fused", scale=None, ad=None):
+                attn_impl="fused", dense_impl="fused", scale=None, ad=None,
+                moe_gates=None):
     """``models.vit._block`` of an eval block with a CaRA adapter, in one
     call of row 19: the factors collapsed and the delta scale (``scale``,
     a task's ``scale_override``, or the config's) folded as ``_block``
-    does for the two half-block kernels."""
-    require(rand is None and cara_params is not None and ad is None,
+    does for the two half-block kernels.  It takes every argument of
+    ``_block`` and refuses the bottleneck adapters' and a mixture's."""
+    require(rand is None and cara_params is not None and ad is None
+            and moe_gates is None,
             "the row 19 eval check runs CaRA blocks in eval")
     dt, mr = x.dtype, cfg.mlp_ratio
     s = cara_cfg.scale if scale is None else scale
@@ -5197,17 +5235,18 @@ def _rank_launches(total, tag) -> None:
 
 
 def _device_ms_per_step(cfg, cara_cfg, frozen, state, data, generator,
-                        steps=2, tag=None, top=5, native=False):
+                        steps=2, tag=None, top=5, native=False, **step_kw):
     """The kernels' device time a train step on one batch (one step
     unprofiled, then ``steps`` under ``torch.profiler``), summed over
     every CUDA kernel the profiler records; with ``tag`` the ``top``
     kernels by device time are printed.  ``native``: return (total, the
     share of PyTorch's own ``at::native`` kernels: elementwise ops,
-    reductions, copies)."""
+    reductions, copies).  ``step_kw`` go to ``make_train_step``."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn = steps_lib.make_train_step(cfg, cara_cfg,
-                                        compute_dtype=torch.bfloat16)
+                                        compute_dtype=torch.bfloat16,
+                                        **step_kw)
     frozen_c = steps_lib.cast_floating(frozen, torch.bfloat16)
     state, _ = step_fn(state, frozen_c, data, generator=generator)
     torch.cuda.synchronize()
@@ -5834,6 +5873,427 @@ def zoo_phase(dev, batch=64, grad_batch=16, steps=6, long_steps=3,
     return launches
 
 
+def _only(names) -> tuple:
+    """The ``KERNELS`` entries whose launch counters are none of those of
+    ``names``: what must stay idle where only ``names`` launch."""
+    keep = {KERNELS[n][:2] for n in names}
+    return tuple(k for k in KERNELS if KERNELS[k][:2] not in keep)
+
+
+def _launched(before, after) -> dict:
+    """The counters that grew between two ``read_launches``, each under
+    the first of the ``KERNELS`` entries that share it."""
+    out, seen = {}, set()
+    for k in after:
+        counter = KERNELS[k][:2]
+        if after[k] > before[k] and counter not in seen:
+            out[k] = after[k] - before[k]
+        seen.add(counter)
+    return out
+
+
+def moe_serving(dev, setup, tmp, batch=64, n_images=64, iters=10,
+                timed=True, model=MODEL) -> str:
+    """The trained mixture saved as a checkpoint and served by
+    ``Predictor.from_checkpoint_auto(merge=True)``, which keeps it
+    unmerged: logits within ``LOGIT_RTOL`` of the fp32 plain forward, row
+    1 launched a layer and nothing else, img/s on the host clock; then
+    ``merge_cara`` and ``MultiTaskPredictor`` refuse it.  Returns the
+    path."""
+    cfg, cc, _, state, _ = setup
+    tag = "[moe:serve]"
+    path = os.path.join(tmp, "vit_moe_seed_0.npz")
+    params = init_backbone(cfg, 0)
+    params["head"] = ckpt_lib.to_numpy_tree(state.trainable["head"])
+    tree = ckpt_lib.to_numpy_tree(state.trainable["cara"])
+    save_model(path, params, tree, {**dataclasses.asdict(cc), "model": model})
+    images = make_images(n_images, cfg.image_size, seed=28)
+    pred = Predictor.from_checkpoint_auto(path, model, merge=True,
+                                          batch_size=batch, device=dev,
+                                          dtype=torch.bfloat16)
+    require(pred._cara is not None and pred._cara_cfg.moe,
+            f"{tag} merge=True folded the mixture")
+    ref = reference_logits(pred, images)
+    before = read_launches(tuple(KERNELS))
+    got = pred.logits(images)
+    diffs = _launched(before, read_launches(tuple(KERNELS)))
+    rate = ""
+    if timed:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pred.logits(images)
+        rate = (f"; {iters * n_images / (time.perf_counter() - t0):.1f} "
+                "img/s (Predictor.logits, host clock)")
+    _logit_check(tag[1:-1], got, ref)
+    print(f"{tag} merge=True served unmerged, batch {batch}: launches "
+          f"{diffs}{rate}", flush=True)
+    forwards = -(-n_images // batch)
+    require(diffs == {"fused_qkv_attention": cfg.depth * forwards},
+            f"{tag} launched {diffs}")
+    del pred
+    for what, call in (
+            ("merge_cara", lambda: merge_cara(
+                convert.params_from_numpy(params, dev),
+                convert.params_from_numpy(tree, dev), cfg, cc)),
+            ("MultiTaskPredictor", lambda: MultiTaskPredictor(
+                params, cfg, {"a": {"cara": tree, "head": params["head"],
+                                    "scale": cc.scale, "cp_order": 4}},
+                device=dev))):
+        try:
+            call()
+        except ValueError as exc:
+            print(f"{tag} {what} refused: {exc}", flush=True)
+            require("MoE" in str(exc), f"{tag} {what}: {exc}")
+        else:
+            require(False, f"{tag} {what} took a mixture of experts")
+    return path
+
+
+def moe_phase(dev, batch=64, grad_batch=16, steps=6, turn_steps=3,
+              rounds=1, cli_depth=4, timed=True, model=MODEL) -> None:
+    """CaRA's mixture of experts at ViT-B/16 full width and depth, bf16,
+    batch ``batch``, seed 0: ``MOE_EXPERTS`` experts routed top
+    ``MOE_TOP_K``, CP order 4, rank 8, scale 10, rank weight dropout 0.1,
+    the experts' zero factors and the router's bias perturbed (as CaRA's
+    in :func:`train_setup`).  (a) The forms resolve to the fused attention
+    and the XLA dense forms ("fused" refused), the gradient check of
+    every trainable leaf (router included) on ``grad_batch`` images, then
+    ``steps`` steps on one batch: a falling loss (the aux term in it), ms
+    a step, img/s, peak memory, rows 1 and 2 launched and no other
+    kernel.  (b) Timed in turns with CaRA rank 8 on the rank route (its
+    fused sites) and with CaRA at ``dense_impl="xla"`` (the mixture's
+    dense forms, so that the expert axis's cost shows): ``rounds`` rounds
+    of ``turn_steps`` steps (one more dropped), peak memory, then the
+    device time a step by the profiler.  (c) Served
+    (:func:`moe_serving`).  (d) ``cli.vit_cp --moe 4,2 --synthetic`` at
+    ``cli_depth`` layers in a child, then ``--evaluate`` of its checkpoint
+    without ``--moe`` in another: the same accuracy, only rows 1 (and 2
+    in training) launched."""
+    tag = "[moe]"
+    rows = tuple(name for _, name in ZOO_ROWS)
+    idle = _only(rows)
+    setup = list(train_setup(dev, model=model, rank=8, impl="rank",
+                             batch=batch, moe_experts=MOE_EXPERTS,
+                             moe_top_k=MOE_TOP_K))
+    cfg, cc, frozen, state, data = setup
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    forms = steps_lib.resolve_impls("auto", "auto", cc)
+    count = sum(t.numel() for _, t in
+                steps_lib.tree_leaves(state.trainable["cara"]))
+    print(f"{tag} {MOE_EXPERTS} experts top {MOE_TOP_K}, rank {cc.rank}, "
+          f"{count} adapter parameters (router included), forms {forms}, "
+          f"remat {steps_lib.resolve_remat('auto', forms[1])}", flush=True)
+    require(forms == ("fused", "xla"), f"{tag} resolved to {forms}")
+    try:
+        steps_lib.resolve_impls("auto", "fused", cc)
+    except ValueError as exc:
+        print(f"{tag} dense_impl='fused' refused: {exc}", flush=True)
+    else:
+        require(False, f"{tag} dense_impl='fused' was taken")
+    grad_check(dev, cfg, cc, frozen, state,
+               {k: v[:grad_batch] for k, v in data.items()}, generator,
+               tag=tag, lazy=True)
+    if timed:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = read_launches(tuple(KERNELS))
+    state, losses, ms, wall = fixed_batch_steps(cfg, cc, frozen, state, data,
+                                                generator, steps,
+                                                timed=timed)
+    diffs = _launched(before, read_launches(tuple(KERNELS)))
+    setup[3] = state
+    half = len(losses) // 2
+    print(f"{tag} loss (cross-entropy + {cc.moe_aux_coef} x aux) over "
+          f"{steps} steps: " + " ".join(f"{v:.4f}" for v in losses)
+          + (f"; ms a step (CUDA events): " + " ".join(f"{v:.3f}" for v in ms)
+             + f"; {steps * batch / wall:.1f} img/s (host clock); peak "
+             f"{_peak_gib(dev):.3f} GiB" if timed else ""), flush=True)
+    print(f"{tag} launches over the {steps} steps: {diffs}", flush=True)
+    require(all(np.isfinite(losses)) and statistics.mean(
+        losses[half:]) < statistics.mean(losses[:half]),
+        f"{tag} the loss did not fall (the means of the halves)")
+    for name in rows:
+        require(diffs.get(name, 0) > 0, f"{tag} {name} never launched")
+    require(not set(diffs) & set(idle), f"{tag} another kernel launched: "
+            f"{ {k: v for k, v in diffs.items() if k in idle} }")
+
+    if timed:
+        generator.manual_seed(1)
+        variants = {
+            "moe": (setup, {}),
+            "cara": (list(train_setup(dev, model=model, rank=8, impl="rank",
+                                      batch=batch)), {}),
+            "cara:xla": (list(train_setup(dev, model=model, rank=8,
+                                          impl="rank", batch=batch)),
+                         {"dense_impl": "xla"})}
+        turns = {k: [] for k in variants}
+        peaks = {}
+        for rd in range(rounds):
+            for key in (list(variants) if rd % 2 == 0
+                        else list(variants)[::-1]):
+                (c, ccv, fr, st, da), kw = variants[key]
+                torch.cuda.reset_peak_memory_stats(dev)
+                st, _, t_ms, _ = fixed_batch_steps(c, ccv, fr, st, da,
+                                                   generator,
+                                                   turn_steps + 1, **kw)
+                peaks[key] = _peak_gib(dev)
+                variants[key][0][3] = st
+                turns[key] += t_ms[1:]
+        device = {k: _device_ms_per_step(*s, generator,
+                                         tag=f"[moe:{k}:device]", top=4,
+                                         native=True, **kw)
+                  for k, (s, kw) in variants.items()}
+        for key in variants:
+            med = statistics.median(turns[key])
+            dev_ms, native = device[key]
+            print(f"[moe] {key}: ms a step by CUDA events in turns "
+                  f"({len(turns[key])} steps) {med:.3f} "
+                  f"({min(turns[key]):.3f}-{max(turns[key]):.3f}); device "
+                  f"time by the profiler {dev_ms:.3f} ms a step (at::native "
+                  f"{native:.3f}, the rest {dev_ms - native:.3f}); peak "
+                  f"{peaks[key]:.3f} GiB", flush=True)
+        moe_ms = statistics.median(turns["moe"])
+        for base in ("cara", "cara:xla"):
+            print(f"[moe] moe / {base}: events "
+                  f"{moe_ms / statistics.median(turns[base]):.3f}x, device "
+                  f"{device['moe'][0] / device[base][0]:.3f}x", flush=True)
+        del variants
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        moe_serving(dev, setup, tmp, batch=batch, timed=timed, model=model)
+        del setup
+        if not cli_depth:
+            return
+        out = os.path.join(tmp, "cli")
+        argv = ["--synthetic", "--dataset", "patch_camelyon", "--model",
+                model, "--dim", "8", "--epochs", "1",
+                "--batch-size", str(batch), "--eval-batch-size", str(batch),
+                "--synthetic-size", str(2 * batch), "--log-every", "1",
+                "--out-dir", out, "--backbone", os.path.join(tmp, "none.npz"),
+                "--device", str(dev), "--model-override",
+                f"depth={cli_depth}"]
+        t0 = time.perf_counter()
+        child = cli_child(argv + ["--moe", f"{MOE_EXPERTS},{MOE_TOP_K}"], {})
+        print(f"[moe:cli] cli.vit_cp --moe {MOE_EXPERTS},{MOE_TOP_K}, "
+              f"{cli_depth} layers: {time.perf_counter() - t0:.1f} s; "
+              f"launches { {k: v for k, v in child.items() if v} }",
+              flush=True)
+        for name in rows:
+            require(child[name] > 0, f"{name} never launched by the --moe "
+                    "child")
+        require(not any(child[k] for k in idle),
+                "the --moe child launched another kernel")
+        files = [f for f in os.listdir(out) if f.endswith(".npz")]
+        require(len(files) == 1, f"the --moe child wrote {files}")
+        ckpt = os.path.join(out, files[0])
+        _, tree, meta = ckpt_lib.load_model(ckpt)
+        require((meta.get("moe_experts"), meta.get("moe_top_k"))
+                == (MOE_EXPERTS, MOE_TOP_K)
+                and tree["router"]["kernel"].shape == (cfg.embed_dim,
+                                                       MOE_EXPERTS),
+                f"the --moe checkpoint records {meta.get('moe_experts')}, "
+                f"{meta.get('moe_top_k')}")
+        lines = []
+        child = cli_child(argv + ["--evaluate", ckpt], {}, out=lines)
+        acc = [float(l.split()[-1]) for l in lines
+               if l.startswith("Accuracy:")]
+        print(f"[moe:cli] --evaluate without --moe: accuracy {acc} (the "
+              f"training run's best {meta.get('acc')}); launches "
+              f"{ {k: v for k, v in child.items() if v} }", flush=True)
+        require(acc == [meta.get("acc")], "--evaluate disagrees with the "
+                "training run's accuracy")
+        require(child[rows[0]] > 0 and not any(
+            child[k] for k in idle + rows[1:]),
+            "--evaluate launched another kernel than row 1")
+
+
+def _forward_profile(fn, tag, iters=5, top=4) -> dict:
+    """One forward ``fn()``: ms by CUDA events over ``iters`` calls, then
+    the same under ``torch.profiler``: the device time by kernel and the
+    busy share (the ``top`` kernels printed).  Returns {kernel name: (ms
+    a forward, launches a forward)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    with torch.inference_mode():
+        run()
+        fwd_ms = run()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+    rows = {e.key: (e.self_device_time_total / 1e3 / iters, e.count / iters)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+    busy = sum(ms for ms, _ in rows.values())
+    print(f"{tag} a forward {fwd_ms:.3f} ms by CUDA events, kernels "
+          f"{busy:.3f} ms ({100 * busy / fwd_ms:.1f} % busy)", flush=True)
+    for key, (ms, count) in sorted(rows.items(), key=lambda kv: -kv[1][0]
+                                   )[:top]:
+        print(f"{tag} {ms:8.3f} ms {count:6.1f}/forward  {key[:90]}",
+              flush=True)
+    return rows
+
+
+def tome_cli_child(ckpt, model, images, r=8, requests=8, extra=()) -> None:
+    """``python -m cara_tpu_torch.cli.serve --tome-r r`` in a child:
+    ``requests`` PNG posts answered (``/stats``), then SIGTERM; the child
+    serves ToMe's forward, which launches none of the port's kernels (the
+    merged path would launch the block megakernels, rows 5 and 9).
+    ``extra`` adds CLI options (a CPU rehearsal: ``--device cpu``)."""
+    code = ("import json, sys, chip_smoke; "
+            "from cara_tpu_torch.cli import serve; "
+            "serve.main(sys.argv[1:]); "
+            "print(json.dumps(chip_smoke.read_launches("
+            "tuple(chip_smoke.KERNELS))))")
+    argv = ["--ckpt", ckpt, "--model", model, "--tome-r", str(r),
+            "--port", "0", "--max-batch", "64", "--max-wait-ms", "20",
+            *extra]
+    with tempfile.TemporaryFile(mode="w+") as err:
+        out, _ = _serve_child(code, argv, err, images, requests,
+                              tag=f"tome:serve:cli:r{r}")
+        err.seek(0)
+        require(out is not None, f"the ToMe serve child failed: "
+                f"{err.read()[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    print(f"[tome:serve:cli:r{r}] the child's launches: "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    require(not any(got.values()), "the ToMe serve child launched a kernel")
+
+
+def tome_phase(dev, ckpt, model, images, batch=64, rounds=3, iters=10,
+               timed=True, cli_extra=()) -> None:
+    """ToMe on the smoke's ViT-B checkpoint, merged, batch ``batch``.
+    (a) At each r of ``TOME_RS``, ``tome_forward`` in bf16 (r > 0 through
+    ``Predictor(tome_r=r)``) within ``LOGIT_RTOL`` of the port's fp32
+    plain ``tome_forward`` at the same r on the same weights; no kernel
+    of the port launches (the attention is the plain ``mha``, the GEMMs
+    ``F.linear``), and two calls of one batch agree bit for bit.  (b)
+    img/s in turns with the merged ``Predictor`` (the block megakernels,
+    rows 5 and 9): ``rounds`` rounds of ``iters`` calls, the order
+    reversed every other round (host clock); a forward's device time by
+    kernel for merged and the largest r.  (c) ``quantize="int8"`` at
+    ``TOME_INT8_R`` with ``CARA_INT8_PALLAS=1``: row 18 launches 4 x depth
+    times a forward at each layer's shrinking M, within ``QUANT_BOUNDS``
+    of the bf16 ToMe forward, bit for bit on a second call; its device
+    time a launch, and row 18's entries at the last layer's M of each r
+    against their fp32 plain versions, bound and library (printed, not
+    entries of the ``kernels`` line).  (d) ``cli.serve --tome-r 8`` in a
+    child answers requests (``cli_extra`` its added options)."""
+    x = images[:batch]
+    kw = dict(batch_size=batch, device=dev, dtype=torch.bfloat16)
+    merged = Predictor.from_checkpoint_auto(ckpt, model, **kw)
+    cfg = merged.cfg
+    params32 = convert.map_floating(merged._params, lambda t: t.float())
+    xt = torch.from_numpy(x).to(dev)
+    preds = {"merged": merged}
+    logits = {}
+    for r in TOME_RS:
+        tag = f"[tome:r{r}]"
+        with torch.inference_mode():
+            ref = tome_lib.tome_forward(params32, xt, cfg, r, impl="plain")
+        ref = ref.float().cpu().numpy()
+        if r:
+            pred = Predictor.from_checkpoint_auto(ckpt, model, tome_r=r, **kw)
+            require(pred._cara is None and pred.tome_r == r,
+                    f"{tag} the Predictor did not merge")
+            preds[f"tome r{r}"] = pred
+
+            def call(p=pred):
+                return p.logits(x)
+        else:
+            def call():
+                with torch.inference_mode():
+                    return tome_lib.tome_forward(
+                        merged._params, xt.to(torch.bfloat16), cfg,
+                        0).float().cpu().numpy()
+        before = read_launches(tuple(KERNELS))
+        got = call()
+        diffs = _launched(before, read_launches(tuple(KERNELS)))
+        again = call()
+        counts = tome_lib.token_counts(cfg, r)
+        print(f"{tag} tokens entering each layer {counts}, "
+              f"{counts[-1] - tome_lib.merge_schedule(cfg, r)[-1]} leave "
+              f"the last; launches {diffs}; two calls bit for bit "
+              f"{np.array_equal(got, again)}", flush=True)
+        _logit_check(f"tome:r{r}", got, ref, "fp32 plain tome_forward")
+        require(not diffs, f"{tag} launched {diffs}")
+        require(np.array_equal(got, again), f"{tag} two calls differ")
+        logits[r] = got
+    if timed:
+        rates = {k: [] for k in preds}
+        for rd in range(rounds + 1):  # round 0 warms up
+            for name in (list(preds) if rd % 2 == 0 else list(preds)[::-1]):
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    preds[name].logits(x)
+                if rd:
+                    rates[name].append(iters * batch
+                                       / (time.perf_counter() - t0))
+        base = statistics.median(rates["merged"])
+        for name, got in rates.items():
+            med = statistics.median(got)
+            print(f"[tome] {name}: {med:.1f} img/s at batch {batch} (median "
+                  f"of {rounds} turns of {iters} calls, host clock; "
+                  f"{', '.join(f'{v:.1f}' for v in got)}), "
+                  f"{med / base:.3f}x merged", flush=True)
+        xb = xt.to(torch.bfloat16)
+        _forward_profile(lambda: vit_forward(merged._params, xb, cfg),
+                         "[tome:merged:device]")
+        r = TOME_RS[-1]
+        _forward_profile(lambda: tome_lib.tome_forward(
+            merged._params, xb, cfg, r), f"[tome:r{r}:device]")
+    del preds
+
+    tag = f"tome:int8:r{TOME_INT8_R}:CARA_INT8_PALLAS=1"
+    q = Predictor.from_checkpoint_auto(ckpt, model, quantize="int8",
+                                       tome_r=TOME_INT8_R, **kw)
+    with int8_switch(True):
+        reset_launches()
+        got = q.logits(x)
+        count = int8_mod.LAUNCHES
+        again = q.logits(x)
+        print(f"[{tag}] row 18 launches a forward {count} (want "
+              f"{4 * cfg.depth}); two calls bit for bit "
+              f"{np.array_equal(got, again)}"
+              + (f"; {host_timing(q, images, batch)}" if timed else ""),
+              flush=True)
+        require(count == 4 * cfg.depth, f"{tag}: row 18 launched {count}")
+        require(np.array_equal(got, again), f"{tag}: two calls differ")
+        quant_logit_check(tag, got, logits[TOME_INT8_R], "int8")
+        if timed:
+            rows = _forward_profile(lambda: tome_lib.tome_forward(
+                q._params, xt.to(torch.bfloat16), cfg, TOME_INT8_R),
+                f"[{tag}:device]")
+            counts = tome_lib.token_counts(cfg, TOME_INT8_R)
+            for key, (ms, n) in rows.items():
+                if "int8" in key:
+                    print(f"[{tag}:device] {key[:60]}: {ms / n:.4f} ms a "
+                          f"launch ({n:.0f} a forward, M from "
+                          f"{batch * counts[0]} down to "
+                          f"{batch * counts[-1]})", flush=True)
+    del q
+    shapes = {}
+    for r in TOME_RS[1:]:  # the last layer: qkv before its merge, fc2 after
+        n = tome_lib.token_counts(cfg, r)[-1]
+        shapes[f"_tome_r{r}"] = (batch * n, cfg.embed_dim, 3 * cfg.embed_dim)
+        shapes[f"_tome_r{r}_fc2"] = (
+            batch * (n - tome_lib.merge_schedule(cfg, r)[-1]),
+            cfg.hidden_dim, cfg.embed_dim)
+    int8_kernel_phase(dev, timed=timed, shapes=shapes)
+    tome_cli_child(ckpt, model, images, extra=cli_extra)
+
+
 def to_hf_clip(params, cfg) -> dict:
     """``params`` (a CLIP tower in the port's layout) as a HuggingFace
     ``CLIPVisionModelWithProjection`` state dict (torch tensors), the
@@ -6076,7 +6536,10 @@ def main(argv=None) -> int:
         quant_cli_child(ckpt, MODEL, images)
         launches["block_pair_fwd"] = pair_eval_check(dev, ckpt, MODEL,
                                                      images)
-    stamp("quantized serving and the whole-block eval")
+        stamp("quantized serving and the whole-block eval")
+        # ToMe on the merged checkpoint: bf16, and int8 through row 18.
+        tome_phase(dev, ckpt, MODEL, images)
+    stamp("ToMe")
     # Three tasks over one backbone: rows 5, 9, 18 and 19 at per-task
     # scales.
     for name, count in multitask_phase(dev).items():
@@ -6119,6 +6582,10 @@ def main(argv=None) -> int:
     # attention (rows 1, 2; row 16 at 384 px) and the XLA dense forms.
     launches.update(zoo_phase(dev))
     stamp("the PEFT zoo")
+    # CaRA's mixture of experts at ViT-B: the fused attention (rows 1, 2)
+    # and the XLA dense forms with the expert axis.
+    moe_phase(dev)
+    stamp("the mixture of experts")
     # Gradient accumulation (4 x 16 against one pass of 64) and the NaN
     # check on the element route's setup.
     setup = train.pop("setup")

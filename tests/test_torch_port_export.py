@@ -73,7 +73,7 @@ def test_torch_export_matches_jax(tmp_path, mode):
 
 @pytest.mark.parametrize("extra, match", [
     (["--mode", "stablehlo"], "PEFT zoo"),
-    (["--tome-r", "4"], "PEFT zoo"),
+    (["--tome-r", "4"], "only applies to --mode stablehlo"),
     (["--quantize", "int8"], "only applies to --mode stablehlo"),
 ])
 def test_torch_export_refuses_what_is_not_ported(tmp_path, extra, match):
@@ -160,9 +160,19 @@ def test_torch_predict_matches_jax(tmp_path, capsys, monkeypatch):
                                    [r["scores"] for r in want], atol=1e-3)
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["image"] \
         == paths[-1]
-    for extra in (["--exported", "x"], ["--tome-r", "2"]):
-        with pytest.raises(SystemExit, match="PEFT zoo"):
-            t_predict.main(["--ckpt", ckpt, *extra, paths[0]])
+    with pytest.raises(SystemExit, match="PEFT zoo"):
+        t_predict.main(["--ckpt", ckpt, "--exported", "x", paths[0]])
+    # ToMe (test_torch_port_tome.py): the merged path, as JAX's
+    common = ["--ckpt", ckpt, "--model", MODEL, "--top", "2", "--tome-r",
+              "2", *paths]
+    want = j_predict.main(common)
+    got = t_predict.main(common + ["--device", "cpu", "--dtype", "float32"])
+    assert [r["classes"] for r in got] == [r["classes"] for r in want]
+    np.testing.assert_allclose([r["scores"] for r in got],
+                               [r["scores"] for r in want], atol=1e-3)
+    with pytest.raises(SystemExit, match="drop --no-merge"):
+        t_predict.main(["--ckpt", ckpt, "--tome-r", "2", "--no-merge",
+                        paths[0]])
     # a reference .pt of the same weights predicts the same (its scale
     # comes from --scale)
     from cara_tpu_torch.models.torch_export import save_torch_checkpoint

@@ -152,9 +152,11 @@ def test_server_answers_png_predict(trees, tmp_path):
 def test_cli_refuses_unported_paths(tmp_path):
     from cara_tpu_torch.cli import serve as t_cli
 
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # --tome-r is ported (test_torch_port_tome.py): it serves a single
+    # merged checkpoint, as in JAX
+    with pytest.raises(SystemExit, match="single merged checkpoint"):
         t_cli.main(["--ckpt", os.fspath(tmp_path / "x.npz"),
-                    "--tome-r", "2"])
+                    "--tome-r", "2", "--no-merge"])
     with pytest.raises(SystemExit, match="not yet ported"):
         t_cli.main(["--ckpt", "a.npz", "--exported", "x"])
     # several checkpoints serve as tasks (test_torch_port_multitask.py);

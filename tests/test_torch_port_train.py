@@ -64,7 +64,8 @@ def jax_randomness(rng, cfg, batch, cara_cfg=None):
     ``vit_forward`` derives from ``rng`` (``vit.py:1405-1408, 439-445``,
     ``_wd_seed``, ``_dp_gate``), in the port's ``randomness`` layout; with
     ``cara_cfg`` of the rank or row kind at a rate above 0, also the four
-    sites' rank (``_rank_comp``) or row (``_row_u``) masks."""
+    sites' rank (``_rank_comp``; a mixture of experts' (X, r),
+    ``moe._comp_masks``) or row (``_row_u``) masks."""
     depth, e = cfg.depth, cfg.embed_dim
     impl = None
     if cara_cfg is not None and cara_cfg.weight_dropout > 0:
@@ -79,9 +80,10 @@ def jax_randomness(rng, cfg, batch, cara_cfg=None):
         seeds.append([np.asarray(jax.random.randint(
             k, (1, 1), -2 ** 31, 2 ** 31 - 1, jnp.int32)) for k in site_keys])
         if impl == "rank":
+            shape = ((cara_cfg.moe_experts,) if cara_cfg.moe else ()) + (
+                cara_cfg.rank,)
             comp.append([np.asarray(j_cp.weight_dropout_mask(
-                k, (cara_cfg.rank,), cara_cfg.weight_dropout))
-                for k in site_keys])
+                k, shape, cara_cfg.weight_dropout)) for k in site_keys])
         if impl == "row":
             for site, (k, width) in enumerate(zip(
                     site_keys, (e, e, e, cfg.hidden_dim))):
@@ -128,41 +130,32 @@ def test_vit_forward_train_matches_jax():
 @pytest.mark.parametrize("field, value", [
     ("delta_impl", "materialized"), ("cp_order", 2), ("moe_experts", 2)])
 def test_vit_forward_train_refuses_unported_routes(field, value):
-    """MoE and the other adapter families still raise, naming the
-    ROADMAP; the materialized delta and CP order 2 (the dense deltas)
-    are ported: their training forward matches JAX's with its element
-    masks injected (``test_torch_port_orders.py`` holds every order)."""
+    """The routes on the XLA dense forms that JAX's fused default gives
+    way to: the materialized delta and CP order 2 (the dense deltas, their
+    element masks injected; ``test_torch_port_orders.py`` holds every
+    order) and a mixture of two experts (rank route, its (X, r) masks
+    injected; ``test_torch_port_moe.py`` holds the rest) match JAX's
+    training forward; MoE with element masks is refused, as in JAX."""
     from test_torch_port_dropout import jax_randomness as masked
 
     over = {field: value}
     if field == "moe_experts":
         over["weight_dropout_impl"] = "rank"
-    moe = field == "moe_experts"
-    cfg, cc, params, cara, batch, j_cfg, j_cc = _setup(
-        **({} if moe else over))
-    cc = dataclasses.replace(cc, **over)
+    cfg, cc, params, cara, batch, j_cfg, j_cc = _setup(**over)
     args = (convert.params_from_numpy(params, "cpu"),
             torch.from_numpy(batch["image"]), cfg)
-    if moe:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_vit.vit_forward(*args,
-                              cara_params=convert.params_from_numpy(cara,
-                                                                    "cpu"),
-                              cara_cfg=cc, train=True)
-    else:
-        rng = jax.random.PRNGKey(7)
-        ref = j_vit.vit_forward(params, jnp.asarray(batch["image"]), j_cfg,
-                                cara_params=cara, cara_cfg=j_cc, train=True,
-                                rng=rng, attn_impl="fused",
-                                dense_impl="fused")
-        rand = masked(rng, cfg, B, cc, "fused", "xla")
-        out = t_vit.vit_forward(
-            *args, cara_params=convert.params_from_numpy(cara, "cpu"),
-            cara_cfg=cc, train=True, randomness=rand)
-        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vit.check_trainable(cfg, CaraConfig(
-            moe_experts=2, weight_dropout_impl="rank"))
+    rng = jax.random.PRNGKey(7)
+    ref = j_vit.vit_forward(params, jnp.asarray(batch["image"]), j_cfg,
+                            cara_params=cara, cara_cfg=j_cc, train=True,
+                            rng=rng, attn_impl="fused",
+                            dense_impl="xla" if cc.moe else "fused")
+    rand = masked(rng, cfg, B, cc, "fused", "xla")
+    out = t_vit.vit_forward(
+        *args, cara_params=convert.params_from_numpy(cara, "cpu"),
+        cara_cfg=cc, train=True, randomness=rand)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    with pytest.raises(ValueError, match="weight_dropout_impl='rank'"):
+        t_vit.check_trainable(cfg, CaraConfig(moe_experts=2))
 
 
 def _flat(tree, prefix=""):
